@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``tpufw_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. builds the flash-attention CUDA kernels from ``tpufw_torch/ops/csrc``
+   (nvcc, sm_90a) into ``build-torch/`` and prints the card's name and
+   power limit;
+2. holds each kernel (fwd, dq, dk/dv) against its plain PyTorch version,
+   run in fp32 on the same bf16 inputs, at the train path's shapes
+   (B=2, T=S=2047, 32/8 heads of 128, causal) and on a small case with
+   segments, a t<s offset, window 300 and soft cap 50 together;
+3. times each kernel, its plain version and the library yardstick
+   (``F.scaled_dot_product_attention``, which the port never calls) with
+   CUDA events, beside the roofline bound computed from the shapes;
+4. trains 5 steps of Llama-3-8B widths cut to 4 layers (B=2, seq 2048,
+   chunked CE, remat, flash attention) through ``Trainer.run`` with the
+   launch counters zeroed just before, and checks that every loss is
+   finite and every kernel was launched; then checks the trained model's
+   flash logits against its plain-attention logits on a small input.
+
+It ends with a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
+last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
+a checkout of the repo, it prints no result and exits nonzero.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Tolerances: kernel vs its plain version in fp32 on the same bf16 inputs.
+# O, dQ, dK and dV are held row by row, a row being one query's or one
+# key's head vector: every |got - want| within ROW_TOL of the largest
+# |want| in its own row, so that a late row's small values cannot hide
+# behind an early row's large ones. bf16 rounds to 2^-8 of a value; P and
+# dS are rounded to bf16 for the tensor-core products and O and dQ are
+# stored in bf16, hence 2^-6. A row whose true value is zero (dQ of a
+# query that sees one key: dS = 0) holds only rounding noise, so a row's
+# scale is at least ROW_FLOOR of the tensor's largest |want|. The whole
+# tensor is also held to FRO_TOL in relative Frobenius norm. LSE is
+# absolute (its sums stay fp32).
+ROW_TOL = 2.0 ** -6
+ROW_FLOOR = 1e-3
+FRO_TOL = 1e-2
+LSE_TOL = 1e-3
+# Train slice: flash logits vs plain-attention logits of the same bf16
+# model, relative to the logits' max magnitude.
+LOGITS_TOL = 5e-2
+N_LAYERS = 4
+STEPS = 5
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timings."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def visible_pairs(t, s, offset, causal, window) -> int:
+    """(query, key) pairs the masks let through, per (batch, head)."""
+    total = 0
+    for i in range(t):
+        q_pos = offset + i
+        hi = min(q_pos, s - 1) if causal else s - 1
+        lo = max(q_pos - window + 1, 0) if window is not None else 0
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+def rel_err(torch, got, want) -> tuple[float, float]:
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def kernel_errors(torch, got, want) -> dict:
+    """Max abs error; ``row``: the largest |got - want| over the largest
+    |want| of its row (last axis), floored at ROW_FLOOR of the tensor's;
+    ``fro``: ||got - want|| / ||want||."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    row_max = want.abs().amax(-1, keepdim=True)
+    floor = ROW_FLOOR * row_max.max()
+    return {
+        "max_abs": diff.max().item(),
+        "ref_max": row_max.max().item(),
+        "row": (diff / torch.maximum(row_max, floor)).max().item(),
+        "fro": (torch.linalg.vector_norm(diff)
+                / torch.linalg.vector_norm(want)).item(),
+    }
+
+
+def check_kernels(torch, flash, case, q, k, v, do, masks):
+    """Each kernel vs its plain version (fp32) on the same inputs."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    o_ref, lse_ref = flash.flash_fwd_reference(qf, kf, vf, **masks)
+    o, lse = flash.flash_fwd(q, k, v, **masks)
+    delta = flash.flash_delta(o_ref, dof)
+    dq_ref = flash.flash_dq_reference(qf, kf, vf, dof, lse_ref, delta, **masks)
+    dq = flash.flash_dq(q, k, v, do, lse_ref, delta, **masks)
+    dk_ref, dv_ref = flash.flash_dkv_reference(
+        qf, kf, vf, dof, lse_ref, delta, **masks
+    )
+    dk, dv = flash.flash_dkv(q, k, v, do, lse_ref, delta, **masks)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref),
+                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{case}: {name} has non-finite values")
+        errs[name] = kernel_errors(torch, got, want)
+    lse_abs = (lse - lse_ref).abs().max().item()
+    emit({
+        "check": case, "errors": errs, "lse_max_abs": lse_abs,
+        "tol": {"row": ROW_TOL, "row_floor": ROW_FLOOR, "fro": FRO_TOL,
+                "lse_abs": LSE_TOL},
+    })
+    bad = [n for n, e in errs.items()
+           if e["row"] > ROW_TOL or e["fro"] > FRO_TOL]
+    if lse_abs > LSE_TOL:
+        bad.append("lse")
+    if bad:
+        raise AssertionError(f"{case}: {bad} past tolerance")
+    return {
+        "flash_fwd": max(errs["o"]["max_abs"], lse_abs),
+        "flash_dq": errs["dq"]["max_abs"],
+        "flash_dkv": max(errs["dk"]["max_abs"], errs["dv"]["max_abs"]),
+    }, lse_ref, delta
+
+
+def time_kernels(torch, flash, chip, q, k, v, do, lse, delta):
+    """kernel / plain / library milliseconds and the roofline bound."""
+    import torch.nn.functional as F
+
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    pairs = b * h * visible_pairs(t, s, s - t, True, None)
+    n_q, n_kv = b * t * h * d, b * s * kh * d
+    rows = b * h * t
+    # Bytes: each input read once, each output written once.
+    work = {
+        "flash_fwd": (4 * pairs * d, 2 * (n_q + 2 * n_kv) + 2 * n_q + 4 * rows),
+        "flash_dq": (6 * pairs * d, 2 * (2 * n_q + 2 * n_kv) + 8 * rows + 2 * n_q),
+        "flash_dkv": (8 * pairs * d,
+                      2 * (2 * n_q + 2 * n_kv) + 8 * rows + 2 * 4 * b * h * s * d),
+    }
+    calls = {
+        "flash_fwd": (lambda: flash.flash_fwd(q, k, v),
+                      lambda: flash.flash_fwd_reference(q, k, v)),
+        "flash_dq": (lambda: flash.flash_dq(q, k, v, do, lse, delta),
+                     lambda: flash.flash_dq_reference(q, k, v, do, lse, delta)),
+        "flash_dkv": (lambda: flash.flash_dkv(q, k, v, do, lse, delta),
+                      lambda: flash.flash_dkv_reference(q, k, v, do, lse, delta)),
+    }
+    qh, kh_, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    doh = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qh, kh_, vh, is_causal=True, enable_gqa=True
+        )
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return sdpa()
+
+    lib_fwd = cuda_ms(torch, sdpa_fwd, 20)
+    out = sdpa()
+    lib_bwd = cuda_ms(
+        torch,
+        lambda: torch.autograd.grad(out, (qh, kh_, vh), doh, retain_graph=True),
+        20,
+    )
+    res = {}
+    for name, (kernel, plain) in calls.items():
+        flops, nbytes = work[name]
+        t_ops = flops / chip.peak_bf16_flops * 1e3
+        t_bytes = nbytes / chip.hbm_bw_bytes_per_s * 1e3
+        res[name] = {
+            "ms": cuda_ms(torch, kernel, 20),
+            "plain_ms": cuda_ms(torch, plain, 5, warmup=1),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops,
+            "bytes": nbytes,
+            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+            "library_call": (
+                "F.scaled_dot_product_attention forward"
+                if name == "flash_fwd" else
+                "F.scaled_dot_product_attention backward (dq, dk, dv together)"
+            ),
+        }
+        emit({"timing": name} | res[name])
+    return res
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        return fail("torch is not installed")
+    if not torch.cuda.is_available():
+        return fail("no CUDA device")
+    if not os.path.isfile(
+        os.path.join(ROOT, "tpufw_torch", "ops", "csrc", "flash_fwd.cu")
+    ):
+        return fail("run from a checkout of the repo (tpufw_torch/ missing)")
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from tpufw_torch.configs import llama3_8b_train_slice
+    from tpufw_torch.models import Llama
+    from tpufw_torch.ops import _build, flash
+    from tpufw_torch.train import Trainer, synthetic_batches
+    from tpufw_torch.utils.hardware import detect_chip
+
+    # 1. Build and device line.
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    chip = detect_chip("cuda")
+    t0 = time.perf_counter()
+    _build.build()
+    build_s = time.perf_counter() - t0
+    ptxas = {
+        name: [ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln]
+        for name, log in _build.PTXAS_LOG.items()
+    }
+    emit({"device": kind, "nvidia_smi": smi, "chip_spec": chip.name,
+          "build_s": build_s, "ptxas": ptxas,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # 2. Kernels vs plain versions.
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        x = torch.randn(*shape, generator=gen, device=dev) * scale
+        return x.to(torch.bfloat16)
+
+    b, t, h, kh, d = 2, 2047, 32, 8, 128
+    q, do = randn(b, t, h, d), randn(b, t, h, d)
+    k, v = randn(b, t, kh, d), randn(b, t, kh, d)
+    errs, lse, delta = check_kernels(
+        torch, flash, "path_shapes_causal", q, k, v, do, {"causal": True}
+    )
+    ts, ss = 300, 700
+    kseg = torch.tensor([1] * 250 + [2] * 300 + [3] * 150, dtype=torch.int32,
+                        device=dev)[None]
+    check_kernels(
+        torch, flash, "segments_offset_window300_cap50",
+        randn(1, ts, 4, d, scale=4.0), randn(1, ss, 2, d, scale=4.0),
+        randn(1, ss, 2, d), randn(1, ts, 4, d),
+        {"causal": True, "window": 300, "soft_cap": 50.0,
+         "qseg": kseg[:, ss - ts:].contiguous(), "kseg": kseg},
+    )
+
+    # 3. Timings at the path's shapes.
+    timings = time_kernels(torch, flash, chip, q, k, v, do, lse, delta)
+    del q, k, v, do, lse, delta
+    torch.cuda.empty_cache()
+
+    # 4. The train slice, counters zeroed just before.
+    cfg, tcfg = llama3_8b_train_slice(N_LAYERS, total_steps=STEPS)
+    trainer = Trainer(cfg, tcfg, device=dev)
+    trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    emit({"train": "llama3_8b widths", "reduced": {"n_layers": [32, N_LAYERS]},
+          "params": cfg.n_params(), "batch_size": tcfg.batch_size,
+          "seq_len": tcfg.seq_len, "loss_chunk_size": tcfg.loss_chunk_size,
+          "remat": cfg.remat, "attention_backend": cfg.attention_backend})
+    flash.reset_launch_counts()
+    history = trainer.run(
+        synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size, seed=0),
+        model_flops_per_token=cfg.flops_per_token(tcfg.seq_len - 1),
+        on_metrics=lambda m: emit({"step": m.as_dict()}),
+    )
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = history[1:]
+    emit({
+        "train_summary": {
+            "steps": len(history),
+            "losses": [m.loss for m in history],
+            "tokens_per_sec_per_gpu_median": statistics.median(
+                m.tokens_per_sec_per_gpu for m in steady),
+            "mfu_median": statistics.median(m.mfu for m in steady),
+            "step_time_s_median": statistics.median(
+                m.step_time_s for m in steady),
+            "peak_mem_gb": peak_gb,
+            "launches": launches,
+        }
+    })
+    if len(history) != STEPS:
+        return fail(f"trained {len(history)} of {STEPS} steps")
+    if not all(math.isfinite(m.loss) for m in history):
+        return fail("non-finite loss")
+    if not all(n > 0 for n in launches.values()):
+        return fail(f"a kernel was not launched on the train path: {launches}")
+
+    # Output check on a small input: flash logits vs the plain path.
+    plain_model = Llama(dataclasses.replace(cfg, attention_backend="xla"),
+                        device=dev)
+    plain_model.load_state_dict(trainer.model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                           device=dev)
+    with torch.no_grad():
+        flash_logits = trainer.model(tokens)
+        plain_logits = plain_model(tokens)
+    if flash_logits.shape != (1, 256, cfg.vocab_size):
+        return fail(f"logits shape {tuple(flash_logits.shape)}")
+    if not torch.isfinite(flash_logits).all():
+        return fail("non-finite logits")
+    abs_e, rel_e = rel_err(torch, flash_logits, plain_logits)
+    emit({"check": "trained_model_flash_vs_plain_logits",
+          "max_abs_err": abs_e, "rel_err": rel_e, "tol": LOGITS_TOL})
+    if rel_e > LOGITS_TOL:
+        return fail("flash logits disagree with the plain path")
+
+    replaces = {
+        "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
+        "flash_dq": ("tpufw_torch/ops/csrc/flash_bwd.cu", "tpufw/ops/flash.py:544"),
+        "flash_dkv": ("tpufw_torch/ops/csrc/flash_bwd.cu", "tpufw/ops/flash.py:590"),
+    }
+    kernels = []
+    for name, (source, tpu) in replaces.items():
+        tm = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": tpu,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
+        })
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Where the time of one ``tpufw_torch`` train step goes, on one GPU.
+
+    python3 scripts/profile_torch_train.py [--layers 4] [--steps 3] [--trace PATH]
+
+Trains the chip_smoke.py train slice (``llama3_8b_train_slice`` in
+``tpufw_torch/configs/presets.py``, depth ``--layers``), runs two warm-up
+steps, then traces ``--steps`` steps with ``torch.profiler`` and prints one
+JSON line: wall time per step, device busy time per step (the union of the
+trace's kernel, memcpy and memset intervals), the device's idle share,
+kernel time by category (each flash kernel, GEMMs, PyTorch's elementwise
+and reduction kernels, the rest) and the top kernels. It fails when the
+busy time exceeds the wall time, which only a miscount can give.
+``--trace`` keeps the Chrome trace at PATH.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def category(name: str) -> str:
+    for k in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
+        if k in name:
+            return k
+    low = name.lower()
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
+        return "gemm"
+    if "at::native" in name:
+        return "torch_elementwise_reduce"
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpufw_torch.configs import llama3_8b_train_slice
+    from tpufw_torch.train import Trainer, synthetic_batches
+
+    if not torch.cuda.is_available():
+        print("profile_torch_train: no CUDA device", file=sys.stderr)
+        return 1
+    cfg, tcfg = llama3_8b_train_slice(args.layers, total_steps=2 + args.steps)
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    trainer.init_state(seed=0)
+    data = synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size,
+                             seed=0)
+    for _ in range(2):
+        float(trainer.train_step(next(data))["loss"])
+    batches = [next(data) for _ in range(args.steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            float(trainer.train_step(b)["loss"])
+        wall = (time.perf_counter() - t0) / args.steps
+    with tempfile.TemporaryDirectory() as tmp:
+        path = args.trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels: dict[str, float] = {}
+    spans = []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in (
+            "kernel", "gpu_memcpy", "gpu_memset"
+        ):
+            kernels[e["name"]] = kernels.get(e["name"], 0.0) + e["dur"]
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+    busy_us = 0.0
+    end = float("-inf")
+    for lo, hi in sorted(spans):
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    busy_ms = busy_us / 1e3 / args.steps
+    by_cat: dict[str, float] = {}
+    for name, us in kernels.items():
+        c = category(name)
+        by_cat[c] = by_cat.get(c, 0.0) + us / 1e3 / args.steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    idle_share = 1.0 - busy_ms / (wall * 1e3)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "layers": args.layers,
+        "steps_traced": args.steps,
+        "wall_ms_per_step": wall * 1e3,
+        "device_busy_ms_per_step": busy_ms,
+        "idle_share": idle_share,
+        "ms_per_step_by_category": by_cat,
+        "top_kernels_ms_per_step": [
+            {"name": n[:120], "ms": us / 1e3 / args.steps} for n, us in top
+        ],
+    }), flush=True)
+    if idle_share < 0.0:
+        print(f"profile_torch_train: device busy {busy_ms:.3f} ms exceeds "
+              f"wall {wall * 1e3:.3f} ms per step: the trace was miscounted",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

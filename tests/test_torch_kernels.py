@@ -1,0 +1,83 @@
+"""tpufw_torch flash CUDA kernels vs their plain PyTorch versions, on the
+card. This file imports no JAX so that it runs where the kernels do:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+
+(``tests/conftest.py`` imports JAX). Without a CUDA device it skips;
+``chip_smoke.py`` holds the same kernels at the train path's shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpufw_torch.ops import flash as tflash
+
+# Every |got - want| within ROW_TOL of the largest |want| in its row (one
+# query's or one key's head vector), and the whole tensor within FRO_TOL
+# in relative Frobenius norm: bf16 P and dS feed the tensor-core products
+# and O and dQ are stored in bf16. A row's scale is at least ROW_FLOOR of
+# the tensor's largest |want|: a row whose true value is zero (dQ of a
+# query that sees one key) holds only rounding noise. LSE sums stay fp32:
+# absolute LSE_TOL. The same tolerances as chip_smoke.py.
+ROW_TOL = 2.0 ** -6
+ROW_FLOOR = 1e-3
+FRO_TOL = 1e-2
+LSE_TOL = 1e-3
+
+# name: (t, s, h, kh, input scale, masks)
+CASES = {
+    "causal_gqa_unaligned": (700, 700, 4, 2, 1.0, dict(causal=True)),
+    "segments_offset_window300_cap50": (
+        300, 700, 4, 2, 4.0,
+        dict(causal=True, window=300, soft_cap=50.0, segments=True),
+    ),
+}
+
+
+def _assert_close(name, got, want):
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    row_max = want.abs().amax(-1, keepdim=True)
+    row = (diff / torch.maximum(row_max, ROW_FLOOR * row_max.max())).max().item()
+    fro = (diff.norm() / want.norm()).item()
+    assert row <= ROW_TOL and fro <= FRO_TOL, f"{name}: row {row}, fro {fro}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernels_match_plain_versions_on_gpu(case):
+    """On the card: each kernel against its plain version in fp32 on the
+    same bf16 inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    t, s, h, kh, scale, masks = CASES[case]
+    masks = dict(masks)
+    rng = np.random.default_rng(2)
+    dev = "cuda"
+
+    def bf16(*shape, scale=1.0):
+        x = rng.standard_normal(shape, np.float32) * scale
+        return torch.tensor(x, device=dev, dtype=torch.bfloat16)
+
+    q, k = bf16(1, t, h, 128, scale=scale), bf16(1, s, kh, 128, scale=scale)
+    v, do = bf16(1, s, kh, 128), bf16(1, t, h, 128)
+    if masks.pop("segments", False):
+        kseg = torch.tensor([1] * (s * 3 // 8) + [2] * (s * 3 // 8), device=dev)
+        kseg = torch.cat([kseg, torch.full((s - kseg.numel(),), 3, device=dev)])
+        kseg = kseg.to(torch.int32)[None]
+        masks |= dict(qseg=kseg[:, s - t:].contiguous(), kseg=kseg)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    o_ref, lse_ref = tflash.flash_fwd_reference(qf, kf, vf, **masks)
+    o, lse = tflash.flash_fwd(q, k, v, **masks)
+    _assert_close("o", o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    delta = tflash.flash_delta(o_ref, dof)
+    dq = tflash.flash_dq(q, k, v, do, lse_ref, delta, **masks)
+    _assert_close("dq", dq, tflash.flash_dq_reference(
+        qf, kf, vf, dof, lse_ref, delta, **masks))
+    dk, dv = tflash.flash_dkv(q, k, v, do, lse_ref, delta, **masks)
+    dk_ref, dv_ref = tflash.flash_dkv_reference(
+        qf, kf, vf, dof, lse_ref, delta, **masks)
+    _assert_close("dk", dk, dk_ref)
+    _assert_close("dv", dv, dv_ref)

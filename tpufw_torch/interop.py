@@ -1,0 +1,77 @@
+"""Weight bridge: a Flax ``decoder_lm`` param tree -> a ``Llama`` state dict.
+
+Layout facts of the JAX package it handles:
+
+- the scanned trunk keeps its blocks under ``layers`` with a leading [L]
+  axis on every leaf (``nn.scan``); an unscanned trunk uses ``layer_{i}``;
+- ``DenseGeneral`` kernels are [in, *out] (q is [D, H, hd], o is
+  [H, hd, D]); PyTorch weights are [out, in];
+- ``lm_head`` is [D, V] and absent when the embedding is tied;
+- RMSNorm weights are stored under ``scale``.
+
+The input is a nested dict of numpy arrays (``jax.device_get`` of the
+params, or of a gradient tree of the same shape). Nothing here imports
+JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_PROJ = {
+    "attn": ("q", "k", "v", "o"),
+    "mlp": ("gate", "up", "down"),
+}
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _kernel(kernel: np.ndarray, name: str) -> torch.Tensor:
+    """[in, *out] (or [*in, out] for o) -> [out, in]."""
+    k = np.asarray(kernel)
+    if name == "o":  # [H, hd, D]
+        k = k.reshape(-1, k.shape[-1])
+    else:  # [D, ...out]
+        k = k.reshape(k.shape[0], -1)
+    return _t(k.T)
+
+
+def _block(tree: dict, prefix: str, out: dict) -> None:
+    out[f"{prefix}.attn_norm.weight"] = _t(tree["attn_norm"]["scale"])
+    out[f"{prefix}.mlp_norm.weight"] = _t(tree["mlp_norm"]["scale"])
+    for mod, names in _PROJ.items():
+        for name in names:
+            leaf = tree[mod][name]
+            out[f"{prefix}.{mod}.{name}.weight"] = _kernel(leaf["kernel"], name)
+            if "bias" in leaf:
+                out[f"{prefix}.{mod}.{name}.bias"] = _t(
+                    np.asarray(leaf["bias"]).reshape(-1)
+                )
+
+
+def params_from_flax(tree: dict, cfg) -> dict[str, torch.Tensor]:
+    """State dict for ``tpufw_torch.models.Llama(cfg)`` from a Flax tree."""
+    out = {"embed": _t(tree["embed"]["embedding"])}
+    if "layers" in tree:
+        layers = tree["layers"]
+        for i in range(cfg.n_layers):
+            sliced = _slice(layers, i)
+            _block(sliced, f"layers.{i}", out)
+    else:
+        for i in range(cfg.n_layers):
+            _block(tree[f"layer_{i}"], f"layers.{i}", out)
+    out["final_norm.weight"] = _t(tree["final_norm"]["scale"])
+    if "lm_head" in tree:
+        out["lm_head"] = _t(np.asarray(tree["lm_head"]["kernel"]).T)
+    elif not cfg.tie_embeddings:
+        raise KeyError("untied config but the Flax tree has no lm_head")
+    return out
+
+
+def _slice(tree, i):
+    if isinstance(tree, dict):
+        return {k: _slice(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]

@@ -1,0 +1,6 @@
+from tpufw_torch.models.llama import (  # noqa: F401
+    LLAMA_CONFIGS,
+    Llama,
+    LlamaConfig,
+    RopeScaling,
+)

@@ -1,0 +1,101 @@
+"""Builds the CUDA kernels in ``csrc/`` at first use and loads them.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded with ``ctypes``. The
+build goes into ``build-torch/`` at the repo root (listed in
+``.gitignore``); a library's file name carries a hash of its sources and
+flags, so an edited kernel is rebuilt and an unchanged one is reused. All
+missing libraries are compiled in parallel, one ``nvcc`` per source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build-torch"
+SOURCES = ("flash_fwd", "flash_bwd")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_MASK_ARGS = [_I, _I, _I, _I, _I, _F]  # causal offset has_win win has_cap cap
+# C signatures: pointers, then B T S H KV, then the mask args, then the stream.
+_ARGTYPES = {
+    "tpufw_flash_fwd": [_P] * 7 + [_I] * 5 + _MASK_ARGS + [_P],
+    "tpufw_flash_dq": [_P] * 9 + [_I] * 5 + _MASK_ARGS + [_P],
+    "tpufw_flash_dkv": [_P] * 10 + [_I] * 5 + _MASK_ARGS + [_P],
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+# nvcc's report per source built in this process (-Xptxas -v: registers,
+# shared memory, spills).
+PTXAS_LOG: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError(
+            "nvcc not found: the flash kernels build only on a machine "
+            "with the CUDA toolkit"
+        )
+    return nvcc
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        if src.suffix == ".cuh" or src.stem == name:
+            h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build() -> dict[str, Path]:
+    """Compile every source whose library is missing, in parallel."""
+    paths = {name: _lib_path(name) for name in SOURCES}
+    todo = [n for n, p in paths.items() if not p.exists()]
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        PTXAS_LOG[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{out}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build()[name]))
+        for fn, argtypes in _ARGTYPES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,388 @@
+"""Flash attention on Hopper: hand-written CUDA kernels plus their plain
+PyTorch versions (port of ``tpufw.ops.flash``).
+
+The forward and backward follow the JAX package's decomposition:
+
+- ``flash_fwd``   — O and LSE = m + log l by online softmax over kv tiles
+                    (``csrc/flash_fwd.cu``, replaces ``_fwd_kernel``);
+- ``flash_dq``    — dQ from recomputed P (``csrc/flash_bwd.cu``, replaces
+                    ``_dq_kernel``);
+- ``flash_dkv``   — dK, dV per *query* head in fp32 (``csrc/flash_bwd.cu``,
+                    replaces ``_dkv_kernel``);
+- Δ = rowsum(dO∘O) and the GQA sum of dK/dV stay outside the kernels in
+  plain torch, as in ``tpufw/ops/flash.py:497-500`` and ``:617-618``.
+
+Each wrapper takes the plain version for tensors on the CPU and launches
+its kernel for CUDA tensors, or raises: there is no fallback. Each launch
+adds one to ``LAUNCHES[name]``.
+
+Layouts: q, O, dO, dQ are [B, T, H, D]; k, v are [B, S, K, D]; LSE and Δ
+are fp32 [B, H, T]; the dK/dV kernel output is fp32 [B, H, S, D]. Query i
+sits at absolute key position ``offset + i`` (default S - T). Masked
+logits are filled with the finite -1e30, so the kernels treat rows that
+are masked so far exactly as the TPU kernel does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from tpufw_torch.ops.attention import NEG_INF, tanh_soft_cap
+
+# Head dim the CUDA kernels are built for (Llama, Mistral, Qwen). Gemma's
+# 256 and MLA's 192 are later work (ROADMAP.md).
+KERNEL_HEAD_DIM = 128
+# Rows per tile in all three kernels (csrc/flash_common.cuh BQ/BKV).
+KERNEL_BLOCK = 64
+
+# Kernel launches since the last reset, by wrapper.
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the same functions over materialized [B, H, T, S] logits.
+# ---------------------------------------------------------------------------
+
+
+def _mask(t, s, offset, causal, window, qseg, kseg, device):
+    """[B or 1, 1, T, S] bool: which (query, key) pairs may attend."""
+    qpos = torch.arange(t, device=device)[:, None] + offset
+    kpos = torch.arange(s, device=device)[None, :]
+    mask = torch.ones(t, s, dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window is not None:
+        mask = mask & ((qpos - kpos) < window)
+    mask = mask[None, None]
+    if qseg is not None:
+        mask = mask & (qseg[:, None, :, None] == kseg[:, None, None, :])
+    return mask
+
+
+def _heads(x, rep=1):
+    """[B, N, K, D] -> fp32 [B, K*rep, N, D] (query-head layout)."""
+    x = x.float()
+    if rep > 1:
+        b, n, k, d = x.shape
+        x = x[:, :, :, None, :].expand(b, n, k, rep, d).reshape(
+            b, n, k * rep, d
+        )
+    return x.transpose(1, 2)
+
+
+def _capped_logits(q, k, soft_cap):
+    """cap(scale · qkᵀ), fp32 [B, H, T, S]."""
+    rep = q.shape[2] // k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = _heads(q) @ _heads(k, rep).transpose(-1, -2) * scale
+    return logits if soft_cap is None else tanh_soft_cap(logits, soft_cap)
+
+
+def flash_fwd_reference(
+    q, k, v, *, causal=True, offset=None, soft_cap=None, window=None,
+    qseg=None, kseg=None,
+):
+    """(O [B,T,H,D] in q.dtype, LSE fp32 [B,H,T]) — the forward kernel's
+    function, computed in fp32 over the whole key axis at once."""
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    offset = s - t if offset is None else offset
+    capped = _capped_logits(q, k, soft_cap)
+    mask = _mask(t, s, offset, causal, window, qseg, kseg, q.device)
+    logits = torch.where(mask, capped, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = (p / l) @ _heads(v, h // v.shape[2])
+    lse = (m + torch.log(l))[..., 0]
+    return o.transpose(1, 2).to(q.dtype), lse
+
+
+def _bwd_probs(q, k, v, do, lse, delta, causal, offset, soft_cap, window,
+               qseg, kseg):
+    """Recomputed P and dS, fp32 [B, H, T, S], as both bwd kernels form
+    them: P = exp(cap(scale·qkᵀ) − lse) under the mask, dS = P∘(dP − Δ)
+    times the soft cap's derivative."""
+    t, s = q.shape[1], k.shape[1]
+    offset = s - t if offset is None else offset
+    capped = _capped_logits(q, k, soft_cap)
+    mask = _mask(t, s, offset, causal, window, qseg, kseg, q.device)
+    p = torch.where(mask, torch.exp(capped - lse[..., None]), 0.0)
+    dp = _heads(do) @ _heads(v, q.shape[2] // v.shape[2]).transpose(-1, -2)
+    ds = p * (dp - delta[..., None])
+    if soft_cap is not None:
+        ds = ds * (1.0 - (capped / soft_cap) ** 2)
+    return p, ds
+
+
+def flash_dq_reference(
+    q, k, v, do, lse, delta, *, causal=True, offset=None, soft_cap=None,
+    window=None, qseg=None, kseg=None,
+):
+    """dQ [B,T,H,D] in q.dtype: scale · dS·K."""
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, offset, soft_cap,
+                       window, qseg, kseg)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq = ds @ _heads(k, q.shape[2] // k.shape[2]) * scale
+    return dq.transpose(1, 2).to(q.dtype)
+
+
+def flash_dkv_reference(
+    q, k, v, do, lse, delta, *, causal=True, offset=None, soft_cap=None,
+    window=None, qseg=None, kseg=None,
+):
+    """(dK, dV), fp32 [B, H, S, D] per QUERY head: dV = Pᵀ·dO and
+    dK = scale · dSᵀ·q. The GQA group sum happens in the caller."""
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, offset, soft_cap,
+                       window, qseg, kseg)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dv = p.transpose(-1, -2) @ _heads(do)
+    dk = ds.transpose(-1, -2) @ _heads(q) * scale
+    return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return ctypes.c_void_p(0 if x is None else x.data_ptr())
+
+
+def _check_cuda(names_tensors, dtype):
+    for name, x in names_tensors:
+        if x is None:
+            continue
+        if x.device.type != "cuda":
+            raise ValueError(f"flash kernel: {name} is on {x.device}")
+        if x.dtype != dtype:
+            raise TypeError(
+                f"flash kernel: {name} is {x.dtype}, expected {dtype}"
+            )
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(
+                f"flash kernel: {name} must be contiguous and 16-byte "
+                "aligned"
+            )
+
+
+def _check_qkv(q, k, v):
+    if q.shape[-1] != KERNEL_HEAD_DIM:
+        raise NotImplementedError(
+            f"flash CUDA kernels take head_dim {KERNEL_HEAD_DIM}, got "
+            f"{q.shape[-1]} (192 and 256 are on ROADMAP.md)"
+        )
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash CUDA kernels take bfloat16, got {q.dtype}")
+    _check_cuda([("q", q), ("k", k), ("v", v)], torch.bfloat16)
+
+
+def _seg_args(qseg, kseg):
+    if qseg is None:
+        return None, None
+    qseg, kseg = qseg.to(torch.int32), kseg.to(torch.int32)
+    _check_cuda([("segment_ids", qseg), ("kv_segment_ids", kseg)],
+                torch.int32)
+    return qseg, kseg
+
+
+def _mask_args(causal, offset, soft_cap, window):
+    return (
+        ctypes.c_int(int(causal)),
+        ctypes.c_int(int(offset)),
+        ctypes.c_int(window is not None),
+        ctypes.c_int(0 if window is None else int(window)),
+        ctypes.c_int(soft_cap is not None),
+        ctypes.c_float(0.0 if soft_cap is None else float(soft_cap)),
+    )
+
+
+def _launch(name, fn, *args):
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def flash_fwd(
+    q, k, v, *, causal=True, offset=None, soft_cap=None, window=None,
+    qseg=None, kseg=None,
+):
+    """(O, LSE): the forward kernel on CUDA tensors, its plain version on
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_fwd_reference(
+            q, k, v, causal=causal, offset=offset, soft_cap=soft_cap,
+            window=window, qseg=qseg, kseg=kseg,
+        )
+    from tpufw_torch.ops import _build
+
+    _check_qkv(q, k, v)
+    qseg, kseg = _seg_args(qseg, kseg)
+    b, t, h, _ = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    offset = s - t if offset is None else offset
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+    _launch(
+        "flash_fwd", _build.library("flash_fwd").tpufw_flash_fwd,
+        _ptr(q), _ptr(k), _ptr(v), _ptr(qseg), _ptr(kseg), _ptr(o),
+        _ptr(lse), b, t, s, h, kh,
+        *_mask_args(causal, offset, soft_cap, window),
+    )
+    return o, lse
+
+
+def _bwd_inputs(q, k, v, do, lse, delta, qseg, kseg):
+    _check_qkv(q, k, v)
+    _check_cuda([("dO", do)], torch.bfloat16)
+    _check_cuda([("lse", lse), ("delta", delta)], torch.float32)
+    return _seg_args(qseg, kseg)
+
+
+def flash_dq(
+    q, k, v, do, lse, delta, *, causal=True, offset=None, soft_cap=None,
+    window=None, qseg=None, kseg=None,
+):
+    """dQ [B,T,H,D]: the dq kernel on CUDA tensors, its plain version on
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_dq_reference(
+            q, k, v, do, lse, delta, causal=causal, offset=offset,
+            soft_cap=soft_cap, window=window, qseg=qseg, kseg=kseg,
+        )
+    from tpufw_torch.ops import _build
+
+    qseg, kseg = _bwd_inputs(q, k, v, do, lse, delta, qseg, kseg)
+    b, t, h, _ = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    offset = s - t if offset is None else offset
+    dq = torch.empty_like(q)
+    _launch(
+        "flash_dq", _build.library("flash_bwd").tpufw_flash_dq,
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+        _ptr(qseg), _ptr(kseg), _ptr(dq), b, t, s, h, kh,
+        *_mask_args(causal, offset, soft_cap, window),
+    )
+    return dq
+
+
+def flash_dkv(
+    q, k, v, do, lse, delta, *, causal=True, offset=None, soft_cap=None,
+    window=None, qseg=None, kseg=None,
+):
+    """(dK, dV) fp32 [B,H,S,D] per query head: the dk/dv kernel on CUDA
+    tensors, its plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_dkv_reference(
+            q, k, v, do, lse, delta, causal=causal, offset=offset,
+            soft_cap=soft_cap, window=window, qseg=qseg, kseg=kseg,
+        )
+    from tpufw_torch.ops import _build
+
+    qseg, kseg = _bwd_inputs(q, k, v, do, lse, delta, qseg, kseg)
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    offset = s - t if offset is None else offset
+    # The kernel stores whole 64-row tiles: pad S, slice after.
+    s_pad = -(-s // KERNEL_BLOCK) * KERNEL_BLOCK
+    dk = torch.empty(b, h, s_pad, d, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    _launch(
+        "flash_dkv", _build.library("flash_bwd").tpufw_flash_dkv,
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+        _ptr(qseg), _ptr(kseg), _ptr(dk), _ptr(dv), b, t, s, h, kh,
+        *_mask_args(causal, offset, soft_cap, window),
+    )
+    return dk[:, :, :s], dv[:, :, :s]
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Δ = rowsum(dO∘O), fp32 [B, H, T]."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def gqa_sum(dx_full: torch.Tensor, kv_heads: int, dtype) -> torch.Tensor:
+    """fp32 [B, H, S, D] per query head -> [B, S, K, D] in ``dtype``."""
+    b, h, s, d = dx_full.shape
+    dx = dx_full.reshape(b, kv_heads, h // kv_heads, s, d).sum(2)
+    return dx.transpose(1, 2).to(dtype)
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, qseg, kseg, causal, soft_cap, window):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        masks = dict(causal=causal, soft_cap=soft_cap, window=window,
+                     qseg=qseg, kseg=kseg)
+        o, lse = flash_fwd(q, k, v, **masks)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.masks = masks
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        g = g.contiguous()
+        delta = flash_delta(o, g)
+        dq = flash_dq(q, k, v, g, lse, delta, **ctx.masks)
+        dk_full, dv_full = flash_dkv(q, k, v, g, lse, delta, **ctx.masks)
+        kh = k.shape[2]
+        return (
+            dq,
+            gqa_sum(dk_full, kh, k.dtype),
+            gqa_sum(dv_full, kh, v.dtype),
+            None, None, None, None, None,
+        )
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    logits_soft_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Flash attention. q:[B,T,H,D], k/v:[B,S,K,D] -> [B,T,H,D].
+
+    ``segment_ids`` ([B, T] int) masks cross-segment attention for packed
+    batches; ``kv_segment_ids`` ([B, S]) defaults to ``segment_ids``
+    (which then requires T == S). ``logits_soft_cap`` applies
+    ``cap * tanh(logits / cap)`` to the scaled logits before the mask.
+    """
+    h, kh = q.shape[2], k.shape[2]
+    if h % kh:
+        raise ValueError(f"q heads {h} not divisible by kv heads {kh}")
+    qseg = segment_ids
+    kseg = kv_segment_ids if kv_segment_ids is not None else segment_ids
+    if (qseg is None) != (kseg is None):
+        raise ValueError(
+            "segment_ids and kv_segment_ids must be given together"
+        )
+    if qseg is not None and kv_segment_ids is None and (
+        q.shape[1] != k.shape[1]
+    ):
+        raise ValueError(
+            f"segment_ids without kv_segment_ids requires T==S "
+            f"(self-attention); got T={q.shape[1]}, S={k.shape[1]}"
+        )
+    if qseg is not None:
+        qseg, kseg = qseg.contiguous(), kseg.contiguous()
+    cap = None if logits_soft_cap is None else float(logits_soft_cap)
+    win = None if sliding_window is None else int(sliding_window)
+    return _Flash.apply(q, k, v, qseg, kseg, causal, cap, win)

@@ -1,0 +1,124 @@
+"""Chunked-vocab cross-entropy: LM loss without the [B, T, V] fp32 tensor
+(port of ``tpufw.ops.loss``).
+
+The sequence axis is cut into chunks; each chunk's logits are computed
+from the hidden states, reduced to per-token CE and dropped, and the
+backward pass recomputes them (``torch.utils.checkpoint``). Peak logits
+memory is B * chunk * V fp32 instead of B * T * V.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from tpufw_torch.ops.attention import tanh_soft_cap
+
+
+def token_cross_entropy(
+    logits: torch.Tensor, targets: torch.Tensor, z_loss_weight: float = 1e-4
+) -> torch.Tensor:
+    """Per-token CE with z-loss, in fp32. [..., V] logits, [...] targets ->
+    [...] ce."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    ce = logz - label
+    if z_loss_weight:
+        ce = ce + z_loss_weight * logz.square()
+    return ce
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """[N, D] x [D, V] in a low-precision dtype with fp32 output, as
+    ``preferred_element_type=float32`` gives in the JAX package: the
+    products see the rounded inputs, the sums stay fp32."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        if a.is_cuda:
+            return torch.mm(a, w, out_dtype=torch.float32)
+        return a.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ w.t(), a.t() @ g
+
+
+def head_logits(
+    h: torch.Tensor, kernel: torch.Tensor, compute_dtype: torch.dtype
+) -> torch.Tensor:
+    """fp32 logits [..., V] = h [..., D] @ kernel [D, V], with both inputs
+    cast to ``compute_dtype`` first."""
+    a = h.to(compute_dtype).reshape(-1, h.shape[-1])
+    w = kernel.to(compute_dtype)
+    if compute_dtype == torch.float32:
+        out = a @ w
+    else:
+        out = _MatmulF32Out.apply(a, w)
+    return out.reshape(*h.shape[:-1], w.shape[-1])
+
+
+def _chunk_ce_sum(h, kernel, targets, mask, z_loss_weight, compute_dtype,
+                  logits_soft_cap):
+    """Masked CE sum of one [B, C, D] chunk (z-loss included)."""
+    logits = head_logits(h, kernel, compute_dtype)
+    if logits_soft_cap is not None:
+        logits = tanh_soft_cap(logits, logits_soft_cap)
+    ce = token_cross_entropy(logits, targets, z_loss_weight)
+    return (ce * mask).sum()
+
+
+def _chunk_seq(chunk_size: int, hidden, targets, mask):
+    """Pad T up to a chunk multiple and cut each array into [B, chunk, ...]
+    pieces along the sequence axis (the padding of
+    ``tpufw.ops.loss._chunk_seq``: zeros, which the mask drops)."""
+    t = hidden.shape[1]
+    pad = -(-t // chunk_size) * chunk_size - t
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    return (
+        hidden.split(chunk_size, dim=1),
+        targets.split(chunk_size, dim=1),
+        mask.split(chunk_size, dim=1),
+    )
+
+
+def chunked_cross_entropy(
+    hidden: torch.Tensor,
+    kernel: torch.Tensor,
+    targets: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    z_loss_weight: float = 1e-4,
+    chunk_size: int = 256,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    logits_soft_cap: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token CE from pre-head hidden states, chunked over the sequence axis.
+
+    hidden [B, T, D] (post final-norm), kernel [D, V] (the LM head, or the
+    transposed embedding when tied), targets [B, T] ints, mask optional
+    [B, T] float weights. Returns (mean loss over unmasked tokens, number
+    of unmasked tokens).
+    """
+    b, t, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones(b, t, dtype=torch.float32, device=hidden.device)
+    hs, ts, ms = _chunk_seq(chunk_size, hidden, targets, mask.float())
+    ce_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    n = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for h_c, t_c, m_c in zip(hs, ts, ms):
+        ce_sum = ce_sum + checkpoint(
+            _chunk_ce_sum, h_c, kernel, t_c, m_c, z_loss_weight,
+            compute_dtype, logits_soft_cap, use_reentrant=False,
+        )
+        n = n + m_c.sum()
+    return ce_sum / torch.clamp(n, min=1.0), n

@@ -1,0 +1,78 @@
+"""Training metrics: tokens/s/GPU and MFU (port of ``tpufw.train.metrics``).
+
+MFU is *model* FLOPs utilization: analytic model FLOPs per token (from the
+model config) over the accelerator's peak from ``utils.hardware`` — not
+the FLOPs actually executed, which would reward recomputation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+from tpufw_torch.utils.hardware import ChipSpec
+
+
+@dataclasses.dataclass
+class StepMetrics:
+    step: int
+    loss: float
+    step_time_s: float
+    tokens_per_sec_per_gpu: float
+    mfu: float
+    # Host time spent waiting on the data iterator before this step.
+    data_wait_s: float = 0.0
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+class Meter:
+    """Times one step at a time and converts to tokens/s/GPU and MFU
+    (one GPU: the multi-GPU port will divide by the device count)."""
+
+    def __init__(
+        self,
+        tokens_per_step: int,
+        flops_per_token: float,
+        chip: ChipSpec,
+    ):
+        self.tokens_per_step = tokens_per_step
+        self.flops_per_token = flops_per_token
+        self.chip = chip
+        self._t0: float | None = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, step: int, loss, data_wait_s: float = 0.0) -> StepMetrics:
+        """``loss`` may be a device tensor: ``float(loss)`` copies it to
+        the host, which waits for the step's work on the CUDA stream, and
+        only then is the clock read."""
+        if self._t0 is None:
+            raise RuntimeError("Meter.stop() without start()")
+        loss = float(loss)
+        dt = time.perf_counter() - self._t0
+        self._t0 = None
+        tps = self.tokens_per_step / dt
+        mfu = tps * self.flops_per_token / self.chip.peak_bf16_flops
+        return StepMetrics(
+            step=step,
+            loss=loss,
+            step_time_s=dt,
+            tokens_per_sec_per_gpu=tps,
+            mfu=mfu,
+            data_wait_s=data_wait_s,
+        )
+
+
+def timed_batches(data):
+    """Wrap an iterator, yielding (data_wait_s, batch)."""
+    it = iter(data)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        yield time.perf_counter() - t0, batch
