@@ -6,15 +6,23 @@
 Phases, each fatal on failure:
 
 1. builds the flash-attention CUDA kernels from ``tpufw_torch/ops/csrc``
-   (nvcc, sm_90a) into ``build-torch/`` and prints the card's name and
-   power limit;
+   (nvcc, sm_90a) into ``build-torch/``, prints the card's name and power
+   limit, and reads the build: each kernel's registers and spills from
+   ``-Xptxas -v`` and each library's ``HGMMA`` (wgmma) and ``UTMALDG``
+   (TMA load) instructions from ``cuobjdump -sass``. The forward and dK/dV
+   kernels must use both and spill nothing;
 2. holds each kernel (fwd, dq, dk/dv) against its plain PyTorch version,
    run in fp32 on the same bf16 inputs, at the train path's shapes
-   (B=2, T=S=2047, 32/8 heads of 128, causal) and on a small case with
-   segments, a t<s offset, window 300 and soft cap 50 together;
+   (B=2, T=S=2047, 32/8 heads of 128, causal), on a small case with
+   segments, a t<s offset, window 300 and soft cap 50 together, and on
+   tile-edge cases: T=S=129 and 64, two batches of 700 (a batch's padding
+   rows must not see the next batch), t=100 under s=300, windows 128 and
+   129, segment boundaries inside tiles;
 3. times each kernel, its plain version and the library yardstick
    (``F.scaled_dot_product_attention``, which the port never calls) with
-   CUDA events, beside the roofline bound computed from the shapes;
+   CUDA events, beside the roofline bound computed from the shapes, and
+   the whole backward (delta, dq, dk/dv and the two GQA sums) against
+   SDPA's one backward call;
 4. trains 5 steps of Llama-3-8B widths cut to 4 layers (B=2, seq 2048,
    chunked CE, remat, flash attention) through ``Trainer.run`` with the
    launch counters zeroed just before, and checks that every loss is
@@ -130,6 +138,56 @@ def kernel_errors(torch, got, want) -> dict:
     }
 
 
+# Kernels redesigned for Hopper: each must issue wgmma and TMA loads and
+# spill nothing. name: (library, kernel symbol substring).
+HOPPER_KERNELS = {"flash_fwd": ("flash_fwd", "flash_fwd_kernel"),
+                  "flash_dkv": ("flash_dkv", "flash_dkv_kernel")}
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Per kernel symbol in an ``-Xptxas -v`` log: registers and spill
+    bytes (stores + loads)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for", 1)[1].strip()
+            out.setdefault(name, {})
+        elif name and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[name]["spill_bytes"] = nums[1] + nums[2]
+        elif "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out.setdefault(name, {})
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used", 1)[1].split()[0])
+    return out
+
+
+def build_report(build_mod, paths) -> dict:
+    """SASS instruction counts per library and registers/spills per
+    kernel; raises when a redesigned kernel lacks wgmma or TMA or spills."""
+    cuobjdump = os.path.join(os.path.dirname(build_mod._nvcc()), "cuobjdump")
+    report = {}
+    for name, path in paths.items():
+        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        report[name] = {
+            "sass": {op: sum(ln.count(op) for ln in sass.splitlines())
+                     for op in SASS_OPS},
+            "kernels": ptxas_kernels(build_mod.PTXAS_LOG.get(name, "")),
+        }
+    for kname, (lib, symbol) in HOPPER_KERNELS.items():
+        sass = report[lib]["sass"]
+        if not sass["HGMMA"] or not sass["UTMALDG"]:
+            raise AssertionError(f"{kname}: no wgmma or no TMA load in SASS {sass}")
+        spills = [v.get("spill_bytes") for k, v in report[lib]["kernels"].items()
+                  if symbol in k]
+        if not spills or any(s is None or s > 0 for s in spills):
+            raise AssertionError(f"{kname}: spills {spills} (ptxas)")
+    return report
+
+
 def check_kernels(torch, flash, case, q, k, v, do, masks):
     """Each kernel vs its plain version (fp32) on the same inputs."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
@@ -216,11 +274,14 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta):
         flops, nbytes = work[name]
         t_ops = flops / chip.peak_bf16_flops * 1e3
         t_bytes = nbytes / chip.hbm_bw_bytes_per_s * 1e3
+        ms = cuda_ms(torch, kernel, 20)
         res[name] = {
-            "ms": cuda_ms(torch, kernel, 20),
+            "ms": ms,
             "plain_ms": cuda_ms(torch, plain, 5, warmup=1),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": flops / ms / 1e9,
+            "bound_share": max(t_ops, t_bytes) / ms,
             "flops": flops,
             "bytes": nbytes,
             "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
@@ -231,6 +292,24 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta):
             ),
         }
         emit({"timing": name} | res[name])
+
+    # The whole backward as _Flash runs it, against SDPA's one backward.
+    o, _ = flash.flash_fwd(q, k, v)
+
+    def backward():
+        dlt = flash.flash_delta(o, do)
+        flash.flash_dq(q, k, v, do, lse, dlt)
+        dk_full, dv_full = flash.flash_dkv(q, k, v, do, lse, dlt)
+        flash.gqa_sum(dk_full, kh, k.dtype)
+        flash.gqa_sum(dv_full, kh, v.dtype)
+
+    bwd_ms = cuda_ms(torch, backward, 20)
+    emit({"timing": "flash_backward_total",
+          "parts": "flash_delta + flash_dq + flash_dkv + 2 gqa_sum",
+          "ms": bwd_ms, "library_ms": lib_bwd,
+          "library_call": "F.scaled_dot_product_attention backward",
+          "flops": work["flash_dq"][0] + work["flash_dkv"][0],
+          "tflops": (work["flash_dq"][0] + work["flash_dkv"][0]) / bwd_ms / 1e9})
     return res
 
 
@@ -260,7 +339,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     chip = detect_chip("cuda")
     t0 = time.perf_counter()
-    _build.build()
+    paths = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
@@ -270,6 +349,11 @@ def main() -> int:
     emit({"device": kind, "nvidia_smi": smi, "chip_spec": chip.name,
           "build_s": build_s, "ptxas": ptxas,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    try:
+        report = build_report(_build, paths)
+    except AssertionError as e:
+        return fail(str(e))
+    emit({"build_report": report})
 
     # 2. Kernels vs plain versions.
     dev = "cuda"
@@ -285,16 +369,34 @@ def main() -> int:
     errs, lse, delta = check_kernels(
         torch, flash, "path_shapes_causal", q, k, v, do, {"causal": True}
     )
-    ts, ss = 300, 700
-    kseg = torch.tensor([1] * 250 + [2] * 300 + [3] * 150, dtype=torch.int32,
-                        device=dev)[None]
-    check_kernels(
-        torch, flash, "segments_offset_window300_cap50",
-        randn(1, ts, 4, d, scale=4.0), randn(1, ss, 2, d, scale=4.0),
-        randn(1, ss, 2, d), randn(1, ts, 4, d),
-        {"causal": True, "window": 300, "soft_cap": 50.0,
-         "qseg": kseg[:, ss - ts:].contiguous(), "kseg": kseg},
-    )
+    # Small cases, 4 query / 2 kv heads: name, (b, t, s, input scale,
+    # masks, segment lengths over the s keys or None).
+    small = {
+        "segments_offset_window300_cap50": (
+            1, 300, 700, 4.0, {"causal": True, "window": 300, "soft_cap": 50.0},
+            (250, 300, 150)),
+        "t129_s129": (1, 129, 129, 1.0, {"causal": True}, None),
+        "t64_s64": (1, 64, 64, 1.0, {"causal": True}, None),
+        "b2_t700_s700": (2, 700, 700, 1.0, {"causal": True}, None),
+        "b2_t700_s700_noncausal": (2, 700, 700, 1.0, {"causal": False}, None),
+        "t100_s300_offset": (1, 100, 300, 1.0, {"causal": True}, None),
+        "window128": (1, 600, 600, 1.0, {"causal": True, "window": 128}, None),
+        "window129": (1, 600, 600, 1.0, {"causal": True, "window": 129}, None),
+        "segments_mid_tile": (2, 400, 400, 1.0, {"causal": True},
+                              (50, 140, 143, 67)),
+    }
+    for case, (bs, ts, ss, scale, masks, seg_lens) in small.items():
+        masks = dict(masks)
+        if seg_lens is not None:
+            kseg = torch.cat([torch.full((n,), i + 1, dtype=torch.int32)
+                              for i, n in enumerate(seg_lens)])
+            kseg = kseg.to(dev)[None].expand(bs, ss).contiguous()
+            masks |= {"qseg": kseg[:, ss - ts:].contiguous(), "kseg": kseg}
+        check_kernels(
+            torch, flash, case,
+            randn(bs, ts, 4, d, scale=scale), randn(bs, ss, 2, d, scale=scale),
+            randn(bs, ss, 2, d), randn(bs, ts, 4, d), masks,
+        )
 
     # 3. Timings at the path's shapes.
     timings = time_kernels(torch, flash, chip, q, k, v, do, lse, delta)
@@ -363,7 +465,7 @@ def main() -> int:
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_bwd.cu", "tpufw/ops/flash.py:544"),
-        "flash_dkv": ("tpufw_torch/ops/csrc/flash_bwd.cu", "tpufw/ops/flash.py:590"),
+        "flash_dkv": ("tpufw_torch/ops/csrc/flash_dkv.cu", "tpufw/ops/flash.py:590"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():

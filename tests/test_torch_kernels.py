@@ -25,13 +25,26 @@ ROW_FLOOR = 1e-3
 FRO_TOL = 1e-2
 LSE_TOL = 1e-3
 
-# name: (t, s, h, kh, input scale, masks)
+# name: (b, t, s, h, kh, input scale, masks). Besides the two first cases,
+# the tile edges of the forward's 128 x 128 and dK/dV's 64 x 128 tiles: one
+# tile and one row past it, under one tile, two batches whose padding rows
+# must not reach the next batch's rows (the TMA maps are per batch), a
+# t < s offset, windows at and past a tile, segment boundaries mid-tile.
 CASES = {
-    "causal_gqa_unaligned": (700, 700, 4, 2, 1.0, dict(causal=True)),
+    "causal_gqa_unaligned": (1, 700, 700, 4, 2, 1.0, dict(causal=True)),
     "segments_offset_window300_cap50": (
-        300, 700, 4, 2, 4.0,
+        1, 300, 700, 4, 2, 4.0,
         dict(causal=True, window=300, soft_cap=50.0, segments=True),
     ),
+    "t129_s129": (1, 129, 129, 4, 2, 1.0, dict(causal=True)),
+    "t64_s64": (1, 64, 64, 4, 2, 1.0, dict(causal=True)),
+    "b2_t700_s700": (2, 700, 700, 4, 2, 1.0, dict(causal=True)),
+    "b2_t700_s700_noncausal": (2, 700, 700, 4, 2, 1.0, dict(causal=False)),
+    "t100_s300_offset": (1, 100, 300, 4, 2, 1.0, dict(causal=True)),
+    "window128": (1, 600, 600, 4, 2, 1.0, dict(causal=True, window=128)),
+    "window129": (1, 600, 600, 4, 2, 1.0, dict(causal=True, window=129)),
+    "segments_mid_tile": (2, 400, 400, 4, 2, 1.0,
+                          dict(causal=True, segments=True)),
 }
 
 
@@ -51,7 +64,7 @@ def test_kernels_match_plain_versions_on_gpu(case):
     same bf16 inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
-    t, s, h, kh, scale, masks = CASES[case]
+    b, t, s, h, kh, scale, masks = CASES[case]
     masks = dict(masks)
     rng = np.random.default_rng(2)
     dev = "cuda"
@@ -60,12 +73,14 @@ def test_kernels_match_plain_versions_on_gpu(case):
         x = rng.standard_normal(shape, np.float32) * scale
         return torch.tensor(x, device=dev, dtype=torch.bfloat16)
 
-    q, k = bf16(1, t, h, 128, scale=scale), bf16(1, s, kh, 128, scale=scale)
-    v, do = bf16(1, s, kh, 128), bf16(1, t, h, 128)
+    q, k = bf16(b, t, h, 128, scale=scale), bf16(b, s, kh, 128, scale=scale)
+    v, do = bf16(b, s, kh, 128), bf16(b, t, h, 128)
     if masks.pop("segments", False):
+        # Three segments; for s = 400 the boundaries (150, 300) fall inside
+        # 64- and 128-row tiles.
         kseg = torch.tensor([1] * (s * 3 // 8) + [2] * (s * 3 // 8), device=dev)
         kseg = torch.cat([kseg, torch.full((s - kseg.numel(),), 3, device=dev)])
-        kseg = kseg.to(torch.int32)[None]
+        kseg = kseg.to(torch.int32)[None].expand(b, s).contiguous()
         masks |= dict(qseg=kseg[:, s - t:].contiguous(), kseg=kseg)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     o_ref, lse_ref = tflash.flash_fwd_reference(qf, kf, vf, **masks)

@@ -6,6 +6,8 @@ build goes into ``build-torch/`` at the repo root (listed in
 ``.gitignore``); a library's file name carries a hash of its sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused. All
 missing libraries are compiled in parallel, one ``nvcc`` per source.
+``nvcc``'s output (the ``-Xptxas -v`` report) is kept beside each library
+as ``lib<name>-<hash>.log`` and read back when the library is reused.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build-torch"
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_dkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,8 +39,8 @@ _ARGTYPES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# nvcc's report per source built in this process (-Xptxas -v: registers,
-# shared memory, spills).
+# nvcc's report per source (-Xptxas -v: registers, shared memory, spills),
+# filled by build() whether it compiled the library or reused it.
 PTXAS_LOG: dict[str, str] = {}
 
 
@@ -61,9 +63,13 @@ def _lib_path(name: str) -> Path:
 
 
 def build() -> dict[str, Path]:
-    """Compile every source whose library is missing, in parallel."""
+    """Compile every source whose library (or its log) is missing, in
+    parallel, and fill ``PTXAS_LOG`` for every source."""
     paths = {name: _lib_path(name) for name in SOURCES}
-    todo = [n for n, p in paths.items() if not p.exists()]
+    logs = {name: p.with_suffix(".log") for name, p in paths.items()}
+    todo = [n for n, p in paths.items() if not (p.exists() and logs[n].exists())]
+    for name in paths.keys() - set(todo):
+        PTXAS_LOG[name] = logs[name].read_text()
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -82,6 +88,9 @@ def build() -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{out}")
         else:
+            log_tmp = logs[name].with_suffix(f".{os.getpid()}.logtmp")
+            log_tmp.write_text(out)
+            os.replace(log_tmp, logs[name])
             os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

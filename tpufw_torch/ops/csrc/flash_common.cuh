@@ -1,9 +1,12 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash-attention kernels: the mask semantics
+// (Masks, make_masks, visible, capped_logit), used by all three, and the
+// wmma tiles of the dQ kernel (flash_bwd.cu).
 //
-// Tiles: 64 query rows x 64 key rows, head dim 128, four warps per block,
-// each warp owning 16 rows of the block's tile. Products run on the tensor
-// cores through wmma bf16 16x16x16 fragments with fp32 accumulation; the
-// softmax statistics and masks are fp32 scalar code over shared memory.
+// dQ tiles: 64 query rows x 64 key rows, head dim 128, four warps per
+// block, each warp owning 16 rows of the block's tile. Products run on the
+// tensor cores through wmma bf16 16x16x16 fragments with fp32 accumulation;
+// the softmax statistics and masks are fp32 scalar code over shared memory.
+// The forward and dK/dV kernels use the Hopper pieces of hopper.cuh instead.
 //
 // Masks follow tpufw/ops/flash.py exactly: query row i sits at absolute key
 // position offset + i; a key is visible when it is a real key (k < S), not

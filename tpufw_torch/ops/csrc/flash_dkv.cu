@@ -1,0 +1,325 @@
+// Flash-attention dK/dV for Hopper (sm_90a), bf16 in, fp32 accumulation.
+//
+// Replaces the Pallas TPU kernel `_dkv_kernel` of tpufw/ops/flash.py
+// (launched by `_flash_bwd_impl`). Per (kv tile, QUERY head, batch) it
+// loops over the query tiles that can see the kv tile, recomputes
+// P^T = exp(cap(scale*k q^T) - lse) from the forward's LSE, and forms
+// dS^T = P^T*(dP^T - delta) with dP^T = v dO^T, times 1 - (capped/cap)^2
+// under a soft cap; dV += P^T dO and dK += dS^T q. delta = rowsum(dO*O)
+// and the GQA sum over a kv head's query heads stay in torch, as in the
+// JAX package, so no two blocks write the same output and no atomics are
+// needed. The output is fp32 [B, H, S_pad, D] per query head, scaled by
+// `scale`, with S_pad a multiple of the 128-key tile.
+//
+// What bounds it on an H100: four products per (query, key) pair against
+// a few bytes per row, so tensor-core operations. The design:
+// - 384 threads: warpgroups 0 and 1 each own 64 of the block's 128 keys,
+//   one warp of warpgroup 2 is the producer; setmaxnreg hands the
+//   producer's registers to the consumers, which keep dK and dV (64 fp32
+//   each) in registers for the whole loop;
+// - TMA loads K and V once and streams 64-row Q and dO tiles through a
+//   2-stage ring of full/empty mbarriers; the producer's lanes stage each
+//   tile's LSE (pre-scaled by log2(e)), delta and query segment ids;
+// - S^T = K Q^T and dP^T = V dO^T run on wgmma (m64n64k16) from
+//   128B-swizzled shared memory; P^T and dS^T are formed in registers on
+//   the accumulator layout, with the mask only on tiles that some pair
+//   fails, and go as bf16 register A operands into dV += P^T dO and
+//   dK += dS^T Q (m64n128k16, dO and Q read MN-major).
+// Loop bounds: from the causal first query tile to the window's last, in
+// C's truncating division as jax.lax.div.
+
+#include "flash_common.cuh"
+#include "hopper.cuh"
+
+namespace tpufw {
+namespace dkv {
+
+using namespace hopper;
+
+constexpr int BKV = 128;      // keys per block
+constexpr int BQ = 64;        // query rows per streamed tile
+constexpr int STAGES = 2;     // Q/dO ring depth
+constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+constexpr int KV_HALF = BKV * 128;  // 64 columns of a 128-row tile
+constexpr int Q_HALF = BQ * 128;    // 64 columns of a 64-row tile
+constexpr int K_OFF = 0;
+constexpr int V_OFF = K_OFF + 2 * KV_HALF;
+constexpr int STAGE_OFF = V_OFF + 2 * KV_HALF;  // [STAGES] x (Q, dO)
+constexpr int STAGE_BYTES = 4 * Q_HALF;
+constexpr int ROWS_OFF = STAGE_OFF + STAGES * STAGE_BYTES;  // lse2, delta, qseg
+constexpr int BAR_OFF = ROWS_OFF + 3 * STAGES * BQ * 4;
+constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Query tiles [i0, i_hi) that can see kv tile jt. Mirrors
+// flash.py:dkv_q_tiles, which tests/test_torch_flash_tiles.py checks on the
+// CPU: an edit here must be made there too.
+__device__ __forceinline__ void q_tiles(int jt, const Masks& m, int* i0, int* i_hi) {
+  const int n_q = (m.T + BQ - 1) / BQ;
+  const int k0 = jt * BKV;
+  *i0 = m.causal ? max((k0 - m.offset) / BQ, 0) : 0;
+  *i_hi = n_q;
+  if (m.has_window) {
+    const int last_q = k0 + BKV - 1 + m.window - 1 - m.offset;
+    *i_hi = max(min(last_q / BQ + 1, n_q), *i0);
+  }
+}
+
+// S^T and dP^T of one query tile -> P^T and dS^T, in place on the
+// accumulator layout. Column c is query row q0 + c; tl, td and tq are the
+// tile's LSE * log2(e), delta and query segment ids. P^T = exp(capped -
+// lse) (0 where MASKED and a pair fails a mask), dS^T = P^T (dP^T - delta)
+// times 1 - (capped/cap)^2 under a soft cap. Templated so that neither the
+// soft cap nor the mask costs a branch per element.
+template <bool CAP, bool MASKED>
+__device__ __forceinline__ void tile_grads(float (&st)[32], float (&dpt)[32],
+                                           const Masks& m, int q0,
+                                           const int (&kpos)[2], const int (&ks)[2],
+                                           const float* tl, const float* td,
+                                           const int* tq, int t4) {
+  const float inv_cap = CAP ? 1.0f / m.cap : 0.0f;
+  if (CAP) {
+    // The capped logits first, in a pass of their own: tanhf needs many
+    // registers, and next to the rest of the pass it made ptxas spill.
+    const float scale_cap = m.scale * inv_cap;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = m.cap * tanhf(st[i] * scale_cap);
+  }
+  const float to_log2 = CAP ? LOG2E : m.scale * LOG2E;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = (i / 4) * 8 + 2 * t4 + (i & 1), rh = (i >> 1) & 1;
+    float p = fast_exp2(st[i] * to_log2 - tl[col]);
+    if (MASKED) {
+      const int t = q0 + col;
+      const bool ok = t < m.T && visible(t, kpos[rh], m.qseg ? tq[col] : 0, ks[rh], m);
+      p = ok ? p : 0.0f;
+    }
+    float ds = p * (dpt[i] - td[col]);
+    if (CAP) {
+      const float tc = st[i] * inv_cap;  // capped / cap
+      ds *= 1.0f - tc * tc;
+    }
+    st[i] = p;
+    dpt[i] = ds;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap domap,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dk, float* __restrict__ dv, int H, int KV,
+                 Masks m) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + STAGES;
+  float* slse = reinterpret_cast<float*>(smem + ROWS_OFF);  // lse * log2(e)
+  float* sdelta = slse + STAGES * BQ;
+  int* sqseg = reinterpret_cast<int*>(sdelta + STAGES * BQ);
+
+  const int jt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int k0 = jt * BKV;
+  const int wg = threadIdx.x / 128;
+  int i0, i_hi;
+  q_tiles(jt, m, &i0, &i_hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);  // every producer lane arrives
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: one warp issues the copies; lanes stage the per-row inputs.
+    regs_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x / 32 != 8) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_kv, 4 * KV_HALF);
+      tma_load_4d(smem + K_OFF, &kmap, bar_kv, 0, kvh, k0, b);
+      tma_load_4d(smem + K_OFF + KV_HALF, &kmap, bar_kv, HALF_COLS, kvh, k0, b);
+      tma_load_4d(smem + V_OFF, &vmap, bar_kv, 0, kvh, k0, b);
+      tma_load_4d(smem + V_OFF + KV_HALF, &vmap, bar_kv, HALF_COLS, kvh, k0, b);
+    }
+    for (int it = i0; it < i_hi; ++it) {
+      const int n = it - i0, s = n % STAGES;
+      const int q0 = it * BQ;
+      mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+      for (int i = lane; i < BQ; i += 32) {
+        const int t = q0 + i;
+        const bool ok = t < m.T;
+        const long idx = ((long)b * H + h) * m.T + t;
+        slse[s * BQ + i] = ok ? lse[idx] * LOG2E : 0.0f;
+        sdelta[s * BQ + i] = ok ? delta[idx] : 0.0f;
+        if (m.qseg) sqseg[s * BQ + i] = ok ? m.qseg[(long)b * m.T + t] : -1;
+      }
+      if (lane == 0) {
+        unsigned char* qd = smem + STAGE_OFF + s * STAGE_BYTES;
+        mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        tma_load_4d(qd, &qmap, &full[s], 0, h, q0, b);
+        tma_load_4d(qd + Q_HALF, &qmap, &full[s], HALF_COLS, h, q0, b);
+        tma_load_4d(qd + 2 * Q_HALF, &domap, &full[s], 0, h, q0, b);
+        tma_load_4d(qd + 3 * Q_HALF, &domap, &full[s], HALF_COLS, h, q0, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns keys [kw0, kw0 + 64).
+  regs_alloc<CONSUMER_REGS>();
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32, t4 = lane % 4;
+  const int row = (tid / 32) * 16 + lane / 4;  // this thread's keys: row, row + 8
+  const int kw0 = k0 + wg * 64;
+  int kpos[2], ks[2] = {0, 0};
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    kpos[rh] = kw0 + row + 8 * rh;
+    if (m.kseg && kpos[rh] < m.S) ks[rh] = m.kseg[(long)b * m.S + kpos[rh]];
+  }
+  float dk_acc[64], dv_acc[64], st_acc[32], dpt_acc[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  const uint32_t k_base = smem_u32(smem + K_OFF) + wg * 64 * 128;
+  const uint32_t v_base = smem_u32(smem + V_OFF) + wg * 64 * 128;
+  mbar_wait(bar_kv, 0);
+  for (int it = i0; it < i_hi; ++it) {
+    const int n = it - i0, st = n % STAGES;
+    const int q0 = it * BQ;
+    const uint32_t q_base = smem_u32(smem + STAGE_OFF + st * STAGE_BYTES);
+    const uint32_t do_base = q_base + 2 * Q_HALF;
+    mbar_wait(&full[st], (n / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T: 8 k-steps of 16 over D, K-major.
+    fence_regs(st_acc);
+    fence_regs(dpt_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t a_off = (kk / 4) * KV_HALF + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * Q_HALF + (kk % 4) * 32;
+      wgmma_ss_m64n64(st_acc, make_desc(k_base + a_off, 16, 1024),
+                      make_desc(q_base + b_off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t a_off = (kk / 4) * KV_HALF + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * Q_HALF + (kk % 4) * 32;
+      wgmma_ss_m64n64(dpt_acc, make_desc(v_base + a_off, 16, 1024),
+                      make_desc(do_base + b_off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st_acc);
+    fence_regs(dpt_acc);
+
+    // P^T and dS^T in place; the mask only where some pair of the tile
+    // fails it.
+    bool interior = m.qseg == nullptr && q0 + BQ <= m.T;
+    if (m.causal) interior = interior && q0 + m.offset >= kw0 + 63;
+    if (m.has_window) interior = interior && q0 + BQ - 1 + m.offset - kw0 < m.window;
+    const float* tl = slse + st * BQ;
+    const float* td = sdelta + st * BQ;
+    const int* tq = sqseg + st * BQ;
+    if (interior) {
+      if (m.has_cap) tile_grads<true, false>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
+      else tile_grads<false, false>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
+    } else {
+      if (m.has_cap) tile_grads<true, true>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
+      else tile_grads<false, true>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
+    }
+    uint32_t pb[16], dsb[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      pb[i] = pack_bf16(st_acc[2 * i], st_acc[2 * i + 1]);
+      dsb[i] = pack_bf16(dpt_acc[2 * i], dpt_acc[2 * i + 1]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q: 4 k-steps of 16 query rows, B MN-major
+    // (halves 8 KB apart).
+    fence_regs(pb);
+    fence_regs(dsb);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pb[4 * kk], pb[4 * kk + 1], pb[4 * kk + 2], pb[4 * kk + 3]};
+      wgmma_rs_m64n128_tb(dv_acc, a, make_desc(do_base + kk * 16 * 128, Q_HALF, 1024));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {dsb[4 * kk], dsb[4 * kk + 1], dsb[4 * kk + 2],
+                             dsb[4 * kk + 3]};
+      wgmma_rs_m64n128_tb(dk_acc, a, make_desc(q_base + kk * 16 * 128, Q_HALF, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // Whole 128-key tiles go straight from the accumulators to [B,H,S_pad,D].
+  const long s_pad = (long)gridDim.x * BKV;
+#pragma unroll
+  for (int n8 = 0; n8 < 16; ++n8) {
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const long off = (((long)b * H + h) * s_pad + kpos[rh]) * 128 + n8 * 8 + 2 * t4;
+      const int i = 4 * n8 + 2 * rh;
+      *reinterpret_cast<float2*>(dk + off) =
+          make_float2(dk_acc[i] * m.scale, dk_acc[i + 1] * m.scale);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+}  // namespace dkv
+}  // namespace tpufw
+
+// q [B,T,H,D], k/v [B,S,KV,D], dO [B,T,H,D] bf16; lse, delta [B,H,T] fp32;
+// qseg [B,T] / kseg [B,S] int32 or null; dk, dv [B,H,S_pad,D] fp32 per
+// QUERY head, S_pad = S rounded up to 128. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue when a tensor map cannot be encoded.
+extern "C" int tpufw_flash_dkv(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, const void* qseg,
+                               const void* kseg, void* dk, void* dv, int B,
+                               int T, int S, int H, int KV, int causal,
+                               int offset, int has_window, int window,
+                               int has_cap, float cap, void* stream) {
+  using namespace tpufw::dkv;
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!tpufw::hopper::encode_rows_map(&qmap, q, B, T, H, BQ) ||
+      !tpufw::hopper::encode_rows_map(&domap, dout, B, T, H, BQ) ||
+      !tpufw::hopper::encode_rows_map(&kmap, k, B, S, KV, BKV) ||
+      !tpufw::hopper::encode_rows_map(&vmap, v, B, S, KV, BKV))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(flash_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       SMEM);
+  const tpufw::Masks m = tpufw::make_masks(T, S, causal, offset, has_window, window, has_cap,
+                             cap, qseg, kseg);
+  dim3 grid((S + BKV - 1) / BKV, H, B);
+  flash_dkv_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      qmap, kmap, vmap, domap, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, KV, m);
+  return (int)cudaGetLastError();
+}

@@ -7,149 +7,309 @@
 // What bounds it on an H100: the two products are 4*T*S*D FLOPs per head
 // (halved by the causal triangle) against (T+2S)*D*2 bytes of input per
 // head, so at T = S = 2048 it is bound by tensor-core operations, not
-// memory. This first version is simple rather than fast: one block per
-// (query tile, head, batch) keeps its Q tile in shared memory and streams
-// K/V tiles through it; the products use wmma bf16 fragments with fp32
-// accumulation. The causal and window bounds skip kv tiles that are wholly
-// masked, as the TPU kernel's loop bounds do. GQA never materializes
-// repeated K/V: query head h reads kv head h / (H / KV). The running output
-// lives in fp32 shared memory so each kv tile can rescale it by
-// exp(m_prev - m_new). wgmma, TMA and warp specialisation are later work.
+// memory. The design follows from that:
+// - one block per (128-row query tile, head, batch), heaviest causal tiles
+//   launched first; 384 threads: warpgroups 0 and 1 each own 64 query rows,
+//   one warp of warpgroup 2 is the producer, and setmaxnreg moves the
+//   producer's registers to the consumers;
+// - TMA copies Q once and streams 128-key K and V tiles through a 2-stage
+//   ring of full/empty mbarriers, so the next tile's copy overlaps this
+//   tile's math. The maps are 4-D over the real [B, N, heads, D] layouts,
+//   so rows past T or S read as zeros within their own batch: that zero
+//   fill is the key padding of the TPU kernel;
+// - S = Q K^T and O += P V run on wgmma (m64n128k16, fp32 accumulators in
+//   registers); K and V are read from 128B-swizzled shared memory, V with
+//   the transpose flag, and P goes from the S accumulator to the A
+//   registers of the P V product without touching shared memory;
+// - the online softmax runs in registers on the accumulator layout (a row
+//   lives in one quad), in base 2 with exp2; the running output is rescaled
+//   in registers. Tiles that every mask passes skip the per-element mask;
+// - O leaves through shared memory (the dead Q rows) by TMA store.
+// Semantics are the TPU kernel's: the soft cap is applied before the mask,
+// masked logits take the finite fill -1e30 (in the natural domain, before
+// the log2(e) scaling), and the loop bounds are the causal diagonal and
+// the window start in C's truncating division, as jax.lax.div.
+// GQA never materializes repeated K/V: query head h reads kv head h/(H/KV).
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace tpufw {
+namespace fwd {
 
-constexpr int FWD_SMEM =
-    3 * TILE_H_BYTES + TILE_S_BYTES + TILE_P_BYTES + TILE_O_BYTES + 3 * BQ * 4;
+using namespace hopper;
 
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int KV, Masks m) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + 64 * LDH;
-  bf16* sV = sK + 64 * LDH;
-  float* sS = reinterpret_cast<float*>(sV + 64 * LDH);
-  bf16* sP = reinterpret_cast<bf16*>(sS + 64 * LDS);
-  float* sO = reinterpret_cast<float*>(sP + 64 * LDP);
-  float* sM = sO + 64 * LDO;
-  float* sL = sM + BQ;
-  float* sAlpha = sL + BQ;
+constexpr int BQ = 128;       // query rows per block
+constexpr int BKV = 128;      // keys per kv tile
+constexpr int STAGES = 2;     // K/V ring depth
+constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = qt * BQ;
-  const bf16* qb = q + ((long)b * m.T * H + h) * D;
-  const bf16* kb = k + ((long)b * m.S * KV + kvh) * D;
-  const bf16* vb = v + ((long)b * m.S * KV + kvh) * D;
+constexpr int HALF_BYTES = 128 * 128;      // 64 columns of a 128-row tile
+constexpr int TILE_BYTES = 2 * HALF_BYTES; // a 128 x 128 bf16 tile
+constexpr int Q_OFF = 0;
+constexpr int K_OFF = Q_OFF + TILE_BYTES;
+constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
+constexpr int KSEG_OFF = V_OFF + STAGES * TILE_BYTES;  // int [STAGES][BKV]
+constexpr int BAR_OFF = KSEG_OFF + STAGES * BKV * 4;
+constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
 
-  load_tile(sQ, qb, q0, m.T, (long)H * D);
-  for (int i = threadIdx.x; i < 64 * LDO; i += NTHREADS) sO[i] = 0.0f;
-  if (threadIdx.x < BQ) {
-    sM[threadIdx.x] = NEG_INF;
-    sL[threadIdx.x] = 0.0f;
-  }
-  int j0, j_hi;
-  kv_range(qt, m, &j0, &j_hi);
-  __syncthreads();
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-  const int r0 = warp * 16;
-  for (int j = j0; j < j_hi; ++j) {
-    load_tile(sK, kb, j * BKV, m.S, (long)KV * D);
-    load_tile(sV, vb, j * BKV, m.S, (long)KV * D);
-    __syncthreads();
+// kv tiles [j0, j_hi) query tile qt can see. Mirrors flash.py:fwd_kv_tiles,
+// which tests/test_torch_flash_tiles.py checks on the CPU: an edit here must
+// be made there too.
+__device__ __forceinline__ void kv_tiles(int qt, const Masks& m, int* j0, int* j_hi) {
+  const int n_kv = (m.S + BKV - 1) / BKV;
+  *j_hi = n_kv;
+  if (m.causal) *j_hi = min(((qt + 1) * BQ + m.offset + BKV - 1) / BKV, n_kv);
+  *j0 = m.has_window ? max((qt * BQ + m.offset - m.window + 1) / BKV, 0) : 0;
+}
 
-    warp_abt(sS + r0 * LDS, sQ + r0 * LDH, sK);
-    __syncwarp();
-
-    // Online-softmax update of this warp's 16 rows; lane owns 2 columns.
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const int q_row = q0 + r;
-      const int qs = (m.qseg && q_row < m.T) ? m.qseg[(long)b * m.T + q_row] : 0;
-      float x[2];
+// Raw scores of one kv tile -> base-2 logits, in place on the accumulator
+// layout: cap(scale * raw) * log2(e), with the finite fill -1e30 (natural
+// domain) where MASKED and a pair fails a mask. Templated so that neither
+// the soft cap nor the mask costs a branch per element.
+template <bool CAP, bool MASKED>
+__device__ __forceinline__ void tile_logits(float (&s)[64], const Masks& m, int k0,
+                                            const int (&q_row)[2], const int (&qs)[2],
+                                            const int* kseg_tile, int t4) {
+  if (!CAP && !MASKED) {
+    const float scale_log2 = m.scale * LOG2E;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = lane + 32 * e;
-        const int kpos = j * BKV + c;
-        const float val = capped_logit(sS[r * LDS + c], m);
-        const int ks = (m.kseg && kpos < m.S) ? m.kseg[(long)b * m.S + kpos] : 0;
-        const bool ok = kpos < m.S && visible(q_row, kpos, qs, ks, m);
-        x[e] = ok ? val : NEG_INF;
-      }
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(x[0], x[1])));
-      const float p0 = expf(x[0] - m_new), p1 = expf(x[1] - m_new);
-      const float alpha = expf(m_prev - m_new);
-      const float psum = warp_sum(p0 + p1);
-      sP[r * LDP + lane] = __float2bfloat16(p0);
-      sP[r * LDP + lane + 32] = __float2bfloat16(p1);
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + psum;
-        sAlpha[r] = alpha;
-      }
-    }
-    __syncwarp();
-
-    // O = O * alpha + P V for this warp's rows.
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = r0 + i / D;
-      sO[r * LDO + i % D] *= sAlpha[r];
-    }
-    __syncwarp();
-    FragC acc[D / 16];
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::load_matrix_sync(acc[n], sO + r0 * LDO + n * 16, LDO, wmma::mem_row_major);
-    warp_pb(acc, sP + r0 * LDP, sV);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::store_matrix_sync(sO + r0 * LDO + n * 16, acc[n], LDO, wmma::mem_row_major);
-    __syncthreads();  // sK/sV are overwritten by the next tile
+    for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+    return;
   }
-
-  // Epilogue: O = acc / l, LSE = m + log(l), with l = 0 -> 1.
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = r0 + i / D, c = i % D;
-    const int t = q0 + r;
-    if (t < m.T) {
-      const float l = sL[r] == 0.0f ? 1.0f : sL[r];
-      o[((long)b * m.T + t) * H * D + (long)h * D + c] =
-          __float2bfloat16(sO[r * LDO + c] / l);
+  const float inv_cap = CAP ? 1.0f / m.cap : 0.0f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    float x = s[i] * m.scale;
+    if (CAP) x = m.cap * tanhf(x * inv_cap);
+    if (MASKED) {
+      const int col = (i / 4) * 8 + 2 * t4 + (i & 1), rh = (i >> 1) & 1;
+      const int kpos = k0 + col;
+      const int ks = m.kseg ? kseg_tile[col] : 0;
+      if (!(kpos < m.S && visible(q_row[rh], kpos, qs[rh], ks, m))) x = NEG_INF;
     }
-  }
-  if (lane < 16) {
-    const int r = r0 + lane, t = q0 + r;
-    if (t < m.T) {
-      const float l = sL[r] == 0.0f ? 1.0f : sL[r];
-      lse[((long)b * H + h) * m.T + t] = sM[r] + logf(l);
-    }
+    s[i] = x * LOG2E;
   }
 }
 
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap omap, float* __restrict__ lse,
+                 int H, int KV, Masks m) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + STAGES;
+  int* skseg = reinterpret_cast<int*>(smem + KSEG_OFF);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * BQ;
+  const int wg = threadIdx.x / 128;
+  int j0, j_hi;
+  kv_tiles(qt, m, &j0, &j_hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);  // every producer lane arrives
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: one warp issues the copies; lanes stage key segment ids.
+    regs_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x / 32 != 8) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, TILE_BYTES);
+      tma_load_4d(smem + Q_OFF, &qmap, bar_q, 0, h, q0, b);
+      tma_load_4d(smem + Q_OFF + HALF_BYTES, &qmap, bar_q, HALF_COLS, h, q0, b);
+    }
+    for (int j = j0; j < j_hi; ++j) {
+      const int n = j - j0, s = n % STAGES;
+      const int k0 = j * BKV;
+      mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+      if (m.kseg) {
+        for (int i = lane; i < BKV; i += 32)
+          skseg[s * BKV + i] = k0 + i < m.S ? m.kseg[(long)b * m.S + k0 + i] : -1;
+      }
+      if (lane == 0) {
+        unsigned char* kd = smem + K_OFF + s * TILE_BYTES;
+        unsigned char* vd = smem + V_OFF + s * TILE_BYTES;
+        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
+        tma_load_4d(kd, &kmap, &full[s], 0, kvh, k0, b);
+        tma_load_4d(kd + HALF_BYTES, &kmap, &full[s], HALF_COLS, kvh, k0, b);
+        tma_load_4d(vd, &vmap, &full[s], 0, kvh, k0, b);
+        tma_load_4d(vd + HALF_BYTES, &vmap, &full[s], HALF_COLS, kvh, k0, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns query rows [qw0, qw0 + 64).
+  regs_alloc<CONSUMER_REGS>();
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32, t4 = lane % 4;
+  const int row = (tid / 32) * 16 + lane / 4;  // this thread's rows: row, row + 8
+  const int qw0 = q0 + wg * 64;
+  int q_row[2], qs[2] = {0, 0};
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    q_row[rh] = qw0 + row + 8 * rh;
+    if (m.qseg && q_row[rh] < m.T) qs[rh] = m.qseg[(long)b * m.T + q_row[rh]];
+  }
+  float o[64], s[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.0f;
+  float m_row[2] = {NEG_INF * LOG2E, NEG_INF * LOG2E};  // running max, base 2
+  float l_row[2] = {0.0f, 0.0f};  // this thread's share of the running sum
+
+  const uint32_t q_base = smem_u32(smem + Q_OFF) + wg * 64 * 128;
+  mbar_wait(bar_q, 0);
+  for (int j = j0; j < j_hi; ++j) {
+    const int n = j - j0, st = n % STAGES;
+    const int k0 = j * BKV;
+    const uint32_t k_base = smem_u32(smem + K_OFF + st * TILE_BYTES);
+    const uint32_t v_base = smem_u32(smem + V_OFF + st * TILE_BYTES);
+    mbar_wait(&full[st], (n / STAGES) & 1);
+
+    // S = Q K^T: 8 k-steps of 16 over D, K-major operands. The register
+    // fences keep every write of an accumulator before its wgmma batch, so
+    // the compiler cannot sink one into it (ptxas would then serialize).
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = (kk / 4) * HALF_BYTES + (kk % 4) * 32;
+      wgmma_ss_m64n128(s, make_desc(q_base + off, 16, 1024),
+                       make_desc(k_base + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // Logits in base 2; the mask only where some pair of the tile fails it.
+    bool interior = m.qseg == nullptr && k0 + BKV <= m.S;
+    if (m.causal) interior = interior && qw0 + m.offset >= k0 + BKV - 1;
+    if (m.has_window) interior = interior && qw0 + 63 + m.offset - k0 < m.window;
+    const int* kseg_tile = skseg + st * BKV;
+    if (interior) {
+      if (m.has_cap) tile_logits<true, false>(s, m, k0, q_row, qs, kseg_tile, t4);
+      else tile_logits<false, false>(s, m, k0, q_row, qs, kseg_tile, t4);
+    } else {
+      if (m.has_cap) tile_logits<true, true>(s, m, k0, q_row, qs, kseg_tile, t4);
+      else tile_logits<false, true>(s, m, k0, q_row, qs, kseg_tile, t4);
+    }
+
+    // Online softmax on the accumulator layout.
+    float mx[2] = {m_row[0], m_row[1]};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      mx[rh] = quad_max(mx[rh]);
+      alpha[rh] = fast_exp2(m_row[rh] - mx[rh]);
+      m_row[rh] = mx[rh];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      s[i] = fast_exp2(s[i] - m_row[(i >> 1) & 1]);
+      sum[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) l_row[rh] = l_row[rh] * alpha[rh] + sum[rh];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+    // P in bf16: the S accumulator layout is the A-fragment layout.
+    uint32_t p[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+
+    // O += P V: 8 k-steps of 16 keys, V MN-major (halves 16 KB apart).
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+      wgmma_rs_m64n128_tb(o, a, make_desc(v_base + kk * 16 * 128, HALF_BYTES, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // Epilogue: O = acc / l (l = 0 -> 1) in bf16 into this warpgroup's dead Q
+  // rows, swizzled as the O map reads them, then one TMA store per half.
+  float inv[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    float l = quad_sum(l_row[rh]);
+    l = l == 0.0f ? 1.0f : l;
+    inv[rh] = 1.0f / l;
+    if (t4 == 0 && q_row[rh] < m.T)
+      lse[((long)b * H + h) * m.T + q_row[rh]] = m_row[rh] * LN2 + logf(l);
+  }
+  unsigned char* ob = smem + Q_OFF + wg * 64 * 128;
+#pragma unroll
+  for (int n8 = 0; n8 < 16; ++n8) {
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int r = row + 8 * rh, col = (n8 % 8) * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(ob + (n8 / 8) * HALF_BYTES + swizzle_offset(r, col)) =
+          pack_bf16(o[4 * n8 + 2 * rh] * inv[rh], o[4 * n8 + 2 * rh + 1] * inv[rh]);
+    }
+  }
+  fence_proxy_async();
+  named_sync(1 + wg, 128);
+  if (tid == 0) {
+    tma_store_4d(&omap, ob, 0, h, qw0, b);
+    tma_store_4d(&omap, ob + HALF_BYTES, HALF_COLS, h, qw0, b);
+    tma_store_commit_and_wait();
+  }
+}
+
+}  // namespace fwd
 }  // namespace tpufw
 
 // q [B,T,H,D], k/v [B,S,KV,D] bf16; o [B,T,H,D] bf16; lse [B,H,T] fp32;
-// qseg [B,T] / kseg [B,S] int32 or null. Returns cudaGetLastError().
+// qseg [B,T] / kseg [B,S] int32 or null. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue when a tensor map cannot be encoded.
 extern "C" int tpufw_flash_fwd(const void* q, const void* k, const void* v,
                                const void* qseg, const void* kseg, void* o,
                                void* lse, int B, int T, int S, int H, int KV,
                                int causal, int offset, int has_window,
                                int window, int has_cap, float cap,
                                void* stream) {
-  using namespace tpufw;
-  cudaFuncSetAttribute(flash_fwd_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
-  const Masks m = make_masks(T, S, causal, offset, has_window, window, has_cap,
+  using namespace tpufw::fwd;
+  CUtensorMap qmap, kmap, vmap, omap;
+  if (!tpufw::hopper::encode_rows_map(&qmap, q, B, T, H, BQ) ||
+      !tpufw::hopper::encode_rows_map(&kmap, k, B, S, KV, BKV) ||
+      !tpufw::hopper::encode_rows_map(&vmap, v, B, S, KV, BKV) ||
+      !tpufw::hopper::encode_rows_map(&omap, o, B, T, H, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       SMEM);
+  const tpufw::Masks m = tpufw::make_masks(T, S, causal, offset, has_window, window, has_cap,
                              cap, qseg, kseg);
   dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<<<grid, NTHREADS, FWD_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, KV, m);
+  flash_fwd_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      qmap, kmap, vmap, omap, static_cast<float*>(lse), H, KV, m);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,7 @@ The forward and backward follow the JAX package's decomposition:
                     (``csrc/flash_fwd.cu``, replaces ``_fwd_kernel``);
 - ``flash_dq``    — dQ from recomputed P (``csrc/flash_bwd.cu``, replaces
                     ``_dq_kernel``);
-- ``flash_dkv``   — dK, dV per *query* head in fp32 (``csrc/flash_bwd.cu``,
+- ``flash_dkv``   — dK, dV per *query* head in fp32 (``csrc/flash_dkv.cu``,
                     replaces ``_dkv_kernel``);
 - Δ = rowsum(dO∘O) and the GQA sum of dK/dV stay outside the kernels in
   plain torch, as in ``tpufw/ops/flash.py:497-500`` and ``:617-618``.
@@ -36,8 +36,10 @@ from tpufw_torch.ops.attention import NEG_INF, tanh_soft_cap
 # Head dim the CUDA kernels are built for (Llama, Mistral, Qwen). Gemma's
 # 256 and MLA's 192 are later work (ROADMAP.md).
 KERNEL_HEAD_DIM = 128
-# Rows per tile in all three kernels (csrc/flash_common.cuh BQ/BKV).
-KERNEL_BLOCK = 64
+# Tiles of the forward (csrc/flash_fwd.cu) and dK/dV (csrc/flash_dkv.cu)
+# kernels: query rows and keys. dQ keeps 64 x 64 (csrc/flash_common.cuh).
+FWD_BLOCK_Q, FWD_BLOCK_KV = 128, 128
+DKV_BLOCK_Q, DKV_BLOCK_KV = 64, 128
 
 # Kernel launches since the last reset, by wrapper.
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
@@ -151,6 +153,45 @@ def flash_dkv_reference(
 
 
 # ---------------------------------------------------------------------------
+# Loop bounds of the kernels, as the CUDA sources compute them. Each function
+# mirrors a device function of its .cu: an edit to one must be made in both.
+# ---------------------------------------------------------------------------
+
+
+def _div(a: int, b: int) -> int:
+    """C's truncating division (``jax.lax.div``), b > 0."""
+    return -((-a) // b) if a < 0 else a // b
+
+
+def fwd_kv_tiles(qt, t, s, offset, causal, window):
+    """[j0, j_hi): the kv tiles forward query tile ``qt`` visits
+    (``kv_tiles`` in csrc/flash_fwd.cu): up to the causal diagonal, from
+    the window's first key. ``t`` is unused, as in the kernel."""
+    bq, bkv = FWD_BLOCK_Q, FWD_BLOCK_KV
+    n_kv = -(-s // bkv)
+    j_hi = min(_div((qt + 1) * bq + offset + bkv - 1, bkv), n_kv) if causal \
+        else n_kv
+    j0 = max(_div(qt * bq + offset - window + 1, bkv), 0) \
+        if window is not None else 0
+    return j0, j_hi
+
+
+def dkv_q_tiles(jt, t, s, offset, causal, window):
+    """[i0, i_hi): the query tiles the dK/dV kernel visits for kv tile
+    ``jt`` (``q_tiles`` in csrc/flash_dkv.cu): from the causal first to the
+    window's last. ``s`` is unused, as in the kernel."""
+    bq, bkv = DKV_BLOCK_Q, DKV_BLOCK_KV
+    n_q = -(-t // bq)
+    k0 = jt * bkv
+    i0 = max(_div(k0 - offset, bq), 0) if causal else 0
+    i_hi = n_q
+    if window is not None:
+        last_q = k0 + bkv - 1 + window - 1 - offset
+        i_hi = max(min(_div(last_q, bq) + 1, n_q), i0)
+    return i0, i_hi
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
@@ -169,6 +210,8 @@ def _check_cuda(names_tensors, dtype):
             raise TypeError(
                 f"flash kernel: {name} is {x.dtype}, expected {dtype}"
             )
+        # TMA needs a 16-byte aligned base; every row stride (H*D*2,
+        # KV*D*2 bytes) is then a multiple of 16 as well.
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(
                 f"flash kernel: {name} must be contiguous and 16-byte "
@@ -295,12 +338,12 @@ def flash_dkv(
     b, t, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     offset = s - t if offset is None else offset
-    # The kernel stores whole 64-row tiles: pad S, slice after.
-    s_pad = -(-s // KERNEL_BLOCK) * KERNEL_BLOCK
+    # The kernel stores whole 128-key tiles: pad S, slice after.
+    s_pad = -(-s // DKV_BLOCK_KV) * DKV_BLOCK_KV
     dk = torch.empty(b, h, s_pad, d, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     _launch(
-        "flash_dkv", _build.library("flash_bwd").tpufw_flash_dkv,
+        "flash_dkv", _build.library("flash_dkv").tpufw_flash_dkv,
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
         _ptr(qseg), _ptr(kseg), _ptr(dk), _ptr(dv), b, t, s, h, kh,
         *_mask_args(causal, offset, soft_cap, window),
