@@ -9,8 +9,8 @@ Phases, each fatal on failure:
    (nvcc, sm_90a) into ``build-torch/``, prints the card's name and power
    limit, and reads the build: each kernel's registers and spills from
    ``-Xptxas -v`` and each library's ``HGMMA`` (wgmma) and ``UTMALDG``
-   (TMA load) instructions from ``cuobjdump -sass``. The forward and dK/dV
-   kernels must use both and spill nothing;
+   (TMA load) instructions from ``cuobjdump -sass``. Every kernel (fwd, dq,
+   dk/dv) must use both and spill nothing;
 2. holds each kernel (fwd, dq, dk/dv) against its plain PyTorch version,
    run in fp32 on the same bf16 inputs, at the train path's shapes
    (B=2, T=S=2047, 32/8 heads of 128, causal), on a small case with
@@ -141,6 +141,7 @@ def kernel_errors(torch, got, want) -> dict:
 # Kernels redesigned for Hopper: each must issue wgmma and TMA loads and
 # spill nothing. name: (library, kernel symbol substring).
 HOPPER_KERNELS = {"flash_fwd": ("flash_fwd", "flash_fwd_kernel"),
+                  "flash_dq": ("flash_dq", "flash_dq_kernel"),
                   "flash_dkv": ("flash_dkv", "flash_dkv_kernel")}
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
 
@@ -464,7 +465,7 @@ def main() -> int:
 
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
-        "flash_dq": ("tpufw_torch/ops/csrc/flash_bwd.cu", "tpufw/ops/flash.py:544"),
+        "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
         "flash_dkv": ("tpufw_torch/ops/csrc/flash_dkv.cu", "tpufw/ops/flash.py:590"),
     }
     kernels = []

@@ -26,10 +26,11 @@ FRO_TOL = 1e-2
 LSE_TOL = 1e-3
 
 # name: (b, t, s, h, kh, input scale, masks). Besides the two first cases,
-# the tile edges of the forward's 128 x 128 and dK/dV's 64 x 128 tiles: one
-# tile and one row past it, under one tile, two batches whose padding rows
-# must not reach the next batch's rows (the TMA maps are per batch), a
-# t < s offset, windows at and past a tile, segment boundaries mid-tile.
+# the tile edges of the forward's and dQ's 128 x 128 and dK/dV's 64 x 128
+# tiles: one tile and one row past it, under one tile, two batches whose
+# padding rows must not reach the next batch's rows (the TMA maps are per
+# batch), a t < s offset, windows at and past a tile, segment boundaries
+# mid-tile.
 CASES = {
     "causal_gqa_unaligned": (1, 700, 700, 4, 2, 1.0, dict(causal=True)),
     "segments_offset_window300_cap50": (

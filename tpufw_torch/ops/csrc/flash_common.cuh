@@ -1,12 +1,6 @@
-// Shared pieces of the flash-attention kernels: the mask semantics
-// (Masks, make_masks, visible, capped_logit), used by all three, and the
-// wmma tiles of the dQ kernel (flash_bwd.cu).
-//
-// dQ tiles: 64 query rows x 64 key rows, head dim 128, four warps per
-// block, each warp owning 16 rows of the block's tile. Products run on the
-// tensor cores through wmma bf16 16x16x16 fragments with fp32 accumulation;
-// the softmax statistics and masks are fp32 scalar code over shared memory.
-// The forward and dK/dV kernels use the Hopper pieces of hopper.cuh instead.
+// The mask semantics shared by the three flash-attention kernels (Masks,
+// make_masks, visible) and the kv loop bounds of the forward and dQ
+// kernels (kv_tiles). The Hopper building blocks are in hopper.cuh.
 //
 // Masks follow tpufw/ops/flash.py exactly: query row i sits at absolute key
 // position offset + i; a key is visible when it is a real key (k < S), not
@@ -16,39 +10,12 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
 
 namespace tpufw {
 
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
 constexpr int D = 128;        // head dim
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BKV = 64;       // key rows per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG_INF = -1e30f;
-
-// Shared-memory row strides, padded against bank conflicts. Every wmma
-// pointer (row multiple of 16, column multiple of 16) stays 32-byte aligned.
-constexpr int LDH = D + 8;    // bf16 [rows][D] tiles
-constexpr int LDS = BKV + 4;  // fp32 [64][64] score tiles
-constexpr int LDP = BKV + 8;  // bf16 [64][64] probability tiles
-constexpr int LDO = D + 4;    // fp32 [64][D] accumulators
-
-constexpr int TILE_H_BYTES = 64 * LDH * 2;  // 17408
-constexpr int TILE_S_BYTES = 64 * LDS * 4;  // 17408
-constexpr int TILE_P_BYTES = 64 * LDP * 2;  // 9216
-constexpr int TILE_O_BYTES = 64 * LDO * 4;  // 33792
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 struct Masks {
   int T, S;        // query and key lengths
@@ -62,76 +29,6 @@ struct Masks {
   const int* kseg; // [B, S] or null
 };
 
-// Copies rows [row0, row0 + 64) of a [N][D] bf16 slab whose rows are
-// `row_stride` elements apart into a [64][LDH] shared tile; rows >= n_valid
-// become zeros, so padding keys carry zero K and V as in the TPU kernel.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int n_valid, long row_stride) {
-  for (int i = threadIdx.x; i < 64 * (D / 8); i += NTHREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid)
-      val = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
-}
-
-// out[16 x 64] (fp32, stride LDS) = A[16 x D] * B[64 x D]^T for one warp:
-// A rows from `a` (stride LDH), B rows from `b` (stride LDH).
-__device__ __forceinline__ void warp_abt(float* out, const bf16* a, const bf16* b) {
-  FragC acc[BKV / 16];
-#pragma unroll
-  for (int n = 0; n < BKV / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, LDH);
-#pragma unroll
-    for (int n = 0; n < BKV / 16; ++n) {
-      FragBCol fb;
-      wmma::load_matrix_sync(fb, b + n * 16 * LDH + kk, LDH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BKV / 16; ++n)
-    wmma::store_matrix_sync(out + n * 16, acc[n], LDS, wmma::mem_row_major);
-}
-
-// acc[n] (16 x D as D/16 fragments) += P[16 x 64] (stride LDP) * B[64 x D]
-// (stride LDH), for one warp.
-__device__ __forceinline__ void warp_pb(FragC* acc, const bf16* p, const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < 64; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, p + kk, LDP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, b + kk * LDH + n * 16, LDH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// cap(scale * raw): the logit every kernel masks and exponentiates.
-__device__ __forceinline__ float capped_logit(float raw, const Masks& m) {
-  const float x = raw * m.scale;
-  return m.has_cap ? m.cap * tanhf(x / m.cap) : x;
-}
-
 // Causal, window and segment terms for (query row q_row, key k). Key
 // padding and query padding are the caller's, as in each TPU kernel.
 __device__ __forceinline__ bool visible(int q_row, int k, int qseg, int kseg,
@@ -144,18 +41,18 @@ __device__ __forceinline__ bool visible(int q_row, int k, int qseg, int kseg,
   return ok;
 }
 
-// kv tiles [j0, j_hi) a query tile can see: the causal diagonal bounds the
-// end and the window the start (tpufw/ops/flash.py:165-173, :90-99). C's
-// truncating division matches jax.lax.div.
-__device__ __forceinline__ void kv_range(int qt, const Masks& m, int* j0, int* j_hi) {
+// kv tiles [j0, j_hi) of BKV keys that query tile qt of BQ rows can see:
+// the causal diagonal bounds the end and the window the start
+// (tpufw/ops/flash.py:230-235, :90). C's truncating division matches
+// jax.lax.div. Mirrors flash.py:fwd_kv_tiles (dq_kv_tiles is the same
+// function), which tests/test_torch_flash_tiles.py checks on the CPU: an
+// edit here must be made there too.
+template <int BQ, int BKV>
+__device__ __forceinline__ void kv_tiles(int qt, const Masks& m, int* j0, int* j_hi) {
   const int n_kv = (m.S + BKV - 1) / BKV;
   *j_hi = n_kv;
-  if (m.causal) {
-    const int n_needed = ((qt + 1) * BQ + m.offset + BKV - 1) / BKV;
-    *j_hi = min(n_needed, n_kv);
-  }
-  *j0 = 0;
-  if (m.has_window) *j0 = max((qt * BQ + m.offset - m.window + 1) / BKV, 0);
+  if (m.causal) *j_hi = min(((qt + 1) * BQ + m.offset + BKV - 1) / BKV, n_kv);
+  *j0 = m.has_window ? max((qt * BQ + m.offset - m.window + 1) / BKV, 0) : 0;
 }
 
 inline Masks make_masks(int T, int S, int causal, int offset, int has_window,

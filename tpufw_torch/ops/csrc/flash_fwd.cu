@@ -57,16 +57,6 @@ constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// kv tiles [j0, j_hi) query tile qt can see. Mirrors flash.py:fwd_kv_tiles,
-// which tests/test_torch_flash_tiles.py checks on the CPU: an edit here must
-// be made there too.
-__device__ __forceinline__ void kv_tiles(int qt, const Masks& m, int* j0, int* j_hi) {
-  const int n_kv = (m.S + BKV - 1) / BKV;
-  *j_hi = n_kv;
-  if (m.causal) *j_hi = min(((qt + 1) * BQ + m.offset + BKV - 1) / BKV, n_kv);
-  *j0 = m.has_window ? max((qt * BQ + m.offset - m.window + 1) / BKV, 0) : 0;
-}
-
 // Raw scores of one kv tile -> base-2 logits, in place on the accumulator
 // layout: cap(scale * raw) * log2(e), with the finite fill -1e30 (natural
 // domain) where MASKED and a pair fails a mask. Templated so that neither
@@ -115,7 +105,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   const int q0 = qt * BQ;
   const int wg = threadIdx.x / 128;
   int j0, j_hi;
-  kv_tiles(qt, m, &j0, &j_hi);
+  kv_tiles<BQ, BKV>(qt, m, &j0, &j_hi);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);

@@ -5,7 +5,7 @@ The forward and backward follow the JAX package's decomposition:
 
 - ``flash_fwd``   — O and LSE = m + log l by online softmax over kv tiles
                     (``csrc/flash_fwd.cu``, replaces ``_fwd_kernel``);
-- ``flash_dq``    — dQ from recomputed P (``csrc/flash_bwd.cu``, replaces
+- ``flash_dq``    — dQ from recomputed P (``csrc/flash_dq.cu``, replaces
                     ``_dq_kernel``);
 - ``flash_dkv``   — dK, dV per *query* head in fp32 (``csrc/flash_dkv.cu``,
                     replaces ``_dkv_kernel``);
@@ -36,9 +36,10 @@ from tpufw_torch.ops.attention import NEG_INF, tanh_soft_cap
 # Head dim the CUDA kernels are built for (Llama, Mistral, Qwen). Gemma's
 # 256 and MLA's 192 are later work (ROADMAP.md).
 KERNEL_HEAD_DIM = 128
-# Tiles of the forward (csrc/flash_fwd.cu) and dK/dV (csrc/flash_dkv.cu)
-# kernels: query rows and keys. dQ keeps 64 x 64 (csrc/flash_common.cuh).
+# Tiles of the forward (csrc/flash_fwd.cu), dQ (csrc/flash_dq.cu) and dK/dV
+# (csrc/flash_dkv.cu) kernels: query rows and keys.
 FWD_BLOCK_Q, FWD_BLOCK_KV = 128, 128
+DQ_BLOCK_Q, DQ_BLOCK_KV = 128, 128
 DKV_BLOCK_Q, DKV_BLOCK_KV = 64, 128
 
 # Kernel launches since the last reset, by wrapper.
@@ -165,7 +166,7 @@ def _div(a: int, b: int) -> int:
 
 def fwd_kv_tiles(qt, t, s, offset, causal, window):
     """[j0, j_hi): the kv tiles forward query tile ``qt`` visits
-    (``kv_tiles`` in csrc/flash_fwd.cu): up to the causal diagonal, from
+    (``kv_tiles`` in csrc/flash_common.cuh): up to the causal diagonal, from
     the window's first key. ``t`` is unused, as in the kernel."""
     bq, bkv = FWD_BLOCK_Q, FWD_BLOCK_KV
     n_kv = -(-s // bkv)
@@ -174,6 +175,11 @@ def fwd_kv_tiles(qt, t, s, offset, causal, window):
     j0 = max(_div(qt * bq + offset - window + 1, bkv), 0) \
         if window is not None else 0
     return j0, j_hi
+
+
+# dQ walks the forward's kv loop: csrc/flash_dq.cu calls the same device
+# function (``kv_tiles``) at the same tiles (DQ_BLOCK_* == FWD_BLOCK_*).
+dq_kv_tiles = fwd_kv_tiles
 
 
 def dkv_q_tiles(jt, t, s, offset, causal, window):
@@ -313,7 +319,7 @@ def flash_dq(
     offset = s - t if offset is None else offset
     dq = torch.empty_like(q)
     _launch(
-        "flash_dq", _build.library("flash_bwd").tpufw_flash_dq,
+        "flash_dq", _build.library("flash_dq").tpufw_flash_dq,
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
         _ptr(qseg), _ptr(kseg), _ptr(dq), b, t, s, h, kh,
         *_mask_args(causal, offset, soft_cap, window),
