@@ -27,7 +27,19 @@ Phases, each fatal on failure:
    chunked CE, remat, flash attention) through ``Trainer.run`` with the
    launch counters zeroed just before, and checks that every loss is
    finite and every kernel was launched; then checks the trained model's
-   flash logits against its plain-attention logits on a small input.
+   flash logits against its plain-attention logits on a small input;
+5. frees the trainer and serves Llama-3-8B at full width and all 32 layers
+   (``llama3_8b_serve_slice``: 4 prompts of 7, 64, 200 and 511 tokens, 32
+   greedy tokens each, a 2048-slot KV cache) through ``run_batch``'s
+   generation path, with bf16 weights and then with int8 weights. Every
+   output must hold 32 in-vocab tokens; the cached path's logits must
+   agree with an uncached forward of the same model at the last prompt
+   position and at one decode step of one row; computed in fp32, the
+   int8 logits must stay within 5% of the largest logit of the bf16
+   weights they were quantized from. A
+   ``serve_summary`` line per weight dtype gives prefill and decode
+   times, tokens/s and the decode step's HBM bound. The serve path runs
+   plain PyTorch attention: no flash kernel may launch there.
 
 It ends with a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -67,6 +79,15 @@ LSE_TOL = 1e-3
 LOGITS_TOL = 5e-2
 N_LAYERS = 4
 STEPS = 5
+# Serve slice, each relative to the reference logits' largest magnitude:
+# cached vs uncached logits of one bf16 or int8 model; and
+# tests/test_quant.py's rule, int8 vs the weights it was quantized from,
+# both computed in fp32 as that test does, at every prompt position. The
+# same int8 error with bf16 activations (as served) adds the bf16 path's
+# own rounding noise; it is printed, not held (PERF.md, serve slice).
+SERVE_LOGITS_TOL = 5e-2
+INT8_TOL = 5e-2
+SERVE_REPS = 3
 
 
 def emit(obj) -> None:
@@ -314,6 +335,150 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta):
     return res
 
 
+def host_ms(torch, fn, reps: int) -> float:
+    """Median host milliseconds of ``fn`` ending in a device sync."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fp32_twin_logits(torch, model, tok, pos, seg):
+    """Uncached logits of a twin of ``model`` that holds the same weights
+    and computes in fp32."""
+    from tpufw_torch.models import Llama
+
+    twin = Llama(dataclasses.replace(model.cfg, dtype=torch.float32),
+                 device=model.device)
+    twin.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        return twin(tok, pos, seg)
+
+
+def serve_phase(torch, chip, kind, smi) -> None:
+    """Phase 5: the serve slice in bf16, then int8; raises AssertionError
+    on a failed check."""
+    from tpufw_torch.configs import llama3_8b_serve_slice
+    from tpufw_torch.infer import SamplingConfig, generate, pad_prompts
+    from tpufw_torch.infer import prefill_cache
+    from tpufw_torch.models import Llama
+    from tpufw_torch.ops import flash
+    from tpufw_torch.workloads import serve
+
+    cfg, prompts, max_new = llama3_8b_serve_slice()
+    lens = [len(p) for p in prompts]
+    emit({"serve": "llama3_8b", "n_layers": cfg.n_layers,
+          "params": cfg.n_params(), "param_dtype": "bfloat16",
+          "max_seq_len": cfg.max_seq_len, "prompt_lens": lens,
+          "max_new_tokens": max_new, "sampling": "greedy",
+          "attention_backend": cfg.attention_backend})
+    dev = "cuda"
+    tokens, pads = pad_prompts(prompts)
+    b, p = tokens.shape
+    tok = torch.tensor(tokens, device=dev).long()
+    pad = torch.tensor(pads, device=dev).long()
+    col = torch.arange(p, device=dev)[None, :]
+    seg = (col >= pad[:, None]).to(torch.int32)
+    pos = torch.clamp(col - pad[:, None], min=0)
+    real = seg > 0
+    # KV slots the decode steps must read, averaged over the steps: step j
+    # attends the prompt plus j tokens.
+    kv_tokens = sum(n + max_new / 2 for n in lens)
+    kv_bytes = (kv_tokens * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim
+                * torch.tensor([], dtype=cfg.dtype).element_size())
+    model = Llama(cfg, device=dev, seed=0)
+    for weights in ("bf16", "int8"):
+        if weights == "int8":
+            model = serve.quantize_model(model)
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launch_counts()
+        outs = serve.generate_batch(model, prompts, max_new, SamplingConfig(),
+                                    None)
+        torch.cuda.synchronize()
+        launches = dict(flash.LAUNCHES)
+        if any(launches.values()):
+            raise AssertionError(f"serve ({weights}) launched {launches}")
+        for o in outs:
+            if len(o) != max_new or not all(0 <= t < cfg.vocab_size for t in o):
+                raise AssertionError(f"serve ({weights}): bad output {o}")
+
+        def gen(n):
+            return generate(model, tok, pad, max_new_tokens=n)
+
+        prefill_ms = host_ms(torch, lambda: gen(1), SERVE_REPS)
+        total_ms = host_ms(torch, lambda: gen(max_new), SERVE_REPS)
+        decode_ms = (total_ms - prefill_ms) / (max_new - 1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        with torch.no_grad():
+            cached, cache = prefill_cache(model, tok, pos, seg, None)
+            uncached = model(tok, pos, seg)
+            prefill_err = rel_err(torch, cached[:, -1], uncached[:, -1])
+            del uncached
+            # One decode step of row 0 against the uncached forward of
+            # that row alone, unpadded.
+            first = cached[:, -1].argmax(-1)
+            ones = torch.ones(b, 1, dtype=torch.int32, device=dev)
+            step = model(first[:, None], (p - pad)[:, None], ones,
+                         cache=cache)[0, -1]
+            row = torch.tensor([prompts[0] + [int(first[0])]], device=dev)
+            step_err = rel_err(torch, step, model(row)[0, -1])
+            del cache
+            last_logits, real_logits = cached[:, -1], cached[real]
+            del cached
+        check = {"check": f"serve_{weights}_cached_vs_uncached_logits",
+                 "prefill_last_position": prefill_err,
+                 "decode_step_row0": step_err, "tol": SERVE_LOGITS_TOL}
+        fp32_logits = fp32_twin_logits(torch, model, tok, pos, seg)[real]
+        if weights == "bf16":
+            bf16_last, bf16_real, bf16_outs = last_logits, real_logits, outs
+            bf16_fp32 = fp32_logits
+        else:
+            check["int8_vs_bf16_fp32_compute"] = rel_err(
+                torch, fp32_logits, bf16_fp32)
+            check["int8_tol"] = INT8_TOL
+            check["int8_vs_bf16_served_last_position"] = rel_err(
+                torch, last_logits, bf16_last)
+            check["int8_vs_bf16_served_every_position"] = rel_err(
+                torch, real_logits, bf16_real)
+            check["greedy_match_vs_bf16"] = sum(
+                x == y for o, r in zip(outs, bf16_outs) for x, y in zip(o, r)
+            ) / (len(outs) * max_new)
+        emit(check)
+        bad = [k for k in ("prefill_last_position", "decode_step_row0")
+               if check[k][1] > SERVE_LOGITS_TOL]
+        if weights == "int8" and (
+                check["int8_vs_bf16_fp32_compute"][1] > INT8_TOL):
+            bad.append("int8_vs_bf16_fp32_compute")
+        if bad:
+            raise AssertionError(f"serve ({weights}): {bad} past tolerance")
+
+        # Bytes a decode step must read: every weight but the embedding
+        # table (B rows are gathered), plus the KV slots in use.
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for n, t in model.named_parameters() if n != "embed")
+        weight_bytes += b * cfg.d_model * model.embed.element_size()
+        bound_ms = (weight_bytes + kv_bytes) / chip.hbm_bw_bytes_per_s * 1e3
+        emit({"serve_summary": {
+            "weights": weights, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_ms, "generate_ms": total_ms,
+            "tokens_per_s": b * max_new / (total_ms / 1e3),
+            "decode_tokens_per_s": b / (decode_ms / 1e3),
+            "weight_bytes_per_step": weight_bytes,
+            "kv_bytes_per_step": kv_bytes,
+            "hbm_bound_ms_per_step": bound_ms,
+            "hbm_bound_share": bound_ms / decode_ms,
+            "peak_mem_gb": peak_gb, "launches": launches,
+            "device": kind, "nvidia_smi": smi,
+        }})
+
+
 def main() -> int:
     try:
         import torch
@@ -462,6 +627,14 @@ def main() -> int:
           "max_abs_err": abs_e, "rel_err": rel_e, "tol": LOGITS_TOL})
     if rel_e > LOGITS_TOL:
         return fail("flash logits disagree with the plain path")
+
+    # 5. The serve slice, with the train phase's memory freed.
+    del trainer, plain_model, flash_logits, plain_logits
+    torch.cuda.empty_cache()
+    try:
+        serve_phase(torch, chip, kind, smi)
+    except AssertionError as e:
+        return fail(str(e))
 
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),

@@ -32,11 +32,60 @@ def category(name: str) -> str:
         if k in name:
             return k
     low = name.lower()
-    if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
+    if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet",
+                              "sm90_")):
         return "gemm"
     if "at::native" in name:
         return "torch_elementwise_reduce"
     return "other"
+
+
+def trace_breakdown(prof, steps: int, wall_s: float, trace=None) -> dict:
+    """Per step of a ``torch.profiler`` run over ``steps`` steps that took
+    ``wall_s`` seconds each: device busy time (the union of kernel,
+    memcpy and memset intervals), idle share, the number of those device
+    operations, time by category and the top kernels. Keeps the Chrome
+    trace at ``trace``. A negative idle share means the trace was
+    miscounted: it is reported on stderr."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels: dict[str, float] = {}
+    spans = []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in (
+            "kernel", "gpu_memcpy", "gpu_memset"
+        ):
+            kernels[e["name"]] = kernels.get(e["name"], 0.0) + e["dur"]
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+    busy_us = 0.0
+    end = float("-inf")
+    for lo, hi in sorted(spans):
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    busy_ms = busy_us / 1e3 / steps
+    by_cat: dict[str, float] = {}
+    for name, us in kernels.items():
+        c = category(name)
+        by_cat[c] = by_cat.get(c, 0.0) + us / 1e3 / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    idle_share = 1.0 - busy_ms / (wall_s * 1e3)
+    if idle_share < 0.0:
+        print(f"device busy {busy_ms:.3f} ms exceeds wall "
+              f"{wall_s * 1e3:.3f} ms per step: the trace was miscounted",
+              file=sys.stderr)
+    return {
+        "wall_ms_per_step": wall_s * 1e3,
+        "device_busy_ms_per_step": busy_ms,
+        "idle_share": idle_share,
+        "device_ops_per_step": len(spans) / steps,
+        "ms_per_step_by_category": by_cat,
+        "top_kernels_ms_per_step": [
+            {"name": n[:120], "ms": us / 1e3 / steps} for n, us in top
+        ],
+    }
 
 
 def main() -> int:
@@ -69,49 +118,11 @@ def main() -> int:
         for b in batches:
             float(trainer.train_step(b)["loss"])
         wall = (time.perf_counter() - t0) / args.steps
-    with tempfile.TemporaryDirectory() as tmp:
-        path = args.trace or os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels: dict[str, float] = {}
-    spans = []
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in (
-            "kernel", "gpu_memcpy", "gpu_memset"
-        ):
-            kernels[e["name"]] = kernels.get(e["name"], 0.0) + e["dur"]
-            spans.append((e["ts"], e["ts"] + e["dur"]))
-    busy_us = 0.0
-    end = float("-inf")
-    for lo, hi in sorted(spans):
-        busy_us += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-    busy_ms = busy_us / 1e3 / args.steps
-    by_cat: dict[str, float] = {}
-    for name, us in kernels.items():
-        c = category(name)
-        by_cat[c] = by_cat.get(c, 0.0) + us / 1e3 / args.steps
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
-    idle_share = 1.0 - busy_ms / (wall * 1e3)
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
-        "layers": args.layers,
-        "steps_traced": args.steps,
-        "wall_ms_per_step": wall * 1e3,
-        "device_busy_ms_per_step": busy_ms,
-        "idle_share": idle_share,
-        "ms_per_step_by_category": by_cat,
-        "top_kernels_ms_per_step": [
-            {"name": n[:120], "ms": us / 1e3 / args.steps} for n, us in top
-        ],
-    }), flush=True)
-    if idle_share < 0.0:
-        print(f"profile_torch_train: device busy {busy_ms:.3f} ms exceeds "
-              f"wall {wall * 1e3:.3f} ms per step: the trace was miscounted",
-              file=sys.stderr)
-        return 1
-    return 0
+    out = trace_breakdown(prof, args.steps, wall, args.trace)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "layers": args.layers, "steps_traced": args.steps}
+                     | out), flush=True)
+    return 0 if out["idle_share"] >= 0.0 else 1
 
 
 if __name__ == "__main__":

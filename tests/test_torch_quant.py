@@ -1,0 +1,161 @@
+"""tpufw_torch.ops.quant vs tpufw.ops.quant, and the int8 Llama.
+
+The port's ``quantize_params`` on a converted state dict gives the same
+int8 codes as the JAX package's on the Flax tree, with scales within 1e-6
+relative; a JAX int8 tree moved through ``params_from_flax`` gives logits
+within 1e-4 of the JAX int8 model's (relative to their largest) and the
+same greedy tokens; int8 stays within ``tests/test_quant.py``'s 5% of the
+fp logits and matches at least half of fp's greedy tokens.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_parity import flax_params, pair, torch_model
+from tpufw.infer import generate_text as j_generate_text
+from tpufw.models.llama import Llama as JLlama
+from tpufw.ops import quant as j_quant
+from tpufw_torch.infer import generate_text
+from tpufw_torch.interop import params_from_flax
+from tpufw_torch.models import Llama
+from tpufw_torch.ops import quant
+
+PROMPTS = [[5, 17, 101, 7, 42, 9, 3], [200, 11], [77, 12, 200, 1]]
+
+
+def _tokens(seed=1, shape=(2, 33)):
+    return np.random.default_rng(seed).integers(0, 256, shape).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_pair(name):
+    """(JAX int8 config, port int8 config, fp Flax params, JAX int8 tree)."""
+    jcfg, tcfg = pair(name, quantized_weights=True)
+    fp = flax_params(dataclasses.replace(jcfg, quantized_weights=False))
+    # Eager, as the JAX serve path calls it: jitted, it rounds a few codes
+    # that sit on a rounding boundary the other way.
+    return jcfg, tcfg, fp, jax.device_get(j_quant.quantize_params(fp))
+
+
+@pytest.mark.parametrize("name", ["llama3_tiny", "qwen25_tiny"])
+def test_quantize_params_codes_equal_jax(name):
+    _, tcfg, fp, jq = _int8_pair(name)
+    want = params_from_flax(jq, tcfg)
+    got = quant.quantize_params(params_from_flax(fp, tcfg))
+    assert got.keys() == want.keys()
+    model_keys = Llama(tcfg, device="cpu").state_dict().keys()
+    assert got.keys() == model_keys
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype, k
+        if w.dtype == torch.int8:
+            assert torch.equal(g, w), k
+        else:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                       atol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kernel_matches_jax(dtype):
+    """Codes equal for fp32 and bf16 weights (the scale is computed in the
+    weight's dtype, then fp32, as in the JAX package); the round trip is
+    within half a scale step."""
+    w = np.random.default_rng(0).standard_normal((64, 4, 16)).astype(np.float32)
+    jw = jnp.asarray(w).astype(dtype)
+    want = j_quant.quantize_kernel(jw, (0,))
+    got = quant.quantize_kernel(
+        torch.tensor(np.asarray(jw.astype(jnp.float32))).to(
+            getattr(torch, dtype)), (0,))
+    assert torch.equal(got["q_kernel"],
+                       torch.tensor(np.asarray(want["q_kernel"])))
+    np.testing.assert_allclose(got["scale"].numpy(),
+                               np.asarray(want["scale"]), rtol=1e-6, atol=0)
+    back = got["q_kernel"].float() * got["scale"]
+    err = (back - torch.tensor(np.asarray(jw.astype(jnp.float32)))).abs()
+    assert (err <= got["scale"] / 2 + 1e-7).all()
+
+
+def test_quantize_kv_matches_jax():
+    kv = np.random.default_rng(2).standard_normal((2, 5, 2, 16)).astype(
+        np.float32)
+    jq, js = j_quant.quantize_kv(jnp.asarray(kv), n_feat=2)
+    q, s = quant.quantize_kv(torch.tensor(kv), n_feat=2)
+    assert torch.equal(q, torch.tensor(np.asarray(jq)))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(
+        quant.dequantize_kv(q, s, torch.float32).numpy(),
+        np.asarray(j_quant.dequantize_kv(jq, js, jnp.float32)),
+        rtol=1e-6, atol=1e-7,
+    )
+
+
+def test_quant_contract_matches_jax():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 5, 16)).astype(np.float32)
+    q = rng.integers(-127, 128, (16, 8)).astype(np.int8)  # [in, out]
+    s = rng.random(8).astype(np.float32)
+    want = j_quant.quant_contract(jnp.asarray(x), jnp.asarray(q),
+                                  jnp.asarray(s), 1)
+    got = quant.quant_contract(torch.tensor(x), torch.tensor(q.T.copy()),
+                               torch.tensor(s))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["llama3_tiny", "qwen25_tiny"])
+def test_int8_logits_from_a_jax_int8_tree_match_jax(name):
+    jcfg, tcfg, _, jq = _int8_pair(name)
+    tokens = _tokens()
+    want = np.asarray(jax.jit(JLlama(jcfg).apply)({"params": jq}, tokens))
+    with torch.no_grad():
+        got = torch_model(tcfg, jq)(torch.tensor(tokens)).numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_int8_greedy_decode_matches_jax():
+    jcfg, tcfg, _, jq = _int8_pair("llama3_tiny")
+    want = j_generate_text(JLlama(jcfg.decode_config()), jq, PROMPTS,
+                           max_new_tokens=6)
+    got = generate_text(torch_model(tcfg.decode_config(), jq), PROMPTS,
+                        max_new_tokens=6)
+    assert got == want
+
+
+def _fp_and_int8_models():
+    from tpufw_torch.workloads.serve import quantize_model
+
+    _, tcfg = pair("llama3_tiny")
+    fp = Llama(tcfg.decode_config(), device="cpu", seed=1)
+    return fp, quantize_model(fp)
+
+
+def test_int8_forward_close_to_fp():
+    """tests/test_quant.py's rule: int8 logits within 5% of the fp
+    logits' largest magnitude."""
+    fp, q8 = _fp_and_int8_models()
+    tokens = torch.tensor(_tokens(seed=4))
+    with torch.no_grad():
+        ref, out = fp(tokens), q8(tokens)
+    assert (out - ref).abs().max() <= 0.05 * ref.abs().max()
+    assert q8.layers[0].mlp.up.weight.dtype == torch.int8
+    assert q8.lm_head.weight.dtype == torch.int8
+
+
+def test_int8_greedy_mostly_matches_fp():
+    fp, q8 = _fp_and_int8_models()
+    prompts = _tokens(seed=5, shape=(2, 12)).tolist()
+    ref = np.array(generate_text(fp, prompts, max_new_tokens=6))
+    got = np.array(generate_text(q8, prompts, max_new_tokens=6))
+    match = float((got == ref).mean())
+    assert match >= 0.5, f"only {match:.0%} of greedy tokens match fp"
+
+
+def test_quantize_params_needs_projections():
+    with pytest.raises(ValueError, match="no projection weights"):
+        quant.quantize_params({"embed": torch.zeros(4, 2)})

@@ -1,0 +1,173 @@
+"""tpufw_torch.workloads.serve, batch mode, against tpufw.workloads.serve:
+sampling and EOS resolution from the environment, the batch helpers and
+the byte codec give the JAX workload's values; ``run_batch`` and ``main``
+serve the tiny model on the CPU in fp and int8; the knobs that are not
+ported raise."""
+
+import json
+
+import pytest
+import torch
+
+from tpufw.tools.pack_corpus import byte_tokenizer
+from tpufw.workloads import serve as j_serve
+from tpufw_torch.infer import generate_text
+from tpufw_torch.workloads import serve
+
+PROMPTS = [[1, 42, 7, 99], [1, 5], [1, 100, 200, 30, 17]]
+
+
+@pytest.fixture
+def cpu_env(clear_tpufw_env):
+    clear_tpufw_env.setenv("TPUFW_DEVICE", "cpu")
+    clear_tpufw_env.setenv("TPUFW_MODEL", "llama3_tiny")
+    return clear_tpufw_env
+
+
+SAMPLING_ENVS = {
+    "defaults": {},
+    "knobs": {"TEMPERATURE": "0.7", "TOP_K": "40", "MIN_P": "0.05",
+              "REPETITION_PENALTY": "1.2"},
+    "quantized_floats": {"TEMPERATURE": "0.3333", "TOP_P": "0.91234"},
+    "disabled": {"TOP_P": "1.0", "REPETITION_PENALTY": "1", "TOP_K": "0"},
+}
+
+
+@pytest.mark.parametrize("case", sorted(SAMPLING_ENVS))
+def test_sampling_env_matches_jax(clear_tpufw_env, case):
+    for k, v in SAMPLING_ENVS[case].items():
+        clear_tpufw_env.setenv(f"TPUFW_{k}", v)
+    assert vars(serve.sampling_from_env()) == vars(j_serve.sampling_from_env())
+
+
+def test_sampling_env_defaults_greedy(clear_tpufw_env):
+    s = serve.sampling_from_env()
+    assert s.temperature == 0.0
+    assert s.top_k is None and s.top_p is None and s.min_p is None
+    assert s.repetition_penalty is None
+
+
+@pytest.mark.parametrize(
+    "bad", [{"temperature": -1}, {"top_k": 1.5}, {"top_k": -2},
+            {"top_p": 0}, {"min_p": 2}, {"repetition_penalty": 0}],
+)
+def test_make_sampling_rejects_like_jax(bad):
+    with pytest.raises(ValueError):
+        j_serve.make_sampling(**bad)
+    with pytest.raises(ValueError):
+        serve.make_sampling(**bad)
+
+
+@pytest.mark.parametrize("value", [None, "-1", "0", "7"])
+def test_eos_env_matches_jax(clear_tpufw_env, value):
+    if value is not None:
+        clear_tpufw_env.setenv("TPUFW_EOS_ID", value)
+    assert serve.eos_from_env() == j_serve.eos_from_env()
+
+
+def test_batch_helpers_match_jax():
+    for n in (1, 2, 3, 5, 64, 65):
+        assert serve._pow2_ceil(n) == j_serve._pow2_ceil(n)
+        assert serve._pad_batch(PROMPTS[:1] * n, 9) == j_serve._pad_batch(
+            PROMPTS[:1] * n, 9)
+    for need, cap in ((100, 8192), (129, 8192), (257, 8192), (9000, 8192),
+                      (1, 64)):
+        assert serve._cache_bucket(need, cap) == j_serve._cache_bucket(
+            need, cap)
+    assert serve._cache_bucket(129, 8192) == 256
+
+
+def test_text_codec_bytes(clear_tpufw_env):
+    encode, decode = serve.text_codec()
+    text = "héllo, wörld"
+    assert encode(text) == byte_tokenizer(text)
+    assert decode(encode(text)) == text
+    clear_tpufw_env.setenv("TPUFW_TOKENIZER", "gpt2")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        serve.text_codec()
+
+
+@pytest.mark.parametrize("quantize", ["", "int8"])
+def test_run_batch_on_the_cpu(cpu_env, quantize):
+    """The outputs are the greedy continuations of build_generator's
+    model: ``max_new_tokens`` in-vocab ids per prompt, the pow-2 filler
+    row dropped."""
+    if quantize:
+        cpu_env.setenv("TPUFW_QUANTIZE", quantize)
+    results = serve.run_batch(PROMPTS, max_new_tokens=5)
+    model, cfg, restored = serve.build_generator()
+    assert cfg.quantized_weights is bool(quantize)
+    assert (model.layers[0].attn.q.weight.dtype == torch.int8) is bool(quantize)
+    want = generate_text(model, PROMPTS, max_new_tokens=5)
+    assert [r["output"] for r in results] == want
+    for r, p in zip(results, PROMPTS):
+        assert r["prompt"] == p and r["restored_checkpoint"] is restored
+        assert r["model_params"] == cfg.n_params()
+        assert len(r["output"]) == 5
+        assert all(0 <= t < cfg.vocab_size for t in r["output"])
+
+
+def test_run_batch_env_knobs(cpu_env):
+    """TPUFW_PREFILL_CHUNK leaves greedy outputs as they were; sampled
+    output is reproducible; TPUFW_EOS_ID truncates rows after the EOS."""
+    base = serve.run_batch(PROMPTS, max_new_tokens=6)
+    cpu_env.setenv("TPUFW_PREFILL_CHUNK", "2")
+    assert serve.run_batch(PROMPTS, max_new_tokens=6) == base
+    cpu_env.setenv("TPUFW_TEMPERATURE", "0.9")
+    sampled = serve.run_batch(PROMPTS, max_new_tokens=6)
+    assert sampled == serve.run_batch(PROMPTS, max_new_tokens=6)
+    cpu_env.delenv("TPUFW_TEMPERATURE")
+    first = base[0]["output"][0]
+    cpu_env.setenv("TPUFW_EOS_ID", str(first))
+    assert serve.run_batch(PROMPTS[:1], max_new_tokens=6)[0]["output"] == [
+        first]
+
+
+def test_main_prints_one_line_per_prompt(cpu_env, tmp_path, capsys):
+    path = tmp_path / "prompts.json"
+    path.write_text(json.dumps(PROMPTS))
+    for k, v in {"PROMPTS_FILE": str(path), "MAX_NEW_TOKENS": "3",
+                 "QUANTIZE": "int8", "DECODE_DTYPE": "bfloat16"}.items():
+        cpu_env.setenv(f"TPUFW_{k}", v)
+    assert serve.main() == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [ln["prompt"] for ln in lines[:-1]] == PROMPTS
+    assert all(len(ln["output"]) == 3 for ln in lines[:-1])
+    last = lines[-1]
+    assert last["generate_ok"] is True and last["n_prompts"] == 3
+    assert last["max_new_tokens"] == 3 and last["device"] == "cpu"
+
+
+UNPORTED = {
+    "SERVE_PORT": ("8000", "main", NotImplementedError, "item 8"),
+    "SERVE_ROLE": ("prefill", "main", NotImplementedError, "item 9"),
+    "DRAFT_MODEL": ("llama3_tiny", "run_batch", NotImplementedError,
+                    "item 8"),
+    "CHECKPOINT_DIR": ("/ckpt", "build_generator", NotImplementedError,
+                       "item 6"),
+    "PARAMS_CHECKPOINT": ("/ckpt", "build_generator", NotImplementedError,
+                          "item 6"),
+    "HF_CHECKPOINT": ("/hf", "build_generator", NotImplementedError,
+                      "item 6"),
+    "QUANTIZE": ("int4", "build_generator", ValueError, "int8"),
+    "DECODE_DTYPE": ("float99", "run_batch", ValueError, "torch dtype"),
+    "MODEL": ("gpt5", "build_generator", ValueError, "unknown"),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(UNPORTED))
+def test_unported_knobs_raise(cpu_env, knob):
+    value, entry, err, match = UNPORTED[knob]
+    cpu_env.setenv(f"TPUFW_{knob}", value)
+    call = {"main": serve.main,
+            "run_batch": lambda: serve.run_batch(PROMPTS, 2),
+            "build_generator": serve.build_generator}[entry]
+    with pytest.raises(err, match=match):
+        call()
+
+
+def test_serve_refuses_to_fall_back_to_cpu(clear_tpufw_env):
+    clear_tpufw_env.setattr(torch.cuda, "is_available", lambda: False)
+    clear_tpufw_env.setenv("TPUFW_MODEL", "llama3_tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_generator()

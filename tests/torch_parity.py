@@ -1,0 +1,45 @@
+"""Shared set-up of the tpufw_torch serving parity tests: one tiny preset
+in both packages in fp32, the Flax weights moved into the port through
+``params_from_flax``."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import torch
+from flax.core import meta
+
+from tpufw.models.llama import LLAMA_CONFIGS as J_CONFIGS
+from tpufw.models.llama import Llama as JLlama
+from tpufw_torch.interop import params_from_flax
+from tpufw_torch.models.llama import LLAMA_CONFIGS, Llama
+
+PRESETS = ("llama3_tiny", "mistral_tiny", "qwen25_tiny")
+
+
+def pair(name, **overrides):
+    """(JAX config, port config) of ``name`` in fp32."""
+    jcfg = dataclasses.replace(
+        J_CONFIGS[name], dtype=jnp.float32, param_dtype=jnp.float32,
+        **overrides,
+    )
+    tcfg = dataclasses.replace(
+        LLAMA_CONFIGS[name], dtype=torch.float32, param_dtype=torch.float32,
+        **overrides,
+    )
+    return jcfg, tcfg
+
+
+def flax_params(jcfg, seed=0):
+    """Host (numpy) Flax params of ``jcfg``, initialized from ``seed``."""
+    params = jax.jit(JLlama(jcfg).init)(
+        jax.random.key(seed), jnp.zeros((1, 8), jnp.int32)
+    )["params"]
+    return jax.device_get(meta.unbox(params))
+
+
+def torch_model(tcfg, np_params):
+    """The port's model of ``tcfg`` on the CPU, holding ``np_params``."""
+    model = Llama(tcfg, device="cpu")
+    model.load_state_dict(params_from_flax(np_params, tcfg))
+    return model

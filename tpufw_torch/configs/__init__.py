@@ -1,5 +1,6 @@
 from tpufw_torch.configs.presets import (  # noqa: F401
     BENCH_CONFIG_NAME,
     bench_model_config,
+    llama3_8b_serve_slice,
     llama3_8b_train_slice,
 )

@@ -5,13 +5,15 @@ Llama-3 architecture at d_model 1536, 14 layers, 12/6 heads of 128, vocab
 32768, flash attention, remat on.
 
 ``llama3_8b_train_slice`` is the train step that ``chip_smoke.py`` and
-``scripts/profile_torch_train.py`` run on one GPU.
+``scripts/profile_torch_train.py`` run on one GPU;
+``llama3_8b_serve_slice`` is the batch serve run of ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from tpufw_torch.models.llama import LLAMA_CONFIGS, LlamaConfig
@@ -47,3 +49,25 @@ def llama3_8b_train_slice(
     tcfg = TrainerConfig(batch_size=2, seq_len=2048, total_steps=total_steps,
                          warmup_steps=2, log_every=1, loss_chunk_size=512)
     return cfg, tcfg
+
+
+SERVE_PROMPT_LENS = (7, 64, 200, 511)
+
+
+def llama3_8b_serve_slice(
+    seed: int = 0,
+) -> tuple[LlamaConfig, list[list[int]], int]:
+    """(decode config, prompts, max_new_tokens) of the serve run:
+    Llama-3-8B at full width and all 32 layers, bf16 weights, a KV cache
+    of 2048 slots per row (a serving budget, not a width), and 4 prompts
+    of 7, 64, 200 and 511 token ids drawn from a numpy ``seed``, each
+    continued by 32 greedy tokens."""
+    cfg = dataclasses.replace(
+        LLAMA_CONFIGS["llama3_8b"], param_dtype=torch.bfloat16,
+        max_seq_len=2048,
+    ).decode_config()
+    rng = np.random.default_rng(seed)
+    prompts = [
+        rng.integers(1, cfg.vocab_size, n).tolist() for n in SERVE_PROMPT_LENS
+    ]
+    return cfg, prompts, 32

@@ -1,0 +1,27 @@
+"""Inference: KV-cache generation, sampling and the slot pool (port of
+``tpufw.infer``; paged, prefix, spill and speculative serving are
+ROADMAP.md Queue 1 item 8)."""
+
+from tpufw_torch.infer.generate import (  # noqa: F401
+    cast_decode_params,
+    generate,
+    generate_stream,
+    generate_text,
+    generate_text_stream,
+    pad_prompts,
+    prefill_cache,
+)
+from tpufw_torch.infer.sampling import (  # noqa: F401
+    SamplingConfig,
+    apply_min_p,
+    apply_repetition_penalty,
+    apply_top_k,
+    apply_top_p,
+    sample_token,
+    transform_logits,
+)
+from tpufw_torch.infer.slots import (  # noqa: F401
+    SlotPool,
+    pool_cache,
+    prefill_row,
+)

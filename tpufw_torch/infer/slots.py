@@ -1,0 +1,181 @@
+"""Slot pool for continuous batching (port of ``tpufw.infer.slots``).
+
+The KV cache is a pool of ``S`` slots with fixed shapes (``[S, cache_len,
+heads, dim]`` per layer) and per-slot cursors (``KVCache.index`` is an
+[S] tensor, so the model's cached attention writes each row at its own
+offset). Requests move through it at decode-step granularity:
+
+- ``prefill_row`` runs one request's prompt through a B=1 cache (the
+  shared prefill and first-token code of ``generate``);
+- ``SlotPool.insert`` copies that row cache into slot ``i``;
+- ``SlotPool.decode_steps`` advances every slot ``n`` tokens under
+  per-slot ``(pos, done, remaining, seen)`` state, so slots join and
+  leave mid-flight without touching the others;
+- ``SlotPool.retire`` freezes a slot (error paths; natural completions
+  are frozen by the step itself).
+
+Eager PyTorch traces nothing, so the JAX module's ``TRACE_COUNTS`` (jit
+traces, proving that occupancy changes never recompile) are not ported:
+that contract returns with CUDA graphs or ``torch.compile``. Speculative
+decoding on the pool (``spec_steps``, ``spec_draft_steps``) is ROADMAP.md
+Queue 1 item 8.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from tpufw_torch.infer.generate import _decode_step, _on, _prefill_and_first
+from tpufw_torch.infer.sampling import SamplingConfig, track_seen
+
+
+def pool_cache(model, n_slots: int) -> list:
+    """A zeroed ``n_slots`` cache for ``model`` with per-slot cursors.
+    Never-written slots keep segment 0, which the segment mask hides."""
+    return model.init_cache(n_slots, per_row=True)
+
+
+@torch.no_grad()
+def prefill_row(
+    model,
+    prompt,
+    generator: Optional[torch.Generator],
+    *,
+    sampling: SamplingConfig,
+    eos_id: Optional[int],
+    pad_to: Optional[int] = None,
+    prefill_chunk_size: Optional[int] = None,
+    pad_id: int = 0,
+):
+    """B=1 prefill of one request. ``pad_to`` left-pads the prompt to a
+    bucketed width. Returns ``(row_cache, first, first_int, done, seen)``;
+    ``first_int`` is the first token on the host."""
+    p = len(prompt)
+    width = max(pad_to or p, p)
+    tokens = np.full((1, width), pad_id, np.int32)
+    if p:
+        tokens[0, width - p:] = np.asarray(prompt, np.int32)
+    cache, first, _, done, seen = _prefill_and_first(
+        model, _on(model, tokens), _on(model, [width - p]), generator,
+        sampling=sampling, eos_id=eos_id,
+        prefill_chunk_size=prefill_chunk_size,
+    )
+    return cache, first, int(first[0]), done, seen
+
+
+@dataclasses.dataclass
+class SlotPool:
+    """Device state of one (cache_len, sampling) pool. Which request owns
+    which slot is the scheduler's business; this object carries the
+    tensors."""
+
+    model: Any
+    n_slots: int
+    sampling: SamplingConfig
+    pad_id: int
+    eos_id: Optional[int]
+    cache: list
+    token: torch.Tensor
+    pos: torch.Tensor
+    done: torch.Tensor
+    remaining: torch.Tensor
+    seen: Optional[torch.Tensor]
+
+    @classmethod
+    def create(
+        cls,
+        model,
+        n_slots: int,
+        *,
+        sampling: SamplingConfig = SamplingConfig(),
+        pad_id: int = 0,
+        eos_id: Optional[int] = None,
+    ) -> "SlotPool":
+        dev = model.device
+        seen = None
+        if track_seen(sampling):
+            seen = torch.zeros(
+                n_slots, model.cfg.vocab_size, dtype=torch.bool, device=dev
+            )
+        return cls(
+            model=model,
+            n_slots=n_slots,
+            sampling=sampling,
+            pad_id=pad_id,
+            eos_id=eos_id,
+            cache=pool_cache(model, n_slots),
+            token=torch.zeros(n_slots, dtype=torch.long, device=dev),
+            pos=torch.zeros(n_slots, dtype=torch.long, device=dev),
+            # Empty slots are born done with no budget: they emit pad and
+            # their zeroed, segment-0 cache rows stay invisible.
+            done=torch.ones(n_slots, dtype=torch.bool, device=dev),
+            remaining=torch.zeros(n_slots, dtype=torch.long, device=dev),
+            seen=seen,
+        )
+
+    @property
+    def cache_len(self) -> int:
+        return int(self.model.cfg.max_seq_len)
+
+    @torch.no_grad()
+    def insert(self, slot: int, row_cache, first, pos0: int, budget: int,
+               row_seen=None) -> None:
+        """Occupy ``slot`` with a prefilled row. ``budget`` is the number
+        of decode steps left (max_new − 1: the first token is out)."""
+        for pool, row in zip(self.cache, row_cache):
+            pool.key[slot].copy_(row.key[0])
+            pool.value[slot].copy_(row.value[0])
+            pool.seg[slot].copy_(row.seg[0])
+            pool.index[slot] = row.index
+        self.token[slot] = torch.as_tensor(first).reshape(())
+        self.pos[slot] = pos0
+        self.done[slot] = False
+        self.remaining[slot] = budget
+        if self.seen is not None:
+            self.seen[slot] = row_seen[0]
+
+    @torch.no_grad()
+    def decode_steps(
+        self, n_steps: int, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        """Advance every slot ``n_steps`` tokens; returns [S, n_steps].
+        A slot emits its token, then spends budget, so the EOS or last
+        token is delivered and the slot freezes after it; done slots keep
+        stepping but feed pad back and emit pad."""
+        out = []
+        for _ in range(n_steps):
+            was_done = self.done
+            self.token, self.pos, done = _decode_step(
+                self.model, self.cache, self.token, self.pos, was_done,
+                self.seen, generator, sampling=self.sampling,
+                pad_id=self.pad_id, eos_id=self.eos_id,
+            )
+            self.remaining = torch.where(
+                was_done, self.remaining, self.remaining - 1
+            )
+            self.done = done | (self.remaining <= 0)
+            out.append(self.token)
+        return torch.stack(out, dim=1)
+
+    def spec_steps(self, proposals, generator=None):
+        raise NotImplementedError(
+            "SlotPool.spec_steps: speculative decoding on the slot pool is "
+            "not ported to tpufw_torch yet (ROADMAP.md Queue 1 item 8)"
+        )
+
+    def spec_draft_steps(self, draft_pool, generator=None, k: int = 4):
+        raise NotImplementedError(
+            "SlotPool.spec_draft_steps: speculative decoding on the slot "
+            "pool is not ported to tpufw_torch yet (ROADMAP.md Queue 1 "
+            "item 8)"
+        )
+
+    @torch.no_grad()
+    def retire(self, slot: int) -> None:
+        """Freeze ``slot`` (error paths)."""
+        self.done[slot] = True
+        self.remaining[slot] = 0

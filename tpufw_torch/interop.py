@@ -7,7 +7,11 @@ Layout facts of the JAX package it handles:
 - ``DenseGeneral`` kernels are [in, *out] (q is [D, H, hd], o is
   [H, hd, D]); PyTorch weights are [out, in];
 - ``lm_head`` is [D, V] and absent when the embedding is tied;
-- RMSNorm weights are stored under ``scale``.
+- RMSNorm weights are stored under ``scale``;
+- a tree from ``tpufw.ops.quant.quantize_params`` holds, for each
+  projection and the untied ``lm_head``, ``{"q_kernel" [in, *out] int8,
+  "scale" [*out]}`` (plus the Qwen ``bias``); it becomes the port's int8
+  [out, in] ``weight`` and [out] ``scale`` (``quantized_weights=True``).
 
 The input is a nested dict of numpy arrays (``jax.device_get`` of the
 params, or of a gradient tree of the same shape). Nothing here imports
@@ -26,7 +30,10 @@ _PROJ = {
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+    """int8 stays int8; every float leaf becomes fp32."""
+    x = np.asarray(x)
+    dtype = np.int8 if x.dtype == np.int8 else np.float32
+    return torch.from_numpy(np.array(x, dtype=dtype, copy=True))
 
 
 def _kernel(kernel: np.ndarray, name: str) -> torch.Tensor:
@@ -45,9 +52,14 @@ def _block(tree: dict, prefix: str, out: dict) -> None:
     for mod, names in _PROJ.items():
         for name in names:
             leaf = tree[mod][name]
-            out[f"{prefix}.{mod}.{name}.weight"] = _kernel(leaf["kernel"], name)
+            key = f"{prefix}.{mod}.{name}"
+            if "q_kernel" in leaf:
+                out[f"{key}.weight"] = _kernel(leaf["q_kernel"], name)
+                out[f"{key}.scale"] = _t(np.asarray(leaf["scale"]).reshape(-1))
+            else:
+                out[f"{key}.weight"] = _kernel(leaf["kernel"], name)
             if "bias" in leaf:
-                out[f"{prefix}.{mod}.{name}.bias"] = _t(
+                out[f"{key}.bias"] = _t(
                     np.asarray(leaf["bias"]).reshape(-1)
                 )
 
@@ -64,8 +76,12 @@ def params_from_flax(tree: dict, cfg) -> dict[str, torch.Tensor]:
         for i in range(cfg.n_layers):
             _block(tree[f"layer_{i}"], f"layers.{i}", out)
     out["final_norm.weight"] = _t(tree["final_norm"]["scale"])
-    if "lm_head" in tree:
-        out["lm_head"] = _t(np.asarray(tree["lm_head"]["kernel"]).T)
+    head = tree.get("lm_head")
+    if head is not None and "q_kernel" in head:
+        out["lm_head.weight"] = _t(np.asarray(head["q_kernel"]).T)
+        out["lm_head.scale"] = _t(head["scale"])
+    elif head is not None:
+        out["lm_head"] = _t(np.asarray(head["kernel"]).T)
     elif not cfg.tie_embeddings:
         raise KeyError("untied config but the Flax tree has no lm_head")
     return out

@@ -7,6 +7,14 @@ backward pass under ``cfg.remat`` (``torch.utils.checkpoint``).
 Attention goes through ``tpufw_torch.ops.multi_head_attention``, so the
 CUDA flash kernels drop in with ``attention_backend="flash"``.
 
+Serving: ``cfg.decode_config()`` builds the decode twin, whose ``forward``
+also takes ``cache=``, a list of per-layer ``KVCache`` (``Llama.init_cache``):
+each call writes its keys and values at the cache cursor and attends over
+the whole cache through the plain attention path. With
+``quantized_weights`` every projection and the untied head hold int8
+codes and per-output-channel scales (``QuantProjection``; the state dict
+comes from ``tpufw_torch.ops.quant.quantize_params``).
+
 Parameter layout is PyTorch's: a projection's weight is [out, in].
 ``tpufw_torch.interop.params_from_flax`` converts a Flax param tree.
 """
@@ -15,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +31,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpufw_torch.ops import multi_head_attention, rms_norm
+from tpufw_torch.ops.loss import head_logits
+from tpufw_torch.ops.quant import quant_contract
 from tpufw_torch.utils.hardware import resolve_device
 
 
@@ -65,11 +75,23 @@ class LlamaConfig:
     sliding_window: Optional[int] = None
     # Qwen-2 style biases on the q/k/v projections.
     attention_qkv_bias: bool = False
-    # Not ported yet (ROADMAP.md Queue 1 items 7, 8, 10); must stay off.
+    # KV-cache serving model (``forward(..., cache=...)``); build with
+    # decode_config().
     decode: bool = False
+    # Int8 projection weights + fp32 per-output-channel scales (serving
+    # only; the state dict comes from ops.quant.quantize_params).
     quantized_weights: bool = False
+    # Not ported yet (ROADMAP.md Queue 1 items 8, 10); must stay off.
     kv_page: int = 0
     lora_rank: int = 0
+
+    def decode_config(self) -> "LlamaConfig":
+        """This architecture dressed for inference: KV cache on, remat off
+        (no backward pass), plain attention (the flash kernels are the
+        trainer's)."""
+        return dataclasses.replace(
+            self, decode=True, remat=False, attention_backend="xla"
+        )
 
     def n_params(self, include_embed: bool = True) -> int:
         """Analytic parameter count (exact for this architecture)."""
@@ -282,6 +304,69 @@ class Projection(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
+class QuantProjection(nn.Module):
+    """The int8 serving twin of ``Projection`` (``QuantDenseGeneral``):
+    int8 codes [out, in], an fp32 scale [out] and an optional fp32 bias.
+    Output: x · W.to(dtype)ᵀ × scale (+ bias), all in ``dtype``. Zeros
+    and ones until a quantized state dict is loaded."""
+
+    def __init__(self, d_in, d_out, dtype, bias=False, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.zeros(d_out, d_in, dtype=torch.int8, device=device),
+            requires_grad=False,
+        )
+        self.scale = nn.Parameter(
+            torch.ones(d_out, dtype=torch.float32, device=device),
+            requires_grad=False,
+        )
+        self.bias = (
+            nn.Parameter(
+                torch.zeros(d_out, dtype=torch.float32, device=device),
+                requires_grad=False,
+            )
+            if bias else None
+        )
+
+    def forward(self, x):
+        y = quant_contract(x.to(self.dtype), self.weight, self.scale)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+def _projection(d_in, d_out, cfg, gen, bias=False, device=None):
+    if cfg.quantized_weights:
+        return QuantProjection(d_in, d_out, cfg.dtype, bias, device)
+    return Projection(d_in, d_out, cfg, gen, bias, device)
+
+
+def _head_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp32 logits x · wᵀ of an untied head [V, D], as the JAX head's
+    ``DenseGeneral(dtype=float32)`` computes them: both operands promoted
+    to fp32. bf16 activations against bf16 or int8 weights are exact in
+    bf16, so those take a bf16 product with fp32 sums instead, which
+    needs no fp32 copy of the weight."""
+    if x.dtype == torch.bfloat16 and w.dtype in (torch.bfloat16, torch.int8):
+        return head_logits(x, w.t(), torch.bfloat16)
+    return F.linear(x.float(), w.float())
+
+
+@dataclasses.dataclass
+class KVCache:
+    """One layer's KV cache. ``key``/``value`` [B, S, K, D] in
+    ``cfg.dtype``; ``seg`` [B, S] int32 segment ids, 0 for slots never
+    written (and prompt padding), which the segment mask hides; ``index``
+    the next slot to write: one int for every row, or a [B] tensor of
+    per-row cursors (the slot pool's)."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+    seg: torch.Tensor
+    index: Union[int, torch.Tensor]
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig, gen, window=None, device=None):
         super().__init__()
@@ -289,12 +374,12 @@ class Attention(nn.Module):
         self.window = window
         d, hd = cfg.d_model, cfg.head_dim
         bias = cfg.attention_qkv_bias
-        self.q = Projection(d, cfg.n_heads * hd, cfg, gen, bias, device)
-        self.k = Projection(d, cfg.n_kv_heads * hd, cfg, gen, bias, device)
-        self.v = Projection(d, cfg.n_kv_heads * hd, cfg, gen, bias, device)
-        self.o = Projection(cfg.n_heads * hd, d, cfg, gen, False, device)
+        self.q = _projection(d, cfg.n_heads * hd, cfg, gen, bias, device)
+        self.k = _projection(d, cfg.n_kv_heads * hd, cfg, gen, bias, device)
+        self.v = _projection(d, cfg.n_kv_heads * hd, cfg, gen, bias, device)
+        self.o = _projection(cfg.n_heads * hd, d, cfg, gen, False, device)
 
-    def forward(self, x, positions, segment_ids=None):
+    def forward(self, x, positions, segment_ids=None, cache=None):
         cfg = self.cfg
         b, t, _ = x.shape
         q = self.q(x).view(b, t, cfg.n_heads, cfg.head_dim)
@@ -308,14 +393,69 @@ class Attention(nn.Module):
                 "is causal-relative; set sliding_window=None for "
                 "bidirectional embedding fine-tuning"
             )
-        out = multi_head_attention(
-            q, k, v,
-            causal=cfg.causal,
-            segment_ids=segment_ids,
-            sliding_window=self.window,
-            backend=cfg.attention_backend,
-        )
+        if cache is not None:
+            if not cfg.causal:
+                raise ValueError(
+                    "causal=False with a KV cache: a KV cache is a causal "
+                    "construct"
+                )
+            out = self._cached_attention(q, k, v, segment_ids, cache)
+        else:
+            out = multi_head_attention(
+                q, k, v,
+                causal=cfg.causal,
+                segment_ids=segment_ids,
+                sliding_window=self.window,
+                backend=cfg.attention_backend,
+            )
         return self.o(out.reshape(b, t, cfg.n_heads * cfg.head_dim))
+
+    def _cached_attention(self, q, k, v, segment_ids, cache: KVCache):
+        """Write this call's k/v at the cache cursor, then attend q over
+        the whole cache. Causality goes by cache slot, not by RoPE
+        position: under left padding a token's position lags its slot by
+        the row's pad length. With per-row cursors the write window is
+        clamped to ``S - t``, so a row that is done but still stepped
+        writes in bounds (its output is masked by the caller)."""
+        b, t = q.shape[:2]
+        s = cache.key.shape[1]
+        dev = q.device
+        seg = (
+            torch.ones(b, t, dtype=torch.int32, device=dev)
+            if segment_ids is None else segment_ids.to(torch.int32)
+        )
+        cur = cache.index
+        if isinstance(cur, int):
+            if cur + t > s:
+                raise ValueError(
+                    f"KV cache overflow: writing {t} tokens at slot {cur} "
+                    f"of {s}"
+                )
+            cache.key[:, cur:cur + t] = k
+            cache.value[:, cur:cur + t] = v
+            cache.seg[:, cur:cur + t] = seg
+            slots = (cur + torch.arange(t, device=dev)).expand(b, t)
+        else:
+            slots = (
+                torch.clamp(cur, max=s - t)[:, None]
+                + torch.arange(t, device=dev)[None, :]
+            )
+            rows = torch.arange(b, device=dev)[:, None]
+            cache.key[rows, slots] = k.to(cache.key.dtype)
+            cache.value[rows, slots] = v.to(cache.value.dtype)
+            cache.seg[rows, slots] = seg
+        cache.index = cur + t
+        return multi_head_attention(
+            q,
+            cache.key,
+            cache.value,
+            causal=True,
+            segment_ids=seg,
+            kv_segment_ids=cache.seg,
+            q_positions=slots,
+            sliding_window=self.window,
+            backend="xla",
+        )
 
 
 class MLP(nn.Module):
@@ -323,9 +463,10 @@ class MLP(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, gen, device=None):
         super().__init__()
-        self.gate = Projection(cfg.d_model, cfg.d_ff, cfg, gen, False, device)
-        self.up = Projection(cfg.d_model, cfg.d_ff, cfg, gen, False, device)
-        self.down = Projection(cfg.d_ff, cfg.d_model, cfg, gen, False, device)
+        d, f = cfg.d_model, cfg.d_ff
+        self.gate = _projection(d, f, cfg, gen, False, device)
+        self.up = _projection(d, f, cfg, gen, False, device)
+        self.down = _projection(f, d, cfg, gen, False, device)
 
     def forward(self, x):
         return self.down(F.silu(self.gate(x)) * self.up(x))
@@ -339,15 +480,13 @@ class LlamaBlock(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.mlp = MLP(cfg, gen, device)
 
-    def forward(self, x, positions, segment_ids=None):
-        x = x + self.attn(self.attn_norm(x), positions, segment_ids)
+    def forward(self, x, positions, segment_ids=None, cache=None):
+        x = x + self.attn(self.attn_norm(x), positions, segment_ids, cache)
         return x + self.mlp(self.mlp_norm(x))
 
 
 def _reject_unported(cfg: LlamaConfig) -> None:
     for field, name in (
-        ("decode", "KV-cache decode"),
-        ("quantized_weights", "int8 weights"),
         ("kv_page", "the paged KV cache"),
         ("lora_rank", "LoRA adapters"),
     ):
@@ -361,7 +500,10 @@ def _reject_unported(cfg: LlamaConfig) -> None:
 class Llama(nn.Module):
     """Decoder-only Llama-3 LM. ``forward`` returns logits [B, T, vocab],
     or the post-final-norm hidden states [B, T, D] with
-    ``return_hidden=True`` (the chunked-vocab loss path).
+    ``return_hidden=True`` (the chunked-vocab loss path). A decode model
+    (``cfg.decode_config()``) also takes ``cache=``, the list of per-layer
+    ``KVCache`` from ``Llama.init_cache``, which the call advances in place;
+    without it, it runs the ordinary forward over its own tokens.
 
     Weights are drawn on ``device`` (default ``cuda``) from a
     ``torch.Generator`` seeded with ``seed``.
@@ -382,7 +524,11 @@ class Llama(nn.Module):
         )
         self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, dev)
         self.lm_head = None
-        if not cfg.tie_embeddings:
+        if cfg.quantized_weights and not cfg.tie_embeddings:
+            self.lm_head = QuantProjection(
+                cfg.d_model, cfg.vocab_size, torch.float32, device=dev
+            )
+        elif not cfg.tie_embeddings:
             w = torch.empty(
                 cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype,
                 device=dev,
@@ -390,23 +536,54 @@ class Llama(nn.Module):
             w.normal_(0.0, 1.0 / math.sqrt(cfg.d_model), generator=gen)
             self.lm_head = nn.Parameter(w)
 
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def init_cache(self, batch: int, per_row: bool = False) -> list[KVCache]:
+        """Zeroed per-layer KV caches of ``cfg.max_seq_len`` slots for
+        ``batch`` rows on the model's device; ``per_row`` gives each row
+        its own cursor."""
+        cfg, dev = self.cfg, self.device
+        shape = (batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+        return [
+            KVCache(
+                key=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                value=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                seg=torch.zeros(shape[:2], dtype=torch.int32, device=dev),
+                index=(
+                    torch.zeros(batch, dtype=torch.long, device=dev)
+                    if per_row else 0
+                ),
+            )
+            for _ in range(cfg.n_layers)
+        ]
+
     def head_kernel(self) -> torch.Tensor:
         """The [D, V] LM-head matrix (the transposed embedding if tied)."""
         w = self.embed if self.lm_head is None else self.lm_head
         return w.t()
 
     def forward(
-        self, tokens, positions=None, segment_ids=None, return_hidden=False
+        self, tokens, positions=None, segment_ids=None, return_hidden=False,
+        cache=None,
     ):
         cfg = self.cfg
+        if cache is not None and not cfg.decode:
+            raise ValueError(
+                "a KV cache needs a decode model: build it from "
+                "cfg.decode_config()"
+            )
         if positions is None:
             positions = torch.arange(
                 tokens.shape[1], device=tokens.device
             ).expand(tokens.shape)
         x = F.embedding(tokens.long(), self.embed).to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
-        for block in self.layers:
-            if remat:
+        for i, block in enumerate(self.layers):
+            if cache is not None:
+                x = block(x, positions, segment_ids, cache[i])
+            elif remat:
                 x = checkpoint(
                     block, x, positions, segment_ids, use_reentrant=False
                 )
@@ -418,4 +595,6 @@ class Llama(nn.Module):
         if self.lm_head is None:
             # Flax Embed.attend: query and table in the compute dtype.
             return x.to(cfg.dtype) @ self.embed.to(cfg.dtype).t()
-        return F.linear(x.float(), self.lm_head.float())
+        if isinstance(self.lm_head, QuantProjection):
+            return _head_f32(x, self.lm_head.weight) * self.lm_head.scale
+        return _head_f32(x, self.lm_head)
