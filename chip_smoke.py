@@ -39,7 +39,24 @@ Phases, each fatal on failure:
    weights they were quantized from. A
    ``serve_summary`` line per weight dtype gives prefill and decode
    times, tokens/s and the decode step's HBM bound. The serve path runs
-   plain PyTorch attention: no flash kernel may launch there.
+   plain PyTorch attention: no flash kernel may launch there;
+6. serves the same Llama-3-8B weights (bf16, all 32 layers, a 2048-slot
+   ceiling) online through the HTTP server (``_Server``: slot scheduler,
+   8 slots, greedy) on a localhost port, in three modes: contiguous KV,
+   paged KV (page 64) and paged int8 KV. Each gets 16 concurrent SSE
+   requests (prompts of 7, 64, 200 and 511 ids, four of each, 64 tokens
+   each); the paged modes also 4 requests sharing a 448-token prefix, and
+   the contiguous mode a liveness pair (a short request sent after a long
+   one must finish first) and an SSE and a JSON request for one prompt
+   that must agree. Checks: every output holds 64 in-vocab tokens,
+   ``/metrics`` counts the requests and tokens sent, ``/healthz`` is ok,
+   no slot is occupied after the drain, no flash kernel launched; paged:
+   a prefix hit, and after the drain only the trie's pages in use. One
+   admission sequence straight through a contiguous and a paged pool
+   gives step logits within 5% (int8 KV: within 5% of the bf16 KV
+   pool's). An ``online_summary`` line per mode gives wall time, tokens/s,
+   client-side TTFT p50/p95, latency p50, decode ms per step, peak memory
+   and peak pages.
 
 It ends with a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -88,6 +105,21 @@ STEPS = 5
 SERVE_LOGITS_TOL = 5e-2
 INT8_TOL = 5e-2
 SERVE_REPS = 3
+# Online phase: 16 requests, four prompts of each length, ONLINE_NEW
+# greedy tokens each, over ONLINE_SLOTS slots; the paged modes add four
+# requests sharing an ONLINE_PREFIX-token prefix (7 pages of ONLINE_PAGE).
+# The liveness pair is a 511-token prompt with ONLINE_LONG_NEW tokens and
+# a 7-token one with 8. The direct pool comparison runs at ONLINE_CACHE
+# slots, the cache the longest requests get. Its step logits are held to
+# SERVE_LOGITS_TOL (paged vs contiguous, both bf16 KV) and INT8_TOL (int8
+# KV vs bf16 KV).
+ONLINE_PROMPT_LENS = (7, 64, 200, 511)
+ONLINE_NEW = 64
+ONLINE_LONG_NEW = 256
+ONLINE_PREFIX = 448
+ONLINE_PAGE = 64
+ONLINE_SLOTS = 8
+ONLINE_CACHE = 1024
 
 
 def emit(obj) -> None:
@@ -479,6 +511,325 @@ def serve_phase(torch, chip, kind, smi) -> None:
         }})
 
 
+def _percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def _post(base, body):
+    """Parsed JSON reply of ``POST /generate``."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + "/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def _get(url):
+    import urllib.request
+
+    return urllib.request.urlopen(url, timeout=60)
+
+
+def _stream(base, body):
+    """(tokens of one row, seconds to the first token, seconds to done)
+    of an SSE ``POST /generate``, timed on the client."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        base + "/generate", data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    toks, ttft = [], None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for line in resp:
+            if not line.startswith(b"data: "):
+                continue
+            ev = json.loads(line[len(b"data: "):])
+            if "error" in ev:
+                raise AssertionError(f"stream error {ev['error']}")
+            if ev.get("outputs") and ev["outputs"][0]:
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                toks.extend(ev["outputs"][0])
+    return toks, ttft, time.perf_counter() - t0
+
+
+def _concurrently(fns):
+    """Run each function in its own thread, started in order; their
+    results, in order. A failure in any is raised."""
+    import threading
+
+    out, errs = [None] * len(fns), []
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(fns)]
+    for th in threads:
+        th.start()
+        time.sleep(0.002)  # keep the arrival order
+    for th in threads:
+        th.join(timeout=600)
+    if errs or any(th.is_alive() for th in threads):
+        raise AssertionError(f"client failed: {errs or 'timed out'}")
+    return out
+
+
+def pool_run(torch, model, prompts, kind, n_steps):
+    """One admission sequence straight through a pool of ONLINE_SLOTS
+    rows at ONLINE_CACHE slots (``kind``: "contiguous", "paged" or
+    "paged_int8"), each prompt prefilled at its exact width: the first
+    decode step's logits [rows, V] and ``n_steps`` greedy tokens per
+    row."""
+    from tpufw_torch.infer import PagedSlotPool, SamplingConfig, SlotPool
+    from tpufw_torch.infer import prefill_row
+
+    def admit():
+        if kind == "contiguous":
+            pool = SlotPool.create(model, ONLINE_SLOTS,
+                                   cache_len=ONLINE_CACHE)
+        else:
+            pool = PagedSlotPool.create_paged(
+                model, ONLINE_SLOTS, cache_len=ONLINE_CACHE, page=ONLINE_PAGE,
+                kv_quant="int8" if kind == "paged_int8" else "",
+                sampling=SamplingConfig(), prefix_cache=False)
+        for slot, p in enumerate(prompts):
+            cache, _, first, _, _ = prefill_row(
+                model, p, None, sampling=SamplingConfig(), eos_id=None,
+                cache_len=ONLINE_CACHE)
+            if kind == "contiguous":
+                pool.insert(slot, cache, first, len(p), n_steps)
+            else:
+                ids, shared = pool.acquire_pages(p, len(p) + n_steps)
+                pool.insert_paged(slot, cache, first, len(p), n_steps, ids,
+                                  shared)
+        return pool
+
+    with torch.no_grad():
+        pool = admit()
+        ones = torch.ones(ONLINE_SLOTS, 1, dtype=torch.int32,
+                          device=model.device)
+        logits = model(pool.token[:, None], pool.pos[:, None], ones,
+                       cache=pool.cache)[: len(prompts), -1].float()
+        del pool
+        pool = admit()
+        tokens = pool.decode_steps(n_steps)[: len(prompts)].tolist()
+    return logits, tokens
+
+
+def online_phase(torch, kind, smi) -> None:
+    """Phase 6: the HTTP server on Llama-3-8B (all 32 layers, bf16
+    weights, 8 slots, greedy), contiguous, then paged with bf16 KV, then
+    paged with int8 KV, on one set of weights; raises AssertionError on a
+    failed check."""
+    import threading
+
+    import numpy as np
+
+    from tpufw_torch.configs import llama3_8b_serve_slice
+    from tpufw_torch.models import Llama
+    from tpufw_torch.ops import flash
+    from tpufw_torch.workloads import serve
+
+    cfg = llama3_8b_serve_slice()[0]
+    rng = np.random.default_rng(0)
+    by_len = {n: [rng.integers(1, cfg.vocab_size, n).tolist()
+                  for _ in range(4)] for n in ONLINE_PROMPT_LENS}
+    # Interleaved longest first: the first arrival keys a pool every
+    # later request fits.
+    prompts = [by_len[n][i] for i in range(4)
+               for n in reversed(ONLINE_PROMPT_LENS)]
+    shared = rng.integers(1, cfg.vocab_size, ONLINE_PREFIX).tolist()
+    prefixed = [shared + rng.integers(1, cfg.vocab_size, n).tolist()
+                for n in (16, 24, 40, 56)]
+    direct = [by_len[n][0] for n in ONLINE_PROMPT_LENS]
+    emit({"online": "llama3_8b", "n_layers": cfg.n_layers,
+          "params": cfg.n_params(), "param_dtype": "bfloat16",
+          "max_seq_len": cfg.max_seq_len, "slots": ONLINE_SLOTS,
+          "prompt_lens": [len(p) for p in prompts],
+          "prefix_prompt_lens": [len(p) for p in prefixed],
+          "shared_prefix": ONLINE_PREFIX, "max_new_tokens": ONLINE_NEW,
+          "page": ONLINE_PAGE, "sampling": "greedy"})
+    model = Llama(cfg, device="cuda", seed=0)
+    modes = (("contiguous", {}),
+             ("paged_bf16", {"TPUFW_SERVE_PAGE": str(ONLINE_PAGE)}),
+             ("paged_int8", {"TPUFW_SERVE_PAGE": str(ONLINE_PAGE),
+                             "TPUFW_SERVE_KV_QUANT": "int8"}))
+    bf16_paged_logits = bf16_paged_tokens = None
+    for mode, env in modes:
+        for k in [k for k in os.environ if k.startswith("TPUFW_")]:
+            del os.environ[k]
+        os.environ.update(env)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launch_counts()
+        srv = serve._Server(0, 8, model=model)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        while srv.httpd is None:
+            time.sleep(0.01)
+        base = f"http://127.0.0.1:{srv.port}"
+        sched = srv._batcher
+        # Decode time of the warm-up request, left out of the summary.
+        warm_s, warm_steps = sched.decode_s, sched.decode_steps_run
+        try:
+            sent = []  # max_new of every /generate request
+            t0 = time.perf_counter()
+            traffic = prompts + (prefixed if mode != "contiguous" else [])
+            runs = _concurrently([
+                (lambda p=p: _stream(base, {"prompts": [p],
+                                            "max_new_tokens": ONLINE_NEW}))
+                for p in prompts])
+            if mode != "contiguous":
+                # After the first wave, so the 4 share one pool's trie.
+                runs += _concurrently([
+                    (lambda p=p: _stream(base, {"prompts": [p],
+                                                "max_new_tokens": ONLINE_NEW}))
+                    for p in prefixed])
+            wall = time.perf_counter() - t0
+            sent += [ONLINE_NEW] * len(traffic)
+            for toks, _, _ in runs:
+                if len(toks) != ONLINE_NEW or not all(
+                        0 <= t < cfg.vocab_size for t in toks):
+                    raise AssertionError(f"{mode}: bad output {toks}")
+            check = {"check": f"online_{mode}"}
+            if mode == "contiguous":
+                # Liveness: a short request sent after a long one
+                # completes first; an SSE and a JSON request for one
+                # prompt, decoded side by side, agree.
+                long_p, short_p = by_len[511][1], by_len[7][1]
+                long_t = [None]
+
+                def long_req():
+                    out = _post(base, {"prompts": [long_p],
+                                       "max_new_tokens": ONLINE_LONG_NEW})
+                    long_t[0] = time.perf_counter()
+                    return out["outputs"][0]
+
+                def wait_for_long():
+                    deadline = time.perf_counter() + 120
+                    while not sched.slots_occupied:
+                        if time.perf_counter() > deadline:
+                            raise AssertionError("the long request never "
+                                                 "took a slot")
+                        time.sleep(0.005)
+
+                def short_req():
+                    wait_for_long()
+                    out = _post(base, {"prompts": [short_p],
+                                       "max_new_tokens": 8})
+                    return out["outputs"][0], time.perf_counter()
+
+                def pair_req(stream):
+                    wait_for_long()
+                    body = {"prompts": [direct[1]],
+                            "max_new_tokens": ONLINE_NEW}
+                    if stream:
+                        return _stream(base, body)[0]
+                    return _post(base, body)["outputs"][0]
+
+                long_out, (short_out, short_t), sse, js = _concurrently([
+                    long_req, short_req, lambda: pair_req(True),
+                    lambda: pair_req(False)])
+                sent += [ONLINE_LONG_NEW, 8, ONLINE_NEW, ONLINE_NEW]
+                check["short_before_long_s"] = long_t[0] - short_t
+                check["sse_equals_json"] = sse == js
+                if not (long_t[0] > short_t and len(long_out) ==
+                        ONLINE_LONG_NEW and len(short_out) == 8):
+                    raise AssertionError(f"{mode}: liveness {check}")
+                if sse != js:
+                    raise AssertionError(f"{mode}: SSE {sse} != JSON {js}")
+            with _get(base + "/healthz") as r:
+                if json.loads(r.read())["ok"] is not True:
+                    raise AssertionError(f"{mode}: /healthz not ok")
+            with _get(base + "/metrics") as r:
+                metrics = {ln.split()[0]: float(ln.split()[1])
+                           for ln in r.read().decode().splitlines()
+                           if ln and not ln.startswith("#")}
+            launches = dict(flash.LAUNCHES)
+            check.update({
+                "requests": [metrics["tpufw_serve_requests_total"],
+                             len(sent)],
+                "tokens": [metrics["tpufw_serve_tokens_generated_total"],
+                           sum(sent)],
+                "errors": metrics["tpufw_serve_request_errors_total"],
+                "slots_occupied_after": metrics[
+                    "tpufw_serve_slots_occupied"],
+                "flash_launches": launches,
+            })
+            bad = [k for k in ("requests", "tokens")
+                   if check[k][0] != check[k][1]]
+            if check["errors"] or check["slots_occupied_after"]:
+                bad.append("errors or slots")
+            if any(launches.values()):
+                bad.append("flash launched")
+            if mode != "contiguous":
+                check["prefix_hits"] = metrics[
+                    "tpufw_serve_prefix_hits_total"]
+                check["pages_in_use_after"] = sched.pages_in_use
+                check["trie_pages"] = len(sched.pool.prefix)
+                if check["prefix_hits"] <= 0:
+                    bad.append("no prefix hit")
+                if check["pages_in_use_after"] != check["trie_pages"]:
+                    bad.append("pages in use beside the trie's")
+            ttft = [r[1] * 1e3 for r in runs]
+            summary = {
+                "mode": mode, "wall_s": wall, "requests": len(traffic),
+                "output_tokens": ONLINE_NEW * len(traffic),
+                "tokens_per_s": ONLINE_NEW * len(traffic) / wall,
+                "ttft_ms_p50": _percentile(ttft, 0.5),
+                "ttft_ms_p95": _percentile(ttft, 0.95),
+                "ttft_ms_sorted": [round(t) for t in sorted(ttft)],
+                "latency_ms_p50": _percentile([r[2] * 1e3 for r in runs],
+                                              0.5),
+                "decode_ms_per_step": ((sched.decode_s - warm_s)
+                                       / (sched.decode_steps_run - warm_steps)
+                                       * 1e3),
+                "decode_steps": sched.decode_steps_run - warm_steps,
+                "pool_switches": metrics["tpufw_serve_pool_switches_total"],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_pages_in_use": sched.peak_pages_in_use,
+                "pages_total": sched.pages_total,
+                "device": kind, "nvidia_smi": smi,
+            }
+        finally:
+            srv.shutdown()
+        if mode != "contiguous":
+            # One admission sequence straight through the pools.
+            logits, tokens = pool_run(
+                torch, model, direct,
+                "paged_int8" if mode == "paged_int8" else "paged", 32)
+            if mode == "paged_bf16":
+                ref_logits, ref_tokens = pool_run(torch, model, direct,
+                                                  "contiguous", 32)
+                err, tol, vs = rel_err(torch, logits, ref_logits), \
+                    SERVE_LOGITS_TOL, "contiguous"
+                bf16_paged_logits, bf16_paged_tokens = logits, tokens
+            else:
+                ref_tokens = bf16_paged_tokens
+                err, tol, vs = rel_err(torch, logits, bf16_paged_logits), \
+                    INT8_TOL, "paged_bf16"
+            check["step_logits_vs_" + vs] = err
+            check["tol"] = tol
+            check["greedy_match_vs_" + vs] = sum(
+                x == y for o, r in zip(tokens, ref_tokens)
+                for x, y in zip(o, r)) / (len(tokens) * 32)
+            if err[1] > tol:
+                bad.append("step logits past tolerance")
+        emit(check)
+        emit({"online_summary": summary})
+        if bad:
+            raise AssertionError(f"online {mode}: {bad}")
+    for k in [k for k in os.environ if k.startswith("TPUFW_")]:
+        del os.environ[k]
+
+
 def main() -> int:
     try:
         import torch
@@ -633,6 +984,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     try:
         serve_phase(torch, chip, kind, smi)
+    except AssertionError as e:
+        return fail(str(e))
+
+    # 6. The online server, with phase 5's models freed.
+    torch.cuda.empty_cache()
+    try:
+        online_phase(torch, kind, smi)
     except AssertionError as e:
         return fail(str(e))
 

@@ -2,7 +2,8 @@
 sampling and EOS resolution from the environment, the batch helpers and
 the byte codec give the JAX workload's values; ``run_batch`` and ``main``
 serve the tiny model on the CPU in fp and int8; the knobs that are not
-ported raise."""
+ported raise, and the server does not fall back to the CPU. The HTTP
+server itself is in test_torch_http.py and test_torch_serve_metrics.py."""
 
 import json
 
@@ -139,7 +140,14 @@ def test_main_prints_one_line_per_prompt(cpu_env, tmp_path, capsys):
 
 
 UNPORTED = {
-    "SERVE_PORT": ("8000", "main", NotImplementedError, "item 8"),
+    "SERVE_SLOTS": ("0", "server", NotImplementedError, "item 8"),
+    "SERVE_PREFILL_CHUNK": ("2", "server", NotImplementedError, "item 8"),
+    "SERVE_SPEC_K": ("4", "server", NotImplementedError, "item 8"),
+    "SERVE_SPEC_DRAFT": ("llama3_tiny", "scheduler", NotImplementedError,
+                         "item 8"),
+    "KV_SPILL": ("64", "server", NotImplementedError, "item 8"),
+    "KV_SPILL_DIR": ("/spill", "scheduler", NotImplementedError, "item 8"),
+    "TELEMETRY_DIR": ("/tel", "server", NotImplementedError, "item 13"),
     "SERVE_ROLE": ("prefill", "main", NotImplementedError, "item 9"),
     "DRAFT_MODEL": ("llama3_tiny", "run_batch", NotImplementedError,
                     "item 8"),
@@ -161,7 +169,9 @@ def test_unported_knobs_raise(cpu_env, knob):
     cpu_env.setenv(f"TPUFW_{knob}", value)
     call = {"main": serve.main,
             "run_batch": lambda: serve.run_batch(PROMPTS, 2),
-            "build_generator": serve.build_generator}[entry]
+            "build_generator": serve.build_generator,
+            "server": lambda: serve._Server(0, 2),
+            "scheduler": lambda: serve._SlotScheduler(None)}[entry]
     with pytest.raises(err, match=match):
         call()
 
@@ -171,3 +181,17 @@ def test_serve_refuses_to_fall_back_to_cpu(clear_tpufw_env):
     clear_tpufw_env.setenv("TPUFW_MODEL", "llama3_tiny")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.build_generator()
+
+
+def test_scheduler_refuses_page_export(cpu_env):
+    with pytest.raises(NotImplementedError, match="item 9"):
+        serve._SlotScheduler(None, page_export=lambda job, state: None)
+
+
+def test_server_refuses_to_fall_back_to_cpu(clear_tpufw_env):
+    """Without TPUFW_DEVICE=cpu the server builds its model on cuda, and
+    on a machine without a GPU that raises."""
+    clear_tpufw_env.setattr(torch.cuda, "is_available", lambda: False)
+    clear_tpufw_env.setenv("TPUFW_MODEL", "llama3_tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve._Server(0, 2)

@@ -3,6 +3,7 @@ in both packages in fp32, the Flax weights moved into the port through
 ``params_from_flax``."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -43,3 +44,14 @@ def torch_model(tcfg, np_params):
     model = Llama(tcfg, device="cpu")
     model.load_state_dict(params_from_flax(np_params, tcfg))
     return model
+
+
+@functools.lru_cache(maxsize=None)
+def decode_pair(name="llama3_tiny", max_seq_len=None):
+    """(JAX decode model, Flax params, port decode model holding them) of
+    ``name`` in fp32, built once per process."""
+    overrides = {} if max_seq_len is None else {"max_seq_len": max_seq_len}
+    jcfg, tcfg = pair(name, **overrides)
+    params = flax_params(jcfg)
+    return (JLlama(jcfg.decode_config()), params,
+            torch_model(tcfg.decode_config(), params))

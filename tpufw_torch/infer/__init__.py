@@ -1,6 +1,6 @@
-"""Inference: KV-cache generation, sampling and the slot pool (port of
-``tpufw.infer``; paged, prefix, spill and speculative serving are
-ROADMAP.md Queue 1 item 8)."""
+"""Inference: KV-cache generation, sampling, the slot pool, the paged pool
+and the prefix trie (port of ``tpufw.infer``; chunked prefill, spill and
+speculative serving are ROADMAP.md Queue 1 item 8)."""
 
 from tpufw_torch.infer.generate import (  # noqa: F401
     cast_decode_params,
@@ -25,3 +25,8 @@ from tpufw_torch.infer.slots import (  # noqa: F401
     pool_cache,
     prefill_row,
 )
+from tpufw_torch.infer.pages import (  # noqa: F401
+    PageAllocator,
+    PagedSlotPool,
+)
+from tpufw_torch.infer.prefix import PrefixCache  # noqa: F401

@@ -91,14 +91,16 @@ def prefill_cache(
     positions: torch.Tensor,
     seg: torch.Tensor,
     prefill_chunk_size: Optional[int],
+    cache_len: Optional[int] = None,
 ):
-    """The whole (padded) prompt through a fresh cache: one pass, or
-    chunks of ``prefill_chunk_size`` positions (the cursor advances per
-    chunk; slot-ordered causality makes both write the same cache).
-    Returns (logits of the last chunk, cache); left padding makes their
-    last column every row's final prompt token."""
+    """The whole (padded) prompt through a fresh cache of ``cache_len``
+    slots (default ``cfg.max_seq_len``): one pass, or chunks of
+    ``prefill_chunk_size`` positions (the cursor advances per chunk;
+    slot-ordered causality makes both write the same cache). Returns
+    (logits of the last chunk, cache); left padding makes their last
+    column every row's final prompt token."""
     b, p = prompt_tokens.shape
-    cache = model.init_cache(b)
+    cache = model.init_cache(b, length=cache_len)
     c = prefill_chunk_size
     if not (c is not None and 1 <= c < p):
         c = p
@@ -120,6 +122,7 @@ def _prefill_and_first(
     eos_id: Optional[int],
     prefill_chunk_size: Optional[int],
     live_rows: Optional[torch.Tensor] = None,
+    cache_len: Optional[int] = None,
 ):
     """Prefill and the first token, shared by ``generate``, the stream
     and the slot pool. Returns (cache, first, pos0, done, seen); ``seen``
@@ -130,7 +133,7 @@ def _prefill_and_first(
     seg = (col >= pad_lens[:, None]).to(torch.int32)
     positions = torch.clamp(col - pad_lens[:, None], min=0)
     logits, cache = prefill_cache(
-        model, prompt_tokens, positions, seg, prefill_chunk_size
+        model, prompt_tokens, positions, seg, prefill_chunk_size, cache_len
     )
     seen = None
     if track_seen(sampling):

@@ -1,0 +1,397 @@
+"""Paged KV pool: a page arena + per-slot page tables (port of
+``tpufw.infer.pages``).
+
+The contiguous ``SlotPool`` charges every occupied slot a full
+``[cache_len]`` KV row, so device memory caps the rows in flight, and
+identical prompt prefixes are prefilled and stored once PER ROW. Here KV
+lives in one arena of ``n_pages`` pages of ``page`` slots per layer:
+
+- the MODEL owns the paged read and write (``Attention._paged_cached_attention``
+  on a ``PagedKVCache``), so ``SlotPool.decode_steps`` is reused as is;
+- this module moves rows in and out: ``insert_paged`` scatters a B=1
+  contiguous prefilled row into the slot's pages; ``release_slot`` zeroes
+  the slot's table row (stale writes of a done-but-stepped row then land
+  in reserved page 0, never in a page handed out again) and returns the
+  pages to the host-side ``PageAllocator``;
+- prefix sharing rides on top: ``PrefixCache`` maps full-page token
+  chunks to resident pages, ``prefill_shared`` gathers the shared pages
+  into a fresh row cache and prefills ONLY the suffix. Only full pages
+  strictly before the row's first write slot are shared, so copy-on-write
+  is structural: divergence lands in private pages.
+
+int8 KV (``kv_quant="int8"``): the arenas are int8 with fp32 per-token
+scales stored page-structured ``[n_pages, page]``. Decode tokens are
+quantized inside the model at the append; prompt tokens are quantized
+here at insert (prefill runs full precision through the row cache).
+
+The pool's length, page size and arena belong to its cache
+(``Llama.init_paged_cache``); the model's weights are shared with every
+other pool. Not ported yet (ROADMAP.md Queue 1 items 8 and 9): chunked
+prefill (``ChunkedPrefill``, ``start_chunked``/``chunk_step``/...), page
+export, import and splice (disaggregated serving), the spill hooks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from tpufw_torch.infer.generate import _on
+from tpufw_torch.infer.prefix import PrefixCache
+from tpufw_torch.infer.sampling import sample_token, track_seen
+from tpufw_torch.infer.slots import SlotPool
+from tpufw_torch.ops.quant import dequantize_kv, quantize_kv
+
+
+class PageAllocator:
+    """Host-side free list + refcounts over the page arena (a copy of
+    ``tpufw``'s).
+
+    Page 0 is reserved (the causally masked junk sink unmapped table
+    entries point at) and never enters the free list. A page is free
+    iff its row refcount is 0 AND the prefix trie does not hold it."""
+
+    def __init__(self, n_pages: int):
+        if n_pages < 2:
+            raise ValueError(
+                f"kv_pages={n_pages}: need >= 2 (page 0 is reserved)"
+            )
+        self.n_pages = int(n_pages)
+        # LIFO free list: recently freed pages are used again first.
+        self.free: List[int] = list(range(n_pages - 1, 0, -1))
+        self.refs: Dict[int, int] = {}
+        self.held: set = set()
+        self.freed_total = 0
+        # Most pages ever in use at once (row references and trie holds).
+        self.peak_in_use = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self.free)
+
+    @property
+    def capacity(self) -> int:
+        return self.n_pages - 1
+
+    @property
+    def in_use(self) -> int:
+        return self.capacity - len(self.free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Pop ``n`` free pages with refcount 1, or None (all or
+        nothing: a partial grab would deadlock two part-admitted
+        rows)."""
+        if n > len(self.free):
+            return None
+        ids = [self.free.pop() for _ in range(n)]
+        for i in ids:
+            self.refs[i] = 1
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        return ids
+
+    def ref(self, ids: Sequence[int]) -> None:
+        for i in ids:
+            self.refs[i] = self.refs.get(i, 0) + 1
+
+    def release(self, ids: Sequence[int]) -> int:
+        """Drop one row reference per id; free those that hit 0 and are
+        not trie-held. Returns the number actually freed."""
+        freed = 0
+        for i in ids:
+            r = self.refs.get(i, 0) - 1
+            if r > 0:
+                self.refs[i] = r
+            else:
+                self.refs.pop(i, None)
+                if i not in self.held:
+                    self.free.append(i)
+                    freed += 1
+        self.freed_total += freed
+        return freed
+
+    def hold(self, ids: Sequence[int]) -> None:
+        self.held.update(int(i) for i in ids)
+
+    def drop(self, ids: Sequence[int]) -> int:
+        """Trie eviction path: drop the hold; free ids no row uses."""
+        freed = 0
+        for i in ids:
+            self.held.discard(i)
+            if self.refs.get(i, 0) == 0:
+                self.free.append(i)
+                freed += 1
+        self.freed_total += freed
+        return freed
+
+
+@dataclasses.dataclass
+class PagedSlotPool(SlotPool):
+    """``SlotPool`` whose KV lives in a shared page arena.
+
+    ``decode_steps`` is inherited unchanged: paging is internal to the
+    model's cached attention. Insert and retire are replaced by
+    page-aware versions, and two host-side owners ride along:
+    ``allocator`` (free list + refcounts) and ``prefix`` (radix trie;
+    None when prefix caching is off). Prefill runs through a contiguous
+    row cache of the pool's length on the same model."""
+
+    page: int = 0
+    allocator: Any = None
+    prefix: Any = None
+    slot_pages: Any = None  # per-slot page ids this row references
+    # Admission outcomes: requests whose trie match covered >= 1 page
+    # vs not.
+    prefix_hits: int = 0
+    prefix_misses: int = 0
+
+    @classmethod
+    def create_paged(
+        cls,
+        model,
+        n_slots: int,
+        *,
+        cache_len: int,
+        page: int,
+        n_pages: Optional[int] = None,
+        kv_quant: str = "",
+        sampling,
+        pad_id: int = 0,
+        eos_id: Optional[int] = None,
+        prefix_cache: bool = True,
+    ) -> "PagedSlotPool":
+        """A pool of ``n_slots`` rows of ``cache_len`` logical slots over
+        an arena of ``n_pages`` pages of ``page`` slots; the default
+        arena holds exactly ``n_slots`` full rows plus page 0, the same
+        memory as the contiguous pool it replaces."""
+        if n_pages is None:
+            n_pages = n_slots * (cache_len // page) + 1
+        dev = model.device
+        seen = None
+        if track_seen(sampling):
+            seen = torch.zeros(
+                n_slots, model.cfg.vocab_size, dtype=torch.bool, device=dev
+            )
+        return cls(
+            model=model,
+            n_slots=n_slots,
+            sampling=sampling,
+            pad_id=pad_id,
+            eos_id=eos_id,
+            cache=model.init_paged_cache(
+                n_slots, cache_len, page, n_pages, kv_quant
+            ),
+            token=torch.zeros(n_slots, dtype=torch.long, device=dev),
+            pos=torch.zeros(n_slots, dtype=torch.long, device=dev),
+            done=torch.ones(n_slots, dtype=torch.bool, device=dev),
+            remaining=torch.zeros(n_slots, dtype=torch.long, device=dev),
+            seen=seen,
+            page=int(page),
+            allocator=PageAllocator(int(n_pages)),
+            prefix=PrefixCache(int(page)) if prefix_cache else None,
+            slot_pages=[[] for _ in range(n_slots)],
+        )
+
+    @property
+    def cache_len(self) -> int:
+        return int(self.cache[0].length)
+
+    # ---- host-side page bookkeeping -------------------------------
+
+    @property
+    def per_row(self) -> int:
+        return self.cache_len // self.page
+
+    def n_pages_for(self, need: int) -> int:
+        """Pages covering ``need`` logical slots (= prompt_len +
+        max_new - 1: a live row's cursor never passes its budget)."""
+        return -(-need // self.page)
+
+    def acquire_pages(
+        self, prompt: Sequence[int], need: int
+    ) -> Optional[Tuple[List[int], int]]:
+        """Reserve pages for a row: match the prompt against the prefix
+        trie, then allocate the rest, evicting refcount-0 trie leaves
+        under pressure. Returns (page_ids, shared_n) with row refs taken
+        on every id, or None if the arena cannot fit the row now (the
+        scheduler retries after the next retire)."""
+        p = len(prompt)
+        n_total = self.n_pages_for(need)
+        shared: List[int] = []
+        if self.prefix is not None and p > 1:
+            # At least one suffix token must remain: the first output
+            # token's logits need a real forward pass.
+            shared = self.prefix.match(prompt)[: (p - 1) // self.page]
+        # Reference the shared pages FIRST so the eviction below cannot
+        # free them (a page only the trie holds has refcount 0).
+        self.allocator.ref(shared)
+        try:
+            n_new = n_total - len(shared)
+            ids = self.allocator.alloc(n_new)
+            if ids is None and self.prefix is not None:
+                self.prefix.evict(
+                    n_new - self.allocator.n_free, self.allocator
+                )
+                ids = self.allocator.alloc(n_new)
+        except BaseException:
+            self.allocator.release(shared)
+            raise
+        if ids is None:
+            self.allocator.release(shared)
+            return None
+        if self.prefix is not None and p > 1:
+            if shared:
+                self.prefix_hits += 1
+            else:
+                self.prefix_misses += 1
+        return shared + ids, len(shared)
+
+    def release_pages(self, ids: Sequence[int]) -> int:
+        return self.allocator.release(ids)
+
+    def register_prefix(
+        self, prompt: Sequence[int], page_ids: Sequence[int]
+    ) -> None:
+        """Adopt the row's FULL prompt pages into the trie (a partial
+        trailing page and the decode pages stay private: they are the
+        copy-on-write divergence zone)."""
+        if self.prefix is None:
+            return
+        n_full = len(prompt) // self.page
+        adopted = self.prefix.insert(prompt, list(page_ids)[:n_full])
+        self.allocator.hold(adopted)
+
+    # ---- device ops -----------------------------------------------
+
+    @torch.no_grad()
+    def insert_paged(
+        self,
+        slot: int,
+        row_cache,
+        first,
+        pos0: int,
+        budget: int,
+        page_ids: Sequence[int],
+        shared_n: int,
+        row_seen=None,
+    ) -> None:
+        """Occupy ``slot`` with a prefilled contiguous row scattered into
+        ``page_ids`` (row refs already taken by ``acquire_pages``); the
+        first ``shared_n`` ids are prefix pages attached by reference,
+        never written. Every slot of the row's own pages is written (the
+        row cache's zeros and segment 0 past its cursor included), so no
+        earlier occupant's K/V survives in them."""
+        dev = self.token.device
+        page = self.page
+        start, stop = shared_n * page, len(page_ids) * page
+        table_row = torch.zeros(self.per_row, dtype=torch.long)
+        table_row[: len(page_ids)] = torch.tensor(
+            list(page_ids), dtype=torch.long
+        )
+        table_row = table_row.to(dev)
+        idx = torch.arange(start, stop, device=dev)
+        phys, off = table_row[idx // page], idx % page
+        for pool, row in zip(self.cache, row_cache):
+            k, v = row.key[0, start:stop], row.value[0, start:stop]
+            if pool.key_scale is not None:
+                qk, sk = quantize_kv(k, n_feat=2)
+                qv, sv = quantize_kv(v, n_feat=2)
+                pool.key[phys, off] = qk
+                pool.value[phys, off] = qv
+                pool.key_scale[phys, off] = sk
+                pool.value_scale[phys, off] = sv
+            else:
+                pool.key[phys, off] = k.to(pool.key.dtype)
+                pool.value[phys, off] = v.to(pool.value.dtype)
+            pool.seg[phys, off] = row.seg[0, start:stop]
+            pool.index[slot] = row.index
+        # One table tensor serves every layer.
+        self.cache[0].table[slot] = table_row
+        self.token[slot] = torch.as_tensor(first).reshape(())
+        self.pos[slot] = pos0
+        self.done[slot] = False
+        self.remaining[slot] = budget
+        if self.seen is not None:
+            self.seen[slot] = row_seen[0]
+        self.slot_pages[slot] = list(page_ids)
+
+    @torch.no_grad()
+    def _attach_row(self, shared_ids):
+        """Fresh B=1 contiguous row cache of the pool's length with
+        ``shared_ids``' pages gathered into its first
+        ``len(shared_ids) * page`` slots (dequantized for int8: the
+        suffix prefill attends in full precision), cursor set after
+        them."""
+        row = self.model.init_cache(1, length=self.cache_len)
+        n = len(shared_ids) * self.page
+        if not n:
+            return row
+        ids = _on(self.model, list(shared_ids))
+        for pool, r in zip(self.cache, row):
+            k, v = pool.key[ids], pool.value[ids]
+            if pool.key_scale is not None:
+                k = dequantize_kv(k, pool.key_scale[ids], r.key.dtype)
+                v = dequantize_kv(v, pool.value_scale[ids], r.value.dtype)
+            r.key[0, :n] = k.reshape(n, *k.shape[2:]).to(r.key.dtype)
+            r.value[0, :n] = v.reshape(n, *v.shape[2:]).to(r.value.dtype)
+            r.seg[0, :n] = pool.seg[ids].reshape(n)
+            r.index = n
+        return row
+
+    @torch.no_grad()
+    def prefill_shared(
+        self, prompt: Sequence[int], shared_ids,
+        generator: Optional[torch.Generator],
+    ):
+        """Prefix-hit admission: attach ``shared_ids``' pages to a fresh
+        row cache and prefill only the suffix, at its true positions and
+        slots. The first token draws from ``generator`` exactly as a cold
+        ``prefill_row`` of the whole prompt would, so shared and cold
+        admissions sample alike. Same return contract as
+        ``prefill_row``: (row_cache, first, first_int, done, seen)."""
+        row = self._attach_row(shared_ids)
+        length = len(shared_ids) * self.page
+        suffix = _on(self.model, [list(prompt[length:])])
+        t = suffix.shape[1]
+        positions = length + torch.arange(t, device=suffix.device)[None, :]
+        seg = torch.ones(1, t, dtype=torch.int32, device=suffix.device)
+        logits = self.model(suffix, positions, seg, cache=row)
+        seen = None
+        if track_seen(self.sampling):
+            # The repetition penalty's presence mask covers the WHOLE
+            # prompt: the shared tokens count though they were not rerun.
+            seen = torch.zeros(
+                1, logits.shape[-1], dtype=torch.bool, device=suffix.device
+            )
+            seen[0, _on(self.model, list(prompt))] = True
+        first = sample_token(logits[:, -1, :], self.sampling, generator, seen)
+        if seen is not None:
+            seen[0, first] = True
+        done = (
+            torch.zeros(1, dtype=torch.bool, device=first.device)
+            if self.eos_id is None else first == self.eos_id
+        )
+        return row, first, int(first[0]), done, seen
+
+    @torch.no_grad()
+    def release_slot(self, slot: int) -> int:
+        """Free ``slot``: freeze its masks, zero its page-table row,
+        return its pages to the allocator. Returns the pages actually
+        freed (shared or trie-held pages may stay resident)."""
+        self.done[slot] = True
+        self.remaining[slot] = 0
+        self.cache[0].table[slot] = 0
+        freed = self.allocator.release(self.slot_pages[slot])
+        self.slot_pages[slot] = []
+        return freed
+
+    def retire(self, slot: int) -> None:
+        """Error-path retire, page-aware (frees the row's pages)."""
+        self.release_slot(slot)
+
+    def insert(self, *a, **k):
+        raise TypeError(
+            "PagedSlotPool: use insert_paged (pages must be acquired "
+            "through the allocator first)"
+        )

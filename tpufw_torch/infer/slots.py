@@ -33,10 +33,11 @@ from tpufw_torch.infer.generate import _decode_step, _on, _prefill_and_first
 from tpufw_torch.infer.sampling import SamplingConfig, track_seen
 
 
-def pool_cache(model, n_slots: int) -> list:
-    """A zeroed ``n_slots`` cache for ``model`` with per-slot cursors.
-    Never-written slots keep segment 0, which the segment mask hides."""
-    return model.init_cache(n_slots, per_row=True)
+def pool_cache(model, n_slots: int, cache_len: Optional[int] = None) -> list:
+    """A zeroed ``n_slots`` cache of ``cache_len`` slots per row (default
+    the model's ``max_seq_len``) with per-slot cursors. Never-written
+    slots keep segment 0, which the segment mask hides."""
+    return model.init_cache(n_slots, per_row=True, length=cache_len)
 
 
 @torch.no_grad()
@@ -50,10 +51,12 @@ def prefill_row(
     pad_to: Optional[int] = None,
     prefill_chunk_size: Optional[int] = None,
     pad_id: int = 0,
+    cache_len: Optional[int] = None,
 ):
-    """B=1 prefill of one request. ``pad_to`` left-pads the prompt to a
-    bucketed width. Returns ``(row_cache, first, first_int, done, seen)``;
-    ``first_int`` is the first token on the host."""
+    """B=1 prefill of one request into a row cache of ``cache_len`` slots
+    (default the model's ``max_seq_len``). ``pad_to`` left-pads the prompt
+    to a bucketed width. Returns ``(row_cache, first, first_int, done,
+    seen)``; ``first_int`` is the first token on the host."""
     p = len(prompt)
     width = max(pad_to or p, p)
     tokens = np.full((1, width), pad_id, np.int32)
@@ -62,7 +65,7 @@ def prefill_row(
     cache, first, _, done, seen = _prefill_and_first(
         model, _on(model, tokens), _on(model, [width - p]), generator,
         sampling=sampling, eos_id=eos_id,
-        prefill_chunk_size=prefill_chunk_size,
+        prefill_chunk_size=prefill_chunk_size, cache_len=cache_len,
     )
     return cache, first, int(first[0]), done, seen
 
@@ -94,7 +97,11 @@ class SlotPool:
         sampling: SamplingConfig = SamplingConfig(),
         pad_id: int = 0,
         eos_id: Optional[int] = None,
+        cache_len: Optional[int] = None,
     ) -> "SlotPool":
+        """A pool of ``n_slots`` empty slots of ``cache_len`` KV slots
+        each (default the model's ``max_seq_len``) over ``model``'s
+        weights."""
         dev = model.device
         seen = None
         if track_seen(sampling):
@@ -107,7 +114,7 @@ class SlotPool:
             sampling=sampling,
             pad_id=pad_id,
             eos_id=eos_id,
-            cache=pool_cache(model, n_slots),
+            cache=pool_cache(model, n_slots, cache_len),
             token=torch.zeros(n_slots, dtype=torch.long, device=dev),
             pos=torch.zeros(n_slots, dtype=torch.long, device=dev),
             # Empty slots are born done with no budget: they emit pad and
@@ -119,7 +126,7 @@ class SlotPool:
 
     @property
     def cache_len(self) -> int:
-        return int(self.model.cfg.max_seq_len)
+        return int(self.cache[0].key.shape[1])
 
     @torch.no_grad()
     def insert(self, slot: int, row_cache, first, pos0: int, budget: int,

@@ -3,6 +3,7 @@ from tpufw_torch.models.llama import (  # noqa: F401
     KVCache,
     Llama,
     LlamaConfig,
+    PagedKVCache,
     QuantProjection,
     RopeScaling,
 )

@@ -8,9 +8,12 @@ Attention goes through ``tpufw_torch.ops.multi_head_attention``, so the
 CUDA flash kernels drop in with ``attention_backend="flash"``.
 
 Serving: ``cfg.decode_config()`` builds the decode twin, whose ``forward``
-also takes ``cache=``, a list of per-layer ``KVCache`` (``Llama.init_cache``):
-each call writes its keys and values at the cache cursor and attends over
-the whole cache through the plain attention path. With
+also takes ``cache=``, a list of per-layer ``KVCache`` (``Llama.init_cache``)
+or ``PagedKVCache`` (``Llama.init_paged_cache``): each call writes its keys
+and values at the cache cursor and attends over the whole cache through
+the plain attention path. The cache's length and paging belong to the
+cache object (``tpufw`` builds a model per cache shape instead), so one
+set of weights serves every pool. With
 ``quantized_weights`` every projection and the untied head hold int8
 codes and per-output-channel scales (``QuantProjection``; the state dict
 comes from ``tpufw_torch.ops.quant.quantize_params``).
@@ -32,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpufw_torch.ops import multi_head_attention, rms_norm
 from tpufw_torch.ops.loss import head_logits
-from tpufw_torch.ops.quant import quant_contract
+from tpufw_torch.ops.quant import dequantize_kv, quant_contract, quantize_kv
 from tpufw_torch.utils.hardware import resolve_device
 
 
@@ -81,7 +84,8 @@ class LlamaConfig:
     # Int8 projection weights + fp32 per-output-channel scales (serving
     # only; the state dict comes from ops.quant.quantize_params).
     quantized_weights: bool = False
-    # Not ported yet (ROADMAP.md Queue 1 items 8, 10); must stay off.
+    # Must stay off: the paged cache is a cache object here
+    # (Llama.init_paged_cache); LoRA is ROADMAP.md Queue 1 item 10.
     kv_page: int = 0
     lora_rank: int = 0
 
@@ -367,6 +371,37 @@ class KVCache:
     index: Union[int, torch.Tensor]
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """One layer's paged KV cache (``tpufw``'s ``kv_page > 0`` cache
+    leaves). ``key``/``value`` [n_pages, page, K, D] are an arena shared
+    by every row, in ``cfg.dtype`` or int8 with fp32 per-token scales
+    ``key_scale``/``value_scale`` [n_pages, page]; ``seg`` [n_pages, page]
+    segment ids; ``table`` [B, length // page] maps row b's logical slot
+    j to page ``table[b, j // page]``, offset ``j % page`` (one tensor,
+    shared by every layer); ``index`` the [B] per-row cursors. Page 0 is
+    the junk sink that unmapped table entries point at. Decode only: the
+    prompt is prefilled through a contiguous ``KVCache`` and scattered
+    into pages by ``tpufw_torch.infer.pages``."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+    seg: torch.Tensor
+    table: torch.Tensor
+    index: torch.Tensor
+    key_scale: Optional[torch.Tensor] = None
+    value_scale: Optional[torch.Tensor] = None
+
+    @property
+    def page(self) -> int:
+        return self.key.shape[1]
+
+    @property
+    def length(self) -> int:
+        """Logical slots per row."""
+        return self.table.shape[1] * self.page
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig, gen, window=None, device=None):
         super().__init__()
@@ -399,7 +434,12 @@ class Attention(nn.Module):
                     "causal=False with a KV cache: a KV cache is a causal "
                     "construct"
                 )
-            out = self._cached_attention(q, k, v, segment_ids, cache)
+            if isinstance(cache, PagedKVCache):
+                out = self._paged_cached_attention(
+                    q, k, v, segment_ids, cache
+                )
+            else:
+                out = self._cached_attention(q, k, v, segment_ids, cache)
         else:
             out = multi_head_attention(
                 q, k, v,
@@ -457,6 +497,67 @@ class Attention(nn.Module):
             backend="xla",
         )
 
+    def _paged_cached_attention(self, q, k, v, segment_ids,
+                                cache: PagedKVCache):
+        """Paged decode step: scatter this call's k/v through the page
+        table, then gather every row's logical [S] view IN SLOT ORDER and
+        attend over it as the contiguous branch does. Unmapped table
+        entries point at page 0, whose junk only surfaces at slots beyond
+        the row's cursor, where the causal mask zeroes its weight. The
+        write window is clamped to ``S - t`` as in the contiguous branch:
+        a done row that is still stepped writes into its own last page,
+        or into page 0 once its table row is zeroed. int8 arenas quantize
+        k/v per token at the append and dequantize on the gather."""
+        b, t = q.shape[:2]
+        s, page = cache.length, cache.page
+        dev = q.device
+        seg = (
+            torch.ones(b, t, dtype=torch.int32, device=dev)
+            if segment_ids is None else segment_ids.to(torch.int32)
+        )
+        cur = cache.index
+        wslot = (
+            torch.clamp(cur, max=s - t)[:, None]
+            + torch.arange(t, device=dev)[None, :]
+        )
+        phys = cache.table[torch.arange(b, device=dev)[:, None],
+                           wslot // page]
+        off = wslot % page
+        quant = cache.key_scale is not None
+        if quant:
+            qk, sk = quantize_kv(k, n_feat=2)
+            qv, sv = quantize_kv(v, n_feat=2)
+            cache.key[phys, off] = qk
+            cache.value[phys, off] = qv
+            cache.key_scale[phys, off] = sk
+            cache.value_scale[phys, off] = sv
+        else:
+            cache.key[phys, off] = k.to(cache.key.dtype)
+            cache.value[phys, off] = v.to(cache.value.dtype)
+        cache.seg[phys, off] = seg
+        cache.index = cur + t
+        idx = cache.table
+        feat = k.shape[2:]
+        if quant:
+            dtype = self.cfg.dtype
+            k_all = dequantize_kv(cache.key[idx], cache.key_scale[idx], dtype)
+            v_all = dequantize_kv(
+                cache.value[idx], cache.value_scale[idx], dtype
+            )
+        else:
+            k_all, v_all = cache.key[idx], cache.value[idx]
+        return multi_head_attention(
+            q,
+            k_all.reshape(b, s, *feat),
+            v_all.reshape(b, s, *feat),
+            causal=True,
+            segment_ids=seg,
+            kv_segment_ids=cache.seg[idx].reshape(b, s),
+            q_positions=wslot,
+            sliding_window=self.window,
+            backend="xla",
+        )
+
 
 class MLP(nn.Module):
     """SwiGLU feed-forward."""
@@ -486,15 +587,17 @@ class LlamaBlock(nn.Module):
 
 
 def _reject_unported(cfg: LlamaConfig) -> None:
-    for field, name in (
-        ("kv_page", "the paged KV cache"),
-        ("lora_rank", "LoRA adapters"),
-    ):
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"LlamaConfig.{field}: {name} is not ported to tpufw_torch "
-                "yet (ROADMAP.md Queue 1)"
-            )
+    if cfg.kv_page:
+        raise NotImplementedError(
+            "LlamaConfig.kv_page: in tpufw_torch the paging belongs to the "
+            "cache, not the model (Llama.init_paged_cache), so one set of "
+            "weights serves every pool"
+        )
+    if cfg.lora_rank:
+        raise NotImplementedError(
+            "LlamaConfig.lora_rank: LoRA adapters are not ported to "
+            "tpufw_torch yet (ROADMAP.md Queue 1)"
+        )
 
 
 class Llama(nn.Module):
@@ -540,12 +643,22 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def init_cache(self, batch: int, per_row: bool = False) -> list[KVCache]:
-        """Zeroed per-layer KV caches of ``cfg.max_seq_len`` slots for
-        ``batch`` rows on the model's device; ``per_row`` gives each row
-        its own cursor."""
+    def init_cache(
+        self, batch: int, per_row: bool = False, length: Optional[int] = None
+    ) -> list[KVCache]:
+        """Zeroed per-layer KV caches of ``length`` slots (default
+        ``cfg.max_seq_len``) for ``batch`` rows on the model's device;
+        ``per_row`` gives each row its own cursor. The cache length is
+        the cache's, not the model's: one set of weights serves every
+        length."""
         cfg, dev = self.cfg, self.device
-        shape = (batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+        length = cfg.max_seq_len if length is None else int(length)
+        if not 0 < length <= cfg.max_seq_len:
+            raise ValueError(
+                f"cache length {length} outside (0, max_seq_len="
+                f"{cfg.max_seq_len}]"
+            )
+        shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
         return [
             KVCache(
                 key=torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -555,6 +668,49 @@ class Llama(nn.Module):
                     torch.zeros(batch, dtype=torch.long, device=dev)
                     if per_row else 0
                 ),
+            )
+            for _ in range(cfg.n_layers)
+        ]
+
+    def init_paged_cache(
+        self, batch: int, length: int, page: int, n_pages: int,
+        kv_quant: str = "",
+    ) -> list[PagedKVCache]:
+        """Zeroed per-layer paged caches: an arena of ``n_pages`` pages
+        of ``page`` slots per layer (page 0 reserved), one page table
+        [batch, length // page] shared by every layer, per-row cursors.
+        ``kv_quant="int8"`` stores K/V as int8 codes with fp32 per-token
+        scales. Zeros are safe initial state: segment 0 everywhere, and
+        every table entry points at page 0."""
+        cfg, dev = self.cfg, self.device
+        if length > cfg.max_seq_len or length % page:
+            raise ValueError(
+                f"kv_page={page} must divide the cache length {length} "
+                f"(<= max_seq_len={cfg.max_seq_len})"
+            )
+        if kv_quant not in ("", "int8"):
+            raise ValueError(f"kv_quant={kv_quant!r}: expected '' or 'int8'")
+        quant = kv_quant == "int8"
+        shape = (n_pages, page, cfg.n_kv_heads, cfg.head_dim)
+        kv_dtype = torch.int8 if quant else cfg.dtype
+        table = torch.zeros(batch, length // page, dtype=torch.long,
+                            device=dev)
+
+        def scale():
+            if not quant:
+                return None
+            return torch.zeros(n_pages, page, dtype=torch.float32, device=dev)
+
+        return [
+            PagedKVCache(
+                key=torch.zeros(shape, dtype=kv_dtype, device=dev),
+                value=torch.zeros(shape, dtype=kv_dtype, device=dev),
+                seg=torch.zeros(n_pages, page, dtype=torch.int32,
+                                device=dev),
+                table=table,
+                index=torch.zeros(batch, dtype=torch.long, device=dev),
+                key_scale=scale(),
+                value_scale=scale(),
             )
             for _ in range(cfg.n_layers)
         ]
