@@ -38,8 +38,14 @@ Phases, each fatal on failure:
    int8 logits must stay within 5% of the largest logit of the bf16
    weights they were quantized from. A
    ``serve_summary`` line per weight dtype gives prefill and decode
-   times, tokens/s and the decode step's HBM bound. The serve path runs
-   plain PyTorch attention: no flash kernel may launch there;
+   times, tokens/s and the decode step's HBM bound. With the bf16
+   weights it also runs ``run_batch``'s speculative path with the target
+   itself as the draft (k = 4): full-length in-vocab outputs, and the
+   verify block's logits (one pass of k+1 tokens) within 5% of k+1
+   teacher-forced single steps; a ``serve_spec_summary`` line gives
+   passes, accepted drafts per pass, tokens/s and greedy agreement with
+   the plain run. The serve path runs plain PyTorch attention: no flash
+   kernel may launch there;
 6. serves the same Llama-3-8B weights (bf16, all 32 layers, a 2048-slot
    ceiling) online through the HTTP server (``_Server``: slot scheduler,
    8 slots, greedy) on a localhost port, in three modes: contiguous KV,
@@ -54,9 +60,22 @@ Phases, each fatal on failure:
    a prefix hit, and after the drain only the trie's pages in use. One
    admission sequence straight through a contiguous and a paged pool
    gives step logits within 5% (int8 KV: within 5% of the bf16 KV
-   pool's). An ``online_summary`` line per mode gives wall time, tokens/s,
+   pool's). Then three more modes, paged bf16 KV: chunked prefill (4
+   pages, 256 tokens, a chunk; the paged traffic, then a head-of-line
+   pair, a 1,536-token prompt and 10 ms later a 7-token one, whose first
+   token must come first; the paged mode measures the same pair
+   without chunking), n-gram speculation (k = 4; the 16 requests, then 4
+   self-similar 512-token prompts) and speculation with a draft pool on
+   the target itself (k = 4; the 16 requests; after the drain only the
+   trie's pages are in use, so the draft pool leaked none). Direct
+   checks: chunked vs monolithic prefill of the four direct prompts and
+   a 1,536-token one (first-step logits within 5%, bit-equality and the
+   share of equal K/V and int8 codes printed), and a verify block vs k+1
+   teacher-forced single steps on a contiguous and a paged pool (within
+   5%). An ``online_summary`` line per mode gives wall time, tokens/s,
    client-side TTFT p50/p95, latency p50, decode ms per step, peak memory
-   and peak pages.
+   and peak pages, and the new modes their chunks, passes, ms per pass,
+   accept rate and fallback slots.
 
 It ends with a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -105,6 +124,9 @@ STEPS = 5
 SERVE_LOGITS_TOL = 5e-2
 INT8_TOL = 5e-2
 SERVE_REPS = 3
+# Speculative decoding: drafts per pass, in phase 5 (self-draft) and in
+# phase 6's spec modes.
+SPEC_K = 4
 # Online phase: 16 requests, four prompts of each length, ONLINE_NEW
 # greedy tokens each, over ONLINE_SLOTS slots; the paged modes add four
 # requests sharing an ONLINE_PREFIX-token prefix (7 pages of ONLINE_PAGE).
@@ -120,6 +142,21 @@ ONLINE_PREFIX = 448
 ONLINE_PAGE = 64
 ONLINE_SLOTS = 8
 ONLINE_CACHE = 1024
+# The modes this slice added: chunked paged prefill in chunks of
+# ONLINE_CHUNK_PAGES pages (256 tokens), with the head-of-line pair, a
+# HOL_LONG-token prompt with ONLINE_NEW tokens and, HOL_GAP_S later, a
+# 7-token one with 8 (the short one's first token must come first;
+# ONLINE_MAX_CACHE slots, the long prompt's cache); n-gram speculation
+# with 4 extra self-similar prompts (a SELFSIM_PATTERN-token pattern
+# repeated to SELFSIM_LEN tokens); speculation with a draft pool on the
+# target itself. The direct chunked-vs-monolithic check adds a HOL_LONG
+# prompt to the four direct ones, at ONLINE_MAX_CACHE slots.
+ONLINE_CHUNK_PAGES = 4
+ONLINE_MAX_CACHE = 2048
+HOL_LONG = 1536
+HOL_GAP_S = 0.010
+SELFSIM_PATTERN = 16
+SELFSIM_LEN = 512
 
 
 def emit(obj) -> None:
@@ -509,6 +546,83 @@ def serve_phase(torch, chip, kind, smi) -> None:
             "peak_mem_gb": peak_gb, "launches": launches,
             "device": kind, "nvidia_smi": smi,
         }})
+        if weights == "bf16":
+            spec_batch_check(torch, model, prompts, max_new, outs, tok, pad,
+                             kind, smi)
+
+
+def spec_batch_check(torch, model, prompts, max_new, plain_outs, tok, pad,
+                     kind, smi) -> None:
+    """Phase 5's speculative run: ``run_batch``'s speculative path
+    (``serve.speculative_batch``) on the serve slice's prompts with the
+    target itself as the draft (a second cache, no second copy of the
+    weights), SPEC_K drafts a pass, greedy. Holds full-length in-vocab
+    outputs, no flash launch, and the verify block's logits (one pass of
+    k+1 tokens) against k+1 teacher-forced single steps on a second
+    cache, within SERVE_LOGITS_TOL; prints passes, accepted drafts per
+    pass, wall, tokens/s and greedy agreement with the plain run."""
+    from tpufw_torch.infer import SamplingConfig, prefill_cache
+    from tpufw_torch.ops import flash
+    from tpufw_torch.workloads import serve
+
+    b = len(prompts)
+    flash.reset_launch_counts()
+    res = {}
+
+    def run():
+        res["outs"], res["stats"] = serve.speculative_batch(
+            model, model, prompts, max_new, SamplingConfig(), None, SPEC_K)
+
+    wall_ms = host_ms(torch, run, 2)
+    outs, stats = res["outs"], res["stats"]
+    launches = dict(flash.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"serve (spec) launched {launches}")
+    vocab = model.cfg.vocab_size
+    for o in outs:
+        if len(o) != max_new or not all(0 <= t < vocab for t in o):
+            raise AssertionError(f"serve (spec): bad output {o}")
+    # The verify block: [first, t_1..t_k] of the plain greedy tokens in
+    # one k+1 pass, against the same tokens fed one step at a time.
+    p = tok.shape[1]
+    col = torch.arange(p, device=tok.device)[None, :]
+    seg = (col >= pad[:, None]).to(torch.int32)
+    pos = torch.clamp(col - pad[:, None], min=0)
+    block = torch.tensor([o[: SPEC_K + 1] for o in plain_outs],
+                         device=tok.device)
+    bpos = (p - pad)[:, None] + torch.arange(SPEC_K + 1,
+                                             device=tok.device)[None, :]
+    with torch.no_grad():
+        _, cache = prefill_cache(model, tok, pos, seg, None)
+        verify = model(block, bpos, torch.ones_like(block, dtype=torch.int32),
+                       cache=cache).float()
+        del cache
+        _, cache = prefill_cache(model, tok, pos, seg, None)
+        ones = torch.ones(b, 1, dtype=torch.int32, device=tok.device)
+        steps = torch.cat([
+            model(block[:, j:j + 1], bpos[:, j:j + 1], ones,
+                  cache=cache).float() for j in range(SPEC_K + 1)], dim=1)
+        del cache
+    err = rel_err(torch, verify, steps)
+    check = {"check": "serve_spec_verify_block_vs_single_steps",
+             "logits": err, "tol": SERVE_LOGITS_TOL,
+             "argmax_agreement": float(
+                 (verify.argmax(-1) == steps.argmax(-1)).float().mean())}
+    emit(check)
+    if err[1] > SERVE_LOGITS_TOL:
+        raise AssertionError(f"serve (spec): verify block {err}")
+    passes = stats["iterations"]
+    emit({"serve_spec_summary": {
+        "k": SPEC_K, "draft": "target (self-draft)", "passes": passes,
+        "tokens_per_pass": (stats["emitted"] - 1) / max(passes, 1),
+        "accepted_drafts_per_pass": (stats["emitted"] - 1) / max(passes, 1)
+        - 1,
+        "generate_ms": wall_ms, "tokens_per_s": b * max_new / (wall_ms / 1e3),
+        "greedy_match_vs_plain": sum(
+            x == y for o, r in zip(outs, plain_outs) for x, y in zip(o, r)
+        ) / (b * max_new),
+        "launches": launches, "device": kind, "nvidia_smi": smi,
+    }})
 
 
 def _percentile(xs, q):
@@ -582,46 +696,152 @@ def _concurrently(fns):
     return out
 
 
+def _admit_pool(model, prompts, kind, n_steps, cache_len=ONLINE_CACHE):
+    """A pool of ONLINE_SLOTS rows at ``cache_len`` slots (``kind``:
+    "contiguous", "paged" or "paged_int8") with ``prompts`` admitted in
+    order, each prefilled at its exact width, ``n_steps`` of budget."""
+    from tpufw_torch.infer import PagedSlotPool, SamplingConfig, SlotPool
+    from tpufw_torch.infer import prefill_row
+
+    if kind == "contiguous":
+        pool = SlotPool.create(model, ONLINE_SLOTS, cache_len=cache_len)
+    else:
+        pool = PagedSlotPool.create_paged(
+            model, ONLINE_SLOTS, cache_len=cache_len, page=ONLINE_PAGE,
+            kv_quant="int8" if kind == "paged_int8" else "",
+            sampling=SamplingConfig(), prefix_cache=False)
+    for slot, p in enumerate(prompts):
+        cache, _, first, _, _ = prefill_row(
+            model, p, None, sampling=SamplingConfig(), eos_id=None,
+            cache_len=cache_len)
+        if kind == "contiguous":
+            pool.insert(slot, cache, first, len(p), n_steps)
+        else:
+            ids, shared = pool.acquire_pages(p, len(p) + n_steps)
+            pool.insert_paged(slot, cache, first, len(p), n_steps, ids,
+                              shared)
+    return pool
+
+
+def _step_logits(torch, pool, tokens, j=0):
+    """Logits [S, V] of feeding ``tokens`` [S] to every slot at its
+    position + j (one decode step, advancing the pool's cache)."""
+    ones = torch.ones(ONLINE_SLOTS, 1, dtype=torch.int32,
+                      device=pool.token.device)
+    return pool.model(tokens[:, None], (pool.pos + j)[:, None], ones,
+                      cache=pool.cache)[:, -1].float()
+
+
 def pool_run(torch, model, prompts, kind, n_steps):
     """One admission sequence straight through a pool of ONLINE_SLOTS
     rows at ONLINE_CACHE slots (``kind``: "contiguous", "paged" or
     "paged_int8"), each prompt prefilled at its exact width: the first
     decode step's logits [rows, V] and ``n_steps`` greedy tokens per
     row."""
-    from tpufw_torch.infer import PagedSlotPool, SamplingConfig, SlotPool
-    from tpufw_torch.infer import prefill_row
-
-    def admit():
-        if kind == "contiguous":
-            pool = SlotPool.create(model, ONLINE_SLOTS,
-                                   cache_len=ONLINE_CACHE)
-        else:
-            pool = PagedSlotPool.create_paged(
-                model, ONLINE_SLOTS, cache_len=ONLINE_CACHE, page=ONLINE_PAGE,
-                kv_quant="int8" if kind == "paged_int8" else "",
-                sampling=SamplingConfig(), prefix_cache=False)
-        for slot, p in enumerate(prompts):
-            cache, _, first, _, _ = prefill_row(
-                model, p, None, sampling=SamplingConfig(), eos_id=None,
-                cache_len=ONLINE_CACHE)
-            if kind == "contiguous":
-                pool.insert(slot, cache, first, len(p), n_steps)
-            else:
-                ids, shared = pool.acquire_pages(p, len(p) + n_steps)
-                pool.insert_paged(slot, cache, first, len(p), n_steps, ids,
-                                  shared)
-        return pool
-
     with torch.no_grad():
-        pool = admit()
-        ones = torch.ones(ONLINE_SLOTS, 1, dtype=torch.int32,
-                          device=model.device)
-        logits = model(pool.token[:, None], pool.pos[:, None], ones,
-                       cache=pool.cache)[: len(prompts), -1].float()
+        pool = _admit_pool(model, prompts, kind, n_steps)
+        logits = _step_logits(torch, pool, pool.token)[: len(prompts)]
         del pool
-        pool = admit()
+        pool = _admit_pool(model, prompts, kind, n_steps)
         tokens = pool.decode_steps(n_steps)[: len(prompts)].tolist()
     return logits, tokens
+
+
+def spec_pool_check(torch, model, prompts) -> dict:
+    """Direct, contiguous and paged pools at ONLINE_SLOTS x ONLINE_CACHE:
+    the verify block of a speculative pass (one forward of [token,
+    t_1..t_k] over the pool's cache, as ``spec_steps`` runs it) against
+    k+1 single steps teacher-forced with the same tokens on a second pool
+    admitted alike, within SERVE_LOGITS_TOL; then ``spec_steps`` itself
+    with those tokens as proposals, which must emit them."""
+    n = len(prompts)
+    out = {}
+    with torch.no_grad():
+        for kind in ("contiguous", "paged"):
+            pool = _admit_pool(model, prompts, kind, 2 * SPEC_K)
+            tok, steps, fed = pool.token, [], []
+            for j in range(SPEC_K + 1):
+                fed.append(tok)
+                steps.append(_step_logits(torch, pool, tok, j))
+                tok = steps[-1].argmax(-1)
+            steps = torch.stack(steps, dim=1)[:n]
+            greedy = steps.argmax(-1)  # [n, k+1]
+            del pool
+            pool = _admit_pool(model, prompts, kind, 2 * SPEC_K)
+            block = torch.stack(fed, dim=1)
+            positions = pool.pos[:, None] + torch.arange(
+                SPEC_K + 1, device=block.device)[None, :]
+            verify = model(block, positions,
+                           torch.ones_like(block, dtype=torch.int32),
+                           cache=pool.cache)[:n].float()
+            del pool
+            pool = _admit_pool(model, prompts, kind, 2 * SPEC_K)
+            emitted, n_emit, accept = pool.spec_steps(
+                torch.stack(fed[1:], dim=1))
+            del pool
+            out[kind] = {
+                "logits": rel_err(torch, verify, steps),
+                "argmax_agreement": float(
+                    (verify.argmax(-1) == greedy).float().mean()),
+                "spec_steps_accept": accept[:n].tolist(),
+                "spec_steps_equal_single_steps": bool(
+                    (emitted[:n] == greedy).all()),
+            }
+    return out
+
+
+def chunk_pool_check(torch, model, prompts, cache_len) -> dict:
+    """Direct, paged pools at ONLINE_SLOTS x ``cache_len``, bf16 and int8
+    KV: ``prompts`` prefilled monolithically and in chunks of
+    ONLINE_CHUNK_PAGES pages; the first decode step's logits within
+    SERVE_LOGITS_TOL, whether they are bit-equal, and the share of the
+    prompts' K/V (int8: codes) that are equal."""
+    from tpufw_torch.infer import PagedSlotPool, SamplingConfig, prefill_row
+
+    n = len(prompts)
+    out = {}
+    with torch.no_grad():
+        for kv in ("", "int8"):
+            logits, kvs = {}, {}
+            for how in ("monolithic", "chunked"):
+                pool = PagedSlotPool.create_paged(
+                    model, ONLINE_SLOTS, cache_len=cache_len,
+                    page=ONLINE_PAGE, kv_quant=kv, sampling=SamplingConfig(),
+                    prefix_cache=False)
+                for slot, p in enumerate(prompts):
+                    if how == "monolithic":
+                        ids, shared = pool.acquire_pages(p, len(p) + 8)
+                        cache, _, first, _, _ = prefill_row(
+                            model, p, None, sampling=SamplingConfig(),
+                            eos_id=None, cache_len=cache_len)
+                        pool.insert_paged(slot, cache, first, len(p), 8, ids,
+                                          shared)
+                        del cache
+                    else:
+                        cp = pool.start_chunked(p, len(p) + 8, None,
+                                                ONLINE_CHUNK_PAGES)
+                        while pool.chunk_step(cp) != "done":
+                            pass
+                        pool.finalize_chunked(slot, cp, 8)
+                # Every prompt slot of every row, in slot order.
+                kvs[how] = torch.cat([
+                    torch.stack([c.key[c.table[i]].flatten(0, 1)[:len(p)]
+                                 for c in pool.cache]).flatten()
+                    for i, p in enumerate(prompts)])
+                logits[how] = _step_logits(torch, pool, pool.token)[:n]
+                del pool
+            err = rel_err(torch, logits["chunked"], logits["monolithic"])
+            out[kv or "bf16"] = {
+                "logits": err,
+                "logits_bit_equal": bool(torch.equal(logits["chunked"],
+                                                     logits["monolithic"])),
+                "kv_equal_share": float(
+                    (kvs["chunked"] == kvs["monolithic"]).float().mean()),
+                "greedy_agreement": float(
+                    (logits["chunked"].argmax(-1)
+                     == logits["monolithic"].argmax(-1)).float().mean()),
+            }
+    return out
 
 
 def online_phase(torch, kind, smi) -> None:
@@ -657,41 +877,60 @@ def online_phase(torch, kind, smi) -> None:
           "prefix_prompt_lens": [len(p) for p in prefixed],
           "shared_prefix": ONLINE_PREFIX, "max_new_tokens": ONLINE_NEW,
           "page": ONLINE_PAGE, "sampling": "greedy"})
+    selfsim = [(rng.integers(1, cfg.vocab_size, SELFSIM_PATTERN).tolist()
+                * (SELFSIM_LEN // SELFSIM_PATTERN)) for _ in range(4)]
+    hol_long = rng.integers(1, cfg.vocab_size, HOL_LONG).tolist()
+    emit({"online_added": {"chunk_pages": ONLINE_CHUNK_PAGES,
+                           "hol_pair": [HOL_LONG, 7], "hol_gap_s": HOL_GAP_S,
+                           "selfsim_prompt_lens": [len(p) for p in selfsim],
+                           "spec_k": SPEC_K}})
     model = Llama(cfg, device="cuda", seed=0)
-    modes = (("contiguous", {}),
-             ("paged_bf16", {"TPUFW_SERVE_PAGE": str(ONLINE_PAGE)}),
-             ("paged_int8", {"TPUFW_SERVE_PAGE": str(ONLINE_PAGE),
-                             "TPUFW_SERVE_KV_QUANT": "int8"}))
+    page = {"TPUFW_SERVE_PAGE": str(ONLINE_PAGE)}
+    # (mode, env, draft model, extra wave after the 16 requests)
+    modes = (("contiguous", {}, None, None),
+             ("paged_bf16", page, None, prefixed),
+             ("paged_int8", dict(page, TPUFW_SERVE_KV_QUANT="int8"), None,
+              prefixed),
+             ("paged_chunked", dict(page, TPUFW_SERVE_PREFILL_CHUNK=str(
+                 ONLINE_CHUNK_PAGES)), None, prefixed),
+             ("spec_ngram", dict(page, TPUFW_SERVE_SPEC_K=str(SPEC_K)), None,
+              selfsim),
+             ("spec_draft", dict(page, TPUFW_DRAFT_K=str(SPEC_K)), model,
+              None))
     bf16_paged_logits = bf16_paged_tokens = None
-    for mode, env in modes:
+    paged_outputs = None  # paged_bf16's tokens of the 16 requests
+    for mode, env, draft, wave in modes:
         for k in [k for k in os.environ if k.startswith("TPUFW_")]:
             del os.environ[k]
         os.environ.update(env)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         flash.reset_launch_counts()
-        srv = serve._Server(0, 8, model=model)
+        srv = serve._Server(0, 8, model=model, draft_model=draft)
         threading.Thread(target=srv.serve_forever, daemon=True).start()
         while srv.httpd is None:
             time.sleep(0.01)
         base = f"http://127.0.0.1:{srv.port}"
         sched = srv._batcher
-        # Decode time of the warm-up request, left out of the summary.
+        # Decode and speculative time of the warm-up request, left out
+        # of the summary.
         warm_s, warm_steps = sched.decode_s, sched.decode_steps_run
+        warm_spec = (sched.spec_s, sched.spec_passes, sched.spec_tokens)
         try:
             sent = []  # max_new of every /generate request
             t0 = time.perf_counter()
-            traffic = prompts + (prefixed if mode != "contiguous" else [])
+            traffic = prompts + (wave or [])
             runs = _concurrently([
                 (lambda p=p: _stream(base, {"prompts": [p],
                                             "max_new_tokens": ONLINE_NEW}))
                 for p in prompts])
-            if mode != "contiguous":
-                # After the first wave, so the 4 share one pool's trie.
+            if wave:
+                # After the first wave: the prefix requests share one
+                # pool's trie, the self-similar ones a pool of their own.
                 runs += _concurrently([
                     (lambda p=p: _stream(base, {"prompts": [p],
                                                 "max_new_tokens": ONLINE_NEW}))
-                    for p in prefixed])
+                    for p in wave])
             wall = time.perf_counter() - t0
             sent += [ONLINE_NEW] * len(traffic)
             for toks, _, _ in runs:
@@ -745,6 +984,30 @@ def online_phase(torch, kind, smi) -> None:
                     raise AssertionError(f"{mode}: liveness {check}")
                 if sse != js:
                     raise AssertionError(f"{mode}: SSE {sse} != JSON {js}")
+            hol = None
+            if mode in ("paged_bf16", "paged_chunked"):
+                # The head-of-line pair: held with chunked prefill,
+                # measured for comparison without it.
+                def timed(p, n, gap):
+                    time.sleep(gap)
+                    t_sent = time.perf_counter()
+                    toks, ttft, _ = _stream(base, {"prompts": [p],
+                                                   "max_new_tokens": n})
+                    return toks, t_sent, t_sent + ttft
+
+                (l_toks, l_sent, l_first), (s_toks, s_sent, s_first) = (
+                    _concurrently([lambda: timed(hol_long, ONLINE_NEW, 0.0),
+                                   lambda: timed(by_len[7][2], 8,
+                                                 HOL_GAP_S)]))
+                sent += [ONLINE_NEW, 8]
+                hol = {"long_ttft_ms": (l_first - l_sent) * 1e3,
+                       "short_ttft_ms": (s_first - s_sent) * 1e3,
+                       "short_first_token_before_long_s": l_first - s_first}
+                check["hol_pair"] = hol
+                if len(l_toks) != ONLINE_NEW or len(s_toks) != 8:
+                    raise AssertionError(f"{mode}: HOL pair outputs")
+                if mode == "paged_chunked" and not s_first < l_first:
+                    raise AssertionError(f"{mode}: HOL {hol}")
             with _get(base + "/healthz") as r:
                 if json.loads(r.read())["ok"] is not True:
                     raise AssertionError(f"{mode}: /healthz not ok")
@@ -770,15 +1033,21 @@ def online_phase(torch, kind, smi) -> None:
             if any(launches.values()):
                 bad.append("flash launched")
             if mode != "contiguous":
-                check["prefix_hits"] = metrics[
-                    "tpufw_serve_prefix_hits_total"]
                 check["pages_in_use_after"] = sched.pages_in_use
                 check["trie_pages"] = len(sched.pool.prefix)
-                if check["prefix_hits"] <= 0:
-                    bad.append("no prefix hit")
+                # With a draft pool this is also its leak check: its
+                # pages come from the target's allocator.
                 if check["pages_in_use_after"] != check["trie_pages"]:
                     bad.append("pages in use beside the trie's")
+            if wave is prefixed:
+                check["prefix_hits"] = metrics[
+                    "tpufw_serve_prefix_hits_total"]
+                # Chunked admissions of one pass all open before any
+                # chunk is checkpointed, so a burst may share nothing.
+                if check["prefix_hits"] <= 0 and mode != "paged_chunked":
+                    bad.append("no prefix hit")
             ttft = [r[1] * 1e3 for r in runs]
+            steps = sched.decode_steps_run - warm_steps
             summary = {
                 "mode": mode, "wall_s": wall, "requests": len(traffic),
                 "output_tokens": ONLINE_NEW * len(traffic),
@@ -788,19 +1057,47 @@ def online_phase(torch, kind, smi) -> None:
                 "ttft_ms_sorted": [round(t) for t in sorted(ttft)],
                 "latency_ms_p50": _percentile([r[2] * 1e3 for r in runs],
                                               0.5),
-                "decode_ms_per_step": ((sched.decode_s - warm_s)
-                                       / (sched.decode_steps_run - warm_steps)
-                                       * 1e3),
-                "decode_steps": sched.decode_steps_run - warm_steps,
+                "decode_ms_per_step": ((sched.decode_s - warm_s) / steps
+                                       * 1e3 if steps else None),
+                "decode_steps": steps,
                 "pool_switches": metrics["tpufw_serve_pool_switches_total"],
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "peak_pages_in_use": sched.peak_pages_in_use,
                 "pages_total": sched.pages_total,
                 "device": kind, "nvidia_smi": smi,
             }
+            if hol is not None:
+                summary["hol_pair"] = hol
+            if "tpufw_prefill_chunks_total" in metrics:
+                summary["prefill_chunks"] = metrics[
+                    "tpufw_prefill_chunks_total"]
+            if mode == "paged_bf16":
+                paged_outputs = [r[0] for r in runs[: len(prompts)]]
+            if mode.startswith("spec"):
+                passes = sched.spec_passes - warm_spec[1]
+                rate = metrics["tpufw_spec_accept_rate"]
+                summary.update({
+                    "spec_k": SPEC_K, "spec_passes": passes,
+                    "spec_ms_per_pass": ((sched.spec_s - warm_spec[0])
+                                         / passes * 1e3 if passes else None),
+                    "spec_tokens_per_pass": ((sched.spec_tokens
+                                              - warm_spec[2]) / passes
+                                             if passes else None),
+                    "accept_rate": rate,
+                    "accepted_drafts_per_slot_pass": rate * SPEC_K,
+                    "fallback_slots": metrics["tpufw_spec_fallback_slots"],
+                    "wasted_draft_flops": metrics[
+                        "tpufw_spec_wasted_draft_flops_total"],
+                    "greedy_match_vs_paged_bf16": sum(
+                        x == y for r, o in zip(runs, paged_outputs)
+                        for x, y in zip(r[0], o)) / (len(prompts)
+                                                     * ONLINE_NEW),
+                })
+                if passes <= 0:
+                    bad.append("no speculative pass")
         finally:
             srv.shutdown()
-        if mode != "contiguous":
+        if mode in ("paged_bf16", "paged_int8"):
             # One admission sequence straight through the pools.
             logits, tokens = pool_run(
                 torch, model, direct,
@@ -822,6 +1119,19 @@ def online_phase(torch, kind, smi) -> None:
                 for x, y in zip(o, r)) / (len(tokens) * 32)
             if err[1] > tol:
                 bad.append("step logits past tolerance")
+        if mode == "paged_chunked":
+            chunk = chunk_pool_check(torch, model, direct + [hol_long],
+                                     ONLINE_MAX_CACHE)
+            check["chunked_vs_monolithic"] = chunk
+            check["tol"] = SERVE_LOGITS_TOL
+            if any(v["logits"][1] > SERVE_LOGITS_TOL for v in chunk.values()):
+                bad.append("chunked logits past tolerance")
+        if mode == "spec_draft":
+            spec = spec_pool_check(torch, model, direct)
+            check["verify_block_vs_single_steps"] = spec
+            check["tol"] = SERVE_LOGITS_TOL
+            if any(v["logits"][1] > SERVE_LOGITS_TOL for v in spec.values()):
+                bad.append("verify block logits past tolerance")
         emit(check)
         emit({"online_summary": summary})
         if bad:

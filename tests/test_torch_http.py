@@ -273,3 +273,48 @@ def test_warmup_invisible_to_metrics_and_seed_replay(server, monkeypatch,
     for line in srv.metrics.render({}).splitlines():
         if line.startswith("tpufw_serve_"):
             assert line.endswith(" 0"), line
+
+
+SPEC_SERVERS = {
+    "draft_model": {"TPUFW_DRAFT_MODEL": "llama3_tiny", "TPUFW_DRAFT_K": "3",
+                    "TPUFW_DEVICE": "cpu", "TPUFW_SERVE_PAGE": "16"},
+    "spec_ngram": {"TPUFW_SERVE_SPEC_K": "4"},
+    "prefill_chunk": {"TPUFW_SERVE_PAGE": "16",
+                      "TPUFW_SERVE_PREFILL_CHUNK": "1"},
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SPEC_SERVERS))
+def test_http_server_spec_and_chunked_series(server, monkeypatch, mode):
+    """The speculation and chunked-prefill servers answer with tpufw's
+    greedy tokens and expose the tpufw_spec_* / tpufw_prefill_* series,
+    at 0 after the warmup; TPUFW_DRAFT_MODEL builds the scheduler's draft
+    pool, which shares the target's page allocator and holds no page
+    once the traffic drains."""
+    for k, v in SPEC_SERVERS[mode].items():
+        monkeypatch.setenv(k, v)
+    srv = server(6)
+    spec = mode != "prefill_chunk"
+    names = (("tpufw_spec_accept_rate", "tpufw_spec_fallback_slots",
+              "tpufw_spec_wasted_draft_flops_total") if spec else
+             ("tpufw_prefill_chunks_total", "tpufw_prefill_resumes_total",
+              "tpufw_prefill_inflight"))
+    before = _metrics(srv.base)
+    assert all(before[n] == 0 for n in names)
+    prompts = [[1, 5, 9, 1, 5, 9, 1, 5], list(range(3, 40))]
+    code, out = _post(srv.base, {"prompts": prompts, "max_new_tokens": 6})
+    assert code == 200 and out["outputs"] == _want(prompts, 6)
+    after = _metrics(srv.base)
+    b = srv._batcher
+    if spec:
+        assert b.spec_passes > 0
+        assert 0 <= after["tpufw_spec_accept_rate"] <= 1
+    else:
+        assert after["tpufw_prefill_chunks_total"] >= 3
+    if mode == "draft_model":
+        assert b._draft_model is not None and b.spec_k == 3
+        assert b._draft_model.cfg.n_layers == 2
+        assert b._draft_pool.allocator is b.pool.allocator
+        assert after["tpufw_spec_wasted_draft_flops_total"] >= 0
+        assert "tpufw_serve_spec_iterations_total" in after
+        assert b.pages_in_use == len(b.pool.prefix)

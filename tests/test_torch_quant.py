@@ -159,3 +159,46 @@ def test_int8_greedy_mostly_matches_fp():
 def test_quantize_params_needs_projections():
     with pytest.raises(ValueError, match="no projection weights"):
         quant.quantize_params({"embed": torch.zeros(4, 2)})
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["llama3_tiny", "qwen25_tiny"])
+def test_int8_under_bf16_activations_errs_as_jax(name, seed):
+    """int8 weights served with bf16 activations, as TPUFW_QUANTIZE=int8
+    with TPUFW_DECODE_DTYPE=bfloat16 serve them: the preset's bf16
+    compute, the same Flax weights on both sides, quantized and then
+    cast by each package's serving path. The port's int8-vs-bf16 logit
+    error (relative to the bf16 logits' largest) equals the JAX
+    package's within bf16 rounding, taken as 2^-6 of the largest logit:
+    bf16 keeps 8 significant bits, and the two packages' bf16 logits of
+    the same weights differ by up to 2.5 x 2^-8 here."""
+    from tpufw.infer import cast_decode_params as j_cast
+    from tpufw.models.llama import LLAMA_CONFIGS as J_CONFIGS
+    from tpufw_torch.infer import cast_decode_params
+    from tpufw_torch.models import LLAMA_CONFIGS
+    from tpufw_torch.workloads.serve import quantize_model
+
+    tol = 2.0 ** -6
+    jcfg, tcfg = J_CONFIGS[name], LLAMA_CONFIGS[name]
+    assert jcfg.dtype == jnp.bfloat16 and tcfg.dtype == torch.bfloat16
+    fp = flax_params(pair(name)[0], seed=seed)
+    tokens = _tokens(seed=seed + 1)
+    j_bf16 = np.asarray(JLlama(jcfg).apply(
+        {"params": j_cast(fp)}, tokens), np.float32)
+    j_int8 = np.asarray(JLlama(dataclasses.replace(
+        jcfg, quantized_weights=True)).apply(
+        {"params": j_cast(j_quant.quantize_params(fp))}, tokens), np.float32)
+    model = torch_model(tcfg, fp)
+    q8 = cast_decode_params(quantize_model(model))
+    bf16 = cast_decode_params(model)
+    with torch.no_grad():
+        t_bf16 = bf16(torch.tensor(tokens)).float().numpy()
+        t_int8 = q8(torch.tensor(tokens)).float().numpy()
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    j_err, t_err = rel(j_int8, j_bf16), rel(t_int8, t_bf16)
+    assert rel(t_bf16, j_bf16) <= tol and rel(t_int8, j_int8) <= tol
+    assert abs(t_err - j_err) <= tol, (t_err, j_err)
+    assert t_err <= 0.05

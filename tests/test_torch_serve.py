@@ -2,7 +2,8 @@
 sampling and EOS resolution from the environment, the batch helpers and
 the byte codec give the JAX workload's values; ``run_batch`` and ``main``
 serve the tiny model on the CPU in fp and int8; the knobs that are not
-ported raise, and the server does not fall back to the CPU. The HTTP
+ported raise, the ported speculation and chunked-prefill knobs give
+tpufw's greedy tokens, and the server does not fall back to the CPU. The HTTP
 server itself is in test_torch_http.py and test_torch_serve_metrics.py."""
 
 import json
@@ -141,16 +142,12 @@ def test_main_prints_one_line_per_prompt(cpu_env, tmp_path, capsys):
 
 UNPORTED = {
     "SERVE_SLOTS": ("0", "server", NotImplementedError, "item 8"),
-    "SERVE_PREFILL_CHUNK": ("2", "server", NotImplementedError, "item 8"),
-    "SERVE_SPEC_K": ("4", "server", NotImplementedError, "item 8"),
-    "SERVE_SPEC_DRAFT": ("llama3_tiny", "scheduler", NotImplementedError,
-                         "item 8"),
     "KV_SPILL": ("64", "server", NotImplementedError, "item 8"),
     "KV_SPILL_DIR": ("/spill", "scheduler", NotImplementedError, "item 8"),
     "TELEMETRY_DIR": ("/tel", "server", NotImplementedError, "item 13"),
     "SERVE_ROLE": ("prefill", "main", NotImplementedError, "item 9"),
-    "DRAFT_MODEL": ("llama3_tiny", "run_batch", NotImplementedError,
-                    "item 8"),
+    "DRAFT_PARAMS_CHECKPOINT": ("/ckpt", "draft", NotImplementedError,
+                                "item 6"),
     "CHECKPOINT_DIR": ("/ckpt", "build_generator", NotImplementedError,
                        "item 6"),
     "PARAMS_CHECKPOINT": ("/ckpt", "build_generator", NotImplementedError,
@@ -171,9 +168,56 @@ def test_unported_knobs_raise(cpu_env, knob):
             "run_batch": lambda: serve.run_batch(PROMPTS, 2),
             "build_generator": serve.build_generator,
             "server": lambda: serve._Server(0, 2),
-            "scheduler": lambda: serve._SlotScheduler(None)}[entry]
+            "scheduler": lambda: serve._SlotScheduler(None),
+            "draft": lambda: serve.build_draft_model("llama3_tiny", "cpu",
+                                                     1)}[entry]
     with pytest.raises(err, match=match):
         call()
+
+
+# The knobs that were refused until speculation and chunked prefill were
+# ported: each runs on the CPU and gives tpufw's greedy tokens on the
+# same weights (the draft's weights are random: speculation changes how
+# many target passes run, never the tokens).
+PORTED = {
+    "SERVE_PREFILL_CHUNK": ("scheduler", {"SERVE_PAGE": "16",
+                                          "SERVE_PREFILL_CHUNK": "1"}),
+    "SERVE_SPEC_K": ("scheduler", {"SERVE_SPEC_K": "4"}),
+    "SERVE_SPEC_DRAFT": ("scheduler", {"SERVE_SPEC_K": "3",
+                                       "SERVE_SPEC_DRAFT": "llama3_tiny",
+                                       "SERVE_PAGE": "16"}),
+    "SERVE_SPEC_MIN_ACCEPT": ("scheduler", {"SERVE_SPEC_K": "2",
+                                            "SERVE_SPEC_MIN_ACCEPT": "0.9"}),
+    "DRAFT_MODEL": ("run_batch", {"DRAFT_MODEL": "llama3_tiny",
+                                  "DRAFT_K": "3"}),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(PORTED))
+def test_ported_knobs_give_jax_greedy_tokens(cpu_env, knob):
+    from tests.torch_parity import decode_pair
+    from tpufw.infer import generate_text as j_generate_text
+
+    jmodel, params, model = decode_pair()
+    cpu_env.setattr(serve, "build_generator",
+                    lambda: (model, model.cfg, False))
+    entry, env = PORTED[knob]
+    for k, v in env.items():
+        cpu_env.setenv(f"TPUFW_{k}", v)
+    want = j_generate_text(jmodel, params, PROMPTS, max_new_tokens=6)
+    if entry == "run_batch":
+        got = [r["output"] for r in serve.run_batch(PROMPTS, 6)]
+    else:
+        sched = serve._SlotScheduler(model)
+        try:
+            got = sched.submit(PROMPTS, 6)[0]
+            if "SERVE_SPEC_K" in env:
+                assert sched.spec_passes > 0
+            if "SERVE_PREFILL_CHUNK" in env:
+                assert sched.prefill_chunk_pages == 1
+        finally:
+            sched.close()
+    assert got == want
 
 
 def test_serve_refuses_to_fall_back_to_cpu(clear_tpufw_env):

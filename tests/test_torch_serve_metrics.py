@@ -3,8 +3,9 @@
 - ``tpufw_torch.obs.registry`` renders byte-identical Prometheus text to
   ``tpufw.obs.registry`` for the same sequence of operations;
 - after the same request, the port's server exposes the series names and
-  label sets of ``tpufw``'s server: contiguous, paged, and with the
-  latency breakdown histograms;
+  label sets of ``tpufw``'s server: contiguous, paged, with the latency
+  breakdown histograms, with chunked prefill, with n-gram speculation and
+  with a draft model;
 - ``_oai_to_native`` and ``_oai_response`` give ``tpufw``'s dicts;
 - ``python -m tpufw_torch.workloads.serve`` with ``TPUFW_SERVE_PORT``
   serves /generate, /v1/completions, /healthz and /metrics on the CPU.
@@ -79,6 +80,11 @@ SERVER_ENVS = {
     "contiguous": {},
     "paged": {"TPUFW_SERVE_PAGE": "16"},
     "latency_breakdown": {"TPUFW_SERVE_LATENCY_BREAKDOWN": "1"},
+    "prefill_chunk": {"TPUFW_SERVE_PAGE": "16",
+                      "TPUFW_SERVE_PREFILL_CHUNK": "1"},
+    "spec_ngram": {"TPUFW_SERVE_SPEC_K": "4"},
+    "draft_model": {"TPUFW_DRAFT_MODEL": "llama3_tiny",
+                    "TPUFW_DEVICE": "cpu"},
 }
 
 

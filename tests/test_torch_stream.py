@@ -169,10 +169,12 @@ def test_pool_retire_and_unported_speculation(model):
     assert pool.done[1] and pool.remaining[1] == 0
     assert (pool.decode_steps(2) == 0).all()
     assert pool.cache_len == CFG.max_seq_len
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pool.spec_steps(None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pool.spec_draft_steps(None)
+    # A retired slot emits nothing under speculation either, and its
+    # cursor stays where it was.
+    cursor = int(pool.cache[0].index[1])
+    out, n_emit, accept = pool.spec_steps(torch.tensor([[3, 4], [5, 6]]))
+    assert (out == 0).all() and (n_emit == 0).all() and (accept == 0).all()
+    assert int(pool.cache[0].index[1]) == cursor
 # ---------------------------------------------------------------------------
 # Sampling.
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Inference: KV-cache generation, sampling, the slot pool, the paged pool
-and the prefix trie (port of ``tpufw.infer``; chunked prefill, spill and
-speculative serving are ROADMAP.md Queue 1 item 8)."""
+"""Inference: KV-cache generation, sampling, speculative decoding, the slot
+pool, the paged pool with chunked prefill and the prefix trie (port of
+``tpufw.infer``; the spill tier is ROADMAP.md Queue 1 item 8)."""
 
 from tpufw_torch.infer.generate import (  # noqa: F401
     cast_decode_params,
@@ -20,12 +20,19 @@ from tpufw_torch.infer.sampling import (  # noqa: F401
     sample_token,
     transform_logits,
 )
+from tpufw_torch.infer.speculative import (  # noqa: F401
+    AcceptEMA,
+    ngram_propose,
+    speculative_generate,
+    speculative_generate_text,
+)
 from tpufw_torch.infer.slots import (  # noqa: F401
     SlotPool,
     pool_cache,
     prefill_row,
 )
 from tpufw_torch.infer.pages import (  # noqa: F401
+    ChunkedPrefill,
     PageAllocator,
     PagedSlotPool,
 )

@@ -24,11 +24,19 @@ scales stored page-structured ``[n_pages, page]``. Decode tokens are
 quantized inside the model at the append; prompt tokens are quantized
 here at insert (prefill runs full precision through the row cache).
 
+Chunked prefill (``start_chunked``, ``chunk_step``, ``finalize_chunked``,
+``abandon_chunked``): a long prompt runs through its contiguous row cache
+one page-aligned chunk per call, each chunk's window is scattered into
+its arena pages right away (quantized per token for int8 KV), and the
+completed full pages are checkpointed into the prefix trie after every
+chunk, so an abandoned prefill resumes from them.
+
 The pool's length, page size and arena belong to its cache
 (``Llama.init_paged_cache``); the model's weights are shared with every
-other pool. Not ported yet (ROADMAP.md Queue 1 items 8 and 9): chunked
-prefill (``ChunkedPrefill``, ``start_chunked``/``chunk_step``/...), page
-export, import and splice (disaggregated serving), the spill hooks.
+other pool, and a draft pool may draw its page ids from the target's
+allocator (``create_paged(allocator=)``) into an arena of its own. Not
+ported yet (ROADMAP.md Queue 1 items 8 and 9): page export, import and
+splice (disaggregated serving), the spill hooks.
 """
 
 from __future__ import annotations
@@ -127,6 +135,42 @@ class PageAllocator:
 
 
 @dataclasses.dataclass
+class ChunkedPrefill:
+    """Host-side cursor of one in-flight chunked prefill: the prompt, its
+    contiguous row cache mid-flight, the pages committed so far, and the
+    generator the final chunk samples the first token with. Created by
+    ``PagedSlotPool.start_chunked``, advanced by ``chunk_step``, consumed
+    by ``finalize_chunked`` (or ``abandon_chunked`` on preemption: the
+    trie checkpoint keeps every completed full page, so a re-admission
+    resumes instead of restarting)."""
+
+    prompt: List[int]
+    generator: Any
+    chunk_pages: int
+    n_total: int  # pages the finished row owns (decode budget included)
+    row_cache: Any  # None until the first chunk_step attaches it
+    seen_row: Any
+    cursor: int  # logical slots committed so far
+    page_ids: List[int]
+    shared_n: int  # trie-shared pages attached at start
+    n_chunks: int = 0
+    first: Any = None
+    first_int: int = -1
+    done0: bool = False
+
+    @property
+    def resumed(self) -> bool:
+        return self.shared_n > 0
+
+    @property
+    def deficit(self) -> int:
+        """Pages still to acquire before this prefill can finish;
+        admission sums it over the in-flight prefills so two
+        part-admitted rows never deadlock on the arena."""
+        return self.n_total - len(self.page_ids)
+
+
+@dataclasses.dataclass
 class PagedSlotPool(SlotPool):
     """``SlotPool`` whose KV lives in a shared page arena.
 
@@ -160,13 +204,22 @@ class PagedSlotPool(SlotPool):
         pad_id: int = 0,
         eos_id: Optional[int] = None,
         prefix_cache: bool = True,
+        allocator: Optional[PageAllocator] = None,
     ) -> "PagedSlotPool":
         """A pool of ``n_slots`` rows of ``cache_len`` logical slots over
         an arena of ``n_pages`` pages of ``page`` slots; the default
         arena holds exactly ``n_slots`` full rows plus page 0, the same
-        memory as the contiguous pool it replaces."""
+        memory as the contiguous pool it replaces. ``allocator`` shares
+        another pool's page-id space (a speculative draft pool riding the
+        target's page budget): the two arenas are separate, so they must
+        have the same number of pages."""
         if n_pages is None:
             n_pages = n_slots * (cache_len // page) + 1
+        if allocator is not None and allocator.n_pages != int(n_pages):
+            raise ValueError(
+                f"shared allocator covers {allocator.n_pages} pages but "
+                f"the arena has {n_pages}"
+            )
         dev = model.device
         seen = None
         if track_seen(sampling):
@@ -188,7 +241,10 @@ class PagedSlotPool(SlotPool):
             remaining=torch.zeros(n_slots, dtype=torch.long, device=dev),
             seen=seen,
             page=int(page),
-            allocator=PageAllocator(int(n_pages)),
+            allocator=(
+                PageAllocator(int(n_pages)) if allocator is None
+                else allocator
+            ),
             prefix=PrefixCache(int(page)) if prefix_cache else None,
             slot_pages=[[] for _ in range(n_slots)],
         )
@@ -227,13 +283,7 @@ class PagedSlotPool(SlotPool):
         # free them (a page only the trie holds has refcount 0).
         self.allocator.ref(shared)
         try:
-            n_new = n_total - len(shared)
-            ids = self.allocator.alloc(n_new)
-            if ids is None and self.prefix is not None:
-                self.prefix.evict(
-                    n_new - self.allocator.n_free, self.allocator
-                )
-                ids = self.allocator.alloc(n_new)
+            ids = self._alloc_evicting(n_total - len(shared))
         except BaseException:
             self.allocator.release(shared)
             raise
@@ -283,14 +333,31 @@ class PagedSlotPool(SlotPool):
         row cache's zeros and segment 0 past its cursor included), so no
         earlier occupant's K/V survives in them."""
         dev = self.token.device
-        page = self.page
-        start, stop = shared_n * page, len(page_ids) * page
         table_row = torch.zeros(self.per_row, dtype=torch.long)
         table_row[: len(page_ids)] = torch.tensor(
             list(page_ids), dtype=torch.long
         )
         table_row = table_row.to(dev)
-        idx = torch.arange(start, stop, device=dev)
+        self._scatter_window(row_cache, table_row, shared_n * self.page,
+                             len(page_ids) * self.page)
+        for pool, row in zip(self.cache, row_cache):
+            pool.index[slot] = row.index
+        # One table tensor serves every layer.
+        self.cache[0].table[slot] = table_row
+        self.token[slot] = torch.as_tensor(first).reshape(())
+        self.pos[slot] = pos0
+        self.done[slot] = False
+        self.remaining[slot] = budget
+        if self.seen is not None:
+            self.seen[slot] = row_seen[0]
+        self.slot_pages[slot] = list(page_ids)
+
+    def _scatter_window(self, row_cache, table_row, start, stop) -> None:
+        """Write logical slots [start, stop) of the B=1 row cache into the
+        pages ``table_row`` maps them to, K/V quantized per token for an
+        int8 arena."""
+        page = self.page
+        idx = torch.arange(start, stop, device=table_row.device)
         phys, off = table_row[idx // page], idx % page
         for pool, row in zip(self.cache, row_cache):
             k, v = row.key[0, start:stop], row.value[0, start:stop]
@@ -305,16 +372,6 @@ class PagedSlotPool(SlotPool):
                 pool.key[phys, off] = k.to(pool.key.dtype)
                 pool.value[phys, off] = v.to(pool.value.dtype)
             pool.seg[phys, off] = row.seg[0, start:stop]
-            pool.index[slot] = row.index
-        # One table tensor serves every layer.
-        self.cache[0].table[slot] = table_row
-        self.token[slot] = torch.as_tensor(first).reshape(())
-        self.pos[slot] = pos0
-        self.done[slot] = False
-        self.remaining[slot] = budget
-        if self.seen is not None:
-            self.seen[slot] = row_seen[0]
-        self.slot_pages[slot] = list(page_ids)
 
     @torch.no_grad()
     def _attach_row(self, shared_ids):
@@ -373,6 +430,147 @@ class PagedSlotPool(SlotPool):
             if self.eos_id is None else first == self.eos_id
         )
         return row, first, int(first[0]), done, seen
+
+    # ---- chunked prefill ------------------------------------------
+
+    def _alloc_evicting(self, n: int) -> Optional[List[int]]:
+        """``n`` fresh pages, evicting refcount-0 trie leaves if the free
+        list is short; None if even that does not free enough."""
+        ids = self.allocator.alloc(n)
+        if ids is None and self.prefix is not None:
+            self.prefix.evict(n - self.allocator.n_free, self.allocator)
+            ids = self.allocator.alloc(n)
+        return ids
+
+    def start_chunked(
+        self, prompt: Sequence[int], need: int,
+        generator: Optional[torch.Generator], chunk_pages: int,
+    ) -> ChunkedPrefill:
+        """Open a chunked prefill: match the prompt against the prefix
+        trie (a checkpoint of an abandoned prefill resumes here), take
+        row references on the shared pages and return the cursor
+        ``chunk_step`` advances. Acquires no new pages (each chunk grabs
+        its own) and reads no arena: the shared-prefix attach happens in
+        the first ``chunk_step``. ``need`` is the slot count the finished
+        row owns pages for (prompt + decode budget + speculative slack);
+        ``generator`` is the one a cold prefill of the whole prompt would
+        sample the first token with."""
+        prompt = [int(t) for t in prompt]
+        p = len(prompt)
+        shared: List[int] = []
+        if self.prefix is not None and p > 1:
+            # As acquire_pages: >= 1 suffix token must remain.
+            shared = self.prefix.match(prompt)[: (p - 1) // self.page]
+        self.allocator.ref(shared)
+        try:
+            if self.prefix is not None and p > 1:
+                if shared:
+                    self.prefix_hits += 1
+                else:
+                    self.prefix_misses += 1
+            seen = None
+            if track_seen(self.sampling):
+                seen = torch.zeros(1, self.model.cfg.vocab_size,
+                                   dtype=torch.bool, device=self.token.device)
+                if shared:
+                    seen[0, _on(self.model,
+                                prompt[: len(shared) * self.page])] = True
+            cp = ChunkedPrefill(
+                prompt=prompt,
+                generator=generator,
+                chunk_pages=max(1, int(chunk_pages)),
+                n_total=self.n_pages_for(max(need, p)),
+                row_cache=None,
+                seen_row=seen,
+                cursor=len(shared) * self.page,
+                page_ids=list(shared),
+                shared_n=len(shared),
+            )
+        except BaseException:
+            self.allocator.release(shared)
+            raise
+        return cp
+
+    @torch.no_grad()
+    def chunk_step(self, cp: ChunkedPrefill) -> str:
+        """Advance ``cp`` by one page-aligned chunk. Returns "ran"
+        (progress, more chunks to go), "done" (first token sampled, ready
+        for ``finalize_chunked``) or "stalled" (the arena cannot supply
+        this chunk's pages now; nothing was consumed, retry after the
+        next release).
+
+        The chunk runs through the row cache at its true positions and
+        slots, attending everything committed before it, and then its
+        page-aligned window is scattered into its arena pages (the tail
+        of a final, partial page gets the row cache's zeros and segment
+        0). The final chunk first acquires every remaining page of the
+        row, decode budget included, so a finished prefill can always be
+        finalized, and only the final chunk samples. The committed full
+        pages are checkpointed into the trie after every chunk."""
+        page = self.page
+        p = len(cp.prompt)
+        start = cp.cursor
+        left = p - start
+        width = min(cp.chunk_pages, -(-left // page)) * page
+        n_real = min(left, width)
+        is_final = left <= width
+        target = cp.n_total if is_final else (start + width) // page
+        n_new = target - len(cp.page_ids)
+        if n_new > 0:
+            ids = self._alloc_evicting(n_new)
+            if ids is None:
+                return "stalled"
+            cp.page_ids.extend(ids)
+        if cp.row_cache is None:
+            cp.row_cache = self._attach_row(cp.page_ids[: cp.shared_n])
+        dev = self.token.device
+        tokens = _on(self.model, [cp.prompt[start:start + n_real]])
+        positions = start + torch.arange(n_real, device=dev)[None, :]
+        seg = torch.ones(1, n_real, dtype=torch.int32, device=dev)
+        logits = self.model(tokens, positions, seg, cache=cp.row_cache)
+        table_row = torch.tensor(cp.page_ids, dtype=torch.long, device=dev)
+        self._scatter_window(cp.row_cache, table_row, start, start + width)
+        if cp.seen_row is not None:
+            # Prompt tokens enter the presence mask before the sample.
+            cp.seen_row[0, tokens[0]] = True
+        cp.cursor = start + n_real
+        cp.n_chunks += 1
+        if self.prefix is not None:
+            n_full = cp.cursor // page
+            adopted = self.prefix.insert(
+                cp.prompt[: cp.cursor], cp.page_ids[:n_full]
+            )
+            self.allocator.hold(adopted)
+        if not is_final:
+            return "ran"
+        first = sample_token(logits[:, -1, :], self.sampling, cp.generator,
+                             cp.seen_row)
+        if cp.seen_row is not None:
+            cp.seen_row[0, first] = True
+        cp.first = first
+        cp.first_int = int(first[0])
+        cp.done0 = self.eos_id is not None and cp.first_int == self.eos_id
+        return "done"
+
+    def finalize_chunked(
+        self, slot: int, cp: ChunkedPrefill, budget: int
+    ) -> None:
+        """Occupy ``slot`` with a completed chunked prefill: the arena
+        already holds the prompt's K/V, so ``insert_paged`` only installs
+        the table row, the cursors and the slot state."""
+        self.insert_paged(
+            slot, cp.row_cache, cp.first_int, len(cp.prompt), budget,
+            cp.page_ids, len(cp.page_ids), row_seen=cp.seen_row,
+        )
+
+    def abandon_chunked(self, cp: ChunkedPrefill) -> int:
+        """Preemption or failure: drop the row's page references. The
+        trie-checkpointed full pages stay held (the resume point of a
+        re-admission's ``start_chunked``); the rest free at once. Returns
+        the pages freed."""
+        freed = self.allocator.release(cp.page_ids)
+        cp.page_ids = []
+        return freed
 
     @torch.no_grad()
     def release_slot(self, slot: int) -> int:

@@ -119,7 +119,19 @@ def sample_token(
     logits = transform_logits(logits, cfg, seen)
     if cfg.temperature == 0.0:
         return torch.argmax(logits, dim=-1)
-    u = torch.rand(
-        logits.shape, generator=generator, device=logits.device
-    ).clamp_min(torch.finfo(torch.float32).tiny)
+    return gumbel_argmax(logits, draw_uniforms(logits.shape, generator,
+                                               logits.device))
+
+
+def draw_uniforms(shape, generator, device) -> torch.Tensor:
+    """The uniforms one sampled draw of ``shape`` takes from
+    ``generator``, kept off 0 so their double log stays finite."""
+    return torch.rand(shape, generator=generator, device=device).clamp_min(
+        torch.finfo(torch.float32).tiny
+    )
+
+
+def gumbel_argmax(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Gumbel-max over transformed ``logits`` with the uniforms ``u`` of
+    one draw: a sample of softmax(logits) along the last axis."""
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)

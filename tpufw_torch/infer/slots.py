@@ -16,9 +16,9 @@ offset). Requests move through it at decode-step granularity:
 
 Eager PyTorch traces nothing, so the JAX module's ``TRACE_COUNTS`` (jit
 traces, proving that occupancy changes never recompile) are not ported:
-that contract returns with CUDA graphs or ``torch.compile``. Speculative
-decoding on the pool (``spec_steps``, ``spec_draft_steps``) is ROADMAP.md
-Queue 1 item 8.
+that contract returns with CUDA graphs or ``torch.compile``.
+``spec_steps`` and ``spec_draft_steps`` advance the pool by speculative
+passes (``tpufw_torch.infer.speculative``).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 
 from tpufw_torch.infer.generate import _decode_step, _on, _prefill_and_first
 from tpufw_torch.infer.sampling import SamplingConfig, track_seen
+from tpufw_torch.infer.speculative import spec_draft_steps, spec_verify_steps
 
 
 def pool_cache(model, n_slots: int, cache_len: Optional[int] = None) -> list:
@@ -169,17 +170,15 @@ class SlotPool:
         return torch.stack(out, dim=1)
 
     def spec_steps(self, proposals, generator=None):
-        raise NotImplementedError(
-            "SlotPool.spec_steps: speculative decoding on the slot pool is "
-            "not ported to tpufw_torch yet (ROADMAP.md Queue 1 item 8)"
-        )
+        """One self-draft speculative pass: verify host proposals [S, k]
+        in one k+1 target pass (``infer.speculative.spec_verify_steps``).
+        Returns (out [S, k+1], n_emit [S], accept [S])."""
+        return spec_verify_steps(self, proposals, generator)
 
     def spec_draft_steps(self, draft_pool, generator=None, k: int = 4):
-        raise NotImplementedError(
-            "SlotPool.spec_draft_steps: speculative decoding on the slot "
-            "pool is not ported to tpufw_torch yet (ROADMAP.md Queue 1 "
-            "item 8)"
-        )
+        """One fused draft and verify pass with ``draft_pool``'s model
+        (``infer.speculative.spec_draft_steps``)."""
+        return spec_draft_steps(self, draft_pool, generator, k)
 
     @torch.no_grad()
     def retire(self, slot: int) -> None:

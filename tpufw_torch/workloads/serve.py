@@ -20,24 +20,31 @@ preset or ``llama3_600m_bench``, the default), ``TPUFW_MAX_SEQ_LEN``,
 ``TPUFW_EOS_ID``, the sampling knobs ``TPUFW_TEMPERATURE``,
 ``TPUFW_TOP_K``, ``TPUFW_TOP_P``, ``TPUFW_MIN_P`` and
 ``TPUFW_REPETITION_PENALTY``, ``TPUFW_TOKENIZER`` (``bytes``), and
-``TPUFW_DEVICE`` (default ``cuda``); for the server ``TPUFW_SERVE_SLOTS``
+``TPUFW_DEVICE`` (default ``cuda``); speculative decoding with a draft
+model, ``TPUFW_DRAFT_MODEL`` (a ``LLAMA_CONFIGS`` preset, weights drawn
+from ``TPUFW_SEED`` + 1) and ``TPUFW_DRAFT_K`` (4), in batch mode and as
+the server's draft pool; for the server ``TPUFW_SERVE_SLOTS``
 (8), ``TPUFW_SERVE_CHUNK`` (default ``TPUFW_STREAM_CHUNK``, 16),
 ``TPUFW_SERVE_CACHE_FLOOR`` (128), ``TPUFW_BATCH_WAIT_MS`` (5),
 ``TPUFW_SERVE_PAGE``, ``TPUFW_SERVE_KV_QUANT``,
-``TPUFW_SERVE_PREFIX_CACHE`` (on), ``TPUFW_SERVE_LATENCY_BREAKDOWN``,
-``TPUFW_MAX_SAMPLING_CONFIGS`` (32) and ``TPUFW_WARMUP`` (on). Weights are
-drawn at random from ``TPUFW_SEED``.
+``TPUFW_SERVE_PREFIX_CACHE`` (on), ``TPUFW_SERVE_PREFILL_CHUNK`` (chunked
+paged prefill, in pages per chunk; needs ``TPUFW_SERVE_PAGE``),
+``TPUFW_SERVE_SPEC_K`` (speculative passes of k drafts on the slot pool),
+``TPUFW_SERVE_SPEC_DRAFT`` (empty or ``ngram``: n-gram self-drafting; a
+preset name: a draft pool of that model), ``TPUFW_SERVE_SPEC_MIN_ACCEPT``
+(0.25), ``TPUFW_SERVE_LATENCY_BREAKDOWN``, ``TPUFW_MAX_SAMPLING_CONFIGS``
+(32) and ``TPUFW_WARMUP`` (on). Weights are drawn at random from
+``TPUFW_SEED``. Speculation on the slot pool does not compose with a
+repetition penalty: such pools decode plainly, as in the JAX workload.
 
 Not ported yet, and refused with ``NotImplementedError``: the tick batcher
-(``TPUFW_SERVE_SLOTS=0``), chunked paged prefill
-(``TPUFW_SERVE_PREFILL_CHUNK``), speculative decoding
-(``TPUFW_SERVE_SPEC_K``, ``TPUFW_SERVE_SPEC_DRAFT``, ``TPUFW_DRAFT_MODEL``)
-and the KV spill tier (``TPUFW_KV_SPILL``, ``TPUFW_KV_SPILL_DIR``), all
-ROADMAP.md Queue 1 item 8; the disaggregated roles and page export
-(``TPUFW_SERVE_ROLE``; item 9); telemetry (``TPUFW_TELEMETRY_DIR``, so
-``GET /debug/profile`` answers 404; item 13); loading weights
-(``TPUFW_CHECKPOINT_DIR``, ``TPUFW_PARAMS_CHECKPOINT``,
-``TPUFW_HF_CHECKPOINT``; item 6).
+(``TPUFW_SERVE_SLOTS=0``) and the KV spill tier (``TPUFW_KV_SPILL``,
+``TPUFW_KV_SPILL_DIR``), the rest of ROADMAP.md Queue 1 item 8; the
+disaggregated roles and page export (``TPUFW_SERVE_ROLE``; item 9);
+telemetry (``TPUFW_TELEMETRY_DIR``, so ``GET /debug/profile`` answers
+404; item 13); loading weights (``TPUFW_CHECKPOINT_DIR``,
+``TPUFW_PARAMS_CHECKPOINT``, ``TPUFW_HF_CHECKPOINT``,
+``TPUFW_DRAFT_PARAMS_CHECKPOINT``; item 6).
 """
 
 from __future__ import annotations
@@ -259,14 +266,77 @@ def generate_batch(model, prompts, max_new_tokens, sampling, eos):
     )[:real_n]
 
 
+def build_draft_model(name: str, device, seed: int,
+                      max_seq_len: Optional[int] = None):
+    """A decode model of the ``LLAMA_CONFIGS`` preset ``name``, weights
+    drawn at random from ``seed`` on ``device``: the draft of speculative
+    decoding. Its ``max_seq_len`` (the longest cache it takes) is
+    ``max_seq_len`` if given, else ``TPUFW_MAX_SEQ_LEN`` or the preset's.
+    Random draft weights only wire the path up: their proposals rarely
+    match, and the outputs stay the target's all the same."""
+    from tpufw_torch.models import LLAMA_CONFIGS, Llama
+
+    if env_str("draft_params_checkpoint", ""):
+        _refuse("draft_params_checkpoint", "loading draft weights", "6")
+    if name not in LLAMA_CONFIGS:
+        raise ValueError(
+            f"unknown draft model {name!r}; choose from {[*LLAMA_CONFIGS]}"
+        )
+    base = LLAMA_CONFIGS[name]
+    if max_seq_len is None:
+        max_seq_len = env_int("max_seq_len", base.max_seq_len)
+    cfg = dataclasses.replace(base, max_seq_len=max_seq_len)
+    return Llama(cfg.decode_config(), device=device, seed=seed)
+
+
+def build_draft_generator(max_seq_len: Optional[int] = None):
+    """TPUFW_DRAFT_MODEL: (draft_model, k) for speculative decoding, the
+    draft drawn from ``TPUFW_SEED`` + 1 and cast like the target
+    (``TPUFW_DECODE_DTYPE``), k from ``TPUFW_DRAFT_K`` (4); None when the
+    knob is unset. ``max_seq_len`` as in ``build_draft_model``."""
+    name = env_str("draft_model", "")
+    if not name:
+        return None
+    draft = build_draft_model(
+        name, env_str("device", "cuda"), env_int("seed", 0) + 1, max_seq_len
+    )
+    return _maybe_cast_decode(draft), env_int("draft_k", 4)
+
+
+def speculative_batch(draft_model, model, prompts, max_new_tokens, sampling,
+                      eos, k: int):
+    """``generate_batch`` with ``draft_model`` speculation
+    (``infer.speculative_generate_text``): the batch padded to a power of
+    two with dead filler rows, which do not hold back the batch's
+    acceptance. Returns (outputs, stats)."""
+    from tpufw_torch.infer import speculative_generate_text
+
+    padded, real_n = _pad_batch(prompts, eos if eos is not None else 0)
+    outs, stats = speculative_generate_text(
+        draft_model,
+        model,
+        padded,
+        max_new_tokens=max_new_tokens,
+        k=k,
+        eos_id=eos,
+        live_rows=[i < real_n for i in range(len(padded))],
+        sampling=sampling,
+        prefill_chunk_size=env_int("prefill_chunk", 0) or None,
+    )
+    return outs[:real_n], stats
+
+
 def run_batch(prompts: list[list[int]], max_new_tokens: int) -> list[dict]:
-    if env_str("draft_model", ""):
-        _refuse("draft_model", "speculative decoding", "8")
     model, cfg, restored = build_generator()
     model = _maybe_cast_decode(model)
-    outs = generate_batch(
-        model, prompts, max_new_tokens, sampling_from_env(), eos_from_env()
-    )
+    sampling, eos = sampling_from_env(), eos_from_env()
+    draft = build_draft_generator()
+    if draft is not None:
+        outs, _stats = speculative_batch(
+            draft[0], model, prompts, max_new_tokens, sampling, eos, draft[1]
+        )
+    else:
+        outs = generate_batch(model, prompts, max_new_tokens, sampling, eos)
     return [
         {
             "prompt": p,
@@ -440,7 +510,7 @@ class _SlotJob:
     its own EOS or max_new."""
 
     __slots__ = ("req", "prompt", "p_bucket", "max_new", "cache_len",
-                 "tokens", "unflushed")
+                 "tokens", "unflushed", "cp")
 
     def __init__(self, req, prompt, p_bucket, max_new, cache_len):
         self.req = req
@@ -450,6 +520,9 @@ class _SlotJob:
         self.cache_len = cache_len
         self.tokens: list[int] = []
         self.unflushed: list[int] = []
+        # The in-flight ChunkedPrefill while the row prefills chunk by
+        # chunk in its slot; None once it decodes.
+        self.cp = None
 
 
 class _SlotReq:
@@ -521,9 +594,27 @@ class _SlotScheduler:
     are prefilled at their exact width so their full pages line up with
     the trie's chunks.
 
+    Chunked prefill (``prefill_chunk_pages`` > 0, paged only): a row
+    takes its slot at once as a PREFILLING occupant and runs one
+    page-aligned chunk per scheduler pass, ahead of the pass's decode
+    chunk, so a long prompt no longer blocks the rows behind it.
+    Admission reserves around the pages the in-flight prefills still owe,
+    so two part-admitted rows never deadlock on the arena.
+
+    Speculation (``spec_k`` > 0): while the active slots' mean accept EMA
+    clears ``spec_min_accept``, a pass drafts ``spec_k`` tokens per slot
+    (n-gram self-drafting, or a draft pool with its own cache over a draft
+    model, sharing the target's page allocator) and verifies them in ONE
+    target pass, each slot advancing by its own accept count; otherwise
+    the pool decodes plainly. A speculative row reserves ``spec_k`` extra
+    KV slots (cache rung and pages), so its verify block never reaches
+    past its own cache. Pools with a repetition penalty never speculate.
+
     Sampling: each prefill and each chunk draws from its own generator
     (``stream_generator``), so the same arrival order and ``TPUFW_SEED``
     replay the same tokens; ``reset_after_warmup`` rewinds both indices.
+    A chunked prefill samples its first token with the generator a cold
+    prefill of the whole prompt would use.
     """
 
     def __init__(
@@ -541,11 +632,11 @@ class _SlotScheduler:
         page_export=None,
         spec_k: Optional[int] = None,
         spec_draft: Optional[str] = None,
+        spec_min_accept: Optional[float] = None,
+        spec_draft_built=None,
         prefill_chunk_pages: Optional[int] = None,
     ):
-        _refuse_unported_scheduler(
-            page_export, spec_k, spec_draft, prefill_chunk_pages
-        )
+        _refuse_unported_scheduler(page_export)
         self.model = model
         self._eos = eos_id
         self._default_sampling = (
@@ -601,6 +692,75 @@ class _SlotScheduler:
                     f"TPUFW_SERVE_KV_QUANT={self.kv_quant!r}: expected '' "
                     "or 'int8'"
                 )
+        # Chunked prefill is page-granular: pages per chunk, 0 = off.
+        self.prefill_chunk_pages = (
+            env_int("serve_prefill_chunk", 0) if prefill_chunk_pages is None
+            else int(prefill_chunk_pages)
+        )
+        if self.prefill_chunk_pages and not self.page:
+            raise ValueError(
+                f"TPUFW_SERVE_PREFILL_CHUNK={self.prefill_chunk_pages}: "
+                "chunked prefill is page-granular and needs "
+                "TPUFW_SERVE_PAGE > 0"
+            )
+        # Speculation: spec_draft "" or "ngram" drafts on the host; a
+        # preset name builds a draft model; spec_draft_built is a draft
+        # model already built (the server's TPUFW_DRAFT_MODEL, or the
+        # target itself).
+        self.spec_k = (
+            env_int("serve_spec_k", 0) if spec_k is None else int(spec_k)
+        )
+        self.spec_draft = (
+            env_str("serve_spec_draft", "") if spec_draft is None
+            else str(spec_draft)
+        )
+        self.spec_min_accept = (
+            env_float("serve_spec_min_accept", 0.25)
+            if spec_min_accept is None else float(spec_min_accept)
+        )
+        self._draft_model = None
+        self._draft_n_params = 0
+        self._draft_pool = None
+        self._ema = None
+        # Cumulative accept bookkeeping behind tpufw_spec_accept_rate.
+        self._spec_accept_sum = 0.0
+        self._spec_accept_rows = 0
+        # Host wall time, passes and tokens of the speculative passes.
+        self.spec_s = 0.0
+        self.spec_passes = 0
+        self.spec_tokens = 0
+        if self.spec_k:
+            if self.spec_k < 1:
+                raise ValueError(
+                    f"TPUFW_SERVE_SPEC_K={self.spec_k}: need >= 1"
+                )
+            if self.page and self.spec_k + 1 > self.page:
+                # A done row's clamped verify block must stay inside the
+                # row's own last page.
+                raise ValueError(
+                    f"TPUFW_SERVE_SPEC_K={self.spec_k}: the k+1 verify "
+                    f"block must fit one KV page (page={self.page})"
+                )
+            if spec_draft_built is not None:
+                self._draft_model = spec_draft_built
+            elif self.spec_draft and self.spec_draft != "ngram":
+                # The draft pools' caches are as long as the target's.
+                self._draft_model = build_draft_model(
+                    self.spec_draft, model.device, seed_base + 1,
+                    model.cfg.max_seq_len,
+                )
+            if self._draft_model is not None:
+                if self._draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                    raise ValueError(
+                        "the draft model's vocabulary "
+                        f"({self._draft_model.cfg.vocab_size}) differs from "
+                        f"the target's ({model.cfg.vocab_size})"
+                    )
+                # Wasted-draft-FLOPs accounting: ~2 * params per drafted
+                # token; 0 for self-drafting.
+                self._draft_n_params = sum(
+                    t.numel() for t in self._draft_model.parameters()
+                )
         if metrics is not None:
             metrics.register(
                 "retired_rows_total",
@@ -615,6 +775,18 @@ class _SlotScheduler:
                     "prefix_misses_total",
                     "pages_freed_total",
                 )
+            if self.prefill_chunk_pages:
+                # The JAX server's unprefixed chunked-prefill series,
+                # gated like it.
+                metrics.registry.counter("tpufw_prefill_chunks_total")
+                metrics.registry.counter("tpufw_prefill_resumes_total")
+                metrics.registry.gauge("tpufw_prefill_inflight")
+            if self.spec_k:
+                metrics.registry.counter(
+                    "tpufw_spec_wasted_draft_flops_total"
+                )
+                metrics.registry.gauge("tpufw_spec_accept_rate")
+                metrics.registry.gauge("tpufw_spec_fallback_slots")
             metrics.registry.histogram(
                 "tpufw_serve_join_latency_seconds",
                 "Request submit-to-first-slot-insert latency",
@@ -739,19 +911,24 @@ class _SlotScheduler:
         )
         jobs = []
         req = _SlotReq(pend, sampling)
+        # A speculative row's verify block writes up to spec_k slots past
+        # its last cursor before the rewind: its cache rung and pages
+        # cover them.
+        slack = self._spec_slack(sampling)
         for prompt in pend.prompts:
             # Paged rows prefill at their EXACT width: padding would
             # burn pages and misalign the prompt's page chunks.
             pb = max(len(prompt), 1) if self.page else _bucket(len(prompt), 64)
             # Prefill writes pb slots, decode max_new - 1 more.
-            if pb + pend.max_new - 1 > cap:
+            if pb + pend.max_new - 1 + slack > cap:
                 raise ValueError(
                     f"prompt ({len(prompt)}, bucketed to {pb}) + "
-                    f"max_new_tokens ({pend.max_new}) exceeds the KV cache "
-                    f"(max_seq_len={cap})"
+                    f"max_new_tokens ({pend.max_new})"
+                    + (f" + spec slack ({slack})" if slack else "")
+                    + f" exceeds the KV cache (max_seq_len={cap})"
                 )
             if self.page and self.arena_pages is not None:
-                need = -(-(pb + pend.max_new - 1) // self.page)
+                need = -(-(pb + pend.max_new - 1 + slack) // self.page)
                 if need > self.arena_pages - 1:
                     # A row that can NEVER fit would block the FIFO.
                     raise ValueError(
@@ -760,7 +937,8 @@ class _SlotScheduler:
                     )
             jobs.append(_SlotJob(
                 req, prompt, pb, pend.max_new,
-                _cache_bucket(pb + pend.max_new - 1, cap, self.cache_floor),
+                _cache_bucket(pb + pend.max_new - 1 + slack, cap,
+                              self.cache_floor),
             ))
         req.jobs = jobs
         req.rows_left = len(jobs)
@@ -801,7 +979,17 @@ class _SlotScheduler:
             self.model.device, self._seed_base, stream, index
         )
 
+    def _spec_slack(self, sampling) -> int:
+        """Extra KV slots a speculative row needs past max_new - 1 (0 when
+        speculation is off or this sampling cannot speculate)."""
+        from tpufw_torch.infer.sampling import track_seen
+
+        if not self.spec_k or track_seen(sampling):
+            return 0
+        return self.spec_k
+
     def _build_pool(self, key) -> None:
+        from tpufw_torch.infer import AcceptEMA, SamplingConfig
         from tpufw_torch.infer.pages import PagedSlotPool
         from tpufw_torch.infer.slots import SlotPool
 
@@ -810,8 +998,10 @@ class _SlotScheduler:
             self._peak_pages = max(
                 self._peak_pages, self._pool.allocator.peak_in_use
             )
-        # Drop the old pool first: its memory serves the new one.
+        # Drop the old pools first: their memory serves the new ones.
         self._pool = None
+        self._draft_pool = None
+        self._ema = None
         if self.page:
             self._pool = PagedSlotPool.create_paged(
                 self.model,
@@ -835,6 +1025,34 @@ class _SlotScheduler:
                 pad_id=0,
                 eos_id=self._eos,
                 cache_len=cache_len,
+            )
+        if self._spec_slack(sampling):
+            if self._draft_model is not None:
+                # The draft pool only holds the draft's cache: its
+                # prefills sample nothing (greedy), and the pass reads
+                # the target pool's tokens, positions and sampling.
+                if self.page:
+                    self._draft_pool = PagedSlotPool.create_paged(
+                        self._draft_model,
+                        self.n_slots,
+                        cache_len=cache_len,
+                        page=self.page,
+                        n_pages=self.arena_pages,
+                        kv_quant=self.kv_quant,
+                        sampling=SamplingConfig(),
+                        prefix_cache=False,
+                        allocator=self._pool.allocator,
+                    )
+                else:
+                    self._draft_pool = SlotPool.create(
+                        self._draft_model, self.n_slots, cache_len=cache_len
+                    )
+            self._ema = AcceptEMA(
+                self.n_slots,
+                min_accept=self.spec_min_accept,
+                # Plain chunks leave a draft pool's KV stale, so its
+                # fallback is sticky until the pool drains.
+                probe_every=0 if self._draft_pool is not None else 8,
             )
         self._pool_key = key
         self._slots = [None] * self.n_slots
@@ -902,13 +1120,27 @@ class _SlotScheduler:
         admitted = False
         while free and req.next_job < len(req.jobs):
             job = req.jobs[req.next_job]
+            if self.prefill_chunk_pages:
+                # Chunked admission: the row takes its slot now and
+                # acquires pages chunk by chunk in the passes to come.
+                if not self._can_admit_chunked(job):
+                    break
+                try:
+                    self._admit_chunked(job, free[0])
+                except Exception as e:  # noqa: BLE001 — isolate request
+                    self._fail_req(req, e)
+                    return admitted
+                req.next_job += 1
+                admitted = True
+                free.pop(0)
+                continue
             grant = None
             if self.page:
                 # Page-budget admission: the row needs every page of its
                 # prompt + budget up front. None = arena full even after
                 # trie eviction: stop and let retires free pages.
                 grant = self._pool.acquire_pages(
-                    job.prompt, len(job.prompt) + job.max_new - 1
+                    job.prompt, self._row_need(job)
                 )
                 if grant is None:
                     break
@@ -939,6 +1171,66 @@ class _SlotScheduler:
         if req.rows_left == 0 and req.next_job == len(req.jobs):
             self._finish(req)
         return admitted
+
+    def _row_need(self, job: _SlotJob) -> int:
+        """KV slots ``job``'s row owns pages for: prompt, decode budget
+        and speculative slack."""
+        return (len(job.prompt) + job.max_new - 1
+                + self._spec_slack(self._pool.sampling))
+
+    def _cp_deficit(self) -> int:
+        """Pages the in-flight chunked prefills still owe: what they will
+        hold at finalize less what they hold now."""
+        return sum(
+            j.cp.deficit for j in self._slots
+            if j is not None and j.cp is not None
+        )
+
+    def _can_admit_chunked(self, job: _SlotJob) -> bool:
+        """Admit a chunked prefill only when the free and trie-evictable
+        pages cover every in-flight prefill's remaining need plus this
+        row's whole need; each chunk's grab is all or nothing, so every
+        admitted prefill then reaches its full grant."""
+        a = self._pool.allocator
+        evictable = sum(1 for i in a.held if not a.refs.get(i, 0))
+        n_total = self._pool.n_pages_for(self._row_need(job))
+        return self._cp_deficit() + n_total <= a.n_free + evictable
+
+    def _admit_chunked(self, job: _SlotJob, slot: int) -> None:
+        """Open a chunked prefill and seat it in ``slot`` without a device
+        call: the slot's pool state stays born done (its junk decode
+        writes land in page 0), and ``_run_prefill_chunks`` advances the
+        row one chunk per pass."""
+        with self._cv:
+            job_index = self._job_index
+            self._job_index += 1
+        cp = self._pool.start_chunked(
+            job.prompt, self._row_need(job),
+            self._generator(_PREFILL_STREAM, job_index),
+            self.prefill_chunk_pages,
+        )
+        if self.prefix_enabled and self._metrics is not None:
+            hit = cp.shared_n > 0
+            self._metrics.inc(
+                "prefix_hits_total" if hit else "prefix_misses_total"
+            )
+            if hit:
+                # Trie hits are the resume path of abandoned prefills.
+                self._metrics.registry.counter(
+                    "tpufw_prefill_resumes_total"
+                ).inc()
+        job.cp = cp
+        with self._cv:
+            self._slots[slot] = job
+            self._n_active += 1
+        self._set_prefill_inflight()
+
+    def _set_prefill_inflight(self) -> None:
+        if self._metrics is None or not self.prefill_chunk_pages:
+            return
+        self._metrics.registry.gauge("tpufw_prefill_inflight").set(float(
+            sum(1 for j in self._slots if j is not None and j.cp is not None)
+        ))
 
     def _admit_job(self, req: _SlotReq, job: _SlotJob, slot: int,
                    grant=None) -> bool:
@@ -1008,10 +1300,58 @@ class _SlotScheduler:
                 slot, cache, first_int, len(job.prompt), job.max_new - 1,
                 row_seen=seen,
             )
+        self._occupy_spec(job, slot)
         with self._cv:
             self._slots[slot] = job
             self._n_active += 1
         return True
+
+    def _occupy_spec(self, job: _SlotJob, slot: int) -> None:
+        """A decoding row joins speculation: the draft pool's slot gets
+        its prompt, and its accept EMA starts optimistic."""
+        if self._draft_pool is not None:
+            self._admit_draft(job, slot)
+        if self._ema is not None:
+            self._ema.occupy(slot)
+
+    def _admit_draft(self, job: _SlotJob, slot: int) -> None:
+        """Prefill ``job``'s prompt through the draft model into the draft
+        pool's slot. Draft pages come from the shared allocator strictly
+        after the target's, and a failed draft grant degrades the slot
+        (its proposals verify as junk, and the EMA sends the pool to plain
+        decode) instead of blocking admission."""
+        from tpufw_torch.infer.slots import prefill_row
+
+        dpool = self._draft_pool
+        need = len(job.prompt) + job.max_new - 1 + self.spec_k
+        d_grant = None
+        if self.page:
+            deficit = self._cp_deficit()
+            if deficit and dpool.allocator.n_free < (
+                    deficit + dpool.n_pages_for(need)):
+                # Draft pages would eat into the pages in-flight chunked
+                # prefills count on.
+                return
+            d_grant = dpool.acquire_pages(job.prompt, need)
+            if d_grant is None:
+                return
+        try:
+            cache, _f, d_first, _d, _s = prefill_row(
+                dpool.model, job.prompt, None, sampling=dpool.sampling,
+                eos_id=None,
+                pad_to=len(job.prompt) if self.page else job.p_bucket,
+                prefill_chunk_size=self.prefill_chunk,
+                cache_len=dpool.cache_len,
+            )
+            if d_grant is not None:
+                dpool.insert_paged(slot, cache, d_first, len(job.prompt),
+                                   need - len(job.prompt), d_grant[0], 0)
+            else:
+                dpool.insert(slot, cache, d_first, len(job.prompt),
+                             need - len(job.prompt))
+        except Exception:  # noqa: BLE001 — degrade the slot, not the request
+            if d_grant is not None:
+                self._free_pages(dpool.release_pages(d_grant[0]))
 
     def _free_pages(self, freed: int) -> None:
         if freed and self._metrics is not None:
@@ -1022,17 +1362,101 @@ class _SlotScheduler:
         (error paths; natural completions froze inside the step). Paged
         pools always zero the slot's table row before its pages go back
         on the free list."""
+        job = self._slots[slot]
+        if job is not None and job.cp is not None:
+            # A preempted chunked prefill: its trie-checkpointed pages
+            # stay held, the resume point of a re-submission.
+            self._free_pages(self._pool.abandon_chunked(job.cp))
+            job.cp = None
+            self._set_prefill_inflight()
         if self.page:
             self._free_pages(self._pool.release_slot(slot))
         elif device:
             self._pool.retire(slot)
+        if self._draft_pool is not None:
+            # A slot that never got a draft grant releases nothing.
+            if self.page:
+                self._free_pages(self._draft_pool.release_slot(slot))
+            elif device:
+                self._draft_pool.retire(slot)
+        if self._ema is not None:
+            self._ema.vacate(slot)
         with self._cv:
             self._slots[slot] = None
             self._n_active -= 1
 
+    def _run_prefill_chunks(self) -> bool:
+        """Advance every PREFILLING slot by one page-aligned chunk, in the
+        same pass as the decoding slots. A row whose final chunk lands
+        here is finalized at once and decodes in this pass. Returns True
+        iff a chunk ran."""
+        if not self.prefill_chunk_pages:
+            return False
+        progressed = False
+        for slot, job in [(i, j) for i, j in enumerate(self._slots)
+                          if j is not None and j.cp is not None]:
+            status = self._pool.chunk_step(job.cp)
+            if status == "stalled":
+                # The arena is full for now: the row keeps its slot and
+                # retries next pass.
+                continue
+            progressed = True
+            if self._metrics is not None:
+                self._metrics.registry.counter(
+                    "tpufw_prefill_chunks_total"
+                ).inc()
+            if status == "done":
+                self._finalize_chunked(slot, job)
+        self._set_prefill_inflight()
+        return progressed
+
+    def _finalize_chunked(self, slot: int, job: _SlotJob) -> None:
+        """A chunked prefill sampled its first token: finish the row
+        outright (max_new == 1 or EOS first; its checkpointed pages stay
+        in the trie) or install it as a decoding occupant of its slot."""
+        cp, req = job.cp, job.req
+        job.cp = None
+        job.tokens.append(cp.first_int)
+        job.unflushed.append(cp.first_int)
+        if self._metrics is not None:
+            self._metrics.inc("tokens_generated_total")
+        if job.max_new == 1 or (
+            self._eos is not None and cp.first_int == self._eos
+        ):
+            self._free_pages(self._pool.abandon_chunked(cp))
+            with self._cv:
+                self._slots[slot] = None
+                self._n_active -= 1
+            if self._metrics is not None:
+                self._metrics.inc("retired_rows_total")
+            req.rows_left -= 1
+        else:
+            self._pool.finalize_chunked(slot, cp, job.max_new - 1)
+            self._occupy_spec(job, slot)
+        if req.pend.stream_q is not None:
+            self._flush_stream(req)
+        if req.rows_left == 0 and req.next_job == len(req.jobs):
+            self._finish(req)
+
+    def _use_spec(self, active) -> bool:
+        """Acceptance-aware scheduling: speculate while the active slots'
+        mean accept EMA clears the threshold."""
+        return self._ema is not None and self._ema.use_spec(
+            [slot for slot, _ in active]
+        )
+
     def _run_chunk(self) -> None:
-        active = [(i, j) for i, j in enumerate(self._slots) if j is not None]
+        progressed = self._run_prefill_chunks()
+        active = [(i, j) for i, j in enumerate(self._slots)
+                  if j is not None and j.cp is None]
         if not active:
+            if self._n_active and not progressed:
+                # Every occupied slot is a prefill stalled on pages: do
+                # not spin hot while waiting for a release.
+                time.sleep(0.001)
+            return
+        if self._use_spec(active):
+            self._run_spec_chunk(active)
             return
         # Pow-2 ladder on the chunk length: the tail of a nearly done
         # pool shrinks k in big steps.
@@ -1046,6 +1470,74 @@ class _SlotScheduler:
         out = self._pool.decode_steps(k, gen).tolist()  # one host sync
         self.decode_s += time.perf_counter() - chunk_t0
         self.decode_steps_run += k
+        live_tokens = self._deliver(active, [row[:k] for row in out])
+        if self._metrics is not None:
+            # S * k slot-steps ran; those not delivering a live token are
+            # the batching overhead TPUFW_SERVE_SLOTS/_CHUNK trade off.
+            self._metrics.inc(
+                "wasted_slot_steps_total", self.n_slots * k - live_tokens
+            )
+
+    def _run_spec_chunk(self, active) -> None:
+        """One speculative pass over every occupied slot: draft spec_k
+        tokens (n-gram self-draft or the draft pool), verify them in ONE
+        target pass, and advance each slot by its own emit count."""
+        from tpufw_torch.infer.speculative import ngram_propose
+
+        k = self.spec_k
+        with self._cv:
+            chunk_index = self._chunk_index
+            self._chunk_index += 1
+        gen = self._generator(_CHUNK_STREAM, chunk_index)
+        chunk_t0 = time.perf_counter()
+        if self._draft_pool is not None:
+            out, n_emit, accept = self._pool.spec_draft_steps(
+                self._draft_pool, gen, k
+            )
+        else:
+            props = np.zeros((self.n_slots, k), np.int64)
+            for slot, job in active:
+                props[slot] = ngram_propose(list(job.prompt) + job.tokens, k)
+            out, n_emit, accept = self._pool.spec_steps(props, gen)
+        # One host sync for the pass.
+        res = torch.cat([out, n_emit[:, None], accept[:, None]], 1).tolist()
+        self.spec_s += time.perf_counter() - chunk_t0
+        self.spec_passes += 1
+        rows = [r[: r[k + 1]] for r in res]
+        accepts = {slot: res[slot][k + 2] for slot, _ in active}
+        for slot, _ in active:
+            self._ema.update(slot, accepts[slot] / k)
+        live_tokens = self._deliver(active, rows)
+        self.spec_tokens += live_tokens
+        accept_frac = sum(a / k for a in accepts.values())
+        self._spec_accept_sum += accept_frac
+        self._spec_accept_rows += len(active)
+        if self._metrics is not None:
+            # S * (k+1) verify positions ran; rejected drafts are
+            # counted apart as wasted draft FLOPs.
+            self._metrics.inc(
+                "wasted_slot_steps_total",
+                self.n_slots * (k + 1) - live_tokens,
+            )
+            reg = self._metrics.registry
+            # The cumulative mean: a scrape after the traffic drains
+            # still reports what the server accepted.
+            reg.gauge("tpufw_spec_accept_rate").set(
+                self._spec_accept_sum / max(self._spec_accept_rows, 1)
+            )
+            reg.gauge("tpufw_spec_fallback_slots").set(float(
+                self._ema.fallback_slots([s for s, _ in active])
+            ))
+            reg.counter("tpufw_spec_wasted_draft_flops_total").inc(
+                sum(k - a for a in accepts.values())
+                * 2.0 * self._draft_n_params
+            )
+
+    def _deliver(self, active, rows) -> int:
+        """Hand each active slot's tokens of this pass (``rows[slot]``,
+        before budget and EOS cuts) to its job; retire the rows that
+        finished, flush streams, finish requests. Returns the live
+        tokens delivered."""
         if self._metrics is not None:
             self._metrics.inc("ticks_total")
             self._metrics.inc("tick_rows_total", len(active))
@@ -1054,8 +1546,7 @@ class _SlotScheduler:
         finished: list[_SlotReq] = []
         for slot, job in active:
             req = job.req
-            take = min(k, job.max_new - len(job.tokens))
-            row = out[slot][:take]
+            row = rows[slot][: job.max_new - len(job.tokens)]
             if self._eos is not None and self._eos in row:
                 row = row[: row.index(self._eos) + 1]
             job.tokens.extend(row)
@@ -1074,16 +1565,12 @@ class _SlotScheduler:
                     finished.append(req)
         if self._metrics is not None:
             self._metrics.inc("tokens_generated_total", live_tokens)
-            # S * k slot-steps ran; those not delivering a live token are
-            # the batching overhead TPUFW_SERVE_SLOTS/_CHUNK trade off.
-            self._metrics.inc(
-                "wasted_slot_steps_total", self.n_slots * k - live_tokens
-            )
         for req in flush:
             if req not in finished:
                 self._flush_stream(req)
         for req in finished:
             self._finish(req)
+        return live_tokens
 
     # ---- completion / failure ----
 
@@ -1136,7 +1623,7 @@ class _SlotScheduler:
         with self._cv:
             self._slots = [None] * self.n_slots
             self._n_active = 0
-        self._pool = None
+        self._pool = self._draft_pool = self._ema = None
         self._pool_key = None
         for req in reqs.values():
             self._signal_error(req, e)
@@ -1150,23 +1637,16 @@ class _SlotScheduler:
             self._signal_error(req, e)
 
 
-def _refuse_unported_scheduler(page_export, spec_k, spec_draft,
-                               prefill_chunk_pages) -> None:
+def _refuse_unported_scheduler(page_export) -> None:
     """The scheduler's knobs whose modules are not ported yet."""
     if page_export is not None:
         raise NotImplementedError(
             "page_export: exporting pages to a decode replica is not "
             "ported to tpufw_torch yet (ROADMAP.md Queue 1 item 9)"
         )
-    for knob, kwarg, what in (
-        ("serve_prefill_chunk", prefill_chunk_pages, "chunked paged prefill"),
-        ("serve_spec_k", spec_k, "speculative decoding"),
-        ("serve_spec_draft", spec_draft, "speculative decoding"),
-        ("kv_spill", None, "the KV spill tier"),
-        ("kv_spill_dir", None, "the KV spill tier"),
-    ):
-        if kwarg or env_str(knob, "") not in ("", "0"):
-            _refuse(knob, what, "8")
+    for knob in ("kv_spill", "kv_spill_dir"):
+        if env_str(knob, "") not in ("", "0"):
+            _refuse(knob, "the KV spill tier", "8")
 
 
 class _Server:
@@ -1174,17 +1654,21 @@ class _Server:
 
     ``model`` serves a model the caller built (its weights are used as
     they are); otherwise ``build_generator`` builds one from the
-    ``TPUFW_*`` environment and ``TPUFW_DECODE_DTYPE`` casts it."""
+    ``TPUFW_*`` environment and ``TPUFW_DECODE_DTYPE`` casts it. The
+    speculative draft is ``draft_model`` if given (it may be ``model``
+    itself), else ``TPUFW_DRAFT_MODEL``'s; it becomes the scheduler's
+    draft pool with k = ``TPUFW_DRAFT_K``, unless the
+    ``TPUFW_SERVE_SPEC_*`` knobs choose the speculation themselves."""
 
-    def __init__(self, port: int, max_new_tokens: int, model=None):
+    def __init__(self, port: int, max_new_tokens: int, model=None,
+                 draft_model=None):
         if env_int("serve_slots", 8) <= 0:
-            _refuse("serve_slots", "the tick batcher (TPUFW_SERVE_SLOTS=0)",
-                    "8")
-        if env_str("draft_model", ""):
-            _refuse("draft_model", "speculative decoding", "8")
+            _refuse("serve_slots",
+                    "the tick batcher (TPUFW_SERVE_SLOTS=0, the rest of "
+                    "item 8)", "8")
         if env_str("telemetry_dir", ""):
             _refuse("telemetry_dir", "serving telemetry", "13")
-        _refuse_unported_scheduler(None, None, None, None)
+        _refuse_unported_scheduler(None)
         self._sampling = sampling_from_env()
         if model is None:
             model, self.cfg, self.restored = build_generator()
@@ -1195,6 +1679,21 @@ class _Server:
         self.default_new = max_new_tokens
         self._eos_id = eos_from_env()
         self.metrics = _Metrics()
+        draft = (
+            build_draft_generator(model.cfg.max_seq_len)
+            if draft_model is None
+            else (draft_model, env_int("draft_k", 4))
+        )
+        spec_kw = {}
+        if draft is not None:
+            # The JAX server's tick-batcher speculation counters,
+            # exposed at 0 as there (the slot scheduler reports through
+            # the tpufw_spec_* series).
+            self.metrics.register("spec_iterations_total",
+                                  "spec_emitted_total")
+            if (env_int("serve_spec_k", 0) == 0
+                    and not env_str("serve_spec_draft", "")):
+                spec_kw = {"spec_k": draft[1], "spec_draft_built": draft[0]}
         self.port = port
         self.httpd = None
         self._codec = None
@@ -1210,6 +1709,7 @@ class _Server:
             default_sampling=self._sampling,
             metrics=self.metrics,
             seed_base=self._seed_base,
+            **spec_kw,
         )
         if env_int("warmup", 1):
             self._warmup()
@@ -1244,6 +1744,15 @@ class _Server:
                     "pages_freed_total",
                 )
             reg = self.metrics.registry
+            b = self._batcher
+            if b.prefill_chunk_pages:
+                reg.counter("tpufw_prefill_chunks_total").reset()
+                reg.counter("tpufw_prefill_resumes_total").reset()
+            if b.spec_k:
+                reg.counter("tpufw_spec_wasted_draft_flops_total").reset()
+                b._spec_accept_sum, b._spec_accept_rows = 0.0, 0
+                reg.gauge("tpufw_spec_accept_rate").set(0.0)
+                reg.gauge("tpufw_spec_fallback_slots").set(0.0)
             reg.histogram("tpufw_serve_join_latency_seconds").reset()
             if self._batcher.latency_breakdown:
                 reg.histogram("tpufw_serve_queue_wait_seconds").reset()
