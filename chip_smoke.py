@@ -6,28 +6,39 @@
 Phases, each fatal on failure:
 
 1. builds the flash-attention CUDA kernels from ``tpufw_torch/ops/csrc``
-   (nvcc, sm_90a) into ``build-torch/``, prints the card's name and power
-   limit, and reads the build: each kernel's registers and spills from
-   ``-Xptxas -v`` and each library's ``HGMMA`` (wgmma) and ``UTMALDG``
-   (TMA load) instructions from ``cuobjdump -sass``. Every kernel (fwd, dq,
-   dk/dv) must use both and spill nothing;
+   (nvcc, sm_90a) into ``build-torch/``, at head dim 128 and, from the
+   ``*_d256.cu`` sources, 256; prints the card's name and power limit, and
+   reads the build: each kernel's registers and spills from ``-Xptxas -v``
+   and each library's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+   instructions from ``cuobjdump -sass``. Every kernel (fwd, dq, dk/dv at
+   both head dims) must use both and spill nothing;
 2. holds each kernel (fwd, dq, dk/dv) against its plain PyTorch version,
    run in fp32 on the same bf16 inputs, at the train path's shapes
    (B=2, T=S=2047, 32/8 heads of 128, causal), on a small case with
    segments, a t<s offset, window 300 and soft cap 50 together, and on
    tile-edge cases: T=S=129 and 64, two batches of 700 (a batch's padding
    rows must not see the next batch), t=100 under s=300, windows 128 and
-   129, segment boundaries inside tiles;
+   129, segment boundaries inside tiles. The head-dim-256 kernels
+   likewise, at the Gemma-2-9B train path's shapes (B=1, T=S=8191, 16/8
+   heads, causal, soft cap 50), global and with window 4096, on the small
+   masks case and on T=S=129 and 64;
 3. times each kernel, its plain version and the library yardstick
    (``F.scaled_dot_product_attention``, which the port never calls) with
    CUDA events, beside the roofline bound computed from the shapes, and
    the whole backward (delta, dq, dk/dv and the two GQA sums) against
-   SDPA's one backward call;
+   SDPA's one backward call; at head dim 128 at the Llama path's shapes,
+   at 256 at the Gemma path's, global and windowed (SDPA then takes a
+   boolean mask; it has no soft cap);
 4. trains 5 steps of Llama-3-8B widths cut to 4 layers (B=2, seq 2048,
    chunked CE, remat, flash attention) through ``Trainer.run`` with the
    launch counters zeroed just before, and checks that every loss is
    finite and every kernel was launched; then checks the trained model's
-   flash logits against its plain-attention logits on a small input;
+   flash logits against its plain-attention logits on a small input.
+   4b. The same for Gemma-2-9B widths cut to 4 of 42 layers (B=1, seq
+   8192, chunked CE with the final cap 30, flash at head dim 256, its own
+   counters): every head-dim-256 kernel launched, flash vs plain logits
+   on 4,160 tokens (past the 4096 window); a ``gemma_train_summary``
+   line;
 5. frees the trainer and serves Llama-3-8B at full width and all 32 layers
    (``llama3_8b_serve_slice``: 4 prompts of 7, 64, 200 and 511 tokens, 32
    greedy tokens each, a 2048-slot KV cache) through ``run_batch``'s
@@ -45,7 +56,9 @@ Phases, each fatal on failure:
    teacher-forced single steps; a ``serve_spec_summary`` line gives
    passes, accepted drafts per pass, tokens/s and greedy agreement with
    the plain run. The serve path runs plain PyTorch attention: no flash
-   kernel may launch there;
+   kernel may launch there. 5b. The same checks for Gemma-2-9B at full
+   width and all 42 layers (``gemma2_9b_serve_slice``, weights drawn in
+   bf16), bf16 then int8, a ``gemma_serve_summary`` line per dtype;
 6. serves the same Llama-3-8B weights (bf16, all 32 layers, a 2048-slot
    ceiling) online through the HTTP server (``_Server``: slot scheduler,
    8 slots, greedy) on a localhost port, in three modes: contiguous KV,
@@ -77,9 +90,10 @@ Phases, each fatal on failure:
    and peak pages, and the new modes their chunks, passes, ms per pass,
    accept rate and fallback slots.
 
-It ends with a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
-last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
-a checkout of the repo, it prints no result and exits nonzero.
+It ends with a ``{"kernels": [...]}`` line (six kernels: three per head
+dim), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or outside a checkout of the repo, it
+prints no result and exits nonzero.
 """
 
 from __future__ import annotations
@@ -115,6 +129,8 @@ LSE_TOL = 1e-3
 LOGITS_TOL = 5e-2
 N_LAYERS = 4
 STEPS = 5
+# Gemma-2-9B train slice depth: 2 (local, global) pairs of its 42 layers.
+GEMMA_TRAIN_LAYERS = 4
 # Serve slice, each relative to the reference logits' largest magnitude:
 # cached vs uncached logits of one bf16 or int8 model; and
 # tests/test_quant.py's rule, int8 vs the weights it was quantized from,
@@ -157,6 +173,30 @@ HOL_LONG = 1536
 HOL_GAP_S = 0.010
 SELFSIM_PATTERN = 16
 SELFSIM_LEN = 512
+# Head dim 256 (Gemma-2-9B): the train path's attention shapes (B=1, seq
+# 8192, so T = S = 8191 inputs after the target shift; 16 query / 8 kv
+# heads), attention soft cap 50, window 4096 on the local layers. Kernel
+# checks: the path's shapes, global and windowed, then the small masks case
+# and the tile edges of the 128 x 64 (forward, dQ) and 64 x 64 (dK/dV)
+# tiles. name: (b, t, s, heads, kv heads, input scale, masks, segment
+# lengths or None).
+GEMMA_T = 8191
+GEMMA_ATTN_CAP = 50.0
+GEMMA_WINDOW = 4096
+D256_CASES = {
+    "d256_path_shapes_causal_cap50": (
+        1, GEMMA_T, GEMMA_T, 16, 8, 4.0,
+        {"causal": True, "soft_cap": GEMMA_ATTN_CAP}, None),
+    "d256_path_shapes_causal_cap50_window4096": (
+        1, GEMMA_T, GEMMA_T, 16, 8, 4.0,
+        {"causal": True, "soft_cap": GEMMA_ATTN_CAP, "window": GEMMA_WINDOW},
+        None),
+    "d256_segments_offset_window300_cap50": (
+        1, 300, 700, 4, 2, 4.0,
+        {"causal": True, "window": 300, "soft_cap": 50.0}, (250, 300, 150)),
+    "d256_t129_s129": (1, 129, 129, 4, 2, 1.0, {"causal": True}, None),
+    "d256_t64_s64": (1, 64, 64, 4, 2, 1.0, {"causal": True}, None),
+}
 
 
 def emit(obj) -> None:
@@ -229,10 +269,14 @@ def kernel_errors(torch, got, want) -> dict:
 
 
 # Kernels redesigned for Hopper: each must issue wgmma and TMA loads and
-# spill nothing. name: (library, kernel symbol substring).
+# spill nothing. name: (library, kernel symbol substring). The head-dim-256
+# libraries build the same kernels from the same sources.
 HOPPER_KERNELS = {"flash_fwd": ("flash_fwd", "flash_fwd_kernel"),
                   "flash_dq": ("flash_dq", "flash_dq_kernel"),
-                  "flash_dkv": ("flash_dkv", "flash_dkv_kernel")}
+                  "flash_dkv": ("flash_dkv", "flash_dkv_kernel"),
+                  "flash_fwd_d256": ("flash_fwd_d256", "flash_fwd"),
+                  "flash_dq_d256": ("flash_dq_d256", "flash_dq"),
+                  "flash_dkv_d256": ("flash_dkv_d256", "flash_dkv")}
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
 
 
@@ -263,10 +307,14 @@ def build_report(build_mod, paths) -> dict:
     for name, path in paths.items():
         sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
                               text=True, timeout=120, check=True).stdout
+        log = build_mod.PTXAS_LOG.get(name, "")
         report[name] = {
             "sass": {op: sum(ln.count(op) for ln in sass.splitlines())
                      for op in SASS_OPS},
-            "kernels": ptxas_kernels(build_mod.PTXAS_LOG.get(name, "")),
+            "kernels": ptxas_kernels(log),
+            # e.g. C7515: a wgmma batch serialized (printed, not held).
+            "warnings": [ln.strip() for ln in log.splitlines()
+                         if "warning" in ln.lower()],
         }
     for kname, (lib, symbol) in HOPPER_KERNELS.items():
         sass = report[lib]["sass"]
@@ -310,20 +358,30 @@ def check_kernels(torch, flash, case, q, k, v, do, masks):
         bad.append("lse")
     if bad:
         raise AssertionError(f"{case}: {bad} past tolerance")
+    d = q.shape[-1]
     return {
-        "flash_fwd": max(errs["o"]["max_abs"], lse_abs),
-        "flash_dq": errs["dq"]["max_abs"],
-        "flash_dkv": max(errs["dk"]["max_abs"], errs["dv"]["max_abs"]),
+        flash.kernel_name("flash_fwd", d): max(errs["o"]["max_abs"], lse_abs),
+        flash.kernel_name("flash_dq", d): errs["dq"]["max_abs"],
+        flash.kernel_name("flash_dkv", d): max(errs["dk"]["max_abs"],
+                                               errs["dv"]["max_abs"]),
     }, lse_ref, delta
 
 
-def time_kernels(torch, flash, chip, q, k, v, do, lse, delta):
-    """kernel / plain / library milliseconds and the roofline bound."""
+def time_kernels(torch, flash, chip, q, k, v, do, lse, delta, masks=None,
+                 label=""):
+    """kernel / plain / library milliseconds and the roofline bound, keyed
+    by each kernel's launch name (``flash_fwd_d256`` at head dim 256).
+    ``masks`` (causal by default; ``soft_cap``, ``window``) are the
+    kernels' and the plain versions'. The bound counts the (query, key)
+    pairs the masks let through; the library yardstick is SDPA, causal,
+    with a boolean mask for a window and no soft cap (it has none)."""
     import torch.nn.functional as F
 
+    masks = dict(masks or {"causal": True})
+    window = masks.get("window")
     b, t, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
-    pairs = b * h * visible_pairs(t, s, s - t, True, None)
+    pairs = b * h * visible_pairs(t, s, s - t, masks.get("causal", True), window)
     n_q, n_kv = b * t * h * d, b * s * kh * d
     rows = b * h * t
     # Bytes: each input read once, each output written once.
@@ -334,17 +392,27 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta):
                       2 * (2 * n_q + 2 * n_kv) + 8 * rows + 2 * 4 * b * h * s * d),
     }
     calls = {
-        "flash_fwd": (lambda: flash.flash_fwd(q, k, v),
-                      lambda: flash.flash_fwd_reference(q, k, v)),
-        "flash_dq": (lambda: flash.flash_dq(q, k, v, do, lse, delta),
-                     lambda: flash.flash_dq_reference(q, k, v, do, lse, delta)),
-        "flash_dkv": (lambda: flash.flash_dkv(q, k, v, do, lse, delta),
-                      lambda: flash.flash_dkv_reference(q, k, v, do, lse, delta)),
+        "flash_fwd": (lambda: flash.flash_fwd(q, k, v, **masks),
+                      lambda: flash.flash_fwd_reference(q, k, v, **masks)),
+        "flash_dq": (lambda: flash.flash_dq(q, k, v, do, lse, delta, **masks),
+                     lambda: flash.flash_dq_reference(q, k, v, do, lse, delta,
+                                                      **masks)),
+        "flash_dkv": (lambda: flash.flash_dkv(q, k, v, do, lse, delta, **masks),
+                      lambda: flash.flash_dkv_reference(q, k, v, do, lse, delta,
+                                                        **masks)),
     }
     qh, kh_, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     doh = do.transpose(1, 2)
+    attn_mask = None
+    if window is not None:
+        qpos = torch.arange(t, device=q.device)[:, None] + (s - t)
+        kpos = torch.arange(s, device=q.device)[None, :]
+        attn_mask = (qpos >= kpos) & (qpos - kpos < window)
 
     def sdpa():
+        if attn_mask is not None:
+            return F.scaled_dot_product_attention(
+                qh, kh_, vh, attn_mask=attn_mask, enable_gqa=True)
         return F.scaled_dot_product_attention(
             qh, kh_, vh, is_causal=True, enable_gqa=True
         )
@@ -360,9 +428,14 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta):
         lambda: torch.autograd.grad(out, (qh, kh_, vh), doh, retain_graph=True),
         20,
     )
+    del out
+    lib_call = "F.scaled_dot_product_attention" + (
+        f" (boolean mask, window {window})" if window else "")
+    lib_note = " (no soft cap: SDPA has none)" if masks.get("soft_cap") else ""
     res = {}
-    for name, (kernel, plain) in calls.items():
-        flops, nbytes = work[name]
+    for base, (kernel, plain) in calls.items():
+        name = flash.kernel_name(base, d)
+        flops, nbytes = work[base]
         t_ops = flops / chip.peak_bf16_flops * 1e3
         t_bytes = nbytes / chip.hbm_bw_bytes_per_s * 1e3
         ms = cuda_ms(torch, kernel, 20)
@@ -375,33 +448,122 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta):
             "bound_share": max(t_ops, t_bytes) / ms,
             "flops": flops,
             "bytes": nbytes,
-            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
-            "library_call": (
-                "F.scaled_dot_product_attention forward"
-                if name == "flash_fwd" else
-                "F.scaled_dot_product_attention backward (dq, dk, dv together)"
-            ),
+            "library_ms": lib_fwd if base == "flash_fwd" else lib_bwd,
+            "library_call": lib_call + (
+                " forward" if base == "flash_fwd" else
+                " backward (dq, dk, dv together)"
+            ) + lib_note,
         }
-        emit({"timing": name} | res[name])
+        emit({"timing": name + label, "shape": [b, t, s, h, kh, d],
+              "masks": masks} | res[name])
 
     # The whole backward as _Flash runs it, against SDPA's one backward.
-    o, _ = flash.flash_fwd(q, k, v)
+    o, _ = flash.flash_fwd(q, k, v, **masks)
 
     def backward():
         dlt = flash.flash_delta(o, do)
-        flash.flash_dq(q, k, v, do, lse, dlt)
-        dk_full, dv_full = flash.flash_dkv(q, k, v, do, lse, dlt)
+        flash.flash_dq(q, k, v, do, lse, dlt, **masks)
+        dk_full, dv_full = flash.flash_dkv(q, k, v, do, lse, dlt, **masks)
         flash.gqa_sum(dk_full, kh, k.dtype)
         flash.gqa_sum(dv_full, kh, v.dtype)
 
     bwd_ms = cuda_ms(torch, backward, 20)
-    emit({"timing": "flash_backward_total",
+    emit({"timing": "flash_backward_total" + ("" if d == 128 else f"_d{d}") + label,
           "parts": "flash_delta + flash_dq + flash_dkv + 2 gqa_sum",
           "ms": bwd_ms, "library_ms": lib_bwd,
-          "library_call": "F.scaled_dot_product_attention backward",
+          "library_call": lib_call + " backward" + lib_note,
           "flops": work["flash_dq"][0] + work["flash_dkv"][0],
           "tflops": (work["flash_dq"][0] + work["flash_dkv"][0]) / bwd_ms / 1e9})
     return res
+
+
+def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
+    """Phase 4 (``family`` "llama3_8b") or 4b ("gemma2_9b"): the family's
+    train slice (``configs.<family>_train_slice``) at ``n_layers`` for
+    STEPS steps through ``Trainer.run``, launch counters zeroed just
+    before. Holds every loss finite and every flash kernel of the model's
+    head dim launched, then the trained model's flash logits against its
+    plain-attention logits on an input one window plus 64 tokens long
+    (256 without a window). Returns the launch counts of the run; raises
+    AssertionError on a failed check."""
+    from tpufw_torch import configs
+    from tpufw_torch.models import GEMMA_CONFIGS, LLAMA_CONFIGS
+    from tpufw_torch.models import model_for_config
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import Trainer, synthetic_batches
+
+    cfg, tcfg = getattr(configs, f"{family}_train_slice")(
+        n_layers, total_steps=STEPS)
+    full = {**LLAMA_CONFIGS, **GEMMA_CONFIGS}[family].n_layers
+    prefix = "" if family == "llama3_8b" else "gemma_"
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    emit({"train": f"{family} widths", "reduced": {"n_layers": [full, n_layers]},
+          "params": cfg.n_params(), "batch_size": tcfg.batch_size,
+          "seq_len": tcfg.seq_len, "loss_chunk_size": tcfg.loss_chunk_size,
+          "head_dim": cfg.head_dim, "remat": cfg.remat,
+          "attention_backend": cfg.attention_backend,
+          "attn_logit_soft_cap": getattr(cfg, "attn_logit_soft_cap", None),
+          "final_logit_soft_cap": getattr(cfg, "final_logit_soft_cap", None),
+          "sliding_window": cfg.sliding_window})
+    flash.reset_launch_counts()
+    history = trainer.run(
+        synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size, seed=0),
+        model_flops_per_token=cfg.flops_per_token(tcfg.seq_len - 1),
+        on_metrics=lambda m: emit({prefix + "step": m.as_dict()}),
+    )
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = history[1:]
+    summary = {
+        "steps": len(history),
+        "losses": [m.loss for m in history],
+        "tokens_per_sec_per_gpu_median": statistics.median(
+            m.tokens_per_sec_per_gpu for m in steady),
+        "mfu_median": statistics.median(m.mfu for m in steady),
+        "step_time_s_median": statistics.median(
+            m.step_time_s for m in steady),
+        "peak_mem_gb": peak_gb,
+        "launches": launches,
+        "model": family, "n_layers": n_layers, "seq_len": tcfg.seq_len,
+        "device": kind, "nvidia_smi": smi,
+    }
+    emit({prefix + "train_summary": summary})
+    if len(history) != STEPS:
+        raise AssertionError(f"{family}: trained {len(history)} of {STEPS} steps")
+    if not all(math.isfinite(m.loss) for m in history):
+        raise AssertionError(f"{family}: non-finite loss")
+    path = [flash.kernel_name(k, cfg.head_dim) for k in flash.KERNELS]
+    if not all(launches[k] > 0 for k in path):
+        raise AssertionError(
+            f"{family}: a kernel was not launched on the train path: {launches}")
+
+    # Output check: flash logits vs the plain path, optimizer state freed.
+    trainer.optimizer.zero_grad()
+    trainer.optimizer = None
+    torch.cuda.empty_cache()
+    plain_model = model_for_config(
+        dataclasses.replace(cfg, attention_backend="xla"), device="cuda")
+    plain_model.load_state_dict(trainer.model.state_dict())
+    n = 256 if cfg.sliding_window is None else cfg.sliding_window + 64
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        flash_logits = trainer.model(tokens)
+        plain_logits = plain_model(tokens)
+    if flash_logits.shape != (1, n, cfg.vocab_size):
+        raise AssertionError(f"{family}: logits shape {tuple(flash_logits.shape)}")
+    if not torch.isfinite(flash_logits).all():
+        raise AssertionError(f"{family}: non-finite logits")
+    abs_e, rel_e = rel_err(torch, flash_logits, plain_logits)
+    emit({"check": prefix + "trained_model_flash_vs_plain_logits",
+          "tokens": n, "max_abs_err": abs_e, "rel_err": rel_e, "tol": LOGITS_TOL})
+    if rel_e > LOGITS_TOL:
+        raise AssertionError(f"{family}: flash logits disagree with the plain path")
+    return {k: launches[k] for k in path}
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -417,30 +579,31 @@ def host_ms(torch, fn, reps: int) -> float:
 
 
 def fp32_twin_logits(torch, model, tok, pos, seg):
-    """Uncached logits of a twin of ``model`` that holds the same weights
-    and computes in fp32."""
-    from tpufw_torch.models import Llama
-
-    twin = Llama(dataclasses.replace(model.cfg, dtype=torch.float32),
-                 device=model.device)
+    """Uncached logits of a twin of ``model`` (same family) that holds the
+    same weights and computes in fp32."""
+    twin = type(model)(dataclasses.replace(model.cfg, dtype=torch.float32),
+                       device=model.device)
     twin.load_state_dict(model.state_dict())
     with torch.no_grad():
         return twin(tok, pos, seg)
 
 
-def serve_phase(torch, chip, kind, smi) -> None:
-    """Phase 5: the serve slice in bf16, then int8; raises AssertionError
-    on a failed check."""
-    from tpufw_torch.configs import llama3_8b_serve_slice
+def serve_phase(torch, chip, kind, smi, family="llama3_8b") -> None:
+    """Phase 5 (``family`` "llama3_8b") or 5b ("gemma2_9b"): the serve
+    slice in bf16, then int8; raises AssertionError on a failed check.
+    Llama's bf16 run is followed by the speculative run."""
+    from tpufw_torch import configs
     from tpufw_torch.infer import SamplingConfig, generate, pad_prompts
     from tpufw_torch.infer import prefill_cache
-    from tpufw_torch.models import Llama
+    from tpufw_torch.models import model_for_config
     from tpufw_torch.ops import flash
     from tpufw_torch.workloads import serve
 
-    cfg, prompts, max_new = llama3_8b_serve_slice()
+    cfg, prompts, max_new = getattr(configs, f"{family}_serve_slice")()
+    summary_key = ("serve_summary" if family == "llama3_8b"
+                   else "gemma_serve_summary")
     lens = [len(p) for p in prompts]
-    emit({"serve": "llama3_8b", "n_layers": cfg.n_layers,
+    emit({"serve": family, "n_layers": cfg.n_layers,
           "params": cfg.n_params(), "param_dtype": "bfloat16",
           "max_seq_len": cfg.max_seq_len, "prompt_lens": lens,
           "max_new_tokens": max_new, "sampling": "greedy",
@@ -459,7 +622,7 @@ def serve_phase(torch, chip, kind, smi) -> None:
     kv_tokens = sum(n + max_new / 2 for n in lens)
     kv_bytes = (kv_tokens * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim
                 * torch.tensor([], dtype=cfg.dtype).element_size())
-    model = Llama(cfg, device=dev, seed=0)
+    model = model_for_config(cfg, device=dev, seed=0)
     for weights in ("bf16", "int8"):
         if weights == "int8":
             model = serve.quantize_model(model)
@@ -501,7 +664,7 @@ def serve_phase(torch, chip, kind, smi) -> None:
             del cache
             last_logits, real_logits = cached[:, -1], cached[real]
             del cached
-        check = {"check": f"serve_{weights}_cached_vs_uncached_logits",
+        check = {"check": f"serve_{family}_{weights}_cached_vs_uncached_logits",
                  "prefill_last_position": prefill_err,
                  "decode_step_row0": step_err, "tol": SERVE_LOGITS_TOL}
         fp32_logits = fp32_twin_logits(torch, model, tok, pos, seg)[real]
@@ -529,12 +692,15 @@ def serve_phase(torch, chip, kind, smi) -> None:
             raise AssertionError(f"serve ({weights}): {bad} past tolerance")
 
         # Bytes a decode step must read: every weight but the embedding
-        # table (B rows are gathered), plus the KV slots in use.
+        # table (B rows are gathered; a tied table is read whole as the
+        # head), plus the KV slots in use.
         weight_bytes = sum(t.numel() * t.element_size()
                            for n, t in model.named_parameters() if n != "embed")
-        weight_bytes += b * cfg.d_model * model.embed.element_size()
+        weight_bytes += (model.embed.numel() if model.lm_head is None
+                         else b * cfg.d_model) * model.embed.element_size()
         bound_ms = (weight_bytes + kv_bytes) / chip.hbm_bw_bytes_per_s * 1e3
-        emit({"serve_summary": {
+        emit({summary_key: {
+            "model": family, "n_layers": cfg.n_layers,
             "weights": weights, "prefill_ms": prefill_ms,
             "decode_ms_per_step": decode_ms, "generate_ms": total_ms,
             "tokens_per_s": b * max_new / (total_ms / 1e3),
@@ -546,7 +712,7 @@ def serve_phase(torch, chip, kind, smi) -> None:
             "peak_mem_gb": peak_gb, "launches": launches,
             "device": kind, "nvidia_smi": smi,
         }})
-        if weights == "bf16":
+        if weights == "bf16" and family == "llama3_8b":
             spec_batch_check(torch, model, prompts, max_new, outs, tok, pad,
                              kind, smi)
 
@@ -1155,10 +1321,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from tpufw_torch.configs import llama3_8b_train_slice
-    from tpufw_torch.models import Llama
     from tpufw_torch.ops import _build, flash
-    from tpufw_torch.train import Trainer, synthetic_batches
     from tpufw_torch.utils.hardware import detect_chip
 
     # 1. Build and device line.
@@ -1225,75 +1388,65 @@ def main() -> int:
             randn(bs, ss, 2, d), randn(bs, ts, 4, d), masks,
         )
 
-    # 3. Timings at the path's shapes.
+    # 2b. The head-dim-256 kernels (Gemma-2) at the Gemma train path's
+    # shapes and at their own tile edges.
+    d256_inputs = {}
+    for case, (bs, ts, ss, hs, khs, scale, masks, seg_lens) in D256_CASES.items():
+        masks = dict(masks)
+        if seg_lens is not None:
+            kseg = torch.cat([torch.full((n,), i + 1, dtype=torch.int32)
+                              for i, n in enumerate(seg_lens)])
+            kseg = kseg.to(dev)[None].expand(bs, ss).contiguous()
+            masks |= {"qseg": kseg[:, ss - ts:].contiguous(), "kseg": kseg}
+        qd, dod = randn(bs, ts, hs, 256, scale=scale), randn(bs, ts, hs, 256)
+        kd, vd = randn(bs, ss, khs, 256, scale=scale), randn(bs, ss, khs, 256)
+        e, lse_d, delta_d = check_kernels(torch, flash, case, qd, kd, vd, dod,
+                                          masks)
+        if ts == GEMMA_T:
+            for name, x in e.items():
+                errs[name] = max(errs.get(name, 0.0), x)
+            if "window" not in masks:
+                d256_inputs = dict(q=qd, k=kd, v=vd, do=dod, lse=lse_d,
+                                   delta=delta_d)
+        del qd, dod, kd, vd, lse_d, delta_d
+        torch.cuda.empty_cache()
+
+    # 3. Timings at the paths' shapes: head dim 128 at the Llama train
+    # slice's, head dim 256 at the Gemma-2 one's, global and windowed.
     timings = time_kernels(torch, flash, chip, q, k, v, do, lse, delta)
     del q, k, v, do, lse, delta
     torch.cuda.empty_cache()
-
-    # 4. The train slice, counters zeroed just before.
-    cfg, tcfg = llama3_8b_train_slice(N_LAYERS, total_steps=STEPS)
-    trainer = Trainer(cfg, tcfg, device=dev)
-    trainer.init_state(seed=0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    emit({"train": "llama3_8b widths", "reduced": {"n_layers": [32, N_LAYERS]},
-          "params": cfg.n_params(), "batch_size": tcfg.batch_size,
-          "seq_len": tcfg.seq_len, "loss_chunk_size": tcfg.loss_chunk_size,
-          "remat": cfg.remat, "attention_backend": cfg.attention_backend})
-    flash.reset_launch_counts()
-    history = trainer.run(
-        synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size, seed=0),
-        model_flops_per_token=cfg.flops_per_token(tcfg.seq_len - 1),
-        on_metrics=lambda m: emit({"step": m.as_dict()}),
-    )
-    torch.cuda.synchronize()
-    launches = dict(flash.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steady = history[1:]
-    emit({
-        "train_summary": {
-            "steps": len(history),
-            "losses": [m.loss for m in history],
-            "tokens_per_sec_per_gpu_median": statistics.median(
-                m.tokens_per_sec_per_gpu for m in steady),
-            "mfu_median": statistics.median(m.mfu for m in steady),
-            "step_time_s_median": statistics.median(
-                m.step_time_s for m in steady),
-            "peak_mem_gb": peak_gb,
-            "launches": launches,
-        }
-    })
-    if len(history) != STEPS:
-        return fail(f"trained {len(history)} of {STEPS} steps")
-    if not all(math.isfinite(m.loss) for m in history):
-        return fail("non-finite loss")
-    if not all(n > 0 for n in launches.values()):
-        return fail(f"a kernel was not launched on the train path: {launches}")
-
-    # Output check on a small input: flash logits vs the plain path.
-    plain_model = Llama(dataclasses.replace(cfg, attention_backend="xla"),
-                        device=dev)
-    plain_model.load_state_dict(trainer.model.state_dict())
-    tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
-                           device=dev)
-    with torch.no_grad():
-        flash_logits = trainer.model(tokens)
-        plain_logits = plain_model(tokens)
-    if flash_logits.shape != (1, 256, cfg.vocab_size):
-        return fail(f"logits shape {tuple(flash_logits.shape)}")
-    if not torch.isfinite(flash_logits).all():
-        return fail("non-finite logits")
-    abs_e, rel_e = rel_err(torch, flash_logits, plain_logits)
-    emit({"check": "trained_model_flash_vs_plain_logits",
-          "max_abs_err": abs_e, "rel_err": rel_e, "tol": LOGITS_TOL})
-    if rel_e > LOGITS_TOL:
-        return fail("flash logits disagree with the plain path")
-
-    # 5. The serve slice, with the train phase's memory freed.
-    del trainer, plain_model, flash_logits, plain_logits
+    x = d256_inputs
+    timings |= time_kernels(torch, flash, chip, x["q"], x["k"], x["v"], x["do"],
+                            x["lse"], x["delta"],
+                            {"causal": True, "soft_cap": GEMMA_ATTN_CAP})
+    # LSE and delta of the global case serve the windowed timing too: they
+    # are inputs of the same shape, and the kernels' time does not depend
+    # on their values.
+    windowed = time_kernels(
+        torch, flash, chip, x["q"], x["k"], x["v"], x["do"], x["lse"],
+        x["delta"], {"causal": True, "soft_cap": GEMMA_ATTN_CAP,
+                     "window": GEMMA_WINDOW}, label="_window4096")
+    del x, d256_inputs
     torch.cuda.empty_cache()
+
+    # 4. The train slice, counters zeroed just before; 4b. the Gemma-2-9B
+    # one, its own counters zeroed just before it.
+    try:
+        launches = train_phase(torch, "llama3_8b", N_LAYERS, gen, kind, smi)
+        torch.cuda.empty_cache()
+        launches |= train_phase(torch, "gemma2_9b", GEMMA_TRAIN_LAYERS, gen,
+                                kind, smi)
+    except AssertionError as e:
+        return fail(str(e))
+    torch.cuda.empty_cache()
+
+    # 5. The serve slice, with the train phases' memory freed; 5b. the
+    # Gemma-2-9B serve slice.
     try:
         serve_phase(torch, chip, kind, smi)
+        torch.cuda.empty_cache()
+        serve_phase(torch, chip, kind, smi, family="gemma2_9b")
     except AssertionError as e:
         return fail(str(e))
 
@@ -1308,6 +1461,12 @@ def main() -> int:
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
         "flash_dkv": ("tpufw_torch/ops/csrc/flash_dkv.cu", "tpufw/ops/flash.py:590"),
+        "flash_fwd_d256": ("tpufw_torch/ops/csrc/flash_fwd_d256.cu",
+                           "tpufw/ops/flash.py:462"),
+        "flash_dq_d256": ("tpufw_torch/ops/csrc/flash_dq_d256.cu",
+                          "tpufw/ops/flash.py:544"),
+        "flash_dkv_d256": ("tpufw_torch/ops/csrc/flash_dkv_d256.cu",
+                           "tpufw/ops/flash.py:590"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
@@ -1319,6 +1478,12 @@ def main() -> int:
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         })
+        if name in windowed:
+            # The Gemma path runs half its layers windowed: their numbers.
+            kernels[-1]["window4096"] = {
+                k: windowed[name][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            }
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of one ``tpufw_torch`` train step goes, on one GPU.
 
-    python3 scripts/profile_torch_train.py [--layers 4] [--steps 3] [--trace PATH]
+    python3 scripts/profile_torch_train.py [--model llama3_8b] [--layers 4]
+        [--steps 3] [--trace PATH]
 
-Trains the chip_smoke.py train slice (``llama3_8b_train_slice`` in
-``tpufw_torch/configs/presets.py``, depth ``--layers``), runs two warm-up
+Trains a chip_smoke.py train slice (``--model llama3_8b``:
+``llama3_8b_train_slice`` in ``tpufw_torch/configs/presets.py``;
+``--model gemma2_9b``: ``gemma2_9b_train_slice``, whose flash kernels are
+the head-dim-256 builds; depth ``--layers``), runs two warm-up
 steps, then traces ``--steps`` steps with ``torch.profiler`` and prints one
 JSON line: wall time per step, device busy time per step (the union of the
 trace's kernel, memcpy and memset intervals), the device's idle share,
@@ -93,18 +96,21 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--model", default="llama3_8b",
+                    choices=("llama3_8b", "gemma2_9b"))
     args = ap.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpufw_torch.configs import llama3_8b_train_slice
+    from tpufw_torch import configs
     from tpufw_torch.train import Trainer, synthetic_batches
 
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
         return 1
-    cfg, tcfg = llama3_8b_train_slice(args.layers, total_steps=2 + args.steps)
+    cfg, tcfg = getattr(configs, f"{args.model}_train_slice")(
+        args.layers, total_steps=2 + args.steps)
     trainer = Trainer(cfg, tcfg, device="cuda")
     trainer.init_state(seed=0)
     data = synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size,
@@ -120,7 +126,8 @@ def main() -> int:
         wall = (time.perf_counter() - t0) / args.steps
     out = trace_breakdown(prof, args.steps, wall, args.trace)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "layers": args.layers, "steps_traced": args.steps}
+                      "model": args.model, "layers": args.layers,
+                      "steps_traced": args.steps}
                      | out), flush=True)
     return 0 if out["idle_share"] >= 0.0 else 1
 

@@ -29,6 +29,10 @@ CASES = {
     "window100": (1, 256, 256, 2, 1, 16, True, False, None, 100, 1.0),
     "window128": (1, 256, 256, 2, 1, 16, True, False, None, 128, 1.0),
     "window300": (1, 256, 256, 2, 1, 32, True, False, None, 300, 1.0),
+    # Gemma-2's head dim, which the CUDA kernels also take: cap 50 with a
+    # window under T, and packed segments.
+    "d256_cap50_window100": (1, 256, 256, 2, 1, 256, True, False, 50.0, 100, 3.0),
+    "d256_segments": (1, 128, 128, 2, 1, 256, True, True, None, None, 1.0),
 }
 
 
@@ -96,7 +100,39 @@ def test_cpu_tensors_take_the_plain_versions():
     k = torch.randn(1, 8, 1, 16, requires_grad=True)
     v = torch.randn(1, 8, 1, 16, requires_grad=True)
     tflash.flash_attention(q, k, v).sum().backward()
-    assert tflash.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert tflash.LAUNCHES == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+        "flash_fwd_d256": 0, "flash_dq_d256": 0, "flash_dkv_d256": 0,
+    }
+
+
+@pytest.mark.parametrize("head_dim", [192, 64])
+def test_unported_head_dims_raise_off_the_cpu(head_dim):
+    """A tensor off the CPU at a head dim the CUDA kernels are not built
+    for (192 is DeepSeek's MLA) raises NotImplementedError naming the
+    ROADMAP before any build or launch: there is no route to the plain
+    version. Meta tensors stand in for CUDA ones here."""
+    tflash.reset_launch_counts()
+    q = torch.empty(1, 128, 2, head_dim, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(1, 128, 1, head_dim, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tflash.flash_fwd(q, k, k)
+    do = torch.empty_like(q)
+    lse = torch.empty(1, 2, 128, device="meta")
+    for fn in (tflash.flash_dq, tflash.flash_dkv):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(q, k, k, do, lse, lse)
+    assert not any(tflash.LAUNCHES.values())
+
+
+def test_head_dim_256_off_the_cpu_goes_to_its_kernel():
+    """Head dim 256 passes the head-dim check and reaches the kernel's
+    own argument checks (a meta tensor is refused as not on CUDA), not a
+    plain version."""
+    q = torch.empty(1, 128, 2, 256, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(1, 128, 1, 256, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="is on meta"):
+        tflash.flash_fwd(q, k, k)
 
 
 @pytest.mark.parametrize(

@@ -8,7 +8,8 @@ holding a visible (query, key) pair drops that pair's term, so for every
 visible pair the key's tile must lie in its query tile's range, and the
 query's tile in its key tile's range. Masks come from
 the plain versions' ``_mask``; segments only remove pairs, so they are left
-out.
+out. Each case is checked at the tiles of every head dim the kernels are
+built for (``tflash.TILES``: 128, and 256 for Gemma-2).
 """
 
 import pytest
@@ -48,21 +49,24 @@ def test_every_visible_pair_lies_in_both_loops(name):
     visible = tflash._mask(t, s, offset, causal, window, None, None, "cpu")[0, 0]
     assert visible.any()
     qi, ki = visible.nonzero(as_tuple=True)
-    args = (t, s, offset, causal, window)
+    for d, tiles in tflash.TILES.items():
+        args = (t, s, offset, causal, window, d)
 
-    fq, fk = tflash.FWD_BLOCK_Q, tflash.FWD_BLOCK_KV
-    fwd = _tile_ranges(tflash.fwd_kv_tiles, -(-t // fq), *args)
-    lo, hi = fwd[qi // fq, 0], fwd[qi // fq, 1]
-    kt = ki // fk
-    assert bool(((kt >= lo) & (kt < hi)).all()), "forward loop misses a kv tile"
-    assert int(fwd[:, 1].max()) <= -(-s // fk) and int(fwd[:, 0].min()) >= 0
+        fq, fk = tiles["fwd"]
+        fwd = _tile_ranges(tflash.fwd_kv_tiles, -(-t // fq), *args)
+        lo, hi = fwd[qi // fq, 0], fwd[qi // fq, 1]
+        kt = ki // fk
+        assert bool(((kt >= lo) & (kt < hi)).all()), \
+            f"d{d}: forward loop misses a kv tile"
+        assert int(fwd[:, 1].max()) <= -(-s // fk) and int(fwd[:, 0].min()) >= 0
 
-    dq, dk = tflash.DKV_BLOCK_Q, tflash.DKV_BLOCK_KV
-    dkv = _tile_ranges(tflash.dkv_q_tiles, -(-s // dk), *args)
-    lo, hi = dkv[ki // dk, 0], dkv[ki // dk, 1]
-    it = qi // dq
-    assert bool(((it >= lo) & (it < hi)).all()), "dK/dV loop misses a q tile"
-    assert int(dkv[:, 1].max()) <= -(-t // dq) and int(dkv[:, 0].min()) >= 0
+        dq, dk = tiles["dkv"]
+        dkv = _tile_ranges(tflash.dkv_q_tiles, -(-s // dk), *args)
+        lo, hi = dkv[ki // dk, 0], dkv[ki // dk, 1]
+        it = qi // dq
+        assert bool(((it >= lo) & (it < hi)).all()), \
+            f"d{d}: dK/dV loop misses a q tile"
+        assert int(dkv[:, 1].max()) <= -(-t // dq) and int(dkv[:, 0].min()) >= 0
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -74,13 +78,15 @@ def test_every_visible_pair_lies_in_the_dq_loop(name):
     offset = s - t if offset is None else offset
     visible = tflash._mask(t, s, offset, causal, window, None, None, "cpu")[0, 0]
     qi, ki = visible.nonzero(as_tuple=True)
-    bq, bkv = tflash.DQ_BLOCK_Q, tflash.DQ_BLOCK_KV
-    assert (bq, bkv) == (tflash.FWD_BLOCK_Q, tflash.FWD_BLOCK_KV)
-    dq = _tile_ranges(tflash.dq_kv_tiles, -(-t // bq), t, s, offset, causal, window)
-    lo, hi = dq[qi // bq, 0], dq[qi // bq, 1]
-    kt = ki // bkv
-    assert bool(((kt >= lo) & (kt < hi)).all()), "dQ loop misses a kv tile"
-    assert int(dq[:, 1].max()) <= -(-s // bkv) and int(dq[:, 0].min()) >= 0
+    for d, tiles in tflash.TILES.items():
+        bq, bkv = tiles["dq"]
+        assert (bq, bkv) == tiles["fwd"]
+        dq = _tile_ranges(tflash.dq_kv_tiles, -(-t // bq), t, s, offset, causal,
+                          window, d)
+        lo, hi = dq[qi // bq, 0], dq[qi // bq, 1]
+        kt = ki // bkv
+        assert bool(((kt >= lo) & (kt < hi)).all()), f"d{d}: dQ loop misses a kv tile"
+        assert int(dq[:, 1].max()) <= -(-s // bkv) and int(dq[:, 0].min()) >= 0
 
 
 def test_loops_skip_the_masked_tiles():
@@ -97,3 +103,26 @@ def test_loops_skip_the_masked_tiles():
     assert fwd == 136
     assert dq == 136
     assert dkv == 272
+
+
+def test_head_dim_256_loops_skip_the_window():
+    """At Gemma-2's train shapes (T = S = 8191, window 4096) the head-dim-256
+    tiles (128 x 64 forward and dQ, 64 x 64 dK/dV) visit only the tiles
+    within the window: a 128-row query tile sees keys over 4096 + 127
+    positions, so at most 66 kv tiles of 64, not the causal triangle's up
+    to 128; and every visited pair of tiles holds a visible pair."""
+    t = s = 8191
+    for window, fwd_most in ((None, 128), (4096, 66)):
+        fwd = [tflash.fwd_kv_tiles(i, t, s, 0, True, window, 256)
+               for i in range(64)]
+        assert max(hi - lo for lo, hi in fwd) == fwd_most
+        dkv = [tflash.dkv_q_tiles(j, t, s, 0, True, window, 256)
+               for j in range(128)]
+        visible = torch.zeros(8192, 8192, dtype=torch.bool)
+        visible[:t, :s] = tflash._mask(t, s, 0, True, window, None, None, "cpu")[0, 0]
+        tiles = visible.reshape(64, 128, 128, 64).any(3).any(1)  # [q128, kv64]
+        for i, (lo, hi) in enumerate(fwd):
+            assert bool(tiles[i, lo:hi].all()), f"window {window}: tile {i}"
+        qtiles = visible.reshape(128, 64, 128, 64).any(3).any(1)  # [q64, kv64]
+        for j, (lo, hi) in enumerate(dkv):
+            assert bool(qtiles[lo:hi, j].all()), f"window {window}: kv tile {j}"

@@ -47,6 +47,23 @@ CASES = {
     "segments_mid_tile": (2, 400, 400, 4, 2, 1.0,
                           dict(causal=True, segments=True)),
 }
+# Head dim 256 (the *_d256 builds, Gemma-2: 128 x 64 forward and dQ tiles,
+# 64 x 64 dK/dV tiles): the same edges at its tiles, and Gemma-2's masks,
+# soft cap 50 with a window shorter than T.
+CASES_D256 = {
+    "d256_segments_offset_window300_cap50": (
+        1, 300, 700, 4, 2, 4.0,
+        dict(causal=True, window=300, soft_cap=50.0, segments=True),
+    ),
+    "d256_cap50_window1024": (1, 2048, 2048, 4, 2, 4.0,
+                              dict(causal=True, window=1024, soft_cap=50.0)),
+    "d256_t129_s129": (1, 129, 129, 4, 2, 1.0, dict(causal=True)),
+    "d256_t64_s64": (1, 64, 64, 4, 2, 1.0, dict(causal=True)),
+    "d256_b2_t700_s700_noncausal": (2, 700, 700, 4, 2, 1.0, dict(causal=False)),
+    "d256_window65": (1, 600, 600, 4, 2, 1.0, dict(causal=True, window=65)),
+    "d256_segments_mid_tile": (2, 400, 400, 4, 2, 1.0,
+                               dict(causal=True, segments=True)),
+}
 
 
 def _assert_close(name, got, want):
@@ -63,9 +80,23 @@ def _assert_close(name, got, want):
 def test_kernels_match_plain_versions_on_gpu(case):
     """On the card: each kernel against its plain version in fp32 on the
     same bf16 inputs."""
+    _check_case(CASES[case], 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES_D256))
+def test_head_dim_256_kernels_match_plain_versions_on_gpu(case):
+    """On the card: each head-dim-256 kernel against its plain version."""
+    before = {k: v for k, v in tflash.LAUNCHES.items()}
+    _check_case(CASES_D256[case], 256)
+    for name in ("flash_fwd_d256", "flash_dq_d256", "flash_dkv_d256"):
+        assert tflash.LAUNCHES[name] == before[name] + 1, name
+
+
+def _check_case(spec, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
-    b, t, s, h, kh, scale, masks = CASES[case]
+    b, t, s, h, kh, scale, masks = spec
     masks = dict(masks)
     rng = np.random.default_rng(2)
     dev = "cuda"
@@ -74,8 +105,8 @@ def test_kernels_match_plain_versions_on_gpu(case):
         x = rng.standard_normal(shape, np.float32) * scale
         return torch.tensor(x, device=dev, dtype=torch.bfloat16)
 
-    q, k = bf16(b, t, h, 128, scale=scale), bf16(b, s, kh, 128, scale=scale)
-    v, do = bf16(b, s, kh, 128), bf16(b, t, h, 128)
+    q, k = bf16(b, t, h, d, scale=scale), bf16(b, s, kh, d, scale=scale)
+    v, do = bf16(b, s, kh, d), bf16(b, t, h, d)
     if masks.pop("segments", False):
         # Three segments; for s = 400 the boundaries (150, 300) fall inside
         # 64- and 128-row tiles.

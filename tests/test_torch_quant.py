@@ -23,7 +23,7 @@ from tpufw.models.llama import Llama as JLlama
 from tpufw.ops import quant as j_quant
 from tpufw_torch.infer import generate_text
 from tpufw_torch.interop import params_from_flax
-from tpufw_torch.models import Llama
+from tpufw_torch.models import GEMMA_CONFIGS, Gemma, Llama
 from tpufw_torch.ops import quant
 
 PROMPTS = [[5, 17, 101, 7, 42, 9, 3], [200, 11], [77, 12, 200, 1]]
@@ -202,3 +202,83 @@ def test_int8_under_bf16_activations_errs_as_jax(name, seed):
     assert rel(t_bf16, j_bf16) <= tol and rel(t_int8, j_int8) <= tol
     assert abs(t_err - j_err) <= tol, (t_err, j_err)
     assert t_err <= 0.05
+
+
+# ----------------------------------------------------------------------
+# Gemma-2 (tests/test_quant.py's Gemma cases): projections to int8, the
+# tied embedding stays fp.
+# ----------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _gemma_int8():
+    """(JAX fp32 gemma2_tiny config, port config, fp Flax params, JAX int8
+    tree)."""
+    from flax.core import meta
+
+    from tpufw.models.gemma import GEMMA_CONFIGS as J_GEMMA
+    from tpufw.models.gemma import Gemma as JGemma
+
+    jcfg = dataclasses.replace(J_GEMMA["gemma2_tiny"], dtype=jnp.float32,
+                               param_dtype=jnp.float32)
+    tcfg = dataclasses.replace(GEMMA_CONFIGS["gemma2_tiny"],
+                               dtype=torch.float32, param_dtype=torch.float32)
+    fp = jax.jit(JGemma(jcfg).init)(
+        jax.random.key(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    fp = jax.device_get(meta.unbox(fp))
+    return jcfg, tcfg, fp, jax.device_get(j_quant.quantize_params(fp))
+
+
+def test_gemma_quantized_forward_close():
+    """The port's int8 Gemma (``serve.quantize_model``) within 5% of the
+    fp logits' largest magnitude, and its int8 codes equal JAX's."""
+    from tpufw_torch.workloads.serve import quantize_model
+
+    _, tcfg, fp, jq = _gemma_int8()
+    model = Gemma(tcfg, device="cpu")
+    model.load_state_dict(params_from_flax(fp, tcfg))
+    q8 = quantize_model(model)
+    assert isinstance(q8, Gemma)
+    qcfg = dataclasses.replace(tcfg, quantized_weights=True)
+    want = params_from_flax(jq, qcfg)
+    got = q8.state_dict()
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        if w.dtype == torch.int8:
+            assert torch.equal(got[k], w), k
+    tokens = torch.tensor(_tokens(seed=2, shape=(1, 48)))
+    with torch.no_grad():
+        ref, out = model(tokens), q8(tokens)
+    assert (out - ref).abs().max() <= 0.05 * ref.abs().max()
+
+
+def test_gemma_int8_logits_match_jax():
+    """A JAX int8 Gemma tree carried into the port gives JAX's int8
+    logits."""
+    from tpufw.models.gemma import Gemma as JGemma
+
+    jcfg, tcfg, _, jq = _gemma_int8()
+    qj = dataclasses.replace(jcfg, quantized_weights=True)
+    qt = dataclasses.replace(tcfg, quantized_weights=True)
+    tokens = _tokens(seed=3, shape=(2, 40))
+    want = np.asarray(jax.jit(JGemma(qj).apply)({"params": jq}, tokens))
+    model = Gemma(qt, device="cpu")
+    model.load_state_dict(params_from_flax(jq, qt))
+    with torch.no_grad():
+        got = model(torch.tensor(tokens)).numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_gemma_tied_embeddings_stay_fp():
+    """quantize_params on a Gemma state dict: every projection becomes
+    int8 with a scale; the tied embedding and the norms stay fp32, and no
+    lm_head appears."""
+    _, tcfg, fp, _ = _gemma_int8()
+    sd = params_from_flax(fp, tcfg)
+    q = quant.quantize_params(sd)
+    assert q["embed"].dtype == torch.float32 and q["embed"] is sd["embed"]
+    assert not any(k.startswith("lm_head") for k in q)
+    proj = [k for k in q if k.endswith(".weight") and "norm" not in k]
+    assert len(proj) == 7 * tcfg.n_layers
+    assert all(q[k].dtype == torch.int8 for k in proj)
+    assert all(q[k].dtype == torch.float32 for k in q if "norm" in k)

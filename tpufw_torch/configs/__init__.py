@@ -1,6 +1,8 @@
 from tpufw_torch.configs.presets import (  # noqa: F401
     BENCH_CONFIG_NAME,
     bench_model_config,
+    gemma2_9b_serve_slice,
+    gemma2_9b_train_slice,
     llama3_8b_serve_slice,
     llama3_8b_train_slice,
 )

@@ -7,6 +7,8 @@ Llama-3 architecture at d_model 1536, 14 layers, 12/6 heads of 128, vocab
 ``llama3_8b_train_slice`` is the train step that ``chip_smoke.py`` and
 ``scripts/profile_torch_train.py`` run on one GPU;
 ``llama3_8b_serve_slice`` is the batch serve run of ``chip_smoke.py``.
+``gemma2_9b_train_slice`` and ``gemma2_9b_serve_slice`` are their Gemma-2-9B
+counterparts (head dim 256, soft caps, alternating 4096-token windows).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpufw_torch.models.gemma import GEMMA_CONFIGS, GemmaConfig
 from tpufw_torch.models.llama import LLAMA_CONFIGS, LlamaConfig
 from tpufw_torch.train.trainer import TrainerConfig
 
@@ -64,6 +67,40 @@ def llama3_8b_serve_slice(
     continued by 32 greedy tokens."""
     cfg = dataclasses.replace(
         LLAMA_CONFIGS["llama3_8b"], param_dtype=torch.bfloat16,
+        max_seq_len=2048,
+    ).decode_config()
+    rng = np.random.default_rng(seed)
+    prompts = [
+        rng.integers(1, cfg.vocab_size, n).tolist() for n in SERVE_PROMPT_LENS
+    ]
+    return cfg, prompts, 32
+
+
+def gemma2_9b_train_slice(
+    n_layers: int = 4, total_steps: int = 5
+) -> tuple[GemmaConfig, TrainerConfig]:
+    """Gemma-2-9B widths (d_model 3584, 16/8 heads of 256, d_ff 14336,
+    vocab 256000, tied embeddings, soft caps 50/30, window 4096 on even
+    layers, flash attention, remat) with depth cut to ``n_layers`` (even:
+    local/global pairs); B=1, seq 8192 (Gemma-2's context, the only length
+    at which the 4096 window masks anything), chunked CE at 512 with the
+    final cap, warm-up 2 steps."""
+    cfg = dataclasses.replace(GEMMA_CONFIGS["gemma2_9b"], n_layers=n_layers)
+    tcfg = TrainerConfig(batch_size=1, seq_len=8192, total_steps=total_steps,
+                         warmup_steps=2, log_every=1, loss_chunk_size=512)
+    return cfg, tcfg
+
+
+def gemma2_9b_serve_slice(
+    seed: int = 0,
+) -> tuple[GemmaConfig, list[list[int]], int]:
+    """(decode config, prompts, max_new_tokens) of the Gemma-2-9B serve
+    run: full width and all 42 layers, bf16 weights drawn in bf16 (no fp32
+    copy), a 2048-slot KV cache per row, and the Llama serve slice's 4
+    prompts of 7, 64, 200 and 511 ids (numpy ``seed``), 32 greedy tokens
+    each."""
+    cfg = dataclasses.replace(
+        GEMMA_CONFIGS["gemma2_9b"], param_dtype=torch.bfloat16,
         max_seq_len=2048,
     ).decode_config()
     rng = np.random.default_rng(seed)

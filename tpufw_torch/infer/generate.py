@@ -8,8 +8,9 @@ carry segment 0, so attention never sees them. Rows that reach ``eos_id``
 keep stepping with their outputs frozen to ``pad_id`` (masking, not
 control flow), so the loop never waits on the host.
 
-The model is a decode model (``Llama(cfg.decode_config())``); it holds
-its own weights, so no params argument is passed.
+The model is a decode model (``Llama`` or ``Gemma`` of
+``cfg.decode_config()``); it holds its own weights, so no params argument
+is passed.
 
 Randomness contract. One ``torch.Generator`` on the model's device,
 seeded with ``seed`` (or passed in), drives every sampled token in one
@@ -193,7 +194,8 @@ def generate(
     device.
 
     Args:
-      model: a decode model (``Llama(cfg.decode_config())``).
+      model: a decode model (``Llama`` or ``Gemma`` of
+        ``cfg.decode_config()``).
       prompt_tokens: [B, P] LEFT-padded token ids (see ``pad_prompts``).
       pad_lens: [B] pad count per row.
       generator: the ``torch.Generator`` sampled tokens draw from (on the

@@ -1,4 +1,5 @@
-"""Weight bridge: a Flax ``decoder_lm`` param tree -> a ``Llama`` state dict.
+"""Weight bridge: a Flax ``decoder_lm`` param tree -> a ``Llama`` or
+``Gemma`` state dict.
 
 Layout facts of the JAX package it handles:
 
@@ -6,8 +7,14 @@ Layout facts of the JAX package it handles:
   axis on every leaf (``nn.scan``); an unscanned trunk uses ``layer_{i}``;
 - ``DenseGeneral`` kernels are [in, *out] (q is [D, H, hd], o is
   [H, hd, D]); PyTorch weights are [out, in];
-- ``lm_head`` is [D, V] and absent when the embedding is tied;
-- RMSNorm weights are stored under ``scale``;
+- ``lm_head`` is [D, V] and absent when the embedding is tied (Gemma);
+- RMSNorm weights are stored under ``scale`` (Gemma's as offsets from 1,
+  which the port's offset norms store the same way);
+- Gemma scans (local, global) PAIRS: ``layers`` holds ``local`` and
+  ``global`` blocks stacked over the L/2 pairs, ``layer_{p}`` holds pair
+  p unscanned; pair p is the port's layers 2p and 2p + 1. Its blocks have
+  four norms (``pre_attn_norm``, ``post_attn_norm``, ``pre_mlp_norm``,
+  ``post_mlp_norm``) where Llama's have two;
 - a tree from ``tpufw.ops.quant.quantize_params`` holds, for each
   projection and the untied ``lm_head``, ``{"q_kernel" [in, *out] int8,
   "scale" [*out]}`` (plus the Qwen ``bias``); it becomes the port's int8
@@ -46,9 +53,14 @@ def _kernel(kernel: np.ndarray, name: str) -> torch.Tensor:
     return _t(k.T)
 
 
+_NORMS = ("attn_norm", "mlp_norm", "pre_attn_norm", "post_attn_norm",
+          "pre_mlp_norm", "post_mlp_norm")
+
+
 def _block(tree: dict, prefix: str, out: dict) -> None:
-    out[f"{prefix}.attn_norm.weight"] = _t(tree["attn_norm"]["scale"])
-    out[f"{prefix}.mlp_norm.weight"] = _t(tree["mlp_norm"]["scale"])
+    for norm in _NORMS:
+        if norm in tree:
+            out[f"{prefix}.{norm}.weight"] = _t(tree[norm]["scale"])
     for mod, names in _PROJ.items():
         for name in names:
             leaf = tree[mod][name]
@@ -64,17 +76,27 @@ def _block(tree: dict, prefix: str, out: dict) -> None:
                 )
 
 
+def _blocks(tree: dict, cfg):
+    """(port layer index, Flax block tree) for every layer: a scanned or
+    unscanned trunk of blocks, or of Gemma's (local, global) pairs."""
+    scanned = "layers" in tree
+    first = tree["layers"] if scanned else tree.get("layer_0", {})
+    if "local" in first:
+        for p in range(cfg.n_layers // 2):
+            pair = _slice(tree["layers"], p) if scanned else tree[f"layer_{p}"]
+            yield 2 * p, pair["local"]
+            yield 2 * p + 1, pair["global"]
+        return
+    for i in range(cfg.n_layers):
+        yield i, _slice(tree["layers"], i) if scanned else tree[f"layer_{i}"]
+
+
 def params_from_flax(tree: dict, cfg) -> dict[str, torch.Tensor]:
-    """State dict for ``tpufw_torch.models.Llama(cfg)`` from a Flax tree."""
+    """State dict for ``tpufw_torch.models.Llama(cfg)`` (or ``Gemma``) from
+    a Flax tree."""
     out = {"embed": _t(tree["embed"]["embedding"])}
-    if "layers" in tree:
-        layers = tree["layers"]
-        for i in range(cfg.n_layers):
-            sliced = _slice(layers, i)
-            _block(sliced, f"layers.{i}", out)
-    else:
-        for i in range(cfg.n_layers):
-            _block(tree[f"layer_{i}"], f"layers.{i}", out)
+    for i, block in _blocks(tree, cfg):
+        _block(block, f"layers.{i}", out)
     out["final_norm.weight"] = _t(tree["final_norm"]["scale"])
     head = tree.get("lm_head")
     if head is not None and "q_kernel" in head:

@@ -20,6 +20,15 @@ comes from ``tpufw_torch.ops.quant.quantize_params``).
 
 Parameter layout is PyTorch's: a projection's weight is [out, in].
 ``tpufw_torch.interop.params_from_flax`` converts a Flax param tree.
+
+The trunk also carries the knobs other families set on their configs and
+read here with ``getattr``, as ``tpufw.models.llama`` reads them (Gemma-2,
+``tpufw_torch.models.gemma``): ``rms_offset`` (norm weights stored as an
+offset from 1), ``mlp_activation`` (``"gelu_tanh"``: GeGLU),
+``query_pre_attn_scalar`` (q scaled by its inverse square root instead of
+head_dim's), ``attn_logit_soft_cap`` (in every attention path) and
+``embed_scale`` (embeddings drawn at std d^-0.5 and multiplied by
+sqrt(d_model) at lookup).
 """
 
 from __future__ import annotations
@@ -275,15 +284,23 @@ def apply_rope(
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+    """RMSNorm; with ``offset`` (Gemma) the weight is stored as an offset
+    from 1, zeros at init, and applied as 1 + w in the weight's dtype, as
+    HF and ``tpufw`` store it."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None,
+                 offset: bool = False):
         super().__init__()
         self.eps = eps
+        self.offset = offset
+        init = torch.zeros if offset else torch.ones
         self.weight = nn.Parameter(
-            torch.ones(dim, dtype=torch.float32, device=device)
+            init(dim, dtype=torch.float32, device=device)
         )
 
     def forward(self, x):
-        return rms_norm(x, self.weight, self.eps)
+        w = self.weight + 1.0 if self.offset else self.weight
+        return rms_norm(x, w, self.eps)
 
 
 class Projection(nn.Module):
@@ -408,7 +425,16 @@ class Attention(nn.Module):
         self.cfg = cfg
         self.window = window
         d, hd = cfg.d_model, cfg.head_dim
-        bias = cfg.attention_qkv_bias
+        bias = getattr(cfg, "attention_qkv_bias", False)
+        self.soft_cap = getattr(cfg, "attn_logit_soft_cap", None)
+        # Non-default query scaling (Gemma's query_pre_attn_scalar): every
+        # backend scales by head_dim**-0.5, so q is pre-multiplied by the
+        # ratio to qpas**-0.5.
+        qpas = getattr(cfg, "query_pre_attn_scalar", None)
+        self.q_mult = (
+            math.sqrt(hd) / math.sqrt(float(qpas))
+            if qpas is not None and float(qpas) != float(hd) else None
+        )
         self.q = _projection(d, cfg.n_heads * hd, cfg, gen, bias, device)
         self.k = _projection(d, cfg.n_kv_heads * hd, cfg, gen, bias, device)
         self.v = _projection(d, cfg.n_kv_heads * hd, cfg, gen, bias, device)
@@ -420,16 +446,20 @@ class Attention(nn.Module):
         q = self.q(x).view(b, t, cfg.n_heads, cfg.head_dim)
         k = self.k(x).view(b, t, cfg.n_kv_heads, cfg.head_dim)
         v = self.v(x).view(b, t, cfg.n_kv_heads, cfg.head_dim)
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-        if not cfg.causal and self.window is not None:
+        rope_scaling = getattr(cfg, "rope_scaling", None)
+        q = apply_rope(q, positions, cfg.rope_theta, rope_scaling)
+        k = apply_rope(k, positions, cfg.rope_theta, rope_scaling)
+        if self.q_mult is not None:
+            q = q * self.q_mult
+        causal = getattr(cfg, "causal", True)
+        if not causal and self.window is not None:
             raise ValueError(
                 "causal=False with sliding_window set: the window mask "
                 "is causal-relative; set sliding_window=None for "
                 "bidirectional embedding fine-tuning"
             )
         if cache is not None:
-            if not cfg.causal:
+            if not causal:
                 raise ValueError(
                     "causal=False with a KV cache: a KV cache is a causal "
                     "construct"
@@ -443,8 +473,9 @@ class Attention(nn.Module):
         else:
             out = multi_head_attention(
                 q, k, v,
-                causal=cfg.causal,
+                causal=causal,
                 segment_ids=segment_ids,
+                logits_soft_cap=self.soft_cap,
                 sliding_window=self.window,
                 backend=cfg.attention_backend,
             )
@@ -493,6 +524,7 @@ class Attention(nn.Module):
             segment_ids=seg,
             kv_segment_ids=cache.seg,
             q_positions=slots,
+            logits_soft_cap=self.soft_cap,
             sliding_window=self.window,
             backend="xla",
         )
@@ -554,23 +586,32 @@ class Attention(nn.Module):
             segment_ids=seg,
             kv_segment_ids=cache.seg[idx].reshape(b, s),
             q_positions=wslot,
+            logits_soft_cap=self.soft_cap,
             sliding_window=self.window,
             backend="xla",
         )
 
 
 class MLP(nn.Module):
-    """SwiGLU feed-forward."""
+    """Gated feed-forward: SwiGLU, or GeGLU with ``mlp_activation=
+    "gelu_tanh"`` (Gemma; the tanh-approximate gelu)."""
 
     def __init__(self, cfg: LlamaConfig, gen, device=None):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
+        act = getattr(cfg, "mlp_activation", "silu")
+        if act == "silu":
+            self.act = F.silu
+        elif act == "gelu_tanh":
+            self.act = lambda x: F.gelu(x, approximate="tanh")
+        else:
+            raise ValueError(f"unknown mlp_activation {act!r}")
         self.gate = _projection(d, f, cfg, gen, False, device)
         self.up = _projection(d, f, cfg, gen, False, device)
         self.down = _projection(f, d, cfg, gen, False, device)
 
     def forward(self, x):
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        return self.down(self.act(self.gate(x)) * self.up(x))
 
 
 class LlamaBlock(nn.Module):
@@ -587,7 +628,7 @@ class LlamaBlock(nn.Module):
 
 
 def _reject_unported(cfg: LlamaConfig) -> None:
-    if cfg.kv_page:
+    if getattr(cfg, "kv_page", 0):
         raise NotImplementedError(
             "LlamaConfig.kv_page: in tpufw_torch the paging belongs to the "
             "cache, not the model (Llama.init_paged_cache), so one set of "
@@ -617,15 +658,24 @@ class Llama(nn.Module):
         _reject_unported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # The meta device (shapes only, no memory) has no generator.
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         emb = torch.empty(
             cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype, device=dev
         )
-        self.embed = nn.Parameter(emb.normal_(0.0, 1.0, generator=gen))
+        # Scaled-embedding models (Gemma) store embeddings at ~1/sqrt(d)
+        # and multiply by sqrt(d) at lookup, keeping the tied head's logits
+        # O(1).
+        std = cfg.d_model ** -0.5 if getattr(cfg, "embed_scale", False) else 1.0
+        self.embed = nn.Parameter(emb.normal_(0.0, std, generator=gen))
         self.layers = nn.ModuleList(
-            LlamaBlock(cfg, gen, dev) for _ in range(cfg.n_layers)
+            self._block(cfg, gen, dev, i) for i in range(cfg.n_layers)
         )
-        self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, dev)
+        self.final_norm = RMSNorm(
+            cfg.d_model, cfg.rms_eps, dev,
+            offset=getattr(cfg, "rms_offset", False),
+        )
         self.lm_head = None
         if cfg.quantized_weights and not cfg.tie_embeddings:
             self.lm_head = QuantProjection(
@@ -638,6 +688,11 @@ class Llama(nn.Module):
             )
             w.normal_(0.0, 1.0 / math.sqrt(cfg.d_model), generator=gen)
             self.lm_head = nn.Parameter(w)
+
+    @staticmethod
+    def _block(cfg, gen, device, index: int) -> nn.Module:
+        """Layer ``index`` of the stack (a family's model overrides it)."""
+        return LlamaBlock(cfg, gen, device)
 
     @property
     def device(self) -> torch.device:
@@ -735,6 +790,10 @@ class Llama(nn.Module):
                 tokens.shape[1], device=tokens.device
             ).expand(tokens.shape)
         x = F.embedding(tokens.long(), self.embed).to(cfg.dtype)
+        if getattr(cfg, "embed_scale", False):
+            # sqrt(d_model) rounded through the activation dtype, as HF and
+            # tpufw do (bf16 rounding included).
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
             if cache is not None:

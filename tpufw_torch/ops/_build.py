@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``. The
-build goes into ``build-torch/`` at the repo root (listed in
-``.gitignore``); a library's file name carries a hash of its sources and
-flags, so an edited kernel is rebuilt and an unchanged one is reused. All
-missing libraries are compiled in parallel, one ``nvcc`` per source.
+``*_d256.cu`` sources are the head-dim-256 builds of the same kernels
+(each defines ``TPUFW_HEAD_DIM`` and includes its head-dim-128 source),
+so they export the same C functions. The build goes into ``build-torch/``
+at the repo root (listed in ``.gitignore``); a library's file name carries
+a hash of the flags, the headers and the sources it compiles, so an edited
+kernel is rebuilt and an unchanged one is reused. All missing libraries
+are compiled in parallel, one ``nvcc`` per source.
 ``nvcc``'s output (the ``-Xptxas -v`` report) is kept beside each library
 as ``lib<name>-<hash>.log`` and read back when the library is reused.
 """
@@ -21,7 +24,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build-torch"
-SOURCES = ("flash_fwd", "flash_dq", "flash_dkv")
+SOURCES = (
+    "flash_fwd", "flash_dq", "flash_dkv",
+    "flash_fwd_d256", "flash_dq_d256", "flash_dkv_d256",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,8 +62,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # A *_d256 source includes the source of its base name.
+    own = {name, name.removesuffix("_d256")}
     for src in sorted(CSRC.glob("*.cu*")):
-        if src.suffix == ".cuh" or src.stem == name:
+        if src.suffix == ".cuh" or src.stem in own:
             h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -2,6 +2,10 @@
 // make_masks, visible) and the kv loop bounds of the forward and dQ
 // kernels (kv_tiles). The Hopper building blocks are in hopper.cuh.
 //
+// The head dim D is fixed per build: 128 by default, 256 where a source
+// defines TPUFW_HEAD_DIM before including this (the *_d256.cu sources,
+// Gemma-2). Each kernel derives its tiles from D.
+//
 // Masks follow tpufw/ops/flash.py exactly: query row i sits at absolute key
 // position offset + i; a key is visible when it is a real key (k < S), not
 // in the future (causal), within the window (q_pos - k_pos < window) and in
@@ -14,7 +18,12 @@
 
 namespace tpufw {
 
-constexpr int D = 128;        // head dim
+#ifndef TPUFW_HEAD_DIM
+#define TPUFW_HEAD_DIM 128
+#endif
+constexpr int D = TPUFW_HEAD_DIM;  // head dim of this build
+static_assert(D == 128 || D == 256, "the flash kernels take head dim 128 or 256");
+constexpr int ATOMS = D / 64;  // 128-byte swizzle atoms (64 bf16 columns) a row
 constexpr float NEG_INF = -1e30f;
 
 struct Masks {

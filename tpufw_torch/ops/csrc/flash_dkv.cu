@@ -27,6 +27,15 @@
 //   dK += dS^T Q (m64n128k16, dO and Q read MN-major).
 // Loop bounds: from the causal first query tile to the window's last, in
 // C's truncating division as jax.lax.div.
+//
+// Head dim 256 (flash_dkv_d256.cu, Gemma-2): dK and dV of 64 keys x 256
+// would take 256 fp32 registers a thread, more than a warpgroup has. So a
+// block owns 64 keys, and its two consumer warpgroups split the outputs:
+// warpgroup 0 forms S^T and P^T and keeps dV, warpgroup 1 forms S^T, dP^T
+// and dS^T and keeps dK (128 registers of accumulator each). S^T is thus
+// computed twice, and warpgroup 1 runs three products to warpgroup 0's two:
+// a simple split, not a balanced one. K, V and two stages of Q and dO
+// (64-row tiles) fill 192 KB of shared memory.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -36,21 +45,25 @@ namespace dkv {
 
 using namespace hopper;
 
-constexpr int BKV = 128;      // keys per block
+// D = 256: each warpgroup keeps one of dK and dV for all the block's keys.
+constexpr bool SPLIT = D > 128;
+constexpr int BKV = SPLIT ? 64 : 128;  // keys per block
 constexpr int BQ = 64;        // query rows per streamed tile
 constexpr int STAGES = 2;     // Q/dO ring depth
 constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int NO = D / 128;   // m64n128 accumulators of dK or dV
 
-constexpr int KV_HALF = BKV * 128;  // 64 columns of a 128-row tile
-constexpr int Q_HALF = BQ * 128;    // 64 columns of a 64-row tile
+constexpr int KV_ATOM = BKV * 128;  // 64 columns of the K or V tile
+constexpr int Q_ATOM = BQ * 128;    // 64 columns of a Q or dO tile
 constexpr int K_OFF = 0;
-constexpr int V_OFF = K_OFF + 2 * KV_HALF;
-constexpr int STAGE_OFF = V_OFF + 2 * KV_HALF;  // [STAGES] x (Q, dO)
-constexpr int STAGE_BYTES = 4 * Q_HALF;
+constexpr int V_OFF = K_OFF + ATOMS * KV_ATOM;
+constexpr int STAGE_OFF = V_OFF + ATOMS * KV_ATOM;  // [STAGES] x (Q, dO)
+constexpr int STAGE_BYTES = 2 * ATOMS * Q_ATOM;
 constexpr int ROWS_OFF = STAGE_OFF + STAGES * STAGE_BYTES;  // lse2, delta, qseg
 constexpr int BAR_OFF = ROWS_OFF + 3 * STAGES * BQ * 4;
 constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
+static_assert(SMEM <= 232448, "more shared memory than an H100 block may have");
 
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -72,9 +85,10 @@ __device__ __forceinline__ void q_tiles(int jt, const Masks& m, int* i0, int* i_
 // accumulator layout. Column c is query row q0 + c; tl, td and tq are the
 // tile's LSE * log2(e), delta and query segment ids. P^T = exp(capped -
 // lse) (0 where MASKED and a pair fails a mask), dS^T = P^T (dP^T - delta)
-// times 1 - (capped/cap)^2 under a soft cap. Templated so that neither the
-// soft cap nor the mask costs a branch per element.
-template <bool CAP, bool MASKED>
+// times 1 - (capped/cap)^2 under a soft cap; without DS only P^T (dpt is
+// then not read). Templated so that neither the soft cap nor the mask
+// costs a branch per element.
+template <bool CAP, bool MASKED, bool DS>
 __device__ __forceinline__ void tile_grads(float (&st)[32], float (&dpt)[32],
                                            const Masks& m, int q0,
                                            const int (&kpos)[2], const int (&ks)[2],
@@ -98,13 +112,167 @@ __device__ __forceinline__ void tile_grads(float (&st)[32], float (&dpt)[32],
       const bool ok = t < m.T && visible(t, kpos[rh], m.qseg ? tq[col] : 0, ks[rh], m);
       p = ok ? p : 0.0f;
     }
-    float ds = p * (dpt[i] - td[col]);
-    if (CAP) {
-      const float tc = st[i] * inv_cap;  // capped / cap
-      ds *= 1.0f - tc * tc;
+    if (DS) {
+      float ds = p * (dpt[i] - td[col]);
+      if (CAP) {
+        const float tc = st[i] * inv_cap;  // capped / cap
+        ds *= 1.0f - tc * tc;
+      }
+      dpt[i] = ds;
     }
     st[i] = p;
-    dpt[i] = ds;
+  }
+}
+
+// One consumer warpgroup over the query tiles [i0, i_hi): it owns keys
+// [kw0, kw0 + 64) and keeps dV (DV) and/or dK (DK) in registers for the
+// whole loop, then writes them to [B, H, S_pad, D].
+template <bool DV, bool DK>
+__device__ __forceinline__ void consume(unsigned char* smem, const Masks& m, int kw0,
+                                        int i0, int i_hi, uint64_t* full, uint64_t* empty,
+                                        const float* slse, const float* sdelta,
+                                        const int* sqseg, float* __restrict__ dk,
+                                        float* __restrict__ dv, int b, int h, int H) {
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32, t4 = lane % 4;
+  const int row = (tid / 32) * 16 + lane / 4;  // this thread's keys: row, row + 8
+  int kpos[2], ks[2] = {0, 0};
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    kpos[rh] = kw0 + row + 8 * rh;
+    if (m.kseg && kpos[rh] < m.S) ks[rh] = m.kseg[(long)b * m.S + kpos[rh]];
+  }
+  float dk_acc[NO][64], dv_acc[NO][64], st_acc[32], dpt_acc[32];
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.0f;
+
+  const uint32_t kv_row = (kw0 % BKV) * 128;  // this warpgroup's first key row
+  const uint32_t k_base = smem_u32(smem + K_OFF) + kv_row;
+  const uint32_t v_base = smem_u32(smem + V_OFF) + kv_row;
+  for (int it = i0; it < i_hi; ++it) {
+    const int n = it - i0, st = n % STAGES;
+    const int q0 = it * BQ;
+    const uint32_t q_base = smem_u32(smem + STAGE_OFF + st * STAGE_BYTES);
+    const uint32_t do_base = q_base + ATOMS * Q_ATOM;
+    mbar_wait(&full[st], (n / STAGES) & 1);
+
+    // S^T = K Q^T and (DK) dP^T = V dO^T: D/16 k-steps of 16 over D,
+    // K-major.
+    fence_regs(st_acc);
+    if constexpr (DK) fence_regs(dpt_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * KV_ATOM + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * Q_ATOM + (kk % 4) * 32;
+      wgmma_ss_m64n64(st_acc, make_desc(k_base + a_off, 16, 1024),
+                      make_desc(q_base + b_off, 16, 1024), kk > 0);
+    }
+    if constexpr (DK) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk / 4) * KV_ATOM + (kk % 4) * 32;
+        const uint32_t b_off = (kk / 4) * Q_ATOM + (kk % 4) * 32;
+        wgmma_ss_m64n64(dpt_acc, make_desc(v_base + a_off, 16, 1024),
+                        make_desc(do_base + b_off, 16, 1024), kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st_acc);
+    if constexpr (DK) fence_regs(dpt_acc);
+
+    // P^T and dS^T in place; the mask only where some pair of the tile
+    // fails it.
+    bool interior = m.qseg == nullptr && q0 + BQ <= m.T;
+    if (m.causal) interior = interior && q0 + m.offset >= kw0 + 63;
+    if (m.has_window) interior = interior && q0 + BQ - 1 + m.offset - kw0 < m.window;
+    const float* tl = slse + st * BQ;
+    const float* td = sdelta + st * BQ;
+    const int* tq = sqseg + st * BQ;
+    if (interior) {
+      if (m.has_cap) tile_grads<true, false, DK>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
+      else tile_grads<false, false, DK>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
+    } else {
+      if (m.has_cap) tile_grads<true, true, DK>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
+      else tile_grads<false, true, DK>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
+    }
+    uint32_t pb[16], dsb[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if constexpr (DV) pb[i] = pack_bf16(st_acc[2 * i], st_acc[2 * i + 1]);
+      if constexpr (DK) dsb[i] = pack_bf16(dpt_acc[2 * i], dpt_acc[2 * i + 1]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q: 4 k-steps of 16 query rows, B MN-major
+    // (atoms 8 KB apart), one m64n128 product per 128 columns.
+    if constexpr (DV) {
+      fence_regs(pb);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) fence_regs(dv_acc[c]);
+    }
+    if constexpr (DK) {
+      fence_regs(dsb);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) fence_regs(dk_acc[c]);
+    }
+    wgmma_fence();
+    if constexpr (DV) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t a[4] = {pb[4 * kk], pb[4 * kk + 1], pb[4 * kk + 2], pb[4 * kk + 3]};
+#pragma unroll
+        for (int c = 0; c < NO; ++c)
+          wgmma_rs_m64n128_tb(
+              dv_acc[c], a,
+              make_desc(do_base + c * 2 * Q_ATOM + kk * 16 * 128, Q_ATOM, 1024));
+      }
+    }
+    if constexpr (DK) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t a[4] = {dsb[4 * kk], dsb[4 * kk + 1], dsb[4 * kk + 2],
+                               dsb[4 * kk + 3]};
+#pragma unroll
+        for (int c = 0; c < NO; ++c)
+          wgmma_rs_m64n128_tb(
+              dk_acc[c], a,
+              make_desc(q_base + c * 2 * Q_ATOM + kk * 16 * 128, Q_ATOM, 1024));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    if constexpr (DV) {
+#pragma unroll
+      for (int c = 0; c < NO; ++c) fence_regs(dv_acc[c]);
+    }
+    if constexpr (DK) {
+#pragma unroll
+      for (int c = 0; c < NO; ++c) fence_regs(dk_acc[c]);
+    }
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // Whole key tiles go straight from the accumulators to [B,H,S_pad,D].
+  const long s_pad = (long)gridDim.x * BKV;
+#pragma unroll
+  for (int c = 0; c < NO; ++c) {
+#pragma unroll
+    for (int n8 = 0; n8 < 16; ++n8) {
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const long off =
+            (((long)b * H + h) * s_pad + kpos[rh]) * D + c * 128 + n8 * 8 + 2 * t4;
+        const int i = 4 * n8 + 2 * rh;
+        if constexpr (DK)
+          *reinterpret_cast<float2*>(dk + off) =
+              make_float2(dk_acc[c][i] * m.scale, dk_acc[c][i + 1] * m.scale);
+        if constexpr (DV)
+          *reinterpret_cast<float2*>(dv + off) = make_float2(dv_acc[c][i], dv_acc[c][i + 1]);
+      }
+    }
   }
 }
 
@@ -148,11 +316,11 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x / 32 != 8) return;
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
-      mbar_arrive_expect_tx(bar_kv, 4 * KV_HALF);
-      tma_load_4d(smem + K_OFF, &kmap, bar_kv, 0, kvh, k0, b);
-      tma_load_4d(smem + K_OFF + KV_HALF, &kmap, bar_kv, HALF_COLS, kvh, k0, b);
-      tma_load_4d(smem + V_OFF, &vmap, bar_kv, 0, kvh, k0, b);
-      tma_load_4d(smem + V_OFF + KV_HALF, &vmap, bar_kv, HALF_COLS, kvh, k0, b);
+      mbar_arrive_expect_tx(bar_kv, 2 * ATOMS * KV_ATOM);
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load_4d(smem + K_OFF + a * KV_ATOM, &kmap, bar_kv, a * HALF_COLS, kvh, k0, b);
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load_4d(smem + V_OFF + a * KV_ATOM, &vmap, bar_kv, a * HALF_COLS, kvh, k0, b);
     }
     for (int it = i0; it < i_hi; ++it) {
       const int n = it - i0, s = n % STAGES;
@@ -169,10 +337,11 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
       if (lane == 0) {
         unsigned char* qd = smem + STAGE_OFF + s * STAGE_BYTES;
         mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
-        tma_load_4d(qd, &qmap, &full[s], 0, h, q0, b);
-        tma_load_4d(qd + Q_HALF, &qmap, &full[s], HALF_COLS, h, q0, b);
-        tma_load_4d(qd + 2 * Q_HALF, &domap, &full[s], 0, h, q0, b);
-        tma_load_4d(qd + 3 * Q_HALF, &domap, &full[s], HALF_COLS, h, q0, b);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load_4d(qd + a * Q_ATOM, &qmap, &full[s], a * HALF_COLS, h, q0, b);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load_4d(qd + (ATOMS + a) * Q_ATOM, &domap, &full[s], a * HALF_COLS, h, q0,
+                      b);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -180,114 +349,19 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // Consumers: warpgroup wg owns keys [kw0, kw0 + 64).
+  // Consumers.
   regs_alloc<CONSUMER_REGS>();
-  const int tid = threadIdx.x % 128;
-  const int lane = tid % 32, t4 = lane % 4;
-  const int row = (tid / 32) * 16 + lane / 4;  // this thread's keys: row, row + 8
-  const int kw0 = k0 + wg * 64;
-  int kpos[2], ks[2] = {0, 0};
-#pragma unroll
-  for (int rh = 0; rh < 2; ++rh) {
-    kpos[rh] = kw0 + row + 8 * rh;
-    if (m.kseg && kpos[rh] < m.S) ks[rh] = m.kseg[(long)b * m.S + kpos[rh]];
-  }
-  float dk_acc[64], dv_acc[64], st_acc[32], dpt_acc[32];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
-
-  const uint32_t k_base = smem_u32(smem + K_OFF) + wg * 64 * 128;
-  const uint32_t v_base = smem_u32(smem + V_OFF) + wg * 64 * 128;
   mbar_wait(bar_kv, 0);
-  for (int it = i0; it < i_hi; ++it) {
-    const int n = it - i0, st = n % STAGES;
-    const int q0 = it * BQ;
-    const uint32_t q_base = smem_u32(smem + STAGE_OFF + st * STAGE_BYTES);
-    const uint32_t do_base = q_base + 2 * Q_HALF;
-    mbar_wait(&full[st], (n / STAGES) & 1);
-
-    // S^T = K Q^T and dP^T = V dO^T: 8 k-steps of 16 over D, K-major.
-    fence_regs(st_acc);
-    fence_regs(dpt_acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t a_off = (kk / 4) * KV_HALF + (kk % 4) * 32;
-      const uint32_t b_off = (kk / 4) * Q_HALF + (kk % 4) * 32;
-      wgmma_ss_m64n64(st_acc, make_desc(k_base + a_off, 16, 1024),
-                      make_desc(q_base + b_off, 16, 1024), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t a_off = (kk / 4) * KV_HALF + (kk % 4) * 32;
-      const uint32_t b_off = (kk / 4) * Q_HALF + (kk % 4) * 32;
-      wgmma_ss_m64n64(dpt_acc, make_desc(v_base + a_off, 16, 1024),
-                      make_desc(do_base + b_off, 16, 1024), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(st_acc);
-    fence_regs(dpt_acc);
-
-    // P^T and dS^T in place; the mask only where some pair of the tile
-    // fails it.
-    bool interior = m.qseg == nullptr && q0 + BQ <= m.T;
-    if (m.causal) interior = interior && q0 + m.offset >= kw0 + 63;
-    if (m.has_window) interior = interior && q0 + BQ - 1 + m.offset - kw0 < m.window;
-    const float* tl = slse + st * BQ;
-    const float* td = sdelta + st * BQ;
-    const int* tq = sqseg + st * BQ;
-    if (interior) {
-      if (m.has_cap) tile_grads<true, false>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
-      else tile_grads<false, false>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
-    } else {
-      if (m.has_cap) tile_grads<true, true>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
-      else tile_grads<false, true>(st_acc, dpt_acc, m, q0, kpos, ks, tl, td, tq, t4);
-    }
-    uint32_t pb[16], dsb[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      pb[i] = pack_bf16(st_acc[2 * i], st_acc[2 * i + 1]);
-      dsb[i] = pack_bf16(dpt_acc[2 * i], dpt_acc[2 * i + 1]);
-    }
-
-    // dV += P^T dO and dK += dS^T Q: 4 k-steps of 16 query rows, B MN-major
-    // (halves 8 KB apart).
-    fence_regs(pb);
-    fence_regs(dsb);
-    fence_regs(dv_acc);
-    fence_regs(dk_acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a[4] = {pb[4 * kk], pb[4 * kk + 1], pb[4 * kk + 2], pb[4 * kk + 3]};
-      wgmma_rs_m64n128_tb(dv_acc, a, make_desc(do_base + kk * 16 * 128, Q_HALF, 1024));
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a[4] = {dsb[4 * kk], dsb[4 * kk + 1], dsb[4 * kk + 2],
-                             dsb[4 * kk + 3]};
-      wgmma_rs_m64n128_tb(dk_acc, a, make_desc(q_base + kk * 16 * 128, Q_HALF, 1024));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(dv_acc);
-    fence_regs(dk_acc);
-    if (lane == 0) mbar_arrive(&empty[st]);
-  }
-
-  // Whole 128-key tiles go straight from the accumulators to [B,H,S_pad,D].
-  const long s_pad = (long)gridDim.x * BKV;
-#pragma unroll
-  for (int n8 = 0; n8 < 16; ++n8) {
-#pragma unroll
-    for (int rh = 0; rh < 2; ++rh) {
-      const long off = (((long)b * H + h) * s_pad + kpos[rh]) * 128 + n8 * 8 + 2 * t4;
-      const int i = 4 * n8 + 2 * rh;
-      *reinterpret_cast<float2*>(dk + off) =
-          make_float2(dk_acc[i] * m.scale, dk_acc[i + 1] * m.scale);
-      *reinterpret_cast<float2*>(dv + off) = make_float2(dv_acc[i], dv_acc[i + 1]);
-    }
+  if constexpr (SPLIT) {
+    if (wg == 0)
+      consume<true, false>(smem, m, k0, i0, i_hi, full, empty, slse, sdelta, sqseg,
+                           dk, dv, b, h, H);
+    else
+      consume<false, true>(smem, m, k0, i0, i_hi, full, empty, slse, sdelta, sqseg,
+                           dk, dv, b, h, H);
+  } else {
+    consume<true, true>(smem, m, k0 + wg * 64, i0, i_hi, full, empty, slse, sdelta,
+                        sqseg, dk, dv, b, h, H);
   }
 }
 
@@ -296,7 +370,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // q [B,T,H,D], k/v [B,S,KV,D], dO [B,T,H,D] bf16; lse, delta [B,H,T] fp32;
 // qseg [B,T] / kseg [B,S] int32 or null; dk, dv [B,H,S_pad,D] fp32 per
-// QUERY head, S_pad = S rounded up to 128. Returns cudaGetLastError(), or
+// QUERY head, S_pad = S rounded up to BKV (128, or 64 at D = 256). Returns cudaGetLastError(), or
 // cudaErrorInvalidValue when a tensor map cannot be encoded.
 extern "C" int tpufw_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
@@ -307,10 +381,11 @@ extern "C" int tpufw_flash_dkv(const void* q, const void* k, const void* v,
                                int has_cap, float cap, void* stream) {
   using namespace tpufw::dkv;
   CUtensorMap qmap, kmap, vmap, domap;
-  if (!tpufw::hopper::encode_rows_map(&qmap, q, B, T, H, BQ) ||
-      !tpufw::hopper::encode_rows_map(&domap, dout, B, T, H, BQ) ||
-      !tpufw::hopper::encode_rows_map(&kmap, k, B, S, KV, BKV) ||
-      !tpufw::hopper::encode_rows_map(&vmap, v, B, S, KV, BKV))
+  using tpufw::D;
+  if (!tpufw::hopper::encode_rows_map(&qmap, q, B, T, H, BQ, D) ||
+      !tpufw::hopper::encode_rows_map(&domap, dout, B, T, H, BQ, D) ||
+      !tpufw::hopper::encode_rows_map(&kmap, k, B, S, KV, BKV, D) ||
+      !tpufw::hopper::encode_rows_map(&vmap, v, B, S, KV, BKV, D))
     return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(flash_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        SMEM);

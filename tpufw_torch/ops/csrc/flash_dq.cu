@@ -29,6 +29,12 @@
 // Loop bounds: the forward's kv_tiles (flash_common.cuh), in C's truncating
 // division as jax.lax.div. GQA never materializes repeated K/V: query head
 // h reads kv head h/(H/KV).
+//
+// Head dim 256 (flash_dq_d256.cu, Gemma-2): Q and dO alone take 128 KB, so
+// the kv tiles are 64 keys and the ring has one stage (Q, dO, K and V fill
+// 192 KB of the 227 KB a block may have): the next tile's copy waits for
+// this tile's math. S and dP are m64n64 over 16 k-steps, dQ two m64n128
+// accumulators (128 fp32 registers a thread).
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -38,21 +44,26 @@ namespace grad_q {
 
 using namespace hopper;
 
-constexpr int BQ = 128;       // query rows per block
-constexpr int BKV = 128;      // keys per kv tile
-constexpr int STAGES = 2;     // K/V ring depth
+constexpr int BQ = 128;                   // query rows per block
+constexpr int BKV = D == 128 ? 128 : 64;  // keys per kv tile
+constexpr int STAGES = D == 128 ? 2 : 1;  // K/V ring depth
 constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int NS = BKV / 2;   // S and dP accumulator floats a thread
+constexpr int NO = D / 128;   // m64n128 dQ accumulators a warpgroup
 
-constexpr int HALF_BYTES = 128 * 128;      // 64 columns of a 128-row tile
-constexpr int TILE_BYTES = 2 * HALF_BYTES; // a 128 x 128 bf16 tile
+constexpr int Q_ATOM = BQ * 128;    // 64 columns of the Q or dO tile
+constexpr int KV_ATOM = BKV * 128;  // 64 columns of a K or V tile
+constexpr int Q_BYTES = ATOMS * Q_ATOM;
+constexpr int KV_BYTES = ATOMS * KV_ATOM;
 constexpr int Q_OFF = 0;
-constexpr int DO_OFF = Q_OFF + TILE_BYTES;
-constexpr int K_OFF = DO_OFF + TILE_BYTES;
-constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
-constexpr int KSEG_OFF = V_OFF + STAGES * TILE_BYTES;  // int [STAGES][BKV]
+constexpr int DO_OFF = Q_OFF + Q_BYTES;
+constexpr int K_OFF = DO_OFF + Q_BYTES;
+constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+constexpr int KSEG_OFF = V_OFF + STAGES * KV_BYTES;  // int [STAGES][BKV]
 constexpr int BAR_OFF = KSEG_OFF + STAGES * BKV * 4;
 constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
+static_assert(SMEM <= 232448, "more shared memory than an H100 block may have");
 
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -61,8 +72,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 // exp(capped - lse) (0 where MASKED and a pair fails a mask), dS = P (dP -
 // delta) times 1 - (capped/cap)^2 under a soft cap. Templated so that
 // neither the soft cap nor the mask costs a branch per element.
-template <bool CAP, bool MASKED>
-__device__ __forceinline__ void tile_grads(float (&s)[64], float (&dp)[64], const Masks& m,
+template <bool CAP, bool MASKED, int N>
+__device__ __forceinline__ void tile_grads(float (&s)[N], float (&dp)[N], const Masks& m,
                                            int k0, const int (&q_row)[2], const int (&qs)[2],
                                            const float (&lse2)[2], const float (&dlt)[2],
                                            const int* kseg_tile, int t4) {
@@ -72,11 +83,11 @@ __device__ __forceinline__ void tile_grads(float (&s)[64], float (&dp)[64], cons
     // tanhf needs many registers.
     const float scale_cap = m.scale * inv_cap;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = m.cap * tanhf(s[i] * scale_cap);
+    for (int i = 0; i < N; ++i) s[i] = m.cap * tanhf(s[i] * scale_cap);
   }
   const float to_log2 = CAP ? LOG2E : m.scale * LOG2E;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int rh = (i >> 1) & 1;
     float p = fast_exp2(s[i] * to_log2 - lse2[rh]);
     if (MASKED) {
@@ -133,11 +144,11 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x / 32 != 8) return;
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
-      mbar_arrive_expect_tx(bar_q, 2 * TILE_BYTES);
-      tma_load_4d(smem + Q_OFF, &qmap, bar_q, 0, h, q0, b);
-      tma_load_4d(smem + Q_OFF + HALF_BYTES, &qmap, bar_q, HALF_COLS, h, q0, b);
-      tma_load_4d(smem + DO_OFF, &domap, bar_q, 0, h, q0, b);
-      tma_load_4d(smem + DO_OFF + HALF_BYTES, &domap, bar_q, HALF_COLS, h, q0, b);
+      mbar_arrive_expect_tx(bar_q, 2 * Q_BYTES);
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load_4d(smem + Q_OFF + a * Q_ATOM, &qmap, bar_q, a * HALF_COLS, h, q0, b);
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load_4d(smem + DO_OFF + a * Q_ATOM, &domap, bar_q, a * HALF_COLS, h, q0, b);
     }
     for (int j = j0; j < j_hi; ++j) {
       const int n = j - j0, s = n % STAGES;
@@ -148,13 +159,13 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
           skseg[s * BKV + i] = k0 + i < m.S ? m.kseg[(long)b * m.S + k0 + i] : -1;
       }
       if (lane == 0) {
-        unsigned char* kd = smem + K_OFF + s * TILE_BYTES;
-        unsigned char* vd = smem + V_OFF + s * TILE_BYTES;
-        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
-        tma_load_4d(kd, &kmap, &full[s], 0, kvh, k0, b);
-        tma_load_4d(kd + HALF_BYTES, &kmap, &full[s], HALF_COLS, kvh, k0, b);
-        tma_load_4d(vd, &vmap, &full[s], 0, kvh, k0, b);
-        tma_load_4d(vd + HALF_BYTES, &vmap, &full[s], HALF_COLS, kvh, k0, b);
+        unsigned char* kd = smem + K_OFF + s * KV_BYTES;
+        unsigned char* vd = smem + V_OFF + s * KV_BYTES;
+        mbar_arrive_expect_tx(&full[s], 2 * KV_BYTES);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load_4d(kd + a * KV_ATOM, &kmap, &full[s], a * HALF_COLS, kvh, k0, b);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load_4d(vd + a * KV_ATOM, &vmap, &full[s], a * HALF_COLS, kvh, k0, b);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -180,9 +191,13 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     dlt[rh] = ok ? delta[idx] : 0.0f;
     if (m.qseg && ok) qs[rh] = m.qseg[(long)b * m.T + q_row[rh]];
   }
-  float dq[64], s[64], dp[64];
+  float dq[NO][64], s[NS], dp[NS];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dq[i] = s[i] = dp[i] = 0.0f;
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[c][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.0f;
 
   const uint32_t q_base = smem_u32(smem + Q_OFF) + wg * 64 * 128;
   const uint32_t do_base = smem_u32(smem + DO_OFF) + wg * 64 * 128;
@@ -190,27 +205,29 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int j = j0; j < j_hi; ++j) {
     const int n = j - j0, st = n % STAGES;
     const int k0 = j * BKV;
-    const uint32_t k_base = smem_u32(smem + K_OFF + st * TILE_BYTES);
-    const uint32_t v_base = smem_u32(smem + V_OFF + st * TILE_BYTES);
+    const uint32_t k_base = smem_u32(smem + K_OFF + st * KV_BYTES);
+    const uint32_t v_base = smem_u32(smem + V_OFF + st * KV_BYTES);
     mbar_wait(&full[st], (n / STAGES) & 1);
 
-    // S = Q K^T and dP = dO V^T: 8 k-steps of 16 over D each, K-major
+    // S = Q K^T and dP = dO V^T: D/16 k-steps of 16 over D each, K-major
     // operands, one batch. The register fences keep every write of an
     // accumulator out of the batch (ptxas would serialize it).
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t off = (kk / 4) * HALF_BYTES + (kk % 4) * 32;
-      wgmma_ss_m64n128(s, make_desc(q_base + off, 16, 1024),
-                       make_desc(k_base + off, 16, 1024), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * Q_ATOM + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * KV_ATOM + (kk % 4) * 32;
+      wgmma_ss_acc(s, make_desc(q_base + a_off, 16, 1024),
+                   make_desc(k_base + b_off, 16, 1024), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t off = (kk / 4) * HALF_BYTES + (kk % 4) * 32;
-      wgmma_ss_m64n128(dp, make_desc(do_base + off, 16, 1024),
-                       make_desc(v_base + off, 16, 1024), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * Q_ATOM + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * KV_ATOM + (kk % 4) * 32;
+      wgmma_ss_acc(dp, make_desc(do_base + a_off, 16, 1024),
+                   make_desc(v_base + b_off, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -230,43 +247,53 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       else tile_grads<false, true>(s, dp, m, k0, q_row, qs, lse2, dlt, kseg_tile, t4);
     }
     // dS in bf16: the accumulator layout is the A-fragment layout.
-    uint32_t ds[32];
+    uint32_t ds[NS / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) ds[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+    for (int i = 0; i < NS / 2; ++i) ds[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
 
-    // dQ += dS K: 8 k-steps of 16 keys, K MN-major (halves 16 KB apart).
-    fence_regs(dq);
+    // dQ += dS K: BKV/16 k-steps of 16 keys, K MN-major (atoms KV_ATOM
+    // apart), one m64n128 product per 128 columns of dQ.
+#pragma unroll
+    for (int c = 0; c < NO; ++c) fence_regs(dq[c]);
     fence_regs(ds);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < BKV / 16; ++kk) {
       const uint32_t a[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
-      wgmma_rs_m64n128_tb(dq, a, make_desc(k_base + kk * 16 * 128, HALF_BYTES, 1024));
+#pragma unroll
+      for (int c = 0; c < NO; ++c)
+        wgmma_rs_m64n128_tb(
+            dq[c], a, make_desc(k_base + c * 2 * KV_ATOM + kk * 16 * 128, KV_ATOM, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(dq);
+#pragma unroll
+    for (int c = 0; c < NO; ++c) fence_regs(dq[c]);
     if (lane == 0) mbar_arrive(&empty[st]);
   }
 
   // Epilogue: dQ * scale in bf16 into this warpgroup's dead Q rows,
-  // swizzled as the dQ map reads them, then one TMA store per half; rows
+  // swizzled as the dQ map reads them, then one TMA store per atom; rows
   // past T are dropped.
   unsigned char* ob = smem + Q_OFF + wg * 64 * 128;
 #pragma unroll
-  for (int n8 = 0; n8 < 16; ++n8) {
+  for (int c = 0; c < NO; ++c) {
 #pragma unroll
-    for (int rh = 0; rh < 2; ++rh) {
-      const int r = row + 8 * rh, col = (n8 % 8) * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(ob + (n8 / 8) * HALF_BYTES + swizzle_offset(r, col)) =
-          pack_bf16(dq[4 * n8 + 2 * rh] * m.scale, dq[4 * n8 + 2 * rh + 1] * m.scale);
+    for (int n8 = 0; n8 < 16; ++n8) {
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int r = row + 8 * rh, col = (n8 % 8) * 8 + 2 * t4;
+        const int atom = 2 * c + n8 / 8;
+        *reinterpret_cast<uint32_t*>(ob + atom * Q_ATOM + swizzle_offset(r, col)) =
+            pack_bf16(dq[c][4 * n8 + 2 * rh] * m.scale, dq[c][4 * n8 + 2 * rh + 1] * m.scale);
+      }
     }
   }
   fence_proxy_async();
   named_sync(1 + wg, 128);
   if (tid == 0) {
-    tma_store_4d(&dqmap, ob, 0, h, qw0, b);
-    tma_store_4d(&dqmap, ob + HALF_BYTES, HALF_COLS, h, qw0, b);
+    for (int a = 0; a < ATOMS; ++a)
+      tma_store_4d(&dqmap, ob + a * Q_ATOM, a * HALF_COLS, h, qw0, b);
     tma_store_commit_and_wait();
   }
 }
@@ -287,11 +314,12 @@ extern "C" int tpufw_flash_dq(const void* q, const void* k, const void* v,
                               float cap, void* stream) {
   using namespace tpufw::grad_q;
   CUtensorMap qmap, kmap, vmap, domap, dqmap;
-  if (!tpufw::hopper::encode_rows_map(&qmap, q, B, T, H, BQ) ||
-      !tpufw::hopper::encode_rows_map(&domap, dout, B, T, H, BQ) ||
-      !tpufw::hopper::encode_rows_map(&kmap, k, B, S, KV, BKV) ||
-      !tpufw::hopper::encode_rows_map(&vmap, v, B, S, KV, BKV) ||
-      !tpufw::hopper::encode_rows_map(&dqmap, dq, B, T, H, 64))
+  using tpufw::D;
+  if (!tpufw::hopper::encode_rows_map(&qmap, q, B, T, H, BQ, D) ||
+      !tpufw::hopper::encode_rows_map(&domap, dout, B, T, H, BQ, D) ||
+      !tpufw::hopper::encode_rows_map(&kmap, k, B, S, KV, BKV, D) ||
+      !tpufw::hopper::encode_rows_map(&vmap, v, B, S, KV, BKV, D) ||
+      !tpufw::hopper::encode_rows_map(&dqmap, dq, B, T, H, 64, D))
     return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        SMEM);

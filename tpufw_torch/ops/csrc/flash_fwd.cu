@@ -30,6 +30,12 @@
 // the log2(e) scaling), and the loop bounds are the causal diagonal and
 // the window start in C's truncating division, as jax.lax.div.
 // GQA never materializes repeated K/V: query head h reads kv head h/(H/KV).
+//
+// Head dim 256 (flash_fwd_d256.cu, Gemma-2) is the same design with 64-key
+// kv tiles: Q (64 KB) and two stages of K and V (2 x 64 KB) fill 192 KB of
+// the 227 KB a block may have, where 128-key stages would need 320 KB. Rows
+// are four swizzle atoms instead of two, S = Q K^T is m64n64 over 16
+// k-steps, and O is two m64n128 accumulators (128 fp32 registers a thread).
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -39,20 +45,25 @@ namespace fwd {
 
 using namespace hopper;
 
-constexpr int BQ = 128;       // query rows per block
-constexpr int BKV = 128;      // keys per kv tile
-constexpr int STAGES = 2;     // K/V ring depth
+constexpr int BQ = 128;                   // query rows per block
+constexpr int BKV = D == 128 ? 128 : 64;  // keys per kv tile
+constexpr int STAGES = 2;                 // K/V ring depth
 constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int NS = BKV / 2;   // S accumulator floats a thread (m64 x BKV)
+constexpr int NO = D / 128;   // m64n128 O accumulators a warpgroup
 
-constexpr int HALF_BYTES = 128 * 128;      // 64 columns of a 128-row tile
-constexpr int TILE_BYTES = 2 * HALF_BYTES; // a 128 x 128 bf16 tile
+constexpr int Q_ATOM = BQ * 128;    // 64 columns of the Q tile
+constexpr int KV_ATOM = BKV * 128;  // 64 columns of a K or V tile
+constexpr int Q_BYTES = ATOMS * Q_ATOM;
+constexpr int KV_BYTES = ATOMS * KV_ATOM;
 constexpr int Q_OFF = 0;
-constexpr int K_OFF = Q_OFF + TILE_BYTES;
-constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
-constexpr int KSEG_OFF = V_OFF + STAGES * TILE_BYTES;  // int [STAGES][BKV]
+constexpr int K_OFF = Q_OFF + Q_BYTES;
+constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+constexpr int KSEG_OFF = V_OFF + STAGES * KV_BYTES;  // int [STAGES][BKV]
 constexpr int BAR_OFF = KSEG_OFF + STAGES * BKV * 4;
 constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
+static_assert(SMEM <= 232448, "more shared memory than an H100 block may have");
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -61,19 +72,19 @@ constexpr float LN2 = 0.6931471805599453f;
 // layout: cap(scale * raw) * log2(e), with the finite fill -1e30 (natural
 // domain) where MASKED and a pair fails a mask. Templated so that neither
 // the soft cap nor the mask costs a branch per element.
-template <bool CAP, bool MASKED>
-__device__ __forceinline__ void tile_logits(float (&s)[64], const Masks& m, int k0,
+template <bool CAP, bool MASKED, int N>
+__device__ __forceinline__ void tile_logits(float (&s)[N], const Masks& m, int k0,
                                             const int (&q_row)[2], const int (&qs)[2],
                                             const int* kseg_tile, int t4) {
   if (!CAP && !MASKED) {
     const float scale_log2 = m.scale * LOG2E;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+    for (int i = 0; i < N; ++i) s[i] *= scale_log2;
     return;
   }
   const float inv_cap = CAP ? 1.0f / m.cap : 0.0f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     float x = s[i] * m.scale;
     if (CAP) x = m.cap * tanhf(x * inv_cap);
     if (MASKED) {
@@ -123,9 +134,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x / 32 != 8) return;
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
-      mbar_arrive_expect_tx(bar_q, TILE_BYTES);
-      tma_load_4d(smem + Q_OFF, &qmap, bar_q, 0, h, q0, b);
-      tma_load_4d(smem + Q_OFF + HALF_BYTES, &qmap, bar_q, HALF_COLS, h, q0, b);
+      mbar_arrive_expect_tx(bar_q, Q_BYTES);
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load_4d(smem + Q_OFF + a * Q_ATOM, &qmap, bar_q, a * HALF_COLS, h, q0, b);
     }
     for (int j = j0; j < j_hi; ++j) {
       const int n = j - j0, s = n % STAGES;
@@ -136,13 +147,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
           skseg[s * BKV + i] = k0 + i < m.S ? m.kseg[(long)b * m.S + k0 + i] : -1;
       }
       if (lane == 0) {
-        unsigned char* kd = smem + K_OFF + s * TILE_BYTES;
-        unsigned char* vd = smem + V_OFF + s * TILE_BYTES;
-        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
-        tma_load_4d(kd, &kmap, &full[s], 0, kvh, k0, b);
-        tma_load_4d(kd + HALF_BYTES, &kmap, &full[s], HALF_COLS, kvh, k0, b);
-        tma_load_4d(vd, &vmap, &full[s], 0, kvh, k0, b);
-        tma_load_4d(vd + HALF_BYTES, &vmap, &full[s], HALF_COLS, kvh, k0, b);
+        unsigned char* kd = smem + K_OFF + s * KV_BYTES;
+        unsigned char* vd = smem + V_OFF + s * KV_BYTES;
+        mbar_arrive_expect_tx(&full[s], 2 * KV_BYTES);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load_4d(kd + a * KV_ATOM, &kmap, &full[s], a * HALF_COLS, kvh, k0, b);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load_4d(vd + a * KV_ATOM, &vmap, &full[s], a * HALF_COLS, kvh, k0, b);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -162,9 +173,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     q_row[rh] = qw0 + row + 8 * rh;
     if (m.qseg && q_row[rh] < m.T) qs[rh] = m.qseg[(long)b * m.T + q_row[rh]];
   }
-  float o[64], s[64];
+  float o[NO][64], s[NS];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.0f;
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[c][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = 0.0f;
   float m_row[2] = {NEG_INF * LOG2E, NEG_INF * LOG2E};  // running max, base 2
   float l_row[2] = {0.0f, 0.0f};  // this thread's share of the running sum
 
@@ -173,20 +188,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int j = j0; j < j_hi; ++j) {
     const int n = j - j0, st = n % STAGES;
     const int k0 = j * BKV;
-    const uint32_t k_base = smem_u32(smem + K_OFF + st * TILE_BYTES);
-    const uint32_t v_base = smem_u32(smem + V_OFF + st * TILE_BYTES);
+    const uint32_t k_base = smem_u32(smem + K_OFF + st * KV_BYTES);
+    const uint32_t v_base = smem_u32(smem + V_OFF + st * KV_BYTES);
     mbar_wait(&full[st], (n / STAGES) & 1);
 
-    // S = Q K^T: 8 k-steps of 16 over D, K-major operands. The register
+    // S = Q K^T: D/16 k-steps of 16 over D, K-major operands. The register
     // fences keep every write of an accumulator before its wgmma batch, so
     // the compiler cannot sink one into it (ptxas would then serialize).
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t off = (kk / 4) * HALF_BYTES + (kk % 4) * 32;
-      wgmma_ss_m64n128(s, make_desc(q_base + off, 16, 1024),
-                       make_desc(k_base + off, 16, 1024), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss_acc(s, make_desc(q_base + (kk / 4) * Q_ATOM + col, 16, 1024),
+                   make_desc(k_base + (kk / 4) * KV_ATOM + col, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -208,7 +223,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     // Online softmax on the accumulator layout.
     float mx[2] = {m_row[0], m_row[1]};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     float alpha[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int rh = 0; rh < 2; ++rh) {
@@ -217,36 +232,44 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       m_row[rh] = mx[rh];
     }
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NS; ++i) {
       s[i] = fast_exp2(s[i] - m_row[(i >> 1) & 1]);
       sum[(i >> 1) & 1] += s[i];
     }
 #pragma unroll
     for (int rh = 0; rh < 2; ++rh) l_row[rh] = l_row[rh] * alpha[rh] + sum[rh];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
-    // P in bf16: the S accumulator layout is the A-fragment layout.
-    uint32_t p[32];
+    for (int c = 0; c < NO; ++c)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      for (int i = 0; i < 64; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+    // P in bf16: the S accumulator layout is the A-fragment layout.
+    uint32_t p[NS / 2];
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 
-    // O += P V: 8 k-steps of 16 keys, V MN-major (halves 16 KB apart).
-    fence_regs(o);
+    // O += P V: BKV/16 k-steps of 16 keys, V MN-major (atoms KV_ATOM
+    // apart), one m64n128 product per 128 columns of O.
+#pragma unroll
+    for (int c = 0; c < NO; ++c) fence_regs(o[c]);
     fence_regs(p);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < BKV / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-      wgmma_rs_m64n128_tb(o, a, make_desc(v_base + kk * 16 * 128, HALF_BYTES, 1024));
+#pragma unroll
+      for (int c = 0; c < NO; ++c)
+        wgmma_rs_m64n128_tb(
+            o[c], a, make_desc(v_base + c * 2 * KV_ATOM + kk * 16 * 128, KV_ATOM, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < NO; ++c) fence_regs(o[c]);
     if (lane == 0) mbar_arrive(&empty[st]);
   }
 
   // Epilogue: O = acc / l (l = 0 -> 1) in bf16 into this warpgroup's dead Q
-  // rows, swizzled as the O map reads them, then one TMA store per half.
+  // rows, swizzled as the O map reads them, then one TMA store per atom.
   float inv[2];
 #pragma unroll
   for (int rh = 0; rh < 2; ++rh) {
@@ -258,19 +281,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   unsigned char* ob = smem + Q_OFF + wg * 64 * 128;
 #pragma unroll
-  for (int n8 = 0; n8 < 16; ++n8) {
+  for (int c = 0; c < NO; ++c) {
 #pragma unroll
-    for (int rh = 0; rh < 2; ++rh) {
-      const int r = row + 8 * rh, col = (n8 % 8) * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(ob + (n8 / 8) * HALF_BYTES + swizzle_offset(r, col)) =
-          pack_bf16(o[4 * n8 + 2 * rh] * inv[rh], o[4 * n8 + 2 * rh + 1] * inv[rh]);
+    for (int n8 = 0; n8 < 16; ++n8) {
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int r = row + 8 * rh, col = (n8 % 8) * 8 + 2 * t4;
+        const int atom = 2 * c + n8 / 8;
+        *reinterpret_cast<uint32_t*>(ob + atom * Q_ATOM + swizzle_offset(r, col)) =
+            pack_bf16(o[c][4 * n8 + 2 * rh] * inv[rh], o[c][4 * n8 + 2 * rh + 1] * inv[rh]);
+      }
     }
   }
   fence_proxy_async();
   named_sync(1 + wg, 128);
   if (tid == 0) {
-    tma_store_4d(&omap, ob, 0, h, qw0, b);
-    tma_store_4d(&omap, ob + HALF_BYTES, HALF_COLS, h, qw0, b);
+    for (int a = 0; a < ATOMS; ++a)
+      tma_store_4d(&omap, ob + a * Q_ATOM, a * HALF_COLS, h, qw0, b);
     tma_store_commit_and_wait();
   }
 }
@@ -278,7 +305,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
 }  // namespace fwd
 }  // namespace tpufw
 
-// q [B,T,H,D], k/v [B,S,KV,D] bf16; o [B,T,H,D] bf16; lse [B,H,T] fp32;
+// q [B,T,H,D], k/v [B,S,KV,D] bf16 (D of this build); o [B,T,H,D] bf16;
+// lse [B,H,T] fp32;
 // qseg [B,T] / kseg [B,S] int32 or null. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue when a tensor map cannot be encoded.
 extern "C" int tpufw_flash_fwd(const void* q, const void* k, const void* v,
@@ -289,10 +317,11 @@ extern "C" int tpufw_flash_fwd(const void* q, const void* k, const void* v,
                                void* stream) {
   using namespace tpufw::fwd;
   CUtensorMap qmap, kmap, vmap, omap;
-  if (!tpufw::hopper::encode_rows_map(&qmap, q, B, T, H, BQ) ||
-      !tpufw::hopper::encode_rows_map(&kmap, k, B, S, KV, BKV) ||
-      !tpufw::hopper::encode_rows_map(&vmap, v, B, S, KV, BKV) ||
-      !tpufw::hopper::encode_rows_map(&omap, o, B, T, H, 64))
+  using tpufw::D;
+  if (!tpufw::hopper::encode_rows_map(&qmap, q, B, T, H, BQ, D) ||
+      !tpufw::hopper::encode_rows_map(&kmap, k, B, S, KV, BKV, D) ||
+      !tpufw::hopper::encode_rows_map(&vmap, v, B, S, KV, BKV, D) ||
+      !tpufw::hopper::encode_rows_map(&omap, o, B, T, H, 64, D))
     return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        SMEM);

@@ -3,12 +3,12 @@
 // descriptors and instructions, register reallocation and quad reductions.
 // Raw PTX only, so a kernel that includes this builds in seconds.
 //
-// Layout contract shared by all of it: a tile of R rows of a [.., D=128]
-// bf16 tensor sits in shared memory as two halves (columns 0-63, 64-127),
-// each R rows of 128 bytes written by TMA with CU_TENSOR_MAP_SWIZZLE_128B:
-// the 16-byte chunk c of row r is stored at chunk c ^ (r % 8). Every half
-// starts on a 1024-byte boundary, which is what the swizzle and the wgmma
-// descriptors below assume.
+// Layout contract shared by all of it: a tile of R rows of a [.., D] bf16
+// tensor (D = 128 or 256) sits in shared memory as D/64 atoms (columns
+// 0-63, 64-127, ...), each R rows of 128 bytes written by TMA with
+// CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r is stored at
+// chunk c ^ (r % 8). Every atom starts on a 1024-byte boundary, which is
+// what the swizzle and the wgmma descriptors below assume.
 
 #pragma once
 
@@ -116,7 +116,7 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Byte offset, inside a swizzled half, of column `col` (0-63) of row `row`.
+// Byte offset, inside a swizzled atom, of column `col` (0-63) of row `row`.
 __device__ __forceinline__ uint32_t swizzle_offset(int row, int col) {
   return row * 128 + ((((col >> 3) ^ (row & 7))) << 4) + ((col & 7) << 1);
 }
@@ -127,7 +127,7 @@ __device__ __forceinline__ uint32_t swizzle_offset(int row, int col) {
 
 // Shared-memory matrix descriptor, 128-byte swizzle. lbo/sbo in bytes:
 // K-major operands use sbo = 1024 (eight 128-byte rows) and ignore lbo;
-// MN-major operands use lbo = the distance between 64-column halves and
+// MN-major operands use lbo = the distance between 64-column atoms and
 // sbo = 1024 (eight k rows).
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   uint64_t d = 0;
@@ -207,6 +207,17 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S-type products by accumulator size: m64n128 for 64 floats a thread,
+// m64n64 for 32 (the key tile of the head-dim-256 kernels).
+__device__ __forceinline__ void wgmma_ss_acc(float (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  wgmma_ss_m64n128(d, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_ss_acc(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  wgmma_ss_m64n64(d, da, db, scale_d);
 }
 
 // D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers (4 bf16x2 per
@@ -305,16 +316,16 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A map over a bf16 [B, N, heads, 128] tensor as four dimensions ordered
-// (D, heads, N, B), with a box of 64 columns x one head x `box_rows` rows x
+// A map over a bf16 [B, N, heads, d] tensor as four dimensions ordered
+// (d, heads, N, B), with a box of 64 columns x one head x `box_rows` rows x
 // one batch. Rows past N are out of bounds within their own batch, so TMA
 // zero-fills them on load and drops them on store. False on failure.
 inline bool encode_rows_map(CUtensorMap* map, const void* base, int B, int N,
-                            int heads, int box_rows) {
+                            int heads, int box_rows, int d) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
-  const cuuint64_t row = 128 * 2;  // bytes of one head vector
-  cuuint64_t dims[4] = {128, (cuuint64_t)heads, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)d * 2;  // bytes of one head vector
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)N, (cuuint64_t)B};
   cuuint64_t strides[3] = {row, row * heads, row * heads * N};
   cuuint32_t box[4] = {HALF_COLS, 1, (cuuint32_t)box_rows, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};

@@ -13,8 +13,10 @@ The forward and backward follow the JAX package's decomposition:
   plain torch, as in ``tpufw/ops/flash.py:497-500`` and ``:617-618``.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
-its kernel for CUDA tensors, or raises: there is no fallback. Each launch
-adds one to ``LAUNCHES[name]``.
+its kernel for CUDA tensors, or raises: there is no fallback. The kernels
+take head dim 128 (Llama, Mistral, Qwen) and 256 (Gemma-2; the
+``csrc/*_d256.cu`` builds, with tiles of their own). Each launch adds one
+to ``LAUNCHES[name]``, the head-dim-256 kernels under ``<name>_d256``.
 
 Layouts: q, O, dO, dQ are [B, T, H, D]; k, v are [B, S, K, D]; LSE and Δ
 are fp32 [B, H, T]; the dK/dV kernel output is fp32 [B, H, S, D]. Query i
@@ -33,17 +35,24 @@ import torch
 
 from tpufw_torch.ops.attention import NEG_INF, tanh_soft_cap
 
-# Head dim the CUDA kernels are built for (Llama, Mistral, Qwen). Gemma's
-# 256 and MLA's 192 are later work (ROADMAP.md).
-KERNEL_HEAD_DIM = 128
 # Tiles of the forward (csrc/flash_fwd.cu), dQ (csrc/flash_dq.cu) and dK/dV
-# (csrc/flash_dkv.cu) kernels: query rows and keys.
-FWD_BLOCK_Q, FWD_BLOCK_KV = 128, 128
-DQ_BLOCK_Q, DQ_BLOCK_KV = 128, 128
-DKV_BLOCK_Q, DKV_BLOCK_KV = 64, 128
+# (csrc/flash_dkv.cu) kernels, by the head dims they are built for: (query
+# rows, keys) per kernel. MLA's head dim 192 is later work (ROADMAP.md).
+TILES = {
+    128: {"fwd": (128, 128), "dq": (128, 128), "dkv": (64, 128)},
+    256: {"fwd": (128, 64), "dq": (128, 64), "dkv": (64, 64)},
+}
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
-# Kernel launches since the last reset, by wrapper.
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+def kernel_name(base: str, head_dim: int) -> str:
+    """The library and launch-count name of kernel ``base`` at
+    ``head_dim``: ``flash_fwd`` at 128, ``flash_fwd_d256`` at 256."""
+    return base if head_dim == 128 else f"{base}_d{head_dim}"
+
+
+# Kernel launches since the last reset, by kernel and head dim.
+LAUNCHES = {kernel_name(k, d): 0 for d in TILES for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -164,11 +173,12 @@ def _div(a: int, b: int) -> int:
     return -((-a) // b) if a < 0 else a // b
 
 
-def fwd_kv_tiles(qt, t, s, offset, causal, window):
+def fwd_kv_tiles(qt, t, s, offset, causal, window, head_dim=128):
     """[j0, j_hi): the kv tiles forward query tile ``qt`` visits
-    (``kv_tiles`` in csrc/flash_common.cuh): up to the causal diagonal, from
-    the window's first key. ``t`` is unused, as in the kernel."""
-    bq, bkv = FWD_BLOCK_Q, FWD_BLOCK_KV
+    (``kv_tiles`` in csrc/flash_common.cuh) at ``head_dim``'s tiles: up to
+    the causal diagonal, from the window's first key. ``t`` is unused, as
+    in the kernel."""
+    bq, bkv = TILES[head_dim]["fwd"]
     n_kv = -(-s // bkv)
     j_hi = min(_div((qt + 1) * bq + offset + bkv - 1, bkv), n_kv) if causal \
         else n_kv
@@ -178,15 +188,17 @@ def fwd_kv_tiles(qt, t, s, offset, causal, window):
 
 
 # dQ walks the forward's kv loop: csrc/flash_dq.cu calls the same device
-# function (``kv_tiles``) at the same tiles (DQ_BLOCK_* == FWD_BLOCK_*).
+# function (``kv_tiles``) at the same tiles (TILES[d]["dq"] ==
+# TILES[d]["fwd"]).
 dq_kv_tiles = fwd_kv_tiles
 
 
-def dkv_q_tiles(jt, t, s, offset, causal, window):
+def dkv_q_tiles(jt, t, s, offset, causal, window, head_dim=128):
     """[i0, i_hi): the query tiles the dK/dV kernel visits for kv tile
-    ``jt`` (``q_tiles`` in csrc/flash_dkv.cu): from the causal first to the
-    window's last. ``s`` is unused, as in the kernel."""
-    bq, bkv = DKV_BLOCK_Q, DKV_BLOCK_KV
+    ``jt`` (``q_tiles`` in csrc/flash_dkv.cu) at ``head_dim``'s tiles: from
+    the causal first to the window's last. ``s`` is unused, as in the
+    kernel."""
+    bq, bkv = TILES[head_dim]["dkv"]
     n_q = -(-t // bq)
     k0 = jt * bkv
     i0 = max(_div(k0 - offset, bq), 0) if causal else 0
@@ -226,10 +238,10 @@ def _check_cuda(names_tensors, dtype):
 
 
 def _check_qkv(q, k, v):
-    if q.shape[-1] != KERNEL_HEAD_DIM:
+    if q.shape[-1] not in TILES:
         raise NotImplementedError(
-            f"flash CUDA kernels take head_dim {KERNEL_HEAD_DIM}, got "
-            f"{q.shape[-1]} (192 and 256 are on ROADMAP.md)"
+            f"flash CUDA kernels take head_dim {tuple(TILES)}, got "
+            f"{q.shape[-1]} (192, DeepSeek's MLA, is on ROADMAP.md Queue 2)"
         )
     if q.dtype != torch.bfloat16:
         raise TypeError(f"flash CUDA kernels take bfloat16, got {q.dtype}")
@@ -256,7 +268,13 @@ def _mask_args(causal, offset, soft_cap, window):
     )
 
 
-def _launch(name, fn, *args):
+def _launch(base, head_dim, *args):
+    """Launch kernel ``base`` of the ``head_dim`` build on the current
+    stream; count it."""
+    from tpufw_torch.ops import _build
+
+    name = kernel_name(base, head_dim)
+    fn = getattr(_build.library(name), f"tpufw_{base}")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     rc = fn(*args, stream)
     if rc != 0:
@@ -275,17 +293,15 @@ def flash_fwd(
             q, k, v, causal=causal, offset=offset, soft_cap=soft_cap,
             window=window, qseg=qseg, kseg=kseg,
         )
-    from tpufw_torch.ops import _build
-
     _check_qkv(q, k, v)
     qseg, kseg = _seg_args(qseg, kseg)
-    b, t, h, _ = q.shape
+    b, t, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     offset = s - t if offset is None else offset
     o = torch.empty_like(q)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
     _launch(
-        "flash_fwd", _build.library("flash_fwd").tpufw_flash_fwd,
+        "flash_fwd", d,
         _ptr(q), _ptr(k), _ptr(v), _ptr(qseg), _ptr(kseg), _ptr(o),
         _ptr(lse), b, t, s, h, kh,
         *_mask_args(causal, offset, soft_cap, window),
@@ -311,15 +327,13 @@ def flash_dq(
             q, k, v, do, lse, delta, causal=causal, offset=offset,
             soft_cap=soft_cap, window=window, qseg=qseg, kseg=kseg,
         )
-    from tpufw_torch.ops import _build
-
     qseg, kseg = _bwd_inputs(q, k, v, do, lse, delta, qseg, kseg)
-    b, t, h, _ = q.shape
+    b, t, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     offset = s - t if offset is None else offset
     dq = torch.empty_like(q)
     _launch(
-        "flash_dq", _build.library("flash_dq").tpufw_flash_dq,
+        "flash_dq", d,
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
         _ptr(qseg), _ptr(kseg), _ptr(dq), b, t, s, h, kh,
         *_mask_args(causal, offset, soft_cap, window),
@@ -338,18 +352,17 @@ def flash_dkv(
             q, k, v, do, lse, delta, causal=causal, offset=offset,
             soft_cap=soft_cap, window=window, qseg=qseg, kseg=kseg,
         )
-    from tpufw_torch.ops import _build
-
     qseg, kseg = _bwd_inputs(q, k, v, do, lse, delta, qseg, kseg)
     b, t, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     offset = s - t if offset is None else offset
-    # The kernel stores whole 128-key tiles: pad S, slice after.
-    s_pad = -(-s // DKV_BLOCK_KV) * DKV_BLOCK_KV
+    # The kernel stores whole key tiles: pad S, slice after.
+    bkv = TILES[d]["dkv"][1]
+    s_pad = -(-s // bkv) * bkv
     dk = torch.empty(b, h, s_pad, d, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     _launch(
-        "flash_dkv", _build.library("flash_dkv").tpufw_flash_dkv,
+        "flash_dkv", d,
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
         _ptr(qseg), _ptr(kseg), _ptr(dk), _ptr(dv), b, t, s, h, kh,
         *_mask_args(causal, offset, soft_cap, window),

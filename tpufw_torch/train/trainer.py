@@ -17,6 +17,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from tpufw_torch.models.gemma import model_for_config
 from tpufw_torch.models.llama import Llama, LlamaConfig
 from tpufw_torch.ops.loss import chunked_cross_entropy, token_cross_entropy
 from tpufw_torch.train.metrics import Meter, StepMetrics, timed_batches
@@ -65,7 +66,8 @@ def batch_loss(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """LM objective for one batch of device tensors: (loss, n_targets).
     ``loss_chunk_size`` switches to the chunked-vocab CE, which never
-    materializes [B, T, V] logits."""
+    materializes [B, T, V] logits; the model then skips its head, and the
+    config's ``final_logit_soft_cap`` (Gemma) is applied per chunk."""
     inputs, targets, seg_in, mask = shift_and_mask(batch)
     if loss_chunk_size:
         hidden = model(inputs, segment_ids=seg_in, return_hidden=True)
@@ -73,6 +75,7 @@ def batch_loss(
             hidden, model.head_kernel(), targets, mask,
             chunk_size=loss_chunk_size,
             compute_dtype=getattr(torch, loss_chunk_dtype),
+            logits_soft_cap=getattr(model.cfg, "final_logit_soft_cap", None),
         )
     return cross_entropy_loss(model(inputs, segment_ids=seg_in), targets, mask)
 
@@ -233,8 +236,10 @@ class Trainer:
     def init_state(self, seed: int = 0, state_dict=None) -> Llama:
         """Random weights from ``seed``, or ``state_dict`` when given
         (e.g. ``tpufw_torch.interop.params_from_flax``); fresh optimizer
-        state at step 0."""
-        self.model = Llama(self.model_cfg, device=self.device, seed=seed)
+        state at step 0. A ``GemmaConfig`` builds a ``Gemma``."""
+        self.model = model_for_config(
+            self.model_cfg, device=self.device, seed=seed
+        )
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.optimizer = default_optimizer(

@@ -13,15 +13,16 @@
   a slot pool, contiguous or, with ``TPUFW_SERVE_PAGE`` > 0, paged with
   prefix sharing and optional int8 KV (``TPUFW_SERVE_KV_QUANT=int8``).
 
-Knobs, as in the JAX workload: ``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``
-preset or ``llama3_600m_bench``, the default), ``TPUFW_MAX_SEQ_LEN``,
+Knobs, as in the JAX workload: ``TPUFW_MODEL`` (a ``LLAMA_CONFIGS`` or
+``GEMMA_CONFIGS`` preset, e.g. ``gemma2_9b``, or ``llama3_600m_bench``, the
+default), ``TPUFW_MAX_SEQ_LEN``,
 ``TPUFW_SEED``, ``TPUFW_MAX_NEW_TOKENS`` (16), ``TPUFW_QUANTIZE=int8``,
 ``TPUFW_DECODE_DTYPE`` (e.g. ``bfloat16``), ``TPUFW_PREFILL_CHUNK``,
 ``TPUFW_EOS_ID``, the sampling knobs ``TPUFW_TEMPERATURE``,
 ``TPUFW_TOP_K``, ``TPUFW_TOP_P``, ``TPUFW_MIN_P`` and
 ``TPUFW_REPETITION_PENALTY``, ``TPUFW_TOKENIZER`` (``bytes``), and
 ``TPUFW_DEVICE`` (default ``cuda``); speculative decoding with a draft
-model, ``TPUFW_DRAFT_MODEL`` (a ``LLAMA_CONFIGS`` preset, weights drawn
+model, ``TPUFW_DRAFT_MODEL`` (a preset of either family, weights drawn
 from ``TPUFW_SEED`` + 1) and ``TPUFW_DRAFT_K`` (4), in batch mode and as
 the server's draft pool; for the server ``TPUFW_SERVE_SLOTS``
 (8), ``TPUFW_SERVE_CHUNK`` (default ``TPUFW_STREAM_CHUNK``, 16),
@@ -78,7 +79,8 @@ def build_generator():
     The weights are random, drawn from ``TPUFW_SEED`` on ``TPUFW_DEVICE``;
     ``restored`` is always False until checkpoints are ported."""
     from tpufw_torch.configs import BENCH_CONFIG_NAME, bench_model_config
-    from tpufw_torch.models import LLAMA_CONFIGS, Llama
+    from tpufw_torch.models import GEMMA_CONFIGS, LLAMA_CONFIGS
+    from tpufw_torch.models import model_for_config
 
     for knob in ("hf_checkpoint", "params_checkpoint", "checkpoint_dir"):
         if env_str(knob, ""):
@@ -88,15 +90,17 @@ def build_generator():
         model_cfg = bench_model_config()
     elif name in LLAMA_CONFIGS:
         model_cfg = LLAMA_CONFIGS[name]
+    elif name in GEMMA_CONFIGS:
+        model_cfg = GEMMA_CONFIGS[name]
     else:
         raise ValueError(
             f"unknown TPUFW_MODEL={name!r}; choose from "
-            f"{[BENCH_CONFIG_NAME, *LLAMA_CONFIGS]}"
+            f"{[BENCH_CONFIG_NAME, *LLAMA_CONFIGS, *GEMMA_CONFIGS]}"
         )
     model_cfg = dataclasses.replace(
         model_cfg, max_seq_len=env_int("max_seq_len", model_cfg.max_seq_len)
     )
-    model = Llama(
+    model = model_for_config(
         model_cfg.decode_config(), device=env_str("device", "cuda"),
         seed=env_int("seed", 0),
     )
@@ -105,14 +109,14 @@ def build_generator():
 
 
 def quantize_model(model):
-    """The int8 twin of ``model`` (``quantized_weights=True``) on the same
-    device, its weights from ``ops.quant.quantize_params``."""
-    from tpufw_torch.models import Llama
+    """The int8 twin of ``model`` (``quantized_weights=True``, the same
+    family) on the same device, its weights from
+    ``ops.quant.quantize_params``."""
     from tpufw_torch.ops.quant import quantize_params
 
     qcfg = dataclasses.replace(model.cfg, quantized_weights=True)
     state = quantize_params(model.state_dict())
-    qmodel = Llama(qcfg, device=model.device)
+    qmodel = type(model)(qcfg, device=model.device)
     qmodel.load_state_dict(state)
     return qmodel
 
@@ -268,25 +272,28 @@ def generate_batch(model, prompts, max_new_tokens, sampling, eos):
 
 def build_draft_model(name: str, device, seed: int,
                       max_seq_len: Optional[int] = None):
-    """A decode model of the ``LLAMA_CONFIGS`` preset ``name``, weights
+    """A decode model of the ``LLAMA_CONFIGS`` or ``GEMMA_CONFIGS`` preset
+    ``name``, weights
     drawn at random from ``seed`` on ``device``: the draft of speculative
     decoding. Its ``max_seq_len`` (the longest cache it takes) is
     ``max_seq_len`` if given, else ``TPUFW_MAX_SEQ_LEN`` or the preset's.
     Random draft weights only wire the path up: their proposals rarely
     match, and the outputs stay the target's all the same."""
-    from tpufw_torch.models import LLAMA_CONFIGS, Llama
+    from tpufw_torch.models import GEMMA_CONFIGS, LLAMA_CONFIGS
+    from tpufw_torch.models import model_for_config
 
     if env_str("draft_params_checkpoint", ""):
         _refuse("draft_params_checkpoint", "loading draft weights", "6")
-    if name not in LLAMA_CONFIGS:
+    presets = {**LLAMA_CONFIGS, **GEMMA_CONFIGS}
+    if name not in presets:
         raise ValueError(
-            f"unknown draft model {name!r}; choose from {[*LLAMA_CONFIGS]}"
+            f"unknown draft model {name!r}; choose from {[*presets]}"
         )
-    base = LLAMA_CONFIGS[name]
+    base = presets[name]
     if max_seq_len is None:
         max_seq_len = env_int("max_seq_len", base.max_seq_len)
     cfg = dataclasses.replace(base, max_seq_len=max_seq_len)
-    return Llama(cfg.decode_config(), device=device, seed=seed)
+    return model_for_config(cfg.decode_config(), device=device, seed=seed)
 
 
 def build_draft_generator(max_seq_len: Optional[int] = None):
