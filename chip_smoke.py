@@ -7,11 +7,12 @@ Phases, each fatal on failure:
 
 1. builds the flash-attention CUDA kernels from ``tpufw_torch/ops/csrc``
    (nvcc, sm_90a) into ``build-torch/``, at head dim 128 and, from the
-   ``*_d256.cu`` sources, 256; prints the card's name and power limit, and
-   reads the build: each kernel's registers and spills from ``-Xptxas -v``
-   and each library's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-   instructions from ``cuobjdump -sass``. Every kernel (fwd, dq, dk/dv at
-   both head dims) must use both and spill nothing;
+   ``*_d192.cu`` and ``*_d256.cu`` sources, 192 and 256; prints the card's
+   name and power limit, and reads the build: each kernel's registers and
+   spills from ``-Xptxas -v`` and each library's ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions from ``cuobjdump -sass``. Every
+   kernel (fwd, dq, dk/dv at the three head dims) must use both and spill
+   nothing;
 2. holds each kernel (fwd, dq, dk/dv) against its plain PyTorch version,
    run in fp32 on the same bf16 inputs, at the train path's shapes
    (B=2, T=S=2047, 32/8 heads of 128, causal), on a small case with
@@ -21,14 +22,18 @@ Phases, each fatal on failure:
    129, segment boundaries inside tiles. The head-dim-256 kernels
    likewise, at the Gemma-2-9B train path's shapes (B=1, T=S=8191, 16/8
    heads, causal, soft cap 50), global and with window 4096, on the small
-   masks case and on T=S=129 and 64;
+   masks case and on T=S=129 and 64. The head-dim-192 kernels at the
+   DeepSeek MLA train path's shapes (B=8, T=S=2047, 16/16 heads, causal),
+   with V's last 64 columns zero as the model pads it and with V random,
+   on the small masks case and on T=S=129 and 64;
 3. times each kernel, its plain version and the library yardstick
    (``F.scaled_dot_product_attention``, which the port never calls) with
    CUDA events, beside the roofline bound computed from the shapes, and
    the whole backward (delta, dq, dk/dv and the two GQA sums) against
    SDPA's one backward call; at head dim 128 at the Llama path's shapes,
    at 256 at the Gemma path's, global and windowed (SDPA then takes a
-   boolean mask; it has no soft cap);
+   boolean mask; it has no soft cap), at 192 at the MLA path's (SDPA also
+   with V at its own 128 columns, and the SDPA backend that ran);
 4. trains 5 steps of Llama-3-8B widths cut to 4 layers (B=2, seq 2048,
    chunked CE, remat, flash attention) through ``Trainer.run`` with the
    launch counters zeroed just before, and checks that every loss is
@@ -38,7 +43,10 @@ Phases, each fatal on failure:
    8192, chunked CE with the final cap 30, flash at head dim 256, its own
    counters): every head-dim-256 kernel launched, flash vs plain logits
    on 4,160 tokens (past the 4096 window); a ``gemma_train_summary``
-   line;
+   line. 4c. The same for ``deepseek_mla_bench`` at all 10 layers (B=8,
+   seq 2048, chunked CE, flash at head dim 192 with V zero-padded, its own
+   counters): every head-dim-192 kernel launched, flash vs plain logits on
+   256 tokens; an ``mla_train_summary`` line;
 5. frees the trainer and serves Llama-3-8B at full width and all 32 layers
    (``llama3_8b_serve_slice``: 4 prompts of 7, 64, 200 and 511 tokens, 32
    greedy tokens each, a 2048-slot KV cache) through ``run_batch``'s
@@ -58,7 +66,12 @@ Phases, each fatal on failure:
    the plain run. The serve path runs plain PyTorch attention: no flash
    kernel may launch there. 5b. The same checks for Gemma-2-9B at full
    width and all 42 layers (``gemma2_9b_serve_slice``, weights drawn in
-   bf16), bf16 then int8, a ``gemma_serve_summary`` line per dtype;
+   bf16), bf16 then int8, a ``gemma_serve_summary`` line per dtype. 5c.
+   The same checks for ``deepseek_mla_bench`` at all 10 layers
+   (``deepseek_mla_serve_slice``: 8 prompts of 128 ids, 128 greedy tokens,
+   a 256-slot latent cache) through the absorbed latent-cache decode, the
+   cached logits against an uncached expanded forward; an
+   ``mla_serve_summary`` line per dtype;
 6. serves the same Llama-3-8B weights (bf16, all 32 layers, a 2048-slot
    ceiling) online through the HTTP server (``_Server``: slot scheduler,
    8 slots, greedy) on a localhost port, in three modes: contiguous KV,
@@ -90,7 +103,7 @@ Phases, each fatal on failure:
    and peak pages, and the new modes their chunks, passes, ms per pass,
    accept rate and fallback slots.
 
-It ends with a ``{"kernels": [...]}`` line (six kernels: three per head
+It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or outside a checkout of the repo, it
 prints no result and exits nonzero.
@@ -131,6 +144,8 @@ N_LAYERS = 4
 STEPS = 5
 # Gemma-2-9B train slice depth: 2 (local, global) pairs of its 42 layers.
 GEMMA_TRAIN_LAYERS = 4
+# deepseek_mla_bench trains at its full depth.
+MLA_TRAIN_LAYERS = 10
 # Serve slice, each relative to the reference logits' largest magnitude:
 # cached vs uncached logits of one bf16 or int8 model; and
 # tests/test_quant.py's rule, int8 vs the weights it was quantized from,
@@ -197,6 +212,31 @@ D256_CASES = {
     "d256_t129_s129": (1, 129, 129, 4, 2, 1.0, {"causal": True}, None),
     "d256_t64_s64": (1, 64, 64, 4, 2, 1.0, {"causal": True}, None),
 }
+# Head dim 192 (DeepSeek MLA, deepseek_mla_bench): the train path's
+# attention shapes (B=8, seq 2048, so T = S = 2047; 16 query and 16 kv
+# heads of 128 nope + 64 rope dims), causal, V zero-padded from 128 to 192
+# columns by the model ("pad_v": the zero columns). Kernel checks: the
+# path's shapes as the model gives them and with a random V (the kernels'
+# own contract), the small masks case and the tile edges of the 128 x 64
+# (forward, dQ) and 64 x 64 (dK/dV) tiles. Same layout as D256_CASES.
+MLA_B, MLA_T, MLA_V = 8, 2047, 128
+D192_CASES = {
+    "d192_path_shapes_causal_zero_padded_v": (
+        MLA_B, MLA_T, MLA_T, 16, 16, 1.0, {"causal": True, "pad_v": 64},
+        None),
+    "d192_path_shapes_causal": (
+        MLA_B, MLA_T, MLA_T, 16, 16, 1.0, {"causal": True}, None),
+    "d192_segments_offset_window300_cap50": (
+        1, 300, 700, 4, 2, 4.0,
+        {"causal": True, "window": 300, "soft_cap": 50.0}, (250, 300, 150)),
+    "d192_t129_s129": (1, 129, 129, 4, 2, 1.0, {"causal": True}, None),
+    "d192_t64_s64": (1, 64, 64, 4, 2, 1.0, {"causal": True}, None),
+}
+# Model families of the train and serve phases: (preset, the prefix of
+# their summary lines).
+FAMILIES = {"llama3_8b": ("llama3_8b", ""),
+            "gemma2_9b": ("gemma2_9b", "gemma_"),
+            "deepseek_mla": ("deepseek_mla_bench", "mla_")}
 
 
 def emit(obj) -> None:
@@ -269,11 +309,14 @@ def kernel_errors(torch, got, want) -> dict:
 
 
 # Kernels redesigned for Hopper: each must issue wgmma and TMA loads and
-# spill nothing. name: (library, kernel symbol substring). The head-dim-256
-# libraries build the same kernels from the same sources.
+# spill nothing. name: (library, kernel symbol substring). The head-dim-192
+# and 256 libraries build the same kernels from the same sources.
 HOPPER_KERNELS = {"flash_fwd": ("flash_fwd", "flash_fwd_kernel"),
                   "flash_dq": ("flash_dq", "flash_dq_kernel"),
                   "flash_dkv": ("flash_dkv", "flash_dkv_kernel"),
+                  "flash_fwd_d192": ("flash_fwd_d192", "flash_fwd"),
+                  "flash_dq_d192": ("flash_dq_d192", "flash_dq"),
+                  "flash_dkv_d192": ("flash_dkv_d192", "flash_dkv"),
                   "flash_fwd_d256": ("flash_fwd_d256", "flash_fwd"),
                   "flash_dq_d256": ("flash_dq_d256", "flash_dq"),
                   "flash_dkv_d256": ("flash_dkv_d256", "flash_dkv")}
@@ -477,25 +520,61 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta, masks=None,
     return res
 
 
+def head_dim_of(cfg) -> int:
+    """The head dim the flash kernels see: MLA's qk_head_dim (V is padded
+    to it), else ``head_dim``."""
+    return getattr(cfg, "qk_head_dim", None) or cfg.head_dim
+
+
+def sdpa_unequal_v(torch, q, k, v_pad, v_head_dim) -> dict:
+    """SDPA (causal) on MLA's own shapes: q and k at the qk head dim, V at
+    its ``v_head_dim`` columns (no padding); forward and backward
+    milliseconds and the SDPA backend that PyTorch picks for them, beside
+    the backend it picks for the zero-padded V of ``time_kernels``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    qh, kh_ = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k))
+    vh = v_pad[..., :v_head_dim].transpose(1, 2).contiguous().requires_grad_()
+    doh = torch.randn_like(vh)
+
+    def backend(v):
+        return SDPBackend(torch._fused_sdp_choice(
+            qh, kh_, v, None, 0.0, True, scale=None, enable_gqa=False)).name
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh_, vh, is_causal=True)
+
+    fwd_ms = cuda_ms(torch, fwd, 20)
+    out = F.scaled_dot_product_attention(qh, kh_, vh, is_causal=True)
+    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qh, kh_, vh), doh, retain_graph=True), 20)
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "v_head_dim": v_head_dim,
+            "backend": backend(vh),
+            "backend_padded_v": backend(v_pad.transpose(1, 2))}
+
+
 def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
-    """Phase 4 (``family`` "llama3_8b") or 4b ("gemma2_9b"): the family's
-    train slice (``configs.<family>_train_slice``) at ``n_layers`` for
-    STEPS steps through ``Trainer.run``, launch counters zeroed just
-    before. Holds every loss finite and every flash kernel of the model's
-    head dim launched, then the trained model's flash logits against its
+    """Phase 4 (``family`` "llama3_8b"), 4b ("gemma2_9b") or 4c
+    ("deepseek_mla"): the family's train slice
+    (``configs.<family>_train_slice``) at ``n_layers`` for STEPS steps
+    through ``Trainer.run``, launch counters zeroed just before. Holds
+    every loss finite and every flash kernel of the model's head dim
+    launched, then the trained model's flash logits against its
     plain-attention logits on an input one window plus 64 tokens long
     (256 without a window). Returns the launch counts of the run; raises
     AssertionError on a failed check."""
     from tpufw_torch import configs
-    from tpufw_torch.models import GEMMA_CONFIGS, LLAMA_CONFIGS
-    from tpufw_torch.models import model_for_config
+    from tpufw_torch.models import PRESETS, model_for_config
     from tpufw_torch.ops import flash
     from tpufw_torch.train import Trainer, synthetic_batches
 
     cfg, tcfg = getattr(configs, f"{family}_train_slice")(
         n_layers, total_steps=STEPS)
-    full = {**LLAMA_CONFIGS, **GEMMA_CONFIGS}[family].n_layers
-    prefix = "" if family == "llama3_8b" else "gemma_"
+    preset, prefix = FAMILIES[family]
+    full = PRESETS[preset].n_layers
+    window = getattr(cfg, "sliding_window", None)
     trainer = Trainer(cfg, tcfg, device="cuda")
     trainer.init_state(seed=0)
     torch.cuda.synchronize()
@@ -503,11 +582,11 @@ def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
     emit({"train": f"{family} widths", "reduced": {"n_layers": [full, n_layers]},
           "params": cfg.n_params(), "batch_size": tcfg.batch_size,
           "seq_len": tcfg.seq_len, "loss_chunk_size": tcfg.loss_chunk_size,
-          "head_dim": cfg.head_dim, "remat": cfg.remat,
+          "head_dim": head_dim_of(cfg), "remat": cfg.remat,
           "attention_backend": cfg.attention_backend,
           "attn_logit_soft_cap": getattr(cfg, "attn_logit_soft_cap", None),
           "final_logit_soft_cap": getattr(cfg, "final_logit_soft_cap", None),
-          "sliding_window": cfg.sliding_window})
+          "sliding_window": window})
     flash.reset_launch_counts()
     history = trainer.run(
         synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size, seed=0),
@@ -526,6 +605,8 @@ def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
         "mfu_median": statistics.median(m.mfu for m in steady),
         "step_time_s_median": statistics.median(
             m.step_time_s for m in steady),
+        "step_ms_median": 1e3 * statistics.median(
+            m.step_time_s for m in steady),
         "peak_mem_gb": peak_gb,
         "launches": launches,
         "model": family, "n_layers": n_layers, "seq_len": tcfg.seq_len,
@@ -536,7 +617,7 @@ def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
         raise AssertionError(f"{family}: trained {len(history)} of {STEPS} steps")
     if not all(math.isfinite(m.loss) for m in history):
         raise AssertionError(f"{family}: non-finite loss")
-    path = [flash.kernel_name(k, cfg.head_dim) for k in flash.KERNELS]
+    path = [flash.kernel_name(k, head_dim_of(cfg)) for k in flash.KERNELS]
     if not all(launches[k] > 0 for k in path):
         raise AssertionError(
             f"{family}: a kernel was not launched on the train path: {launches}")
@@ -548,7 +629,7 @@ def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
     plain_model = model_for_config(
         dataclasses.replace(cfg, attention_backend="xla"), device="cuda")
     plain_model.load_state_dict(trainer.model.state_dict())
-    n = 256 if cfg.sliding_window is None else cfg.sliding_window + 64
+    n = 256 if window is None else window + 64
     tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
                            device="cuda")
     with torch.no_grad():
@@ -588,10 +669,19 @@ def fp32_twin_logits(torch, model, tok, pos, seg):
         return twin(tok, pos, seg)
 
 
+def kv_values_per_token(cfg) -> int:
+    """Cache values one token holds in one layer: MLA's latent and roped
+    key (kv_lora_rank + qk_rope_head_dim), else K and V of every kv head."""
+    if hasattr(cfg, "kv_lora_rank"):
+        return cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    return 2 * cfg.n_kv_heads * cfg.head_dim
+
+
 def serve_phase(torch, chip, kind, smi, family="llama3_8b") -> None:
-    """Phase 5 (``family`` "llama3_8b") or 5b ("gemma2_9b"): the serve
-    slice in bf16, then int8; raises AssertionError on a failed check.
-    Llama's bf16 run is followed by the speculative run."""
+    """Phase 5 (``family`` "llama3_8b"), 5b ("gemma2_9b") or 5c
+    ("deepseek_mla", the absorbed latent-cache decode): the serve slice in
+    bf16, then int8; raises AssertionError on a failed check. Llama's bf16
+    run is followed by the speculative run."""
     from tpufw_torch import configs
     from tpufw_torch.infer import SamplingConfig, generate, pad_prompts
     from tpufw_torch.infer import prefill_cache
@@ -600,8 +690,7 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b") -> None:
     from tpufw_torch.workloads import serve
 
     cfg, prompts, max_new = getattr(configs, f"{family}_serve_slice")()
-    summary_key = ("serve_summary" if family == "llama3_8b"
-                   else "gemma_serve_summary")
+    summary_key = FAMILIES[family][1] + "serve_summary"
     lens = [len(p) for p in prompts]
     emit({"serve": family, "n_layers": cfg.n_layers,
           "params": cfg.n_params(), "param_dtype": "bfloat16",
@@ -620,7 +709,7 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b") -> None:
     # KV slots the decode steps must read, averaged over the steps: step j
     # attends the prompt plus j tokens.
     kv_tokens = sum(n + max_new / 2 for n in lens)
-    kv_bytes = (kv_tokens * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim
+    kv_bytes = (kv_tokens * cfg.n_layers * kv_values_per_token(cfg)
                 * torch.tensor([], dtype=cfg.dtype).element_size())
     model = model_for_config(cfg, device=dev, seed=0)
     for weights in ("bf16", "int8"):
@@ -1411,8 +1500,36 @@ def main() -> int:
         del qd, dod, kd, vd, lse_d, delta_d
         torch.cuda.empty_cache()
 
+    # 2c. The head-dim-192 kernels (DeepSeek MLA) at the MLA train path's
+    # shapes, V zero-padded as the model gives it and random, and at their
+    # tile edges.
+    d192_inputs = {}
+    for case, (bs, ts, ss, hs, khs, scale, masks, seg_lens) in D192_CASES.items():
+        masks = dict(masks)
+        pad_v = masks.pop("pad_v", 0)
+        if seg_lens is not None:
+            kseg = torch.cat([torch.full((n,), i + 1, dtype=torch.int32)
+                              for i, n in enumerate(seg_lens)])
+            kseg = kseg.to(dev)[None].expand(bs, ss).contiguous()
+            masks |= {"qseg": kseg[:, ss - ts:].contiguous(), "kseg": kseg}
+        qd, dod = randn(bs, ts, hs, 192, scale=scale), randn(bs, ts, hs, 192)
+        kd, vd = randn(bs, ss, khs, 192, scale=scale), randn(bs, ss, khs, 192)
+        if pad_v:
+            vd[..., 192 - pad_v:] = 0
+        e, lse_d, delta_d = check_kernels(torch, flash, case, qd, kd, vd, dod,
+                                          masks)
+        if ts == MLA_T:
+            for name, x in e.items():
+                errs[name] = max(errs.get(name, 0.0), x)
+            if pad_v:
+                d192_inputs = dict(q=qd, k=kd, v=vd, do=dod, lse=lse_d,
+                                   delta=delta_d)
+        del qd, dod, kd, vd, lse_d, delta_d
+        torch.cuda.empty_cache()
+
     # 3. Timings at the paths' shapes: head dim 128 at the Llama train
-    # slice's, head dim 256 at the Gemma-2 one's, global and windowed.
+    # slice's, head dim 256 at the Gemma-2 one's, global and windowed, and
+    # head dim 192 at the MLA one's.
     timings = time_kernels(torch, flash, chip, q, k, v, do, lse, delta)
     del q, k, v, do, lse, delta
     torch.cuda.empty_cache()
@@ -1429,24 +1546,39 @@ def main() -> int:
                      "window": GEMMA_WINDOW}, label="_window4096")
     del x, d256_inputs
     torch.cuda.empty_cache()
+    # Head dim 192 at the MLA path's shapes, with the model's zero-padded V.
+    x = d192_inputs
+    timings |= time_kernels(torch, flash, chip, x["q"], x["k"], x["v"], x["do"],
+                            x["lse"], x["delta"])
+    sdpa_v128 = sdpa_unequal_v(torch, x["q"], x["k"], x["v"], MLA_V)
+    emit({"timing": "sdpa_mla_unpadded_v", "shape": list(x["q"].shape)}
+         | sdpa_v128)
+    del x, d192_inputs
+    torch.cuda.empty_cache()
 
     # 4. The train slice, counters zeroed just before; 4b. the Gemma-2-9B
-    # one, its own counters zeroed just before it.
+    # one and 4c. the DeepSeek MLA one (all 10 layers), each with its own
+    # counters zeroed just before it.
     try:
         launches = train_phase(torch, "llama3_8b", N_LAYERS, gen, kind, smi)
         torch.cuda.empty_cache()
         launches |= train_phase(torch, "gemma2_9b", GEMMA_TRAIN_LAYERS, gen,
+                                kind, smi)
+        torch.cuda.empty_cache()
+        launches |= train_phase(torch, "deepseek_mla", MLA_TRAIN_LAYERS, gen,
                                 kind, smi)
     except AssertionError as e:
         return fail(str(e))
     torch.cuda.empty_cache()
 
     # 5. The serve slice, with the train phases' memory freed; 5b. the
-    # Gemma-2-9B serve slice.
+    # Gemma-2-9B serve slice; 5c. the DeepSeek MLA one (latent cache).
     try:
         serve_phase(torch, chip, kind, smi)
         torch.cuda.empty_cache()
         serve_phase(torch, chip, kind, smi, family="gemma2_9b")
+        torch.cuda.empty_cache()
+        serve_phase(torch, chip, kind, smi, family="deepseek_mla")
     except AssertionError as e:
         return fail(str(e))
 
@@ -1461,6 +1593,12 @@ def main() -> int:
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
         "flash_dkv": ("tpufw_torch/ops/csrc/flash_dkv.cu", "tpufw/ops/flash.py:590"),
+        "flash_fwd_d192": ("tpufw_torch/ops/csrc/flash_fwd_d192.cu",
+                           "tpufw/ops/flash.py:462"),
+        "flash_dq_d192": ("tpufw_torch/ops/csrc/flash_dq_d192.cu",
+                          "tpufw/ops/flash.py:544"),
+        "flash_dkv_d192": ("tpufw_torch/ops/csrc/flash_dkv_d192.cu",
+                           "tpufw/ops/flash.py:590"),
         "flash_fwd_d256": ("tpufw_torch/ops/csrc/flash_fwd_d256.cu",
                            "tpufw/ops/flash.py:462"),
         "flash_dq_d256": ("tpufw_torch/ops/csrc/flash_dq_d256.cu",
@@ -1478,6 +1616,10 @@ def main() -> int:
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         })
+        if name.endswith("_d192"):
+            # SDPA on MLA's own V (128 columns, no padding).
+            kernels[-1]["library_ms_unpadded_v"] = sdpa_v128[
+                "fwd_ms" if name == "flash_fwd_d192" else "bwd_ms"]
         if name in windowed:
             # The Gemma path runs half its layers windowed: their numbers.
             kernels[-1]["window4096"] = {

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of one ``tpufw_torch`` train step goes, on one GPU.
 
-    python3 scripts/profile_torch_train.py [--model llama3_8b] [--layers 4]
+    python3 scripts/profile_torch_train.py [--model llama3_8b] [--layers N]
         [--steps 3] [--trace PATH]
 
 Trains a chip_smoke.py train slice (``--model llama3_8b``:
 ``llama3_8b_train_slice`` in ``tpufw_torch/configs/presets.py``;
 ``--model gemma2_9b``: ``gemma2_9b_train_slice``, whose flash kernels are
-the head-dim-256 builds; depth ``--layers``), runs two warm-up
+the head-dim-256 builds; ``--model deepseek_mla_bench``:
+``deepseek_mla_train_slice``, the head-dim-192 builds; depth ``--layers``,
+by default the slice's own: 4, 4 and all 10), runs two warm-up
 steps, then traces ``--steps`` steps with ``torch.profiler`` and prints one
 JSON line: wall time per step, device busy time per step (the union of the
 trace's kernel, memcpy and memset intervals), the device's idle share,
@@ -91,13 +93,18 @@ def trace_breakdown(prof, steps: int, wall_s: float, trace=None) -> dict:
     }
 
 
+# --model: the presets module's train slice of that model.
+SLICES = {"llama3_8b": "llama3_8b_train_slice",
+          "gemma2_9b": "gemma2_9b_train_slice",
+          "deepseek_mla_bench": "deepseek_mla_train_slice"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None)
-    ap.add_argument("--model", default="llama3_8b",
-                    choices=("llama3_8b", "gemma2_9b"))
+    ap.add_argument("--model", default="llama3_8b", choices=tuple(SLICES))
     args = ap.parse_args()
 
     import torch
@@ -109,8 +116,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
         return 1
-    cfg, tcfg = getattr(configs, f"{args.model}_train_slice")(
-        args.layers, total_steps=2 + args.steps)
+    depth = {} if args.layers is None else {"n_layers": args.layers}
+    cfg, tcfg = getattr(configs, SLICES[args.model])(
+        total_steps=2 + args.steps, **depth)
     trainer = Trainer(cfg, tcfg, device="cuda")
     trainer.init_state(seed=0)
     data = synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size,
@@ -126,7 +134,7 @@ def main() -> int:
         wall = (time.perf_counter() - t0) / args.steps
     out = trace_breakdown(prof, args.steps, wall, args.trace)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "model": args.model, "layers": args.layers,
+                      "model": args.model, "layers": cfg.n_layers,
                       "steps_traced": args.steps}
                      | out), flush=True)
     return 0 if out["idle_share"] >= 0.0 else 1

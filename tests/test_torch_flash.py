@@ -33,6 +33,13 @@ CASES = {
     # window under T, and packed segments.
     "d256_cap50_window100": (1, 256, 256, 2, 1, 256, True, False, 50.0, 100, 3.0),
     "d256_segments": (1, 128, 128, 2, 1, 256, True, True, None, None, 1.0),
+    # DeepSeek's MLA head dim (128 nope + 64 rope), also built for the CUDA
+    # kernels: causal with V's last 64 columns zero (as the model pads it),
+    # and segments with a cap and a window.
+    "d192_causal_zero_padded_v": (1, 128, 128, 4, 4, 192, True, False, None,
+                                  None, 1.0),
+    "d192_segments_cap_window": (1, 128, 128, 2, 1, 192, True, True, 20.0, 50,
+                                 3.0),
 }
 
 
@@ -51,6 +58,8 @@ def test_flash_fwd_and_grads_match_jax_interpret(name):
     q = rng.standard_normal((b, t, h, d), np.float32) * scale
     k = rng.standard_normal((b, s, kh, d), np.float32) * scale
     v = rng.standard_normal((b, s, kh, d), np.float32)
+    if name.endswith("zero_padded_v"):
+        v[..., 128:] = 0.0  # MLA's V (128 columns) padded to the qk dim
     g = rng.standard_normal((b, t, h, d), np.float32)
     seg = _segments(b, t) if segs else None
     kw = dict(causal=causal, logits_soft_cap=cap, sliding_window=window)
@@ -102,16 +111,17 @@ def test_cpu_tensors_take_the_plain_versions():
     tflash.flash_attention(q, k, v).sum().backward()
     assert tflash.LAUNCHES == {
         "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+        "flash_fwd_d192": 0, "flash_dq_d192": 0, "flash_dkv_d192": 0,
         "flash_fwd_d256": 0, "flash_dq_d256": 0, "flash_dkv_d256": 0,
     }
 
 
-@pytest.mark.parametrize("head_dim", [192, 64])
+@pytest.mark.parametrize("head_dim", [96, 64])
 def test_unported_head_dims_raise_off_the_cpu(head_dim):
     """A tensor off the CPU at a head dim the CUDA kernels are not built
-    for (192 is DeepSeek's MLA) raises NotImplementedError naming the
-    ROADMAP before any build or launch: there is no route to the plain
-    version. Meta tensors stand in for CUDA ones here."""
+    for raises NotImplementedError naming the ROADMAP (the tile override)
+    before any build or launch: there is no route to the plain version.
+    Meta tensors stand in for CUDA ones here."""
     tflash.reset_launch_counts()
     q = torch.empty(1, 128, 2, head_dim, dtype=torch.bfloat16, device="meta")
     k = torch.empty(1, 128, 1, head_dim, dtype=torch.bfloat16, device="meta")
@@ -123,6 +133,21 @@ def test_unported_head_dims_raise_off_the_cpu(head_dim):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(q, k, k, do, lse, lse)
     assert not any(tflash.LAUNCHES.values())
+
+
+def test_head_dim_192_off_the_cpu_goes_to_its_kernel():
+    """Head dim 192 (MLA) passes the head-dim check and reaches the
+    kernels' own argument checks (a meta tensor is refused as not on
+    CUDA), not a plain version, in each of the three wrappers."""
+    q = torch.empty(1, 128, 16, 192, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(1, 128, 16, 192, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="is on meta"):
+        tflash.flash_fwd(q, k, k)
+    lse = torch.empty(1, 16, 128, device="meta")
+    for fn in (tflash.flash_dq, tflash.flash_dkv):
+        with pytest.raises(ValueError, match="is on meta"):
+            fn(q, k, k, torch.empty_like(q), lse, lse)
+    assert tflash.kernel_name("flash_dkv", 192) == "flash_dkv_d192"
 
 
 def test_head_dim_256_off_the_cpu_goes_to_its_kernel():

@@ -9,7 +9,8 @@ visible pair the key's tile must lie in its query tile's range, and the
 query's tile in its key tile's range. Masks come from
 the plain versions' ``_mask``; segments only remove pairs, so they are left
 out. Each case is checked at the tiles of every head dim the kernels are
-built for (``tflash.TILES``: 128, and 256 for Gemma-2).
+built for (``tflash.TILES``: 128, 192 for DeepSeek's MLA and 256 for
+Gemma-2).
 """
 
 import pytest
@@ -126,3 +127,38 @@ def test_head_dim_256_loops_skip_the_window():
         qtiles = visible.reshape(128, 64, 128, 64).any(3).any(1)  # [q64, kv64]
         for j, (lo, hi) in enumerate(dkv):
             assert bool(qtiles[lo:hi, j].all()), f"window {window}: kv tile {j}"
+
+
+@pytest.mark.parametrize("window", [None, 300])
+def test_head_dim_192_bounds_equal_tpufw(window):
+    """At head dim 192's tiles (128 x 64 forward and dQ, 64 x 64 dK/dV) and
+    the MLA train path's length (T = S = 2047), the loop bounds are the
+    JAX kernels' at those tiles: the forward's start is
+    ``tpufw.ops.flash._first_kv_block`` and its end the causal
+    ``div((i + 1) * bq + offset + bkv - 1, bkv)`` capped at the kv tiles
+    (``_fwd_kernel``); dK/dV's are ``_dkv_kernel``'s causal first and
+    window last. Without a window they visit the causal triangle with its
+    diagonal: 272 forward tile pairs (16 x 32) and 528 dK/dV ones (32 x
+    32)."""
+    from tpufw.ops.flash import _first_kv_block
+
+    t = s = 2047
+    bq, bkv = tflash.TILES[192]["fwd"]
+    n_kv = -(-s // bkv)
+    fwd = [tflash.fwd_kv_tiles(i, t, s, 0, True, window, 192)
+           for i in range(-(-t // bq))]
+    for i, (lo, hi) in enumerate(fwd):
+        assert lo == int(_first_kv_block(i, bq, bkv, 0, window))
+        assert hi == min(((i + 1) * bq + bkv - 1) // bkv, n_kv)
+    dq, dk = tflash.TILES[192]["dkv"]
+    n_q = -(-t // dq)
+    dkv = [tflash.dkv_q_tiles(j, t, s, 0, True, window, 192)
+           for j in range(-(-s // dk))]
+    for j, (lo, hi) in enumerate(dkv):
+        assert lo == max((j * dk) // dq, 0)
+        want_hi = n_q if window is None else max(
+            min((j * dk + dk - 1 + window - 1) // dq + 1, n_q), lo)
+        assert hi == want_hi
+    if window is None:
+        assert sum(hi - lo for lo, hi in fwd) == 272
+        assert sum(hi - lo for lo, hi in dkv) == 528

@@ -65,6 +65,25 @@ CASES_D256 = {
                                dict(causal=True, segments=True)),
 }
 
+# Head dim 192 (the *_d192 builds, DeepSeek's MLA: 128 x 64 forward and dQ
+# tiles, 64 x 64 dK/dV tiles, three swizzle atoms a row): MLA's shape (16/16
+# heads, V with its last 64 columns zero, as the model pads it), the same V
+# random (the kernels' own contract), the masks case and the tile edges.
+CASES_D192 = {
+    "d192_mla_causal_zero_padded_v": (1, 1000, 1000, 16, 16, 1.0,
+                                      dict(causal=True, pad_v=64)),
+    "d192_mla_causal": (1, 1000, 1000, 16, 16, 1.0, dict(causal=True)),
+    "d192_segments_offset_window300_cap50": (
+        1, 300, 700, 4, 2, 4.0,
+        dict(causal=True, window=300, soft_cap=50.0, segments=True),
+    ),
+    "d192_t129_s129": (1, 129, 129, 4, 2, 1.0, dict(causal=True)),
+    "d192_t64_s64": (1, 64, 64, 4, 2, 1.0, dict(causal=True)),
+    "d192_b2_t700_s700_noncausal": (2, 700, 700, 4, 2, 1.0, dict(causal=False)),
+    "d192_segments_mid_tile": (2, 400, 400, 4, 2, 1.0,
+                               dict(causal=True, segments=True)),
+}
+
 
 def _assert_close(name, got, want):
     got, want = got.float(), want.float()
@@ -93,6 +112,16 @@ def test_head_dim_256_kernels_match_plain_versions_on_gpu(case):
         assert tflash.LAUNCHES[name] == before[name] + 1, name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES_D192))
+def test_head_dim_192_kernels_match_plain_versions_on_gpu(case):
+    """On the card: each head-dim-192 kernel against its plain version."""
+    before = {k: v for k, v in tflash.LAUNCHES.items()}
+    _check_case(CASES_D192[case], 192)
+    for name in ("flash_fwd_d192", "flash_dq_d192", "flash_dkv_d192"):
+        assert tflash.LAUNCHES[name] == before[name] + 1, name
+
+
 def _check_case(spec, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
@@ -107,6 +136,9 @@ def _check_case(spec, d):
 
     q, k = bf16(b, t, h, d, scale=scale), bf16(b, s, kh, d, scale=scale)
     v, do = bf16(b, s, kh, d), bf16(b, t, h, d)
+    pad_v = masks.pop("pad_v", 0)
+    if pad_v:
+        v[..., d - pad_v:] = 0  # MLA's V, zero-padded to the qk head dim
     if masks.pop("segments", False):
         # Three segments; for s = 400 the boundaries (150, 300) fall inside
         # 64- and 128-row tiles.

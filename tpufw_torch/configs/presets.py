@@ -8,7 +8,10 @@ Llama-3 architecture at d_model 1536, 14 layers, 12/6 heads of 128, vocab
 ``scripts/profile_torch_train.py`` run on one GPU;
 ``llama3_8b_serve_slice`` is the batch serve run of ``chip_smoke.py``.
 ``gemma2_9b_train_slice`` and ``gemma2_9b_serve_slice`` are their Gemma-2-9B
-counterparts (head dim 256, soft caps, alternating 4096-token windows).
+counterparts (head dim 256, soft caps, alternating 4096-token windows), and
+``deepseek_mla_train_slice`` and ``deepseek_mla_serve_slice`` the
+``deepseek_mla_bench`` ones (MLA: flash at qk head dim 192 in training, the
+absorbed latent cache in serving).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpufw_torch.models.deepseek import DEEPSEEK_CONFIGS, DeepseekConfig
 from tpufw_torch.models.gemma import GEMMA_CONFIGS, GemmaConfig
 from tpufw_torch.models.llama import LLAMA_CONFIGS, LlamaConfig
 from tpufw_torch.train.trainer import TrainerConfig
@@ -108,3 +112,36 @@ def gemma2_9b_serve_slice(
         rng.integers(1, cfg.vocab_size, n).tolist() for n in SERVE_PROMPT_LENS
     ]
     return cfg, prompts, 32
+
+
+def deepseek_mla_train_slice(
+    n_layers: int = 10, total_steps: int = 5
+) -> tuple[DeepseekConfig, TrainerConfig]:
+    """``deepseek_mla_bench`` (V2-Lite's attention at full width: d_model
+    2048, 16 heads, kv_lora_rank 512, head dims 128/64/128; a dense SwiGLU
+    FFN of 6144, vocab 32768; flash at qk head dim 192 with V zero-padded,
+    remat) at all ``n_layers`` = 10 layers; B=8, seq 2048, chunked CE at
+    512, warm-up 2 steps (``scripts/mla_flash_probe.py``'s B=8 shape)."""
+    cfg = dataclasses.replace(
+        DEEPSEEK_CONFIGS["deepseek_mla_bench"], n_layers=n_layers
+    )
+    tcfg = TrainerConfig(batch_size=8, seq_len=2048, total_steps=total_steps,
+                         warmup_steps=2, log_every=1, loss_chunk_size=512)
+    return cfg, tcfg
+
+
+def deepseek_mla_serve_slice(
+    seed: int = 0,
+) -> tuple[DeepseekConfig, list[list[int]], int]:
+    """(decode config, prompts, max_new_tokens) of the MLA serve run:
+    ``deepseek_mla_bench`` at all 10 layers, bf16 weights drawn in bf16, a
+    latent cache of 256 slots per row, and 8 prompts of 128 ids drawn from
+    a numpy ``seed``, each continued by 128 greedy tokens (the shapes of
+    ``bench.py``'s MLA decode tier)."""
+    cfg = dataclasses.replace(
+        DEEPSEEK_CONFIGS["deepseek_mla_bench"], param_dtype=torch.bfloat16,
+        max_seq_len=256,
+    ).decode_config()
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, 128).tolist() for _ in range(8)]
+    return cfg, prompts, 128

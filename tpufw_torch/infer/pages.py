@@ -50,6 +50,7 @@ from tpufw_torch.infer.generate import _on
 from tpufw_torch.infer.prefix import PrefixCache
 from tpufw_torch.infer.sampling import sample_token, track_seen
 from tpufw_torch.infer.slots import SlotPool
+from tpufw_torch.models.deepseek import reject_latent_model
 from tpufw_torch.ops.quant import dequantize_kv, quantize_kv
 
 
@@ -213,6 +214,7 @@ class PagedSlotPool(SlotPool):
         another pool's page-id space (a speculative draft pool riding the
         target's page budget): the two arenas are separate, so they must
         have the same number of pages."""
+        reject_latent_model(model, "PagedSlotPool")
         if n_pages is None:
             n_pages = n_slots * (cache_len // page) + 1
         if allocator is not None and allocator.n_pages != int(n_pages):

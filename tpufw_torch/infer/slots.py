@@ -32,6 +32,7 @@ import torch
 from tpufw_torch.infer.generate import _decode_step, _on, _prefill_and_first
 from tpufw_torch.infer.sampling import SamplingConfig, track_seen
 from tpufw_torch.infer.speculative import spec_draft_steps, spec_verify_steps
+from tpufw_torch.models.deepseek import reject_latent_model
 
 
 def pool_cache(model, n_slots: int, cache_len: Optional[int] = None) -> list:
@@ -103,6 +104,7 @@ class SlotPool:
         """A pool of ``n_slots`` empty slots of ``cache_len`` KV slots
         each (default the model's ``max_seq_len``) over ``model``'s
         weights."""
+        reject_latent_model(model, "SlotPool")
         dev = model.device
         seen = None
         if track_seen(sampling):

@@ -62,6 +62,7 @@ from tpufw_torch.infer.sampling import (
     track_seen,
     transform_logits,
 )
+from tpufw_torch.models.deepseek import reject_latent_model
 
 _NEG = -1e30
 
@@ -149,6 +150,8 @@ def speculative_generate(
     toward the batch min; filler rows' outputs are not validated past
     their own match point and must be discarded.
     """
+    for m in (draft_model, model):
+        reject_latent_model(m, "speculative decoding")
     tokens = _on(model, prompt_tokens)
     pads = _on(model, pad_lens)
     b, p = tokens.shape

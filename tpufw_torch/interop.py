@@ -1,5 +1,5 @@
-"""Weight bridge: a Flax ``decoder_lm`` param tree -> a ``Llama`` or
-``Gemma`` state dict.
+"""Weight bridge: a Flax ``decoder_lm`` param tree -> a ``Llama``,
+``Gemma`` or ``Deepseek`` state dict.
 
 Layout facts of the JAX package it handles:
 
@@ -15,6 +15,11 @@ Layout facts of the JAX package it handles:
   p unscanned; pair p is the port's layers 2p and 2p + 1. Its blocks have
   four norms (``pre_attn_norm``, ``post_attn_norm``, ``pre_mlp_norm``,
   ``post_mlp_norm``) where Llama's have two;
+- DeepSeek's MLA block holds ``q`` [D, H, qk] (or ``q_a`` [D, r],
+  ``q_a_norm`` and ``q_b`` [r, H, qk]), ``kv_a`` [D, kvr + rope],
+  ``kv_a_norm``, ``o`` [H, v, D] and the RAW ``kv_b_kernel`` [kvr, H,
+  nope + v], a plain array that is copied as it is (not a
+  ``DenseGeneral``, so not transposed);
 - a tree from ``tpufw.ops.quant.quantize_params`` holds, for each
   projection and the untied ``lm_head``, ``{"q_kernel" [in, *out] int8,
   "scale" [*out]}`` (plus the Qwen ``bias``); it becomes the port's int8
@@ -30,8 +35,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# Projections a block may hold (Llama/Gemma: q, k, v, o; MLA: q or q_a and
+# q_b, kv_a, o).
 _PROJ = {
-    "attn": ("q", "k", "v", "o"),
+    "attn": ("q", "k", "v", "o", "q_a", "q_b", "kv_a"),
     "mlp": ("gate", "up", "down"),
 }
 
@@ -55,14 +62,23 @@ def _kernel(kernel: np.ndarray, name: str) -> torch.Tensor:
 
 _NORMS = ("attn_norm", "mlp_norm", "pre_attn_norm", "post_attn_norm",
           "pre_mlp_norm", "post_mlp_norm")
+_ATTN_NORMS = ("q_a_norm", "kv_a_norm")  # MLA's latent norms
 
 
 def _block(tree: dict, prefix: str, out: dict) -> None:
     for norm in _NORMS:
         if norm in tree:
             out[f"{prefix}.{norm}.weight"] = _t(tree[norm]["scale"])
+    attn = tree["attn"]
+    for norm in _ATTN_NORMS:
+        if norm in attn:
+            out[f"{prefix}.attn.{norm}.weight"] = _t(attn[norm]["scale"])
+    if "kv_b_kernel" in attn:
+        out[f"{prefix}.attn.kv_b_kernel"] = _t(attn["kv_b_kernel"])
     for mod, names in _PROJ.items():
         for name in names:
+            if name not in tree[mod]:
+                continue
             leaf = tree[mod][name]
             key = f"{prefix}.{mod}.{name}"
             if "q_kernel" in leaf:
@@ -92,8 +108,8 @@ def _blocks(tree: dict, cfg):
 
 
 def params_from_flax(tree: dict, cfg) -> dict[str, torch.Tensor]:
-    """State dict for ``tpufw_torch.models.Llama(cfg)`` (or ``Gemma``) from
-    a Flax tree."""
+    """State dict for ``tpufw_torch.models.Llama(cfg)`` (or ``Gemma``, or
+    ``Deepseek``) from a Flax tree."""
     out = {"embed": _t(tree["embed"]["embedding"])}
     for i, block in _blocks(tree, cfg):
         _block(block, f"layers.{i}", out)

@@ -1,8 +1,15 @@
+"""Model families of the port: Llama-3 (with Mistral and Qwen-2 on the
+same trunk), Gemma-2 and DeepSeek-V2's dense MLA family."""
+
+from tpufw_torch.models.deepseek import (  # noqa: F401
+    DEEPSEEK_CONFIGS,
+    Deepseek,
+    DeepseekConfig,
+)
 from tpufw_torch.models.gemma import (  # noqa: F401
     GEMMA_CONFIGS,
     Gemma,
     GemmaConfig,
-    model_for_config,
 )
 from tpufw_torch.models.llama import (  # noqa: F401
     LLAMA_CONFIGS,
@@ -13,3 +20,19 @@ from tpufw_torch.models.llama import (  # noqa: F401
     QuantProjection,
     RopeScaling,
 )
+
+# Every named preset of the three families.
+PRESETS = {**LLAMA_CONFIGS, **GEMMA_CONFIGS, **DEEPSEEK_CONFIGS}
+
+
+def model_for_config(cfg, device=None, seed: int = 0) -> Llama:
+    """The model class of ``cfg`` (``Gemma`` for a ``GemmaConfig``,
+    ``Deepseek`` for a ``DeepseekConfig``, else ``Llama``) with weights
+    drawn from ``seed`` on ``device``."""
+    if isinstance(cfg, GemmaConfig):
+        cls = Gemma
+    elif isinstance(cfg, DeepseekConfig):
+        cls = Deepseek
+    else:
+        cls = Llama
+    return cls(cfg, device=device, seed=seed)

@@ -1,0 +1,576 @@
+"""DeepSeek-V2 family, dense FFN, in PyTorch (port of ``tpufw.models.deepseek``).
+
+Multi-head Latent Attention (MLA) on the Llama trunk
+(``tpufw_torch.models.llama``: embedding, RMSNorm, SwiGLU ``MLP``,
+``Projection``, remat, the untied fp32 head):
+
+- **Latent KV.** Keys and values come from one shared latent ``c_kv``
+  (``kv_a`` then ``kv_a_norm``, ``kv_lora_rank`` dims) through the raw
+  ``kv_b_kernel`` [kv_lora_rank, H, nope + v], plus one decoupled-RoPE key
+  of ``qk_rope_head_dim`` dims shared by every head.
+- **Interleaved RoPE.** DeepSeek rotates interleaved pairs (x[2i],
+  x[2i+1]), not Llama's split halves, with optional yarn scaling
+  (``YarnScaling``: the frequency ramp, its truncate semantics and the
+  attention factor).
+- **Training** runs the expanded form: k = [k_nope | k_pe on every head],
+  q = [q_nope | q_pe], scale ``qk_head_dim ** -0.5``. On the ``flash``
+  backend V is zero-padded to the qk head dim and the output sliced back,
+  so the CUDA kernels see one head dim (192 for ``deepseek_mla_bench``).
+- **Decode** (``cfg.decode_config()`` with ``cache=``) runs the absorbed
+  form over a ``LatentCache``: ``W_uk`` is folded into the query so the
+  scores are taken in latent space (fp32), and ``W_uv`` is applied once to
+  the attention-weighted latents. The cache holds ``c_kv`` and the roped
+  ``k_pe`` per token, 576 values for V2-Lite's widths against Llama-8B's
+  2048.
+
+Differs from the JAX package: there is no ``scan_layers`` (the blocks are
+one ``nn.ModuleList``; ``tpufw_torch.interop.params_from_flax`` takes
+scanned and unscanned trees), and remat recomputes the whole block in
+backward where the JAX package keeps the matmul outputs
+(``remat_policy="dots"``). Not ported yet, and refused with
+``NotImplementedError`` (``_reject_unported``): the MoE FFN, paged latent
+arenas and per-row cursors (the slot pools), and the sequence-parallel
+backends.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpufw_torch.models.llama import (
+    MLP,
+    Llama,
+    RMSNorm,
+    _projection,
+)
+from tpufw_torch.ops import multi_head_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnScaling:
+    """Yarn long-context rope scaling (arXiv 2309.00071), as transformers'
+    ``_compute_yarn_parameters`` runs it: a per-dimension ramp between
+    interpolated (freq / factor) and extrapolated frequencies, and an
+    ``attention_factor`` multiplied into cos/sin. With ``mscale ==
+    mscale_all_dim`` (V2-Lite publishes 0.707 for both) the factor is 1."""
+
+    factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    # 0.0 = unset: the ratio branch of the attention factor needs both.
+    mscale: float = 0.0
+    mscale_all_dim: float = 0.0
+    attention_factor: Optional[float] = None  # None = derived
+    truncate: bool = True
+
+    def resolved_attention_factor(self) -> float:
+        def get_mscale(scale, m=1.0):
+            if scale <= 1:
+                return 1.0
+            return 0.1 * m * math.log(scale) + 1.0
+
+        if self.attention_factor is not None:
+            return float(self.attention_factor)
+        if self.mscale and self.mscale_all_dim:
+            return get_mscale(self.factor, self.mscale) / get_mscale(
+                self.factor, self.mscale_all_dim
+            )
+        return get_mscale(self.factor)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepseekConfig:
+    """DeepSeek-V2 MLA decoder; field names follow the JAX package's (and
+    HF's ``DeepseekV2Config`` where the concepts coincide)."""
+
+    vocab_size: int = 32_768
+    d_model: int = 2048
+    n_layers: int = 12
+    n_heads: int = 16
+    # None = full-rank q projection (V2-Lite); an int adds the compressed
+    # q path (q_a -> q_a_norm -> q_b, V2-236B).
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    d_ff: int = 8192
+    rope_theta: float = 10_000.0
+    rope_scaling: Optional[YarnScaling] = None
+    max_seq_len: int = 4096
+    rms_eps: float = 1e-6
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    # "xla" (plain attention) or "flash" (the CUDA kernels, V zero-padded
+    # to qk_head_dim); "ring"/"ulysses" are refused (multi-GPU).
+    attention_backend: str = "xla"
+    # Kept for the MoE port (ROADMAP.md Queue 1 item 10).
+    moe_dispatch: str = "einsum"
+    # Recompute each block in backward (see the module docstring).
+    remat: bool = True
+    decode: bool = False
+    tie_embeddings: bool = False
+    # Int8 projection weights + fp32 per-output-channel scales (serving);
+    # kv_b_kernel, the norms and the embedding stay in floating point.
+    quantized_weights: bool = False
+    # Paged latent arenas: refused (the slot pools are not ported for MLA).
+    kv_page: int = 0
+    kv_pages: int = 0
+    kv_quant: str = ""
+    # --- MoE FFN (refused when n_routed_experts > 0) ---
+    n_routed_experts: int = 0
+    experts_per_token: int = 6
+    moe_d_ff: int = 1408
+    n_shared_experts: int = 2
+    first_k_dense: int = 0
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = False
+    n_group: int = 0
+    topk_group: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.02
+    router_z_weight: float = 1e-3
+
+    @property
+    def moe(self) -> bool:
+        return self.n_routed_experts > 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def decode_config(self) -> "DeepseekConfig":
+        """Inference dress: latent cache on, remat off, plain attention."""
+        return dataclasses.replace(
+            self, decode=True, remat=False, attention_backend="xla"
+        )
+
+    def n_params(self, include_embed: bool = True) -> int:
+        d, l, h = self.d_model, self.n_layers, self.n_heads
+        if self.q_lora_rank is None:
+            q = d * h * self.qk_head_dim
+            q_norms = 0
+        else:
+            q = self.q_lora_rank * (d + h * self.qk_head_dim)
+            q_norms = self.q_lora_rank
+        kv_a = d * (self.kv_lora_rank + self.qk_rope_head_dim)
+        kv_b = self.kv_lora_rank * h * (
+            self.qk_nope_head_dim + self.v_head_dim
+        )
+        o = h * self.v_head_dim * d
+        attn = l * (q + kv_a + kv_b + o)
+        n_moe_layers = max(0, l - self.first_k_dense) if self.moe else 0
+        n_dense_layers = l - n_moe_layers
+        mlp = n_dense_layers * 3 * d * self.d_ff
+        if n_moe_layers:
+            per_layer = (
+                3 * d * self.moe_d_ff * self.n_routed_experts
+                + d * self.n_routed_experts
+                + 3 * d * self.moe_d_ff * self.n_shared_experts
+            )
+            mlp += n_moe_layers * per_layer
+        norms = (2 * l + 1) * d + l * (self.kv_lora_rank + q_norms)
+        total = attn + mlp + norms
+        if include_embed:
+            head = 0 if self.tie_embeddings else self.vocab_size * d
+            total += self.vocab_size * d + head
+        return total
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Training FLOPs per token: 6 * N_matmul (the active experts only
+        under MoE) plus the attention scores, causal-halved, fwd + bwd,
+        QK^T over qk_head_dim and AV over v_head_dim."""
+        n_matmul = (
+            self.n_params(include_embed=False)
+            - (2 * self.n_layers + 1) * self.d_model
+            - self.n_layers * (self.kv_lora_rank + (self.q_lora_rank or 0))
+            + self.d_model * self.vocab_size
+        )
+        if self.moe:
+            n_moe_layers = max(0, self.n_layers - self.first_k_dense)
+            routed = 3 * self.d_model * self.moe_d_ff
+            n_matmul -= n_moe_layers * routed * (
+                self.n_routed_experts - self.experts_per_token
+            )
+        keys = seq_len / 2
+        score = (
+            6.0 * self.n_layers * self.n_heads
+            * (self.qk_head_dim + self.v_head_dim) * keys
+        )
+        return 6.0 * n_matmul + score
+
+
+def _yarn_freqs(d: int, theta: float, s: YarnScaling,
+                device=None) -> torch.Tensor:
+    """[d/2] fp32 yarn inverse frequencies (transformers
+    ``_compute_yarn_parameters``, truncate semantics included)."""
+    exps = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+    pos_freqs = theta ** exps
+    inv_extra = 1.0 / pos_freqs
+    inv_inter = 1.0 / (s.factor * pos_freqs)
+
+    def correction_dim(n_rot: float) -> float:
+        return (
+            d * math.log(
+                s.original_max_position_embeddings / (n_rot * 2 * math.pi)
+            )
+        ) / (2 * math.log(theta))
+
+    low = correction_dim(s.beta_fast)
+    high = correction_dim(s.beta_slow)
+    if s.truncate:
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, d - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp(
+        (torch.arange(d // 2, dtype=torch.float32, device=device) - low)
+        / (high - low),
+        0.0, 1.0,
+    )
+    extrapolation_factor = 1.0 - ramp
+    return (
+        inv_inter * (1.0 - extrapolation_factor)
+        + inv_extra * extrapolation_factor
+    )
+
+
+def apply_rope_interleaved(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    theta: float,
+    scaling: Optional[YarnScaling] = None,
+) -> torch.Tensor:
+    """DeepSeek rotary in fp32 on INTERLEAVED pairs (x[2i], x[2i+1]), HF's
+    ``view_as_complex`` layout. x: [B, T, H, D], positions: [B, T] -> x's
+    shape and dtype. Under yarn the output is multiplied by the attention
+    factor (the reference scales cos and sin; rotation is linear)."""
+    d = x.shape[-1]
+    if scaling is None:
+        exps = torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
+        freqs = 1.0 / (theta ** exps)
+        att = 1.0
+    else:
+        freqs = _yarn_freqs(d, theta, scaling, x.device)
+        att = scaling.resolved_attention_factor()
+    angles = positions[..., None].float() * freqs  # [B, T, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    out = torch.stack(
+        [x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1
+    ).reshape(x.shape)
+    if att != 1.0:
+        out = out * att
+    return out.to(x.dtype)
+
+
+@dataclasses.dataclass
+class LatentCache:
+    """One layer's latent cache (``tpufw``'s contiguous ``cached_ckv``,
+    ``cached_kpe``, ``cached_segment_ids`` and ``cache_index``): ``ckv``
+    [B, S, kv_lora_rank] and the roped ``kpe`` [B, S, qk_rope_head_dim] in
+    ``cfg.dtype``; ``seg`` [B, S] int32, 0 for slots never written (and
+    prompt padding); ``index`` the next slot to write, one int for every
+    row."""
+
+    ckv: torch.Tensor
+    kpe: torch.Tensor
+    seg: torch.Tensor
+    index: int
+
+
+def _reject_unported(cfg: DeepseekConfig) -> None:
+    if cfg.moe:
+        raise NotImplementedError(
+            "DeepseekConfig.n_routed_experts > 0: the DeepSeek MoE FFN comes "
+            "with ops/moe.py (ROADMAP.md Queue 1 item 10)"
+        )
+    if cfg.kv_page:
+        raise NotImplementedError(
+            "DeepseekConfig.kv_page: paged latent arenas are not ported to "
+            "tpufw_torch yet (ROADMAP.md Queue 1 item 10)"
+        )
+    if cfg.attention_backend in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"MLA attention backend {cfg.attention_backend!r} is "
+            "sequence-parallel; it comes with the multi-GPU port "
+            "(ROADMAP.md Queue 1 item 12)"
+        )
+    if cfg.attention_backend not in ("xla", "flash"):
+        raise NotImplementedError(
+            "MLA attention backends: 'xla', 'flash', 'ring', or 'ulysses'; "
+            f"got {cfg.attention_backend!r}"
+        )
+
+
+def reject_latent_model(model, what: str) -> None:
+    """Raise for a DeepSeek model handed to a serving path that keeps a
+    slot pool, pages or a speculative cache: its latent cache has only the
+    contiguous scalar-cursor form here."""
+    if isinstance(model, Deepseek):
+        raise NotImplementedError(
+            f"{what} with a DeepSeek model: the latent cache has no slot "
+            "pool, paged arena or speculative rollback in tpufw_torch yet "
+            "(ROADMAP.md Queue 1 item 10); serve it through run_batch"
+        )
+
+
+class MLAttention(nn.Module):
+    """Multi-head Latent Attention: the expanded form for training (and
+    for a decode model called without a cache), the absorbed latent form
+    over a ``LatentCache``."""
+
+    def __init__(self, cfg: DeepseekConfig, gen, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.d_model, cfg.n_heads
+        kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        q_out = h * cfg.qk_head_dim
+        if cfg.q_lora_rank is None:
+            self.q = _projection(d, q_out, cfg, gen, False, device)
+        else:
+            self.q_a = _projection(d, cfg.q_lora_rank, cfg, gen, False, device)
+            self.q_a_norm = RMSNorm(cfg.q_lora_rank, cfg.rms_eps, device)
+            self.q_b = _projection(cfg.q_lora_rank, q_out, cfg, gen, False,
+                                   device)
+        self.kv_a = _projection(d, kvr + dr, cfg, gen, False, device)
+        self.kv_a_norm = RMSNorm(kvr, cfg.rms_eps, device)
+        # The latent up-projection W_ukv as a RAW [kvr, H, dn + dv] kernel:
+        # the absorbed decode contracts its W_uk and W_uv halves
+        # separately, so both forms read this one parameter.
+        w = torch.empty(kvr, h, cfg.qk_nope_head_dim + cfg.v_head_dim,
+                        dtype=cfg.param_dtype, device=device)
+        w.normal_(0.0, 1.0 / math.sqrt(kvr), generator=gen)
+        self.kv_b_kernel = nn.Parameter(w)
+        self.o = _projection(h * cfg.v_head_dim, d, cfg, gen, False, device)
+
+    def forward(self, x, positions, segment_ids=None, cache=None):
+        cfg = self.cfg
+        b, t, _ = x.shape
+        h, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+        kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        if cfg.q_lora_rank is None:
+            q = self.q(x)
+        else:
+            q = self.q_b(self.q_a_norm(self.q_a(x)))
+        q = q.view(b, t, h, cfg.qk_head_dim)
+        q_nope = q[..., :dn]
+        q_pe = apply_rope_interleaved(
+            q[..., dn:], positions, cfg.rope_theta, cfg.rope_scaling
+        )
+        ckv_kr = self.kv_a(x)
+        c_kv = self.kv_a_norm(ckv_kr[..., :kvr])
+        k_pe = apply_rope_interleaved(
+            ckv_kr[..., kvr:][:, :, None, :], positions, cfg.rope_theta,
+            cfg.rope_scaling,
+        )  # [B, T, 1, dr]
+        if cache is not None:
+            out = self._absorbed_cached_attention(
+                q_nope, q_pe, c_kv, k_pe[:, :, 0, :], segment_ids, cache
+            )
+        else:
+            kv = torch.einsum(
+                "btr,rhd->bthd", c_kv.to(cfg.dtype),
+                self.kv_b_kernel.to(cfg.dtype),
+            )
+            k_nope, v = kv[..., :dn], kv[..., dn:]
+            k = torch.cat([k_nope, k_pe.expand(b, t, h, dr)], dim=-1)
+            q = torch.cat([q_nope, q_pe], dim=-1)
+            # The scale is qk_head_dim**-0.5 on every backend: each derives
+            # it from q's last dim, which is qk_head_dim here.
+            if cfg.attention_backend == "flash":
+                # softmax(QK^T) [v | 0] = [out | 0]: the kernels see one
+                # head dim, and slicing recovers the exact result.
+                v_pad = F.pad(v, (0, cfg.qk_head_dim - dv))
+                out = multi_head_attention(
+                    q, k, v_pad, causal=True, segment_ids=segment_ids,
+                    backend="flash",
+                )[..., :dv]
+            else:
+                out = multi_head_attention(
+                    q, k, v, causal=True, segment_ids=segment_ids,
+                    backend="xla",
+                )
+        return self.o(out.reshape(b, t, h * dv))
+
+    def _absorbed_cached_attention(self, q_nope, q_pe, c_kv, k_pe,
+                                   segment_ids, cache: LatentCache):
+        """Write this call's latents at the cache cursor, then attend in
+        latent space: q_lat = q_nope · W_uk, scores (fp32) = (q_lat ·
+        c_kvᵀ + q_pe · k_peᵀ) · qk_head_dim**-0.5, causal over cache slots
+        (RoPE positions lag slots under left padding) and by segment, then
+        ctx = probs · c_kv and one W_uv."""
+        cfg = self.cfg
+        b, t = q_nope.shape[:2]
+        dn = cfg.qk_nope_head_dim
+        s = cache.ckv.shape[1]
+        dev = q_nope.device
+        seg = (
+            torch.ones(b, t, dtype=torch.int32, device=dev)
+            if segment_ids is None else segment_ids.to(torch.int32)
+        )
+        cur = cache.index
+        if cur + t > s:
+            raise ValueError(
+                f"latent cache overflow: writing {t} tokens at slot {cur} "
+                f"of {s}"
+            )
+        cache.ckv[:, cur:cur + t] = c_kv.to(cache.ckv.dtype)
+        cache.kpe[:, cur:cur + t] = k_pe.to(cache.kpe.dtype)
+        cache.seg[:, cur:cur + t] = seg
+        cache.index = cur + t
+
+        kv_b = self.kv_b_kernel.to(cfg.dtype)
+        w_uk, w_uv = kv_b[..., :dn], kv_b[..., dn:]  # [kvr, H, dn / dv]
+        q_lat = torch.einsum("bthd,rhd->bthr", q_nope.to(cfg.dtype), w_uk)
+        logits = (
+            torch.einsum("bthr,bsr->bhts", q_lat.float(), cache.ckv.float())
+            + torch.einsum("bthd,bsd->bhts", q_pe.to(cfg.dtype).float(),
+                           cache.kpe.float())
+        ) * (float(cfg.qk_head_dim) ** -0.5)
+        slot = (cur + torch.arange(t, device=dev))[:, None]
+        mask = slot >= torch.arange(s, device=dev)[None, :]  # [T, S]
+        seg_mask = seg[:, :, None] == cache.seg[:, None, :]  # [B, T, S]
+        logits = torch.where((mask[None] & seg_mask)[:, None], logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+        ctx_lat = torch.einsum("bhts,bsr->bthr", probs, cache.ckv)
+        return torch.einsum("bthr,rhd->bthd", ctx_lat, w_uv)
+
+
+class DeepseekBlock(nn.Module):
+    """RMSNorm -> MLA -> residual -> RMSNorm -> SwiGLU MLP -> residual."""
+
+    def __init__(self, cfg: DeepseekConfig, gen, device=None):
+        super().__init__()
+        self.attn_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
+        self.attn = MLAttention(cfg, gen, device)
+        self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
+        self.mlp = MLP(cfg, gen, device)
+
+    def forward(self, x, positions, segment_ids=None, cache=None):
+        x = x + self.attn(self.attn_norm(x), positions, segment_ids, cache)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class Deepseek(Llama):
+    """Decoder-only DeepSeek-V2 LM with a dense FFN: ``Llama``'s trunk
+    (embedding, remat, final norm, untied fp32 head, chunked-loss hidden
+    states) over ``DeepseekBlock`` layers. A decode model takes ``cache=``,
+    the per-layer ``LatentCache`` list of ``init_cache``."""
+
+    def __init__(self, cfg: DeepseekConfig, device=None, seed: int = 0):
+        _reject_unported(cfg)
+        super().__init__(cfg, device=device, seed=seed)
+
+    @staticmethod
+    def _block(cfg, gen, device, index: int) -> nn.Module:
+        return DeepseekBlock(cfg, gen, device)
+
+    def init_cache(
+        self, batch: int, per_row: bool = False, length: Optional[int] = None
+    ) -> list[LatentCache]:
+        """Zeroed per-layer latent caches of ``length`` slots (default
+        ``cfg.max_seq_len``) for ``batch`` rows, one scalar cursor."""
+        if per_row:
+            raise NotImplementedError(
+                "per-row cursors over a DeepSeek latent cache (the slot "
+                "pool's) are not ported to tpufw_torch yet (ROADMAP.md "
+                "Queue 1 item 10)"
+            )
+        cfg, dev = self.cfg, self.device
+        length = cfg.max_seq_len if length is None else int(length)
+        if not 0 < length <= cfg.max_seq_len:
+            raise ValueError(
+                f"cache length {length} outside (0, max_seq_len="
+                f"{cfg.max_seq_len}]"
+            )
+        return [
+            LatentCache(
+                ckv=torch.zeros(batch, length, cfg.kv_lora_rank,
+                                dtype=cfg.dtype, device=dev),
+                kpe=torch.zeros(batch, length, cfg.qk_rope_head_dim,
+                                dtype=cfg.dtype, device=dev),
+                seg=torch.zeros(batch, length, dtype=torch.int32, device=dev),
+                index=0,
+            )
+            for _ in range(cfg.n_layers)
+        ]
+
+
+DEEPSEEK_CONFIGS: dict[str, DeepseekConfig] = {
+    # Test-scale config (parity tests).
+    "deepseek_tiny": DeepseekConfig(
+        vocab_size=256,
+        d_model=64,
+        n_layers=2,
+        n_heads=4,
+        kv_lora_rank=32,
+        qk_nope_head_dim=16,
+        qk_rope_head_dim=8,
+        v_head_dim=16,
+        d_ff=128,
+        max_seq_len=128,
+        remat=False,
+    ),
+    # The same with the compressed-q path (V2-236B style).
+    "deepseek_tiny_qlora": DeepseekConfig(
+        vocab_size=256,
+        d_model=64,
+        n_layers=2,
+        n_heads=4,
+        q_lora_rank=24,
+        kv_lora_rank=32,
+        qk_nope_head_dim=16,
+        qk_rope_head_dim=8,
+        v_head_dim=16,
+        d_ff=128,
+        max_seq_len=128,
+        remat=False,
+    ),
+    # MoE test preset (4 routed experts top-2 + 1 shared): refused by the
+    # model until the MoE FFN is ported.
+    "deepseek_moe_tiny": DeepseekConfig(
+        vocab_size=256,
+        d_model=64,
+        n_layers=2,
+        n_heads=4,
+        kv_lora_rank=32,
+        qk_nope_head_dim=16,
+        qk_rope_head_dim=8,
+        v_head_dim=16,
+        d_ff=128,
+        n_routed_experts=4,
+        experts_per_token=2,
+        moe_d_ff=48,
+        n_shared_experts=1,
+        capacity_factor=4.0,
+        max_seq_len=128,
+        remat=False,
+    ),
+    # V2-Lite's attention at full width (HF deepseek-ai/DeepSeek-V2-Lite:
+    # d_model 2048, 16 heads, kv_lora 512, head dims 128/64/128) with a
+    # dense SwiGLU FFN of 6144: the MLA bench shape, not checkpoint
+    # compatible with V2-Lite (whose FFN is MoE and rope yarn).
+    "deepseek_mla_bench": DeepseekConfig(
+        vocab_size=32_768,
+        d_model=2048,
+        n_layers=10,
+        n_heads=16,
+        kv_lora_rank=512,
+        qk_nope_head_dim=128,
+        qk_rope_head_dim=64,
+        v_head_dim=128,
+        d_ff=6144,
+        max_seq_len=4096,
+        attention_backend="flash",
+    ),
+}

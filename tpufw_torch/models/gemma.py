@@ -199,10 +199,3 @@ GEMMA_CONFIGS: dict[str, GemmaConfig] = {
         remat=False,
     ),
 }
-
-
-def model_for_config(cfg, device=None, seed: int = 0) -> Llama:
-    """The model class of ``cfg`` (``Gemma`` for a ``GemmaConfig``, else
-    ``Llama``) with weights drawn from ``seed`` on ``device``."""
-    cls = Gemma if isinstance(cfg, GemmaConfig) else Llama
-    return cls(cfg, device=device, seed=seed)

@@ -634,7 +634,7 @@ def _reject_unported(cfg: LlamaConfig) -> None:
             "cache, not the model (Llama.init_paged_cache), so one set of "
             "weights serves every pool"
         )
-    if cfg.lora_rank:
+    if getattr(cfg, "lora_rank", 0):
         raise NotImplementedError(
             "LlamaConfig.lora_rank: LoRA adapters are not ported to "
             "tpufw_torch yet (ROADMAP.md Queue 1)"

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``. The
-``*_d256.cu`` sources are the head-dim-256 builds of the same kernels
-(each defines ``TPUFW_HEAD_DIM`` and includes its head-dim-128 source),
-so they export the same C functions. The build goes into ``build-torch/``
+``*_d192.cu`` and ``*_d256.cu`` sources are the head-dim-192 and 256
+builds of the same kernels (each defines ``TPUFW_HEAD_DIM`` and includes
+its head-dim-128 source), so they export the same C functions. The build goes into ``build-torch/``
 at the repo root (listed in ``.gitignore``); a library's file name carries
 a hash of the flags, the headers and the sources it compiles, so an edited
 kernel is rebuilt and an unchanged one is reused. All missing libraries
@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,6 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build-torch"
 SOURCES = (
     "flash_fwd", "flash_dq", "flash_dkv",
+    "flash_fwd_d192", "flash_dq_d192", "flash_dkv_d192",
     "flash_fwd_d256", "flash_dq_d256", "flash_dkv_d256",
 )
 NVCC_FLAGS = (
@@ -62,8 +64,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    # A *_d256 source includes the source of its base name.
-    own = {name, name.removesuffix("_d256")}
+    # A *_d<N> source (another head dim) includes the source of its base
+    # name.
+    own = {name, re.sub(r"_d\d+$", "", name)}
     for src in sorted(CSRC.glob("*.cu*")):
         if src.suffix == ".cuh" or src.stem in own:
             h.update(src.read_bytes())

@@ -2,9 +2,10 @@
 // make_masks, visible) and the kv loop bounds of the forward and dQ
 // kernels (kv_tiles). The Hopper building blocks are in hopper.cuh.
 //
-// The head dim D is fixed per build: 128 by default, 256 where a source
-// defines TPUFW_HEAD_DIM before including this (the *_d256.cu sources,
-// Gemma-2). Each kernel derives its tiles from D.
+// The head dim D is fixed per build: 128 by default, 192 or 256 where a
+// source defines TPUFW_HEAD_DIM before including this (the *_d192.cu
+// sources, DeepSeek's MLA; the *_d256.cu sources, Gemma-2). Each kernel
+// derives its tiles from D.
 //
 // Masks follow tpufw/ops/flash.py exactly: query row i sits at absolute key
 // position offset + i; a key is visible when it is a real key (k < S), not
@@ -22,8 +23,15 @@ namespace tpufw {
 #define TPUFW_HEAD_DIM 128
 #endif
 constexpr int D = TPUFW_HEAD_DIM;  // head dim of this build
-static_assert(D == 128 || D == 256, "the flash kernels take head dim 128 or 256");
+static_assert(D == 128 || D == 192 || D == 256,
+              "the flash kernels take head dim 128, 192 or 256");
 constexpr int ATOMS = D / 64;  // 128-byte swizzle atoms (64 bf16 columns) a row
+// Columns of one O, dQ, dK or dV accumulator (one register-A wgmma per
+// k-step): 128 at D = 128 and 256 (one or two m64n128), 192 at D = 192
+// (one m64n192: three atoms, where 128-column chunks would leave 64 over).
+constexpr int OC = D == 192 ? 192 : 128;
+constexpr int NO = D / OC;         // accumulators of that width a row
+constexpr int OC_ATOMS = OC / 64;  // swizzle atoms one accumulator spans
 constexpr float NEG_INF = -1e30f;
 
 struct Masks {
@@ -76,6 +84,8 @@ inline Masks make_masks(int T, int S, int causal, int offset, int has_window,
   m.window = window;
   m.has_cap = has_cap;
   m.cap = cap;
+  // 1/sqrt(D): at D = 192 that is MLA's qk_head_dim**-0.5, because the
+  // model zero-pads V from 128 to the qk head dim (the pad adds nothing).
   m.scale = 1.0f / sqrtf((float)D);
   m.qseg = static_cast<const int*>(qseg);
   m.kseg = static_cast<const int*>(kseg);

@@ -36,6 +36,13 @@
 // computed twice, and warpgroup 1 runs three products to warpgroup 0's two:
 // a simple split, not a balanced one. K, V and two stages of Q and dO
 // (64-row tiles) fill 192 KB of shared memory.
+//
+// Head dim 192 (flash_dkv_d192.cu, DeepSeek's MLA) keeps the split: dK and
+// dV of 64 keys x 192 together with S^T and dP^T would pass the 240
+// registers a consumer thread has, while one m64n192 accumulator each (96
+// fp32 registers) leaves room. K and V (48 KB) and two stages of Q and dO
+// (2 x 48 KB) take 144 KB. With V zero-padded by the model, a third of dV's
+// columns are zero and are computed all the same.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -45,14 +52,14 @@ namespace dkv {
 
 using namespace hopper;
 
-// D = 256: each warpgroup keeps one of dK and dV for all the block's keys.
+// D = 192 and 256: each warpgroup keeps one of dK and dV for all the
+// block's keys.
 constexpr bool SPLIT = D > 128;
 constexpr int BKV = SPLIT ? 64 : 128;  // keys per block
 constexpr int BQ = 64;        // query rows per streamed tile
 constexpr int STAGES = 2;     // Q/dO ring depth
 constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-constexpr int NO = D / 128;   // m64n128 accumulators of dK or dV
 
 constexpr int KV_ATOM = BKV * 128;  // 64 columns of the K or V tile
 constexpr int Q_ATOM = BQ * 128;    // 64 columns of a Q or dO tile
@@ -142,11 +149,12 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Masks& m, int
     kpos[rh] = kw0 + row + 8 * rh;
     if (m.kseg && kpos[rh] < m.S) ks[rh] = m.kseg[(long)b * m.S + kpos[rh]];
   }
-  float dk_acc[NO][64], dv_acc[NO][64], st_acc[32], dpt_acc[32];
+  // NO accumulators of OC columns each for dK and dV (m64 x OC).
+  float dk_acc[NO][OC / 2], dv_acc[NO][OC / 2], st_acc[32], dpt_acc[32];
 #pragma unroll
   for (int c = 0; c < NO; ++c)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.0f;
+    for (int i = 0; i < OC / 2; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.0f;
 
   const uint32_t kv_row = (kw0 % BKV) * 128;  // this warpgroup's first key row
   const uint32_t k_base = smem_u32(smem + K_OFF) + kv_row;
@@ -207,7 +215,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Masks& m, int
     }
 
     // dV += P^T dO and dK += dS^T Q: 4 k-steps of 16 query rows, B MN-major
-    // (atoms 8 KB apart), one m64n128 product per 128 columns.
+    // (atoms 8 KB apart), one m64nOC product per OC columns.
     if constexpr (DV) {
       fence_regs(pb);
 #pragma unroll
@@ -225,9 +233,8 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Masks& m, int
         const uint32_t a[4] = {pb[4 * kk], pb[4 * kk + 1], pb[4 * kk + 2], pb[4 * kk + 3]};
 #pragma unroll
         for (int c = 0; c < NO; ++c)
-          wgmma_rs_m64n128_tb(
-              dv_acc[c], a,
-              make_desc(do_base + c * 2 * Q_ATOM + kk * 16 * 128, Q_ATOM, 1024));
+          wgmma_rs_tb(dv_acc[c], a,
+                      make_desc(do_base + c * OC_ATOMS * Q_ATOM + kk * 16 * 128, Q_ATOM, 1024));
       }
     }
     if constexpr (DK) {
@@ -237,9 +244,8 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Masks& m, int
                                dsb[4 * kk + 3]};
 #pragma unroll
         for (int c = 0; c < NO; ++c)
-          wgmma_rs_m64n128_tb(
-              dk_acc[c], a,
-              make_desc(q_base + c * 2 * Q_ATOM + kk * 16 * 128, Q_ATOM, 1024));
+          wgmma_rs_tb(dk_acc[c], a,
+                      make_desc(q_base + c * OC_ATOMS * Q_ATOM + kk * 16 * 128, Q_ATOM, 1024));
       }
     }
     wgmma_commit();
@@ -260,11 +266,11 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Masks& m, int
 #pragma unroll
   for (int c = 0; c < NO; ++c) {
 #pragma unroll
-    for (int n8 = 0; n8 < 16; ++n8) {
+    for (int n8 = 0; n8 < OC / 8; ++n8) {
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
         const long off =
-            (((long)b * H + h) * s_pad + kpos[rh]) * D + c * 128 + n8 * 8 + 2 * t4;
+            (((long)b * H + h) * s_pad + kpos[rh]) * D + c * OC + n8 * 8 + 2 * t4;
         const int i = 4 * n8 + 2 * rh;
         if constexpr (DK)
           *reinterpret_cast<float2*>(dk + off) =
@@ -370,7 +376,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // q [B,T,H,D], k/v [B,S,KV,D], dO [B,T,H,D] bf16; lse, delta [B,H,T] fp32;
 // qseg [B,T] / kseg [B,S] int32 or null; dk, dv [B,H,S_pad,D] fp32 per
-// QUERY head, S_pad = S rounded up to BKV (128, or 64 at D = 256). Returns cudaGetLastError(), or
+// QUERY head, S_pad = S rounded up to BKV (128, or 64 at D = 192 and 256).
+// Returns cudaGetLastError(), or
 // cudaErrorInvalidValue when a tensor map cannot be encoded.
 extern "C" int tpufw_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,

@@ -35,6 +35,11 @@
 // 192 KB of the 227 KB a block may have): the next tile's copy waits for
 // this tile's math. S and dP are m64n64 over 16 k-steps, dQ two m64n128
 // accumulators (128 fp32 registers a thread).
+//
+// Head dim 192 (flash_dq_d192.cu, DeepSeek's MLA): Q and dO take 96 KB, so
+// 64-key tiles fit a two-stage ring (2 x 48 KB: 192 KB in all); the ring
+// depth is derived from those bytes. S and dP are m64n64 over 12 k-steps,
+// dQ one m64n192 accumulator (96 fp32 registers a thread).
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -46,16 +51,18 @@ using namespace hopper;
 
 constexpr int BQ = 128;                   // query rows per block
 constexpr int BKV = D == 128 ? 128 : 64;  // keys per kv tile
-constexpr int STAGES = D == 128 ? 2 : 1;  // K/V ring depth
 constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int NS = BKV / 2;   // S and dP accumulator floats a thread
-constexpr int NO = D / 128;   // m64n128 dQ accumulators a warpgroup
 
 constexpr int Q_ATOM = BQ * 128;    // 64 columns of the Q or dO tile
 constexpr int KV_ATOM = BKV * 128;  // 64 columns of a K or V tile
 constexpr int Q_BYTES = ATOMS * Q_ATOM;
 constexpr int KV_BYTES = ATOMS * KV_ATOM;
+// K/V ring depth: two stages where Q, dO and two stages of K and V fit a
+// block's 227 KB with 4 KB to spare for the segment ids and barriers (D =
+// 128: 192 KB; 192: 192 KB), else one (256: 256 KB would not fit).
+constexpr int STAGES = 2 * Q_BYTES + 4 * KV_BYTES + 4096 <= 232448 ? 2 : 1;
 constexpr int Q_OFF = 0;
 constexpr int DO_OFF = Q_OFF + Q_BYTES;
 constexpr int K_OFF = DO_OFF + Q_BYTES;
@@ -191,11 +198,11 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     dlt[rh] = ok ? delta[idx] : 0.0f;
     if (m.qseg && ok) qs[rh] = m.qseg[(long)b * m.T + q_row[rh]];
   }
-  float dq[NO][64], s[NS], dp[NS];
+  float dq[NO][OC / 2], s[NS], dp[NS];  // NO accumulators of OC columns
 #pragma unroll
   for (int c = 0; c < NO; ++c)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq[c][i] = 0.0f;
+    for (int i = 0; i < OC / 2; ++i) dq[c][i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.0f;
 
@@ -252,7 +259,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < NS / 2; ++i) ds[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
 
     // dQ += dS K: BKV/16 k-steps of 16 keys, K MN-major (atoms KV_ATOM
-    // apart), one m64n128 product per 128 columns of dQ.
+    // apart), one m64nOC product per OC columns of dQ.
 #pragma unroll
     for (int c = 0; c < NO; ++c) fence_regs(dq[c]);
     fence_regs(ds);
@@ -262,8 +269,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t a[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
 #pragma unroll
       for (int c = 0; c < NO; ++c)
-        wgmma_rs_m64n128_tb(
-            dq[c], a, make_desc(k_base + c * 2 * KV_ATOM + kk * 16 * 128, KV_ATOM, 1024));
+        wgmma_rs_tb(dq[c], a,
+                    make_desc(k_base + c * OC_ATOMS * KV_ATOM + kk * 16 * 128, KV_ATOM, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -279,11 +286,11 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int c = 0; c < NO; ++c) {
 #pragma unroll
-    for (int n8 = 0; n8 < 16; ++n8) {
+    for (int n8 = 0; n8 < OC / 8; ++n8) {
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
         const int r = row + 8 * rh, col = (n8 % 8) * 8 + 2 * t4;
-        const int atom = 2 * c + n8 / 8;
+        const int atom = c * OC_ATOMS + n8 / 8;
         *reinterpret_cast<uint32_t*>(ob + atom * Q_ATOM + swizzle_offset(r, col)) =
             pack_bf16(dq[c][4 * n8 + 2 * rh] * m.scale, dq[c][4 * n8 + 2 * rh + 1] * m.scale);
       }

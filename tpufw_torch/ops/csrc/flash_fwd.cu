@@ -36,6 +36,13 @@
 // the 227 KB a block may have, where 128-key stages would need 320 KB. Rows
 // are four swizzle atoms instead of two, S = Q K^T is m64n64 over 16
 // k-steps, and O is two m64n128 accumulators (128 fp32 registers a thread).
+//
+// Head dim 192 (flash_fwd_d192.cu, DeepSeek's MLA, V zero-padded to the qk
+// head dim by the model) is the 256 design at three atoms a row: 64-key
+// tiles (Q 48 KB + two stages of K and V, 2 x 48 KB: 144 KB, where 128-key
+// stages would need 240 KB), S = Q K^T m64n64 over 12 k-steps, and O one
+// m64n192 accumulator (96 fp32 registers a thread). A third of the P V
+// product's work lands on V's zero columns.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -51,7 +58,6 @@ constexpr int STAGES = 2;                 // K/V ring depth
 constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int NS = BKV / 2;   // S accumulator floats a thread (m64 x BKV)
-constexpr int NO = D / 128;   // m64n128 O accumulators a warpgroup
 
 constexpr int Q_ATOM = BQ * 128;    // 64 columns of the Q tile
 constexpr int KV_ATOM = BKV * 128;  // 64 columns of a K or V tile
@@ -173,11 +179,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     q_row[rh] = qw0 + row + 8 * rh;
     if (m.qseg && q_row[rh] < m.T) qs[rh] = m.qseg[(long)b * m.T + q_row[rh]];
   }
-  float o[NO][64], s[NS];
+  float o[NO][OC / 2], s[NS];  // NO accumulators of OC columns (m64 x OC)
 #pragma unroll
   for (int c = 0; c < NO; ++c)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[c][i] = 0.0f;
+    for (int i = 0; i < OC / 2; ++i) o[c][i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < NS; ++i) s[i] = 0.0f;
   float m_row[2] = {NEG_INF * LOG2E, NEG_INF * LOG2E};  // running max, base 2
@@ -241,14 +247,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int c = 0; c < NO; ++c)
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < OC / 2; ++i) o[c][i] *= alpha[(i >> 1) & 1];
     // P in bf16: the S accumulator layout is the A-fragment layout.
     uint32_t p[NS / 2];
 #pragma unroll
     for (int i = 0; i < NS / 2; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 
     // O += P V: BKV/16 k-steps of 16 keys, V MN-major (atoms KV_ATOM
-    // apart), one m64n128 product per 128 columns of O.
+    // apart), one m64nOC product per OC columns of O.
 #pragma unroll
     for (int c = 0; c < NO; ++c) fence_regs(o[c]);
     fence_regs(p);
@@ -258,8 +264,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
 #pragma unroll
       for (int c = 0; c < NO; ++c)
-        wgmma_rs_m64n128_tb(
-            o[c], a, make_desc(v_base + c * 2 * KV_ATOM + kk * 16 * 128, KV_ATOM, 1024));
+        wgmma_rs_tb(o[c], a,
+                    make_desc(v_base + c * OC_ATOMS * KV_ATOM + kk * 16 * 128, KV_ATOM, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -283,11 +289,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int c = 0; c < NO; ++c) {
 #pragma unroll
-    for (int n8 = 0; n8 < 16; ++n8) {
+    for (int n8 = 0; n8 < OC / 8; ++n8) {
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
         const int r = row + 8 * rh, col = (n8 % 8) * 8 + 2 * t4;
-        const int atom = 2 * c + n8 / 8;
+        const int atom = c * OC_ATOMS + n8 / 8;
         *reinterpret_cast<uint32_t*>(ob + atom * Q_ATOM + swizzle_offset(r, col)) =
             pack_bf16(o[c][4 * n8 + 2 * rh] * inv[rh], o[c][4 * n8 + 2 * rh + 1] * inv[rh]);
       }

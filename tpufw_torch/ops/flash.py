@@ -14,9 +14,11 @@ The forward and backward follow the JAX package's decomposition:
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises: there is no fallback. The kernels
-take head dim 128 (Llama, Mistral, Qwen) and 256 (Gemma-2; the
-``csrc/*_d256.cu`` builds, with tiles of their own). Each launch adds one
-to ``LAUNCHES[name]``, the head-dim-256 kernels under ``<name>_d256``.
+take head dim 128 (Llama, Mistral, Qwen), 192 (DeepSeek's MLA, V
+zero-padded to the qk head dim by the model; the ``csrc/*_d192.cu``
+builds) and 256 (Gemma-2; the ``csrc/*_d256.cu`` builds), each with tiles
+of its own. Each launch adds one to ``LAUNCHES[name]``, the other head
+dims' kernels under ``<name>_d192`` and ``<name>_d256``.
 
 Layouts: q, O, dO, dQ are [B, T, H, D]; k, v are [B, S, K, D]; LSE and Δ
 are fp32 [B, H, T]; the dK/dV kernel output is fp32 [B, H, S, D]. Query i
@@ -37,9 +39,10 @@ from tpufw_torch.ops.attention import NEG_INF, tanh_soft_cap
 
 # Tiles of the forward (csrc/flash_fwd.cu), dQ (csrc/flash_dq.cu) and dK/dV
 # (csrc/flash_dkv.cu) kernels, by the head dims they are built for: (query
-# rows, keys) per kernel. MLA's head dim 192 is later work (ROADMAP.md).
+# rows, keys) per kernel.
 TILES = {
     128: {"fwd": (128, 128), "dq": (128, 128), "dkv": (64, 128)},
+    192: {"fwd": (128, 64), "dq": (128, 64), "dkv": (64, 64)},
     256: {"fwd": (128, 64), "dq": (128, 64), "dkv": (64, 64)},
 }
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
@@ -47,7 +50,7 @@ KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 def kernel_name(base: str, head_dim: int) -> str:
     """The library and launch-count name of kernel ``base`` at
-    ``head_dim``: ``flash_fwd`` at 128, ``flash_fwd_d256`` at 256."""
+    ``head_dim``: ``flash_fwd`` at 128, ``flash_fwd_d192`` at 192."""
     return base if head_dim == 128 else f"{base}_d{head_dim}"
 
 
@@ -241,7 +244,9 @@ def _check_qkv(q, k, v):
     if q.shape[-1] not in TILES:
         raise NotImplementedError(
             f"flash CUDA kernels take head_dim {tuple(TILES)}, got "
-            f"{q.shape[-1]} (192, DeepSeek's MLA, is on ROADMAP.md Queue 2)"
+            f"{q.shape[-1]}: the kernels' tiles are fixed per head dim, and "
+            "the tile override that would choose them is on ROADMAP.md "
+            "Queue 2"
         )
     if q.dtype != torch.bfloat16:
         raise TypeError(f"flash CUDA kernels take bfloat16, got {q.dtype}")

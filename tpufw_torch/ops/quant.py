@@ -6,9 +6,11 @@ the bytes a step must read against bf16. The product itself runs in the
 activation dtype: the int8 codes are cast, multiplied, and the scale is
 applied to the product (exact for per-output-channel scales).
 
-Scope, as in the JAX package: the attention q/k/v/o and MLP gate/up/down
-weights of every block and the untied LM head. Embeddings and norms stay
-in floating point, and so do the Qwen q/k/v biases.
+Scope, as in the JAX package: the attention q/k/v/o (MLA's q or q_a/q_b,
+kv_a and o) and MLP gate/up/down weights of every block and the untied LM
+head. Embeddings and norms stay in floating point, and so do the Qwen
+q/k/v biases and MLA's raw ``kv_b_kernel`` (small, and the absorbed decode
+contracts its halves separately).
 
 Layout is PyTorch's: a weight is [out, in], so its scale is [out] and is
 reduced over dim 1. The rounding rule is ``jnp.round``'s, half to even,
@@ -23,7 +25,8 @@ import torch
 
 #: State-dict keys of the projection weights that are quantized.
 _PROJ_KEY = re.compile(
-    r"^layers\.\d+\.(attn\.(q|k|v|o)|mlp\.(gate|up|down))\.weight$"
+    r"^layers\.\d+\.(attn\.(q|k|v|o|q_a|q_b|kv_a)|mlp\.(gate|up|down))"
+    r"\.weight$"
 )
 
 
@@ -42,11 +45,11 @@ def quantize_kernel(w: torch.Tensor, in_axes: tuple) -> dict:
 
 
 def quantize_params(state_dict: dict) -> dict:
-    """A ``Llama`` state dict -> the state dict of its int8 twin
-    (``quantized_weights=True``): each projection's ``weight`` becomes
-    int8 codes [out, in] with a ``scale`` [out] beside it, and the untied
-    ``lm_head`` becomes ``lm_head.weight`` / ``lm_head.scale``. Other
-    tensors are passed through, not copied."""
+    """A ``Llama`` (``Gemma``, ``Deepseek``) state dict -> the state dict of
+    its int8 twin (``quantized_weights=True``): each projection's
+    ``weight`` becomes int8 codes [out, in] with a ``scale`` [out] beside
+    it, and the untied ``lm_head`` becomes ``lm_head.weight`` /
+    ``lm_head.scale``. Other tensors are passed through, not copied."""
     out = {}
     hit = 0
     for key, val in state_dict.items():
@@ -61,8 +64,8 @@ def quantize_params(state_dict: dict) -> dict:
     if not hit:
         raise ValueError(
             "quantize_params: no projection weights found (expected "
-            "layers.N.attn.{q,k,v,o}.weight, layers.N.mlp.{gate,up,down}"
-            ".weight or lm_head)"
+            "layers.N.attn.{q,k,v,o,q_a,q_b,kv_a}.weight, "
+            "layers.N.mlp.{gate,up,down}.weight or lm_head)"
         )
     return out
 

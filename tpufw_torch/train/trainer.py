@@ -17,7 +17,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from tpufw_torch.models.gemma import model_for_config
+from tpufw_torch.models import model_for_config
 from tpufw_torch.models.llama import Llama, LlamaConfig
 from tpufw_torch.ops.loss import chunked_cross_entropy, token_cross_entropy
 from tpufw_torch.train.metrics import Meter, StepMetrics, timed_batches
@@ -236,7 +236,8 @@ class Trainer:
     def init_state(self, seed: int = 0, state_dict=None) -> Llama:
         """Random weights from ``seed``, or ``state_dict`` when given
         (e.g. ``tpufw_torch.interop.params_from_flax``); fresh optimizer
-        state at step 0. A ``GemmaConfig`` builds a ``Gemma``."""
+        state at step 0. A ``GemmaConfig`` builds a ``Gemma``, a
+        ``DeepseekConfig`` a ``Deepseek``."""
         self.model = model_for_config(
             self.model_cfg, device=self.device, seed=seed
         )

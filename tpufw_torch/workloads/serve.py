@@ -13,9 +13,10 @@
   a slot pool, contiguous or, with ``TPUFW_SERVE_PAGE`` > 0, paged with
   prefix sharing and optional int8 KV (``TPUFW_SERVE_KV_QUANT=int8``).
 
-Knobs, as in the JAX workload: ``TPUFW_MODEL`` (a ``LLAMA_CONFIGS`` or
-``GEMMA_CONFIGS`` preset, e.g. ``gemma2_9b``, or ``llama3_600m_bench``, the
-default), ``TPUFW_MAX_SEQ_LEN``,
+Knobs, as in the JAX workload: ``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``,
+``GEMMA_CONFIGS`` or ``DEEPSEEK_CONFIGS`` preset, e.g. ``gemma2_9b`` or
+``deepseek_mla_bench``, or ``llama3_600m_bench``, the default; a DeepSeek
+model serves in batch mode only), ``TPUFW_MAX_SEQ_LEN``,
 ``TPUFW_SEED``, ``TPUFW_MAX_NEW_TOKENS`` (16), ``TPUFW_QUANTIZE=int8``,
 ``TPUFW_DECODE_DTYPE`` (e.g. ``bfloat16``), ``TPUFW_PREFILL_CHUNK``,
 ``TPUFW_EOS_ID``, the sampling knobs ``TPUFW_TEMPERATURE``,
@@ -79,8 +80,7 @@ def build_generator():
     The weights are random, drawn from ``TPUFW_SEED`` on ``TPUFW_DEVICE``;
     ``restored`` is always False until checkpoints are ported."""
     from tpufw_torch.configs import BENCH_CONFIG_NAME, bench_model_config
-    from tpufw_torch.models import GEMMA_CONFIGS, LLAMA_CONFIGS
-    from tpufw_torch.models import model_for_config
+    from tpufw_torch.models import PRESETS, model_for_config
 
     for knob in ("hf_checkpoint", "params_checkpoint", "checkpoint_dir"):
         if env_str(knob, ""):
@@ -88,14 +88,12 @@ def build_generator():
     name = env_str("model", BENCH_CONFIG_NAME)
     if name == BENCH_CONFIG_NAME:
         model_cfg = bench_model_config()
-    elif name in LLAMA_CONFIGS:
-        model_cfg = LLAMA_CONFIGS[name]
-    elif name in GEMMA_CONFIGS:
-        model_cfg = GEMMA_CONFIGS[name]
+    elif name in PRESETS:
+        model_cfg = PRESETS[name]
     else:
         raise ValueError(
             f"unknown TPUFW_MODEL={name!r}; choose from "
-            f"{[BENCH_CONFIG_NAME, *LLAMA_CONFIGS, *GEMMA_CONFIGS]}"
+            f"{[BENCH_CONFIG_NAME, *PRESETS]}"
         )
     model_cfg = dataclasses.replace(
         model_cfg, max_seq_len=env_int("max_seq_len", model_cfg.max_seq_len)
@@ -644,6 +642,9 @@ class _SlotScheduler:
         prefill_chunk_pages: Optional[int] = None,
     ):
         _refuse_unported_scheduler(page_export)
+        from tpufw_torch.models.deepseek import reject_latent_model
+
+        reject_latent_model(model, "the slot scheduler (the HTTP server)")
         self.model = model
         self._eos = eos_id
         self._default_sampling = (

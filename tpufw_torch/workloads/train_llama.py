@@ -1,8 +1,9 @@
 """LM training workload on one GPU: ``python -m tpufw_torch.workloads.train_llama``.
 
 Knobs (the JAX workload's names where the meaning is the same):
-``TPUFW_MODEL`` (a ``LLAMA_CONFIGS`` or ``GEMMA_CONFIGS`` preset, e.g.
-``gemma2_9b``, or ``llama3_600m_bench``, the default), ``TPUFW_BATCH_SIZE``, ``TPUFW_SEQ_LEN`` (default: the model's
+``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``, ``GEMMA_CONFIGS`` or
+``DEEPSEEK_CONFIGS`` preset, e.g. ``gemma2_9b`` or ``deepseek_mla_bench``, or
+``llama3_600m_bench``, the default), ``TPUFW_BATCH_SIZE``, ``TPUFW_SEQ_LEN`` (default: the model's
 ``max_seq_len``), ``TPUFW_TOTAL_STEPS``, ``TPUFW_ATTENTION`` (backend
 override), ``TPUFW_LR``, ``TPUFW_WARMUP_STEPS``, ``TPUFW_LOSS_CHUNK_SIZE``
 (0 = full logits), ``TPUFW_LOSS_CHUNK_DTYPE``, ``TPUFW_GRAD_ACCUM``,
@@ -25,20 +26,18 @@ _T0 = time.time()
 def build_trainer():
     """(trainer, model_cfg) from the TPUFW_* environment."""
     from tpufw_torch.configs import BENCH_CONFIG_NAME, bench_model_config
-    from tpufw_torch.models import GEMMA_CONFIGS, LLAMA_CONFIGS
+    from tpufw_torch.models import PRESETS
     from tpufw_torch.train import Trainer, TrainerConfig
 
     name = env_str("model", BENCH_CONFIG_NAME)
     if name == BENCH_CONFIG_NAME:
         model_cfg = bench_model_config()
-    elif name in LLAMA_CONFIGS:
-        model_cfg = LLAMA_CONFIGS[name]
-    elif name in GEMMA_CONFIGS:
-        model_cfg = GEMMA_CONFIGS[name]
+    elif name in PRESETS:
+        model_cfg = PRESETS[name]
     else:
         raise ValueError(
             f"unknown TPUFW_MODEL={name!r}; choose from "
-            f"{[BENCH_CONFIG_NAME, *LLAMA_CONFIGS, *GEMMA_CONFIGS]}"
+            f"{[BENCH_CONFIG_NAME, *PRESETS]}"
         )
     backend = env_str("attention", "")
     if backend:
