@@ -35,10 +35,17 @@ Phases, each fatal on failure:
    boolean mask; it has no soft cap), at 192 at the MLA path's (SDPA also
    with V at its own 128 columns, and the SDPA backend that ran);
 4. trains 5 steps of Llama-3-8B widths cut to 4 layers (B=2, seq 2048,
-   chunked CE, remat, flash attention) through ``Trainer.run`` with the
-   launch counters zeroed just before, and checks that every loss is
-   finite and every kernel was launched; then checks the trained model's
-   flash logits against its plain-attention logits on a small input.
+   chunked CE, remat at the default policy "dots", flash attention)
+   through ``Trainer.run`` with the launch counters zeroed just before,
+   and checks that every loss is finite and every kernel was launched;
+   prints one ``Trainer.evaluate`` loss on a held-out batch; then checks
+   the trained model's flash logits against its plain-attention logits
+   on a small input. Then the same 5 steps under the remat policies
+   "nothing", "attn_out" and "everything", and "dots" once more (the
+   run-to-run noise), each with its ``train_summary`` (step time,
+   tokens/s, MFU, peak memory, launches): every policy's losses within
+   REMAT_LOSS_TOL of the first "dots" run's; and 5 steps at
+   ``sync_every=4``, whose metrics must be windows of 1, 3 and 1 steps.
    4b. The same for Gemma-2-9B widths cut to 4 of 42 layers (B=1, seq
    8192, chunked CE with the final cap 30, flash at head dim 256, its own
    counters): every head-dim-256 kernel launched, flash vs plain logits
@@ -101,7 +108,18 @@ Phases, each fatal on failure:
    5%). An ``online_summary`` line per mode gives wall time, tokens/s,
    client-side TTFT p50/p95, latency p50, decode ms per step, peak memory
    and peak pages, and the new modes their chunks, passes, ms per pass,
-   accept rate and fallback slots.
+   accept rate and fallback slots. Then two more modes: ``tick``, the
+   tick batcher (``TPUFW_SERVE_SLOTS=0``), with the 16 prompts as
+   concurrent SSE clients (a stream is a tick of its own) and then as
+   concurrent JSON clients (coalesced into ticks): full-length in-vocab
+   outputs, the /metrics counts, and the four direct prompts' greedy
+   tokens equal to ``generate_text`` on the rows their ticks ran; and
+   ``paged_spill`` (bf16, then int8 KV), the spill tier
+   (``TPUFW_KV_SPILL``) behind a 14-page arena: the 448-token prefix's 7
+   pages are evicted into the tier by 8 short requests and restored by a
+   request sharing the prefix, bit-equal; directly on a pool, the
+   restored admission's first-step logits within 5% of a cold prefill's,
+   and the spill and restore times per page.
 
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
@@ -142,6 +160,13 @@ LSE_TOL = 1e-3
 LOGITS_TOL = 5e-2
 N_LAYERS = 4
 STEPS = 5
+# Remat policies: each policy's 5 losses against the default ("dots")
+# run's, absolute. The policy changes what the forward keeps, never the
+# arithmetic, so the only allowance is the run-to-run noise of one
+# configuration, which a repeat of "dots" in the same call measures. On
+# an H100 80GB HBM3 at 700 W it was 0.0: every kernel on this path sums
+# in a fixed order, and the five runs' losses were bit-equal.
+REMAT_LOSS_TOL = 0.0
 # Gemma-2-9B train slice depth: 2 (local, global) pairs of its 42 layers.
 GEMMA_TRAIN_LAYERS = 4
 # deepseek_mla_bench trains at its full depth.
@@ -188,6 +213,12 @@ HOL_LONG = 1536
 HOL_GAP_S = 0.010
 SELFSIM_PATTERN = 16
 SELFSIM_LEN = 512
+# The paged_spill mode's arena: 14 usable pages of ONLINE_PAGE. The
+# prefix request (448 + 16 tokens, 64 new) takes 9 and leaves the prefix's
+# 7 in the trie; 8 short requests of 2 pages each then need 16, so the 7
+# must go to the spill tier; after them the arena is free again, and the
+# request sharing the prefix restores all 7.
+SPILL_ARENA_PAGES = 15
 # Head dim 256 (Gemma-2-9B): the train path's attention shapes (B=1, seq
 # 8192, so T = S = 8191 inputs after the target shift; 16 query / 8 kv
 # heads), attention soft cap 50, window 4096 on the local layers. Kernel
@@ -555,16 +586,20 @@ def sdpa_unequal_v(torch, q, k, v_pad, v_head_dim) -> dict:
             "backend_padded_v": backend(v_pad.transpose(1, 2))}
 
 
-def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
+def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
+                logits_check=True, evaluate=False) -> tuple[dict, list]:
     """Phase 4 (``family`` "llama3_8b"), 4b ("gemma2_9b") or 4c
     ("deepseek_mla"): the family's train slice
-    (``configs.<family>_train_slice``) at ``n_layers`` for STEPS steps
-    through ``Trainer.run``, launch counters zeroed just before. Holds
-    every loss finite and every flash kernel of the model's head dim
-    launched, then the trained model's flash logits against its
-    plain-attention logits on an input one window plus 64 tokens long
-    (256 without a window). Returns the launch counts of the run; raises
-    AssertionError on a failed check."""
+    (``configs.<family>_train_slice``, at ``remat_policy`` ``policy`` or
+    the config's default) at ``n_layers`` for STEPS steps through
+    ``Trainer.run``, launch counters zeroed just before. Holds every loss
+    finite and every flash kernel of the model's head dim launched; with
+    ``evaluate``, prints one ``Trainer.evaluate`` loss on a held-out batch
+    (after the counters are read); with ``logits_check``, holds the
+    trained model's flash logits against its plain-attention logits on an
+    input one window plus 64 tokens long (256 without a window). Returns
+    (the launch counts of the run, its losses); raises AssertionError on a
+    failed check."""
     from tpufw_torch import configs
     from tpufw_torch.models import PRESETS, model_for_config
     from tpufw_torch.ops import flash
@@ -572,6 +607,8 @@ def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
 
     cfg, tcfg = getattr(configs, f"{family}_train_slice")(
         n_layers, total_steps=STEPS)
+    if policy is not None:
+        cfg = dataclasses.replace(cfg, remat_policy=policy)
     preset, prefix = FAMILIES[family]
     full = PRESETS[preset].n_layers
     window = getattr(cfg, "sliding_window", None)
@@ -583,6 +620,7 @@ def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
           "params": cfg.n_params(), "batch_size": tcfg.batch_size,
           "seq_len": tcfg.seq_len, "loss_chunk_size": tcfg.loss_chunk_size,
           "head_dim": head_dim_of(cfg), "remat": cfg.remat,
+          "remat_policy": cfg.remat_policy,
           "attention_backend": cfg.attention_backend,
           "attn_logit_soft_cap": getattr(cfg, "attn_logit_soft_cap", None),
           "final_logit_soft_cap": getattr(cfg, "final_logit_soft_cap", None),
@@ -609,6 +647,7 @@ def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
             m.step_time_s for m in steady),
         "peak_mem_gb": peak_gb,
         "launches": launches,
+        "remat_policy": cfg.remat_policy,
         "model": family, "n_layers": n_layers, "seq_len": tcfg.seq_len,
         "device": kind, "nvidia_smi": smi,
     }
@@ -621,10 +660,20 @@ def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
     if not all(launches[k] > 0 for k in path):
         raise AssertionError(
             f"{family}: a kernel was not launched on the train path: {launches}")
+    losses = [m.loss for m in history]
+    if evaluate:
+        ev = trainer.evaluate(synthetic_batches(
+            tcfg.batch_size, tcfg.seq_len, cfg.vocab_size, seed=1), 1)
+        emit({prefix + "eval": ev, "held_out_seed": 1})
+        if not (math.isfinite(ev["eval_loss"]) and ev["eval_tokens"]
+                == tcfg.batch_size * (tcfg.seq_len - 1)):
+            raise AssertionError(f"{family}: evaluate {ev}")
+    trainer.optimizer = None
+    if not logits_check:
+        return {k: launches[k] for k in path}, losses
 
     # Output check: flash logits vs the plain path, optimizer state freed.
-    trainer.optimizer.zero_grad()
-    trainer.optimizer = None
+    trainer.model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
     plain_model = model_for_config(
         dataclasses.replace(cfg, attention_backend="xla"), device="cuda")
@@ -644,7 +693,57 @@ def train_phase(torch, family, n_layers, gen, kind, smi) -> dict:
           "tokens": n, "max_abs_err": abs_e, "rel_err": rel_e, "tol": LOGITS_TOL})
     if rel_e > LOGITS_TOL:
         raise AssertionError(f"{family}: flash logits disagree with the plain path")
-    return {k: launches[k] for k in path}
+    return {k: launches[k] for k in path}, losses
+
+
+def remat_sweep(torch, gen, kind, smi, dots_losses) -> None:
+    """Phase 4's remat policies: the Llama train slice again under
+    "nothing", "attn_out" and "everything", and once more under the
+    default "dots" to measure the run-to-run noise of the same
+    configuration (nondeterministic gradient sums, e.g. the embedding's).
+    Each prints its ``train_summary`` (step ms, tokens/s, MFU, peak memory,
+    launches). Every policy's losses must equal the first "dots" run's
+    within REMAT_LOSS_TOL; raises AssertionError otherwise."""
+    out = {}
+    for policy in ("nothing", "attn_out", "everything", "dots"):
+        launches, losses = train_phase(torch, "llama3_8b", N_LAYERS, gen,
+                                       kind, smi, policy=policy,
+                                       logits_check=False)
+        torch.cuda.empty_cache()
+        out[policy] = {"losses": losses, "launches": launches,
+                       "max_abs_loss_diff_vs_dots": max(
+                           abs(a - b) for a, b in zip(losses, dots_losses))}
+    noise = out["dots"]["max_abs_loss_diff_vs_dots"]
+    emit({"check": "remat_policy_losses", "dots_losses": dots_losses,
+          "policies": out, "dots_repeat_noise": noise,
+          "tol": REMAT_LOSS_TOL})
+    bad = [p for p, v in out.items()
+           if v["max_abs_loss_diff_vs_dots"] > REMAT_LOSS_TOL]
+    if bad:
+        raise AssertionError(f"remat policies {bad}: losses differ from dots")
+
+
+def sync_window_run(torch, kind, smi) -> None:
+    """Phase 4's ``sync_every``: the Llama train slice for STEPS steps at
+    sync_every=4: syncs after steps 1, 4 and 5, windows of 1, 3 and 1
+    steps, finite losses; prints a ``sync_window_summary``."""
+    from tpufw_torch import configs
+    from tpufw_torch.train import Trainer, synthetic_batches
+
+    cfg, tcfg = configs.llama3_8b_train_slice(N_LAYERS, total_steps=STEPS)
+    tcfg = dataclasses.replace(tcfg, sync_every=4)
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    trainer.init_state(seed=0)
+    history = trainer.run(
+        synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size, seed=0),
+        model_flops_per_token=cfg.flops_per_token(tcfg.seq_len - 1))
+    windows = [m.as_dict() for m in history]
+    emit({"sync_window_summary": {"sync_every": 4, "windows": windows,
+                                  "device": kind, "nvidia_smi": smi}})
+    if ([m.step for m in history] != [1, 4, 5]
+            or [m.window_steps for m in history] != [1, 3, 1]
+            or not all(math.isfinite(m.loss) for m in history)):
+        raise AssertionError(f"sync_every=4: windows {windows}")
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -1101,11 +1200,10 @@ def chunk_pool_check(torch, model, prompts, cache_len) -> dict:
 
 def online_phase(torch, kind, smi) -> None:
     """Phase 6: the HTTP server on Llama-3-8B (all 32 layers, bf16
-    weights, 8 slots, greedy), contiguous, then paged with bf16 KV, then
-    paged with int8 KV, on one set of weights; raises AssertionError on a
-    failed check."""
-    import threading
-
+    weights, 8 slots, greedy) on one set of weights: the slot scheduler's
+    modes, then the tick batcher (``tick_mode``) and the spill tier
+    (``spill_mode``, bf16 and int8 KV); raises AssertionError on a failed
+    check."""
     import numpy as np
 
     from tpufw_torch.configs import llama3_8b_serve_slice
@@ -1155,17 +1253,10 @@ def online_phase(torch, kind, smi) -> None:
     bf16_paged_logits = bf16_paged_tokens = None
     paged_outputs = None  # paged_bf16's tokens of the 16 requests
     for mode, env, draft, wave in modes:
-        for k in [k for k in os.environ if k.startswith("TPUFW_")]:
-            del os.environ[k]
-        os.environ.update(env)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         flash.reset_launch_counts()
-        srv = serve._Server(0, 8, model=model, draft_model=draft)
-        threading.Thread(target=srv.serve_forever, daemon=True).start()
-        while srv.httpd is None:
-            time.sleep(0.01)
-        base = f"http://127.0.0.1:{srv.port}"
+        srv, base = _start_server(serve, env, model=model, draft_model=draft)
         sched = srv._batcher
         # Decode and speculative time of the warm-up request, left out
         # of the summary.
@@ -1266,10 +1357,7 @@ def online_phase(torch, kind, smi) -> None:
             with _get(base + "/healthz") as r:
                 if json.loads(r.read())["ok"] is not True:
                     raise AssertionError(f"{mode}: /healthz not ok")
-            with _get(base + "/metrics") as r:
-                metrics = {ln.split()[0]: float(ln.split()[1])
-                           for ln in r.read().decode().splitlines()
-                           if ln and not ln.startswith("#")}
+            metrics = _metrics(base)
             launches = dict(flash.LAUNCHES)
             check.update({
                 "requests": [metrics["tpufw_serve_requests_total"],
@@ -1391,8 +1479,301 @@ def online_phase(torch, kind, smi) -> None:
         emit({"online_summary": summary})
         if bad:
             raise AssertionError(f"online {mode}: {bad}")
+    tick_mode(torch, model, prompts, direct, kind, smi)
+    shared_prompts = [shared + rng.integers(1, cfg.vocab_size, n).tolist()
+                      for n in (16, 40)]
+    for kv in ("", "int8"):
+        spill_mode(torch, model, shared, shared_prompts, kv, kind, smi)
     for k in [k for k in os.environ if k.startswith("TPUFW_")]:
         del os.environ[k]
+
+
+def _start_server(serve, env, **kw):
+    """A ``_Server`` on a free localhost port with exactly the TPUFW_*
+    environment ``env``; (server, base URL)."""
+    import threading
+
+    for k in [k for k in os.environ if k.startswith("TPUFW_")]:
+        del os.environ[k]
+    os.environ.update(env)
+    srv = serve._Server(0, 8, **kw)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    while srv.httpd is None:
+        time.sleep(0.01)
+    return srv, f"http://127.0.0.1:{srv.port}"
+
+
+def _metrics(base) -> dict:
+    with _get(base + "/metrics") as r:
+        return {ln.split()[0]: float(ln.split()[1])
+                for ln in r.read().decode().splitlines()
+                if ln and not ln.startswith("#")}
+
+
+def tick_mode(torch, model, prompts, direct, kind, smi) -> None:
+    """Phase 6's ``tick`` mode: the tick batcher (TPUFW_SERVE_SLOTS=0) on
+    the same weights. The 16 prompts as concurrent SSE clients (each
+    stream a tick of its own), then as concurrent JSON clients (coalesced
+    into ticks of up to 64 rows). Holds full-length in-vocab outputs, the
+    /metrics counts, no flash launch, and the four direct prompts' greedy
+    tokens equal to ``generate_text`` on the rows and cache length their
+    ticks ran (the prompt and the length-bucket filler row)."""
+    from tpufw_torch.infer import generate_text
+    from tpufw_torch.ops import flash
+    from tpufw_torch.workloads import serve
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    srv, base = _start_server(serve, {"TPUFW_SERVE_SLOTS": "0"}, model=model)
+    vocab = model.cfg.vocab_size
+    try:
+        t0 = time.perf_counter()
+        runs = _concurrently([
+            (lambda p=p: _stream(base, {"prompts": [p],
+                                        "max_new_tokens": ONLINE_NEW}))
+            for p in prompts])
+        sse_wall = time.perf_counter() - t0
+        ticks0 = _metrics(base)["tpufw_serve_ticks_total"]
+        t0 = time.perf_counter()
+        json_runs = _concurrently([
+            (lambda p=p: _post(base, {"prompts": [p],
+                                      "max_new_tokens": ONLINE_NEW}))
+            for p in prompts])
+        json_wall = time.perf_counter() - t0
+        metrics = _metrics(base)
+        launches = dict(flash.LAUNCHES)
+    finally:
+        srv.shutdown()
+    outs = [r[0] for r in runs] + [r["outputs"][0] for r in json_runs]
+    bad = []
+    if not all(len(o) == ONLINE_NEW and all(0 <= t < vocab for t in o)
+               for o in outs):
+        bad.append("bad output")
+    n_req = 2 * len(prompts)
+    check = {"check": "online_tick",
+             "requests": [metrics["tpufw_serve_requests_total"], n_req],
+             "tokens": [metrics["tpufw_serve_tokens_generated_total"],
+                        n_req * ONLINE_NEW],
+             "errors": metrics["tpufw_serve_request_errors_total"],
+             "flash_launches": launches}
+    if any(check[k][0] != check[k][1] for k in ("requests", "tokens")):
+        bad.append("counts")
+    if check["errors"] or any(launches.values()):
+        bad.append("errors or flash launched")
+    # The direct prompts' streams, against generate_text on their ticks'
+    # rows: [prompt, length-bucket filler], the tick's cache length.
+    want = []
+    for p in direct:
+        longest = serve._bucket(len(p), 64)
+        want += generate_text(
+            model, [p, [0] * longest], max_new_tokens=ONLINE_NEW,
+            live_rows=[True, False],
+            cache_len=serve._cache_bucket(longest + ONLINE_NEW,
+                                          model.cfg.max_seq_len))[:1]
+    got = [runs[prompts.index(p)][0] for p in direct]
+    check["direct_equal_generate"] = got == want
+    check["sse_vs_json_greedy_match"] = sum(
+        x == y for r, j in zip(runs, json_runs)
+        for x, y in zip(r[0], j["outputs"][0])) / (len(prompts) * ONLINE_NEW)
+    if got != want:
+        bad.append("direct prompts differ from generate")
+    ttft = [r[1] * 1e3 for r in runs]
+    # A stream's chunks arrive every TPUFW_STREAM_CHUNK (16) steps: its
+    # decode steps after the first chunk, over the time between them.
+    per_step = [(r[2] - r[1]) / (ONLINE_NEW - 16) * 1e3 for r in runs]
+    ticks = metrics["tpufw_serve_ticks_total"] - ticks0
+    emit(check)
+    emit({"online_summary": {
+        "mode": "tick", "sse_wall_s": sse_wall, "json_wall_s": json_wall,
+        "tokens_per_s_sse": ONLINE_NEW * len(prompts) / sse_wall,
+        "tokens_per_s_json": ONLINE_NEW * len(prompts) / json_wall,
+        "ttft_ms_p50": _percentile(ttft, 0.5),
+        "ttft_ms_p95": _percentile(ttft, 0.95),
+        "decode_ms_per_step_solo_stream_p50": _percentile(per_step, 0.5),
+        "json_ticks": ticks,
+        "json_batched_with": sorted({r["batched_with"] for r in json_runs}),
+        "json_ms_per_tick_step": json_wall / max(ticks, 1) / ONLINE_NEW * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "device": kind, "nvidia_smi": smi}})
+    if bad:
+        raise AssertionError(f"online tick: {bad}")
+
+
+def spill_pool_check(torch, model, shared, prompts, kv) -> dict:
+    """Direct, one paged pool at ONLINE_SLOTS x ONLINE_CACHE with the
+    spill tier: ``prompts[0]`` registers ``shared``'s pages in the trie;
+    they are evicted through the spill hook (timed); ``prompts[1]``
+    restores them at admission (timed, through the host tier and the
+    device scatter). The restored pages must be bit-equal to the evicted
+    ones, and the restored admission's first-step logits within
+    SERVE_LOGITS_TOL of a cold prefill's of the same prompt."""
+    from tpufw_torch.infer import PagedSlotPool, SamplingConfig, prefill_row
+    from tpufw_torch.infer.spill import SpillTier
+    from tpufw_torch.serve.bundle import attach_spill
+
+    greedy = SamplingConfig()
+
+    def pool_of(prefix):
+        return PagedSlotPool.create_paged(
+            model, ONLINE_SLOTS, cache_len=ONLINE_CACHE, page=ONLINE_PAGE,
+            kv_quant=kv, sampling=greedy, prefix_cache=prefix)
+
+    def admit(pool, p, ids=None, shared_n=0):
+        if ids is None:
+            ids, shared_n = pool.acquire_pages(p, len(p) + 8)
+        if shared_n:
+            cache, _, first, _, _ = pool.prefill_shared(p, ids[:shared_n],
+                                                        None)
+        else:
+            cache, _, first, _, _ = prefill_row(
+                model, p, None, sampling=greedy, eos_id=None,
+                cache_len=ONLINE_CACHE)
+        pool.insert_paged(0, cache, first, len(p), 8, ids, shared_n)
+        pool.register_prefix(p, ids)
+        return _step_logits(torch, pool, pool.token)[0]
+
+    n = len(shared) // ONLINE_PAGE
+    with torch.no_grad():
+        tier = SpillTier(64)
+        pool = pool_of(True)
+        attach_spill(pool, tier)
+        admit(pool, prompts[0])
+        pool.release_slot(0)
+        before = pool.export_pages_state(pool.prefix.match(shared))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.prefix.evict(n, pool.allocator, on_evict=pool._spill_hook())
+        spill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids, shared_n = pool.acquire_pages(prompts[1], len(prompts[1]) + 8)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored = admit(pool, prompts[1], ids, shared_n)
+        after = pool.export_pages_state(pool.prefix.match(shared))
+        spilled_bytes = tier.spilled_bytes_total
+        del pool
+        cold = admit(pool_of(False), prompts[1])
+    equal = before["paths"] == after["paths"] and all(
+        a.tobytes() == b.tobytes()
+        for a, b in zip(before["arrays"], after["arrays"]))
+    return {"pages": n, "shared_pages_restored": shared_n,
+            "pages_bit_equal": equal,
+            "spill_ms_per_page": spill_s / n * 1e3,
+            "restore_ms_per_page": restore_s / n * 1e3,
+            "bundle_bytes_per_page": spilled_bytes / n,
+            "first_step_logits_vs_cold": rel_err(torch, restored, cold),
+            "greedy_equal_cold": bool(restored.argmax() == cold.argmax())}
+
+
+def spill_mode(torch, model, shared, shared_prompts, kv, kind, smi) -> None:
+    """Phase 6's ``paged_spill`` mode (``kv`` "" or "int8"): the slot
+    scheduler, paged, with the spill tier (TPUFW_KV_SPILL) and an arena of
+    SPILL_ARENA_PAGES pages, one pool (TPUFW_SERVE_CACHE_FLOOR=2048 keys
+    every request to the same cache rung). A request holding the
+    ONLINE_PREFIX-token prefix leaves its 7 pages in the trie; 8
+    concurrent short requests need more pages than are free, so those 7
+    are evicted into the tier; a request sharing the prefix restores them.
+    Holds spill_pages_out and spill_pages_in of 7, the restored pages
+    bit-equal to the evicted ones, full-length in-vocab outputs, the
+    /metrics counts and spill series, no flash launch; then
+    ``spill_pool_check``."""
+    import numpy as np
+
+    from tpufw_torch.ops import flash
+    from tpufw_torch.workloads import serve
+
+    mode = "paged_spill" + ("_int8" if kv else "")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    env = {"TPUFW_SERVE_PAGE": str(ONLINE_PAGE), "TPUFW_KV_SPILL": "64",
+           "TPUFW_SERVE_CACHE_FLOOR": "2048", "TPUFW_WARMUP": "0",
+           "TPUFW_SERVE_KV_QUANT": kv}
+    srv, base = _start_server(serve, env, model=model)
+    sched = srv._batcher
+    # Pools are built at the first admission: set the arena before it.
+    sched.arena_pages = SPILL_ARENA_PAGES
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(5)
+    shorts = [rng.integers(1, vocab, 7).tolist() for _ in range(8)]
+    n_pages = len(shared) // ONLINE_PAGE
+    try:
+        t0 = time.perf_counter()
+        outs = [_post(base, {"prompts": [shared_prompts[0]],
+                             "max_new_tokens": ONLINE_NEW})["outputs"][0]]
+        pool = sched.pool
+        before = pool.export_pages_state(pool.prefix.match(shared))
+        outs += [r["outputs"][0] for r in _concurrently([
+            (lambda p=p: _post(base, {"prompts": [p],
+                                      "max_new_tokens": ONLINE_NEW}))
+            for p in shorts])]
+        spilled_out = pool.spill_pages_out
+        t_restore = time.perf_counter()
+        outs.append(_post(base, {"prompts": [shared_prompts[1]],
+                                 "max_new_tokens": ONLINE_NEW})["outputs"][0])
+        restore_req_s = time.perf_counter() - t_restore
+        wall = time.perf_counter() - t0
+        after = pool.export_pages_state(pool.prefix.match(shared))
+        metrics = _metrics(base)
+        launches = dict(flash.LAUNCHES)
+        same_pool = sched.pool is pool
+        counters = (pool.spill_pages_out, pool.spill_pages_in,
+                    pool.prefix_hits)
+    finally:
+        srv.shutdown()
+    n_req = len(outs)
+    check = {
+        "check": f"online_{mode}", "arena_pages": SPILL_ARENA_PAGES,
+        "spill_pages_out": counters[0], "spill_pages_in": counters[1],
+        "spill_pages_out_before_restore": spilled_out,
+        "prefix_hits": counters[2], "one_pool": same_pool,
+        "restored_pages_bit_equal": before["paths"] == after["paths"] and all(
+            a.tobytes() == b.tobytes()
+            for a, b in zip(before["arrays"], after["arrays"])),
+        "requests": [metrics["tpufw_serve_requests_total"], n_req],
+        "tokens": [metrics["tpufw_serve_tokens_generated_total"],
+                   n_req * ONLINE_NEW],
+        "errors": metrics["tpufw_serve_request_errors_total"],
+        "kv_spill_bytes_total": metrics["tpufw_kv_spill_bytes_total"],
+        "kv_spill_pages_ram": metrics['tpufw_kv_spill_pages{tier="ram"}'],
+        "kv_restore_count": metrics["tpufw_kv_restore_seconds_count"],
+        "kv_restore_host_ms_per_page": (
+            metrics["tpufw_kv_restore_seconds_sum"] * 1e3
+            / max(metrics["tpufw_kv_restore_seconds_count"], 1)),
+        "flash_launches": launches,
+    }
+    bad = []
+    if not all(len(o) == ONLINE_NEW and all(0 <= t < vocab for t in o)
+               for o in outs):
+        bad.append("bad output")
+    if any(check[k][0] != check[k][1] for k in ("requests", "tokens")):
+        bad.append("counts")
+    if check["errors"] or any(launches.values()):
+        bad.append("errors or flash launched")
+    if not (same_pool and spilled_out == n_pages
+            and counters[1] == n_pages and counters[2] >= 1):
+        bad.append("spill or restore")
+    if not check["restored_pages_bit_equal"]:
+        bad.append("restored pages differ from the evicted ones")
+    if not (check["kv_spill_bytes_total"] > 0
+            and check["kv_restore_count"] == n_pages):
+        bad.append("spill series")
+    direct = spill_pool_check(torch, model, shared, shared_prompts, kv)
+    check["direct"] = direct
+    check["tol"] = SERVE_LOGITS_TOL
+    if not (direct["pages_bit_equal"]
+            and direct["shared_pages_restored"] == n_pages
+            and direct["first_step_logits_vs_cold"][1] <= SERVE_LOGITS_TOL):
+        bad.append("direct spill check")
+    emit(check)
+    emit({"online_summary": {
+        "mode": mode, "wall_s": wall, "requests": n_req,
+        "restoring_request_s": restore_req_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "device": kind, "nvidia_smi": smi}})
+    if bad:
+        raise AssertionError(f"online {mode}: {bad}")
 
 
 def main() -> int:
@@ -1559,14 +1940,21 @@ def main() -> int:
     # 4. The train slice, counters zeroed just before; 4b. the Gemma-2-9B
     # one and 4c. the DeepSeek MLA one (all 10 layers), each with its own
     # counters zeroed just before it.
+    # The Llama slice first at the default remat policy ("dots"): its
+    # counts are the kernels line's; then the other policies, and a run at
+    # sync_every=4.
     try:
-        launches = train_phase(torch, "llama3_8b", N_LAYERS, gen, kind, smi)
+        launches, dots_losses = train_phase(torch, "llama3_8b", N_LAYERS, gen,
+                                            kind, smi, evaluate=True)
+        torch.cuda.empty_cache()
+        remat_sweep(torch, gen, kind, smi, dots_losses)
+        sync_window_run(torch, kind, smi)
         torch.cuda.empty_cache()
         launches |= train_phase(torch, "gemma2_9b", GEMMA_TRAIN_LAYERS, gen,
-                                kind, smi)
+                                kind, smi)[0]
         torch.cuda.empty_cache()
         launches |= train_phase(torch, "deepseek_mla", MLA_TRAIN_LAYERS, gen,
-                                kind, smi)
+                                kind, smi)[0]
     except AssertionError as e:
         return fail(str(e))
     torch.cuda.empty_cache()

@@ -2,14 +2,15 @@
 """Where the time of one ``tpufw_torch`` train step goes, on one GPU.
 
     python3 scripts/profile_torch_train.py [--model llama3_8b] [--layers N]
-        [--steps 3] [--trace PATH]
+        [--remat-policy dots] [--steps 3] [--trace PATH]
 
 Trains a chip_smoke.py train slice (``--model llama3_8b``:
 ``llama3_8b_train_slice`` in ``tpufw_torch/configs/presets.py``;
 ``--model gemma2_9b``: ``gemma2_9b_train_slice``, whose flash kernels are
 the head-dim-256 builds; ``--model deepseek_mla_bench``:
 ``deepseek_mla_train_slice``, the head-dim-192 builds; depth ``--layers``,
-by default the slice's own: 4, 4 and all 10), runs two warm-up
+by default the slice's own: 4, 4 and all 10; ``--remat-policy``, by
+default the config's "dots"), runs two warm-up
 steps, then traces ``--steps`` steps with ``torch.profiler`` and prints one
 JSON line: wall time per step, device busy time per step (the union of the
 trace's kernel, memcpy and memset intervals), the device's idle share,
@@ -22,6 +23,7 @@ busy time exceeds the wall time, which only a miscount can give.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -105,6 +107,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None)
     ap.add_argument("--model", default="llama3_8b", choices=tuple(SLICES))
+    ap.add_argument("--remat-policy", default=None)
     args = ap.parse_args()
 
     import torch
@@ -119,6 +122,8 @@ def main() -> int:
     depth = {} if args.layers is None else {"n_layers": args.layers}
     cfg, tcfg = getattr(configs, SLICES[args.model])(
         total_steps=2 + args.steps, **depth)
+    if args.remat_policy is not None:
+        cfg = dataclasses.replace(cfg, remat_policy=args.remat_policy)
     trainer = Trainer(cfg, tcfg, device="cuda")
     trainer.init_state(seed=0)
     data = synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size,
@@ -135,6 +140,7 @@ def main() -> int:
     out = trace_breakdown(prof, args.steps, wall, args.trace)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "model": args.model, "layers": cfg.n_layers,
+                      "remat_policy": cfg.remat_policy,
                       "steps_traced": args.steps}
                      | out), flush=True)
     return 0 if out["idle_share"] >= 0.0 else 1

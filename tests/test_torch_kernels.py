@@ -160,3 +160,42 @@ def _check_case(spec, d):
         qf, kf, vf, dof, lse_ref, delta, **masks)
     _assert_close("dk", dk, dk_ref)
     _assert_close("dv", dv, dv_ref)
+
+
+@pytest.mark.cuda
+def test_attn_out_train_step_matches_nothing_on_gpu():
+    """On the card: one Llama train step through the head-dim-128 kernels
+    under remat_policy "attn_out" against "nothing". The policy changes
+    what the forward keeps, never the numbers: the same loss and
+    gradients. Both re-run the attention forward in the backward (two
+    forward launches a layer)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    import dataclasses
+
+    from tpufw_torch.models import LLAMA_CONFIGS, model_for_config
+
+    cfg = dataclasses.replace(
+        LLAMA_CONFIGS["llama3_tiny"], d_model=256, n_heads=4, n_kv_heads=2,
+        head_dim=128, d_ff=512, vocab_size=1024, attention_backend="flash",
+        remat=True,
+    )
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 300))).cuda()
+    out = {}
+    for policy in ("nothing", "attn_out"):
+        model = model_for_config(dataclasses.replace(cfg, remat_policy=policy),
+                                 device="cuda", seed=0)
+        tflash.reset_launch_counts()
+        loss = model(tokens).float().square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        out[policy] = (loss.item(), [p.grad for p in model.parameters()],
+                       dict(tflash.LAUNCHES))
+    (l0, g0, n0), (l1, g1, n1) = out["nothing"], out["attn_out"]
+    assert l1 == l0
+    for a, b in zip(g1, g0):
+        assert torch.equal(a, b)
+    for launches in (n0, n1):
+        assert launches["flash_fwd"] == 2 * cfg.n_layers
+        assert launches["flash_dq"] == launches["flash_dkv"] == cfg.n_layers

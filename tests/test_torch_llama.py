@@ -111,3 +111,12 @@ def test_unported_options_raise():
         cfg = dataclasses.replace(LLAMA_CONFIGS["llama3_tiny"], **{field: value})
         with pytest.raises(NotImplementedError, match=field):
             Llama(cfg, device="cpu")
+
+
+def test_unknown_remat_policy_raises():
+    """tpufw's ValueError for a remat_policy it does not know (the port
+    has no env knob for it, as tpufw has none)."""
+    cfg = dataclasses.replace(LLAMA_CONFIGS["llama3_tiny"], remat=True,
+                              remat_policy="offload")
+    with pytest.raises(ValueError, match="unknown remat_policy 'offload'"):
+        Llama(cfg, device="cpu")

@@ -141,9 +141,10 @@ def test_main_prints_one_line_per_prompt(cpu_env, tmp_path, capsys):
 
 
 UNPORTED = {
-    "SERVE_SLOTS": ("0", "server", NotImplementedError, "item 8"),
-    "KV_SPILL": ("64", "server", NotImplementedError, "item 8"),
-    "KV_SPILL_DIR": ("/spill", "scheduler", NotImplementedError, "item 8"),
+    # Ported knobs keep tpufw's own refusals: the spill tier is
+    # page-granular.
+    "KV_SPILL": ("64", "scheduler", ValueError, "page-granular"),
+    "KV_SPILL_DIR": ("/spill", "scheduler", ValueError, "page-granular"),
     "TELEMETRY_DIR": ("/tel", "server", NotImplementedError, "item 13"),
     "SERVE_ROLE": ("prefill", "main", NotImplementedError, "item 9"),
     "DRAFT_PARAMS_CHECKPOINT": ("/ckpt", "draft", NotImplementedError,

@@ -1,6 +1,7 @@
 """Inference: KV-cache generation, sampling, speculative decoding, the slot
-pool, the paged pool with chunked prefill and the prefix trie (port of
-``tpufw.infer``; the spill tier is ROADMAP.md Queue 1 item 8)."""
+pool, the paged pool with chunked prefill, the prefix trie and the host
+spill tier behind it (``tpufw_torch.infer.spill``) (port of
+``tpufw.infer``)."""
 
 from tpufw_torch.infer.generate import (  # noqa: F401
     cast_decode_params,

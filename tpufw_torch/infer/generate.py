@@ -63,12 +63,14 @@ def pad_prompts(
     return out, pads
 
 
-def _check_budget(model, p: int, max_new_tokens: int) -> None:
+def _check_budget(model, p: int, max_new_tokens: int,
+                  cache_len: Optional[int] = None) -> None:
     """Only p + max_new_tokens − 1 slots are written (the last sampled
-    token is never fed back)."""
+    token is never fed back); the cache holds ``cache_len`` slots
+    (default ``cfg.max_seq_len``)."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-    max_seq = model.cfg.max_seq_len
+    max_seq = model.cfg.max_seq_len if cache_len is None else cache_len
     if p + max_new_tokens - 1 > max_seq:
         raise ValueError(
             f"prompt ({p}) + max_new_tokens ({max_new_tokens}) exceeds "
@@ -189,6 +191,7 @@ def generate(
     eos_id: Optional[int] = None,
     prefill_chunk_size: Optional[int] = None,
     live_rows=None,
+    cache_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Generate continuations: [B, max_new_tokens] int64 on the model's
     device.
@@ -207,13 +210,18 @@ def generate(
         this many positions; a chunk >= the prompt is one pass.
       live_rows: optional [B] bool mask; False rows (batch fillers) start
         done and emit ``pad_id`` from step 1.
+      cache_len: the KV cache's length (default ``cfg.max_seq_len``); the
+        masks make the tokens independent of it. ``tpufw`` builds a model
+        of that ``max_seq_len`` instead (the server's request-sized
+        caches).
     """
     tokens = _on(model, prompt_tokens)
-    _check_budget(model, tokens.shape[1], max_new_tokens)
+    _check_budget(model, tokens.shape[1], max_new_tokens, cache_len)
     cache, token, pos, done, seen = _prefill_and_first(
         model, tokens, _on(model, pad_lens), generator, sampling=sampling,
         eos_id=eos_id, prefill_chunk_size=prefill_chunk_size,
         live_rows=None if live_rows is None else _on(model, live_rows).bool(),
+        cache_len=cache_len,
     )
     out = [token]
     for _ in range(max_new_tokens - 1):
@@ -239,17 +247,18 @@ def generate_stream(
     generator: Optional[torch.Generator] = None,
     prefill_chunk_size: Optional[int] = None,
     live_rows: Optional[Sequence[bool]] = None,
+    cache_len: Optional[int] = None,
 ):
     """Streaming decode: yields [B, n] int64 numpy chunks whose
     concatenation equals ``generate``'s output under the same generator,
     stopping early once every row is past its eos (the dropped tail is
     all pad). The first chunk carries the prefill-sampled token plus
     ``chunk_size`` − 1 steps, later ones ``chunk_size`` steps; the host
-    syncs once per chunk."""
+    syncs once per chunk. ``cache_len`` as in ``generate``."""
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
     tokens, pads = pad_prompts(prompts, pad_id)
-    _check_budget(model, tokens.shape[1], max_new_tokens)
+    _check_budget(model, tokens.shape[1], max_new_tokens, cache_len)
     if generator is None:
         generator = _generator(model, seed)
     cache, token, pos, done, seen = _prefill_and_first(
@@ -257,6 +266,7 @@ def generate_stream(
         sampling=sampling, eos_id=eos_id,
         prefill_chunk_size=prefill_chunk_size,
         live_rows=None if live_rows is None else _on(model, live_rows).bool(),
+        cache_len=cache_len,
     )
     emitted = 1
     pending = [token]
@@ -288,6 +298,7 @@ def generate_text_stream(
     seed: int = 0,
     prefill_chunk_size: Optional[int] = None,
     live_rows: Optional[Sequence[bool]] = None,
+    cache_len: Optional[int] = None,
 ):
     """Ragged streaming wrapper: yields, per chunk, one ``list[int]`` of
     new tokens per row; a row stops after its eos (the eos included), so
@@ -298,6 +309,7 @@ def generate_text_stream(
         max_new_tokens=max_new_tokens, chunk_size=chunk_size,
         sampling=sampling, pad_id=pad_id, eos_id=eos_id, seed=seed,
         prefill_chunk_size=prefill_chunk_size, live_rows=live_rows,
+        cache_len=cache_len,
     ):
         out: list[list[int]] = []
         for i, row in enumerate(chunk):
@@ -320,6 +332,7 @@ def generate_text(
     seed: int = 0,
     prefill_chunk_size: Optional[int] = None,
     live_rows: Optional[Sequence[bool]] = None,
+    cache_len: Optional[int] = None,
 ) -> list[list[int]]:
     """Ragged python prompts in, ragged lists out (truncated after eos)."""
     tokens, pads = pad_prompts(prompts, pad_id)
@@ -327,7 +340,7 @@ def generate_text(
         model, tokens, pads, _generator(model, seed),
         max_new_tokens=max_new_tokens, sampling=sampling, pad_id=pad_id,
         eos_id=eos_id, prefill_chunk_size=prefill_chunk_size,
-        live_rows=live_rows,
+        live_rows=live_rows, cache_len=cache_len,
     )
     result = []
     for toks in out.cpu().tolist():

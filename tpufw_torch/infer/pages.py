@@ -31,12 +31,22 @@ its arena pages right away (quantized per token for int8 KV), and the
 completed full pages are checkpointed into the prefix trie after every
 chunk, so an abandoned prefill resumes from them.
 
+Spill (``trie_spill``/``trie_restore``, wired by
+``tpufw_torch.serve.bundle.attach_spill``): a trie page evicted under
+arena pressure is exported raw (``export_pages_state``: int8 codes and
+page-structured scales as stored) to the host spill tier, and a later
+prompt whose resident match ends where a spilled path continues gets its
+pages scattered back (``import_pages``) and re-adopted by the trie, so
+spill -> restore is bit-equal storage. The page state travels in
+``tpufw``'s bundle layout (the scanned Llama tree's leaf paths, layers
+stacked), so a page spilled by either package restores in the other.
+
 The pool's length, page size and arena belong to its cache
 (``Llama.init_paged_cache``); the model's weights are shared with every
 other pool, and a draft pool may draw its page ids from the target's
 allocator (``create_paged(allocator=)``) into an arena of its own. Not
-ported yet (ROADMAP.md Queue 1 items 8 and 9): page export, import and
-splice (disaggregated serving), the spill hooks.
+ported yet (ROADMAP.md Queue 1 item 9): ``export_slot``/``splice_slot``
+(moving a live slot between replicas).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from tpufw_torch.infer.generate import _on
@@ -52,6 +63,41 @@ from tpufw_torch.infer.sampling import sample_token, track_seen
 from tpufw_torch.infer.slots import SlotPool
 from tpufw_torch.models.deepseek import reject_latent_model
 from tpufw_torch.ops.quant import dequantize_kv, quantize_kv
+
+
+# Bundle leaves of one layer's paged cache, in ``tpufw``'s flattened order:
+# (leaf name in ``tpufw``'s cache tree, PagedKVCache attribute). The
+# scales travel only with an int8 arena.
+_BUNDLE_LEAVES = (
+    ("cached_key", "key"),
+    ("cached_key_scale", "key_scale"),
+    ("cached_segment_ids", "seg"),
+    ("cached_value", "value"),
+    ("cached_value_scale", "value_scale"),
+)
+# Leaf paths of ``tpufw``'s scanned tree (every layer stacked on one
+# leading axis) and of its unscanned twin (one leaf per layer).
+_SCANNED_PATH = "['cache']['layers']['attn']['{}']"
+_LAYER_PATH = "['cache']['layer_{}']['attn']['{}']"
+
+
+def _wire_array(t: torch.Tensor):
+    """(numpy array, wire dtype name) of a host tensor; bf16 travels as
+    its raw 16-bit patterns (numpy has no bfloat16)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    a = t.numpy()
+    return a, a.dtype.name
+
+
+def _from_wire(a, name: str) -> torch.Tensor:
+    """The host tensor of a bundle array (``_wire_array``'s inverse; an
+    ml_dtypes bfloat16 array is read the same way)."""
+    # A decoded bundle's arrays are read-only views of its bytes.
+    a = np.require(a, requirements=["C", "W"])
+    if name == "bfloat16" or a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class PageAllocator:
@@ -186,10 +232,19 @@ class PagedSlotPool(SlotPool):
     allocator: Any = None
     prefix: Any = None
     slot_pages: Any = None  # per-slot page ids this row references
-    # Admission outcomes: requests whose trie match covered >= 1 page
-    # vs not.
+    # Spill-tier callbacks (``serve.bundle.attach_spill``; None = no
+    # spill): trie_spill(path_tokens, state) receives an evicted trie
+    # page's export state; trie_restore(path_tokens) -> state or None
+    # CONSUMES the matching spill entry.
+    trie_spill: Any = None
+    trie_restore: Any = None
+    # Admission outcomes: requests whose trie match (spill restores
+    # included) covered >= 1 page vs not; pages moved across the device
+    # <-> spill boundary.
     prefix_hits: int = 0
     prefix_misses: int = 0
+    spill_pages_out: int = 0
+    spill_pages_in: int = 0
 
     @classmethod
     def create_paged(
@@ -285,8 +340,15 @@ class PagedSlotPool(SlotPool):
         # free them (a page only the trie holds has refcount 0).
         self.allocator.ref(shared)
         try:
+            # Where the resident match ends, the spill tier may still
+            # hold the next chunks: restore them before prefilling.
+            self._extend_shared_from_spill(
+                prompt, shared, (p - 1) // self.page
+            )
             ids = self._alloc_evicting(n_total - len(shared))
         except BaseException:
+            # ``shared`` grew in place: restored pages release too (the
+            # trie's hold keeps them resident).
             self.allocator.release(shared)
             raise
         if ids is None:
@@ -313,6 +375,156 @@ class PagedSlotPool(SlotPool):
         n_full = len(prompt) // self.page
         adopted = self.prefix.insert(prompt, list(page_ids)[:n_full])
         self.allocator.hold(adopted)
+
+    # ---- spill tier -----------------------------------------------
+
+    def _spill_hook(self):
+        """``on_evict`` callback for ``PrefixCache.evict``: export each
+        victim page to the spill tier while its arena content is still
+        valid. Best-effort: a failed spill degrades to a plain eviction
+        and never breaks an admission."""
+        if self.trie_spill is None:
+            return None
+
+        def cb(path_tokens, page_id):
+            try:
+                state = self.export_pages_state([page_id])
+                self.trie_spill(tuple(path_tokens), state)
+                self.spill_pages_out += 1
+            except Exception:  # noqa: BLE001 — best-effort spill
+                pass
+
+        return cb
+
+    def _bundle_leaves(self) -> List[Tuple[str, str]]:
+        quant = self.cache[0].key_scale is not None
+        return [(n, a) for n, a in _BUNDLE_LEAVES
+                if quant or not a.endswith("_scale")]
+
+    @torch.no_grad()
+    def export_pages_state(self, ids: Sequence[int]) -> Dict[str, Any]:
+        """Snapshot arena pages ``ids`` (no slot attached) as a bundle
+        state dict, ``tpufw``'s trie-spill serialization: every layer's
+        K, V and segment ids (and, for int8, the codes' fp32 scales) RAW,
+        stacked over layers under the scanned tree's leaf paths. Cursors
+        are zeroed placeholders that fill the bundle's required header
+        fields; ``import_pages`` ignores them."""
+        idx = _on(self.model, [int(i) for i in ids])
+        paths, arrays, dtypes = [], [], []
+        for name, attr in self._bundle_leaves():
+            t = torch.stack([getattr(c, attr)[idx] for c in self.cache])
+            a, dt = _wire_array(t.cpu())
+            paths.append(_SCANNED_PATH.format(name))
+            arrays.append(a)
+            dtypes.append(dt)
+        return {
+            "page": self.page,
+            "kv_quant": "int8" if self.cache[0].key_scale is not None
+            else "",
+            "n_pages": len(ids),
+            "paths": paths,
+            "arrays": arrays,
+            "dtypes": dtypes,
+            "token": 0, "pos": 0, "remaining": 0, "done": True,
+            "cache_index": 0, "seen": None,
+        }
+
+    @torch.no_grad()
+    def import_pages(
+        self, page_ids: Sequence[int], state: Dict[str, Any]
+    ) -> None:
+        """Scatter a bundle's page payload into arena pages ``page_ids``
+        (already allocated): the restore half of the spill tier. Page
+        size, quant mode, page count and the leaf layout (``tpufw``'s
+        scanned tree, or its unscanned twin with one leaf per layer) are
+        all checked before anything touches the arena. No cursors, no
+        table row: the pages re-enter service through the trie."""
+        if int(state["page"]) != self.page:
+            raise ValueError(
+                f"spill page size {state['page']} != pool page {self.page}"
+            )
+        kv_quant = "int8" if self.cache[0].key_scale is not None else ""
+        if (state.get("kv_quant") or "") != kv_quant:
+            raise ValueError(
+                f"spill kv_quant {state.get('kv_quant')!r} != pool "
+                f"kv_quant {kv_quant!r}"
+            )
+        if len(page_ids) != int(state["n_pages"]):
+            raise ValueError(
+                f"spill bundle carries {state['n_pages']} pages but "
+                f"{len(page_ids)} were allocated"
+            )
+        leaves = self._bundle_leaves()
+        n_layers = len(self.cache)
+        paths = list(state["paths"])
+        arrays = list(state["arrays"])
+        names = list(state.get("dtypes") or [a.dtype.name for a in arrays])
+        per_layer = [_LAYER_PATH.format(i, n) for i in range(n_layers)
+                     for n, _ in leaves]
+        if paths == [_SCANNED_PATH.format(n) for n, _ in leaves]:
+            stacked = [_from_wire(a, d) for a, d in zip(arrays, names)]
+        elif paths == per_layer:
+            k = len(leaves)
+            stacked = [
+                torch.cat([_from_wire(arrays[i * k + j], names[i * k + j])
+                           for i in range(n_layers)])
+                for j in range(k)
+            ]
+        else:
+            raise ValueError(
+                "spill bundle leaf layout does not match this pool (got "
+                f"{paths!r})"
+            )
+        idx = _on(self.model, [int(i) for i in page_ids])
+        for (_, attr), t in zip(leaves, stacked):
+            if t.shape[0] != n_layers:
+                raise ValueError(
+                    f"spill bundle holds {t.shape[0]} layers, the pool "
+                    f"{n_layers}"
+                )
+            t = t.to(self.token.device)
+            for i, c in enumerate(self.cache):
+                dst = getattr(c, attr)
+                dst[idx] = t[i].to(dst.dtype)
+
+    def _extend_shared_from_spill(
+        self, prompt: Sequence[int], shared: List[int], cap: int
+    ) -> None:
+        """Extend a trie match chunk by chunk from the spill tier: while
+        the NEXT full-page chunk of ``prompt`` has a spill entry, allocate
+        one page (its allocation reference IS the row's reference, as
+        ``ref(shared)`` is for matched pages), scatter the bytes back and
+        re-adopt the path into the trie (held), so later requests hit it
+        resident. Mutates ``shared`` in place.
+
+        Best-effort and non-raising: under arena pressure (allocation
+        fails) it stops rather than evicting (restoring by evicting would
+        churn pages through the tier), and a torn or mismatched entry
+        stops the walk; the row prefills the rest."""
+        if self.trie_restore is None or self.prefix is None:
+            return
+        while len(shared) < cap:
+            end = (len(shared) + 1) * self.page
+            try:
+                state = self.trie_restore(
+                    tuple(int(t) for t in prompt[:end])
+                )
+            except Exception:  # noqa: BLE001 — best-effort restore
+                return
+            if state is None:
+                return
+            ids = self.allocator.alloc(1)
+            if ids is None:
+                return
+            try:
+                self.import_pages(ids, state)
+            except Exception:  # noqa: BLE001 — best-effort restore
+                self.allocator.release(ids)
+                return
+            adopted = self.prefix.insert(prompt[:end], shared + ids)
+            self.allocator.hold(adopted)
+            shared.extend(ids)
+            self.spill_pages_in += 1
 
     # ---- device ops -----------------------------------------------
 
@@ -440,7 +652,8 @@ class PagedSlotPool(SlotPool):
         list is short; None if even that does not free enough."""
         ids = self.allocator.alloc(n)
         if ids is None and self.prefix is not None:
-            self.prefix.evict(n - self.allocator.n_free, self.allocator)
+            self.prefix.evict(n - self.allocator.n_free, self.allocator,
+                              on_evict=self._spill_hook())
             ids = self.allocator.alloc(n)
         return ids
 
@@ -465,6 +678,11 @@ class PagedSlotPool(SlotPool):
             shared = self.prefix.match(prompt)[: (p - 1) // self.page]
         self.allocator.ref(shared)
         try:
+            # The spill tier continues the resident match, as in
+            # acquire_pages (restored pages join the deferred attach).
+            self._extend_shared_from_spill(
+                prompt, shared, (p - 1) // self.page
+            )
             if self.prefix is not None and p > 1:
                 if shared:
                     self.prefix_hits += 1

@@ -20,13 +20,15 @@ Sharing and lifetime are split across two owners:
   their origin row, until ``evict`` drops refcount-0 leaves LRU-first
   under memory pressure.
 
-Not ported with it: the spill tier's eviction hook and path walk
-(``on_evict``, ``paths``, ``version``; ROADMAP.md Queue 1 items 8 and 9).
+The spill tier (``tpufw_torch.infer.spill``) rides on ``evict``'s
+``on_evict`` hook, which sees each victim's full token path before its
+page is dropped; ``version`` and ``paths`` serve the prefix digests of
+``tpufw_torch.serve.bundle.advertised_digests``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 
 class _Node:
@@ -54,6 +56,9 @@ class PrefixCache:
         self.root = _Node(None, None, -1)
         self._tick = 0
         self._n_nodes = 0
+        #: Content version: bumps on insert and evict, NOT on match, so
+        #: a digest walk can be cached until the resident set changes.
+        self.version = 0
 
     def _chunks(self, tokens: Sequence[int]) -> List[Tuple[int, ...]]:
         p = self.page_size
@@ -94,17 +99,42 @@ class PrefixCache:
                 child = _Node(node, chunk, int(pid))
                 node.children[chunk] = child
                 self._n_nodes += 1
+                self.version += 1
                 adopted.append(int(pid))
             self._tick += 1
             child.stamp = self._tick
             node = child
         return adopted
 
-    def evict(self, n: int, allocator) -> List[int]:
+    @staticmethod
+    def _path_tokens(node: _Node) -> Tuple[int, ...]:
+        """Full token path from the root to ``node`` (a page's K/V is only
+        valid under its ancestors, so the path IS a spill entry's
+        identity)."""
+        chunks: List[Tuple[int, ...]] = []
+        while node.parent is not None:
+            chunks.append(node.key)
+            node = node.parent
+        out: List[int] = []
+        for chunk in reversed(chunks):
+            out.extend(chunk)
+        return tuple(out)
+
+    def evict(
+        self,
+        n: int,
+        allocator,
+        on_evict: "Optional[Callable[[Tuple[int, ...], int], None]]" = None,
+    ) -> List[int]:
         """Drop up to ``n`` refcount-0 LEAF pages, least-recently-used
         first, cascading into parents as they become leaves. Returns
         the dropped page ids (``allocator.drop`` already ran: ids are
-        free iff no row still references them)."""
+        free iff no row still references them).
+
+        ``on_evict(path_tokens, page_id)`` fires BEFORE the drop, while
+        the page's arena bytes are still valid: the spill tier's hook,
+        which copies the page to host memory so the eviction frees
+        device memory without forgetting the K/V."""
         dropped: List[int] = []
         while len(dropped) < n:
             victim = None
@@ -120,11 +150,36 @@ class PrefixCache:
                     stack.extend(node.children.values())
             if victim is None:
                 break
+            if on_evict is not None:
+                on_evict(self._path_tokens(victim), victim.page)
             del victim.parent.children[victim.key]
             self._n_nodes -= 1
+            self.version += 1
             allocator.drop([victim.page])
             dropped.append(victim.page)
         return dropped
+
+    def paths(
+        self, max_depth: int, limit: int = 0
+    ) -> List[Tuple[int, ...]]:
+        """Token paths of every resident node up to ``max_depth`` chunks
+        deep (optionally capped at ``limit`` paths): the digest walk.
+        Read-only: no LRU touch, no version bump."""
+        out: List[Tuple[int, ...]] = []
+        stack: List[Tuple[_Node, Tuple[int, ...], int]] = [
+            (self.root, (), 0)
+        ]
+        while stack:
+            node, toks, depth = stack.pop()
+            if depth >= max_depth:
+                continue
+            for chunk, child in node.children.items():
+                path = toks + chunk
+                out.append(path)
+                if limit and len(out) >= limit:
+                    return out
+                stack.append((child, path, depth + 1))
+        return out
 
     def __len__(self) -> int:
         return self._n_nodes

@@ -134,6 +134,7 @@ def speculative_generate(
     live_rows=None,
     sampling: SamplingConfig = SamplingConfig(),
     prefill_chunk_size: Optional[int] = None,
+    cache_len: Optional[int] = None,
 ) -> tuple[torch.Tensor, dict]:
     """Decode ``model`` with ``draft_model`` speculation.
 
@@ -148,7 +149,9 @@ def speculative_generate(
 
     ``live_rows`` ([B] bool) names the rows whose acceptance counts
     toward the batch min; filler rows' outputs are not validated past
-    their own match point and must be discarded.
+    their own match point and must be discarded. ``cache_len`` is both
+    caches' length (default each model's ``max_seq_len``), as in
+    ``generate``.
     """
     for m in (draft_model, model):
         reject_latent_model(m, "speculative decoding")
@@ -169,7 +172,7 @@ def speculative_generate(
     for m, who in ((model, "model"), (draft_model, "draft_model")):
         # The verify block may overrun the accepted stream by up to k
         # slots before the rollback.
-        max_seq = m.cfg.max_seq_len
+        max_seq = m.cfg.max_seq_len if cache_len is None else cache_len
         if p + max_new_tokens + k > max_seq:
             raise ValueError(
                 f"prompt ({p}) + max_new_tokens ({max_new_tokens}) + k ({k}) "
@@ -180,10 +183,10 @@ def speculative_generate(
     seg = (col >= pads[:, None]).to(torch.int32)
     positions = torch.clamp(col - pads[:, None], min=0)
     t_logits, t_cache = prefill_cache(
-        model, tokens, positions, seg, prefill_chunk_size
+        model, tokens, positions, seg, prefill_chunk_size, cache_len
     )
     _, d_cache = prefill_cache(
-        draft_model, tokens, positions, seg, prefill_chunk_size
+        draft_model, tokens, positions, seg, prefill_chunk_size, cache_len
     )
     vocab = t_logits.shape[-1]
     seen = None
@@ -334,6 +337,7 @@ def speculative_generate_text(
     seed: int = 0,
     generator: Optional[torch.Generator] = None,
     prefill_chunk_size: Optional[int] = None,
+    cache_len: Optional[int] = None,
 ) -> tuple[list[list[int]], dict]:
     """Ragged python prompts in, ragged lists out (truncated after EOS),
     as ``generate_text``; an explicit ``generator`` wins over ``seed``.
@@ -345,7 +349,7 @@ def speculative_generate_text(
         draft_model, model, tokens, pads, generator,
         max_new_tokens=max_new_tokens, k=k, pad_id=pad_id, eos_id=eos_id,
         live_rows=live_rows, sampling=sampling,
-        prefill_chunk_size=prefill_chunk_size,
+        prefill_chunk_size=prefill_chunk_size, cache_len=cache_len,
     )
     result = []
     for toks in out.cpu().tolist():

@@ -25,9 +25,7 @@ Multi-head Latent Attention (MLA) on the Llama trunk
 
 Differs from the JAX package: there is no ``scan_layers`` (the blocks are
 one ``nn.ModuleList``; ``tpufw_torch.interop.params_from_flax`` takes
-scanned and unscanned trees), and remat recomputes the whole block in
-backward where the JAX package keeps the matmul outputs
-(``remat_policy="dots"``). Not ported yet, and refused with
+scanned and unscanned trees). Not ported yet, and refused with
 ``NotImplementedError`` (``_reject_unported``): the MoE FFN, paged latent
 arenas and per-row cursors (the slot pools), and the sequence-parallel
 backends.
@@ -113,8 +111,10 @@ class DeepseekConfig:
     attention_backend: str = "xla"
     # Kept for the MoE port (ROADMAP.md Queue 1 item 10).
     moe_dispatch: str = "einsum"
-    # Recompute each block in backward (see the module docstring).
+    # Checkpoint each block in training, keeping what remat_policy names
+    # (tpufw_torch.models.llama.REMAT_POLICIES).
     remat: bool = True
+    remat_policy: str = "dots"
     decode: bool = False
     tie_embeddings: bool = False
     # Int8 projection weights + fp32 per-output-channel scales (serving);
@@ -456,9 +456,15 @@ class DeepseekBlock(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.mlp = MLP(cfg, gen, device)
 
-    def forward(self, x, positions, segment_ids=None, cache=None):
-        x = x + self.attn(self.attn_norm(x), positions, segment_ids, cache)
+    def attend(self, x, positions, segment_ids=None, cache=None):
+        return self.attn(self.attn_norm(x), positions, segment_ids, cache)
+
+    def merge(self, x, a):
+        x = x + a
         return x + self.mlp(self.mlp_norm(x))
+
+    def forward(self, x, positions, segment_ids=None, cache=None):
+        return self.merge(x, self.attend(x, positions, segment_ids, cache))
 
 
 class Deepseek(Llama):

@@ -20,10 +20,6 @@ JAX package:
   ``tpufw_torch.interop.params_from_flax`` unstacks the pairs;
 - q scaled by query_pre_attn_scalar**-0.5 instead of head_dim**-0.5 (the
   two agree for 2b and 9b).
-
-Differs from the JAX package in one training detail: remat recomputes the
-whole block in backward (``torch.utils.checkpoint``), where the JAX
-package keeps the matmul outputs (``remat_policy="dots"``).
 """
 
 from __future__ import annotations
@@ -54,8 +50,10 @@ class GemmaConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     attention_backend: str = "xla"
-    # Recompute each block in backward (see the module docstring).
+    # Checkpoint each block in training, keeping what remat_policy names
+    # (tpufw_torch.models.llama.REMAT_POLICIES).
     remat: bool = True
+    remat_policy: str = "dots"
     decode: bool = False
     # Gemma-2 specifics (read by the shared trunk via getattr).
     attn_logit_soft_cap: Optional[float] = 50.0
@@ -132,11 +130,17 @@ class GemmaBlock(nn.Module):
         self.mlp = MLP(cfg, gen, device)
         self.post_mlp_norm = RMSNorm(d, eps, device, offset=True)
 
-    def forward(self, x, positions, segment_ids=None, cache=None):
-        a = self.attn(self.pre_attn_norm(x), positions, segment_ids, cache)
+    def attend(self, x, positions, segment_ids=None, cache=None):
+        return self.attn(self.pre_attn_norm(x), positions, segment_ids,
+                         cache)
+
+    def merge(self, x, a):
         x = x + self.post_attn_norm(a)
         m = self.mlp(self.pre_mlp_norm(x))
         return x + self.post_mlp_norm(m)
+
+    def forward(self, x, positions, segment_ids=None, cache=None):
+        return self.merge(x, self.attend(x, positions, segment_ids, cache))
 
 
 class Gemma(Llama):

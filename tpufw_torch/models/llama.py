@@ -2,8 +2,10 @@
 
 Same numerics as the JAX model: activations in ``cfg.dtype`` (bf16), fp32
 master weights cast to ``cfg.dtype`` at every projection, RMSNorm and
-RoPE in fp32, the untied LM head in fp32. Each block is recomputed in the
-backward pass under ``cfg.remat`` (``torch.utils.checkpoint``).
+RoPE in fp32, the untied LM head in fp32. Under ``cfg.remat`` each block
+runs under ``torch.utils.checkpoint`` with ``cfg.remat_policy`` choosing
+what the forward keeps for the backward (``remat_block``), as the JAX
+policies do; the policy changes memory and time, never the numbers.
 Attention goes through ``tpufw_torch.ops.multi_head_attention``, so the
 CUDA flash kernels drop in with ``attention_backend="flash"``.
 
@@ -40,7 +42,11 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tpufw_torch.ops import multi_head_attention, rms_norm
 from tpufw_torch.ops.loss import head_logits
@@ -78,9 +84,12 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     attention_backend: str = "xla"
-    # Recompute each block in backward (the JAX "nothing" remat policy:
-    # only the block inputs are kept).
+    # Checkpoint each block in training, keeping what remat_policy names
+    # (REMAT_POLICIES): "dots" (every projection output), "nothing"
+    # (the block input only), "everything" (no recompute), "attn_out"
+    # (the block input and the attention output).
     remat: bool = True
+    remat_policy: str = "dots"
     # False = bidirectional attention.
     causal: bool = True
     # Mistral-style local attention on every layer (None = global).
@@ -615,6 +624,10 @@ class MLP(nn.Module):
 
 
 class LlamaBlock(nn.Module):
+    """Pre-norm attention and MLP, each with a residual. Every family's
+    block splits as ``merge(x, attend(x, ...))``: ``attend``'s output is
+    the tensor ``tpufw`` tags "attn_out" for its remat policy."""
+
     def __init__(self, cfg: LlamaConfig, gen, device=None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
@@ -622,9 +635,64 @@ class LlamaBlock(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.mlp = MLP(cfg, gen, device)
 
-    def forward(self, x, positions, segment_ids=None, cache=None):
-        x = x + self.attn(self.attn_norm(x), positions, segment_ids, cache)
+    def attend(self, x, positions, segment_ids=None, cache=None):
+        return self.attn(self.attn_norm(x), positions, segment_ids, cache)
+
+    def merge(self, x, a):
+        x = x + a
         return x + self.mlp(self.mlp_norm(x))
+
+    def forward(self, x, positions, segment_ids=None, cache=None):
+        return self.merge(x, self.attend(x, positions, segment_ids, cache))
+
+
+# Remat policies, as ``tpufw.models.llama._REMAT_POLICIES`` names them.
+REMAT_POLICIES = ("attn_out", "dots", "everything", "nothing")
+# "dots" is JAX's checkpoint_dots_with_no_batch_dims: it keeps the output
+# of every matmul WITHOUT batch dims, i.e. the projections' x @ W (an
+# aten.mm, or addmm with a bias, at dispatch), and recomputes the rest:
+# the norms, rope, the attention's batched products and the flash
+# kernels, the activations.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def check_remat_policy(cfg) -> None:
+    """ValueError for an unknown ``remat_policy`` of a model that remats
+    (``tpufw`` raises the same when it builds the remat)."""
+    name = getattr(cfg, "remat_policy", "dots")
+    if cfg.remat and name not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {name!r}; choose from "
+            f"{sorted(REMAT_POLICIES)}"
+        )
+
+
+def remat_block(block, policy: str, x, positions, segment_ids):
+    """``block``'s training forward under ``policy``: "everything" runs
+    it plainly; "nothing" checkpoints it whole, keeping its input;
+    "dots" checkpoints it keeping every projection output (selective
+    checkpointing); "attn_out" checkpoints ``attend`` and ``merge``
+    apart, so the attention output is kept and both halves are
+    recomputed from what was kept."""
+    if policy == "everything":
+        return block(x, positions, segment_ids)
+    if policy == "attn_out":
+        a = checkpoint(block.attend, x, positions, segment_ids,
+                       use_reentrant=False)
+        return checkpoint(block.merge, x, a, use_reentrant=False)
+    kw = {"context_fn": _dots_context} if policy == "dots" else {}
+    return checkpoint(block, x, positions, segment_ids, use_reentrant=False,
+                      **kw)
 
 
 def _reject_unported(cfg: LlamaConfig) -> None:
@@ -656,6 +724,7 @@ class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
         _reject_unported(cfg)
+        check_remat_policy(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         # The meta device (shapes only, no memory) has no generator.
@@ -795,13 +864,12 @@ class Llama(nn.Module):
             # tpufw do (bf16 rounding included).
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
+        policy = getattr(cfg, "remat_policy", "dots")
         for i, block in enumerate(self.layers):
             if cache is not None:
                 x = block(x, positions, segment_ids, cache[i])
             elif remat:
-                x = checkpoint(
-                    block, x, positions, segment_ids, use_reentrant=False
-                )
+                x = remat_block(block, policy, x, positions, segment_ids)
             else:
                 x = block(x, positions, segment_ids)
         x = self.final_norm(x)

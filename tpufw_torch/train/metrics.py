@@ -22,6 +22,9 @@ class StepMetrics:
     mfu: float
     # Host time spent waiting on the data iterator before this step.
     data_wait_s: float = 0.0
+    # Steps averaged into this entry (sync_every > 1 meters a WINDOW of
+    # steps per host sync; step and loss are the window's last step's).
+    window_steps: int = 1
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -45,14 +48,19 @@ class Meter:
     def start(self) -> None:
         self._t0 = time.perf_counter()
 
-    def stop(self, step: int, loss, data_wait_s: float = 0.0) -> StepMetrics:
+    def stop(self, step: int, loss, data_wait_s: float = 0.0,
+             n_steps: int = 1) -> StepMetrics:
         """``loss`` may be a device tensor: ``float(loss)`` copies it to
         the host, which waits for the step's work on the CUDA stream, and
-        only then is the clock read."""
+        only then is the clock read. ``n_steps`` > 1: the time covers a
+        window of that many steps; step time, throughput and
+        ``data_wait_s`` (pass the window's sum) are given per step."""
         if self._t0 is None:
             raise RuntimeError("Meter.stop() without start()")
         loss = float(loss)
-        dt = time.perf_counter() - self._t0
+        n = max(n_steps, 1)
+        dt = (time.perf_counter() - self._t0) / n
+        data_wait_s = data_wait_s / n
         self._t0 = None
         tps = self.tokens_per_step / dt
         mfu = tps * self.flops_per_token / self.chip.peak_bf16_flops
@@ -63,6 +71,7 @@ class Meter:
             tokens_per_sec_per_gpu=tps,
             mfu=mfu,
             data_wait_s=data_wait_s,
+            window_steps=n_steps,
         )
 
 

@@ -6,6 +6,13 @@ same steps: ``clip_by_global_norm(1.0)``, then AdamW
 (b1 .9, b2 .95, eps 1e-8 outside the square root, weight decay .1 on every
 parameter) under ``warmup_cosine_decay_schedule(0, lr, warmup, total,
 0.1 * lr)``, evaluated at the pre-increment step count as optax does.
+``adam_mu_dtype`` stores the first moment in another dtype (optax's
+``adamw(mu_dtype=)``).
+
+``Trainer.run`` syncs the host on the loss every ``sync_every`` steps
+(after the first and the last too), metering each window of steps as one
+``StepMetrics``, and runs the held-out evaluation (``Trainer.evaluate``)
+every ``eval_every`` steps at those sync points.
 """
 
 from __future__ import annotations
@@ -99,7 +106,17 @@ class LlamaAdamW:
     The update is ``torch.optim.AdamW(fused=True)``, which matches optax's
     ``adamw``: decay on the pre-update parameter, eps outside the square
     root, the same bias correction. The clip and the learning rate at the
-    pre-increment count are applied around it."""
+    pre-increment count are applied around it.
+
+    ``mu_dtype`` (e.g. ``"bfloat16"``; None: the parameters' dtype) stores
+    the first moment in that dtype, the second staying in the
+    parameters'. The fused AdamW keeps both in the parameters' dtype, so
+    this takes an update of its own with optax's ``adamw(mu_dtype=)``
+    arithmetic, op for op as optax runs it eagerly: the new moment
+    ``(1 - b1) * g + b1 * mu`` (the decayed term rounded in ``mu_dtype``)
+    is bias-corrected and applied at the gradients' precision, and only
+    then rounded into storage. Compiled, XLA may fuse the bf16 product
+    without its rounding, so the two differ by an ulp of the moment."""
 
     def __init__(
         self,
@@ -112,16 +129,27 @@ class LlamaAdamW:
         b1: float = 0.9,
         b2: float = 0.95,
         eps: float = 1e-8,
+        mu_dtype: Optional[str] = None,
     ):
         self.params = [p for p in params if p.requires_grad]
         self.lr, self.warmup = lr, warmup_steps
         self.decay_steps = max(total_steps, warmup_steps + 1)
         self.grad_clip = grad_clip
         self.count = 0
-        self.adamw = torch.optim.AdamW(
-            self.params, lr=0.0, betas=(b1, b2), eps=eps,
-            weight_decay=weight_decay, fused=True,
-        )
+        self.adamw = None
+        self.mu = self.nu = None
+        if mu_dtype is None:
+            self.adamw = torch.optim.AdamW(
+                self.params, lr=0.0, betas=(b1, b2), eps=eps,
+                weight_decay=weight_decay, fused=True,
+            )
+            return
+        dtype = getattr(torch, mu_dtype, None)
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"adam_mu_dtype={mu_dtype!r} is not a torch dtype")
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        self.mu = [torch.zeros_like(p, dtype=dtype) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
 
     def schedule(self, count: int) -> float:
         return warmup_cosine_decay(
@@ -142,16 +170,42 @@ class LlamaAdamW:
         torch._foreach_mul_(grads, torch.where(
             g_norm < self.grad_clip, 1.0, self.grad_clip / g_norm
         ))
-        for group in self.adamw.param_groups:
-            group["lr"] = self.schedule(self.count)
+        lr = self.schedule(self.count)
         self.count += 1
+        if self.adamw is None:
+            self._mu_dtype_step(grads, lr)
+            return g_norm
+        for group in self.adamw.param_groups:
+            group["lr"] = lr
         self.adamw.step()
         return g_norm
 
+    def _mu_dtype_step(self, grads, lr: float) -> None:
+        """optax ``scale_by_adam(mu_dtype=)``, ``add_decayed_weights`` and
+        the learning rate, per parameter."""
+        b1, b2 = self.b1, self.b2
+        # 1 - decay**count in fp32, as optax computes it.
+        f32 = dict(dtype=torch.float32, device=self.params[0].device)
+        count = torch.tensor(float(self.count), **f32)
+        bc1 = 1.0 - torch.tensor(b1, **f32) ** count
+        bc2 = 1.0 - torch.tensor(b2, **f32) ** count
+        b1_mu = torch.tensor(b1, dtype=self.mu[0].dtype, device=f32["device"])
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            # optax's ``(1 - b1) * g + b1 * mu``: JAX's weak-typed b1
+            # takes mu's dtype, so the decayed moment is a product of two
+            # values in mu's dtype; the sum is in the gradients'.
+            m = (1.0 - b1) * g + (mu * b1_mu).to(g.dtype)
+            nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
+            upd = (m / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            p.add_(upd + self.weight_decay * p, alpha=-lr)
+            mu.copy_(m)
 
-def default_optimizer(params, lr=3e-4, warmup_steps=100, total_steps=10_000):
+
+def default_optimizer(params, lr=3e-4, warmup_steps=100, total_steps=10_000,
+                      mu_dtype=None):
     return LlamaAdamW(
-        params, lr=lr, warmup_steps=warmup_steps, total_steps=total_steps
+        params, lr=lr, warmup_steps=warmup_steps, total_steps=total_steps,
+        mu_dtype=mu_dtype,
     )
 
 
@@ -193,6 +247,46 @@ def train_step(
     return {"loss": loss.detach(), "grad_norm": grad_norm}
 
 
+@torch.no_grad()
+def eval_step(
+    model: Llama,
+    batch: dict,
+    loss_chunk_size: Optional[int] = None,
+    loss_chunk_dtype: str = "bfloat16",
+) -> dict:
+    """Forward-only objective on one held-out batch: {loss, n_tokens}."""
+    loss, n = batch_loss(model, batch, loss_chunk_size, loss_chunk_dtype)
+    return {"loss": loss, "n_tokens": n}
+
+
+def run_evaluation(data, n_batches, eval_batch_fn) -> dict:
+    """The token-weighted held-out eval loop: accumulate the {loss,
+    n_tokens} of ``eval_batch_fn(batch)`` over up to ``n_batches`` batches
+    (None: until the iterator ends) and report {eval_loss, eval_ppl,
+    eval_tokens, eval_batches}."""
+    total_loss = total_n = 0.0
+    n_seen = 0
+    for i, batch in enumerate(data):
+        if n_batches is not None and i >= n_batches:
+            break
+        if not isinstance(batch, dict):
+            batch = {"tokens": batch}
+        out = eval_batch_fn(batch)
+        n = float(out["n_tokens"])
+        total_loss += float(out["loss"]) * n
+        total_n += n
+        n_seen += 1
+    if n_seen == 0:
+        raise ValueError("evaluate(): empty eval iterator")
+    loss = total_loss / max(total_n, 1.0)
+    return {
+        "eval_loss": loss,
+        "eval_ppl": math.exp(min(loss, 50.0)),
+        "eval_tokens": int(total_n),
+        "eval_batches": n_seen,
+    }
+
+
 def batch_to_device(batch: dict, device: torch.device) -> dict:
     return {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
@@ -214,6 +308,18 @@ class TrainerConfig:
     loss_chunk_dtype: str = "bfloat16"
     # Microbatches per optimizer step (1 = off).
     grad_accum: int = 1
+    # Held-out evaluation: every eval_every steps (0 = off) run
+    # eval_batches forward-only batches of ``Trainer.run(eval_data=...)``.
+    eval_every: int = 0
+    eval_batches: int = 8
+    # Adam first-moment storage dtype (None: the parameters'; "bfloat16"
+    # halves the buffer, see LlamaAdamW).
+    adam_mu_dtype: Optional[str] = None
+    # Steps between host syncs on the loss (1 = every step). The loop
+    # also syncs after the first step and the last; metrics then carry
+    # window averages (StepMetrics.window_steps) and eval runs at sync
+    # points only, so align eval_every to a multiple of sync_every.
+    sync_every: int = 1
 
 
 class Trainer:
@@ -248,6 +354,7 @@ class Trainer:
             lr=self.cfg.lr,
             warmup_steps=self.cfg.warmup_steps,
             total_steps=self.cfg.total_steps,
+            mu_dtype=self.cfg.adam_mu_dtype,
         )
         self.step = 0
         return self.model
@@ -265,12 +372,34 @@ class Trainer:
         self.step += 1
         return out
 
+    def evaluate(
+        self, data: Iterator[dict], n_batches: Optional[int] = None
+    ) -> dict:
+        """Token-weighted held-out loss and perplexity over ``n_batches``
+        (None: until the iterator ends), with the training objective
+        (``batch_loss``), so eval_loss compares with the train curve. The
+        model and optimizer are left as they were."""
+        if self.model is None:
+            raise RuntimeError("evaluate() before init_state()")
+        return run_evaluation(
+            data, n_batches,
+            lambda b: eval_step(
+                self.model, batch_to_device(b, self.device),
+                self.cfg.loss_chunk_size, self.cfg.loss_chunk_dtype,
+            ),
+        )
+
     def run(
         self,
         data: Iterator[dict],
         model_flops_per_token: float,
         on_metrics: Callable[[StepMetrics], None] | None = None,
+        eval_data: Callable[[], Iterator[dict]] | None = None,
+        on_eval: Callable[[dict], None] | None = None,
     ) -> list[StepMetrics]:
+        """Train up to ``total_steps``; one ``StepMetrics`` per host sync.
+        ``eval_data`` makes a fresh held-out iterator per evaluation;
+        ``on_eval`` receives each result with its "step"."""
         if self.model is None:
             self.init_state()
         meter = Meter(
@@ -279,14 +408,43 @@ class Trainer:
             chip=detect_chip(self.device),
         )
         remaining = max(0, self.cfg.total_steps - self.step)
+        se = max(1, self.cfg.sync_every)
+        window_n, window_wait = 0, 0.0
         history: list[StepMetrics] = []
+        m = None
         for i, (wait, batch) in enumerate(timed_batches(data)):
             if i >= remaining:
                 break
-            meter.start()
+            if window_n == 0:
+                meter.start()
             m = self.train_step(batch)
-            sm = meter.stop(self.step, m["loss"], data_wait_s=wait)
+            window_n += 1
+            window_wait += wait
+            # Sync after the first step, at multiples of sync_every (so
+            # an aligned eval_every fires) and after the last.
+            if not (i == 0 or self.step % se == 0 or i + 1 == remaining):
+                continue
+            sm = meter.stop(self.step, m["loss"], data_wait_s=window_wait,
+                            n_steps=window_n)
+            window_n, window_wait = 0, 0.0
             history.append(sm)
-            if on_metrics and i % self.cfg.log_every == 0:
+            if on_metrics and (se > 1 or i % self.cfg.log_every == 0):
+                on_metrics(sm)
+            self._maybe_eval(eval_data, on_eval)
+        if window_n:
+            # The iterator ended mid-window: meter the steps it ran.
+            sm = meter.stop(self.step, m["loss"], data_wait_s=window_wait,
+                            n_steps=window_n)
+            history.append(sm)
+            if on_metrics:
                 on_metrics(sm)
         return history
+
+    def _maybe_eval(self, eval_data, on_eval) -> None:
+        every = self.cfg.eval_every
+        if not (every and eval_data is not None) or self.step % every:
+            return
+        ev = self.evaluate(eval_data(), self.cfg.eval_batches)
+        ev["step"] = self.step
+        if on_eval:
+            on_eval(ev)

@@ -11,7 +11,10 @@
   ``tpufw_serve_*`` series as the JAX server). Requests are served by
   ``_SlotScheduler``: continuous batching at decode-step granularity over
   a slot pool, contiguous or, with ``TPUFW_SERVE_PAGE`` > 0, paged with
-  prefix sharing and optional int8 KV (``TPUFW_SERVE_KV_QUANT=int8``).
+  prefix sharing, optional int8 KV (``TPUFW_SERVE_KV_QUANT=int8``) and an
+  optional host spill tier for evicted prefix pages; or, with
+  ``TPUFW_SERVE_SLOTS=0``, by ``_Batcher``, which coalesces the waiting
+  requests into one batched generate call per tick.
 
 Knobs, as in the JAX workload: ``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``,
 ``GEMMA_CONFIGS`` or ``DEEPSEEK_CONFIGS`` preset, e.g. ``gemma2_9b`` or
@@ -25,11 +28,15 @@ model serves in batch mode only), ``TPUFW_MAX_SEQ_LEN``,
 ``TPUFW_DEVICE`` (default ``cuda``); speculative decoding with a draft
 model, ``TPUFW_DRAFT_MODEL`` (a preset of either family, weights drawn
 from ``TPUFW_SEED`` + 1) and ``TPUFW_DRAFT_K`` (4), in batch mode and as
-the server's draft pool; for the server ``TPUFW_SERVE_SLOTS``
-(8), ``TPUFW_SERVE_CHUNK`` (default ``TPUFW_STREAM_CHUNK``, 16),
+the server's draft pool (whole-batch speculation in the tick batcher);
+for the server ``TPUFW_SERVE_SLOTS`` (8; 0 = the tick batcher, with
+``TPUFW_BATCH_MAX_ROWS`` (64) and ``TPUFW_WARMUP_BUCKETS`` ("1")),
+``TPUFW_SERVE_CHUNK`` (default ``TPUFW_STREAM_CHUNK``, 16),
 ``TPUFW_SERVE_CACHE_FLOOR`` (128), ``TPUFW_BATCH_WAIT_MS`` (5),
 ``TPUFW_SERVE_PAGE``, ``TPUFW_SERVE_KV_QUANT``,
-``TPUFW_SERVE_PREFIX_CACHE`` (on), ``TPUFW_SERVE_PREFILL_CHUNK`` (chunked
+``TPUFW_SERVE_PREFIX_CACHE`` (on), ``TPUFW_KV_SPILL`` (the spill tier's
+host budget in pages) and ``TPUFW_KV_SPILL_DIR`` (its directory tier;
+both need ``TPUFW_SERVE_PAGE``), ``TPUFW_SERVE_PREFILL_CHUNK`` (chunked
 paged prefill, in pages per chunk; needs ``TPUFW_SERVE_PAGE``),
 ``TPUFW_SERVE_SPEC_K`` (speculative passes of k drafts on the slot pool),
 ``TPUFW_SERVE_SPEC_DRAFT`` (empty or ``ngram``: n-gram self-drafting; a
@@ -39,10 +46,9 @@ preset name: a draft pool of that model), ``TPUFW_SERVE_SPEC_MIN_ACCEPT``
 ``TPUFW_SEED``. Speculation on the slot pool does not compose with a
 repetition penalty: such pools decode plainly, as in the JAX workload.
 
-Not ported yet, and refused with ``NotImplementedError``: the tick batcher
-(``TPUFW_SERVE_SLOTS=0``) and the KV spill tier (``TPUFW_KV_SPILL``,
-``TPUFW_KV_SPILL_DIR``), the rest of ROADMAP.md Queue 1 item 8; the
-disaggregated roles and page export (``TPUFW_SERVE_ROLE``; item 9);
+Not ported yet, and refused with ``NotImplementedError``: the
+disaggregated roles and page export (``TPUFW_SERVE_ROLE``; ROADMAP.md
+Queue 1 item 9);
 telemetry (``TPUFW_TELEMETRY_DIR``, so ``GET /debug/profile`` answers
 404; item 13); loading weights (``TPUFW_CHECKPOINT_DIR``,
 ``TPUFW_PARAMS_CHECKPOINT``, ``TPUFW_HF_CHECKPOINT``,
@@ -509,6 +515,196 @@ class _Metrics:
         return self.registry.render()
 
 
+class _Batcher:
+    """Continuous batching at request granularity: the tick batcher
+    behind ``TPUFW_SERVE_SLOTS=0`` (port of the JAX ``_Batcher``).
+
+    Requests enqueue; one worker thread drains the queue per tick,
+    coalescing every waiting request into ONE batched generate call (rows
+    concatenated, padded to a power of two; max_new_tokens run to the
+    tick's power-of-two bucket and sliced per request). While a tick runs
+    on the device, new arrivals accumulate for the next tick. A short
+    coalescing window (TPUFW_BATCH_WAIT_MS, default 5) after the first
+    dequeue lets near-simultaneous requests land in the same tick;
+    TPUFW_BATCH_MAX_ROWS (default 64) caps rows per tick, the rest stay
+    queued. Eager PyTorch compiles nothing, but the buckets are kept as
+    ``tpufw`` has them: they fix a tick's rows, padding and metrics.
+    """
+
+    def __init__(
+        self,
+        run_tick,
+        metrics: Optional[_Metrics] = None,
+        run_stream=None,
+    ):
+        self._run_tick = run_tick
+        self._run_stream = run_stream
+        self._metrics = metrics
+        self._queue: list[_Pending] = []
+        self._cv = threading.Condition()
+        self._closed = False
+        self.max_rows = env_int("batch_max_rows", 64)
+        self.wait_s = env_int("batch_wait_ms", 5) / 1000.0
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="tpufw-serve-tick"
+        )
+        self._thread.start()
+
+    @property
+    def queue_depth(self) -> int:
+        with self._cv:
+            return len(self._queue)
+
+    def _enqueue(self, pend: _Pending) -> None:
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("the serving batcher is closed")
+            self._queue.append(pend)
+            self._cv.notify()
+
+    def submit(self, prompts: list[list[int]], max_new: int, sampling=None):
+        p = _Pending(prompts, max_new, sampling)
+        self._enqueue(p)
+        p.done.wait()
+        if p.error is not None:
+            raise p.error
+        return p.outputs, p.batched_with
+
+    def submit_stream(
+        self, prompts: list[list[int]], max_new: int, sampling, q
+    ) -> None:
+        """Enqueue a streaming request and return at once: the caller
+        reads per-chunk row outputs from ``q`` until the ("done", n) or
+        ("error", e) sentinel. The stream runs as its own tick."""
+        self._enqueue(_Pending(prompts, max_new, sampling, stream_q=q))
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Stop the worker thread; requests still queued fail."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout)
+
+    def _take_tick(self) -> list[_Pending]:
+        with self._cv:
+            while not (self._queue or self._closed):
+                self._cv.wait()
+            if self._closed:
+                return []
+        time.sleep(self.wait_s)  # let near-simultaneous arrivals land
+        with self._cv:
+            tick: list[_Pending] = []
+            rows = 0
+            rest: list[_Pending] = []
+            # One device call = one SamplingConfig: the head request
+            # defines the tick's config and every compatible request
+            # joins; mismatches keep their queue order for a later tick
+            # (the head of the remainder defines the NEXT tick's config).
+            # FIFO holds WITHIN a config: once a same-config request
+            # misses the row budget, no later same-config request may
+            # overtake it into this tick.
+            budget_closed = False
+            solo = False
+            for nxt in self._queue:
+                if not tick:
+                    tick.append(nxt)
+                    rows += len(nxt.prompts)
+                    # A streaming head runs alone: its device work is a
+                    # chunk LOOP, not one coalescible call.
+                    solo = nxt.stream_q is not None
+                elif solo or nxt.stream_q is not None:
+                    rest.append(nxt)
+                elif nxt.sampling != tick[0].sampling:
+                    rest.append(nxt)
+                elif (
+                    budget_closed
+                    or rows + len(nxt.prompts) > self.max_rows
+                ):
+                    budget_closed = True
+                    rest.append(nxt)
+                else:
+                    tick.append(nxt)
+                    rows += len(nxt.prompts)
+            self._queue = rest
+            return tick
+
+    def _run_group(self, group: list[_Pending]) -> None:
+        """Run one coalesced device call for ``group``; raises on failure
+        without touching the pendings (the caller decides whether to
+        isolate)."""
+        if len(group) == 1 and group[0].stream_q is not None:
+            pend = group[0]
+            self._run_stream(pend)
+            pend.batched_with = 1
+            return
+        all_prompts = [p for pend in group for p in pend.prompts]
+        # max_new to the power-of-two bucket tpufw compiles.
+        run_new = _pow2_ceil(max(p.max_new for p in group))
+        outs = self._run_tick(all_prompts, run_new, group[0].sampling)
+        i = 0
+        for pend in group:
+            rows = outs[i: i + len(pend.prompts)]
+            pend.outputs = [r[: pend.max_new] for r in rows]
+            pend.batched_with = len(group)
+            i += len(pend.prompts)
+
+    def _loop(self) -> None:
+        while True:
+            tick = self._take_tick()
+            if not tick:
+                break
+            if self._metrics is not None:
+                self._metrics.inc("ticks_total")
+                self._metrics.inc(
+                    "tick_rows_total", sum(len(p.prompts) for p in tick)
+                )
+            try:
+                # Autograd state is thread-local: this thread runs every
+                # device call, so it turns gradients off for itself.
+                with torch.no_grad():
+                    try:
+                        self._run_group(tick)
+                    except Exception:  # noqa: BLE001 — serving loop
+                        if len(tick) == 1:
+                            raise
+                        # Failure isolation: one invalid request (or a
+                        # combination that only overflows the KV budget
+                        # together) falls back to per-request runs, so
+                        # the innocent ones still succeed.
+                        for pend in tick:
+                            try:
+                                self._run_group([pend])
+                            except Exception as e:  # noqa: BLE001
+                                pend.error = e
+            except Exception as e:  # noqa: BLE001 — serving loop
+                for pend in tick:
+                    pend.error = e
+                    if pend.stream_q is not None:
+                        # The SSE handler waits on the queue, not on the
+                        # done event: it needs the sentinel.
+                        pend.stream_q.put(("error", e))
+            finally:
+                if self._metrics is not None:
+                    self._metrics.inc(
+                        "tokens_generated_total",
+                        sum(
+                            len(r)
+                            for p in tick
+                            if p.outputs is not None
+                            for r in p.outputs
+                        ),
+                    )
+                for pend in tick:
+                    pend.done.set()
+        with self._cv:
+            queue, self._queue = self._queue, []
+        for pend in queue:
+            pend.error = RuntimeError("the serving batcher is closed")
+            if pend.stream_q is not None:
+                pend.stream_q.put(("error", pend.error))
+            pend.done.set()
+
+
 class _SlotJob:
     """One prompt ROW moving through the slot pool: a request's rows may
     join across chunk boundaries as slots free up, and each retires at
@@ -711,6 +907,26 @@ class _SlotScheduler:
                 "chunked prefill is page-granular and needs "
                 "TPUFW_SERVE_PAGE > 0"
             )
+        # The host spill tier behind the page arena: TPUFW_KV_SPILL
+        # budgets it in PAGES, TPUFW_KV_SPILL_DIR adds the directory
+        # overflow. Evicted prefix pages demote there instead of dying,
+        # and a later prompt sharing the prefix restores them instead of
+        # prefilling them again.
+        self.kv_spill_pages = max(0, env_int("kv_spill", 0))
+        self.kv_spill_dir = env_str("kv_spill_dir", "")
+        self._spill = None
+        if self.kv_spill_pages or self.kv_spill_dir:
+            if not self.page:
+                raise ValueError(
+                    f"TPUFW_KV_SPILL={self.kv_spill_pages}: the spill "
+                    "tier is page-granular and needs TPUFW_SERVE_PAGE > 0"
+                )
+            from tpufw_torch.infer.spill import SpillTier
+
+            self._spill = SpillTier(self.kv_spill_pages, self.kv_spill_dir)
+        # Scrape-time cursor: the tier's byte total is monotonic but a
+        # registry counter only increments, so /metrics adds the delta.
+        self._spill_seen_bytes = 0
         # Speculation: spec_draft "" or "ngram" drafts on the host; a
         # preset name builds a draft model; spec_draft_built is a draft
         # model already built (the server's TPUFW_DRAFT_MODEL, or the
@@ -789,6 +1005,15 @@ class _SlotScheduler:
                 metrics.registry.counter("tpufw_prefill_chunks_total")
                 metrics.registry.counter("tpufw_prefill_resumes_total")
                 metrics.registry.gauge("tpufw_prefill_inflight")
+            if self._spill is not None:
+                # The JAX server's unprefixed KV spill series, gated so
+                # a spill-less exposition stays as it was.
+                metrics.registry.counter("tpufw_kv_spill_bytes_total")
+                metrics.registry.gauge("tpufw_kv_spill_pages")
+                metrics.registry.histogram(
+                    "tpufw_kv_restore_seconds",
+                    "Spill-tier restore wall (host fetch + decode)",
+                )
             if self.spec_k:
                 metrics.registry.counter(
                     "tpufw_spec_wasted_draft_flops_total"
@@ -1033,6 +1258,21 @@ class _SlotScheduler:
                 pad_id=0,
                 eos_id=self._eos,
                 cache_len=cache_len,
+            )
+        if self._spill is not None:
+            # Re-wired on every pool rebuild: the callbacks close over the
+            # pool they serialize for. The tier and its contents survive
+            # rebuilds, so a cache-ladder switch forgets no spilled K/V.
+            from tpufw_torch.serve.bundle import attach_spill
+
+            attach_spill(
+                self._pool, self._spill,
+                on_restore=(
+                    self._metrics.registry.histogram(
+                        "tpufw_kv_restore_seconds"
+                    ).observe
+                    if self._metrics is not None else None
+                ),
             )
         if self._spec_slack(sampling):
             if self._draft_model is not None:
@@ -1646,34 +1886,29 @@ class _SlotScheduler:
 
 
 def _refuse_unported_scheduler(page_export) -> None:
-    """The scheduler's knobs whose modules are not ported yet."""
+    """The scheduler's hook whose module is not ported yet."""
     if page_export is not None:
         raise NotImplementedError(
             "page_export: exporting pages to a decode replica is not "
             "ported to tpufw_torch yet (ROADMAP.md Queue 1 item 9)"
         )
-    for knob in ("kv_spill", "kv_spill_dir"):
-        if env_str(knob, "") not in ("", "0"):
-            _refuse(knob, "the KV spill tier", "8")
 
 
 class _Server:
-    """HTTP serving over the slot scheduler (port of the JAX ``_Server``).
+    """HTTP serving (port of the JAX ``_Server``) over the slot scheduler,
+    or, with ``TPUFW_SERVE_SLOTS=0``, over the tick batcher.
 
     ``model`` serves a model the caller built (its weights are used as
     they are); otherwise ``build_generator`` builds one from the
     ``TPUFW_*`` environment and ``TPUFW_DECODE_DTYPE`` casts it. The
     speculative draft is ``draft_model`` if given (it may be ``model``
-    itself), else ``TPUFW_DRAFT_MODEL``'s; it becomes the scheduler's
-    draft pool with k = ``TPUFW_DRAFT_K``, unless the
-    ``TPUFW_SERVE_SPEC_*`` knobs choose the speculation themselves."""
+    itself), else ``TPUFW_DRAFT_MODEL``'s, with k = ``TPUFW_DRAFT_K``. It
+    becomes the slot scheduler's draft pool, unless the
+    ``TPUFW_SERVE_SPEC_*`` knobs choose the speculation themselves; the
+    tick batcher runs whole-batch ``speculative_generate`` with it."""
 
     def __init__(self, port: int, max_new_tokens: int, model=None,
                  draft_model=None):
-        if env_int("serve_slots", 8) <= 0:
-            _refuse("serve_slots",
-                    "the tick batcher (TPUFW_SERVE_SLOTS=0, the rest of "
-                    "item 8)", "8")
         if env_str("telemetry_dir", ""):
             _refuse("telemetry_dir", "serving telemetry", "13")
         _refuse_unported_scheduler(None)
@@ -1692,11 +1927,12 @@ class _Server:
             if draft_model is None
             else (draft_model, env_int("draft_k", 4))
         )
+        self._draft = draft
         spec_kw = {}
         if draft is not None:
-            # The JAX server's tick-batcher speculation counters,
-            # exposed at 0 as there (the slot scheduler reports through
-            # the tpufw_spec_* series).
+            # The tick batcher's speculation counters, registered at 0
+            # in both modes as in the JAX server (the slot scheduler
+            # reports through the tpufw_spec_* series).
             self.metrics.register("spec_iterations_total",
                                   "spec_emitted_total")
             if (env_int("serve_spec_k", 0) == 0
@@ -1711,25 +1947,61 @@ class _Server:
         self._sampling_cap = env_int("max_sampling_configs", 32)
         self._sampling_lock = threading.Lock()
         self._seed_base = env_int("seed", 0)
-        self._batcher = _SlotScheduler(
-            self.model,
-            eos_id=self._eos_id,
-            default_sampling=self._sampling,
-            metrics=self.metrics,
-            seed_base=self._seed_base,
-            **spec_kw,
-        )
+        # Tick mode: each tick's seed is TPUFW_SEED + a monotonic tick
+        # index (only the batcher thread moves it), so sampled requests
+        # differ across ticks and the server replays given the same
+        # arrival order.
+        self._tick_index = 0
+        if env_int("serve_slots", 8) > 0:
+            self._batcher = _SlotScheduler(
+                self.model,
+                eos_id=self._eos_id,
+                default_sampling=self._sampling,
+                metrics=self.metrics,
+                seed_base=self._seed_base,
+                **spec_kw,
+            )
+        else:
+            self._batcher = _Batcher(
+                self._run_tick, self.metrics, run_stream=self._run_stream
+            )
         if env_int("warmup", 1):
             self._warmup()
 
     def _warmup(self) -> None:
-        """One tiny request before the listener binds, so the first live
-        request does not pay for the first pool and the allocator's
-        first blocks. The counters it moved and the random-stream
-        indices are restored, so warmup stays invisible to scrapes and
-        to seed replay."""
+        """Warm-up before the listener binds, so the first live request
+        does not pay for the first pool and the allocator's first
+        blocks. Slot mode: one tiny request. Tick mode: one tick per
+        batch bucket of TPUFW_WARMUP_BUCKETS (row counts, default "1").
+        The counters it moved and the random-stream indices are
+        restored, so warmup stays invisible to scrapes and to seed
+        replay."""
         import sys
 
+        if isinstance(self._batcher, _Batcher):
+            tick0 = self._tick_index
+            try:
+                # Parsed inside the try: a malformed value degrades to a
+                # warning. Buckets clamp to the batcher's row cap.
+                max_rows = env_int("batch_max_rows", 64)
+                buckets = sorted({
+                    min(_pow2_ceil(int(b)), _pow2_ceil(max_rows))
+                    for b in env_str("warmup_buckets", "1").split(",")
+                    if b.strip()
+                })
+                with torch.no_grad():
+                    for rows in buckets:
+                        self._run_tick([[1]] * rows,
+                                       _pow2_ceil(self.default_new), None)
+            except Exception as e:  # noqa: BLE001 — warmup is optional
+                print(f"serve: warmup skipped: {e}", file=sys.stderr)
+            finally:
+                self._tick_index = tick0
+                if self._draft is not None:
+                    self.metrics.reset(
+                        "spec_iterations_total", "spec_emitted_total"
+                    )
+            return
         try:
             self._batcher.submit([[1]], self.default_new, None)
         except Exception as e:  # noqa: BLE001 — warmup is optional
@@ -1790,13 +2062,123 @@ class _Server:
         g = {
             "queue_depth": float(b.queue_depth),
             "uptime_seconds": time.time() - _T0,
-            "slots_occupied": float(b.slots_occupied),
-            "slots_total": float(b.slots_total),
         }
+        if isinstance(b, _Batcher):
+            return g
+        g["slots_occupied"] = float(b.slots_occupied)
+        g["slots_total"] = float(b.slots_total)
         if b.page:
             g["pages_in_use"] = float(b.pages_in_use)
             g["pages_total"] = float(b.pages_total)
+        if b._spill is not None:
+            # The unprefixed spill series refresh at scrape time too;
+            # the tier owns the numbers.
+            st = b._spill.stats()
+            reg = self.metrics.registry
+            reg.gauge("tpufw_kv_spill_pages").set(
+                float(st["ram_pages"]), tier="ram"
+            )
+            reg.gauge("tpufw_kv_spill_pages").set(
+                float(st["dir_pages"]), tier="dir"
+            )
+            delta = st["spilled_bytes_total"] - b._spill_seen_bytes
+            if delta > 0:
+                reg.counter("tpufw_kv_spill_bytes_total").inc(delta)
+                b._spill_seen_bytes = st["spilled_bytes_total"]
         return g
+
+    def _cache_len(self, longest: int, max_new: int) -> int:
+        """KV cache sized to the tick, not the model maximum: the
+        smallest power-of-two length covering it (plus the speculative
+        k+1 slack), capped at the model's. The masks make the tokens
+        independent of it; ``tpufw`` builds a model of that length."""
+        slack = (self._draft[1] + 1) if self._draft else 0
+        return _cache_bucket(longest + max_new + slack,
+                             self.model.cfg.max_seq_len)
+
+    def _tick_prep(self, prompts, max_new, sampling):
+        """The per-tick preamble of the coalesced and streaming paths:
+        the env-default sampling, the monotonic tick seed (batcher
+        thread only), prompt-length bucketing with a filler row, and the
+        tick's cache length. Returns (sampling, seed, padded, real_n,
+        live, cache_len); ``live`` masks the pow-2 fillers AND the
+        length-bucket row, which start done."""
+        if sampling is None:
+            sampling = self._sampling
+        seed = self._seed_base + self._tick_index
+        self._tick_index += 1
+        longest = _bucket(max(len(p) for p in prompts), 64)
+        fill = self._eos_id if self._eos_id is not None else 0
+        padded, real_n = _pad_batch(prompts, fill)
+        padded = padded + [[fill] * longest]  # length-bucket filler row
+        live = [i < real_n for i in range(len(padded))]
+        return (sampling, seed, padded, real_n, live,
+                self._cache_len(longest, max_new))
+
+    def _run_tick(self, prompts, max_new: int, sampling=None):
+        """One device call for one coalesced tick (batcher thread only):
+        ``generate_text``, or whole-batch ``speculative_generate_text``
+        with the draft, on the tick's padded rows; ``sampling`` is a
+        per-request override every request of the tick shares."""
+        from tpufw_torch.infer import (
+            generate_text,
+            speculative_generate_text,
+        )
+
+        sampling, seed, padded, real_n, live, cache_len = self._tick_prep(
+            prompts, max_new, sampling
+        )
+        common = dict(
+            max_new_tokens=max_new, sampling=sampling, seed=seed,
+            eos_id=self._eos_id, live_rows=live, cache_len=cache_len,
+            prefill_chunk_size=env_int("prefill_chunk", 0) or None,
+        )
+        if self._draft is not None:
+            draft_model, k = self._draft
+            outs, stats = speculative_generate_text(
+                draft_model, self.model, padded, k=k, **common
+            )
+            # emitted / iterations: tokens per verify pass (k+1 at most).
+            self.metrics.inc("spec_iterations_total", stats["iterations"])
+            self.metrics.inc("spec_emitted_total", stats["emitted"])
+            return outs[:real_n]
+        return generate_text(self.model, padded, **common)[:real_n]
+
+    def _run_stream(self, pend) -> None:
+        """Streaming tick (batcher thread only): the ``_tick_prep``
+        preamble, then ``generate_text_stream``'s chunk loop, each
+        chunk's per-row new tokens onto the pending's queue as they
+        exist. ``max_new`` runs at the coalesced path's power-of-two
+        bucket; emission stops at the requested length."""
+        from tpufw_torch.infer import generate_text_stream
+
+        run_new = _pow2_ceil(pend.max_new)
+        sampling, seed, padded, real_n, live, cache_len = self._tick_prep(
+            pend.prompts, run_new, pend.sampling
+        )
+        emitted = 0  # live rows advance in lockstep; eos rows yield []
+        n_tokens = 0  # over all rows (what the batch path counts)
+        for chunk in generate_text_stream(
+            self.model,
+            padded,
+            max_new_tokens=run_new,
+            chunk_size=env_int("stream_chunk", 16),
+            sampling=sampling,
+            seed=seed,
+            eos_id=self._eos_id,
+            live_rows=live,
+            prefill_chunk_size=env_int("prefill_chunk", 0) or None,
+            cache_len=cache_len,
+        ):
+            budget = pend.max_new - emitted
+            rows = [r[:budget] for r in chunk[:real_n]]
+            emitted += max((len(r) for r in rows), default=0)
+            n_tokens += sum(len(r) for r in rows)
+            pend.stream_q.put(("chunk", rows))
+            if emitted >= pend.max_new:
+                break  # the bucket's tail beyond the request
+        self.metrics.inc("tokens_generated_total", n_tokens)
+        pend.stream_q.put(("done", n_tokens))
 
     def generate(self, prompts, max_new: int, sampling=None):
         """Returns (outputs, batched_with): how many requests shared the
@@ -1820,7 +2202,8 @@ class _Server:
                 raise payload
 
     def shutdown(self) -> None:
-        """Stop the listener (if serving) and the scheduler thread."""
+        """Stop the listener (if serving) and the scheduler's or the
+        batcher's thread."""
         if self.httpd is not None:
             self.httpd.shutdown()
             self.httpd.server_close()

@@ -7,9 +7,13 @@ Knobs (the JAX workload's names where the meaning is the same):
 ``max_seq_len``), ``TPUFW_TOTAL_STEPS``, ``TPUFW_ATTENTION`` (backend
 override), ``TPUFW_LR``, ``TPUFW_WARMUP_STEPS``, ``TPUFW_LOSS_CHUNK_SIZE``
 (0 = full logits), ``TPUFW_LOSS_CHUNK_DTYPE``, ``TPUFW_GRAD_ACCUM``,
-``TPUFW_SEED``, ``TPUFW_DATA_SEED``, ``TPUFW_LOG_EVERY`` and
+``TPUFW_ADAM_MU_DTYPE`` (e.g. ``bfloat16``), ``TPUFW_SYNC_EVERY`` (steps
+per host sync), ``TPUFW_EVAL_EVERY`` (0 = off) and ``TPUFW_EVAL_BATCHES``
+(8), ``TPUFW_SEED``, ``TPUFW_DATA_SEED``, ``TPUFW_LOG_EVERY`` and
 ``TPUFW_DEVICE`` (default ``cuda``). Step metrics stream to stdout as one
-JSON line per logged step.
+JSON line per logged step, and each held-out evaluation as one more; the
+eval batches are synthetic, from the odd seeds the train stream never
+uses.
 """
 
 from __future__ import annotations
@@ -52,6 +56,10 @@ def build_trainer():
         loss_chunk_size=env_int("loss_chunk_size", 512) or None,
         loss_chunk_dtype=env_str("loss_chunk_dtype", "bfloat16"),
         grad_accum=env_int("grad_accum", 1),
+        eval_every=env_int("eval_every", 0),
+        eval_batches=env_int("eval_batches", 8),
+        adam_mu_dtype=env_str("adam_mu_dtype", "") or None,
+        sync_every=env_int("sync_every", 1),
     )
     device = env_str("device", "cuda")
     return Trainer(model_cfg, trainer_cfg, device=device), model_cfg
@@ -68,10 +76,18 @@ def main() -> int:
         f"params={model_cfg.n_params():,}",
         flush=True,
     )
+    # Train seeds are even, the held-out stream's odd: no collision for
+    # any TPUFW_DATA_SEED.
     data = synthetic_batches(
         cfg.batch_size, cfg.seq_len, model_cfg.vocab_size,
         seed=env_int("data_seed", 0) * 2000,
     )
+
+    def eval_data():
+        return synthetic_batches(
+            cfg.batch_size, cfg.seq_len, model_cfg.vocab_size,
+            seed=env_int("data_seed", 0) * 2000 + 1,
+        )
     first: dict = {}
 
     def on_metrics(m):
@@ -86,6 +102,8 @@ def main() -> int:
         data,
         model_flops_per_token=model_cfg.flops_per_token(cfg.seq_len - 1),
         on_metrics=on_metrics,
+        eval_data=eval_data if cfg.eval_every else None,
+        on_eval=lambda ev: print(json.dumps(ev), flush=True),
     )
     if history:
         last = history[-1]
