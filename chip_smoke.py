@@ -25,7 +25,9 @@ Phases, each fatal on failure:
    masks case and on T=S=129 and 64. The head-dim-192 kernels at the
    DeepSeek MLA train path's shapes (B=8, T=S=2047, 16/16 heads, causal),
    with V's last 64 columns zero as the model pads it and with V random,
-   on the small masks case and on T=S=129 and 64;
+   on the small masks case and on T=S=129 and 64. The head-dim-128
+   kernels also at phase 7b's shapes (``llama3_600m_bench``: B=4,
+   T=S=2047, 12/6 heads, causal);
 3. times each kernel, its plain version and the library yardstick
    (``F.scaled_dot_product_attention``, which the port never calls) with
    CUDA events, beside the roofline bound computed from the shapes, and
@@ -33,7 +35,9 @@ Phases, each fatal on failure:
    SDPA's one backward call; at head dim 128 at the Llama path's shapes,
    at 256 at the Gemma path's, global and windowed (SDPA then takes a
    boolean mask; it has no soft cap), at 192 at the MLA path's (SDPA also
-   with V at its own 128 columns, and the SDPA backend that ran);
+   with V at its own 128 columns, and the SDPA backend that ran); and
+   head dim 128 at phase 7b's shapes (the kernels line's
+   ``at_600m_shapes``);
 4. trains 5 steps of Llama-3-8B widths cut to 4 layers (B=2, seq 2048,
    chunked CE, remat at the default policy "dots", flash attention)
    through ``Trainer.run`` with the launch counters zeroed just before,
@@ -121,18 +125,54 @@ Phases, each fatal on failure:
    restored admission's first-step logits within 5% of a cold prefill's,
    and the spill and restore times per page.
 
+7. weights and state, with phase 6's models freed, in a gitignored
+   directory of the checkout that is deleted as it goes. 7a: about 16 M
+   byte tokens of text drawn from a seed, packed by
+   ``tools.pack_corpus``; the native packer (``libtpufwdata``, built
+   from ``native/dataloader`` by ``ops/_build.py``) must load, its
+   first 32 batches at B=4, seq 2048 must equal the Python packer's bit
+   for bit, and ``prefetch_to_device`` must hand out CUDA tensors equal
+   to the host batches; a ``data_summary`` line (native batches/s, host
+   ms per batch against the 600m step). 7b: ``llama3_600m_bench`` at
+   full width and depth (596 M parameters, 14 layers, B=4, seq 2048,
+   chunked CE, remat ``dots``) through ``Trainer.run`` on that corpus
+   via ``prefetch_to_device``, 6 steps with a checkpoint every 3, launch
+   counters zeroed just before; a fresh trainer restores step 3 and
+   trains steps 4-6 on the same batches: the restored tensors'
+   checksums equal those taken at the save, losses 4-6 and the final
+   parameters bit-equal to the first run's, every head-dim-128 kernel
+   launched in both runs; a ``checkpoint_summary`` line (bytes, save ms
+   on the step path and what it waited for, background write s, restore
+   s and GB/s). 7c: ``python -m tpufw_torch.workloads.train_llama`` as a
+   child on the corpus, SIGTERM after its second step line: it must
+   print ``{"preempted": true, "step": N}``, exit 0 and leave step N on
+   disk; a second child with ``TPUFW_TOTAL_STEPS=N+2`` must resume at N
+   and train 2 finite steps; a ``preemption_summary`` line. 7d: the
+   phase-5 Llama-3-8B weights (32 layers, bf16, drawn from seed 0)
+   exported with ``export_hf`` as sharded safetensors (16.06 GB; fails
+   if fewer than 24 GB are free) and served back through
+   ``TPUFW_HF_CHECKPOINT`` and ``serve.build_generator``: the four
+   prompts' greedy tokens and prefill logits bit-equal to the in-memory
+   model's, and under ``TPUFW_QUANTIZE=int8`` every int8 code and scale
+   equal to quantizing the in-memory model; an ``hf_import_summary`` line
+   (write and load s and GB/s, peak host RSS, which must stay under an
+   fp32 copy).
+
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
-dim), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
-{...}}``. Without a CUDA device, or outside a checkout of the repo, it
-prints no result and exits nonzero.
+dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
+7b's first run), the ``nvidia-smi`` line and, last, ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or outside a checkout of the
+repo, it prints no result and exits nonzero.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -219,6 +259,25 @@ SELFSIM_LEN = 512
 # must go to the spill tier; after them the arena is free again, and the
 # request sharing the prefix restores all 7.
 SPILL_ARENA_PAGES = 15
+# Phase 7, weights and state. 7a: a corpus of about CORPUS_TOKENS byte
+# tokens, generated from a seed as lines of random words, packed by
+# tools.pack_corpus; the first PARITY_BATCHES batches at B=RESUME_BATCH,
+# seq RESUME_SEQ bit-equal between the native and Python packers. 7b:
+# llama3_600m_bench at full width and depth, B=RESUME_BATCH, seq RESUME_SEQ,
+# RESUME_STEPS steps with a checkpoint every RESUME_EVERY, then a fresh
+# trainer restored at RESUME_EVERY trains the rest: losses and parameters
+# bit-equal. 7c: the train_llama entry point as a child, SIGTERM after its
+# second step line, then resumed for 2 steps. 7d: Llama-3-8B's serve slice
+# exported as sharded safetensors and served back through
+# TPUFW_HF_CHECKPOINT, which needs HF_DISK_GB free.
+CORPUS_TOKENS = 16 * 2**20
+PARITY_BATCHES = 32
+RESUME_BATCH = 4
+RESUME_SEQ = 2048
+RESUME_STEPS = 6
+RESUME_EVERY = 3
+SIGTERM_TOTAL_STEPS = 50
+HF_DISK_GB = 24
 # Head dim 256 (Gemma-2-9B): the train path's attention shapes (B=1, seq
 # 8192, so T = S = 8191 inputs after the target shift; 16 query / 8 kv
 # heads), attention soft cap 50, window 4096 on the local layers. Kernel
@@ -1776,6 +1835,441 @@ def spill_mode(torch, model, shared, shared_prompts, kv, kind, smi) -> None:
         raise AssertionError(f"online {mode}: {bad}")
 
 
+class _Env:
+    """Set TPUFW_* variables for a block, restoring the old values."""
+
+    def __init__(self, **env):
+        self.env = {f"TPUFW_{k.upper()}": str(v) for k, v in env.items()}
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _RssPeak:
+    """Peak VmRSS, and RssAnon and RssFile where the kernel reports them
+    (GB, from /proc/self/status), over a block, sampled every 20 ms by a
+    thread, and the values at its start."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = self._read()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def _read(self) -> dict:
+        out = {}
+        with open("/proc/self/status") as f:
+            for ln in f:
+                if ln.startswith(("VmRSS:", "RssAnon:", "RssFile:")):
+                    out[ln.split(":")[0]] = int(ln.split()[1]) * 1024 / 1e9
+        return out
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            now = self._read()
+            self.peak = {k: max(v, now[k]) for k, v in self.peak.items()}
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+
+
+def make_corpus(workdir: str, seed: int = 0) -> tuple[str, dict]:
+    """Phase 7a's corpus: about CORPUS_TOKENS bytes of lines of random
+    lowercase words (numpy ``seed``), one document per line, packed with
+    the byte tokenizer. Returns (prefix, pack_corpus stats)."""
+    import numpy as np
+
+    from tpufw_torch.tools.pack_corpus import pack_corpus
+
+    rng = np.random.default_rng(seed)
+    letters = rng.integers(ord("a"), ord("z") + 1, CORPUS_TOKENS,
+                           dtype=np.uint8)
+    # Spaces between words of mean 6 letters, newlines between documents
+    # of mean 2,000 bytes.
+    letters[rng.random(CORPUS_TOKENS) < 1 / 6] = ord(" ")
+    letters[rng.random(CORPUS_TOKENS) < 1 / 2000] = ord("\n")
+    txt = os.path.join(workdir, "corpus.txt")
+    with open(txt, "wb") as f:
+        f.write(letters.tobytes())
+    prefix = os.path.join(workdir, "corpus")
+    stats = pack_corpus([txt], prefix, per_line=True)
+    os.remove(txt)
+    return prefix, stats
+
+
+def corpus_phase(torch, prefix: str) -> dict:
+    """7a: the native packer built by ``ops/_build.py``, its first
+    PARITY_BATCHES batches (no shuffle) bit-equal to the Python packer's,
+    and prefetch_to_device's CUDA batches equal to the host batches.
+    Returns the numbers of the data_summary line."""
+    import itertools
+
+    import numpy as np
+
+    from tpufw_torch.train import TokenCorpus, prefetch_to_device
+
+    t0 = time.perf_counter()
+    native = TokenCorpus(prefix, RESUME_BATCH, RESUME_SEQ)
+    lib_s = time.perf_counter() - t0
+    if not native.native:
+        raise AssertionError("TokenCorpus did not load the native packer")
+    python = TokenCorpus(prefix, RESUME_BATCH, RESUME_SEQ, native=False)
+    got = list(itertools.islice(native, PARITY_BATCHES))
+    want = list(itertools.islice(python, PARITY_BATCHES))
+    equal = len(got) == len(want) == PARITY_BATCHES and all(
+        g.keys() == w.keys() and all(np.array_equal(g[k], w[k]) for k in g)
+        for g, w in zip(got, want))
+    fetched = list(prefetch_to_device(iter(got), "cuda"))
+    torch.cuda.synchronize()
+    on_card = all(v.is_cuda for b in fetched for v in b.values())
+    prefetch_equal = len(fetched) == len(got) and all(
+        np.array_equal(f[k].cpu().numpy(), g[k])
+        for f, g in zip(fetched, got) for k in g)
+    emit({"check": "native_vs_python_packer", "batches": PARITY_BATCHES,
+          "bit_equal": equal, "prefetch_on_cuda": on_card,
+          "prefetch_equal": prefetch_equal})
+    if not (equal and on_card and prefetch_equal):
+        raise AssertionError("7a: packer parity or prefetch failed")
+    n = 256
+    t0 = time.perf_counter()
+    for _ in itertools.islice(iter(TokenCorpus(prefix, RESUME_BATCH,
+                                               RESUME_SEQ, shuffle=True)), n):
+        pass
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in itertools.islice(iter(python), n // 8):
+        pass
+    python_s = time.perf_counter() - t0
+    return {"native_batches_per_s": n / native_s,
+            "native_host_ms_per_batch": 1e3 * native_s / n,
+            "python_host_ms_per_batch": 1e3 * python_s / (n // 8),
+            "library_load_or_build_s": lib_s,
+            "batch": RESUME_BATCH, "seq_len": RESUME_SEQ}
+
+
+def _corpus_batches(torch, prefix, skip=0):
+    """The 7b train stream: the corpus shuffled (seed 0) from batch
+    ``skip`` on, through prefetch_to_device."""
+    import itertools
+
+    from tpufw_torch.train import TokenCorpus, prefetch_to_device
+
+    corpus = TokenCorpus(prefix, RESUME_BATCH, RESUME_SEQ, shuffle=True)
+    return prefetch_to_device(itertools.islice(iter(corpus), skip, None),
+                              "cuda")
+
+
+def resume_phase(torch, prefix: str, workdir: str, kind, smi) -> dict:
+    """7b: llama3_600m_bench through Trainer.run for RESUME_STEPS steps on
+    the 7a corpus, checkpointing every RESUME_EVERY steps, launch counters
+    zeroed just before; then a fresh trainer restores step RESUME_EVERY
+    and trains the rest on the same batches. Holds the restored tensors'
+    checksums equal to those taken when the step was saved, the losses
+    after the restore and the final parameters bit-equal to the first
+    run's, and every head-dim-128 kernel launched. Returns the first run's
+    launch counts and its median step ms."""
+    from tpufw_torch.configs import bench_model_config
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import Trainer, TrainerConfig
+    from tpufw_torch.train.checkpoint import CheckpointManager, checksums
+
+    cfg = bench_model_config()
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    tcfg = TrainerConfig(batch_size=RESUME_BATCH, seq_len=RESUME_SEQ,
+                         total_steps=RESUME_STEPS, warmup_steps=2,
+                         log_every=1, loss_chunk_size=512,
+                         checkpoint_dir=ckpt_dir,
+                         checkpoint_every=RESUME_EVERY)
+    emit({"train": "llama3_600m_bench resume", "params": cfg.n_params(),
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "batch_size": RESUME_BATCH, "seq_len": RESUME_SEQ,
+          "remat_policy": cfg.remat_policy, "steps": RESUME_STEPS,
+          "checkpoint_every": RESUME_EVERY})
+    first = Trainer(cfg, tcfg, device="cuda")
+    first.init_state(seed=0)
+    saved_sums = {}
+
+    def on_metrics(m):
+        emit({"resume_run1_step": m.as_dict()})
+        if m.step == RESUME_EVERY:
+            # What the loop saves right after this call.
+            saved_sums.update(checksums(first.state_dict()))
+
+    torch.cuda.synchronize()
+    flash.reset_launch_counts()
+    h1 = first.run(_corpus_batches(torch, prefix),
+                   model_flops_per_token=cfg.flops_per_token(RESUME_SEQ - 1),
+                   on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    launches = {k: flash.LAUNCHES[flash.kernel_name(k, 128)]
+                for k in flash.KERNELS}
+    saves = first.checkpointer.saves
+    mgr = CheckpointManager(ckpt_dir)
+    if mgr.all_steps() != [RESUME_EVERY, RESUME_STEPS]:
+        raise AssertionError(f"7b: checkpoints {mgr.all_steps()}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = mgr.restore(RESUME_EVERY, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_sums = checksums(state)
+    second = Trainer(cfg, dataclasses.replace(tcfg, checkpoint_dir=None),
+                     device="cuda")
+    second.load_state_dict(state)
+    del state
+    flash.reset_launch_counts()
+    h2 = second.run(_corpus_batches(torch, prefix, skip=RESUME_EVERY),
+                    model_flops_per_token=cfg.flops_per_token(RESUME_SEQ - 1),
+                    on_metrics=lambda m: emit({"resume_run2_step": m.as_dict()}))
+    torch.cuda.synchronize()
+    launches2 = {k: flash.LAUNCHES[flash.kernel_name(k, 128)]
+                 for k in flash.KERNELS}
+    losses1 = [m.loss for m in h1]
+    losses2 = [m.loss for m in h2]
+    p1, p2 = first.model.state_dict(), second.model.state_dict()
+    params_equal = p1.keys() == p2.keys() and all(
+        torch.equal(p1[k], p2[k]) for k in p1)
+    unequal = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+    sums_equal = restored_sums == saved_sums
+    check = {"check": "resume_bit_equal", "losses_run1": losses1,
+             "losses_run2": losses2,
+             "losses_equal": losses1[RESUME_EVERY:] == losses2,
+             "params_equal": params_equal, "unequal_params": unequal[:8],
+             "checksums_equal": sums_equal,
+             "n_tensors": len(saved_sums),
+             "launches_run1": launches, "launches_run2": launches2}
+    emit(check)
+    step_ms = 1e3 * statistics.median(m.step_time_s for m in h1[1:])
+    ckpt_bytes = saves[0]["bytes"]
+    emit({"checkpoint_summary": {
+        "model": "llama3_600m_bench", "bytes_per_checkpoint": ckpt_bytes,
+        "saves": saves,
+        "save_ms_on_step_path": [1e3 * s["enqueue_s"] for s in saves],
+        # Of which: the wait for the previous write, pinning (the first
+        # save's), and the rest, enqueueing the copies and checksums.
+        "wait_ms": [1e3 * s["wait_s"] for s in saves],
+        "pin_ms": [1e3 * s["pin_s"] for s in saves],
+        "enqueue_ms": [1e3 * (s["enqueue_s"] - s["wait_s"] - s["pin_s"])
+                       for s in saves],
+        "background_write_s": [s["write_s"] for s in saves],
+        "write_gb_per_s": [s["bytes"] / s["write_s"] / 1e9 for s in saves],
+        "restore_s": restore_s, "restore_gb_per_s": ckpt_bytes / restore_s / 1e9,
+        "step_ms_median": step_ms,
+        "step_ms_after_save": 1e3 * h1[RESUME_EVERY].step_time_s,
+        "device": kind, "nvidia_smi": smi}})
+    if not (check["losses_equal"] and params_equal and sums_equal
+            and len(h1) == RESUME_STEPS):
+        raise AssertionError("7b: the resumed run is not bit-equal")
+    if not all(n > 0 for n in launches.values()) or not all(
+            n > 0 for n in launches2.values()):
+        raise AssertionError(f"7b: a head-dim-128 kernel was not launched: "
+                             f"{launches} {launches2}")
+    del first, second, p1, p2
+    shutil.rmtree(ckpt_dir)
+    return launches, step_ms
+
+
+def _child(env: dict):
+    """``python -m tpufw_torch.workloads.train_llama`` in the checkout
+    with ``env`` on top of this process's environment."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpufw_torch.workloads.train_llama"],
+        cwd=ROOT, env={**os.environ, **env}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, bufsize=1)
+
+
+def sigterm_phase(prefix: str, workdir: str, kind, smi) -> None:
+    """7c: the train_llama entry point on the 7a corpus gets SIGTERM after
+    its second step line: it must print {"preempted": true, "step": N},
+    exit 0 and leave step N on disk; a second child with
+    TPUFW_TOTAL_STEPS=N+2 must resume at N and train 2 finite steps."""
+    import signal
+
+    ckpt_dir = os.path.join(workdir, "sigterm_ckpt")
+    env = {"TPUFW_MODEL": "llama3_600m_bench", "TPUFW_DATA_PREFIX": prefix,
+           "TPUFW_CHECKPOINT_DIR": ckpt_dir,
+           "TPUFW_TOTAL_STEPS": str(SIGTERM_TOTAL_STEPS),
+           "TPUFW_BATCH_SIZE": str(RESUME_BATCH),
+           "TPUFW_SEQ_LEN": str(RESUME_SEQ)}
+    proc = _child(env)
+    lines, steps, t_sig = [], 0, None
+    try:
+        for ln in proc.stdout:
+            lines.append(ln.rstrip())
+            if ln.startswith('{"step"'):
+                steps += 1
+                if steps == 2 and t_sig is None:
+                    proc.send_signal(signal.SIGTERM)
+                    t_sig = time.perf_counter()
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    exit_s = time.perf_counter() - t_sig if t_sig else None
+    pre = [json.loads(ln) for ln in lines if ln.startswith('{"preempted"')]
+    from tpufw_torch.train.checkpoint import CheckpointManager
+
+    on_disk = CheckpointManager(ckpt_dir).all_steps()
+    n = pre[0]["step"] if pre else None
+    emit({"check": "sigterm_child", "rc": rc, "preempted": pre,
+          "steps_on_disk": on_disk, "tail": lines[-4:]})
+    if rc != 0 or not pre or on_disk != [n] or not 2 <= n < SIGTERM_TOTAL_STEPS:
+        raise AssertionError(f"7c: the preempted child: rc {rc}, {pre}, "
+                             f"{on_disk}; output {lines[-20:]}")
+    proc = _child({**env, "TPUFW_TOTAL_STEPS": str(n + 2)})
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines2 = out.splitlines()
+    resumed = any(ln == f"resumed from checkpoint at step {n}" for ln in lines2)
+    steps2 = [json.loads(ln) for ln in lines2 if ln.startswith('{"step"')]
+    cold = [json.loads(ln) for ln in lines2 if ln.startswith('{"cold_start')]
+    emit({"preemption_summary": {
+        "preempted_at_step": n, "signal_to_exit_s": exit_s,
+        "resumed": resumed, "resumed_steps": [s["step"] for s in steps2],
+        "resumed_losses": [s["loss"] for s in steps2],
+        "resumed_cold_start_to_first_step_s":
+            cold[0]["cold_start_to_first_step_s"] if cold else None,
+        "device": kind, "nvidia_smi": smi}})
+    if proc.returncode != 0 or not resumed or [s["step"] for s in steps2] \
+            != [n + 1, n + 2] or not all(math.isfinite(s["loss"])
+                                         for s in steps2):
+        raise AssertionError(f"7c: the resumed child: rc {proc.returncode}; "
+                             f"output {lines2[-20:]}")
+    shutil.rmtree(ckpt_dir)
+
+
+def hf_phase(torch, workdir: str, kind, smi) -> None:
+    """7d: Llama-3-8B's serve slice (full width, 32 layers, bf16 weights
+    drawn as phase 5 draws them) exported with export_hf as sharded
+    safetensors and served back through TPUFW_HF_CHECKPOINT and
+    serve.build_generator: the phase-5 prompts' greedy tokens and prefill
+    logits bit-equal to the in-memory model's; under
+    TPUFW_QUANTIZE=int8, every int8 code and scale equal to quantizing the
+    in-memory model. Needs HF_DISK_GB free on the checkout's disk."""
+    from tpufw_torch import configs
+    from tpufw_torch.infer import SamplingConfig, pad_prompts
+    from tpufw_torch.models import model_for_config
+    from tpufw_torch.tools.import_hf import export_hf
+    from tpufw_torch.workloads import serve
+
+    free_gb = shutil.disk_usage(workdir).free / 1e9
+    if free_gb < HF_DISK_GB:
+        raise AssertionError(
+            f"7d needs {HF_DISK_GB} GB free under {workdir}, has {free_gb:.1f}")
+    cfg, prompts, max_new = configs.llama3_8b_serve_slice()
+    model = model_for_config(cfg, device="cuda", seed=0)
+    hf_dir = os.path.join(workdir, "hf")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = export_hf(model.state_dict(), cfg, hf_dir)
+    write_s = time.perf_counter() - t0
+    with _Env(hf_checkpoint=hf_dir, device="cuda",
+              max_seq_len=cfg.max_seq_len), _RssPeak() as rss:
+        t0 = time.perf_counter()
+        loaded, lcfg, restored = serve.build_generator()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    tokens, pads = pad_prompts(prompts)
+    tok = torch.tensor(tokens, device="cuda").long()
+    pad = torch.tensor(pads, device="cuda").long()
+    col = torch.arange(tok.shape[1], device="cuda")[None, :]
+    seg = (col >= pad[:, None]).to(torch.int32)
+    pos = torch.clamp(col - pad[:, None], min=0)
+    with torch.no_grad():
+        logits_equal = torch.equal(model(tok, pos, seg), loaded(tok, pos, seg))
+    want = serve.generate_batch(model, prompts, max_new, SamplingConfig(), None)
+    got = serve.generate_batch(loaded, prompts, max_new, SamplingConfig(), None)
+    sd_equal = all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), loaded.state_dict().values()))
+    del loaded
+    torch.cuda.empty_cache()
+    qwant = serve.quantize_model(model).state_dict()
+    del model
+    torch.cuda.empty_cache()
+    with _Env(hf_checkpoint=hf_dir, device="cuda", quantize="int8",
+              max_seq_len=cfg.max_seq_len):
+        qmodel, qcfg, _ = serve.build_generator()
+    qgot = qmodel.state_dict()
+    int8_equal = qgot.keys() == qwant.keys() and all(
+        torch.equal(qgot[k], qwant[k]) for k in qwant)
+    del qmodel, qgot, qwant
+    torch.cuda.empty_cache()
+    fp32_copy_gb = cfg.n_params() * 4 / 1e9
+    # Anonymous memory where reported: mapped file pages are not a copy.
+    held = "RssAnon" if "RssAnon" in rss.peak else "VmRSS"
+    held_gb = rss.peak[held] - rss.start[held]
+    check = {"check": "hf_round_trip", "restored": restored,
+             "config_equal": lcfg.decode_config() == cfg,
+             "state_dict_equal": sd_equal,
+             "prefill_logits_equal": logits_equal,
+             "greedy_tokens_equal": got == want,
+             "int8_codes_and_scales_equal": int8_equal}
+    emit(check)
+    emit({"hf_import_summary": {
+        "model": "llama3_8b", "n_layers": cfg.n_layers,
+        "files": info["files"], "bytes": info["bytes"],
+        "write_s": write_s, "write_gb_per_s": info["bytes"] / write_s / 1e9,
+        "load_to_device_s": load_s,
+        "load_gb_per_s": info["bytes"] / load_s / 1e9,
+        "peak_rss_gb_during_load": rss.peak, "rss_gb_at_start": rss.start,
+        "host_growth_gb": held_gb, "host_growth_of": held,
+        "fp32_copy_gb": fp32_copy_gb, "disk_free_gb": free_gb,
+        "device": kind, "nvidia_smi": smi}})
+    if not all(v for k, v in check.items() if k != "check"):
+        raise AssertionError(f"7d: the HF round trip is not bit-equal: {check}")
+    if held_gb >= fp32_copy_gb:
+        raise AssertionError(f"7d: the load held {held_gb:.1f} GB of host "
+                             "memory, an fp32 copy's worth")
+    shutil.rmtree(hf_dir)
+
+
+def weights_phase(torch, kind, smi) -> dict:
+    """Phase 7: 7a-7d in a gitignored directory of the checkout, each
+    directory deleted once its check has passed. Returns 7b's launch
+    counts."""
+    # Earlier phases leave TPUFW_* serving knobs set; the loads and the
+    # children of this phase see only their own.
+    for k in [k for k in os.environ if k.startswith("TPUFW_")]:
+        del os.environ[k]
+    workdir = os.path.join(ROOT, "build-torch", f"phase7-{os.getpid()}")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        prefix, stats = make_corpus(workdir)
+        stats["pack_s"] = time.perf_counter() - t0
+        emit({"corpus": stats})
+        data = corpus_phase(torch, prefix)
+        torch.cuda.empty_cache()
+        launches, step_ms = resume_phase(torch, prefix, workdir, kind, smi)
+        torch.cuda.empty_cache()
+        data["step_ms_600m"] = step_ms
+        data["host_share_of_step"] = data["native_host_ms_per_batch"] / step_ms
+        emit({"data_summary": data | {"device": kind, "nvidia_smi": smi}})
+        sigterm_phase(prefix, workdir, kind, smi)
+        hf_phase(torch, workdir, kind, smi)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1814,7 +2308,6 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
     emit({"build_report": report})
-
     # 2. Kernels vs plain versions.
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1914,6 +2407,17 @@ def main() -> int:
     timings = time_kernels(torch, flash, chip, q, k, v, do, lse, delta)
     del q, k, v, do, lse, delta
     torch.cuda.empty_cache()
+    # 2d/3d. Head dim 128 at phase 7b's shapes too (llama3_600m_bench: B=4,
+    # T=S=2047, 12/6 heads), checked and timed.
+    b6, h6, kh6 = RESUME_BATCH, 12, 6
+    q, do = randn(b6, RESUME_SEQ - 1, h6, d), randn(b6, RESUME_SEQ - 1, h6, d)
+    k, v = (randn(b6, RESUME_SEQ - 1, kh6, d), randn(b6, RESUME_SEQ - 1, kh6, d))
+    e600, lse, delta = check_kernels(torch, flash, "resume_600m_shapes_causal",
+                                     q, k, v, do, {"causal": True})
+    at600 = time_kernels(torch, flash, chip, q, k, v, do, lse, delta,
+                         label="_600m")
+    del q, k, v, do, lse, delta
+    torch.cuda.empty_cache()
     x = d256_inputs
     timings |= time_kernels(torch, flash, chip, x["q"], x["k"], x["v"], x["do"],
                             x["lse"], x["delta"],
@@ -1977,6 +2481,14 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    # 7. Weights and state, with phase 6's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        resume_launches = weights_phase(torch, kind, smi)
+    except AssertionError as e:
+        return fail(str(e))
+
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -2004,6 +2516,14 @@ def main() -> int:
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         })
+        if name in resume_launches:
+            # Phase 7b's run, llama3_600m_bench through Trainer.run, and
+            # the kernel at its shapes.
+            kernels[-1]["launches_resume_600m"] = resume_launches[name]
+            kernels[-1]["at_600m_shapes"] = {"max_abs_err": e600[name]} | {
+                k: at600[name][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms")}
         if name.endswith("_d192"):
             # SDPA on MLA's own V (128 columns, no padding).
             kernels[-1]["library_ms_unpadded_v"] = sdpa_v128[

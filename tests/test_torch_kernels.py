@@ -199,3 +199,72 @@ def test_attn_out_train_step_matches_nothing_on_gpu():
     for launches in (n0, n1):
         assert launches["flash_fwd"] == 2 * cfg.n_layers
         assert launches["flash_dq"] == launches["flash_dkv"] == cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_prefetch_streams_on_gpu():
+    """On the card: prefetch_to_device copies on its side stream, the
+    consumer's stream waits on the copy's event, and the batches equal the
+    host arrays; a second consumer stream sees them too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    from tpufw_torch.train import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    host = [{"tokens": rng.integers(0, 1000, (4, 2048), dtype=np.int32),
+             "loss_mask": rng.random((4, 2048), dtype=np.float32)}
+            for _ in range(8)]
+    out = []
+    for b in prefetch_to_device(iter(host), "cuda", buffer_size=2):
+        # Work on the consumer's stream right away: it must see the data.
+        out.append({k: (v * 1).cpu() for k, v in b.items()})
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        again = [{k: v.clone() for k, v in b.items()}
+                 for b in prefetch_to_device(iter(host), "cuda")]
+    side.synchronize()
+    for o, a, h in zip(out, again, host):
+        for k in h:
+            np.testing.assert_array_equal(o[k].numpy(), h[k])
+            np.testing.assert_array_equal(a[k].cpu().numpy(), h[k])
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_gpu(tmp_path):
+    """On the card: a trainer's state saved from CUDA (pinned buffers, the
+    background write) restores onto CUDA with equal checksums, and 2 steps
+    + restore + 2 steps equal 4 steps bit for bit through the head-dim-128
+    kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    import dataclasses
+
+    from tpufw_torch.models import LLAMA_CONFIGS
+    from tpufw_torch.train import (
+        CheckpointManager,
+        Trainer,
+        TrainerConfig,
+        synthetic_batches,
+    )
+    from tpufw_torch.train.checkpoint import checksums
+
+    cfg = dataclasses.replace(
+        LLAMA_CONFIGS["llama3_tiny"], d_model=256, n_heads=4, n_kv_heads=2,
+        head_dim=128, d_ff=512, vocab_size=1024, attention_backend="flash",
+        remat=True,
+    )
+    batches = list(synthetic_batches(2, 257, cfg.vocab_size, n_batches=4))
+    tcfg = TrainerConfig(batch_size=2, seq_len=257, total_steps=4,
+                         loss_chunk_size=128, checkpoint_every=2,
+                         checkpoint_dir=str(tmp_path))
+    full = Trainer(cfg, tcfg, device="cuda")
+    full.init_state(seed=0)
+    h_full = full.run(iter(batches), 1.0)
+    state = CheckpointManager(str(tmp_path)).restore(2, device="cuda")
+    assert all(t.is_cuda for t in state["model"].values())
+    resumed = Trainer(cfg, dataclasses.replace(tcfg, checkpoint_dir=None),
+                      device="cuda")
+    resumed.load_state_dict(state)
+    h_res = resumed.run(iter(batches[2:]), 1.0)
+    assert [m.loss for m in h_res] == [m.loss for m in h_full[2:]]
+    assert checksums(resumed.state_dict()) == checksums(full.state_dict())

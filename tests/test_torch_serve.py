@@ -1,8 +1,10 @@
 """tpufw_torch.workloads.serve, batch mode, against tpufw.workloads.serve:
 sampling and EOS resolution from the environment, the batch helpers and
 the byte codec give the JAX workload's values; ``run_batch`` and ``main``
-serve the tiny model on the CPU in fp and int8; the knobs that are not
-ported raise, the ported speculation and chunked-prefill knobs give
+serve the tiny model on the CPU in fp and int8; the weight knobs load
+bare params, training checkpoints and a local tokenizer directory; the
+knobs that are not ported raise, the ported speculation and
+chunked-prefill knobs give
 tpufw's greedy tokens, and the server does not fall back to the CPU. The HTTP
 server itself is in test_torch_http.py and test_torch_serve_metrics.py."""
 
@@ -84,8 +86,10 @@ def test_text_codec_bytes(clear_tpufw_env):
     text = "héllo, wörld"
     assert encode(text) == byte_tokenizer(text)
     assert decode(encode(text)) == text
+    # Any other value is a local tokenizer directory; a hub name is not
+    # fetched.
     clear_tpufw_env.setenv("TPUFW_TOKENIZER", "gpt2")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(FileNotFoundError, match="no hub download"):
         serve.text_codec()
 
 
@@ -147,14 +151,15 @@ UNPORTED = {
     "KV_SPILL_DIR": ("/spill", "scheduler", ValueError, "page-granular"),
     "TELEMETRY_DIR": ("/tel", "server", NotImplementedError, "item 13"),
     "SERVE_ROLE": ("prefill", "main", NotImplementedError, "item 9"),
-    "DRAFT_PARAMS_CHECKPOINT": ("/ckpt", "draft", NotImplementedError,
-                                "item 6"),
-    "CHECKPOINT_DIR": ("/ckpt", "build_generator", NotImplementedError,
-                       "item 6"),
-    "PARAMS_CHECKPOINT": ("/ckpt", "build_generator", NotImplementedError,
-                          "item 6"),
-    "HF_CHECKPOINT": ("/hf", "build_generator", NotImplementedError,
-                      "item 6"),
+    # The weight knobs load (test_weight_knobs_load_the_weights); a path
+    # that holds no weights raises rather than serving random ones.
+    "DRAFT_PARAMS_CHECKPOINT": ("/ckpt", "draft", FileNotFoundError,
+                                "/ckpt"),
+    "CHECKPOINT_DIR": ("/ckpt", "build_generator", FileNotFoundError,
+                       "/ckpt"),
+    "PARAMS_CHECKPOINT": ("/ckpt", "build_generator", FileNotFoundError,
+                          "/ckpt"),
+    "HF_CHECKPOINT": ("/hf", "build_generator", FileNotFoundError, "/hf"),
     "QUANTIZE": ("int4", "build_generator", ValueError, "int8"),
     "DECODE_DTYPE": ("float99", "run_batch", ValueError, "torch dtype"),
     "MODEL": ("gpt5", "build_generator", ValueError, "unknown"),
@@ -240,3 +245,75 @@ def test_server_refuses_to_fall_back_to_cpu(clear_tpufw_env):
     clear_tpufw_env.setenv("TPUFW_MODEL", "llama3_tiny")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve._Server(0, 2)
+
+
+@pytest.fixture
+def tiny_weights(tmp_path):
+    """(bare-params dir, training-checkpoint dir, the state dicts in
+    them) of llama3_tiny, from seed 5 and one step of training."""
+    from tpufw_torch.models import PRESETS
+    from tpufw_torch.train import Trainer, TrainerConfig, synthetic_batches
+    from tpufw_torch.train.checkpoint import save_params
+
+    cfg = PRESETS["llama3_tiny"]
+    t = Trainer(cfg, TrainerConfig(batch_size=2, seq_len=17, total_steps=1,
+                                   checkpoint_dir=str(tmp_path / "ck"),
+                                   checkpoint_every=1), device="cpu")
+    t.init_state(seed=5)
+    params = {k: v.clone() for k, v in t.model.state_dict().items()}
+    save_params(str(tmp_path / "p"), params, cfg)
+    t.run(synthetic_batches(2, 17, cfg.vocab_size), 1.0)
+    return str(tmp_path / "p"), str(tmp_path / "ck"), params, \
+        t.model.state_dict()
+
+
+@pytest.mark.parametrize("knob", ["PARAMS_CHECKPOINT", "CHECKPOINT_DIR"])
+def test_weight_knobs_load_the_weights(cpu_env, tiny_weights, knob):
+    """The served model holds exactly the saved weights (restored is
+    True) and run_batch gives generate_text's tokens on them."""
+    from tpufw_torch.workloads.env import env_str
+
+    params_dir, ckpt_dir, params, trained = tiny_weights
+    path, want = ((params_dir, params) if knob == "PARAMS_CHECKPOINT"
+                  else (ckpt_dir, trained))
+    cpu_env.setenv(f"TPUFW_{knob}", path)
+    model, cfg, restored = serve.build_generator()
+    assert restored and cfg.decode is False and model.cfg.decode
+    got = model.state_dict()
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    out = serve.run_batch(PROMPTS, max_new_tokens=3)
+    assert [r["output"] for r in out] == generate_text(
+        model, PROMPTS, max_new_tokens=3)
+    assert all(r["restored_checkpoint"] for r in out)
+    # Another preset's params are refused, not served.
+    cpu_env.setenv("TPUFW_MODEL", "qwen25_tiny")
+    with pytest.raises(ValueError, match="different model"):
+        serve.build_generator()
+    assert env_str(knob.lower(), "") == path
+
+
+def test_draft_params_checkpoint_loads_the_draft(cpu_env, tiny_weights):
+    params_dir, _, params, _ = tiny_weights
+    cpu_env.setenv("TPUFW_DRAFT_PARAMS_CHECKPOINT", params_dir)
+    draft = serve.build_draft_model("llama3_tiny", "cpu", 1)
+    assert draft.cfg.decode
+    got = draft.state_dict()
+    assert all(torch.equal(got[k], params[k]) for k in params)
+
+
+def test_tokenizer_directory(clear_tpufw_env, tmp_path):
+    """TPUFW_TOKENIZER=<local dir>: encode and decode are the HF
+    tokenizer's (built in memory, no download)."""
+    tokenizers = pytest.importorskip("tokenizers")
+    transformers = pytest.importorskip("transformers")
+    vocab = {"[UNK]": 0, "hello": 1, "world": 2, "tpu": 3}
+    tok = tokenizers.Tokenizer(tokenizers.models.WordLevel(vocab, "[UNK]"))
+    tok.pre_tokenizer = tokenizers.pre_tokenizers.Whitespace()
+    fast = transformers.PreTrainedTokenizerFast(tokenizer_object=tok,
+                                                unk_token="[UNK]")
+    fast.save_pretrained(tmp_path)
+    clear_tpufw_env.setenv("TPUFW_TOKENIZER", str(tmp_path))
+    encode, decode = serve.text_codec()
+    assert encode("hello world tpu") == [1, 2, 3]
+    assert decode([1, 3]) == fast.decode([1, 3])

@@ -417,3 +417,153 @@ def test_workload_eval_sync_and_mu_knobs(monkeypatch, capsys):
     assert steps == [1, 2, 4]
     assert [e["step"] for e in evals] == [2, 4]
     assert all(e["eval_tokens"] == 2 * 2 * 16 for e in evals)
+
+
+# --- Weights, state and data knobs of the workload ------------------------
+
+def _workload_env(monkeypatch, **env):
+    for k in list(os.environ):
+        if k.startswith("TPUFW_"):
+            monkeypatch.delenv(k)
+    base = dict(DEVICE="cpu", MODEL="llama3_tiny", BATCH_SIZE="2",
+                SEQ_LEN="17", LOSS_CHUNK_SIZE="8")
+    for k, v in {**base, **env}.items():
+        monkeypatch.setenv(f"TPUFW_{k}", str(v))
+
+
+STATE_KNOBS = ("checkpoint_dir", "checkpoint_every", "handle_preemption",
+               "preemption_sync_every")
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    {"CHECKPOINT_DIR": "/ck", "CHECKPOINT_EVERY": "7",
+     "HANDLE_PREEMPTION": "0", "PREEMPTION_SYNC_EVERY": "3"},
+], ids=["defaults", "set"])
+def test_state_knobs_match_tpufw_build_trainer(monkeypatch, env):
+    from tpufw.workloads import train_llama as j_train_llama
+    from tpufw_torch.workloads import train_llama
+
+    _workload_env(monkeypatch, **env)
+    mine, _ = train_llama.build_trainer()
+    theirs, _ = j_train_llama.build_trainer()
+    assert {k: getattr(mine.cfg, k) for k in STATE_KNOBS} == {
+        k: getattr(theirs.cfg, k) for k in STATE_KNOBS}
+
+
+@pytest.mark.parametrize("knob", ["SFT_DATA", "DPO_DATA", "DISTILL_TEACHER"])
+def test_post_training_objectives_are_refused(monkeypatch, knob):
+    from tpufw_torch.workloads import train_llama
+
+    _workload_env(monkeypatch, **{knob: "x"})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        train_llama.build_trainer()
+
+
+def _steps(out):
+    return [json.loads(ln) for ln in out.splitlines()
+            if ln.startswith('{"step"')]
+
+
+def test_workload_trains_on_a_corpus_and_resumes(monkeypatch, capsys,
+                                                 tmp_path):
+    """TPUFW_DATA_PREFIX through TokenCorpus (shuffled, seed from
+    resume_data_seed) and prefetch; TPUFW_EVAL_DATA_PREFIX in order;
+    TPUFW_CHECKPOINT_DIR saves and a second run resumes at its step."""
+    import tpufw_torch.train as ttrain
+    from tpufw.workloads._common import resume_data_seed as j_seed
+    from tpufw_torch.train import write_token_corpus
+    from tpufw_torch.workloads import train_llama
+
+    rng = np.random.default_rng(0)
+    write_token_corpus(str(tmp_path / "c"), [
+        rng.integers(1, 256, rng.integers(3, 30)) for _ in range(80)])
+    opened = []
+
+    class Recording(ttrain.TokenCorpus):
+        def __init__(self, prefix, *a, **kw):
+            opened.append((prefix, kw.get("shuffle", False),
+                           kw.get("seed", 0)))
+            super().__init__(prefix, *a, native=False, **kw)
+
+    monkeypatch.setattr(ttrain, "TokenCorpus", Recording)
+    env = dict(DATA_PREFIX=tmp_path / "c", EVAL_DATA_PREFIX=tmp_path / "c",
+               EVAL_EVERY=2, EVAL_BATCHES=1, CHECKPOINT_DIR=tmp_path / "ck",
+               CHECKPOINT_EVERY=2, DATA_SEED=5, TOTAL_STEPS=2)
+    _workload_env(monkeypatch, **env)
+    assert train_llama.main() == 0
+    out = capsys.readouterr().out
+    assert [s["step"] for s in _steps(out)] == [1, 2]
+    assert '"eval_loss"' in out
+    assert opened[0] == (str(tmp_path / "c"), True, 5)
+    assert opened[1] == (str(tmp_path / "c"), False, 0)
+    _workload_env(monkeypatch, **{**env, "TOTAL_STEPS": 4})
+    assert train_llama.main() == 0
+    out = capsys.readouterr().out
+    assert "resumed from checkpoint at step 2" in out
+    assert [s["step"] for s in _steps(out)] == [3, 4]
+    assert opened[2] == (str(tmp_path / "c"), True, j_seed(5, 2))
+
+
+def test_workload_init_from_bare_params(monkeypatch, capsys, tmp_path):
+    from tpufw_torch.models import PRESETS
+    from tpufw_torch.train.checkpoint import save_params
+    from tpufw_torch.workloads import train_llama
+
+    cfg = PRESETS["llama3_tiny"]
+    src = Trainer(cfg, TrainerConfig(), device="cpu")
+    src.init_state(seed=9)
+    save_params(str(tmp_path / "p"), src.model.state_dict(), cfg)
+    _workload_env(monkeypatch, INIT_FROM=tmp_path / "p", TOTAL_STEPS=1)
+    assert train_llama.main() == 0
+    out = capsys.readouterr().out
+    assert f"initialized params from {tmp_path / 'p'}" in out
+    want = Trainer(cfg, TrainerConfig(batch_size=2, seq_len=17, total_steps=1,
+                                      warmup_steps=10, loss_chunk_size=8),
+                   device="cpu")
+    want.init_state(state_dict=src.model.state_dict())
+    hist = want.run(synthetic_batches(2, 17, cfg.vocab_size, seed=0), 1.0)
+    assert _steps(out)[0]["loss"] == hist[0].loss
+
+
+def test_workload_sigterm_prints_preempted_and_resumes(tmp_path):
+    """The entry point as a child process: SIGTERM after its second step
+    line gives {"preempted": true, "step": N}, exit 0 and step N on disk;
+    rerun, it resumes at N."""
+    import signal
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUFW_")}
+    env.update(TPUFW_DEVICE="cpu", TPUFW_MODEL="llama3_tiny",
+               TPUFW_BATCH_SIZE="2", TPUFW_SEQ_LEN="17",
+               TPUFW_TOTAL_STEPS="1000000", TPUFW_LOSS_CHUNK_SIZE="8",
+               TPUFW_CHECKPOINT_DIR=str(tmp_path / "ck"))
+    cmd = [sys.executable, "-m", "tpufw_torch.workloads.train_llama"]
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            text=True)
+    lines, steps = [], 0
+    try:
+        for ln in proc.stdout:
+            lines.append(ln)
+            steps += ln.startswith('{"step"')
+            if steps == 2:
+                proc.send_signal(signal.SIGTERM)
+                steps += 1
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    pre = [json.loads(ln) for ln in lines if ln.startswith('{"preempted"')]
+    assert len(pre) == 1 and pre[0]["preempted"] is True
+    n = pre[0]["step"]
+    from tpufw_torch.train import CheckpointManager
+
+    assert CheckpointManager(str(tmp_path / "ck")).all_steps() == [n]
+    env["TPUFW_TOTAL_STEPS"] = str(n + 1)
+    res = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert f"resumed from checkpoint at step {n}" in res.stdout
+    assert [s["step"] for s in _steps(res.stdout)] == [n + 1]

@@ -29,6 +29,20 @@ from tpufw_torch.train.trainer import TrainerConfig
 BENCH_CONFIG_NAME = "llama3_600m_bench"
 
 
+def resolve_model_preset(name: str):
+    """The model config a ``TPUFW_MODEL``-style name picks: the bench
+    model, or a preset of the three families (``models.PRESETS``)."""
+    from tpufw_torch.models import PRESETS
+
+    if name == BENCH_CONFIG_NAME:
+        return bench_model_config()
+    if name in PRESETS:
+        return PRESETS[name]
+    raise ValueError(
+        f"unknown model {name!r}; choose from {[BENCH_CONFIG_NAME, *PRESETS]}"
+    )
+
+
 def bench_model_config() -> LlamaConfig:
     return LlamaConfig(
         vocab_size=32_768,

@@ -11,6 +11,9 @@ kernel is rebuilt and an unchanged one is reused. All missing libraries
 are compiled in parallel, one ``nvcc`` per source.
 ``nvcc``'s output (the ``-Xptxas -v`` report) is kept beside each library
 as ``lib<name>-<hash>.log`` and read back when the library is reused.
+
+``data_library_path`` builds the native corpus packer
+(``native/dataloader/dataloader.cc``) the same way with ``g++``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -119,3 +123,40 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+# The native corpus packer (train.native_data): the repo's
+# native/dataloader/dataloader.cc, compiled as it is with the host C++
+# compiler into build-torch/, its name hashed over the flags and sources.
+DATA_SRC = Path(__file__).resolve().parents[2] / "native" / "dataloader"
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+
+
+def data_library_path() -> Path:
+    """Build ``libtpufwdata`` if missing; return its path. Raises when the
+    sources or a C++ compiler are missing or the compile fails."""
+    src = DATA_SRC / "dataloader.cc"
+    if not src.exists():
+        raise RuntimeError(f"{src} is missing: run from a checkout of the repo")
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++) to build libtpufwdata")
+    # The compiler and the machine are in the name too, so a build-torch/
+    # copied from another host is not reused.
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(f"{version}{platform.machine()}".encode())
+    for f in sorted(DATA_SRC.iterdir()):
+        h.update(f.read_bytes())
+    path = BUILD_DIR / f"libtpufwdata-{h.hexdigest()[:12]}.so"
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed on {src}:\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path

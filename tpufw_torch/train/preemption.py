@@ -1,0 +1,129 @@
+"""SIGTERM -> forced checkpoint -> clean exit (port of
+``tpufw.train.preemption``), for one process.
+
+Kubernetes ends a pod with SIGTERM and a grace window before SIGKILL; the
+trainer turns that window into a checkpoint of the current step, so the
+restarted run resumes there and not at the last periodic save.
+
+The JAX package makes the stop decision a collective (``any`` of every
+process's flag), so that a gang stops at one step. That needs the port's
+multi-GPU layer (ROADMAP.md Queue 1 item 12): with ``torch.distributed``
+initialized at a world size above 1, ``should_stop`` raises.
+"""
+
+from __future__ import annotations
+
+import signal
+import threading
+from typing import Optional
+
+
+class GracefulShutdown:
+    """Latches termination signals into a per-step stop decision.
+
+    Usage::
+
+        shutdown = GracefulShutdown()          # installs the SIGTERM handler
+        for step, batch in enumerate(data):
+            train(batch)
+            if shutdown.should_stop():
+                ckpt.save(step, state, force=True)
+                break
+
+    Handlers chain: a handler installed before still runs after the flag
+    is set. Off the main thread, where CPython forbids ``signal.signal``,
+    nothing is installed and ``request()`` is the only trigger.
+    """
+
+    def __init__(self, signals: tuple = (signal.SIGTERM,), sync_every: int = 1):
+        self._flag = threading.Event()
+        self._prev: dict = {}
+        self._signals = tuple(signals)
+        if sync_every < 1:
+            raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+        self._sync_every = sync_every
+        self._calls = 0
+        self._stop_latched = False
+        for sig in self._signals:
+            try:
+                self._prev[sig] = signal.signal(sig, self._handle)
+            except ValueError:
+                self._prev.pop(sig, None)
+
+    def _handle(self, signum, frame):
+        self._flag.set()
+        prev = self._prev.get(signum)
+        if callable(prev):
+            prev(signum, frame)
+
+    def request(self) -> None:
+        """Set the stop flag as the signal does."""
+        self._flag.set()
+
+    @property
+    def requested(self) -> bool:
+        return self._flag.is_set()
+
+    def should_stop(self) -> bool:
+        """True once the flag is seen at a sync call; stays True. Only
+        every ``sync_every``-th call reads the flag (the JAX package's
+        collective cadence); the others return the last decision."""
+        if self._stop_latched:
+            return True
+        self._calls += 1
+        if (self._calls - 1) % self._sync_every:
+            return False
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                "GracefulShutdown across processes (the gang's any(flag) "
+                "collective) is not ported to tpufw_torch yet (ROADMAP.md "
+                "Queue 1 item 12)"
+            )
+        self._stop_latched = self._flag.is_set()
+        return self._stop_latched
+
+    def uninstall(self) -> None:
+        """Put the previous handlers back (a handler installed from C,
+        which Python reports as None, cannot be; ours stays, inert)."""
+        for sig, prev in self._prev.items():
+            if prev is None:
+                continue
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, TypeError):
+                pass
+        self._prev.clear()
+
+    def __enter__(self) -> "GracefulShutdown":
+        return self
+
+    def __exit__(self, *exc) -> Optional[bool]:
+        self.uninstall()
+        return None
+
+
+def owned_shutdown(
+    shutdown: Optional[GracefulShutdown], enabled: bool, sync_every: int,
+) -> tuple[Optional[GracefulShutdown], bool]:
+    """A ``GracefulShutdown`` made here when the caller passed none and
+    the config enables handling: (shutdown, owns). The owner must
+    ``uninstall()`` it in the run loop's ``finally``."""
+    if shutdown is not None or not enabled:
+        return shutdown, False
+    return GracefulShutdown(sync_every=sync_every), True
+
+
+def checkpoint_stop(
+    shutdown: Optional[GracefulShutdown], ckpt, step: int, state,
+) -> bool:
+    """The per-step stop block of the train loop: on stop, a forced
+    checkpoint of ``step`` (when there is a manager; ``state`` may be a
+    callable that makes it). True when the loop should break."""
+    if shutdown is None or not shutdown.should_stop():
+        return False
+    if ckpt is not None:
+        ckpt.save(step, state, force=True)
+    return True

@@ -12,7 +12,11 @@ parameter) under ``warmup_cosine_decay_schedule(0, lr, warmup, total,
 ``Trainer.run`` syncs the host on the loss every ``sync_every`` steps
 (after the first and the last too), metering each window of steps as one
 ``StepMetrics``, and runs the held-out evaluation (``Trainer.evaluate``)
-every ``eval_every`` steps at those sync points.
+every ``eval_every`` steps at those sync points. At the same points it
+checkpoints (``train.checkpoint``, every ``checkpoint_every`` steps) and
+stops on SIGTERM with a forced save (``train.preemption``);
+``maybe_restore`` resumes from the latest checkpoint, ``init_from_params``
+starts from bare params.
 """
 
 from __future__ import annotations
@@ -27,7 +31,14 @@ import torch
 from tpufw_torch.models import model_for_config
 from tpufw_torch.models.llama import Llama, LlamaConfig
 from tpufw_torch.ops.loss import chunked_cross_entropy, token_cross_entropy
+from tpufw_torch.train.checkpoint import (
+    CheckpointManager,
+    check_identity,
+    config_identity,
+    load_params,
+)
 from tpufw_torch.train.metrics import Meter, StepMetrics, timed_batches
+from tpufw_torch.train.preemption import checkpoint_stop, owned_shutdown
 from tpufw_torch.utils.hardware import detect_chip, resolve_device
 
 
@@ -180,6 +191,31 @@ class LlamaAdamW:
         self.adamw.step()
         return g_norm
 
+    def state_dict(self) -> dict:
+        """``count`` and the moments: the fused AdamW's own state dict, or
+        the ``mu``/``nu`` lists of the ``mu_dtype`` form."""
+        if self.adamw is not None:
+            return {"count": self.count, "adamw": self.adamw.state_dict()}
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Inverse of ``state_dict``; the form (fused or ``mu_dtype``)
+        and every moment's dtype must match this optimizer's."""
+        if (self.adamw is None) != ("adamw" not in state):
+            raise ValueError(
+                "optimizer state of the other form: fused AdamW vs "
+                "adam_mu_dtype moments")
+        if self.adamw is not None:
+            self.adamw.load_state_dict(state["adamw"])
+        else:
+            for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+                if [t.dtype for t in mine] != [t.dtype for t in theirs]:
+                    raise ValueError("adam_mu_dtype differs from the saved one")
+                for a, b in zip(mine, theirs):
+                    a.copy_(b)
+        self.count = int(state["count"])
+
     def _mu_dtype_step(self, grads, lr: float) -> None:
         """optax ``scale_by_adam(mu_dtype=)``, ``add_decayed_weights`` and
         the learning rate, per parameter."""
@@ -288,8 +324,11 @@ def run_evaluation(data, n_batches, eval_batch_fn) -> dict:
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
+    """Numpy arrays or tensors (e.g. from ``prefetch_to_device``, then
+    already there) on ``device``."""
     return {
-        k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        k: (v if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(v))).to(device)
         for k, v in batch.items()
     }
 
@@ -320,6 +359,15 @@ class TrainerConfig:
     # window averages (StepMetrics.window_steps) and eval runs at sync
     # points only, so align eval_every to a multiple of sync_every.
     sync_every: int = 1
+    # Checkpoints (train.checkpoint): saved at sync points whose step is
+    # a multiple of checkpoint_every, and by maybe_restore resumed from.
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1000
+    # Latch SIGTERM and leave the loop with a forced checkpoint of the
+    # current step (train.preemption); the stop flag is read every
+    # preemption_sync_every steps.
+    handle_preemption: bool = True
+    preemption_sync_every: int = 1
 
 
 class Trainer:
@@ -338,6 +386,10 @@ class Trainer:
         self.model: Optional[Llama] = None
         self.optimizer: Optional[LlamaAdamW] = None
         self.step = 0
+        # True when the last run() stopped on a preemption request.
+        self.preempted = False
+        # The last run()'s CheckpointManager (its saves' numbers).
+        self.checkpointer = None
 
     def init_state(self, seed: int = 0, state_dict=None) -> Llama:
         """Random weights from ``seed``, or ``state_dict`` when given
@@ -349,6 +401,10 @@ class Trainer:
         )
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        self._fresh_optimizer()
+        return self.model
+
+    def _fresh_optimizer(self) -> None:
         self.optimizer = default_optimizer(
             self.model.parameters(),
             lr=self.cfg.lr,
@@ -357,6 +413,62 @@ class Trainer:
             mu_dtype=self.cfg.adam_mu_dtype,
         )
         self.step = 0
+
+    def assign_model(self, state_dict: dict) -> None:
+        """The model built with no weights of its own (the meta device)
+        and then given ``state_dict``'s tensors, already on the device.
+        The optimizer is left alone (``tools.eval_ppl`` needs none)."""
+        self.model = model_for_config(self.model_cfg, device="meta")
+        self.model.load_state_dict(state_dict, assign=True)
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs: step, model and optimizer
+        state, and the model config's identity."""
+        return {"step": self.step,
+                "config": config_identity(self.model_cfg),
+                "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Resume from ``state_dict()``'s output (tensors on this
+        trainer's device); raises ValueError for another model's."""
+        check_identity(state["config"], self.model_cfg, "the checkpoint")
+        self.assign_model(state["model"])
+        self._fresh_optimizer()
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+    def maybe_restore(self) -> bool:
+        """Resume from the latest checkpoint under ``cfg.checkpoint_dir``,
+        if there is one (the gang-restart path)."""
+        if not self.cfg.checkpoint_dir:
+            return False
+        mgr = CheckpointManager(self.cfg.checkpoint_dir)
+        try:
+            if mgr.latest_step() is None:
+                return False
+            self.load_state_dict(mgr.restore(device=self.device))
+            return True
+        finally:
+            mgr.close()
+
+    def restore_params(self, path: str) -> dict:
+        """The state dict of a bare-params directory (``save_params``,
+        the ``tools.import_hf`` CLI's output) on this trainer's device,
+        in the model's dtypes; raises ValueError for another model's."""
+        return load_params(path, self.model_cfg, self.device)[1]
+
+    def init_from_params(self, path: str) -> Llama:
+        """Start training from bare params: step 0, fresh optimizer
+        state. Only on a fresh trainer (``maybe_restore`` resumes a
+        whole run). ``tpufw``'s ``seed`` argument, which seeds only LoRA
+        adapters, is not taken: the port refuses LoRA."""
+        if self.model is not None:
+            raise RuntimeError(
+                "init_from_params on an initialized trainer; build a fresh "
+                "Trainer (or maybe_restore to resume a run)")
+        self.assign_model(self.restore_params(path))
+        self._fresh_optimizer()
         return self.model
 
     def train_step(self, batch: dict) -> dict:
@@ -396,48 +508,82 @@ class Trainer:
         on_metrics: Callable[[StepMetrics], None] | None = None,
         eval_data: Callable[[], Iterator[dict]] | None = None,
         on_eval: Callable[[dict], None] | None = None,
+        shutdown=None,
     ) -> list[StepMetrics]:
-        """Train up to ``total_steps``; one ``StepMetrics`` per host sync.
-        ``eval_data`` makes a fresh held-out iterator per evaluation;
-        ``on_eval`` receives each result with its "step"."""
+        """Train up to ``total_steps`` (a restored run trains what is
+        left); one ``StepMetrics`` per host sync. ``eval_data`` makes a
+        fresh held-out iterator per evaluation; ``on_eval`` receives each
+        result with its "step". At each sync point, after the metrics and
+        the evaluation, the step is checkpointed when ``cfg.checkpoint_dir``
+        is set and it is a multiple of ``checkpoint_every``; then a stop
+        request (``shutdown``, or the SIGTERM handler that
+        ``cfg.handle_preemption`` installs) ends the loop with a forced
+        save and ``self.preempted`` set. Saves stay outside the metered
+        window; the last one is on disk when ``run`` returns."""
         if self.model is None:
             self.init_state()
+        self.preempted = False
         meter = Meter(
             tokens_per_step=self.cfg.batch_size * (self.cfg.seq_len - 1),
             flops_per_token=model_flops_per_token,
             chip=detect_chip(self.device),
+        )
+        ckpt = None
+        if self.cfg.checkpoint_dir:
+            ckpt = CheckpointManager(
+                self.cfg.checkpoint_dir,
+                save_interval_steps=self.cfg.checkpoint_every,
+            )
+        self.checkpointer = ckpt
+        shutdown, owns_shutdown = owned_shutdown(
+            shutdown, self.cfg.handle_preemption,
+            self.cfg.preemption_sync_every,
         )
         remaining = max(0, self.cfg.total_steps - self.step)
         se = max(1, self.cfg.sync_every)
         window_n, window_wait = 0, 0.0
         history: list[StepMetrics] = []
         m = None
-        for i, (wait, batch) in enumerate(timed_batches(data)):
-            if i >= remaining:
-                break
-            if window_n == 0:
-                meter.start()
-            m = self.train_step(batch)
-            window_n += 1
-            window_wait += wait
-            # Sync after the first step, at multiples of sync_every (so
-            # an aligned eval_every fires) and after the last.
-            if not (i == 0 or self.step % se == 0 or i + 1 == remaining):
-                continue
-            sm = meter.stop(self.step, m["loss"], data_wait_s=window_wait,
-                            n_steps=window_n)
-            window_n, window_wait = 0, 0.0
-            history.append(sm)
-            if on_metrics and (se > 1 or i % self.cfg.log_every == 0):
-                on_metrics(sm)
-            self._maybe_eval(eval_data, on_eval)
-        if window_n:
-            # The iterator ended mid-window: meter the steps it ran.
-            sm = meter.stop(self.step, m["loss"], data_wait_s=window_wait,
-                            n_steps=window_n)
-            history.append(sm)
-            if on_metrics:
-                on_metrics(sm)
+        try:
+            for i, (wait, batch) in enumerate(timed_batches(data)):
+                if i >= remaining:
+                    break
+                if window_n == 0:
+                    meter.start()
+                m = self.train_step(batch)
+                window_n += 1
+                window_wait += wait
+                # Sync after the first step, at multiples of sync_every
+                # (so an aligned eval_every or checkpoint_every fires) and
+                # after the last.
+                if not (i == 0 or self.step % se == 0 or i + 1 == remaining):
+                    continue
+                sm = meter.stop(self.step, m["loss"], data_wait_s=window_wait,
+                                n_steps=window_n)
+                window_n, window_wait = 0, 0.0
+                history.append(sm)
+                if on_metrics and (se > 1 or i % self.cfg.log_every == 0):
+                    on_metrics(sm)
+                self._maybe_eval(eval_data, on_eval)
+                if ckpt is not None:
+                    ckpt.save(self.step, self.state_dict)
+                if checkpoint_stop(shutdown, ckpt, self.step, self.state_dict):
+                    self.preempted = True
+                    break
+            if window_n:
+                # The iterator ended mid-window: meter the steps it ran.
+                sm = meter.stop(self.step, m["loss"], data_wait_s=window_wait,
+                                n_steps=window_n)
+                history.append(sm)
+                if on_metrics:
+                    on_metrics(sm)
+                if ckpt is not None:
+                    ckpt.save(self.step, self.state_dict)
+        finally:
+            if ckpt is not None:
+                ckpt.close()
+            if owns_shutdown:
+                shutdown.uninstall()
         return history
 
     def _maybe_eval(self, eval_data, on_eval) -> None:

@@ -1,0 +1,68 @@
+"""Shared scaffolding of the training entry points (port of
+``tpufw.workloads._common``): the JSON-lines telemetry channel, the
+global-batch contract, the resumed run's data seed and the preemption
+line."""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Callable
+
+from tpufw_torch.train.metrics import StepMetrics
+
+
+def check_global_batch(batch_size: int, n_processes: int) -> int:
+    """Global-batch contract: returns the LOCAL batch size per process."""
+    if batch_size % n_processes:
+        raise ValueError(
+            f"global batch {batch_size} not divisible by "
+            f"{n_processes} processes"
+        )
+    return batch_size // n_processes
+
+
+def metrics_printer(t0: float) -> Callable[[StepMetrics], None]:
+    """on_metrics callback: the first call prints the cold-start to
+    first-step record, every call the step's JSON line."""
+    first_step: dict = {}
+
+    def on_metrics(m: StepMetrics) -> None:
+        if not first_step:
+            first_step["t"] = time.time()
+            print(json.dumps(
+                {"cold_start_to_first_step_s": round(first_step["t"] - t0, 1)}
+            ), flush=True)
+        print(json.dumps(m.as_dict()), flush=True)
+
+    return on_metrics
+
+
+def resume_data_seed(base_seed: int, restored_step: int) -> int:
+    """Data seed of a (possibly) resumed run, the JAX package's formula: a
+    run restored at step N shuffles the corpus with a fresh permutation
+    (the step folded into the seed) rather than replaying batches 1..N.
+    Not sample-exact resume, but no duplication bias, O(1), and equal to
+    what a resumed ``tpufw`` run draws."""
+    if restored_step <= 0:
+        return base_seed
+    return base_seed + 1_000_003 * restored_step
+
+
+def report_preemption(trainer) -> None:
+    """One JSON line when the run stopped on SIGTERM (the forced
+    checkpoint is on disk; a clean exit lets the restart resume)."""
+    if getattr(trainer, "preempted", False):
+        print(json.dumps({"preempted": True, "step": int(trainer.step)}),
+              flush=True)
+
+
+def print_summary(history: list[StepMetrics]) -> None:
+    if not history:
+        return
+    last = history[-1]
+    print(
+        f"TRAIN OK: {len(history)} steps, final loss {last.loss:.4f}, "
+        f"{last.tokens_per_sec_per_gpu:.0f} tok/s/GPU, "
+        f"MFU {last.mfu:.1%}"
+    )

@@ -24,7 +24,8 @@ model serves in batch mode only), ``TPUFW_MAX_SEQ_LEN``,
 ``TPUFW_DECODE_DTYPE`` (e.g. ``bfloat16``), ``TPUFW_PREFILL_CHUNK``,
 ``TPUFW_EOS_ID``, the sampling knobs ``TPUFW_TEMPERATURE``,
 ``TPUFW_TOP_K``, ``TPUFW_TOP_P``, ``TPUFW_MIN_P`` and
-``TPUFW_REPETITION_PENALTY``, ``TPUFW_TOKENIZER`` (``bytes``), and
+``TPUFW_REPETITION_PENALTY``, ``TPUFW_TOKENIZER`` (``bytes`` or a local
+HuggingFace tokenizer directory, read through ``transformers``), and
 ``TPUFW_DEVICE`` (default ``cuda``); speculative decoding with a draft
 model, ``TPUFW_DRAFT_MODEL`` (a preset of either family, weights drawn
 from ``TPUFW_SEED`` + 1) and ``TPUFW_DRAFT_K`` (4), in batch mode and as
@@ -42,23 +43,27 @@ paged prefill, in pages per chunk; needs ``TPUFW_SERVE_PAGE``),
 ``TPUFW_SERVE_SPEC_DRAFT`` (empty or ``ngram``: n-gram self-drafting; a
 preset name: a draft pool of that model), ``TPUFW_SERVE_SPEC_MIN_ACCEPT``
 (0.25), ``TPUFW_SERVE_LATENCY_BREAKDOWN``, ``TPUFW_MAX_SAMPLING_CONFIGS``
-(32) and ``TPUFW_WARMUP`` (on). Weights are drawn at random from
-``TPUFW_SEED``. Speculation on the slot pool does not compose with a
+(32) and ``TPUFW_WARMUP`` (on). Weights come from
+``TPUFW_HF_CHECKPOINT`` (an HF directory, which also names the
+architecture), ``TPUFW_PARAMS_CHECKPOINT`` (bare params of
+``TPUFW_MODEL``, ``tools.import_hf``'s output) or ``TPUFW_CHECKPOINT_DIR``
+(the latest training checkpoint), else at random from ``TPUFW_SEED``; the
+draft's from ``TPUFW_DRAFT_PARAMS_CHECKPOINT``. Speculation on the slot
+pool does not compose with a
 repetition penalty: such pools decode plainly, as in the JAX workload.
 
 Not ported yet, and refused with ``NotImplementedError``: the
 disaggregated roles and page export (``TPUFW_SERVE_ROLE``; ROADMAP.md
 Queue 1 item 9);
 telemetry (``TPUFW_TELEMETRY_DIR``, so ``GET /debug/profile`` answers
-404; item 13); loading weights (``TPUFW_CHECKPOINT_DIR``,
-``TPUFW_PARAMS_CHECKPOINT``, ``TPUFW_HF_CHECKPOINT``,
-``TPUFW_DRAFT_PARAMS_CHECKPOINT``; item 6).
+404; item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import threading
 import time
 from typing import Optional
@@ -67,6 +72,7 @@ import numpy as np
 import torch
 
 from tpufw_torch.obs.registry import Registry
+from tpufw_torch.utils.hardware import resolve_device
 from tpufw_torch.workloads.env import env_bool, env_float, env_int, env_str
 
 _T0 = time.time()
@@ -81,35 +87,66 @@ def _refuse(knob: str, what: str, item: str) -> None:
     )
 
 
-def build_generator():
-    """(decode_model, model_cfg, restored) from the TPUFW_* environment.
-    The weights are random, drawn from ``TPUFW_SEED`` on ``TPUFW_DEVICE``;
-    ``restored`` is always False until checkpoints are ported."""
-    from tpufw_torch.configs import BENCH_CONFIG_NAME, bench_model_config
-    from tpufw_torch.models import PRESETS, model_for_config
+def _model_from_state(cfg, state_dict: dict):
+    """The decode model of ``cfg`` holding ``state_dict`` (already on its
+    device): built on the meta device, so no random draw is thrown away."""
+    from tpufw_torch.models import model_for_config
 
-    for knob in ("hf_checkpoint", "params_checkpoint", "checkpoint_dir"):
-        if env_str(knob, ""):
-            _refuse(knob, "loading weights", "6")
-    name = env_str("model", BENCH_CONFIG_NAME)
-    if name == BENCH_CONFIG_NAME:
-        model_cfg = bench_model_config()
-    elif name in PRESETS:
-        model_cfg = PRESETS[name]
-    else:
-        raise ValueError(
-            f"unknown TPUFW_MODEL={name!r}; choose from "
-            f"{[BENCH_CONFIG_NAME, *PRESETS]}"
-        )
+    model = model_for_config(cfg.decode_config(), device="meta")
+    model.load_state_dict(state_dict, assign=True)
+    return model
+
+
+def build_generator():
+    """(decode_model, model_cfg, restored) from the TPUFW_* environment,
+    on ``TPUFW_DEVICE``. Weights, in this order: ``TPUFW_HF_CHECKPOINT``
+    (an HF directory; its config.json names the architecture and
+    ``TPUFW_MODEL`` is ignored; weights in the activation dtype, no fp32
+    copy), ``TPUFW_PARAMS_CHECKPOINT`` (bare params of ``TPUFW_MODEL``),
+    ``TPUFW_CHECKPOINT_DIR`` (the latest training checkpoint of
+    ``TPUFW_MODEL``), else random from ``TPUFW_SEED``. ``restored`` is
+    True when weights were loaded; a named source that holds none raises
+    rather than serving random weights."""
+    from tpufw_torch.configs import BENCH_CONFIG_NAME, resolve_model_preset
+    from tpufw_torch.models import model_for_config
+    from tpufw_torch.train.checkpoint import (
+        checkpoint_model_state,
+        load_params,
+    )
+
+    device = env_str("device", "cuda")
+    hf_dir = env_str("hf_checkpoint", "")
+    if hf_dir:
+        from tpufw_torch.tools.import_hf import config_from_hf, from_hf
+
+        with open(os.path.join(hf_dir, "config.json")) as f:
+            model_cfg = config_from_hf(json.load(f))
+        model_cfg = dataclasses.replace(
+            model_cfg, param_dtype=model_cfg.dtype,
+            max_seq_len=env_int("max_seq_len", model_cfg.max_seq_len))
+        model = _model_from_state(model_cfg, from_hf(
+            hf_dir, model_cfg, device=resolve_device(device)))
+        model_cfg, model = _maybe_quantize(model_cfg, model)
+        return model, model_cfg, True
+    model_cfg = resolve_model_preset(env_str("model", BENCH_CONFIG_NAME))
     model_cfg = dataclasses.replace(
         model_cfg, max_seq_len=env_int("max_seq_len", model_cfg.max_seq_len)
     )
-    model = model_for_config(
-        model_cfg.decode_config(), device=env_str("device", "cuda"),
-        seed=env_int("seed", 0),
-    )
+    params_dir = env_str("params_checkpoint", "")
+    ckpt_dir = env_str("checkpoint_dir", "")
+    if params_dir:
+        model = _model_from_state(model_cfg, load_params(
+            params_dir, model_cfg, resolve_device(device))[1])
+    elif ckpt_dir:
+        model = _model_from_state(model_cfg, checkpoint_model_state(
+            ckpt_dir, model_cfg, resolve_device(device)))
+    else:
+        model = model_for_config(
+            model_cfg.decode_config(), device=device,
+            seed=env_int("seed", 0),
+        )
     model_cfg, model = _maybe_quantize(model_cfg, model)
-    return model, model_cfg, False
+    return model, model_cfg, bool(params_dir or ckpt_dir)
 
 
 def quantize_model(model):
@@ -166,25 +203,27 @@ def _cache_bucket(need: int, cap: int, floor: int = 128) -> int:
 
 
 def text_codec():
-    """(encode, decode) for text prompts, from TPUFW_TOKENIZER: only the
-    dependency-free byte codec, utf-8 byte + 1 with id 0 kept for
-    padding."""
+    """(encode, decode) for text prompts, from TPUFW_TOKENIZER: "bytes"
+    (default), the dependency-free codec shared with
+    ``tools.pack_corpus`` (utf-8 byte + 1, id 0 kept for padding), or a
+    local HuggingFace tokenizer directory (pair it with
+    TPUFW_HF_CHECKPOINT so the ids are the model's), read through
+    ``transformers``, which must be installed for it. Hub names are
+    refused: the port reads local files only."""
     name = env_str("tokenizer", "bytes")
-    if name != "bytes":
-        raise NotImplementedError(
-            f"TPUFW_TOKENIZER={name!r}: only 'bytes' is ported; HuggingFace "
-            "tokenizers come with HF checkpoints (ROADMAP.md Queue 1 item 6)"
-        )
+    if name == "bytes":
+        from tpufw_torch.tools.pack_corpus import byte_tokenizer
 
-    def encode(text: str) -> list[int]:
-        return [b + 1 for b in text.encode("utf-8")]
+        def decode(ids: list[int]) -> str:
+            return bytes(t - 1 for t in ids if 0 < t <= 256).decode(
+                "utf-8", errors="replace"
+            )
 
-    def decode(ids: list[int]) -> str:
-        return bytes(t - 1 for t in ids if 0 < t <= 256).decode(
-            "utf-8", errors="replace"
-        )
+        return byte_tokenizer, decode
+    from tpufw_torch.tools.pack_corpus import hf_tokenizer
 
-    return encode, decode
+    tok = hf_tokenizer(name)
+    return tok.encode, tok.decode
 
 
 def make_sampling(
@@ -277,17 +316,16 @@ def generate_batch(model, prompts, max_new_tokens, sampling, eos):
 def build_draft_model(name: str, device, seed: int,
                       max_seq_len: Optional[int] = None):
     """A decode model of the ``LLAMA_CONFIGS`` or ``GEMMA_CONFIGS`` preset
-    ``name``, weights
-    drawn at random from ``seed`` on ``device``: the draft of speculative
-    decoding. Its ``max_seq_len`` (the longest cache it takes) is
-    ``max_seq_len`` if given, else ``TPUFW_MAX_SEQ_LEN`` or the preset's.
-    Random draft weights only wire the path up: their proposals rarely
-    match, and the outputs stay the target's all the same."""
+    ``name`` on ``device``: the draft of speculative decoding. Its weights
+    are the bare params at ``TPUFW_DRAFT_PARAMS_CHECKPOINT`` when set,
+    else drawn at random from ``seed``. Its ``max_seq_len`` (the longest
+    cache it takes) is ``max_seq_len`` if given, else
+    ``TPUFW_MAX_SEQ_LEN`` or the preset's. Random draft weights only wire
+    the path up: their proposals rarely match, and the outputs stay the
+    target's all the same."""
     from tpufw_torch.models import GEMMA_CONFIGS, LLAMA_CONFIGS
     from tpufw_torch.models import model_for_config
 
-    if env_str("draft_params_checkpoint", ""):
-        _refuse("draft_params_checkpoint", "loading draft weights", "6")
     presets = {**LLAMA_CONFIGS, **GEMMA_CONFIGS}
     if name not in presets:
         raise ValueError(
@@ -297,6 +335,12 @@ def build_draft_model(name: str, device, seed: int,
     if max_seq_len is None:
         max_seq_len = env_int("max_seq_len", base.max_seq_len)
     cfg = dataclasses.replace(base, max_seq_len=max_seq_len)
+    ckpt = env_str("draft_params_checkpoint", "")
+    if ckpt:
+        from tpufw_torch.train.checkpoint import load_params
+
+        return _model_from_state(
+            cfg, load_params(ckpt, cfg, resolve_device(device))[1])
     return model_for_config(cfg.decode_config(), device=device, seed=seed)
 
 

@@ -10,10 +10,27 @@ override), ``TPUFW_LR``, ``TPUFW_WARMUP_STEPS``, ``TPUFW_LOSS_CHUNK_SIZE``
 ``TPUFW_ADAM_MU_DTYPE`` (e.g. ``bfloat16``), ``TPUFW_SYNC_EVERY`` (steps
 per host sync), ``TPUFW_EVAL_EVERY`` (0 = off) and ``TPUFW_EVAL_BATCHES``
 (8), ``TPUFW_SEED``, ``TPUFW_DATA_SEED``, ``TPUFW_LOG_EVERY`` and
-``TPUFW_DEVICE`` (default ``cuda``). Step metrics stream to stdout as one
-JSON line per logged step, and each held-out evaluation as one more; the
-eval batches are synthetic, from the odd seeds the train stream never
-uses.
+``TPUFW_DEVICE`` (default ``cuda``).
+
+Weights and state: ``TPUFW_CHECKPOINT_DIR`` (save every
+``TPUFW_CHECKPOINT_EVERY`` steps, default 100, and resume from the latest
+step at start), ``TPUFW_HANDLE_PREEMPTION`` (on: SIGTERM stops the run
+with a forced checkpoint and a ``{"preempted": true, "step": N}`` line)
+and ``TPUFW_PREEMPTION_SYNC_EVERY``; ``TPUFW_INIT_FROM`` (bare params to
+start from at step 0, when there is no checkpoint to resume).
+
+Data: ``TPUFW_DATA_PREFIX`` (a ``tools.pack_corpus`` corpus, read
+shuffled by the native packer through ``prefetch_to_device``, depth
+``TPUFW_PREFETCH_DEPTH``; a resumed run shuffles with
+``resume_data_seed``) or synthetic batches from the even seeds;
+``TPUFW_EVAL_DATA_PREFIX`` (a held-out corpus, read in order) or
+synthetic eval batches from the odd seeds the train stream never uses.
+Step metrics stream to stdout as one JSON line per logged step, and each
+held-out evaluation as one more.
+
+Not ported yet, and refused: the SFT, DPO and distillation objectives
+(``TPUFW_SFT_DATA``, ``TPUFW_DPO_DATA``, ``TPUFW_DISTILL_TEACHER``;
+ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -22,30 +39,28 @@ import dataclasses
 import json
 import time
 
-from tpufw_torch.workloads.env import env_float, env_int, env_str
+from tpufw_torch.workloads.env import env_bool, env_float, env_int, env_str
 
 _T0 = time.time()
 
 
 def build_trainer():
     """(trainer, model_cfg) from the TPUFW_* environment."""
-    from tpufw_torch.configs import BENCH_CONFIG_NAME, bench_model_config
-    from tpufw_torch.models import PRESETS
+    from tpufw_torch.configs import BENCH_CONFIG_NAME, resolve_model_preset
     from tpufw_torch.train import Trainer, TrainerConfig
 
-    name = env_str("model", BENCH_CONFIG_NAME)
-    if name == BENCH_CONFIG_NAME:
-        model_cfg = bench_model_config()
-    elif name in PRESETS:
-        model_cfg = PRESETS[name]
-    else:
-        raise ValueError(
-            f"unknown TPUFW_MODEL={name!r}; choose from "
-            f"{[BENCH_CONFIG_NAME, *PRESETS]}"
-        )
+    for knob in ("sft_data", "dpo_data", "distill_teacher"):
+        if env_str(knob, ""):
+            raise NotImplementedError(
+                f"TPUFW_{knob.upper()}: the SFT, DPO and distillation "
+                "objectives are not ported to tpufw_torch yet (ROADMAP.md "
+                "Queue 1 item 11)"
+            )
+    model_cfg = resolve_model_preset(env_str("model", BENCH_CONFIG_NAME))
     backend = env_str("attention", "")
     if backend:
         model_cfg = dataclasses.replace(model_cfg, attention_backend=backend)
+    base = TrainerConfig()
     trainer_cfg = TrainerConfig(
         batch_size=env_int("batch_size", 8),
         seq_len=env_int("seq_len", model_cfg.max_seq_len),
@@ -60,58 +75,87 @@ def build_trainer():
         eval_batches=env_int("eval_batches", 8),
         adam_mu_dtype=env_str("adam_mu_dtype", "") or None,
         sync_every=env_int("sync_every", 1),
+        checkpoint_dir=env_str("checkpoint_dir", "") or None,
+        checkpoint_every=env_int("checkpoint_every", 100),
+        handle_preemption=env_bool("handle_preemption",
+                                   base.handle_preemption),
+        preemption_sync_every=env_int("preemption_sync_every",
+                                      base.preemption_sync_every),
     )
     device = env_str("device", "cuda")
     return Trainer(model_cfg, trainer_cfg, device=device), model_cfg
 
 
 def main() -> int:
-    from tpufw_torch.train import synthetic_batches
+    from tpufw_torch.train import (
+        TokenCorpus,
+        prefetch_to_device,
+        synthetic_batches,
+    )
+    from tpufw_torch.workloads._common import (
+        check_global_batch,
+        metrics_printer,
+        print_summary,
+        report_preemption,
+        resume_data_seed,
+    )
 
     trainer, model_cfg = build_trainer()
-    trainer.init_state(seed=env_int("seed", 0))
-    cfg = trainer.cfg
     print(
         f"tpufw_torch train_llama: device={trainer.device} "
         f"params={model_cfg.n_params():,}",
         flush=True,
     )
-    # Train seeds are even, the held-out stream's odd: no collision for
-    # any TPUFW_DATA_SEED.
-    data = synthetic_batches(
-        cfg.batch_size, cfg.seq_len, model_cfg.vocab_size,
-        seed=env_int("data_seed", 0) * 2000,
-    )
-
-    def eval_data():
-        return synthetic_batches(
-            cfg.batch_size, cfg.seq_len, model_cfg.vocab_size,
-            seed=env_int("data_seed", 0) * 2000 + 1,
+    init_from = env_str("init_from", "")
+    if trainer.maybe_restore():
+        print(f"resumed from checkpoint at step {trainer.step}", flush=True)
+    elif init_from:
+        trainer.init_from_params(init_from)
+        print(f"initialized params from {init_from}", flush=True)
+    else:
+        trainer.init_state(seed=env_int("seed", 0))
+    cfg = trainer.cfg
+    # One process: the local batch is the global one.
+    local_bs = check_global_batch(cfg.batch_size, 1)
+    # A resumed run shuffles afresh (the restored step folded into the
+    # seed); the eval streams keep the base seed.
+    data_seed = resume_data_seed(env_int("data_seed", 0), trainer.step)
+    data_prefix = env_str("data_prefix", "")
+    if data_prefix:
+        data = prefetch_to_device(
+            iter(TokenCorpus(data_prefix, local_bs, cfg.seq_len,
+                             shuffle=True, seed=data_seed)),
+            trainer.device,
         )
-    first: dict = {}
-
-    def on_metrics(m):
-        if not first:
-            first["t"] = time.time()
-            print(json.dumps(
-                {"cold_start_to_first_step_s": round(first["t"] - _T0, 1)}
-            ), flush=True)
-        print(json.dumps(m.as_dict()), flush=True)
+    else:
+        # Train seeds are even, the held-out stream's odd: no collision
+        # for any TPUFW_DATA_SEED.
+        data = synthetic_batches(local_bs, cfg.seq_len, model_cfg.vocab_size,
+                                 seed=data_seed * 2000)
+    eval_data = None
+    if cfg.eval_every:
+        eval_prefix = env_str("eval_data_prefix", "")
+        if eval_prefix:
+            def eval_data():
+                return iter(TokenCorpus(eval_prefix, local_bs, cfg.seq_len))
+        else:
+            def eval_data():
+                return synthetic_batches(
+                    local_bs, cfg.seq_len, model_cfg.vocab_size,
+                    seed=env_int("data_seed", 0) * 2000 + 1,
+                )
 
     history = trainer.run(
         data,
         model_flops_per_token=model_cfg.flops_per_token(cfg.seq_len - 1),
-        on_metrics=on_metrics,
-        eval_data=eval_data if cfg.eval_every else None,
+        on_metrics=metrics_printer(_T0),
+        eval_data=eval_data,
         on_eval=lambda ev: print(json.dumps(ev), flush=True),
     )
-    if history:
-        last = history[-1]
-        print(
-            f"TRAIN OK: {len(history)} steps, final loss {last.loss:.4f}, "
-            f"{last.tokens_per_sec_per_gpu:.0f} tok/s/GPU, "
-            f"MFU {last.mfu:.1%}"
-        )
+    if hasattr(data, "close"):
+        data.close()  # stops the prefetch thread
+    report_preemption(trainer)
+    print_summary(history)
     return 0
 
 
