@@ -158,6 +158,36 @@ Phases, each fatal on failure:
    (write and load s and GB/s, peak host RSS, which must stay under an
    fp32 copy).
 
+8. disaggregated serving of the same Llama-3-8B weights (bf16, all 32
+   layers, drawn from seed 0 once more, pages of 16 tokens, a decode
+   engine of 8 slots, greedy), in a gitignored directory of the checkout
+   that is deleted after. 8a: the four phase-5 prompts (32 tokens each)
+   through ``PrefillEngine`` -> ``LoopbackTransport`` -> ``DecodeEngine``
+   with a decoy page in the decode arena, bf16 then int8 KV: the tokens
+   bit-equal to a never-migrated run through one paged pool of the
+   decode engine's shape (their greedy agreement with ``generate_text``'s
+   batched contiguous decode is printed, not held: bf16 near-ties flip
+   with the shapes); no flash launch; a ``migrate_summary`` line per KV dtype (export, encode, wire,
+   bundle decode and splice times per page, bundle bytes per page, the
+   511-token prompt's TTFT split into prefill compute and migration).
+   8b: ``serve_prefill``/``serve_decode`` on loopback TCP behind a
+   ``RouterServer`` over ``TcpReplica``s: phase 6's 16 prompts and its 4
+   sharing the 448-token prefix (64 tokens each) with the four phase-5
+   prompts, concurrently: every reply full-length and in vocabulary,
+   ``/metrics`` counting the requests and tokens sent, ``/healthz`` ok
+   with no slot occupied after, the phase-5 prompts' tokens equal to 8a's,
+   no flash launch; then a session (the 511-token prompt, 128 tokens)
+   drained off the decode engine after its first chunk, re-homed by the
+   router from the spill directory onto a second decode engine on the
+   same weights: the client's tokens equal the undisturbed run's; a
+   ``disagg_summary`` line (tokens/s, the router's TTFT p50/p95, latency
+   p50, the router's stage breakdown). 8c: ``python -m
+   tpufw_torch.workloads.serve`` as three children, ``TPUFW_SERVE_ROLE``
+   prefill, decode and router, on ``llama3_8b_serve_slice`` from
+   ``TPUFW_SEED=0`` (fails early below 40 GB free): the four prompts
+   through the router's HTTP port give 8a's bf16 tokens, SIGTERM drains
+   the decode child, which exits 0; each child's startup seconds.
+
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
 7b's first run), the ``nvidia-smi`` line and, last, ``{"ok": true,
@@ -278,6 +308,15 @@ RESUME_STEPS = 6
 RESUME_EVERY = 3
 SIGTERM_TOTAL_STEPS = 50
 HF_DISK_GB = 24
+# Phase 8, disaggregated serving of the Llama-3-8B serve slice: pages of
+# DISAGG_PAGE tokens (2 MiB of bf16 K and V over 32 layers), a decode
+# engine of DISAGG_SLOTS slots (the router admits as many at once), the
+# drained session's budget DISAGG_DRAIN_NEW tokens, and the free memory
+# 8c needs for its two 16 GB children and their arenas.
+DISAGG_PAGE = 16
+DISAGG_SLOTS = 8
+DISAGG_DRAIN_NEW = 128
+DISAGG_FREE_GB = 40
 # Head dim 256 (Gemma-2-9B): the train path's attention shapes (B=1, seq
 # 8192, so T = S = 8191 inputs after the target shift; 16 query / 8 kv
 # heads), attention soft cap 50, window 4096 on the local layers. Kernel
@@ -2270,6 +2309,487 @@ def weights_phase(torch, kind, smi) -> dict:
     return launches
 
 
+# ----------------------------------------------------------- phase 8
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _router_post(port: int, body: dict):
+    """(status, parsed reply) of ``POST /generate`` on the router."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            out = resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        out = e.code, json.loads(e.read())
+    return out + (time.perf_counter() - t0,)
+
+
+def _never_migrated(torch, model, prompts, max_new, kv_quant):
+    """Greedy tokens of ``prompts`` decoded together in one paged pool of
+    the decode engine's shape (DISAGG_SLOTS rows of the model's length,
+    page DISAGG_PAGE), each prompt prefilled by ``prefill_row`` into it:
+    the run a migration must reproduce bit for bit."""
+    from tpufw_torch.infer import PagedSlotPool, SamplingConfig, prefill_row
+
+    greedy = SamplingConfig()
+    pool = PagedSlotPool.create_paged(
+        model, DISAGG_SLOTS, cache_len=model.cfg.max_seq_len,
+        page=DISAGG_PAGE, kv_quant=kv_quant, sampling=greedy,
+        prefix_cache=False)
+    outs = []
+    with torch.no_grad():
+        for slot, p in enumerate(prompts):
+            ids, _ = pool.acquire_pages(p, len(p) + max_new - 1)
+            row, _f, first, _d, seen = prefill_row(
+                model, p, None, sampling=greedy, eos_id=None, pad_to=len(p),
+                cache_len=pool.cache_len)
+            pool.insert_paged(slot, row, first, len(p), max_new - 1, ids, 0,
+                              row_seen=seen)
+            outs.append([first])
+        steps = pool.decode_steps(max_new - 1).tolist()
+    return [o + steps[i] for i, o in enumerate(outs)]
+
+
+def migrate_phase(torch, model, prompts, max_new, kind, smi, sessions):
+    """8a: the direct prompts through PrefillEngine -> LoopbackTransport
+    -> DecodeEngine (a decoy page in the decode arena), bf16 then int8 KV,
+    on the one model: tokens bit-equal to the never-migrated run. Returns
+    the bf16 decode engine (8b reuses it; its spill tier writes drained
+    sessions to ``sessions``) and the bf16 tokens."""
+    from tpufw_torch.infer import SamplingConfig, generate_text
+    from tpufw_torch.infer.spill import SpillTier
+    from tpufw_torch.ops import flash
+    from tpufw_torch.serve import bundle
+    from tpufw_torch.serve.roles import DecodeEngine, PrefillEngine
+    from tpufw_torch.serve.transport import LoopbackTransport
+
+    greedy = SamplingConfig()
+    want = generate_text(model, prompts, max_new_tokens=max_new,
+                         sampling=greedy)
+    kept = None
+    for kv in ("", "int8"):
+        ref = _never_migrated(torch, model, prompts, max_new, kv)
+        pe = PrefillEngine(model, sampling=greedy, page=DISAGG_PAGE,
+                           kv_quant=kv, n_slots=2)
+        de = DecodeEngine(model, sampling=greedy, page=DISAGG_PAGE,
+                          kv_quant=kv, n_slots=DISAGG_SLOTS, chunk=16,
+                          spill=SpillTier(0, sessions))
+        decoy = de.pool.allocator.alloc(1)
+        lt = LoopbackTransport()
+        torch.cuda.synchronize()
+        flash.reset_launch_counts()
+        slots, timing = [], []
+        for p in prompts:
+            t0 = time.perf_counter()
+            data = pe.prefill(p, max_new)
+            t1 = time.perf_counter()
+            lt.a.send(data)
+            got = lt.b.recv(timeout=60)
+            t2 = time.perf_counter()
+            slots.append(de.submit(got))
+            t3 = time.perf_counter()
+            decode_s = host_ms(torch, lambda: bundle.decode_bundle(got), 1)
+            st = bundle.peek_trace(data)["stages"]
+            timing.append({"prompt_tokens": len(p),
+                           "pages": bundle.decode_bundle(data)["n_pages"],
+                           "bytes": len(data), "stages": st,
+                           "prefill_s": t1 - t0, "wire_s": t2 - t1,
+                           "submit_s": t3 - t2,
+                           "decode_bundle_ms": decode_s})
+        outs = [de.collect(s) for s in slots]
+        torch.cuda.synchronize()
+        launches = dict(flash.LAUNCHES)
+        name = "bf16" if not kv else "int8"
+
+        def match(a, b):
+            return sum(x == y for o, r in zip(a, b) for x, y in zip(o, r)
+                       ) / (len(prompts) * max_new)
+
+        # generate_text decodes a B=4 left-padded batch through a
+        # contiguous cache: other shapes, so bf16 near-ties may flip. The
+        # never-migrated pool run shows how much of that is the pool's.
+        check = {
+            "check": f"migrate_{name}",
+            "equal_never_migrated": outs == ref,
+            "greedy_match_vs_generate_text": match(outs, want),
+            "never_migrated_match_vs_generate_text": match(ref, want),
+            "migrations": [pe.migrations, de.migrations],
+            "decode_pages_in_use_after": de.pool.allocator.in_use,
+            "flash_launches": launches,
+        }
+        emit(check)
+        bad = []
+        if outs != ref:
+            bad.append("tokens differ from the never-migrated run")
+        if any(len(o) != max_new for o in outs):
+            bad.append("short output")
+        if de.pool.allocator.in_use != len(decoy):
+            bad.append("decode pages leaked")
+        if any(launches.values()):
+            bad.append("flash launched")
+        if bad:
+            raise AssertionError(f"8a ({name}): {bad}")
+        long = max(timing, key=lambda t: t["prompt_tokens"])
+        st, pages = long["stages"], long["pages"]
+        encode_s = long["prefill_s"] - sum(st.values())
+        splice_ms = long["submit_s"] * 1e3 - long["decode_bundle_ms"]
+        emit({"migrate_summary": {
+            "kv": name, "prompt_tokens": long["prompt_tokens"],
+            "pages": pages, "bundle_bytes": long["bytes"],
+            "bundle_bytes_per_page": long["bytes"] / pages,
+            "export_ms_per_page": st["export"] * 1e3 / pages,
+            "encode_ms": encode_s * 1e3,
+            "wire_ms": long["wire_s"] * 1e3,
+            "decode_ms": long["decode_bundle_ms"],
+            "splice_ms_per_page": splice_ms / pages,
+            "ttft_prefill_compute_ms": (st["queue"] + st["admit"]
+                                        + st["compute"]) * 1e3,
+            "ttft_migration_ms": (st["export"] + encode_s + long["wire_s"]
+                                  + long["submit_s"]) * 1e3,
+            "per_prompt": [{k: t[k] for k in ("prompt_tokens", "pages",
+                                              "bytes")}
+                           | {"export_ms": t["stages"]["export"] * 1e3,
+                              "submit_ms": t["submit_s"] * 1e3}
+                           for t in timing],
+            "device": kind, "nvidia_smi": smi}})
+        if not kv:
+            kept = (de, outs)
+        del pe
+    return kept
+
+
+def disagg_phase(torch, model, de, direct, direct_out, max_new, kind, smi,
+                 sessions):
+    """8b: serve_prefill/serve_decode on loopback TCP behind a RouterServer
+    over TcpReplicas; phase 6's 16 requests, its 4 requests sharing the
+    448-token prefix and the direct prompts, concurrently; then a session
+    drained off the decode engine mid-decode and resumed on a second one
+    through the spill directory."""
+    import threading
+
+    import numpy as np
+
+    from tpufw_torch.infer import SamplingConfig
+    from tpufw_torch.infer.spill import SpillTier
+    from tpufw_torch.ops import flash
+    from tpufw_torch.serve.bundle import load_session
+    from tpufw_torch.serve.roles import (DecodeEngine, PrefillEngine,
+                                         serve_decode, serve_prefill)
+    from tpufw_torch.serve.router import RouterServer, TcpReplica
+
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(0)
+    by_len = {n: [rng.integers(1, vocab, n).tolist() for _ in range(4)]
+              for n in ONLINE_PROMPT_LENS}
+    online = [by_len[n][i] for i in range(4)
+              for n in reversed(ONLINE_PROMPT_LENS)]
+    shared = rng.integers(1, vocab, ONLINE_PREFIX).tolist()
+    prefixed = [shared + rng.integers(1, vocab, n).tolist()
+                for n in (16, 24, 40, 56)]
+    # A fresh prefill engine: 8a's trie holds the direct prompts' pages,
+    # and a suffix prefill over them is not 8a's cold prefill in bf16.
+    pe = PrefillEngine(model, sampling=SamplingConfig(), page=DISAGG_PAGE,
+                       n_slots=2)
+    de2 = DecodeEngine(model, sampling=SamplingConfig(), page=DISAGG_PAGE,
+                       n_slots=DISAGG_SLOTS, chunk=16,
+                       spill=SpillTier(0, sessions))
+    socks, router = [], None
+    try:
+        psrv, pport = serve_prefill(pe, 0)
+        dsrv, dport = serve_decode(de, 0)
+        d2srv, d2port = serve_decode(de2, 0)
+        socks += [psrv, dsrv, d2srv]
+        router = RouterServer(
+            [TcpReplica("prefill-0", "127.0.0.1", pport, "prefill")],
+            [TcpReplica("decode-0", "127.0.0.1", dport, "decode")],
+            port=0, page=DISAGG_PAGE, max_inflight=DISAGG_SLOTS,
+            spill_dir=sessions)
+        rport = router.port
+        flash.reset_launch_counts()
+        traffic = ([(p, ONLINE_NEW) for p in online + prefixed]
+                   + [(p, max_new) for p in direct])
+        t0 = time.perf_counter()
+        runs = _concurrently([
+            (lambda p=p, n=n: _router_post(rport, {"prompt": p,
+                                                   "max_new": n}))
+            for p, n in traffic])
+        wall = time.perf_counter() - t0
+        bad = []
+        for (p, n), (code, body, _lat) in zip(traffic, runs):
+            toks = body.get("tokens") or []
+            if code != 200 or len(toks) != n or not all(
+                    0 <= t < vocab for t in toks):
+                bad.append(f"bad reply {code} {body.get('error')}")
+        got_direct = [r[1].get("tokens") for r in runs[-len(direct):]]
+        with _get(f"http://127.0.0.1:{rport}/healthz") as r:
+            health = json.loads(r.read())
+        metrics = _metrics(f"http://127.0.0.1:{rport}")
+        launches = dict(flash.LAUNCHES)
+        check = {
+            "check": "disagg_router",
+            "requests": [metrics["tpufw_router_requests_total"],
+                         len(traffic)],
+            "tokens": [metrics["tpufw_router_tokens_total"],
+                       sum(n for _, n in traffic)],
+            "rejects": metrics["tpufw_router_rejects_total"],
+            "proxy_errors": metrics["tpufw_router_proxy_errors_total"],
+            "healthz_ok": health["ok"], "inflight": health["inflight"],
+            # The engine's own count: the router's snapshot is the one
+            # the last reply carried, taken while others still decoded.
+            "decode_slots_active": de.signals()["slots_active"],
+            "direct_equal_8a": got_direct == direct_out,
+            "prefix_hits": pe.pool.prefix_hits,
+            "flash_launches": launches,
+        }
+        emit(check)
+        if check["requests"][0] != check["requests"][1] or \
+                check["tokens"][0] != check["tokens"][1]:
+            bad.append("router counts differ from the traffic")
+        if check["rejects"] or check["proxy_errors"] or not health["ok"] \
+                or health["inflight"] or check["decode_slots_active"]:
+            bad.append("health or errors")
+        if got_direct != direct_out:
+            bad.append("direct prompts' tokens differ from 8a")
+        if any(launches.values()):
+            bad.append("flash launched")
+        if bad:
+            raise AssertionError(f"8b: {bad[:4]}")
+        ttft = [r[1]["ttft_s"] * 1e3 for r in runs]
+        stage_keys = ("queue_wait", "admit", "prefill_queue",
+                      "prefill_compute", "page_export", "wire", "splice",
+                      "first_decode")
+        stages = {k: {"p50_ms": _percentile([r[1]["stages"][k] * 1e3
+                                             for r in runs], 0.5),
+                      "mean_ms": statistics.fmean([r[1]["stages"][k] * 1e3
+                                                   for r in runs])}
+                  for k in stage_keys}
+        summary = {
+            "requests": len(traffic), "wall_s": wall,
+            "output_tokens": sum(n for _, n in traffic),
+            "tokens_per_s": sum(n for _, n in traffic) / wall,
+            "router_ttft_ms_p50": _percentile(ttft, 0.5),
+            "router_ttft_ms_p95": _percentile(ttft, 0.95),
+            "latency_ms_p50": _percentile([r[2] * 1e3 for r in runs], 0.5),
+            "stages": stages, "max_inflight": DISAGG_SLOTS,
+            "decode_slots": DISAGG_SLOTS, "page": DISAGG_PAGE,
+        }
+
+        # The drain: the undisturbed run first, then the same request as
+        # a session, drained off decode-0 once it has decoded a chunk.
+        drain_p = direct[-1]
+        code, body, _ = _router_post(rport, {"prompt": drain_p,
+                                             "max_new": DISAGG_DRAIN_NEW})
+        if code != 200:
+            raise AssertionError(f"8b: undisturbed run {code} {body}")
+        want = body["tokens"]
+        router.add_replica(
+            TcpReplica("decode-1", "127.0.0.1", d2port, "decode"), "decode")
+        engines = {"decode-0": de, "decode-1": de2}
+        drained = {}
+
+        def drainer():
+            # Drain whichever engine the router chose, after its first
+            # decode chunk.
+            deadline = time.perf_counter() + 120
+            while time.perf_counter() < deadline:
+                for name, eng in engines.items():
+                    try:
+                        live = any(len(j["tokens"]) > 1
+                                   for j in list(eng._jobs.values()))
+                    except RuntimeError:  # the dict changed under us
+                        live = False
+                    if live:
+                        drained.update(eng.drain(), replica=name)
+                        return
+                time.sleep(0.002)
+
+        th = threading.Thread(target=drainer)
+        th.start()
+        code, body, lat = _router_post(rport, {
+            "prompt": drain_p, "max_new": DISAGG_DRAIN_NEW,
+            "session": "drain-8b"})
+        th.join(timeout=120)
+        src = engines.get(drained.get("replica"))
+        dst = next((e for n, e in engines.items()
+                    if n == body.get("replica")), None)
+        check = {"check": "disagg_drain", "code": code,
+                 "drained": drained, "resumed": body.get("resumed"),
+                 "replica": body.get("replica"),
+                 "tokens_equal_undisturbed": body.get("tokens") == want,
+                 "sessions_drained": src.sessions_drained if src else 0,
+                 "sessions_resumed": dst.sessions_resumed if dst else 0,
+                 "session_file_left": load_session(sessions, "drain-8b")
+                 is not None,
+                 "live_slots_after": [e.signals()["slots_active"]
+                                      for e in engines.values()]}
+        emit(check)
+        if code != 200 or not body.get("resumed") or body.get("tokens") \
+                != want or drained.get("sessions") != ["drain-8b"] or \
+                dst is src or check["sessions_resumed"] != 1 or \
+                check["session_file_left"] or any(
+                    check["live_slots_after"]):
+            raise AssertionError(f"8b drain: {check}")
+        summary["drain_request_ms"] = lat * 1e3
+        summary.update({"device": kind, "nvidia_smi": smi})
+        emit({"disagg_summary": summary})
+    finally:
+        if router is not None:
+            router.close()
+        for s in socks:
+            s.close()
+
+
+def _read_lines(proc, out: list):
+    """Collect ``proc``'s stdout lines into ``out`` from a thread."""
+    import threading
+
+    def run():
+        for ln in proc.stdout:
+            out.append(ln.rstrip())
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def _banner(proc, lines, deadline):
+    """The child's ``serving_role`` line, waiting until ``deadline``."""
+    while time.perf_counter() < deadline:
+        for ln in list(lines):
+            if ln.startswith('{"serving_role"'):
+                return json.loads(ln)
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    raise AssertionError(f"8c: no banner (rc {proc.poll()}): {lines[-20:]}")
+
+
+def entry_phase(torch, direct, direct_out, max_new, kind, smi, workdir):
+    """8c: ``python -m tpufw_torch.workloads.serve`` as three children,
+    TPUFW_SERVE_ROLE prefill, decode and router, on the serve slice's
+    weights from TPUFW_SEED=0; the direct prompts through the router's
+    HTTP port give 8a's bf16 tokens, and SIGTERM drains the decode child,
+    which exits 0."""
+    import signal
+
+    free = torch.cuda.mem_get_info()[0] / 1e9
+    if free < DISAGG_FREE_GB:
+        raise AssertionError(f"8c: {free:.1f} GB free, needs "
+                             f"{DISAGG_FREE_GB}")
+    pport, dport, rport = _free_port(), _free_port(), _free_port()
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("TPUFW_")}
+    base.update({"TPUFW_MODEL": "llama3_8b_serve_slice", "TPUFW_SEED": "0",
+                 "TPUFW_SERVE_PAGE": str(DISAGG_PAGE),
+                 "TPUFW_SERVE_SLOTS": str(DISAGG_SLOTS),
+                 "TPUFW_SERVE_CHUNK": "16",
+                 "TPUFW_SERVE_DRAIN_GRACE_S": "0.5"})
+    roles = {
+        "prefill": {"TPUFW_SERVE_PEER_PORT": str(pport)},
+        "decode": {"TPUFW_SERVE_PEER_PORT": str(dport),
+                   "TPUFW_KV_SPILL_DIR": os.path.join(workdir, "c_sessions")},
+        "router": {"TPUFW_ROUTER_PORT": str(rport),
+                   "TPUFW_ROUTER_PREFILL": f"127.0.0.1:{pport}",
+                   "TPUFW_ROUTER_DECODE": f"127.0.0.1:{dport}"},
+    }
+    procs, lines, startup = {}, {}, {}
+
+    def start(role):
+        procs[role] = subprocess.Popen(
+            [sys.executable, "-m", "tpufw_torch.workloads.serve"],
+            cwd=ROOT, env={**base, **roles[role], "TPUFW_SERVE_ROLE": role},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            bufsize=1)
+        lines[role] = []
+        _read_lines(procs[role], lines[role])
+        return time.perf_counter()
+
+    def ready(role, t0):
+        banner = _banner(procs[role], lines[role], time.perf_counter() + 300)
+        startup[role] = dict(banner, startup_s=time.perf_counter() - t0)
+
+    try:
+        # The engines listen before the router probes them.
+        t0 = {r: start(r) for r in ("prefill", "decode")}
+        for r in ("prefill", "decode"):
+            ready(r, t0[r])
+        ready("router", start("router"))
+        outs = []
+        for p in direct:
+            code, body, _ = _router_post(rport, {"prompt": p,
+                                                 "max_new": max_new})
+            if code != 200:
+                raise AssertionError(f"8c: router reply {code} {body}")
+            outs.append(body["tokens"])
+        t_sig = time.perf_counter()
+        procs["decode"].send_signal(signal.SIGTERM)
+        rc = procs["decode"].wait(timeout=120)
+        check = {"check": "disagg_entry_points",
+                 "direct_equal_8a": outs == direct_out, "decode_rc": rc,
+                 "decode_exit_s": time.perf_counter() - t_sig,
+                 "startup_s": {r: s["startup_s"] for r, s in startup.items()},
+                 "devices": {r: s.get("device") for r, s in startup.items()},
+                 "device": kind, "nvidia_smi": smi}
+        emit(check)
+        if outs != direct_out or rc != 0:
+            raise AssertionError(f"8c: {check}; decode output "
+                                 f"{lines['decode'][-10:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+
+
+def disaggregated_phase(torch, kind, smi) -> None:
+    """Phase 8: 8a (migration on one set of Llama-3-8B weights), 8b (the
+    wire, the router and a drain), 8c (the three entry points as
+    children), in a gitignored directory of the checkout that is deleted
+    after."""
+    from tpufw_torch.configs import llama3_8b_serve_slice
+    from tpufw_torch.models import model_for_config
+
+    cfg, direct, max_new = llama3_8b_serve_slice()
+    emit({"disagg": "llama3_8b", "n_layers": cfg.n_layers,
+          "params": cfg.n_params(), "param_dtype": "bfloat16",
+          "max_seq_len": cfg.max_seq_len, "page": DISAGG_PAGE,
+          "decode_slots": DISAGG_SLOTS, "prompt_lens": [len(p)
+                                                        for p in direct],
+          "max_new_tokens": max_new, "sampling": "greedy"})
+    workdir = os.path.join(ROOT, "build-torch", f"phase8-{os.getpid()}")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        sessions = os.path.join(workdir, "sessions")
+        model = model_for_config(cfg, device="cuda", seed=0)
+        de, direct_out = migrate_phase(torch, model, direct, max_new, kind,
+                                       smi, sessions)
+        disagg_phase(torch, model, de, direct, direct_out, max_new, kind,
+                     smi, sessions)
+        del model, de
+        gc.collect()
+        torch.cuda.empty_cache()
+        entry_phase(torch, direct, direct_out, max_new, kind, smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2486,6 +3006,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     try:
         resume_launches = weights_phase(torch, kind, smi)
+    except AssertionError as e:
+        return fail(str(e))
+
+    # 8. Disaggregated serving, with phase 7's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        disaggregated_phase(torch, kind, smi)
     except AssertionError as e:
         return fail(str(e))
 

@@ -10,6 +10,7 @@ server itself is in test_torch_http.py and test_torch_serve_metrics.py."""
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -150,7 +151,9 @@ UNPORTED = {
     "KV_SPILL": ("64", "scheduler", ValueError, "page-granular"),
     "KV_SPILL_DIR": ("/spill", "scheduler", ValueError, "page-granular"),
     "TELEMETRY_DIR": ("/tel", "server", NotImplementedError, "item 13"),
-    "SERVE_ROLE": ("prefill", "main", NotImplementedError, "item 9"),
+    # The roles are ported (tests/test_torch_migrate.py); a role the
+    # port does not know is refused before any model is built.
+    "SERVE_ROLE": ("oracle", "main", ValueError, "TPUFW_SERVE_ROLE"),
     # The weight knobs load (test_weight_knobs_load_the_weights); a path
     # that holds no weights raises rather than serving random ones.
     "DRAFT_PARAMS_CHECKPOINT": ("/ckpt", "draft", FileNotFoundError,
@@ -233,9 +236,90 @@ def test_serve_refuses_to_fall_back_to_cpu(clear_tpufw_env):
         serve.build_generator()
 
 
-def test_scheduler_refuses_page_export(cpu_env):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve._SlotScheduler(None, page_export=lambda job, state: None)
+def test_scheduler_page_export_receives_the_exported_state(cpu_env):
+    """The scheduler hands each retiring paged row's export_slot() state
+    to the page_export hook before the slot is released: the row's pages
+    and cursors, which a decode engine splices into the same tokens."""
+    from tests.torch_parity import decode_pair
+    from tpufw_torch.infer import SamplingConfig
+    from tpufw_torch.serve.bundle import decode_bundle, encode_bundle
+    from tpufw_torch.serve.roles import DecodeEngine, PrefillEngine
+
+    _jm, _params, model = decode_pair(max_seq_len=64)
+    got = {}
+    sched = serve._SlotScheduler(
+        model, eos_id=None, page=16,
+        page_export=lambda job, state: got.setdefault(tuple(job.prompt),
+                                                      state),
+    )
+    try:
+        outs = sched.submit(PROMPTS, 4)[0]
+    finally:
+        sched.close()
+    assert sorted(got) == sorted(tuple(p) for p in PROMPTS)
+    greedy = SamplingConfig()
+    pe = PrefillEngine(model, sampling=greedy, page=16)
+    de = DecodeEngine(model, sampling=greedy, page=16)
+    for p, out in zip(PROMPTS, outs):
+        state = got[tuple(p)]
+        assert len(out) == 4
+        assert state["n_pages"] == 1 and state["kv_quant"] == ""
+        # Exported after the last chunk (k=4 steps): the budget is spent,
+        # the row froze (it feeds pad back), and the cursor sits past the
+        # prompt and the decoded tokens (a done row steps on to the
+        # chunk's end).
+        assert state["remaining"] == 0 and state["done"] is True
+        assert state["token"] == 0
+        assert state["cache_index"] == len(p) + 4
+        # The pages hold the prompt's K/V as a prefill replica exports it.
+        ref = decode_bundle(pe.prefill(p, 4))
+        assert state["paths"] == ref["paths"]
+        for a, b in zip(state["arrays"], ref["arrays"]):
+            np.testing.assert_allclose(a[:, :, :len(p)], b[:, :, :len(p)],
+                                       rtol=2e-4, atol=2e-4)
+        # A done bundle splices and releases its pages at once.
+        slot = de.submit(encode_bundle(state))
+        assert de.collect(slot) == [0]
+        assert de.pool.allocator.in_use == 0
+
+
+def test_main_dispatches_a_serve_role(cpu_env, monkeypatch):
+    from tpufw_torch.serve import roles
+
+    seen = []
+    monkeypatch.setattr(roles, "main_role", lambda r: seen.append(r) or 7)
+    cpu_env.setenv("TPUFW_SERVE_ROLE", "decode")
+    assert serve.main() == 7 and seen == ["decode"]
+
+
+def test_unknown_role_is_refused_before_building(cpu_env, monkeypatch):
+    from tpufw_torch.serve import roles
+
+    monkeypatch.setattr(serve, "build_generator", lambda: 1 / 0)
+    with pytest.raises(ValueError, match="want prefill|decode|router"):
+        roles.main_role("oracle")
+
+
+def test_build_engine_on_the_cpu(cpu_env):
+    from tpufw_torch.serve import roles
+
+    cpu_env.setenv("TPUFW_SERVE_SLOTS", "2")
+    cpu_env.setenv("TPUFW_MAX_SEQ_LEN", "64")
+    engine, restored = roles._build_engine("prefill")
+    assert isinstance(engine, roles.PrefillEngine) and restored is False
+    assert engine.pool.model.device.type == "cpu"
+    assert engine.signals()["pages_total"] == 2 * 64 // 16
+    engine, _ = roles._build_engine("decode")
+    assert isinstance(engine, roles.DecodeEngine) and engine.chunk == 16
+
+
+def test_roles_refuse_to_fall_back_to_cpu(clear_tpufw_env):
+    from tpufw_torch.serve import roles
+
+    clear_tpufw_env.setattr(torch.cuda, "is_available", lambda: False)
+    clear_tpufw_env.setenv("TPUFW_MODEL", "llama3_tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        roles._build_engine("prefill")
 
 
 def test_server_refuses_to_fall_back_to_cpu(clear_tpufw_env):

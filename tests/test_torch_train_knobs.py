@@ -451,13 +451,56 @@ def test_state_knobs_match_tpufw_build_trainer(monkeypatch, env):
         k: getattr(theirs.cfg, k) for k in STATE_KNOBS}
 
 
-@pytest.mark.parametrize("knob", ["SFT_DATA", "DPO_DATA", "DISTILL_TEACHER"])
+# Every knob ``tpufw``'s build_trainer honours and the port does not yet:
+# (a value that turns it on, the ROADMAP.md Queue 1 item it names).
+REFUSED_TRAIN_KNOBS = {
+    "SFT_DATA": ("x", "11"),
+    "DPO_DATA": ("x", "11"),
+    "DISTILL_TEACHER": ("x", "11"),
+    "CONFIG": ("run.yaml", "13"),
+    "PROFILE_DIR": ("/prof", "13"),
+    "AUTOTUNE": ("search", "13"),
+    "TELEMETRY_DIR": ("/tel", "13"),
+    "METRICS_PORT": ("0", "13"),
+    "STRAGGLER_FACTOR": ("3.0", "13"),
+    "LORA_RANK": ("8", "10"),
+    "LORA_ALPHA": ("32", "10"),
+    "MOE_DISPATCH": ("sorted", "10"),
+    "MESH_DATA": ("2", "12"),
+    "MESH_FSDP": ("4", "12"),
+    "MESH_EXPERT": ("2", "12"),
+    "MESH_SEQUENCE": ("2", "12"),
+    "MESH_TENSOR": ("2", "12"),
+    "MESH_DCN_DATA": ("2", "12"),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(REFUSED_TRAIN_KNOBS))
 def test_post_training_objectives_are_refused(monkeypatch, knob):
+    """Each knob raises, naming its item, in the serve workload's words;
+    the knob's name leads the message."""
     from tpufw_torch.workloads import train_llama
 
-    _workload_env(monkeypatch, **{knob: "x"})
-    with pytest.raises(NotImplementedError, match="item 11"):
+    value, item = REFUSED_TRAIN_KNOBS[knob]
+    _workload_env(monkeypatch, **{knob: value})
+    with pytest.raises(NotImplementedError,
+                       match=rf"^TPUFW_{knob}: .* is not ported to "
+                             rf"tpufw_torch yet \(ROADMAP.md Queue 1 "
+                             rf"item {item}\)$"):
         train_llama.build_trainer()
+
+
+@pytest.mark.parametrize("env", [
+    {"AUTOTUNE": "off", "STRAGGLER_FACTOR": "2", "LORA_RANK": "0",
+     "LORA_ALPHA": "16", "MESH_DATA": "1", "MESH_FSDP": "-1",
+     "METRICS_PORT": "", "CONFIG": "", "MOE_DISPATCH": ""},
+], ids=["defaults"])
+def test_unported_train_knobs_at_their_defaults_pass(monkeypatch, env):
+    from tpufw_torch.workloads import train_llama
+
+    _workload_env(monkeypatch, **env)
+    trainer, _ = train_llama.build_trainer()
+    assert trainer.cfg.batch_size == 2
 
 
 def _steps(out):

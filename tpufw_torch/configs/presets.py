@@ -31,15 +31,19 @@ BENCH_CONFIG_NAME = "llama3_600m_bench"
 
 def resolve_model_preset(name: str):
     """The model config a ``TPUFW_MODEL``-style name picks: the bench
-    model, or a preset of the three families (``models.PRESETS``)."""
+    model, a preset of the three families (``models.PRESETS``), or a serve
+    slice's config (``SERVE_SLICES``: bf16 weights, its cache length)."""
     from tpufw_torch.models import PRESETS
 
     if name == BENCH_CONFIG_NAME:
         return bench_model_config()
     if name in PRESETS:
         return PRESETS[name]
+    if name in SERVE_SLICES:
+        return SERVE_SLICES[name]()[0]
     raise ValueError(
-        f"unknown model {name!r}; choose from {[BENCH_CONFIG_NAME, *PRESETS]}"
+        f"unknown model {name!r}; choose from "
+        f"{[BENCH_CONFIG_NAME, *PRESETS, *SERVE_SLICES]}"
     )
 
 
@@ -159,3 +163,9 @@ def deepseek_mla_serve_slice(
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, 128).tolist() for _ in range(8)]
     return cfg, prompts, 128
+
+
+# Serve slices a ``TPUFW_MODEL`` name may pick, so an entry point (a
+# disaggregated replica) serves the weights the smoke test draws in
+# process.
+SERVE_SLICES = {"llama3_8b_serve_slice": llama3_8b_serve_slice}

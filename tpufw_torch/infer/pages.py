@@ -41,16 +41,21 @@ spill -> restore is bit-equal storage. The page state travels in
 ``tpufw``'s bundle layout (the scanned Llama tree's leaf paths, layers
 stacked), so a page spilled by either package restores in the other.
 
+Migration (``export_slot``/``splice_slot``, driven by
+``tpufw_torch.serve.roles``): a live slot's pages and cursors leave one
+pool as a bundle state in the same layout and enter another pool's
+freshly allocated pages under a new table row, so a slot moves between
+replicas, and between the two packages, with its storage bit-equal.
+
 The pool's length, page size and arena belong to its cache
 (``Llama.init_paged_cache``); the model's weights are shared with every
 other pool, and a draft pool may draw its page ids from the target's
-allocator (``create_paged(allocator=)``) into an arena of its own. Not
-ported yet (ROADMAP.md Queue 1 item 9): ``export_slot``/``splice_slot``
-(moving a live slot between replicas).
+allocator (``create_paged(allocator=)``) into an arena of its own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -430,29 +435,107 @@ class PagedSlotPool(SlotPool):
         }
 
     @torch.no_grad()
-    def import_pages(
-        self, page_ids: Sequence[int], state: Dict[str, Any]
-    ) -> None:
-        """Scatter a bundle's page payload into arena pages ``page_ids``
-        (already allocated): the restore half of the spill tier. Page
-        size, quant mode, page count and the leaf layout (``tpufw``'s
-        scanned tree, or its unscanned twin with one leaf per layer) are
-        all checked before anything touches the arena. No cursors, no
-        table row: the pages re-enter service through the trie."""
+    def export_slot(
+        self, slot: int, page_ids: Optional[Sequence[int]] = None
+    ) -> Dict[str, Any]:
+        """Snapshot slot ``slot``'s pages and cursors as a migration state
+        (``tpufw_torch.serve.bundle`` serializes it): the pages as
+        ``export_pages_state`` stores them (int8 codes and fp32 scales
+        raw), plus ``token``, ``pos``, ``remaining``, ``done``,
+        ``cache_index`` and the ``seen`` row.
+
+        MUST run before ``release_slot``: after it the table row is zeroed
+        and the pages may belong to another admission. ``page_ids`` is the
+        caller's snapshot of the row's pages (the scheduler passes the one
+        it took when the chunk launched). The pages of every leaf and
+        layer and the cursors are gathered into one device buffer that
+        reaches the host in one copy."""
+        ids = list(self.slot_pages[slot] if page_ids is None else page_ids)
+        dev = self.token.device
+        idx = torch.tensor(ids, dtype=torch.long, device=dev)
+        leaves = self._bundle_leaves()
+        n_layers = len(self.cache)
+        # The staging buffer's regions: one per leaf [layers, n, page,
+        # ...], then the five cursors, then the seen row. Each starts on a
+        # 16-byte boundary so it can be viewed in its own dtype.
+        specs = [((n_layers, len(ids)) + tuple(getattr(self.cache[0],
+                                                       attr).shape[1:]),
+                  getattr(self.cache[0], attr).dtype)
+                 for _, attr in leaves]
+        specs.append(((5,), torch.long))
+        if self.seen is not None:
+            specs.append((tuple(self.seen.shape[1:]), torch.uint8))
+        offsets, total = [], 0
+        for shape, dtype in specs:
+            offsets.append(total)
+            nbytes = int(np.prod(shape)) * dtype.itemsize
+            total += -(-nbytes // 16) * 16
+        buf = torch.empty(total, dtype=torch.uint8, device=dev)
+
+        def region(i):
+            shape, dtype = specs[i]
+            n = int(np.prod(shape)) * dtype.itemsize
+            return buf[offsets[i]:offsets[i] + n].view(dtype).view(shape)
+
+        for i, (_, attr) in enumerate(leaves):
+            dst = region(i)
+            for layer, c in enumerate(self.cache):
+                torch.index_select(getattr(c, attr), 0, idx, out=dst[layer])
+        region(len(leaves)).copy_(torch.stack([
+            self.token[slot], self.pos[slot], self.remaining[slot],
+            self.done[slot].long(), self.cache[0].index[slot].long(),
+        ]))
+        if self.seen is not None:
+            region(len(leaves) + 1).copy_(self.seen[slot])
+        buf = buf.cpu()  # the one host copy
+        paths, arrays, dtypes = [], [], []
+        for i, (name, _) in enumerate(leaves):
+            a, dt = _wire_array(region(i))
+            paths.append(_SCANNED_PATH.format(name))
+            arrays.append(a)
+            dtypes.append(dt)
+        token, pos, remaining, done, cache_index = region(len(leaves)).tolist()
+        seen = None
+        if self.seen is not None:
+            seen = region(len(leaves) + 1).numpy().astype(bool)
+        return {
+            "page": self.page,
+            "kv_quant": "int8" if self.cache[0].key_scale is not None
+            else "",
+            "n_pages": len(ids),
+            "paths": paths,
+            "arrays": arrays,
+            "dtypes": dtypes,
+            "token": token,
+            "pos": pos,
+            "remaining": remaining,
+            "done": bool(done),
+            "cache_index": cache_index,
+            "seen": seen,
+        }
+
+    def _check_layout(self, state: Dict[str, Any], what: str,
+                      n_ids: int, exact: bool) -> List[torch.Tensor]:
+        """Check a bundle state against this pool before anything touches
+        the arena, and return its page payload as host tensors stacked
+        over layers, one per traveling leaf: page size, quant mode, page
+        count (``exact``: as many ids as pages; else at least as many),
+        and the leaf layout (``tpufw``'s scanned tree, or its unscanned
+        twin with one leaf per layer). Raises ValueError."""
         if int(state["page"]) != self.page:
             raise ValueError(
-                f"spill page size {state['page']} != pool page {self.page}"
+                f"{what} page size {state['page']} != pool page {self.page}"
             )
         kv_quant = "int8" if self.cache[0].key_scale is not None else ""
         if (state.get("kv_quant") or "") != kv_quant:
             raise ValueError(
-                f"spill kv_quant {state.get('kv_quant')!r} != pool "
+                f"{what} kv_quant {state.get('kv_quant')!r} != pool "
                 f"kv_quant {kv_quant!r}"
             )
-        if len(page_ids) != int(state["n_pages"]):
+        n_pages = int(state["n_pages"])
+        if n_ids < n_pages or (exact and n_ids != n_pages):
             raise ValueError(
-                f"spill bundle carries {state['n_pages']} pages but "
-                f"{len(page_ids)} were allocated"
+                f"{what} carries {n_pages} pages but {n_ids} were allocated"
             )
         leaves = self._bundle_leaves()
         n_layers = len(self.cache)
@@ -472,20 +555,87 @@ class PagedSlotPool(SlotPool):
             ]
         else:
             raise ValueError(
-                "spill bundle leaf layout does not match this pool (got "
+                f"{what} leaf layout does not match this pool (got "
                 f"{paths!r})"
             )
-        idx = _on(self.model, [int(i) for i in page_ids])
         for (_, attr), t in zip(leaves, stacked):
-            if t.shape[0] != n_layers:
+            want = (n_layers, n_pages) + tuple(
+                getattr(self.cache[0], attr).shape[1:])
+            if tuple(t.shape) != want:
                 raise ValueError(
-                    f"spill bundle holds {t.shape[0]} layers, the pool "
-                    f"{n_layers}"
+                    f"{what} leaf {attr} has shape {tuple(t.shape)}, the "
+                    f"pool wants {want}"
                 )
-            t = t.to(self.token.device)
+        return stacked
+
+    def _scatter_pages(self, page_ids: Sequence[int], stacked) -> None:
+        """Write a checked payload into arena pages ``page_ids``: one
+        host-to-device copy and one ``index_copy_`` per leaf and layer."""
+        idx = _on(self.model, [int(i) for i in page_ids])
+        for (_, attr), t in zip(self._bundle_leaves(), stacked):
+            dst0 = getattr(self.cache[0], attr)
+            t = t.to(device=dst0.device, dtype=dst0.dtype)
             for i, c in enumerate(self.cache):
-                dst = getattr(c, attr)
-                dst[idx] = t[i].to(dst.dtype)
+                getattr(c, attr).index_copy_(0, idx, t[i])
+
+    @torch.no_grad()
+    def splice_slot(
+        self, slot: int, state: Dict[str, Any], page_ids: Sequence[int]
+    ) -> None:
+        """Occupy ``slot`` with a migrated bundle state: scatter its pages
+        into ``page_ids`` (already allocated, row refs taken), point the
+        slot's table row at every allocated id and restore the cursors.
+
+        Everything is checked before anything is written (page size,
+        quant mode, page count, leaf layout, the ``seen`` row on both
+        sides or neither) and a mismatch raises ValueError with the arena
+        untouched. A bundle from a chunked prefill carries only the
+        prompt's pages: the table maps the whole grant, the payload fills
+        the pages it carries, and the rest are written by decode before
+        the causal mask lets anything read them."""
+        stacked = self._check_layout(state, "bundle", len(page_ids),
+                                     exact=False)
+        seen_row = state.get("seen")
+        if (seen_row is None) != (self.seen is None):
+            raise ValueError(
+                "bundle and pool disagree on repetition-penalty tracking "
+                "(seen mask present on one side only)"
+            )
+        if len(page_ids) > self.per_row:
+            raise ValueError(
+                f"{len(page_ids)} pages exceed the pool's row of "
+                f"{self.per_row}"
+            )
+        n = int(state["n_pages"])
+        self._scatter_pages(list(page_ids)[:n], stacked)
+        dev = self.token.device
+        table_row = torch.zeros(self.per_row, dtype=torch.long)
+        table_row[: len(page_ids)] = torch.tensor(
+            [int(i) for i in page_ids], dtype=torch.long)
+        self.cache[0].table[slot] = table_row.to(dev)
+        for c in self.cache:
+            c.index[slot] = int(state["cache_index"])
+        self.token[slot] = int(state["token"])
+        self.pos[slot] = int(state["pos"])
+        self.remaining[slot] = int(state["remaining"])
+        self.done[slot] = bool(state["done"])
+        if self.seen is not None:
+            self.seen[slot] = torch.from_numpy(
+                np.asarray(seen_row, dtype=bool)).to(dev)
+        self.slot_pages[slot] = list(page_ids)
+
+    @torch.no_grad()
+    def import_pages(
+        self, page_ids: Sequence[int], state: Dict[str, Any]
+    ) -> None:
+        """Scatter a bundle's page payload into arena pages ``page_ids``
+        (already allocated, exactly as many as it carries): the restore
+        half of the spill tier. Checked as ``splice_slot`` checks, before
+        anything touches the arena. No cursors, no table row: the pages
+        re-enter service through the trie."""
+        stacked = self._check_layout(state, "spill bundle", len(page_ids),
+                                     exact=True)
+        self._scatter_pages(page_ids, stacked)
 
     def _extend_shared_from_spill(
         self, prompt: Sequence[int], shared: List[int], cap: int
@@ -712,7 +862,7 @@ class PagedSlotPool(SlotPool):
         return cp
 
     @torch.no_grad()
-    def chunk_step(self, cp: ChunkedPrefill) -> str:
+    def chunk_step(self, cp: ChunkedPrefill, unlocked=None) -> str:
         """Advance ``cp`` by one page-aligned chunk. Returns "ran"
         (progress, more chunks to go), "done" (first token sampled, ready
         for ``finalize_chunked``) or "stalled" (the arena cannot supply
@@ -726,7 +876,14 @@ class PagedSlotPool(SlotPool):
         0). The final chunk first acquires every remaining page of the
         row, decode budget included, so a finished prefill can always be
         finalized, and only the final chunk samples. The committed full
-        pages are checkpointed into the trie after every chunk."""
+        pages are checkpointed into the trie after every chunk.
+
+        ``unlocked``, if given, is a context-manager factory that releases
+        the caller's mutex around the device work (attach, forward,
+        scatter, sample): the allocator and the trie are touched only
+        outside it, so admissions and abandons interleave with a chunk's
+        compute. The caller must still keep one ``chunk_step`` in flight
+        per pool."""
         page = self.page
         p = len(cp.prompt)
         start = cp.cursor
@@ -741,18 +898,28 @@ class PagedSlotPool(SlotPool):
             if ids is None:
                 return "stalled"
             cp.page_ids.extend(ids)
-        if cp.row_cache is None:
-            cp.row_cache = self._attach_row(cp.page_ids[: cp.shared_n])
-        dev = self.token.device
-        tokens = _on(self.model, [cp.prompt[start:start + n_real]])
-        positions = start + torch.arange(n_real, device=dev)[None, :]
-        seg = torch.ones(1, n_real, dtype=torch.int32, device=dev)
-        logits = self.model(tokens, positions, seg, cache=cp.row_cache)
-        table_row = torch.tensor(cp.page_ids, dtype=torch.long, device=dev)
-        self._scatter_window(cp.row_cache, table_row, start, start + width)
-        if cp.seen_row is not None:
-            # Prompt tokens enter the presence mask before the sample.
-            cp.seen_row[0, tokens[0]] = True
+        page_ids = list(cp.page_ids)
+        with (unlocked() if unlocked is not None
+              else contextlib.nullcontext()):
+            if cp.row_cache is None:
+                cp.row_cache = self._attach_row(page_ids[: cp.shared_n])
+            dev = self.token.device
+            tokens = _on(self.model, [cp.prompt[start:start + n_real]])
+            positions = start + torch.arange(n_real, device=dev)[None, :]
+            seg = torch.ones(1, n_real, dtype=torch.int32, device=dev)
+            logits = self.model(tokens, positions, seg, cache=cp.row_cache)
+            table_row = torch.tensor(page_ids, dtype=torch.long, device=dev)
+            self._scatter_window(cp.row_cache, table_row, start,
+                                 start + width)
+            if cp.seen_row is not None:
+                # Prompt tokens enter the presence mask before the sample.
+                cp.seen_row[0, tokens[0]] = True
+            if is_final:
+                first = sample_token(logits[:, -1, :], self.sampling,
+                                     cp.generator, cp.seen_row)
+                if cp.seen_row is not None:
+                    cp.seen_row[0, first] = True
+                first_int = int(first[0])
         cp.cursor = start + n_real
         cp.n_chunks += 1
         if self.prefix is not None:
@@ -763,12 +930,8 @@ class PagedSlotPool(SlotPool):
             self.allocator.hold(adopted)
         if not is_final:
             return "ran"
-        first = sample_token(logits[:, -1, :], self.sampling, cp.generator,
-                             cp.seen_row)
-        if cp.seen_row is not None:
-            cp.seen_row[0, first] = True
         cp.first = first
-        cp.first_int = int(first[0])
+        cp.first_int = first_int
         cp.done0 = self.eos_id is not None and cp.first_int == self.eos_id
         return "done"
 

@@ -705,7 +705,7 @@ def _reject_unported(cfg: LlamaConfig) -> None:
     if getattr(cfg, "lora_rank", 0):
         raise NotImplementedError(
             "LlamaConfig.lora_rank: LoRA adapters are not ported to "
-            "tpufw_torch yet (ROADMAP.md Queue 1)"
+            "tpufw_torch yet (ROADMAP.md Queue 1 item 10)"
         )
 
 

@@ -60,3 +60,12 @@ def env_bool(name: str, default: bool) -> bool:
     if v.lower() in ("0", "false", "no", "off"):
         return False
     raise ValueError(f"TPUFW_{name.upper()}={v!r} is not a boolean")
+
+
+def refuse_unported(knob: str, what: str, item: str) -> None:
+    """Raise for a ``tpufw`` knob whose feature the port lacks, naming
+    the ROADMAP.md Queue 1 item that brings it."""
+    raise NotImplementedError(
+        f"TPUFW_{knob.upper()}: {what} is not ported to tpufw_torch yet "
+        f"(ROADMAP.md Queue 1 item {item})"
+    )

@@ -52,11 +52,15 @@ draft's from ``TPUFW_DRAFT_PARAMS_CHECKPOINT``. Speculation on the slot
 pool does not compose with a
 repetition penalty: such pools decode plainly, as in the JAX workload.
 
-Not ported yet, and refused with ``NotImplementedError``: the
-disaggregated roles and page export (``TPUFW_SERVE_ROLE``; ROADMAP.md
-Queue 1 item 9);
-telemetry (``TPUFW_TELEMETRY_DIR``, so ``GET /debug/profile`` answers
-404; item 13).
+Disaggregated serving: ``TPUFW_SERVE_ROLE=prefill|decode|router`` runs
+this process as one replica role or the front-door router
+(``tpufw_torch.serve.roles.main_role``; knobs there and in
+``tpufw_torch.serve.router``), and ``_SlotScheduler(page_export=)`` hands
+every retiring paged row's exported pages to a hook.
+
+Not ported yet, and refused with ``NotImplementedError``: telemetry of
+the monolithic server (``TPUFW_TELEMETRY_DIR``, so ``GET /debug/profile``
+answers 404; ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -73,18 +77,17 @@ import torch
 
 from tpufw_torch.obs.registry import Registry
 from tpufw_torch.utils.hardware import resolve_device
-from tpufw_torch.workloads.env import env_bool, env_float, env_int, env_str
+from tpufw_torch.workloads.env import (
+    env_bool,
+    env_float,
+    env_int,
+    env_str,
+    refuse_unported,
+)
 
 _T0 = time.time()
 
 DEMO_PROMPTS = [[1, 42, 7, 99], [1, 5], [1, 1000, 2000, 3000, 17]]
-
-
-def _refuse(knob: str, what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"TPUFW_{knob.upper()}: {what} is not ported to tpufw_torch yet "
-        f"(ROADMAP.md Queue 1 item {item})"
-    )
 
 
 def _model_from_state(cfg, state_dict: dict):
@@ -881,7 +884,6 @@ class _SlotScheduler:
         spec_draft_built=None,
         prefill_chunk_pages: Optional[int] = None,
     ):
-        _refuse_unported_scheduler(page_export)
         from tpufw_torch.models.deepseek import reject_latent_model
 
         reject_latent_model(model, "the slot scheduler (the HTTP server)")
@@ -894,6 +896,10 @@ class _SlotScheduler:
         )
         self._metrics = metrics
         self._seed_base = seed_base
+        # Disaggregated handoff hook: called with (job, state) for every
+        # naturally completing paged row, ``state`` being the slot's
+        # export_slot() taken BEFORE the slot is released.
+        self._page_export = page_export
         self.latency_breakdown = env_bool("serve_latency_breakdown", False)
         self.n_slots = max(1, env_int("serve_slots", 8))
         self.chunk = max(
@@ -1758,11 +1764,12 @@ class _SlotScheduler:
             chunk_index = self._chunk_index
             self._chunk_index += 1
         gen = self._generator(_CHUNK_STREAM, chunk_index)
+        snap = self._page_snapshot(active)
         chunk_t0 = time.perf_counter()
         out = self._pool.decode_steps(k, gen).tolist()  # one host sync
         self.decode_s += time.perf_counter() - chunk_t0
         self.decode_steps_run += k
-        live_tokens = self._deliver(active, [row[:k] for row in out])
+        live_tokens = self._deliver(active, [row[:k] for row in out], snap)
         if self._metrics is not None:
             # S * k slot-steps ran; those not delivering a live token are
             # the batching overhead TPUFW_SERVE_SLOTS/_CHUNK trade off.
@@ -1781,6 +1788,7 @@ class _SlotScheduler:
             chunk_index = self._chunk_index
             self._chunk_index += 1
         gen = self._generator(_CHUNK_STREAM, chunk_index)
+        snap = self._page_snapshot(active)
         chunk_t0 = time.perf_counter()
         if self._draft_pool is not None:
             out, n_emit, accept = self._pool.spec_draft_steps(
@@ -1799,7 +1807,7 @@ class _SlotScheduler:
         accepts = {slot: res[slot][k + 2] for slot, _ in active}
         for slot, _ in active:
             self._ema.update(slot, accepts[slot] / k)
-        live_tokens = self._deliver(active, rows)
+        live_tokens = self._deliver(active, rows, snap)
         self.spec_tokens += live_tokens
         accept_frac = sum(a / k for a in accepts.values())
         self._spec_accept_sum += accept_frac
@@ -1825,11 +1833,22 @@ class _SlotScheduler:
                 * 2.0 * self._draft_n_params
             )
 
-    def _deliver(self, active, rows) -> int:
+    def _page_snapshot(self, active) -> dict:
+        """{slot: page ids} of the active rows as the chunk launches, for
+        the page_export hook. A row finishing mid-chunk exports these
+        pages: once it retires, its freed pages may be granted to a
+        queued admission within the same pass."""
+        if not (self.page and self._page_export is not None):
+            return {}
+        return {slot: list(self._pool.slot_pages[slot])
+                for slot, _ in active}
+
+    def _deliver(self, active, rows, page_snap) -> int:
         """Hand each active slot's tokens of this pass (``rows[slot]``,
         before budget and EOS cuts) to its job; retire the rows that
-        finished, flush streams, finish requests. Returns the live
-        tokens delivered."""
+        finished (a paged row first goes through the page_export hook
+        with the pages of ``page_snap``), flush streams, finish requests.
+        Returns the live tokens delivered."""
         if self._metrics is not None:
             self._metrics.inc("ticks_total")
             self._metrics.inc("tick_rows_total", len(active))
@@ -1849,6 +1868,9 @@ class _SlotScheduler:
             if len(job.tokens) >= job.max_new or (
                 self._eos is not None and row and row[-1] == self._eos
             ):
+                if page_snap:
+                    self._page_export(job, self._pool.export_slot(
+                        slot, page_ids=page_snap[slot]))
                 self._retire_slot(slot, device=False)
                 if self._metrics is not None:
                     self._metrics.inc("retired_rows_total")
@@ -1929,15 +1951,6 @@ class _SlotScheduler:
             self._signal_error(req, e)
 
 
-def _refuse_unported_scheduler(page_export) -> None:
-    """The scheduler's hook whose module is not ported yet."""
-    if page_export is not None:
-        raise NotImplementedError(
-            "page_export: exporting pages to a decode replica is not "
-            "ported to tpufw_torch yet (ROADMAP.md Queue 1 item 9)"
-        )
-
-
 class _Server:
     """HTTP serving (port of the JAX ``_Server``) over the slot scheduler,
     or, with ``TPUFW_SERVE_SLOTS=0``, over the tick batcher.
@@ -1954,8 +1967,7 @@ class _Server:
     def __init__(self, port: int, max_new_tokens: int, model=None,
                  draft_model=None):
         if env_str("telemetry_dir", ""):
-            _refuse("telemetry_dir", "serving telemetry", "13")
-        _refuse_unported_scheduler(None)
+            refuse_unported("telemetry_dir", "serving telemetry", "13")
         self._sampling = sampling_from_env()
         if model is None:
             model, self.cfg, self.restored = build_generator()
@@ -2448,8 +2460,14 @@ class _Server:
 
 
 def main() -> int:
-    if env_str("serve_role", ""):
-        _refuse("serve_role", "disaggregated serving", "9")
+    role = env_str("serve_role", "")
+    if role:
+        # Disaggregated serving: this process is one replica role (a
+        # prefill or decode page-bundle server, or the front-door router)
+        # instead of the monolithic endpoint below.
+        from tpufw_torch.serve.roles import main_role
+
+        return main_role(role)
     max_new = env_int("max_new_tokens", 16)
     port = env_int("serve_port", 0)
     if port:

@@ -28,9 +28,14 @@ synthetic eval batches from the odd seeds the train stream never uses.
 Step metrics stream to stdout as one JSON line per logged step, and each
 held-out evaluation as one more.
 
-Not ported yet, and refused: the SFT, DPO and distillation objectives
+Not ported yet, and refused with ``NotImplementedError`` when set to
+anything but their defaults: the SFT, DPO and distillation objectives
 (``TPUFW_SFT_DATA``, ``TPUFW_DPO_DATA``, ``TPUFW_DISTILL_TEACHER``;
-ROADMAP.md Queue 1 item 11).
+ROADMAP.md Queue 1 item 11); LoRA (``TPUFW_LORA_RANK``,
+``TPUFW_LORA_ALPHA``) and ``TPUFW_MOE_DISPATCH`` (item 10); a mesh
+(``TPUFW_MESH_*`` above 1; item 12); ``TPUFW_CONFIG``,
+``TPUFW_PROFILE_DIR``, ``TPUFW_AUTOTUNE``, ``TPUFW_TELEMETRY_DIR``,
+``TPUFW_METRICS_PORT`` and ``TPUFW_STRAGGLER_FACTOR`` (item 13).
 """
 
 from __future__ import annotations
@@ -39,9 +44,53 @@ import dataclasses
 import json
 import time
 
-from tpufw_torch.workloads.env import env_bool, env_float, env_int, env_str
+from tpufw_torch.workloads.env import (
+    env_bool,
+    env_float,
+    env_int,
+    env_str,
+    refuse_unported,
+)
 
 _T0 = time.time()
+
+
+# Knobs of ``tpufw``'s train workload that the port does not honour yet:
+# (knob, what it turns on, ROADMAP.md Queue 1 item, its default). A knob
+# set to its default changes nothing there, so it passes here.
+_UNPORTED_KNOBS = (
+    ("sft_data", "the SFT objective", "11", ""),
+    ("dpo_data", "the DPO objective", "11", ""),
+    ("distill_teacher", "the distillation objective", "11", ""),
+    ("config", "the YAML run config", "13", ""),
+    ("profile_dir", "step profiling", "13", ""),
+    ("autotune", "MFU autotuning", "13", "off"),
+    ("telemetry_dir", "training telemetry", "13", ""),
+    ("metrics_port", "the Prometheus /metrics server", "13", ""),
+    ("straggler_factor", "straggler detection", "13", "2.0"),
+    ("lora_rank", "LoRA fine-tuning", "10", "0"),
+    ("lora_alpha", "LoRA fine-tuning", "10", "16.0"),
+    ("moe_dispatch", "the MoE dispatch", "10", ""),
+)
+_MESH_AXES = ("data", "fsdp", "expert", "sequence", "tensor", "dcn_data")
+
+
+def _refuse_unported_knobs() -> None:
+    """Raise for each ``tpufw`` train knob the port would otherwise
+    ignore: set to anything but its default, it names its item."""
+    for knob, what, item, default in _UNPORTED_KNOBS:
+        v = env_str(knob, default)
+        if v == default:
+            continue
+        try:
+            if float(v) == float(default):
+                continue
+        except ValueError:
+            pass
+        refuse_unported(knob, what, item)
+    for axis in _MESH_AXES:
+        if env_int(f"mesh_{axis}", 1) > 1:
+            refuse_unported(f"mesh_{axis}", "a multi-GPU mesh", "12")
 
 
 def build_trainer():
@@ -49,13 +98,7 @@ def build_trainer():
     from tpufw_torch.configs import BENCH_CONFIG_NAME, resolve_model_preset
     from tpufw_torch.train import Trainer, TrainerConfig
 
-    for knob in ("sft_data", "dpo_data", "distill_teacher"):
-        if env_str(knob, ""):
-            raise NotImplementedError(
-                f"TPUFW_{knob.upper()}: the SFT, DPO and distillation "
-                "objectives are not ported to tpufw_torch yet (ROADMAP.md "
-                "Queue 1 item 11)"
-            )
+    _refuse_unported_knobs()
     model_cfg = resolve_model_preset(env_str("model", BENCH_CONFIG_NAME))
     backend = env_str("attention", "")
     if backend:
