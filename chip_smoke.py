@@ -188,9 +188,36 @@ Phases, each fatal on failure:
    through the router's HTTP port give 8a's bf16 tokens, SIGTERM drains
    the decode child, which exits 0; each child's startup seconds.
 
+9. Mixtral-8x7B widths (8 experts of 14336, top 2; ``tpufw_torch.ops.moe``
+   routing), with phase 8's models freed. 9a: ``mixtral_8x7b_train_slice``
+   (2 of 32 layers, 3.16 B parameters, B=2, seq 2048, chunked CE,
+   capacity factor 1.25, flash at head dim 128) through ``Trainer.run``
+   for 5 steps with the launch counters zeroed just before, under the
+   einsum dispatch and then, freed, under the sorted one from the same
+   seed on the same batches: finite losses, every head-dim-128 kernel
+   launched in both runs, the flash vs plain logits of the einsum run,
+   and the two runs' step-1 losses and gradient norms within
+   MIXTRAL_LOSS_TOL and MIXTRAL_GNORM_TOL (the gap printed); a
+   ``mixtral_train_summary`` per mode. 9b: ``mixtral_8x7b_serve_slice``
+   (16 of 32 layers, bf16 weights drawn in bf16, dropless capacity 8.0)
+   through phase 5's checks in bf16 and then int8 (``quantize_model``
+   freeing each bf16 weight as its codes are made), with the number of
+   tokens whose router top-2 sets differ between the runs each check
+   compares; a ``mixtral_serve_summary`` per dtype. 9c, between the two:
+   the bf16 model behind ``_Server`` (8 slots, paged KV of page 64,
+   greedy) with phase 6's 16 concurrent SSE requests and the 4 sharing
+   the 448-token prefix, 64 tokens each: full-length in-vocab replies,
+   ``/metrics`` counts, ``/healthz``, a prefix hit, no slot occupied
+   after, no flash launch, and one admission sequence through a
+   contiguous and a paged pool with step logits within 5%; a
+   ``mixtral_online_summary``. 9d: 2 layers of the serve slice (6.3 GB)
+   through 7d's HF round trip, bit-equal, in a gitignored directory of
+   the checkout that is deleted after.
+
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
-7b's first run), the ``nvidia-smi`` line and, last, ``{"ok": true,
+7b's first run, and ``launches_mixtral_train``, phase 9a's runs per
+dispatch mode), the ``nvidia-smi`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside a checkout of the
 repo, it prints no result and exits nonzero.
 """
@@ -207,6 +234,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -317,6 +345,42 @@ DISAGG_PAGE = 16
 DISAGG_SLOTS = 8
 DISAGG_DRAIN_NEW = 128
 DISAGG_FREE_GB = 40
+# Phase 9, Mixtral-8x7B widths. 9a trains MIXTRAL_TRAIN_LAYERS of its 32
+# layers under each dispatch mode. Both modes route the same tokens to the
+# same experts with the same gates (bit for bit in fp32 on the CPU,
+# tests/test_torch_moe.py); on the card they differ in bf16 rounding:
+# einsum sums a token's two weighted expert outputs in fp32 inside one
+# matmul and rounds once, sorted rounds each weighted output to bf16 and
+# adds the two in bf16, and the expert GEMMs run batched or one per
+# expert. That is one bf16 rounding, 2^-8 relative, of each MoE output.
+# The step-1 loss, a mean of 4,094 CE terms of the same weights, moves by
+# at most that relative perturbation of its inputs: MIXTRAL_LOSS_TOL. The
+# global gradient norm sees it again through the backward's bf16
+# products: MIXTRAL_GNORM_TOL, the kernels' ROW_TOL. 9d exports
+# MIXTRAL_HF_LAYERS layers (6.3 GB of bf16) and needs MIXTRAL_HF_DISK_GB
+# free.
+MIXTRAL_TRAIN_LAYERS = 2
+# MOE_CHECKS. A MoE layer's routing is discrete: a token whose router
+# logits nearly tie flips experts under a rounding-size change of its
+# input, and its output, and through attention those of the tokens after
+# it, then moves by far more than the rounding (on the card, 9a's flash vs
+# plain logits differed by 5.5% of the largest with free routing). So
+# every logits check of a MoE model runs its reference side with the
+# other side's router logits replayed (``router_tap``), which pins the
+# experts and gates and holds everything else to the dense models'
+# tolerance; the free-routing error and the number of token-layers whose
+# top-2 sets differ are printed beside it, and that share must stay
+# within MOE_FLIP_TOL of the token-layers compared. A router whose logits
+# told nothing of its input would keep 1 of the C(8, 2) = 28 top-2 sets,
+# flipping ~96%; a flip also cascades, through attention, into the router
+# inputs of the tokens after it. Measured on the card (H100 80GB HBM3 at
+# 700 W): 2.3-2.5% (cached vs uncached, bf16 and int8 weights) and 7.9%
+# (int8 vs bf16 weights, fp32 compute), at 16 layers.
+MOE_FLIP_TOL = 0.25
+MIXTRAL_LOSS_TOL = 2.0 ** -8
+MIXTRAL_GNORM_TOL = 2.0 ** -6
+MIXTRAL_HF_LAYERS = 2
+MIXTRAL_HF_DISK_GB = 10
 # Head dim 256 (Gemma-2-9B): the train path's attention shapes (B=1, seq
 # 8192, so T = S = 8191 inputs after the target shift; 16 query / 8 kv
 # heads), attention soft cap 50, window 4096 on the local layers. Kernel
@@ -365,7 +429,8 @@ D192_CASES = {
 # their summary lines).
 FAMILIES = {"llama3_8b": ("llama3_8b", ""),
             "gemma2_9b": ("gemma2_9b", "gemma_"),
-            "deepseek_mla": ("deepseek_mla_bench", "mla_")}
+            "deepseek_mla": ("deepseek_mla_bench", "mla_"),
+            "mixtral_8x7b": ("mixtral_8x7b", "mixtral_")}
 
 
 def emit(obj) -> None:
@@ -685,19 +750,21 @@ def sdpa_unequal_v(torch, q, k, v_pad, v_head_dim) -> dict:
 
 
 def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
-                logits_check=True, evaluate=False) -> tuple[dict, list]:
-    """Phase 4 (``family`` "llama3_8b"), 4b ("gemma2_9b") or 4c
-    ("deepseek_mla"): the family's train slice
-    (``configs.<family>_train_slice``, at ``remat_policy`` ``policy`` or
-    the config's default) at ``n_layers`` for STEPS steps through
-    ``Trainer.run``, launch counters zeroed just before. Holds every loss
-    finite and every flash kernel of the model's head dim launched; with
-    ``evaluate``, prints one ``Trainer.evaluate`` loss on a held-out batch
-    (after the counters are read); with ``logits_check``, holds the
-    trained model's flash logits against its plain-attention logits on an
-    input one window plus 64 tokens long (256 without a window). Returns
-    (the launch counts of the run, its losses); raises AssertionError on a
-    failed check."""
+                logits_check=True, evaluate=False, moe_dispatch=None,
+                grad_norms=None) -> tuple[dict, list]:
+    """Phase 4 (``family`` "llama3_8b"), 4b ("gemma2_9b"), 4c
+    ("deepseek_mla") or 9a ("mixtral_8x7b", under ``moe_dispatch``): the
+    family's train slice (``configs.<family>_train_slice``, at
+    ``remat_policy`` ``policy`` or the config's default) at ``n_layers``
+    for STEPS steps through ``Trainer.run``, launch counters zeroed just
+    before. Holds every loss finite and every flash kernel of the model's
+    head dim launched; with ``evaluate``, prints one ``Trainer.evaluate``
+    loss on a held-out batch (after the counters are read); with
+    ``logits_check``, holds the trained model's flash logits against its
+    plain-attention logits on an input one window plus 64 tokens long (256
+    without a window). ``grad_norms``, a list, receives each step's
+    global gradient norm. Returns (the launch counts of the run, its
+    losses); raises AssertionError on a failed check."""
     from tpufw_torch import configs
     from tpufw_torch.models import PRESETS, model_for_config
     from tpufw_torch.ops import flash
@@ -707,11 +774,22 @@ def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
         n_layers, total_steps=STEPS)
     if policy is not None:
         cfg = dataclasses.replace(cfg, remat_policy=policy)
+    if moe_dispatch is not None:
+        cfg = dataclasses.replace(cfg, moe_dispatch=moe_dispatch)
     preset, prefix = FAMILIES[family]
     full = PRESETS[preset].n_layers
     window = getattr(cfg, "sliding_window", None)
     trainer = Trainer(cfg, tcfg, device="cuda")
     trainer.init_state(seed=0)
+    if grad_norms is not None:
+        step_fn = trainer.train_step
+
+        def train_step(batch):
+            out = step_fn(batch)
+            grad_norms.append(out["grad_norm"])
+            return out
+
+        trainer.train_step = train_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     emit({"train": f"{family} widths", "reduced": {"n_layers": [full, n_layers]},
@@ -722,7 +800,8 @@ def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
           "attention_backend": cfg.attention_backend,
           "attn_logit_soft_cap": getattr(cfg, "attn_logit_soft_cap", None),
           "final_logit_soft_cap": getattr(cfg, "final_logit_soft_cap", None),
-          "sliding_window": window})
+          "sliding_window": window,
+          "moe_dispatch": getattr(cfg, "moe_dispatch", None)})
     flash.reset_launch_counts()
     history = trainer.run(
         synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size, seed=0),
@@ -749,6 +828,11 @@ def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
         "model": family, "n_layers": n_layers, "seq_len": tcfg.seq_len,
         "device": kind, "nvidia_smi": smi,
     }
+    if moe_dispatch is not None:
+        summary["moe_dispatch"] = moe_dispatch
+    if grad_norms is not None:
+        grad_norms[:] = [float(g) for g in grad_norms]
+        summary["grad_norms"] = grad_norms
     emit({prefix + "train_summary": summary})
     if len(history) != STEPS:
         raise AssertionError(f"{family}: trained {len(history)} of {STEPS} steps")
@@ -780,17 +864,28 @@ def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
     tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
                            device="cuda")
     with torch.no_grad():
-        flash_logits = trainer.model(tokens)
-        plain_logits = plain_model(tokens)
+        with router_tap(torch, trainer.model) as r_flash:
+            flash_logits = trainer.model(tokens)
+        # A MoE model's plain run takes the flash run's routing (MOE_CHECKS).
+        with router_tap(torch, plain_model, r_flash or None):
+            plain_logits = plain_model(tokens)
+        check = {"check": prefix + "trained_model_flash_vs_plain_logits",
+                 "tokens": n}
+        if r_flash:
+            with router_tap(torch, plain_model) as r_plain:
+                check.update(moe_free_routing(
+                    torch, flash_logits, plain_model(tokens), r_flash,
+                    r_plain))
     if flash_logits.shape != (1, n, cfg.vocab_size):
         raise AssertionError(f"{family}: logits shape {tuple(flash_logits.shape)}")
     if not torch.isfinite(flash_logits).all():
         raise AssertionError(f"{family}: non-finite logits")
     abs_e, rel_e = rel_err(torch, flash_logits, plain_logits)
-    emit({"check": prefix + "trained_model_flash_vs_plain_logits",
-          "tokens": n, "max_abs_err": abs_e, "rel_err": rel_e, "tol": LOGITS_TOL})
-    if rel_e > LOGITS_TOL:
-        raise AssertionError(f"{family}: flash logits disagree with the plain path")
+    check.update({"max_abs_err": abs_e, "rel_err": rel_e, "tol": LOGITS_TOL})
+    emit(check)
+    if rel_e > LOGITS_TOL or check.get("top2_differ_share", 0) > MOE_FLIP_TOL:
+        raise AssertionError(f"{family}: flash logits disagree with the plain "
+                             f"path: {check}")
     return {k: launches[k] for k in path}, losses
 
 
@@ -856,14 +951,21 @@ def host_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def fp32_twin_logits(torch, model, tok, pos, seg):
-    """Uncached logits of a twin of ``model`` (same family) that holds the
-    same weights and computes in fp32."""
+def fp32_twin_logits(torch, model, tok, pos, seg, router=None,
+                     replay=None):
+    """Uncached logits of a twin of ``model`` (same family) that computes
+    in fp32 on the same weight tensors (built on the meta device and
+    handed them, so no second copy of the weights is held). ``router``, a
+    list, receives a MoE twin's router logits, and ``replay`` routes it
+    with another run's (``router_tap``)."""
     twin = type(model)(dataclasses.replace(model.cfg, dtype=torch.float32),
-                       device=model.device)
-    twin.load_state_dict(model.state_dict())
-    with torch.no_grad():
-        return twin(tok, pos, seg)
+                       device="meta")
+    twin.load_state_dict(model.state_dict(), assign=True)
+    with torch.no_grad(), router_tap(torch, twin, replay) as rec:
+        out = twin(tok, pos, seg)
+    if router is not None:
+        router.extend(rec)
+    return out
 
 
 def kv_values_per_token(cfg) -> int:
@@ -874,11 +976,72 @@ def kv_values_per_token(cfg) -> int:
     return 2 * cfg.n_kv_heads * cfg.head_dim
 
 
-def serve_phase(torch, chip, kind, smi, family="llama3_8b") -> None:
-    """Phase 5 (``family`` "llama3_8b"), 5b ("gemma2_9b") or 5c
-    ("deepseek_mla", the absorbed latent-cache decode): the serve slice in
-    bf16, then int8; raises AssertionError on a failed check. Llama's bf16
-    run is followed by the speculative run."""
+def router_tap(torch, model, replay=None):
+    """For a MoE model, a context that records each layer's router logits
+    [B, T, E] of every forward inside it, in call order, into the list it
+    yields; with ``replay``, such a list from another run, each router's
+    output is replaced by the recorded one (the other run's routing and
+    gates). For a dense model, an empty list."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def tapping():
+        out = []
+
+        def hook(mod, args, y):
+            if replay is not None:
+                y = replay[len(out)]
+            out.append(y)
+            return y
+
+        hooks = [layer.moe.router.register_forward_hook(hook)
+                 for layer in model.layers if hasattr(layer, "moe")]
+        try:
+            yield out
+        finally:
+            for h in hooks:
+                h.remove()
+
+    return tapping()
+
+
+def top2_differ(torch, a, b, rows=None) -> Optional[int]:
+    """Token-layers whose router top-2 sets differ between two
+    ``router_tap`` recordings of the same shapes; ``rows`` masks the
+    [B, T] positions compared. None for a dense model."""
+    if not a:
+        return None
+    n = 0
+    for x, y in zip(a, b):
+        sx = x.topk(2, dim=-1).indices.sort(-1).values
+        sy = y.topk(2, dim=-1).indices.sort(-1).values
+        diff = (sx != sy).any(-1)
+        n += int((diff & rows).sum() if rows is not None else diff.sum())
+    return n
+
+
+def moe_free_routing(torch, got, want_free, r_got, r_want, rows=None) -> dict:
+    """The free-routing side of a MoE check (MOE_CHECKS): the relative
+    error of ``got`` against the reference run with its own routing,
+    and how many token-layers' top-2 sets differ, also as a share."""
+    flips = top2_differ(torch, r_got, r_want, rows)
+    n = (int(rows.sum()) if rows is not None
+         else r_got[0].shape[0] * r_got[0].shape[1]) * len(r_got)
+    return {"rel_err_free_routing": rel_err(torch, got, want_free)[1],
+            "top2_differ": flips, "token_layers": n,
+            "top2_differ_share": flips / n}
+
+
+def serve_phase(torch, chip, kind, smi, family="llama3_8b",
+                after_bf16=None) -> None:
+    """Phase 5 (``family`` "llama3_8b"), 5b ("gemma2_9b"), 5c
+    ("deepseek_mla", the absorbed latent-cache decode) or 9b
+    ("mixtral_8x7b"): the serve slice in bf16, then int8 (quantized with
+    the bf16 weights freed as their codes are made); raises AssertionError
+    on a failed check. Llama's bf16 run is followed by the speculative
+    run; ``after_bf16(model)`` runs on the bf16 model before it is
+    quantized. For a MoE model the checks print how many tokens' router
+    top-2 sets differ between the two runs each compares."""
     from tpufw_torch import configs
     from tpufw_torch.infer import SamplingConfig, generate, pad_prompts
     from tpufw_torch.infer import prefill_cache
@@ -911,7 +1074,7 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b") -> None:
     model = model_for_config(cfg, device=dev, seed=0)
     for weights in ("bf16", "int8"):
         if weights == "int8":
-            model = serve.quantize_model(model)
+            model = serve.quantize_model(model, release=True)
             torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -934,29 +1097,62 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b") -> None:
         decode_ms = (total_ms - prefill_ms) / (max_new - 1)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
+        check = {"check": f"serve_{family}_{weights}_cached_vs_uncached_logits",
+                 "tol": SERVE_LOGITS_TOL}
         with torch.no_grad():
-            cached, cache = prefill_cache(model, tok, pos, seg, None)
-            uncached = model(tok, pos, seg)
+            # A MoE model's uncached runs take the cached runs' routing
+            # (MOE_CHECKS).
+            with router_tap(torch, model) as r_cached:
+                cached, cache = prefill_cache(model, tok, pos, seg, None)
+            with router_tap(torch, model, r_cached or None):
+                uncached = model(tok, pos, seg)
             prefill_err = rel_err(torch, cached[:, -1], uncached[:, -1])
             del uncached
+            if r_cached:
+                with router_tap(torch, model) as r_free:
+                    free = model(tok, pos, seg)
+                check["prefill_free_routing"] = moe_free_routing(
+                    torch, cached[:, -1], free[:, -1], r_cached, r_free,
+                    real)
+                del free
             # One decode step of row 0 against the uncached forward of
             # that row alone, unpadded.
             first = cached[:, -1].argmax(-1)
             ones = torch.ones(b, 1, dtype=torch.int32, device=dev)
-            step = model(first[:, None], (p - pad)[:, None], ones,
-                         cache=cache)[0, -1]
+            with router_tap(torch, model) as r_step:
+                step = model(first[:, None], (p - pad)[:, None], ones,
+                             cache=cache)[0, -1]
             row = torch.tensor([prompts[0] + [int(first[0])]], device=dev)
-            step_err = rel_err(torch, step, model(row)[0, -1])
+            n0 = len(prompts[0])
+            # Row 0's routing: its prompt's in the cached prefill (the
+            # last n0 positions, left-padded), then the step's.
+            replay = [torch.cat([c[:1, p - n0:], st[:1]], 1)
+                      for c, st in zip(r_cached, r_step)]
+            with router_tap(torch, model, replay or None):
+                step_err = rel_err(torch, step, model(row)[0, -1])
+            if r_cached:
+                with router_tap(torch, model) as r_free:
+                    free = model(row)[0, -1]
+                check["decode_step_row0_free_routing"] = moe_free_routing(
+                    torch, step, free, replay, r_free)
             del cache
             last_logits, real_logits = cached[:, -1], cached[real]
             del cached
-        check = {"check": f"serve_{family}_{weights}_cached_vs_uncached_logits",
-                 "prefill_last_position": prefill_err,
-                 "decode_step_row0": step_err, "tol": SERVE_LOGITS_TOL}
-        fp32_logits = fp32_twin_logits(torch, model, tok, pos, seg)[real]
+        check.update({"prefill_last_position": prefill_err,
+                      "decode_step_row0": step_err})
+        r_fp32 = []
+        fp32_logits = fp32_twin_logits(torch, model, tok, pos, seg,
+                                       r_fp32)[real]
         if weights == "bf16":
             bf16_last, bf16_real, bf16_outs = last_logits, real_logits, outs
-            bf16_fp32 = fp32_logits
+            bf16_fp32, bf16_r_fp32 = fp32_logits, r_fp32
+        elif r_fp32:
+            # MOE_CHECKS: the int8 run takes the bf16 run's routing.
+            check["int8_vs_bf16_free_routing"] = moe_free_routing(
+                torch, fp32_logits, bf16_fp32, r_fp32, bf16_r_fp32, real)
+            check["int8_vs_bf16_fp32_compute"] = rel_err(
+                torch, fp32_twin_logits(torch, model, tok, pos, seg,
+                                        replay=bf16_r_fp32)[real], bf16_fp32)
         else:
             check["int8_vs_bf16_fp32_compute"] = rel_err(
                 torch, fp32_logits, bf16_fp32)
@@ -971,6 +1167,8 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b") -> None:
         emit(check)
         bad = [k for k in ("prefill_last_position", "decode_step_row0")
                if check[k][1] > SERVE_LOGITS_TOL]
+        bad += [k for k in ("prefill_free_routing", "int8_vs_bf16_free_routing")
+                if check.get(k, {}).get("top2_differ_share", 0) > MOE_FLIP_TOL]
         if weights == "int8" and (
                 check["int8_vs_bf16_fp32_compute"][1] > INT8_TOL):
             bad.append("int8_vs_bf16_fp32_compute")
@@ -1001,6 +1199,8 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b") -> None:
         if weights == "bf16" and family == "llama3_8b":
             spec_batch_check(torch, model, prompts, max_new, outs, tok, pad,
                              kind, smi)
+        if weights == "bf16" and after_bf16 is not None:
+            after_bf16(model)
 
 
 def spec_batch_check(torch, model, prompts, max_new, plain_outs, tok, pad,
@@ -1184,15 +1384,21 @@ def _step_logits(torch, pool, tokens, j=0):
                       cache=pool.cache)[:, -1].float()
 
 
-def pool_run(torch, model, prompts, kind, n_steps):
+def pool_run(torch, model, prompts, kind, n_steps, router=None,
+             replay=None):
     """One admission sequence straight through a pool of ONLINE_SLOTS
     rows at ONLINE_CACHE slots (``kind``: "contiguous", "paged" or
     "paged_int8"), each prompt prefilled at its exact width: the first
     decode step's logits [rows, V] and ``n_steps`` greedy tokens per
-    row."""
+    row. For a MoE model the step's router logits go to ``router``, a
+    list, and ``replay`` routes the step with another run's
+    (``router_tap``)."""
     with torch.no_grad():
         pool = _admit_pool(model, prompts, kind, n_steps)
-        logits = _step_logits(torch, pool, pool.token)[: len(prompts)]
+        with router_tap(torch, model, replay) as rec:
+            logits = _step_logits(torch, pool, pool.token)[: len(prompts)]
+        if router is not None:
+            router.extend(rec)
         del pool
         pool = _admit_pool(model, prompts, kind, n_steps)
         tokens = pool.decode_steps(n_steps)[: len(prompts)].tolist()
@@ -2195,25 +2401,36 @@ def sigterm_phase(prefix: str, workdir: str, kind, smi) -> None:
     shutil.rmtree(ckpt_dir)
 
 
-def hf_phase(torch, workdir: str, kind, smi) -> None:
-    """7d: Llama-3-8B's serve slice (full width, 32 layers, bf16 weights
-    drawn as phase 5 draws them) exported with export_hf as sharded
+def hf_phase(torch, workdir: str, kind, smi, family="llama3_8b") -> None:
+    """7d (``family`` "llama3_8b"): Llama-3-8B's serve slice (full width,
+    32 layers, bf16 weights drawn as phase 5 draws them), or 9d
+    ("mixtral_8x7b"): Mixtral-8x7B at full width and MIXTRAL_HF_LAYERS
+    layers, bf16, dropless; exported with export_hf as sharded
     safetensors and served back through TPUFW_HF_CHECKPOINT and
-    serve.build_generator: the phase-5 prompts' greedy tokens and prefill
-    logits bit-equal to the in-memory model's; under
+    serve.build_generator: the serve slice's prompts' greedy tokens and
+    prefill logits bit-equal to the in-memory model's; under
     TPUFW_QUANTIZE=int8, every int8 code and scale equal to quantizing the
-    in-memory model. Needs HF_DISK_GB free on the checkout's disk."""
+    in-memory model. Needs HF_DISK_GB (MIXTRAL_HF_DISK_GB) free on the
+    checkout's disk."""
     from tpufw_torch import configs
     from tpufw_torch.infer import SamplingConfig, pad_prompts
     from tpufw_torch.models import model_for_config
     from tpufw_torch.tools.import_hf import export_hf
     from tpufw_torch.workloads import serve
 
+    phase, need_gb, cfg, prompts, max_new = {
+        "llama3_8b": lambda: ("7d", HF_DISK_GB,
+                              *configs.llama3_8b_serve_slice()),
+        "mixtral_8x7b": lambda: ("9d", MIXTRAL_HF_DISK_GB,
+                                 *configs.mixtral_8x7b_serve_slice(
+                                     n_layers=MIXTRAL_HF_LAYERS)),
+    }[family]()
+    prefix = FAMILIES[family][1]
     free_gb = shutil.disk_usage(workdir).free / 1e9
-    if free_gb < HF_DISK_GB:
+    if free_gb < need_gb:
         raise AssertionError(
-            f"7d needs {HF_DISK_GB} GB free under {workdir}, has {free_gb:.1f}")
-    cfg, prompts, max_new = configs.llama3_8b_serve_slice()
+            f"{phase} needs {need_gb} GB free under {workdir}, has "
+            f"{free_gb:.1f}")
     model = model_for_config(cfg, device="cuda", seed=0)
     hf_dir = os.path.join(workdir, "hf")
     torch.cuda.synchronize()
@@ -2255,15 +2472,15 @@ def hf_phase(torch, workdir: str, kind, smi) -> None:
     # Anonymous memory where reported: mapped file pages are not a copy.
     held = "RssAnon" if "RssAnon" in rss.peak else "VmRSS"
     held_gb = rss.peak[held] - rss.start[held]
-    check = {"check": "hf_round_trip", "restored": restored,
+    check = {"check": prefix + "hf_round_trip", "restored": restored,
              "config_equal": lcfg.decode_config() == cfg,
              "state_dict_equal": sd_equal,
              "prefill_logits_equal": logits_equal,
              "greedy_tokens_equal": got == want,
              "int8_codes_and_scales_equal": int8_equal}
     emit(check)
-    emit({"hf_import_summary": {
-        "model": "llama3_8b", "n_layers": cfg.n_layers,
+    emit({prefix + "hf_import_summary": {
+        "model": family, "n_layers": cfg.n_layers,
         "files": info["files"], "bytes": info["bytes"],
         "write_s": write_s, "write_gb_per_s": info["bytes"] / write_s / 1e9,
         "load_to_device_s": load_s,
@@ -2273,10 +2490,11 @@ def hf_phase(torch, workdir: str, kind, smi) -> None:
         "fp32_copy_gb": fp32_copy_gb, "disk_free_gb": free_gb,
         "device": kind, "nvidia_smi": smi}})
     if not all(v for k, v in check.items() if k != "check"):
-        raise AssertionError(f"7d: the HF round trip is not bit-equal: {check}")
+        raise AssertionError(
+            f"{phase}: the HF round trip is not bit-equal: {check}")
     if held_gb >= fp32_copy_gb:
-        raise AssertionError(f"7d: the load held {held_gb:.1f} GB of host "
-                             "memory, an fp32 copy's worth")
+        raise AssertionError(f"{phase}: the load held {held_gb:.1f} GB of "
+                             "host memory, an fp32 copy's worth")
     shutil.rmtree(hf_dir)
 
 
@@ -2480,6 +2698,8 @@ def disagg_phase(torch, model, de, direct, direct_out, max_new, kind, smi,
     through the spill directory."""
     import threading
 
+    import socket
+
     import numpy as np
 
     from tpufw_torch.infer import SamplingConfig
@@ -2649,6 +2869,9 @@ def disagg_phase(torch, model, de, direct, direct_out, max_new, kind, smi,
         if router is not None:
             router.close()
         for s in socks:
+            # A close alone leaves the accept thread blocked, holding the
+            # engines and the weights (found by phase 9's memory).
+            s.shutdown(socket.SHUT_RDWR)
             s.close()
 
 
@@ -2788,6 +3011,178 @@ def disaggregated_phase(torch, kind, smi) -> None:
         entry_phase(torch, direct, direct_out, max_new, kind, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+# ----------------------------------------------------------- phase 9
+
+
+def mixtral_online(torch, model, kind, smi) -> None:
+    """9c: the bf16 Mixtral serve model behind ``_Server`` (slot scheduler,
+    ONLINE_SLOTS slots, paged KV of ONLINE_PAGE, greedy): phase 6's 16
+    concurrent SSE requests, then the 4 sharing the ONLINE_PREFIX-token
+    prefix, ONLINE_NEW tokens each. Every reply full-length and in
+    vocabulary, /metrics counting the requests and tokens sent, /healthz
+    ok, a prefix hit, no slot occupied and only the trie's pages in use
+    after the drain, no flash launch; one admission sequence straight
+    through a contiguous and a paged pool gives step logits within
+    SERVE_LOGITS_TOL. Prints a ``mixtral_online_summary``; raises
+    AssertionError on a failed check."""
+    import numpy as np
+
+    from tpufw_torch.ops import flash
+    from tpufw_torch.workloads import serve
+
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    by_len = {n: [rng.integers(1, cfg.vocab_size, n).tolist()
+                  for _ in range(4)] for n in ONLINE_PROMPT_LENS}
+    prompts = [by_len[n][i] for i in range(4)
+               for n in reversed(ONLINE_PROMPT_LENS)]
+    shared = rng.integers(1, cfg.vocab_size, ONLINE_PREFIX).tolist()
+    prefixed = [shared + rng.integers(1, cfg.vocab_size, n).tolist()
+                for n in (16, 24, 40, 56)]
+    direct = [by_len[n][0] for n in ONLINE_PROMPT_LENS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    srv, base = _start_server(serve, {"TPUFW_SERVE_PAGE": str(ONLINE_PAGE)},
+                              model=model)
+    sched = srv._batcher
+    warm_s, warm_steps = sched.decode_s, sched.decode_steps_run
+    try:
+        t0 = time.perf_counter()
+        runs = []
+        for wave in (prompts, prefixed):
+            runs += _concurrently([
+                (lambda p=p: _stream(base, {"prompts": [p],
+                                            "max_new_tokens": ONLINE_NEW}))
+                for p in wave])
+        wall = time.perf_counter() - t0
+        n_req = len(prompts) + len(prefixed)
+        bad = [toks for toks, _, _ in runs if len(toks) != ONLINE_NEW
+               or not all(0 <= t < cfg.vocab_size for t in toks)]
+        with _get(base + "/healthz") as r:
+            healthy = json.loads(r.read())["ok"] is True
+        metrics = _metrics(base)
+        launches = dict(flash.LAUNCHES)
+        steps = sched.decode_steps_run - warm_steps
+        check = {
+            "check": "mixtral_online",
+            "bad_outputs": len(bad), "healthz_ok": healthy,
+            "requests": [metrics["tpufw_serve_requests_total"], n_req],
+            "tokens": [metrics["tpufw_serve_tokens_generated_total"],
+                       n_req * ONLINE_NEW],
+            "errors": metrics["tpufw_serve_request_errors_total"],
+            "slots_occupied_after": metrics["tpufw_serve_slots_occupied"],
+            "prefix_hits": metrics["tpufw_serve_prefix_hits_total"],
+            "pages_in_use_after": sched.pages_in_use,
+            "trie_pages": len(sched.pool.prefix),
+            "flash_launches": launches,
+        }
+        ttft = [r[1] * 1e3 for r in runs]
+        summary = {
+            "model": "mixtral_8x7b", "n_layers": cfg.n_layers,
+            "capacity_factor": cfg.capacity_factor, "mode": "paged_bf16",
+            "slots": ONLINE_SLOTS, "page": ONLINE_PAGE, "wall_s": wall,
+            "requests": n_req, "output_tokens": ONLINE_NEW * n_req,
+            "tokens_per_s": ONLINE_NEW * n_req / wall,
+            "ttft_ms_p50": _percentile(ttft, 0.5),
+            "ttft_ms_p95": _percentile(ttft, 0.95),
+            "latency_ms_p50": _percentile([r[2] * 1e3 for r in runs], 0.5),
+            "decode_ms_per_step": ((sched.decode_s - warm_s) / steps * 1e3
+                                   if steps else None),
+            "decode_steps": steps,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_pages_in_use": sched.peak_pages_in_use,
+            "pages_total": sched.pages_total,
+            "device": kind, "nvidia_smi": smi,
+        }
+    finally:
+        srv.shutdown()
+        for k in [k for k in os.environ if k.startswith("TPUFW_")]:
+            del os.environ[k]
+    # MOE_CHECKS: the held paged step takes the contiguous step's routing.
+    r_ref, r_free = [], []
+    ref_logits, ref_tokens = pool_run(torch, model, direct, "contiguous", 32,
+                                      router=r_ref)
+    free_logits, tokens = pool_run(torch, model, direct, "paged", 32,
+                                   router=r_free)
+    logits, _ = pool_run(torch, model, direct, "paged", 1, replay=r_ref)
+    rows = torch.zeros(ONLINE_SLOTS, 1, dtype=torch.bool,
+                       device=ref_logits.device)
+    rows[: len(direct)] = True
+    check["step_logits_free_routing"] = moe_free_routing(
+        torch, free_logits, ref_logits, r_free, r_ref, rows)
+    check["step_logits_paged_vs_contiguous"] = rel_err(torch, logits,
+                                                       ref_logits)
+    check["tol"] = SERVE_LOGITS_TOL
+    check["greedy_match_paged_vs_contiguous"] = sum(
+        x == y for o, r in zip(tokens, ref_tokens)
+        for x, y in zip(o, r)) / (len(tokens) * 32)
+    emit(check)
+    emit({"mixtral_online_summary": summary})
+    failed = [k for k in ("requests", "tokens") if check[k][0] != check[k][1]]
+    if (check["bad_outputs"] or not healthy or check["errors"]
+            or check["slots_occupied_after"] or check["prefix_hits"] <= 0
+            or check["pages_in_use_after"] != check["trie_pages"]
+            or any(launches.values())
+            or check["step_logits_paged_vs_contiguous"][1] > SERVE_LOGITS_TOL
+            or check["step_logits_free_routing"]["top2_differ_share"]
+            > MOE_FLIP_TOL):
+        failed.append("outputs, health, slots, pages, prefix, flash or "
+                      "step logits")
+    if failed:
+        raise AssertionError(f"9c mixtral online: {failed}: {check}")
+
+
+def mixtral_phase(torch, chip, kind, smi, gen) -> dict:
+    """Phase 9: Mixtral-8x7B widths. 9a: the train slice at
+    MIXTRAL_TRAIN_LAYERS layers for STEPS steps through ``Trainer.run``
+    under the einsum dispatch, then, freed, under the sorted one from the
+    same seed on the same batches: finite losses, every d128 kernel
+    launched in both, the step-1 losses and gradient norms within
+    MIXTRAL_LOSS_TOL and MIXTRAL_GNORM_TOL. 9b: the 16-layer serve slice
+    (``serve_phase``), bf16 then int8, with 9c (``mixtral_online``) on
+    the bf16 model between. 9d: the HF round trip at width
+    (``hf_phase``) in a gitignored directory of the checkout, deleted
+    after. Returns {kernel: {mode: launches}} of 9a; raises
+    AssertionError on a failed check."""
+    # What earlier phases left on the card: every peak below includes it.
+    emit({"phase9_allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9})
+    runs = {}
+    for mode in ("einsum", "sorted"):
+        norms = []
+        launches, losses = train_phase(
+            torch, "mixtral_8x7b", MIXTRAL_TRAIN_LAYERS, gen, kind, smi,
+            logits_check=mode == "einsum", moe_dispatch=mode,
+            grad_norms=norms)
+        runs[mode] = (launches, losses, norms)
+        gc.collect()
+        torch.cuda.empty_cache()
+    (_, le, ge), (_, ls, gs) = runs["einsum"], runs["sorted"]
+    gap = {"loss_step1": abs(le[0] - ls[0]) / abs(le[0]),
+           "grad_norm_step1": abs(ge[0] - gs[0]) / abs(ge[0])}
+    emit({"check": "mixtral_dispatch_modes_step1", "einsum_loss": le[0],
+          "sorted_loss": ls[0], "einsum_grad_norm": ge[0],
+          "sorted_grad_norm": gs[0], "relative_gap": gap,
+          "tol": {"loss_step1": MIXTRAL_LOSS_TOL,
+                  "grad_norm_step1": MIXTRAL_GNORM_TOL}})
+    if (gap["loss_step1"] > MIXTRAL_LOSS_TOL
+            or gap["grad_norm_step1"] > MIXTRAL_GNORM_TOL):
+        raise AssertionError(f"9a: the dispatch modes disagree at step 1: "
+                             f"{gap}")
+    serve_phase(torch, chip, kind, smi, family="mixtral_8x7b",
+                after_bf16=lambda m: mixtral_online(torch, m, kind, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = os.path.join(ROOT, "build-torch", f"phase9-{os.getpid()}")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        hf_phase(torch, workdir, kind, smi, family="mixtral_8x7b")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {k: {mode: runs[mode][0][k] for mode in runs}
+            for k in runs["einsum"][0]}
 
 
 def main() -> int:
@@ -3017,6 +3412,14 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    # 9. Mixtral, with phase 8's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        mixtral_launches = mixtral_phase(torch, chip, kind, smi, gen)
+    except AssertionError as e:
+        return fail(str(e))
+
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -3044,6 +3447,9 @@ def main() -> int:
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         })
+        if name in mixtral_launches:
+            # Phase 9a's runs, Mixtral-8x7B widths, per dispatch mode.
+            kernels[-1]["launches_mixtral_train"] = mixtral_launches[name]
         if name in resume_launches:
             # Phase 7b's run, llama3_600m_bench through Trainer.run, and
             # the kernel at its shapes.

@@ -2,15 +2,17 @@
 """Where the time of one ``tpufw_torch`` train step goes, on one GPU.
 
     python3 scripts/profile_torch_train.py [--model llama3_8b] [--layers N]
-        [--remat-policy dots] [--steps 3] [--trace PATH]
+        [--remat-policy dots] [--moe-dispatch einsum] [--steps 3]
+        [--trace PATH]
 
 Trains a chip_smoke.py train slice (``--model llama3_8b``:
 ``llama3_8b_train_slice`` in ``tpufw_torch/configs/presets.py``;
 ``--model gemma2_9b``: ``gemma2_9b_train_slice``, whose flash kernels are
 the head-dim-256 builds; ``--model deepseek_mla_bench``:
-``deepseek_mla_train_slice``, the head-dim-192 builds; depth ``--layers``,
-by default the slice's own: 4, 4 and all 10; ``--remat-policy``, by
-default the config's "dots"), runs two warm-up
+``deepseek_mla_train_slice``, the head-dim-192 builds; ``--model
+mixtral_8x7b``: ``mixtral_8x7b_train_slice``, under ``--moe-dispatch``;
+depth ``--layers``, by default the slice's own: 4, 4, all 10 and 2;
+``--remat-policy``, by default the config's "dots"), runs two warm-up
 steps, then traces ``--steps`` steps with ``torch.profiler`` and prints one
 JSON line: wall time per step, device busy time per step (the union of the
 trace's kernel, memcpy and memset intervals), the device's idle share,
@@ -98,7 +100,8 @@ def trace_breakdown(prof, steps: int, wall_s: float, trace=None) -> dict:
 # --model: the presets module's train slice of that model.
 SLICES = {"llama3_8b": "llama3_8b_train_slice",
           "gemma2_9b": "gemma2_9b_train_slice",
-          "deepseek_mla_bench": "deepseek_mla_train_slice"}
+          "deepseek_mla_bench": "deepseek_mla_train_slice",
+          "mixtral_8x7b": "mixtral_8x7b_train_slice"}
 
 
 def main() -> int:
@@ -108,6 +111,8 @@ def main() -> int:
     ap.add_argument("--trace", default=None)
     ap.add_argument("--model", default="llama3_8b", choices=tuple(SLICES))
     ap.add_argument("--remat-policy", default=None)
+    ap.add_argument("--moe-dispatch", default=None,
+                    choices=("einsum", "sorted"))
     args = ap.parse_args()
 
     import torch
@@ -124,6 +129,8 @@ def main() -> int:
         total_steps=2 + args.steps, **depth)
     if args.remat_policy is not None:
         cfg = dataclasses.replace(cfg, remat_policy=args.remat_policy)
+    if args.moe_dispatch is not None:
+        cfg = dataclasses.replace(cfg, moe_dispatch=args.moe_dispatch)
     trainer = Trainer(cfg, tcfg, device="cuda")
     trainer.init_state(seed=0)
     data = synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size,
@@ -141,6 +148,7 @@ def main() -> int:
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "model": args.model, "layers": cfg.n_layers,
                       "remat_policy": cfg.remat_policy,
+                      "moe_dispatch": getattr(cfg, "moe_dispatch", None),
                       "steps_traced": args.steps}
                      | out), flush=True)
     return 0 if out["idle_share"] >= 0.0 else 1

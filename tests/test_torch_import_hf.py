@@ -1,7 +1,7 @@
 """tpufw_torch.tools.import_hf against transformers and tpufw's import_hf:
 tiny random-weight HF models (no download) of every family the port has,
-Llama with llama3 rope scaling, Qwen-2, Mistral, Gemma-2 and DeepSeek-V2
-dense with and without q_lora_rank. Config mapping, logits against
+Llama with llama3 rope scaling, Qwen-2, Mistral, Mixtral, Gemma-2 and
+DeepSeek-V2 dense with and without q_lora_rank. Config mapping, logits against
 transformers and against tpufw's importer (fp32, 2e-4), the port's state
 dict equal bit for bit to ``params_from_flax`` of tpufw's tree, export read
 back by transformers and by tpufw, the CLI both ways, the loud refusals and
@@ -53,6 +53,9 @@ HF_CONFIGS = {
         final_logit_softcapping=30.0, query_pre_attn_scalar=16,
         sliding_window=32, hidden_activation="gelu_pytorch_tanh",
         tie_word_embeddings=True, attention_bias=False),
+    "mixtral": lambda: transformers.MixtralConfig(
+        **SMALL, num_key_value_heads=2, head_dim=16, num_local_experts=4,
+        num_experts_per_tok=2, rope_theta=1e6, tie_word_embeddings=False),
     "deepseek_v2": lambda: transformers.DeepseekV2Config(
         **SMALL, num_key_value_heads=4, q_lora_rank=None, kv_lora_rank=32,
         qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
@@ -67,6 +70,7 @@ HF_CONFIGS = {
 AUTO = {"llama_rope_scaled": transformers.LlamaForCausalLM,
         "qwen2": transformers.Qwen2ForCausalLM,
         "mistral": transformers.MistralForCausalLM,
+        "mixtral": transformers.MixtralForCausalLM,
         "gemma2": transformers.Gemma2ForCausalLM,
         "deepseek_v2": transformers.DeepseekV2ForCausalLM,
         "deepseek_v2_qlora": transformers.DeepseekV2ForCausalLM}
@@ -108,8 +112,10 @@ def _jax_cfg(hf_cfg):
 
 
 def _jax_logits(jcfg, params):
-    return np.asarray(jax.jit(j_model_for_config(jcfg).apply)(
-        {"params": params}, TOKENS.astype(np.int32)))
+    out = jax.jit(j_model_for_config(jcfg).apply)(
+        {"params": params}, TOKENS.astype(np.int32))
+    # tpufw's Mixtral returns (logits, aux) by default.
+    return np.asarray(out[0] if isinstance(out, tuple) else out)
 
 
 @pytest.mark.parametrize("family", sorted(HF_CONFIGS))
@@ -234,7 +240,6 @@ def test_cli_export_from_a_training_checkpoint(tmp_path):
 
 
 REFUSED = {
-    "mixtral": ({"model_type": "mixtral", **SMALL}, "item 10"),
     "deepseek_moe": ({"model_type": "deepseek_v2", **SMALL,
                       "n_routed_experts": 8, "first_k_dense_replace": 1},
                      "item 10"),
@@ -258,7 +263,7 @@ def test_unsupported_configs_are_loud(case):
         import_hf.config_from_hf(cfg)
     # tpufw refuses or takes the same configs; the port refuses at least
     # as much.
-    if case not in ("mixtral", "deepseek_moe"):
+    if case != "deepseek_moe":
         with pytest.raises(NotImplementedError):
             j_import.config_from_hf(cfg)
 
@@ -297,3 +302,58 @@ def test_serve_from_hf_checkpoint_dir(hf, tmp_path, clear_tpufw_env):
     assert [r["output"] for r in results] == generate_text(
         served, prompts, max_new_tokens=4)
     assert all(r["restored_checkpoint"] for r in results)
+
+
+def test_imported_mixtral_defaults_to_dropless_capacity():
+    """tests/test_import_hf.py's rule: an imported Mixtral's capacity
+    factor is its expert count, so no token drops."""
+    cfg = import_hf.config_from_hf({
+        "model_type": "mixtral", "vocab_size": 64, "hidden_size": 32,
+        "num_hidden_layers": 2, "num_attention_heads": 4,
+        "intermediate_size": 48, "num_local_experts": 8,
+        "num_experts_per_tok": 2})
+    assert type(cfg).__name__ == "MixtralConfig"
+    assert cfg.capacity_factor == 8.0 and cfg.n_experts == 8
+
+
+def test_serve_mixtral_hf_checkpoint_dir(hf, tmp_path, clear_tpufw_env):
+    """A bf16 Mixtral directory through TPUFW_HF_CHECKPOINT: a Mixtral
+    decode model (TPUFW_MODEL ignored), each expert slice equal to its HF
+    expert, norms fp32, run_batch's tokens generate_text's; under
+    TPUFW_QUANTIZE=int8 the codes and scales equal quantize_model of the
+    bf16 load."""
+    from tpufw_torch.infer import generate_text
+    from tpufw_torch.models import Mixtral
+    from tpufw_torch.workloads import serve
+
+    model, _ = hf["mixtral"]
+    model16 = AUTO["mixtral"](model.config).to(torch.bfloat16)
+    model16.load_state_dict({k: v.to(torch.bfloat16)
+                             for k, v in model.state_dict().items()})
+    model16.save_pretrained(tmp_path, safe_serialization=True)
+    for k, v in {"HF_CHECKPOINT": str(tmp_path), "DEVICE": "cpu",
+                 "MODEL": "not_a_preset"}.items():
+        clear_tpufw_env.setenv(f"TPUFW_{k}", v)
+    served, cfg, restored = serve.build_generator()
+    assert restored and isinstance(served, Mixtral)
+    assert cfg.capacity_factor == cfg.n_experts == 4
+    hf_sd = model16.state_dict()
+    moe = served.layers[1].moe
+    assert moe.w_up.dtype == torch.bfloat16
+    assert served.layers[1].moe_norm.weight.dtype == torch.float32
+    assert torch.equal(
+        moe.w_up[3],
+        hf_sd["model.layers.1.block_sparse_moe.experts.3.w3.weight"])
+    assert torch.equal(
+        moe.router.weight, hf_sd["model.layers.1.block_sparse_moe.gate.weight"])
+    prompts = [[1, 5, 9], [2, 3, 4, 5, 6]]
+    results = serve.run_batch(prompts, max_new_tokens=4)
+    assert [r["output"] for r in results] == generate_text(
+        served, prompts, max_new_tokens=4)
+    want = serve.quantize_model(served).state_dict()
+    clear_tpufw_env.setenv("TPUFW_QUANTIZE", "int8")
+    qmodel, qcfg, _ = serve.build_generator()
+    got = qmodel.state_dict()
+    assert qcfg.quantized_weights and got.keys() == want.keys()
+    assert got["layers.0.moe.w_gate.weight"].dtype == torch.int8
+    assert all(torch.equal(got[k], want[k]) for k in want)

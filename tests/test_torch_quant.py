@@ -282,3 +282,105 @@ def test_gemma_tied_embeddings_stay_fp():
     assert len(proj) == 7 * tcfg.n_layers
     assert all(q[k].dtype == torch.int8 for k in proj)
     assert all(q[k].dtype == torch.float32 for k in q if "norm" in k)
+
+
+# ----------------------------------------------------------------------
+# Mixtral (tests/test_quant.py's Mixtral cases): the expert stacks to int8
+# per (expert, out-channel), the router stays fp.
+# ----------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _mixtral_int8():
+    """(JAX fp32 mixtral_tiny config, port config, fp Flax params, JAX
+    int8 tree, eager as the JAX serve path quantizes)."""
+    from flax.core import meta
+
+    from tpufw.models.mixtral import MIXTRAL_CONFIGS as J_MIXTRAL
+    from tpufw.models.mixtral import Mixtral as JMixtral
+    from tpufw_torch.models import MIXTRAL_CONFIGS
+
+    jcfg = dataclasses.replace(J_MIXTRAL["mixtral_tiny"], dtype=jnp.float32,
+                               param_dtype=jnp.float32)
+    tcfg = dataclasses.replace(MIXTRAL_CONFIGS["mixtral_tiny"],
+                               dtype=torch.float32, param_dtype=torch.float32)
+    fp = jax.jit(JMixtral(jcfg).init)(
+        jax.random.key(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    fp = jax.device_get(meta.unbox(fp))
+    return jcfg, tcfg, fp, jax.device_get(j_quant.quantize_params(fp))
+
+
+def test_mixtral_expert_codes_and_scales_equal_jax():
+    """quantize_params and serve.quantize_model on the converted Mixtral
+    state dict: every int8 code (the expert stacks' transposed) equals
+    tpufw's eager codes, scales within 1e-6, the router stays fp32, and
+    the int8 model's logits equal tpufw's int8 Mixtral's and stay within
+    5% of the fp logits."""
+    from tpufw.models.mixtral import Mixtral as JMixtral
+    from tpufw_torch.models import Mixtral
+    from tpufw_torch.workloads.serve import quantize_model
+
+    jcfg, tcfg, fp, jq = _mixtral_int8()
+    qt = dataclasses.replace(tcfg, quantized_weights=True)
+    want = params_from_flax(jq, qt)
+    model = Mixtral(tcfg, device="cpu")
+    model.load_state_dict(params_from_flax(fp, tcfg))
+    q8 = quantize_model(model)
+    for got in (quant.quantize_params(model.state_dict()), q8.state_dict()):
+        assert got.keys() == want.keys()
+        for k, w in want.items():
+            assert got[k].dtype == w.dtype, k
+            if w.dtype == torch.int8:
+                assert torch.equal(got[k], w), k
+            else:
+                np.testing.assert_allclose(got[k].numpy(), w.numpy(),
+                                           rtol=1e-6, err_msg=k)
+    moe = q8.layers[0].moe
+    assert moe.w_down.weight.shape == (4, 64, 128)
+    assert moe.w_down.scale.shape == (4, 64)
+    assert moe.router.weight.dtype == torch.float32
+    tokens = _tokens(seed=9, shape=(2, 17))
+    qj = dataclasses.replace(jcfg, quantized_weights=True)
+    j_int8 = np.asarray(JMixtral(qj).apply({"params": jq}, tokens)[0])
+    with torch.no_grad():
+        ref = model(torch.tensor(tokens)).numpy()
+        out = q8(torch.tensor(tokens)).numpy()
+    assert np.abs(out - j_int8).max() <= 1e-4 * np.abs(j_int8).max()
+    assert np.abs(out - ref).max() <= 0.05 * np.abs(ref).max()
+
+
+def test_quantize_model_release_frees_the_source():
+    """quantize_model(release=True), the serving path's: the same codes
+    as without release, and each quantized weight of the source freed."""
+    from tpufw_torch.models import Mixtral
+    from tpufw_torch.workloads.serve import quantize_model
+
+    _, tcfg, fp, _ = _mixtral_int8()
+    sd = params_from_flax(fp, tcfg)
+    keep = Mixtral(tcfg, device="cpu")
+    keep.load_state_dict(sd)
+    drop = Mixtral(tcfg, device="cpu")
+    drop.load_state_dict(sd)
+    want = quantize_model(keep).state_dict()
+    got = quantize_model(drop, release=True).state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert drop.layers[0].moe.w_up.numel() == 0
+    assert drop.lm_head.numel() == 0
+    assert drop.layers[0].attn.q.weight.numel() == 0
+    assert drop.embed.numel() > 0
+
+
+def test_serve_mixtral_int8(clear_tpufw_env):
+    """TPUFW_MODEL=mixtral_tiny TPUFW_QUANTIZE=int8: build_generator
+    serves a Mixtral with int8 expert stacks, through run_batch."""
+    from tpufw_torch.models import Mixtral
+    from tpufw_torch.workloads import serve
+
+    clear_tpufw_env.setenv("TPUFW_MODEL", "mixtral_tiny")
+    clear_tpufw_env.setenv("TPUFW_QUANTIZE", "int8")
+    clear_tpufw_env.setenv("TPUFW_DEVICE", "cpu")
+    model, cfg, restored = serve.build_generator()
+    assert isinstance(model, Mixtral) and cfg.quantized_weights
+    assert model.layers[0].moe.w_gate.weight.dtype == torch.int8
+    out = serve.run_batch([[3, 4], [7, 8, 9]], max_new_tokens=3)
+    assert [len(r["output"]) for r in out] == [3, 3]

@@ -114,6 +114,40 @@ def test_run_batch_on_the_cpu(cpu_env, quantize):
         assert all(0 <= t < cfg.vocab_size for t in r["output"])
 
 
+@pytest.mark.parametrize("quantize", ["", "int8"])
+def test_run_batch_serves_mixtral(cpu_env, quantize):
+    """TPUFW_MODEL=mixtral_tiny: build_generator gives a Mixtral decode
+    model (int8 expert stacks under TPUFW_QUANTIZE=int8) and run_batch its
+    greedy continuations."""
+    from tpufw_torch.models import Mixtral
+
+    cpu_env.setenv("TPUFW_MODEL", "mixtral_tiny")
+    if quantize:
+        cpu_env.setenv("TPUFW_QUANTIZE", quantize)
+    results = serve.run_batch(PROMPTS, max_new_tokens=5)
+    model, cfg, restored = serve.build_generator()
+    assert isinstance(model, Mixtral) and model.cfg.decode and not restored
+    assert type(cfg).__name__ == "MixtralConfig"
+    experts = model.layers[0].moe.w_up
+    assert (experts.weight.dtype == torch.int8 if quantize
+            else experts.dtype == torch.float32)
+    assert [r["output"] for r in results] == generate_text(
+        model, PROMPTS, max_new_tokens=5)
+    assert all(r["model_params"] == cfg.n_params() for r in results)
+
+
+def test_mixtral_serve_slice_is_a_model_name():
+    """TPUFW_MODEL=mixtral_8x7b_serve_slice names the smoke test's serve
+    weights: Mixtral-8x7B widths at 16 layers, bf16, dropless."""
+    from tpufw_torch.configs import resolve_model_preset
+
+    cfg = resolve_model_preset("mixtral_8x7b_serve_slice")
+    assert type(cfg).__name__ == "MixtralConfig" and cfg.decode
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff) == (16, 4096, 14_336)
+    assert cfg.capacity_factor == cfg.n_experts == 8
+    assert cfg.param_dtype == torch.bfloat16 and cfg.max_seq_len == 2048
+
+
 def test_run_batch_env_knobs(cpu_env):
     """TPUFW_PREFILL_CHUNK leaves greedy outputs as they were; sampled
     output is reproducible; TPUFW_EOS_ID truncates rows after the EOS."""

@@ -3,8 +3,9 @@ fp32 with numpy-seeded inputs (tolerance 2e-4, tests/conftest.py):
 
 - ``remat_policy`` (``tests/test_llama.py:57``): every policy gives the
   loss and gradients of "nothing" exactly, and ``tpufw``'s at the same
-  policy, for Llama, Gemma-2 and DeepSeek MLA, through the plain and the
-  flash attention path; an unknown name raises;
+  policy, for Llama, Mixtral (its router loss in the objective), Gemma-2
+  and DeepSeek MLA, through the plain and the flash attention path; an
+  unknown name raises;
 - ``Trainer.evaluate`` and the eval hook (``tests/test_eval.py``): a
   token-weighted loss equal to ``tpufw``'s, no state change, the hook on
   schedule, an empty iterator loud;
@@ -12,8 +13,8 @@ fp32 with numpy-seeded inputs (tolerance 2e-4, tests/conftest.py):
   window averages, the flush of an open window, eval at sync points only;
 - ``adam_mu_dtype`` (``tests/test_grad_accum.py:89``): a bf16 first
   moment, its updates and a three-step trajectory equal optax's;
-- the workload's ``TPUFW_EVAL_EVERY``, ``TPUFW_SYNC_EVERY`` and
-  ``TPUFW_ADAM_MU_DTYPE``.
+- the workload's ``TPUFW_EVAL_EVERY``, ``TPUFW_SYNC_EVERY``,
+  ``TPUFW_ADAM_MU_DTYPE`` and ``TPUFW_MOE_DISPATCH``.
 """
 
 import dataclasses
@@ -39,6 +40,8 @@ from tpufw.models.gemma import GEMMA_CONFIGS as J_GEMMA
 from tpufw.models.gemma import Gemma as JGemma
 from tpufw.models.llama import LLAMA_CONFIGS as J_LLAMA
 from tpufw.models.llama import Llama as JLlama
+from tpufw.models.mixtral import MIXTRAL_CONFIGS as J_MIXTRAL
+from tpufw.models.mixtral import Mixtral as JMixtral
 from tpufw.train import Trainer as JTrainer
 from tpufw.train import TrainerConfig as JTrainerConfig
 from tpufw.train.trainer import default_optimizer as j_default_optimizer
@@ -47,6 +50,8 @@ from tpufw_torch.models import (
     DEEPSEEK_CONFIGS,
     GEMMA_CONFIGS,
     LLAMA_CONFIGS,
+    MIXTRAL_CONFIGS,
+    Mixtral,
     model_for_config,
 )
 from tpufw_torch.models.llama import REMAT_POLICIES
@@ -63,6 +68,8 @@ FAMILIES = {
     "gemma": (JGemma, J_GEMMA["gemma2_tiny"], GEMMA_CONFIGS["gemma2_tiny"]),
     "deepseek": (JDeepseek, J_DEEPSEEK["deepseek_tiny"],
                  DEEPSEEK_CONFIGS["deepseek_tiny"]),
+    "mixtral": (JMixtral, J_MIXTRAL["mixtral_tiny"],
+                MIXTRAL_CONFIGS["mixtral_tiny"]),
 }
 
 
@@ -91,7 +98,10 @@ def _jax_loss_and_grads(family, policy):
     model = jcls(dataclasses.replace(jcfg, remat_policy=policy))
 
     def loss(p):
-        return (model.apply({"params": p}, jnp.asarray(tokens)) * r).sum()
+        out = model.apply({"params": p}, jnp.asarray(tokens))
+        if isinstance(out, tuple):  # a MoE model: (logits, router loss)
+            return (out[0] * r).sum() + out[1]
+        return (out * r).sum()
 
     lv, g = jax.jit(jax.value_and_grad(loss))(params)
     return float(lv), params_from_flax(jax.device_get(g), tcfg)
@@ -103,7 +113,11 @@ def _port_loss_and_grads(family, policy, backend):
                               attention_backend=backend)
     model = model_for_config(cfg, device="cpu")
     model.load_state_dict(params_from_flax(params, cfg))
-    loss = (model(torch.from_numpy(tokens)) * torch.from_numpy(r)).sum()
+    if isinstance(model, Mixtral):
+        logits, aux = model(torch.from_numpy(tokens), return_aux=True)
+        loss = (logits * torch.from_numpy(r)).sum() + aux
+    else:
+        loss = (model(torch.from_numpy(tokens)) * torch.from_numpy(r)).sum()
     loss.backward()
     return loss.item(), {n: p.grad for n, p in model.named_parameters()}
 
@@ -465,7 +479,6 @@ REFUSED_TRAIN_KNOBS = {
     "STRAGGLER_FACTOR": ("3.0", "13"),
     "LORA_RANK": ("8", "10"),
     "LORA_ALPHA": ("32", "10"),
-    "MOE_DISPATCH": ("sorted", "10"),
     "MESH_DATA": ("2", "12"),
     "MESH_FSDP": ("4", "12"),
     "MESH_EXPERT": ("2", "12"),
@@ -501,6 +514,32 @@ def test_unported_train_knobs_at_their_defaults_pass(monkeypatch, env):
     _workload_env(monkeypatch, **env)
     trainer, _ = train_llama.build_trainer()
     assert trainer.cfg.batch_size == 2
+
+
+@pytest.mark.parametrize("model, dispatch", [
+    ("mixtral_tiny", "einsum"), ("mixtral_tiny", "sorted"),
+    ("llama3_tiny", "sorted")])
+def test_moe_dispatch_knob_is_honoured(monkeypatch, capsys, model, dispatch):
+    """TPUFW_MOE_DISPATCH sets a Mixtral's dispatch, as tpufw's
+    build_trainer does, and a dense config ignores it; the workload trains
+    two finite steps on it."""
+    from tpufw.workloads import train_llama as j_train_llama
+    from tpufw_torch.workloads import train_llama
+
+    _workload_env(monkeypatch, MODEL=model, MOE_DISPATCH=dispatch,
+                  TOTAL_STEPS=2, WARMUP_STEPS=1, HANDLE_PREEMPTION=0)
+    trainer, cfg = train_llama.build_trainer()
+    _, jcfg = j_train_llama.build_trainer()
+    assert type(cfg).__name__ == type(jcfg).__name__
+    assert getattr(cfg, "moe_dispatch", None) == getattr(
+        jcfg, "moe_dispatch", None)
+    if model == "mixtral_tiny":
+        assert cfg.moe_dispatch == dispatch
+        assert isinstance(trainer.init_state(), Mixtral)
+        assert trainer.model.layers[0].moe.mode == dispatch
+    assert train_llama.main() == 0
+    steps = _steps(capsys.readouterr().out)
+    assert len(steps) == 2 and all(math.isfinite(s["loss"]) for s in steps)
 
 
 def _steps(out):

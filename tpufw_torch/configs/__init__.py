@@ -7,5 +7,7 @@ from tpufw_torch.configs.presets import (  # noqa: F401
     gemma2_9b_train_slice,
     llama3_8b_serve_slice,
     llama3_8b_train_slice,
+    mixtral_8x7b_serve_slice,
+    mixtral_8x7b_train_slice,
     resolve_model_preset,
 )

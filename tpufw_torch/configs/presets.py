@@ -11,7 +11,9 @@ Llama-3 architecture at d_model 1536, 14 layers, 12/6 heads of 128, vocab
 counterparts (head dim 256, soft caps, alternating 4096-token windows), and
 ``deepseek_mla_train_slice`` and ``deepseek_mla_serve_slice`` the
 ``deepseek_mla_bench`` ones (MLA: flash at qk head dim 192 in training, the
-absorbed latent cache in serving).
+absorbed latent cache in serving), and ``mixtral_8x7b_train_slice`` and
+``mixtral_8x7b_serve_slice`` Mixtral-8x7B's (8 experts of 14336, top 2,
+flash at head dim 128 in training).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from tpufw_torch.models.deepseek import DEEPSEEK_CONFIGS, DeepseekConfig
 from tpufw_torch.models.gemma import GEMMA_CONFIGS, GemmaConfig
 from tpufw_torch.models.llama import LLAMA_CONFIGS, LlamaConfig
+from tpufw_torch.models.mixtral import MIXTRAL_CONFIGS, MixtralConfig
 from tpufw_torch.train.trainer import TrainerConfig
 
 BENCH_CONFIG_NAME = "llama3_600m_bench"
@@ -31,7 +34,7 @@ BENCH_CONFIG_NAME = "llama3_600m_bench"
 
 def resolve_model_preset(name: str):
     """The model config a ``TPUFW_MODEL``-style name picks: the bench
-    model, a preset of the three families (``models.PRESETS``), or a serve
+    model, a preset of the four families (``models.PRESETS``), or a serve
     slice's config (``SERVE_SLICES``: bf16 weights, its cache length)."""
     from tpufw_torch.models import PRESETS
 
@@ -165,7 +168,44 @@ def deepseek_mla_serve_slice(
     return cfg, prompts, 128
 
 
+def mixtral_8x7b_train_slice(
+    n_layers: int = 2, total_steps: int = 5
+) -> tuple[MixtralConfig, TrainerConfig]:
+    """Mixtral-8x7B widths (d_model 4096, 32/8 heads of 128, 8 experts of
+    d_ff 14336, top 2, capacity factor 1.25, vocab 32000, flash attention,
+    remat) with depth cut to ``n_layers`` (32 layers of fp32 weights, grads
+    and AdamW moments are ~750 GB; 2 are 50.6 GB); B=2, seq 2048, chunked
+    CE at 512, warm-up 2 steps."""
+    cfg = dataclasses.replace(MIXTRAL_CONFIGS["mixtral_8x7b"],
+                              n_layers=n_layers)
+    tcfg = TrainerConfig(batch_size=2, seq_len=2048, total_steps=total_steps,
+                         warmup_steps=2, log_every=1, loss_chunk_size=512)
+    return cfg, tcfg
+
+
+def mixtral_8x7b_serve_slice(
+    seed: int = 0, n_layers: int = 16,
+) -> tuple[MixtralConfig, list[list[int]], int]:
+    """(decode config, prompts, max_new_tokens) of the Mixtral serve run:
+    full width at ``n_layers`` of 32 layers (all 32 in bf16 are 93.4 GB;
+    16 are 46.96 GB), bf16 weights drawn in bf16, a 2048-slot KV cache per
+    row, the Llama serve slice's 4 prompts of 7, 64, 200 and 511 ids
+    (numpy ``seed``), 32 greedy tokens each, and capacity factor 8.0 = E:
+    dropless, as ``tools.import_hf`` gives every imported Mixtral, so it is
+    what users serve."""
+    cfg = dataclasses.replace(
+        MIXTRAL_CONFIGS["mixtral_8x7b"], n_layers=n_layers,
+        param_dtype=torch.bfloat16, max_seq_len=2048, capacity_factor=8.0,
+    ).decode_config()
+    rng = np.random.default_rng(seed)
+    prompts = [
+        rng.integers(1, cfg.vocab_size, n).tolist() for n in SERVE_PROMPT_LENS
+    ]
+    return cfg, prompts, 32
+
+
 # Serve slices a ``TPUFW_MODEL`` name may pick, so an entry point (a
 # disaggregated replica) serves the weights the smoke test draws in
 # process.
-SERVE_SLICES = {"llama3_8b_serve_slice": llama3_8b_serve_slice}
+SERVE_SLICES = {"llama3_8b_serve_slice": llama3_8b_serve_slice,
+                "mixtral_8x7b_serve_slice": mixtral_8x7b_serve_slice}

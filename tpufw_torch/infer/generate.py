@@ -8,7 +8,7 @@ carry segment 0, so attention never sees them. Rows that reach ``eos_id``
 keep stepping with their outputs frozen to ``pad_id`` (masking, not
 control flow), so the loop never waits on the host.
 
-The model is a decode model (``Llama`` or ``Gemma`` of
+The model is a decode model (``Llama``, ``Mixtral`` or ``Gemma`` of
 ``cfg.decode_config()``); it holds its own weights, so no params argument
 is passed.
 
@@ -33,16 +33,18 @@ import torch
 
 from tpufw_torch.infer.sampling import SamplingConfig, sample_token, track_seen
 from tpufw_torch.models.llama import QuantProjection
+from tpufw_torch.models.mixtral import QuantExperts
 
 
 def cast_decode_params(model, dtype=torch.bfloat16):
     """Serving-precision cast, in place: every fp32 parameter of ``model``
     becomes ``dtype``, one tensor at a time, so the model never holds two
-    full copies. Int8 codes and the fp32 scales of ``QuantProjection``
-    stay as they are; RMSNorm weights are cast like the rest."""
+    full copies. Int8 codes and the fp32 scales of ``QuantProjection`` and
+    ``QuantExperts`` stay as they are; RMSNorm weights are cast like the
+    rest."""
     with torch.no_grad():
         for module in model.modules():
-            quant = isinstance(module, QuantProjection)
+            quant = isinstance(module, (QuantProjection, QuantExperts))
             for name, p in module.named_parameters(recurse=False):
                 if p.dtype == torch.float32 and not (quant and name == "scale"):
                     p.data = p.data.to(dtype)

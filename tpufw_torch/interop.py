@@ -1,5 +1,5 @@
 """Weight bridge: a Flax ``decoder_lm`` param tree -> a ``Llama``,
-``Gemma`` or ``Deepseek`` state dict.
+``Mixtral``, ``Gemma`` or ``Deepseek`` state dict.
 
 Layout facts of the JAX package it handles:
 
@@ -20,10 +20,16 @@ Layout facts of the JAX package it handles:
   ``kv_a_norm``, ``o`` [H, v, D] and the RAW ``kv_b_kernel`` [kvr, H,
   nope + v], a plain array that is copied as it is (not a
   ``DenseGeneral``, so not transposed);
+- Mixtral's block holds ``moe_norm`` and ``moe``: ``router`` (a
+  ``DenseGeneral`` [D, E]) and the RAW expert stacks ``w_gate``/``w_up``
+  [E, D, F] and ``w_down`` [E, F, D], which become the port's [E, out, in]
+  (each expert transposed);
 - a tree from ``tpufw.ops.quant.quantize_params`` holds, for each
   projection and the untied ``lm_head``, ``{"q_kernel" [in, *out] int8,
   "scale" [*out]}`` (plus the Qwen ``bias``); it becomes the port's int8
   [out, in] ``weight`` and [out] ``scale`` (``quantized_weights=True``).
+  An int8 expert stack is ``{"q_kernel" [E, in, out], "scale" [E, out]}``
+  and becomes ``weight`` [E, out, in] and ``scale`` [E, out].
 
 The input is a nested dict of numpy arrays (``jax.device_get`` of the
 params, or of a gradient tree of the same shape). Nothing here imports
@@ -60,8 +66,9 @@ def _kernel(kernel: np.ndarray, name: str) -> torch.Tensor:
     return _t(k.T)
 
 
-_NORMS = ("attn_norm", "mlp_norm", "pre_attn_norm", "post_attn_norm",
-          "pre_mlp_norm", "post_mlp_norm")
+_NORMS = ("attn_norm", "mlp_norm", "moe_norm", "pre_attn_norm",
+          "post_attn_norm", "pre_mlp_norm", "post_mlp_norm")
+_EXPERTS = ("w_gate", "w_up", "w_down")
 _ATTN_NORMS = ("q_a_norm", "kv_a_norm")  # MLA's latent norms
 
 
@@ -75,9 +82,11 @@ def _block(tree: dict, prefix: str, out: dict) -> None:
             out[f"{prefix}.attn.{norm}.weight"] = _t(attn[norm]["scale"])
     if "kv_b_kernel" in attn:
         out[f"{prefix}.attn.kv_b_kernel"] = _t(attn["kv_b_kernel"])
+    if "moe" in tree:
+        _moe(tree["moe"], f"{prefix}.moe", out)
     for mod, names in _PROJ.items():
         for name in names:
-            if name not in tree[mod]:
+            if name not in tree.get(mod, {}):
                 continue
             leaf = tree[mod][name]
             key = f"{prefix}.{mod}.{name}"
@@ -90,6 +99,19 @@ def _block(tree: dict, prefix: str, out: dict) -> None:
                 out[f"{key}.bias"] = _t(
                     np.asarray(leaf["bias"]).reshape(-1)
                 )
+
+
+def _moe(tree: dict, prefix: str, out: dict) -> None:
+    """Mixtral's router and expert stacks ([E, in, out] -> [E, out, in])."""
+    out[f"{prefix}.router.weight"] = _kernel(tree["router"]["kernel"], "router")
+    for name in _EXPERTS:
+        leaf = tree[name]
+        if isinstance(leaf, dict):
+            out[f"{prefix}.{name}.weight"] = _t(
+                np.swapaxes(np.asarray(leaf["q_kernel"]), -1, -2))
+            out[f"{prefix}.{name}.scale"] = _t(leaf["scale"])
+        else:
+            out[f"{prefix}.{name}"] = _t(np.swapaxes(np.asarray(leaf), -1, -2))
 
 
 def _blocks(tree: dict, cfg):
@@ -108,8 +130,8 @@ def _blocks(tree: dict, cfg):
 
 
 def params_from_flax(tree: dict, cfg) -> dict[str, torch.Tensor]:
-    """State dict for ``tpufw_torch.models.Llama(cfg)`` (or ``Gemma``, or
-    ``Deepseek``) from a Flax tree."""
+    """State dict for ``tpufw_torch.models.Llama(cfg)`` (or ``Mixtral``,
+    ``Gemma`` or ``Deepseek``) from a Flax tree."""
     out = {"embed": _t(tree["embed"]["embedding"])}
     for i, block in _blocks(tree, cfg):
         _block(block, f"layers.{i}", out)

@@ -1,5 +1,6 @@
 """Model families of the port: Llama-3 (with Mistral and Qwen-2 on the
-same trunk), Gemma-2 and DeepSeek-V2's dense MLA family."""
+same trunk), Mixtral (sparse MoE on the Llama trunk), Gemma-2 and
+DeepSeek-V2's dense MLA family."""
 
 from tpufw_torch.models.deepseek import (  # noqa: F401
     DEEPSEEK_CONFIGS,
@@ -20,16 +21,25 @@ from tpufw_torch.models.llama import (  # noqa: F401
     QuantProjection,
     RopeScaling,
 )
+from tpufw_torch.models.mixtral import (  # noqa: F401
+    MIXTRAL_CONFIGS,
+    Mixtral,
+    MixtralConfig,
+    MoEMLP,
+)
 
-# Every named preset of the three families.
-PRESETS = {**LLAMA_CONFIGS, **GEMMA_CONFIGS, **DEEPSEEK_CONFIGS}
+# Every named preset of the four families.
+PRESETS = {**LLAMA_CONFIGS, **MIXTRAL_CONFIGS, **GEMMA_CONFIGS,
+           **DEEPSEEK_CONFIGS}
 
 
 def model_for_config(cfg, device=None, seed: int = 0) -> Llama:
-    """The model class of ``cfg`` (``Gemma`` for a ``GemmaConfig``,
-    ``Deepseek`` for a ``DeepseekConfig``, else ``Llama``) with weights
-    drawn from ``seed`` on ``device``."""
-    if isinstance(cfg, GemmaConfig):
+    """The model class of ``cfg`` (``Mixtral`` for a ``MixtralConfig``,
+    ``Gemma`` for a ``GemmaConfig``, ``Deepseek`` for a ``DeepseekConfig``,
+    else ``Llama``) with weights drawn from ``seed`` on ``device``."""
+    if isinstance(cfg, MixtralConfig):
+        cls = Mixtral
+    elif isinstance(cfg, GemmaConfig):
         cls = Gemma
     elif isinstance(cfg, DeepseekConfig):
         cls = Deepseek

@@ -459,12 +459,13 @@ class DeepseekBlock(nn.Module):
     def attend(self, x, positions, segment_ids=None, cache=None):
         return self.attn(self.attn_norm(x), positions, segment_ids, cache)
 
-    def merge(self, x, a):
+    def merge(self, x, a, segment_ids=None):
         x = x + a
         return x + self.mlp(self.mlp_norm(x))
 
     def forward(self, x, positions, segment_ids=None, cache=None):
-        return self.merge(x, self.attend(x, positions, segment_ids, cache))
+        return self.merge(x, self.attend(x, positions, segment_ids, cache),
+                          segment_ids)
 
 
 class Deepseek(Llama):

@@ -134,13 +134,14 @@ class GemmaBlock(nn.Module):
         return self.attn(self.pre_attn_norm(x), positions, segment_ids,
                          cache)
 
-    def merge(self, x, a):
+    def merge(self, x, a, segment_ids=None):
         x = x + self.post_attn_norm(a)
         m = self.mlp(self.pre_mlp_norm(x))
         return x + self.post_mlp_norm(m)
 
     def forward(self, x, positions, segment_ids=None, cache=None):
-        return self.merge(x, self.attend(x, positions, segment_ids, cache))
+        return self.merge(x, self.attend(x, positions, segment_ids, cache),
+                          segment_ids)
 
 
 class Gemma(Llama):

@@ -625,8 +625,9 @@ class MLP(nn.Module):
 
 class LlamaBlock(nn.Module):
     """Pre-norm attention and MLP, each with a residual. Every family's
-    block splits as ``merge(x, attend(x, ...))``: ``attend``'s output is
-    the tensor ``tpufw`` tags "attn_out" for its remat policy."""
+    block splits as ``merge(x, attend(x, ...), segment_ids)``: ``attend``'s
+    output is the tensor ``tpufw`` tags "attn_out" for its remat policy
+    (``merge`` takes the segment ids for a MoE block's valid rows)."""
 
     def __init__(self, cfg: LlamaConfig, gen, device=None):
         super().__init__()
@@ -638,12 +639,13 @@ class LlamaBlock(nn.Module):
     def attend(self, x, positions, segment_ids=None, cache=None):
         return self.attn(self.attn_norm(x), positions, segment_ids, cache)
 
-    def merge(self, x, a):
+    def merge(self, x, a, segment_ids=None):
         x = x + a
         return x + self.mlp(self.mlp_norm(x))
 
     def forward(self, x, positions, segment_ids=None, cache=None):
-        return self.merge(x, self.attend(x, positions, segment_ids, cache))
+        return self.merge(x, self.attend(x, positions, segment_ids, cache),
+                          segment_ids)
 
 
 # Remat policies, as ``tpufw.models.llama._REMAT_POLICIES`` names them.
@@ -689,7 +691,7 @@ def remat_block(block, policy: str, x, positions, segment_ids):
     if policy == "attn_out":
         a = checkpoint(block.attend, x, positions, segment_ids,
                        use_reentrant=False)
-        return checkpoint(block.merge, x, a, use_reentrant=False)
+        return checkpoint(block.merge, x, a, segment_ids, use_reentrant=False)
     kw = {"context_fn": _dots_context} if policy == "dots" else {}
     return checkpoint(block, x, positions, segment_ids, use_reentrant=False,
                       **kw)
@@ -848,6 +850,13 @@ class Llama(nn.Module):
         self, tokens, positions=None, segment_ids=None, return_hidden=False,
         cache=None,
     ):
+        x, _ = self._trunk(tokens, positions, segment_ids, cache)
+        return x if return_hidden else self._head(x)
+
+    def _trunk(self, tokens, positions, segment_ids, cache):
+        """Embedding, the blocks and the final norm: (hidden [B, T, D],
+        aux), ``aux`` the sum over layers of what a block returns beside
+        its output (a MoE block's router loss), else None."""
         cfg = self.cfg
         if cache is not None and not cfg.decode:
             raise ValueError(
@@ -865,6 +874,7 @@ class Llama(nn.Module):
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         policy = getattr(cfg, "remat_policy", "dots")
+        aux = None
         for i, block in enumerate(self.layers):
             if cache is not None:
                 x = block(x, positions, segment_ids, cache[i])
@@ -872,9 +882,14 @@ class Llama(nn.Module):
                 x = remat_block(block, policy, x, positions, segment_ids)
             else:
                 x = block(x, positions, segment_ids)
-        x = self.final_norm(x)
-        if return_hidden:
-            return x
+            if isinstance(x, tuple):
+                x, a = x
+                aux = a if aux is None else aux + a
+        return self.final_norm(x), aux
+
+    def _head(self, x):
+        """Logits [B, T, vocab] of the final-norm hidden states."""
+        cfg = self.cfg
         if self.lm_head is None:
             # Flax Embed.attend: query and table in the compute dtype.
             return x.to(cfg.dtype) @ self.embed.to(cfg.dtype).t()

@@ -7,13 +7,14 @@ activation dtype: the int8 codes are cast, multiplied, and the scale is
 applied to the product (exact for per-output-channel scales).
 
 Scope, as in the JAX package: the attention q/k/v/o (MLA's q or q_a/q_b,
-kv_a and o) and MLP gate/up/down weights of every block and the untied LM
-head. Embeddings and norms stay in floating point, and so do the Qwen
-q/k/v biases and MLA's raw ``kv_b_kernel`` (small, and the absorbed decode
-contracts its halves separately).
+kv_a and o) and MLP gate/up/down weights of every block, Mixtral's expert
+stacks and the untied LM head. Embeddings and norms stay in floating
+point, and so do the Qwen q/k/v biases, Mixtral's router and MLA's raw
+``kv_b_kernel`` (small, and the absorbed decode contracts its halves
+separately).
 
 Layout is PyTorch's: a weight is [out, in], so its scale is [out] and is
-reduced over dim 1. The rounding rule is ``jnp.round``'s, half to even,
+reduced over dim 1; an expert stack is [E, out, in], its scale [E, out]. The rounding rule is ``jnp.round``'s, half to even,
 which ``torch.round`` shares, so the codes equal the JAX package's.
 """
 
@@ -28,6 +29,8 @@ _PROJ_KEY = re.compile(
     r"^layers\.\d+\.(attn\.(q|k|v|o|q_a|q_b|kv_a)|mlp\.(gate|up|down))"
     r"\.weight$"
 )
+#: State-dict keys of the expert stacks (Mixtral's raw [E, out, in]).
+_EXPERT_KEY = re.compile(r"^layers\.\d+\.moe\.(w_gate|w_up|w_down)$")
 
 
 def quantize_kernel(w: torch.Tensor, in_axes: tuple) -> dict:
@@ -44,28 +47,44 @@ def quantize_kernel(w: torch.Tensor, in_axes: tuple) -> dict:
     return {"q_kernel": q.to(torch.int8), "scale": scale}
 
 
+def quantize_entry(key: str, val: torch.Tensor):
+    """The int8 twin's entries for state-dict entry ``key``: {``<p>.weight``
+    codes, ``<p>.scale``} for a projection weight (``<p>`` its module), an
+    expert stack (``<p>`` the stack's name) or the untied ``lm_head``;
+    None for a tensor that stays as it is."""
+    if _PROJ_KEY.match(key):
+        prefix = key[: -len(".weight")]
+    elif _EXPERT_KEY.match(key) or key == "lm_head":
+        prefix = key
+    else:
+        return None
+    q = quantize_kernel(val, (val.ndim - 1,))
+    return {f"{prefix}.weight": q["q_kernel"], f"{prefix}.scale": q["scale"]}
+
+
 def quantize_params(state_dict: dict) -> dict:
-    """A ``Llama`` (``Gemma``, ``Deepseek``) state dict -> the state dict of
-    its int8 twin (``quantized_weights=True``): each projection's
-    ``weight`` becomes int8 codes [out, in] with a ``scale`` [out] beside
-    it, and the untied ``lm_head`` becomes ``lm_head.weight`` /
-    ``lm_head.scale``. Other tensors are passed through, not copied."""
+    """A ``Llama`` (``Mixtral``, ``Gemma``, ``Deepseek``) state dict -> the
+    state dict of its int8 twin (``quantized_weights=True``): each
+    projection's ``weight`` becomes int8 codes [out, in] with a ``scale``
+    [out] beside it, each expert stack ``w`` becomes ``w.weight`` [E, out,
+    in] and ``w.scale`` [E, out], and the untied ``lm_head`` becomes
+    ``lm_head.weight`` / ``lm_head.scale``. Other tensors are passed
+    through, not copied."""
     out = {}
     hit = 0
     for key, val in state_dict.items():
-        if _PROJ_KEY.match(key) or key == "lm_head":
-            prefix = key[: -len(".weight")] if key != "lm_head" else key
-            q = quantize_kernel(val, (1,))
-            out[f"{prefix}.weight"] = q["q_kernel"]
-            out[f"{prefix}.scale"] = q["scale"]
-            hit += 1
-        else:
+        q = quantize_entry(key, val)
+        if q is None:
             out[key] = val
+        else:
+            out.update(q)
+            hit += 1
     if not hit:
         raise ValueError(
             "quantize_params: no projection weights found (expected "
             "layers.N.attn.{q,k,v,o,q_a,q_b,kv_a}.weight, "
-            "layers.N.mlp.{gate,up,down}.weight or lm_head)"
+            "layers.N.mlp.{gate,up,down}.weight, "
+            "layers.N.moe.{w_gate,w_up,w_down} or lm_head)"
         )
     return out
 

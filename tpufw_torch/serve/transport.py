@@ -147,8 +147,10 @@ def serve_frames(port: int = 0, host: str = "0.0.0.0"):
 
 
 def accept_loop(srv: socket.socket, handler) -> None:
-    """Serve until the listening socket is closed. One thread per
-    connection keeps a slow decode from blocking the next prefill."""
+    """Serve until the listening socket is shut down
+    (``srv.shutdown(socket.SHUT_RDWR)``: on Linux a close alone does not
+    wake a thread blocked in accept). One thread per connection keeps a
+    slow decode from blocking the next prefill."""
     import threading
 
     def _conn(conn: socket.socket) -> None:

@@ -1,13 +1,17 @@
 """HuggingFace checkpoints in and out of the port (port of
-``tpufw.tools.import_hf``) for its three families: Llama (with Mistral's
+``tpufw.tools.import_hf``) for its four families: Llama (with Mistral's
 window, Qwen-2's q/k/v biases and ``llama3``/``linear`` rope scaling),
-Gemma-2 and DeepSeek-V2 with the dense FFN (MLA with and without
+Mixtral, Gemma-2 and DeepSeek-V2 with the dense FFN (MLA with and without
 ``q_lora_rank``, yarn rope).
 
 HF ``nn.Linear`` weights and the port's are both [out, in], so the mapping
 is a renaming; the one reshape is DeepSeek's ``kv_b_proj`` [H·(nope+v),
 kv_lora_rank], which the port keeps raw as ``kv_b_kernel`` [kv_lora_rank,
-H, nope+v] (``tpufw_torch.interop``). Gemma's norms are offsets from 1 on
+H, nope+v] (``tpufw_torch.interop``). A Mixtral expert stack [E, out, in]
+is E HF experts (``block_sparse_moe.experts.e.w1``/``w3``/``w2`` for the
+gate, up and down stacks), copied one by one into their slices; the
+router is ``block_sparse_moe.gate``. An imported Mixtral routes dropless
+(capacity factor = E), as HF's dense top-k gather does. Gemma's norms are offsets from 1 on
 both sides. The target shape and dtype of every tensor come from the model
 built on the meta device, so norms stay fp32 as the port keeps them.
 
@@ -23,9 +27,9 @@ state dict as safetensors plus its config), which ``TPUFW_INIT_FROM`` and
 ``TPUFW_PARAMS_CHECKPOINT`` read; the second writes an HF directory from
 bare params or a training checkpoint of the preset MODEL.
 
-Refused, as loudly as ``tpufw`` refuses what it lacks: Mixtral and the
-DeepSeek MoE FFN (ROADMAP.md Queue 1 item 10), LoRA trees (item 10), and
-rope ``dynamic``/``longrope``, which neither package implements.
+Refused, as loudly as ``tpufw`` refuses what it lacks: the DeepSeek MoE
+FFN (ROADMAP.md Queue 1 item 10), LoRA trees (item 10), and rope
+``dynamic``/``longrope``, which neither package implements.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from tpufw_torch.models import (
     DeepseekConfig,
     GemmaConfig,
     LlamaConfig,
+    MixtralConfig,
     RopeScaling,
     model_for_config,
 )
@@ -86,20 +91,19 @@ def _rope_scaling_from_hf(rs: Any) -> Optional[RopeScaling]:
 
 def config_from_hf(hf_config: Any):
     """The port's config of a transformers config (object or dict):
-    ``LlamaConfig`` for llama/mistral/qwen2, ``GemmaConfig`` for gemma2,
-    ``DeepseekConfig`` for deepseek_v2 with a dense FFN."""
+    ``LlamaConfig`` for llama/mistral/qwen2, ``MixtralConfig`` for mixtral
+    (dropless: capacity factor = the expert count), ``GemmaConfig`` for
+    gemma2, ``DeepseekConfig`` for deepseek_v2 with a dense FFN."""
     get = _getter(hf_config)
     mtype = get("model_type")
-    if mtype == "mixtral":
-        raise NotImplementedError(
-            "Mixtral import: the MoE FFN (ops/moe.py, models/mixtral.py) is "
-            "not ported to tpufw_torch yet (ROADMAP.md Queue 1 item 10)")
     if mtype == "gemma2":
         return _gemma_config_from_hf(get)
     if mtype == "deepseek_v2":
         return _deepseek_config_from_hf(get)
     is_qwen2 = mtype == "qwen2"
-    is_mistral = mtype == "mistral"
+    # Mistral and Mixtral: one window on every layer (None when the
+    # checkpoint disables it, as Mistral v0.2+ and Mixtral do).
+    is_mistral = mtype in ("mistral", "mixtral")
     if is_qwen2 and get("use_sliding_window"):
         raise NotImplementedError(
             "Qwen2 import: use_sliding_window=True (layer-windowed "
@@ -117,7 +121,15 @@ def config_from_hf(hf_config: Any):
             f"{bad}; importing would silently change the model's math")
     d_model = get("hidden_size")
     n_heads = get("num_attention_heads")
-    return LlamaConfig(
+    moe = {}
+    cls = LlamaConfig
+    if mtype == "mixtral":
+        cls = MixtralConfig
+        moe = dict(n_experts=get("num_local_experts"),
+                   experts_per_token=get("num_experts_per_tok"),
+                   capacity_factor=float(get("num_local_experts")))
+    return cls(
+        **moe,
         rope_scaling=_rope_scaling_from_hf(get("rope_scaling")),
         vocab_size=get("vocab_size"),
         d_model=d_model,
@@ -234,6 +246,7 @@ _PROJ = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "o_proj",
          "q_a": "q_a_proj", "q_b": "q_b_proj", "kv_a": "kv_a_proj_with_mqa"}
 _NORMS = {"attn_norm": "input_layernorm",
           "mlp_norm": "post_attention_layernorm",
+          "moe_norm": "post_attention_layernorm",
           "pre_attn_norm": "input_layernorm",
           "post_attn_norm": "post_attention_layernorm",
           "pre_mlp_norm": "pre_feedforward_layernorm",
@@ -241,6 +254,9 @@ _NORMS = {"attn_norm": "input_layernorm",
 _TOP = {"embed": "embed_tokens.weight", "final_norm.weight": "norm.weight",
         "lm_head": "lm_head.weight"}
 _LAYER = re.compile(r"^layers\.(\d+)\.(.+)$")
+# Mixtral expert stack -> the HF name of each expert's weight.
+_EXPERTS = {"w_gate": "w1", "w_up": "w3", "w_down": "w2"}
+_EXPERT_KEY = re.compile(r"^layers\.(\d+)\.moe\.(w_gate|w_up|w_down)$")
 
 
 def hf_key(port_key: str) -> str:
@@ -263,7 +279,20 @@ def hf_key(port_key: str) -> str:
             return f"layers.{i}.self_attn.kv_b_proj.weight"
     if parts[0] == "mlp" and parts[2:] == ["weight"]:
         return f"layers.{i}.mlp.{parts[1]}_proj.weight"
+    if parts == ["moe", "router", "weight"]:
+        return f"layers.{i}.block_sparse_moe.gate.weight"
     raise KeyError(f"no HF name for {port_key!r}")
+
+
+def expert_keys(port_key: str, n_experts: int) -> Optional[list[str]]:
+    """The HF names (no ``model.`` prefix) of the experts of a Mixtral
+    expert-stack key, in stack order; None for any other key."""
+    m = _EXPERT_KEY.match(port_key)
+    if m is None:
+        return None
+    i, name = m.groups()
+    return [f"layers.{i}.block_sparse_moe.experts.{e}.{_EXPERTS[name]}.weight"
+            for e in range(n_experts)]
 
 
 def _is_kv_b(port_key: str) -> bool:
@@ -296,9 +325,8 @@ def from_hf(source: Any, cfg, dtype: Optional[torch.dtype] = None,
     is cast there."""
     src = _source_tensors(source)
     dev = torch.device("cpu" if device is None else device)
-    out = {}
-    for key, want in _meta_state(cfg, dtype).items():
-        name = hf_key(key)
+
+    def fetch(name, key):
         if name not in src:
             raise KeyError(
                 f"HF checkpoint is missing {name!r} (for {key!r}; have "
@@ -308,7 +336,25 @@ def from_hf(source: Any, cfg, dtype: Optional[torch.dtype] = None,
         t = t() if callable(t) else t
         if isinstance(t, np.ndarray):
             t = torch.from_numpy(t)
-        t = t.detach().to(dev)
+        return t.detach()
+
+    out = {}
+    for key, want in _meta_state(cfg, dtype).items():
+        experts = expert_keys(key, getattr(cfg, "n_experts", 0))
+        if experts is not None:
+            # One expert at a time into its slice of the stack.
+            stack = torch.empty(want.shape, dtype=want.dtype, device=dev)
+            for e, name in enumerate(experts):
+                t = fetch(name, key)
+                if tuple(t.shape) != tuple(want.shape[1:]):
+                    raise ValueError(
+                        f"{name}: shape {tuple(t.shape)}, the config wants "
+                        f"{tuple(want.shape[1:])} for {key}[{e}]")
+                stack[e].copy_(t)
+            out[key] = stack
+            continue
+        name = hf_key(key)
+        t = fetch(name, key).to(dev)
         if _is_kv_b(key):
             t = t.t().reshape(want.shape)
         if tuple(t.shape) != tuple(want.shape):
@@ -347,6 +393,11 @@ def to_hf(state_dict: Mapping[str, torch.Tensor], cfg
     out = {}
     for key in want:
         t = state_dict[key].detach()
+        experts = expert_keys(key, getattr(cfg, "n_experts", 0))
+        if experts is not None:
+            out.update({"model." + name: t[e]
+                        for e, name in enumerate(experts)})
+            continue
         if _is_kv_b(key):
             t = t.reshape(t.shape[0], -1).t()
         name = hf_key(key)
@@ -433,6 +484,17 @@ def hf_config_dict(cfg, torch_dtype: str = "float32") -> dict:
              "high_freq_factor": rs.high_freq_factor,
              "original_max_position_embeddings":
                  rs.original_max_position_embeddings})
+    if isinstance(cfg, MixtralConfig):
+        if cfg.attention_qkv_bias:
+            raise NotImplementedError(
+                "export of a Mixtral config with attention_qkv_bias: no HF "
+                "architecture has MoE with q/k/v biases")
+        out.update(model_type="mixtral", architectures=["MixtralForCausalLM"],
+                   num_local_experts=cfg.n_experts,
+                   num_experts_per_tok=cfg.experts_per_token,
+                   sliding_window=cfg.sliding_window)
+        out.pop("mlp_bias")
+        return out
     if isinstance(cfg, GemmaConfig):
         out.update(
             model_type="gemma2",

@@ -284,12 +284,17 @@ def config_to_dict(cfg) -> dict:
 
 def config_from_dict(d: dict):
     """Inverse of ``config_to_dict``."""
-    from tpufw_torch.models import DeepseekConfig, GemmaConfig, LlamaConfig
+    from tpufw_torch.models import (
+        DeepseekConfig,
+        GemmaConfig,
+        LlamaConfig,
+        MixtralConfig,
+    )
     from tpufw_torch.models.deepseek import YarnScaling
     from tpufw_torch.models.llama import RopeScaling
 
-    classes = {c.__name__: c for c in (LlamaConfig, GemmaConfig,
-                                       DeepseekConfig)}
+    classes = {c.__name__: c for c in (LlamaConfig, MixtralConfig,
+                                       GemmaConfig, DeepseekConfig)}
     cls = classes[d["class"]]
     fields = dict(d["fields"])
     for k, v in fields.items():

@@ -30,6 +30,7 @@ import torch
 
 from tpufw_torch.models import model_for_config
 from tpufw_torch.models.llama import Llama, LlamaConfig
+from tpufw_torch.models.mixtral import Mixtral
 from tpufw_torch.ops.loss import chunked_cross_entropy, token_cross_entropy
 from tpufw_torch.train.checkpoint import (
     CheckpointManager,
@@ -85,17 +86,28 @@ def batch_loss(
     """LM objective for one batch of device tensors: (loss, n_targets).
     ``loss_chunk_size`` switches to the chunked-vocab CE, which never
     materializes [B, T, V] logits; the model then skips its head, and the
-    config's ``final_logit_soft_cap`` (Gemma) is applied per chunk."""
+    config's ``final_logit_soft_cap`` (Gemma) is applied per chunk. A MoE
+    model's router loss (``Mixtral``'s ``return_aux``) joins the objective
+    on both paths, as in ``tpufw``."""
     inputs, targets, seg_in, mask = shift_and_mask(batch)
+    kwargs = {"segment_ids": seg_in}
+    moe = isinstance(model, Mixtral)
+    if moe:
+        kwargs["return_aux"] = True
     if loss_chunk_size:
-        hidden = model(inputs, segment_ids=seg_in, return_hidden=True)
-        return chunked_cross_entropy(
+        out = model(inputs, return_hidden=True, **kwargs)
+        hidden, aux = out if moe else (out, 0.0)
+        loss, n = chunked_cross_entropy(
             hidden, model.head_kernel(), targets, mask,
             chunk_size=loss_chunk_size,
             compute_dtype=getattr(torch, loss_chunk_dtype),
             logits_soft_cap=getattr(model.cfg, "final_logit_soft_cap", None),
         )
-    return cross_entropy_loss(model(inputs, segment_ids=seg_in), targets, mask)
+    else:
+        out = model(inputs, **kwargs)
+        logits, aux = out if moe else (out, 0.0)
+        loss, n = cross_entropy_loss(logits, targets, mask)
+    return loss + aux, n
 
 
 def warmup_cosine_decay(
@@ -394,8 +406,8 @@ class Trainer:
     def init_state(self, seed: int = 0, state_dict=None) -> Llama:
         """Random weights from ``seed``, or ``state_dict`` when given
         (e.g. ``tpufw_torch.interop.params_from_flax``); fresh optimizer
-        state at step 0. A ``GemmaConfig`` builds a ``Gemma``, a
-        ``DeepseekConfig`` a ``Deepseek``."""
+        state at step 0. A ``MixtralConfig`` builds a ``Mixtral``, a
+        ``GemmaConfig`` a ``Gemma``, a ``DeepseekConfig`` a ``Deepseek``."""
         self.model = model_for_config(
             self.model_cfg, device=self.device, seed=seed
         )

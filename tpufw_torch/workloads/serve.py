@@ -17,9 +17,10 @@
   requests into one batched generate call per tick.
 
 Knobs, as in the JAX workload: ``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``,
-``GEMMA_CONFIGS`` or ``DEEPSEEK_CONFIGS`` preset, e.g. ``gemma2_9b`` or
-``deepseek_mla_bench``, or ``llama3_600m_bench``, the default; a DeepSeek
-model serves in batch mode only), ``TPUFW_MAX_SEQ_LEN``,
+``MIXTRAL_CONFIGS``, ``GEMMA_CONFIGS`` or ``DEEPSEEK_CONFIGS`` preset, e.g.
+``mixtral_8x7b``, ``gemma2_9b`` or ``deepseek_mla_bench``, a serve slice
+such as ``mixtral_8x7b_serve_slice``, or ``llama3_600m_bench``, the
+default; a DeepSeek model serves in batch mode only), ``TPUFW_MAX_SEQ_LEN``,
 ``TPUFW_SEED``, ``TPUFW_MAX_NEW_TOKENS`` (16), ``TPUFW_QUANTIZE=int8``,
 ``TPUFW_DECODE_DTYPE`` (e.g. ``bfloat16``), ``TPUFW_PREFILL_CHUNK``,
 ``TPUFW_EOS_ID``, the sampling knobs ``TPUFW_TEMPERATURE``,
@@ -152,27 +153,46 @@ def build_generator():
     return model, model_cfg, bool(params_dir or ckpt_dir)
 
 
-def quantize_model(model):
+def quantize_model(model, release: bool = False):
     """The int8 twin of ``model`` (``quantized_weights=True``, the same
-    family) on the same device, its weights from
-    ``ops.quant.quantize_params``."""
-    from tpufw_torch.ops.quant import quantize_params
+    family) on the same device, its weights from ``ops.quant``'s
+    ``quantize_entry``, tensor by tensor. The twin is built on the meta
+    device and takes the new tensors as they are, so the two models never
+    hold a second full copy: the tensors that stay floating point are
+    copied (shared with ``release``), and with ``release`` each quantized
+    weight of ``model`` is freed once its codes exist, leaving ``model``
+    unusable. Peak memory is then the model's plus one weight's codes."""
+    from tpufw_torch.ops.quant import quantize_entry
 
     qcfg = dataclasses.replace(model.cfg, quantized_weights=True)
-    state = quantize_params(model.state_dict())
-    qmodel = type(model)(qcfg, device=model.device)
-    qmodel.load_state_dict(state)
+    qmodel = type(model)(qcfg, device="meta")
+    want = qmodel.state_dict()
+    src = model.state_dict()
+    state = {}
+    for key in list(src):
+        val = src.pop(key)
+        q = quantize_entry(key, val)
+        if q is None:
+            state[key] = val.to(want[key].dtype, copy=not release)
+            continue
+        state.update({k: v.to(want[k].dtype) for k, v in q.items()})
+        if release:
+            param = model.get_parameter(key)
+            param.data = param.data.new_empty(0)
+        del val
+    qmodel.load_state_dict(state, assign=True)
     return qmodel
 
 
 def _maybe_quantize(model_cfg, model):
-    """TPUFW_QUANTIZE=int8: swap the model for its int8 twin."""
+    """TPUFW_QUANTIZE=int8: swap the model for its int8 twin (the
+    floating-point weights freed as their codes are made)."""
     mode = env_str("quantize", "")
     if not mode:
         return model_cfg, model
     if mode != "int8":
         raise ValueError(f"TPUFW_QUANTIZE={mode!r}: only 'int8' is implemented")
-    qmodel = quantize_model(model)
+    qmodel = quantize_model(model, release=True)
     return dataclasses.replace(model_cfg, quantized_weights=True), qmodel
 
 

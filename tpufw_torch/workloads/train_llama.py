@@ -1,11 +1,13 @@
 """LM training workload on one GPU: ``python -m tpufw_torch.workloads.train_llama``.
 
 Knobs (the JAX workload's names where the meaning is the same):
-``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``, ``GEMMA_CONFIGS`` or
-``DEEPSEEK_CONFIGS`` preset, e.g. ``gemma2_9b`` or ``deepseek_mla_bench``, or
-``llama3_600m_bench``, the default), ``TPUFW_BATCH_SIZE``, ``TPUFW_SEQ_LEN`` (default: the model's
+``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``, ``MIXTRAL_CONFIGS``, ``GEMMA_CONFIGS``
+or ``DEEPSEEK_CONFIGS`` preset, e.g. ``mixtral_8x7b``, ``gemma2_9b`` or
+``deepseek_mla_bench``, or ``llama3_600m_bench``, the default),
+``TPUFW_BATCH_SIZE``, ``TPUFW_SEQ_LEN`` (default: the model's
 ``max_seq_len``), ``TPUFW_TOTAL_STEPS``, ``TPUFW_ATTENTION`` (backend
-override), ``TPUFW_LR``, ``TPUFW_WARMUP_STEPS``, ``TPUFW_LOSS_CHUNK_SIZE``
+override), ``TPUFW_MOE_DISPATCH`` (``einsum`` or ``sorted``; ignored by a
+config without a MoE dispatch), ``TPUFW_LR``, ``TPUFW_WARMUP_STEPS``, ``TPUFW_LOSS_CHUNK_SIZE``
 (0 = full logits), ``TPUFW_LOSS_CHUNK_DTYPE``, ``TPUFW_GRAD_ACCUM``,
 ``TPUFW_ADAM_MU_DTYPE`` (e.g. ``bfloat16``), ``TPUFW_SYNC_EVERY`` (steps
 per host sync), ``TPUFW_EVAL_EVERY`` (0 = off) and ``TPUFW_EVAL_BATCHES``
@@ -32,7 +34,7 @@ Not ported yet, and refused with ``NotImplementedError`` when set to
 anything but their defaults: the SFT, DPO and distillation objectives
 (``TPUFW_SFT_DATA``, ``TPUFW_DPO_DATA``, ``TPUFW_DISTILL_TEACHER``;
 ROADMAP.md Queue 1 item 11); LoRA (``TPUFW_LORA_RANK``,
-``TPUFW_LORA_ALPHA``) and ``TPUFW_MOE_DISPATCH`` (item 10); a mesh
+``TPUFW_LORA_ALPHA``; item 10); a mesh
 (``TPUFW_MESH_*`` above 1; item 12); ``TPUFW_CONFIG``,
 ``TPUFW_PROFILE_DIR``, ``TPUFW_AUTOTUNE``, ``TPUFW_TELEMETRY_DIR``,
 ``TPUFW_METRICS_PORT`` and ``TPUFW_STRAGGLER_FACTOR`` (item 13).
@@ -70,7 +72,6 @@ _UNPORTED_KNOBS = (
     ("straggler_factor", "straggler detection", "13", "2.0"),
     ("lora_rank", "LoRA fine-tuning", "10", "0"),
     ("lora_alpha", "LoRA fine-tuning", "10", "16.0"),
-    ("moe_dispatch", "the MoE dispatch", "10", ""),
 )
 _MESH_AXES = ("data", "fsdp", "expert", "sequence", "tensor", "dcn_data")
 
@@ -103,6 +104,13 @@ def build_trainer():
     backend = env_str("attention", "")
     if backend:
         model_cfg = dataclasses.replace(model_cfg, attention_backend=backend)
+    # TPUFW_MOE_DISPATCH: "einsum" or "sorted" for a MoE config, ignored
+    # by the rest. tpufw refuses "sorted" under an expert-sharded mesh;
+    # a mesh above 1 is refused here altogether (item 12), so there is
+    # nothing of that to check yet.
+    moe_dispatch = env_str("moe_dispatch", "")
+    if moe_dispatch and hasattr(model_cfg, "moe_dispatch"):
+        model_cfg = dataclasses.replace(model_cfg, moe_dispatch=moe_dispatch)
     base = TrainerConfig()
     trainer_cfg = TrainerConfig(
         batch_size=env_int("batch_size", 8),
