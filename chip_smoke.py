@@ -83,9 +83,10 @@ Phases, each fatal on failure:
    a 256-slot latent cache) through the absorbed latent-cache decode, the
    cached logits against an uncached expanded forward; an
    ``mla_serve_summary`` line per dtype;
-6. serves the same Llama-3-8B weights (bf16, all 32 layers, a 2048-slot
-   ceiling) online through the HTTP server (``_Server``: slot scheduler,
-   8 slots, greedy) on a localhost port, in three modes: contiguous KV,
+6. serves Llama-3-8B's widths (bf16, drawn from seed 0, at ONLINE_LAYERS
+   = 16 of its 32 layers, a 2048-slot ceiling) online through the HTTP
+   server (``_Server``: slot scheduler, 8 slots, greedy) on a localhost
+   port, in three modes: contiguous KV,
    paged KV (page 64) and paged int8 KV. Each gets 16 concurrent SSE
    requests (prompts of 7, 64, 200 and 511 ids, four of each, 64 tokens
    each); the paged modes also 4 requests sharing a 448-token prefix, and
@@ -199,10 +200,11 @@ Phases, each fatal on failure:
    and the two runs' step-1 losses and gradient norms within
    MIXTRAL_LOSS_TOL and MIXTRAL_GNORM_TOL (the gap printed); a
    ``mixtral_train_summary`` per mode. 9b: ``mixtral_8x7b_serve_slice``
-   (16 of 32 layers, bf16 weights drawn in bf16, dropless capacity 8.0)
-   through phase 5's checks in bf16 and then int8 (``quantize_model``
-   freeing each bf16 weight as its codes are made), with the number of
-   tokens whose router top-2 sets differ between the runs each check
+   at MIXTRAL_SERVE_LAYERS = 8 of 32 layers (bf16 weights drawn in bf16,
+   dropless capacity 8.0) through phase 5's checks in bf16 and then int8
+   (``quantize_model`` freeing each bf16 weight as its codes are made),
+   with the number of
+   tokens whose router top-k sets differ between the runs each check
    compares; a ``mixtral_serve_summary`` per dtype. 9c, between the two:
    the bf16 model behind ``_Server`` (8 slots, paged KV of page 64,
    greedy) with phase 6's 16 concurrent SSE requests and the 4 sharing
@@ -214,12 +216,36 @@ Phases, each fatal on failure:
    through 7d's HF round trip, bit-equal, in a gitignored directory of
    the checkout that is deleted after.
 
+10. DeepSeek-V2-Lite (MLA with a 576-value latent cache; 64 routed
+    experts of 1408, top 6, 2 shared, layer 0 dense; yarn rope), with
+    phase 9's models freed. 10a: ``deepseek_v2_lite_train_slice`` (3 of
+    27 layers, 1.67 B parameters, B=2, seq 2048, chunked CE, capacity
+    factor 1.25, flash at qk head dim 192) for 5 steps under each
+    dispatch, as 9a: finite losses, every head-dim-192 kernel launched in
+    both runs, the flash vs plain logits on 256 tokens, the step-1 gaps; a
+    ``v2lite_train_summary`` per mode. 10b: ``deepseek_v2_lite_serve_slice``
+    (all 27 layers, bf16 weights drawn in bf16, dropless, a 4096-slot
+    ceiling) through phase 5's checks in bf16 and then int8, the absorbed
+    latent decode against the expanded forward; a ``v2lite_serve_summary``
+    per dtype. Between the two, on the bf16 model: 10c, the server with 8
+    slots in contiguous, paged (page 64) and paged int8 latent KV modes,
+    phase 6's 16 SSE requests and the 4 sharing the 448-token prefix, 64
+    tokens each, with 9c's checks per mode, the contiguous vs paged step
+    logits and ``spec_pool_check``; a ``v2lite_online_summary`` per mode;
+    and 10d, 8a's migration at pages of 64 (bf16 and int8 latent pages),
+    bit-equal to the never-migrated run; a ``v2lite_migrate_summary`` per
+    KV dtype. 10e: 3 layers of the serve slice (3.34 GB) through 7d's HF
+    round trip, bit-equal. Every logits check replays the other side's
+    routing and prints the top-6 flips (MOE_CHECKS).
+
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
 7b's first run, and ``launches_mixtral_train``, phase 9a's runs per
-dispatch mode), the ``nvidia-smi`` line and, last, ``{"ok": true,
-"device": {...}}``. Without a CUDA device, or outside a checkout of the
-repo, it prints no result and exits nonzero.
+dispatch mode, and the head-dim-192 ones ``launches_v2lite_train``,
+phase 10a's), a ``phase_seconds`` line (each phase's wall seconds,
+phase 10's parts and the total), the ``nvidia-smi`` line and, last,
+``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
+checkout of the repo, it prints no result and exits nonzero.
 """
 
 from __future__ import annotations
@@ -296,6 +322,10 @@ ONLINE_PREFIX = 448
 ONLINE_PAGE = 64
 ONLINE_SLOTS = 8
 ONLINE_CACHE = 1024
+# Phase 6 serves Llama-3-8B's widths at ONLINE_LAYERS of its 32 layers:
+# its decode is host-bound, a cost per layer, and at 32 layers its nine
+# modes took 221 s of the script's 1200 (H100 80GB HBM3 at 700 W).
+ONLINE_LAYERS = 16
 # The modes this slice added: chunked paged prefill in chunks of
 # ONLINE_CHUNK_PAGES pages (256 tokens), with the head-of-line pair, a
 # HOL_LONG-token prompt with ONLINE_NEW tokens and, HOL_GAP_S later, a
@@ -360,6 +390,9 @@ DISAGG_FREE_GB = 40
 # MIXTRAL_HF_LAYERS layers (6.3 GB of bf16) and needs MIXTRAL_HF_DISK_GB
 # free.
 MIXTRAL_TRAIN_LAYERS = 2
+# 9b and 9c serve MIXTRAL_SERVE_LAYERS of the serve slice's 16 layers, cut
+# for the script's time limit when phase 10 came.
+MIXTRAL_SERVE_LAYERS = 8
 # MOE_CHECKS. A MoE layer's routing is discrete: a token whose router
 # logits nearly tie flips experts under a rounding-size change of its
 # input, and its output, and through attention those of the tokens after
@@ -369,13 +402,16 @@ MIXTRAL_TRAIN_LAYERS = 2
 # other side's router logits replayed (``router_tap``), which pins the
 # experts and gates and holds everything else to the dense models'
 # tolerance; the free-routing error and the number of token-layers whose
-# top-2 sets differ are printed beside it, and that share must stay
+# top-k sets differ are printed beside it, and that share must stay
 # within MOE_FLIP_TOL of the token-layers compared. A router whose logits
 # told nothing of its input would keep 1 of the C(8, 2) = 28 top-2 sets,
-# flipping ~96%; a flip also cascades, through attention, into the router
-# inputs of the tokens after it. Measured on the card (H100 80GB HBM3 at
-# 700 W): 2.3-2.5% (cached vs uncached, bf16 and int8 weights) and 7.9%
-# (int8 vs bf16 weights, fp32 compute), at 16 layers.
+# flipping ~96% (DeepSeek-V2-Lite's top 6 of 64: ~100%); a flip also
+# cascades, through attention, into the router inputs of the tokens after
+# it. The sets compared are each model's top-k. Measured on the card (H100
+# 80GB HBM3 at 700 W): Mixtral at 16 layers 2.3-2.5% (cached vs uncached,
+# bf16 and int8 weights) and 7.9% (int8 vs bf16 weights, fp32 compute);
+# V2-Lite at 27 layers 12.0% and 18.3%, its 6th and 7th experts' gates
+# lying closer than Mixtral's 2nd and 3rd.
 MOE_FLIP_TOL = 0.25
 MIXTRAL_LOSS_TOL = 2.0 ** -8
 MIXTRAL_GNORM_TOL = 2.0 ** -6
@@ -430,7 +466,23 @@ D192_CASES = {
 FAMILIES = {"llama3_8b": ("llama3_8b", ""),
             "gemma2_9b": ("gemma2_9b", "gemma_"),
             "deepseek_mla": ("deepseek_mla_bench", "mla_"),
-            "mixtral_8x7b": ("mixtral_8x7b", "mixtral_")}
+            "mixtral_8x7b": ("mixtral_8x7b", "mixtral_"),
+            "deepseek_v2_lite": ("deepseek_v2_lite", "v2lite_")}
+# Phase 10, DeepSeek-V2-Lite (64 routed experts of 1408, top 6, 2 shared,
+# layer 0 dense; MLA with a 576-value latent cache). 10a trains
+# V2LITE_TRAIN_LAYERS of its 27 layers under each dispatch mode, held to
+# phase 9a's MIXTRAL_LOSS_TOL and MIXTRAL_GNORM_TOL (the same one bf16
+# rounding of each MoE output separates the modes). 10c serves at pages of
+# ONLINE_PAGE; 10d migrates pages of V2LITE_PAGE (27 layers x 64 tokens x
+# 1,152 bf16 bytes = 2.0 MB a page). 10e exports V2LITE_HF_LAYERS layers
+# (3.34 GB of bf16) and needs V2LITE_HF_DISK_GB free.
+V2LITE_TRAIN_LAYERS = 3
+V2LITE_PAGE = 64
+V2LITE_HF_LAYERS = 3
+V2LITE_HF_DISK_GB = 8
+# Wall seconds of each phase (and of phase 10's parts), printed as the
+# ``phase_seconds`` line.
+PHASE_SECONDS: dict = {}
 
 
 def emit(obj) -> None:
@@ -777,7 +829,8 @@ def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
     if moe_dispatch is not None:
         cfg = dataclasses.replace(cfg, moe_dispatch=moe_dispatch)
     preset, prefix = FAMILIES[family]
-    full = PRESETS[preset].n_layers
+    full = (PRESETS[preset] if preset in PRESETS
+            else getattr(configs, preset)()).n_layers
     window = getattr(cfg, "sliding_window", None)
     trainer = Trainer(cfg, tcfg, device="cuda")
     trainer.init_state(seed=0)
@@ -875,7 +928,7 @@ def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
             with router_tap(torch, plain_model) as r_plain:
                 check.update(moe_free_routing(
                     torch, flash_logits, plain_model(tokens), r_flash,
-                    r_plain))
+                    r_plain, cfg.experts_per_token))
     if flash_logits.shape != (1, n, cfg.vocab_size):
         raise AssertionError(f"{family}: logits shape {tuple(flash_logits.shape)}")
     if not torch.isfinite(flash_logits).all():
@@ -883,7 +936,7 @@ def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
     abs_e, rel_e = rel_err(torch, flash_logits, plain_logits)
     check.update({"max_abs_err": abs_e, "rel_err": rel_e, "tol": LOGITS_TOL})
     emit(check)
-    if rel_e > LOGITS_TOL or check.get("top2_differ_share", 0) > MOE_FLIP_TOL:
+    if rel_e > LOGITS_TOL or check.get("topk_differ_share", 0) > MOE_FLIP_TOL:
         raise AssertionError(f"{family}: flash logits disagree with the plain "
                              f"path: {check}")
     return {k: launches[k] for k in path}, losses
@@ -976,6 +1029,13 @@ def kv_values_per_token(cfg) -> int:
     return 2 * cfg.n_kv_heads * cfg.head_dim
 
 
+def moe_routers(model) -> list:
+    """The router modules of a MoE model's MoE layers, in layer order:
+    Mixtral's ``moe.router``, DeepSeek's ``moe.routed.router``."""
+    return [getattr(layer.moe, "routed", layer.moe).router
+            for layer in model.layers if hasattr(layer, "moe")]
+
+
 def router_tap(torch, model, replay=None):
     """For a MoE model, a context that records each layer's router logits
     [B, T, E] of every forward inside it, in call order, into the list it
@@ -994,8 +1054,7 @@ def router_tap(torch, model, replay=None):
             out.append(y)
             return y
 
-        hooks = [layer.moe.router.register_forward_hook(hook)
-                 for layer in model.layers if hasattr(layer, "moe")]
+        hooks = [r.register_forward_hook(hook) for r in moe_routers(model)]
         try:
             yield out
         finally:
@@ -1005,35 +1064,37 @@ def router_tap(torch, model, replay=None):
     return tapping()
 
 
-def top2_differ(torch, a, b, rows=None) -> Optional[int]:
-    """Token-layers whose router top-2 sets differ between two
+def topk_differ(torch, a, b, k, rows=None) -> Optional[int]:
+    """Token-layers whose router top-``k`` sets differ between two
     ``router_tap`` recordings of the same shapes; ``rows`` masks the
     [B, T] positions compared. None for a dense model."""
     if not a:
         return None
     n = 0
     for x, y in zip(a, b):
-        sx = x.topk(2, dim=-1).indices.sort(-1).values
-        sy = y.topk(2, dim=-1).indices.sort(-1).values
+        sx = x.topk(k, dim=-1).indices.sort(-1).values
+        sy = y.topk(k, dim=-1).indices.sort(-1).values
         diff = (sx != sy).any(-1)
         n += int((diff & rows).sum() if rows is not None else diff.sum())
     return n
 
 
-def moe_free_routing(torch, got, want_free, r_got, r_want, rows=None) -> dict:
+def moe_free_routing(torch, got, want_free, r_got, r_want, k,
+                     rows=None) -> dict:
     """The free-routing side of a MoE check (MOE_CHECKS): the relative
     error of ``got`` against the reference run with its own routing,
-    and how many token-layers' top-2 sets differ, also as a share."""
-    flips = top2_differ(torch, r_got, r_want, rows)
+    and how many token-layers' top-``k`` sets differ (``k`` the model's
+    experts per token), also as a share."""
+    flips = topk_differ(torch, r_got, r_want, k, rows)
     n = (int(rows.sum()) if rows is not None
          else r_got[0].shape[0] * r_got[0].shape[1]) * len(r_got)
     return {"rel_err_free_routing": rel_err(torch, got, want_free)[1],
-            "top2_differ": flips, "token_layers": n,
-            "top2_differ_share": flips / n}
+            "top_k": k, "topk_differ": flips, "token_layers": n,
+            "topk_differ_share": flips / n}
 
 
 def serve_phase(torch, chip, kind, smi, family="llama3_8b",
-                after_bf16=None) -> None:
+                after_bf16=None, n_layers=None) -> None:
     """Phase 5 (``family`` "llama3_8b"), 5b ("gemma2_9b"), 5c
     ("deepseek_mla", the absorbed latent-cache decode) or 9b
     ("mixtral_8x7b"): the serve slice in bf16, then int8 (quantized with
@@ -1041,7 +1102,8 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b",
     on a failed check. Llama's bf16 run is followed by the speculative
     run; ``after_bf16(model)`` runs on the bf16 model before it is
     quantized. For a MoE model the checks print how many tokens' router
-    top-2 sets differ between the two runs each compares."""
+    top-k sets differ between the two runs each compares. ``n_layers``
+    cuts the slice's depth."""
     from tpufw_torch import configs
     from tpufw_torch.infer import SamplingConfig, generate, pad_prompts
     from tpufw_torch.infer import prefill_cache
@@ -1049,7 +1111,8 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b",
     from tpufw_torch.ops import flash
     from tpufw_torch.workloads import serve
 
-    cfg, prompts, max_new = getattr(configs, f"{family}_serve_slice")()
+    kw = {} if n_layers is None else {"n_layers": n_layers}
+    cfg, prompts, max_new = getattr(configs, f"{family}_serve_slice")(**kw)
     summary_key = FAMILIES[family][1] + "serve_summary"
     lens = [len(p) for p in prompts]
     emit({"serve": family, "n_layers": cfg.n_layers,
@@ -1113,7 +1176,7 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b",
                     free = model(tok, pos, seg)
                 check["prefill_free_routing"] = moe_free_routing(
                     torch, cached[:, -1], free[:, -1], r_cached, r_free,
-                    real)
+                    cfg.experts_per_token, real)
                 del free
             # One decode step of row 0 against the uncached forward of
             # that row alone, unpadded.
@@ -1134,7 +1197,7 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b",
                 with router_tap(torch, model) as r_free:
                     free = model(row)[0, -1]
                 check["decode_step_row0_free_routing"] = moe_free_routing(
-                    torch, step, free, replay, r_free)
+                    torch, step, free, replay, r_free, cfg.experts_per_token)
             del cache
             last_logits, real_logits = cached[:, -1], cached[real]
             del cached
@@ -1149,7 +1212,8 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b",
         elif r_fp32:
             # MOE_CHECKS: the int8 run takes the bf16 run's routing.
             check["int8_vs_bf16_free_routing"] = moe_free_routing(
-                torch, fp32_logits, bf16_fp32, r_fp32, bf16_r_fp32, real)
+                torch, fp32_logits, bf16_fp32, r_fp32, bf16_r_fp32,
+                cfg.experts_per_token, real)
             check["int8_vs_bf16_fp32_compute"] = rel_err(
                 torch, fp32_twin_logits(torch, model, tok, pos, seg,
                                         replay=bf16_r_fp32)[real], bf16_fp32)
@@ -1168,7 +1232,7 @@ def serve_phase(torch, chip, kind, smi, family="llama3_8b",
         bad = [k for k in ("prefill_last_position", "decode_step_row0")
                if check[k][1] > SERVE_LOGITS_TOL]
         bad += [k for k in ("prefill_free_routing", "int8_vs_bf16_free_routing")
-                if check.get(k, {}).get("top2_differ_share", 0) > MOE_FLIP_TOL]
+                if check.get(k, {}).get("topk_differ_share", 0) > MOE_FLIP_TOL]
         if weights == "int8" and (
                 check["int8_vs_bf16_fp32_compute"][1] > INT8_TOL):
             bad.append("int8_vs_bf16_fp32_compute")
@@ -1410,29 +1474,49 @@ def spec_pool_check(torch, model, prompts) -> dict:
     the verify block of a speculative pass (one forward of [token,
     t_1..t_k] over the pool's cache, as ``spec_steps`` runs it) against
     k+1 single steps teacher-forced with the same tokens on a second pool
-    admitted alike, within SERVE_LOGITS_TOL; then ``spec_steps`` itself
-    with those tokens as proposals, which must emit them."""
+    admitted alike, within SERVE_LOGITS_TOL (a MoE verify block with the
+    single steps' routing, MOE_CHECKS, its free-routing error and flips
+    printed); then ``spec_steps`` itself with those tokens as proposals,
+    which must emit them."""
     n = len(prompts)
+    n_moe = len(moe_routers(model))
     out = {}
     with torch.no_grad():
         for kind in ("contiguous", "paged"):
             pool = _admit_pool(model, prompts, kind, 2 * SPEC_K)
             tok, steps, fed = pool.token, [], []
-            for j in range(SPEC_K + 1):
-                fed.append(tok)
-                steps.append(_step_logits(torch, pool, tok, j))
-                tok = steps[-1].argmax(-1)
+            with router_tap(torch, model) as r_steps:
+                for j in range(SPEC_K + 1):
+                    fed.append(tok)
+                    steps.append(_step_logits(torch, pool, tok, j))
+                    tok = steps[-1].argmax(-1)
             steps = torch.stack(steps, dim=1)[:n]
             greedy = steps.argmax(-1)  # [n, k+1]
+            # Each MoE layer's routing of the k+1 steps, as one block.
+            replay = [torch.cat(r_steps[i::n_moe], dim=1)
+                      for i in range(n_moe)]
             del pool
-            pool = _admit_pool(model, prompts, kind, 2 * SPEC_K)
             block = torch.stack(fed, dim=1)
-            positions = pool.pos[:, None] + torch.arange(
-                SPEC_K + 1, device=block.device)[None, :]
-            verify = model(block, positions,
-                           torch.ones_like(block, dtype=torch.int32),
-                           cache=pool.cache)[:n].float()
-            del pool
+            verify = {}
+            for how, rp in (("held", replay or None), ("free", None)):
+                pool = _admit_pool(model, prompts, kind, 2 * SPEC_K)
+                positions = pool.pos[:, None] + torch.arange(
+                    SPEC_K + 1, device=block.device)[None, :]
+                with router_tap(torch, model, rp) as r_verify:
+                    verify[how] = model(
+                        block, positions,
+                        torch.ones_like(block, dtype=torch.int32),
+                        cache=pool.cache)[:n].float()
+                del pool
+                if not replay:
+                    break
+            extra = {}
+            if replay:
+                extra["free_routing"] = moe_free_routing(
+                    torch, verify["free"], steps,
+                    [r[:n] for r in r_verify], [r[:n] for r in replay],
+                    model.cfg.experts_per_token)
+            verify = verify["held"]
             pool = _admit_pool(model, prompts, kind, 2 * SPEC_K)
             emitted, n_emit, accept = pool.spec_steps(
                 torch.stack(fed[1:], dim=1))
@@ -1444,7 +1528,7 @@ def spec_pool_check(torch, model, prompts) -> dict:
                 "spec_steps_accept": accept[:n].tolist(),
                 "spec_steps_equal_single_steps": bool(
                     (emitted[:n] == greedy).all()),
-            }
+            } | extra
     return out
 
 
@@ -1503,7 +1587,7 @@ def chunk_pool_check(torch, model, prompts, cache_len) -> dict:
 
 
 def online_phase(torch, kind, smi) -> None:
-    """Phase 6: the HTTP server on Llama-3-8B (all 32 layers, bf16
+    """Phase 6: the HTTP server on Llama-3-8B (ONLINE_LAYERS layers, bf16
     weights, 8 slots, greedy) on one set of weights: the slot scheduler's
     modes, then the tick batcher (``tick_mode``) and the spill tier
     (``spill_mode``, bf16 and int8 KV); raises AssertionError on a failed
@@ -1515,7 +1599,8 @@ def online_phase(torch, kind, smi) -> None:
     from tpufw_torch.ops import flash
     from tpufw_torch.workloads import serve
 
-    cfg = llama3_8b_serve_slice()[0]
+    cfg = dataclasses.replace(llama3_8b_serve_slice()[0],
+                              n_layers=ONLINE_LAYERS)
     rng = np.random.default_rng(0)
     by_len = {n: [rng.integers(1, cfg.vocab_size, n).tolist()
                   for _ in range(4)] for n in ONLINE_PROMPT_LENS}
@@ -2410,7 +2495,9 @@ def hf_phase(torch, workdir: str, kind, smi, family="llama3_8b") -> None:
     serve.build_generator: the serve slice's prompts' greedy tokens and
     prefill logits bit-equal to the in-memory model's; under
     TPUFW_QUANTIZE=int8, every int8 code and scale equal to quantizing the
-    in-memory model. Needs HF_DISK_GB (MIXTRAL_HF_DISK_GB) free on the
+    in-memory model. 10e ("deepseek_v2_lite"): DeepSeek-V2-Lite at full
+    width and V2LITE_HF_LAYERS layers, bf16, dropless, likewise. Needs
+    HF_DISK_GB (MIXTRAL_HF_DISK_GB, V2LITE_HF_DISK_GB) free on the
     checkout's disk."""
     from tpufw_torch import configs
     from tpufw_torch.infer import SamplingConfig, pad_prompts
@@ -2424,6 +2511,9 @@ def hf_phase(torch, workdir: str, kind, smi, family="llama3_8b") -> None:
         "mixtral_8x7b": lambda: ("9d", MIXTRAL_HF_DISK_GB,
                                  *configs.mixtral_8x7b_serve_slice(
                                      n_layers=MIXTRAL_HF_LAYERS)),
+        "deepseek_v2_lite": lambda: ("10e", V2LITE_HF_DISK_GB,
+                                     *configs.deepseek_v2_lite_serve_slice(
+                                         n_layers=V2LITE_HF_LAYERS)),
     }[family]()
     prefix = FAMILIES[family][1]
     free_gb = shutil.disk_usage(workdir).free / 1e9
@@ -2555,17 +2645,18 @@ def _router_post(port: int, body: dict):
     return out + (time.perf_counter() - t0,)
 
 
-def _never_migrated(torch, model, prompts, max_new, kv_quant):
+def _never_migrated(torch, model, prompts, max_new, kv_quant,
+                    page=DISAGG_PAGE):
     """Greedy tokens of ``prompts`` decoded together in one paged pool of
     the decode engine's shape (DISAGG_SLOTS rows of the model's length,
-    page DISAGG_PAGE), each prompt prefilled by ``prefill_row`` into it:
+    pages of ``page``), each prompt prefilled by ``prefill_row`` into it:
     the run a migration must reproduce bit for bit."""
     from tpufw_torch.infer import PagedSlotPool, SamplingConfig, prefill_row
 
     greedy = SamplingConfig()
     pool = PagedSlotPool.create_paged(
         model, DISAGG_SLOTS, cache_len=model.cfg.max_seq_len,
-        page=DISAGG_PAGE, kv_quant=kv_quant, sampling=greedy,
+        page=page, kv_quant=kv_quant, sampling=greedy,
         prefix_cache=False)
     outs = []
     with torch.no_grad():
@@ -2581,12 +2672,15 @@ def _never_migrated(torch, model, prompts, max_new, kv_quant):
     return [o + steps[i] for i, o in enumerate(outs)]
 
 
-def migrate_phase(torch, model, prompts, max_new, kind, smi, sessions):
-    """8a: the direct prompts through PrefillEngine -> LoopbackTransport
-    -> DecodeEngine (a decoy page in the decode arena), bf16 then int8 KV,
-    on the one model: tokens bit-equal to the never-migrated run. Returns
-    the bf16 decode engine (8b reuses it; its spill tier writes drained
-    sessions to ``sessions``) and the bf16 tokens."""
+def migrate_phase(torch, model, prompts, max_new, kind, smi, sessions,
+                  page=DISAGG_PAGE, prefix=""):
+    """8a (and 10d: DeepSeek-V2-Lite's latent pages, ``prefix``
+    "v2lite_"): the direct prompts through PrefillEngine ->
+    LoopbackTransport -> DecodeEngine (a decoy page in the decode arena,
+    pages of ``page``), bf16 then int8 KV, on the one model: tokens
+    bit-equal to the never-migrated run. Returns the bf16 decode engine
+    (8b reuses it; its spill tier writes drained sessions to
+    ``sessions``) and the bf16 tokens."""
     from tpufw_torch.infer import SamplingConfig, generate_text
     from tpufw_torch.infer.spill import SpillTier
     from tpufw_torch.ops import flash
@@ -2599,12 +2693,12 @@ def migrate_phase(torch, model, prompts, max_new, kind, smi, sessions):
                          sampling=greedy)
     kept = None
     for kv in ("", "int8"):
-        ref = _never_migrated(torch, model, prompts, max_new, kv)
-        pe = PrefillEngine(model, sampling=greedy, page=DISAGG_PAGE,
+        ref = _never_migrated(torch, model, prompts, max_new, kv, page)
+        pe = PrefillEngine(model, sampling=greedy, page=page,
                            kv_quant=kv, n_slots=2)
-        de = DecodeEngine(model, sampling=greedy, page=DISAGG_PAGE,
+        de = DecodeEngine(model, sampling=greedy, page=page,
                           kv_quant=kv, n_slots=DISAGG_SLOTS, chunk=16,
-                          spill=SpillTier(0, sessions))
+                          spill=SpillTier(0, sessions or ""))
         decoy = de.pool.allocator.alloc(1)
         lt = LoopbackTransport()
         torch.cuda.synchronize()
@@ -2640,7 +2734,7 @@ def migrate_phase(torch, model, prompts, max_new, kind, smi, sessions):
         # contiguous cache: other shapes, so bf16 near-ties may flip. The
         # never-migrated pool run shows how much of that is the pool's.
         check = {
-            "check": f"migrate_{name}",
+            "check": f"{prefix}migrate_{name}",
             "equal_never_migrated": outs == ref,
             "greedy_match_vs_generate_text": match(outs, want),
             "never_migrated_match_vs_generate_text": match(ref, want),
@@ -2659,13 +2753,13 @@ def migrate_phase(torch, model, prompts, max_new, kind, smi, sessions):
         if any(launches.values()):
             bad.append("flash launched")
         if bad:
-            raise AssertionError(f"8a ({name}): {bad}")
+            raise AssertionError(f"{prefix}migrate ({name}): {bad}")
         long = max(timing, key=lambda t: t["prompt_tokens"])
         st, pages = long["stages"], long["pages"]
         encode_s = long["prefill_s"] - sum(st.values())
         splice_ms = long["submit_s"] * 1e3 - long["decode_bundle_ms"]
-        emit({"migrate_summary": {
-            "kv": name, "prompt_tokens": long["prompt_tokens"],
+        emit({prefix + "migrate_summary": {
+            "kv": name, "page": page, "prompt_tokens": long["prompt_tokens"],
             "pages": pages, "bundle_bytes": long["bytes"],
             "bundle_bytes_per_page": long["bytes"] / pages,
             "export_ms_per_page": st["export"] * 1e3 / pages,
@@ -3016,23 +3110,32 @@ def disaggregated_phase(torch, kind, smi) -> None:
 # ----------------------------------------------------------- phase 9
 
 
-def mixtral_online(torch, model, kind, smi) -> None:
-    """9c: the bf16 Mixtral serve model behind ``_Server`` (slot scheduler,
-    ONLINE_SLOTS slots, paged KV of ONLINE_PAGE, greedy): phase 6's 16
-    concurrent SSE requests, then the 4 sharing the ONLINE_PREFIX-token
-    prefix, ONLINE_NEW tokens each. Every reply full-length and in
-    vocabulary, /metrics counting the requests and tokens sent, /healthz
-    ok, a prefix hit, no slot occupied and only the trie's pages in use
-    after the drain, no flash launch; one admission sequence straight
-    through a contiguous and a paged pool gives step logits within
-    SERVE_LOGITS_TOL. Prints a ``mixtral_online_summary``; raises
-    AssertionError on a failed check."""
+def moe_online(torch, model, kind, smi, family, modes,
+               spec_check=False) -> None:
+    """9c (``family`` "mixtral_8x7b", mode "paged_bf16") and 10c
+    ("deepseek_v2_lite", modes "contiguous", "paged_bf16" and
+    "paged_int8"): the bf16 MoE serve model behind ``_Server`` (slot
+    scheduler, ONLINE_SLOTS slots, greedy; paged modes at pages of
+    ONLINE_PAGE): phase 6's 16 concurrent SSE requests, then the 4 sharing
+    the ONLINE_PREFIX-token prefix, ONLINE_NEW tokens each. Every reply
+    full-length and in vocabulary, /metrics counting the requests and
+    tokens sent, /healthz ok, no slot occupied after the drain, no flash
+    launch; paged: a prefix hit, and only the trie's pages in use after
+    the drain. Then one admission sequence straight through a contiguous
+    and a paged pool gives step logits within SERVE_LOGITS_TOL (the paged
+    step with the contiguous step's routing, MOE_CHECKS; a paged int8 mode
+    against the paged bf16 pool within INT8_TOL), and with ``spec_check``
+    ``spec_pool_check``'s verify block vs k+1 single steps. Prints a
+    ``<prefix>online_summary`` per mode; raises AssertionError on a failed
+    check."""
     import numpy as np
 
     from tpufw_torch.ops import flash
     from tpufw_torch.workloads import serve
 
     cfg = model.cfg
+    prefix = FAMILIES[family][1]
+    k = cfg.experts_per_token
     rng = np.random.default_rng(0)
     by_len = {n: [rng.integers(1, cfg.vocab_size, n).tolist()
                   for _ in range(4)] for n in ONLINE_PROMPT_LENS}
@@ -3042,118 +3145,144 @@ def mixtral_online(torch, model, kind, smi) -> None:
     prefixed = [shared + rng.integers(1, cfg.vocab_size, n).tolist()
                 for n in (16, 24, 40, 56)]
     direct = [by_len[n][0] for n in ONLINE_PROMPT_LENS]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    flash.reset_launch_counts()
-    srv, base = _start_server(serve, {"TPUFW_SERVE_PAGE": str(ONLINE_PAGE)},
-                              model=model)
-    sched = srv._batcher
-    warm_s, warm_steps = sched.decode_s, sched.decode_steps_run
-    try:
-        t0 = time.perf_counter()
-        runs = []
-        for wave in (prompts, prefixed):
-            runs += _concurrently([
-                (lambda p=p: _stream(base, {"prompts": [p],
-                                            "max_new_tokens": ONLINE_NEW}))
-                for p in wave])
-        wall = time.perf_counter() - t0
-        n_req = len(prompts) + len(prefixed)
-        bad = [toks for toks, _, _ in runs if len(toks) != ONLINE_NEW
-               or not all(0 <= t < cfg.vocab_size for t in toks)]
-        with _get(base + "/healthz") as r:
-            healthy = json.loads(r.read())["ok"] is True
-        metrics = _metrics(base)
-        launches = dict(flash.LAUNCHES)
-        steps = sched.decode_steps_run - warm_steps
-        check = {
-            "check": "mixtral_online",
-            "bad_outputs": len(bad), "healthz_ok": healthy,
-            "requests": [metrics["tpufw_serve_requests_total"], n_req],
-            "tokens": [metrics["tpufw_serve_tokens_generated_total"],
-                       n_req * ONLINE_NEW],
-            "errors": metrics["tpufw_serve_request_errors_total"],
-            "slots_occupied_after": metrics["tpufw_serve_slots_occupied"],
-            "prefix_hits": metrics["tpufw_serve_prefix_hits_total"],
-            "pages_in_use_after": sched.pages_in_use,
-            "trie_pages": len(sched.pool.prefix),
-            "flash_launches": launches,
-        }
-        ttft = [r[1] * 1e3 for r in runs]
-        summary = {
-            "model": "mixtral_8x7b", "n_layers": cfg.n_layers,
-            "capacity_factor": cfg.capacity_factor, "mode": "paged_bf16",
-            "slots": ONLINE_SLOTS, "page": ONLINE_PAGE, "wall_s": wall,
-            "requests": n_req, "output_tokens": ONLINE_NEW * n_req,
-            "tokens_per_s": ONLINE_NEW * n_req / wall,
-            "ttft_ms_p50": _percentile(ttft, 0.5),
-            "ttft_ms_p95": _percentile(ttft, 0.95),
-            "latency_ms_p50": _percentile([r[2] * 1e3 for r in runs], 0.5),
-            "decode_ms_per_step": ((sched.decode_s - warm_s) / steps * 1e3
-                                   if steps else None),
-            "decode_steps": steps,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "peak_pages_in_use": sched.peak_pages_in_use,
-            "pages_total": sched.pages_total,
-            "device": kind, "nvidia_smi": smi,
-        }
-    finally:
-        srv.shutdown()
-        for k in [k for k in os.environ if k.startswith("TPUFW_")]:
-            del os.environ[k]
-    # MOE_CHECKS: the held paged step takes the contiguous step's routing.
-    r_ref, r_free = [], []
+    page = {"TPUFW_SERVE_PAGE": str(ONLINE_PAGE)}
+    envs = {"contiguous": {}, "paged_bf16": page,
+            "paged_int8": dict(page, TPUFW_SERVE_KV_QUANT="int8")}
+    rows = torch.zeros(ONLINE_SLOTS, 1, dtype=torch.bool, device="cuda")
+    rows[: len(direct)] = True
+    r_ref = []
     ref_logits, ref_tokens = pool_run(torch, model, direct, "contiguous", 32,
                                       router=r_ref)
-    free_logits, tokens = pool_run(torch, model, direct, "paged", 32,
-                                   router=r_free)
-    logits, _ = pool_run(torch, model, direct, "paged", 1, replay=r_ref)
-    rows = torch.zeros(ONLINE_SLOTS, 1, dtype=torch.bool,
-                       device=ref_logits.device)
-    rows[: len(direct)] = True
-    check["step_logits_free_routing"] = moe_free_routing(
-        torch, free_logits, ref_logits, r_free, r_ref, rows)
-    check["step_logits_paged_vs_contiguous"] = rel_err(torch, logits,
-                                                       ref_logits)
-    check["tol"] = SERVE_LOGITS_TOL
-    check["greedy_match_paged_vs_contiguous"] = sum(
-        x == y for o, r in zip(tokens, ref_tokens)
-        for x, y in zip(o, r)) / (len(tokens) * 32)
-    emit(check)
-    emit({"mixtral_online_summary": summary})
-    failed = [k for k in ("requests", "tokens") if check[k][0] != check[k][1]]
-    if (check["bad_outputs"] or not healthy or check["errors"]
-            or check["slots_occupied_after"] or check["prefix_hits"] <= 0
-            or check["pages_in_use_after"] != check["trie_pages"]
-            or any(launches.values())
-            or check["step_logits_paged_vs_contiguous"][1] > SERVE_LOGITS_TOL
-            or check["step_logits_free_routing"]["top2_differ_share"]
-            > MOE_FLIP_TOL):
-        failed.append("outputs, health, slots, pages, prefix, flash or "
-                      "step logits")
-    if failed:
-        raise AssertionError(f"9c mixtral online: {failed}: {check}")
+    paged_bf16 = None
+    for mode in modes:
+        paged = mode != "contiguous"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launch_counts()
+        srv, base = _start_server(serve, envs[mode], model=model)
+        sched = srv._batcher
+        warm_s, warm_steps = sched.decode_s, sched.decode_steps_run
+        try:
+            t0 = time.perf_counter()
+            runs = []
+            for wave in (prompts, prefixed):
+                runs += _concurrently([
+                    (lambda p=p: _stream(base, {"prompts": [p],
+                                                "max_new_tokens": ONLINE_NEW}))
+                    for p in wave])
+            wall = time.perf_counter() - t0
+            n_req = len(prompts) + len(prefixed)
+            bad = [toks for toks, _, _ in runs if len(toks) != ONLINE_NEW
+                   or not all(0 <= t < cfg.vocab_size for t in toks)]
+            with _get(base + "/healthz") as r:
+                healthy = json.loads(r.read())["ok"] is True
+            metrics = _metrics(base)
+            launches = dict(flash.LAUNCHES)
+            steps = sched.decode_steps_run - warm_steps
+            check = {
+                "check": prefix + "online" + (f"_{mode}" if len(modes) > 1
+                                              else ""),
+                "bad_outputs": len(bad), "healthz_ok": healthy,
+                "requests": [metrics["tpufw_serve_requests_total"], n_req],
+                "tokens": [metrics["tpufw_serve_tokens_generated_total"],
+                           n_req * ONLINE_NEW],
+                "errors": metrics["tpufw_serve_request_errors_total"],
+                "slots_occupied_after": metrics["tpufw_serve_slots_occupied"],
+                "prefix_hits": metrics.get("tpufw_serve_prefix_hits_total",
+                                           0.0),
+                "pages_in_use_after": sched.pages_in_use,
+                "trie_pages": len(sched.pool.prefix) if paged else 0,
+                "flash_launches": launches,
+            }
+            ttft = [r[1] * 1e3 for r in runs]
+            summary = {
+                "model": family, "n_layers": cfg.n_layers,
+                "capacity_factor": cfg.capacity_factor, "mode": mode,
+                "slots": ONLINE_SLOTS, "page": ONLINE_PAGE if paged else 0,
+                "wall_s": wall, "requests": n_req,
+                "output_tokens": ONLINE_NEW * n_req,
+                "tokens_per_s": ONLINE_NEW * n_req / wall,
+                "ttft_ms_p50": _percentile(ttft, 0.5),
+                "ttft_ms_p95": _percentile(ttft, 0.95),
+                "latency_ms_p50": _percentile([r[2] * 1e3 for r in runs],
+                                              0.5),
+                "decode_ms_per_step": ((sched.decode_s - warm_s) / steps * 1e3
+                                       if steps else None),
+                "decode_steps": steps,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_pages_in_use": sched.peak_pages_in_use,
+                "pages_total": sched.pages_total,
+                "device": kind, "nvidia_smi": smi,
+            }
+        finally:
+            srv.shutdown()
+            for key in [key for key in os.environ
+                        if key.startswith("TPUFW_")]:
+                del os.environ[key]
+        if paged:
+            # MOE_CHECKS: the held paged step takes the reference step's
+            # routing (int8 KV: the paged bf16 pool's).
+            kv = "paged_int8" if mode == "paged_int8" else "paged"
+            r_free = []
+            free_logits, tokens = pool_run(torch, model, direct, kv, 32,
+                                           router=r_free)
+            if mode == "paged_int8" and paged_bf16 is not None:
+                want, want_tokens, r_want, tol, vs = (*paged_bf16, INT8_TOL,
+                                                      "paged_bf16")
+            else:
+                want, want_tokens, r_want, tol, vs = (
+                    ref_logits, ref_tokens, r_ref, SERVE_LOGITS_TOL,
+                    "contiguous")
+            logits, _ = pool_run(torch, model, direct, kv, 1, replay=r_want)
+            if mode == "paged_bf16":
+                paged_bf16 = (logits, tokens, r_want)
+            check["step_logits_free_routing"] = moe_free_routing(
+                torch, free_logits, want, r_free, r_want, k, rows)
+            check["step_logits_paged_vs_" + vs] = rel_err(torch, logits, want)
+            check["tol"] = tol
+            check["greedy_match_vs_" + vs] = sum(
+                x == y for o, r in zip(tokens, want_tokens)
+                for x, y in zip(o, r)) / (len(tokens) * 32)
+        if mode == "paged_bf16" and spec_check:
+            spec = spec_pool_check(torch, model, direct)
+            check["verify_block_vs_single_steps"] = spec
+        emit(check)
+        emit({prefix + "online_summary": summary})
+        failed = [key for key in ("requests", "tokens")
+                  if check[key][0] != check[key][1]]
+        if (check["bad_outputs"] or not healthy or check["errors"]
+                or check["slots_occupied_after"] or any(launches.values())):
+            failed.append("outputs, health, slots or flash")
+        if paged and (check["prefix_hits"] <= 0
+                      or check["pages_in_use_after"] != check["trie_pages"]):
+            failed.append("prefix or pages")
+        if paged and (check["step_logits_paged_vs_" + vs][1] > tol
+                      or check["step_logits_free_routing"]
+                      ["topk_differ_share"] > MOE_FLIP_TOL):
+            failed.append("step logits")
+        if any(v["logits"][1] > SERVE_LOGITS_TOL
+               for v in check.get("verify_block_vs_single_steps",
+                                  {}).values()):
+            failed.append("verify block logits")
+        if failed:
+            raise AssertionError(f"{prefix}online {mode}: {failed}: {check}")
 
 
-def mixtral_phase(torch, chip, kind, smi, gen) -> dict:
-    """Phase 9: Mixtral-8x7B widths. 9a: the train slice at
-    MIXTRAL_TRAIN_LAYERS layers for STEPS steps through ``Trainer.run``
-    under the einsum dispatch, then, freed, under the sorted one from the
-    same seed on the same batches: finite losses, every d128 kernel
+def moe_train_pair(torch, family, n_layers, gen, kind, smi) -> dict:
+    """9a (``family`` "mixtral_8x7b") and 10a ("deepseek_v2_lite"): the
+    family's train slice at ``n_layers`` for STEPS steps through
+    ``Trainer.run`` under the einsum dispatch (with the flash vs plain
+    logits check), then, freed, under the sorted one from the same seed
+    on the same batches: finite losses, every flash kernel of the head dim
     launched in both, the step-1 losses and gradient norms within
-    MIXTRAL_LOSS_TOL and MIXTRAL_GNORM_TOL. 9b: the 16-layer serve slice
-    (``serve_phase``), bf16 then int8, with 9c (``mixtral_online``) on
-    the bf16 model between. 9d: the HF round trip at width
-    (``hf_phase``) in a gitignored directory of the checkout, deleted
-    after. Returns {kernel: {mode: launches}} of 9a; raises
-    AssertionError on a failed check."""
-    # What earlier phases left on the card: every peak below includes it.
-    emit({"phase9_allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9})
+    MIXTRAL_LOSS_TOL and MIXTRAL_GNORM_TOL. Returns {kernel: {mode:
+    launches}}; raises AssertionError on a failed check."""
+    prefix = FAMILIES[family][1]
     runs = {}
     for mode in ("einsum", "sorted"):
         norms = []
         launches, losses = train_phase(
-            torch, "mixtral_8x7b", MIXTRAL_TRAIN_LAYERS, gen, kind, smi,
+            torch, family, n_layers, gen, kind, smi,
             logits_check=mode == "einsum", moe_dispatch=mode,
             grad_norms=norms)
         runs[mode] = (launches, losses, norms)
@@ -3162,17 +3291,37 @@ def mixtral_phase(torch, chip, kind, smi, gen) -> dict:
     (_, le, ge), (_, ls, gs) = runs["einsum"], runs["sorted"]
     gap = {"loss_step1": abs(le[0] - ls[0]) / abs(le[0]),
            "grad_norm_step1": abs(ge[0] - gs[0]) / abs(ge[0])}
-    emit({"check": "mixtral_dispatch_modes_step1", "einsum_loss": le[0],
+    emit({"check": prefix + "dispatch_modes_step1", "einsum_loss": le[0],
           "sorted_loss": ls[0], "einsum_grad_norm": ge[0],
           "sorted_grad_norm": gs[0], "relative_gap": gap,
           "tol": {"loss_step1": MIXTRAL_LOSS_TOL,
                   "grad_norm_step1": MIXTRAL_GNORM_TOL}})
     if (gap["loss_step1"] > MIXTRAL_LOSS_TOL
             or gap["grad_norm_step1"] > MIXTRAL_GNORM_TOL):
-        raise AssertionError(f"9a: the dispatch modes disagree at step 1: "
-                             f"{gap}")
+        raise AssertionError(f"{family}: the dispatch modes disagree at "
+                             f"step 1: {gap}")
+    return {k: {mode: runs[mode][0][k] for mode in runs}
+            for k in runs["einsum"][0]}
+
+
+def mixtral_phase(torch, chip, kind, smi, gen) -> dict:
+    """Phase 9: Mixtral-8x7B widths. 9a: the train slice at
+    MIXTRAL_TRAIN_LAYERS layers under both dispatch modes
+    (``moe_train_pair``). 9b: the serve slice at MIXTRAL_SERVE_LAYERS
+    layers (``serve_phase``),
+    bf16 then int8, with 9c (``moe_online``, paged bf16) on the bf16 model
+    between. 9d: the HF round trip at width (``hf_phase``) in a gitignored
+    directory of the checkout, deleted after. Returns {kernel: {mode:
+    launches}} of 9a; raises AssertionError on a failed check."""
+    # What earlier phases left on the card: every peak below includes it.
+    emit({"phase9_allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9})
+    launches = moe_train_pair(torch, "mixtral_8x7b", MIXTRAL_TRAIN_LAYERS, gen,
+                              kind, smi)
     serve_phase(torch, chip, kind, smi, family="mixtral_8x7b",
-                after_bf16=lambda m: mixtral_online(torch, m, kind, smi))
+                after_bf16=lambda m: moe_online(torch, m, kind, smi,
+                                                "mixtral_8x7b",
+                                                ("paged_bf16",)),
+                n_layers=MIXTRAL_SERVE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     workdir = os.path.join(ROOT, "build-torch", f"phase9-{os.getpid()}")
@@ -3181,8 +3330,64 @@ def mixtral_phase(torch, chip, kind, smi, gen) -> dict:
         hf_phase(torch, workdir, kind, smi, family="mixtral_8x7b")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    return {k: {mode: runs[mode][0][k] for mode in runs}
-            for k in runs["einsum"][0]}
+    return launches
+
+
+# ---------------------------------------------------------- phase 10
+
+
+def _timed(name, fn):
+    """Run ``fn`` and record its wall seconds under ``name`` in
+    PHASE_SECONDS; returns what ``fn`` returns."""
+    t0 = time.perf_counter()
+    try:
+        return fn()
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+
+
+def v2lite_phase(torch, chip, kind, smi, gen) -> dict:
+    """Phase 10: DeepSeek-V2-Lite. 10a: the train slice at
+    V2LITE_TRAIN_LAYERS layers under both dispatch modes
+    (``moe_train_pair``: every head-dim-192 kernel launched in both). 10b:
+    the 27-layer serve slice (``serve_phase``), bf16 then int8, with 10c
+    (``moe_online``: contiguous, paged and paged int8 latent KV) and 10d
+    (``migrate_phase`` at pages of V2LITE_PAGE, bf16 and int8 latent
+    pages) on the bf16 model between. 10e: the HF round trip of
+    V2LITE_HF_LAYERS layers (``hf_phase``) in a gitignored directory of the
+    checkout, deleted after. Returns {kernel: {mode: launches}} of 10a;
+    raises AssertionError on a failed check."""
+    emit({"phase10_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9})
+    family = "deepseek_v2_lite"
+    launches = _timed("10a", lambda: moe_train_pair(
+        torch, family, V2LITE_TRAIN_LAYERS, gen, kind, smi))
+
+    def after_bf16(model):
+        from tpufw_torch import configs
+
+        _timed("10c", lambda: moe_online(
+            torch, model, kind, smi, family,
+            ("contiguous", "paged_bf16", "paged_int8"), spec_check=True))
+        _, prompts, max_new = configs.deepseek_v2_lite_serve_slice()
+        _timed("10d", lambda: migrate_phase(
+            torch, model, prompts, max_new, kind, smi, None,
+            page=V2LITE_PAGE, prefix="v2lite_"))
+
+    t0 = time.perf_counter()
+    serve_phase(torch, chip, kind, smi, family=family, after_bf16=after_bf16)
+    PHASE_SECONDS["10b"] = (time.perf_counter() - t0 - PHASE_SECONDS["10c"]
+                            - PHASE_SECONDS["10d"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = os.path.join(ROOT, "build-torch", f"phase10-{os.getpid()}")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        _timed("10e", lambda: hf_phase(torch, workdir, kind, smi,
+                                       family=family))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -3204,12 +3409,14 @@ def main() -> int:
     from tpufw_torch.utils.hardware import detect_chip
 
     # 1. Build and device line.
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     chip = detect_chip("cuda")
     t0 = time.perf_counter()
     paths = _build.build()
     build_s = time.perf_counter() - t0
+    PHASE_SECONDS["1"] = build_s
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln]
@@ -3224,6 +3431,7 @@ def main() -> int:
         return fail(str(e))
     emit({"build_report": report})
     # 2. Kernels vs plain versions.
+    t_phase = time.perf_counter()
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -3356,6 +3564,8 @@ def main() -> int:
     del x, d192_inputs
     torch.cuda.empty_cache()
 
+    PHASE_SECONDS["2-3"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     # 4. The train slice, counters zeroed just before; 4b. the Gemma-2-9B
     # one and 4c. the DeepSeek MLA one (all 10 layers), each with its own
     # counters zeroed just before it.
@@ -3378,6 +3588,8 @@ def main() -> int:
         return fail(str(e))
     torch.cuda.empty_cache()
 
+    PHASE_SECONDS["4"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     # 5. The serve slice, with the train phases' memory freed; 5b. the
     # Gemma-2-9B serve slice; 5c. the DeepSeek MLA one (latent cache).
     try:
@@ -3389,10 +3601,12 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    PHASE_SECONDS["5"] = time.perf_counter() - t_phase
+
     # 6. The online server, with phase 5's models freed.
     torch.cuda.empty_cache()
     try:
-        online_phase(torch, kind, smi)
+        _timed("6", lambda: online_phase(torch, kind, smi))
     except AssertionError as e:
         return fail(str(e))
 
@@ -3400,7 +3614,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     try:
-        resume_launches = weights_phase(torch, kind, smi)
+        resume_launches = _timed("7", lambda: weights_phase(torch, kind, smi))
     except AssertionError as e:
         return fail(str(e))
 
@@ -3408,7 +3622,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     try:
-        disaggregated_phase(torch, kind, smi)
+        _timed("8", lambda: disaggregated_phase(torch, kind, smi))
     except AssertionError as e:
         return fail(str(e))
 
@@ -3416,7 +3630,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     try:
-        mixtral_launches = mixtral_phase(torch, chip, kind, smi, gen)
+        mixtral_launches = _timed("9", lambda: mixtral_phase(
+            torch, chip, kind, smi, gen))
+    except AssertionError as e:
+        return fail(str(e))
+
+    # 10. DeepSeek-V2-Lite, with phase 9's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        v2lite_launches = _timed("10", lambda: v2lite_phase(
+            torch, chip, kind, smi, gen))
     except AssertionError as e:
         return fail(str(e))
 
@@ -3450,6 +3674,9 @@ def main() -> int:
         if name in mixtral_launches:
             # Phase 9a's runs, Mixtral-8x7B widths, per dispatch mode.
             kernels[-1]["launches_mixtral_train"] = mixtral_launches[name]
+        if name in v2lite_launches:
+            # Phase 10a's runs, DeepSeek-V2-Lite widths, per dispatch mode.
+            kernels[-1]["launches_v2lite_train"] = v2lite_launches[name]
         if name in resume_launches:
             # Phase 7b's run, llama3_600m_bench through Trainer.run, and
             # the kernel at its shapes.
@@ -3469,6 +3696,8 @@ def main() -> int:
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
             }
     emit({"kernels": kernels})
+    PHASE_SECONDS["total"] = time.perf_counter() - t_start
+    emit({"phase_seconds": PHASE_SECONDS})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

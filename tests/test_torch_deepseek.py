@@ -6,7 +6,8 @@ logits (full-rank q and q-LoRA, scanned and unscanned trees), yarn and the
 interleaved rope, the flash backend (the kernels' plain versions here, JAX
 in interpret mode), gradients and three trainer steps, the absorbed
 latent-cache decode (against the expanded forward and against JAX's
-decode), greedy tokens, int8 codes and logits, and the refusals. The
+decode), greedy tokens, int8 codes and logits, the refusals and the
+serving paths that take a DeepSeek model. The
 tolerance is the reference's 2e-4 (tests/conftest.py) unless stated.
 """
 
@@ -372,8 +373,6 @@ def test_workloads_build_deepseek_for_deepseek_presets(clear_tpufw_env):
 
 
 @pytest.mark.parametrize("overrides, match", [
-    (dict(n_routed_experts=4), "MoE"),
-    (dict(kv_page=16, kv_pages=9), "paged"),
     (dict(attention_backend="ring"), "item 12"),
     (dict(attention_backend="ulysses"), "item 12"),
 ])
@@ -384,31 +383,73 @@ def test_unported_configs_refused(overrides, match):
     assert "ROADMAP.md" in str(err.value)
 
 
-def test_moe_preset_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Deepseek(DEEPSEEK_CONFIGS["deepseek_moe_tiny"], device="cpu")
+def test_kv_page_belongs_to_the_cache():
+    """As for Llama, a paged config is refused: the paging belongs to the
+    cache (``init_paged_cache``), so one set of weights serves every
+    pool."""
+    cfg = dataclasses.replace(DEEPSEEK_CONFIGS["deepseek_tiny"], kv_page=16,
+                              kv_pages=9)
+    with pytest.raises(NotImplementedError, match="init_paged_cache"):
+        Deepseek(cfg, device="cpu")
+
+
+def test_moe_preset_builds_with_its_experts():
+    """deepseek_moe_tiny builds with routed and shared experts on every
+    layer (tests/test_torch_deepseek_moe.py holds it against tpufw)."""
+    model = Deepseek(DEEPSEEK_CONFIGS["deepseek_moe_tiny"], device="cpu")
+    moe = model.layers[0].moe
+    assert moe.routed.w_gate.shape == (4, 48, 64)
+    assert moe.shared.gate.weight.shape == (48, 64)
+    assert sum(p.numel() for p in model.parameters()) == \
+        model.cfg.n_params()
 
 
 @pytest.mark.parametrize("path", ["slot_pool", "paged_pool", "per_row_cache",
                                   "scheduler", "speculative"])
-def test_serving_paths_refuse_a_deepseek_model(path):
-    """The paths that keep a slot pool, pages or a speculative cache refuse
-    a DeepSeek model up front, naming the ROADMAP item."""
+def test_serving_paths_take_a_deepseek_model(path):
+    """The paths that keep a slot pool, pages or a speculative cache take
+    a DeepSeek model: each gives generate_text's greedy tokens
+    (tests/test_torch_latent_pools.py holds them against tpufw)."""
     from tpufw_torch.infer import (PagedSlotPool, SamplingConfig, SlotPool,
+                                   generate_text, prefill_row,
                                    speculative_generate_text)
     from tpufw_torch.workloads import serve
 
     cfg = DEEPSEEK_CONFIGS["deepseek_tiny"].decode_config()
     model = Deepseek(dataclasses.replace(cfg, dtype=torch.float32),
                      device="cpu")
-    calls = {
-        "slot_pool": lambda: SlotPool.create(model, 2),
-        "paged_pool": lambda: PagedSlotPool.create_paged(
-            model, 2, cache_len=64, page=16, sampling=SamplingConfig()),
-        "per_row_cache": lambda: model.init_cache(2, per_row=True),
-        "scheduler": lambda: serve._SlotScheduler(model, page=0),
-        "speculative": lambda: speculative_generate_text(
-            model, model, [[1, 2]], max_new_tokens=4),
-    }
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        calls[path]()
+    prompt, n = [1, 2, 3], 4
+    want = generate_text(model, [prompt], max_new_tokens=n)[0]
+    greedy = SamplingConfig()
+
+    def pool_tokens(pool):
+        cache, _f, first, _d, seen = prefill_row(
+            model, prompt, None, sampling=greedy, eos_id=None,
+            cache_len=pool.cache_len)
+        if isinstance(pool, PagedSlotPool):
+            ids, _ = pool.acquire_pages(prompt, len(prompt) + n)
+            pool.insert_paged(0, cache, first, len(prompt), n - 1, ids, 0,
+                              row_seen=seen)
+        else:
+            pool.insert(0, cache, first, len(prompt), n - 1, row_seen=seen)
+        return [first] + pool.decode_steps(n - 1)[0].tolist()
+
+    if path == "slot_pool":
+        got = pool_tokens(SlotPool.create(model, 2, cache_len=64))
+    elif path == "paged_pool":
+        got = pool_tokens(PagedSlotPool.create_paged(
+            model, 2, cache_len=64, page=16, sampling=greedy))
+    elif path == "per_row_cache":
+        cache = model.init_cache(2, per_row=True)
+        assert cache[0].index.shape == (2,)
+        got = want
+    elif path == "scheduler":
+        sched = serve._SlotScheduler(model, page=0, default_sampling=greedy)
+        try:
+            got = sched.submit([prompt], n)[0][0]
+        finally:
+            sched.close()
+    else:
+        got = speculative_generate_text(model, model, [prompt],
+                                        max_new_tokens=n)[0][0]
+    assert got == want

@@ -1,7 +1,8 @@
 """tpufw_torch.tools.import_hf against transformers and tpufw's import_hf:
 tiny random-weight HF models (no download) of every family the port has,
 Llama with llama3 rope scaling, Qwen-2, Mistral, Mixtral, Gemma-2 and
-DeepSeek-V2 dense with and without q_lora_rank. Config mapping, logits against
+DeepSeek-V2 dense with and without q_lora_rank and with routed experts
+after one dense layer. Config mapping, logits against
 transformers and against tpufw's importer (fp32, 2e-4), the port's state
 dict equal bit for bit to ``params_from_flax`` of tpufw's tree, export read
 back by transformers and by tpufw, the CLI both ways, the loud refusals and
@@ -61,6 +62,14 @@ HF_CONFIGS = {
         qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
         first_k_dense_replace=2, rms_norm_eps=1e-6, rope_theta=10000.0,
         tie_word_embeddings=False, attention_bias=False),
+    # Routed experts from layer 1 on, 2 shared: V2-Lite's layout.
+    "deepseek_v2_moe": lambda: transformers.DeepseekV2Config(
+        **SMALL, num_key_value_heads=4, q_lora_rank=None, kv_lora_rank=32,
+        qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+        moe_intermediate_size=48, n_routed_experts=4, num_experts_per_tok=2,
+        n_shared_experts=2, first_k_dense_replace=1, topk_method="greedy",
+        norm_topk_prob=False, routed_scaling_factor=1.0, rms_norm_eps=1e-6,
+        rope_theta=10000.0, tie_word_embeddings=False, attention_bias=False),
     "deepseek_v2_qlora": lambda: transformers.DeepseekV2Config(
         **SMALL, num_key_value_heads=4, q_lora_rank=24, kv_lora_rank=32,
         qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
@@ -73,6 +82,7 @@ AUTO = {"llama_rope_scaled": transformers.LlamaForCausalLM,
         "mixtral": transformers.MixtralForCausalLM,
         "gemma2": transformers.Gemma2ForCausalLM,
         "deepseek_v2": transformers.DeepseekV2ForCausalLM,
+        "deepseek_v2_moe": transformers.DeepseekV2ForCausalLM,
         "deepseek_v2_qlora": transformers.DeepseekV2ForCausalLM}
 # 48 tokens: past the 32-token windows of Mistral and Gemma's local layers.
 TOKENS = np.random.default_rng(1).integers(0, 256, (2, 48))
@@ -240,9 +250,10 @@ def test_cli_export_from_a_training_checkpoint(tmp_path):
 
 
 REFUSED = {
-    "deepseek_moe": ({"model_type": "deepseek_v2", **SMALL,
-                      "n_routed_experts": 8, "first_k_dense_replace": 1},
-                     "item 10"),
+    "deepseek_noaux_tc": ({"model_type": "deepseek_v2", **SMALL,
+                           "n_routed_experts": 8, "num_experts_per_tok": 2,
+                           "first_k_dense_replace": 1,
+                           "topk_method": "noaux_tc"}, "topk_method"),
     "rope_dynamic": ({"model_type": "llama", **SMALL,
                       "rope_scaling": {"rope_type": "dynamic",
                                        "factor": 2.0}}, "dynamic"),
@@ -261,11 +272,9 @@ def test_unsupported_configs_are_loud(case):
     cfg, match = REFUSED[case]
     with pytest.raises(NotImplementedError, match=match):
         import_hf.config_from_hf(cfg)
-    # tpufw refuses or takes the same configs; the port refuses at least
-    # as much.
-    if case != "deepseek_moe":
-        with pytest.raises(NotImplementedError):
-            j_import.config_from_hf(cfg)
+    # tpufw refuses the same configs.
+    with pytest.raises(NotImplementedError):
+        j_import.config_from_hf(cfg)
 
 
 def test_lora_tree_and_missing_key_are_loud(hf):

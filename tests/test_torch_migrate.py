@@ -447,18 +447,53 @@ def test_sampled_request_draws_the_schedulers_streams(clear_tpufw_env):
     assert de.collect(de.submit(pe.prefill(BASE, 11))) != want
 
 
-@pytest.mark.parametrize("engine", [PrefillEngine, DecodeEngine])
-def test_deepseek_model_is_refused_naming_item_10(engine):
-    """The port's DeepSeek model has no paged latent pool yet, so neither
-    role takes it (``tpufw``'s test_migration_parity_deepseek_mla waits
-    for that)."""
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8"])
+def test_migration_parity_deepseek_mla(kv_quant):
+    """tpufw's test_migration_parity_deepseek_mla on the port: both roles
+    take the DeepSeek model, its latent pages migrate into a polluted
+    decode arena, and the tokens are tpufw's engines' (unquantized:
+    generate_text's). tests/test_torch_latent_pools.py covers the MoE
+    models and the bundles across the packages."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from flax.core import meta
+
+    from tpufw.models.deepseek import DEEPSEEK_CONFIGS as J_CONFIGS
+    from tpufw.models.deepseek import Deepseek as JDeepseek
+    from tpufw_torch.interop import params_from_flax
     from tpufw_torch.models import model_for_config
     from tpufw_torch.models.deepseek import DEEPSEEK_CONFIGS
 
-    cfg = DEEPSEEK_CONFIGS["deepseek_tiny"].decode_config()
-    model = model_for_config(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine(model, sampling=GREEDY, page=PAGE)
+    jcfg = dataclasses.replace(J_CONFIGS["deepseek_tiny"], dtype=jnp.float32,
+                               param_dtype=jnp.float32, max_seq_len=SEQ)
+    cfg = dataclasses.replace(DEEPSEEK_CONFIGS["deepseek_tiny"],
+                              dtype=torch.float32, param_dtype=torch.float32,
+                              max_seq_len=SEQ)
+    params = jax.device_get(meta.unbox(jax.jit(JDeepseek(jcfg).init)(
+        jax.random.key(0), jnp.zeros((1, 8), jnp.int32))["params"]))
+    model = model_for_config(cfg.decode_config(), device="cpu")
+    model.load_state_dict(params_from_flax(params, cfg))
+    jmodel = JDeepseek(jcfg.decode_config())
+    pe = PrefillEngine(model, sampling=GREEDY, page=PAGE, kv_quant=kv_quant)
+    de = DecodeEngine(model, sampling=GREEDY, page=PAGE, kv_quant=kv_quant,
+                      n_slots=4, chunk=2)
+    assert de.pool.allocator.alloc(1) is not None  # decoy
+    lt = LoopbackTransport()
+    got = [de.collect(s) for s in [_migrate(pe, de, lt, p) for p in PROMPTS]]
+    jpe = j_roles.PrefillEngine(jmodel, params, sampling=J_GREEDY, page=PAGE,
+                                kv_quant=kv_quant, n_slots=2)
+    jde = j_roles.DecodeEngine(jmodel, params, sampling=J_GREEDY, page=PAGE,
+                               kv_quant=kv_quant, n_slots=4, chunk=2)
+    assert got == [jde.collect(jde.submit(jpe.prefill(p, MAX_NEW)))
+                   for p in PROMPTS]
+    if not kv_quant:
+        assert got == j_generate_text(jmodel, params, PROMPTS,
+                                      max_new_tokens=MAX_NEW,
+                                      sampling=J_GREEDY)
+    assert pe.migrations == de.migrations == len(PROMPTS)
+    assert pe.pool.prefix_hits == 1
 
 
 def test_role_telemetry_writes_schema_checked_events(clear_tpufw_env,

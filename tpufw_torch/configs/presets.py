@@ -13,7 +13,10 @@ counterparts (head dim 256, soft caps, alternating 4096-token windows), and
 ``deepseek_mla_bench`` ones (MLA: flash at qk head dim 192 in training, the
 absorbed latent cache in serving), and ``mixtral_8x7b_train_slice`` and
 ``mixtral_8x7b_serve_slice`` Mixtral-8x7B's (8 experts of 14336, top 2,
-flash at head dim 128 in training).
+flash at head dim 128 in training), and ``deepseek_v2_lite_train_slice``
+and ``deepseek_v2_lite_serve_slice`` DeepSeek-V2-Lite's (MLA, 64 routed
+experts of 1408 top 6 plus 2 shared, one leading dense layer, yarn rope),
+whose config is the port's import of ``DEEPSEEK_V2_LITE_HF``.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ BENCH_CONFIG_NAME = "llama3_600m_bench"
 
 def resolve_model_preset(name: str):
     """The model config a ``TPUFW_MODEL``-style name picks: the bench
-    model, a preset of the four families (``models.PRESETS``), or a serve
-    slice's config (``SERVE_SLICES``: bf16 weights, its cache length)."""
+    model, a preset of the four families (``models.PRESETS``), a serve
+    slice's config (``SERVE_SLICES``: bf16 weights, its cache length) or a
+    train slice's (``TRAIN_SLICES``)."""
     from tpufw_torch.models import PRESETS
 
     if name == BENCH_CONFIG_NAME:
@@ -44,9 +48,11 @@ def resolve_model_preset(name: str):
         return PRESETS[name]
     if name in SERVE_SLICES:
         return SERVE_SLICES[name]()[0]
+    if name in TRAIN_SLICES:
+        return TRAIN_SLICES[name]()[0]
     raise ValueError(
         f"unknown model {name!r}; choose from "
-        f"{[BENCH_CONFIG_NAME, *PRESETS, *SERVE_SLICES]}"
+        f"{[BENCH_CONFIG_NAME, *PRESETS, *SERVE_SLICES, *TRAIN_SLICES]}"
     )
 
 
@@ -204,8 +210,112 @@ def mixtral_8x7b_serve_slice(
     return cfg, prompts, 32
 
 
+
+
+# DeepSeek-V2-Lite's published config.json (HF deepseek-ai/DeepSeek-V2-Lite),
+# the fields an import reads. ``deepseek_v2_lite()`` is the port's
+# ``config_from_hf`` of it: what importing that checkpoint gives.
+DEEPSEEK_V2_LITE_HF = {
+    "model_type": "deepseek_v2",
+    "architectures": ["DeepseekV2ForCausalLM"],
+    "vocab_size": 102_400,
+    "hidden_size": 2048,
+    "intermediate_size": 10_944,
+    "moe_intermediate_size": 1408,
+    "num_hidden_layers": 27,
+    "num_attention_heads": 16,
+    "num_key_value_heads": 16,
+    "n_shared_experts": 2,
+    "n_routed_experts": 64,
+    "num_experts_per_tok": 6,
+    "routed_scaling_factor": 1.0,
+    "topk_method": "greedy",
+    "n_group": 1,
+    "topk_group": 1,
+    "scoring_func": "softmax",
+    "norm_topk_prob": False,
+    "moe_layer_freq": 1,
+    "first_k_dense_replace": 1,
+    "q_lora_rank": None,
+    "kv_lora_rank": 512,
+    "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64,
+    "v_head_dim": 128,
+    "hidden_act": "silu",
+    "max_position_embeddings": 163_840,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 10_000,
+    "rope_scaling": {
+        "type": "yarn",
+        "factor": 40,
+        "original_max_position_embeddings": 4096,
+        "beta_fast": 32,
+        "beta_slow": 1,
+        "mscale": 0.707,
+        "mscale_all_dim": 0.707,
+    },
+    "attention_bias": False,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
+
+
+def deepseek_v2_lite() -> DeepseekConfig:
+    """DeepSeek-V2-Lite as an import of its config gives it: 27 layers
+    (layer 0 dense), dropless routing (capacity factor = 64 experts),
+    unscanned, max_seq_len 163840, 15,706,484,224 parameters."""
+    from tpufw_torch.tools.import_hf import config_from_hf
+
+    return config_from_hf(DEEPSEEK_V2_LITE_HF)
+
+
+def deepseek_v2_lite_train_slice(
+    n_layers: int = 3, total_steps: int = 5
+) -> tuple[DeepseekConfig, TrainerConfig]:
+    """DeepSeek-V2-Lite at full width with depth cut to ``n_layers``
+    (layer 0 dense, the rest MoE; 27 layers of fp32 weights, grads and
+    AdamW moments are ~251 GB, 3 are ~26.7 GB: 1,670,135,296 parameters),
+    flash at qk head dim 192, capacity factor 1.25 (the training
+    discipline; an import is dropless), remat; B=2, seq 2048, chunked CE
+    at 512, warm-up 2 steps."""
+    cfg = dataclasses.replace(
+        deepseek_v2_lite(), n_layers=n_layers, attention_backend="flash",
+        capacity_factor=1.25,
+    )
+    tcfg = TrainerConfig(batch_size=2, seq_len=2048, total_steps=total_steps,
+                         warmup_steps=2, log_every=1, loss_chunk_size=512)
+    return cfg, tcfg
+
+
+def deepseek_v2_lite_serve_slice(
+    seed: int = 0, n_layers: int = 27,
+) -> tuple[DeepseekConfig, list[list[int]], int]:
+    """(decode config, prompts, max_new_tokens) of the DeepSeek-V2-Lite
+    serve run: all ``n_layers`` = 27 layers, bf16 weights drawn in bf16
+    (31.4 GB),
+    dropless as imported, the Llama serve slice's 4 prompts of 7, 64, 200
+    and 511 ids (numpy ``seed``), 32 greedy tokens each. ``max_seq_len``
+    is cut from the imported 163840 to 4096, yarn's original length: the
+    paged pools size every row by it, and at 163840 one row's latent
+    arena is 27 x 163840 x 1152 B = 5.1 GB. The rope scaling stays as
+    published."""
+    cfg = dataclasses.replace(
+        deepseek_v2_lite(), param_dtype=torch.bfloat16, max_seq_len=4096,
+        n_layers=n_layers,
+    ).decode_config()
+    rng = np.random.default_rng(seed)
+    prompts = [
+        rng.integers(1, cfg.vocab_size, n).tolist() for n in SERVE_PROMPT_LENS
+    ]
+    return cfg, prompts, 32
+
+
 # Serve slices a ``TPUFW_MODEL`` name may pick, so an entry point (a
 # disaggregated replica) serves the weights the smoke test draws in
 # process.
 SERVE_SLICES = {"llama3_8b_serve_slice": llama3_8b_serve_slice,
-                "mixtral_8x7b_serve_slice": mixtral_8x7b_serve_slice}
+                "mixtral_8x7b_serve_slice": mixtral_8x7b_serve_slice,
+                "deepseek_v2_lite_serve_slice": deepseek_v2_lite_serve_slice}
+# Train slices a ``TPUFW_MODEL`` name may pick: the train workload takes
+# the slice's trainer config as its defaults.
+TRAIN_SLICES = {"deepseek_v2_lite_train_slice": deepseek_v2_lite_train_slice}

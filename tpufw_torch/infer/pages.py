@@ -38,8 +38,11 @@ page-structured scales as stored) to the host spill tier, and a later
 prompt whose resident match ends where a spilled path continues gets its
 pages scattered back (``import_pages``) and re-adopted by the trie, so
 spill -> restore is bit-equal storage. The page state travels in
-``tpufw``'s bundle layout (the scanned Llama tree's leaf paths, layers
-stacked), so a page spilled by either package restores in the other.
+``tpufw``'s bundle layout (its cache tree's leaf paths: layers stacked, or
+one leaf per layer for a config whose tree is unscanned), so a page
+spilled by either package restores in the other. The pool takes a Llama
+family model (``PagedKVCache``: K and V) or a DeepSeek one
+(``PagedLatentCache``: the ckv and kpe latents) alike.
 
 Migration (``export_slot``/``splice_slot``, driven by
 ``tpufw_torch.serve.roles``): a live slot's pages and cursors leave one
@@ -66,24 +69,32 @@ from tpufw_torch.infer.generate import _on
 from tpufw_torch.infer.prefix import PrefixCache
 from tpufw_torch.infer.sampling import sample_token, track_seen
 from tpufw_torch.infer.slots import SlotPool
-from tpufw_torch.models.deepseek import reject_latent_model
 from tpufw_torch.ops.quant import dequantize_kv, quantize_kv
 
 
-# Bundle leaves of one layer's paged cache, in ``tpufw``'s flattened order:
-# (leaf name in ``tpufw``'s cache tree, PagedKVCache attribute). The
-# scales travel only with an int8 arena.
-_BUNDLE_LEAVES = (
-    ("cached_key", "key"),
-    ("cached_key_scale", "key_scale"),
-    ("cached_segment_ids", "seg"),
-    ("cached_value", "value"),
-    ("cached_value_scale", "value_scale"),
-)
 # Leaf paths of ``tpufw``'s scanned tree (every layer stacked on one
 # leading axis) and of its unscanned twin (one leaf per layer).
 _SCANNED_PATH = "['cache']['layers']['attn']['{}']"
 _LAYER_PATH = "['cache']['layer_{}']['attn']['{}']"
+
+
+def _is_int8(cache) -> bool:
+    """Whether a paged cache layer holds int8 codes (and their scales)."""
+    return getattr(cache, cache.FEATS[0] + "_scale") is not None
+
+
+def _bundle_leaves(cache) -> List[Tuple[str, str]]:
+    """(leaf name in ``tpufw``'s cache tree, cache attribute) of the
+    leaves of one paged layer that travel in a bundle, in ``tpufw``'s
+    flattened (sorted) order: each feature (``PagedKVCache``'s key and
+    value, ``PagedLatentCache``'s ckv and kpe), its scales with an int8
+    arena, and the segment ids."""
+    leaves = [("cached_segment_ids", "seg")]
+    for f in cache.FEATS:
+        leaves.append((f"cached_{f}", f))
+        if _is_int8(cache):
+            leaves.append((f"cached_{f}_scale", f"{f}_scale"))
+    return sorted(leaves)
 
 
 def _wire_array(t: torch.Tensor):
@@ -274,7 +285,6 @@ class PagedSlotPool(SlotPool):
         another pool's page-id space (a speculative draft pool riding the
         target's page budget): the two arenas are separate, so they must
         have the same number of pages."""
-        reject_latent_model(model, "PagedSlotPool")
         if n_pages is None:
             n_pages = n_slots * (cache_len // page) + 1
         if allocator is not None and allocator.n_pages != int(n_pages):
@@ -402,9 +412,39 @@ class PagedSlotPool(SlotPool):
         return cb
 
     def _bundle_leaves(self) -> List[Tuple[str, str]]:
-        quant = self.cache[0].key_scale is not None
-        return [(n, a) for n, a in _BUNDLE_LEAVES
-                if quant or not a.endswith("_scale")]
+        return _bundle_leaves(self.cache[0])
+
+    def _layer_order(self) -> Optional[List[int]]:
+        """None when bundles take ``tpufw``'s scanned paths; else the
+        layers in the order ``tpufw`` flattens its unscanned tree
+        (``layer_10`` sorts before ``layer_2``), for a config whose
+        ``tpufw`` tree is unscanned (``scan_layers=False``: DeepSeek with
+        leading dense layers)."""
+        if getattr(self.model.cfg, "scan_layers", True):
+            return None
+        return sorted(range(len(self.cache)), key=lambda i: f"layer_{i}")
+
+    def _wire_leaves(self, stacked) -> Tuple[list, list, list]:
+        """(paths, arrays, dtype names) of host tensors [layers, n, page,
+        ...], one per bundle leaf, in this model's ``tpufw`` layout."""
+        leaves = self._bundle_leaves()
+        order = self._layer_order()
+        paths, arrays, dtypes = [], [], []
+
+        def put(path, t):
+            a, dt = _wire_array(t)
+            paths.append(path)
+            arrays.append(a)
+            dtypes.append(dt)
+
+        if order is None:
+            for (name, _), t in zip(leaves, stacked):
+                put(_SCANNED_PATH.format(name), t)
+        else:
+            for i in order:
+                for (name, _), t in zip(leaves, stacked):
+                    put(_LAYER_PATH.format(i, name), t[i:i + 1])
+        return paths, arrays, dtypes
 
     @torch.no_grad()
     def export_pages_state(self, ids: Sequence[int]) -> Dict[str, Any]:
@@ -415,17 +455,13 @@ class PagedSlotPool(SlotPool):
         are zeroed placeholders that fill the bundle's required header
         fields; ``import_pages`` ignores them."""
         idx = _on(self.model, [int(i) for i in ids])
-        paths, arrays, dtypes = [], [], []
-        for name, attr in self._bundle_leaves():
-            t = torch.stack([getattr(c, attr)[idx] for c in self.cache])
-            a, dt = _wire_array(t.cpu())
-            paths.append(_SCANNED_PATH.format(name))
-            arrays.append(a)
-            dtypes.append(dt)
+        paths, arrays, dtypes = self._wire_leaves([
+            torch.stack([getattr(c, attr)[idx] for c in self.cache]).cpu()
+            for _, attr in self._bundle_leaves()
+        ])
         return {
             "page": self.page,
-            "kv_quant": "int8" if self.cache[0].key_scale is not None
-            else "",
+            "kv_quant": "int8" if _is_int8(self.cache[0]) else "",
             "n_pages": len(ids),
             "paths": paths,
             "arrays": arrays,
@@ -488,20 +524,15 @@ class PagedSlotPool(SlotPool):
         if self.seen is not None:
             region(len(leaves) + 1).copy_(self.seen[slot])
         buf = buf.cpu()  # the one host copy
-        paths, arrays, dtypes = [], [], []
-        for i, (name, _) in enumerate(leaves):
-            a, dt = _wire_array(region(i))
-            paths.append(_SCANNED_PATH.format(name))
-            arrays.append(a)
-            dtypes.append(dt)
+        paths, arrays, dtypes = self._wire_leaves(
+            [region(i) for i in range(len(leaves))])
         token, pos, remaining, done, cache_index = region(len(leaves)).tolist()
         seen = None
         if self.seen is not None:
             seen = region(len(leaves) + 1).numpy().astype(bool)
         return {
             "page": self.page,
-            "kv_quant": "int8" if self.cache[0].key_scale is not None
-            else "",
+            "kv_quant": "int8" if _is_int8(self.cache[0]) else "",
             "n_pages": len(ids),
             "paths": paths,
             "arrays": arrays,
@@ -526,7 +557,7 @@ class PagedSlotPool(SlotPool):
             raise ValueError(
                 f"{what} page size {state['page']} != pool page {self.page}"
             )
-        kv_quant = "int8" if self.cache[0].key_scale is not None else ""
+        kv_quant = "int8" if _is_int8(self.cache[0]) else ""
         if (state.get("kv_quant") or "") != kv_quant:
             raise ValueError(
                 f"{what} kv_quant {state.get('kv_quant')!r} != pool "
@@ -542,17 +573,17 @@ class PagedSlotPool(SlotPool):
         paths = list(state["paths"])
         arrays = list(state["arrays"])
         names = list(state.get("dtypes") or [a.dtype.name for a in arrays])
-        per_layer = [_LAYER_PATH.format(i, n) for i in range(n_layers)
+        by_path = {p: (a, d) for p, a, d in zip(paths, arrays, names)}
+        per_layer = [[_LAYER_PATH.format(i, n) for i in range(n_layers)]
                      for n, _ in leaves]
         if paths == [_SCANNED_PATH.format(n) for n, _ in leaves]:
             stacked = [_from_wire(a, d) for a, d in zip(arrays, names)]
-        elif paths == per_layer:
-            k = len(leaves)
-            stacked = [
-                torch.cat([_from_wire(arrays[i * k + j], names[i * k + j])
-                           for i in range(n_layers)])
-                for j in range(k)
-            ]
+        elif len(paths) == len(by_path) and set(paths) == {
+                p for ps in per_layer for p in ps}:
+            # One leaf per layer, in any layer order (tpufw flattens
+            # layer_10 before layer_2).
+            stacked = [torch.cat([_from_wire(*by_path[p]) for p in ps])
+                       for ps in per_layer]
         else:
             raise ValueError(
                 f"{what} leaf layout does not match this pool (got "
@@ -724,17 +755,15 @@ class PagedSlotPool(SlotPool):
         idx = torch.arange(start, stop, device=table_row.device)
         phys, off = table_row[idx // page], idx % page
         for pool, row in zip(self.cache, row_cache):
-            k, v = row.key[0, start:stop], row.value[0, start:stop]
-            if pool.key_scale is not None:
-                qk, sk = quantize_kv(k, n_feat=2)
-                qv, sv = quantize_kv(v, n_feat=2)
-                pool.key[phys, off] = qk
-                pool.value[phys, off] = qv
-                pool.key_scale[phys, off] = sk
-                pool.value_scale[phys, off] = sv
-            else:
-                pool.key[phys, off] = k.to(pool.key.dtype)
-                pool.value[phys, off] = v.to(pool.value.dtype)
+            quant = _is_int8(pool)
+            for f in pool.FEATS:
+                x = getattr(row, f)[0, start:stop]
+                if quant:
+                    q, sc = quantize_kv(x, n_feat=x.ndim - 1)
+                    getattr(pool, f)[phys, off] = q
+                    getattr(pool, f + "_scale")[phys, off] = sc
+                else:
+                    getattr(pool, f)[phys, off] = x.to(getattr(pool, f).dtype)
             pool.seg[phys, off] = row.seg[0, start:stop]
 
     @torch.no_grad()
@@ -750,12 +779,12 @@ class PagedSlotPool(SlotPool):
             return row
         ids = _on(self.model, list(shared_ids))
         for pool, r in zip(self.cache, row):
-            k, v = pool.key[ids], pool.value[ids]
-            if pool.key_scale is not None:
-                k = dequantize_kv(k, pool.key_scale[ids], r.key.dtype)
-                v = dequantize_kv(v, pool.value_scale[ids], r.value.dtype)
-            r.key[0, :n] = k.reshape(n, *k.shape[2:]).to(r.key.dtype)
-            r.value[0, :n] = v.reshape(n, *v.shape[2:]).to(r.value.dtype)
+            for f in pool.FEATS:
+                x, dst = getattr(pool, f)[ids], getattr(r, f)
+                if _is_int8(pool):
+                    x = dequantize_kv(x, getattr(pool, f + "_scale")[ids],
+                                      dst.dtype)
+                dst[0, :n] = x.reshape(n, *x.shape[2:]).to(dst.dtype)
             r.seg[0, :n] = pool.seg[ids].reshape(n)
             r.index = n
         return row

@@ -1,9 +1,10 @@
 """Slot pool for continuous batching (port of ``tpufw.infer.slots``).
 
 The KV cache is a pool of ``S`` slots with fixed shapes (``[S, cache_len,
-heads, dim]`` per layer) and per-slot cursors (``KVCache.index`` is an
-[S] tensor, so the model's cached attention writes each row at its own
-offset). Requests move through it at decode-step granularity:
+heads, dim]`` per layer, or DeepSeek's latents ``[S, cache_len, rank]``)
+and per-slot cursors (the cache's ``index`` is an [S] tensor, so the
+model's cached attention writes each row at its own offset). Requests
+move through it at decode-step granularity:
 
 - ``prefill_row`` runs one request's prompt through a B=1 cache (the
   shared prefill and first-token code of ``generate``);
@@ -32,7 +33,6 @@ import torch
 from tpufw_torch.infer.generate import _decode_step, _on, _prefill_and_first
 from tpufw_torch.infer.sampling import SamplingConfig, track_seen
 from tpufw_torch.infer.speculative import spec_draft_steps, spec_verify_steps
-from tpufw_torch.models.deepseek import reject_latent_model
 
 
 def pool_cache(model, n_slots: int, cache_len: Optional[int] = None) -> list:
@@ -104,7 +104,6 @@ class SlotPool:
         """A pool of ``n_slots`` empty slots of ``cache_len`` KV slots
         each (default the model's ``max_seq_len``) over ``model``'s
         weights."""
-        reject_latent_model(model, "SlotPool")
         dev = model.device
         seen = None
         if track_seen(sampling):
@@ -129,7 +128,7 @@ class SlotPool:
 
     @property
     def cache_len(self) -> int:
-        return int(self.cache[0].key.shape[1])
+        return int(self.cache[0].seg.shape[1])
 
     @torch.no_grad()
     def insert(self, slot: int, row_cache, first, pos0: int, budget: int,
@@ -137,8 +136,8 @@ class SlotPool:
         """Occupy ``slot`` with a prefilled row. ``budget`` is the number
         of decode steps left (max_new − 1: the first token is out)."""
         for pool, row in zip(self.cache, row_cache):
-            pool.key[slot].copy_(row.key[0])
-            pool.value[slot].copy_(row.value[0])
+            for f in pool.FEATS:
+                getattr(pool, f)[slot].copy_(getattr(row, f)[0])
             pool.seg[slot].copy_(row.seg[0])
             pool.index[slot] = row.index
         self.token[slot] = torch.as_tensor(first).reshape(())

@@ -62,7 +62,6 @@ from tpufw_torch.infer.sampling import (
     track_seen,
     transform_logits,
 )
-from tpufw_torch.models.deepseek import reject_latent_model
 
 _NEG = -1e30
 
@@ -153,8 +152,6 @@ def speculative_generate(
     caches' length (default each model's ``max_seq_len``), as in
     ``generate``.
     """
-    for m in (draft_model, model):
-        reject_latent_model(m, "speculative decoding")
     tokens = _on(model, prompt_tokens)
     pads = _on(model, pad_lens)
     b, p = tokens.shape

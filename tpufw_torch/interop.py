@@ -24,6 +24,10 @@ Layout facts of the JAX package it handles:
   ``DenseGeneral`` [D, E]) and the RAW expert stacks ``w_gate``/``w_up``
   [E, D, F] and ``w_down`` [E, F, D], which become the port's [E, out, in]
   (each expert transposed);
+- DeepSeek's MoE block holds ``mlp_norm`` and ``moe``: ``routed`` (a
+  Mixtral ``moe``: router and expert stacks) and ``shared`` (a SwiGLU
+  ``gate``/``up``/``down``), the port's ``moe.routed`` and ``moe.shared``;
+  a tree with leading dense layers is unscanned;
 - a tree from ``tpufw.ops.quant.quantize_params`` holds, for each
   projection and the untied ``lm_head``, ``{"q_kernel" [in, *out] int8,
   "scale" [*out]}`` (plus the Qwen ``bias``); it becomes the port's int8
@@ -82,9 +86,19 @@ def _block(tree: dict, prefix: str, out: dict) -> None:
             out[f"{prefix}.attn.{norm}.weight"] = _t(attn[norm]["scale"])
     if "kv_b_kernel" in attn:
         out[f"{prefix}.attn.kv_b_kernel"] = _t(attn["kv_b_kernel"])
-    if "moe" in tree:
+    if "moe" in tree and "routed" in tree["moe"]:
+        _moe(tree["moe"]["routed"], f"{prefix}.moe.routed", out)
+        if "shared" in tree["moe"]:
+            _block_projs(tree["moe"], f"{prefix}.moe",
+                         {"shared": _PROJ["mlp"]}, out)
+    elif "moe" in tree:
         _moe(tree["moe"], f"{prefix}.moe", out)
-    for mod, names in _PROJ.items():
+    _block_projs(tree, prefix, _PROJ, out)
+
+
+def _block_projs(tree: dict, prefix: str, projs: dict, out: dict) -> None:
+    """The projections ``projs`` ({module: names}) of ``tree``."""
+    for mod, names in projs.items():
         for name in names:
             if name not in tree.get(mod, {}):
                 continue

@@ -1,11 +1,13 @@
 """Model families of the port: Llama-3 (with Mistral and Qwen-2 on the
 same trunk), Mixtral (sparse MoE on the Llama trunk), Gemma-2 and
-DeepSeek-V2's dense MLA family."""
+DeepSeek-V2 (MLA, with a dense or MoE FFN)."""
 
 from tpufw_torch.models.deepseek import (  # noqa: F401
     DEEPSEEK_CONFIGS,
     Deepseek,
     DeepseekConfig,
+    LatentCache,
+    PagedLatentCache,
 )
 from tpufw_torch.models.gemma import (  # noqa: F401
     GEMMA_CONFIGS,

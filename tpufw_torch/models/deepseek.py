@@ -1,4 +1,4 @@
-"""DeepSeek-V2 family, dense FFN, in PyTorch (port of ``tpufw.models.deepseek``).
+"""DeepSeek-V2 family in PyTorch (port of ``tpufw.models.deepseek``).
 
 Multi-head Latent Attention (MLA) on the Llama trunk
 (``tpufw_torch.models.llama``: embedding, RMSNorm, SwiGLU ``MLP``,
@@ -15,27 +15,38 @@ Multi-head Latent Attention (MLA) on the Llama trunk
 - **Training** runs the expanded form: k = [k_nope | k_pe on every head],
   q = [q_nope | q_pe], scale ``qk_head_dim ** -0.5``. On the ``flash``
   backend V is zero-padded to the qk head dim and the output sliced back,
-  so the CUDA kernels see one head dim (192 for ``deepseek_mla_bench``).
+  so the CUDA kernels see one head dim (192 at V2-Lite's widths).
 - **Decode** (``cfg.decode_config()`` with ``cache=``) runs the absorbed
-  form over a ``LatentCache``: ``W_uk`` is folded into the query so the
+  form over a latent cache: ``W_uk`` is folded into the query so the
   scores are taken in latent space (fp32), and ``W_uv`` is applied once to
   the attention-weighted latents. The cache holds ``c_kv`` and the roped
   ``k_pe`` per token, 576 values for V2-Lite's widths against Llama-8B's
-  2048.
+  2048, in one of three forms: ``LatentCache`` with one cursor (batch
+  generation) or per-row cursors (the slot pool), or ``PagedLatentCache``
+  (an arena of pages shared by the rows, bf16 or int8 with one fp32 scale
+  per token and leaf).
+- **MoE FFN** (``n_routed_experts > 0``): from layer ``first_k_dense`` on,
+  the block's FFN is ``DeepseekMoE``, fine-grained routed experts on
+  Mixtral's ``MoEMLP`` (raw softmax top-k gates unless
+  ``norm_topk_prob``, optional group-limited selection, times
+  ``routed_scaling_factor``) plus the shared experts fused into one SwiGLU
+  of ``n_shared_experts * moe_d_ff``. ``forward(return_aux=True)`` also
+  returns the router losses summed over the MoE layers and divided by
+  ``n_layers``, dense layers included, as ``tpufw`` divides them.
 
-Differs from the JAX package: there is no ``scan_layers`` (the blocks are
-one ``nn.ModuleList``; ``tpufw_torch.interop.params_from_flax`` takes
-scanned and unscanned trees). Not ported yet, and refused with
-``NotImplementedError`` (``_reject_unported``): the MoE FFN, paged latent
-arenas and per-row cursors (the slot pools), and the sequence-parallel
-backends.
+Differs from the JAX package: the blocks are one ``nn.ModuleList`` either
+way; ``scan_layers`` names the layout of ``tpufw``'s tree for this config
+(``tpufw_torch.interop.params_from_flax`` takes both), which the page
+bundles follow. Not ported yet, and refused with ``NotImplementedError``:
+the sequence-parallel backends.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import ClassVar, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -47,7 +58,9 @@ from tpufw_torch.models.llama import (
     RMSNorm,
     _projection,
 )
+from tpufw_torch.models.mixtral import MoEMLP
 from tpufw_torch.ops import multi_head_attention
+from tpufw_torch.ops.quant import dequantize_kv, quantize_kv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,22 +122,30 @@ class DeepseekConfig:
     # "xla" (plain attention) or "flash" (the CUDA kernels, V zero-padded
     # to qk_head_dim); "ring"/"ulysses" are refused (multi-GPU).
     attention_backend: str = "xla"
-    # Kept for the MoE port (ROADMAP.md Queue 1 item 10).
+    # "einsum" (one-hot dispatch) or "sorted" (grouped matmuls); int8
+    # expert stacks always run einsum.
     moe_dispatch: str = "einsum"
     # Checkpoint each block in training, keeping what remat_policy names
     # (tpufw_torch.models.llama.REMAT_POLICIES).
     remat: bool = True
     remat_policy: str = "dots"
+    # The layout of tpufw's tree for this config: layers stacked (True)
+    # or one subtree per layer, which a mixed dense/MoE stack needs. The
+    # port's blocks are a ModuleList either way; page bundles take the
+    # matching leaf paths.
+    scan_layers: bool = True
     decode: bool = False
     tie_embeddings: bool = False
-    # Int8 projection weights + fp32 per-output-channel scales (serving);
-    # kv_b_kernel, the norms and the embedding stay in floating point.
+    # Int8 projection weights + fp32 per-output-channel scales (serving),
+    # the routed and shared experts included; kv_b_kernel, the routers,
+    # the norms and the embedding stay in floating point.
     quantized_weights: bool = False
-    # Paged latent arenas: refused (the slot pools are not ported for MLA).
+    # Must stay off: the paging belongs to the cache here
+    # (Deepseek.init_paged_cache), as for Llama.
     kv_page: int = 0
     kv_pages: int = 0
     kv_quant: str = ""
-    # --- MoE FFN (refused when n_routed_experts > 0) ---
+    # --- MoE FFN (0 routed experts = dense everywhere) ---
     n_routed_experts: int = 0
     experts_per_token: int = 6
     moe_d_ff: int = 1408
@@ -139,8 +160,21 @@ class DeepseekConfig:
     router_z_weight: float = 1e-3
 
     @property
+    def n_experts(self) -> int:
+        """Alias: ``MoEMLP`` reads ``cfg.n_experts``."""
+        return self.n_routed_experts
+
+    @property
     def moe(self) -> bool:
         return self.n_routed_experts > 0
+
+    def __post_init__(self):
+        if self.moe and self.first_k_dense > 0 and self.scan_layers:
+            raise ValueError(
+                "first_k_dense > 0 mixes dense and MoE layers, which "
+                "tpufw's layer scan cannot stack; set scan_layers=False "
+                "(imports do)"
+            )
 
     @property
     def qk_head_dim(self) -> int:
@@ -207,10 +241,13 @@ class DeepseekConfig:
         return 6.0 * n_matmul + score
 
 
+@functools.lru_cache(maxsize=16)
 def _yarn_freqs(d: int, theta: float, s: YarnScaling,
                 device=None) -> torch.Tensor:
     """[d/2] fp32 yarn inverse frequencies (transformers
-    ``_compute_yarn_parameters``, truncate semantics included)."""
+    ``_compute_yarn_parameters``, truncate semantics included), computed
+    once per (d, theta, scaling, device): every layer's q and k rope of
+    every decode step reads them. Callers must not modify the result."""
     exps = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
     pos_freqs = theta ** exps
     inv_extra = 1.0 / pos_freqs
@@ -279,26 +316,51 @@ class LatentCache:
     ``cached_kpe``, ``cached_segment_ids`` and ``cache_index``): ``ckv``
     [B, S, kv_lora_rank] and the roped ``kpe`` [B, S, qk_rope_head_dim] in
     ``cfg.dtype``; ``seg`` [B, S] int32, 0 for slots never written (and
-    prompt padding); ``index`` the next slot to write, one int for every
-    row."""
+    prompt padding); ``index`` the next slot to write: one int for every
+    row, or a [B] tensor of per-row cursors (the slot pool's)."""
 
     ckv: torch.Tensor
     kpe: torch.Tensor
     seg: torch.Tensor
-    index: int
+    index: Union[int, torch.Tensor]
+
+    # The per-token feature tensors, which the pools copy and page.
+    FEATS: ClassVar[tuple] = ("ckv", "kpe")
+
+
+@dataclasses.dataclass
+class PagedLatentCache:
+    """One layer's paged latent cache (``tpufw``'s ``kv_page > 0`` latent
+    leaves): ``ckv`` [n_pages, page, kv_lora_rank] and ``kpe`` [n_pages,
+    page, qk_rope_head_dim] arenas shared by every row, in ``cfg.dtype`` or
+    int8 with one fp32 scale per token and leaf (``ckv_scale``,
+    ``kpe_scale`` [n_pages, page]); ``seg`` [n_pages, page]; ``table``
+    [B, length // page] (one tensor, shared by every layer); ``index`` the
+    [B] per-row cursors. Page 0 is the junk sink that unmapped table
+    entries point at. The prompt is prefilled through a contiguous
+    ``LatentCache`` and scattered into pages by ``tpufw_torch.infer.pages``."""
+
+    ckv: torch.Tensor
+    kpe: torch.Tensor
+    seg: torch.Tensor
+    table: torch.Tensor
+    index: torch.Tensor
+    ckv_scale: Optional[torch.Tensor] = None
+    kpe_scale: Optional[torch.Tensor] = None
+
+    FEATS: ClassVar[tuple] = ("ckv", "kpe")
+
+    @property
+    def page(self) -> int:
+        return self.ckv.shape[1]
+
+    @property
+    def length(self) -> int:
+        """Logical slots per row."""
+        return self.table.shape[1] * self.page
 
 
 def _reject_unported(cfg: DeepseekConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            "DeepseekConfig.n_routed_experts > 0: the DeepSeek MoE FFN comes "
-            "with ops/moe.py (ROADMAP.md Queue 1 item 10)"
-        )
-    if cfg.kv_page:
-        raise NotImplementedError(
-            "DeepseekConfig.kv_page: paged latent arenas are not ported to "
-            "tpufw_torch yet (ROADMAP.md Queue 1 item 10)"
-        )
     if cfg.attention_backend in ("ring", "ulysses"):
         raise NotImplementedError(
             f"MLA attention backend {cfg.attention_backend!r} is "
@@ -309,18 +371,6 @@ def _reject_unported(cfg: DeepseekConfig) -> None:
         raise NotImplementedError(
             "MLA attention backends: 'xla', 'flash', 'ring', or 'ulysses'; "
             f"got {cfg.attention_backend!r}"
-        )
-
-
-def reject_latent_model(model, what: str) -> None:
-    """Raise for a DeepSeek model handed to a serving path that keeps a
-    slot pool, pages or a speculative cache: its latent cache has only the
-    contiguous scalar-cursor form here."""
-    if isinstance(model, Deepseek):
-        raise NotImplementedError(
-            f"{what} with a DeepSeek model: the latent cache has no slot "
-            "pool, paged arena or speculative rollback in tpufw_torch yet "
-            "(ROADMAP.md Queue 1 item 10); serve it through run_batch"
         )
 
 
@@ -403,65 +453,164 @@ class MLAttention(nn.Module):
         return self.o(out.reshape(b, t, h * dv))
 
     def _absorbed_cached_attention(self, q_nope, q_pe, c_kv, k_pe,
-                                   segment_ids, cache: LatentCache):
+                                   segment_ids, cache):
         """Write this call's latents at the cache cursor, then attend in
         latent space: q_lat = q_nope · W_uk, scores (fp32) = (q_lat ·
         c_kvᵀ + q_pe · k_peᵀ) · qk_head_dim**-0.5, causal over cache slots
         (RoPE positions lag slots under left padding) and by segment, then
-        ctx = probs · c_kv and one W_uv."""
+        ctx = probs · c_kv and one W_uv. With per-row cursors (contiguous
+        or paged) the write window is clamped to ``S - t``, as Llama's
+        cached attention clamps it: a done row that is still stepped
+        writes in bounds, and its output is masked by the caller."""
         cfg = self.cfg
         b, t = q_nope.shape[:2]
-        dn = cfg.qk_nope_head_dim
-        s = cache.ckv.shape[1]
         dev = q_nope.device
         seg = (
             torch.ones(b, t, dtype=torch.int32, device=dev)
             if segment_ids is None else segment_ids.to(torch.int32)
         )
-        cur = cache.index
-        if cur + t > s:
-            raise ValueError(
-                f"latent cache overflow: writing {t} tokens at slot {cur} "
-                f"of {s}"
-            )
-        cache.ckv[:, cur:cur + t] = c_kv.to(cache.ckv.dtype)
-        cache.kpe[:, cur:cur + t] = k_pe.to(cache.kpe.dtype)
-        cache.seg[:, cur:cur + t] = seg
-        cache.index = cur + t
-
+        if isinstance(cache, PagedLatentCache):
+            ckv_all, kpe_all, cseg_all, slots = self._paged_write(
+                c_kv, k_pe, seg, cache)
+        else:
+            ckv_all, kpe_all, cseg_all, slots = self._contiguous_write(
+                c_kv, k_pe, seg, cache)
+        s = ckv_all.shape[1]
+        dn = cfg.qk_nope_head_dim
         kv_b = self.kv_b_kernel.to(cfg.dtype)
         w_uk, w_uv = kv_b[..., :dn], kv_b[..., dn:]  # [kvr, H, dn / dv]
         q_lat = torch.einsum("bthd,rhd->bthr", q_nope.to(cfg.dtype), w_uk)
         logits = (
-            torch.einsum("bthr,bsr->bhts", q_lat.float(), cache.ckv.float())
+            torch.einsum("bthr,bsr->bhts", q_lat.float(), ckv_all.float())
             + torch.einsum("bthd,bsd->bhts", q_pe.to(cfg.dtype).float(),
-                           cache.kpe.float())
+                           kpe_all.float())
         ) * (float(cfg.qk_head_dim) ** -0.5)
-        slot = (cur + torch.arange(t, device=dev))[:, None]
-        mask = slot >= torch.arange(s, device=dev)[None, :]  # [T, S]
-        seg_mask = seg[:, :, None] == cache.seg[:, None, :]  # [B, T, S]
-        logits = torch.where((mask[None] & seg_mask)[:, None], logits, -1e30)
+        mask = slots[:, :, None] >= torch.arange(s, device=dev)  # [B, T, S]
+        seg_mask = seg[:, :, None] == cseg_all[:, None, :]  # [B, T, S]
+        logits = torch.where((mask & seg_mask)[:, None], logits, -1e30)
         probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
-        ctx_lat = torch.einsum("bhts,bsr->bthr", probs, cache.ckv)
+        ctx_lat = torch.einsum("bhts,bsr->bthr", probs, ckv_all)
         return torch.einsum("bthr,rhd->bthd", ctx_lat, w_uv)
+
+    def _contiguous_write(self, c_kv, k_pe, seg, cache: LatentCache):
+        """Write at the cursor(s) of a contiguous cache: (ckv, kpe, seg of
+        the whole cache, the [B, t] slots written)."""
+        b, t = seg.shape
+        s = cache.ckv.shape[1]
+        dev = seg.device
+        cur = cache.index
+        if isinstance(cur, int):
+            if cur + t > s:
+                raise ValueError(
+                    f"latent cache overflow: writing {t} tokens at slot "
+                    f"{cur} of {s}"
+                )
+            cache.ckv[:, cur:cur + t] = c_kv.to(cache.ckv.dtype)
+            cache.kpe[:, cur:cur + t] = k_pe.to(cache.kpe.dtype)
+            cache.seg[:, cur:cur + t] = seg
+            slots = (cur + torch.arange(t, device=dev)).expand(b, t)
+        else:
+            slots = (torch.clamp(cur, max=s - t)[:, None]
+                     + torch.arange(t, device=dev)[None, :])
+            rows = torch.arange(b, device=dev)[:, None]
+            cache.ckv[rows, slots] = c_kv.to(cache.ckv.dtype)
+            cache.kpe[rows, slots] = k_pe.to(cache.kpe.dtype)
+            cache.seg[rows, slots] = seg
+        cache.index = cur + t
+        return cache.ckv, cache.kpe, cache.seg, slots
+
+    def _paged_write(self, c_kv, k_pe, seg, cache: PagedLatentCache):
+        """Scatter through the page table (quantized per token for an int8
+        arena), then gather every row's logical [S] view in slot order;
+        unmapped entries read page 0, whose junk sits past the cursor where
+        the causal mask hides it."""
+        cfg = self.cfg
+        b, t = seg.shape
+        s, page = cache.length, cache.page
+        dev = seg.device
+        wslot = (torch.clamp(cache.index, max=s - t)[:, None]
+                 + torch.arange(t, device=dev)[None, :])
+        phys = cache.table[torch.arange(b, device=dev)[:, None],
+                           wslot // page]
+        off = wslot % page
+        quant = cache.ckv_scale is not None
+        if quant:
+            qc, sc = quantize_kv(c_kv, n_feat=1)
+            qp, sp = quantize_kv(k_pe, n_feat=1)
+            cache.ckv[phys, off] = qc
+            cache.kpe[phys, off] = qp
+            cache.ckv_scale[phys, off] = sc
+            cache.kpe_scale[phys, off] = sp
+        else:
+            cache.ckv[phys, off] = c_kv.to(cache.ckv.dtype)
+            cache.kpe[phys, off] = k_pe.to(cache.kpe.dtype)
+        cache.seg[phys, off] = seg
+        cache.index = cache.index + t
+        idx = cache.table
+        if quant:
+            ckv_all = dequantize_kv(cache.ckv[idx], cache.ckv_scale[idx],
+                                    cfg.dtype)
+            kpe_all = dequantize_kv(cache.kpe[idx], cache.kpe_scale[idx],
+                                    cfg.dtype)
+        else:
+            ckv_all, kpe_all = cache.ckv[idx], cache.kpe[idx]
+        return (ckv_all.reshape(b, s, -1), kpe_all.reshape(b, s, -1),
+                cache.seg[idx].reshape(b, s), wslot)
+
+
+class DeepseekMoE(nn.Module):
+    """DeepSeek's MoE FFN: fine-grained routed experts (``MoEMLP`` of
+    ``moe_d_ff``, the V2 gate conventions) times ``routed_scaling_factor``,
+    plus the shared experts fused into one SwiGLU of ``moe_d_ff *
+    n_shared_experts``. ``forward(x, valid)`` returns (y, aux)."""
+
+    def __init__(self, cfg: DeepseekConfig, gen, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.routed = MoEMLP(
+            cfg, gen, device, d_ff=cfg.moe_d_ff, norm_topk=cfg.norm_topk_prob,
+            group_limit=(cfg.n_group, cfg.topk_group) if cfg.n_group else None,
+        )
+        self.shared = (
+            MLP(cfg, gen, device, d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+            if cfg.n_shared_experts else None
+        )
+
+    def forward(self, x, valid=None):
+        y, aux = self.routed(x, valid)
+        y = y * self.cfg.routed_scaling_factor
+        if self.shared is not None:
+            y = y + self.shared(x)
+        return y, aux
 
 
 class DeepseekBlock(nn.Module):
-    """RMSNorm -> MLA -> residual -> RMSNorm -> SwiGLU MLP -> residual."""
+    """RMSNorm -> MLA -> residual -> RMSNorm -> FFN -> residual. The FFN is
+    ``DeepseekMoE`` for a MoE config from layer ``first_k_dense`` on, and
+    then ``merge`` returns (x, aux) with the MoE's valid rows
+    ``segment_ids > 0``; else the dense SwiGLU ``MLP``."""
 
-    def __init__(self, cfg: DeepseekConfig, gen, device=None):
+    def __init__(self, cfg: DeepseekConfig, gen, device=None, index: int = 0):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.attn = MLAttention(cfg, gen, device)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
-        self.mlp = MLP(cfg, gen, device)
+        if cfg.moe and index >= cfg.first_k_dense:
+            self.moe = DeepseekMoE(cfg, gen, device)
+        else:
+            self.mlp = MLP(cfg, gen, device)
 
     def attend(self, x, positions, segment_ids=None, cache=None):
         return self.attn(self.attn_norm(x), positions, segment_ids, cache)
 
     def merge(self, x, a, segment_ids=None):
         x = x + a
-        return x + self.mlp(self.mlp_norm(x))
+        h = self.mlp_norm(x)
+        if hasattr(self, "moe"):
+            valid = None if segment_ids is None else segment_ids > 0
+            y, aux = self.moe(h, valid)
+            return x + y, aux
+        return x + self.mlp(h)
 
     def forward(self, x, positions, segment_ids=None, cache=None):
         return self.merge(x, self.attend(x, positions, segment_ids, cache),
@@ -469,10 +618,13 @@ class DeepseekBlock(nn.Module):
 
 
 class Deepseek(Llama):
-    """Decoder-only DeepSeek-V2 LM with a dense FFN: ``Llama``'s trunk
-    (embedding, remat, final norm, untied fp32 head, chunked-loss hidden
-    states) over ``DeepseekBlock`` layers. A decode model takes ``cache=``,
-    the per-layer ``LatentCache`` list of ``init_cache``."""
+    """Decoder-only DeepSeek-V2 LM: ``Llama``'s trunk (embedding, remat,
+    final norm, untied fp32 head, chunked-loss hidden states) over
+    ``DeepseekBlock`` layers. ``forward`` returns what ``Llama.forward``
+    does, and with ``return_aux=True`` also the router losses summed over
+    the layers and divided by ``n_layers`` (zero for a dense config). A
+    decode model takes ``cache=``, the per-layer caches of ``init_cache``
+    or ``init_paged_cache``."""
 
     def __init__(self, cfg: DeepseekConfig, device=None, seed: int = 0):
         _reject_unported(cfg)
@@ -480,19 +632,26 @@ class Deepseek(Llama):
 
     @staticmethod
     def _block(cfg, gen, device, index: int) -> nn.Module:
-        return DeepseekBlock(cfg, gen, device)
+        return DeepseekBlock(cfg, gen, device, index)
+
+    def forward(
+        self, tokens, positions=None, segment_ids=None, return_hidden=False,
+        cache=None, return_aux=False,
+    ):
+        x, aux = self._trunk(tokens, positions, segment_ids, cache)
+        out = x if return_hidden else self._head(x)
+        if not return_aux:
+            return out
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return out, aux / self.cfg.n_layers
 
     def init_cache(
         self, batch: int, per_row: bool = False, length: Optional[int] = None
     ) -> list[LatentCache]:
         """Zeroed per-layer latent caches of ``length`` slots (default
-        ``cfg.max_seq_len``) for ``batch`` rows, one scalar cursor."""
-        if per_row:
-            raise NotImplementedError(
-                "per-row cursors over a DeepSeek latent cache (the slot "
-                "pool's) are not ported to tpufw_torch yet (ROADMAP.md "
-                "Queue 1 item 10)"
-            )
+        ``cfg.max_seq_len``) for ``batch`` rows; ``per_row`` gives each row
+        its own cursor (the slot pool's)."""
         cfg, dev = self.cfg, self.device
         length = cfg.max_seq_len if length is None else int(length)
         if not 0 < length <= cfg.max_seq_len:
@@ -507,7 +666,54 @@ class Deepseek(Llama):
                 kpe=torch.zeros(batch, length, cfg.qk_rope_head_dim,
                                 dtype=cfg.dtype, device=dev),
                 seg=torch.zeros(batch, length, dtype=torch.int32, device=dev),
-                index=0,
+                index=(
+                    torch.zeros(batch, dtype=torch.long, device=dev)
+                    if per_row else 0
+                ),
+            )
+            for _ in range(cfg.n_layers)
+        ]
+
+    def init_paged_cache(
+        self, batch: int, length: int, page: int, n_pages: int,
+        kv_quant: str = "",
+    ) -> list[PagedLatentCache]:
+        """Zeroed per-layer paged latent caches: ckv/kpe arenas of
+        ``n_pages`` pages of ``page`` slots per layer (page 0 reserved),
+        one page table [batch, length // page] shared by every layer,
+        per-row cursors; ``kv_quant="int8"`` stores int8 codes with fp32
+        per-token scales. Zeros are safe initial state: segment 0
+        everywhere, and every table entry points at page 0."""
+        cfg, dev = self.cfg, self.device
+        if length > cfg.max_seq_len or length % page:
+            raise ValueError(
+                f"kv_page={page} must divide the cache length {length} "
+                f"(<= max_seq_len={cfg.max_seq_len})"
+            )
+        if kv_quant not in ("", "int8"):
+            raise ValueError(f"kv_quant={kv_quant!r}: expected '' or 'int8'")
+        quant = kv_quant == "int8"
+        dtype = torch.int8 if quant else cfg.dtype
+        table = torch.zeros(batch, length // page, dtype=torch.long,
+                            device=dev)
+
+        def scale():
+            if not quant:
+                return None
+            return torch.zeros(n_pages, page, dtype=torch.float32, device=dev)
+
+        return [
+            PagedLatentCache(
+                ckv=torch.zeros(n_pages, page, cfg.kv_lora_rank, dtype=dtype,
+                                device=dev),
+                kpe=torch.zeros(n_pages, page, cfg.qk_rope_head_dim,
+                                dtype=dtype, device=dev),
+                seg=torch.zeros(n_pages, page, dtype=torch.int32,
+                                device=dev),
+                table=table,
+                index=torch.zeros(batch, dtype=torch.long, device=dev),
+                ckv_scale=scale(),
+                kpe_scale=scale(),
             )
             for _ in range(cfg.n_layers)
         ]
@@ -543,8 +749,7 @@ DEEPSEEK_CONFIGS: dict[str, DeepseekConfig] = {
         max_seq_len=128,
         remat=False,
     ),
-    # MoE test preset (4 routed experts top-2 + 1 shared): refused by the
-    # model until the MoE FFN is ported.
+    # MoE test preset: 4 routed experts top-2 + 1 shared, every layer MoE.
     "deepseek_moe_tiny": DeepseekConfig(
         vocab_size=256,
         d_model=64,

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Union
+from typing import ClassVar, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -396,6 +396,9 @@ class KVCache:
     seg: torch.Tensor
     index: Union[int, torch.Tensor]
 
+    # The per-token feature tensors, which the pools copy and page.
+    FEATS: ClassVar[tuple] = ("key", "value")
+
 
 @dataclasses.dataclass
 class PagedKVCache:
@@ -417,6 +420,9 @@ class PagedKVCache:
     index: torch.Tensor
     key_scale: Optional[torch.Tensor] = None
     value_scale: Optional[torch.Tensor] = None
+
+    # Each feature ``f`` has its int8 scales under ``f + "_scale"``.
+    FEATS: ClassVar[tuple] = ("key", "value")
 
     @property
     def page(self) -> int:
@@ -603,11 +609,12 @@ class Attention(nn.Module):
 
 class MLP(nn.Module):
     """Gated feed-forward: SwiGLU, or GeGLU with ``mlp_activation=
-    "gelu_tanh"`` (Gemma; the tanh-approximate gelu)."""
+    "gelu_tanh"`` (Gemma; the tanh-approximate gelu). ``d_ff`` overrides
+    the config's width (DeepSeek's shared experts)."""
 
-    def __init__(self, cfg: LlamaConfig, gen, device=None):
+    def __init__(self, cfg: LlamaConfig, gen, device=None, d_ff=None):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         act = getattr(cfg, "mlp_activation", "silu")
         if act == "silu":
             self.act = F.silu

@@ -143,12 +143,12 @@ def route_topk_capacity(
     dev = router_logits.device
     dispatch = torch.zeros(g, e, capacity, dtype=dtype, device=dev)
     combine = torch.zeros_like(dispatch)
-    rows = torch.arange(g, device=dev)
-    gates = topk_probs.to(dtype)
-    for j in range(k):
-        w = keep[:, j].to(dtype)
-        dispatch[rows, topk_idx[:, j], slot[:, j]] += w
-        combine[rows, topk_idx[:, j], slot[:, j]] += w * gates[:, j]
+    # A token's k experts are distinct, so its k (row, expert, slot)
+    # targets are too: one write of all G*k, no accumulation.
+    rows = torch.arange(g, device=dev)[:, None].expand(g, k)
+    w = keep.to(dtype)
+    dispatch[rows, topk_idx, slot] = w
+    combine[rows, topk_idx, slot] = w * topk_probs.to(dtype)
 
     top1_mask = mask[:, 0, :]  # [G, E], zero on invalid rows
     aux_lb, z = _router_stats(router_logits, probs, top1_mask, validf, g)

@@ -7,11 +7,11 @@ activation dtype: the int8 codes are cast, multiplied, and the scale is
 applied to the product (exact for per-output-channel scales).
 
 Scope, as in the JAX package: the attention q/k/v/o (MLA's q or q_a/q_b,
-kv_a and o) and MLP gate/up/down weights of every block, Mixtral's expert
-stacks and the untied LM head. Embeddings and norms stay in floating
-point, and so do the Qwen q/k/v biases, Mixtral's router and MLA's raw
-``kv_b_kernel`` (small, and the absorbed decode contracts its halves
-separately).
+kv_a and o) and MLP gate/up/down weights of every block, the expert stacks
+(Mixtral's, DeepSeek's routed ones) and DeepSeek's shared-expert MLP, and
+the untied LM head. Embeddings and norms stay in floating point, and so do
+the Qwen q/k/v biases, the routers and MLA's raw ``kv_b_kernel`` (small,
+and the absorbed decode contracts its halves separately).
 
 Layout is PyTorch's: a weight is [out, in], so its scale is [out] and is
 reduced over dim 1; an expert stack is [E, out, in], its scale [E, out]. The rounding rule is ``jnp.round``'s, half to even,
@@ -26,11 +26,13 @@ import torch
 
 #: State-dict keys of the projection weights that are quantized.
 _PROJ_KEY = re.compile(
-    r"^layers\.\d+\.(attn\.(q|k|v|o|q_a|q_b|kv_a)|mlp\.(gate|up|down))"
-    r"\.weight$"
+    r"^layers\.\d+\.(attn\.(q|k|v|o|q_a|q_b|kv_a)"
+    r"|(mlp|moe\.shared)\.(gate|up|down))\.weight$"
 )
-#: State-dict keys of the expert stacks (Mixtral's raw [E, out, in]).
-_EXPERT_KEY = re.compile(r"^layers\.\d+\.moe\.(w_gate|w_up|w_down)$")
+#: State-dict keys of the expert stacks ([E, out, in]: Mixtral's
+#: ``moe.w_*``, DeepSeek's routed ``moe.routed.w_*``).
+_EXPERT_KEY = re.compile(
+    r"^layers\.\d+\.moe\.(routed\.)?(w_gate|w_up|w_down)$")
 
 
 def quantize_kernel(w: torch.Tensor, in_axes: tuple) -> dict:
@@ -83,8 +85,8 @@ def quantize_params(state_dict: dict) -> dict:
         raise ValueError(
             "quantize_params: no projection weights found (expected "
             "layers.N.attn.{q,k,v,o,q_a,q_b,kv_a}.weight, "
-            "layers.N.mlp.{gate,up,down}.weight, "
-            "layers.N.moe.{w_gate,w_up,w_down} or lm_head)"
+            "layers.N.{mlp,moe.shared}.{gate,up,down}.weight, "
+            "layers.N.moe[.routed].{w_gate,w_up,w_down} or lm_head)"
         )
     return out
 

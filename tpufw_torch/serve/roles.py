@@ -17,10 +17,9 @@ the paged pool's arena made literal:
   never-migrated run of the same pool.
 
 Unlike ``tpufw``, a pool here needs no model of its own: the cache owns
-its paging (``Llama.init_paged_cache``), so one set of weights serves
-the prefill and decode arenas of a process. A DeepSeek model raises
-``NotImplementedError`` (its latent cache has no paged pool yet,
-ROADMAP.md Queue 1 item 10).
+its paging (``Llama.init_paged_cache``, ``Deepseek.init_paged_cache``
+for the latent arenas), so one set of weights serves the prefill and
+decode arenas of a process.
 
 Random streams follow the port's slot scheduler
 (``workloads.serve.stream_generator``): a prefill draws from
@@ -79,14 +78,12 @@ ROLES = ("prefill", "decode", "router")
 
 
 def _paged_pool(model, *, n_slots, page, kv_quant, arena_pages, sampling,
-                eos_id, prefix_cache, what):
+                eos_id, prefix_cache):
     """A ``PagedSlotPool`` over ``model``'s weights at its full sequence
     length, with an arena of ``arena_pages`` pages (default: every slot's
     full row plus the reserved page 0)."""
     from tpufw_torch.infer.pages import PagedSlotPool
-    from tpufw_torch.models.deepseek import reject_latent_model
 
-    reject_latent_model(model, what)
     cache_len = int(model.cfg.max_seq_len)
     if page <= 0 or cache_len % page:
         raise ValueError(
@@ -167,7 +164,7 @@ class PrefillEngine:
         self.pool = _paged_pool(
             model, n_slots=n_slots, page=page, kv_quant=kv_quant,
             arena_pages=arena_pages, sampling=sampling, eos_id=eos_id,
-            prefix_cache=prefix_cache, what="PrefillEngine",
+            prefix_cache=prefix_cache,
         )
         self.page = page
         self.n_slots = n_slots
@@ -598,7 +595,7 @@ class DecodeEngine:
         self.pool = _paged_pool(
             model, n_slots=n_slots, page=page, kv_quant=kv_quant,
             arena_pages=arena_pages, sampling=sampling, eos_id=eos_id,
-            prefix_cache=piggy, what="DecodeEngine",
+            prefix_cache=piggy,
         )
         self.page = page
         self.n_slots = n_slots

@@ -1,8 +1,8 @@
 """HuggingFace checkpoints in and out of the port (port of
 ``tpufw.tools.import_hf``) for its four families: Llama (with Mistral's
 window, Qwen-2's q/k/v biases and ``llama3``/``linear`` rope scaling),
-Mixtral, Gemma-2 and DeepSeek-V2 with the dense FFN (MLA with and without
-``q_lora_rank``, yarn rope).
+Mixtral, Gemma-2 and DeepSeek-V2 (MLA with and without ``q_lora_rank``,
+yarn rope, the dense FFN or the MoE FFN with leading dense layers).
 
 HF ``nn.Linear`` weights and the port's are both [out, in], so the mapping
 is a renaming; the one reshape is DeepSeek's ``kv_b_proj`` [H·(nope+v),
@@ -10,8 +10,11 @@ kv_lora_rank], which the port keeps raw as ``kv_b_kernel`` [kv_lora_rank,
 H, nope+v] (``tpufw_torch.interop``). A Mixtral expert stack [E, out, in]
 is E HF experts (``block_sparse_moe.experts.e.w1``/``w3``/``w2`` for the
 gate, up and down stacks), copied one by one into their slices; the
-router is ``block_sparse_moe.gate``. An imported Mixtral routes dropless
-(capacity factor = E), as HF's dense top-k gather does. Gemma's norms are offsets from 1 on
+router is ``block_sparse_moe.gate``. DeepSeek's routed stacks are
+``mlp.experts.e.{gate,up,down}_proj``, its router ``mlp.gate`` and its
+shared experts ``mlp.shared_experts.*``. An imported Mixtral or DeepSeek
+MoE routes dropless (capacity factor = E), as HF's dense top-k gather
+does. Gemma's norms are offsets from 1 on
 both sides. The target shape and dtype of every tensor come from the model
 built on the meta device, so norms stay fp32 as the port keeps them.
 
@@ -27,9 +30,11 @@ state dict as safetensors plus its config), which ``TPUFW_INIT_FROM`` and
 ``TPUFW_PARAMS_CHECKPOINT`` read; the second writes an HF directory from
 bare params or a training checkpoint of the preset MODEL.
 
-Refused, as loudly as ``tpufw`` refuses what it lacks: the DeepSeek MoE
-FFN (ROADMAP.md Queue 1 item 10), LoRA trees (item 10), and rope
-``dynamic``/``longrope``, which neither package implements.
+Refused, as loudly as ``tpufw`` refuses what it lacks: LoRA trees
+(ROADMAP.md Queue 1 item 10), rope ``dynamic``/``longrope``, and DeepSeek
+routing other than greedy or group-limited greedy softmax over every
+layer from ``first_k_dense_replace`` on, which neither package
+implements.
 """
 
 from __future__ import annotations
@@ -93,7 +98,8 @@ def config_from_hf(hf_config: Any):
     """The port's config of a transformers config (object or dict):
     ``LlamaConfig`` for llama/mistral/qwen2, ``MixtralConfig`` for mixtral
     (dropless: capacity factor = the expert count), ``GemmaConfig`` for
-    gemma2, ``DeepseekConfig`` for deepseek_v2 with a dense FFN."""
+    gemma2, ``DeepseekConfig`` for deepseek_v2 (a MoE one dropless and,
+    with leading dense layers, unscanned, as ``tpufw`` imports it)."""
     get = _getter(hf_config)
     mtype = get("model_type")
     if mtype == "gemma2":
@@ -183,15 +189,53 @@ def _gemma_config_from_hf(get) -> GemmaConfig:
     )
 
 
+def _deepseek_moe_from_hf(get, n_layers: int, bad: dict) -> dict:
+    """The MoE fields of a DeepseekConfig (empty for a dense FFN), as
+    ``tpufw`` imports them; unsupported routing goes into ``bad``."""
+    # Layers >= first_k_dense_replace run the MoE FFN; an all-dense
+    # checkpoint sets it past the last layer.
+    first_moe = get("first_k_dense_replace") or 0
+    if not get("n_routed_experts") or first_moe >= n_layers:
+        return {}
+    e, k = get("n_routed_experts"), get("num_experts_per_tok")
+    group = {}
+    topk_method = get("topk_method") or "greedy"
+    if topk_method == "group_limited_greedy":
+        ng, tg = get("n_group"), get("topk_group")
+        if ng and tg and e % ng == 0 and (tg >= ng or k <= tg * (e // ng)):
+            group = dict(n_group=int(ng), topk_group=int(tg))
+        else:
+            bad["group_limited_greedy"] = {
+                "n_group": ng, "topk_group": tg, "n_routed_experts": e,
+                "num_experts_per_tok": k}
+    elif topk_method != "greedy":
+        bad["topk_method"] = topk_method
+    if (get("scoring_func") or "softmax") != "softmax":
+        bad["scoring_func"] = get("scoring_func")
+    if (get("moe_layer_freq") or 1) != 1:
+        bad["moe_layer_freq"] = get("moe_layer_freq")
+    return dict(
+        n_routed_experts=e,
+        experts_per_token=k,
+        moe_d_ff=get("moe_intermediate_size"),
+        n_shared_experts=get("n_shared_experts") or 0,
+        first_k_dense=first_moe,
+        routed_scaling_factor=float(get("routed_scaling_factor") or 1.0),
+        # HF stores norm_topk_prob but its DeepseekV2 gate never applies
+        # it: the raw softmax mass is what runs.
+        norm_topk_prob=False,
+        # Dropless, as HF routes.
+        capacity_factor=float(e),
+        # tpufw cannot scan a mixed dense/MoE stack.
+        scan_layers=first_moe == 0,
+        **group,
+    )
+
+
 def _deepseek_config_from_hf(get) -> DeepseekConfig:
     n_layers = get("num_hidden_layers")
-    if get("n_routed_experts") and (get("first_k_dense_replace") or 0) \
-            < n_layers:
-        raise NotImplementedError(
-            "DeepseekV2 import with routed experts (n_routed_experts > 0): "
-            "the DeepSeek MoE FFN is not ported to tpufw_torch yet "
-            "(ROADMAP.md Queue 1 item 10)")
     bad = {}
+    moe = _deepseek_moe_from_hf(get, n_layers, bad)
     yarn = None
     rs = get("rope_scaling")
     if rs:
@@ -221,7 +265,9 @@ def _deepseek_config_from_hf(get) -> DeepseekConfig:
     if bad:
         raise NotImplementedError(
             f"DeepseekV2 import: unsupported features {bad}; the port's MLA "
-            "implements default and yarn rope, no attention bias, silu")
+            "implements default and yarn rope, no attention bias, silu, and "
+            "greedy or group-limited greedy softmax routing on every layer "
+            "from first_k_dense_replace on")
     return DeepseekConfig(
         vocab_size=get("vocab_size"),
         d_model=get("hidden_size"),
@@ -238,6 +284,7 @@ def _deepseek_config_from_hf(get) -> DeepseekConfig:
         max_seq_len=get("max_position_embeddings") or 4096,
         tie_embeddings=bool(get("tie_word_embeddings") or False),
         rope_scaling=yarn,
+        **moe,
     )
 
 
@@ -257,6 +304,10 @@ _LAYER = re.compile(r"^layers\.(\d+)\.(.+)$")
 # Mixtral expert stack -> the HF name of each expert's weight.
 _EXPERTS = {"w_gate": "w1", "w_up": "w3", "w_down": "w2"}
 _EXPERT_KEY = re.compile(r"^layers\.(\d+)\.moe\.(w_gate|w_up|w_down)$")
+# DeepSeek's routed stacks: expert e's weights are
+# ``mlp.experts.e.{gate,up,down}_proj``.
+_ROUTED_KEY = re.compile(
+    r"^layers\.(\d+)\.moe\.routed\.w_(gate|up|down)$")
 
 
 def hf_key(port_key: str) -> str:
@@ -281,12 +332,21 @@ def hf_key(port_key: str) -> str:
         return f"layers.{i}.mlp.{parts[1]}_proj.weight"
     if parts == ["moe", "router", "weight"]:
         return f"layers.{i}.block_sparse_moe.gate.weight"
+    if parts == ["moe", "routed", "router", "weight"]:
+        return f"layers.{i}.mlp.gate.weight"
+    if parts[:2] == ["moe", "shared"] and parts[3:] == ["weight"]:
+        return f"layers.{i}.mlp.shared_experts.{parts[2]}_proj.weight"
     raise KeyError(f"no HF name for {port_key!r}")
 
 
 def expert_keys(port_key: str, n_experts: int) -> Optional[list[str]]:
-    """The HF names (no ``model.`` prefix) of the experts of a Mixtral
-    expert-stack key, in stack order; None for any other key."""
+    """The HF names (no ``model.`` prefix) of the experts of a Mixtral or
+    DeepSeek expert-stack key, in stack order; None for any other key."""
+    m = _ROUTED_KEY.match(port_key)
+    if m is not None:
+        i, proj = m.groups()
+        return [f"layers.{i}.mlp.experts.{e}.{proj}_proj.weight"
+                for e in range(n_experts)]
     m = _EXPERT_KEY.match(port_key)
     if m is None:
         return None
@@ -408,10 +468,6 @@ def to_hf(state_dict: Mapping[str, torch.Tensor], cfg
 def hf_config_dict(cfg, torch_dtype: str = "float32") -> dict:
     """The transformers config.json of a port config."""
     if isinstance(cfg, DeepseekConfig):
-        if cfg.n_routed_experts:
-            raise NotImplementedError(
-                "DeepseekV2 export with routed experts: the MoE FFN is not "
-                "ported to tpufw_torch yet (ROADMAP.md Queue 1 item 10)")
         out = {
             "model_type": "deepseek_v2",
             "architectures": ["DeepseekV2ForCausalLM"],
@@ -435,9 +491,25 @@ def hf_config_dict(cfg, torch_dtype: str = "float32") -> dict:
             "attention_bias": False,
             "hidden_act": "silu",
             "torch_dtype": torch_dtype,
-            # A dense FFN on every layer.
-            "first_k_dense_replace": cfg.n_layers,
+            # Layers below first_k_dense_replace are dense: past the last
+            # layer for a dense FFN everywhere.
+            "first_k_dense_replace": (
+                cfg.first_k_dense if cfg.moe else cfg.n_layers),
         }
+        if cfg.moe:
+            out.update(
+                n_routed_experts=cfg.n_routed_experts,
+                num_experts_per_tok=cfg.experts_per_token,
+                moe_intermediate_size=cfg.moe_d_ff,
+                n_shared_experts=cfg.n_shared_experts or None,
+                routed_scaling_factor=cfg.routed_scaling_factor,
+                norm_topk_prob=False,
+                scoring_func="softmax",
+                moe_layer_freq=1,
+                **({"topk_method": "group_limited_greedy",
+                    "n_group": cfg.n_group, "topk_group": cfg.topk_group}
+                   if cfg.n_group else {"topk_method": "greedy"}),
+            )
         ys = cfg.rope_scaling
         if ys is not None:
             out["rope_scaling"] = {

@@ -30,7 +30,6 @@ import torch
 
 from tpufw_torch.models import model_for_config
 from tpufw_torch.models.llama import Llama, LlamaConfig
-from tpufw_torch.models.mixtral import Mixtral
 from tpufw_torch.ops.loss import chunked_cross_entropy, token_cross_entropy
 from tpufw_torch.train.checkpoint import (
     CheckpointManager,
@@ -87,11 +86,11 @@ def batch_loss(
     ``loss_chunk_size`` switches to the chunked-vocab CE, which never
     materializes [B, T, V] logits; the model then skips its head, and the
     config's ``final_logit_soft_cap`` (Gemma) is applied per chunk. A MoE
-    model's router loss (``Mixtral``'s ``return_aux``) joins the objective
-    on both paths, as in ``tpufw``."""
+    model's router loss (``return_aux`` of a config with experts: Mixtral,
+    DeepSeek MoE) joins the objective on both paths, as in ``tpufw``."""
     inputs, targets, seg_in, mask = shift_and_mask(batch)
     kwargs = {"segment_ids": seg_in}
-    moe = isinstance(model, Mixtral)
+    moe = getattr(model.cfg, "n_experts", 0) > 0
     if moe:
         kwargs["return_aux"] = True
     if loss_chunk_size:

@@ -18,9 +18,10 @@
 
 Knobs, as in the JAX workload: ``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``,
 ``MIXTRAL_CONFIGS``, ``GEMMA_CONFIGS`` or ``DEEPSEEK_CONFIGS`` preset, e.g.
-``mixtral_8x7b``, ``gemma2_9b`` or ``deepseek_mla_bench``, a serve slice
-such as ``mixtral_8x7b_serve_slice``, or ``llama3_600m_bench``, the
-default; a DeepSeek model serves in batch mode only), ``TPUFW_MAX_SEQ_LEN``,
+``mixtral_8x7b``, ``gemma2_9b``, ``deepseek_mla_bench`` or
+``deepseek_moe_tiny``, a serve slice such as ``mixtral_8x7b_serve_slice``
+or ``deepseek_v2_lite_serve_slice``, or ``llama3_600m_bench``, the
+default), ``TPUFW_MAX_SEQ_LEN``,
 ``TPUFW_SEED``, ``TPUFW_MAX_NEW_TOKENS`` (16), ``TPUFW_QUANTIZE=int8``,
 ``TPUFW_DECODE_DTYPE`` (e.g. ``bfloat16``), ``TPUFW_PREFILL_CHUNK``,
 ``TPUFW_EOS_ID``, the sampling knobs ``TPUFW_TEMPERATURE``,
@@ -904,9 +905,6 @@ class _SlotScheduler:
         spec_draft_built=None,
         prefill_chunk_pages: Optional[int] = None,
     ):
-        from tpufw_torch.models.deepseek import reject_latent_model
-
-        reject_latent_model(model, "the slot scheduler (the HTTP server)")
         self.model = model
         self._eos = eos_id
         self._default_sampling = (

@@ -2,12 +2,14 @@
 
 Knobs (the JAX workload's names where the meaning is the same):
 ``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``, ``MIXTRAL_CONFIGS``, ``GEMMA_CONFIGS``
-or ``DEEPSEEK_CONFIGS`` preset, e.g. ``mixtral_8x7b``, ``gemma2_9b`` or
-``deepseek_mla_bench``, or ``llama3_600m_bench``, the default),
+or ``DEEPSEEK_CONFIGS`` preset, e.g. ``mixtral_8x7b``, ``gemma2_9b``,
+``deepseek_mla_bench`` or ``deepseek_moe_tiny``, a train slice such as
+``deepseek_v2_lite_train_slice``, whose trainer config gives the defaults
+of the trainer knobs, or ``llama3_600m_bench``, the default),
 ``TPUFW_BATCH_SIZE``, ``TPUFW_SEQ_LEN`` (default: the model's
 ``max_seq_len``), ``TPUFW_TOTAL_STEPS``, ``TPUFW_ATTENTION`` (backend
-override), ``TPUFW_MOE_DISPATCH`` (``einsum`` or ``sorted``; ignored by a
-config without a MoE dispatch), ``TPUFW_LR``, ``TPUFW_WARMUP_STEPS``, ``TPUFW_LOSS_CHUNK_SIZE``
+override), ``TPUFW_MOE_DISPATCH`` (``einsum`` or ``sorted`` for a MoE
+config, Mixtral's or DeepSeek's; ignored by the rest), ``TPUFW_LR``, ``TPUFW_WARMUP_STEPS``, ``TPUFW_LOSS_CHUNK_SIZE``
 (0 = full logits), ``TPUFW_LOSS_CHUNK_DTYPE``, ``TPUFW_GRAD_ACCUM``,
 ``TPUFW_ADAM_MU_DTYPE`` (e.g. ``bfloat16``), ``TPUFW_SYNC_EVERY`` (steps
 per host sync), ``TPUFW_EVAL_EVERY`` (0 = off) and ``TPUFW_EVAL_BATCHES``
@@ -97,10 +99,12 @@ def _refuse_unported_knobs() -> None:
 def build_trainer():
     """(trainer, model_cfg) from the TPUFW_* environment."""
     from tpufw_torch.configs import BENCH_CONFIG_NAME, resolve_model_preset
+    from tpufw_torch.configs.presets import TRAIN_SLICES
     from tpufw_torch.train import Trainer, TrainerConfig
 
     _refuse_unported_knobs()
-    model_cfg = resolve_model_preset(env_str("model", BENCH_CONFIG_NAME))
+    name = env_str("model", BENCH_CONFIG_NAME)
+    model_cfg = resolve_model_preset(name)
     backend = env_str("attention", "")
     if backend:
         model_cfg = dataclasses.replace(model_cfg, attention_backend=backend)
@@ -112,14 +116,20 @@ def build_trainer():
     if moe_dispatch and hasattr(model_cfg, "moe_dispatch"):
         model_cfg = dataclasses.replace(model_cfg, moe_dispatch=moe_dispatch)
     base = TrainerConfig()
+    # A train slice's own shape and schedule are the defaults.
+    dflt = (TRAIN_SLICES[name]()[1] if name in TRAIN_SLICES else
+            TrainerConfig(batch_size=8, seq_len=model_cfg.max_seq_len,
+                          total_steps=100, warmup_steps=10,
+                          loss_chunk_size=512))
     trainer_cfg = TrainerConfig(
-        batch_size=env_int("batch_size", 8),
-        seq_len=env_int("seq_len", model_cfg.max_seq_len),
-        total_steps=env_int("total_steps", 100),
+        batch_size=env_int("batch_size", dflt.batch_size),
+        seq_len=env_int("seq_len", dflt.seq_len),
+        total_steps=env_int("total_steps", dflt.total_steps),
         lr=env_float("lr", 3e-4),
-        warmup_steps=env_int("warmup_steps", 10),
+        warmup_steps=env_int("warmup_steps", dflt.warmup_steps),
         log_every=env_int("log_every", 1),
-        loss_chunk_size=env_int("loss_chunk_size", 512) or None,
+        loss_chunk_size=env_int("loss_chunk_size",
+                                dflt.loss_chunk_size or 0) or None,
         loss_chunk_dtype=env_str("loss_chunk_dtype", "bfloat16"),
         grad_accum=env_int("grad_accum", 1),
         eval_every=env_int("eval_every", 0),
