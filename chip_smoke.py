@@ -238,12 +238,46 @@ Phases, each fatal on failure:
     round trip, bit-equal. Every logits check replays the other side's
     routing and prints the top-6 flips (MOE_CHECKS).
 
+11. LoRA, with phase 10's models freed. 11a:
+    ``llama3_8b_lora_train_slice``, Llama-3-8B at all 32 layers (the
+    8.03 B fp32 base frozen, rank-16 adapters on the seven projections,
+    41.9 M parameters; B=2, seq 2048, chunked CE, remat ``dots``, flash
+    at head dim 128) for LORA_STEPS = 6 steps through ``Trainer.run``,
+    counters zeroed just before: finite losses, every head-dim-128 kernel
+    launched; (a) step 0's logits (B = 0) bit-equal to the rank-0 model's
+    on the same base tensors; (b) after training every base tensor's
+    checksums unchanged and every adapter moved; (c) ``merge_lora``'s
+    rank-0 model against the unmerged one on 256 tokens, computed by fp32
+    twins on the same tensors: each row within 2^-6 of its largest
+    |logit| (the bf16 logits' gap and top-1 agreement printed beside the
+    bf16 noise floor, the unmerged bf16 model against its fp32 twin); (d)
+    ``quantize_params`` refuses the unmerged state dict and quantizes the
+    merged one. A ``lora_train_summary`` (step ms, tokens/s, MFU from the
+    ``Meter``'s 6N count of the base, peak memory, launches). 11b:
+    Mixtral-8x7B widths at 2 layers with rank-16 adapters on the attention
+    and the expert stacks, 3 steps under each dispatch, counters zeroed
+    before each: finite losses, every head-dim-128 kernel launched, (b);
+    the step-1 losses printed; a ``mixtral_lora_train_summary`` per mode.
+
+12. Vision, with phase 11's models freed: ViT-B/16 (bf16, remat) and
+    ResNet-50 (``norm_dtype`` bf16, the workload's default) through
+    ``VisionTrainer.run``, batch 256 of 224 px synthetic images staged on
+    the card, 6 steps each: finite losses; for ResNet-50 every BatchNorm
+    running statistic moved, and on 16 images an eval-mode forward is
+    deterministic, leaves the statistics as they are, moves when a
+    running variance does and differs from a train-mode forward. A
+    ``vision_train_summary`` per model (images/s, MFU against the card's
+    bf16 peak, peak memory). No flash kernel runs here: ViT's attention is
+    two matmuls and a softmax, as in the reference.
+
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
-7b's first run, and ``launches_mixtral_train``, phase 9a's runs per
-dispatch mode, and the head-dim-192 ones ``launches_v2lite_train``,
-phase 10a's), a ``phase_seconds`` line (each phase's wall seconds,
-phase 10's parts and the total), the ``nvidia-smi`` line and, last,
+7b's first run, ``launches_mixtral_train``, phase 9a's runs per dispatch
+mode, ``launches_lora_train``, phase 11a's, and
+``launches_mixtral_lora_train``, phase 11b's per mode, and the
+head-dim-192 ones ``launches_v2lite_train``, phase 10a's), a
+``phase_seconds`` line (each phase's wall seconds, phase 10's, 11's and
+12's parts and the total), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it prints no result and exits nonzero.
 """
@@ -480,6 +514,20 @@ V2LITE_TRAIN_LAYERS = 3
 V2LITE_PAGE = 64
 V2LITE_HF_LAYERS = 3
 V2LITE_HF_DISK_GB = 8
+# Phase 11 (LoRA): Llama-3-8B at all 32 layers, LORA_STEPS steps
+# (llama3_8b_lora_train_slice); merged vs unmerged bf16 logits, each row
+# within LORA_MERGE_TOL of that row's largest |logit|, on LORA_TOKENS
+# tokens; then Mixtral-8x7B LoRA at MIXTRAL_TRAIN_LAYERS layers for
+# MIXTRAL_LORA_STEPS steps a dispatch mode.
+LORA_STEPS = 6
+LORA_TOKENS = 256
+LORA_MERGE_TOL = 2.0 ** -6
+MIXTRAL_LORA_STEPS = 3
+# Phase 12 (vision): ViT-B/16 and ResNet-50 at batch VISION_BATCH, 224 px,
+# VISION_STEPS steps each; the eval checks on VISION_EVAL_BATCH images.
+VISION_BATCH = 256
+VISION_STEPS = 6
+VISION_EVAL_BATCH = 16
 # Wall seconds of each phase (and of phase 10's parts), printed as the
 # ``phase_seconds`` line.
 PHASE_SECONDS: dict = {}
@@ -801,6 +849,18 @@ def sdpa_unequal_v(torch, q, k, v_pad, v_head_dim) -> dict:
             "backend_padded_v": backend(v_pad.transpose(1, 2))}
 
 
+def _steady(history) -> dict:
+    """Medians over the steps after the first (the warm-up)."""
+    steady = history[1:]
+    return {
+        "step_ms_median": 1e3 * statistics.median(m.step_time_s
+                                                  for m in steady),
+        "tokens_per_sec_per_gpu_median": statistics.median(
+            m.tokens_per_sec_per_gpu for m in steady),
+        "mfu_median": statistics.median(m.mfu for m in steady),
+    }
+
+
 def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
                 logits_check=True, evaluate=False, moe_dispatch=None,
                 grad_norms=None) -> tuple[dict, list]:
@@ -864,17 +924,12 @@ def train_phase(torch, family, n_layers, gen, kind, smi, policy=None,
     torch.cuda.synchronize()
     launches = dict(flash.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steady = history[1:]
     summary = {
         "steps": len(history),
         "losses": [m.loss for m in history],
-        "tokens_per_sec_per_gpu_median": statistics.median(
-            m.tokens_per_sec_per_gpu for m in steady),
-        "mfu_median": statistics.median(m.mfu for m in steady),
+        **_steady(history),
         "step_time_s_median": statistics.median(
-            m.step_time_s for m in steady),
-        "step_ms_median": 1e3 * statistics.median(
-            m.step_time_s for m in steady),
+            m.step_time_s for m in history[1:]),
         "peak_mem_gb": peak_gb,
         "launches": launches,
         "remat_policy": cfg.remat_policy,
@@ -3390,6 +3445,349 @@ def v2lite_phase(torch, chip, kind, smi, gen) -> dict:
     return launches
 
 
+# ---------------------------------------------------------- phase 11
+
+
+def _adapters_and_base(torch, model):
+    """(clones of every adapter, checksums of every base tensor)."""
+    from tpufw_torch.models.lora import is_lora_name
+    from tpufw_torch.train.checkpoint import checksums
+
+    sd = model.state_dict()
+    adapters = {k: v.detach().clone() for k, v in sd.items()
+                if is_lora_name(k)}
+    base = checksums({k: v for k, v in sd.items() if not is_lora_name(k)})
+    return adapters, base
+
+
+def _only_adapters_moved(torch, model, before) -> dict:
+    """Check (b): every base tensor's checksums as before training, every
+    adapter changed. Returns the counts; raises AssertionError."""
+    adapters, base = _adapters_and_base(torch, model)
+    moved = sum(not torch.equal(adapters[k], v) for k, v in before[0].items())
+    changed = [k for k, v in base.items() if before[1][k] != v]
+    out = {"adapters": len(adapters), "adapters_moved": moved,
+           "base_tensors": len(base), "base_tensors_changed": len(changed)}
+    if changed or moved != len(adapters) or not adapters:
+        raise AssertionError(f"LoRA training moved the base or left an "
+                             f"adapter: {out} {changed[:4]}")
+    return out
+
+
+def lora_llama(torch, kind, smi, gen) -> dict:
+    """Phase 11a: ``llama3_8b_lora_train_slice`` (all 32 layers, rank 16)
+    for LORA_STEPS steps through ``Trainer.run``, launch counters zeroed
+    just before. Checks: (a) step 0's logits with B = 0 bit-equal to the
+    rank-0 model's on the same base tensors; (b) after training every
+    base tensor bit-unchanged (checksums) and every adapter moved; (c)
+    ``merge_lora`` gives a rank-0 model whose logits, computed by fp32
+    twins on the same tensors, lie within LORA_MERGE_TOL of each row's
+    largest |logit| of the unmerged model's (the bf16 logits' gap and
+    top-1 agreement printed beside the bf16 noise floor);
+    (d) ``quantize_params`` raises on the unmerged state dict and succeeds
+    on the merged one. Every loss finite and every head-dim-128 kernel
+    launched. Returns the launch counts; raises AssertionError."""
+    from tpufw_torch import configs
+    from tpufw_torch.models import model_for_config
+    from tpufw_torch.models.lora import is_lora_name, merge_lora
+    from tpufw_torch.ops import flash
+    from tpufw_torch.ops.quant import quantize_params
+    from tpufw_torch.train import Trainer, synthetic_batches
+
+    cfg, tcfg = configs.llama3_8b_lora_train_slice(total_steps=LORA_STEPS)
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    model = trainer.init_state(seed=0)
+    n_adapter = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LORA_TOKENS), generator=gen,
+                           device="cuda")
+    rank0_cfg = dataclasses.replace(cfg, lora_rank=0)
+
+    def logits(c, state, fp32=False):
+        """Logits of a model of config ``c`` built on ``meta`` and handed
+        ``state``'s tensors (no copy); ``fp32``: its twin computing in
+        fp32 with plain attention."""
+        if fp32:
+            c = dataclasses.replace(c, dtype=torch.float32,
+                                    attention_backend="xla")
+        m = model_for_config(c, device="meta")
+        m.load_state_dict(state, assign=True)
+        with torch.no_grad():
+            return m(tokens)
+
+    def row_gap(a, b):
+        """The worst row's largest |a - b| over that row's largest |b|."""
+        return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+
+    # (a) B = 0: the LoRA model is its base, bit for bit.
+    with torch.no_grad():
+        step0 = model(tokens)
+    base0 = logits(rank0_cfg, {k: v for k, v in model.state_dict().items()
+                               if not is_lora_name(k)})
+    check_a = {"check": "lora_step0_equals_base", "bit_equal":
+               bool(torch.equal(step0, base0)),
+               "max_abs_diff": float((step0 - base0).abs().max())}
+    emit(check_a)
+    del step0, base0
+    if not check_a["bit_equal"]:
+        raise AssertionError(f"LoRA step 0 differs from its base: {check_a}")
+    before = _adapters_and_base(torch, model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    emit({"train": "llama3_8b LoRA", "reduced": {},
+          "params": cfg.n_params(), "adapter_params": n_adapter,
+          "lora_rank": cfg.lora_rank, "lora_alpha": cfg.lora_alpha,
+          "n_layers": cfg.n_layers, "batch_size": tcfg.batch_size,
+          "seq_len": tcfg.seq_len, "loss_chunk_size": tcfg.loss_chunk_size,
+          "remat_policy": cfg.remat_policy,
+          "attention_backend": cfg.attention_backend})
+    flash.reset_launch_counts()
+    history = trainer.run(
+        synthetic_batches(tcfg.batch_size, tcfg.seq_len, cfg.vocab_size,
+                          seed=0),
+        model_flops_per_token=cfg.flops_per_token(tcfg.seq_len - 1),
+        on_metrics=lambda m: emit({"lora_step": m.as_dict()}),
+    )
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    path = [flash.kernel_name(k, 128) for k in flash.KERNELS]
+    summary = {
+        "steps": len(history), "losses": [m.loss for m in history],
+        **_steady(history),
+        "mfu_flops": "Meter: flops_per_token = 6 x the base's matmul "
+                     "parameters + attention scores, as tpufw counts it; "
+                     "a LoRA step computes no base weight gradient",
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "model": "llama3_8b_lora",
+        "n_layers": cfg.n_layers, "seq_len": tcfg.seq_len,
+        "device": kind, "nvidia_smi": smi,
+    }
+    emit({"lora_train_summary": summary})
+    if len(history) != LORA_STEPS or not all(
+            math.isfinite(m.loss) for m in history):
+        raise AssertionError(f"LoRA: losses {summary['losses']}")
+    if not all(launches[k] > 0 for k in path):
+        raise AssertionError(f"LoRA: a kernel was not launched: {launches}")
+    # (b) Only the adapters moved.
+    trainer.optimizer = None
+    emit({"check": "lora_only_adapters_moved"}
+         | _only_adapters_moved(torch, model, before))
+    del before
+    # (c) The merged rank-0 model against the unmerged one, held in fp32
+    # twins on the same tensors: in bf16 each merged weight rounds anew
+    # (W + dW, not W), a re-rounding of the whole model whose gap is the
+    # bf16 noise floor, printed beside it.
+    with torch.no_grad():
+        tuned = model(tokens)
+    state = model.state_dict()
+    tuned32 = logits(cfg, state, fp32=True)
+    try:
+        quantize_params(state)
+        raise AssertionError("quantize_params took an unmerged LoRA tree")
+    except ValueError as e:
+        refused = str(e)
+    merged = merge_lora(state, alpha=cfg.lora_alpha)
+    del state
+    trainer.model = model = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    got32 = logits(rank0_cfg, merged, fp32=True)
+    got = logits(rank0_cfg, merged)
+    check_c = {"check": "lora_merged_vs_unmerged_logits",
+               "tokens": LORA_TOKENS,
+               "worst_row_gap_fp32": row_gap(got32, tuned32),
+               "top1_agreement_fp32": float(
+                   (got32.argmax(-1) == tuned32.argmax(-1)).float().mean()),
+               "worst_row_gap_bf16": row_gap(got, tuned),
+               "top1_agreement_bf16": float(
+                   (got.argmax(-1) == tuned.argmax(-1)).float().mean()),
+               "bf16_noise_floor_unmerged_vs_fp32": row_gap(tuned, tuned32),
+               "tol_fp32": LORA_MERGE_TOL}
+    emit(check_c)
+    del got, tuned, got32, tuned32
+    if not check_c["worst_row_gap_fp32"] <= LORA_MERGE_TOL:
+        raise AssertionError(f"merged logits disagree: {check_c}")
+    # (d) The merged tree quantizes.
+    q = quantize_params(merged)
+    n_int8 = sum(t.dtype == torch.int8 for t in q.values())
+    emit({"check": "lora_quantize", "unmerged_refused": refused,
+          "merged_int8_tensors": n_int8})
+    del q, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    if n_int8 != 7 * cfg.n_layers + 1:
+        raise AssertionError(f"merged tree quantized {n_int8} tensors")
+    return {k: launches[k] for k in path}
+
+
+def lora_mixtral(torch, kind, smi) -> dict:
+    """Phase 11b: Mixtral-8x7B widths at MIXTRAL_TRAIN_LAYERS layers with
+    rank-16 adapters on the attention projections and the expert stacks,
+    MIXTRAL_LORA_STEPS steps under each dispatch from the same seed on the
+    same batches, counters zeroed before each: finite losses, every
+    head-dim-128 kernel launched, check (b); the step-1 losses printed.
+    Returns {kernel: {mode: launches}}; raises AssertionError."""
+    from tpufw_torch import configs
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import Trainer, synthetic_batches
+
+    cfg, tcfg = configs.mixtral_8x7b_train_slice(
+        MIXTRAL_TRAIN_LAYERS, total_steps=MIXTRAL_LORA_STEPS)
+    runs = {}
+    for mode in ("einsum", "sorted"):
+        mcfg = dataclasses.replace(cfg, lora_rank=16, lora_alpha=16.0,
+                                   moe_dispatch=mode)
+        trainer = Trainer(mcfg, tcfg, device="cuda")
+        model = trainer.init_state(seed=0)
+        before = _adapters_and_base(torch, model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launch_counts()
+        history = trainer.run(
+            synthetic_batches(tcfg.batch_size, tcfg.seq_len, mcfg.vocab_size,
+                              seed=0),
+            model_flops_per_token=mcfg.flops_per_token(tcfg.seq_len - 1))
+        torch.cuda.synchronize()
+        launches = dict(flash.LAUNCHES)
+        trainer.optimizer = None
+        moved = _only_adapters_moved(torch, model, before)
+        summary = {"steps": len(history), "losses": [m.loss for m in history],
+                   **_steady(history),
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": launches, "moe_dispatch": mode,
+                   "n_layers": mcfg.n_layers, "lora_rank": mcfg.lora_rank,
+                   "adapters": moved, "device": kind, "nvidia_smi": smi}
+        emit({"mixtral_lora_train_summary": summary})
+        runs[mode] = (launches, summary["losses"])
+        del trainer, model, before
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not all(math.isfinite(x) for x in summary["losses"]):
+            raise AssertionError(f"Mixtral LoRA {mode}: {summary['losses']}")
+        if not all(launches[flash.kernel_name(k, 128)] > 0
+                   for k in flash.KERNELS):
+            raise AssertionError(f"Mixtral LoRA {mode}: a kernel was not "
+                                 f"launched: {launches}")
+    le, ls = runs["einsum"][1][0], runs["sorted"][1][0]
+    emit({"check": "mixtral_lora_dispatch_step1", "einsum_loss": le,
+          "sorted_loss": ls, "relative_gap": abs(le - ls) / abs(le)})
+    return {flash.kernel_name(k, 128): {m: runs[m][0][flash.kernel_name(
+        k, 128)] for m in runs} for k in flash.KERNELS}
+
+
+def lora_phase(torch, kind, smi, gen) -> tuple[dict, dict]:
+    """Phase 11: LoRA, 11a Llama-3-8B at all 32 layers (``lora_llama``),
+    11b Mixtral under both dispatches (``lora_mixtral``). Returns their
+    launch counts."""
+    emit({"phase11_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9})
+    llama = _timed("11a", lambda: lora_llama(torch, kind, smi, gen))
+    mixtral = _timed("11b", lambda: lora_mixtral(torch, kind, smi))
+    return llama, mixtral
+
+
+# ---------------------------------------------------------- phase 12
+
+
+def vision_run(torch, name, mcfg, chip, kind, smi) -> None:
+    """One vision model through ``VisionTrainer.run`` at VISION_BATCH
+    images of 224 px for VISION_STEPS steps (images staged on the card):
+    finite losses; for a model with BatchNorm, the running statistics
+    moved, and an eval-mode forward uses them (it leaves them as they
+    are, and its logits move when they do) where a train-mode one uses
+    the batch's; a ``vision_train_summary`` line (images/s, MFU against
+    the card's bf16 peak, peak memory). Raises AssertionError."""
+    from tpufw_torch.train import (
+        VisionTrainer,
+        VisionTrainerConfig,
+        synthetic_images,
+    )
+
+    tcfg = VisionTrainerConfig(batch_size=VISION_BATCH, image_size=224,
+                               num_classes=1000, total_steps=VISION_STEPS,
+                               lr=0.1 if name == "resnet50" else 1e-3,
+                               handle_preemption=False)
+    trainer = VisionTrainer(mcfg, tcfg, device="cuda")
+    model = trainer.init_state(seed=0)
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    data = synthetic_images(VISION_BATCH, 224, 1000, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history = trainer.run(
+        data, flops_per_image=mcfg.flops_per_image(224),
+        on_metrics=lambda m: emit({"vision_step": name} | m.as_dict()))
+    torch.cuda.synchronize()
+    summary = {"model": name, "steps": len(history),
+               "losses": [m.loss for m in history], **_steady(history),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "batch_size": VISION_BATCH, "image_size": 224,
+               "flops_per_image": mcfg.flops_per_image(224),
+               "peak_bf16_flops": chip.peak_bf16_flops,
+               "dtype": str(mcfg.dtype),
+               "norm_dtype": str(getattr(mcfg, "norm_dtype", None)),
+               "remat": getattr(mcfg, "remat", None),
+               "device": kind, "nvidia_smi": smi}
+    summary["images_per_sec_median"] = summary.pop(
+        "tokens_per_sec_per_gpu_median")
+    trainer.optimizer = None
+    if len(history) != VISION_STEPS or not all(
+            math.isfinite(x) for x in summary["losses"]):
+        emit({"vision_train_summary": summary})
+        raise AssertionError(f"{name}: losses {summary['losses']}")
+    if stats:
+        sd = model.state_dict()
+        summary["bn_stats_moved"] = sum(
+            not torch.equal(v, sd[k]) for k, v in stats.items())
+        summary["bn_stats"] = len(stats)
+        images = next(data)["images"][:VISION_EVAL_BATCH]
+        model.eval()
+        with torch.no_grad():
+            run_stats = {k: sd[k].clone() for k in stats}
+            ev = model(images)
+            ev_again = model(images)
+            untouched = all(torch.equal(sd[k], v) for k, v in run_stats.items())
+            sd["bn_init.running_var"].mul_(4.0)
+            ev_moved = model(images)
+            sd["bn_init.running_var"].copy_(run_stats["bn_init.running_var"])
+            model.train()
+            tr = model(images)
+            for k, v in run_stats.items():
+                sd[k].copy_(v)
+        summary["eval"] = {
+            "finite": bool(torch.isfinite(ev).all()),
+            "deterministic": bool(torch.equal(ev, ev_again)),
+            "leaves_running_stats": untouched,
+            "moves_with_running_var": float((ev_moved - ev).abs().max()),
+            "differs_from_train_mode": float((tr - ev).abs().max())}
+        emit({"vision_train_summary": summary})
+        e = summary["eval"]
+        if (summary["bn_stats_moved"] != len(stats) or not e["finite"]
+                or not e["deterministic"] or not untouched
+                or not e["moves_with_running_var"] > 0
+                or not e["differs_from_train_mode"] > 0):
+            raise AssertionError(f"{name}: BatchNorm statistics {summary}")
+    else:
+        emit({"vision_train_summary": summary})
+
+
+def vision_phase(torch, chip, kind, smi) -> None:
+    """Phase 12: ViT-B/16 (bf16, remat) and ResNet-50 (norm_dtype bf16,
+    the workload's default) through ``vision_run``."""
+    from tpufw_torch.models import VIT_CONFIGS, ResNetConfig
+
+    emit({"phase12_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9})
+    _timed("12a", lambda: vision_run(torch, "vit_b16", VIT_CONFIGS["vit_b16"],
+                                     chip, kind, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _timed("12b", lambda: vision_run(
+        torch, "resnet50", ResNetConfig(norm_dtype=torch.bfloat16), chip,
+        kind, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -3644,6 +4042,23 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    # 11. LoRA, with phase 10's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        lora_launches, mixtral_lora_launches = _timed(
+            "11", lambda: lora_phase(torch, kind, smi, gen))
+    except AssertionError as e:
+        return fail(str(e))
+
+    # 12. Vision, with phase 11's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        _timed("12", lambda: vision_phase(torch, chip, kind, smi))
+    except AssertionError as e:
+        return fail(str(e))
+
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -3677,6 +4092,12 @@ def main() -> int:
         if name in v2lite_launches:
             # Phase 10a's runs, DeepSeek-V2-Lite widths, per dispatch mode.
             kernels[-1]["launches_v2lite_train"] = v2lite_launches[name]
+        if name in lora_launches:
+            # Phase 11a's run, Llama-3-8B LoRA at 32 layers, and 11b's
+            # Mixtral LoRA runs per dispatch mode.
+            kernels[-1]["launches_lora_train"] = lora_launches[name]
+            kernels[-1]["launches_mixtral_lora_train"] = \
+                mixtral_lora_launches[name]
         if name in resume_launches:
             # Phase 7b's run, llama3_600m_bench through Trainer.run, and
             # the kernel at its shapes.

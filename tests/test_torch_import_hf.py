@@ -281,8 +281,9 @@ def test_lora_tree_and_missing_key_are_loud(hf):
     model, _ = hf["llama_rope_scaled"]
     cfg = import_hf.config_from_hf(model.config)
     sd = import_hf.from_hf(model, cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        import_hf.to_hf({**sd, "layers.0.attn.q.lora_a": sd["embed"]}, cfg)
+    with pytest.raises(ValueError, match="merge_lora"):
+        import_hf.to_hf({**sd, "layers.0.attn.q.weight_lora_a": sd["embed"]},
+                        cfg)
     partial = {k: v for k, v in model.state_dict().items()
                if "layers.1.mlp.up_proj" not in k}
     with pytest.raises(KeyError, match="up_proj"):

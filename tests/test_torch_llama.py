@@ -107,7 +107,7 @@ def test_logits_and_grads_match_flax(case, backend):
 
 
 def test_unported_options_raise():
-    for field, value in (("kv_page", 16), ("lora_rank", 4)):
+    for field, value in (("kv_page", 16),):
         cfg = dataclasses.replace(LLAMA_CONFIGS["llama3_tiny"], **{field: value})
         with pytest.raises(NotImplementedError, match=field):
             Llama(cfg, device="cpu")

@@ -477,8 +477,6 @@ REFUSED_TRAIN_KNOBS = {
     "TELEMETRY_DIR": ("/tel", "13"),
     "METRICS_PORT": ("0", "13"),
     "STRAGGLER_FACTOR": ("3.0", "13"),
-    "LORA_RANK": ("8", "10"),
-    "LORA_ALPHA": ("32", "10"),
     "MESH_DATA": ("2", "12"),
     "MESH_FSDP": ("4", "12"),
     "MESH_EXPERT": ("2", "12"),

@@ -6,7 +6,8 @@ Llama-3 architecture at d_model 1536, 14 layers, 12/6 heads of 128, vocab
 
 ``llama3_8b_train_slice`` is the train step that ``chip_smoke.py`` and
 ``scripts/profile_torch_train.py`` run on one GPU;
-``llama3_8b_serve_slice`` is the batch serve run of ``chip_smoke.py``.
+``llama3_8b_serve_slice`` is the batch serve run of ``chip_smoke.py``, and
+``llama3_8b_lora_train_slice`` Llama-3-8B LoRA at all 32 layers.
 ``gemma2_9b_train_slice`` and ``gemma2_9b_serve_slice`` are their Gemma-2-9B
 counterparts (head dim 256, soft caps, alternating 4096-token windows), and
 ``deepseek_mla_train_slice`` and ``deepseek_mla_serve_slice`` the
@@ -80,6 +81,23 @@ def llama3_8b_train_slice(
     vocab 128256, flash attention, remat) with depth cut to ``n_layers``;
     B=2, seq 2048, chunked CE at 512, warm-up 2 steps."""
     cfg = dataclasses.replace(LLAMA_CONFIGS["llama3_8b"], n_layers=n_layers)
+    tcfg = TrainerConfig(batch_size=2, seq_len=2048, total_steps=total_steps,
+                         warmup_steps=2, log_every=1, loss_chunk_size=512)
+    return cfg, tcfg
+
+
+def llama3_8b_lora_train_slice(
+    n_layers: int = 32, total_steps: int = 6
+) -> tuple[LlamaConfig, TrainerConfig]:
+    """Llama-3-8B LoRA at all ``n_layers`` = 32 layers: the full model's
+    fp32 base (8.03 B parameters, 32.1 GB), frozen, with rank-16 adapters
+    (alpha 16) on q/k/v/o and gate/up/down (41.9 M parameters: their
+    gradients and AdamW moments are the only training state), flash
+    attention, remat; B=2, seq 2048, chunked CE at 512, warm-up 2 steps.
+    Full fine-tuning of the same model needs ~128 GB of fp32 weights,
+    gradients and moments, hence ``llama3_8b_train_slice``'s 4 layers."""
+    cfg = dataclasses.replace(LLAMA_CONFIGS["llama3_8b"], n_layers=n_layers,
+                              lora_rank=16, lora_alpha=16.0)
     tcfg = TrainerConfig(batch_size=2, seq_len=2048, total_steps=total_steps,
                          warmup_steps=2, log_every=1, loss_chunk_size=512)
     return cfg, tcfg
@@ -318,4 +336,5 @@ SERVE_SLICES = {"llama3_8b_serve_slice": llama3_8b_serve_slice,
                 "deepseek_v2_lite_serve_slice": deepseek_v2_lite_serve_slice}
 # Train slices a ``TPUFW_MODEL`` name may pick: the train workload takes
 # the slice's trainer config as its defaults.
-TRAIN_SLICES = {"deepseek_v2_lite_train_slice": deepseek_v2_lite_train_slice}
+TRAIN_SLICES = {"deepseek_v2_lite_train_slice": deepseek_v2_lite_train_slice,
+                "llama3_8b_lora_train_slice": llama3_8b_lora_train_slice}

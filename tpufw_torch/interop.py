@@ -1,5 +1,7 @@
 """Weight bridge: a Flax ``decoder_lm`` param tree -> a ``Llama``,
-``Mixtral``, ``Gemma`` or ``Deepseek`` state dict.
+``Mixtral``, ``Gemma`` or ``Deepseek`` state dict (``params_from_flax``),
+and a Flax ViT or ResNet tree -> a ``ViT`` or ``ResNet`` state dict
+(``vision_params_from_flax``).
 
 Layout facts of the JAX package it handles:
 
@@ -34,6 +36,13 @@ Layout facts of the JAX package it handles:
   [out, in] ``weight`` and [out] ``scale`` (``quantized_weights=True``).
   An int8 expert stack is ``{"q_kernel" [E, in, out], "scale" [E, out]}``
   and becomes ``weight`` [E, out, in] and ``scale`` [E, out].
+
+- LoRA adapters: a projection's ``{name}_lora_a`` kernel [*in, r] and
+  ``{name}_lora_b`` kernel [r, *out] beside it become the port's
+  ``weight_lora_a`` [r, in] and ``weight_lora_b`` [out, r] (the in and
+  out dims flattened as the base kernel's are); a Mixtral stack's raw
+  ``{w}_lora_a`` [E, in, r] and ``{w}_lora_b`` [E, r, out] become
+  ``{w}_lora_a`` [E, r, in] and ``{w}_lora_b`` [E, out, r].
 
 The input is a nested dict of numpy arrays (``jax.device_get`` of the
 params, or of a gradient tree of the same shape). Nothing here imports
@@ -113,6 +122,13 @@ def _block_projs(tree: dict, prefix: str, projs: dict, out: dict) -> None:
                 out[f"{key}.bias"] = _t(
                     np.asarray(leaf["bias"]).reshape(-1)
                 )
+            a, b = tree[mod].get(name + "_lora_a"), tree[mod].get(
+                name + "_lora_b")
+            if a is not None:
+                # A [*in, r] -> [r, in]; B [r, *out] -> [out, r].
+                a, b = np.asarray(a["kernel"]), np.asarray(b["kernel"])
+                out[f"{key}.weight_lora_a"] = _t(a.reshape(-1, a.shape[-1]).T)
+                out[f"{key}.weight_lora_b"] = _t(b.reshape(b.shape[0], -1).T)
 
 
 def _moe(tree: dict, prefix: str, out: dict) -> None:
@@ -126,6 +142,10 @@ def _moe(tree: dict, prefix: str, out: dict) -> None:
             out[f"{prefix}.{name}.scale"] = _t(leaf["scale"])
         else:
             out[f"{prefix}.{name}"] = _t(np.swapaxes(np.asarray(leaf), -1, -2))
+        for suffix in ("_lora_a", "_lora_b"):
+            if name + suffix in tree:  # [E, in, r] / [E, r, out], swapped
+                out[f"{prefix}.{name}{suffix}"] = _t(
+                    np.swapaxes(np.asarray(tree[name + suffix]), -1, -2))
 
 
 def _blocks(tree: dict, cfg):
@@ -165,3 +185,56 @@ def _slice(tree, i):
     if isinstance(tree, dict):
         return {k: _slice(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+def _vision_leaves(tree: dict, prefix: str, out: dict) -> None:
+    """A Flax vision module tree: a kernel [in, out] becomes a [out, in]
+    weight (HWIO convs OIHW), a norm's ``scale`` its ``weight``; biases,
+    ``cls_token`` and ``pos_embed`` as they are."""
+    for name, node in tree.items():
+        key = f"{prefix}{name}"
+        if not isinstance(node, dict):
+            out[key] = _t(node)
+        elif "kernel" in node:
+            k = np.asarray(node["kernel"])
+            out[f"{key}.weight"] = _t(
+                k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T)
+            if "bias" in node:
+                out[f"{key}.bias"] = _t(node["bias"])
+        elif "scale" in node:
+            out[f"{key}.weight"] = _t(node["scale"])
+            out[f"{key}.bias"] = _t(node["bias"])
+        else:
+            _vision_leaves(node, f"{key}.", out)
+
+
+def vision_params_from_flax(params: dict, cfg,
+                            batch_stats: dict | None = None
+                            ) -> dict[str, torch.Tensor]:
+    """State dict for ``tpufw_torch.models.ViT(cfg)`` or ``ResNet(cfg)``
+    from a Flax ``params`` tree (ViT's blocks scanned under ``blocks``
+    with a leading [L] axis, or unscanned as ``block{i}``) and, for a
+    ResNet, its ``batch_stats`` (each BN's ``mean``/``var`` become its
+    ``running_mean``/``running_var``)."""
+    tree = dict(params)
+    if "blocks" in tree:  # the scanned ViT stack
+        stack = tree.pop("blocks")
+        for i in range(cfg.n_layers):
+            tree[f"block{i}"] = _slice(stack, i)
+    blocks = {k: tree.pop(k) for k in list(tree)
+              if k.startswith("block") and k[5:].isdigit()}
+    out = {}
+    _vision_leaves(tree, "", out)
+    for name, block in blocks.items():
+        _vision_leaves(block, f"blocks.{name[5:]}.", out)
+
+    def stats(node, prefix):
+        for name, v in node.items():
+            if "mean" in v:
+                out[f"{prefix}{name}.running_mean"] = _t(v["mean"])
+                out[f"{prefix}{name}.running_var"] = _t(v["var"])
+            else:
+                stats(v, f"{prefix}{name}.")
+
+    stats(batch_stats or {}, "")
+    return out

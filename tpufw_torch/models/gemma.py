@@ -63,8 +63,10 @@ class GemmaConfig:
     mlp_activation: str = "gelu_tanh"
     embed_scale: bool = True
     rms_offset: bool = True
-    # LoRA is ROADMAP.md Queue 1 item 10 (refused by the model).
+    # LoRA adapters on every projection, through the shared trunk's
+    # Projection (0 = off).
     lora_rank: int = 0
+    lora_alpha: float = 16.0
     # Int8 projection weights + fp32 per-output-channel scales (serving;
     # the tied embedding stays in floating point).
     quantized_weights: bool = False

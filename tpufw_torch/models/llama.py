@@ -22,6 +22,9 @@ comes from ``tpufw_torch.ops.quant.quantize_params``).
 
 Parameter layout is PyTorch's: a projection's weight is [out, in].
 ``tpufw_torch.interop.params_from_flax`` converts a Flax param tree.
+With ``lora_rank`` > 0 every projection also holds LoRA adapters
+(``weight_lora_a``/``weight_lora_b``, ``models.lora``) and the build
+freezes everything else.
 
 The trunk also carries the knobs other families set on their configs and
 read here with ``getattr``, as ``tpufw.models.llama`` reads them (Gemma-2,
@@ -48,6 +51,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from tpufw_torch.models.lora import freeze_base, init_adapters
 from tpufw_torch.ops import multi_head_attention, rms_norm
 from tpufw_torch.ops.loss import head_logits
 from tpufw_torch.ops.quant import dequantize_kv, quant_contract, quantize_kv
@@ -103,9 +107,13 @@ class LlamaConfig:
     # only; the state dict comes from ops.quant.quantize_params).
     quantized_weights: bool = False
     # Must stay off: the paged cache is a cache object here
-    # (Llama.init_paged_cache); LoRA is ROADMAP.md Queue 1 item 10.
+    # (Llama.init_paged_cache).
     kv_page: int = 0
+    # LoRA adapters of this rank on every projection (0 = off); the
+    # model then trains them alone (models/lora.py), and
+    # lora.merge_lora folds them back into the base.
     lora_rank: int = 0
+    lora_alpha: float = 16.0
 
     def decode_config(self) -> "LlamaConfig":
         """This architecture dressed for inference: KV cache on, remat off
@@ -314,9 +322,15 @@ class RMSNorm(nn.Module):
 
 class Projection(nn.Module):
     """x @ W^T (+ b) with the input and the master weight cast to the
-    compute dtype — ``nn.DenseGeneral(dtype=cfg.dtype)``."""
+    compute dtype — ``nn.DenseGeneral(dtype=cfg.dtype)`` — plus, with
+    ``cfg.lora_rank`` r > 0 (and ``lora``), ``tpufw``'s ``lora_delta``:
+    (x @ Aᵀ) @ Bᵀ * (lora_alpha / r) in the compute dtype, A
+    ``weight_lora_a`` [r, in] and B ``weight_lora_b`` [out, r]. The model
+    draws the adapters (``lora.init_adapters``: B zero, so the output is
+    the base's until B trains)."""
 
-    def __init__(self, d_in, d_out, cfg, gen, bias=False, device=None):
+    def __init__(self, d_in, d_out, cfg, gen, bias=False, device=None,
+                 lora=True):
         super().__init__()
         self.dtype = cfg.dtype
         w = torch.empty(d_out, d_in, dtype=cfg.param_dtype, device=device)
@@ -328,10 +342,23 @@ class Projection(nn.Module):
             )
             if bias else None
         )
+        r = getattr(cfg, "lora_rank", 0) if lora else 0
+        self.lora_scale = getattr(cfg, "lora_alpha", 16.0) / r if r else None
+        if r:
+            self.weight_lora_a = nn.Parameter(torch.zeros(
+                r, d_in, dtype=cfg.param_dtype, device=device))
+            self.weight_lora_b = nn.Parameter(torch.zeros(
+                d_out, r, dtype=cfg.param_dtype, device=device))
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        x = x.to(self.dtype)
+        y = F.linear(x, self.weight.to(self.dtype), b)
+        if self.lora_scale is None:
+            return y
+        lo = F.linear(x, self.weight_lora_a.to(self.dtype))
+        return y + F.linear(lo, self.weight_lora_b.to(self.dtype)) \
+            * self.lora_scale
 
 
 class QuantProjection(nn.Module):
@@ -366,8 +393,19 @@ class QuantProjection(nn.Module):
         return y
 
 
+def reject_quant_lora(cfg) -> None:
+    """int8 weights carry no gradient path: adapters are merged
+    (``tools.merge_lora``) before quantizing. ``tpufw``'s words."""
+    if getattr(cfg, "lora_rank", 0):
+        raise ValueError(
+            "quantized_weights with lora_rank > 0: merge the "
+            "adapters (tools/merge_lora) before quantizing"
+        )
+
+
 def _projection(d_in, d_out, cfg, gen, bias=False, device=None):
     if cfg.quantized_weights:
+        reject_quant_lora(cfg)
         return QuantProjection(d_in, d_out, cfg.dtype, bias, device)
     return Projection(d_in, d_out, cfg, gen, bias, device)
 
@@ -711,11 +749,6 @@ def _reject_unported(cfg: LlamaConfig) -> None:
             "cache, not the model (Llama.init_paged_cache), so one set of "
             "weights serves every pool"
         )
-    if getattr(cfg, "lora_rank", 0):
-        raise NotImplementedError(
-            "LlamaConfig.lora_rank: LoRA adapters are not ported to "
-            "tpufw_torch yet (ROADMAP.md Queue 1 item 10)"
-        )
 
 
 class Llama(nn.Module):
@@ -727,7 +760,8 @@ class Llama(nn.Module):
     without it, it runs the ordinary forward over its own tokens.
 
     Weights are drawn on ``device`` (default ``cuda``) from a
-    ``torch.Generator`` seeded with ``seed``.
+    ``torch.Generator`` seeded with ``seed``. With ``cfg.lora_rank`` > 0
+    every projection carries adapters and only they need gradients.
     """
 
     def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
@@ -766,6 +800,14 @@ class Llama(nn.Module):
             )
             w.normal_(0.0, 1.0 / math.sqrt(cfg.d_model), generator=gen)
             self.lm_head = nn.Parameter(w)
+        if getattr(cfg, "lora_rank", 0):
+            # The adapters come from a stream of their own, so the base
+            # is the rank-0 model's of the same seed; the freeze lives
+            # in the build, so a model rebuilt on ``meta`` to resume
+            # stays adapter-only.
+            if dev.type != "meta":
+                init_adapters(self, seed, dev)
+            freeze_base(self)
 
     @staticmethod
     def _block(cfg, gen, device, index: int) -> nn.Module:

@@ -20,7 +20,10 @@ the einsum mode, as ``tpufw`` does; the router stays in floating point.
 
 Layout: an expert stack is [E, out, in], so expert e is an HF
 ``nn.Linear`` weight; ``tpufw_torch.interop`` transposes the Flax
-[E, in, out] stacks.
+[E, in, out] stacks. With ``lora_rank`` r > 0 each stack ``w`` has its
+adapters beside it, ``w_lora_a`` [E, r, in] and ``w_lora_b`` [E, out, r]
+(``tpufw``'s [E, in, r] and [E, r, out], transposed), in both dispatch
+modes; the router has none.
 
 ``forward`` returns logits (or hidden states), and ``(out, aux)`` with
 ``return_aux=True``: aux is the layer mean of ``router_aux_weight *
@@ -42,6 +45,7 @@ from tpufw_torch.models.llama import (
     LlamaConfig,
     Projection,
     RMSNorm,
+    reject_quant_lora,
 )
 from tpufw_torch.ops.moe import (
     expert_capacity,
@@ -179,8 +183,12 @@ class MoEMLP(nn.Module):
         self.norm_topk = norm_topk
         self.group_limit = group_limit
         d, f, e = cfg.d_model, d_ff or cfg.d_ff, cfg.n_experts
-        self.router = Projection(d, e, cfg, gen, device=device)
+        self.router = Projection(d, e, cfg, gen, device=device, lora=False)
         self.router.dtype = torch.float32
+        r = getattr(cfg, "lora_rank", 0)
+        if cfg.quantized_weights:
+            reject_quant_lora(cfg)
+        self.lora_scale = getattr(cfg, "lora_alpha", 16.0) / r if r else None
         shapes = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
         for name, (d_in, d_out) in shapes.items():
             if cfg.quantized_weights:
@@ -190,13 +198,34 @@ class MoEMLP(nn.Module):
                             device=device)
             w.normal_(0.0, 1.0 / math.sqrt(d_in), generator=gen)
             setattr(self, name, nn.Parameter(w))
+            if r:
+                # Drawn by the model (lora.init_adapters): B zero.
+                for suffix, shape in (("_lora_a", (e, r, d_in)),
+                                      ("_lora_b", (e, d_out, r))):
+                    setattr(self, name + suffix, nn.Parameter(torch.zeros(
+                        shape, dtype=cfg.param_dtype, device=device)))
+
+    def _adapters(self, name):
+        """(A [E, r, in], B [E, out, r]) of stack ``name`` in the compute
+        dtype, or None without LoRA."""
+        if self.lora_scale is None:
+            return None
+        dt = self.cfg.dtype
+        return (getattr(self, name + "_lora_a").to(dt),
+                getattr(self, name + "_lora_b").to(dt))
 
     def _experts(self, name, xe):
-        """[E, C, in] -> [E, C, out] through expert stack ``name``."""
+        """[E, C, in] -> [E, C, out] through expert stack ``name``, plus
+        its adapters' (xe @ Aᵀ) @ Bᵀ * (lora_alpha / r)."""
         w = getattr(self, name)
         if isinstance(w, QuantExperts):
             return w(xe)
-        return torch.bmm(xe, w.to(self.cfg.dtype).transpose(1, 2))
+        y = torch.bmm(xe, w.to(self.cfg.dtype).transpose(1, 2))
+        ab = self._adapters(name)
+        if ab is None:
+            return y
+        lo = torch.bmm(xe, ab[0].transpose(1, 2))
+        return y + torch.bmm(lo, ab[1].transpose(1, 2)) * self.lora_scale
 
     def forward(self, x, valid=None):
         cfg = self.cfg
@@ -245,6 +274,12 @@ class MoEMLP(nn.Module):
             w = getattr(self, name).to(cfg.dtype).unbind(0)
             parts = inp.split(sizes)
             outs = [F.linear(parts[i], w[i]) for i in range(e)]
+            ab = self._adapters(name)
+            if ab is not None:
+                # The adapters over the same splits: no further host read.
+                a, b = (t.unbind(0) for t in ab)
+                outs = [y + F.linear(F.linear(parts[i], a[i]), b[i])
+                        * self.lora_scale for i, y in enumerate(outs)]
             outs.append(inp.new_zeros(sizes[e], w[0].shape[0]))
             return torch.cat(outs)
 

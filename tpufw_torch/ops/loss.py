@@ -33,22 +33,33 @@ def token_cross_entropy(
 
 
 class _MatmulF32Out(torch.autograd.Function):
-    """[N, D] x [D, V] in a low-precision dtype with fp32 output, as
-    ``preferred_element_type=float32`` gives in the JAX package: the
-    products see the rounded inputs, the sums stay fp32."""
+    """[N, D] x [D, V], or batched [E, N, D] x [E, D, V], in a
+    low-precision dtype with fp32 output, as ``preferred_element_type=
+    float32`` gives in the JAX package: the products see the rounded
+    inputs, the sums stay fp32."""
 
     @staticmethod
     def forward(ctx, a, w):
         ctx.save_for_backward(a, w)
         if a.is_cuda:
-            return torch.mm(a, w, out_dtype=torch.float32)
+            mm = torch.mm if a.ndim == 2 else torch.bmm
+            return mm(a, w, out_dtype=torch.float32)
         return a.float() @ w.float()
 
     @staticmethod
     def backward(ctx, g):
         a, w = ctx.saved_tensors
         g = g.to(a.dtype)
-        return g @ w.t(), a.t() @ g
+        return g @ w.transpose(-1, -2), a.transpose(-1, -2) @ g
+
+
+def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` with fp32 output for 2-D or batched 3-D operands of one
+    dtype: ``_MatmulF32Out`` for a low-precision one, a plain product
+    for fp32."""
+    if a.dtype == torch.float32:
+        return a @ w
+    return _MatmulF32Out.apply(a, w)
 
 
 def head_logits(
@@ -58,11 +69,7 @@ def head_logits(
     cast to ``compute_dtype`` first."""
     a = h.to(compute_dtype).reshape(-1, h.shape[-1])
     w = kernel.to(compute_dtype)
-    if compute_dtype == torch.float32:
-        out = a @ w
-    else:
-        out = _MatmulF32Out.apply(a, w)
-    return out.reshape(*h.shape[:-1], w.shape[-1])
+    return matmul_f32(a, w).reshape(*h.shape[:-1], w.shape[-1])
 
 
 def _chunk_ce_sum(h, kernel, targets, mask, z_loss_weight, compute_dtype,

@@ -71,7 +71,15 @@ def quantize_params(state_dict: dict) -> dict:
     [out] beside it, each expert stack ``w`` becomes ``w.weight`` [E, out,
     in] and ``w.scale`` [E, out], and the untied ``lm_head`` becomes
     ``lm_head.weight`` / ``lm_head.scale``. Other tensors are passed
-    through, not copied."""
+    through, not copied. A state dict with LoRA adapters raises: merge
+    them first (``models.lora.merge_lora``)."""
+    from tpufw_torch.models.lora import has_lora
+
+    if has_lora(state_dict):
+        raise ValueError(
+            "quantize_params on a LoRA tree: run merge_lora first "
+            "(adapters must fold into the kernels they modify)"
+        )
     out = {}
     hit = 0
     for key, val in state_dict.items():

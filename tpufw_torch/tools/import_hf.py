@@ -30,8 +30,9 @@ state dict as safetensors plus its config), which ``TPUFW_INIT_FROM`` and
 ``TPUFW_PARAMS_CHECKPOINT`` read; the second writes an HF directory from
 bare params or a training checkpoint of the preset MODEL.
 
-Refused, as loudly as ``tpufw`` refuses what it lacks: LoRA trees
-(ROADMAP.md Queue 1 item 10), rope ``dynamic``/``longrope``, and DeepSeek
+Refused, as ``tpufw`` refuses them: an unmerged LoRA tree (ValueError:
+``tools.merge_lora`` folds the adapters in first), rope
+``dynamic``/``longrope``, and DeepSeek
 routing other than greedy or group-limited greedy softmax over every
 layer from ``first_k_dense_replace`` on, which neither package
 implements.
@@ -58,6 +59,7 @@ from tpufw_torch.models import (
     model_for_config,
 )
 from tpufw_torch.models.deepseek import YarnScaling
+from tpufw_torch.models.lora import has_lora
 
 
 def _getter(obj):
@@ -433,11 +435,13 @@ def to_hf(state_dict: Mapping[str, torch.Tensor], cfg
           ) -> dict[str, torch.Tensor]:
     """Inverse of ``from_hf``: HF-keyed tensors (``model.`` prefix, dtype
     and device kept) of the port's state dict."""
-    if any("lora" in k for k in state_dict):
-        raise NotImplementedError(
-            "to_hf/export_hf of a LoRA tree: LoRA (models/lora.py, "
-            "tools/merge_lora.py) is not ported to tpufw_torch yet "
-            "(ROADMAP.md Queue 1 item 10)")
+    if has_lora(state_dict):
+        # The emitters read only base weights: an unmerged LoRA tree
+        # would ship the frozen base and drop the whole fine-tune.
+        raise ValueError(
+            "to_hf/export_hf on a LoRA tree: run "
+            "tpufw_torch.tools.merge_lora first (adapters must fold into "
+            "the kernels they modify)")
     if isinstance(cfg, GemmaConfig) and not cfg.tie_embeddings:
         raise NotImplementedError(
             "Gemma export assumes tied embeddings (every released Gemma-2 "

@@ -11,3 +11,8 @@ from tpufw_torch.train.native_data import (  # noqa: F401
 )
 from tpufw_torch.train.prefetch import prefetch_to_device  # noqa: F401
 from tpufw_torch.train.trainer import Trainer, TrainerConfig  # noqa: F401
+from tpufw_torch.train.vision import (  # noqa: F401
+    VisionTrainer,
+    VisionTrainerConfig,
+    synthetic_images,
+)

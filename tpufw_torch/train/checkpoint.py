@@ -264,7 +264,7 @@ class CheckpointManager:
 _RUNTIME_FIELDS = frozenset({
     "dtype", "param_dtype", "attention_backend", "remat", "remat_policy",
     "decode", "max_seq_len", "moe_dispatch", "kv_page", "kv_pages",
-    "kv_quant", "quantized_weights", "scan_layers",
+    "kv_quant", "quantized_weights", "scan_layers", "lora_alpha",
 })
 
 

@@ -17,6 +17,13 @@ checkpoints (``train.checkpoint``, every ``checkpoint_every`` steps) and
 stops on SIGTERM with a forced save (``train.preemption``);
 ``maybe_restore`` resumes from the latest checkpoint, ``init_from_params``
 starts from bare params.
+
+LoRA: a model with ``lora_rank`` > 0 is built with its base frozen
+(``requires_grad=False``), and ``LlamaAdamW`` takes the parameters that
+need gradients, so the global-norm clip and AdamW see the adapters alone
+(``tpufw``'s ``multi_transform`` of the adapters' chain and
+``set_to_zero`` for the base). The reported ``grad_norm`` is then the
+adapters' (``tpufw``'s counts the base's gradients as well).
 """
 
 from __future__ import annotations
@@ -30,11 +37,13 @@ import torch
 
 from tpufw_torch.models import model_for_config
 from tpufw_torch.models.llama import Llama, LlamaConfig
+from tpufw_torch.models.lora import init_adapters, is_lora_name
 from tpufw_torch.ops.loss import chunked_cross_entropy, token_cross_entropy
 from tpufw_torch.train.checkpoint import (
     CheckpointManager,
     check_identity,
     config_identity,
+    config_to_dict,
     load_params,
 )
 from tpufw_torch.train.metrics import Meter, StepMetrics, timed_batches
@@ -344,6 +353,80 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     }
 
 
+def run_steps(trainer, data: Iterator[dict], meter: Meter,
+              on_metrics: Callable[[StepMetrics], None] | None = None,
+              shutdown=None, after_sync: Callable[[], None] | None = None,
+              log_every: int = 1) -> list[StepMetrics]:
+    """The step loop of ``Trainer`` and ``VisionTrainer``:
+    ``trainer.train_step`` on each batch until ``trainer.cfg.total_steps``
+    (a restored trainer's ``step`` counts towards it), the host synced on
+    the loss after the first step, at multiples of ``cfg.sync_every`` (so
+    an aligned evaluation or checkpoint fires) and after the last, each
+    sync metering its window of steps as one ``StepMetrics`` (passed to
+    ``on_metrics`` every ``log_every`` steps, or every window when
+    ``sync_every`` > 1). At each sync point, after the metrics:
+    ``after_sync()``, a checkpoint of ``trainer.state_dict`` when
+    ``cfg.checkpoint_dir`` is set and the step is a multiple of
+    ``checkpoint_every``, then a stop request (``shutdown``, or the
+    SIGTERM handler that ``cfg.handle_preemption`` installs) ends the
+    loop with a forced save and ``trainer.preempted`` set. Saves stay
+    outside the metered window; the last one is on disk on return."""
+    cfg = trainer.cfg
+    trainer.preempted = False
+    ckpt = None
+    if cfg.checkpoint_dir:
+        ckpt = CheckpointManager(cfg.checkpoint_dir,
+                                 save_interval_steps=cfg.checkpoint_every)
+    trainer.checkpointer = ckpt
+    shutdown, owns_shutdown = owned_shutdown(
+        shutdown, cfg.handle_preemption, cfg.preemption_sync_every)
+    remaining = max(0, cfg.total_steps - trainer.step)
+    se = max(1, cfg.sync_every)
+    window_n, window_wait = 0, 0.0
+    history: list[StepMetrics] = []
+    m = None
+    try:
+        for i, (wait, batch) in enumerate(timed_batches(data)):
+            if i >= remaining:
+                break
+            if window_n == 0:
+                meter.start()
+            m = trainer.train_step(batch)
+            window_n += 1
+            window_wait += wait
+            if not (i == 0 or trainer.step % se == 0 or i + 1 == remaining):
+                continue
+            sm = meter.stop(trainer.step, m["loss"], data_wait_s=window_wait,
+                            n_steps=window_n)
+            window_n, window_wait = 0, 0.0
+            history.append(sm)
+            if on_metrics and (se > 1 or i % log_every == 0):
+                on_metrics(sm)
+            if after_sync is not None:
+                after_sync()
+            if ckpt is not None:
+                ckpt.save(trainer.step, trainer.state_dict)
+            if checkpoint_stop(shutdown, ckpt, trainer.step,
+                               trainer.state_dict):
+                trainer.preempted = True
+                break
+        if window_n:
+            # The iterator ended mid-window: meter the steps it ran.
+            sm = meter.stop(trainer.step, m["loss"], data_wait_s=window_wait,
+                            n_steps=window_n)
+            history.append(sm)
+            if on_metrics:
+                on_metrics(sm)
+            if ckpt is not None:
+                ckpt.save(trainer.step, trainer.state_dict)
+    finally:
+        if ckpt is not None:
+            ckpt.close()
+        if owns_shutdown:
+            shutdown.uninstall()
+    return history
+
+
 @dataclasses.dataclass
 class TrainerConfig:
     batch_size: int = 8
@@ -434,9 +517,11 @@ class Trainer:
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs: step, model and optimizer
-        state, and the model config's identity."""
+        state, and the model config's identity; and the config itself
+        (``tools.merge_lora`` writes the merged model's from it)."""
         return {"step": self.step,
                 "config": config_identity(self.model_cfg),
+                "model_config": config_to_dict(self.model_cfg),
                 "model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict()}
 
@@ -469,16 +554,33 @@ class Trainer:
         in the model's dtypes; raises ValueError for another model's."""
         return load_params(path, self.model_cfg, self.device)[1]
 
-    def init_from_params(self, path: str) -> Llama:
+    def init_from_params(self, path: str, seed: int = 0) -> Llama:
         """Start training from bare params: step 0, fresh optimizer
         state. Only on a fresh trainer (``maybe_restore`` resumes a
-        whole run). ``tpufw``'s ``seed`` argument, which seeds only LoRA
-        adapters, is not taken: the port refuses LoRA."""
+        whole run). With LoRA (``lora_rank`` > 0) ``path`` holds the
+        base, a rank-0 model's params: the base tensors load from it onto
+        a model built on ``meta`` (peak memory one base plus the
+        adapters) and the adapters are drawn fresh from ``seed`` with B
+        zero, so step 0's model is the base."""
         if self.model is not None:
             raise RuntimeError(
                 "init_from_params on an initialized trainer; build a fresh "
                 "Trainer (or maybe_restore to resume a run)")
-        self.assign_model(self.restore_params(path))
+        if not getattr(self.model_cfg, "lora_rank", 0):
+            self.assign_model(self.restore_params(path))
+            self._fresh_optimizer()
+            return self.model
+        base_cfg = dataclasses.replace(self.model_cfg, lora_rank=0)
+        base = load_params(path, base_cfg, self.device)[1]
+        self.model = model_for_config(self.model_cfg, device="meta")
+        missing, unexpected = self.model.load_state_dict(
+            base, strict=False, assign=True)
+        if unexpected or not all(is_lora_name(k) for k in missing):
+            raise ValueError(
+                f"{path}: not this model's base: missing "
+                f"{[k for k in missing if not is_lora_name(k)]}, "
+                f"unexpected {unexpected}")
+        init_adapters(self.model, seed, self.device)
         self._fresh_optimizer()
         return self.model
 
@@ -522,80 +624,22 @@ class Trainer:
         shutdown=None,
     ) -> list[StepMetrics]:
         """Train up to ``total_steps`` (a restored run trains what is
-        left); one ``StepMetrics`` per host sync. ``eval_data`` makes a
-        fresh held-out iterator per evaluation; ``on_eval`` receives each
-        result with its "step". At each sync point, after the metrics and
-        the evaluation, the step is checkpointed when ``cfg.checkpoint_dir``
-        is set and it is a multiple of ``checkpoint_every``; then a stop
-        request (``shutdown``, or the SIGTERM handler that
-        ``cfg.handle_preemption`` installs) ends the loop with a forced
-        save and ``self.preempted`` set. Saves stay outside the metered
-        window; the last one is on disk when ``run`` returns."""
+        left) through ``run_steps``: one ``StepMetrics`` per host sync,
+        checkpoints and the SIGTERM stop. ``eval_data`` makes a fresh
+        held-out iterator per evaluation, run at the sync points whose
+        step is a multiple of ``eval_every``; ``on_eval`` receives each
+        result with its "step"."""
         if self.model is None:
             self.init_state()
-        self.preempted = False
         meter = Meter(
             tokens_per_step=self.cfg.batch_size * (self.cfg.seq_len - 1),
             flops_per_token=model_flops_per_token,
             chip=detect_chip(self.device),
         )
-        ckpt = None
-        if self.cfg.checkpoint_dir:
-            ckpt = CheckpointManager(
-                self.cfg.checkpoint_dir,
-                save_interval_steps=self.cfg.checkpoint_every,
-            )
-        self.checkpointer = ckpt
-        shutdown, owns_shutdown = owned_shutdown(
-            shutdown, self.cfg.handle_preemption,
-            self.cfg.preemption_sync_every,
-        )
-        remaining = max(0, self.cfg.total_steps - self.step)
-        se = max(1, self.cfg.sync_every)
-        window_n, window_wait = 0, 0.0
-        history: list[StepMetrics] = []
-        m = None
-        try:
-            for i, (wait, batch) in enumerate(timed_batches(data)):
-                if i >= remaining:
-                    break
-                if window_n == 0:
-                    meter.start()
-                m = self.train_step(batch)
-                window_n += 1
-                window_wait += wait
-                # Sync after the first step, at multiples of sync_every
-                # (so an aligned eval_every or checkpoint_every fires) and
-                # after the last.
-                if not (i == 0 or self.step % se == 0 or i + 1 == remaining):
-                    continue
-                sm = meter.stop(self.step, m["loss"], data_wait_s=window_wait,
-                                n_steps=window_n)
-                window_n, window_wait = 0, 0.0
-                history.append(sm)
-                if on_metrics and (se > 1 or i % self.cfg.log_every == 0):
-                    on_metrics(sm)
-                self._maybe_eval(eval_data, on_eval)
-                if ckpt is not None:
-                    ckpt.save(self.step, self.state_dict)
-                if checkpoint_stop(shutdown, ckpt, self.step, self.state_dict):
-                    self.preempted = True
-                    break
-            if window_n:
-                # The iterator ended mid-window: meter the steps it ran.
-                sm = meter.stop(self.step, m["loss"], data_wait_s=window_wait,
-                                n_steps=window_n)
-                history.append(sm)
-                if on_metrics:
-                    on_metrics(sm)
-                if ckpt is not None:
-                    ckpt.save(self.step, self.state_dict)
-        finally:
-            if ckpt is not None:
-                ckpt.close()
-            if owns_shutdown:
-                shutdown.uninstall()
-        return history
+        return run_steps(self, data, meter, on_metrics, shutdown,
+                         after_sync=lambda: self._maybe_eval(eval_data,
+                                                             on_eval),
+                         log_every=self.cfg.log_every)
 
     def _maybe_eval(self, eval_data, on_eval) -> None:
         every = self.cfg.eval_every

@@ -1,0 +1,246 @@
+"""Image-classification training on one GPU (port of
+``tpufw.train.vision``): ViT and ResNet under one ``VisionTrainer``.
+
+The optimizer is ``tpufw``'s: ``add_decayed_weights(weight_decay)`` on the
+parameters of rank > 1 (no decay on norm scales and biases), then nesterov
+SGD at ``momentum`` over ``warmup_cosine_decay_schedule(0, lr, warmup,
+total)``, the learning rate taken at the pre-increment count as optax
+does: step 0's rate is 0, and its momentum still accumulates. In torch
+that is ``SGD(nesterov=True, dampening=0)`` in two parameter groups.
+
+A step runs the model in train mode (a ResNet's BatchNorm normalizes with
+the batch statistics and updates its running ones), softmax cross-entropy
+on integer labels, and reports the loss and the accuracy. ``run`` syncs
+the host every ``sync_every`` steps, after the first and after the last,
+metering images/s and MFU from ``flops_per_image`` with the LM trainer's
+``Meter`` (an image is its "token"); at those points it checkpoints
+(``train.checkpoint``: parameters, BN statistics, momentum and step) and
+stops on SIGTERM with a forced save (``train.preemption``).
+``maybe_restore`` resumes from the latest checkpoint.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpufw_torch.train.checkpoint import (
+    CheckpointManager,
+    check_identity,
+    config_identity,
+    config_to_dict,
+)
+from tpufw_torch.train.metrics import Meter, StepMetrics
+from tpufw_torch.train.trainer import (
+    batch_to_device,
+    run_steps,
+    warmup_cosine_decay,
+)
+from tpufw_torch.utils.hardware import detect_chip, resolve_device
+
+
+def vision_model(cfg, device=None, seed: int = 0):
+    """``ViT`` for a ``ViTConfig``, ``ResNet`` for a ``ResNetConfig``,
+    weights drawn from ``seed`` on ``device``."""
+    from tpufw_torch.models.resnet import ResNet, ResNetConfig
+    from tpufw_torch.models.vit import ViT, ViTConfig
+
+    if isinstance(cfg, ViTConfig):
+        return ViT(cfg, device=device, seed=seed)
+    if isinstance(cfg, ResNetConfig):
+        return ResNet(cfg, device=device, seed=seed)
+    raise TypeError(f"not a vision config: {type(cfg).__name__}")
+
+
+@dataclasses.dataclass
+class VisionTrainerConfig:
+    batch_size: int = 256
+    image_size: int = 224
+    num_classes: int = 1000
+    total_steps: int = 100
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    warmup_steps: int = 5
+    # Checkpoints (train.checkpoint), as TrainerConfig's.
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 100
+    # SIGTERM -> stop with a forced checkpoint (train.preemption).
+    handle_preemption: bool = True
+    preemption_sync_every: int = 1
+    # Steps between host syncs (TrainerConfig.sync_every).
+    sync_every: int = 1
+
+
+class VisionSGD:
+    """Masked weight decay + nesterov SGD + warmup-cosine schedule, with
+    optax's arithmetic (see the module doc). ``step`` applies the update
+    from the parameters' ``.grad``."""
+
+    def __init__(self, params, cfg: VisionTrainerConfig):
+        self.params = [p for p in params if p.requires_grad]
+        decay = [p for p in self.params if p.ndim > 1]
+        rest = [p for p in self.params if p.ndim <= 1]
+        self.sgd = torch.optim.SGD(
+            [{"params": decay, "weight_decay": cfg.weight_decay},
+             {"params": rest, "weight_decay": 0.0}],
+            lr=0.0, momentum=cfg.momentum, dampening=0.0, nesterov=True)
+        self.lr, self.warmup = cfg.lr, cfg.warmup_steps
+        self.decay_steps = max(cfg.total_steps, cfg.warmup_steps + 1)
+        self.count = 0
+
+    def schedule(self, count: int) -> float:
+        return warmup_cosine_decay(count, self.lr, self.warmup,
+                                   self.decay_steps, 0.0)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        lr = self.schedule(self.count)
+        self.count += 1
+        for group in self.sgd.param_groups:
+            group["lr"] = lr
+        self.sgd.step()
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "sgd": self.sgd.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.sgd.load_state_dict(state["sgd"])
+        self.count = int(state["count"])
+
+
+def vision_train_step(model, optimizer: VisionSGD, batch: dict) -> dict:
+    """One supervised step on device tensors, images [B, H, W, C] and
+    labels [B]: {loss, accuracy} as device tensors."""
+    model.train()
+    optimizer.zero_grad()
+    logits = model(batch["images"])
+    labels = batch["labels"].long()
+    loss = F.cross_entropy(logits.float(), labels)
+    loss.backward()
+    optimizer.step()
+    with torch.no_grad():
+        accuracy = (logits.argmax(-1) == labels).float().mean()
+    return {"loss": loss.detach(), "accuracy": accuracy}
+
+
+class VisionTrainer:
+    """Builds a ``ViT`` or ``ResNet`` and its optimizer on one device and
+    runs the step loop with images/s/GPU and MFU metrics."""
+
+    def __init__(self, model_cfg, cfg: VisionTrainerConfig, device=None):
+        self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = None
+        self.optimizer: Optional[VisionSGD] = None
+        self.step = 0
+        self.preempted = False
+        # The last run()'s CheckpointManager (its saves' numbers).
+        self.checkpointer = None
+
+    def init_state(self, seed: int = 0, state_dict=None):
+        """Weights from ``seed``, or ``state_dict`` when given (e.g.
+        ``interop.vision_params_from_flax``); fresh optimizer at step 0."""
+        self.model = vision_model(self.model_cfg, self.device, seed)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        self.optimizer = VisionSGD(self.model.parameters(), self.cfg)
+        self.step = 0
+        return self.model
+
+    def state_dict(self) -> dict:
+        return {"step": self.step,
+                "config": config_identity(self.model_cfg),
+                "model_config": config_to_dict(self.model_cfg),
+                "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Resume from ``state_dict()``'s output; ValueError for another
+        model's."""
+        check_identity(state["config"], self.model_cfg, "the checkpoint")
+        self.model = vision_model(self.model_cfg, "meta")
+        self.model.load_state_dict(state["model"], assign=True)
+        self.optimizer = VisionSGD(self.model.parameters(), self.cfg)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+    def maybe_restore(self) -> bool:
+        """Resume from the latest checkpoint under ``cfg.checkpoint_dir``,
+        if there is one."""
+        if not self.cfg.checkpoint_dir:
+            return False
+        mgr = CheckpointManager(self.cfg.checkpoint_dir)
+        try:
+            if mgr.latest_step() is None:
+                return False
+            self.load_state_dict(mgr.restore(device=self.device))
+            return True
+        finally:
+            mgr.close()
+
+    def train_step(self, batch: dict) -> dict:
+        out = vision_train_step(self.model, self.optimizer,
+                                batch_to_device(batch, self.device))
+        self.step += 1
+        return out
+
+    def run(
+        self,
+        data: Iterator[dict],
+        flops_per_image: Optional[float] = None,
+        on_metrics: Callable[[StepMetrics], None] | None = None,
+        shutdown=None,
+    ) -> list[StepMetrics]:
+        """Train up to ``total_steps`` (a restored run trains what is
+        left) through the LM trainer's ``run_steps``: one ``StepMetrics``
+        per host sync, images as tokens, checkpoints and the SIGTERM
+        stop."""
+        if self.model is None:
+            self.init_state()
+        meter = Meter(tokens_per_step=self.cfg.batch_size,
+                      flops_per_token=flops_per_image or 0.0,
+                      chip=detect_chip(self.device))
+        return run_steps(self, data, meter, on_metrics, shutdown)
+
+
+def synthetic_images(
+    batch_size: int,
+    image_size: int = 224,
+    num_classes: int = 1000,
+    seed: int = 0,
+    pool: int = 4,
+    device=None,
+) -> Iterator[dict]:
+    """Cycles a pool of ``pool`` batches of standard-normal NHWC fp32
+    images and uniform int64 labels, drawn once from a numpy ``seed``:
+    the same bytes as ``tpufw.train.synthetic_images``. With ``device``
+    the pool is staged there once and its tensors are yielded (``tpufw``'s
+    ``on_device``), so a step uploads nothing."""
+    rng = np.random.default_rng(seed)
+    batches = [
+        {
+            "images": rng.standard_normal(
+                (batch_size, image_size, image_size, 3)
+            ).astype(np.float32),
+            "labels": rng.integers(
+                0, num_classes, (batch_size,), dtype=np.int64
+            ),
+        }
+        for _ in range(pool)
+    ]
+    if device is not None:
+        batches = [batch_to_device(b, torch.device(device)) for b in batches]
+    i = 0
+    while True:
+        yield batches[i % pool]
+        i += 1

@@ -4,7 +4,8 @@ Knobs (the JAX workload's names where the meaning is the same):
 ``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``, ``MIXTRAL_CONFIGS``, ``GEMMA_CONFIGS``
 or ``DEEPSEEK_CONFIGS`` preset, e.g. ``mixtral_8x7b``, ``gemma2_9b``,
 ``deepseek_mla_bench`` or ``deepseek_moe_tiny``, a train slice such as
-``deepseek_v2_lite_train_slice``, whose trainer config gives the defaults
+``deepseek_v2_lite_train_slice`` or ``llama3_8b_lora_train_slice``, whose
+trainer config gives the defaults
 of the trainer knobs, or ``llama3_600m_bench``, the default),
 ``TPUFW_BATCH_SIZE``, ``TPUFW_SEQ_LEN`` (default: the model's
 ``max_seq_len``), ``TPUFW_TOTAL_STEPS``, ``TPUFW_ATTENTION`` (backend
@@ -14,14 +15,18 @@ config, Mixtral's or DeepSeek's; ignored by the rest), ``TPUFW_LR``, ``TPUFW_WAR
 ``TPUFW_ADAM_MU_DTYPE`` (e.g. ``bfloat16``), ``TPUFW_SYNC_EVERY`` (steps
 per host sync), ``TPUFW_EVAL_EVERY`` (0 = off) and ``TPUFW_EVAL_BATCHES``
 (8), ``TPUFW_SEED``, ``TPUFW_DATA_SEED``, ``TPUFW_LOG_EVERY`` and
-``TPUFW_DEVICE`` (default ``cuda``).
+``TPUFW_DEVICE`` (default ``cuda``). ``TPUFW_LORA_RANK`` (> 0: LoRA
+adapters on every projection and expert stack, the base frozen) and
+``TPUFW_LORA_ALPHA`` (16); a family without adapters (DeepSeek) raises.
+``llama3_8b_lora_train_slice`` is Llama-3-8B LoRA at all 32 layers.
 
 Weights and state: ``TPUFW_CHECKPOINT_DIR`` (save every
 ``TPUFW_CHECKPOINT_EVERY`` steps, default 100, and resume from the latest
 step at start), ``TPUFW_HANDLE_PREEMPTION`` (on: SIGTERM stops the run
 with a forced checkpoint and a ``{"preempted": true, "step": N}`` line)
 and ``TPUFW_PREEMPTION_SYNC_EVERY``; ``TPUFW_INIT_FROM`` (bare params to
-start from at step 0, when there is no checkpoint to resume).
+start from at step 0, when there is no checkpoint to resume; with LoRA, a
+rank-0 model's params, the adapters drawn from ``TPUFW_SEED``).
 
 Data: ``TPUFW_DATA_PREFIX`` (a ``tools.pack_corpus`` corpus, read
 shuffled by the native packer through ``prefetch_to_device``, depth
@@ -35,9 +40,7 @@ held-out evaluation as one more.
 Not ported yet, and refused with ``NotImplementedError`` when set to
 anything but their defaults: the SFT, DPO and distillation objectives
 (``TPUFW_SFT_DATA``, ``TPUFW_DPO_DATA``, ``TPUFW_DISTILL_TEACHER``;
-ROADMAP.md Queue 1 item 11); LoRA (``TPUFW_LORA_RANK``,
-``TPUFW_LORA_ALPHA``; item 10); a mesh
-(``TPUFW_MESH_*`` above 1; item 12); ``TPUFW_CONFIG``,
+ROADMAP.md Queue 1 item 11); a mesh (``TPUFW_MESH_*`` above 1; item 12); ``TPUFW_CONFIG``,
 ``TPUFW_PROFILE_DIR``, ``TPUFW_AUTOTUNE``, ``TPUFW_TELEMETRY_DIR``,
 ``TPUFW_METRICS_PORT`` and ``TPUFW_STRAGGLER_FACTOR`` (item 13).
 """
@@ -72,8 +75,6 @@ _UNPORTED_KNOBS = (
     ("telemetry_dir", "training telemetry", "13", ""),
     ("metrics_port", "the Prometheus /metrics server", "13", ""),
     ("straggler_factor", "straggler detection", "13", "2.0"),
-    ("lora_rank", "LoRA fine-tuning", "10", "0"),
-    ("lora_alpha", "LoRA fine-tuning", "10", "16.0"),
 )
 _MESH_AXES = ("data", "fsdp", "expert", "sequence", "tensor", "dcn_data")
 
@@ -115,6 +116,21 @@ def build_trainer():
     moe_dispatch = env_str("moe_dispatch", "")
     if moe_dispatch and hasattr(model_cfg, "moe_dispatch"):
         model_cfg = dataclasses.replace(model_cfg, moe_dispatch=moe_dispatch)
+    # LoRA: TPUFW_LORA_RANK > 0 adds adapters and freezes the base (with
+    # TPUFW_INIT_FROM, the base comes from bare params).
+    lora_rank = env_int("lora_rank", getattr(model_cfg, "lora_rank", 0))
+    lora_alpha = env_float("lora_alpha",
+                           getattr(model_cfg, "lora_alpha", 16.0))
+    if not hasattr(model_cfg, "lora_rank"):
+        if lora_rank:
+            raise NotImplementedError(
+                f"TPUFW_LORA_RANK: {type(model_cfg).__name__} does not "
+                "implement LoRA adapters (the MLA family is full-fine-tune "
+                "only today)")
+    elif (lora_rank, lora_alpha) != (model_cfg.lora_rank,
+                                     model_cfg.lora_alpha):
+        model_cfg = dataclasses.replace(model_cfg, lora_rank=lora_rank,
+                                        lora_alpha=lora_alpha)
     base = TrainerConfig()
     # A train slice's own shape and schedule are the defaults.
     dflt = (TRAIN_SLICES[name]()[1] if name in TRAIN_SLICES else
@@ -171,7 +187,7 @@ def main() -> int:
     if trainer.maybe_restore():
         print(f"resumed from checkpoint at step {trainer.step}", flush=True)
     elif init_from:
-        trainer.init_from_params(init_from)
+        trainer.init_from_params(init_from, seed=env_int("seed", 0))
         print(f"initialized params from {init_from}", flush=True)
     else:
         trainer.init_state(seed=env_int("seed", 0))
