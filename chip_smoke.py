@@ -270,14 +270,53 @@ Phases, each fatal on failure:
     bf16 peak, peak memory). No flash kernel runs here: ViT's attention is
     two matmuls and a softmax, as in the reference.
 
+13. Post-training, with phase 12's models freed; its data files (drawn
+    from a seed) in a gitignored directory of the checkout, deleted after.
+    13a SFT: ``llama3_8b_lora_train_slice`` (all 32 layers, rank 16, B=2,
+    seq 2048, remat ``dots``, flash at head dim 128) for SFT_STEPS steps on
+    ``sft_batches`` of synthetic multi-turn conversations (``llama3``
+    template, ``resolve_encode("bytes")``): finite losses, every run of
+    trained target positions part of an assistant turn (checked on the
+    host from the batches), the base's checksums unchanged and every
+    adapter moved; an ``sft_train_summary``. 13b DPO: the same slice,
+    DPO_PAIRS pairs (4 rows) of DPO_SEQ tokens, beta 0.1, DPO_STEPS steps,
+    the reference the policy's base with the adapters bypassed: step 0 at
+    ln 2 within 1e-6 with accuracy 0.5 (the largest |margin| printed),
+    finite later steps, the base unchanged; a ``dpo_train_summary`` (MFU
+    on the 4/3 count, margins and accuracy a step). 13c GRPO: the same
+    slice, 2 prompts x group 8 rows of 256 tokens, 64 sampled at
+    temperature 1, kl_beta 0.02, 3 steps of ``run_rl`` with the
+    ``low_token`` reward: completions in vocab, rows right-padded with the
+    mask on the completion only, every step's mean ratio within 1e-6 of 1
+    with no clip, step 1's KL 0, no flash launch in any rollout's decode
+    and every d128 kernel in each update; a ``grpo_summary`` (decode,
+    scoring and update ms and tokens/s, rewards). 13d distillation: the
+    student ``llama3_600m_bench`` (full size, full fine-tune, B=4, seq
+    2048) and a frozen bf16 teacher ``llama3_1b_proxy`` (16 layers, the
+    same 32,768 vocab), T 2, alpha 0.5, 5 steps: finite KL > 0 and CE, and
+    the chunked loss on the card within 2^-6 of an unchunked fp32
+    computation of the same formula on 256 tokens; a
+    ``distill_train_summary`` (MFU with the teacher's forward). 13e
+    embeddings, 8 pairs (16 rows) of 256 tokens, 3 steps of each recipe,
+    rank-16 adapters at all 32 layers: E5-Mistral (``mistral_7b``,
+    causal, last-token pooling, temperature 0.02) and LLM2Vec
+    (``llama3_8b``, ``causal=False``: the flash kernels non-causal, mean
+    pooling, 0.05): finite InfoNCE losses, every d128 kernel launched,
+    ``embed`` unit-norm [N, D], a changed last token moving the first
+    position only under the bidirectional trunk, ``evaluate_retrieval``;
+    an ``embed_train_summary`` per recipe. Every sub-phase zeroes the
+    launch counters just before its run.
+
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
 7b's first run, ``launches_mixtral_train``, phase 9a's runs per dispatch
-mode, ``launches_lora_train``, phase 11a's, and
-``launches_mixtral_lora_train``, phase 11b's per mode, and the
-head-dim-192 ones ``launches_v2lite_train``, phase 10a's), a
-``phase_seconds`` line (each phase's wall seconds, phase 10's, 11's and
-12's parts and the total), the ``nvidia-smi`` line and, last,
+mode, ``launches_lora_train``, phase 11a's,
+``launches_mixtral_lora_train``, phase 11b's per mode, and
+``launches_post_train``, phase 13's per sub-phase, GRPO's decode,
+scoring and updates apart, and the head-dim-192 ones
+``launches_v2lite_train``, phase 10a's), a ``phase_seconds`` line (each
+phase's wall seconds, phase 10's to 13's parts and the total), the
+``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it prints no result and exits nonzero.
 """
@@ -528,6 +567,34 @@ MIXTRAL_LORA_STEPS = 3
 VISION_BATCH = 256
 VISION_STEPS = 6
 VISION_EVAL_BATCH = 16
+# Phase 13 (post-training). 13a SFT and 13b DPO (beta DPO_BETA) and 13c
+# GRPO on llama3_8b_lora_train_slice (all 32 layers, rank 16): SFT at the
+# slice's B=2 x 2048 for SFT_STEPS steps on SFT_CONVERSATIONS synthetic
+# conversations; DPO_PAIRS pairs of DPO_SEQ tokens for DPO_STEPS steps,
+# step 0 held to ln 2 within DPO_ANCHOR_TOL; GRPO GRPO_PROMPTS prompts (of
+# GRPO_PROMPT_LENS ids) x group GRPO_GROUP rows of GRPO_SEQ tokens,
+# GRPO_NEW sampled, kl_beta GRPO_KL_BETA, GRPO_STEPS steps, every step's
+# mean ratio within RATIO_TOL of 1. 13d distills llama3_1b_proxy into
+# llama3_600m_bench at B=DISTILL_BATCH x RESUME_SEQ for DISTILL_STEPS
+# steps, the chunked loss (chunks of DISTILL_CHECK_CHUNK) within
+# DISTILL_TOL of its plain computation on DISTILL_CHECK_TOKENS tokens.
+# 13e trains EMBED_RECIPES (preset, causal, pooling, temperature) with
+# rank-16 adapters at all 32 layers, EMBED_PAIRS pairs of EMBED_SEQ
+# tokens, EMBED_STEPS steps each.
+SFT_STEPS = 4
+SFT_CONVERSATIONS = 24
+DPO_PAIRS, DPO_SEQ, DPO_STEPS, DPO_BETA = 2, 1024, 4, 0.1
+DPO_ANCHOR_TOL = 1e-6
+GRPO_PROMPTS, GRPO_GROUP, GRPO_SEQ, GRPO_NEW = 2, 8, 256, 64
+GRPO_PROMPT_LENS = (100, 150)
+GRPO_STEPS, GRPO_KL_BETA = 3, 0.02
+RATIO_TOL = 1e-6
+DISTILL_BATCH, DISTILL_STEPS = 4, 5
+DISTILL_CHECK_TOKENS, DISTILL_CHECK_CHUNK = 256, 64
+DISTILL_TOL = 2.0 ** -6
+EMBED_RECIPES = {"e5_mistral": ("mistral_7b", True, "last", 0.02),
+                 "llm2vec": ("llama3_8b", False, "mean", 0.05)}
+EMBED_PAIRS, EMBED_SEQ, EMBED_STEPS = 8, 256, 3
 # Wall seconds of each phase (and of phase 10's parts), printed as the
 # ``phase_seconds`` line.
 PHASE_SECONDS: dict = {}
@@ -542,13 +609,17 @@ def fail(msg: str) -> int:
     return 1
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# The card's state beside a phase's numbers: a card whose clocks sit
+# below their maximum runs every kernel slower.
+CARD_STATE = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -3788,6 +3859,585 @@ def vision_phase(torch, chip, kind, smi) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------- phase 13
+
+
+def _write_jsonl(path: str, rows) -> str:
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    return path
+
+
+def _words(rng, n: int, alphabet: str) -> str:
+    """``n`` words of 2-9 letters drawn from ``alphabet`` by ``rng``."""
+    return " ".join("".join(rng.choice(list(alphabet), rng.integers(2, 10)))
+                    for _ in range(n))
+
+
+def post_train_data(workdir: str, seed: int = 0) -> dict:
+    """Phase 13's JSONL files, drawn from ``seed``: multi-turn
+    conversations (SFT), preference pairs (DPO) and retrieval pairs
+    (embeddings); returns their paths and the assistant turns' texts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lower, upper = "abcdefghijklmnopqrstuvwxyz", "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    convs, replies = [], []
+    for _ in range(SFT_CONVERSATIONS):
+        turns = [{"role": "system", "content": _words(rng, 12, lower)}]
+        for _ in range(int(rng.integers(2, 5))):
+            turns.append({"role": "user",
+                          "content": _words(rng, int(rng.integers(20, 80)),
+                                            lower)})
+            reply = _words(rng, int(rng.integers(20, 120)), upper)
+            turns.append({"role": "assistant", "content": reply})
+            replies.append(reply)
+        convs.append({"messages": turns})
+    pairs = [{"prompt": _words(rng, int(rng.integers(40, 140)), lower),
+              "chosen": _words(rng, int(rng.integers(10, 60)), upper),
+              "rejected": _words(rng, int(rng.integers(10, 60)), upper)}
+             for _ in range(4 * DPO_PAIRS)]
+    retrieval = []
+    for i in range(EMBED_PAIRS + 4):
+        topic = _words(rng, 3, lower)
+        retrieval.append({"query": f"what is {topic} {i}?",
+                          "positive": f"{topic} {i} is " + _words(rng, 30,
+                                                                 lower)})
+    return {
+        "sft": _write_jsonl(os.path.join(workdir, "chats.jsonl"), convs),
+        "replies": replies,
+        "dpo": _write_jsonl(os.path.join(workdir, "prefs.jsonl"), pairs),
+        "embed": _write_jsonl(os.path.join(workdir, "pairs.jsonl"),
+                              retrieval),
+    }
+
+
+def _recorded(trainer, keys=()) -> list:
+    """Wrap ``trainer.train_step`` to keep each step's ``keys`` metrics
+    (device tensors, read after the run); returns the list it fills."""
+    out = []
+    step_fn = trainer.train_step
+
+    def train_step(batch):
+        m = step_fn(batch)
+        out.append({k: m[k] for k in keys})
+        return m
+
+    trainer.train_step = train_step
+    return out
+
+
+def _floats(rows) -> list:
+    return [{k: float(v) for k, v in r.items()} for r in rows]
+
+
+def _d128_launches(flash, launches) -> dict:
+    path = [flash.kernel_name(k, 128) for k in flash.KERNELS]
+    missing = [k for k in path if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return {k: launches[k] for k in path}
+
+
+def _sft_trained_runs(batch) -> list:
+    """The byte strings of each maximal run of trained target positions
+    of ``batch`` (``shift_and_mask``'s mask, on the host)."""
+    import numpy as np
+
+    tok, seg, m = batch["tokens"], batch["segment_ids"], batch["loss_mask"]
+    mask = m[:, 1:] * (seg[:, :-1] == seg[:, 1:]) * (seg[:, 1:] > 0)
+    runs = []
+    for row, rmask in zip(tok[:, 1:], mask):
+        cur = []
+        for t, on in zip(row.tolist(), rmask.tolist()):
+            if on:
+                cur.append(t)
+            elif cur:
+                runs.append(bytes(x - 1 for x in cur))
+                cur = []
+        if cur:
+            runs.append(bytes(x - 1 for x in cur))
+    return runs if np.asarray(mask).sum() else []
+
+
+def sft_run(torch, data, kind, smi) -> dict:
+    """13a: SFT of ``llama3_8b_lora_train_slice`` (all 32 layers, rank 16)
+    for SFT_STEPS steps on ``sft_batches`` of phase 13's conversations
+    (``llama3`` template, the byte tokenizer through ``resolve_encode``),
+    counters zeroed just before ``Trainer.run``. Checks: finite losses;
+    each run of trained positions decodes to part of an assistant turn
+    (its content and the ``<|eot_id|>`` footer), checked on the host from
+    the batches; the base unchanged and every adapter moved; every d128
+    kernel launched. Returns the launches."""
+    from tpufw_torch import configs
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import Trainer, sft_batches
+    from tpufw_torch.workloads._common import resolve_encode
+
+    cfg, tcfg = configs.llama3_8b_lora_train_slice(total_steps=SFT_STEPS)
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    model = trainer.init_state(seed=0)
+    before = _adapters_and_base(torch, model)
+    seen = []
+
+    def batches():
+        for b in sft_batches(data["sft"], tcfg.batch_size, tcfg.seq_len,
+                             resolve_encode("bytes"), template="llama3"):
+            seen.append(b)
+            yield b
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    history = trainer.run(
+        batches(),
+        model_flops_per_token=cfg.flops_per_token(tcfg.seq_len - 1))
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    trainer.optimizer = None
+    moved = _only_adapters_moved(torch, model, before)
+    footer = b"<|eot_id|>"
+    turns = [r.encode() + footer for r in data["replies"]]
+    seen = seen[:len(history)]
+    runs = [r for b in seen for r in _sft_trained_runs(b)]
+    strays = [r for r in runs if not any(r in t for t in turns)]
+    trained = sum(float(b["loss_mask"][:, 1:].sum()) for b in seen)
+    summary = {"steps": len(history), "losses": [m.loss for m in history],
+               **_steady(history),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches, "model": "llama3_8b_lora",
+               "template": "llama3", "tokenizer": "bytes",
+               "batch_size": tcfg.batch_size, "seq_len": tcfg.seq_len,
+               "trained_target_share": trained / (
+                   len(seen) * tcfg.batch_size * (tcfg.seq_len - 1)),
+               "trained_runs": len(runs), "stray_runs": len(strays),
+               "adapters": moved, "device": kind, "nvidia_smi": smi}
+    emit({"sft_train_summary": summary})
+    del trainer, model, before
+    if len(history) != SFT_STEPS or not all(
+            math.isfinite(m.loss) for m in history):
+        raise AssertionError(f"SFT: losses {summary['losses']}")
+    if strays or not runs:
+        raise AssertionError(f"SFT: trained positions outside the assistant "
+                             f"turns: {strays[:2]}")
+    return _d128_launches(flash, launches)
+
+
+def dpo_run(torch, data, kind, smi) -> dict:
+    """13b: DPO of the same LoRA slice, DPO_PAIRS pairs (2 x DPO_PAIRS
+    rows) of DPO_SEQ tokens, beta DPO_BETA, DPO_STEPS steps, the
+    reference the bypassed base. Checks: step 0 at ln 2 within
+    DPO_ANCHOR_TOL with accuracy 0.5 (the largest |margin| printed);
+    finite later steps; the base unchanged, every adapter moved; every
+    d128 kernel launched. MFU on the 4/3 count (the reference forward).
+    Returns the launches."""
+    from tpufw_torch import configs
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import DPOConfig, DPOTrainer, dpo_batches
+    from tpufw_torch.train.sft import byte_encode
+
+    cfg, tcfg = configs.llama3_8b_lora_train_slice(total_steps=DPO_STEPS)
+    tcfg = dataclasses.replace(tcfg, batch_size=2 * DPO_PAIRS,
+                               seq_len=DPO_SEQ)
+    trainer = DPOTrainer(cfg, tcfg, device="cuda",
+                         dpo=DPOConfig(beta=DPO_BETA))
+    model = trainer.init_state(seed=0)
+    before = _adapters_and_base(torch, model)
+    rec = _recorded(trainer, ("loss", "accuracy", "margin",
+                                     "reward_chosen", "reward_rejected"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    history = trainer.run(
+        dpo_batches(data["dpo"], DPO_PAIRS, DPO_SEQ, byte_encode,
+                    template="llama3"),
+        model_flops_per_token=cfg.flops_per_token(DPO_SEQ - 1) * 4.0 / 3.0)
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    metrics = _floats(rec)
+    trainer.optimizer = None
+    moved = _only_adapters_moved(torch, model, before)
+    step0 = metrics[0]
+    summary = {"steps": len(history), "metrics": metrics, **_steady(history),
+               "mfu_flops": "4/3 x the Meter's 6N count of the base: the "
+                            "reference forward adds 2N",
+               "step0_loss_minus_ln2": step0["loss"] - math.log(2.0),
+               "step0_abs_margin": abs(step0["margin"]),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches, "beta": DPO_BETA,
+               "rows": 2 * DPO_PAIRS, "seq_len": DPO_SEQ,
+               "reference": "the policy's base, adapters bypassed",
+               "adapters": moved, "device": kind, "nvidia_smi": smi}
+    emit({"dpo_train_summary": summary})
+    del trainer, model, before
+    if len(history) != DPO_STEPS or not all(
+            math.isfinite(m["loss"]) for m in metrics):
+        raise AssertionError(f"DPO: {metrics}")
+    if abs(step0["loss"] - math.log(2.0)) > DPO_ANCHOR_TOL or \
+            step0["accuracy"] != 0.5:
+        raise AssertionError(f"DPO step 0 is not the ln 2 anchor: {step0}")
+    return _d128_launches(flash, launches)
+
+
+def grpo_run(torch, kind, smi, gen) -> dict:
+    """13c: GRPO of the same LoRA slice: GRPO_PROMPTS prompts x group
+    GRPO_GROUP rows of GRPO_SEQ tokens, GRPO_NEW sampled tokens at
+    temperature 1, kl_beta GRPO_KL_BETA, GRPO_STEPS steps of ``run_rl``
+    with the ``low_token`` reward. Each rollout's decode, its scoring of
+    the old log-probs and each update are counted apart. Checks:
+    completions in vocab; rows right-padded with the mask on the
+    completion only; every step's mean ratio within RATIO_TOL of 1 with
+    no clip; step 1's KL 0; no flash launch in any decode, every d128
+    kernel in each update. Returns the launches by part."""
+    from tpufw_torch import configs
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import GRPOConfig, GRPOTrainer
+    from tpufw_torch.workloads.rl import resolve_reward
+
+    cfg, tcfg = configs.llama3_8b_lora_train_slice(total_steps=GRPO_STEPS)
+    tcfg = dataclasses.replace(tcfg, batch_size=GRPO_PROMPTS * GRPO_GROUP,
+                               seq_len=GRPO_SEQ, loss_chunk_size=GRPO_SEQ)
+    trainer = GRPOTrainer(cfg, tcfg, device="cuda", grpo=GRPOConfig(
+        group_size=GRPO_GROUP, max_new_tokens=GRPO_NEW, temperature=1.0,
+        kl_beta=GRPO_KL_BETA))
+    model = trainer.init_state(seed=0)
+    before = _adapters_and_base(torch, model)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                             device="cuda").tolist()
+               for n in GRPO_PROMPT_LENS]
+    parts = {"decode": [], "score": [], "update": []}
+    timing = {"score_s": []}
+    batches = []
+
+    def counted(name, fn, keep=None):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            c0 = dict(flash.LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            if keep is not None:
+                timing[keep].append(time.perf_counter() - t0)
+            parts[name].append({k: flash.LAUNCHES[k] - c0[k]
+                                for k in flash.LAUNCHES})
+            return out
+        return run
+
+    score, rollout, step_fn = trainer._score, trainer.rollout, \
+        trainer.train_step
+    trainer._score = counted("score", score, "score_s")
+
+    def rollout_counted(*a, **k):
+        n0 = len(parts["score"])
+        c0 = dict(flash.LAUNCHES)
+        out = rollout(*a, **k)
+        sc = parts["score"][n0]
+        parts["decode"].append({k: flash.LAUNCHES[k] - c0[k] - sc[k]
+                                for k in flash.LAUNCHES})
+        return out
+
+    def train_step(batch):
+        batches.append(batch)
+        return counted("update", step_fn)(batch)
+
+    trainer.rollout = rollout_counted
+    trainer.train_step = train_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    history = trainer.run_rl(
+        prompts, resolve_reward("low_token", cfg.vocab_size, GRPO_NEW),
+        seed=0)
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    trainer.optimizer = None
+    moved = _only_adapters_moved(torch, model, before)
+    rows_ok = []
+    for b in batches:
+        tiled = [q for q in prompts for _ in range(GRPO_GROUP)]
+        for i, p in enumerate(tiled):
+            n = len(p) + GRPO_NEW
+            comp = b["tokens"][i, len(p):n]
+            rows_ok.append(
+                b["tokens"][i, :len(p)].tolist() == p
+                and bool((comp >= 0).all() and (comp < cfg.vocab_size).all())
+                and not b["tokens"][i, n:].any()
+                and b["segment_ids"][i].tolist() == [1] * n + [0] * (
+                    GRPO_SEQ - n)
+                and b["loss_mask"][i].tolist() == [0.0] * len(p)
+                + [1.0] * GRPO_NEW + [0.0] * (GRPO_SEQ - n))
+    rows = GRPO_PROMPTS * GRPO_GROUP
+    steps = [{k: h[k] for k in ("step", "reward_mean", "loss", "mean_ratio",
+                                "clip_frac", "kl", "grad_norm", "rollout_s",
+                                "update_s")} for h in history]
+    decode_s = [h["rollout_s"] - s for h, s in zip(history,
+                                                   timing["score_s"])]
+    summary = {
+        "steps": steps,
+        "decode_ms": [1e3 * s for s in decode_s],
+        "score_ms": [1e3 * s for s in timing["score_s"]],
+        "update_ms": [1e3 * h["update_s"] for h in history],
+        "decode_tokens_per_s": [rows * GRPO_NEW / s for s in decode_s],
+        "update_tokens_per_s": [rows * (GRPO_SEQ - 1) / h["update_s"]
+                                for h in history],
+        "reward_mean": [h["reward_mean"] for h in history],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "launches_by_part": {k: [sum(x.values()) for x in v]
+                             for k, v in parts.items()},
+        "rows": rows, "seq_len": GRPO_SEQ, "max_new_tokens": GRPO_NEW,
+        "kl_beta": GRPO_KL_BETA, "reference": "the policy's base, adapters "
+        "bypassed", "rows_right_padded_and_masked": all(rows_ok),
+        "adapters": moved, "device": kind, "nvidia_smi": smi}
+    emit({"grpo_summary": summary})
+    del trainer, model, before, batches
+    if len(history) != GRPO_STEPS or not all(rows_ok):
+        raise AssertionError(f"GRPO: {len(history)} steps, rows ok "
+                             f"{sum(rows_ok)}/{len(rows_ok)}")
+    for h in history:
+        if not (abs(h["mean_ratio"] - 1.0) <= RATIO_TOL
+                and h["clip_frac"] == 0.0 and math.isfinite(h["loss"])):
+            raise AssertionError(f"GRPO ratio anchor: {h}")
+    if history[0]["kl"] != 0.0:
+        raise AssertionError(f"GRPO step 1 KL {history[0]['kl']} != 0")
+    if any(sum(x.values()) for x in parts["decode"]):
+        raise AssertionError(f"a flash kernel launched in a rollout's "
+                             f"decode: {parts['decode']}")
+    for x in parts["update"]:
+        _d128_launches(flash, x)
+    path = [flash.kernel_name(k, 128) for k in flash.KERNELS]
+    return {part: {k: sum(x[k] for x in parts[part]) for k in path}
+            for part in parts}
+
+
+def distill_check(torch, trainer, tokens) -> dict:
+    """The chunked ``chunked_distill_loss`` on the card (bf16 head
+    inputs, chunks of DISTILL_CHECK_CHUNK) against an unchunked plain
+    computation of the same formula in fp32 on the same hidden states,
+    on DISTILL_CHECK_TOKENS tokens: each of total, KL and CE within
+    DISTILL_TOL relative."""
+    from tpufw_torch.train.distill import chunked_distill_loss
+    from tpufw_torch.train.trainer import forward_with_aux
+
+    cfg = trainer.distill
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    mask = torch.ones(targets.shape, device=tokens.device)
+    with torch.no_grad():
+        h_s, _ = forward_with_aux(trainer.model, inputs)
+        h_t, _ = forward_with_aux(trainer.teacher, inputs)
+        k_s, k_t = trainer.model.head_kernel(), trainer.teacher.head_kernel()
+        got = chunked_distill_loss(
+            h_s, k_s, h_t, k_t, targets, mask, cfg.temperature, cfg.alpha,
+            chunk_size=DISTILL_CHECK_CHUNK, compute_dtype=torch.bfloat16)
+        s = h_s.float() @ k_s.float()
+        t = h_t.float() @ k_t.float()
+        s_logp = torch.log_softmax(s / cfg.temperature, -1)
+        t_logp = torch.log_softmax(t / cfg.temperature, -1)
+        kl = cfg.temperature ** 2 * (t_logp.exp() * (t_logp - s_logp)).sum(
+            -1).mean()
+        ce = -torch.gather(torch.log_softmax(s, -1), -1,
+                           targets[..., None])[..., 0].mean()
+        want = (cfg.alpha * kl + (1 - cfg.alpha) * ce, kl, ce)
+    out = {"check": "distill_chunked_vs_plain", "tokens": targets.shape[1],
+           "tol": DISTILL_TOL}
+    for name, g, w in zip(("total", "kl", "ce"), got, want):
+        out[name] = [float(g), float(w)]
+        out[name + "_rel"] = abs(float(g) - float(w)) / abs(float(w))
+    return out
+
+
+def distill_run(torch, kind, smi) -> dict:
+    """13d: the student ``llama3_600m_bench`` (full size, full fine-tune;
+    B=DISTILL_BATCH, seq 2048) distilled from a frozen bf16
+    ``llama3_1b_proxy`` (16 layers, the same 32,768 vocab, drawn from
+    seed 1) at T 2, alpha 0.5 for DISTILL_STEPS steps, counters zeroed
+    just before. Checks: finite KL > 0 and CE; ``distill_check``; every
+    d128 kernel launched. MFU adds the teacher's forward. Returns the
+    launches."""
+    from tpufw_torch import configs
+    from tpufw_torch.models import PRESETS, model_for_config
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import (
+        DistillConfig,
+        DistillTrainer,
+        TrainerConfig,
+        synthetic_batches,
+    )
+
+    cfg = configs.bench_model_config()
+    t_cfg = PRESETS["llama3_1b_proxy"]
+    tcfg = TrainerConfig(batch_size=DISTILL_BATCH, seq_len=RESUME_SEQ,
+                         total_steps=DISTILL_STEPS, warmup_steps=2,
+                         loss_chunk_size=512)
+    trainer = DistillTrainer(cfg, tcfg, device="cuda",
+                             distill=DistillConfig(temperature=2.0,
+                                                   alpha=0.5))
+    trainer.init_state(seed=0)
+    trainer.set_teacher(model_for_config(t_cfg, device="cuda", seed=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = _recorded(trainer, ("loss", "kl_loss", "ce_loss"))
+    flops = (cfg.flops_per_token(RESUME_SEQ - 1)
+             + t_cfg.flops_per_token(RESUME_SEQ - 1) / 3.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    history = trainer.run(
+        synthetic_batches(DISTILL_BATCH, RESUME_SEQ, cfg.vocab_size, seed=0),
+        model_flops_per_token=flops)
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    metrics = _floats(rec)
+    trainer.optimizer = None
+    trainer.model.zero_grad(set_to_none=True)
+    tokens = torch.as_tensor(next(synthetic_batches(
+        1, DISTILL_CHECK_TOKENS + 1, cfg.vocab_size, seed=1))["tokens"],
+        device="cuda").long()
+    check = distill_check(torch, trainer, tokens)
+    emit(check)
+    summary = {"steps": len(history), "metrics": metrics, **_steady(history),
+               "mfu_flops": "the student's 6N count plus the teacher's "
+                            "forward, a third of its 6N count",
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches, "student": "llama3_600m_bench",
+               "teacher": "llama3_1b_proxy", "teacher_dtype": "bfloat16",
+               "teacher_params": t_cfg.n_params(), "params": cfg.n_params(),
+               "batch_size": DISTILL_BATCH, "seq_len": RESUME_SEQ,
+               "temperature": 2.0, "alpha": 0.5, "device": kind,
+               "nvidia_smi": smi}
+    emit({"distill_train_summary": summary})
+    del trainer
+    if len(history) != DISTILL_STEPS or not all(
+            math.isfinite(m["loss"]) and m["kl_loss"] > 0
+            and math.isfinite(m["ce_loss"]) for m in metrics):
+        raise AssertionError(f"distillation: {metrics}")
+    if not all(check[k + "_rel"] <= DISTILL_TOL for k in ("total", "kl",
+                                                          "ce")):
+        raise AssertionError(f"chunked distillation loss disagrees: {check}")
+    return _d128_launches(flash, launches)
+
+
+def embed_run(torch, recipe, data, kind, smi) -> dict:
+    """13e, one recipe of EMBED_RECIPES at all 32 layers with rank-16
+    adapters: EMBED_PAIRS pairs (2 x EMBED_PAIRS rows) of EMBED_SEQ
+    tokens through ``EmbeddingTrainer.run`` for EMBED_STEPS steps,
+    counters zeroed just before. Checks: finite InfoNCE losses; every d128
+    kernel launched; ``embed`` gives unit-norm [N, D] vectors; a changed
+    last token moves the first position's hidden state under the
+    bidirectional trunk and not under the causal one;
+    ``evaluate_retrieval`` runs. Returns the launches."""
+    from tpufw_torch.models import PRESETS
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import ContrastiveConfig, EmbeddingTrainer
+    from tpufw_torch.train import TrainerConfig
+    from tpufw_torch.train.contrastive import _fit, pair_batches
+    from tpufw_torch.train.sft import byte_encode
+    from tpufw_torch.train.trainer import forward_with_aux
+    from tpufw_torch.workloads.embed import embed_flops_per_token
+
+    preset, causal, pooling, temp = EMBED_RECIPES[recipe]
+    cfg = dataclasses.replace(PRESETS[preset], lora_rank=16, lora_alpha=16.0,
+                              causal=causal)
+    if not causal:
+        cfg = dataclasses.replace(cfg, sliding_window=None)
+    tcfg = TrainerConfig(batch_size=2 * EMBED_PAIRS, seq_len=EMBED_SEQ,
+                         total_steps=EMBED_STEPS, warmup_steps=1)
+    trainer = EmbeddingTrainer(cfg, tcfg, device="cuda",
+                               contrastive=ContrastiveConfig(
+                                   temperature=temp, pooling=pooling))
+    model = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    history = trainer.run(
+        pair_batches(data["embed"], EMBED_PAIRS, EMBED_SEQ, byte_encode),
+        model_flops_per_token=embed_flops_per_token(cfg, EMBED_SEQ))
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    trainer.optimizer = None
+    model.zero_grad(set_to_none=True)
+    import numpy as np
+
+    toks, seg = _fit(byte_encode("what is a retrieval encoder?"), EMBED_SEQ)
+    emb = trainer.embed(np.stack([toks, toks]), np.stack([seg, seg]))
+    norms = np.linalg.norm(emb, axis=-1)
+    x = torch.as_tensor(toks[None], device="cuda").long()
+    y = x.clone()
+    y[0, -1] = (int(y[0, -1]) + 7) % cfg.vocab_size
+    with torch.no_grad():
+        moved0 = float((forward_with_aux(model, x)[0][0, 0]
+                        - forward_with_aux(model, y)[0][0, 0]).abs().max())
+    retrieval = trainer.evaluate_retrieval(data["embed"], byte_encode)
+    summary = {"recipe": recipe, "model": preset, "causal": causal,
+               "pooling": pooling, "temperature": temp,
+               "steps": len(history), "losses": [m.loss for m in history],
+               **_steady(history),
+               "mfu_flops": "the Meter's 6N count of the base less the LM "
+                            "head's, the scores of a bidirectional trunk "
+                            "in full",
+               "peak_mem_gb": peak, "launches": launches,
+               "rows": 2 * EMBED_PAIRS, "seq_len": EMBED_SEQ,
+               "n_layers": cfg.n_layers, "lora_rank": cfg.lora_rank,
+               "embed_shape": list(emb.shape),
+               "embed_norm_max_dev": float(np.abs(norms - 1.0).max()),
+               "first_position_moved_by_last_token": moved0,
+               "retrieval": retrieval, "device": kind, "nvidia_smi": smi}
+    emit({"embed_train_summary": summary})
+    del trainer, model
+    if len(history) != EMBED_STEPS or not all(
+            math.isfinite(m.loss) for m in history):
+        raise AssertionError(f"embeddings {recipe}: {summary['losses']}")
+    if emb.shape != (2, cfg.d_model) or not np.allclose(norms, 1.0,
+                                                          atol=1e-5):
+        raise AssertionError(f"embed(): shape {emb.shape}, norms {norms}")
+    if (moved0 > 0) == causal:
+        raise AssertionError(f"{recipe}: causal={causal} but the first "
+                             f"position moved by {moved0}")
+    return _d128_launches(flash, launches)
+
+
+def post_train_phase(torch, kind, smi, gen) -> dict:
+    """Phase 13: post-training, 13a SFT, 13b DPO, 13c GRPO (the three on
+    ``llama3_8b_lora_train_slice``), 13d distillation (the 600m student,
+    the 1b proxy teacher) and 13e the two embedding recipes, each with
+    its models freed before the next. Data files are written to a
+    gitignored directory of the checkout, deleted after. Returns
+    {sub-phase: {kernel: launches}} of the d128 kernels."""
+    emit({"phase13_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "card_state": nvidia_smi(CARD_STATE),
+          "card_state_query": CARD_STATE})
+    workdir = os.path.join(ROOT, "build-torch", f"phase13-{os.getpid()}")
+    os.makedirs(workdir, exist_ok=True)
+    out = {}
+
+    def sub(name, fn):
+        try:
+            return _timed(name, fn)
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    try:
+        data = post_train_data(workdir)
+        out["sft"] = sub("13a", lambda: sft_run(torch, data, kind, smi))
+        out["dpo"] = sub("13b", lambda: dpo_run(torch, data, kind, smi))
+        for part, counts in sub("13c", lambda: grpo_run(
+                torch, kind, smi, gen)).items():
+            out["grpo_" + part] = counts
+        out["distill"] = sub("13d", lambda: distill_run(torch, kind, smi))
+        for i, recipe in enumerate(EMBED_RECIPES):
+            out["embed_" + recipe] = sub(
+                f"13e{i + 1}", lambda r=recipe: embed_run(torch, r, data,
+                                                          kind, smi))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase13_card_state_at_end": nvidia_smi(CARD_STATE)})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4059,6 +4709,15 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    # 13. Post-training, with phase 12's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        post_launches = _timed("13", lambda: post_train_phase(
+            torch, kind, smi, gen))
+    except AssertionError as e:
+        return fail(str(e))
+
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -4098,6 +4757,11 @@ def main() -> int:
             kernels[-1]["launches_lora_train"] = lora_launches[name]
             kernels[-1]["launches_mixtral_lora_train"] = \
                 mixtral_lora_launches[name]
+        if name in post_launches["sft"]:
+            # Phase 13's runs, by sub-phase (GRPO's decode, scoring and
+            # updates apart).
+            kernels[-1]["launches_post_train"] = {
+                part: counts[name] for part, counts in post_launches.items()}
         if name in resume_launches:
             # Phase 7b's run, llama3_600m_bench through Trainer.run, and
             # the kernel at its shapes.

@@ -468,9 +468,6 @@ def test_state_knobs_match_tpufw_build_trainer(monkeypatch, env):
 # Every knob ``tpufw``'s build_trainer honours and the port does not yet:
 # (a value that turns it on, the ROADMAP.md Queue 1 item it names).
 REFUSED_TRAIN_KNOBS = {
-    "SFT_DATA": ("x", "11"),
-    "DPO_DATA": ("x", "11"),
-    "DISTILL_TEACHER": ("x", "11"),
     "CONFIG": ("run.yaml", "13"),
     "PROFILE_DIR": ("/prof", "13"),
     "AUTOTUNE": ("search", "13"),

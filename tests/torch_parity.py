@@ -4,9 +4,11 @@ in both packages in fp32, the Flax weights moved into the port through
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 from flax.core import meta
 
@@ -55,3 +57,24 @@ def decode_pair(name="llama3_tiny", max_seq_len=None):
     params = flax_params(jcfg)
     return (JLlama(jcfg.decode_config()), params,
             torch_model(tcfg.decode_config(), params))
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Tiny models run one intra-op thread: many threads of several test
+    workers on one host's cores spin against each other. Autouse in each
+    test module that imports it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def workload_env(monkeypatch, base: dict, **env):
+    """Only ``TPUFW_<k>`` = v of ``base`` updated by ``env`` in the
+    environment: every other TPUFW_* variable removed."""
+    for k in list(os.environ):
+        if k.startswith("TPUFW_"):
+            monkeypatch.delenv(k)
+    for k, v in {**base, **env}.items():
+        monkeypatch.setenv(f"TPUFW_{k}", str(v))

@@ -14,6 +14,7 @@ that need gradients, updates the adapters alone.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -81,6 +82,24 @@ def freeze_base(model: nn.Module) -> None:
     for name, p in model.named_parameters():
         if not is_lora_name(name):
             p.requires_grad_(False)
+
+
+@contextlib.contextmanager
+def adapters_bypassed(model: nn.Module):
+    """Within the block, ``model`` computes its base alone: every module
+    with adapters (``lora_scale`` set) skips their product. The frozen
+    base of a LoRA model is the reference policy of DPO and GRPO; at
+    step 0 (B zero) it equals the adapted model bit for bit."""
+    mods = [m for m in model.modules()
+            if getattr(m, "lora_scale", None) is not None]
+    scales = [m.lora_scale for m in mods]
+    for m in mods:
+        m.lora_scale = None
+    try:
+        yield model
+    finally:
+        for m, s in zip(mods, scales):
+            m.lora_scale = s
 
 
 @torch.no_grad()

@@ -5,6 +5,12 @@ The sequence axis is cut into chunks; each chunk's logits are computed
 from the hidden states, reduced to per-token CE and dropped, and the
 backward pass recomputes them (``torch.utils.checkpoint``). Peak logits
 memory is B * chunk * V fp32 instead of B * T * V.
+
+The post-training objectives take the same chunked head path:
+``chunked_sequence_logprob`` (per-row sums, DPO) and
+``chunked_token_logprob`` (per-token, GRPO) give target log-probs with
+no z-loss; the final soft cap applies first, then ``logits_scale``
+(1/temperature), the sampler's order.
 """
 
 from __future__ import annotations
@@ -129,3 +135,72 @@ def chunked_cross_entropy(
         )
         n = n + m_c.sum()
     return ce_sum / torch.clamp(n, min=1.0), n
+
+
+def _chunk_logp(h, kernel, targets, compute_dtype, logits_soft_cap,
+                logits_scale):
+    """Target log-probs [B, C] of one chunk: the cap, then the scale,
+    then log-softmax (CE with no z-loss, negated)."""
+    logits = head_logits(h, kernel, compute_dtype)
+    if logits_soft_cap is not None:
+        logits = tanh_soft_cap(logits, logits_soft_cap)
+    if logits_scale != 1.0:
+        logits = logits * logits_scale
+    return -token_cross_entropy(logits, targets, 0.0)
+
+
+def _chunk_row_logp(h, kernel, targets, mask, compute_dtype,
+                    logits_soft_cap):
+    """Masked per-row log-prob sums [B] of one chunk."""
+    return (_chunk_logp(h, kernel, targets, compute_dtype, logits_soft_cap,
+                        1.0) * mask).sum(-1)
+
+
+def chunked_sequence_logprob(
+    hidden: torch.Tensor,
+    kernel: torch.Tensor,
+    targets: torch.Tensor,
+    mask: torch.Tensor,
+    chunk_size: int = 256,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    logits_soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """[B] fp32 sums of the target log-probs where ``mask`` is set,
+    chunked like ``chunked_cross_entropy``: hidden [B, T, D] (post
+    final-norm), kernel [D, V], targets [B, T] (already shifted), mask
+    [B, T] float weights."""
+    hs, ts, ms = _chunk_seq(chunk_size, hidden, targets, mask.float())
+    sums = torch.zeros(hidden.shape[0], dtype=torch.float32,
+                       device=hidden.device)
+    for h_c, t_c, m_c in zip(hs, ts, ms):
+        sums = sums + checkpoint(
+            _chunk_row_logp, h_c, kernel, t_c, m_c, compute_dtype,
+            logits_soft_cap, use_reentrant=False,
+        )
+    return sums
+
+
+def chunked_token_logprob(
+    hidden: torch.Tensor,
+    kernel: torch.Tensor,
+    targets: torch.Tensor,
+    chunk_size: int = 256,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    logits_soft_cap: Optional[float] = None,
+    logits_scale: float = 1.0,
+) -> torch.Tensor:
+    """Per-token target log-probs [B, T] in fp32, chunked like
+    ``chunked_cross_entropy``. ``logits_scale`` (1/temperature) applies
+    after the soft cap, as the decode path caps its logits and the
+    sampler then divides by the temperature: these are the behaviour
+    policy's log-probs."""
+    t = hidden.shape[1]
+    ones = torch.ones(targets.shape, dtype=torch.float32,
+                      device=hidden.device)
+    hs, ts, _ = _chunk_seq(chunk_size, hidden, targets, ones)
+    chunks = [
+        checkpoint(_chunk_logp, h_c, kernel, t_c, compute_dtype,
+                   logits_soft_cap, logits_scale, use_reentrant=False)
+        for h_c, t_c in zip(hs, ts)
+    ]
+    return torch.cat(chunks, dim=1)[:, :t]

@@ -51,6 +51,45 @@ from tpufw_torch.train.preemption import checkpoint_stop, owned_shutdown
 from tpufw_torch.utils.hardware import detect_chip, resolve_device
 
 
+def frozen_copy(model, dtype: torch.dtype):
+    """A model of ``model``'s config whose floating tensors are fresh
+    storage in ``dtype`` (integer ones fresh copies too), with
+    ``requires_grad`` off and in eval mode: the frozen side model of
+    post-training (the DPO or GRPO reference, the distillation teacher),
+    never aliasing the policy that the optimizer updates in place."""
+    return frozen_model(model.cfg, model.state_dict(), dtype)
+
+
+def frozen_model(cfg, state_dict: dict, dtype: torch.dtype):
+    """A frozen model of ``cfg`` (built on ``meta``) holding a fresh copy
+    of each tensor of ``state_dict``, floating ones cast to ``dtype``;
+    see ``frozen_copy``."""
+    model = model_for_config(cfg, device="meta")
+    fresh = {k: (v.to(dtype, copy=True) if v.is_floating_point()
+                 else v.clone()) for k, v in state_dict.items()}
+    model.load_state_dict(fresh, assign=True)
+    model.requires_grad_(False)
+    return model.eval()
+
+
+def final_soft_cap(model) -> Optional[float]:
+    """The model's final-logit soft cap (Gemma), which the chunked head
+    path applies since ``return_hidden`` skips the model's own."""
+    return getattr(model.cfg, "final_logit_soft_cap", None)
+
+
+def forward_with_aux(model, inputs: torch.Tensor,
+                     segment_ids: Optional[torch.Tensor] = None,
+                     return_hidden: bool = True):
+    """(post-final-norm hidden states [B, T, D], or logits without
+    ``return_hidden``; the MoE router loss or 0.0) of ``model`` on
+    ``inputs``: the one forward of every objective."""
+    kw = {"segment_ids": segment_ids, "return_hidden": return_hidden}
+    if getattr(model.cfg, "n_experts", 0) > 0:
+        return model(inputs, return_aux=True, **kw)
+    return model(inputs, **kw), 0.0
+
+
 def cross_entropy_loss(
     logits: torch.Tensor,
     targets: torch.Tensor,
@@ -98,23 +137,17 @@ def batch_loss(
     model's router loss (``return_aux`` of a config with experts: Mixtral,
     DeepSeek MoE) joins the objective on both paths, as in ``tpufw``."""
     inputs, targets, seg_in, mask = shift_and_mask(batch)
-    kwargs = {"segment_ids": seg_in}
-    moe = getattr(model.cfg, "n_experts", 0) > 0
-    if moe:
-        kwargs["return_aux"] = True
+    out, aux = forward_with_aux(model, inputs, seg_in,
+                                return_hidden=bool(loss_chunk_size))
     if loss_chunk_size:
-        out = model(inputs, return_hidden=True, **kwargs)
-        hidden, aux = out if moe else (out, 0.0)
         loss, n = chunked_cross_entropy(
-            hidden, model.head_kernel(), targets, mask,
+            out, model.head_kernel(), targets, mask,
             chunk_size=loss_chunk_size,
             compute_dtype=getattr(torch, loss_chunk_dtype),
-            logits_soft_cap=getattr(model.cfg, "final_logit_soft_cap", None),
+            logits_soft_cap=final_soft_cap(model),
         )
     else:
-        out = model(inputs, **kwargs)
-        logits, aux = out if moe else (out, 0.0)
-        loss, n = cross_entropy_loss(logits, targets, mask)
+        loss, n = cross_entropy_loss(out, targets, mask)
     return loss + aux, n
 
 
@@ -194,7 +227,13 @@ class LlamaAdamW:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """One update from the parameters' ``.grad``; returns the global
-        gradient norm before clipping."""
+        gradient norm before clipping. A parameter the loss did not reach
+        (an embedding objective's LM head) takes a zero gradient, as
+        optax's update of a gradient tree does: weight decay still
+        applies to it."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # optax: where(norm < max, g, g / norm * max).

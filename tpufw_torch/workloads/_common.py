@@ -1,7 +1,7 @@
 """Shared scaffolding of the training entry points (port of
 ``tpufw.workloads._common``): the JSON-lines telemetry channel, the
-global-batch contract, the resumed run's data seed and the preemption
-line."""
+global-batch contract, the resumed run's data seed, the post-training
+data paths' tokenizer and the preemption line."""
 
 from __future__ import annotations
 
@@ -47,6 +47,28 @@ def resume_data_seed(base_seed: int, restored_step: int) -> int:
     if restored_step <= 0:
         return base_seed
     return base_seed + 1_000_003 * restored_step
+
+
+def resolve_encode(tok_name: str):
+    """The text encoder of the SFT, DPO, RL and embedding data paths
+    (``TPUFW_SFT_TOKENIZER``): "bytes", the dependency-free byte
+    tokenizer (``train.sft.byte_encode``), or a LOCAL HuggingFace
+    tokenizer directory (``tools.pack_corpus.hf_tokenizer``: no hub
+    download; without ``transformers`` it raises ImportError naming the
+    package), encoding context-free (no special tokens, so span masks
+    stay exact)."""
+    if tok_name == "bytes":
+        from tpufw_torch.train.sft import byte_encode
+
+        return byte_encode
+    from tpufw_torch.tools.pack_corpus import hf_tokenizer
+
+    tok = hf_tokenizer(tok_name)
+
+    def encode(text):
+        return tok.encode(text, add_special_tokens=False)
+
+    return encode
 
 
 def report_preemption(trainer) -> None:

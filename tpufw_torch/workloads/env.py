@@ -69,3 +69,14 @@ def refuse_unported(knob: str, what: str, item: str) -> None:
         f"TPUFW_{knob.upper()}: {what} is not ported to tpufw_torch yet "
         f"(ROADMAP.md Queue 1 item {item})"
     )
+
+
+_MESH_AXES = ("data", "fsdp", "expert", "sequence", "tensor", "dcn_data")
+
+
+def refuse_mesh() -> None:
+    """Raise for any ``TPUFW_MESH_*`` axis above 1: the port runs on one
+    GPU until its multi-GPU layer (ROADMAP.md Queue 1 item 12)."""
+    for axis in _MESH_AXES:
+        if env_int(f"mesh_{axis}", 1) > 1:
+            refuse_unported(f"mesh_{axis}", "a multi-GPU mesh", "12")

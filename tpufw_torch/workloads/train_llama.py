@@ -37,10 +37,22 @@ synthetic eval batches from the odd seeds the train stream never uses.
 Step metrics stream to stdout as one JSON line per logged step, and each
 held-out evaluation as one more.
 
+Post-training: ``TPUFW_SFT_DATA`` (JSONL conversations, rendered with
+``TPUFW_SFT_TEMPLATE``, ``plain`` by default, and encoded by
+``TPUFW_SFT_TOKENIZER``, ``bytes`` or a local tokenizer directory; only
+assistant tokens train), ``TPUFW_DPO_DATA`` (JSONL preference pairs;
+``TPUFW_DPO_BETA``, ``TPUFW_DPO_LABEL_SMOOTHING``; ``TPUFW_BATCH_SIZE``
+counts rows, two a pair) or ``TPUFW_DISTILL_TEACHER`` (a preset of any
+family with the student's vocab; ``TPUFW_DISTILL_TEACHER_CKPT`` a
+bare-params directory of it, else its weights are drawn from
+``TPUFW_SEED`` + 1 with a warning; ``TPUFW_DISTILL_TEMPERATURE``,
+``TPUFW_DISTILL_ALPHA``). DPO and distillation together raise
+``ValueError``. MFU credits DPO's reference forward (4/3 of the 6N count)
+and the teacher's forward (a third of its own count).
+
 Not ported yet, and refused with ``NotImplementedError`` when set to
-anything but their defaults: the SFT, DPO and distillation objectives
-(``TPUFW_SFT_DATA``, ``TPUFW_DPO_DATA``, ``TPUFW_DISTILL_TEACHER``;
-ROADMAP.md Queue 1 item 11); a mesh (``TPUFW_MESH_*`` above 1; item 12); ``TPUFW_CONFIG``,
+anything but their defaults: a mesh (``TPUFW_MESH_*`` above 1; ROADMAP.md
+Queue 1 item 12); ``TPUFW_CONFIG``,
 ``TPUFW_PROFILE_DIR``, ``TPUFW_AUTOTUNE``, ``TPUFW_TELEMETRY_DIR``,
 ``TPUFW_METRICS_PORT`` and ``TPUFW_STRAGGLER_FACTOR`` (item 13).
 """
@@ -56,6 +68,7 @@ from tpufw_torch.workloads.env import (
     env_float,
     env_int,
     env_str,
+    refuse_mesh,
     refuse_unported,
 )
 
@@ -66,9 +79,6 @@ _T0 = time.time()
 # (knob, what it turns on, ROADMAP.md Queue 1 item, its default). A knob
 # set to its default changes nothing there, so it passes here.
 _UNPORTED_KNOBS = (
-    ("sft_data", "the SFT objective", "11", ""),
-    ("dpo_data", "the DPO objective", "11", ""),
-    ("distill_teacher", "the distillation objective", "11", ""),
     ("config", "the YAML run config", "13", ""),
     ("profile_dir", "step profiling", "13", ""),
     ("autotune", "MFU autotuning", "13", "off"),
@@ -76,7 +86,6 @@ _UNPORTED_KNOBS = (
     ("metrics_port", "the Prometheus /metrics server", "13", ""),
     ("straggler_factor", "straggler detection", "13", "2.0"),
 )
-_MESH_AXES = ("data", "fsdp", "expert", "sequence", "tensor", "dcn_data")
 
 
 def _refuse_unported_knobs() -> None:
@@ -92,9 +101,7 @@ def _refuse_unported_knobs() -> None:
         except ValueError:
             pass
         refuse_unported(knob, what, item)
-    for axis in _MESH_AXES:
-        if env_int(f"mesh_{axis}", 1) > 1:
-            refuse_unported(f"mesh_{axis}", "a multi-GPU mesh", "12")
+    refuse_mesh()
 
 
 def build_trainer():
@@ -160,7 +167,57 @@ def build_trainer():
                                       base.preemption_sync_every),
     )
     device = env_str("device", "cuda")
-    return Trainer(model_cfg, trainer_cfg, device=device), model_cfg
+    # Objective: TPUFW_DPO_DATA (preference pairs) or
+    # TPUFW_DISTILL_TEACHER (teacher-student KL), else the LM objective;
+    # each replaces the loss, so the two exclude each other.
+    dpo_path = env_str("dpo_data", "")
+    teacher_name = env_str("distill_teacher", "")
+    if dpo_path and teacher_name:
+        raise ValueError(
+            "TPUFW_DPO_DATA and TPUFW_DISTILL_TEACHER are mutually "
+            "exclusive objectives")
+    if dpo_path:
+        from tpufw_torch.train import DPOConfig, DPOTrainer
+
+        trainer = DPOTrainer(
+            model_cfg, trainer_cfg, device=device,
+            dpo=DPOConfig(beta=env_float("dpo_beta", 0.1),
+                          label_smoothing=env_float("dpo_label_smoothing",
+                                                    0.0)))
+    elif teacher_name:
+        from tpufw_torch.train import DistillConfig, DistillTrainer
+
+        trainer = DistillTrainer(
+            model_cfg, trainer_cfg, device=device,
+            distill=DistillConfig(
+                temperature=env_float("distill_temperature", 2.0),
+                alpha=env_float("distill_alpha", 0.5)))
+    else:
+        trainer = Trainer(model_cfg, trainer_cfg, device=device)
+    return trainer, model_cfg
+
+
+def install_teacher(trainer):
+    """The distillation teacher of ``TPUFW_DISTILL_TEACHER`` (any preset
+    name ``configs.resolve_model_preset`` takes): from the bare-params
+    directory ``TPUFW_DISTILL_TEACHER_CKPT``, or, without one, drawn from
+    ``TPUFW_SEED`` + 1 with a warning (good for smoke tests only).
+    Returns the teacher's config."""
+    from tpufw_torch.configs import resolve_model_preset
+    from tpufw_torch.models import model_for_config
+
+    t_name = env_str("distill_teacher", "")
+    t_cfg = resolve_model_preset(t_name)
+    t_ckpt = env_str("distill_teacher_ckpt", "")
+    if t_ckpt:
+        trainer.set_teacher_from(t_cfg, t_ckpt)
+        print(f"teacher {t_name} restored from {t_ckpt}", flush=True)
+    else:
+        trainer.set_teacher(model_for_config(
+            t_cfg, device=trainer.device, seed=env_int("seed", 0) + 1))
+        print(f"WARNING: teacher {t_name} is RANDOM-INIT (no "
+              "TPUFW_DISTILL_TEACHER_CKPT): smoke-test only", flush=True)
+    return t_cfg
 
 
 def main() -> int:
@@ -174,6 +231,7 @@ def main() -> int:
         metrics_printer,
         print_summary,
         report_preemption,
+        resolve_encode,
         resume_data_seed,
     )
 
@@ -183,22 +241,63 @@ def main() -> int:
         f"params={model_cfg.n_params():,}",
         flush=True,
     )
+    from tpufw_torch.train import DistillTrainer, DPOTrainer
+
     init_from = env_str("init_from", "")
-    if trainer.maybe_restore():
-        print(f"resumed from checkpoint at step {trainer.step}", flush=True)
-    elif init_from:
+    dpo = isinstance(trainer, DPOTrainer)
+    if dpo and init_from:
+        # The reference anchors to the ORIGINAL base before a restore,
+        # which replaces only the policy and the optimizer state.
         trainer.init_from_params(init_from, seed=env_int("seed", 0))
         print(f"initialized params from {init_from}", flush=True)
-    else:
-        trainer.init_state(seed=env_int("seed", 0))
+    if trainer.maybe_restore():
+        print(f"resumed from checkpoint at step {trainer.step}", flush=True)
+    elif trainer.model is None:
+        if init_from:
+            trainer.init_from_params(init_from, seed=env_int("seed", 0))
+            print(f"initialized params from {init_from}", flush=True)
+        else:
+            trainer.init_state(seed=env_int("seed", 0))
     cfg = trainer.cfg
+    flops_per_token = model_cfg.flops_per_token(cfg.seq_len - 1)
+    if isinstance(trainer, DistillTrainer):
+        # The teacher's forward, 2N_t a token: a third of its 6N count.
+        flops_per_token += install_teacher(trainer).flops_per_token(
+            cfg.seq_len - 1) / 3.0
     # One process: the local batch is the global one.
     local_bs = check_global_batch(cfg.batch_size, 1)
     # A resumed run shuffles afresh (the restored step folded into the
     # seed); the eval streams keep the base seed.
     data_seed = resume_data_seed(env_int("data_seed", 0), trainer.step)
     data_prefix = env_str("data_prefix", "")
-    if data_prefix:
+    sft_path = env_str("sft_data", "")
+    if dpo:
+        from tpufw_torch.train.dpo import dpo_batches
+
+        if local_bs % 2:
+            raise ValueError(
+                f"DPO local batch {local_bs} must be even (2 rows/pair)")
+        # The reference forward adds 2N to the 6N train count.
+        flops_per_token *= 4.0 / 3.0
+        data = prefetch_to_device(
+            dpo_batches(env_str("dpo_data", ""), local_bs // 2, cfg.seq_len,
+                        resolve_encode(env_str("sft_tokenizer", "bytes")),
+                        template=env_str("sft_template", "plain"),
+                        seed=data_seed),
+            trainer.device,
+        )
+    elif sft_path:
+        # JSONL conversations, chat-template rendered, assistant-masked.
+        from tpufw_torch.train import sft_batches
+
+        data = prefetch_to_device(
+            sft_batches(sft_path, local_bs, cfg.seq_len,
+                        resolve_encode(env_str("sft_tokenizer", "bytes")),
+                        template=env_str("sft_template", "plain"),
+                        seed=data_seed),
+            trainer.device,
+        )
+    elif data_prefix:
         data = prefetch_to_device(
             iter(TokenCorpus(data_prefix, local_bs, cfg.seq_len,
                              shuffle=True, seed=data_seed)),
@@ -224,7 +323,7 @@ def main() -> int:
 
     history = trainer.run(
         data,
-        model_flops_per_token=model_cfg.flops_per_token(cfg.seq_len - 1),
+        model_flops_per_token=flops_per_token,
         on_metrics=metrics_printer(_T0),
         eval_data=eval_data,
         on_eval=lambda ev: print(json.dumps(ev), flush=True),
