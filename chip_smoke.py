@@ -307,15 +307,38 @@ Phases, each fatal on failure:
     an ``embed_train_summary`` per recipe. Every sub-phase zeroes the
     launch counters just before its run.
 
+14. The mesh on the card, with phase 13's models freed. NCCL takes one
+    rank per device, so on one card the gang is a world-1 NCCL group,
+    which the phase starts itself on a localhost ``TCPStore``
+    (``cluster.init_process_group``; ``initialize_cluster`` is a no-op
+    for one process) after 14a's unwrapped run and destroys at its end.
+    14a: ``llama3_600m_bench`` at full size (B=4, seq 2048, remat
+    ``dots``), MESH_STEPS steps through the unwrapped ``Trainer``, then
+    through the sharded one (``fully_shard`` of every block and the root,
+    DTensor parameters and moments) from the same seed on the same
+    batches: losses and grad norms within MESH_TOL relative (bit-equal
+    expected; the largest gap printed), the flash launch counts equal. A
+    sharded run's stop request()ed after step 1 goes through
+    ``should_stop``'s all-reduce MAX of an int32 on the card, writes one
+    forced checkpoint (the state gathered tensor by tensor), and a
+    sharded resume of it gives the unbroken run's step-2 loss and grad
+    norm bit for bit. A ``mesh_train_summary`` (both runs' step ms, peak
+    memory, ``card_state``). 14b: ``llama3_8b_lora_train_slice`` (all 32
+    layers, rank 16) sharded, MESH_LORA_STEPS steps from 11a's seed on
+    11a's batches: losses within MESH_TOL of 11a's unwrapped ones, the
+    base's checksums unchanged, every adapter moved; a
+    ``mesh_lora_train_summary`` (step ms, peak memory).
+
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
 7b's first run, ``launches_mixtral_train``, phase 9a's runs per dispatch
 mode, ``launches_lora_train``, phase 11a's,
 ``launches_mixtral_lora_train``, phase 11b's per mode, and
 ``launches_post_train``, phase 13's per sub-phase, GRPO's decode,
-scoring and updates apart, and the head-dim-192 ones
+scoring and updates apart, ``launches_mesh``, phase 14's sharded runs,
+and the head-dim-192 ones
 ``launches_v2lite_train``, phase 10a's), a ``phase_seconds`` line (each
-phase's wall seconds, phase 10's to 13's parts and the total), the
+phase's wall seconds, phase 10's to 14's parts and the total), the
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it prints no result and exits nonzero.
@@ -323,6 +346,7 @@ checkout of the repo, it prints no result and exits nonzero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -592,6 +616,12 @@ RATIO_TOL = 1e-6
 DISTILL_BATCH, DISTILL_STEPS = 4, 5
 DISTILL_CHECK_TOKENS, DISTILL_CHECK_CHUNK = 256, 64
 DISTILL_TOL = 2.0 ** -6
+# Phase 14 (the mesh): sharded steps of the 600m model and of the LoRA
+# slice, and the relative gap allowed against the unwrapped runs (the
+# same numbers are expected bit for bit at world size 1).
+MESH_STEPS = 3
+MESH_LORA_STEPS = 2
+MESH_TOL = 1e-6
 EMBED_RECIPES = {"e5_mistral": ("mistral_7b", True, "last", 0.02),
                  "llm2vec": ("llama3_8b", False, "mean", 0.05)}
 EMBED_PAIRS, EMBED_SEQ, EMBED_STEPS = 8, 256, 3
@@ -3520,12 +3550,14 @@ def v2lite_phase(torch, chip, kind, smi, gen) -> dict:
 
 
 def _adapters_and_base(torch, model):
-    """(clones of every adapter, checksums of every base tensor)."""
+    """(clones of every adapter, checksums of every base tensor); a
+    sharded model's whole tensors, gathered one at a time."""
     from tpufw_torch.models.lora import is_lora_name
     from tpufw_torch.train.checkpoint import checksums
+    from tpufw_torch.train.sharding import full_tensor
 
     sd = model.state_dict()
-    adapters = {k: v.detach().clone() for k, v in sd.items()
+    adapters = {k: full_tensor(v.detach()).clone() for k, v in sd.items()
                 if is_lora_name(k)}
     base = checksums({k: v for k, v in sd.items() if not is_lora_name(k)})
     return adapters, base
@@ -3687,7 +3719,7 @@ def lora_llama(torch, kind, smi, gen) -> dict:
     torch.cuda.empty_cache()
     if n_int8 != 7 * cfg.n_layers + 1:
         raise AssertionError(f"merged tree quantized {n_int8} tensors")
-    return {k: launches[k] for k in path}
+    return {k: launches[k] for k in path}, summary["losses"]
 
 
 def lora_mixtral(torch, kind, smi) -> dict:
@@ -3745,15 +3777,15 @@ def lora_mixtral(torch, kind, smi) -> dict:
         k, 128)] for m in runs} for k in flash.KERNELS}
 
 
-def lora_phase(torch, kind, smi, gen) -> tuple[dict, dict]:
+def lora_phase(torch, kind, smi, gen) -> tuple[dict, dict, list]:
     """Phase 11: LoRA, 11a Llama-3-8B at all 32 layers (``lora_llama``),
     11b Mixtral under both dispatches (``lora_mixtral``). Returns their
-    launch counts."""
+    launch counts and 11a's losses (phase 14b's reference)."""
     emit({"phase11_allocated_at_start_gb":
           torch.cuda.memory_allocated() / 1e9})
-    llama = _timed("11a", lambda: lora_llama(torch, kind, smi, gen))
+    llama, losses = _timed("11a", lambda: lora_llama(torch, kind, smi, gen))
     mixtral = _timed("11b", lambda: lora_mixtral(torch, kind, smi))
-    return llama, mixtral
+    return llama, mixtral, losses
 
 
 # ---------------------------------------------------------- phase 12
@@ -4438,6 +4470,268 @@ def post_train_phase(torch, kind, smi, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------- phase 14
+
+
+def _rel_diff(a, b) -> float:
+    """The largest |a - b| / |b| over two lists of numbers."""
+    return max((abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b)),
+               default=0.0)
+
+
+def _mesh_run(torch, trainer, batches, flops, on_metrics=None,
+              shutdown=None):
+    """(history, [(loss, grad_norm)] a step, flash launches, peak GB) of
+    ``trainer.run`` over ``batches``, launch counters zeroed just before."""
+    from tpufw_torch.ops import flash
+
+    rec = _recorded(trainer, ("loss", "grad_norm"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    history = trainer.run(iter(batches), model_flops_per_token=flops,
+                          on_metrics=on_metrics, shutdown=shutdown)
+    torch.cuda.synchronize()
+    launches = {flash.kernel_name(k, 128): flash.LAUNCHES[
+        flash.kernel_name(k, 128)] for k in flash.KERNELS}
+    pairs = [(float(r["loss"]), float(r["grad_norm"])) for r in rec]
+    return history, pairs, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+@contextlib.contextmanager
+def _all_reduce_log():
+    """Inside: every ``torch.distributed.all_reduce`` call's (device
+    type, dtype, op) appended to the yielded list."""
+    import torch.distributed as dist
+
+    real, calls = dist.all_reduce, []
+
+    def logged(t, op=dist.ReduceOp.SUM, **kw):
+        calls.append((t.device.type, str(t.dtype), str(op)))
+        return real(t, op=op, **kw)
+
+    dist.all_reduce = logged
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = real
+
+
+def mesh_600m(torch, kind, smi) -> dict:
+    """14a, its first half, before any process group: ``llama3_600m_bench``
+    at full size (B=RESUME_BATCH, seq RESUME_SEQ, remat ``dots``) for
+    MESH_STEPS steps through the unwrapped Trainer. Returns what the
+    sharded half (``mesh_600m_sharded``) holds its runs against: the
+    batches, a maker of trainers, the flops, and the run's history,
+    (loss, grad_norm) a step, launches and peak memory."""
+    import torch.distributed as dist
+
+    from tpufw_torch.configs import bench_model_config
+    from tpufw_torch.train import Trainer, TrainerConfig, synthetic_batches
+
+    cfg = bench_model_config()
+    tcfg = TrainerConfig(batch_size=RESUME_BATCH, seq_len=RESUME_SEQ,
+                         total_steps=MESH_STEPS, warmup_steps=2, log_every=1,
+                         loss_chunk_size=512, handle_preemption=False)
+    it = synthetic_batches(RESUME_BATCH, RESUME_SEQ, cfg.vocab_size, seed=14)
+    batches = [next(it) for _ in range(MESH_STEPS)]
+    flops = cfg.flops_per_token(RESUME_SEQ - 1)
+
+    def trainer(**kw):
+        return Trainer(cfg, dataclasses.replace(tcfg, **kw), device="cuda")
+
+    emit({"train": "llama3_600m_bench mesh", "params": cfg.n_params(),
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "batch_size": RESUME_BATCH, "seq_len": RESUME_SEQ,
+          "remat_policy": cfg.remat_policy, "steps": MESH_STEPS,
+          "mesh": "world-1 NCCL group, MeshConfig() (fsdp fills)"})
+    if dist.is_initialized():
+        raise AssertionError("14a: the unwrapped run must see no group")
+    plain = trainer()
+    plain.init_state(seed=0)
+    h_u, want, launches_u, peak_u = _mesh_run(torch, plain, batches, flops)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"h_u": h_u, "want": want, "launches_u": launches_u,
+            "peak_u": peak_u, "batches": batches, "trainer": trainer,
+            "flops": flops}
+
+
+def mesh_600m_sharded(torch, kind, smi, unwrapped) -> dict:
+    """14a's second half, under the world-1 NCCL group: the same
+    MESH_STEPS steps through the sharded Trainer from the same seed on
+    the same batches, losses and grad norms within MESH_TOL relative of
+    the unwrapped run's (bit-equal expected) and the flash launches
+    equal; then a sharded run whose stop is request()ed after step 1
+    (should_stop's all-reduce MAX of an int32 on the card), its forced
+    checkpoint, and a sharded resume whose next (loss, grad_norm) is
+    bit-equal to the unbroken sharded run's step 2. Returns the sharded
+    run's launches; raises AssertionError."""
+    import torch.distributed as dist
+
+    from tpufw_torch.train.checkpoint import CheckpointManager
+    from tpufw_torch.train.preemption import GracefulShutdown
+
+    batches, trainer = unwrapped["batches"], unwrapped["trainer"]
+    flops = unwrapped["flops"]
+    sharded = trainer()
+    if not sharded.gang:
+        raise AssertionError("14a: the trainer did not shard")
+    mesh = dict(zip(sharded.mesh.mesh_dim_names, sharded.mesh.shape))
+    sharded.init_state(seed=0)
+    h_s, got, launches_s, peak_s = _mesh_run(torch, sharded, batches, flops)
+    del sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = unwrapped["want"]
+    diff_loss = _rel_diff([g[0] for g in got], [w[0] for w in want])
+    diff_norm = _rel_diff([g[1] for g in got], [w[1] for w in want])
+    check = {"check": "mesh_600m_sharded_vs_unwrapped", "mesh": mesh,
+             "losses_sharded": [g[0] for g in got],
+             "losses_unwrapped": [w[0] for w in want],
+             "grad_norms_sharded": [g[1] for g in got],
+             "grad_norms_unwrapped": [w[1] for w in want],
+             "bit_equal": got == want, "max_rel_diff_loss": diff_loss,
+             "max_rel_diff_grad_norm": diff_norm, "tol": MESH_TOL,
+             "launches_sharded": launches_s,
+             "launches_unwrapped": unwrapped["launches_u"]}
+    emit(check)
+    if len(got) != MESH_STEPS or max(diff_loss, diff_norm) > MESH_TOL:
+        raise AssertionError(f"14a: sharded and unwrapped differ: {check}")
+    if launches_s != unwrapped["launches_u"] or not all(launches_s.values()):
+        raise AssertionError(f"14a: launches differ: {check}")
+
+    # The gang's stop: request() after step 1, should_stop's all-reduce
+    # on the card, the forced checkpoint, a sharded resume.
+    workdir = os.path.join(ROOT, "build-torch", f"phase14-{os.getpid()}")
+    try:
+        stopped = trainer(checkpoint_dir=workdir, checkpoint_every=1000)
+        stopped.init_state(seed=0)
+        sd = GracefulShutdown(signals=())
+        with _all_reduce_log() as calls:
+            _, cut, _, _ = _mesh_run(torch, stopped, batches, flops,
+                                     on_metrics=lambda m: sd.request(),
+                                     shutdown=sd)
+        saves = stopped.checkpointer.saves
+        del stopped
+        gc.collect()
+        torch.cuda.empty_cache()
+        stop_reduces = [c for c in calls if c[1] == "torch.int32"]
+        steps_on_disk = CheckpointManager(workdir).all_steps()
+        resumed = trainer(checkpoint_dir=workdir)
+        t0 = time.perf_counter()
+        restored = resumed.maybe_restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        _, after, _, _ = _mesh_run(torch, resumed, batches[1:2], flops)
+        del resumed
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stop = {"check": "mesh_600m_gang_stop", "steps_before_stop": len(cut),
+            "stop_all_reduces": stop_reduces, "checkpoints": steps_on_disk,
+            "restored": restored, "save": saves, "restore_s": restore_s,
+            "resumed_loss": after[0][0] if after else None,
+            "unbroken_loss": got[1][0],
+            "resumed_bit_equal": bool(after) and after[0] == got[1]}
+    emit(stop)
+    if not (len(cut) == 1 and steps_on_disk == [1] and restored
+            and stop["resumed_bit_equal"]
+            and ("cuda", "torch.int32", str(dist.ReduceOp.MAX))
+            in stop_reduces):
+        raise AssertionError(f"14a: the gang's stop failed: {stop}")
+    summary = {"model": "llama3_600m_bench", "mesh": mesh,
+               "sharded": _steady(h_s), "unwrapped": _steady(unwrapped["h_u"]),
+               "step_ms_sharded": [1e3 * m.step_time_s for m in h_s],
+               "step_ms_unwrapped": [1e3 * m.step_time_s
+                                     for m in unwrapped["h_u"]],
+               "peak_mem_gb_sharded": peak_s,
+               "peak_mem_gb_unwrapped": unwrapped["peak_u"],
+               "launches": launches_s,
+               "card_state": nvidia_smi(CARD_STATE),
+               "card_state_query": CARD_STATE,
+               "device": kind, "nvidia_smi": smi}
+    emit({"mesh_train_summary": summary})
+    return launches_s
+
+
+def mesh_lora(torch, kind, smi, lora_losses) -> dict:
+    """14b: ``llama3_8b_lora_train_slice`` (all 32 layers, rank 16)
+    sharded under the world-1 NCCL group for MESH_LORA_STEPS steps from
+    phase 11a's seed on 11a's batches: the losses within MESH_TOL of
+    11a's unwrapped ones (bit-equal expected), the base unchanged and
+    every adapter moved. Returns the launches; raises AssertionError."""
+    import itertools
+
+    from tpufw_torch import configs
+    from tpufw_torch.train import Trainer, synthetic_batches
+
+    cfg, tcfg = configs.llama3_8b_lora_train_slice(total_steps=LORA_STEPS)
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    model = trainer.init_state(seed=0)
+    before = _adapters_and_base(torch, model)
+    batches = list(itertools.islice(synthetic_batches(
+        tcfg.batch_size, tcfg.seq_len, cfg.vocab_size, seed=0),
+        MESH_LORA_STEPS))
+    history, got, launches, peak = _mesh_run(
+        torch, trainer, batches, cfg.flops_per_token(tcfg.seq_len - 1))
+    moved = _only_adapters_moved(torch, model, before)
+    losses = [g[0] for g in got]
+    want = lora_losses[:MESH_LORA_STEPS]
+    diff = _rel_diff(losses, want)
+    summary = {"model": "llama3_8b_lora", "n_layers": cfg.n_layers,
+               "lora_rank": cfg.lora_rank, "gang": trainer.gang,
+               "losses_sharded": losses, "losses_unwrapped_11a": want,
+               "bit_equal": losses == want, "max_rel_diff_loss": diff,
+               "tol": MESH_TOL,
+               "step_ms": [1e3 * m.step_time_s for m in history],
+               "peak_mem_gb": peak, "launches": launches, **moved,
+               "card_state": nvidia_smi(CARD_STATE),
+               "device": kind, "nvidia_smi": smi}
+    emit({"mesh_lora_train_summary": summary})
+    del trainer, model, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not summary["gang"] or len(losses) != MESH_LORA_STEPS \
+            or diff > MESH_TOL:
+        raise AssertionError(f"14b: {summary}")
+    if not all(launches.values()):
+        raise AssertionError(f"14b: a kernel was not launched: {launches}")
+    return launches
+
+
+def mesh_phase(torch, kind, smi, lora_losses) -> dict:
+    """Phase 14: the mesh on the card. 14a's unwrapped run, then a
+    world-1 NCCL group on this card (``cluster.init_process_group`` on a
+    localhost ``TCPStore``: ``initialize_cluster`` is a no-op for one
+    process, as ``tpufw``'s), 14a's sharded runs and 14b, then the group
+    is destroyed. Returns {"600m": launches, "lora": launches}."""
+    import torch.distributed as dist
+
+    from tpufw_torch.cluster import init_process_group
+
+    emit({"phase14_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "card_state": nvidia_smi(CARD_STATE)})
+    unwrapped = _timed("14a_unwrapped", lambda: mesh_600m(torch, kind, smi))
+    init_process_group(f"127.0.0.1:{_free_port()}", 1, 0,
+                       torch.device("cuda", 0))
+    try:
+        out = {"600m": _timed("14a", lambda: mesh_600m_sharded(
+            torch, kind, smi, unwrapped))}
+        del unwrapped
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["lora"] = _timed("14b", lambda: mesh_lora(torch, kind, smi,
+                                                      lora_losses))
+    finally:
+        dist.destroy_process_group()
+    emit({"phase14_card_state_at_end": nvidia_smi(CARD_STATE)})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4696,7 +4990,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     try:
-        lora_launches, mixtral_lora_launches = _timed(
+        lora_launches, mixtral_lora_launches, lora_losses = _timed(
             "11", lambda: lora_phase(torch, kind, smi, gen))
     except AssertionError as e:
         return fail(str(e))
@@ -4715,6 +5009,15 @@ def main() -> int:
     try:
         post_launches = _timed("13", lambda: post_train_phase(
             torch, kind, smi, gen))
+    except AssertionError as e:
+        return fail(str(e))
+
+    # 14. The mesh on the card, with phase 13's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        mesh_launches = _timed("14", lambda: mesh_phase(
+            torch, kind, smi, lora_losses))
     except AssertionError as e:
         return fail(str(e))
 
@@ -4762,6 +5065,11 @@ def main() -> int:
             # updates apart).
             kernels[-1]["launches_post_train"] = {
                 part: counts[name] for part, counts in post_launches.items()}
+        if name in mesh_launches["600m"]:
+            # Phase 14's sharded runs: 14a llama3_600m_bench, 14b the
+            # Llama-3-8B LoRA slice.
+            kernels[-1]["launches_mesh"] = {
+                part: counts[name] for part, counts in mesh_launches.items()}
         if name in resume_launches:
             # Phase 7b's run, llama3_600m_bench through Trainer.run, and
             # the kernel at its shapes.

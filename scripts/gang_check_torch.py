@@ -1,0 +1,275 @@
+"""A training gang of the port on one host's GPUs, one process per GPU,
+against one process on the same global batches.
+
+    python3 scripts/gang_check_torch.py [--world 4] [--cpu] [--model NAME]
+        [--batch 16] [--seq 2048] [--steps 3] [--tol 1e-3]
+
+The parent builds the CUDA kernels, then starts ``--world`` ranks of this
+script on one host, told their rank as a per-GPU launcher tells them
+(``TPUFW_COORDINATOR`` on a free localhost port, ``TPUFW_NUM_PROCESSES=1``,
+``TPUFW_PROCESS_ID=0``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``): NCCL on
+``cuda:<rank>``, or gloo with ``--cpu``. Each rank trains ``--model``
+(default ``llama3_600m_bench`` at full size) through the sharded
+``Trainer`` on its rows of every global batch, over each mesh: every rank
+on ``fsdp``, then ``data=2`` by ``fsdp=world/2``, once as it is and once
+with ``grad_accum=2``. Then the gang's stop:
+the last rank alone request()s a stop after step 1, every rank leaves at
+step 1 and rank 0 writes the forced checkpoint. After the gang, the
+parent trains the same steps in one process on the global batches
+(unsharded, at each run's ``grad_accum``), holds each run's losses and
+grad norms to it within ``--tol`` relative, and resumes the gang's checkpoint in one process:
+its step-2 loss within ``--tol`` of the unbroken run's. One JSON line per
+result, ``{"ok": true, ...}`` last; exits nonzero when a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _setup(args):
+    """(model config, TrainerConfig, the global batches)."""
+    import dataclasses
+
+    import torch
+
+    from tpufw_torch.configs import resolve_model_preset
+    from tpufw_torch.train import TrainerConfig, synthetic_batches
+
+    cfg = resolve_model_preset(args.model)
+    # The CPU computes in fp32 throughout (the tests' precision).
+    if args.cpu:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    tcfg = TrainerConfig(batch_size=args.batch, seq_len=args.seq,
+                         total_steps=args.steps, warmup_steps=1,
+                         log_every=1, loss_chunk_size=min(512, args.seq // 2),
+                         loss_chunk_dtype="float32" if args.cpu
+                         else "bfloat16", handle_preemption=False)
+    it = synthetic_batches(args.batch, args.seq, cfg.vocab_size, seed=16)
+    return cfg, tcfg, [next(it) for _ in range(args.steps)]
+
+
+def _run(trainer, batches, **kw):
+    """([(loss, grad_norm)] a step, step ms, peak GB) of ``trainer.run``."""
+    import torch
+
+    rec, step = [], trainer.train_step
+    trainer.train_step = lambda b: rec.append(step(b)) or rec[-1]
+    cuda = trainer.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(trainer.device)
+    hist = trainer.run(iter(batches), model_flops_per_token=1.0, **kw)
+    pairs = [(float(m["loss"]), float(m["grad_norm"])) for m in rec]
+    peak = torch.cuda.max_memory_allocated(trainer.device) / 1e9 if cuda \
+        else None
+    return pairs, [1e3 * m.step_time_s for m in hist], peak
+
+
+def rank_main(args) -> int:
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from tpufw_torch.cluster import initialize_cluster, local_device
+    from tpufw_torch.mesh import MeshConfig
+    from tpufw_torch.train import Trainer
+    from tpufw_torch.train.preemption import GracefulShutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cluster = initialize_cluster(device="cpu" if args.cpu else None,
+                                 timeout_s=120)
+    rank, world = cluster.rank, cluster.world_size
+    dev = local_device(cluster, "cpu" if args.cpu else None)
+    cfg, tcfg, batches = _setup(args)
+    rows = args.batch // world
+    local = [{k: v[rank * rows:(rank + 1) * rows] for k, v in b.items()}
+             for b in batches]
+    # name: (mesh, grad_accum).
+    meshes = {f"fsdp{world}": (MeshConfig(data=1, fsdp=world), 1)}
+    if world > 2 and world % 2 == 0:
+        hsdp = MeshConfig(data=2, fsdp=world // 2)
+        meshes[f"data2_fsdp{world // 2}"] = (hsdp, 1)
+        meshes[f"data2_fsdp{world // 2}_accum2"] = (hsdp, 2)
+    out = {"rank": rank, "world": world, "device": str(dev), "runs": {}}
+    for name, (mesh, accum) in meshes.items():
+        trainer = Trainer(cfg, dataclasses.replace(tcfg, grad_accum=accum),
+                          mesh, device=dev)
+        trainer.init_state(seed=0)
+        pairs, step_ms, peak = _run(trainer, local)
+        out["runs"][name] = {"losses": [p[0] for p in pairs],
+                             "grad_norms": [p[1] for p in pairs],
+                             "step_ms": step_ms, "peak_gb": peak,
+                             "grad_accum": accum,
+                             "mesh": dict(zip(trainer.mesh.mesh_dim_names,
+                                              trainer.mesh.shape))}
+        del trainer
+    # The gang's stop: the last rank alone asks after step 1.
+    stopped = Trainer(cfg, dataclasses.replace(
+        tcfg, checkpoint_dir=args.ckpt, checkpoint_every=1000),
+        MeshConfig(data=1, fsdp=world), device=dev)
+    stopped.init_state(seed=0)
+    sd = GracefulShutdown(signals=())
+
+    def ask(m):
+        if rank == world - 1:
+            sd.request()
+
+    _run(stopped, local, on_metrics=ask, shutdown=sd)
+    out["stop"] = {"preempted": stopped.preempted, "step": stopped.step}
+    dist.destroy_process_group()
+    with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _rel(a, b) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def parent_main(args) -> int:
+    import dataclasses
+
+    if not args.cpu:
+        from tpufw_torch.ops import _build
+
+        _build.build()
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build-torch")
+                           if os.path.isdir(os.path.join(ROOT, "build-torch"))
+                           else None)
+    args.out, args.ckpt = tmp, os.path.join(tmp, "ckpt")
+    port = _free_port()
+    argv = [sys.executable, os.path.abspath(__file__), "--rank-of-gang",
+            "--out", args.out, "--ckpt", args.ckpt, "--model", args.model,
+            "--batch", str(args.batch), "--seq", str(args.seq),
+            "--steps", str(args.steps)] + (["--cpu"] if args.cpu else [])
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUFW_")}
+    env |= {"TPUFW_COORDINATOR": f"127.0.0.1:{port}",
+            "TPUFW_NUM_PROCESSES": "1", "TPUFW_PROCESS_ID": "0",
+            "LOCAL_WORLD_SIZE": str(args.world), "OMP_NUM_THREADS": "1"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, env=env | {"LOCAL_RANK": str(r)})
+             for r in range(args.world)]
+    try:
+        rcs = [p.wait(timeout=args.timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    gang_s = time.perf_counter() - t0
+    if any(rcs):
+        emit({"gang_failed": rcs})
+        return 1
+    ranks = []
+    for r in range(args.world):
+        with open(os.path.join(args.out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    import torch
+
+    from tpufw_torch.train import Trainer
+    from tpufw_torch.train.checkpoint import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cpu" if args.cpu else "cuda"
+    cfg, tcfg, batches = _setup(args)
+    # One process at each grad_accum of the gang's runs.
+    single = {}
+    for accum in sorted({r["grad_accum"] for r in ranks[0]["runs"].values()}):
+        one = Trainer(cfg, dataclasses.replace(tcfg, grad_accum=accum),
+                      device=dev)
+        one.init_state(seed=0)
+        single[accum] = _run(one, batches)
+        del one
+    ok = True
+    for name, run in ranks[0]["runs"].items():
+        want, one_ms, one_peak = single[run["grad_accum"]]
+        same = all(r["runs"][name]["losses"] == run["losses"]
+                   for r in ranks)
+        d_loss = _rel(run["losses"], [w[0] for w in want])
+        d_norm = _rel(run["grad_norms"], [w[1] for w in want])
+        good = same and len(run["losses"]) == args.steps and \
+            max(d_loss, d_norm) <= args.tol
+        ok &= good
+        emit({"check": f"gang_{name}_vs_one_process", "ok": good,
+              "world": args.world, "mesh": run["mesh"],
+              "ranks_equal": same, "losses_gang": run["losses"],
+              "losses_one_process": [w[0] for w in want],
+              "grad_norms_gang": run["grad_norms"],
+              "grad_norms_one_process": [w[1] for w in want],
+              "max_rel_diff_loss": d_loss, "max_rel_diff_grad_norm": d_norm,
+              "tol": args.tol,
+              "step_ms_gang_rank0": run["step_ms"],
+              "peak_gb_gang_rank0": run["peak_gb"],
+              "step_ms_one_process": one_ms, "peak_gb_one_process": one_peak,
+              "global_batch": args.batch, "seq_len": args.seq,
+              "grad_accum": run["grad_accum"], "model": args.model})
+    want = single[1][0]
+    # The gang's checkpoint resumes in one process.
+    stops = [r["stop"] for r in ranks]
+    steps = CheckpointManager(args.ckpt).all_steps()
+    resumed = Trainer(cfg, dataclasses.replace(tcfg, checkpoint_dir=args.ckpt),
+                      device=dev)
+    restored = resumed.maybe_restore()
+    after, _, _ = _run(resumed, batches[1:2])
+    d = _rel([after[0][0]], [want[1][0]]) if after else float("inf")
+    good = (restored and steps == [1] and d <= args.tol
+            and all(s == {"preempted": True, "step": 1} for s in stops))
+    ok &= good
+    emit({"check": "gang_stop_and_one_process_resume", "ok": good,
+          "stops": stops, "checkpoints": steps, "restored": restored,
+          "resumed_loss": after[0][0] if after else None,
+          "unbroken_loss": want[1][0], "rel_diff": d, "tol": args.tol})
+    shutil.rmtree(tmp, ignore_errors=True)
+    kind = "cpu" if args.cpu else torch.cuda.get_device_name(0)
+    emit({"ok": bool(ok), "world": args.world, "device": kind,
+          "gang_s": gang_s})
+    return 0 if ok else 1
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--world", type=int, default=4)
+    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--model", default="llama3_600m_bench")
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--tol", type=float, default=1e-3)
+    ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--rank-of-gang", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.batch % args.world:
+        ap.error(f"--batch {args.batch} must divide over --world "
+                 f"{args.world}")
+    return rank_main(args) if args.rank_of_gang else parent_main(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -82,14 +82,32 @@ def test_owned_shutdown_and_checkpoint_stop(tmp_path):
     assert mgr.all_steps() == [4]
 
 
-def test_gang_stop_waits_for_multi_gpu(monkeypatch):
+def test_gang_stop_is_an_all_reduce_every_sync(monkeypatch):
+    """Under a process group every sync_every-th call all-reduces the
+    flag (MAX of an int32); the others return the last decision."""
     import torch.distributed as dist
 
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    sd = GracefulShutdown(signals=())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sd.should_stop()
+    from tests.torch_gang import free_port
+    from tpufw_torch.cluster import init_process_group
+
+    calls = []
+    real = dist.all_reduce
+
+    def counted(t, op=dist.ReduceOp.SUM, **kw):
+        calls.append((t.dtype, op))
+        return real(t, op=op, **kw)
+
+    init_process_group(f"127.0.0.1:{free_port()}", 1, 0, "cpu")
+    try:
+        monkeypatch.setattr(dist, "all_reduce", counted)
+        sd = GracefulShutdown(signals=(), sync_every=2)
+        assert not sd.should_stop()
+        sd.request()
+        assert not sd.should_stop()  # not a sync call
+        assert sd.should_stop() and sd.should_stop()
+    finally:
+        dist.destroy_process_group()
+    assert calls == [(torch.int32, dist.ReduceOp.MAX)] * 2
 
 
 def test_trainer_stops_and_checkpoints_on_preemption(tmp_path):

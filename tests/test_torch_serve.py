@@ -164,6 +164,18 @@ def test_run_batch_env_knobs(cpu_env):
         first]
 
 
+def test_decode_unroll_is_a_layout_knob(cpu_env):
+    """``tpufw`` reads TPUFW_DECODE_UNROLL to unstack its scanned decode
+    trunk (the same tokens either way); the port's layer stacks are
+    always an ``nn.ModuleList``, so the knob changes nothing there: the
+    same greedy tokens with 0, 1 and unset (ROADMAP.md Queue 3,
+    divergences by design)."""
+    base = serve.run_batch(PROMPTS, max_new_tokens=6)
+    for value in ("0", "1"):
+        cpu_env.setenv("TPUFW_DECODE_UNROLL", value)
+        assert serve.run_batch(PROMPTS, max_new_tokens=6) == base
+
+
 def test_main_prints_one_line_per_prompt(cpu_env, tmp_path, capsys):
     path = tmp_path / "prompts.json"
     path.write_text(json.dumps(PROMPTS))

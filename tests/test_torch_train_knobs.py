@@ -474,12 +474,9 @@ REFUSED_TRAIN_KNOBS = {
     "TELEMETRY_DIR": ("/tel", "13"),
     "METRICS_PORT": ("0", "13"),
     "STRAGGLER_FACTOR": ("3.0", "13"),
-    "MESH_DATA": ("2", "12"),
-    "MESH_FSDP": ("4", "12"),
-    "MESH_EXPERT": ("2", "12"),
-    "MESH_SEQUENCE": ("2", "12"),
-    "MESH_TENSOR": ("2", "12"),
-    "MESH_DCN_DATA": ("2", "12"),
+    "MESH_EXPERT": ("2", "12e"),
+    "MESH_SEQUENCE": ("2", "12b"),
+    "MESH_TENSOR": ("2", "12e"),
 }
 
 
@@ -496,6 +493,45 @@ def test_post_training_objectives_are_refused(monkeypatch, knob):
                              rf"tpufw_torch yet \(ROADMAP.md Queue 1 "
                              rf"item {item}\)$"):
         train_llama.build_trainer()
+
+
+# Mesh knobs the port honours: a mesh larger than the one-process world
+# raises tpufw's ValueError, word for word.
+MESH_MISMATCH = {
+    "data2_fsdp1": {"MESH_DATA": "2", "MESH_FSDP": "1"},
+    "fsdp4": {"MESH_FSDP": "4"},
+    "data2_fill": {"MESH_DATA": "2"},
+    "dcn2": {"MESH_DCN_DATA": "2"},
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_MISMATCH))
+def test_mesh_larger_than_the_world_raises_tpufws_error(monkeypatch, case):
+    from tpufw.mesh import build_mesh as j_build_mesh
+    from tpufw_torch.workloads import train_llama
+
+    env = MESH_MISMATCH[case]
+    kw = {k.removeprefix("MESH_").lower(): int(v) for k, v in env.items()}
+    with pytest.raises(ValueError) as want:
+        j_build_mesh(MeshConfig(**kw), devices=jax.devices()[:1])
+    _workload_env(monkeypatch, **env)
+    with pytest.raises(ValueError) as got:
+        train_llama.build_trainer()
+    assert str(got.value) == str(want.value)
+
+
+def test_sorted_dispatch_under_a_one_device_expert_fill(monkeypatch):
+    """TPUFW_MESH_EXPERT=-1 resolves to one device in a one-process run,
+    so the sorted dispatch builds; tpufw refuses it for -1 itself."""
+    from tpufw.workloads import train_llama as j_train_llama
+    from tpufw_torch.workloads import train_llama
+
+    _workload_env(monkeypatch, MODEL="mixtral_tiny", MESH_EXPERT="-1",
+                  MESH_FSDP="1", MOE_DISPATCH="sorted")
+    trainer, cfg = train_llama.build_trainer()
+    assert cfg.moe_dispatch == "sorted" and not trainer.gang
+    with pytest.raises(ValueError, match="moe_dispatch='sorted'"):
+        j_train_llama.build_trainer()
 
 
 @pytest.mark.parametrize("env", [

@@ -1,0 +1,158 @@
+"""The named device mesh of a training gang (port of ``tpufw.mesh.mesh``).
+
+``tpufw`` lays its chips out on a six-axis ``jax.sharding.Mesh`` and lets
+XLA insert the collectives. The port keeps the same axis names and the
+same sizing rules (``MeshConfig``, one axis may be -1 to fill), and lays
+the gang's RANKS out as ``tpufw`` lays out its devices (``rank_grid``).
+One rank is one GPU.
+
+``build_mesh`` turns that grid into a ``torch.distributed`` ``DeviceMesh``
+with the two dimensions this slice shards over: ``data`` (of size
+``dcn_data * data``: plain replicas) and ``fsdp`` (parameters, gradients
+and optimizer state sharded, as ZeRO-3). ``fully_shard`` over that mesh
+is HSDP: sharded over ``fsdp``, replicated over ``data``. The
+``expert``, ``sequence`` and ``tensor`` axes must resolve to 1 until
+their slices come (ROADMAP.md Queue 1 items 12b and 12e), and ``pipe``
+until the pipeline trainer (item 12c).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+
+AXIS_DATA = "data"
+AXIS_PIPE = "pipe"
+AXIS_FSDP = "fsdp"
+AXIS_SEQUENCE = "sequence"
+AXIS_TENSOR = "tensor"
+AXIS_EXPERT = "expert"
+
+# Leftmost axes vary slowest across ranks: ``data`` spans hosts, ``tensor``
+# (rightmost) stays inside a host's fastest links, as in ``tpufw``.
+MESH_AXES: tuple[str, ...] = (
+    AXIS_DATA,
+    AXIS_PIPE,
+    AXIS_FSDP,
+    AXIS_EXPERT,
+    AXIS_SEQUENCE,
+    AXIS_TENSOR,
+)
+
+# The axes whose parallelism is a later slice, and the item that brings it.
+_LATER_AXES = {AXIS_SEQUENCE: "12b", AXIS_TENSOR: "12e", AXIS_EXPERT: "12e",
+               AXIS_PIPE: "12c"}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Sizes of the six named mesh axes. -1 on at most one axis = "fill".
+
+    ``dcn_data`` > 1 declares a multi-slice deployment: that many groups
+    of ranks joined over the slow network, with pure data parallelism
+    across them. The other sizes then describe ONE group; the built
+    mesh's ``data`` dimension has size ``dcn_data * data`` with the slow
+    network as its slowest-varying part.
+    """
+
+    data: int = 1
+    pipe: int = 1
+    fsdp: int = -1
+    expert: int = 1
+    sequence: int = 1
+    tensor: int = 1
+    dcn_data: int = 1
+
+    def sizes(self, n_devices: int) -> dict[str, int]:
+        """Per-slice axis sizes (n_devices = devices in one slice)."""
+        raw = {
+            AXIS_DATA: self.data,
+            AXIS_PIPE: self.pipe,
+            AXIS_FSDP: self.fsdp,
+            AXIS_EXPERT: self.expert,
+            AXIS_SEQUENCE: self.sequence,
+            AXIS_TENSOR: self.tensor,
+        }
+        bad = [k for k, v in raw.items() if v != -1 and v < 1]
+        if bad:
+            raise ValueError(f"axis sizes must be >=1 or -1 (fill), got {raw}")
+        fills = [k for k, v in raw.items() if v == -1]
+        if len(fills) > 1:
+            raise ValueError(f"at most one axis may be -1, got {fills}")
+        fixed = math.prod(v for v in raw.values() if v != -1)
+        if fills:
+            if n_devices % fixed:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes {raw}"
+                )
+            raw[fills[0]] = n_devices // fixed
+            fixed = n_devices
+        if fixed != n_devices:
+            raise ValueError(
+                f"mesh {raw} needs {fixed} devices, have {n_devices}"
+            )
+        return raw
+
+    def model_parallel_size(self, n_devices: int) -> int:
+        """Devices holding one replica's model shards (excl. data/fsdp)."""
+        sizes = self.sizes(n_devices)
+        return (
+            sizes[AXIS_TENSOR]
+            * sizes[AXIS_SEQUENCE]
+            * sizes[AXIS_EXPERT]
+            * sizes[AXIS_PIPE]
+        )
+
+    def slice_sizes(self, world: int) -> dict[str, int]:
+        """``sizes`` of one DCN slice of a ``world``-rank gang, with
+        ``tpufw``'s error when the ranks do not divide into the slices."""
+        if self.dcn_data > 1 and world % self.dcn_data:
+            raise ValueError(
+                f"{world} devices not divisible into "
+                f"{self.dcn_data} DCN slices"
+            )
+        return self.sizes(world // max(self.dcn_data, 1))
+
+
+def rank_grid(config: MeshConfig | None, world: int) -> np.ndarray:
+    """The gang's ranks as an array over ``MESH_AXES`` (the ``data``
+    dimension ``dcn_data`` times its per-slice size), laid out as
+    ``tpufw``'s ``build_mesh`` lays out devices that are not TPUs: rank
+    order reshaped, so the DCN slices are the slowest-varying part."""
+    config = config or MeshConfig()
+    sizes = config.slice_sizes(world)
+    shape = tuple(sizes[a] * (config.dcn_data if a == AXIS_DATA else 1)
+                  for a in MESH_AXES)
+    return np.arange(world).reshape(shape)
+
+
+def mesh_shape(config: MeshConfig | None, world: int) -> dict[str, int]:
+    """{"data": dcn_data * data, "fsdp": fsdp} of a ``world``-rank gang:
+    the two dimensions of ``build_mesh``. Raises NotImplementedError
+    naming the ROADMAP.md item when another axis resolves above 1."""
+    config = config or MeshConfig()
+    sizes = config.slice_sizes(world)
+    for axis, item in _LATER_AXES.items():
+        if sizes[axis] > 1:
+            raise NotImplementedError(
+                f"mesh axis {axis!r} of size {sizes[axis]}: "
+                f"{axis} parallelism is not ported to tpufw_torch yet "
+                f"(ROADMAP.md Queue 1 item {item})"
+            )
+    return {AXIS_DATA: sizes[AXIS_DATA] * config.dcn_data,
+            AXIS_FSDP: sizes[AXIS_FSDP]}
+
+
+def build_mesh(config: MeshConfig | None, world: int, device_type: str):
+    """The ``DeviceMesh`` (dims ``data``, ``fsdp``) of the initialized
+    process group's ``world`` ranks over ``rank_grid``. ``device_type``
+    is ``cuda`` (NCCL) or ``cpu`` (gloo)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = mesh_shape(config, world)
+    grid = rank_grid(config, world).reshape(shape[AXIS_DATA],
+                                            shape[AXIS_FSDP])
+    return DeviceMesh(device_type, grid.tolist(),
+                      mesh_dim_names=(AXIS_DATA, AXIS_FSDP))

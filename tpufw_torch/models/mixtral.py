@@ -49,6 +49,8 @@ from tpufw_torch.models.llama import (
 )
 from tpufw_torch.ops.moe import (
     expert_capacity,
+    gather_routing,
+    local_sorted,
     route_topk_capacity,
     route_topk_sorted,
 )
@@ -175,6 +177,11 @@ class MoEMLP(nn.Module):
     ``group_limit`` is DeepSeek's (n_group, topk_group), passed to the
     routing as ``tpufw`` passes them."""
 
+    # A gang's process group (set by ``train.sharding.shard_model``): the
+    # routing group is then the global batch, every rank's rows, as
+    # ``tpufw`` routes it, and each rank computes its own rows.
+    route_group = None
+
     def __init__(self, cfg, gen, device=None, d_ff=None, norm_topk=True,
                  group_limit=None):
         super().__init__()
@@ -232,19 +239,29 @@ class MoEMLP(nn.Module):
         b, t, d = x.shape
         e, k = cfg.n_experts, cfg.experts_per_token
         g = b * t
-        capacity = expert_capacity(g, k, e, cfg.capacity_factor)
         router_logits = self.router(x.float()).reshape(g, e)
-        kw = dict(valid=None if valid is None else valid.reshape(g),
-                  dtype=x.dtype, norm_topk=self.norm_topk,
+        valid = None if valid is None else valid.reshape(g)
+        lo = 0
+        if self.route_group is not None:
+            router_logits, valid, lo = gather_routing(router_logits, valid,
+                                                      self.route_group)
+        capacity = expert_capacity(router_logits.shape[0], k, e,
+                                   cfg.capacity_factor)
+        kw = dict(valid=valid, dtype=x.dtype, norm_topk=self.norm_topk,
                   group_limit=self.group_limit)
         if self.mode == "sorted":
             token, sizes, gates, aux, z = route_topk_sorted(
                 router_logits, k, capacity, **kw)
+            if self.route_group is not None:
+                token, sizes, gates = local_sorted(token, sizes, gates, lo, g)
             y = self._sorted(x.reshape(g, d), token, sizes, gates)
         else:
+            # In a gang every expert runs over the global capacity's
+            # slots, those of other ranks' rows empty.
             dispatch, combine, aux, z = route_topk_capacity(
                 router_logits, k, capacity, **kw)
-            y = self._einsum(x.reshape(g, d), dispatch, combine)
+            y = self._einsum(x.reshape(g, d), dispatch[lo:lo + g],
+                             combine[lo:lo + g])
         return y.reshape(b, t, d), (cfg.router_aux_weight * aux
                                     + cfg.router_z_weight * z)
 

@@ -155,6 +155,57 @@ def route_topk_capacity(
     return dispatch, combine, aux_lb, z
 
 
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows, concatenated in rank order; the backward hands
+    each rank the sum over ranks of its rows' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.group, ctx.lo, ctx.n = group, dist.get_rank(group) * len(x), len(x)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad[ctx.lo:ctx.lo + ctx.n], None
+
+
+def gather_routing(router_logits: torch.Tensor, valid, group):
+    """A gang's routing group: every rank's [g, E] router logits (with
+    their gradient) and valid rows, in rank order, as the global batch
+    ``tpufw`` routes as one group; and this rank's first row in it.
+    Every rank holds g rows."""
+    import torch.distributed as dist
+
+    logits = _GatherRows.apply(router_logits, group)
+    if valid is not None:
+        parts = [torch.empty_like(valid) for _ in range(dist.get_world_size(
+            group))]
+        dist.all_gather(parts, valid.contiguous(), group=group)
+        valid = torch.cat(parts)
+    return logits, valid, dist.get_rank(group) * router_logits.shape[0]
+
+
+def local_sorted(token, group_sizes, gates, lo: int, g: int):
+    """The sorted assignments (``route_topk_sorted``'s) of the rows
+    [lo, lo + g) of a gang's routing group, renumbered from 0: (token,
+    group_sizes, gates) of this rank's rows, in the same order."""
+    gid = torch.repeat_interleave(
+        torch.arange(group_sizes.numel(), device=token.device), group_sizes)
+    mine = (token >= lo) & (token < lo + g)
+    return (token[mine] - lo,
+            torch.bincount(gid[mine], minlength=group_sizes.numel()),
+            gates[mine])
+
+
 def route_topk_sorted(
     router_logits: torch.Tensor,
     k: int,

@@ -15,6 +15,17 @@ background thread waits on the event and writes. The step path pays the
 enqueue and, before it, the wait for the previous write. ``restore``
 maps the file (``torch.load(mmap=True)``), moves each tensor to the
 caller's device and checks it against the checksum taken at the save.
+
+Under a process group (a training gang, ``train.sharding``) the state's
+sharded tensors (DTensors) are gathered whole one at a time, every rank
+taking part; rank 0 alone copies them to the host and writes, and each
+checksum is of the whole tensor. Every rank waits at a barrier before
+the next save looks at the directory and when the manager closes, and
+the ranks must agree on whether a step is already on disk (ValueError
+otherwise: a rank that sees another directory).
+``restore`` reads the whole state on every rank. So a checkpoint does
+not depend on the world size: a gang's resumes in one process, and
+one process's in a gang.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ import time
 from typing import Any, Optional
 
 import torch
+
+from tpufw_torch.train.sharding import active, full_tensor, gang_agree
 
 _STEP_DIR = re.compile(r"^\d+$")
 _WORD = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -72,12 +85,13 @@ def _map(tree, fn, prefix=""):
 
 
 def _device_checksums(state) -> tuple[list[str], Optional[torch.Tensor]]:
-    """(paths, [N, 2] int64 checksums on the state's device), no sync."""
+    """(paths, [N, 2] int64 checksums on the state's device), no sync;
+    a sharded tensor's are its whole tensor's."""
     items = list(_walk(state))
     if not items:
         return [], None
     return [p for p, _ in items], torch.stack(
-        [_checksum_words(t) for _, t in items])
+        [_checksum_words(full_tensor(t)) for _, t in items])
 
 
 def checksums(state) -> dict[str, list[int]]:
@@ -124,6 +138,9 @@ class CheckpointManager:
         self._host: dict[str, torch.Tensor] = {}
         self.saves: list[dict] = []
         self._record: dict = {}
+        # Set by a save under a process group: close() then waits at a
+        # barrier for rank 0's write.
+        self._gang_saved = False
 
     def all_steps(self) -> list[int]:
         """Steps on disk, ascending (a save in flight is not one yet)."""
@@ -149,17 +166,32 @@ class CheckpointManager:
         error)."""
         if not force and step % self.save_interval_steps:
             return False
-        if step == self._pending or step in self.all_steps():
+        gang = active()
+        t0 = time.perf_counter()
+        if gang:
+            # Rank 0's last write on disk before any rank looks.
+            self.wait()
+            self._barrier()
+            self._gang_saved = True
+        saved = step == self._pending or step in self.all_steps()
+        if gang:
+            gang_agree(int(saved), f"whether step {step} is on disk")
+        if saved:
             return False
         if callable(state):
             state = state()
-        t0 = time.perf_counter()
         self.wait()
         record = {"step": step, "wait_s": time.perf_counter() - t0,
                   "pin_s": 0.0}
         self._record = record
-        host = _map(state, self._to_host)
-        paths, sums = _device_checksums(state)
+        if gang:
+            host, paths, sums = self._gather(state)
+            if host is None:  # not rank 0: nothing to write
+                record["enqueue_s"] = time.perf_counter() - t0
+                return True
+        else:
+            host = _map(state, self._to_host)
+            paths, sums = _device_checksums(state)
         if sums is not None:
             sums = self._to_host("#checksums", sums)
         event = None
@@ -175,6 +207,31 @@ class CheckpointManager:
         self._thread.start()
         record["enqueue_s"] = time.perf_counter() - t0
         return True
+
+    def _gather(self, state):
+        """(host copy on rank 0 else None, paths, [N, 2] checksums) of a
+        gang's state: each sharded tensor gathered whole in turn (a
+        collective), checksummed, copied to rank 0's host buffer, freed."""
+        import torch.distributed as dist
+
+        writer = dist.get_rank() == 0
+        sums = []
+
+        def take(path, t):
+            t = full_tensor(t)
+            sums.append(_checksum_words(t))
+            return self._to_host(path, t) if writer else None
+
+        host = _map(state, take)
+        paths = [p for p, _ in _walk(state)]
+        return (host if writer else None), paths, (
+            torch.stack(sums) if sums else None)
+
+    @staticmethod
+    def _barrier() -> None:
+        import torch.distributed as dist
+
+        dist.barrier()
 
     def _to_host(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """``t`` copied into this path's pinned buffer (made or remade
@@ -229,11 +286,15 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore(self, step: Optional[int] = None, device=None) -> dict:
+    def restore(self, step: Optional[int] = None, device=None,
+                mapped: bool = False) -> dict:
         """The state saved as ``step`` (default: the latest), its tensors
         on ``device`` (default: the CPU), each checked against its
-        checksum from the save. Raises FileNotFoundError when there is
-        none, ValueError when a tensor's bits changed."""
+        checksum from the save. ``mapped``: the tensors stay mapped from
+        the file on the host, each checked on ``device`` one at a time (a
+        gang's restore: no rank holds the whole state on its device).
+        Raises FileNotFoundError when there is none, ValueError when a
+        tensor's bits changed."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
@@ -244,9 +305,15 @@ class CheckpointManager:
         state = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
                            mmap=True, weights_only=True)
         dev = torch.device("cpu" if device is None else device)
-        state = _map(state, lambda p, t: t.to(dev) if dev.type != "cpu"
-                     else t.clone())
-        got = checksums(state)
+        if mapped:
+            items = list(_walk(state))
+            sums = [_checksum_words(t.to(dev)) for _, t in items]
+            got = dict(zip([p for p, _ in items],
+                           torch.stack(sums).tolist() if sums else []))
+        else:
+            state = _map(state, lambda p, t: t.to(dev) if dev.type != "cpu"
+                         else t.clone())
+            got = checksums(state)
         bad = [p for p, s in meta["checksums"].items() if got.get(p) != s]
         if bad or got.keys() != meta["checksums"].keys():
             raise ValueError(
@@ -256,6 +323,9 @@ class CheckpointManager:
 
     def close(self) -> None:
         self.wait()
+        if self._gang_saved:
+            self._barrier()
+            self._gang_saved = False
         self._host.clear()
 
 

@@ -174,11 +174,15 @@ def contrastive_train_step(
 class EmbeddingTrainer(Trainer):
     """``Trainer`` for contrastive embedding fine-tuning; ``run``,
     checkpoints, SIGTERM and the ``Meter`` are inherited.
-    ``TrainerConfig.batch_size`` is the ROW count 2B."""
+    ``TrainerConfig.batch_size`` is the ROW count 2B. Not under a process
+    group yet: the in-batch negatives would have to be gathered across
+    ranks with their gradient (ROADMAP.md item 12d)."""
+
+    shardable = False
 
     def __init__(self, model_cfg, trainer_cfg, device=None,
                  contrastive: ContrastiveConfig = ContrastiveConfig()):
-        super().__init__(model_cfg, trainer_cfg, device)
+        super().__init__(model_cfg, trainer_cfg, device=device)
         if trainer_cfg.batch_size % 2:
             raise ValueError(
                 f"embedding batch_size is the ROW count 2B; got odd "

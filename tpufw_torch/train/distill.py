@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpufw_torch.ops.attention import tanh_soft_cap
 from tpufw_torch.ops.loss import _chunk_seq, head_logits
+from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import load_params
 from tpufw_torch.train.trainer import (
     LlamaAdamW,
@@ -122,7 +123,10 @@ def distill_train_step(
     """One distillation update on a packed LM batch of device tensors;
     returns device tensors {loss, kl_loss, ce_loss, grad_norm}. The
     teacher's hidden states come from a forward under ``torch.no_grad``;
-    a MoE student's router loss joins the objective."""
+    a MoE student's router loss joins the objective. Under a process
+    group ``batch`` is this rank's rows of the global batch (sharded
+    models): the losses and the gradients are the global batch's token
+    means."""
     inputs, targets, seg_in, mask = shift_and_mask(batch)
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
@@ -140,7 +144,8 @@ def distill_train_step(
         teacher_soft_cap=final_soft_cap(teacher),
     )
     loss = total + aux
-    loss.backward()
+    loss = sharding.backward_global_mean(loss, mask.sum())
+    kl, ce = sharding.global_mean(torch.stack([kl, ce]), mask.sum())
     grad_norm = optimizer.step()
     return {"loss": loss.detach(), "kl_loss": kl.detach(),
             "ce_loss": ce.detach(), "grad_norm": grad_norm}
@@ -154,9 +159,9 @@ class DistillTrainer(Trainer):
     of its own 6N count) is credited when ``run`` is given it, as the
     train workload does."""
 
-    def __init__(self, model_cfg, trainer_cfg, device=None,
+    def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,
                  distill: DistillConfig = DistillConfig()):
-        super().__init__(model_cfg, trainer_cfg, device)
+        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device)
         if trainer_cfg.grad_accum != 1:
             raise NotImplementedError(
                 "DistillTrainer does not implement grad_accum; silently "
@@ -179,6 +184,7 @@ class DistillTrainer(Trainer):
         self.teacher = frozen_copy(
             teacher_model, getattr(torch, self.distill.teacher_dtype)
         ).to(self.device)
+        self._shard(self.teacher)
 
     def set_teacher_from(self, teacher_cfg, path: str) -> None:
         """Install the teacher from a bare-params directory of
@@ -189,6 +195,7 @@ class DistillTrainer(Trainer):
         _, state = load_params(path, teacher_cfg, self.device)
         self.teacher = frozen_model(
             teacher_cfg, state, getattr(torch, self.distill.teacher_dtype))
+        self._shard(self.teacher)
 
     def train_step(self, batch: dict) -> dict:
         if self.teacher is None:

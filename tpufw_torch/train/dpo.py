@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from tpufw_torch.models.lora import adapters_bypassed
 from tpufw_torch.ops.loss import chunked_sequence_logprob
+from tpufw_torch.train import sharding
 from tpufw_torch.train.sft import _TEMPLATES, render_conversation
 from tpufw_torch.train.trainer import (
     LlamaAdamW,
@@ -297,7 +298,10 @@ def dpo_train_step(
     tensors; returns device tensors {loss, grad_norm, accuracy, margin,
     reward_chosen, reward_rejected}. ``ref_model`` None: the reference is
     ``model``'s base with the adapters bypassed (LoRA). A MoE policy's
-    router loss joins the objective, as in ``trainer.batch_loss``."""
+    router loss joins the objective, as in ``trainer.batch_loss``.
+    Under a process group ``batch`` is this rank's pairs of the global
+    batch (a sharded model): the loss, its gradients and the metrics are
+    the global batch's means over the pairs."""
     inputs, targets, seg_in, mask = shift_and_mask(batch)
     if mask is None:
         raise ValueError(
@@ -314,7 +318,10 @@ def dpo_train_step(
     loss, metrics = dpo_loss_from_logps(logps, ref_logps, beta,
                                         label_smoothing)
     loss = loss + aux
-    loss.backward()
+    pairs = torch.tensor(float(logps.shape[0] // 2), device=logps.device)
+    loss = sharding.backward_global_mean(loss, pairs)
+    metrics = dict(zip(metrics, sharding.global_mean(
+        torch.stack(list(metrics.values())), pairs)))
     grad_norm = optimizer.step()
     return {"loss": loss.detach(), "grad_norm": grad_norm,
             **{k: v.detach() for k, v in metrics.items()}}
@@ -340,6 +347,7 @@ class ReferenceMixin:
     def _snapshot_reference(self, ref_dtype: str) -> None:
         if not self._lora_reference():
             self.ref_model = frozen_copy(self.model, getattr(torch, ref_dtype))
+            self._shard(self.ref_model)
 
     def has_reference(self) -> bool:
         if self._lora_reference():
@@ -357,9 +365,9 @@ class DPOTrainer(ReferenceMixin, Trainer):
     count) is credited when ``run`` is given ``flops_per_token * 4 / 3``,
     as the train workload does."""
 
-    def __init__(self, model_cfg, trainer_cfg, device=None,
+    def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,
                  dpo: DPOConfig = DPOConfig()):
-        super().__init__(model_cfg, trainer_cfg, device)
+        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device)
         if trainer_cfg.batch_size % 2:
             raise ValueError(
                 f"DPO batch_size is the ROW count 2B; got odd "

@@ -174,11 +174,14 @@ class GRPOTrainer(ReferenceMixin, Trainer):
     rollout row count N = prompts a step x ``group_size``; ``seq_len``
     bounds prompt + ``max_new_tokens``. ``run_rl`` is the loop (rollout,
     then ``train_step``); checkpoints, SIGTERM and the step budget work as
-    in ``Trainer.run``."""
+    in ``Trainer.run``. Not under a process group yet: the decode view
+    would hold the policy's sharded tensors (ROADMAP.md item 12d)."""
+
+    shardable = False
 
     def __init__(self, model_cfg, trainer_cfg, device=None,
                  grpo: GRPOConfig = GRPOConfig()):
-        super().__init__(model_cfg, trainer_cfg, device)
+        super().__init__(model_cfg, trainer_cfg, device=device)
         if trainer_cfg.batch_size % grpo.group_size:
             raise ValueError(
                 f"batch_size {trainer_cfg.batch_size} must be a multiple "

@@ -31,18 +31,23 @@ class StepMetrics:
 
 
 class Meter:
-    """Times one step at a time and converts to tokens/s/GPU and MFU
-    (one GPU: the multi-GPU port will divide by the device count)."""
+    """Times one step at a time and converts to tokens/s/GPU and MFU.
+
+    ``tokens_per_step`` counts the global batch; ``n_gpus`` is the gang's
+    device count (``tpufw``'s ``n_chips``), so tokens/s/GPU and MFU are
+    per device and compare across gang sizes."""
 
     def __init__(
         self,
         tokens_per_step: int,
         flops_per_token: float,
         chip: ChipSpec,
+        n_gpus: int = 1,
     ):
         self.tokens_per_step = tokens_per_step
         self.flops_per_token = flops_per_token
         self.chip = chip
+        self.n_gpus = max(n_gpus, 1)
         self._t0: float | None = None
 
     def start(self) -> None:
@@ -62,7 +67,7 @@ class Meter:
         dt = (time.perf_counter() - self._t0) / n
         data_wait_s = data_wait_s / n
         self._t0 = None
-        tps = self.tokens_per_step / dt
+        tps = self.tokens_per_step / dt / self.n_gpus
         mfu = tps * self.flops_per_token / self.chip.peak_bf16_flops
         return StepMetrics(
             step=step,

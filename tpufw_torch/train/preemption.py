@@ -1,14 +1,14 @@
 """SIGTERM -> forced checkpoint -> clean exit (port of
-``tpufw.train.preemption``), for one process.
+``tpufw.train.preemption``).
 
 Kubernetes ends a pod with SIGTERM and a grace window before SIGKILL; the
 trainer turns that window into a checkpoint of the current step, so the
 restarted run resumes there and not at the last periodic save.
 
-The JAX package makes the stop decision a collective (``any`` of every
-process's flag), so that a gang stops at one step. That needs the port's
-multi-GPU layer (ROADMAP.md Queue 1 item 12): with ``torch.distributed``
-initialized at a world size above 1, ``should_stop`` raises.
+The stop decision is the gang's: with a ``torch.distributed`` process
+group initialized, ``should_stop`` is ``any`` of every rank's flag (an
+all-reduce MAX of an int32 on the rank's device, CUDA under NCCL), so the
+ranks leave the loop at one step even when only one was signalled.
 """
 
 from __future__ import annotations
@@ -65,9 +65,10 @@ class GracefulShutdown:
         return self._flag.is_set()
 
     def should_stop(self) -> bool:
-        """True once the flag is seen at a sync call; stays True. Only
-        every ``sync_every``-th call reads the flag (the JAX package's
-        collective cadence); the others return the last decision."""
+        """True once any rank's flag is seen at a sync call; stays True.
+        Only every ``sync_every``-th call reads the flags (a collective
+        under a process group: every rank must call this the same number
+        of times, once a step); the others return the last decision."""
         if self._stop_latched:
             return True
         self._calls += 1
@@ -75,14 +76,17 @@ class GracefulShutdown:
             return False
         import torch.distributed as dist
 
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "GracefulShutdown across processes (the gang's any(flag) "
-                "collective) is not ported to tpufw_torch yet (ROADMAP.md "
-                "Queue 1 item 12)"
-            )
-        self._stop_latched = self._flag.is_set()
+        if not (dist.is_available() and dist.is_initialized()):
+            self._stop_latched = self._flag.is_set()
+            return self._stop_latched
+        import torch
+
+        from tpufw_torch.train.sharding import gang_device
+
+        flag = torch.tensor([int(self._flag.is_set())], dtype=torch.int32,
+                            device=gang_device())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        self._stop_latched = bool(flag.item())
         return self._stop_latched
 
     def uninstall(self) -> None:

@@ -1,0 +1,198 @@
+"""Data and FSDP parallelism of the trainers over a ``DeviceMesh``: what
+``tpufw``'s ``state_shardings`` and ``globalize_batch`` do with GSPMD
+(``tpufw/train/trainer.py``), done with ``fully_shard``.
+
+``shard_model`` wraps each block of the layer stack, then the root, in
+``torch.distributed.fsdp.fully_shard`` over the mesh's (``data``,
+``fsdp``) dimensions: parameters, gradients and optimizer moments are
+sharded over ``fsdp`` (dim 0 of each tensor) and replicated over
+``data``. Each rank holds ``1 / world`` of the global batch.
+
+The loss is the global token-weighted mean that ``tpufw``'s jitted step
+computes over the global batch: every objective backpropagates through
+``backward_global_mean``, which weighs a rank's local mean by its share
+of the gang's targets and scales it by the world size, which FSDP's
+averaging reduction divides back out, so the gradients are those of the
+global mean whatever the ranks' target counts (SFT's assistant masks,
+packed segments, DPO pairs). Without a process group it is a plain
+``backward``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def active() -> bool:
+    """True when a ``torch.distributed`` process group is initialized."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if active() else 1
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a DTensor (a collective: every rank calls it),
+    or ``t`` itself."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (its storage), or ``t`` itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def full_state_dict(state: dict) -> dict:
+    """``state`` with every DTensor gathered whole (on its device)."""
+    return {k: full_tensor(v) for k, v in state.items()}
+
+
+def local_chunk(full: torch.Tensor, ref) -> torch.Tensor:
+    """This rank's part of ``full`` as ``ref`` (a DTensor) lays its
+    tensor out: ``torch.chunk`` along each sharded dim, FSDP's rule (a
+    rank past the last chunk holds an empty one)."""
+    from torch.distributed.tensor import Shard
+
+    mesh, local = ref.device_mesh, full
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(ref.placements):
+        if isinstance(p, Shard):
+            chunks = torch.chunk(local, mesh.size(i), dim=p.dim)
+            local = (chunks[coord[i]] if coord[i] < len(chunks)
+                     else local.narrow(p.dim, 0, 0))
+    return local
+
+
+def shard_like(full: torch.Tensor, ref) -> torch.Tensor:
+    """A DTensor laid out as ``ref`` holding ``full``'s values (``full``
+    on any device, the same on every rank): only this rank's chunk is
+    copied to ``ref``'s device."""
+    from torch.distributed.tensor import DTensor
+
+    local = local_chunk(full, ref).to(ref.device, ref.dtype).contiguous()
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=full.shape,
+                              stride=full.contiguous().stride())
+
+
+def load_into(dst: torch.Tensor, full: torch.Tensor) -> None:
+    """Copy ``full``'s values into ``dst`` (a DTensor: its shard)."""
+    if is_dtensor(dst):
+        dst.to_local().copy_(local_chunk(full, dst))
+    else:
+        dst.copy_(full)
+
+
+def shard_model(model, mesh) -> None:
+    """``fully_shard`` each block of ``model.layers``, then the root, over
+    ``mesh``. A block's ``attend`` and ``merge`` (called apart by the
+    ``attn_out`` remat policy) gather and free its parameters as its
+    forward does. The root keeps its parameters gathered from its forward
+    to its backward (FSDP's rule for the root), so ``head_kernel()`` read
+    after the forward is the whole head. A MoE layer routes the global
+    batch as one group, as ``tpufw`` does (``MoEMLP.route_group``)."""
+    import torch.distributed as dist
+    from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+
+    for m in model.modules():
+        if hasattr(type(m), "route_group"):
+            m.route_group = dist.group.WORLD
+    for block in model.layers:
+        fully_shard(block, mesh=mesh)
+        for name in ("attend", "merge"):
+            if hasattr(block, name):
+                register_fsdp_forward_method(block, name)
+    fully_shard(model, mesh=mesh)
+
+
+def gang_device():
+    """The device of this rank's collectives: its GPU under NCCL, else
+    the CPU (gloo)."""
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def gang_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over every rank (a fresh tensor); ``x`` itself,
+    detached, without a process group."""
+    import torch.distributed as dist
+
+    out = x.detach()
+    if active():
+        out = out.clone()
+        dist.all_reduce(out)
+    return out
+
+
+def gang_count(n_local) -> torch.Tensor:
+    """The gang's number of targets, at least 1 (fp32): what its
+    token-weighted mean divides by."""
+    return torch.clamp(gang_sum(torch.as_tensor(n_local).float()), min=1.0)
+
+
+def global_mean(x: torch.Tensor, n_local) -> torch.Tensor:
+    """The gang's token-weighted mean of the ranks' means ``x`` (any
+    shape), each over its ``n_local`` targets; ``x`` itself, detached,
+    without a process group."""
+    if not active():
+        return x.detach()
+    n = torch.as_tensor(n_local).detach().float()
+    return gang_sum(x.detach() * (n / gang_count(n)))
+
+
+def backward_global_mean(loss: torch.Tensor, n_local,
+                         n_global=None) -> torch.Tensor:
+    """Backpropagate this rank's part of the gang's token-weighted mean
+    and return that part summed over the gang (detached).
+
+    ``loss`` is this rank's mean over its ``n_local`` targets. The gang's
+    mean divides the ranks' sum of ``n_local * loss`` by ``n_global``
+    (default ``gang_count(n_local)``; a step that accumulates microbatches
+    passes its whole count, so that the parts add up to the step's mean).
+    The rank backpropagates ``loss * n_local / n_global`` scaled by the
+    world size, which FSDP's averaging reduction divides back out, so the
+    gradients are those of the global mean whatever the ranks' target
+    counts. Without a process group and ``n_global`` this is
+    ``loss.backward()``; at world size 1 the weight is exactly 1, so a
+    world-1 gang's numbers are the unsharded ones."""
+    if n_global is None and not active():
+        loss.backward()
+        return loss.detach()
+    n = torch.as_tensor(n_local).detach().float()
+    w = n / (gang_count(n) if n_global is None else n_global)
+    (loss * (w * world_size())).backward()
+    return gang_sum(loss.detach() * w)
+
+
+def gang_agree(value: int, what: str) -> int:
+    """``value`` when every rank holds the same one (a collective under a
+    process group); raises ValueError, on every rank, when they differ:
+    the ranks would otherwise leave one another in different states, or
+    wait in a collective some never enter."""
+    if not active():
+        return value
+    import torch.distributed as dist
+
+    t = torch.tensor([value, -value], dtype=torch.int64,
+                     device=gang_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    hi, lo = int(t[0]), -int(t[1])
+    if hi != lo:
+        raise ValueError(
+            f"the gang's ranks disagree on {what}: from {lo} to {hi} (does "
+            "every rank see the same checkpoint directory?)")
+    return value

@@ -18,6 +18,16 @@ stops on SIGTERM with a forced save (``train.preemption``);
 ``maybe_restore`` resumes from the latest checkpoint, ``init_from_params``
 starts from bare params.
 
+Data and FSDP parallelism: when a ``torch.distributed`` process group is
+initialized, ``Trainer`` builds the model whole on its rank's device (from
+the seed, from params or from a checkpoint: every rank holds the same
+full tensors, the seed and the files being the same on every rank), then
+shards it over the mesh of ``mesh_cfg`` (``train.sharding.shard_model``);
+the optimizer's moments are made, or restored, sharded. Each rank feeds
+its ``batch_size / world`` rows; the loss, ``grad_norm`` and the held-out
+evaluation are the global batch's, as ``tpufw``'s jitted step computes
+them. Without a process group nothing of this runs.
+
 LoRA: a model with ``lora_rank`` > 0 is built with its base frozen
 (``requires_grad=False``), and ``LlamaAdamW`` takes the parameters that
 need gradients, so the global-norm clip and AdamW see the adapters alone
@@ -35,10 +45,12 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from tpufw_torch.mesh import MeshConfig, build_mesh, mesh_shape
 from tpufw_torch.models import model_for_config
 from tpufw_torch.models.llama import Llama, LlamaConfig
 from tpufw_torch.models.lora import init_adapters, is_lora_name
 from tpufw_torch.ops.loss import chunked_cross_entropy, token_cross_entropy
+from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import (
     CheckpointManager,
     check_identity,
@@ -56,8 +68,10 @@ def frozen_copy(model, dtype: torch.dtype):
     storage in ``dtype`` (integer ones fresh copies too), with
     ``requires_grad`` off and in eval mode: the frozen side model of
     post-training (the DPO or GRPO reference, the distillation teacher),
-    never aliasing the policy that the optimizer updates in place."""
-    return frozen_model(model.cfg, model.state_dict(), dtype)
+    never aliasing the policy that the optimizer updates in place. A
+    sharded model is gathered whole first (a collective)."""
+    return frozen_model(model.cfg, sharding.full_state_dict(model.state_dict()),
+                        dtype)
 
 
 def frozen_model(cfg, state_dict: dict, dtype: torch.dtype):
@@ -122,6 +136,16 @@ def shift_and_mask(batch: dict):
         seg_mask = same_seg * nonpad
         mask = seg_mask if mask is None else mask * seg_mask
     return inputs, targets, seg_in, mask
+
+
+def target_count(batch: dict) -> torch.Tensor:
+    """The number of trained target positions of ``batch`` (fp32, not
+    clamped), without its forward: what an accumulating step counts
+    before its first microbatch."""
+    _, targets, _, mask = shift_and_mask(batch)
+    if mask is None:
+        return torch.tensor(float(targets.numel()), device=targets.device)
+    return mask.sum()
 
 
 def batch_loss(
@@ -235,11 +259,13 @@ class LlamaAdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        # optax: where(norm < max, g, g / norm * max).
-        torch._foreach_mul_(grads, torch.where(
-            g_norm < self.grad_clip, 1.0, self.grad_clip / g_norm
-        ))
+        # Over sharded gradients (DTensors) the norm is the global one.
+        g_norm = sharding.full_tensor(torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads))))
+        # optax: where(norm < max, g, g / norm * max), on each shard.
+        torch._foreach_mul_([sharding.local_tensor(g) for g in grads],
+                            torch.where(g_norm < self.grad_clip, 1.0,
+                                        self.grad_clip / g_norm))
         lr = self.schedule(self.count)
         self.count += 1
         if self.adamw is None:
@@ -260,19 +286,27 @@ class LlamaAdamW:
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         """Inverse of ``state_dict``; the form (fused or ``mu_dtype``)
-        and every moment's dtype must match this optimizer's."""
+        and every moment's dtype must match this optimizer's. Moments
+        saved whole (a checkpoint's, any world size) are sharded as their
+        parameters are."""
         if (self.adamw is None) != ("adamw" not in state):
             raise ValueError(
                 "optimizer state of the other form: fused AdamW vs "
                 "adam_mu_dtype moments")
         if self.adamw is not None:
-            self.adamw.load_state_dict(state["adamw"])
+            saved = state["adamw"]
+            if any(sharding.is_dtensor(p) for p in self.params):
+                saved = dict(saved, state={
+                    i: {k: (sharding.shard_like(v, self.params[i])
+                            if k != "step" else v) for k, v in st.items()}
+                    for i, st in saved["state"].items()})
+            self.adamw.load_state_dict(saved)
         else:
             for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"])):
                 if [t.dtype for t in mine] != [t.dtype for t in theirs]:
                     raise ValueError("adam_mu_dtype differs from the saved one")
                 for a, b in zip(mine, theirs):
-                    a.copy_(b)
+                    sharding.load_into(a, b)
         self.count = int(state["count"])
 
     def _mu_dtype_step(self, grads, lr: float) -> None:
@@ -285,7 +319,10 @@ class LlamaAdamW:
         bc1 = 1.0 - torch.tensor(b1, **f32) ** count
         bc2 = 1.0 - torch.tensor(b2, **f32) ** count
         b1_mu = torch.tensor(b1, dtype=self.mu[0].dtype, device=f32["device"])
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        # Elementwise: each rank updates its shards.
+        loc = sharding.local_tensor
+        for p, g, mu, nu in zip(map(loc, self.params), map(loc, grads),
+                                map(loc, self.mu), map(loc, self.nu)):
             # optax's ``(1 - b1) * g + b1 * mu``: JAX's weak-typed b1
             # takes mu's dtype, so the decayed moment is a product of two
             # values in mu's dtype; the sum is in the gradients'.
@@ -315,29 +352,33 @@ def train_step(
     """One optimizer update; returns device tensors {loss, grad_norm}.
 
     ``grad_accum`` > 1 splits the batch into that many microbatches of
-    strided rows (row m, m+A, ...) and accumulates token-weighted
-    gradients, ``backward(loss * n)``, before the single update — the
-    one-shot step's numbers up to summation order.
+    strided rows (row m, m+A, ...) and accumulates the gradients of each
+    one's part of the step's token-weighted mean, ``loss * n / N``,
+    before the single update: the one-shot step's numbers up to
+    summation order.
+
+    Under a process group ``model`` is sharded (``sharding.shard_model``)
+    and ``batch`` is this rank's rows of the global batch: the loss and
+    the gradients are the global batch's (``sharding.backward_global_mean``),
+    and a rank's strided microbatch m is its part of the global
+    microbatch m.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     optimizer.zero_grad()
     if grad_accum == 1:
-        loss, _ = batch_loss(model, batch, loss_chunk_size, loss_chunk_dtype)
-        loss.backward()
+        loss, n = batch_loss(model, batch, loss_chunk_size, loss_chunk_dtype)
+        loss = sharding.backward_global_mean(loss, n)
     else:
-        l_sum = n_sum = 0.0
-        for m in range(grad_accum):
-            mb = {k: v[m::grad_accum] for k, v in batch.items()}
-            loss, n = batch_loss(model, mb, loss_chunk_size, loss_chunk_dtype)
-            n = n.detach()
-            (loss * n).backward()
-            l_sum = l_sum + loss.detach() * n
-            n_sum = n_sum + n
-        n_safe = torch.clamp(n_sum, min=1.0)
-        loss = l_sum / n_safe
-        for p in optimizer.params:
-            p.grad.div_(n_safe)
+        mbs = [{k: v[m::grad_accum] for k, v in batch.items()}
+               for m in range(grad_accum)]
+        n_step = sharding.gang_count(
+            sum(target_count(mb) for mb in mbs))
+        loss = 0.0
+        for mb in mbs:
+            mb_loss, n = batch_loss(model, mb, loss_chunk_size,
+                                    loss_chunk_dtype)
+            loss = loss + sharding.backward_global_mean(mb_loss, n, n_step)
     grad_norm = optimizer.step()
     return {"loss": loss.detach(), "grad_norm": grad_norm}
 
@@ -349,9 +390,11 @@ def eval_step(
     loss_chunk_size: Optional[int] = None,
     loss_chunk_dtype: str = "bfloat16",
 ) -> dict:
-    """Forward-only objective on one held-out batch: {loss, n_tokens}."""
+    """Forward-only objective on one held-out batch: {loss, n_tokens};
+    under a process group, the global batch's, of every rank's rows."""
     loss, n = batch_loss(model, batch, loss_chunk_size, loss_chunk_dtype)
-    return {"loss": loss, "n_tokens": n}
+    return {"loss": sharding.global_mean(loss, n),
+            "n_tokens": sharding.gang_sum(n)}
 
 
 def run_evaluation(data, n_batches, eval_batch_fn) -> dict:
@@ -504,18 +547,42 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Builds the model and optimizer on one device and runs the step
-    loop with tokens/s/GPU and MFU metrics."""
+    """Builds the model and optimizer and runs the step loop with
+    tokens/s/GPU and MFU metrics: on one device, or, when a process group
+    is initialized, sharded over the gang's mesh of ``mesh_cfg`` (default
+    ``MeshConfig()``: every rank on ``fsdp``). Without a process group a
+    ``mesh_cfg`` must fit one device."""
+
+    # A trainer whose objective has no sharded form refuses a gang.
+    shardable = True
 
     def __init__(
         self,
         model_cfg: LlamaConfig,
         trainer_cfg: TrainerConfig,
+        mesh_cfg: Optional[MeshConfig] = None,
         device=None,
     ):
+        if mesh_cfg is not None and not isinstance(mesh_cfg, MeshConfig):
+            raise TypeError(
+                f"mesh_cfg must be a MeshConfig, got {mesh_cfg!r} (pass the "
+                "device as device=)")
         self.model_cfg = model_cfg
         self.cfg = trainer_cfg
         self.device = resolve_device(device)
+        self.mesh_cfg = mesh_cfg or MeshConfig()
+        # The DeviceMesh of the gang (None: one device, unsharded).
+        self.mesh = None
+        if sharding.active():
+            if not self.shardable:
+                raise NotImplementedError(
+                    f"{type(self).__name__} under a process group: its "
+                    "objective is not ported to a sharded mesh yet "
+                    "(ROADMAP.md Queue 1 item 12d)")
+            self.mesh = build_mesh(self.mesh_cfg, sharding.world_size(),
+                                   self.device.type)
+        else:
+            mesh_shape(self.mesh_cfg, 1)
         self.model: Optional[Llama] = None
         self.optimizer: Optional[LlamaAdamW] = None
         self.step = 0
@@ -534,8 +601,19 @@ class Trainer:
         )
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        self._shard(self.model)
         self._fresh_optimizer()
         return self.model
+
+    @property
+    def gang(self) -> bool:
+        """True when the model is sharded over a process group's mesh."""
+        return self.mesh is not None
+
+    def _shard(self, model) -> None:
+        """Shard ``model`` (whole on this rank's device) over the mesh."""
+        if self.gang:
+            sharding.shard_model(model, self.mesh)
 
     def _fresh_optimizer(self) -> None:
         self.optimizer = default_optimizer(
@@ -550,9 +628,14 @@ class Trainer:
     def assign_model(self, state_dict: dict) -> None:
         """The model built with no weights of its own (the meta device)
         and then given ``state_dict``'s tensors, already on the device.
-        The optimizer is left alone (``tools.eval_ppl`` needs none)."""
+        The optimizer is left alone (``tools.eval_ppl`` needs none). In
+        a gang the tensors (on any device) go whole to this rank's device,
+        then the model is sharded."""
+        if self.gang:
+            state_dict = {k: v.to(self.device) for k, v in state_dict.items()}
         self.model = model_for_config(self.model_cfg, device="meta")
         self.model.load_state_dict(state_dict, assign=True)
+        self._shard(self.model)
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs: step, model and optimizer
@@ -566,7 +649,8 @@ class Trainer:
 
     def load_state_dict(self, state: dict) -> None:
         """Resume from ``state_dict()``'s output (tensors on this
-        trainer's device); raises ValueError for another model's."""
+        trainer's device; in a gang, whole tensors on any device, as a
+        checkpoint holds them); raises ValueError for another model's."""
         check_identity(state["config"], self.model_cfg, "the checkpoint")
         self.assign_model(state["model"])
         self._fresh_optimizer()
@@ -575,14 +659,21 @@ class Trainer:
 
     def maybe_restore(self) -> bool:
         """Resume from the latest checkpoint under ``cfg.checkpoint_dir``,
-        if there is one (the gang-restart path)."""
+        if there is one (the gang-restart path). A gang's ranks must see
+        the same latest step; ValueError on every rank otherwise."""
         if not self.cfg.checkpoint_dir:
             return False
         mgr = CheckpointManager(self.cfg.checkpoint_dir)
         try:
-            if mgr.latest_step() is None:
+            latest = mgr.latest_step()
+            latest = sharding.gang_agree(-1 if latest is None else latest,
+                                         "the latest checkpoint step")
+            if latest < 0:
                 return False
-            self.load_state_dict(mgr.restore(device=self.device))
+            # A gang keeps the whole state mapped on the host and moves
+            # each rank's shards (the model whole, for its sharding).
+            self.load_state_dict(mgr.restore(latest, device=self.device,
+                                             mapped=self.gang))
             return True
         finally:
             mgr.close()
@@ -620,18 +711,34 @@ class Trainer:
                 f"{[k for k in missing if not is_lora_name(k)]}, "
                 f"unexpected {unexpected}")
         init_adapters(self.model, seed, self.device)
+        self._shard(self.model)
         self._fresh_optimizer()
         return self.model
 
+    def check_grad_accum(self) -> None:
+        """``grad_accum`` must divide the batch; in a gang its microbatches
+        must divide over the ranks (``tpufw``'s rule and wording), which
+        is when each rank's strided microbatch is its part of the global
+        one."""
+        accum, bs = self.cfg.grad_accum, self.cfg.batch_size
+        if accum <= 1:
+            return
+        if self.gang:
+            dp = sharding.world_size()
+            if bs % accum or (bs // accum) % dp:
+                raise ValueError(
+                    f"grad_accum={accum}: batch {bs} must split into "
+                    f"{accum} microbatches whose rows divide over data x "
+                    f"fsdp = {dp}")
+        elif bs % accum:
+            raise ValueError(f"grad_accum={accum} must divide batch {bs}")
+
     def train_step(self, batch: dict) -> dict:
-        accum = self.cfg.grad_accum
-        if accum > 1 and self.cfg.batch_size % accum:
-            raise ValueError(
-                f"grad_accum={accum} must divide batch {self.cfg.batch_size}"
-            )
+        self.check_grad_accum()
         out = train_step(
             self.model, self.optimizer, batch_to_device(batch, self.device),
-            self.cfg.loss_chunk_size, self.cfg.loss_chunk_dtype, accum,
+            self.cfg.loss_chunk_size, self.cfg.loss_chunk_dtype,
+            self.cfg.grad_accum,
         )
         self.step += 1
         return out
@@ -674,6 +781,7 @@ class Trainer:
             tokens_per_step=self.cfg.batch_size * (self.cfg.seq_len - 1),
             flops_per_token=model_flops_per_token,
             chip=detect_chip(self.device),
+            n_gpus=sharding.world_size() if self.gang else 1,
         )
         return run_steps(self, data, meter, on_metrics, shutdown,
                          after_sync=lambda: self._maybe_eval(eval_data,

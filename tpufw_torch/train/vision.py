@@ -134,9 +134,17 @@ def vision_train_step(model, optimizer: VisionSGD, batch: dict) -> dict:
 
 class VisionTrainer:
     """Builds a ``ViT`` or ``ResNet`` and its optimizer on one device and
-    runs the step loop with images/s/GPU and MFU metrics."""
+    runs the step loop with images/s/GPU and MFU metrics. Not under a
+    process group yet (ROADMAP.md item 12d): each rank would train alone."""
 
     def __init__(self, model_cfg, cfg: VisionTrainerConfig, device=None):
+        from tpufw_torch.train.sharding import active
+
+        if active():
+            raise NotImplementedError(
+                "VisionTrainer under a process group: vision training is "
+                "not ported to a sharded mesh yet (ROADMAP.md Queue 1 item "
+                "12d)")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = resolve_device(device)

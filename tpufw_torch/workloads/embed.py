@@ -15,7 +15,8 @@ Knobs (``TPUFW_*``):
   TEMPERATURE    the InfoNCE temperature (0.05)
   BATCH_SIZE (rows, two a pair) / SEQ_LEN / TOTAL_STEPS / LR /
   WARMUP_STEPS / LOG_EVERY / CHECKPOINT_DIR / CHECKPOINT_EVERY / DATA_SEED
-A ``TPUFW_MESH_*`` axis above 1 raises (ROADMAP.md Queue 1 item 12).
+A ``TPUFW_MESH_*`` axis above 1, or a multi-process cluster environment,
+raises (ROADMAP.md Queue 1 item 12d).
 """
 
 from __future__ import annotations

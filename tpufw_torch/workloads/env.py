@@ -75,8 +75,58 @@ _MESH_AXES = ("data", "fsdp", "expert", "sequence", "tensor", "dcn_data")
 
 
 def refuse_mesh() -> None:
-    """Raise for any ``TPUFW_MESH_*`` axis above 1: the port runs on one
-    GPU until its multi-GPU layer (ROADMAP.md Queue 1 item 12)."""
+    """Raise for any ``TPUFW_MESH_*`` axis above 1, and for a
+    multi-process cluster environment: the workloads whose objectives
+    have no sharded form yet (``rl``, ``embed``, the vision ones) run on
+    one GPU (ROADMAP.md Queue 1 item 12d)."""
+    from tpufw_torch.cluster import resolve_cluster_env
+
     for axis in _MESH_AXES:
         if env_int(f"mesh_{axis}", 1) > 1:
-            refuse_unported(f"mesh_{axis}", "a multi-GPU mesh", "12")
+            refuse_unported(f"mesh_{axis}", "a multi-GPU mesh for this "
+                            "workload", "12d")
+    cluster = resolve_cluster_env()
+    if cluster.is_distributed:
+        raise NotImplementedError(
+            f"a {cluster.world_size}-process gang ({cluster.source} "
+            "environment): this workload is not ported to a multi-GPU "
+            "mesh in tpufw_torch yet (ROADMAP.md Queue 1 item 12d)")
+
+
+# Axes whose parallelism a later slice brings: (what, ROADMAP item).
+_LATER_AXES = {"sequence": ("sequence parallelism", "12b"),
+               "tensor": ("tensor parallelism", "12e"),
+               "expert": ("expert parallelism", "12e")}
+
+
+def mesh_from_env(world: int, moe_dispatch: str = "einsum"):
+    """The ``MeshConfig`` of ``TPUFW_MESH_{DATA,FSDP,EXPERT,SEQUENCE,
+    TENSOR,DCN_DATA}`` (``tpufw``'s defaults: every device on ``fsdp``),
+    checked against a ``world``-rank gang. A ``sequence``, ``tensor`` or
+    ``expert`` axis above 1 raises NotImplementedError naming its item;
+    axes that do not fit the world raise ``tpufw``'s ValueError. The
+    sorted MoE dispatch is refused only when the RESOLVED ``expert`` axis
+    is above 1 (``tpufw`` refuses it for -1 even where -1 is one device)."""
+    from tpufw_torch.mesh import MeshConfig, mesh_shape
+
+    for axis, (what, item) in _LATER_AXES.items():
+        if env_int(f"mesh_{axis}", 1) > 1:
+            refuse_unported(f"mesh_{axis}", what, item)
+    cfg = MeshConfig(
+        data=env_int("mesh_data", 1),
+        fsdp=env_int("mesh_fsdp", -1),
+        expert=env_int("mesh_expert", 1),
+        sequence=env_int("mesh_sequence", 1),
+        tensor=env_int("mesh_tensor", 1),
+        dcn_data=env_int("mesh_dcn_data", 1),
+    )
+    expert = cfg.slice_sizes(world)["expert"]
+    if moe_dispatch == "sorted" and expert > 1:
+        raise ValueError(
+            "moe_dispatch='sorted' keeps expert weight stacks whole "
+            f"and cannot shard the expert mesh axis (got expert="
+            f"{expert}); use the default einsum dispatch for "
+            "expert parallelism"
+        )
+    mesh_shape(cfg, world)
+    return cfg

@@ -17,7 +17,8 @@ Knobs (``TPUFW_*``):
   GRPO_MAX_NEW / EOS_ID (-1: none)        the ``GRPOConfig`` knobs
   BATCH_SIZE / SEQ_LEN / TOTAL_STEPS / LR / WARMUP_STEPS /
   LOSS_CHUNK_SIZE / CHECKPOINT_DIR / CHECKPOINT_EVERY   the trainer's
-A ``TPUFW_MESH_*`` axis above 1 raises (ROADMAP.md Queue 1 item 12).
+A ``TPUFW_MESH_*`` axis above 1, or a multi-process cluster environment,
+raises (ROADMAP.md Queue 1 item 12d).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""LM training workload on one GPU: ``python -m tpufw_torch.workloads.train_llama``.
+"""LM training workload: ``python -m tpufw_torch.workloads.train_llama``, on
+one GPU or as a gang of processes, one per GPU.
 
 Knobs (the JAX workload's names where the meaning is the same):
 ``TPUFW_MODEL`` (a ``LLAMA_CONFIGS``, ``MIXTRAL_CONFIGS``, ``GEMMA_CONFIGS``
@@ -50,9 +51,23 @@ bare-params directory of it, else its weights are drawn from
 ``ValueError``. MFU credits DPO's reference forward (4/3 of the 6N count)
 and the teacher's forward (a third of its own count).
 
+A gang: ``tpufw``'s cluster environment (``TPUFW_COORDINATOR``,
+``TPUFW_NUM_PROCESSES``, ``TPUFW_PROCESS_ID``; a JobSet's; the GKE
+worker variables; ``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` of a per-GPU
+launcher, ``cluster.bootstrap``) starts the process group first: NCCL on
+``cuda:<local rank>``, gloo with ``TPUFW_DEVICE=cpu``. The training state
+is sharded over the mesh of ``TPUFW_MESH_DATA`` (replicas),
+``TPUFW_MESH_FSDP`` (shards; -1, the default, fills) and
+``TPUFW_MESH_DCN_DATA``; ``TPUFW_BATCH_SIZE`` is the global batch, and
+each rank loads its ``1 / world`` of it from its shard of the data (the
+corpus, SFT conversations, DPO pairs) or from its own synthetic seeds.
+``TPUFW_MESH_SEQUENCE`` above 1 raises ``NotImplementedError`` naming
+ROADMAP.md Queue 1 item 12b, ``TPUFW_MESH_TENSOR`` and
+``TPUFW_MESH_EXPERT`` item 12e; axes that do not fit the world raise
+``ValueError``.
+
 Not ported yet, and refused with ``NotImplementedError`` when set to
-anything but their defaults: a mesh (``TPUFW_MESH_*`` above 1; ROADMAP.md
-Queue 1 item 12); ``TPUFW_CONFIG``,
+anything but their defaults: ``TPUFW_CONFIG``,
 ``TPUFW_PROFILE_DIR``, ``TPUFW_AUTOTUNE``, ``TPUFW_TELEMETRY_DIR``,
 ``TPUFW_METRICS_PORT`` and ``TPUFW_STRAGGLER_FACTOR`` (item 13).
 """
@@ -68,7 +83,7 @@ from tpufw_torch.workloads.env import (
     env_float,
     env_int,
     env_str,
-    refuse_mesh,
+    mesh_from_env,
     refuse_unported,
 )
 
@@ -101,14 +116,16 @@ def _refuse_unported_knobs() -> None:
         except ValueError:
             pass
         refuse_unported(knob, what, item)
-    refuse_mesh()
 
 
-def build_trainer():
-    """(trainer, model_cfg) from the TPUFW_* environment."""
+def build_trainer(cluster=None):
+    """(trainer, model_cfg) from the TPUFW_* environment, on ``cluster``'s
+    local device (default: the resolved cluster environment) and sharded
+    over the process group's mesh when one is initialized."""
+    from tpufw_torch.cluster import local_device, resolve_cluster_env
     from tpufw_torch.configs import BENCH_CONFIG_NAME, resolve_model_preset
     from tpufw_torch.configs.presets import TRAIN_SLICES
-    from tpufw_torch.train import Trainer, TrainerConfig
+    from tpufw_torch.train import Trainer, TrainerConfig, sharding
 
     _refuse_unported_knobs()
     name = env_str("model", BENCH_CONFIG_NAME)
@@ -117,12 +134,12 @@ def build_trainer():
     if backend:
         model_cfg = dataclasses.replace(model_cfg, attention_backend=backend)
     # TPUFW_MOE_DISPATCH: "einsum" or "sorted" for a MoE config, ignored
-    # by the rest. tpufw refuses "sorted" under an expert-sharded mesh;
-    # a mesh above 1 is refused here altogether (item 12), so there is
-    # nothing of that to check yet.
+    # by the rest; "sorted" is refused under an expert-sharded mesh.
     moe_dispatch = env_str("moe_dispatch", "")
     if moe_dispatch and hasattr(model_cfg, "moe_dispatch"):
         model_cfg = dataclasses.replace(model_cfg, moe_dispatch=moe_dispatch)
+    mesh_cfg = mesh_from_env(sharding.world_size(),
+                             getattr(model_cfg, "moe_dispatch", "einsum"))
     # LoRA: TPUFW_LORA_RANK > 0 adds adapters and freezes the base (with
     # TPUFW_INIT_FROM, the base comes from bare params).
     lora_rank = env_int("lora_rank", getattr(model_cfg, "lora_rank", 0))
@@ -166,7 +183,8 @@ def build_trainer():
         preemption_sync_every=env_int("preemption_sync_every",
                                       base.preemption_sync_every),
     )
-    device = env_str("device", "cuda")
+    device = local_device(cluster or resolve_cluster_env(),
+                          env_str("device", "cuda"))
     # Objective: TPUFW_DPO_DATA (preference pairs) or
     # TPUFW_DISTILL_TEACHER (teacher-student KL), else the LM objective;
     # each replaces the loss, so the two exclude each other.
@@ -180,7 +198,7 @@ def build_trainer():
         from tpufw_torch.train import DPOConfig, DPOTrainer
 
         trainer = DPOTrainer(
-            model_cfg, trainer_cfg, device=device,
+            model_cfg, trainer_cfg, mesh_cfg, device=device,
             dpo=DPOConfig(beta=env_float("dpo_beta", 0.1),
                           label_smoothing=env_float("dpo_label_smoothing",
                                                     0.0)))
@@ -188,12 +206,12 @@ def build_trainer():
         from tpufw_torch.train import DistillConfig, DistillTrainer
 
         trainer = DistillTrainer(
-            model_cfg, trainer_cfg, device=device,
+            model_cfg, trainer_cfg, mesh_cfg, device=device,
             distill=DistillConfig(
                 temperature=env_float("distill_temperature", 2.0),
                 alpha=env_float("distill_alpha", 0.5)))
     else:
-        trainer = Trainer(model_cfg, trainer_cfg, device=device)
+        trainer = Trainer(model_cfg, trainer_cfg, mesh_cfg, device=device)
     return trainer, model_cfg
 
 
@@ -221,6 +239,7 @@ def install_teacher(trainer):
 
 
 def main() -> int:
+    from tpufw_torch.cluster import initialize_cluster
     from tpufw_torch.train import (
         TokenCorpus,
         prefetch_to_device,
@@ -235,9 +254,15 @@ def main() -> int:
         resume_data_seed,
     )
 
-    trainer, model_cfg = build_trainer()
+    cluster = initialize_cluster(device=env_str("device", "cuda"))
+    rank, world = cluster.rank, cluster.world_size
+    trainer, model_cfg = build_trainer(cluster)
+    mesh = (dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))
+            if trainer.gang else {})
     print(
-        f"tpufw_torch train_llama: device={trainer.device} "
+        f"tpufw_torch train_llama: process {cluster.process_id}/"
+        f"{cluster.num_processes} rank {rank}/{world} "
+        f"device={trainer.device} mesh={mesh} "
         f"params={model_cfg.n_params():,}",
         flush=True,
     )
@@ -264,8 +289,8 @@ def main() -> int:
         # The teacher's forward, 2N_t a token: a third of its 6N count.
         flops_per_token += install_teacher(trainer).flops_per_token(
             cfg.seq_len - 1) / 3.0
-    # One process: the local batch is the global one.
-    local_bs = check_global_batch(cfg.batch_size, 1)
+    # cfg.batch_size is GLOBAL; each rank loads its shard of it.
+    local_bs = check_global_batch(cfg.batch_size, world)
     # A resumed run shuffles afresh (the restored step folded into the
     # seed); the eval streams keep the base seed.
     data_seed = resume_data_seed(env_int("data_seed", 0), trainer.step)
@@ -283,7 +308,7 @@ def main() -> int:
             dpo_batches(env_str("dpo_data", ""), local_bs // 2, cfg.seq_len,
                         resolve_encode(env_str("sft_tokenizer", "bytes")),
                         template=env_str("sft_template", "plain"),
-                        seed=data_seed),
+                        seed=data_seed, shard_id=rank, num_shards=world),
             trainer.device,
         )
     elif sft_path:
@@ -294,31 +319,33 @@ def main() -> int:
             sft_batches(sft_path, local_bs, cfg.seq_len,
                         resolve_encode(env_str("sft_tokenizer", "bytes")),
                         template=env_str("sft_template", "plain"),
-                        seed=data_seed),
+                        seed=data_seed, shard_id=rank, num_shards=world),
             trainer.device,
         )
     elif data_prefix:
         data = prefetch_to_device(
             iter(TokenCorpus(data_prefix, local_bs, cfg.seq_len,
-                             shuffle=True, seed=data_seed)),
+                             shuffle=True, seed=data_seed,
+                             shard_id=rank, num_shards=world)),
             trainer.device,
         )
     else:
         # Train seeds are even, the held-out stream's odd: no collision
-        # for any TPUFW_DATA_SEED.
+        # for any TPUFW_DATA_SEED or rank.
         data = synthetic_batches(local_bs, cfg.seq_len, model_cfg.vocab_size,
-                                 seed=data_seed * 2000)
+                                 seed=data_seed * 2000 + 2 * rank)
     eval_data = None
     if cfg.eval_every:
         eval_prefix = env_str("eval_data_prefix", "")
         if eval_prefix:
             def eval_data():
-                return iter(TokenCorpus(eval_prefix, local_bs, cfg.seq_len))
+                return iter(TokenCorpus(eval_prefix, local_bs, cfg.seq_len,
+                                        shard_id=rank, num_shards=world))
         else:
             def eval_data():
                 return synthetic_batches(
                     local_bs, cfg.seq_len, model_cfg.vocab_size,
-                    seed=env_int("data_seed", 0) * 2000 + 1,
+                    seed=env_int("data_seed", 0) * 2000 + 2 * rank + 1,
                 )
 
     history = trainer.run(
@@ -332,6 +359,10 @@ def main() -> int:
         data.close()  # stops the prefetch thread
     report_preemption(trainer)
     print_summary(history)
+    if trainer.gang:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

@@ -8,7 +8,8 @@ Knobs (``TPUFW_*``): ``NORM_DTYPE`` (BatchNorm's output dtype,
 ``TOTAL_STEPS`` (50), ``SEED``, ``DEVICE`` (default ``cuda``), and the
 checkpoint and preemption set: ``CHECKPOINT_DIR`` (resume from its latest
 step at start), ``CHECKPOINT_EVERY`` (100), ``HANDLE_PREEMPTION`` and
-``PREEMPTION_SYNC_EVERY``. Synthetic images from the host; one JSON line
+``PREEMPTION_SYNC_EVERY``. A ``TPUFW_MESH_*`` axis above 1, or a multi-process cluster environment,
+raises (ROADMAP.md Queue 1 item 12d). Synthetic images from the host; one JSON line
 per step, then the ``TRAIN OK`` line.
 """
 
@@ -16,11 +17,13 @@ from __future__ import annotations
 
 import json
 
-from tpufw_torch.workloads.env import env_bool, env_int, env_str
+from tpufw_torch.workloads.env import env_bool, env_int, env_str, refuse_mesh
 
 
 def build_trainer():
-    """(trainer, model_cfg) from the TPUFW_* environment."""
+    """(trainer, model_cfg) from the TPUFW_* environment. A mesh axis
+    above 1 or a cluster gang raises (ROADMAP.md Queue 1 item 12d)."""
+    refuse_mesh()
     import torch
 
     from tpufw_torch.models import ResNetConfig

@@ -7,7 +7,8 @@ Knobs (``TPUFW_*``): ``MODEL`` (``vit_b16``, ``vit_s16`` or ``vit_l16``),
 rate in thousandths, 1), ``SYNC_EVERY`` (4), ``SEED``, ``DEVICE`` (default
 ``cuda``), and the checkpoint and preemption set: ``CHECKPOINT_DIR``
 (resume from its latest step at start), ``CHECKPOINT_EVERY`` (100),
-``HANDLE_PREEMPTION`` and ``PREEMPTION_SYNC_EVERY``. Synthetic images
+``HANDLE_PREEMPTION`` and ``PREEMPTION_SYNC_EVERY``. A ``TPUFW_MESH_*`` axis above 1, or a multi-process cluster environment,
+raises (ROADMAP.md Queue 1 item 12d). Synthetic images
 staged on the device once; one JSON line per metered window, then the
 ``TRAIN OK`` line.
 """
@@ -17,11 +18,13 @@ from __future__ import annotations
 import dataclasses
 import json
 
-from tpufw_torch.workloads.env import env_bool, env_int, env_str
+from tpufw_torch.workloads.env import env_bool, env_int, env_str, refuse_mesh
 
 
 def build_trainer():
-    """(trainer, model_cfg) from the TPUFW_* environment."""
+    """(trainer, model_cfg) from the TPUFW_* environment. A mesh axis
+    above 1 or a cluster gang raises (ROADMAP.md Queue 1 item 12d)."""
+    refuse_mesh()
     from tpufw_torch.models import VIT_CONFIGS
     from tpufw_torch.train import VisionTrainer, VisionTrainerConfig
 
