@@ -27,7 +27,10 @@ Phases, each fatal on failure:
    with V's last 64 columns zero as the model pads it and with V random,
    on the small masks case and on T=S=129 and 64. The head-dim-128
    kernels also at phase 7b's shapes (``llama3_600m_bench``: B=4,
-   T=S=2047, 12/6 heads, causal);
+   T=S=2047, 12/6 heads, causal). At every head dim, the ring's
+   full-chunk mode (``CHUNK_MODE``): t=s=600, non-causal at offsets 600
+   and 1,200, with and without window 900 and segments, O compared on the
+   rows that see a key;
 3. times each kernel, its plain version and the library yardstick
    (``F.scaled_dot_product_attention``, which the port never calls) with
    CUDA events, beside the roofline bound computed from the shapes, and
@@ -84,7 +87,7 @@ Phases, each fatal on failure:
    cached logits against an uncached expanded forward; an
    ``mla_serve_summary`` line per dtype;
 6. serves Llama-3-8B's widths (bf16, drawn from seed 0, at ONLINE_LAYERS
-   = 16 of its 32 layers, a 2048-slot ceiling) online through the HTTP
+   = 8 of its 32 layers, a 2048-slot ceiling) online through the HTTP
    server (``_Server``: slot scheduler, 8 slots, greedy) on a localhost
    port, in three modes: contiguous KV,
    paged KV (page 64) and paged int8 KV. Each gets 16 concurrent SSE
@@ -224,8 +227,9 @@ Phases, each fatal on failure:
     dispatch, as 9a: finite losses, every head-dim-192 kernel launched in
     both runs, the flash vs plain logits on 256 tokens, the step-1 gaps; a
     ``v2lite_train_summary`` per mode. 10b: ``deepseek_v2_lite_serve_slice``
-    (all 27 layers, bf16 weights drawn in bf16, dropless, a 4096-slot
-    ceiling) through phase 5's checks in bf16 and then int8, the absorbed
+    at V2LITE_SERVE_LAYERS = 14 of its 27 layers (bf16 weights drawn in
+    bf16, dropless, a 4096-slot ceiling) through phase 5's checks in bf16
+    and then int8, the absorbed
     latent decode against the expanded forward; a ``v2lite_serve_summary``
     per dtype. Between the two, on the bf16 model: 10c, the server with 8
     slots in contiguous, paged (page 64) and paged int8 latent KV modes,
@@ -328,6 +332,25 @@ Phases, each fatal on failure:
     11a's batches: losses within MESH_TOL of 11a's unwrapped ones, the
     base's checksums unchanged, every adapter moved; a
     ``mesh_lora_train_summary`` (step ms, peak memory).
+15. sequence parallelism (``tpufw_torch.parallel``). 15a: one-process
+    rings (``LocalSequenceGroup``) at full width, bf16, forward and
+    backward, against whole-sequence ``flash_attention`` (the kernels),
+    O, dQ, dK and dV within ROW_TOL of each row's largest value
+    (``SEQ_CASES``): Llama-3-8B attention at 16,384 tokens over 4 shards,
+    causal and with packed segments (a chunk's rows fully masked);
+    Gemma-2-9B at 8,192 over 4, cap 50, global and with window 4096 (3 of
+    4 live steps); ``deepseek_mla_bench`` at B=8 x 4,096 over 2, V
+    zero-padded to 192; Ulysses over 4 at Llama's shapes; and 1,024
+    tokens over 4 with segments, cap and window against the plain
+    reference in fp32. Ring-flash's launches by chunk case (full,
+    diagonal) must be the live chunks' count, n(n+1)/2 forwards for a
+    causal ring of n; each case prints forward and backward ms beside
+    whole-sequence flash's. 15b: ``train_llama.build_trainer`` in a
+    world-1 NCCL group with TPUFW_ATTENTION flash, ring and ulysses,
+    ``llama3_600m_bench`` at full size for MESH_STEPS steps: ring's and
+    ulysses' losses and grad norms within MESH_TOL of flash's (bit-equal
+    expected: a ring of one shard), their launches equal. A
+    ``sequence_summary`` line per sub-phase.
 
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
@@ -337,8 +360,9 @@ mode, ``launches_lora_train``, phase 11a's,
 ``launches_post_train``, phase 13's per sub-phase, GRPO's decode,
 scoring and updates apart, ``launches_mesh``, phase 14's sharded runs,
 and the head-dim-192 ones
-``launches_v2lite_train``, phase 10a's), a ``phase_seconds`` line (each
-phase's wall seconds, phase 10's to 14's parts and the total), the
+``launches_v2lite_train``, phase 10a's; every kernel carries
+``launches_sequence``, phase 15's ring runs), a ``phase_seconds`` line
+(each phase's wall seconds, phase 10's to 15's parts and the total), the
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it prints no result and exits nonzero.
@@ -361,6 +385,18 @@ from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
+# The ring's full-chunk mode, at every head dim: a q shard of 600 against
+# a kv chunk of 600 wholly before it, non-causal at the chunk distance
+# (offset 600 or 1,200), with and without window 900 and segments; the
+# segment lengths over [0, offset + 600) leave some rows seeing no key.
+# name suffix: masks.
+CHUNK_MODE = {
+    f"chunk_offset{off}{'_window900' if win else ''}"
+    f"{'_segments' if seg else ''}": (
+        {"causal": False, "offset": off} | ({"window": win} if win else {})
+        | ({"chunk_segments": (300, off - 100, 400)} if seg else {}))
+    for off in (600, 1200) for win in (None, 900) for seg in (False, True)
+}
 # Tolerances: kernel vs its plain version in fp32 on the same bf16 inputs.
 # O, dQ, dK and dV are held row by row, a row being one query's or one
 # key's head vector: every |got - want| within ROW_TOL of the largest
@@ -420,9 +456,10 @@ ONLINE_PAGE = 64
 ONLINE_SLOTS = 8
 ONLINE_CACHE = 1024
 # Phase 6 serves Llama-3-8B's widths at ONLINE_LAYERS of its 32 layers:
-# its decode is host-bound, a cost per layer, and at 32 layers its nine
-# modes took 221 s of the script's 1200 (H100 80GB HBM3 at 700 W).
-ONLINE_LAYERS = 16
+# its decode is host-bound, a cost per layer; at 32 layers its nine modes
+# took 221 s of the script's 1200, at 16 layers 159-169 s (H100 80GB HBM3
+# at 700 W), and phase 15 needed the room.
+ONLINE_LAYERS = 8
 # The modes this slice added: chunked paged prefill in chunks of
 # ONLINE_CHUNK_PAGES pages (256 tokens), with the head-of-line pair, a
 # HOL_LONG-token prompt with ONLINE_NEW tokens and, HOL_GAP_S later, a
@@ -537,6 +574,8 @@ D256_CASES = {
         {"causal": True, "window": 300, "soft_cap": 50.0}, (250, 300, 150)),
     "d256_t129_s129": (1, 129, 129, 4, 2, 1.0, {"causal": True}, None),
     "d256_t64_s64": (1, 64, 64, 4, 2, 1.0, {"causal": True}, None),
+    **{f"d256_{name}": (2, 600, 600, 4, 2, 1.0, masks, None)
+       for name, masks in CHUNK_MODE.items()},
 }
 # Head dim 192 (DeepSeek MLA, deepseek_mla_bench): the train path's
 # attention shapes (B=8, seq 2048, so T = S = 2047; 16 query and 16 kv
@@ -557,6 +596,8 @@ D192_CASES = {
         {"causal": True, "window": 300, "soft_cap": 50.0}, (250, 300, 150)),
     "d192_t129_s129": (1, 129, 129, 4, 2, 1.0, {"causal": True}, None),
     "d192_t64_s64": (1, 64, 64, 4, 2, 1.0, {"causal": True}, None),
+    **{f"d192_{name}": (2, 600, 600, 4, 2, 1.0, masks, None)
+       for name, masks in CHUNK_MODE.items()},
 }
 # Model families of the train and serve phases: (preset, the prefix of
 # their summary lines).
@@ -569,11 +610,15 @@ FAMILIES = {"llama3_8b": ("llama3_8b", ""),
 # layer 0 dense; MLA with a 576-value latent cache). 10a trains
 # V2LITE_TRAIN_LAYERS of its 27 layers under each dispatch mode, held to
 # phase 9a's MIXTRAL_LOSS_TOL and MIXTRAL_GNORM_TOL (the same one bf16
-# rounding of each MoE output separates the modes). 10c serves at pages of
-# ONLINE_PAGE; 10d migrates pages of V2LITE_PAGE (27 layers x 64 tokens x
-# 1,152 bf16 bytes = 2.0 MB a page). 10e exports V2LITE_HF_LAYERS layers
-# (3.34 GB of bf16) and needs V2LITE_HF_DISK_GB free.
+# rounding of each MoE output separates the modes). 10b-10d serve
+# V2LITE_SERVE_LAYERS of its 27 layers: their decode is host-bound, a cost
+# per layer, and at 27 layers they took 240-284 s of the script's 1200
+# (H100 80GB HBM3 at 700 W). 10c serves at pages of ONLINE_PAGE; 10d
+# migrates pages of V2LITE_PAGE (14 layers x 64 tokens x 1,152 bf16 bytes
+# = 1.0 MB a page). 10e exports V2LITE_HF_LAYERS layers (3.34 GB of bf16)
+# and needs V2LITE_HF_DISK_GB free.
 V2LITE_TRAIN_LAYERS = 3
+V2LITE_SERVE_LAYERS = 14
 V2LITE_PAGE = 64
 V2LITE_HF_LAYERS = 3
 V2LITE_HF_DISK_GB = 8
@@ -765,8 +810,36 @@ def build_report(build_mod, paths) -> dict:
     return report
 
 
+def case_masks(torch, masks, seg_lens, bs, ts, ss) -> dict:
+    """A phase-2 case's kernel masks on the card. ``seg_lens``: segment
+    lengths over the s keys, the queries the last t of them. A ring
+    chunk's case (masks "offset", non-causal) gives its lengths as
+    "chunk_segments", over the global positions [0, offset + t): the keys
+    are the chunk's first s, the queries [offset, offset + t)."""
+    masks = dict(masks)
+    chunk_lens = masks.pop("chunk_segments", None)
+
+    def ids(lens):
+        return torch.cat([torch.full((n,), i + 1, dtype=torch.int32)
+                          for i, n in enumerate(lens)]).to("cuda")[None]
+
+    if seg_lens is not None:
+        kseg = ids(seg_lens).expand(bs, ss).contiguous()
+        masks |= {"qseg": kseg[:, ss - ts:].contiguous(), "kseg": kseg}
+    if chunk_lens is not None:
+        full = ids(chunk_lens).expand(bs, -1)
+        off = masks["offset"]
+        masks |= {"qseg": full[:, off:off + ts].contiguous(),
+                  "kseg": full[:, :ss].contiguous()}
+    return masks
+
+
 def check_kernels(torch, flash, case, q, k, v, do, masks):
-    """Each kernel vs its plain version (fp32) on the same inputs."""
+    """Each kernel vs its plain version (fp32) on the same inputs. A query
+    row that sees no key (a ring chunk's window or segments) has LSE
+    ≈ -1e30 on both sides, and its O, an average over whatever tiles
+    were visited, weighs nothing where it is used (the ring's merge):
+    O is compared on the other rows."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     o_ref, lse_ref = flash.flash_fwd_reference(qf, kf, vf, **masks)
     o, lse = flash.flash_fwd(q, k, v, **masks)
@@ -778,6 +851,15 @@ def check_kernels(torch, flash, case, q, k, v, do, masks):
     )
     dk, dv = flash.flash_dkv(q, k, v, do, lse_ref, delta, **masks)
     torch.cuda.synchronize()
+    b, t, s = q.shape[0], q.shape[1], k.shape[1]
+    seen = flash._mask(t, s, s - t if masks.get("offset") is None
+                       else masks["offset"], masks.get("causal", True),
+                       masks.get("window"), masks.get("qseg"),
+                       masks.get("kseg"), q.device)
+    live = seen.any(-1)[:, 0].expand(b, t)
+    dead_rows = int((~live).sum())
+    if dead_rows:
+        o, o_ref = o[live], o_ref[live]
     errs = {}
     for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref),
                             ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
@@ -787,6 +869,7 @@ def check_kernels(torch, flash, case, q, k, v, do, masks):
     lse_abs = (lse - lse_ref).abs().max().item()
     emit({
         "check": case, "errors": errs, "lse_max_abs": lse_abs,
+        "dead_rows": dead_rows,
         "tol": {"row": ROW_TOL, "row_floor": ROW_FLOOR, "fro": FRO_TOL,
                 "lse_abs": LSE_TOL},
     })
@@ -3506,7 +3589,8 @@ def v2lite_phase(torch, chip, kind, smi, gen) -> dict:
     """Phase 10: DeepSeek-V2-Lite. 10a: the train slice at
     V2LITE_TRAIN_LAYERS layers under both dispatch modes
     (``moe_train_pair``: every head-dim-192 kernel launched in both). 10b:
-    the 27-layer serve slice (``serve_phase``), bf16 then int8, with 10c
+    the serve slice at V2LITE_SERVE_LAYERS layers (``serve_phase``), bf16
+    then int8, with 10c
     (``moe_online``: contiguous, paged and paged int8 latent KV) and 10d
     (``migrate_phase`` at pages of V2LITE_PAGE, bf16 and int8 latent
     pages) on the bf16 model between. 10e: the HF round trip of
@@ -3531,7 +3615,8 @@ def v2lite_phase(torch, chip, kind, smi, gen) -> dict:
             page=V2LITE_PAGE, prefix="v2lite_"))
 
     t0 = time.perf_counter()
-    serve_phase(torch, chip, kind, smi, family=family, after_bf16=after_bf16)
+    serve_phase(torch, chip, kind, smi, family=family, after_bf16=after_bf16,
+                n_layers=V2LITE_SERVE_LAYERS)
     PHASE_SECONDS["10b"] = (time.perf_counter() - t0 - PHASE_SECONDS["10c"]
                             - PHASE_SECONDS["10d"])
     gc.collect()
@@ -4732,6 +4817,278 @@ def mesh_phase(torch, kind, smi, lora_losses) -> dict:
     return out
 
 
+def _ring_inputs(torch, gen, b, t, h, kh, d, scale=1.0, pad_v=0,
+                 seg_lens=None):
+    """bf16 q, k, v (V's last ``pad_v`` columns zero, as MLA pads it) and
+    dO on the card, and the [B, T] segment ids of ``seg_lens`` (or None)."""
+    def randn(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * s).to(
+            torch.bfloat16)
+
+    q, k = randn(b, t, h, d, s=scale), randn(b, t, kh, d, s=scale)
+    v, do = randn(b, t, kh, d), randn(b, t, h, d)
+    if pad_v:
+        v[..., d - pad_v:] = 0
+    seg = None
+    if seg_lens is not None:
+        seg = torch.cat([torch.full((n,), i + 1, dtype=torch.int32)
+                         for i, n in enumerate(seg_lens)])
+        seg = seg.to("cuda")[None].expand(b, t).contiguous()
+    return q, k, v, do, seg
+
+
+def _fwd_bwd(torch, fn, q, k, v, do):
+    """(O, dQ, dK, dV) of ``fn`` on leaf copies of q, k, v and dO."""
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fn(qs, ks, vs)
+    out.backward(do)
+    return out.detach(), qs.grad, ks.grad, vs.grad
+
+
+def _expected_chunks(n, l, window) -> dict:
+    """The ring-flash launches of one forward and backward by chunk case:
+    every live step's full and diagonal chunks (``_n_live_steps``)."""
+    from tpufw_torch.parallel.ring_flash import _n_live_steps
+
+    steps = _n_live_steps(n, l, window)
+    full = sum(1 for s in range(steps) for i in range(n) if 0 < s <= i)
+    diag = n
+    return {"fwd_full": full, "fwd_diag": diag, "bwd_full": full,
+            "bwd_diag": diag}
+
+
+def ring_case(torch, gen, name, impl, n, b, t, h, kh, d, masks, reps,
+              scale=1.0, pad_v=0, seg_lens=None, plain=False):
+    """One 15a case: ``impl`` ("ring" ring-flash or "ulysses") over a
+    one-process ring of ``n`` shards on bf16 inputs, forward and backward,
+    against whole-sequence ``flash_attention`` (the kernels): O, dQ, dK,
+    dV each within ROW_TOL of each row's largest value. With ``plain``,
+    against ``xla_attention`` on fp32 copies instead: O within ROW_TOL a
+    row, every part within FRO_TOL (Frobenius), and each gradient's row
+    error at most ROW_TOL above whole-sequence flash's own against the
+    same reference (flash's Δ comes from its bf16 O, so rows whose dQ
+    cancels to near zero are off for both alike). Launches counted on the
+    checked run; forward and forward+backward ms of both beside. Returns
+    the run's flash launches; raises AssertionError."""
+    from tpufw_torch.ops import flash
+    from tpufw_torch.ops.attention import xla_attention
+    from tpufw_torch.parallel import (
+        LocalSequenceGroup,
+        ring_attention,
+        ulysses_attention,
+    )
+    from tpufw_torch.parallel import ring_flash
+
+    q, k, v, do, seg = _ring_inputs(torch, gen, b, t, h, kh, d, scale, pad_v,
+                                    seg_lens)
+    kw = dict(segment_ids=seg, logits_soft_cap=masks.get("soft_cap"),
+              sliding_window=masks.get("window"))
+    group = LocalSequenceGroup(n)
+    if impl == "ring":
+        def run(q, k, v):
+            return ring_attention(q, k, v, mesh=group, impl="flash", **kw)
+    else:
+        def run(q, k, v):
+            return ulysses_attention(q, k, v, mesh=group, backend="flash",
+                                     **kw)
+
+    def whole(q, k, v):
+        return flash.flash_attention(q, k, v, **kw)
+
+    torch.cuda.synchronize()
+    flash.reset_launch_counts()
+    ring_flash.reset_chunk_launches()
+    got = _fwd_bwd(torch, run, q, k, v, do)
+    torch.cuda.synchronize()
+    launches = {k_: c for k_, c in flash.LAUNCHES.items() if c}
+    chunks = dict(ring_flash.CHUNK_LAUNCHES)
+    parts = ("o", "dq", "dk", "dv")
+    whole_errs = None
+    if plain:
+        ref = _fwd_bwd(torch, lambda *x: xla_attention(*x, **kw), q.float(),
+                       k.float(), v.float(), do.float())
+        reference = "xla_attention, whole sequence, fp32"
+        whole_errs = {part: kernel_errors(torch, x, want) for part, x, want
+                      in zip(parts, _fwd_bwd(torch, whole, q, k, v, do), ref)}
+    else:
+        ref = _fwd_bwd(torch, whole, q, k, v, do)
+        reference = "flash_attention, whole sequence (the kernels)"
+    errs = {}
+    for part, x, want in zip(parts, got, ref):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"15a {name}: {part} has non-finite values")
+        errs[part] = kernel_errors(torch, x, want)
+    want_chunks = (_expected_chunks(n, t // n, masks.get("window"))
+                   if impl == "ring" else
+                   {k_: 0 for k_ in chunks})
+    with torch.no_grad():
+        ms = {"ring_fwd": cuda_ms(torch, lambda: run(q, k, v), reps),
+              "whole_flash_fwd": cuda_ms(torch, lambda: whole(q, k, v), reps)}
+    ms["ring_fwd_bwd"] = cuda_ms(
+        torch, lambda: _fwd_bwd(torch, run, q, k, v, do), reps)
+    ms["whole_flash_fwd_bwd"] = cuda_ms(
+        torch, lambda: _fwd_bwd(torch, whole, q, k, v, do), reps)
+    ms["ring_bwd"] = ms["ring_fwd_bwd"] - ms["ring_fwd"]
+    ms["whole_flash_bwd"] = ms["whole_flash_fwd_bwd"] - ms["whole_flash_fwd"]
+    if plain:
+        bad = [p for p, e in errs.items() if e["fro"] > FRO_TOL or e["row"] > (
+            ROW_TOL if p == "o" else whole_errs[p]["row"] + ROW_TOL)]
+    else:
+        bad = [p for p, e in errs.items() if e["row"] > ROW_TOL]
+    emit({"check": f"sequence_15a_{name}", "impl": impl, "shards": n,
+          "shape": [b, t, h, kh, d], "masks": masks,
+          "segments": list(seg_lens) if seg_lens else None,
+          "v_zero_columns": pad_v, "reference": reference, "errors": errs,
+          "whole_flash_errors": whole_errs,
+          "tol": {"row": ROW_TOL, "row_floor": ROW_FLOOR}
+          | ({"fro": FRO_TOL} if plain else {}),
+          "launches": launches, "launches_by_chunk": chunks,
+          "launches_by_chunk_expected": want_chunks, "ms": ms,
+          "card_state": nvidia_smi(CARD_STATE)})
+    if bad:
+        raise AssertionError(f"15a {name}: {bad} past {ROW_TOL}")
+    if chunks != want_chunks:
+        raise AssertionError(f"15a {name}: chunk launches {chunks}, "
+                             f"expected {want_chunks}")
+    return launches
+
+
+# 15a's cases: name -> (impl, shards, b, t, heads, kv heads, head dim,
+# masks, extra). Llama-3-8B attention at 16,384 tokens; packed segments
+# whose third starts in shard 2, so shard 3's rows of it see no key of
+# chunk 0; Gemma-2-9B at 8,192, global and windowed (3 of 4 live steps);
+# deepseek_mla_bench at B=8 x 4,096 with V zero-padded; Ulysses at
+# Llama's shapes; and the small case of every mask at once, against the
+# plain reference in fp32 (a cap of 5, which unit-scale logits reach).
+# Inputs at unit scale: larger ones make the softmax so peaked that dQ's
+# rows cancel to near zero, and bf16 noise, whole-sequence flash's own
+# against fp32 included, then dominates those rows.
+SEQ_CASES = {
+    "d128_llama3_8b_causal": ("ring", 4, 1, 16384, 32, 8, 128,
+                              {"causal": True}, {}),
+    "d128_llama3_8b_segments": ("ring", 4, 1, 16384, 32, 8, 128,
+                                {"causal": True},
+                                {"seg_lens": (3000, 7000, 6384)}),
+    "d256_gemma2_9b_cap50": ("ring", 4, 1, 8192, 16, 8, 256,
+                             {"causal": True, "soft_cap": GEMMA_ATTN_CAP}, {}),
+    "d256_gemma2_9b_cap50_window4096": (
+        "ring", 4, 1, 8192, 16, 8, 256,
+        {"causal": True, "soft_cap": GEMMA_ATTN_CAP, "window": GEMMA_WINDOW},
+        {}),
+    "d192_mla_padded_v": ("ring", 2, 8, 4096, 16, 16, 192, {"causal": True},
+                          {"pad_v": 64}),
+    "d128_ulysses_llama3_8b": ("ulysses", 4, 1, 16384, 32, 8, 128,
+                               {"causal": True}, {}),
+    "d128_small_segments_cap_window_vs_plain": (
+        "ring", 4, 2, 1024, 4, 2, 128,
+        {"causal": True, "soft_cap": 5.0, "window": 300},
+        {"seg_lens": (200, 500, 324), "plain": True}),
+}
+
+
+def sequence_rings(torch, gen) -> dict:
+    """15a: every SEQ_CASES case. Returns the flash launches summed over
+    the checked ring runs, by kernel."""
+    from tpufw_torch.ops import flash
+
+    total = {name: 0 for name in flash.LAUNCHES}
+    for name, (impl, n, b, t, h, kh, d, masks, extra) in SEQ_CASES.items():
+        for k_, c in ring_case(torch, gen, name, impl, n, b, t, h, kh, d,
+                               masks, 3, **extra).items():
+            total[k_] += c
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"sequence_summary": "15a", "cases": list(SEQ_CASES),
+          "launches": total})
+    return total
+
+
+def sequence_entry(torch, kind, smi) -> dict:
+    """15b: ``train_llama.build_trainer`` (the workload's entry) in a
+    world-1 NCCL group with TPUFW_ATTENTION flash, then ring, then
+    ulysses: ``llama3_600m_bench`` at full size (B=RESUME_BATCH x
+    RESUME_SEQ, remat dots), MESH_STEPS steps from seed 0 on the same
+    batches. ring and ulysses run on a sequence ring of one shard: their
+    losses and grad norms within MESH_TOL of flash's (bit-equal
+    expected), their launches equal to flash's. Returns the launches by
+    backend."""
+    import torch.distributed as dist
+
+    from tpufw_torch.cluster import init_process_group
+    from tpufw_torch.train import synthetic_batches
+    from tpufw_torch.workloads import train_llama
+
+    env = dict(model="llama3_600m_bench", batch_size=RESUME_BATCH,
+               seq_len=RESUME_SEQ, total_steps=MESH_STEPS, warmup_steps=2,
+               loss_chunk_size=512, handle_preemption=0, device="cuda",
+               log_every=1)
+    init_process_group(f"127.0.0.1:{_free_port()}", 1, 0,
+                       torch.device("cuda", 0))
+    runs = {}
+    try:
+        batches = None
+        for backend in ("flash", "ring", "ulysses"):
+            with _Env(attention=backend, **env):
+                trainer, cfg = train_llama.build_trainer()
+            if batches is None:
+                it = synthetic_batches(RESUME_BATCH, RESUME_SEQ,
+                                       cfg.vocab_size, seed=15)
+                batches = [next(it) for _ in range(MESH_STEPS)]
+            mesh = dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))
+            trainer.init_state(seed=0)
+            hist, pairs, launches, peak = _mesh_run(
+                torch, trainer, batches, cfg.flops_per_token(RESUME_SEQ - 1))
+            runs[backend] = {"pairs": pairs, "launches": launches,
+                             "peak_gb": peak, "mesh": mesh,
+                             "step_ms": [1e3 * m.step_time_s for m in hist]}
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    want = runs["flash"]
+    bad = []
+    for backend in ("ring", "ulysses"):
+        got = runs[backend]
+        d_loss = _rel_diff([g[0] for g in got["pairs"]],
+                           [w[0] for w in want["pairs"]])
+        d_norm = _rel_diff([g[1] for g in got["pairs"]],
+                           [w[1] for w in want["pairs"]])
+        got |= {"bit_equal": got["pairs"] == want["pairs"],
+                "max_rel_diff_loss": d_loss, "max_rel_diff_grad_norm": d_norm}
+        if (len(got["pairs"]) != MESH_STEPS
+                or max(d_loss, d_norm) > MESH_TOL
+                or got["launches"] != want["launches"]
+                or not all(got["launches"].values())):
+            bad.append(backend)
+    emit({"sequence_summary": "15b", "model": "llama3_600m_bench",
+          "batch_size": RESUME_BATCH, "seq_len": RESUME_SEQ,
+          "steps": MESH_STEPS, "tol": MESH_TOL,
+          "group": "world-1 NCCL, TPUFW_MESH_SEQUENCE unset (one shard)",
+          "card_state": nvidia_smi(CARD_STATE)}
+         | {b_: {"losses": [p[0] for p in r["pairs"]],
+                 "grad_norms": [p[1] for p in r["pairs"]]}
+            | {k_: v_ for k_, v_ in r.items() if k_ != "pairs"}
+            for b_, r in runs.items()})
+    if bad:
+        raise AssertionError(f"15b: {bad} differ from flash")
+    return {b_: r["launches"] for b_, r in runs.items()}
+
+
+def sequence_phase(torch, kind, smi, gen) -> dict:
+    """Phase 15: sequence parallelism on the card (15a, 15b). Returns
+    {"15a": launches, "15b_ring": ..., "15b_ulysses": ...} by kernel."""
+    emit({"phase15_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "card_state": nvidia_smi(CARD_STATE)})
+    out = {"15a": _timed("15a", lambda: sequence_rings(torch, gen))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry = _timed("15b", lambda: sequence_entry(torch, kind, smi))
+    out |= {f"15b_{b_}": entry[b_] for b_ in ("ring", "ulysses")}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4802,14 +5159,11 @@ def main() -> int:
         "window129": (1, 600, 600, 1.0, {"causal": True, "window": 129}, None),
         "segments_mid_tile": (2, 400, 400, 1.0, {"causal": True},
                               (50, 140, 143, 67)),
+        **{name: (2, 600, 600, 1.0, masks, None)
+           for name, masks in CHUNK_MODE.items()},
     }
     for case, (bs, ts, ss, scale, masks, seg_lens) in small.items():
-        masks = dict(masks)
-        if seg_lens is not None:
-            kseg = torch.cat([torch.full((n,), i + 1, dtype=torch.int32)
-                              for i, n in enumerate(seg_lens)])
-            kseg = kseg.to(dev)[None].expand(bs, ss).contiguous()
-            masks |= {"qseg": kseg[:, ss - ts:].contiguous(), "kseg": kseg}
+        masks = case_masks(torch, masks, seg_lens, bs, ts, ss)
         check_kernels(
             torch, flash, case,
             randn(bs, ts, 4, d, scale=scale), randn(bs, ss, 2, d, scale=scale),
@@ -4820,12 +5174,7 @@ def main() -> int:
     # shapes and at their own tile edges.
     d256_inputs = {}
     for case, (bs, ts, ss, hs, khs, scale, masks, seg_lens) in D256_CASES.items():
-        masks = dict(masks)
-        if seg_lens is not None:
-            kseg = torch.cat([torch.full((n,), i + 1, dtype=torch.int32)
-                              for i, n in enumerate(seg_lens)])
-            kseg = kseg.to(dev)[None].expand(bs, ss).contiguous()
-            masks |= {"qseg": kseg[:, ss - ts:].contiguous(), "kseg": kseg}
+        masks = case_masks(torch, masks, seg_lens, bs, ts, ss)
         qd, dod = randn(bs, ts, hs, 256, scale=scale), randn(bs, ts, hs, 256)
         kd, vd = randn(bs, ss, khs, 256, scale=scale), randn(bs, ss, khs, 256)
         e, lse_d, delta_d = check_kernels(torch, flash, case, qd, kd, vd, dod,
@@ -4846,11 +5195,7 @@ def main() -> int:
     for case, (bs, ts, ss, hs, khs, scale, masks, seg_lens) in D192_CASES.items():
         masks = dict(masks)
         pad_v = masks.pop("pad_v", 0)
-        if seg_lens is not None:
-            kseg = torch.cat([torch.full((n,), i + 1, dtype=torch.int32)
-                              for i, n in enumerate(seg_lens)])
-            kseg = kseg.to(dev)[None].expand(bs, ss).contiguous()
-            masks |= {"qseg": kseg[:, ss - ts:].contiguous(), "kseg": kseg}
+        masks = case_masks(torch, masks, seg_lens, bs, ts, ss)
         qd, dod = randn(bs, ts, hs, 192, scale=scale), randn(bs, ts, hs, 192)
         kd, vd = randn(bs, ss, khs, 192, scale=scale), randn(bs, ss, khs, 192)
         if pad_v:
@@ -5021,6 +5366,15 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    # 15. Sequence parallelism, with phase 14's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        seq_launches = _timed("15", lambda: sequence_phase(
+            torch, kind, smi, gen))
+    except AssertionError as e:
+        return fail(str(e))
+
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -5070,6 +5424,10 @@ def main() -> int:
             # Llama-3-8B LoRA slice.
             kernels[-1]["launches_mesh"] = {
                 part: counts[name] for part, counts in mesh_launches.items()}
+        # Phase 15's runs: 15a's one-process rings and Ulysses, 15b's
+        # ring and ulysses trainers (one shard).
+        kernels[-1]["launches_sequence"] = {
+            part: counts.get(name, 0) for part, counts in seq_launches.items()}
         if name in resume_launches:
             # Phase 7b's run, llama3_600m_bench through Trainer.run, and
             # the kernel at its shapes.

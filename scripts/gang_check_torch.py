@@ -2,7 +2,7 @@
 against one process on the same global batches.
 
     python3 scripts/gang_check_torch.py [--world 4] [--cpu] [--model NAME]
-        [--batch 16] [--seq 2048] [--steps 3] [--tol 1e-3]
+        [--batch 16] [--seq 2049] [--steps 3] [--tol 1e-3]
 
 The parent builds the CUDA kernels, then starts ``--world`` ranks of this
 script on one host, told their rank as a per-GPU launcher tells them
@@ -10,9 +10,12 @@ script on one host, told their rank as a per-GPU launcher tells them
 ``TPUFW_PROCESS_ID=0``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``): NCCL on
 ``cuda:<rank>``, or gloo with ``--cpu``. Each rank trains ``--model``
 (default ``llama3_600m_bench`` at full size) through the sharded
-``Trainer`` on its rows of every global batch, over each mesh: every rank
-on ``fsdp``, then ``data=2`` by ``fsdp=world/2``, once as it is and once
-with ``grad_accum=2``. Then the gang's stop:
+``Trainer`` on the rows of its batch shard of every global batch, over
+each mesh: every rank on ``fsdp``, then ``data=2`` by ``fsdp=world/2``,
+once as it is and once with ``grad_accum=2``, then ``fsdp=world/2`` by
+``sequence=2`` with ring attention (ring-flash on the GPUs; each rank
+trains half of every row's ``--seq`` − 1 positions, so 2 must divide
+them). Then the gang's stop:
 the last rank alone request()s a stop after step 1, every rank leaves at
 step 1 and rank 0 writes the forced checkpoint. After the gang, the
 parent trains the same steps in one process on the global batches
@@ -104,21 +107,29 @@ def rank_main(args) -> int:
     rank, world = cluster.rank, cluster.world_size
     dev = local_device(cluster, "cpu" if args.cpu else None)
     cfg, tcfg, batches = _setup(args)
-    rows = args.batch // world
-    local = [{k: v[rank * rows:(rank + 1) * rows] for k, v in b.items()}
-             for b in batches]
-    # name: (mesh, grad_accum).
-    meshes = {f"fsdp{world}": (MeshConfig(data=1, fsdp=world), 1)}
+
+    def local(trainer):
+        shard, n_shards = trainer.batch_shard()
+        rows = args.batch // n_shards
+        return [{k: v[shard * rows:(shard + 1) * rows] for k, v in b.items()}
+                for b in batches]
+
+    # name: (mesh, grad_accum, attention backend or None).
+    meshes = {f"fsdp{world}": (MeshConfig(data=1, fsdp=world), 1, None)}
     if world > 2 and world % 2 == 0:
         hsdp = MeshConfig(data=2, fsdp=world // 2)
-        meshes[f"data2_fsdp{world // 2}"] = (hsdp, 1)
-        meshes[f"data2_fsdp{world // 2}_accum2"] = (hsdp, 2)
+        meshes[f"data2_fsdp{world // 2}"] = (hsdp, 1, None)
+        meshes[f"data2_fsdp{world // 2}_accum2"] = (hsdp, 2, None)
+        meshes[f"fsdp{world // 2}_sequence2_ring"] = (
+            MeshConfig(data=1, fsdp=world // 2, sequence=2), 1, "ring")
     out = {"rank": rank, "world": world, "device": str(dev), "runs": {}}
-    for name, (mesh, accum) in meshes.items():
-        trainer = Trainer(cfg, dataclasses.replace(tcfg, grad_accum=accum),
+    for name, (mesh, accum, backend) in meshes.items():
+        run_cfg = cfg if backend is None else dataclasses.replace(
+            cfg, attention_backend=backend)
+        trainer = Trainer(run_cfg, dataclasses.replace(tcfg, grad_accum=accum),
                           mesh, device=dev)
         trainer.init_state(seed=0)
-        pairs, step_ms, peak = _run(trainer, local)
+        pairs, step_ms, peak = _run(trainer, local(trainer))
         out["runs"][name] = {"losses": [p[0] for p in pairs],
                              "grad_norms": [p[1] for p in pairs],
                              "step_ms": step_ms, "peak_gb": peak,
@@ -137,7 +148,7 @@ def rank_main(args) -> int:
         if rank == world - 1:
             sd.request()
 
-    _run(stopped, local, on_metrics=ask, shutdown=sd)
+    _run(stopped, local(stopped), on_metrics=ask, shutdown=sd)
     out["stop"] = {"preempted": stopped.preempted, "step": stopped.step}
     dist.destroy_process_group()
     with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
@@ -256,7 +267,7 @@ def main() -> int:
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--model", default="llama3_600m_bench")
     ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--seq", type=int, default=2049)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--tol", type=float, default=1e-3)
     ap.add_argument("--timeout", type=float, default=600.0)
@@ -268,6 +279,9 @@ def main() -> int:
     if args.batch % args.world:
         ap.error(f"--batch {args.batch} must divide over --world "
                  f"{args.world}")
+    if args.world > 2 and (args.seq - 1) % 2:
+        ap.error(f"--seq {args.seq}: the sequence=2 run needs an even "
+                 f"number of trained positions, --seq - 1")
     return rank_main(args) if args.rank_of_gang else parent_main(args)
 
 

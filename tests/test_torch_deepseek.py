@@ -372,15 +372,37 @@ def test_workloads_build_deepseek_for_deepseek_presets(clear_tpufw_env):
         train_llama.build_trainer()
 
 
-@pytest.mark.parametrize("overrides, match", [
-    (dict(attention_backend="ring"), "item 12"),
-    (dict(attention_backend="ulysses"), "item 12"),
-])
-def test_unported_configs_refused(overrides, match):
-    cfg = dataclasses.replace(DEEPSEEK_CONFIGS["deepseek_tiny"], **overrides)
-    with pytest.raises(NotImplementedError, match=match) as err:
+@pytest.mark.parametrize("backend", ["ring", "ulysses"])
+def test_sp_backends_match_xla_on_a_sequence_ring(backend):
+    """MLA sequence parallelism over a ring of 2 shards in one process
+    (``LocalSequenceGroup``, the counterpart of ``tpufw``'s sequence=2
+    mesh): ring (the einsum ring on the CPU) and Ulysses (exchanging the
+    padded V like flash) match the port's whole-sequence xla backend and
+    JAX's xla Deepseek, as ``tests/test_deepseek.py`` holds JAX's."""
+    from tpufw_torch.parallel import LocalSequenceGroup, use_mesh
+
+    jcfg, tcfg = _pair()
+    params = _flax_params()
+    tokens = _tokens(9, (4, 32))
+    plain = _port(tcfg, params)
+    sp = _port(dataclasses.replace(tcfg, attention_backend=backend), params)
+    with torch.no_grad():
+        ref = plain(torch.from_numpy(tokens))
+        with use_mesh(LocalSequenceGroup(2)):
+            got = sp(torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **TOL)
+    want = jax.jit(JDeepseek(jcfg).apply)({"params": params},
+                                          jnp.asarray(tokens, jnp.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_unknown_backend_refused():
+    """xla/flash/ring/ulysses are the MLA backends; anything else fails
+    loudly, as in ``tpufw``."""
+    cfg = dataclasses.replace(DEEPSEEK_CONFIGS["deepseek_tiny"],
+                              attention_backend="splash")
+    with pytest.raises(NotImplementedError, match="splash"):
         Deepseek(cfg, device="cpu")
-    assert "ROADMAP.md" in str(err.value)
 
 
 def test_kv_page_belongs_to_the_cache():

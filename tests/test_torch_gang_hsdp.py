@@ -1,7 +1,8 @@
 """A 4-rank gloo gang on the CPU through ``scripts/gang_check_torch.py
 --cpu``: every rank on ``fsdp`` (4), then a true 2-D mesh, ``data=2`` by
-``fsdp=2`` (HSDP: sharded over one dimension, replicated over the other), and
-that mesh again with ``grad_accum=2``, each held (losses and grad norms)
+``fsdp=2`` (HSDP: sharded over one dimension, replicated over the other),
+that mesh again with ``grad_accum=2``, and ``fsdp=2`` by ``sequence=2`` on
+ring attention (each rank half of every row), each held (losses and grad norms)
 to one process at its ``grad_accum`` on the same global batches within 1e-5
 (llama3_tiny, fp32), and the gang's stop (only the last rank asks) resumed
 in one process. The script's processes import no JAX."""
@@ -30,11 +31,14 @@ def test_four_rank_gang_matches_one_process():
     assert set(checks) == {"gang_fsdp4_vs_one_process",
                            "gang_data2_fsdp2_vs_one_process",
                            "gang_data2_fsdp2_accum2_vs_one_process",
+                           "gang_fsdp2_sequence2_ring_vs_one_process",
                            "gang_stop_and_one_process_resume"}
     assert all(c["ok"] for c in checks.values())
     for name in ("data2_fsdp2", "data2_fsdp2_accum2"):
         assert checks[f"gang_{name}_vs_one_process"]["mesh"] == {
-            "data": 2, "fsdp": 2}
+            "data": 2, "fsdp": 2, "sequence": 1}
     assert checks["gang_data2_fsdp2_accum2_vs_one_process"]["grad_accum"] == 2
+    assert checks["gang_fsdp2_sequence2_ring_vs_one_process"]["mesh"] == {
+        "data": 1, "fsdp": 2, "sequence": 2}
     assert checks["gang_fsdp4_vs_one_process"]["ranks_equal"]
     assert lines[-1]["ok"] and lines[-1]["world"] == 4

@@ -105,8 +105,8 @@ def test_workload_gang_losses_match_tpufw(workload_runs, mesh):
     ranks = [_losses(out) for out, _ in outs[mesh]]
     assert len(ranks[0]) == STEPS and ranks[0] == ranks[1]
     np.testing.assert_allclose(ranks[0], want, rtol=1e-4)
-    shape = {"fsdp2": "{'data': 1, 'fsdp': 2}",
-             "data2": "{'data': 2, 'fsdp': 1}"}[mesh]
+    shape = {"fsdp2": "{'data': 1, 'fsdp': 2, 'sequence': 1}",
+             "data2": "{'data': 2, 'fsdp': 1, 'sequence': 1}"}[mesh]
     for rank, (out, _) in enumerate(outs[mesh]):
         assert f"process {rank}/2 rank {rank}/2" in out
         assert f"mesh={shape}" in out

@@ -2,8 +2,9 @@
 cases) on its 8 virtual devices: the same axis sizes, the same errors
 word for word, and ``rank_grid`` laying ranks out as ``build_mesh`` lays
 out device ids, with and without ``dcn_data``. Then what the port builds
-of it: the (``data``, ``fsdp``) ``DeviceMesh`` of a gloo group, and the
-refusal of the axes a later slice brings."""
+of it: the (``data``, ``fsdp``, ``sequence``) ``DeviceMesh`` of a gloo
+group, the refusal of the axes a later slice brings, and the global
+token order a MoE layer routes a sequence-split gang's tokens in."""
 
 import numpy as np
 import pytest
@@ -92,16 +93,17 @@ def test_dcn_indivisible_raises(devices8):
 
 
 @pytest.mark.parametrize("kw,world,shape", [
-    ({}, 4, {"data": 1, "fsdp": 4}),
-    ({"data": 2}, 4, {"data": 2, "fsdp": 2}),
-    ({"dcn_data": 2, "data": 2, "fsdp": 1}, 4, {"data": 4, "fsdp": 1}),
+    ({}, 4, {"data": 1, "fsdp": 4, "sequence": 1}),
+    ({"data": 2}, 4, {"data": 2, "fsdp": 2, "sequence": 1}),
+    ({"dcn_data": 2, "data": 2, "fsdp": 1}, 4,
+     {"data": 4, "fsdp": 1, "sequence": 1}),
+    ({"fsdp": 2, "sequence": 2}, 4, {"data": 1, "fsdp": 2, "sequence": 2}),
 ])
 def test_mesh_shape_is_data_by_fsdp(kw, world, shape):
     assert mesh_shape(MeshConfig(**kw), world) == shape
 
 
-@pytest.mark.parametrize("axis,item", [("sequence", "12b"),
-                                       ("tensor", "12e"),
+@pytest.mark.parametrize("axis,item", [("tensor", "12e"),
                                        ("expert", "12e"),
                                        ("pipe", "12c")])
 def test_later_axes_refused(axis, item):
@@ -109,7 +111,7 @@ def test_later_axes_refused(axis, item):
         mesh_shape(MeshConfig(**{axis: 2, "fsdp": 2}), 4)
     # A fill that resolves to one device is no such axis.
     assert mesh_shape(MeshConfig(**{axis: -1, "fsdp": 4}), 4) == {
-        "data": 1, "fsdp": 4}
+        "data": 1, "fsdp": 4, "sequence": 1}
 
 
 def test_build_mesh_on_a_gloo_group():
@@ -120,8 +122,64 @@ def test_build_mesh_on_a_gloo_group():
     init_process_group(f"127.0.0.1:{free_port()}", 1, 0, "cpu")
     try:
         mesh = build_mesh(MeshConfig(), 1, "cpu")
-        assert mesh.mesh_dim_names == ("data", "fsdp")
-        assert tuple(mesh.shape) == (1, 1)
+        assert mesh.mesh_dim_names == ("data", "fsdp", "sequence")
+        assert tuple(mesh.shape) == (1, 1, 1)
         assert mesh.device_type == "cpu"
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kw", [{"data": 2, "fsdp": 2, "sequence": 2},
+                                {"data": 2, "fsdp": 1, "sequence": 4},
+                                {"dcn_data": 2, "fsdp": 2, "sequence": 2}])
+def test_routing_order_is_the_global_row_major_order(kw):
+    """Each rank of a (data, fsdp, sequence) grid holds the rows of its
+    batch shard (its data, fsdp coordinate) and the positions of its
+    sequence index; ``routing_order`` puts their concatenation in rank
+    order back in the global batch's row-major [B, T] order, and this
+    rank's tokens are where ``gather_routing`` says."""
+    import torch
+
+    from tpufw_torch.ops.moe import routing_order
+
+    world, rows, length = 8, 3, 5
+    cfg = MeshConfig(**kw)
+    grid = rank_grid(cfg, world)
+    sizes = dict(zip(MESH_AXES, grid.shape))
+    n_shards = sizes["data"] * sizes["fsdp"]
+    seq = sizes["sequence"]
+    tokens = torch.arange(n_shards * rows * seq * length).reshape(
+        n_shards * rows, seq * length)
+    parts = [None] * world
+    for coord in np.ndindex(*grid.shape):
+        c = dict(zip(MESH_AXES, coord))
+        shard = c["data"] * sizes["fsdp"] + c["fsdp"]
+        s = c["sequence"]
+        parts[grid[coord]] = tokens[shard * rows:(shard + 1) * rows,
+                                    s * length:(s + 1) * length].reshape(-1)
+    gathered = torch.cat(parts)
+    order = routing_order(world, seq, rows, length)
+    assert torch.equal(gathered[order], tokens.reshape(-1))
+
+
+def test_sequence_split_of_a_row():
+    """Under a ring of 2 ranks, rank 1 trains the second half of every
+    shifted row at its global positions; a length the ring does not
+    divide raises, naming both numbers."""
+    import torch
+
+    from tpufw_torch.parallel import ProcessSequenceGroup, use_mesh
+    from tpufw_torch.train.trainer import sequence_positions, shift_and_mask
+
+    tokens = torch.arange(2 * 65).reshape(2, 65)
+    seg = torch.ones(2, 65, dtype=torch.int32)
+    with use_mesh(ProcessSequenceGroup(None, 2, 1)):
+        inputs, targets, seg_in, mask = shift_and_mask(
+            {"tokens": tokens, "segment_ids": seg})
+        positions = sequence_positions(inputs)
+        with pytest.raises(ValueError, match="size 2 must divide the 63 "):
+            shift_and_mask({"tokens": tokens[:, :64]})
+    assert torch.equal(inputs, tokens[:, 32:64])
+    assert torch.equal(targets, tokens[:, 33:65])
+    assert seg_in.shape == mask.shape == (2, 32)
+    assert torch.equal(positions, torch.arange(32, 64).expand(2, 32))

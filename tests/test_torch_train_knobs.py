@@ -475,7 +475,6 @@ REFUSED_TRAIN_KNOBS = {
     "METRICS_PORT": ("0", "13"),
     "STRAGGLER_FACTOR": ("3.0", "13"),
     "MESH_EXPERT": ("2", "12e"),
-    "MESH_SEQUENCE": ("2", "12b"),
     "MESH_TENSOR": ("2", "12e"),
 }
 
@@ -502,6 +501,7 @@ MESH_MISMATCH = {
     "fsdp4": {"MESH_FSDP": "4"},
     "data2_fill": {"MESH_DATA": "2"},
     "dcn2": {"MESH_DCN_DATA": "2"},
+    "sequence2": {"MESH_SEQUENCE": "2"},
 }
 
 

@@ -9,11 +9,14 @@ The rank comes from ``TPUFW_COORDINATOR`` / ``TPUFW_NUM_PROCESSES`` /
 {"name", "model_cfg", "trainer": TrainerConfig kwargs, "mesh": MeshConfig
 kwargs, "state": the initial state dict, "batches": the GLOBAL batches (numpy
 dicts)}; optionally "kind" ("lm", "dpo" with "dpo" DPOConfig kwargs,
-"distill" with "teacher_cfg" and "teacher_state", or "disagree": each rank
-on its own checkpoint directory of "dirs", ``run_disagree``) and "signal_rank"/
+"distill" with "teacher_cfg" and "teacher_state", "disagree": each rank
+on its own checkpoint directory of "dirs", ``run_disagree``, or
+"attention": the sequence-parallel attention calls of "calls" on the
+whole-sequence "inputs", ``run_attention``) and "signal_rank"/
 "signal_at" (that rank sends itself SIGTERM after that step: the gang's
-stop test). The rank trains on its rows of each global batch through
-``Trainer.run`` and writes
+stop test). The rank trains on the rows of its batch shard of each
+global batch through ``Trainer.run`` (under a ``sequence`` axis the
+trainer takes the rank's chunk of the positions) and writes
 ``<case>.out<rank>.pt``: per-step losses and grad norms, whether it was
 preempted and at which step, and on rank 0 the gathered parameters.
 
@@ -57,6 +60,35 @@ def run_disagree(case: dict, path: str, rank: int) -> None:
     torch.save(out, f"{path}.out{rank}.pt")
 
 
+def run_attention(case: dict, path: str, rank: int, world: int) -> None:
+    """Each of ``case["calls"]`` ({name: (backend, kwargs)}, backend
+    "ring" with kwargs' ``impl`` or "ulysses") on this rank's chunk of
+    the sequence of ``case["inputs"]`` (numpy q, k, v, do and segment
+    ids) over the ``sequence`` dim of ``case["mesh"]``'s ``DeviceMesh``:
+    {name: (out, dq, dk, dv)} of sum(out * do), this rank's chunk."""
+    from tpufw_torch.mesh import MeshConfig, build_mesh
+    from tpufw_torch.parallel import (
+        ring_attention,
+        sequence_group,
+        ulysses_attention,
+    )
+
+    mesh = build_mesh(MeshConfig(**case["mesh"]), world, "cpu")
+    group = sequence_group(mesh)
+    x = {k: torch.from_numpy(v) for k, v in case["inputs"].items()}
+    n = x["q"].shape[1] // group.size
+    chunk = {k: v[:, group.rank * n:(group.rank + 1) * n].contiguous()
+             for k, v in x.items()}
+    fns = {"ring": ring_attention, "ulysses": ulysses_attention}
+    out = {}
+    for name, (backend, kw) in case["calls"].items():
+        qkv = [chunk[k].clone().requires_grad_() for k in "qkv"]
+        o = fns[backend](*qkv, mesh=mesh, segment_ids=chunk.get("seg"), **kw)
+        (o * chunk["do"]).sum().backward()
+        out[name] = [o.detach(), *(t.grad for t in qkv)]
+    torch.save(out, f"{path}.out{rank}.pt")
+
+
 def run_case(path: str, rank: int, world: int) -> None:
     from tpufw_torch.mesh import MeshConfig
     from tpufw_torch.models import model_for_config
@@ -72,6 +104,8 @@ def run_case(path: str, rank: int, world: int) -> None:
     case = torch.load(path, weights_only=False)
     if case.get("kind") == "disagree":
         return run_disagree(case, path, rank)
+    if case.get("kind") == "attention":
+        return run_attention(case, path, rank, world)
     tcfg = TrainerConfig(**case["trainer"])
     args = (case["model_cfg"], tcfg, MeshConfig(**case["mesh"]))
     kind = case.get("kind", "lm")
@@ -87,8 +121,9 @@ def run_case(path: str, rank: int, world: int) -> None:
         teacher = model_for_config(case["teacher_cfg"], device="cpu")
         teacher.load_state_dict(case["teacher_state"])
         trainer.set_teacher(teacher)
-    rows = tcfg.batch_size // world
-    local = [{k: v[rank * rows:(rank + 1) * rows] for k, v in b.items()}
+    shard, n_shards = trainer.batch_shard()
+    rows = tcfg.batch_size // n_shards
+    local = [{k: v[shard * rows:(shard + 1) * rows] for k, v in b.items()}
              for b in case["batches"]]
     recorded = []
     step_fn = trainer.train_step

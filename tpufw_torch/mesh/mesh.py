@@ -7,13 +7,14 @@ the gang's RANKS out as ``tpufw`` lays out its devices (``rank_grid``).
 One rank is one GPU.
 
 ``build_mesh`` turns that grid into a ``torch.distributed`` ``DeviceMesh``
-with the two dimensions this slice shards over: ``data`` (of size
-``dcn_data * data``: plain replicas) and ``fsdp`` (parameters, gradients
-and optimizer state sharded, as ZeRO-3). ``fully_shard`` over that mesh
-is HSDP: sharded over ``fsdp``, replicated over ``data``. The
-``expert``, ``sequence`` and ``tensor`` axes must resolve to 1 until
-their slices come (ROADMAP.md Queue 1 items 12b and 12e), and ``pipe``
-until the pipeline trainer (item 12c).
+with the three dimensions the port shards over: ``data`` (of size
+``dcn_data * data``: plain replicas), ``fsdp`` (parameters, gradients
+and optimizer state sharded, as ZeRO-3) and ``sequence`` (activations
+split along the sequence; ring or Ulysses attention). The trainers shard
+the parameters over ``fsdp`` and ``sequence`` together and replicate
+them over ``data`` (``train.sharding``). The ``expert`` and ``tensor``
+axes must resolve to 1 until their slice comes (ROADMAP.md Queue 1 item
+12e), and ``pipe`` until the pipeline trainer (item 12c).
 """
 
 from __future__ import annotations
@@ -42,8 +43,7 @@ MESH_AXES: tuple[str, ...] = (
 )
 
 # The axes whose parallelism is a later slice, and the item that brings it.
-_LATER_AXES = {AXIS_SEQUENCE: "12b", AXIS_TENSOR: "12e", AXIS_EXPERT: "12e",
-               AXIS_PIPE: "12c"}
+_LATER_AXES = {AXIS_TENSOR: "12e", AXIS_EXPERT: "12e", AXIS_PIPE: "12c"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,9 +129,10 @@ def rank_grid(config: MeshConfig | None, world: int) -> np.ndarray:
 
 
 def mesh_shape(config: MeshConfig | None, world: int) -> dict[str, int]:
-    """{"data": dcn_data * data, "fsdp": fsdp} of a ``world``-rank gang:
-    the two dimensions of ``build_mesh``. Raises NotImplementedError
-    naming the ROADMAP.md item when another axis resolves above 1."""
+    """{"data": dcn_data * data, "fsdp": fsdp, "sequence": sequence} of a
+    ``world``-rank gang: the three dimensions of ``build_mesh``. Raises
+    NotImplementedError naming the ROADMAP.md item when another axis
+    resolves above 1."""
     config = config or MeshConfig()
     sizes = config.slice_sizes(world)
     for axis, item in _LATER_AXES.items():
@@ -142,17 +143,17 @@ def mesh_shape(config: MeshConfig | None, world: int) -> dict[str, int]:
                 f"(ROADMAP.md Queue 1 item {item})"
             )
     return {AXIS_DATA: sizes[AXIS_DATA] * config.dcn_data,
-            AXIS_FSDP: sizes[AXIS_FSDP]}
+            AXIS_FSDP: sizes[AXIS_FSDP],
+            AXIS_SEQUENCE: sizes[AXIS_SEQUENCE]}
 
 
 def build_mesh(config: MeshConfig | None, world: int, device_type: str):
-    """The ``DeviceMesh`` (dims ``data``, ``fsdp``) of the initialized
-    process group's ``world`` ranks over ``rank_grid``. ``device_type``
-    is ``cuda`` (NCCL) or ``cpu`` (gloo)."""
+    """The ``DeviceMesh`` (dims ``data``, ``fsdp``, ``sequence``) of the
+    initialized process group's ``world`` ranks over ``rank_grid``.
+    ``device_type`` is ``cuda`` (NCCL) or ``cpu`` (gloo)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     shape = mesh_shape(config, world)
-    grid = rank_grid(config, world).reshape(shape[AXIS_DATA],
-                                            shape[AXIS_FSDP])
+    grid = rank_grid(config, world).reshape(tuple(shape.values()))
     return DeviceMesh(device_type, grid.tolist(),
-                      mesh_dim_names=(AXIS_DATA, AXIS_FSDP))
+                      mesh_dim_names=tuple(shape))

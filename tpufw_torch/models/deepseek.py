@@ -119,8 +119,9 @@ class DeepseekConfig:
     rms_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # "xla" (plain attention) or "flash" (the CUDA kernels, V zero-padded
-    # to qk_head_dim); "ring"/"ulysses" are refused (multi-GPU).
+    # "xla" (plain attention), "flash" (the CUDA kernels, V zero-padded
+    # to qk_head_dim), or the sequence-parallel "ring"/"ulysses" (V padded
+    # as for flash).
     attention_backend: str = "xla"
     # "einsum" (one-hot dispatch) or "sorted" (grouped matmuls); int8
     # expert stacks always run einsum.
@@ -361,13 +362,7 @@ class PagedLatentCache:
 
 
 def _reject_unported(cfg: DeepseekConfig) -> None:
-    if cfg.attention_backend in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"MLA attention backend {cfg.attention_backend!r} is "
-            "sequence-parallel; it comes with the multi-GPU port "
-            "(ROADMAP.md Queue 1 item 12)"
-        )
-    if cfg.attention_backend not in ("xla", "flash"):
+    if cfg.attention_backend not in ("xla", "flash", "ring", "ulysses"):
         raise NotImplementedError(
             "MLA attention backends: 'xla', 'flash', 'ring', or 'ulysses'; "
             f"got {cfg.attention_backend!r}"
@@ -437,13 +432,15 @@ class MLAttention(nn.Module):
             q = torch.cat([q_nope, q_pe], dim=-1)
             # The scale is qk_head_dim**-0.5 on every backend: each derives
             # it from q's last dim, which is qk_head_dim here.
-            if cfg.attention_backend == "flash":
+            if cfg.attention_backend in ("flash", "ring", "ulysses"):
                 # softmax(QK^T) [v | 0] = [out | 0]: the kernels see one
-                # head dim, and slicing recovers the exact result.
+                # head dim, and slicing recovers the exact result (Ulysses
+                # exchanges the padded heads; the rope key is already
+                # broadcast per head).
                 v_pad = F.pad(v, (0, cfg.qk_head_dim - dv))
                 out = multi_head_attention(
                     q, k, v_pad, causal=True, segment_ids=segment_ids,
-                    backend="flash",
+                    backend=cfg.attention_backend,
                 )[..., :dv]
             else:
                 out = multi_head_attention(

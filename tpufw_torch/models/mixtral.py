@@ -178,9 +178,11 @@ class MoEMLP(nn.Module):
     routing as ``tpufw`` passes them."""
 
     # A gang's process group (set by ``train.sharding.shard_model``): the
-    # routing group is then the global batch, every rank's rows, as
-    # ``tpufw`` routes it, and each rank computes its own rows.
+    # routing group is then the global batch, every rank's tokens in its
+    # row-major order, as ``tpufw`` routes it, and each rank computes its
+    # own tokens. ``route_seq``: the sequence ranks a row is split over.
     route_group = None
+    route_seq = 1
 
     def __init__(self, cfg, gen, device=None, d_ff=None, norm_topk=True,
                  group_limit=None):
@@ -241,10 +243,10 @@ class MoEMLP(nn.Module):
         g = b * t
         router_logits = self.router(x.float()).reshape(g, e)
         valid = None if valid is None else valid.reshape(g)
-        lo = 0
+        mine = slice(0, g)
         if self.route_group is not None:
-            router_logits, valid, lo = gather_routing(router_logits, valid,
-                                                      self.route_group)
+            router_logits, valid, mine = gather_routing(
+                router_logits, valid, self.route_group, b, self.route_seq)
         capacity = expert_capacity(router_logits.shape[0], k, e,
                                    cfg.capacity_factor)
         kw = dict(valid=valid, dtype=x.dtype, norm_topk=self.norm_topk,
@@ -253,15 +255,15 @@ class MoEMLP(nn.Module):
             token, sizes, gates, aux, z = route_topk_sorted(
                 router_logits, k, capacity, **kw)
             if self.route_group is not None:
-                token, sizes, gates = local_sorted(token, sizes, gates, lo, g)
+                token, sizes, gates = local_sorted(token, sizes, gates, mine,
+                                                   g)
             y = self._sorted(x.reshape(g, d), token, sizes, gates)
         else:
             # In a gang every expert runs over the global capacity's
             # slots, those of other ranks' rows empty.
             dispatch, combine, aux, z = route_topk_capacity(
                 router_logits, k, capacity, **kw)
-            y = self._einsum(x.reshape(g, d), dispatch[lo:lo + g],
-                             combine[lo:lo + g])
+            y = self._einsum(x.reshape(g, d), dispatch[mine], combine[mine])
         return y.reshape(b, t, d), (cfg.router_aux_weight * aux
                                     + cfg.router_z_weight * z)
 

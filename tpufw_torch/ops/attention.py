@@ -6,6 +6,11 @@
 - ``"flash"`` — the hand-written CUDA flash-attention kernels
                 (``tpufw_torch.ops.flash``); on CPU tensors their plain
                 PyTorch versions.
+- ``"ring"``  — sequence-parallel ring attention over the ``sequence``
+                mesh axis (``tpufw_torch.parallel.ring``), ring-flash on
+                CUDA tensors.
+- ``"ulysses"`` — sequence-parallel all-to-all attention
+                (``tpufw_torch.parallel.ulysses``).
 
 All backends take [B, T, H, D] q and [B, S, K, D] k/v with K (kv heads)
 dividing H (GQA: query head h reads kv head h // (H // K)).
@@ -93,6 +98,71 @@ def xla_attention(
     return torch.einsum("bhts,bshd->bthd", probs, v)
 
 
+def local_attention(
+    backend: str,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    logits_soft_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    offset: Optional[int] = None,
+) -> torch.Tensor:
+    """The ``xla`` or ``flash`` backend on the tensors as given, whatever
+    mesh is registered. ``offset`` (flash) is the key position of query
+    0, as ``q_positions`` gives each query's to xla."""
+    if backend == "xla":
+        return xla_attention(
+            q,
+            k,
+            v,
+            causal=causal,
+            segment_ids=segment_ids,
+            kv_segment_ids=kv_segment_ids,
+            q_positions=q_positions,
+            logits_soft_cap=logits_soft_cap,
+            sliding_window=sliding_window,
+        )
+    if backend == "flash":
+        from tpufw_torch.ops.flash import flash_attention
+
+        return flash_attention(
+            q, k, v, causal=causal, segment_ids=segment_ids,
+            kv_segment_ids=kv_segment_ids, logits_soft_cap=logits_soft_cap,
+            sliding_window=sliding_window, offset=offset,
+        )
+    raise ValueError(f"unknown attention backend {backend!r}")
+
+
+def _gathered_attention(backend, group, q, k, v, causal, segment_ids,
+                        logits_soft_cap, sliding_window):
+    """``backend`` over a sequence split across processes: the ring's
+    K/V (and key segment ids) gathered whole with their gradient, and
+    this shard's queries at their global positions rank·L + i: what
+    ``tpufw``'s GSPMD computes for a non-parallel backend under a
+    sequence axis."""
+    (k_all,) = group.all_gather([k], dim=1)
+    (v_all,) = group.all_gather([v], dim=1)
+    kseg = None
+    if segment_ids is not None:
+        (kseg,) = group.all_gather([segment_ids.contiguous()], dim=1)
+    b, t = q.shape[:2]
+    offset = group.rank * t
+    q_pos = None
+    if backend == "xla":
+        q_pos = (offset + torch.arange(t, device=q.device)).expand(b, t)
+    return local_attention(
+        backend, q, k_all, v_all, causal=causal, segment_ids=segment_ids,
+        kv_segment_ids=kseg, q_positions=q_pos,
+        logits_soft_cap=logits_soft_cap, sliding_window=sliding_window,
+        offset=offset,
+    )
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -106,35 +176,42 @@ def multi_head_attention(
     sliding_window: Optional[int] = None,
     backend: str = "xla",
 ) -> torch.Tensor:
-    """Backend dispatcher — the single attention entry point for models."""
-    if backend == "xla":
-        return xla_attention(
-            q,
-            k,
-            v,
-            causal=causal,
-            segment_ids=segment_ids,
-            kv_segment_ids=kv_segment_ids,
-            q_positions=q_positions,
-            logits_soft_cap=logits_soft_cap,
-            sliding_window=sliding_window,
-        )
-    if kv_segment_ids is not None or q_positions is not None:
+    """Backend dispatcher — the single attention entry point for models.
+
+    ``ring`` and ``ulysses`` are sequence-parallel
+    (``tpufw_torch.parallel``) and need a registered mesh. Under a
+    registered mesh whose sequence split leaves this process one shard,
+    ``xla`` and ``flash`` attend from the local queries over the gathered
+    sequence."""
+    if backend != "xla" and (
+            kv_segment_ids is not None or q_positions is not None):
         raise NotImplementedError(
             f"KV-cache decode (kv_segment_ids/q_positions) requires "
             f"backend='xla', got {backend!r}"
         )
-    if backend == "flash":
-        from tpufw_torch.ops.flash import flash_attention
-
-        return flash_attention(
-            q, k, v, causal=causal, segment_ids=segment_ids,
-            logits_soft_cap=logits_soft_cap,
-            sliding_window=sliding_window,
-        )
     if backend in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention backend {backend!r} is sequence-parallel; it comes "
-            "with the multi-GPU port (ROADMAP.md, Queue 1 item 12)"
-        )
-    raise ValueError(f"unknown attention backend {backend!r}")
+        kw = dict(causal=causal, segment_ids=segment_ids,
+                  logits_soft_cap=logits_soft_cap,
+                  sliding_window=sliding_window)
+        if backend == "ring":
+            from tpufw_torch.parallel.ring import ring_attention
+
+            return ring_attention(q, k, v, **kw)
+        from tpufw_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, **kw)
+    if backend not in ("xla", "flash"):
+        raise ValueError(f"unknown attention backend {backend!r}")
+    if kv_segment_ids is None and q_positions is None:
+        from tpufw_torch.parallel.context import partial_sequence_group
+
+        group = partial_sequence_group()
+        if group is not None:
+            return _gathered_attention(
+                backend, group, q, k, v, causal, segment_ids,
+                logits_soft_cap, sliding_window)
+    return local_attention(
+        backend, q, k, v, causal=causal, segment_ids=segment_ids,
+        kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+        logits_soft_cap=logits_soft_cap, sliding_window=sliding_window,
+    )

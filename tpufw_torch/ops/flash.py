@@ -389,10 +389,10 @@ def gqa_sum(dx_full: torch.Tensor, kv_heads: int, dtype) -> torch.Tensor:
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, qseg, kseg, causal, soft_cap, window):
+    def forward(ctx, q, k, v, qseg, kseg, causal, soft_cap, window, offset):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         masks = dict(causal=causal, soft_cap=soft_cap, window=window,
-                     qseg=qseg, kseg=kseg)
+                     qseg=qseg, kseg=kseg, offset=offset)
         o, lse = flash_fwd(q, k, v, **masks)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.masks = masks
@@ -410,7 +410,7 @@ class _Flash(torch.autograd.Function):
             dq,
             gqa_sum(dk_full, kh, k.dtype),
             gqa_sum(dv_full, kh, v.dtype),
-            None, None, None, None, None,
+            None, None, None, None, None, None,
         )
 
 
@@ -424,6 +424,7 @@ def flash_attention(
     kv_segment_ids: Optional[torch.Tensor] = None,
     logits_soft_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
+    offset: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash attention. q:[B,T,H,D], k/v:[B,S,K,D] -> [B,T,H,D].
 
@@ -431,6 +432,7 @@ def flash_attention(
     batches; ``kv_segment_ids`` ([B, S]) defaults to ``segment_ids``
     (which then requires T == S). ``logits_soft_cap`` applies
     ``cap * tanh(logits / cap)`` to the scaled logits before the mask.
+    ``offset`` is the key position of query 0 (default S - T).
     """
     h, kh = q.shape[2], k.shape[2]
     if h % kh:
@@ -452,4 +454,4 @@ def flash_attention(
         qseg, kseg = qseg.contiguous(), kseg.contiguous()
     cap = None if logits_soft_cap is None else float(logits_soft_cap)
     win = None if sliding_window is None else int(sliding_window)
-    return _Flash.apply(q, k, v, qseg, kseg, causal, cap, win)
+    return _Flash.apply(q, k, v, qseg, kseg, causal, cap, win, offset)

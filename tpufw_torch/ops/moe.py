@@ -178,11 +178,27 @@ class _GatherRows(torch.autograd.Function):
         return grad[ctx.lo:ctx.lo + ctx.n], None
 
 
-def gather_routing(router_logits: torch.Tensor, valid, group):
+def routing_order(world: int, seq: int, rows: int, length: int,
+                  device=None) -> torch.Tensor:
+    """The permutation that puts a gang's routing group, every rank's
+    [rows, length] tokens concatenated in rank order, in the global
+    batch's row-major [B, T] token order: rank r holds rows
+    [(r // seq)·rows, ...) of the global batch and positions
+    [(r % seq)·length, ...), as ``train.sharding.batch_shard`` and the
+    sequence split lay them out. ``gathered[order]`` is that order."""
+    idx = torch.arange(world * rows * length, device=device)
+    return idx.reshape(world // seq, seq, rows, length).permute(
+        0, 2, 1, 3).reshape(-1)
+
+
+def gather_routing(router_logits: torch.Tensor, valid, group, rows: int,
+                   seq: int = 1):
     """A gang's routing group: every rank's [g, E] router logits (with
-    their gradient) and valid rows, in rank order, as the global batch
-    ``tpufw`` routes as one group; and this rank's first row in it.
-    Every rank holds g rows."""
+    their gradient) and valid rows, in the global batch's token order, as
+    the global batch ``tpufw`` routes as one group; and where this rank's
+    g tokens (``rows`` rows of g / rows positions) sit in it: a slice
+    when every rank holds whole rows (``seq`` 1: rank order is the global
+    order), else an index tensor in this rank's token order."""
     import torch.distributed as dist
 
     logits = _GatherRows.apply(router_logits, group)
@@ -191,19 +207,40 @@ def gather_routing(router_logits: torch.Tensor, valid, group):
             group))]
         dist.all_gather(parts, valid.contiguous(), group=group)
         valid = torch.cat(parts)
-    return logits, valid, dist.get_rank(group) * router_logits.shape[0]
+    g, rank = router_logits.shape[0], dist.get_rank(group)
+    if seq == 1:
+        return logits, valid, slice(rank * g, (rank + 1) * g)
+    order = routing_order(dist.get_world_size(group), seq, rows, g // rows,
+                          logits.device)
+    mine = torch.empty_like(order)
+    mine[order] = torch.arange(order.numel(), device=order.device)
+    return (logits[order], None if valid is None else valid[order],
+            mine[rank * g:(rank + 1) * g])
 
 
-def local_sorted(token, group_sizes, gates, lo: int, g: int):
-    """The sorted assignments (``route_topk_sorted``'s) of the rows
-    [lo, lo + g) of a gang's routing group, renumbered from 0: (token,
-    group_sizes, gates) of this rank's rows, in the same order."""
+def local_sorted(token, group_sizes, gates, mine, g: int):
+    """The sorted assignments (``route_topk_sorted``'s) of this rank's g
+    tokens of a gang's routing group (``mine``, ``gather_routing``'s),
+    renumbered in this rank's order: (token, group_sizes, gates) of its
+    tokens, in the same order."""
     gid = torch.repeat_interleave(
         torch.arange(group_sizes.numel(), device=token.device), group_sizes)
-    mine = (token >= lo) & (token < lo + g)
-    return (token[mine] - lo,
-            torch.bincount(gid[mine], minlength=group_sizes.numel()),
-            gates[mine])
+    if isinstance(mine, slice):
+        keep = (token >= mine.start) & (token < mine.stop)
+        local = token[keep] - mine.start
+    else:
+        # Global token -> its index among this rank's, or -1. Every
+        # token of the group has k assignments, so the group holds
+        # token.numel() // k tokens; token.numel() bounds it.
+        index = torch.full((token.numel(),), -1, dtype=token.dtype,
+                           device=token.device)
+        index[mine] = torch.arange(g, dtype=token.dtype, device=token.device)
+        local = index[token]
+        keep = local >= 0
+        local = local[keep]
+    return (local,
+            torch.bincount(gid[keep], minlength=group_sizes.numel()),
+            gates[keep])
 
 
 def route_topk_sorted(

@@ -28,6 +28,7 @@ from tpufw_torch.train.trainer import (
     Trainer,
     batch_to_device,
     forward_with_aux,
+    on_mesh,
 )
 
 
@@ -202,6 +203,7 @@ class EmbeddingTrainer(Trainer):
             "retrieval pairs, which means nothing; use evaluate_retrieval "
             "(recall@k over held-out pairs) instead")
 
+    @on_mesh
     def train_step(self, batch: dict) -> dict:
         out = contrastive_train_step(
             self.model, self.optimizer, batch_to_device(batch, self.device),

@@ -34,6 +34,7 @@ from tpufw_torch.train.trainer import (
     forward_with_aux,
     frozen_copy,
     frozen_model,
+    on_mesh,
     shift_and_mask,
 )
 
@@ -197,6 +198,7 @@ class DistillTrainer(Trainer):
             teacher_cfg, state, getattr(torch, self.distill.teacher_dtype))
         self._shard(self.teacher)
 
+    @on_mesh
     def train_step(self, batch: dict) -> dict:
         if self.teacher is None:
             raise RuntimeError(

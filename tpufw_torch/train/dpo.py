@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from tpufw_torch.models.lora import adapters_bypassed
 from tpufw_torch.ops.loss import chunked_sequence_logprob
+from tpufw_torch.parallel.context import partial_sequence_group
 from tpufw_torch.train import sharding
 from tpufw_torch.train.sft import _TEMPLATES, render_conversation
 from tpufw_torch.train.trainer import (
@@ -47,6 +48,7 @@ from tpufw_torch.train.trainer import (
     final_soft_cap,
     forward_with_aux,
     frozen_copy,
+    on_mesh,
     shift_and_mask,
 )
 
@@ -250,12 +252,17 @@ def reference_policy(model, ref_model=None):
 def sequence_logps(model, inputs, targets, seg_in, mask, chunk_size: int,
                    compute_dtype):
     """([2B] per-row response log-prob sums, the MoE router loss or 0.0)
-    of ``model`` through the chunked head path."""
+    of ``model`` through the chunked head path. Under a sequence split a
+    rank holds a chunk of each row: its partial sums are summed over the
+    ring, with their gradient, into the rows' sums."""
     hidden, aux = forward_with_aux(model, inputs, seg_in)
     logps = chunked_sequence_logprob(
         hidden, model.head_kernel(), targets, mask, chunk_size=chunk_size,
         compute_dtype=compute_dtype, logits_soft_cap=final_soft_cap(model),
     )
+    group = partial_sequence_group()
+    if group is not None:
+        logps = group.all_sum(logps)
     return logps, aux
 
 
@@ -406,6 +413,7 @@ class DPOTrainer(ReferenceMixin, Trainer):
             self._snapshot_reference(self.dpo.ref_dtype)
         return restored
 
+    @on_mesh
     def train_step(self, batch: dict) -> dict:
         if not self.has_reference():
             raise RuntimeError(

@@ -49,6 +49,7 @@ from tpufw_torch.train.trainer import (
     batch_to_device,
     final_soft_cap,
     forward_with_aux,
+    on_mesh,
 )
 
 
@@ -334,6 +335,7 @@ class GRPOTrainer(ReferenceMixin, Trainer):
 
     # -- step --------------------------------------------------------------
 
+    @on_mesh
     def train_step(self, batch: dict) -> dict:
         if self.grpo.kl_beta > 0.0 and not self.has_reference():
             raise RuntimeError(

@@ -3,10 +3,14 @@
 (``tpufw/train/trainer.py``), done with ``fully_shard``.
 
 ``shard_model`` wraps each block of the layer stack, then the root, in
-``torch.distributed.fsdp.fully_shard`` over the mesh's (``data``,
-``fsdp``) dimensions: parameters, gradients and optimizer moments are
-sharded over ``fsdp`` (dim 0 of each tensor) and replicated over
-``data``. Each rank holds ``1 / world`` of the global batch.
+``torch.distributed.fsdp.fully_shard`` over the mesh's ``data`` and
+``fsdp`` × ``sequence`` dimensions (``fsdp_mesh``): parameters, gradients
+and optimizer moments are sharded over ``fsdp`` and ``sequence`` together
+(dim 0 of each tensor) and replicated over ``data``. A rank feeds the
+rows of its batch shard (``batch_shard``: its ``data``, ``fsdp``
+coordinate, ``data · fsdp`` shards); the ``sequence`` ranks of one
+coordinate share those rows, and each takes its contiguous chunk of the
+positions (``train.trainer.shift_and_mask``).
 
 The loss is the global token-weighted mean that ``tpufw``'s jitted step
 computes over the global batch: every objective backpropagates through
@@ -14,8 +18,8 @@ computes over the global batch: every objective backpropagates through
 of the gang's targets and scales it by the world size, which FSDP's
 averaging reduction divides back out, so the gradients are those of the
 global mean whatever the ranks' target counts (SFT's assistant masks,
-packed segments, DPO pairs). Without a process group it is a plain
-``backward``.
+packed segments, DPO pairs, sequence chunks). Without a process group it
+is a plain ``backward``.
 """
 
 from __future__ import annotations
@@ -94,26 +98,57 @@ def load_into(dst: torch.Tensor, full: torch.Tensor) -> None:
         dst.copy_(full)
 
 
+def fsdp_mesh(mesh):
+    """The two-dimensional mesh ``fully_shard`` takes from a
+    ``build_mesh`` mesh: (``data``, ``fsdp``), or, under a ``sequence``
+    dimension above 1, (``data``, ``fsdp_sequence``) over the same ranks
+    (a mesh of its own: its process groups are made here, a collective)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    names = mesh.mesh_dim_names
+    if "sequence" not in names or mesh.size(names.index("sequence")) == 1:
+        return mesh["data", "fsdp"]
+    grid = mesh.mesh.reshape(mesh.size(names.index("data")), -1)
+    return DeviceMesh(mesh.device_type, grid.tolist(),
+                      mesh_dim_names=("data", "fsdp_sequence"))
+
+
+def batch_shard(mesh) -> tuple[int, int]:
+    """(this rank's batch shard, the number of shards) of a
+    ``build_mesh`` mesh: its (``data``, ``fsdp``) coordinate in
+    row-major order, of ``data · fsdp``."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    fsdp = mesh.size(mesh.mesh_dim_names.index("fsdp"))
+    data = mesh.size(mesh.mesh_dim_names.index("data"))
+    return coord["data"] * fsdp + coord["fsdp"], data * fsdp
+
+
 def shard_model(model, mesh) -> None:
     """``fully_shard`` each block of ``model.layers``, then the root, over
-    ``mesh``. A block's ``attend`` and ``merge`` (called apart by the
-    ``attn_out`` remat policy) gather and free its parameters as its
-    forward does. The root keeps its parameters gathered from its forward
-    to its backward (FSDP's rule for the root), so ``head_kernel()`` read
-    after the forward is the whole head. A MoE layer routes the global
-    batch as one group, as ``tpufw`` does (``MoEMLP.route_group``)."""
+    ``fsdp_mesh(mesh)``. A block's ``attend`` and ``merge`` (called apart
+    by the ``attn_out`` remat policy) gather and free its parameters as
+    its forward does. The root keeps its parameters gathered from its
+    forward to its backward (FSDP's rule for the root), so
+    ``head_kernel()`` read after the forward is the whole head. A MoE
+    layer routes the global batch as one group, as ``tpufw`` does
+    (``MoEMLP.route_group``, ``route_seq`` the ranks a row is split
+    over)."""
     import torch.distributed as dist
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
+    names = mesh.mesh_dim_names
+    seq = mesh.size(names.index("sequence")) if "sequence" in names else 1
     for m in model.modules():
         if hasattr(type(m), "route_group"):
             m.route_group = dist.group.WORLD
+            m.route_seq = seq
+    shard = fsdp_mesh(mesh)
     for block in model.layers:
-        fully_shard(block, mesh=mesh)
+        fully_shard(block, mesh=shard)
         for name in ("attend", "merge"):
             if hasattr(block, name):
                 register_fsdp_forward_method(block, name)
-    fully_shard(model, mesh=mesh)
+    fully_shard(model, mesh=shard)
 
 
 def gang_device():

@@ -24,9 +24,20 @@ the seed, from params or from a checkpoint: every rank holds the same
 full tensors, the seed and the files being the same on every rank), then
 shards it over the mesh of ``mesh_cfg`` (``train.sharding.shard_model``);
 the optimizer's moments are made, or restored, sharded. Each rank feeds
-its ``batch_size / world`` rows; the loss, ``grad_norm`` and the held-out
-evaluation are the global batch's, as ``tpufw``'s jitted step computes
-them. Without a process group nothing of this runs.
+the ``batch_size / (data · fsdp)`` rows of its batch shard
+(``batch_shard``); the loss, ``grad_norm`` and the held-out evaluation
+are the global batch's, as ``tpufw``'s jitted step computes them.
+Without a process group nothing of this runs.
+
+Sequence parallelism: under a ``sequence`` axis above 1 the ranks of one
+batch shard feed the same rows, and each trains its contiguous chunk of
+the ``seq_len - 1`` shifted positions (``shift_and_mask``) at its global
+RoPE positions (``forward_with_aux``); the ``ring`` and ``ulysses``
+attention backends exchange K/V along the ring, and ``xla`` and
+``flash`` attend over the gathered sequence. The trainer registers its
+mesh (``parallel.context``) for its steps and evaluations; without a
+process group that mesh is a ring of one shard, so ``ring`` and
+``ulysses`` train in one process with the numbers of ``flash``.
 
 LoRA: a model with ``lora_rank`` > 0 is built with its base frozen
 (``requires_grad=False``), and ``LlamaAdamW`` takes the parameters that
@@ -39,6 +50,7 @@ adapters' (``tpufw``'s counts the base's gradients as well).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Iterator, Optional
 
@@ -50,6 +62,8 @@ from tpufw_torch.models import model_for_config
 from tpufw_torch.models.llama import Llama, LlamaConfig
 from tpufw_torch.models.lora import init_adapters, is_lora_name
 from tpufw_torch.ops.loss import chunked_cross_entropy, token_cross_entropy
+from tpufw_torch.parallel.context import partial_sequence_group, use_mesh
+from tpufw_torch.parallel.group import LocalSequenceGroup
 from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import (
     CheckpointManager,
@@ -97,8 +111,10 @@ def forward_with_aux(model, inputs: torch.Tensor,
                      return_hidden: bool = True):
     """(post-final-norm hidden states [B, T, D], or logits without
     ``return_hidden``; the MoE router loss or 0.0) of ``model`` on
-    ``inputs``: the one forward of every objective."""
-    kw = {"segment_ids": segment_ids, "return_hidden": return_hidden}
+    ``inputs``: the one forward of every objective. Under a sequence split
+    (``shift_and_mask``) the positions are the chunk's global ones."""
+    kw = {"segment_ids": segment_ids, "return_hidden": return_hidden,
+          "positions": sequence_positions(inputs)}
     if getattr(model.cfg, "n_experts", 0) > 0:
         return model(inputs, return_aux=True, **kw)
     return model(inputs, **kw), 0.0
@@ -118,11 +134,40 @@ def cross_entropy_loss(
     return (ce * mask).sum() / n, n
 
 
+def sequence_positions(inputs: torch.Tensor) -> Optional[torch.Tensor]:
+    """The global positions [B, L] of this rank's chunk of the sequence
+    under a sequence split (rank·L + arange(L)), else None (the model's
+    default, arange)."""
+    group = partial_sequence_group()
+    if group is None:
+        return None
+    b, l = inputs.shape[:2]
+    return (group.rank * l + torch.arange(l, device=inputs.device)).expand(
+        b, l)
+
+
+def sequence_chunk(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """This rank's contiguous chunk of ``x`` [B, T', ...] along the
+    positions under a sequence split (ValueError when the ring's size
+    does not divide T'), else ``x``."""
+    group = partial_sequence_group()
+    if group is None or x is None:
+        return x
+    t = x.shape[1]
+    if t % group.size:
+        raise ValueError(
+            f"the sequence axis of size {group.size} must divide the "
+            f"{t} trained positions (seq_len - 1)")
+    l = t // group.size
+    return x[:, group.rank * l:(group.rank + 1) * l]
+
+
 def shift_and_mask(batch: dict):
     """LM target shift + packed-batch masking. Returns (inputs, targets,
     input_segment_ids, loss_mask): boundary positions never predict the
     next document's first token, and padding targets (segment 0) never
-    train."""
+    train. The shift runs on whole rows; under a sequence split each of
+    the four is then this rank's chunk of the positions."""
     tokens = batch["tokens"]
     inputs = tokens[:, :-1]
     targets = tokens[:, 1:]
@@ -135,7 +180,7 @@ def shift_and_mask(batch: dict):
         nonpad = (seg[:, 1:] > 0).float()
         seg_mask = same_seg * nonpad
         mask = seg_mask if mask is None else mask * seg_mask
-    return inputs, targets, seg_in, mask
+    return tuple(map(sequence_chunk, (inputs, targets, seg_in, mask)))
 
 
 def target_count(batch: dict) -> torch.Tensor:
@@ -546,6 +591,19 @@ class TrainerConfig:
     preemption_sync_every: int = 1
 
 
+def on_mesh(method):
+    """Run a trainer's ``method`` with its ``attention_mesh`` registered
+    as the current mesh (``parallel.context.use_mesh``), as ``tpufw``'s
+    trainer runs its steps under its mesh."""
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with use_mesh(self.attention_mesh):
+            return method(self, *args, **kwargs)
+
+    return wrapped
+
+
 class Trainer:
     """Builds the model and optimizer and runs the step loop with
     tokens/s/GPU and MFU metrics: on one device, or, when a process group
@@ -609,6 +667,19 @@ class Trainer:
     def gang(self) -> bool:
         """True when the model is sharded over a process group's mesh."""
         return self.mesh is not None
+
+    @property
+    def attention_mesh(self):
+        """The mesh the sequence-parallel attention backends run on: the
+        gang's, or, on one device, a ring of one shard."""
+        return self.mesh if self.gang else LocalSequenceGroup(1)
+
+    def batch_shard(self) -> tuple[int, int]:
+        """(this rank's batch shard, the number of batch shards): the rows
+        ``[i·b, (i+1)·b)`` of each global batch of ``batch_size`` rows,
+        b = batch_size / count, are the ones this rank feeds; (0, 1) on
+        one device."""
+        return sharding.batch_shard(self.mesh) if self.gang else (0, 1)
 
     def _shard(self, model) -> None:
         """Shard ``model`` (whole on this rank's device) over the mesh."""
@@ -724,7 +795,7 @@ class Trainer:
         if accum <= 1:
             return
         if self.gang:
-            dp = sharding.world_size()
+            dp = self.batch_shard()[1]
             if bs % accum or (bs // accum) % dp:
                 raise ValueError(
                     f"grad_accum={accum}: batch {bs} must split into "
@@ -733,6 +804,7 @@ class Trainer:
         elif bs % accum:
             raise ValueError(f"grad_accum={accum} must divide batch {bs}")
 
+    @on_mesh
     def train_step(self, batch: dict) -> dict:
         self.check_grad_accum()
         out = train_step(
@@ -743,6 +815,7 @@ class Trainer:
         self.step += 1
         return out
 
+    @on_mesh
     def evaluate(
         self, data: Iterator[dict], n_batches: Optional[int] = None
     ) -> dict:
@@ -760,6 +833,7 @@ class Trainer:
             ),
         )
 
+    @on_mesh
     def run(
         self,
         data: Iterator[dict],

@@ -94,16 +94,15 @@ def refuse_mesh() -> None:
 
 
 # Axes whose parallelism a later slice brings: (what, ROADMAP item).
-_LATER_AXES = {"sequence": ("sequence parallelism", "12b"),
-               "tensor": ("tensor parallelism", "12e"),
+_LATER_AXES = {"tensor": ("tensor parallelism", "12e"),
                "expert": ("expert parallelism", "12e")}
 
 
 def mesh_from_env(world: int, moe_dispatch: str = "einsum"):
     """The ``MeshConfig`` of ``TPUFW_MESH_{DATA,FSDP,EXPERT,SEQUENCE,
     TENSOR,DCN_DATA}`` (``tpufw``'s defaults: every device on ``fsdp``),
-    checked against a ``world``-rank gang. A ``sequence``, ``tensor`` or
-    ``expert`` axis above 1 raises NotImplementedError naming its item;
+    checked against a ``world``-rank gang. A ``tensor`` or ``expert`` axis
+    above 1 raises NotImplementedError naming its item;
     axes that do not fit the world raise ``tpufw``'s ValueError. The
     sorted MoE dispatch is refused only when the RESOLVED ``expert`` axis
     is above 1 (``tpufw`` refuses it for -1 even where -1 is one device)."""

@@ -57,14 +57,19 @@ worker variables; ``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` of a per-GPU
 launcher, ``cluster.bootstrap``) starts the process group first: NCCL on
 ``cuda:<local rank>``, gloo with ``TPUFW_DEVICE=cpu``. The training state
 is sharded over the mesh of ``TPUFW_MESH_DATA`` (replicas),
-``TPUFW_MESH_FSDP`` (shards; -1, the default, fills) and
+``TPUFW_MESH_FSDP`` (shards; -1, the default, fills),
+``TPUFW_MESH_SEQUENCE`` (sequence parallelism) and
 ``TPUFW_MESH_DCN_DATA``; ``TPUFW_BATCH_SIZE`` is the global batch, and
-each rank loads its ``1 / world`` of it from its shard of the data (the
-corpus, SFT conversations, DPO pairs) or from its own synthetic seeds.
-``TPUFW_MESH_SEQUENCE`` above 1 raises ``NotImplementedError`` naming
-ROADMAP.md Queue 1 item 12b, ``TPUFW_MESH_TENSOR`` and
-``TPUFW_MESH_EXPERT`` item 12e; axes that do not fit the world raise
-``ValueError``.
+each batch shard (a ``data``, ``fsdp`` coordinate: ``data · fsdp`` of
+them) loads its part of it from its shard of the data (the corpus, SFT
+conversations, DPO pairs) or from its own synthetic seeds. The
+``sequence`` ranks of a batch shard load the same rows and each trains
+its chunk of the ``seq_len - 1`` positions, which the sequence size must
+divide; attention then runs as ``TPUFW_ATTENTION`` says: ``ring``
+(ring-flash on CUDA) or ``ulysses`` exchange K/V along the ring, ``xla``
+and ``flash`` gather it. ``TPUFW_MESH_TENSOR`` and ``TPUFW_MESH_EXPERT``
+above 1 raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 12e;
+axes that do not fit the world raise ``ValueError``.
 
 Not ported yet, and refused with ``NotImplementedError`` when set to
 anything but their defaults: ``TPUFW_CONFIG``,
@@ -289,8 +294,10 @@ def main() -> int:
         # The teacher's forward, 2N_t a token: a third of its 6N count.
         flops_per_token += install_teacher(trainer).flops_per_token(
             cfg.seq_len - 1) / 3.0
-    # cfg.batch_size is GLOBAL; each rank loads its shard of it.
-    local_bs = check_global_batch(cfg.batch_size, world)
+    # cfg.batch_size is GLOBAL; each batch shard loads its part of it
+    # (the sequence ranks of a shard the same rows).
+    shard, n_shards = trainer.batch_shard()
+    local_bs = check_global_batch(cfg.batch_size, n_shards)
     # A resumed run shuffles afresh (the restored step folded into the
     # seed); the eval streams keep the base seed.
     data_seed = resume_data_seed(env_int("data_seed", 0), trainer.step)
@@ -308,7 +315,8 @@ def main() -> int:
             dpo_batches(env_str("dpo_data", ""), local_bs // 2, cfg.seq_len,
                         resolve_encode(env_str("sft_tokenizer", "bytes")),
                         template=env_str("sft_template", "plain"),
-                        seed=data_seed, shard_id=rank, num_shards=world),
+                        seed=data_seed, shard_id=shard,
+                        num_shards=n_shards),
             trainer.device,
         )
     elif sft_path:
@@ -319,33 +327,35 @@ def main() -> int:
             sft_batches(sft_path, local_bs, cfg.seq_len,
                         resolve_encode(env_str("sft_tokenizer", "bytes")),
                         template=env_str("sft_template", "plain"),
-                        seed=data_seed, shard_id=rank, num_shards=world),
+                        seed=data_seed, shard_id=shard,
+                        num_shards=n_shards),
             trainer.device,
         )
     elif data_prefix:
         data = prefetch_to_device(
             iter(TokenCorpus(data_prefix, local_bs, cfg.seq_len,
                              shuffle=True, seed=data_seed,
-                             shard_id=rank, num_shards=world)),
+                             shard_id=shard, num_shards=n_shards)),
             trainer.device,
         )
     else:
         # Train seeds are even, the held-out stream's odd: no collision
-        # for any TPUFW_DATA_SEED or rank.
+        # for any TPUFW_DATA_SEED or shard.
         data = synthetic_batches(local_bs, cfg.seq_len, model_cfg.vocab_size,
-                                 seed=data_seed * 2000 + 2 * rank)
+                                 seed=data_seed * 2000 + 2 * shard)
     eval_data = None
     if cfg.eval_every:
         eval_prefix = env_str("eval_data_prefix", "")
         if eval_prefix:
             def eval_data():
                 return iter(TokenCorpus(eval_prefix, local_bs, cfg.seq_len,
-                                        shard_id=rank, num_shards=world))
+                                        shard_id=shard,
+                                        num_shards=n_shards))
         else:
             def eval_data():
                 return synthetic_batches(
                     local_bs, cfg.seq_len, model_cfg.vocab_size,
-                    seed=env_int("data_seed", 0) * 2000 + 2 * rank + 1,
+                    seed=env_int("data_seed", 0) * 2000 + 2 * shard + 1,
                 )
 
     history = trainer.run(
