@@ -351,6 +351,23 @@ Phases, each fatal on failure:
     ulysses' losses and grad norms within MESH_TOL of flash's (bit-equal
     expected: a ring of one shard), their launches equal. A
     ``sequence_summary`` line per sub-phase.
+16. pipeline parallelism (``tpufw_torch.parallel.pipeline``, one process
+    holding both stages of a ``LocalPipeGroup(2)``). 16a:
+    ``llama3_600m_bench`` at full size (7 layers a stage, B=RESUME_BATCH x
+    RESUME_SEQ, PIPE_M microbatches) through ``PipelineTrainer`` under
+    gpipe, 1f1b, zb1 and interleaved at v = 7, 1 + PIPE_STEPS steps each
+    from seed 0; 16b: ``deepseek_mla_bench``, nothing cut (5 layers a
+    stage, B=PIPE_MLA_BATCH), gpipe and 1f1b. First the kernels at a
+    microbatch's shapes against their plain versions. Checks: step 0's
+    loss and grad norm of every schedule within PIPE_TOL relative of
+    GPipe's, GPipe's loss within PIPE_TOL of ``reference_forward``'s (the
+    sequential oracle, row by row), every loss finite, and the flash
+    launches of each run equal to PIPE_PER_LAYER's prediction (per layer
+    per microbatch: GPipe 1/1/1, 1F1B and interleaved 2/1/1, ZB-H1 3/2/2)
+    with nothing else launched. A ``pipeline_summary`` line per schedule
+    (step ms, peak GB, launches, the analytic bubble fraction and
+    ``n_ticks``: one process runs both stages in turn, so the step time
+    shows each schedule's extra compute, not its bubble).
 
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
@@ -361,8 +378,9 @@ mode, ``launches_lora_train``, phase 11a's,
 scoring and updates apart, ``launches_mesh``, phase 14's sharded runs,
 and the head-dim-192 ones
 ``launches_v2lite_train``, phase 10a's; every kernel carries
-``launches_sequence``, phase 15's ring runs), a ``phase_seconds`` line
-(each phase's wall seconds, phase 10's to 15's parts and the total), the
+``launches_sequence``, phase 15's ring runs, and ``launches_pipeline``,
+phase 16's runs by sub-phase and schedule), a ``phase_seconds`` line
+(each phase's wall seconds, phase 10's to 16's parts and the total), the
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it prints no result and exits nonzero.
@@ -5089,6 +5107,177 @@ def sequence_phase(torch, kind, smi, gen) -> dict:
     return out
 
 
+# Phase 16: pipeline parallelism on one card (a LocalPipeGroup of two
+# stages in one process). Steps after the warm-up one, microbatches, the
+# gate against GPipe and the oracle, the MLA batch.
+PIPE_STEPS = 3
+PIPE_M = 4
+PIPE_TOL = 1e-3
+PIPE_MLA_BATCH = 8
+# Flash launches a layer a microbatch, (forward, dQ, dK/dV), from the code:
+# GPipe runs each layer's forward once and autograd its backward once (no
+# stage remat); 1F1B and interleaved run it under no_grad, then again from
+# the stash for the backward; ZB-H1's B recomputes it for the input
+# gradient and W again for the weight gradient, each with the attention's
+# backward (both need dQ, dK and dV).
+PIPE_PER_LAYER = {"gpipe": (1, 1, 1), "1f1b": (2, 1, 1),
+                  "interleaved": (2, 1, 1), "zb1": (3, 2, 2)}
+# Sub-phases: name, (model, batch, [(schedule, n_virtual)]); interleaved
+# at v = 7, the one v >= 2 with 14 % (2v) == 0.
+PIPE_CASES = {
+    "16a": ("llama3_600m_bench", RESUME_BATCH,
+            [("gpipe", 1), ("1f1b", 1), ("zb1", 1), ("interleaved", 7)]),
+    "16b": ("deepseek_mla_bench", PIPE_MLA_BATCH,
+            [("gpipe", 1), ("1f1b", 1)]),
+}
+
+
+def pipeline_oracle_loss(torch, params, batch, cfg) -> float:
+    """The LM loss of ``batch`` through ``reference_forward`` (the
+    sequential oracle, the same flash backend, row by row), under
+    no_grad: the mean token CE with z-loss over the shifted targets."""
+    from tpufw_torch.ops.loss import token_cross_entropy
+    from tpufw_torch.parallel.pipeline import reference_forward
+
+    tokens = torch.from_numpy(batch["tokens"]).to("cuda")
+    total, n = 0.0, 0
+    with torch.no_grad():
+        for r in range(tokens.shape[0]):
+            logits = reference_forward(params, tokens[r:r + 1, :-1], cfg,
+                                       backend=cfg.attention_backend)
+            ce = token_cross_entropy(logits, tokens[r:r + 1, 1:])
+            total += float(ce.sum())
+            n += ce.numel()
+            del logits, ce
+    return total / n
+
+
+def pipeline_run(torch, name, model, cfg, batch, schedule, v, batches):
+    """One schedule of a phase-16 sub-phase: ``PipelineTrainer`` over a
+    ``LocalPipeGroup(2)`` from seed 0, 1 + PIPE_STEPS steps on
+    ``batches``, the flash counters zeroed just before the run and read
+    just after. GPipe's run first computes the oracle's loss on the same
+    weights and batch. Returns its summary."""
+    from tpufw_torch.ops import flash
+    from tpufw_torch.parallel.pipeline import PipelineConfig
+    from tpufw_torch.train import PipelineTrainer, TrainerConfig
+
+    pipe = PipelineConfig(2, PIPE_M, schedule, v)
+    tcfg = TrainerConfig(batch_size=batch, seq_len=RESUME_SEQ,
+                         total_steps=1 + PIPE_STEPS, warmup_steps=2,
+                         log_every=1, loss_chunk_size=512,
+                         handle_preemption=False)
+    trainer = PipelineTrainer(cfg, pipe, tcfg, device="cuda")
+    trainer.init_state(seed=0)
+    oracle = (pipeline_oracle_loss(torch, trainer.params, batches[0], cfg)
+              if schedule == "gpipe" else None)
+    rec = _recorded(trainer, ("loss", "grad_norm"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    hist = trainer.run(iter(batches),
+                       model_flops_per_token=cfg.flops_per_token(
+                           RESUME_SEQ - 1))
+    torch.cuda.synchronize()
+    d = head_dim_of(cfg)
+    launches = {flash.kernel_name(k, d): flash.LAUNCHES[flash.kernel_name(
+        k, d)] for k in flash.KERNELS}
+    others = {k_: c for k_, c in flash.LAUNCHES.items()
+              if k_ not in launches and c}
+    per_layer = PIPE_PER_LAYER[schedule]
+    steps = len(hist)
+    predicted = {flash.kernel_name(k, d): steps * cfg.n_layers * PIPE_M * n
+                 for k, n in zip(flash.KERNELS, per_layer)}
+    pairs = [(float(r["loss"]), float(r["grad_norm"])) for r in rec]
+    step_ms = [1e3 * m.step_time_s for m in hist[1:]]
+    out = {"pipeline_summary": name, "model": model, "schedule": schedule,
+           "n_virtual": v, "stages": 2, "microbatches": PIPE_M,
+           "batch_size": batch, "seq_len": RESUME_SEQ,
+           "group": "LocalPipeGroup(2): both stages in this process",
+           "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms) if step_ms else None,
+           "tokens_per_sec": [m.tokens_per_sec_per_gpu for m in hist[1:]],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": [p[0] for p in pairs],
+           "grad_norms": [p[1] for p in pairs],
+           "launches": launches, "predicted_launches": predicted,
+           "other_launches": others,
+           "bubble_fraction": pipe.bubble_fraction(),
+           "n_ticks": pipe.n_ticks(), "oracle_loss": oracle}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_phase(torch, kind, smi) -> dict:
+    """Phase 16: each PIPE_CASES sub-phase's schedules at full size
+    (``pipeline_run``). Step 0's loss and grad norm of every schedule
+    within PIPE_TOL relative of GPipe's, GPipe's loss within PIPE_TOL of
+    the oracle's, every loss finite, every launch count equal to its
+    prediction and no other kernel launched. Returns {"<sub>_<schedule>":
+    launches by kernel}; raises AssertionError."""
+    from tpufw_torch.configs import resolve_model_preset
+    from tpufw_torch.train import synthetic_batches
+
+    from tpufw_torch.ops import flash
+
+    emit({"phase16_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "card_state": nvidia_smi(CARD_STATE)})
+    # The kernels at a microbatch's shapes (one row of llama3_600m_bench,
+    # two of deepseek_mla_bench with V zero-padded) against their plain
+    # versions, before any counted run.
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for case, (b, h, kh, d, pad_v) in {
+            "pipeline_600m_microbatch": (RESUME_BATCH // PIPE_M, 12, 6, 128,
+                                         0),
+            "pipeline_mla_microbatch": (PIPE_MLA_BATCH // PIPE_M, 16, 16, 192,
+                                        64)}.items():
+        x = [torch.randn(b, RESUME_SEQ - 1, n, d, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+             for n in (h, kh, kh, h)]
+        if pad_v:
+            x[2][..., d - pad_v:] = 0
+        check_kernels(torch, flash, case, *x, {"causal": True})
+        del x
+    launches, bad = {}, []
+    for name, (model, batch, schedules) in PIPE_CASES.items():
+        t0 = time.perf_counter()
+        cfg = resolve_model_preset(model)
+        it = synthetic_batches(batch, RESUME_SEQ, cfg.vocab_size, seed=16)
+        batches = [next(it) for _ in range(1 + PIPE_STEPS)]
+        runs = {}
+        for schedule, v in schedules:
+            run = pipeline_run(torch, name, model, cfg, batch, schedule, v,
+                               batches)
+            runs[schedule] = run
+            launches[f"{name}_{schedule}"] = run["launches"]
+        want = runs["gpipe"]
+        for schedule, run in runs.items():
+            l0, g0 = run["losses"][0], run["grad_norms"][0]
+            run["rel_diff_loss0_vs_gpipe"] = abs(l0 - want["losses"][0]) / \
+                abs(want["losses"][0])
+            run["rel_diff_grad_norm0_vs_gpipe"] = abs(
+                g0 - want["grad_norms"][0]) / abs(want["grad_norms"][0])
+            if schedule == "gpipe":
+                run["rel_diff_loss0_vs_oracle"] = abs(
+                    l0 - run["oracle_loss"]) / abs(run["oracle_loss"])
+            emit(run | {"card_state": nvidia_smi(CARD_STATE)})
+            if (not all(math.isfinite(x) for x in run["losses"])
+                    or len(run["losses"]) != 1 + PIPE_STEPS
+                    or run["rel_diff_loss0_vs_gpipe"] > PIPE_TOL
+                    or run["rel_diff_grad_norm0_vs_gpipe"] > PIPE_TOL
+                    or run.get("rel_diff_loss0_vs_oracle", 0.0) > PIPE_TOL
+                    or run["launches"] != run["predicted_launches"]
+                    or run["other_launches"]):
+                bad.append(f"{name}_{schedule}")
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"phase 16: {bad} failed their checks")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5375,6 +5564,14 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    # 16. Pipeline parallelism, with phase 15's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        pipe_launches = _timed("16", lambda: pipeline_phase(torch, kind, smi))
+    except AssertionError as e:
+        return fail(str(e))
+
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -5428,6 +5625,10 @@ def main() -> int:
         # ring and ulysses trainers (one shard).
         kernels[-1]["launches_sequence"] = {
             part: counts.get(name, 0) for part, counts in seq_launches.items()}
+        # Phase 16's runs, by sub-phase and schedule (16a llama3_600m_bench
+        # at head dim 128, 16b deepseek_mla_bench at 192), 4 steps each.
+        kernels[-1]["launches_pipeline"] = {
+            part: counts.get(name, 0) for part, counts in pipe_launches.items()}
         if name in resume_launches:
             # Phase 7b's run, llama3_600m_bench through Trainer.run, and
             # the kernel at its shapes.

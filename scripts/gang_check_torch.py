@@ -17,12 +17,20 @@ once as it is and once with ``grad_accum=2``, then ``fsdp=world/2`` by
 trains half of every row's ``--seq`` − 1 positions, so 2 must divide
 them). Then the gang's stop:
 the last rank alone request()s a stop after step 1, every rank leaves at
-step 1 and rank 0 writes the forced checkpoint. After the gang, the
+step 1 and rank 0 writes the forced checkpoint. Then the pipelines
+(``PipelineTrainer``, one stage a rank over the mesh's ``pipe``):
+``pipe=2`` by ``data=world/2`` GPipe (4 microbatches), and at
+``--world 4`` ``pipe=4`` 1F1B (8 microbatches; the model's layers rounded
+down to a multiple of 4, at least 4: 14 -> 12 for ``llama3_600m_bench``).
+After the gang, the
 parent trains the same steps in one process on the global batches
-(unsharded, at each run's ``grad_accum``), holds each run's losses and
+(unsharded, at each run's ``grad_accum``; a pipeline on a
+``LocalPipeGroup`` holding every stage), holds each run's losses and
 grad norms to it within ``--tol`` relative, and resumes the gang's checkpoint in one process:
 its step-2 loss within ``--tol`` of the unbroken run's. One JSON line per
-result, ``{"ok": true, ...}`` last; exits nonzero when a check fails.
+result, then (on GPUs) each card's name and power limit from
+``nvidia-smi``, ``{"ok": true, ...}`` last; exits nonzero when a check
+fails.
 """
 
 from __future__ import annotations
@@ -90,6 +98,35 @@ def _run(trainer, batches, **kw):
     return pairs, [1e3 * m.step_time_s for m in hist], peak
 
 
+def _pipelines(world: int) -> dict:
+    """name: (stages, microbatches, schedule, data) of the pipeline runs
+    a ``world``-rank gang makes."""
+    runs = {}
+    if world % 2 == 0:
+        runs[f"pipe2_data{world // 2}_gpipe"] = (2, 4, "gpipe", world // 2)
+    if world == 4:
+        runs["pipe4_1f1b"] = (4, 8, "1f1b", 1)
+    return runs
+
+
+def _pipeline_trainer(cfg, tcfg, stages, micro, schedule, data, dev,
+                      gang: bool):
+    """A ``PipelineTrainer`` of one pipeline run: over the gang's mesh, or
+    (``gang`` False) in one process holding every stage."""
+    import dataclasses
+
+    from tpufw_torch.mesh import MeshConfig
+    from tpufw_torch.parallel.pipeline import PipelineConfig
+    from tpufw_torch.train import PipelineTrainer
+
+    if cfg.n_layers % stages:
+        cfg = dataclasses.replace(cfg, n_layers=max(
+            stages, cfg.n_layers // stages * stages))
+    mesh = MeshConfig(data=data, pipe=stages, fsdp=1) if gang else None
+    return PipelineTrainer(cfg, PipelineConfig(stages, micro, schedule),
+                           tcfg, mesh, device=dev)
+
+
 def rank_main(args) -> int:
     import dataclasses
 
@@ -134,6 +171,18 @@ def rank_main(args) -> int:
                              "grad_norms": [p[1] for p in pairs],
                              "step_ms": step_ms, "peak_gb": peak,
                              "grad_accum": accum,
+                             "mesh": dict(zip(trainer.mesh.mesh_dim_names,
+                                              trainer.mesh.shape))}
+        del trainer
+    for name, run in _pipelines(world).items():
+        trainer = _pipeline_trainer(cfg, tcfg, *run, dev, gang=True)
+        trainer.init_state(seed=0)
+        pairs, step_ms, peak = _run(trainer, local(trainer))
+        out["runs"][name] = {"losses": [p[0] for p in pairs],
+                             "grad_norms": [p[1] for p in pairs],
+                             "step_ms": step_ms, "peak_gb": peak,
+                             "grad_accum": 1, "pipeline": run,
+                             "held": list(trainer.group.indices),
                              "mesh": dict(zip(trainer.mesh.mesh_dim_names,
                                               trainer.mesh.shape))}
         del trainer
@@ -215,9 +264,17 @@ def parent_main(args) -> int:
         one.init_state(seed=0)
         single[accum] = _run(one, batches)
         del one
+    for name, run in _pipelines(args.world).items():
+        one = _pipeline_trainer(cfg, tcfg, *run, dev, gang=False)
+        one.init_state(seed=0)
+        single[name] = _run(one, batches)
+        del one
     ok = True
     for name, run in ranks[0]["runs"].items():
-        want, one_ms, one_peak = single[run["grad_accum"]]
+        want, one_ms, one_peak = single[name if "pipeline" in run
+                                        else run["grad_accum"]]
+        # A pipeline's ranks report the same global loss; its stages
+        # hold different params, so its ranks' step times differ.
         same = all(r["runs"][name]["losses"] == run["losses"]
                    for r in ranks)
         d_loss = _rel(run["losses"], [w[0] for w in want])
@@ -237,7 +294,8 @@ def parent_main(args) -> int:
               "peak_gb_gang_rank0": run["peak_gb"],
               "step_ms_one_process": one_ms, "peak_gb_one_process": one_peak,
               "global_batch": args.batch, "seq_len": args.seq,
-              "grad_accum": run["grad_accum"], "model": args.model})
+              "grad_accum": run["grad_accum"], "model": args.model,
+              "pipeline": run.get("pipeline")})
     want = single[1][0]
     # The gang's checkpoint resumes in one process.
     stops = [r["stop"] for r in ranks]
@@ -256,6 +314,12 @@ def parent_main(args) -> int:
           "unbroken_loss": want[1][0], "rel_diff": d, "tol": args.tol})
     shutil.rmtree(tmp, ignore_errors=True)
     kind = "cpu" if args.cpu else torch.cuda.get_device_name(0)
+    if not args.cpu:
+        # Each card's name and power limit, beside the numbers above.
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip(), flush=True)
     emit({"ok": bool(ok), "world": args.world, "device": kind,
           "gang_s": gang_s})
     return 0 if ok else 1

@@ -1,11 +1,13 @@
 """A 4-rank gloo gang on the CPU through ``scripts/gang_check_torch.py
 --cpu``: every rank on ``fsdp`` (4), then a true 2-D mesh, ``data=2`` by
 ``fsdp=2`` (HSDP: sharded over one dimension, replicated over the other),
-that mesh again with ``grad_accum=2``, and ``fsdp=2`` by ``sequence=2`` on
-ring attention (each rank half of every row), each held (losses and grad norms)
-to one process at its ``grad_accum`` on the same global batches within 1e-5
-(llama3_tiny, fp32), and the gang's stop (only the last rank asks) resumed
-in one process. The script's processes import no JAX."""
+that mesh again with ``grad_accum=2``, ``fsdp=2`` by ``sequence=2`` on
+ring attention (each rank half of every row), and the pipelines, ``pipe=2``
+by ``data=2`` GPipe and ``pipe=4`` 1F1B (a stage a rank), each held (losses
+and grad norms) to one process at its ``grad_accum`` (a pipeline: on a
+``LocalPipeGroup`` holding every stage) on the same global batches within
+1e-5 (llama3_tiny, fp32), and the gang's stop (only the last rank asks)
+resumed in one process. The script's processes import no JAX."""
 
 import json
 import os
@@ -32,6 +34,8 @@ def test_four_rank_gang_matches_one_process():
                            "gang_data2_fsdp2_vs_one_process",
                            "gang_data2_fsdp2_accum2_vs_one_process",
                            "gang_fsdp2_sequence2_ring_vs_one_process",
+                           "gang_pipe2_data2_gpipe_vs_one_process",
+                           "gang_pipe4_1f1b_vs_one_process",
                            "gang_stop_and_one_process_resume"}
     assert all(c["ok"] for c in checks.values())
     for name in ("data2_fsdp2", "data2_fsdp2_accum2"):
@@ -40,5 +44,9 @@ def test_four_rank_gang_matches_one_process():
     assert checks["gang_data2_fsdp2_accum2_vs_one_process"]["grad_accum"] == 2
     assert checks["gang_fsdp2_sequence2_ring_vs_one_process"]["mesh"] == {
         "data": 1, "fsdp": 2, "sequence": 2}
+    assert checks["gang_pipe2_data2_gpipe_vs_one_process"]["mesh"] == {
+        "data": 2, "pipe": 2, "fsdp": 1, "sequence": 1}
+    assert checks["gang_pipe4_1f1b_vs_one_process"]["mesh"] == {
+        "data": 1, "pipe": 4, "fsdp": 1, "sequence": 1}
     assert checks["gang_fsdp4_vs_one_process"]["ranks_equal"]
     assert lines[-1]["ok"] and lines[-1]["world"] == 4

@@ -3,7 +3,8 @@ cases) on its 8 virtual devices: the same axis sizes, the same errors
 word for word, and ``rank_grid`` laying ranks out as ``build_mesh`` lays
 out device ids, with and without ``dcn_data``. Then what the port builds
 of it: the (``data``, ``fsdp``, ``sequence``) ``DeviceMesh`` of a gloo
-group, the refusal of the axes a later slice brings, and the global
+group, the ``pipe`` dimension (and its refusal beside ``sequence``), the
+refusal of the axes a later slice brings, and the global
 token order a MoE layer routes a sequence-split gang's tokens in."""
 
 import numpy as np
@@ -104,14 +105,38 @@ def test_mesh_shape_is_data_by_fsdp(kw, world, shape):
 
 
 @pytest.mark.parametrize("axis,item", [("tensor", "12e"),
-                                       ("expert", "12e"),
-                                       ("pipe", "12c")])
+                                       ("expert", "12e")])
 def test_later_axes_refused(axis, item):
     with pytest.raises(NotImplementedError, match=rf"item {item}\)$"):
         mesh_shape(MeshConfig(**{axis: 2, "fsdp": 2}), 4)
     # A fill that resolves to one device is no such axis.
     assert mesh_shape(MeshConfig(**{axis: -1, "fsdp": 4}), 4) == {
         "data": 1, "fsdp": 4, "sequence": 1}
+
+
+@pytest.mark.parametrize("kw,world,shape", [
+    ({"pipe": 2}, 4, {"data": 1, "pipe": 2, "fsdp": 2, "sequence": 1}),
+    ({"data": 2, "pipe": 2, "fsdp": 1}, 4,
+     {"data": 2, "pipe": 2, "fsdp": 1, "sequence": 1}),
+    ({"pipe": 4}, 4, {"data": 1, "pipe": 4, "fsdp": 1, "sequence": 1}),
+    ({"pipe": -1, "fsdp": 4}, 4, {"data": 1, "fsdp": 4, "sequence": 1}),
+])
+def test_pipe_axis_is_a_dimension(devices8, kw, world, shape):
+    """``pipe`` above 1 is a mesh dimension in ``tpufw``'s axis order (a
+    fill that resolves to one device is none), and its ranks are laid out
+    as ``tpufw`` lays out its devices."""
+    import jax
+
+    assert mesh_shape(MeshConfig(**kw), world) == shape
+    grid = rank_grid(MeshConfig(**kw), world).reshape(tuple(shape.values()))
+    jgrid = _ids(j_build_mesh(JMeshConfig(**kw), devices=jax.devices()[:world]))
+    np.testing.assert_array_equal(grid, jgrid.reshape(grid.shape))
+
+
+def test_pipe_with_sequence_refused():
+    """``tpufw``'s pipeline needs ``sequence`` 1; so does the port's."""
+    with pytest.raises(NotImplementedError, match="sequence has size 2"):
+        mesh_shape(MeshConfig(pipe=2, sequence=2, fsdp=1), 4)
 
 
 def test_build_mesh_on_a_gloo_group():

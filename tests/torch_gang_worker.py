@@ -3,6 +3,7 @@ tests. Imports no JAX: the test process hands each case over as a file.
 
     python tests/torch_gang_worker.py <case.pt> [<case.pt> ...]
     python tests/torch_gang_worker.py --workload
+    python tests/torch_gang_worker.py --pipeline-workload <out>
 
 The rank comes from ``TPUFW_COORDINATOR`` / ``TPUFW_NUM_PROCESSES`` /
 ``TPUFW_PROCESS_ID`` (``tpufw_torch.cluster``). Each case file holds
@@ -21,7 +22,15 @@ trainer takes the rank's chunk of the positions) and writes
 preempted and at which step, and on rank 0 the gathered parameters.
 
 ``--workload`` runs ``tpufw_torch.workloads.train_llama``'s ``main`` with
-the tiny Llama presets computing in fp32 (the tests' precision).
+the tiny Llama presets computing in fp32 (the tests' precision);
+``--pipeline-workload <out>`` runs ``train_pipeline``'s ``main`` so and
+writes ``<out>.out<rank>.pt``: the rank's held stages and params.
+
+A case of "kind" "pipeline" ("pipe": PipelineConfig kwargs, "state" a
+whole pipeline param tree) trains a ``PipelineTrainer`` over the mesh
+(each rank its stage, ``data``/``fsdp`` ranks batch shards) and writes
+the per-step losses and grad norms and, on every rank, the whole params
+(gathered over the pipe).
 """
 
 import os
@@ -89,6 +98,29 @@ def run_attention(case: dict, path: str, rank: int, world: int) -> None:
     torch.save(out, f"{path}.out{rank}.pt")
 
 
+def run_pipeline(case: dict, path: str, rank: int) -> None:
+    from tpufw_torch.mesh import MeshConfig
+    from tpufw_torch.parallel.pipeline import PipelineConfig
+    from tpufw_torch.train import PipelineTrainer, TrainerConfig
+
+    tcfg = TrainerConfig(**case["trainer"])
+    trainer = PipelineTrainer(case["model_cfg"], PipelineConfig(
+        **case["pipe"]), tcfg, MeshConfig(**case["mesh"]), device="cpu")
+    trainer.init_state(params=case["state"])
+    shard, n_shards = trainer.batch_shard()
+    rows = tcfg.batch_size // n_shards
+    local = [{k: v[shard * rows:(shard + 1) * rows] for k, v in b.items()}
+             for b in case["batches"]]
+    recorded = []
+    step_fn = trainer.train_step
+    trainer.train_step = lambda b: recorded.append(step_fn(b)) or recorded[-1]
+    trainer.run(iter(local), model_flops_per_token=1.0)
+    torch.save({"losses": [float(m["loss"]) for m in recorded],
+                "grad_norms": [float(m["grad_norm"]) for m in recorded],
+                "held": trainer.group.indices,
+                "params": trainer.whole_params()}, f"{path}.out{rank}.pt")
+
+
 def run_case(path: str, rank: int, world: int) -> None:
     from tpufw_torch.mesh import MeshConfig
     from tpufw_torch.models import model_for_config
@@ -106,6 +138,8 @@ def run_case(path: str, rank: int, world: int) -> None:
         return run_disagree(case, path, rank)
     if case.get("kind") == "attention":
         return run_attention(case, path, rank, world)
+    if case.get("kind") == "pipeline":
+        return run_pipeline(case, path, rank)
     tcfg = TrainerConfig(**case["trainer"])
     args = (case["model_cfg"], tcfg, MeshConfig(**case["mesh"]))
     kind = case.get("kind", "lm")
@@ -162,10 +196,43 @@ def workload() -> int:
     return train_llama.main()
 
 
+def pipeline_workload(out: str) -> int:
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from tpufw_torch.models import LLAMA_CONFIGS, PRESETS
+    from tpufw_torch.train import PipelineTrainer
+    from tpufw_torch.workloads import train_pipeline
+
+    PRESETS["llama3_tiny"] = dataclasses.replace(
+        LLAMA_CONFIGS["llama3_tiny"], n_layers=4, dtype=torch.float32)
+    trainers = []
+    run = PipelineTrainer.run
+
+    def kept(self, *a, **k):
+        trainers.append(self)
+        return run(self, *a, **k)
+
+    PipelineTrainer.run = kept
+    destroy = dist.destroy_process_group
+    # Save before main's own teardown of the group.
+    dist.destroy_process_group = lambda: None
+    rc = train_pipeline.main()
+    tr = trainers[0]
+    torch.save({"held": tr.group.indices, "step": tr.step,
+                "params": tr.whole_params()},
+               f"{out}.out{dist.get_rank()}.pt")
+    destroy()
+    return rc
+
+
 def main() -> int:
     torch.set_num_threads(1)
     if sys.argv[1:] == ["--workload"]:
         return workload()
+    if sys.argv[1:2] == ["--pipeline-workload"]:
+        return pipeline_workload(sys.argv[2])
     from tpufw_torch.cluster import initialize_cluster
 
     cluster = initialize_cluster(device="cpu", timeout_s=60)

@@ -44,6 +44,13 @@ Layout facts of the JAX package it handles:
   ``{w}_lora_a`` [E, in, r] and ``{w}_lora_b`` [E, r, out] become
   ``{w}_lora_a`` [E, r, in] and ``{w}_lora_b`` [E, out, r].
 
+Pipeline trees (``tpufw.parallel.pipeline``'s functional params):
+``pipeline_params_from_jax`` takes one as it is (the port keeps its
+layout: stage stacks ``[S, lps, ...]`` or, interleaved, ``[v, S, lpc,
+...]``, kernels ``[in, *out]``); ``pipeline_params_from_flax`` restacks a
+scanned Llama-family or DeepSeek tree into one (the mapping of
+``tests/test_pipeline_mla.py``'s ``_flax_to_pipeline``).
+
 The input is a nested dict of numpy arrays (``jax.device_get`` of the
 params, or of a gradient tree of the same shape). Nothing here imports
 JAX.
@@ -237,4 +244,64 @@ def vision_params_from_flax(params: dict, cfg,
                 stats(v, f"{prefix}{name}.")
 
     stats(batch_stats or {}, "")
+    return out
+
+
+def pipeline_params_from_jax(tree: dict, device=None) -> dict:
+    """``tpufw``'s pipeline param (or gradient) tree, canonical or
+    interleaved, as the port's: the same nested dict and layout, each
+    leaf an fp32 tensor on ``device`` (default the CPU)."""
+    if isinstance(tree, dict):
+        return {k: pipeline_params_from_jax(v, device) for k, v in tree.items()}
+    t = _t(tree)
+    return t if device is None else t.to(device)
+
+
+def pipeline_params_from_flax(tree: dict, cfg, n_stages: int) -> dict:
+    """A scanned Flax ``decoder_lm`` tree of a Llama-family or DeepSeek
+    (MLA, dense or uniform-MoE) config restacked into pipeline params:
+    each ``[L, ...]`` leaf split into ``[n_stages, L / n_stages, ...]``,
+    kernels kept ``[in, *out]``; exact, so a parity test pins the
+    pipeline's block math to the model of record."""
+    lps = cfg.n_layers // n_stages
+    layers = tree["layers"]
+
+    def stack(leaf):
+        a = np.asarray(leaf)
+        return _t(a.reshape(n_stages, lps, *a.shape[1:]))
+
+    attn = layers["attn"]
+    stages = {"attn_norm": stack(layers["attn_norm"]["scale"]),
+              "mlp_norm": stack(layers["mlp_norm"]["scale"]),
+              "wo": stack(attn["o"]["kernel"])}
+    if "kv_b_kernel" in attn:
+        stages |= {"kv_a_norm": stack(attn["kv_a_norm"]["scale"]),
+                   "wkv_a": stack(attn["kv_a"]["kernel"]),
+                   "wkv_b": stack(attn["kv_b_kernel"])}
+        if "q" in attn:
+            stages["wq"] = stack(attn["q"]["kernel"])
+        else:
+            stages |= {"wq_a": stack(attn["q_a"]["kernel"]),
+                       "q_a_norm": stack(attn["q_a_norm"]["scale"]),
+                       "wq_b": stack(attn["q_b"]["kernel"])}
+    else:
+        for name in ("q", "k", "v"):
+            stages[f"w{name}"] = stack(attn[name]["kernel"])
+            if "bias" in attn[name]:
+                stages[f"b{name}"] = stack(attn[name]["bias"])
+    if "moe" in layers:
+        moe = layers["moe"]
+        routed = moe["routed"]
+        stages |= {"router": stack(routed["router"]["kernel"]),
+                   **{w: stack(routed[w]) for w in _EXPERTS}}
+        if "shared" in moe:
+            stages |= {f"w_shared_{n}": stack(moe["shared"][n]["kernel"])
+                       for n in ("gate", "up", "down")}
+    else:
+        stages |= {f"w_{n}": stack(layers["mlp"][n]["kernel"])
+                   for n in ("gate", "up", "down")}
+    out = {"embed": _t(tree["embed"]["embedding"]), "stages": stages,
+           "final_norm": _t(tree["final_norm"]["scale"])}
+    if "lm_head" in tree:
+        out["head"] = _t(tree["lm_head"]["kernel"])
     return out

@@ -7,14 +7,18 @@ the gang's RANKS out as ``tpufw`` lays out its devices (``rank_grid``).
 One rank is one GPU.
 
 ``build_mesh`` turns that grid into a ``torch.distributed`` ``DeviceMesh``
-with the three dimensions the port shards over: ``data`` (of size
-``dcn_data * data``: plain replicas), ``fsdp`` (parameters, gradients
-and optimizer state sharded, as ZeRO-3) and ``sequence`` (activations
-split along the sequence; ring or Ulysses attention). The trainers shard
-the parameters over ``fsdp`` and ``sequence`` together and replicate
-them over ``data`` (``train.sharding``). The ``expert`` and ``tensor``
-axes must resolve to 1 until their slice comes (ROADMAP.md Queue 1 item
-12e), and ``pipe`` until the pipeline trainer (item 12c).
+with the dimensions the port shards over: ``data`` (of size
+``dcn_data * data``: plain replicas), ``pipe`` when it is above 1 (the
+layer stack split into stages, ``parallel.pipeline``), ``fsdp``
+(parameters, gradients and optimizer state sharded, as ZeRO-3) and
+``sequence`` (activations split along the sequence; ring or Ulysses
+attention), in ``tpufw``'s axis order. The trainers shard the parameters
+over ``fsdp`` and ``sequence`` together and replicate them over ``data``
+(``train.sharding``); the pipeline trainer gives each ``pipe`` rank its
+stage and feeds ``data`` and ``fsdp`` as batch shards. ``pipe`` composes
+with ``data`` and ``fsdp`` only (``sequence`` must be 1, as in
+``tpufw/parallel/pipeline.py``). The ``expert`` and ``tensor`` axes must
+resolve to 1 until their slice comes (ROADMAP.md Queue 1 item 12e).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ MESH_AXES: tuple[str, ...] = (
 )
 
 # The axes whose parallelism is a later slice, and the item that brings it.
-_LATER_AXES = {AXIS_TENSOR: "12e", AXIS_EXPERT: "12e", AXIS_PIPE: "12c"}
+_LATER_AXES = {AXIS_TENSOR: "12e", AXIS_EXPERT: "12e"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,28 +132,50 @@ def rank_grid(config: MeshConfig | None, world: int) -> np.ndarray:
     return np.arange(world).reshape(shape)
 
 
-def mesh_shape(config: MeshConfig | None, world: int) -> dict[str, int]:
-    """{"data": dcn_data * data, "fsdp": fsdp, "sequence": sequence} of a
-    ``world``-rank gang: the three dimensions of ``build_mesh``. Raises
-    NotImplementedError naming the ROADMAP.md item when another axis
-    resolves above 1."""
-    config = config or MeshConfig()
-    sizes = config.slice_sizes(world)
+def refuse_later_axes(sizes: dict) -> None:
+    """NotImplementedError naming the ROADMAP.md item for an axis of
+    ``sizes`` (axis -> size) that a later slice brings, when above 1."""
     for axis, item in _LATER_AXES.items():
-        if sizes[axis] > 1:
+        if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"mesh axis {axis!r} of size {sizes[axis]}: "
                 f"{axis} parallelism is not ported to tpufw_torch yet "
                 f"(ROADMAP.md Queue 1 item {item})"
             )
-    return {AXIS_DATA: sizes[AXIS_DATA] * config.dcn_data,
-            AXIS_FSDP: sizes[AXIS_FSDP],
-            AXIS_SEQUENCE: sizes[AXIS_SEQUENCE]}
+
+
+def refuse_pipe_with_sequence(pipe: int, sequence: int) -> None:
+    """NotImplementedError for a ``pipe`` axis above 1 beside a
+    ``sequence`` one above 1 (``tpufw``'s pipeline needs sequence 1)."""
+    if pipe > 1 and sequence > 1:
+        raise NotImplementedError(
+            "pipeline parallelism composes with data and fsdp only; mesh "
+            f"axis sequence has size {sequence} (it must be 1 under "
+            f"pipe={pipe})"
+        )
+
+
+def mesh_shape(config: MeshConfig | None, world: int) -> dict[str, int]:
+    """{"data": dcn_data * data, ["pipe": pipe,] "fsdp": fsdp, "sequence":
+    sequence} of a ``world``-rank gang: the dimensions of ``build_mesh``,
+    ``pipe`` only when it is above 1. Raises NotImplementedError naming
+    the ROADMAP.md item when another axis resolves above 1, and for
+    ``pipe`` with ``sequence`` above 1."""
+    config = config or MeshConfig()
+    sizes = config.slice_sizes(world)
+    refuse_later_axes(sizes)
+    refuse_pipe_with_sequence(sizes[AXIS_PIPE], sizes[AXIS_SEQUENCE])
+    shape = {AXIS_DATA: sizes[AXIS_DATA] * config.dcn_data}
+    if sizes[AXIS_PIPE] > 1:
+        shape[AXIS_PIPE] = sizes[AXIS_PIPE]
+    return shape | {AXIS_FSDP: sizes[AXIS_FSDP],
+                    AXIS_SEQUENCE: sizes[AXIS_SEQUENCE]}
 
 
 def build_mesh(config: MeshConfig | None, world: int, device_type: str):
-    """The ``DeviceMesh`` (dims ``data``, ``fsdp``, ``sequence``) of the
-    initialized process group's ``world`` ranks over ``rank_grid``.
+    """The ``DeviceMesh`` (dims ``data``, ``pipe`` when above 1, ``fsdp``,
+    ``sequence``) of the initialized process group's ``world`` ranks over
+    ``rank_grid``.
     ``device_type`` is ``cuda`` (NCCL) or ``cpu`` (gloo)."""
     from torch.distributed.device_mesh import DeviceMesh
 

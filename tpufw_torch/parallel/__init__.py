@@ -1,6 +1,8 @@
-"""Sequence parallelism (port of ``tpufw.parallel``): the current-mesh
-registry, the ring's collectives, and the ring, ring-flash and Ulysses
-attention bodies."""
+"""Sequence and pipeline parallelism (port of ``tpufw.parallel``): the
+current-mesh registry, the ring's collectives, the ring, ring-flash and
+Ulysses attention bodies, and the pipe groups of the pipeline schedules
+(``parallel.pipeline``, ``pipeline_1f1b``, ``pipeline_zb1``,
+``pipeline_interleaved``, imported where used)."""
 
 from tpufw_torch.parallel.context import (  # noqa: F401
     current_mesh,
@@ -9,7 +11,10 @@ from tpufw_torch.parallel.context import (  # noqa: F401
     use_mesh,
 )
 from tpufw_torch.parallel.group import (  # noqa: F401
+    LocalPipeGroup,
     LocalSequenceGroup,
+    PipeGroup,
+    ProcessPipeGroup,
     ProcessSequenceGroup,
     SequenceGroup,
 )

@@ -188,3 +188,156 @@ class ProcessSequenceGroup(SequenceGroup):
         from torch.distributed.nn.functional import all_reduce
 
         return all_reduce(x, group=self.group)
+
+
+# ---------------------------------------------------------------------------
+# The pipeline's neighbour exchange: the port's stand-in for the
+# ``ppermute`` of ``tpufw``'s pipeline schedules (s -> s+1 for
+# activations, s -> s-1 for cotangents).
+# ---------------------------------------------------------------------------
+
+
+class PipeGroup:
+    """A pipeline of ``size`` stages; ``indices`` are the stages this
+    process holds, in the order of the stage axis of its stage stacks.
+
+    ``handoff`` runs one tick's exchange: ``fwd`` maps a held stage to the
+    activation it sends to the next stage, ``bwd`` one to the cotangent
+    it sends to the previous one (both around the ring: the interleaved
+    schedule's last stage feeds stage 0); it returns (what each held
+    stage received from the previous stage, what each received from the
+    next). ``fwd_expect`` and ``bwd_expect`` are the held stages that
+    expect to receive in each direction, and ``like`` a tensor of the
+    exchanged shape and dtype: a process holding one stage receives by
+    them, one holding them all checks them against what was sent."""
+
+    size: int
+    indices: tuple
+
+    def pos(self, stage: int) -> int:
+        """Where ``stage`` sits on the stage axis of this process's
+        stacks."""
+        return self.indices.index(stage)
+
+    def handoff(self, fwd: dict, bwd: dict, fwd_expect, bwd_expect,
+                like: torch.Tensor) -> tuple[dict, dict]:
+        raise NotImplementedError
+
+    def handoff_autograd(self, fwd: dict, fwd_expect, like: torch.Tensor):
+        """GPipe's forward exchange with its gradient: ``handoff`` of the
+        activations alone; the gradient of each received tensor goes back
+        to its sender (the transpose of ``ppermute``). Returns (received,
+        an fp32 zero scalar tied to every exchange: added to this
+        process's objective, it makes its backward run each exchange's
+        reverse send)."""
+        raise NotImplementedError
+
+
+class LocalPipeGroup(PipeGroup):
+    """All ``n`` stages of a pipeline in this process: hand-offs are moves
+    between the stages' slots (differentiable as they are)."""
+
+    def __init__(self, n: int):
+        if n < 1:
+            raise ValueError(f"a pipeline needs at least one stage, got {n}")
+        self.size = n
+        self.indices = tuple(range(n))
+
+    def _move(self, sent: dict, shift: int, expect) -> dict:
+        got = {(s + shift) % self.size: x for s, x in sent.items()}
+        if set(got) != set(expect):
+            raise AssertionError(
+                f"pipeline hand-off: stages {sorted(got)} received, "
+                f"{sorted(expect)} expected (a schedule bug)")
+        return got
+
+    def handoff(self, fwd, bwd, fwd_expect, bwd_expect, like):
+        return self._move(fwd, 1, fwd_expect), self._move(bwd, -1, bwd_expect)
+
+    def handoff_autograd(self, fwd, fwd_expect, like):
+        return self._move(fwd, 1, fwd_expect), like.new_zeros(
+            (), dtype=torch.float32)
+
+
+def _exchange(group, size: int, rank: int, sends: list, recvs: list,
+              like: torch.Tensor) -> list:
+    """One ``batch_isend_irecv`` of ``sends`` [(peer shift, tensor)] and
+    ``recvs`` [peer shift] (tensors shaped as ``like``); returns the
+    received tensors in ``recvs``' order."""
+    import torch.distributed as dist
+
+    ops, outs = [], []
+    for shift, t in sends:
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), group=group,
+                              group_peer=(rank + shift) % size))
+    for shift in recvs:
+        o = torch.empty_like(like)
+        outs.append(o)
+        ops.append(dist.P2POp(dist.irecv, o, group=group,
+                              group_peer=(rank + shift) % size))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return outs
+
+
+class _Handoff(torch.autograd.Function):
+    """One rank's forward exchange of a GPipe tick: send ``x`` (when
+    ``sends``) to the next rank, receive from the previous one (when
+    ``expect``); the backward sends the received tensor's gradient back
+    and receives the sent one's."""
+
+    @staticmethod
+    def forward(ctx, group, size, rank, sends, expect, like, x):
+        ctx.args = (group, size, rank)
+        ctx.sends, ctx.expect, ctx.like = sends, expect, like
+        got = _exchange(group, size, rank, [(1, x)] if sends else [],
+                        [-1] if expect else [], like)
+        return got[0] if expect else like.new_zeros(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        got = _exchange(*ctx.args, [(-1, g)] if ctx.expect else [],
+                        [1] if ctx.sends else [], ctx.like)
+        return (None, None, None, None, None, None,
+                got[0] if ctx.sends else None)
+
+
+class ProcessPipeGroup(PipeGroup):
+    """This process's one stage of a pipeline of ``size`` ranks of
+    ``group`` (a ``DeviceMesh``'s ``pipe`` dimension); ``rank`` is its
+    stage."""
+
+    def __init__(self, group, size: int, rank: int):
+        self.group, self.size, self.rank = group, size, rank
+        self.indices = (rank,)
+
+    def connect(self, device) -> None:
+        """One collective over the pipe's ranks, before any hand-off:
+        NCCL needs every rank of a group in the group's first call, which
+        a tick's sends and receives between two neighbours are not."""
+        import torch.distributed as dist
+
+        dist.all_reduce(torch.zeros(1, device=device), group=self.group)
+
+    def handoff(self, fwd, bwd, fwd_expect, bwd_expect, like):
+        sends = [(1, fwd[self.rank])] if self.rank in fwd else []
+        sends += [(-1, bwd[self.rank])] if self.rank in bwd else []
+        recvs = ([-1] if self.rank in fwd_expect else []) + (
+            [1] if self.rank in bwd_expect else [])
+        got = iter(_exchange(self.group, self.size, self.rank, sends,
+                             recvs, like))
+        f = {self.rank: next(got)} if self.rank in fwd_expect else {}
+        b = {self.rank: next(got)} if self.rank in bwd_expect else {}
+        return f, b
+
+    def handoff_autograd(self, fwd, fwd_expect, like):
+        sends = self.rank in fwd
+        expect = self.rank in fwd_expect
+        if not (sends or expect):
+            return {}, like.new_zeros((), dtype=torch.float32)
+        x = fwd[self.rank] if sends else like.new_zeros(0).requires_grad_()
+        out = _Handoff.apply(self.group, self.size, self.rank, sends,
+                             expect, like.detach(), x)
+        tie = out.float().sum() * 0.0
+        return ({self.rank: out} if expect else {}), tie

@@ -24,6 +24,7 @@ from tpufw_torch.train.grpo import (  # noqa: F401
     grpo_train_step,
 )
 from tpufw_torch.train.metrics import Meter, StepMetrics  # noqa: F401
+from tpufw_torch.train.pipeline_trainer import PipelineTrainer  # noqa: F401
 from tpufw_torch.train.native_data import (  # noqa: F401
     TokenCorpus,
     write_token_corpus,

@@ -1,0 +1,358 @@
+"""Pipeline-parallel trainer: the Trainer's surface over the pipeline
+schedules (port of ``tpufw.train.pipeline_trainer``).
+
+The layer stack runs on a pipe of stages (``parallel.pipeline``) instead
+of the model's trunk; the functional pipeline params (a tree of leaf
+tensors, stage stacks ``[S, lps, ...]`` or, interleaved, ``[v, S, lpc,
+...]``) replace the ``nn.Module``, and the rest is the Trainer's
+machinery: ``LlamaAdamW`` (``default_optimizer``), ``Meter`` (tokens/s
+per GPU and MFU), ``CheckpointManager`` and the SIGTERM stop through
+``run_steps``, ``shift_and_mask``'s packed-batch masking, the chunked CE,
+and the token-weighted held-out evaluation.
+
+The pipe group: without a process group, a ``LocalPipeGroup`` holds every
+stage in this process (one GPU, or the CPU); under one, the mesh of
+``mesh_cfg`` (dims ``data``, ``pipe``, ``fsdp``) gives each rank its
+stage (a ``ProcessPipeGroup`` over the ``pipe`` dimension) and makes the
+``data`` and ``fsdp`` ranks batch shards: each feeds the ``batch_size /
+(data · fsdp)`` rows of its shard (``batch_shard``), and the loss,
+gradient norm and evaluation are the global batch's. A caller may pass a
+``LocalPipeGroup`` under a process group too: every rank then holds every
+stage and the ranks are batch shards only. ``grad_accum`` above 1 raises
+(microbatching is the schedule: size ``n_microbatches``), as in
+``tpufw``; so does a mesh whose ``pipe`` is not the stage count.
+Checkpoints hold the whole model whatever the gang (a rank's stages
+gathered over the pipe), so a gang's run resumes in one process, or in
+another gang, of the same stages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator, Optional
+
+import torch
+
+from tpufw_torch.mesh import MeshConfig, build_mesh, mesh_shape
+from tpufw_torch.mesh.mesh import refuse_later_axes
+from tpufw_torch.parallel.group import LocalPipeGroup, ProcessPipeGroup
+from tpufw_torch.parallel.pipeline import (
+    Gang,
+    PipelineConfig,
+    check_group,
+    init_pipeline_params,
+    pipeline_eval,
+    stage_axis,
+    stage_slice,
+    tree_leaves,
+    tree_map,
+    value_and_grad,
+)
+from tpufw_torch.train import sharding
+from tpufw_torch.train.checkpoint import (
+    CheckpointManager,
+    check_identity,
+    config_identity,
+)
+from tpufw_torch.train.metrics import Meter, StepMetrics
+from tpufw_torch.train.trainer import (
+    TrainerConfig,
+    batch_to_device,
+    default_optimizer,
+    run_evaluation,
+    run_steps,
+)
+from tpufw_torch.utils.hardware import detect_chip, resolve_device
+
+
+class PipelineTrainer:
+    """Drives pipeline-parallel training with the Trainer's surface."""
+
+    def __init__(
+        self,
+        model_cfg,
+        pipe: PipelineConfig,
+        trainer_cfg: TrainerConfig,
+        mesh_cfg: Optional[MeshConfig] = None,
+        device=None,
+        group=None,
+    ):
+        if mesh_cfg is None:
+            mesh_cfg = MeshConfig(pipe=pipe.n_stages, fsdp=-1)
+        refuse_later_axes(dataclasses.asdict(mesh_cfg))
+        if mesh_cfg.pipe != pipe.n_stages:
+            raise ValueError(
+                f"mesh_cfg.pipe={mesh_cfg.pipe} != "
+                f"PipelineConfig.n_stages={pipe.n_stages}"
+            )
+        pipe.validate(model_cfg, trainer_cfg.batch_size)
+        if pipe.schedule != "gpipe":
+            from tpufw_torch.parallel.pipeline_1f1b import _check_1f1b
+
+            _check_1f1b(model_cfg, pipe.schedule)
+        if trainer_cfg.grad_accum != 1:
+            raise NotImplementedError(
+                "PipelineTrainer does not implement TrainerConfig fields "
+                "['grad_accum']; unset them (microbatching is the schedule: "
+                "size PipelineConfig.n_microbatches)"
+            )
+        self.model_cfg = model_cfg
+        self.pipe = pipe
+        self.cfg = trainer_cfg
+        self.device = resolve_device(device)
+        self.mesh_cfg = mesh_cfg
+        self.mesh = None
+        self.gang = Gang()
+        if group is not None and not isinstance(group, LocalPipeGroup):
+            raise TypeError(
+                f"group must be a LocalPipeGroup, got {type(group).__name__}"
+                " (a process group's pipe comes from the mesh)")
+        local_cfg = dataclasses.replace(mesh_cfg, pipe=1)
+        if sharding.active():
+            world = sharding.world_size()
+            if group is None and pipe.n_stages > 1:
+                self.mesh = build_mesh(mesh_cfg, world, self.device.type)
+                coord = dict(zip(self.mesh.mesh_dim_names,
+                                 self.mesh.get_coordinate()))
+                group = ProcessPipeGroup(self.mesh.get_group("pipe"),
+                                         pipe.n_stages, coord["pipe"])
+                group.connect(self.device)
+            else:
+                self.mesh = build_mesh(local_cfg, world, self.device.type)
+            self.gang = Gang(batch_groups=tuple(
+                self.mesh.get_group(d) for d in ("data", "fsdp")
+                if self.mesh.size(self.mesh.mesh_dim_names.index(d)) > 1),
+                active=True)
+        else:
+            # One process holds every stage: the mesh's other axes must
+            # resolve to one device.
+            mesh_shape(local_cfg, 1)
+        self.group = group or LocalPipeGroup(pipe.n_stages)
+        check_group(pipe, self.group)
+        self.params: Optional[dict] = None
+        self.optimizer = None
+        self.step = 0
+        self.preempted = False
+        self.checkpointer = None
+
+    # -- state ---------------------------------------------------------
+
+    @property
+    def holds_all(self) -> bool:
+        """True when this process holds every stage."""
+        return len(self.group.indices) == self.group.size
+
+    def batch_shard(self) -> tuple[int, int]:
+        """(this rank's batch shard, the number of batch shards): (0, 1)
+        without a process group."""
+        return sharding.batch_shard(self.mesh) if self.mesh is not None \
+            else (0, 1)
+
+    def init_state(self, seed: int = 0, params: Optional[dict] = None):
+        """Weights drawn from ``seed`` (``init_pipeline_params``, only
+        this process's stages), or ``params`` (a whole pipeline tree,
+        e.g. ``interop.pipeline_params_from_jax``'s), and a fresh optimizer
+        at step 0. Returns the params."""
+        if params is None:
+            params = init_pipeline_params(self.model_cfg, self.pipe, seed,
+                                          self.device, self.group)
+        else:
+            params = self._held(params)
+        self._assign(params)
+        self._fresh_optimizer()
+        return self.params
+
+    def _held(self, params: dict) -> dict:
+        """This process's part of a whole tree, on its device."""
+        params = tree_map(lambda a: a.to(self.device, copy=True), params)
+        return dict(params, stages=stage_slice(
+            params["stages"], self.group, self.pipe.virtual_layout))
+
+    def _assign(self, params: dict) -> None:
+        self.params = tree_map(lambda a: a.detach().requires_grad_(), params)
+
+    def _leaves(self) -> list:
+        return [p for _, p in tree_leaves(self.params)]
+
+    def _stage_flags(self) -> list:
+        return [path.startswith("stages") for path, _ in
+                tree_leaves(self.params)]
+
+    def _fresh_optimizer(self) -> None:
+        self.optimizer = default_optimizer(
+            self._leaves(), lr=self.cfg.lr,
+            warmup_steps=self.cfg.warmup_steps,
+            total_steps=self.cfg.total_steps,
+            mu_dtype=self.cfg.adam_mu_dtype)
+        self.step = 0
+
+    def _whole(self, t: torch.Tensor, stage: bool) -> torch.Tensor:
+        """A stage stack (or its moment) of every stage: this rank's
+        gathered over the pipe; other tensors as they are."""
+        if not stage or self.holds_all:
+            return t
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(t) for _ in range(self.group.size)]
+        dist.all_gather(parts, t.detach().contiguous(), group=self.group.group)
+        return torch.cat(parts, dim=stage_axis(self.pipe.virtual_layout))
+
+    def _part(self, t: torch.Tensor, stage: bool) -> torch.Tensor:
+        """Inverse of ``_whole``: this rank's stages of a whole tensor."""
+        if not stage or self.holds_all:
+            return t
+        ax = stage_axis(self.pipe.virtual_layout)
+        return t[(slice(None),) * ax + (list(self.group.indices),)]
+
+    def _map_moments(self, opt: dict, fn) -> dict:
+        """``fn(tensor, is_stage)`` on each moment of a ``LlamaAdamW``
+        state dict."""
+        flags = self._stage_flags()
+        opt = dict(opt)
+        if "adamw" in opt:
+            inner = dict(opt["adamw"])
+            inner["state"] = {
+                i: {k: (fn(v, flags[int(i)]) if k != "step" else v)
+                    for k, v in st.items()}
+                for i, st in inner["state"].items()}
+            opt["adamw"] = inner
+        else:
+            for key in ("mu", "nu"):
+                opt[key] = [fn(t, f) for t, f in zip(opt[key], flags)]
+        return opt
+
+    def whole_params(self) -> dict:
+        """The whole params, detached (this rank's stages gathered over
+        the pipe in a gang: a collective)."""
+        flags = iter(self._stage_flags())
+        return tree_map(lambda a: self._whole(a.detach(), next(flags)),
+                        self.params)
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs: step, the whole params and
+        optimizer state (gathered over the pipe), the model config's
+        identity and the pipeline's shape."""
+        return {"step": self.step,
+                "config": config_identity(self.model_cfg),
+                "pipeline": dataclasses.asdict(self.pipe),
+                "params": self.whole_params(),
+                "optimizer": self._map_moments(self.optimizer.state_dict(),
+                                               self._whole)}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Resume from ``state_dict()``'s output; ValueError for another
+        model's, or another stage layout's (stage count, chunks)."""
+        check_identity(state["config"], self.model_cfg, "the checkpoint")
+        saved = {k: state["pipeline"][k] for k in ("n_stages", "n_virtual")}
+        mine = {k: getattr(self.pipe, k) for k in saved}
+        if saved != mine:
+            raise ValueError(
+                f"the checkpoint's stage layout {saved} differs from this "
+                f"trainer's {mine}")
+        self._assign(self._held(state["params"]))
+        self._fresh_optimizer()
+        opt = self._map_moments(
+            state["optimizer"],
+            lambda t, f: self._part(t, f).to(self.device))
+        self.optimizer.load_state_dict(opt)
+        self.step = int(state["step"])
+
+    def maybe_restore(self) -> bool:
+        """Resume from the latest checkpoint under ``cfg.checkpoint_dir``,
+        if there is one; a gang's ranks must see the same latest step."""
+        if not self.cfg.checkpoint_dir:
+            return False
+        mgr = CheckpointManager(self.cfg.checkpoint_dir)
+        try:
+            latest = mgr.latest_step()
+            latest = sharding.gang_agree(-1 if latest is None else latest,
+                                         "the latest checkpoint step")
+            if latest < 0:
+                return False
+            self.load_state_dict(mgr.restore(latest, device=self.device,
+                                             mapped=self.gang.active))
+            return True
+        finally:
+            mgr.close()
+
+    # -- steps ---------------------------------------------------------
+
+    def _grad_norm(self, grads: list) -> torch.Tensor:
+        """The global gradient norm: the stage stacks' squares summed
+        over the pipe's ranks, the replicated leaves' counted once."""
+        import torch.distributed as dist
+
+        flags = self._stage_flags()
+        sq = [torch.zeros((), dtype=torch.float32, device=self.device)
+              for _ in range(2)]
+        for g, f in zip(grads, flags):
+            sq[int(f)] += g.float().square().sum()
+        dist.all_reduce(sq[1], group=self.group.group)
+        return torch.sqrt(sq[0] + sq[1])
+
+    def train_step(self, batch: dict) -> dict:
+        """One optimizer update on this rank's rows; {loss, grad_norm}
+        of the global batch."""
+        if self.params is None:
+            raise RuntimeError("train_step() before init_state()")
+        batch = batch_to_device(batch, self.device)
+        loss, grads = value_and_grad(
+            self.params, batch, self.model_cfg, self.pipe, self.group,
+            loss_chunk_size=self.cfg.loss_chunk_size,
+            loss_chunk_dtype=self.cfg.loss_chunk_dtype, gang=self.gang)
+        self.optimizer.zero_grad()
+        by_path = dict(tree_leaves(grads))
+        for path, p in tree_leaves(self.params):
+            p.grad = by_path[path].to(p.dtype)
+        norm_fn = None if self.holds_all else self._grad_norm
+        grad_norm = self.optimizer.step(norm_fn)
+        self.step += 1
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    def evaluate(self, data: Iterator[dict],
+                 n_batches: Optional[int] = None) -> dict:
+        """Token-weighted held-out loss and perplexity through the
+        forward-only pipeline, the train objective's shift and masks."""
+        if self.params is None:
+            raise RuntimeError("evaluate() before init_state()/restore")
+        return run_evaluation(
+            data, n_batches,
+            lambda b: pipeline_eval(
+                self.params, batch_to_device(b, self.device), self.model_cfg,
+                self.pipe, self.group,
+                loss_chunk_size=self.cfg.loss_chunk_size,
+                loss_chunk_dtype=self.cfg.loss_chunk_dtype, gang=self.gang))
+
+    def run(
+        self,
+        data: Iterator[dict],
+        model_flops_per_token: float,
+        on_metrics: Callable[[StepMetrics], None] | None = None,
+        eval_data: Callable[[], Iterator[dict]] | None = None,
+        on_eval: Callable[[dict], None] | None = None,
+        shutdown=None,
+    ) -> list[StepMetrics]:
+        """Train up to ``total_steps`` (a restored run trains what is
+        left) through ``run_steps``: a ``StepMetrics`` per host sync,
+        the held-out evaluation every ``eval_every`` steps, checkpoints
+        and the SIGTERM stop."""
+        if self.params is None:
+            self.init_state()
+        meter = Meter(
+            tokens_per_step=self.cfg.batch_size * (self.cfg.seq_len - 1),
+            flops_per_token=model_flops_per_token,
+            chip=detect_chip(self.device),
+            n_gpus=sharding.world_size() if self.gang.active else 1,
+        )
+
+        def after_sync():
+            every = self.cfg.eval_every
+            if every and eval_data is not None and not self.step % every:
+                ev = self.evaluate(eval_data(), self.cfg.eval_batches)
+                ev["step"] = self.step
+                if on_eval:
+                    on_eval(ev)
+
+        return run_steps(self, data, meter, on_metrics, shutdown,
+                         after_sync=after_sync, log_every=self.cfg.log_every)
+

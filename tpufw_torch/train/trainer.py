@@ -294,19 +294,21 @@ class LlamaAdamW:
             p.grad = None
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def step(self, norm_fn: Optional[Callable] = None) -> torch.Tensor:
         """One update from the parameters' ``.grad``; returns the global
         gradient norm before clipping. A parameter the loss did not reach
         (an embedding objective's LM head) takes a zero gradient, as
         optax's update of a gradient tree does: weight decay still
-        applies to it."""
+        applies to it. ``norm_fn(grads)`` gives the global norm where the
+        parameters are held apart across ranks (pipeline stages)."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         # Over sharded gradients (DTensors) the norm is the global one.
-        g_norm = sharding.full_tensor(torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads))))
+        g_norm = norm_fn(grads) if norm_fn is not None else \
+            sharding.full_tensor(torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads))))
         # optax: where(norm < max, g, g / norm * max), on each shard.
         torch._foreach_mul_([sharding.local_tensor(g) for g in grads],
                             torch.where(g_norm < self.grad_clip, 1.0,
@@ -639,6 +641,10 @@ class Trainer:
                     "(ROADMAP.md Queue 1 item 12d)")
             self.mesh = build_mesh(self.mesh_cfg, sharding.world_size(),
                                    self.device.type)
+            if "pipe" in self.mesh.mesh_dim_names:
+                raise NotImplementedError(
+                    "a pipe mesh axis above 1 trains through "
+                    "tpufw_torch.train.pipeline_trainer.PipelineTrainer")
         else:
             mesh_shape(self.mesh_cfg, 1)
         self.model: Optional[Llama] = None

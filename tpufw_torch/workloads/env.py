@@ -98,11 +98,13 @@ _LATER_AXES = {"tensor": ("tensor parallelism", "12e"),
                "expert": ("expert parallelism", "12e")}
 
 
-def mesh_from_env(world: int, moe_dispatch: str = "einsum"):
+def mesh_from_env(world: int, moe_dispatch: str = "einsum", pipe: int = 1):
     """The ``MeshConfig`` of ``TPUFW_MESH_{DATA,FSDP,EXPERT,SEQUENCE,
-    TENSOR,DCN_DATA}`` (``tpufw``'s defaults: every device on ``fsdp``),
-    checked against a ``world``-rank gang. A ``tensor`` or ``expert`` axis
-    above 1 raises NotImplementedError naming its item;
+    TENSOR,DCN_DATA}`` (``tpufw``'s defaults: every device on ``fsdp``)
+    with ``pipe`` pipeline stages (the pipeline workload's
+    ``TPUFW_PIPE_STAGES``), checked against a ``world``-rank gang. A
+    ``tensor`` or ``expert`` axis above 1 raises NotImplementedError
+    naming its item, as does ``pipe`` with ``sequence`` above 1;
     axes that do not fit the world raise ``tpufw``'s ValueError. The
     sorted MoE dispatch is refused only when the RESOLVED ``expert`` axis
     is above 1 (``tpufw`` refuses it for -1 even where -1 is one device)."""
@@ -113,12 +115,16 @@ def mesh_from_env(world: int, moe_dispatch: str = "einsum"):
             refuse_unported(f"mesh_{axis}", what, item)
     cfg = MeshConfig(
         data=env_int("mesh_data", 1),
+        pipe=pipe,
         fsdp=env_int("mesh_fsdp", -1),
         expert=env_int("mesh_expert", 1),
         sequence=env_int("mesh_sequence", 1),
         tensor=env_int("mesh_tensor", 1),
         dcn_data=env_int("mesh_dcn_data", 1),
     )
+    from tpufw_torch.mesh.mesh import refuse_pipe_with_sequence
+
+    refuse_pipe_with_sequence(pipe, cfg.sequence)
     expert = cfg.slice_sizes(world)["expert"]
     if moe_dispatch == "sorted" and expert > 1:
         raise ValueError(

@@ -1,0 +1,186 @@
+"""Pipeline-parallel LM training workload: ``python -m
+tpufw_torch.workloads.train_pipeline`` (port of
+``tpufw.workloads.train_pipeline``), on one GPU holding every stage or as
+a gang of ``data x pipe`` processes, one per GPU.
+
+Knobs (``tpufw``'s names):
+
+  TPUFW_PIPE_STAGES (required, >= 2)  pipeline stages (the mesh's pipe)
+  TPUFW_PIPE_MICROBATCHES             default 2 x stages
+  TPUFW_PIPELINE_SCHEDULE             gpipe (default) | 1f1b |
+                                      interleaved | zb1
+  TPUFW_PIPELINE_VSTAGES              chunks a stage for interleaved
+  TPUFW_PIPE_SCHEDULE                 the older spelling of the schedule;
+                                      TPUFW_PIPELINE_SCHEDULE wins
+  TPUFW_MODEL (default llama3_600m_bench; any preset of
+  ``configs.resolve_model_preset``), TPUFW_ATTENTION, TPUFW_BATCH_SIZE
+  (the global batch), TPUFW_SEQ_LEN, TPUFW_TOTAL_STEPS, TPUFW_LR,
+  TPUFW_WARMUP_STEPS, TPUFW_LOG_EVERY, TPUFW_LOSS_CHUNK_SIZE (0 = full
+  logits), TPUFW_LOSS_CHUNK_DTYPE, TPUFW_ADAM_MU_DTYPE, TPUFW_SYNC_EVERY,
+  TPUFW_EVAL_EVERY / TPUFW_EVAL_BATCHES, TPUFW_CHECKPOINT_DIR /
+  TPUFW_CHECKPOINT_EVERY, TPUFW_HANDLE_PREEMPTION /
+  TPUFW_PREEMPTION_SYNC_EVERY, TPUFW_SEED, TPUFW_DATA_SEED, TPUFW_DEVICE
+  (default ``cuda``; ``cpu`` for gloo).
+
+A gang (``tpufw``'s cluster environment, as for ``train_llama``) lays its
+ranks out over ``TPUFW_MESH_DATA`` x pipe x ``TPUFW_MESH_FSDP`` (-1, the
+default, fills): each rank runs its stage, and the ``data`` and ``fsdp``
+ranks are batch shards, each loading its rows from its own synthetic
+seeds. One process without a gang holds every stage (the other axes must
+be 1). Data: synthetic batches from the even seeds; the held-out eval's
+from the odd ones. Step metrics stream as JSON lines.
+
+Refused with an error: TPUFW_PIPE_STAGES below 2; TPUFW_GRAD_ACCUM above
+1 (microbatching is the schedule); TPUFW_MESH_TENSOR or
+TPUFW_MESH_EXPERT above 1 (ROADMAP.md Queue 1 item 12e);
+TPUFW_MESH_SEQUENCE above 1 (``tpufw``'s pipeline needs sequence 1);
+TPUFW_MOE_DISPATCH other than ``einsum`` (the pipelined MoE routes with
+the capacity router, which ``tpufw`` falls back to silently); and the
+knobs ``train_llama`` refuses (profiling, autotune, telemetry: item 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+
+from tpufw_torch.workloads.env import (
+    env_bool,
+    env_float,
+    env_int,
+    env_str,
+    mesh_from_env,
+)
+
+_T0 = time.time()
+
+
+def build_trainer(cluster=None):
+    """(PipelineTrainer, model_cfg) from the TPUFW_* environment, on
+    ``cluster``'s local device (default: the resolved cluster
+    environment)."""
+    from tpufw_torch.cluster import local_device, resolve_cluster_env
+    from tpufw_torch.configs import BENCH_CONFIG_NAME, resolve_model_preset
+    from tpufw_torch.parallel.pipeline import PipelineConfig
+    from tpufw_torch.train import PipelineTrainer, TrainerConfig, sharding
+    from tpufw_torch.workloads.train_llama import _refuse_unported_knobs
+
+    stages = env_int("pipe_stages", 0)
+    if stages < 2:
+        raise ValueError(
+            f"TPUFW_PIPE_STAGES={stages}: pipeline training needs >= 2 "
+            "stages (use tpufw_torch.workloads.train_llama for pipe=1)"
+        )
+    _refuse_unported_knobs()
+    dispatch = env_str("moe_dispatch", "")
+    if dispatch not in ("", "einsum"):
+        raise NotImplementedError(
+            f"TPUFW_MOE_DISPATCH={dispatch!r}: pipelined MoE stages route "
+            "with the capacity (einsum) dispatch only")
+    model_cfg = resolve_model_preset(env_str("model", BENCH_CONFIG_NAME))
+    backend = env_str("attention", "")
+    if backend:
+        model_cfg = dataclasses.replace(model_cfg, attention_backend=backend)
+    pipe = PipelineConfig(
+        n_stages=stages,
+        n_microbatches=env_int("pipe_microbatches", 2 * stages),
+        # TPUFW_PIPELINE_SCHEDULE wins over the older spelling.
+        schedule=env_str("pipeline_schedule", "")
+        or env_str("pipe_schedule", "gpipe"),
+        n_virtual=env_int("pipeline_vstages", 1),
+    )
+    base = TrainerConfig()
+    trainer_cfg = TrainerConfig(
+        batch_size=env_int("batch_size", 8),
+        seq_len=env_int("seq_len", model_cfg.max_seq_len),
+        total_steps=env_int("total_steps", 100),
+        lr=env_float("lr", 3e-4),
+        warmup_steps=env_int("warmup_steps", 10),
+        log_every=env_int("log_every", 10),
+        loss_chunk_size=env_int("loss_chunk_size", 0) or None,
+        loss_chunk_dtype=env_str("loss_chunk_dtype", "bfloat16"),
+        # Read so that the trainer's refusal fires on a set knob.
+        grad_accum=env_int("grad_accum", 1),
+        eval_every=env_int("eval_every", 0),
+        eval_batches=env_int("eval_batches", 8),
+        adam_mu_dtype=env_str("adam_mu_dtype", "") or None,
+        sync_every=env_int("sync_every", 1),
+        checkpoint_dir=env_str("checkpoint_dir", "") or None,
+        checkpoint_every=env_int("checkpoint_every", 100),
+        handle_preemption=env_bool("handle_preemption",
+                                   base.handle_preemption),
+        preemption_sync_every=env_int("preemption_sync_every",
+                                      base.preemption_sync_every),
+    )
+    # One process stands for the whole pipe; a gang's ranks are devices.
+    world = sharding.world_size() if sharding.active() else stages
+    mesh_cfg = mesh_from_env(world, pipe=stages)
+    device = local_device(cluster or resolve_cluster_env(),
+                          env_str("device", "cuda"))
+    trainer = PipelineTrainer(model_cfg, pipe, trainer_cfg, mesh_cfg,
+                              device=device)
+    return trainer, model_cfg
+
+
+def main() -> int:
+    from tpufw_torch.cluster import initialize_cluster
+    from tpufw_torch.train import synthetic_batches
+    from tpufw_torch.workloads._common import (
+        check_global_batch,
+        metrics_printer,
+        print_summary,
+        report_preemption,
+        resume_data_seed,
+    )
+
+    cluster = initialize_cluster(device=env_str("device", "cuda"))
+    trainer, model_cfg = build_trainer(cluster)
+    mesh = (dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))
+            if trainer.mesh is not None else {"pipe": trainer.pipe.n_stages})
+    print(
+        f"tpufw_torch train_pipeline: process {cluster.process_id}/"
+        f"{cluster.num_processes} rank {cluster.rank}/{cluster.world_size} "
+        f"device={trainer.device} mesh={mesh} "
+        f"stages={trainer.pipe.n_stages} held={list(trainer.group.indices)} "
+        f"microbatches={trainer.pipe.n_microbatches} "
+        f"schedule={trainer.pipe.schedule} "
+        f"bubble={trainer.pipe.bubble_fraction():.1%} "
+        f"params={model_cfg.n_params():,}",
+        flush=True,
+    )
+    if trainer.maybe_restore():
+        print(f"resumed from checkpoint at step {trainer.step}", flush=True)
+    else:
+        trainer.init_state(seed=env_int("seed", 0))
+    cfg = trainer.cfg
+    shard, n_shards = trainer.batch_shard()
+    local_bs = check_global_batch(cfg.batch_size, n_shards)
+    # A resumed run shuffles afresh; the eval stream keeps the base seed.
+    data_seed = resume_data_seed(env_int("data_seed", 0), trainer.step)
+    eval_data = None
+    if cfg.eval_every:
+        def eval_data():
+            return synthetic_batches(
+                local_bs, cfg.seq_len, model_cfg.vocab_size,
+                seed=env_int("data_seed", 0) * 2000 + 2 * shard + 1)
+
+    history = trainer.run(
+        synthetic_batches(local_bs, cfg.seq_len, model_cfg.vocab_size,
+                          seed=data_seed * 2000 + 2 * shard),
+        model_flops_per_token=model_cfg.flops_per_token(cfg.seq_len - 1),
+        on_metrics=metrics_printer(_T0),
+        eval_data=eval_data,
+        on_eval=lambda ev: print(json.dumps(ev), flush=True),
+    )
+    report_preemption(trainer)
+    print_summary(history)
+    if trainer.gang.active:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
