@@ -368,6 +368,26 @@ Phases, each fatal on failure:
     (step ms, peak GB, launches, the analytic bubble fraction and
     ``n_ticks``: one process runs both stages in turn, so the step time
     shows each schedule's extra compute, not its bubble).
+17. GRPO, contrastive embeddings and vision under the mesh, in a world-1
+    NCCL group the phase starts and destroys itself (as phase 14), each
+    run held to its unwrapped run of an earlier phase from the same seeds
+    and batches. 17a: 13c's GRPO (the LoRA slice at all 32 layers, 13c's
+    prompts, group, lengths and seed) for MESH_GRPO_STEPS steps of
+    ``run_rl`` sharded, the decode view over the rank's own shards (no
+    copy of the base): every rollout's tokens equal to 13c's, the mean
+    ratio within RATIO_TOL of 1, losses, KL and grad norms within
+    MESH_TOL of 13c's (absolute below 1), no flash launch in a decode,
+    every d128 kernel in each update and the launches by part 13c's per
+    step; peak memory beside 13c's. 17b: 13e's recipes on its models and
+    pairs for MESH_EMBED_STEPS steps each, the pooled vectors gathered
+    over the gang: losses, grad norms and metrics within MESH_TOL of
+    13e's, the d128 launches (LLM2Vec's non-causal) 13e's per step,
+    ``embed`` refused in the gang. 17c: phase 12's ViT-B/16 and ResNet-50
+    at batch VISION_BATCH for MESH_VISION_STEPS steps of their schedule:
+    losses, and ResNet's BatchNorm running statistics after the last
+    step, within MESH_TOL of phase 12's. A ``gang_post_summary`` line per
+    sub-phase (step ms, peak GB, ``card_state``, beside the earlier
+    run's).
 
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
@@ -379,8 +399,10 @@ scoring and updates apart, ``launches_mesh``, phase 14's sharded runs,
 and the head-dim-192 ones
 ``launches_v2lite_train``, phase 10a's; every kernel carries
 ``launches_sequence``, phase 15's ring runs, and ``launches_pipeline``,
-phase 16's runs by sub-phase and schedule), a ``phase_seconds`` line
-(each phase's wall seconds, phase 10's to 16's parts and the total), the
+phase 16's runs by sub-phase and schedule; the head-dim-128 ones
+``launches_gang_post``, phase 17's runs, GRPO's decode, scoring and
+updates apart), a ``phase_seconds`` line (each phase's wall seconds,
+phase 10's to 17's parts and the total), the
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it prints no result and exits nonzero.
@@ -688,6 +710,10 @@ MESH_TOL = 1e-6
 EMBED_RECIPES = {"e5_mistral": ("mistral_7b", True, "last", 0.02),
                  "llm2vec": ("llama3_8b", False, "mean", 0.05)}
 EMBED_PAIRS, EMBED_SEQ, EMBED_STEPS = 8, 256, 3
+# Phase 17 (the whole-batch objectives under the mesh): the steps of 13c's
+# GRPO, of each 13e recipe and of each phase-12 model run again sharded
+# in a world-1 NCCL group, held to the earlier runs within MESH_TOL.
+MESH_GRPO_STEPS, MESH_EMBED_STEPS, MESH_VISION_STEPS = 2, 2, 3
 # Wall seconds of each phase (and of phase 10's parts), printed as the
 # ``phase_seconds`` line.
 PHASE_SECONDS: dict = {}
@@ -3894,19 +3920,26 @@ def lora_phase(torch, kind, smi, gen) -> tuple[dict, dict, list]:
 # ---------------------------------------------------------- phase 12
 
 
-def vision_run(torch, name, mcfg, chip, kind, smi) -> None:
+def vision_run(torch, name, mcfg, chip, kind, smi,
+               steps=VISION_STEPS) -> dict:
     """One vision model through ``VisionTrainer.run`` at VISION_BATCH
-    images of 224 px for VISION_STEPS steps (images staged on the card):
-    finite losses; for a model with BatchNorm, the running statistics
-    moved, and an eval-mode forward uses them (it leaves them as they
-    are, and its logits move when they do) where a train-mode one uses
-    the batch's; a ``vision_train_summary`` line (images/s, MFU against
-    the card's bf16 peak, peak memory). Raises AssertionError."""
+    images of 224 px for ``steps`` of a VISION_STEPS-step schedule
+    (images staged on the card; each rank its batch shard's rows, all of
+    them outside a gang): finite losses; for a model with BatchNorm, the
+    running statistics moved, and an eval-mode forward uses them (it
+    leaves them as they are, and its logits move when they do) where a
+    train-mode one uses the batch's; a ``vision_train_summary`` line
+    (images/s, MFU against the card's bf16 peak, peak memory). Returns
+    {"losses", "bn_stats" after step MESH_VISION_STEPS, "history",
+    "peak_mem_gb"}. Raises AssertionError."""
+    import itertools
+
     from tpufw_torch.train import (
         VisionTrainer,
         VisionTrainerConfig,
         synthetic_images,
     )
+    from tpufw_torch.train.vision import batch_rows
 
     tcfg = VisionTrainerConfig(batch_size=VISION_BATCH, image_size=224,
                                num_classes=1000, total_steps=VISION_STEPS,
@@ -3917,13 +3950,21 @@ def vision_run(torch, name, mcfg, chip, kind, smi) -> None:
     stats = {k: v.clone() for k, v in model.state_dict().items()
              if k.endswith(("running_mean", "running_var"))}
     data = synthetic_images(VISION_BATCH, 224, 1000, device="cuda")
+    at_step = {}
+
+    def on_metrics(m):
+        emit({"vision_step": name} | m.as_dict())
+        if m.step == MESH_VISION_STEPS:
+            at_step.update({k: v.clone() for k, v in
+                            model.state_dict().items() if k in stats})
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     history = trainer.run(
-        data, flops_per_image=mcfg.flops_per_image(224),
-        on_metrics=lambda m: emit({"vision_step": name} | m.as_dict()))
+        batch_rows(itertools.islice(data, steps), *trainer.batch_shard()),
+        flops_per_image=mcfg.flops_per_image(224), on_metrics=on_metrics)
     torch.cuda.synchronize()
-    summary = {"model": name, "steps": len(history),
+    summary = {"model": name, "steps": len(history), "gang": trainer.gang,
                "losses": [m.loss for m in history], **_steady(history),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "batch_size": VISION_BATCH, "image_size": 224,
@@ -3936,7 +3977,9 @@ def vision_run(torch, name, mcfg, chip, kind, smi) -> None:
     summary["images_per_sec_median"] = summary.pop(
         "tokens_per_sec_per_gpu_median")
     trainer.optimizer = None
-    if len(history) != VISION_STEPS or not all(
+    out = {"losses": summary["losses"], "bn_stats": at_step,
+           "history": history, "peak_mem_gb": summary["peak_mem_gb"]}
+    if len(history) != steps or not all(
             math.isfinite(x) for x in summary["losses"]):
         emit({"vision_train_summary": summary})
         raise AssertionError(f"{name}: losses {summary['losses']}")
@@ -3974,24 +4017,34 @@ def vision_run(torch, name, mcfg, chip, kind, smi) -> None:
             raise AssertionError(f"{name}: BatchNorm statistics {summary}")
     else:
         emit({"vision_train_summary": summary})
+    return out
 
 
-def vision_phase(torch, chip, kind, smi) -> None:
-    """Phase 12: ViT-B/16 (bf16, remat) and ResNet-50 (norm_dtype bf16,
-    the workload's default) through ``vision_run``."""
+VISION_MODELS = ("vit_b16", "resnet50")
+
+
+def vision_config(torch, name):
+    """ViT-B/16 (bf16, remat) or ResNet-50 (norm_dtype bf16, the
+    workload's default)."""
     from tpufw_torch.models import VIT_CONFIGS, ResNetConfig
 
+    if name == "vit_b16":
+        return VIT_CONFIGS["vit_b16"]
+    return ResNetConfig(norm_dtype=torch.bfloat16)
+
+
+def vision_phase(torch, chip, kind, smi) -> dict:
+    """Phase 12: ViT-B/16 and ResNet-50 through ``vision_run``. Returns
+    each model's run (phase 17c's reference)."""
     emit({"phase12_allocated_at_start_gb":
           torch.cuda.memory_allocated() / 1e9})
-    _timed("12a", lambda: vision_run(torch, "vit_b16", VIT_CONFIGS["vit_b16"],
-                                     chip, kind, smi))
-    gc.collect()
-    torch.cuda.empty_cache()
-    _timed("12b", lambda: vision_run(
-        torch, "resnet50", ResNetConfig(norm_dtype=torch.bfloat16), chip,
-        kind, smi))
-    gc.collect()
-    torch.cuda.empty_cache()
+    out = {}
+    for sub, name in zip("ab", VISION_MODELS):
+        out[name] = _timed("12" + sub, lambda n=name: vision_run(
+            torch, n, vision_config(torch, n), chip, kind, smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------- phase 13
@@ -4215,22 +4268,26 @@ def dpo_run(torch, data, kind, smi) -> dict:
     return _d128_launches(flash, launches)
 
 
-def grpo_run(torch, kind, smi, gen) -> dict:
+def grpo_run(torch, kind, smi, gen, n_steps=GRPO_STEPS,
+             prompts=None) -> tuple[dict, dict]:
     """13c: GRPO of the same LoRA slice: GRPO_PROMPTS prompts x group
     GRPO_GROUP rows of GRPO_SEQ tokens, GRPO_NEW sampled tokens at
-    temperature 1, kl_beta GRPO_KL_BETA, GRPO_STEPS steps of ``run_rl``
-    with the ``low_token`` reward. Each rollout's decode, its scoring of
-    the old log-probs and each update are counted apart. Checks:
-    completions in vocab; rows right-padded with the mask on the
-    completion only; every step's mean ratio within RATIO_TOL of 1 with
-    no clip; step 1's KL 0; no flash launch in any decode, every d128
-    kernel in each update. Returns the launches by part."""
+    temperature 1, kl_beta GRPO_KL_BETA, ``n_steps`` steps of ``run_rl``
+    with the ``low_token`` reward (the slice warms up over 2 steps, so
+    the first 2 steps do not depend on the step budget). Each rollout's
+    decode, its scoring of the old log-probs and each update are counted
+    apart. Checks: completions in vocab; rows right-padded with the mask
+    on the completion only; every step's mean ratio within RATIO_TOL of 1
+    with no clip; step 1's KL 0; no flash launch in any decode, every
+    d128 kernel in each update. ``prompts``: drawn from ``gen`` when
+    None. Returns (the launches by part, {"prompts", "tokens" and
+    "history" a step, "peak_mem_gb", "gang"})."""
     from tpufw_torch import configs
     from tpufw_torch.ops import flash
     from tpufw_torch.train import GRPOConfig, GRPOTrainer
     from tpufw_torch.workloads.rl import resolve_reward
 
-    cfg, tcfg = configs.llama3_8b_lora_train_slice(total_steps=GRPO_STEPS)
+    cfg, tcfg = configs.llama3_8b_lora_train_slice(total_steps=n_steps)
     tcfg = dataclasses.replace(tcfg, batch_size=GRPO_PROMPTS * GRPO_GROUP,
                                seq_len=GRPO_SEQ, loss_chunk_size=GRPO_SEQ)
     trainer = GRPOTrainer(cfg, tcfg, device="cuda", grpo=GRPOConfig(
@@ -4238,9 +4295,10 @@ def grpo_run(torch, kind, smi, gen) -> dict:
         kl_beta=GRPO_KL_BETA))
     model = trainer.init_state(seed=0)
     before = _adapters_and_base(torch, model)
-    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
-                             device="cuda").tolist()
-               for n in GRPO_PROMPT_LENS]
+    if prompts is None:
+        prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                                 device="cuda").tolist()
+                   for n in GRPO_PROMPT_LENS]
     parts = {"decode": [], "score": [], "update": []}
     timing = {"score_s": []}
     batches = []
@@ -4324,10 +4382,14 @@ def grpo_run(torch, kind, smi, gen) -> dict:
         "rows": rows, "seq_len": GRPO_SEQ, "max_new_tokens": GRPO_NEW,
         "kl_beta": GRPO_KL_BETA, "reference": "the policy's base, adapters "
         "bypassed", "rows_right_padded_and_masked": all(rows_ok),
-        "adapters": moved, "device": kind, "nvidia_smi": smi}
+        "adapters": moved, "gang": trainer.gang, "device": kind,
+        "nvidia_smi": smi}
     emit({"grpo_summary": summary})
+    ref = {"prompts": prompts, "tokens": [b["tokens"] for b in batches],
+           "history": history, "peak_mem_gb": summary["peak_mem_gb"],
+           "gang": trainer.gang}
     del trainer, model, before, batches
-    if len(history) != GRPO_STEPS or not all(rows_ok):
+    if len(history) != n_steps or not all(rows_ok):
         raise AssertionError(f"GRPO: {len(history)} steps, rows ok "
                              f"{sum(rows_ok)}/{len(rows_ok)}")
     for h in history:
@@ -4343,7 +4405,7 @@ def grpo_run(torch, kind, smi, gen) -> dict:
         _d128_launches(flash, x)
     path = [flash.kernel_name(k, 128) for k in flash.KERNELS]
     return {part: {k: sum(x[k] for x in parts[part]) for k in path}
-            for part in parts}
+            for part in parts}, ref
 
 
 def distill_check(torch, trainer, tokens) -> dict:
@@ -4453,15 +4515,20 @@ def distill_run(torch, kind, smi) -> dict:
     return _d128_launches(flash, launches)
 
 
-def embed_run(torch, recipe, data, kind, smi) -> dict:
+def embed_run(torch, recipe, data, kind, smi,
+              steps=EMBED_STEPS) -> tuple[dict, dict]:
     """13e, one recipe of EMBED_RECIPES at all 32 layers with rank-16
     adapters: EMBED_PAIRS pairs (2 x EMBED_PAIRS rows) of EMBED_SEQ
-    tokens through ``EmbeddingTrainer.run`` for EMBED_STEPS steps,
-    counters zeroed just before. Checks: finite InfoNCE losses; every d128
-    kernel launched; ``embed`` gives unit-norm [N, D] vectors; a changed
-    last token moves the first position's hidden state under the
-    bidirectional trunk and not under the causal one;
-    ``evaluate_retrieval`` runs. Returns the launches."""
+    tokens through ``EmbeddingTrainer.run`` for ``steps`` of an
+    EMBED_STEPS-step schedule, counters zeroed just before. Checks:
+    finite InfoNCE losses; every d128 kernel launched; ``embed`` gives
+    unit-norm [N, D] vectors (in a gang it refuses: one process's
+    surface); a changed last token moves the first position's hidden
+    state under the bidirectional trunk and not under the causal one;
+    ``evaluate_retrieval`` runs. Returns (the launches, {"metrics" a
+    step, "history", "peak_mem_gb"})."""
+    import itertools
+
     from tpufw_torch.models import PRESETS
     from tpufw_torch.ops import flash
     from tpufw_torch.train import ContrastiveConfig, EmbeddingTrainer
@@ -4482,20 +4549,42 @@ def embed_run(torch, recipe, data, kind, smi) -> dict:
                                contrastive=ContrastiveConfig(
                                    temperature=temp, pooling=pooling))
     model = trainer.init_state(seed=0)
+    rec = _recorded(trainer, ("loss", "grad_norm", "accuracy", "sim_pos",
+                              "sim_neg"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash.reset_launch_counts()
     history = trainer.run(
-        pair_batches(data["embed"], EMBED_PAIRS, EMBED_SEQ, byte_encode),
+        itertools.islice(pair_batches(data["embed"], EMBED_PAIRS, EMBED_SEQ,
+                                      byte_encode), steps),
         model_flops_per_token=embed_flops_per_token(cfg, EMBED_SEQ))
     torch.cuda.synchronize()
     launches = dict(flash.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    ref = {"metrics": _floats(rec), "history": history, "peak_mem_gb": peak}
     trainer.optimizer = None
     model.zero_grad(set_to_none=True)
     import numpy as np
 
     toks, seg = _fit(byte_encode("what is a retrieval encoder?"), EMBED_SEQ)
+    if trainer.gang:
+        try:
+            trainer.embed(toks[None], seg[None])
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError("embed() ran in a gang")
+        summary = {"recipe": recipe, "gang": True, "steps": len(history),
+                   "losses": [m.loss for m in history],
+                   "peak_mem_gb": peak, "launches": launches,
+                   "embed_refused_in_gang": True, "device": kind,
+                   "nvidia_smi": smi}
+        emit({"embed_train_summary": summary})
+        del trainer, model
+        if len(history) != steps or not all(
+                math.isfinite(m.loss) for m in history):
+            raise AssertionError(f"embeddings {recipe}: {summary['losses']}")
+        return _d128_launches(flash, launches), ref
     emb = trainer.embed(np.stack([toks, toks]), np.stack([seg, seg]))
     norms = np.linalg.norm(emb, axis=-1)
     x = torch.as_tensor(toks[None], device="cuda").long()
@@ -4521,7 +4610,7 @@ def embed_run(torch, recipe, data, kind, smi) -> dict:
                "retrieval": retrieval, "device": kind, "nvidia_smi": smi}
     emit({"embed_train_summary": summary})
     del trainer, model
-    if len(history) != EMBED_STEPS or not all(
+    if len(history) != steps or not all(
             math.isfinite(m.loss) for m in history):
         raise AssertionError(f"embeddings {recipe}: {summary['losses']}")
     if emb.shape != (2, cfg.d_model) or not np.allclose(norms, 1.0,
@@ -4530,7 +4619,7 @@ def embed_run(torch, recipe, data, kind, smi) -> dict:
     if (moved0 > 0) == causal:
         raise AssertionError(f"{recipe}: causal={causal} but the first "
                              f"position moved by {moved0}")
-    return _d128_launches(flash, launches)
+    return _d128_launches(flash, launches), ref
 
 
 def post_train_phase(torch, kind, smi, gen) -> dict:
@@ -4539,14 +4628,15 @@ def post_train_phase(torch, kind, smi, gen) -> dict:
     the 1b proxy teacher) and 13e the two embedding recipes, each with
     its models freed before the next. Data files are written to a
     gitignored directory of the checkout, deleted after. Returns
-    {sub-phase: {kernel: launches}} of the d128 kernels."""
+    ({sub-phase: {kernel: launches}} of the d128 kernels, the GRPO and
+    embedding runs' references for phase 17)."""
     emit({"phase13_allocated_at_start_gb":
           torch.cuda.memory_allocated() / 1e9,
           "card_state": nvidia_smi(CARD_STATE),
           "card_state_query": CARD_STATE})
     workdir = os.path.join(ROOT, "build-torch", f"phase13-{os.getpid()}")
     os.makedirs(workdir, exist_ok=True)
-    out = {}
+    out, refs = {}, {}
 
     def sub(name, fn):
         try:
@@ -4559,18 +4649,19 @@ def post_train_phase(torch, kind, smi, gen) -> dict:
         data = post_train_data(workdir)
         out["sft"] = sub("13a", lambda: sft_run(torch, data, kind, smi))
         out["dpo"] = sub("13b", lambda: dpo_run(torch, data, kind, smi))
-        for part, counts in sub("13c", lambda: grpo_run(
-                torch, kind, smi, gen)).items():
+        parts, refs["grpo"] = sub("13c", lambda: grpo_run(
+            torch, kind, smi, gen))
+        for part, counts in parts.items():
             out["grpo_" + part] = counts
         out["distill"] = sub("13d", lambda: distill_run(torch, kind, smi))
         for i, recipe in enumerate(EMBED_RECIPES):
-            out["embed_" + recipe] = sub(
+            out["embed_" + recipe], refs["embed_" + recipe] = sub(
                 f"13e{i + 1}", lambda r=recipe: embed_run(torch, r, data,
                                                           kind, smi))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     emit({"phase13_card_state_at_end": nvidia_smi(CARD_STATE)})
-    return out
+    return out, refs
 
 
 # ---------------------------------------------------------- phase 14
@@ -5278,6 +5369,183 @@ def pipeline_phase(torch, kind, smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------- phase 17
+
+
+def _mesh_diff(a, b) -> float:
+    """The largest |a - b| / max(|b|, 1) over two lists of numbers:
+    relative above 1, absolute below (GRPO's loss at a ratio of 1 is
+    rounding noise around 0)."""
+    return max((abs(x - y) / max(abs(y), 1.0) for x, y in zip(a, b)),
+               default=0.0)
+
+
+def _scaled_launches(launches: dict, steps: int, of: int) -> dict:
+    """An earlier run's launches of ``of`` steps, scaled to ``steps``:
+    what the same steps launch again."""
+    return {k: v * steps // of for k, v in launches.items()}
+
+
+def gang_grpo(torch, kind, smi, ref, launches) -> dict:
+    """17a: 13c again sharded, MESH_GRPO_STEPS steps of ``run_rl`` on
+    13c's prompts, group, lengths and seed (``grpo_run``'s checks: mean
+    ratio within RATIO_TOL of 1, no flash launch in a decode, every d128
+    kernel in each update). Held to 13c: every rollout's tokens equal,
+    the losses, KL and grad norms within MESH_TOL (``_mesh_diff``), the
+    launches by part 13c's per step. Returns the launches by part."""
+    import numpy as np
+
+    parts, got = grpo_run(torch, kind, smi, None, n_steps=MESH_GRPO_STEPS,
+                          prompts=ref["prompts"])
+    want = ref["history"][:MESH_GRPO_STEPS]
+    diffs = {k: _mesh_diff([h[k] for h in got["history"]],
+                           [h[k] for h in want])
+             for k in ("loss", "kl", "grad_norm", "mean_ratio")}
+    tokens_equal = len(got["tokens"]) == MESH_GRPO_STEPS and all(
+        np.array_equal(a, b) for a, b in zip(got["tokens"], ref["tokens"]))
+    predicted = {part: _scaled_launches(launches["grpo_" + part],
+                                        MESH_GRPO_STEPS, GRPO_STEPS)
+                 for part in parts}
+    summary = {"sub_phase": "17a", "objective": "grpo",
+               "model": "llama3_8b_lora (32 layers, rank 16)",
+               "gang": got["gang"], "steps": MESH_GRPO_STEPS,
+               "rows": GRPO_PROMPTS * GRPO_GROUP,
+               "rollout_tokens_equal_13c": tokens_equal,
+               "max_diff": diffs, "tol": MESH_TOL,
+               "bit_equal": all(v == 0.0 for v in diffs.values()),
+               "losses": [h["loss"] for h in got["history"]],
+               "losses_13c": [h["loss"] for h in want],
+               "kl": [h["kl"] for h in got["history"]],
+               "kl_13c": [h["kl"] for h in want],
+               "step_ms": [1e3 * (h["rollout_s"] + h["update_s"])
+                           for h in got["history"]],
+               "step_ms_13c": [1e3 * (h["rollout_s"] + h["update_s"])
+                               for h in want],
+               "peak_mem_gb": got["peak_mem_gb"],
+               "peak_mem_gb_13c": ref["peak_mem_gb"],
+               "launches": parts, "launches_predicted": predicted,
+               "card_state": nvidia_smi(CARD_STATE), "device": kind,
+               "nvidia_smi": smi}
+    emit({"gang_post_summary": summary})
+    if not (got["gang"] and tokens_equal
+            and max(diffs.values()) <= MESH_TOL and parts == predicted):
+        raise AssertionError(f"17a: {summary}")
+    return parts
+
+
+def gang_embed(torch, recipe, data, kind, smi, ref, launches) -> dict:
+    """17b, one recipe: 13e's model and pairs again sharded for
+    MESH_EMBED_STEPS steps (``embed_run``; in the gang ``embed`` refuses):
+    losses, grad norms, accuracy, sim_pos and sim_neg within MESH_TOL of
+    13e's, the d128 launches (non-causal for LLM2Vec) 13e's per step.
+    Returns the launches."""
+    got_launches, got = embed_run(torch, recipe, data, kind, smi,
+                                  steps=MESH_EMBED_STEPS)
+    want = ref["metrics"][:MESH_EMBED_STEPS]
+    diffs = {k: _mesh_diff([m[k] for m in got["metrics"]],
+                           [m[k] for m in want]) for k in want[0]}
+    predicted = _scaled_launches(launches, MESH_EMBED_STEPS, EMBED_STEPS)
+    summary = {"sub_phase": "17b", "objective": "embed_" + recipe,
+               "model": EMBED_RECIPES[recipe][0], "gang": True,
+               "causal": EMBED_RECIPES[recipe][1], "steps": MESH_EMBED_STEPS,
+               "metrics": got["metrics"], "metrics_13e": want,
+               "max_diff": diffs, "tol": MESH_TOL,
+               "bit_equal": all(v == 0.0 for v in diffs.values()),
+               "step_ms": [1e3 * m.step_time_s for m in got["history"]],
+               "step_ms_13e": [1e3 * m.step_time_s
+                               for m in ref["history"]][:MESH_EMBED_STEPS],
+               "peak_mem_gb": got["peak_mem_gb"],
+               "peak_mem_gb_13e": ref["peak_mem_gb"],
+               "launches": got_launches, "launches_predicted": predicted,
+               "card_state": nvidia_smi(CARD_STATE), "device": kind,
+               "nvidia_smi": smi}
+    emit({"gang_post_summary": summary})
+    if max(diffs.values()) > MESH_TOL or got_launches != predicted:
+        raise AssertionError(f"17b {recipe}: {summary}")
+    return got_launches
+
+
+def gang_vision(torch, chip, name, kind, smi, ref) -> None:
+    """17c, one model: phase 12's run again sharded for MESH_VISION_STEPS
+    steps of its schedule (``vision_run``, each rank its rows of the
+    global batch): losses within MESH_TOL of phase 12's, and ResNet's
+    BatchNorm running statistics after the last step within MESH_TOL of
+    phase 12's after the same step."""
+    got = vision_run(torch, name, vision_config(torch, name), chip, kind,
+                     smi, steps=MESH_VISION_STEPS)
+    want = ref["losses"][:MESH_VISION_STEPS]
+    d_loss = _mesh_diff(got["losses"], want)
+    d_bn = max((float((got["bn_stats"][k] - v).abs().max())
+                / max(float(v.abs().max()), 1.0)
+                for k, v in ref["bn_stats"].items()), default=0.0)
+    summary = {"sub_phase": "17c", "objective": name, "gang": True,
+               "steps": MESH_VISION_STEPS, "batch_size": VISION_BATCH,
+               "losses": got["losses"], "losses_12": want,
+               "max_diff_loss": d_loss, "bn_stats": len(ref["bn_stats"]),
+               "max_diff_bn_stats": d_bn, "tol": MESH_TOL,
+               "bit_equal": d_loss == 0.0 and d_bn == 0.0,
+               "step_ms": [1e3 * m.step_time_s for m in got["history"]],
+               "step_ms_12": [1e3 * m.step_time_s
+                              for m in ref["history"]][:MESH_VISION_STEPS],
+               "peak_mem_gb": got["peak_mem_gb"],
+               "peak_mem_gb_12": ref["peak_mem_gb"],
+               "card_state": nvidia_smi(CARD_STATE), "device": kind,
+               "nvidia_smi": smi}
+    emit({"gang_post_summary": summary})
+    if (len(got["losses"]) != MESH_VISION_STEPS
+            or max(d_loss, d_bn) > MESH_TOL
+            or set(got["bn_stats"]) != set(ref["bn_stats"])):
+        raise AssertionError(f"17c {name}: {summary}")
+
+
+def gang_post_phase(torch, chip, kind, smi, vision_refs, post_refs,
+                    post_launches) -> dict:
+    """Phase 17: GRPO, contrastive embeddings and vision under the mesh,
+    in a world-1 NCCL group on this card that the phase starts on a
+    localhost ``TCPStore`` and destroys at its end (as phase 14): 17a
+    GRPO, 17b each embedding recipe, 17c ViT-B/16 and ResNet-50, each
+    held to its unwrapped run of phases 12 and 13 from the same seeds and
+    batches, with its models freed before the next. Returns
+    {run: {kernel: launches}} of the d128 kernels."""
+    import torch.distributed as dist
+
+    from tpufw_torch.cluster import init_process_group
+
+    emit({"phase17_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "card_state": nvidia_smi(CARD_STATE)})
+    workdir = os.path.join(ROOT, "build-torch", f"phase17-{os.getpid()}")
+    os.makedirs(workdir, exist_ok=True)
+    out = {}
+
+    def sub(name, fn):
+        try:
+            return _timed(name, fn)
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    init_process_group(f"127.0.0.1:{_free_port()}", 1, 0,
+                       torch.device("cuda", 0))
+    try:
+        for part, counts in sub("17a", lambda: gang_grpo(
+                torch, kind, smi, post_refs["grpo"], post_launches)).items():
+            out["grpo_" + part] = counts
+        data = post_train_data(workdir)
+        for i, recipe in enumerate(EMBED_RECIPES):
+            name = "embed_" + recipe
+            out[name] = sub(f"17b{i + 1}", lambda r=recipe, n=name: gang_embed(
+                torch, r, data, kind, smi, post_refs[n], post_launches[n]))
+        for i, model in enumerate(VISION_MODELS):
+            sub(f"17c{i + 1}", lambda m=model: gang_vision(
+                torch, chip, m, kind, smi, vision_refs[m]))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase17_card_state_at_end": nvidia_smi(CARD_STATE)})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5533,7 +5801,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     try:
-        _timed("12", lambda: vision_phase(torch, chip, kind, smi))
+        vision_refs = _timed("12", lambda: vision_phase(torch, chip, kind,
+                                                        smi))
     except AssertionError as e:
         return fail(str(e))
 
@@ -5541,7 +5810,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     try:
-        post_launches = _timed("13", lambda: post_train_phase(
+        post_launches, post_refs = _timed("13", lambda: post_train_phase(
             torch, kind, smi, gen))
     except AssertionError as e:
         return fail(str(e))
@@ -5571,6 +5840,17 @@ def main() -> int:
         pipe_launches = _timed("16", lambda: pipeline_phase(torch, kind, smi))
     except AssertionError as e:
         return fail(str(e))
+
+    # 17. GRPO, embeddings and vision under the mesh, with phase 16's
+    # models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        gang_post_launches = _timed("17", lambda: gang_post_phase(
+            torch, chip, kind, smi, vision_refs, post_refs, post_launches))
+    except AssertionError as e:
+        return fail(str(e))
+    del vision_refs, post_refs
 
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
@@ -5621,6 +5901,11 @@ def main() -> int:
             # Llama-3-8B LoRA slice.
             kernels[-1]["launches_mesh"] = {
                 part: counts[name] for part, counts in mesh_launches.items()}
+            # Phase 17's sharded runs: 17a GRPO's decode, scoring and
+            # updates apart, 17b each embedding recipe.
+            kernels[-1]["launches_gang_post"] = {
+                part: counts[name]
+                for part, counts in gang_post_launches.items()}
         # Phase 15's runs: 15a's one-process rings and Ulysses, 15b's
         # ring and ulysses trainers (one shard).
         kernels[-1]["launches_sequence"] = {

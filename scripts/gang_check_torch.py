@@ -3,6 +3,7 @@ against one process on the same global batches.
 
     python3 scripts/gang_check_torch.py [--world 4] [--cpu] [--model NAME]
         [--batch 16] [--seq 2049] [--steps 3] [--tol 1e-3]
+        [--suite lm|post|all]
 
 The parent builds the CUDA kernels, then starts ``--world`` ranks of this
 script on one host, told their rank as a per-GPU launcher tells them
@@ -27,10 +28,21 @@ parent trains the same steps in one process on the global batches
 (unsharded, at each run's ``grad_accum``; a pipeline on a
 ``LocalPipeGroup`` holding every stage), holds each run's losses and
 grad norms to it within ``--tol`` relative, and resumes the gang's checkpoint in one process:
-its step-2 loss within ``--tol`` of the unbroken run's. One JSON line per
-result, then (on GPUs) each card's name and power limit from
-``nvidia-smi``, ``{"ok": true, ...}`` last; exits nonzero when a check
-fails.
+its step-2 loss within ``--tol`` of the unbroken run's. That is the
+``lm`` suite. The ``post`` suite trains the objectives over the whole
+batch, every rank on ``fsdp``, each against one process within
+``--tol``: E5 (``EmbeddingTrainer``, causal, last-token pooling) on
+``--model``, 32 pairs of 256 tokens, the pooled vectors gathered over
+the gang; GRPO (``run_rl``) on ``--model``, 2 prompts x group 8, 32 new
+tokens, 2 steps, every rank rolling out all rows (the ranks' tokens
+equal at every step, step 1's those of one process; later steps' share
+of one process's tokens is printed); ResNet-50 at batch 256
+(``MeshConfig()``), BatchNorm's statistics over the gang. With
+``--cpu`` the post suite runs tiny sizes (a rehearsal of its code
+paths). ``--suite all`` runs both, ``lm`` (the default) the first alone.
+One JSON line per result, then (on GPUs) each card's name and power
+limit from ``nvidia-smi``, ``{"ok": true, ...}`` last; exits nonzero
+when a check fails.
 """
 
 from __future__ import annotations
@@ -127,6 +139,195 @@ def _pipeline_trainer(cfg, tcfg, stages, micro, schedule, data, dev,
                            tcfg, mesh, device=dev)
 
 
+# The post suite's sizes: (E5 pairs, E5 tokens a row, GRPO prompt
+# lengths, group, new tokens, ResNet batch, image size, ResNet stages,
+# width), on GPUs and in the CPU rehearsal.
+POST_SIZES = {"gpu": (32, 256, (100, 150), 8, 32, 256, 224, (3, 4, 6, 3), 64),
+              "cpu": (8, 32, (5, 7), 4, 8, 16, 32, (1, 1), 8)}
+POST_STEPS = {"e5": 3, "grpo": 2, "resnet50": 3}
+
+
+def _post_runs(args, dev) -> dict:
+    """Each whole-batch objective's numbers on ``dev``: sharded over
+    every rank on ``fsdp`` when a process group is up (each rank its
+    batch shard's rows), else in one process on the global batch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import tpufw_torch.infer
+    from tpufw_torch.configs import resolve_model_preset
+    from tpufw_torch.models import ResNetConfig
+    from tpufw_torch.train import (
+        ContrastiveConfig,
+        EmbeddingTrainer,
+        GRPOConfig,
+        GRPOTrainer,
+        TrainerConfig,
+        VisionTrainer,
+        VisionTrainerConfig,
+        synthetic_images,
+    )
+    from tpufw_torch.train.vision import batch_rows
+    from tpufw_torch.workloads.rl import resolve_reward
+
+    pairs, tokens, prompt_lens, group, new, images, size, stages, width = \
+        POST_SIZES["cpu" if args.cpu else "gpu"]
+    cfg = resolve_model_preset(args.model)
+    if args.cpu:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cuda = dev.type == "cuda"
+    out = {}
+
+    def measured(name, run):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        out[name] = run()
+        if cuda:
+            out[name]["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    def e5():
+        rng = np.random.default_rng(17)
+        tr = EmbeddingTrainer(
+            cfg, TrainerConfig(batch_size=2 * pairs, seq_len=tokens,
+                               total_steps=POST_STEPS["e5"], warmup_steps=1,
+                               lr=2e-5, log_every=1, handle_preemption=False),
+            device=dev, contrastive=ContrastiveConfig(pooling="last",
+                                                      temperature=0.02))
+        tr.init_state(seed=0)
+        shard, n = tr.batch_shard()
+        rows = 2 * pairs // n
+        rec, step_ms = [], []
+        for _ in range(POST_STEPS["e5"]):
+            lens = rng.integers(tokens // 4, tokens + 1, 2 * pairs)
+            seg = (np.arange(tokens) < lens[:, None]).astype(np.int32)
+            toks = rng.integers(1, cfg.vocab_size, (2 * pairs, tokens)) * seg
+            part = slice(shard * rows, (shard + 1) * rows)
+            t0 = time.perf_counter()
+            rec.append({k: float(v) for k, v in tr.train_step(
+                {"tokens": toks[part].astype(np.int32),
+                 "segment_ids": seg[part]}).items()})
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        return {"losses": [m["loss"] for m in rec],
+                "grad_norms": [m["grad_norm"] for m in rec],
+                "accuracy": [m["accuracy"] for m in rec],
+                "step_ms": step_ms}
+
+    def grpo():
+        rng = np.random.default_rng(18)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in prompt_lens]
+        tr = GRPOTrainer(
+            cfg, TrainerConfig(batch_size=len(prompts) * group,
+                               seq_len=max(prompt_lens) + new,
+                               total_steps=POST_STEPS["grpo"], lr=1e-5,
+                               warmup_steps=0, log_every=1,
+                               loss_chunk_size=64, handle_preemption=False),
+            device=dev, grpo=GRPOConfig(group_size=group, max_new_tokens=new,
+                                        kl_beta=0.02))
+        tr.init_state(seed=0)
+        completions, generate = [], tpufw_torch.infer.generate
+
+        def recorded(*a, **k):
+            toks = generate(*a, **k)
+            completions.append(toks.cpu().tolist())
+            return toks
+
+        tpufw_torch.infer.generate = recorded
+        try:
+            hist = tr.run_rl(prompts, resolve_reward(
+                "low_token", cfg.vocab_size, new), seed=0)
+        finally:
+            tpufw_torch.infer.generate = generate
+        return {"losses": [h["loss"] for h in hist],
+                "grad_norms": [h["grad_norm"] for h in hist],
+                "kl": [h["kl"] for h in hist],
+                "mean_ratio": [h["mean_ratio"] for h in hist],
+                "completions": completions,
+                "step_ms": [1e3 * (h["rollout_s"] + h["update_s"])
+                            for h in hist]}
+
+    def resnet():
+        mcfg = ResNetConfig(stage_sizes=stages, width=width,
+                            norm_dtype=torch.bfloat16,
+                            **({"dtype": torch.float32} if args.cpu else {}))
+        tr = VisionTrainer(mcfg, VisionTrainerConfig(
+            batch_size=images, image_size=size, num_classes=1000,
+            total_steps=POST_STEPS["resnet50"], lr=0.1,
+            handle_preemption=False), device=dev)
+        tr.init_state(seed=0)
+        data = synthetic_images(images, size, 1000, device=dev)
+        hist = tr.run(batch_rows(data, *tr.batch_shard()),
+                      flops_per_image=mcfg.flops_per_image(size))
+        stats = {k: v.float().cpu() for k, v in tr.model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return {"losses": [m.loss for m in hist], "bn_stats": stats,
+                "step_ms": [1e3 * m.step_time_s for m in hist]}
+
+    for name, run in (("e5", e5), ("grpo", grpo), ("resnet50", resnet)):
+        measured(name, run)
+    return out
+
+
+def _post_checks(args, ranks: list, single: dict) -> bool:
+    """One JSON line per whole-batch objective: the gang's ranks agree,
+    and rank 0 is within ``--tol`` of one process (relative above 1,
+    absolute below: GRPO's loss is rounding noise at a ratio of 1; its
+    rollout tokens equal); True when every check holds."""
+    def diff(a, b):
+        return max((abs(x - y) / max(abs(y), 1.0) for x, y in zip(a, b)),
+                   default=0.0)
+
+    ok = True
+    for name, want in single.items():
+        got = ranks[0][name]
+        keys = [k for k in ("losses", "grad_norms", "kl", "accuracy")
+                if k in want]
+        diffs = {k: diff(got[k], want[k]) for k in keys}
+        same = all(r[name]["losses"] == got["losses"] for r in ranks)
+        line = {"check": f"gang_{name}_vs_one_process", "world": args.world,
+                "ranks_equal": same, "max_diff": diffs, "tol": args.tol,
+                **{f"{k}_gang": got[k] for k in keys},
+                **{f"{k}_one_process": want[k] for k in keys},
+                "step_ms_gang_rank0": got.get("step_ms"),
+                "step_ms_one_process": want.get("step_ms"),
+                "peak_gb_gang_rank0": got.get("peak_gb"),
+                "peak_gb_one_process": want.get("peak_gb")}
+        good = same and len(got["losses"]) == POST_STEPS[name] and \
+            max(diffs.values()) <= args.tol
+        if name == "grpo":
+            # Every rank samples the same tokens at every step (the
+            # replicated rollout), step 1's those of one process (the same
+            # weights). After an update a gang's weights are one process's
+            # only up to the rounding of each rank's bf16 weight-gradient
+            # sum, which can flip a sample: later steps' agreement with
+            # one process is reported, not gated.
+            line["tokens_equal_across_ranks"] = all(
+                r[name]["completions"] == got["completions"] for r in ranks)
+            line["tokens_equal_one_process_share"] = [
+                sum(a == b for ga, wa in zip(g, w) for a, b in zip(ga, wa))
+                / sum(len(wa) for wa in w)
+                for g, w in zip(got["completions"], want["completions"])]
+            line["mean_ratio_gang"] = got["mean_ratio"]
+            good &= (line["tokens_equal_across_ranks"]
+                     and len(got["completions"]) == POST_STEPS[name]
+                     and line["tokens_equal_one_process_share"][0] == 1.0
+                     and all(abs(x - 1.0) <= 1e-6
+                             for x in got["mean_ratio"]))
+        if name == "resnet50":
+            line["max_diff_bn_stats"] = max(
+                float((got["bn_stats"][k] - v).abs().max())
+                / max(float(v.abs().max()), 1.0)
+                for k, v in want["bn_stats"].items())
+            good &= line["max_diff_bn_stats"] <= args.tol
+        line["ok"] = good
+        ok &= good
+        emit(line)
+    return ok
+
+
 def rank_main(args) -> int:
     import dataclasses
 
@@ -143,6 +344,12 @@ def rank_main(args) -> int:
                                  timeout_s=120)
     rank, world = cluster.rank, cluster.world_size
     dev = local_device(cluster, "cpu" if args.cpu else None)
+    if args.suite in ("all", "post"):
+        post = _post_runs(args, dev)
+        torch.save(post, os.path.join(args.out, f"rank{rank}_post.pt"))
+    if args.suite == "post":
+        dist.destroy_process_group()
+        return 0
     cfg, tcfg, batches = _setup(args)
 
     def local(trainer):
@@ -224,7 +431,8 @@ def parent_main(args) -> int:
     argv = [sys.executable, os.path.abspath(__file__), "--rank-of-gang",
             "--out", args.out, "--ckpt", args.ckpt, "--model", args.model,
             "--batch", str(args.batch), "--seq", str(args.seq),
-            "--steps", str(args.steps)] + (["--cpu"] if args.cpu else [])
+            "--steps", str(args.steps), "--suite", args.suite] + (
+                ["--cpu"] if args.cpu else [])
     env = {k: v for k, v in os.environ.items() if not k.startswith("TPUFW_")}
     env |= {"TPUFW_COORDINATOR": f"127.0.0.1:{port}",
             "TPUFW_NUM_PROCESSES": "1", "TPUFW_PROCESS_ID": "0",
@@ -243,10 +451,6 @@ def parent_main(args) -> int:
     if any(rcs):
         emit({"gang_failed": rcs})
         return 1
-    ranks = []
-    for r in range(args.world):
-        with open(os.path.join(args.out, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
 
     import torch
 
@@ -255,6 +459,18 @@ def parent_main(args) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = "cpu" if args.cpu else "cuda"
+    ok = True
+    if args.suite in ("all", "post"):
+        ok &= _post_checks(args, [
+            torch.load(os.path.join(args.out, f"rank{r}_post.pt"),
+                       weights_only=False) for r in range(args.world)],
+            _post_runs(args, torch.device(dev)))
+    if args.suite == "post":
+        return _finish(args, ok, gang_s, tmp)
+    ranks = []
+    for r in range(args.world):
+        with open(os.path.join(args.out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
     cfg, tcfg, batches = _setup(args)
     # One process at each grad_accum of the gang's runs.
     single = {}
@@ -269,7 +485,6 @@ def parent_main(args) -> int:
         one.init_state(seed=0)
         single[name] = _run(one, batches)
         del one
-    ok = True
     for name, run in ranks[0]["runs"].items():
         want, one_ms, one_peak = single[name if "pipeline" in run
                                         else run["grad_accum"]]
@@ -312,6 +527,12 @@ def parent_main(args) -> int:
           "stops": stops, "checkpoints": steps, "restored": restored,
           "resumed_loss": after[0][0] if after else None,
           "unbroken_loss": want[1][0], "rel_diff": d, "tol": args.tol})
+    return _finish(args, ok, gang_s, tmp)
+
+
+def _finish(args, ok: bool, gang_s: float, tmp: str) -> int:
+    import torch
+
     shutil.rmtree(tmp, ignore_errors=True)
     kind = "cpu" if args.cpu else torch.cuda.get_device_name(0)
     if not args.cpu:
@@ -335,6 +556,9 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--tol", type=float, default=1e-3)
     ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--suite", choices=("lm", "post", "all"), default="lm",
+                    help="lm: the LM meshes, pipelines and stop; post: E5, "
+                    "GRPO and ResNet-50 over the whole batch; all: both")
     ap.add_argument("--rank-of-gang", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)

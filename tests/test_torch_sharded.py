@@ -2,12 +2,14 @@
 one rank, so ``fully_shard``, DTensor parameters, the gang's loss weights,
 the gathering checkpoint and the stop's all-reduce all run, and every
 number must equal the unwrapped trainer's bit for bit (what the card's
-world-1 NCCL group is held to). Plus the refusals of the trainers and
-meshes that are not ported to a gang."""
+world-1 NCCL group is held to), for the LM objectives and those over the
+whole batch (GRPO, contrastive, vision). Plus the refusals of the meshes
+that are not ported to a gang."""
 
 import contextlib
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 from torch.distributed.fsdp import FSDPModule
@@ -21,16 +23,21 @@ from tpufw_torch.models import (
     GEMMA_CONFIGS,
     LLAMA_CONFIGS,
     MIXTRAL_CONFIGS,
+    ResNetConfig,
+    ViTConfig,
 )
 from tpufw_torch.train import (
+    ContrastiveConfig,
     DPOTrainer,
     EmbeddingTrainer,
+    GRPOConfig,
     GRPOTrainer,
     Trainer,
     TrainerConfig,
     VisionTrainer,
     VisionTrainerConfig,
     synthetic_batches,
+    synthetic_images,
 )
 from tpufw_torch.train.checkpoint import CheckpointManager
 from tpufw_torch.train.preemption import GracefulShutdown
@@ -199,13 +206,81 @@ def test_evaluate_is_the_global_batchs_at_world_1():
     assert got == want
 
 
+def _grpo_run():
+    tr = GRPOTrainer(TINY, TrainerConfig(**{**KW, "seq_len": 24,
+                                            "total_steps": 2}),
+                     device="cpu", grpo=GRPOConfig(
+                         group_size=4, max_new_tokens=6, kl_beta=0.1))
+    tr.init_state(seed=0)
+    history = tr.run_rl([[7, 8, 9], [11, 12]], lambda p, c: np.array(
+        [len(set(x)) for x in c], np.float32), seed=0)
+    keys = ("loss", "grad_norm", "kl", "mean_ratio", "reward_mean")
+    return [[h[k] for k in keys] for h in history], tr
+
+
+def _embed_run():
+    tr = EmbeddingTrainer(TINY, TrainerConfig(**KW), device="cpu",
+                          contrastive=ContrastiveConfig(pooling="last"))
+    tr.init_state(seed=0)
+    metrics = [[float(v) for v in tr.train_step(
+        dict(b, segment_ids=np.ones_like(b["tokens"]))).values()]
+        for b in _batches()]
+    return metrics, tr
+
+
+def _vision_run(cfg):
+    tr = VisionTrainer(cfg, VisionTrainerConfig(
+        batch_size=4, image_size=32, num_classes=10, total_steps=3, lr=0.05,
+        warmup_steps=1, handle_preemption=False), device="cpu")
+    tr.init_state(seed=0)
+    history = tr.run(synthetic_images(4, 32, 10), flops_per_image=1.0)
+    return [(m.loss, m.step) for m in history], tr
+
+
+OBJECTIVES = {
+    "grpo": _grpo_run,
+    "embed": _embed_run,
+    "vit": lambda: _vision_run(ViTConfig(
+        image_size=32, patch_size=8, num_classes=10, d_model=64, n_layers=2,
+        n_heads=4, d_ff=128, dtype=torch.float32)),
+    "resnet": lambda: _vision_run(ResNetConfig(
+        num_classes=10, stage_sizes=(1, 1), width=8, dtype=torch.float32)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OBJECTIVES))
+def test_whole_batch_objectives_bit_equal_at_world_1(name):
+    """GRPO (the decode view over the rank's own shards, the rollout's
+    rows, a frozen reference copy), contrastive training (the gathered
+    negatives), ViT and ResNet (BatchNorm's statistics, every block
+    sharded): a world-1 gang's numbers and final state are the
+    unwrapped run's bit for bit."""
+    want, plain = OBJECTIVES[name]()
+    with world1():
+        got, sharded = OBJECTIVES[name]()
+        assert sharded.gang and any(
+            is_dtensor(p) for p in sharded.model.parameters())
+        state = full_state_dict(sharded.model.state_dict())
+    assert not plain.gang and got == want
+    for k, v in plain.model.state_dict().items():
+        assert torch.equal(state[k], v), k
+
+
 @pytest.mark.parametrize("cls", [GRPOTrainer, EmbeddingTrainer,
                                  VisionTrainer])
-def test_unported_objectives_refuse_a_gang(cls):
+@pytest.mark.parametrize("axis", ["sequence", "pipe"])
+def test_whole_batch_objectives_refuse_split_rows(monkeypatch, cls, axis):
+    """In a gang of two (the world size the refusal reads), a sequence or
+    pipe axis raises before any mesh is built."""
+    from tpufw_torch.train import sharding
+
     cfg = (VisionTrainerConfig() if cls is VisionTrainer
            else TrainerConfig(batch_size=8))
-    with world1(), pytest.raises(NotImplementedError, match="item 12d"):
-        cls(TINY, cfg, device="cpu")
+    monkeypatch.setattr(sharding, "world_size", lambda: 2)
+    with world1(), pytest.raises(NotImplementedError, match=(
+            rf"^{cls.__name__} over a {axis} mesh axis of size 2: .* "
+            r"\(ROADMAP.md Queue 1 item 12f\)$")):
+        cls(TINY, cfg, MeshConfig(**{axis: 2, "fsdp": -1}), device="cpu")
 
 
 def test_grad_accum_must_divide_over_the_gang():

@@ -21,19 +21,29 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_gang(argv: list, world: int = 2, env: dict | None = None) -> list:
+def start_gang(argv: list, world: int = 2, env: dict | None = None,
+               one_host: bool = False) -> list:
     """Start ``world`` processes of ``argv`` (after the interpreter) as one
-    gang; returns the Popen objects (stdout and stderr piped)."""
+    gang; returns the Popen objects (stdout and stderr piped). ``one_host``:
+    told their rank as a per-GPU launcher on one host tells them (one
+    process in ``tpufw``'s count, ``LOCAL_RANK`` of ``LOCAL_WORLD_SIZE``)."""
     port = free_port()
     base = {k: v for k, v in os.environ.items() if not k.startswith("TPUFW_")}
-    base |= {"OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT, **(env or {})}
+    base |= {"OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT,
+             "TPUFW_COORDINATOR": f"127.0.0.1:{port}", **(env or {})}
+
+    def rank_env(rank):
+        if one_host:
+            return {"TPUFW_NUM_PROCESSES": "1", "TPUFW_PROCESS_ID": "0",
+                    "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world)}
+        return {"TPUFW_NUM_PROCESSES": str(world),
+                "TPUFW_PROCESS_ID": str(rank)}
+
     return [
         subprocess.Popen(
             [sys.executable, *argv], cwd=ROOT, text=True,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            env=base | {"TPUFW_COORDINATOR": f"127.0.0.1:{port}",
-                        "TPUFW_NUM_PROCESSES": str(world),
-                        "TPUFW_PROCESS_ID": str(rank)})
+            env=base | rank_env(rank))
         for rank in range(world)
     ]
 

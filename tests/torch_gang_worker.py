@@ -31,6 +31,18 @@ whole pipeline param tree) trains a ``PipelineTrainer`` over the mesh
 (each rank its stage, ``data``/``fsdp`` ranks batch shards) and writes
 the per-step losses and grad norms and, on every rank, the whole params
 (gathered over the pipe).
+
+The objectives over the whole batch: "embed" (an ``EmbeddingTrainer``,
+"contrastive" its ContrastiveConfig kwargs, on the rank's pairs of the
+GLOBAL "batches"), "grpo" (a ``GRPOTrainer`` from "seed", "grpo" its
+GRPOConfig kwargs, ``run_rl`` over "prompts" with the ``low_token``
+reward: every rank's whole rollouts, its rows, history and the gathered
+params) and "vision" (a ``VisionTrainer``, "vision_trainer" its config
+kwargs, on its rows of the global image "batches", "signal_rank" as
+above). A "workload" case runs ``tpufw_torch.workloads.<module>``'s
+``main`` with "env" (``TPUFW_*`` names without the prefix) and the tiny
+Llama presets in fp32; its ``main`` ends the process group, so it comes
+last.
 """
 
 import os
@@ -121,6 +133,118 @@ def run_pipeline(case: dict, path: str, rank: int) -> None:
                 "params": trainer.whole_params()}, f"{path}.out{rank}.pt")
 
 
+def _params(model, rank: int):
+    """The whole state dict on rank 0 (a collective), None elsewhere."""
+    from tpufw_torch.train.sharding import full_state_dict
+
+    params = full_state_dict(model.state_dict())
+    return params if rank == 0 else None
+
+
+def run_embed(case: dict, path: str, rank: int) -> None:
+    from tpufw_torch.mesh import MeshConfig
+    from tpufw_torch.train import (
+        ContrastiveConfig,
+        EmbeddingTrainer,
+        TrainerConfig,
+    )
+
+    trainer = EmbeddingTrainer(
+        case["model_cfg"], TrainerConfig(**case["trainer"]),
+        MeshConfig(**case["mesh"]), device="cpu",
+        contrastive=ContrastiveConfig(**case["contrastive"]))
+    trainer.init_state(state_dict=case["state"])
+    shard, n = trainer.batch_shard()
+    metrics = []
+    for b in case["batches"]:
+        rows = len(b["tokens"]) // n
+        m = trainer.train_step({k: v[shard * rows:(shard + 1) * rows]
+                                for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    try:
+        trainer.embed(case["batches"][0]["tokens"][:2],
+                      case["batches"][0]["segment_ids"][:2])
+        refusal = None
+    except NotImplementedError as e:
+        refusal = str(e)
+    torch.save({"metrics": metrics, "embed_refusal": refusal,
+                "params": _params(trainer.model, rank)},
+               f"{path}.out{rank}.pt")
+
+
+def run_grpo(case: dict, path: str, rank: int) -> None:
+    import tpufw_torch.infer
+    from tpufw_torch.mesh import MeshConfig
+    from tpufw_torch.train import GRPOConfig, GRPOTrainer, TrainerConfig
+    from tpufw_torch.workloads.rl import resolve_reward
+
+    grpo = GRPOConfig(**case["grpo"])
+    trainer = GRPOTrainer(case["model_cfg"], TrainerConfig(**case["trainer"]),
+                          MeshConfig(**case["mesh"]), device="cpu", grpo=grpo)
+    trainer.init_state(seed=case["seed"])
+    completions, batches = [], []
+    generate = tpufw_torch.infer.generate
+
+    def recorded(*a, **k):
+        completions.append(generate(*a, **k).clone())
+        return completions[-1]
+
+    tpufw_torch.infer.generate = recorded
+    step = trainer.train_step
+    trainer.train_step = lambda b: batches.append(b) or step(b)
+    history = trainer.run_rl(
+        case["prompts"], resolve_reward("low_token",
+                                        case["model_cfg"].vocab_size,
+                                        grpo.max_new_tokens),
+        seed=case["seed"])
+    keys = ("loss", "grad_norm", "kl", "mean_ratio", "clip_frac",
+            "reward_mean", "completion_len_mean")
+    torch.save({"history": [{k: h[k] for k in keys} for h in history],
+                "completions": completions,
+                "rows": [{k: b[k] for k in ("tokens", "loss_mask")}
+                         for b in batches],
+                "shard": trainer.batch_shard(),
+                "params": _params(trainer.model, rank)},
+               f"{path}.out{rank}.pt")
+
+
+def run_vision(case: dict, path: str, rank: int) -> None:
+    from tpufw_torch.train import VisionTrainer, VisionTrainerConfig
+    from tpufw_torch.train.vision import batch_rows
+
+    trainer = VisionTrainer(case["model_cfg"], VisionTrainerConfig(
+        **case["vision_trainer"]), device="cpu")
+    trainer.init_state(state_dict=case["state"])
+    signal_rank = case.get("signal_rank")
+
+    def on_metrics(m):
+        if rank == signal_rank and m.step >= case["signal_at"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    history = trainer.run(batch_rows(iter(case["batches"]),
+                                     *trainer.batch_shard()),
+                          flops_per_image=1.0, on_metrics=on_metrics)
+    torch.save({"losses": [m.loss for m in history],
+                "preempted": trainer.preempted, "step": trainer.step,
+                "params": _params(trainer.model, rank)},
+               f"{path}.out{rank}.pt")
+
+
+def run_workload(case: dict) -> None:
+    import dataclasses
+    import importlib
+
+    from tpufw_torch.models import LLAMA_CONFIGS, PRESETS
+
+    for name in ("llama3_tiny",):
+        PRESETS[name] = LLAMA_CONFIGS[name] = dataclasses.replace(
+            LLAMA_CONFIGS[name], dtype=torch.float32)
+    os.environ.update({f"TPUFW_{k}": str(v) for k, v in case["env"].items()})
+    mod = importlib.import_module(f"tpufw_torch.workloads.{case['module']}")
+    if mod.main() != 0:
+        raise SystemExit(f"{case['module']}.main() failed")
+
+
 def run_case(path: str, rank: int, world: int) -> None:
     from tpufw_torch.mesh import MeshConfig
     from tpufw_torch.models import model_for_config
@@ -140,6 +264,14 @@ def run_case(path: str, rank: int, world: int) -> None:
         return run_attention(case, path, rank, world)
     if case.get("kind") == "pipeline":
         return run_pipeline(case, path, rank)
+    if case.get("kind") == "embed":
+        return run_embed(case, path, rank)
+    if case.get("kind") == "grpo":
+        return run_grpo(case, path, rank)
+    if case.get("kind") == "vision":
+        return run_vision(case, path, rank)
+    if case.get("kind") == "workload":
+        return run_workload(case)
     tcfg = TrainerConfig(**case["trainer"])
     args = (case["model_cfg"], tcfg, MeshConfig(**case["mesh"]))
     kind = case.get("kind", "lm")
@@ -240,7 +372,8 @@ def main() -> int:
         run_case(path, cluster.rank, cluster.world_size)
     import torch.distributed as dist
 
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

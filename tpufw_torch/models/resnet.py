@@ -15,7 +15,9 @@ the JAX model, trap by trap:
   takes the **biased** batch variance (``nn.BatchNorm2d`` would take the
   unbiased one); in eval the running statistics normalize. The
   normalization is computed in fp32 and its output cast to
-  ``cfg.norm_dtype``;
+  ``cfg.norm_dtype``. In a gang (``BatchNorm.stat_group`` set, the
+  vision trainer's sharding) the training statistics are the global
+  batch's, as in ``tpufw``'s one program over the sharded batch;
 - ``bn3`` (each block's last BN) starts with its scale at zero, so a
   residual branch starts as the identity;
 - the head is fp32 (lecun-normal weights, zero bias) on the spatial mean.
@@ -99,7 +101,17 @@ class BatchNorm(nn.Module):
     over the channel dim of an NCHW tensor. Training normalizes with the
     batch statistics and updates ``running_mean``/``running_var`` with
     the fp32 mean and the biased variance; eval normalizes with the
-    running ones."""
+    running ones.
+
+    ``stat_group`` (a process group, None on one rank) makes the training
+    statistics the gang's over every rank's rows, each rank holding an
+    equal share: the global mean first, then the global mean of
+    (x − mean)², both in fp32 through ``parallel.group.all_sum``, whose
+    gradient is the global batch's; the running statistics take the
+    global mean and biased variance. ``nn.SyncBatchNorm`` would update
+    ``running_var`` with the unbiased variance."""
+
+    stat_group = None
 
     def __init__(self, c, norm_dtype, zero_scale=False, device=None,
                  momentum=0.9, eps=1e-5):
@@ -119,13 +131,35 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(self.norm_dtype)
+        if self.stat_group is not None:
+            return self._global_batch_norm(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self._update_running(mean, var)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
+        return y.to(self.norm_dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+    def _global_batch_norm(self, x):
+        """Training mode over the gang's rows (see the class doc), the
+        fp32 result rounded once to ``norm_dtype``."""
+        from tpufw_torch.parallel.group import all_sum
+
+        xf = x.float()
+        count = xf.numel() // xf.shape[1] * self.stat_group.size()
+        mean = all_sum(xf.sum(dim=(0, 2, 3)), self.stat_group) / count
+        centered = xf - mean[:, None, None]
+        var = all_sum((centered * centered).sum(dim=(0, 2, 3)),
+                      self.stat_group) / count
+        self._update_running(mean.detach(), var.detach())
+        y = centered * torch.rsqrt(var + self.eps)[:, None, None]
+        y = y * self.weight[:, None, None] + self.bias[:, None, None]
         return y.to(self.norm_dtype)
 
 

@@ -191,6 +191,90 @@ class ProcessSequenceGroup(SequenceGroup):
 
 
 # ---------------------------------------------------------------------------
+# The batch's collectives: objectives over the whole global batch (in-batch
+# negatives, BatchNorm's statistics) over the batch-shard ranks, which are
+# the whole gang for the trainers that use them (they refuse a sequence or
+# pipe axis, ``train.sharding.refuse_split_rows``).
+# ---------------------------------------------------------------------------
+
+
+def _gang_size(group=None) -> int:
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return dist.get_world_size(group)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows in rank order; the gradient of a rank's rows is
+    the sum over the ranks of the gradient that reaches them."""
+
+    @staticmethod
+    def forward(ctx, x):
+        import torch.distributed as dist
+
+        ctx.rank, ctx.n = dist.get_rank(), x.shape[0]
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, x.contiguous())
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous()
+        dist.all_reduce(g)
+        return g[ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n]
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` (the same shape on each) concatenated along dim
+    0 in rank order, with its gradient: a collective. Each rank's part of
+    the gang's objective reaches a rank's rows, so their gradient is the
+    sum over the ranks (an all-reduce); a rank that backpropagates the
+    whole objective weighs it through ``train.sharding.
+    backward_global_mean``, whose scaling by the world size FSDP's
+    averaging divides back out. ``x`` itself without a process group or
+    at world size 1."""
+    if _gang_size() == 1:
+        return x
+    return _GatherRows.apply(x)
+
+
+class _AllSum(torch.autograd.Function):
+    """An all-reduce sum whose gradient is the all-reduce sum of the
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return None, g
+
+
+def all_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (default: every
+    rank), with its gradient (the gradient of a rank's ``x`` is the sum
+    of the ranks' gradients of the sum): a collective. ``x`` itself
+    without a process group or on one rank."""
+    if _gang_size(group) == 1:
+        return x
+    return _AllSum.apply(group, x)
+
+
+# ---------------------------------------------------------------------------
 # The pipeline's neighbour exchange: the port's stand-in for the
 # ``ppermute`` of ``tpufw``'s pipeline schedules (s -> s+1 for
 # activations, s -> s-1 for cotangents).

@@ -9,7 +9,10 @@ trained with a symmetric in-batch-negative InfoNCE.
 
 Batches are ``[2B, T]`` with the pairs interleaved (row 2i the query,
 row 2i+1 its positive document), one forward for both, and a [B, B]
-similarity matrix over the batch.
+similarity matrix over the global batch: in a gang each rank embeds the
+pairs of its batch shard and gathers every rank's pooled vectors with
+their gradient (``parallel.group.gather_rows``), so every rank's queries see
+every rank's documents as negatives, as in ``tpufw``'s global program.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpufw_torch.parallel.group import gather_rows
+from tpufw_torch.train import sharding
 from tpufw_torch.train.trainer import (
     LlamaAdamW,
     Trainer,
@@ -159,14 +164,23 @@ def contrastive_train_step(
 ) -> dict:
     """One InfoNCE update on a [2B, T] interleaved query/document batch
     of device tensors; returns device tensors {loss, grad_norm, accuracy,
-    sim_pos, sim_neg}."""
+    sim_pos, sim_neg}.
+
+    Under a process group ``batch`` is this rank's pairs of the global
+    batch (a sharded model): the pooled vectors of every rank are
+    gathered first (normalizing a row commutes with gathering it), so
+    the loss and the metrics are the global batch's, the same on every
+    rank, and the gradients those of one process on the global batch
+    (``sharding.backward_global_mean`` weighs each rank's copy of the
+    global loss by its share of the pairs)."""
     tokens, seg = batch["tokens"], batch["segment_ids"]
     optimizer.zero_grad()
     hidden, aux = forward_with_aux(model, tokens, seg)
     emb = pool_embeddings(hidden.float(), seg, pooling)
-    loss, metrics = info_nce_loss(emb[0::2], emb[1::2], temperature)
-    loss = loss + aux
-    loss.backward()
+    loss, metrics = info_nce_loss(gather_rows(emb[0::2]),
+                                  gather_rows(emb[1::2]), temperature)
+    pairs = torch.tensor(float(emb.shape[0] // 2), device=emb.device)
+    loss = sharding.backward_global_mean(loss + aux, pairs)
     grad_norm = optimizer.step()
     return {"loss": loss.detach(), "grad_norm": grad_norm,
             **{k: v.detach() for k, v in metrics.items()}}
@@ -175,15 +189,16 @@ def contrastive_train_step(
 class EmbeddingTrainer(Trainer):
     """``Trainer`` for contrastive embedding fine-tuning; ``run``,
     checkpoints, SIGTERM and the ``Meter`` are inherited.
-    ``TrainerConfig.batch_size`` is the ROW count 2B. Not under a process
-    group yet: the in-batch negatives would have to be gathered across
-    ranks with their gradient (ROADMAP.md item 12d)."""
+    ``TrainerConfig.batch_size`` is the ROW count 2B, global in a gang
+    (each rank feeds the pairs of its batch shard). ``embed`` and
+    ``evaluate_retrieval`` are one-process surfaces, as in ``tpufw``:
+    they raise in a gang; resume its checkpoint in one process to embed."""
 
-    shardable = False
+    whole_rows = True
 
-    def __init__(self, model_cfg, trainer_cfg, device=None,
+    def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,
                  contrastive: ContrastiveConfig = ContrastiveConfig()):
-        super().__init__(model_cfg, trainer_cfg, device=device)
+        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device)
         if trainer_cfg.batch_size % 2:
             raise ValueError(
                 f"embedding batch_size is the ROW count 2B; got odd "
@@ -255,9 +270,14 @@ class EmbeddingTrainer(Trainer):
     @torch.no_grad()
     def embed(self, tokens: np.ndarray, segment_ids: np.ndarray) -> np.ndarray:
         """[N, T] -> [N, D] L2-normalized fp32 embeddings with the
-        trainer's pooling: the fine-tuned encoder's inference surface."""
+        trainer's pooling: the fine-tuned encoder's inference surface, in
+        one process (NotImplementedError in a gang)."""
         if self.model is None:
             raise RuntimeError("embed() before init_state()/restore")
+        if self.gang:
+            raise NotImplementedError(
+                "embed() and evaluate_retrieval() run in one process: "
+                "resume the gang's checkpoint in one process to embed")
         b = batch_to_device({"tokens": tokens, "segment_ids": segment_ids},
                             self.device)
         hidden, _ = forward_with_aux(self.model, b["tokens"], b["segment_ids"])

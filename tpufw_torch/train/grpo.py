@@ -27,6 +27,14 @@ optional k3 KL penalty to the frozen reference):
 Sampling streams: step i's rollout draws from a ``torch.Generator``
 seeded from ``SeedSequence([seed, i])``, so a resumed run resamples what
 it would have sampled (the JAX package splits a threefry key per step).
+
+In a gang every rank rolls out the whole global batch from the same
+generator on the gathered policy (decode is host-bound: N rows cost
+about what N / world rows cost), scores the rewards and the group
+advantages of all N rows, and keeps the rows of its batch shard: the
+tokens and the advantages are one process's. The old log-probs and the
+update run on those rows through the sharded model, the loss being the
+global token mean (``sharding.backward_global_mean``).
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ import numpy as np
 import torch
 
 from tpufw_torch.models import model_for_config
+from tpufw_torch.models.lora import is_lora_name
 from tpufw_torch.ops.loss import chunked_token_logprob
+from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import CheckpointManager
 from tpufw_torch.train.dpo import ReferenceMixin, reference_policy
 from tpufw_torch.train.preemption import checkpoint_stop, owned_shutdown
@@ -123,7 +133,10 @@ def grpo_train_step(
     the adapters bypassed (LoRA). ``temperature`` is the rollout's: the
     ratios and the KL are taken on the distribution sampled from.
     Returns device tensors {loss, grad_norm, mean_ratio, clip_frac,
-    kl}."""
+    kl}. Under a process group ``batch`` is this rank's rows (a sharded
+    model): the loss, its gradients and the metrics are the global
+    batch's means over its completion tokens, whatever each rank's
+    count."""
     tokens, seg = batch["tokens"], batch["segment_ids"]
     # A target position trains iff its predicted token is a completion
     # token (the LM shift of trainer.shift_and_mask).
@@ -136,7 +149,8 @@ def grpo_train_step(
         with reference_policy(model, ref_model) as ref:
             ref_logp, _ = token_logps(ref, tokens, seg, loss_chunk_size,
                                       dtype, temperature)
-    n = torch.clamp(mask.sum(), min=1.0)
+    n_local = mask.sum()
+    n = torch.clamp(n_local, min=1.0)
     optimizer.zero_grad()
     logp, aux = token_logps(model, tokens, seg, loss_chunk_size, dtype,
                             temperature)
@@ -150,15 +164,16 @@ def grpo_train_step(
         kl_mean = (kl * mask).sum() / n
     else:
         kl_mean = torch.zeros((), dtype=torch.float32, device=logp.device)
-    loss = -(obj * mask).sum() / n + aux
+    loss = sharding.backward_global_mean(-(obj * mask).sum() / n + aux,
+                                         n_local)
     # The share of tokens where the clip binds (the min() takes the
     # clipped term).
     clip_frac = ((clipped * adv < ratio * adv).float() * mask).sum() / n
-    loss.backward()
+    mean_ratio, clip_frac, kl_mean = sharding.global_mean(torch.stack([
+        (ratio * mask).sum() / n, clip_frac, kl_mean]), n_local)
     grad_norm = optimizer.step()
-    return {"loss": loss.detach(), "grad_norm": grad_norm,
-            "mean_ratio": ((ratio * mask).sum() / n).detach(),
-            "clip_frac": clip_frac.detach(), "kl": kl_mean.detach()}
+    return {"loss": loss, "grad_norm": grad_norm, "mean_ratio": mean_ratio,
+            "clip_frac": clip_frac, "kl": kl_mean}
 
 
 def step_generator(device, seed: int, step: int) -> torch.Generator:
@@ -175,14 +190,15 @@ class GRPOTrainer(ReferenceMixin, Trainer):
     rollout row count N = prompts a step x ``group_size``; ``seq_len``
     bounds prompt + ``max_new_tokens``. ``run_rl`` is the loop (rollout,
     then ``train_step``); checkpoints, SIGTERM and the step budget work as
-    in ``Trainer.run``. Not under a process group yet: the decode view
-    would hold the policy's sharded tensors (ROADMAP.md item 12d)."""
+    in ``Trainer.run``, in a gang through its stop's all-reduce and the
+    gathering checkpoint. ``batch_size`` is global in a gang: every rank
+    rolls out all N rows and trains the rows of its batch shard."""
 
-    shardable = False
+    whole_rows = True
 
-    def __init__(self, model_cfg, trainer_cfg, device=None,
+    def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,
                  grpo: GRPOConfig = GRPOConfig()):
-        super().__init__(model_cfg, trainer_cfg, device=device)
+        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device)
         if trainer_cfg.batch_size % grpo.group_size:
             raise ValueError(
                 f"batch_size {trainer_cfg.batch_size} must be a multiple "
@@ -191,9 +207,16 @@ class GRPOTrainer(ReferenceMixin, Trainer):
             raise NotImplementedError(
                 "GRPO does not implement grad_accum: microbatch slicing "
                 "would split a prompt's group across updates")
+        if self.gang and trainer_cfg.batch_size % self.batch_shard()[1]:
+            raise ValueError(
+                f"batch_size {trainer_cfg.batch_size} does not divide over "
+                f"{self.batch_shard()[1]} batch shards")
         self.grpo = grpo
         self._decode_model = None
         self._decode_of = None
+        # A gang's LoRA base, gathered whole once: it never changes.
+        self._base = None
+        self._base_of = None
 
     # -- reference ---------------------------------------------------------
 
@@ -231,14 +254,37 @@ class GRPOTrainer(ReferenceMixin, Trainer):
         ``max_seq_len`` = ``seq_len``: KV cache, plain attention, no
         remat) built on ``meta`` and holding the policy's own tensors:
         the optimizer's in-place updates show in it, and no weight is
-        copied. Rebuilt when the policy model is replaced (a restore)."""
+        copied. Rebuilt when the policy model is replaced (a restore).
+        In a gang (a collective) the view is made anew for each rollout
+        from the policy's whole tensors, which the caller drops after
+        it: a rank's shards themselves at world size 1 (no copy), else
+        gathered, a LoRA base once for the run."""
+        if self.gang:
+            return self._view(self._whole_state())
         if self._decode_of is not self.model:
-            cfg = dataclasses.replace(self.model.cfg.decode_config(),
-                                      max_seq_len=self.cfg.seq_len)
-            view = model_for_config(cfg, device="meta")
-            view.load_state_dict(self.model.state_dict(), assign=True)
-            self._decode_model, self._decode_of = view.eval(), self.model
+            self._decode_model = self._view(self.model.state_dict())
+            self._decode_of = self.model
         return self._decode_model
+
+    def _view(self, state: dict):
+        cfg = dataclasses.replace(self.model.cfg.decode_config(),
+                                  max_seq_len=self.cfg.seq_len)
+        view = model_for_config(cfg, device="meta")
+        view.load_state_dict(state, assign=True)
+        return view.eval()
+
+    def _whole_state(self) -> dict:
+        """The sharded policy's tensors whole on this rank."""
+        state = self.model.state_dict()
+        if sharding.world_size() == 1:
+            return {k: sharding.local_tensor(v) for k, v in state.items()}
+        lora = bool(getattr(self.model_cfg, "lora_rank", 0))
+        if lora and self._base_of is not self.model:
+            self._base = {k: sharding.full_tensor(v) for k, v in state.items()
+                          if not is_lora_name(k)}
+            self._base_of = self.model
+        return {k: (self._base[k] if lora and not is_lora_name(k)
+                    else sharding.full_tensor(v)) for k, v in state.items()}
 
     @torch.no_grad()
     def _score(self, tokens: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
@@ -265,7 +311,10 @@ class GRPOTrainer(ReferenceMixin, Trainer):
         takes python token lists (completions cut after the first EOS when
         ``eos_id`` is set). Returns (batch, info): the batch feeds
         ``train_step`` (``old_logp`` is a tensor on the device); info holds
-        reward_mean, reward_max and completion_len_mean."""
+        reward_mean, reward_max and completion_len_mean. In a gang (a
+        collective) every rank samples and scores all N rows, the same
+        ones, and its batch holds the rows of its batch shard; info is the
+        N rows'."""
         from tpufw_torch.infer import SamplingConfig, generate, pad_prompts
 
         if self.model is None:
@@ -290,12 +339,14 @@ class GRPOTrainer(ReferenceMixin, Trainer):
             extra = fixed_p - ptoks.shape[1]
             ptoks = np.pad(ptoks, ((0, 0), (extra, 0)))
             pads = pads + extra
+        view = self.decode_view()
         completions = generate(
-            self.decode_view(), ptoks, pads, generator,
+            view, ptoks, pads, generator,
             max_new_tokens=g.max_new_tokens,
             sampling=SamplingConfig(temperature=g.temperature),
             eos_id=g.eos_id,
         ).cpu().numpy()
+        del view
 
         # Right-padded training rows: the prompt at position 0, where the
         # decode cache put its RoPE positions.
@@ -316,15 +367,14 @@ class GRPOTrainer(ReferenceMixin, Trainer):
 
         rewards = np.asarray(reward_fn(tiled, comp_lists), np.float32)
         adv = group_advantages(rewards, g.group_size)
-        dev = batch_to_device({"tokens": tokens, "segment_ids": seg},
+        shard, n_shards = self.batch_shard()
+        rows = slice(shard * n // n_shards, (shard + 1) * n // n_shards)
+        batch = {"tokens": tokens[rows], "loss_mask": loss_mask[rows],
+                 "segment_ids": seg[rows], "advantages": adv[rows]}
+        dev = batch_to_device({"tokens": batch["tokens"],
+                               "segment_ids": batch["segment_ids"]},
                               self.device)
-        batch = {
-            "tokens": tokens,
-            "loss_mask": loss_mask,
-            "segment_ids": seg,
-            "old_logp": self._score(dev["tokens"], dev["segment_ids"]),
-            "advantages": adv,
-        }
+        batch["old_logp"] = self._score(dev["tokens"], dev["segment_ids"])
         info = {
             "reward_mean": float(rewards.mean()),
             "reward_max": float(rewards.max()),

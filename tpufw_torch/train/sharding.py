@@ -20,6 +20,13 @@ averaging reduction divides back out, so the gradients are those of the
 global mean whatever the ranks' target counts (SFT's assistant masks,
 packed segments, DPO pairs, sequence chunks). Without a process group it
 is a plain ``backward``.
+
+The objectives computed over the whole batch at once (in-batch negatives,
+BatchNorm's statistics) reach the other ranks' rows through
+``parallel.group``'s ``gather_rows`` and ``all_sum``, collectives with
+their gradient over the batch-shard ranks. Their trainers take the
+``data`` and ``fsdp`` axes only (``refuse_split_rows``), so those ranks
+are the whole gang in ``batch_shard``'s order.
 """
 
 from __future__ import annotations
@@ -123,15 +130,15 @@ def batch_shard(mesh) -> tuple[int, int]:
     return coord["data"] * fsdp + coord["fsdp"], data * fsdp
 
 
-def shard_model(model, mesh) -> None:
-    """``fully_shard`` each block of ``model.layers``, then the root, over
-    ``fsdp_mesh(mesh)``. A block's ``attend`` and ``merge`` (called apart
-    by the ``attn_out`` remat policy) gather and free its parameters as
-    its forward does. The root keeps its parameters gathered from its
-    forward to its backward (FSDP's rule for the root), so
-    ``head_kernel()`` read after the forward is the whole head. A MoE
-    layer routes the global batch as one group, as ``tpufw`` does
-    (``MoEMLP.route_group``, ``route_seq`` the ranks a row is split
+def shard_model(model, mesh, blocks=None) -> None:
+    """``fully_shard`` each block of ``blocks`` (default ``model.layers``),
+    then the root, over ``fsdp_mesh(mesh)``. A block's ``attend`` and
+    ``merge`` (called apart by the ``attn_out`` remat policy) gather and
+    free its parameters as its forward does. The root keeps its
+    parameters gathered from its forward to its backward (FSDP's rule for
+    the root), so ``head_kernel()`` read after the forward is the whole
+    head. A MoE layer routes the global batch as one group, as ``tpufw``
+    does (``MoEMLP.route_group``, ``route_seq`` the ranks a row is split
     over)."""
     import torch.distributed as dist
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
@@ -143,7 +150,7 @@ def shard_model(model, mesh) -> None:
             m.route_group = dist.group.WORLD
             m.route_seq = seq
     shard = fsdp_mesh(mesh)
-    for block in model.layers:
+    for block in model.layers if blocks is None else blocks:
         fully_shard(block, mesh=shard)
         for name in ("attend", "merge"):
             if hasattr(block, name):
@@ -211,6 +218,23 @@ def backward_global_mean(loss: torch.Tensor, n_local,
     w = n / (gang_count(n) if n_global is None else n_global)
     (loss * (w * world_size())).backward()
     return gang_sum(loss.detach() * w)
+
+
+def refuse_split_rows(mesh_cfg, who: str) -> None:
+    """NotImplementedError, in a gang, for a ``sequence`` or ``pipe`` axis
+    of ``mesh_cfg`` above 1: ``who``'s objective needs whole rows of the
+    whole batch on the batch-shard ranks (ROADMAP.md Queue 1 item 12f)."""
+    if not active():
+        return
+    from tpufw_torch.mesh import MeshConfig
+
+    sizes = (mesh_cfg or MeshConfig()).slice_sizes(world_size())
+    for axis in ("sequence", "pipe"):
+        if sizes[axis] > 1:
+            raise NotImplementedError(
+                f"{who} over a {axis} mesh axis of size {sizes[axis]}: its "
+                "objective is not ported to split rows in tpufw_torch yet "
+                "(ROADMAP.md Queue 1 item 12f)")
 
 
 def gang_agree(value: int, what: str) -> int:

@@ -613,8 +613,9 @@ class Trainer:
     ``MeshConfig()``: every rank on ``fsdp``). Without a process group a
     ``mesh_cfg`` must fit one device."""
 
-    # A trainer whose objective has no sharded form refuses a gang.
-    shardable = True
+    # An objective over whole rows of the whole batch (GRPO's rollout,
+    # in-batch negatives) takes the data and fsdp axes only.
+    whole_rows = False
 
     def __init__(
         self,
@@ -634,11 +635,8 @@ class Trainer:
         # The DeviceMesh of the gang (None: one device, unsharded).
         self.mesh = None
         if sharding.active():
-            if not self.shardable:
-                raise NotImplementedError(
-                    f"{type(self).__name__} under a process group: its "
-                    "objective is not ported to a sharded mesh yet "
-                    "(ROADMAP.md Queue 1 item 12d)")
+            if self.whole_rows:
+                sharding.refuse_split_rows(self.mesh_cfg, type(self).__name__)
             self.mesh = build_mesh(self.mesh_cfg, sharding.world_size(),
                                    self.device.type)
             if "pipe" in self.mesh.mesh_dim_names:

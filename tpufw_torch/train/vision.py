@@ -1,5 +1,6 @@
-"""Image-classification training on one GPU (port of
-``tpufw.train.vision``): ViT and ResNet under one ``VisionTrainer``.
+"""Image-classification training (port of ``tpufw.train.vision``): ViT
+and ResNet under one ``VisionTrainer``, on one GPU or sharded over a
+gang's mesh.
 
 The optimizer is ``tpufw``'s: ``add_decayed_weights(weight_decay)`` on the
 parameters of rank > 1 (no decay on norm scales and biases), then nesterov
@@ -17,6 +18,16 @@ metering images/s and MFU from ``flops_per_image`` with the LM trainer's
 (``train.checkpoint``: parameters, BN statistics, momentum and step) and
 stops on SIGTERM with a forced save (``train.preemption``).
 ``maybe_restore`` resumes from the latest checkpoint.
+
+In a gang (a ``torch.distributed`` process group), as ``tpufw`` runs one
+program over the batch sharded on (``data``, ``fsdp``): the model is
+built whole on each rank from the seed, then ``fully_shard``ed, each ViT
+encoder block or ResNet block and then the root (``sharding.shard_model``);
+each rank feeds the rows of its batch shard (``batch_rows``); the loss
+and the accuracy are the global batch's (``sharding.backward_global_mean``)
+and BatchNorm's training statistics too (``BatchNorm.stat_group``). The
+checkpoint is gathered tensor by tensor (BN statistics and momentum
+included) and resumes at any world size.
 """
 
 from __future__ import annotations
@@ -28,6 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpufw_torch.mesh import MeshConfig, build_mesh, mesh_shape
+from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import (
     CheckpointManager,
     check_identity,
@@ -54,6 +67,14 @@ def vision_model(cfg, device=None, seed: int = 0):
     if isinstance(cfg, ResNetConfig):
         return ResNet(cfg, device=device, seed=seed)
     raise TypeError(f"not a vision config: {type(cfg).__name__}")
+
+
+def vision_blocks(model) -> list:
+    """The blocks a gang shards one by one: a ViT's encoder blocks, a
+    ResNet's bottleneck blocks."""
+    if hasattr(model, "block_names"):
+        return [getattr(model, name) for name in model.block_names]
+    return list(model.blocks)
 
 
 @dataclasses.dataclass
@@ -113,41 +134,65 @@ class VisionSGD:
         return {"count": self.count, "sgd": self.sgd.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
-        self.sgd.load_state_dict(state["sgd"])
+        """Inverse of ``state_dict``; momentum saved whole (a checkpoint's,
+        any world size) is sharded as its parameter is."""
+        saved = state["sgd"]
+        params = [p for g in self.sgd.param_groups for p in g["params"]]
+        if any(sharding.is_dtensor(p) for p in params):
+            saved = dict(saved, state={
+                i: {k: (sharding.shard_like(v, params[i])
+                        if isinstance(v, torch.Tensor) else v)
+                    for k, v in st.items()}
+                for i, st in saved["state"].items()})
+        self.sgd.load_state_dict(saved)
         self.count = int(state["count"])
 
 
 def vision_train_step(model, optimizer: VisionSGD, batch: dict) -> dict:
     """One supervised step on device tensors, images [B, H, W, C] and
-    labels [B]: {loss, accuracy} as device tensors."""
+    labels [B]: {loss, accuracy} as device tensors. Under a process group
+    the batch is this rank's rows (a sharded model) and both are the
+    global batch's."""
     model.train()
     optimizer.zero_grad()
     logits = model(batch["images"])
     labels = batch["labels"].long()
-    loss = F.cross_entropy(logits.float(), labels)
-    loss.backward()
+    n = torch.tensor(float(labels.shape[0]), device=logits.device)
+    loss = sharding.backward_global_mean(
+        F.cross_entropy(logits.float(), labels), n)
     optimizer.step()
     with torch.no_grad():
-        accuracy = (logits.argmax(-1) == labels).float().mean()
-    return {"loss": loss.detach(), "accuracy": accuracy}
+        accuracy = sharding.global_mean(
+            (logits.argmax(-1) == labels).float().mean(), n)
+    return {"loss": loss, "accuracy": accuracy}
 
 
 class VisionTrainer:
-    """Builds a ``ViT`` or ``ResNet`` and its optimizer on one device and
-    runs the step loop with images/s/GPU and MFU metrics. Not under a
-    process group yet (ROADMAP.md item 12d): each rank would train alone."""
+    """Builds a ``ViT`` or ``ResNet`` and its optimizer and runs the step
+    loop with images/s/GPU and MFU metrics: on one device, or, when a
+    process group is initialized, sharded over the gang's mesh of
+    ``mesh_cfg`` (default ``MeshConfig()``: every rank on ``fsdp``, as in
+    ``tpufw``); ``cfg.batch_size`` is then global. A ``sequence`` or
+    ``pipe`` axis above 1 raises NotImplementedError."""
 
-    def __init__(self, model_cfg, cfg: VisionTrainerConfig, device=None):
-        from tpufw_torch.train.sharding import active
-
-        if active():
-            raise NotImplementedError(
-                "VisionTrainer under a process group: vision training is "
-                "not ported to a sharded mesh yet (ROADMAP.md Queue 1 item "
-                "12d)")
+    def __init__(self, model_cfg, cfg: VisionTrainerConfig, mesh_cfg=None,
+                 device=None):
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
+        # The DeviceMesh of the gang (None: one device, unsharded).
+        self.mesh = None
+        if sharding.active():
+            sharding.refuse_split_rows(mesh_cfg, "VisionTrainer")
+            self.mesh = build_mesh(mesh_cfg or MeshConfig(),
+                                   sharding.world_size(), self.device.type)
+            n = self.batch_shard()[1]
+            if cfg.batch_size % n:
+                raise ValueError(
+                    f"batch_size {cfg.batch_size} does not divide over {n} "
+                    "batch shards")
+        elif mesh_cfg is not None:
+            mesh_shape(mesh_cfg, 1)
         self.model = None
         self.optimizer: Optional[VisionSGD] = None
         self.step = 0
@@ -161,9 +206,35 @@ class VisionTrainer:
         self.model = vision_model(self.model_cfg, self.device, seed)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        self._shard(self.model)
         self.optimizer = VisionSGD(self.model.parameters(), self.cfg)
         self.step = 0
         return self.model
+
+    @property
+    def gang(self) -> bool:
+        """True when the model is sharded over a process group's mesh."""
+        return self.mesh is not None
+
+    def batch_shard(self) -> tuple[int, int]:
+        """(this rank's batch shard, the number of batch shards), as
+        ``Trainer.batch_shard``; (0, 1) on one device."""
+        return sharding.batch_shard(self.mesh) if self.gang else (0, 1)
+
+    def _shard(self, model) -> None:
+        """Shard ``model`` (whole on this rank's device) over the mesh;
+        BatchNorm's statistics over every rank's rows."""
+        if not self.gang:
+            return
+        sharding.shard_model(model, self.mesh, vision_blocks(model))
+        if sharding.world_size() > 1:
+            import torch.distributed as dist
+
+            from tpufw_torch.models.resnet import BatchNorm
+
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.stat_group = dist.group.WORLD
 
     def state_dict(self) -> dict:
         return {"step": self.step,
@@ -173,25 +244,35 @@ class VisionTrainer:
                 "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
-        """Resume from ``state_dict()``'s output; ValueError for another
+        """Resume from ``state_dict()``'s output (in a gang, whole tensors
+        on any device, as a checkpoint holds them); ValueError for another
         model's."""
         check_identity(state["config"], self.model_cfg, "the checkpoint")
+        tensors = state["model"]
+        if self.gang:
+            tensors = {k: v.to(self.device) for k, v in tensors.items()}
         self.model = vision_model(self.model_cfg, "meta")
-        self.model.load_state_dict(state["model"], assign=True)
+        self.model.load_state_dict(tensors, assign=True)
+        self._shard(self.model)
         self.optimizer = VisionSGD(self.model.parameters(), self.cfg)
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
 
     def maybe_restore(self) -> bool:
         """Resume from the latest checkpoint under ``cfg.checkpoint_dir``,
-        if there is one."""
+        if there is one. A gang's ranks must see the same latest step;
+        ValueError on every rank otherwise."""
         if not self.cfg.checkpoint_dir:
             return False
         mgr = CheckpointManager(self.cfg.checkpoint_dir)
         try:
-            if mgr.latest_step() is None:
+            latest = mgr.latest_step()
+            latest = sharding.gang_agree(-1 if latest is None else latest,
+                                         "the latest checkpoint step")
+            if latest < 0:
                 return False
-            self.load_state_dict(mgr.restore(device=self.device))
+            self.load_state_dict(mgr.restore(latest, device=self.device,
+                                             mapped=self.gang))
             return True
         finally:
             mgr.close()
@@ -217,8 +298,19 @@ class VisionTrainer:
             self.init_state()
         meter = Meter(tokens_per_step=self.cfg.batch_size,
                       flops_per_token=flops_per_image or 0.0,
-                      chip=detect_chip(self.device))
+                      chip=detect_chip(self.device),
+                      n_gpus=sharding.world_size() if self.gang else 1)
         return run_steps(self, data, meter, on_metrics, shutdown)
+
+
+def batch_rows(data: Iterator[dict], shard: int, n: int) -> Iterator[dict]:
+    """The rows ``[shard·b, (shard+1)·b)`` of each global batch of
+    ``data`` (b its rows / ``n``): what batch shard ``shard`` of ``n``
+    feeds. Every rank draws the same global batches, so a gang's global
+    batch is one process's."""
+    for batch in data:
+        b = len(next(iter(batch.values()))) // n
+        yield {k: v[shard * b:(shard + 1) * b] for k, v in batch.items()}
 
 
 def synthetic_images(

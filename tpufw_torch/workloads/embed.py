@@ -1,8 +1,10 @@
-"""Embedding fine-tuning workload on one GPU: ``python -m
-tpufw_torch.workloads.embed`` (port of ``tpufw.workloads.embed``):
-contrastive pairs -> an encoder. One JSON line a step (the InfoNCE loss),
-then a retrieval probe: the matched and mismatched cosine similarity of
-the first pairs.
+"""Embedding fine-tuning workload: ``python -m tpufw_torch.workloads.embed``
+(port of ``tpufw.workloads.embed``): contrastive pairs -> an encoder. One
+JSON line a step (the InfoNCE loss), then, in one process, a retrieval
+probe: the matched and mismatched cosine similarity of the first pairs.
+On one GPU or as a gang, one process per GPU (``cluster``): each rank
+feeds the pairs of its batch shard, and the in-batch negatives are the
+global batch's.
 
 Knobs (``TPUFW_*``):
   MODEL (a ``LLAMA_CONFIGS`` preset, default ``llama3_tiny``) /
@@ -15,8 +17,9 @@ Knobs (``TPUFW_*``):
   TEMPERATURE    the InfoNCE temperature (0.05)
   BATCH_SIZE (rows, two a pair) / SEQ_LEN / TOTAL_STEPS / LR /
   WARMUP_STEPS / LOG_EVERY / CHECKPOINT_DIR / CHECKPOINT_EVERY / DATA_SEED
-A ``TPUFW_MESH_*`` axis above 1, or a multi-process cluster environment,
-raises (ROADMAP.md Queue 1 item 12d).
+  MESH_DATA / MESH_FSDP (-1: fill) / MESH_TENSOR   the mesh, as
+                 ``tpufw``'s; TENSOR above 1 raises (ROADMAP.md Queue 1
+                 item 12e)
 """
 
 from __future__ import annotations
@@ -26,18 +29,21 @@ import json
 import time
 
 from tpufw_torch.workloads.env import (
+    batch_mesh_from_env,
     env_bool,
     env_float,
     env_int,
     env_str,
-    refuse_mesh,
 )
 
 _T0 = time.time()
 
 
-def build_trainer():
-    """(trainer, model_cfg) from the TPUFW_* env."""
+def build_trainer(cluster=None):
+    """(trainer, model_cfg) from the TPUFW_* env, on ``cluster``'s local
+    device (default: the resolved cluster environment) and sharded over
+    the process group's mesh when one is initialized."""
+    from tpufw_torch.cluster import local_device, resolve_cluster_env
     from tpufw_torch.models import LLAMA_CONFIGS
     from tpufw_torch.train import TrainerConfig
     from tpufw_torch.train.contrastive import (
@@ -45,7 +51,7 @@ def build_trainer():
         EmbeddingTrainer,
     )
 
-    refuse_mesh()
+    mesh_cfg = batch_mesh_from_env()
     name = env_str("model", "llama3_tiny")
     if name not in LLAMA_CONFIGS:
         raise ValueError(
@@ -65,8 +71,10 @@ def build_trainer():
         checkpoint_every=env_int("checkpoint_every", 100),
         log_every=env_int("log_every", 1),
     )
+    device = local_device(cluster or resolve_cluster_env(),
+                          env_str("device", "cuda"))
     trainer = EmbeddingTrainer(
-        model_cfg, trainer_cfg, device=env_str("device", "cuda"),
+        model_cfg, trainer_cfg, mesh_cfg, device=device,
         contrastive=ContrastiveConfig(
             temperature=env_float("temperature", 0.05),
             pooling=env_str("pooling", "mean")))
@@ -88,6 +96,7 @@ def embed_flops_per_token(model_cfg, seq_len: int) -> float:
 def main() -> int:
     import numpy as np
 
+    from tpufw_torch.cluster import initialize_cluster
     from tpufw_torch.train.contrastive import _fit, pair_batches, read_pairs
     from tpufw_torch.workloads._common import (
         check_global_batch,
@@ -97,8 +106,13 @@ def main() -> int:
         resume_data_seed,
     )
 
-    trainer, model_cfg = build_trainer()
-    print(f"tpufw_torch embed: device={trainer.device} "
+    cluster = initialize_cluster(device=env_str("device", "cuda"))
+    trainer, model_cfg = build_trainer(cluster)
+    mesh = (dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))
+            if trainer.gang else {})
+    print(f"tpufw_torch embed: process {cluster.process_id}/"
+          f"{cluster.num_processes} rank {cluster.rank}/{cluster.world_size} "
+          f"device={trainer.device} mesh={mesh} "
           f"params={model_cfg.n_params():,} "
           f"pooling={trainer.contrastive.pooling} "
           f"causal={getattr(model_cfg, 'causal', True)}", flush=True)
@@ -112,7 +126,11 @@ def main() -> int:
         else:
             trainer.init_state(seed=env_int("seed", 0))
     cfg = trainer.cfg
-    local_bs = check_global_batch(cfg.batch_size, 1)
+    shard, n_shards = trainer.batch_shard()
+    local_bs = check_global_batch(cfg.batch_size, n_shards)
+    if local_bs % 2:
+        raise ValueError(
+            f"embedding local batch {local_bs} must be even (2 rows/pair)")
     data_path = env_str("embed_data", "")
     if not data_path:
         raise ValueError(
@@ -121,15 +139,16 @@ def main() -> int:
     encode = resolve_encode(env_str("sft_tokenizer", "bytes"))
     data = pair_batches(
         data_path, local_bs // 2, cfg.seq_len, encode,
-        seed=resume_data_seed(env_int("data_seed", 0), trainer.step))
+        seed=resume_data_seed(env_int("data_seed", 0), trainer.step),
+        shard_id=shard, num_shards=n_shards)
     history = trainer.run(
         data, model_flops_per_token=embed_flops_per_token(model_cfg,
                                                           cfg.seq_len),
         on_metrics=metrics_printer(_T0))
     report_preemption(trainer)
-    if history:
-        # The retrieval probe: the first 4 pairs, rows fitted as in
-        # training.
+    if history and not trainer.gang:
+        # The retrieval probe, one process's surface (as in tpufw): the
+        # first 4 pairs, rows fitted as in training.
         probe = []
         for i, p in enumerate(read_pairs(data_path)):
             if i >= 4:
@@ -149,8 +168,13 @@ def main() -> int:
                 (sim.sum() - np.diag(sim).sum())
                 / max(sim.size - len(probe), 1)), 4),
         }), flush=True)
+    if history:
         print(f"EMBED OK: {len(history)} steps, final loss "
               f"{history[-1].loss:.4f}", flush=True)
+    if trainer.gang:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

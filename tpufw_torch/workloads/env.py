@@ -71,26 +71,18 @@ def refuse_unported(knob: str, what: str, item: str) -> None:
     )
 
 
-_MESH_AXES = ("data", "fsdp", "expert", "sequence", "tensor", "dcn_data")
+def batch_mesh_from_env():
+    """The ``MeshConfig`` of the ``rl`` and ``embed`` workloads from the
+    knobs ``tpufw``'s read: ``TPUFW_MESH_DATA`` (1), ``TPUFW_MESH_FSDP``
+    (-1: every other device) and ``TPUFW_MESH_TENSOR``, which raises
+    NotImplementedError above 1 (ROADMAP.md Queue 1 item 12e). The
+    trainer checks it against the gang."""
+    from tpufw_torch.mesh import MeshConfig
 
-
-def refuse_mesh() -> None:
-    """Raise for any ``TPUFW_MESH_*`` axis above 1, and for a
-    multi-process cluster environment: the workloads whose objectives
-    have no sharded form yet (``rl``, ``embed``, the vision ones) run on
-    one GPU (ROADMAP.md Queue 1 item 12d)."""
-    from tpufw_torch.cluster import resolve_cluster_env
-
-    for axis in _MESH_AXES:
-        if env_int(f"mesh_{axis}", 1) > 1:
-            refuse_unported(f"mesh_{axis}", "a multi-GPU mesh for this "
-                            "workload", "12d")
-    cluster = resolve_cluster_env()
-    if cluster.is_distributed:
-        raise NotImplementedError(
-            f"a {cluster.world_size}-process gang ({cluster.source} "
-            "environment): this workload is not ported to a multi-GPU "
-            "mesh in tpufw_torch yet (ROADMAP.md Queue 1 item 12d)")
+    if env_int("mesh_tensor", 1) > 1:
+        refuse_unported("mesh_tensor", "tensor parallelism", "12e")
+    return MeshConfig(data=env_int("mesh_data", 1),
+                      fsdp=env_int("mesh_fsdp", -1))
 
 
 # Axes whose parallelism a later slice brings: (what, ROADMAP item).

@@ -1,7 +1,10 @@
-"""GRPO RL fine-tuning workload on one GPU: ``python -m
-tpufw_torch.workloads.rl`` (port of ``tpufw.workloads.rl``): rollout,
-reward, update, one JSON line a step (reward_mean, clip_frac, kl, loss,
-and the rollout and update seconds).
+"""GRPO RL fine-tuning workload: ``python -m tpufw_torch.workloads.rl``
+(port of ``tpufw.workloads.rl``): rollout, reward, update, one JSON line
+a step (reward_mean, clip_frac, kl, loss, and the rollout and update
+seconds). On one GPU, or as a gang of one host's GPUs, one process per
+GPU (a per-GPU launcher's ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``, one
+process in ``tpufw``'s count): every rank rolls out the whole global
+batch and trains its batch shard's rows, sharded over the mesh.
 
 Knobs (``TPUFW_*``):
   MODEL (a ``LLAMA_CONFIGS`` preset, default ``llama3_tiny``) /
@@ -17,8 +20,10 @@ Knobs (``TPUFW_*``):
   GRPO_MAX_NEW / EOS_ID (-1: none)        the ``GRPOConfig`` knobs
   BATCH_SIZE / SEQ_LEN / TOTAL_STEPS / LR / WARMUP_STEPS /
   LOSS_CHUNK_SIZE / CHECKPOINT_DIR / CHECKPOINT_EVERY   the trainer's
-A ``TPUFW_MESH_*`` axis above 1, or a multi-process cluster environment,
-raises (ROADMAP.md Queue 1 item 12d).
+  MESH_DATA / MESH_FSDP (-1: fill) / MESH_TENSOR   the mesh, as
+                 ``tpufw``'s; TENSOR above 1 raises (ROADMAP.md Queue 1
+                 item 12e)
+More than one host (``num_processes`` > 1) raises, as in ``tpufw``.
 """
 
 from __future__ import annotations
@@ -26,7 +31,12 @@ from __future__ import annotations
 import json
 import time
 
-from tpufw_torch.workloads.env import env_float, env_int, env_str, refuse_mesh
+from tpufw_torch.workloads.env import (
+    batch_mesh_from_env,
+    env_float,
+    env_int,
+    env_str,
+)
 
 _T0 = time.time()
 
@@ -89,13 +99,17 @@ def resolve_reward(spec: str, vocab_size: int, max_new: int):
         "importable 'pkg.mod:fn'")
 
 
-def build_trainer():
-    """(trainer, model_cfg) for the RL loop from the TPUFW_* env."""
+def build_trainer(cluster=None):
+    """(trainer, model_cfg) for the RL loop from the TPUFW_* env, on
+    ``cluster``'s local device (default: the resolved cluster
+    environment) and sharded over the process group's mesh when one is
+    initialized."""
+    from tpufw_torch.cluster import local_device, resolve_cluster_env
     from tpufw_torch.models import LLAMA_CONFIGS
     from tpufw_torch.train import TrainerConfig
     from tpufw_torch.train.grpo import GRPOConfig, GRPOTrainer
 
-    refuse_mesh()
+    mesh_cfg = batch_mesh_from_env()
     name = env_str("model", "llama3_tiny")
     if name not in LLAMA_CONFIGS:
         raise ValueError(
@@ -122,16 +136,29 @@ def build_trainer():
         checkpoint_every=env_int("checkpoint_every", 100),
         log_every=1,
     )
-    trainer = GRPOTrainer(model_cfg, trainer_cfg,
-                          device=env_str("device", "cuda"), grpo=grpo)
+    device = local_device(cluster or resolve_cluster_env(),
+                          env_str("device", "cuda"))
+    trainer = GRPOTrainer(model_cfg, trainer_cfg, mesh_cfg, device=device,
+                          grpo=grpo)
     return trainer, model_cfg
 
 
 def main() -> int:
+    from tpufw_torch.cluster import initialize_cluster, resolve_cluster_env
     from tpufw_torch.workloads._common import report_preemption, resolve_encode
 
-    trainer, model_cfg = build_trainer()
-    print(f"tpufw_torch rl: device={trainer.device} "
+    cluster = resolve_cluster_env()
+    if cluster.num_processes > 1:
+        raise NotImplementedError(
+            "the RL workload is single-process for now: rollouts are "
+            "host-driven; shard prompts across independent Jobs instead"
+        )
+    cluster = initialize_cluster(cluster, device=env_str("device", "cuda"))
+    trainer, model_cfg = build_trainer(cluster)
+    mesh = (dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))
+            if trainer.gang else {})
+    print(f"tpufw_torch rl: rank {cluster.rank}/{cluster.world_size} "
+          f"device={trainer.device} mesh={mesh} "
           f"params={model_cfg.n_params():,}", flush=True)
     seed = env_int("seed", 0)
     init_from = env_str("init_from", "")
@@ -182,6 +209,10 @@ def main() -> int:
         last = history[-1]
         print(f"RL OK: {len(history)} steps, reward_mean "
               f"{last['reward_mean']:.4f}, kl {last['kl']:.4f}", flush=True)
+    if trainer.gang:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

@@ -1,6 +1,9 @@
-"""ResNet-50 training workload on one GPU:
+"""ResNet-50 training workload:
 ``python -m tpufw_torch.workloads.train_resnet`` (port of
-``tpufw.workloads.train_resnet``).
+``tpufw.workloads.train_resnet``), on one GPU or as a gang, one process
+per GPU (``cluster``), over ``tpufw``'s default mesh (every rank on
+``fsdp``; no mesh knob, as in ``tpufw``), BatchNorm's statistics the
+global batch's.
 
 Knobs (``TPUFW_*``): ``NORM_DTYPE`` (BatchNorm's output dtype,
 ``bfloat16`` by default: the early stages are bandwidth-bound),
@@ -8,24 +11,25 @@ Knobs (``TPUFW_*``): ``NORM_DTYPE`` (BatchNorm's output dtype,
 ``TOTAL_STEPS`` (50), ``SEED``, ``DEVICE`` (default ``cuda``), and the
 checkpoint and preemption set: ``CHECKPOINT_DIR`` (resume from its latest
 step at start), ``CHECKPOINT_EVERY`` (100), ``HANDLE_PREEMPTION`` and
-``PREEMPTION_SYNC_EVERY``. A ``TPUFW_MESH_*`` axis above 1, or a multi-process cluster environment,
-raises (ROADMAP.md Queue 1 item 12d). Synthetic images from the host; one JSON line
-per step, then the ``TRAIN OK`` line.
+``PREEMPTION_SYNC_EVERY``. Synthetic images of the global batch from the
+host (each rank feeds its batch shard's rows); one JSON line per step,
+then the ``TRAIN OK`` line.
 """
 
 from __future__ import annotations
 
 import json
 
-from tpufw_torch.workloads.env import env_bool, env_int, env_str, refuse_mesh
+from tpufw_torch.workloads.env import env_bool, env_int, env_str
 
 
-def build_trainer():
-    """(trainer, model_cfg) from the TPUFW_* environment. A mesh axis
-    above 1 or a cluster gang raises (ROADMAP.md Queue 1 item 12d)."""
-    refuse_mesh()
+def build_trainer(cluster=None):
+    """(trainer, model_cfg) from the TPUFW_* environment, on ``cluster``'s
+    local device (default: the resolved cluster environment) and sharded
+    when a process group is initialized."""
     import torch
 
+    from tpufw_torch.cluster import local_device, resolve_cluster_env
     from tpufw_torch.models import ResNetConfig
     from tpufw_torch.train import VisionTrainer, VisionTrainerConfig
 
@@ -44,14 +48,19 @@ def build_trainer():
         preemption_sync_every=env_int("preemption_sync_every", 1),
     )
     mcfg = ResNetConfig(num_classes=cfg.num_classes, norm_dtype=dtype)
-    return VisionTrainer(mcfg, cfg, device=env_str("device", "cuda")), mcfg
+    device = local_device(cluster or resolve_cluster_env(),
+                          env_str("device", "cuda"))
+    return VisionTrainer(mcfg, cfg, device=device), mcfg
 
 
 def main() -> int:
+    from tpufw_torch.cluster import initialize_cluster
     from tpufw_torch.train import synthetic_images
+    from tpufw_torch.train.vision import batch_rows
     from tpufw_torch.workloads._common import report_preemption
 
-    trainer, mcfg = build_trainer()
+    cluster = initialize_cluster(device=env_str("device", "cuda"))
+    trainer, mcfg = build_trainer(cluster)
     cfg = trainer.cfg
     print(f"tpufw_torch train_resnet: device={trainer.device}", flush=True)
     if trainer.maybe_restore():
@@ -59,7 +68,9 @@ def main() -> int:
     else:
         trainer.init_state(seed=env_int("seed", 0))
     history = trainer.run(
-        synthetic_images(cfg.batch_size, cfg.image_size, cfg.num_classes),
+        batch_rows(synthetic_images(cfg.batch_size, cfg.image_size,
+                                    cfg.num_classes),
+                   *trainer.batch_shard()),
         flops_per_image=mcfg.flops_per_image(cfg.image_size),
         on_metrics=lambda m: print(json.dumps(m.as_dict()), flush=True),
     )
@@ -69,6 +80,10 @@ def main() -> int:
         print(f"TRAIN OK: {len(history)} steps, final loss {last.loss:.4f}, "
               f"{last.tokens_per_sec_per_gpu:.1f} images/s/GPU, "
               f"MFU {last.mfu:.1%}")
+    if trainer.gang:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

@@ -1,5 +1,7 @@
-"""ViT training workload on one GPU: ``python -m tpufw_torch.workloads.train_vit``
-(port of ``tpufw.workloads.train_vit``).
+"""ViT training workload: ``python -m tpufw_torch.workloads.train_vit``
+(port of ``tpufw.workloads.train_vit``), on one GPU or as a gang, one
+process per GPU (``cluster``), over ``tpufw``'s default mesh (every rank
+on ``fsdp``; no mesh knob, as in ``tpufw``).
 
 Knobs (``TPUFW_*``): ``MODEL`` (``vit_b16``, ``vit_s16`` or ``vit_l16``),
 ``NUM_CLASSES`` (1000), ``REMAT`` (default: the preset's, on),
@@ -7,10 +9,10 @@ Knobs (``TPUFW_*``): ``MODEL`` (``vit_b16``, ``vit_s16`` or ``vit_l16``),
 rate in thousandths, 1), ``SYNC_EVERY`` (4), ``SEED``, ``DEVICE`` (default
 ``cuda``), and the checkpoint and preemption set: ``CHECKPOINT_DIR``
 (resume from its latest step at start), ``CHECKPOINT_EVERY`` (100),
-``HANDLE_PREEMPTION`` and ``PREEMPTION_SYNC_EVERY``. A ``TPUFW_MESH_*`` axis above 1, or a multi-process cluster environment,
-raises (ROADMAP.md Queue 1 item 12d). Synthetic images
-staged on the device once; one JSON line per metered window, then the
-``TRAIN OK`` line.
+``HANDLE_PREEMPTION`` and ``PREEMPTION_SYNC_EVERY``. Synthetic images of
+the global batch staged on the device once (each rank feeds its batch
+shard's rows); one JSON line per metered window, then the ``TRAIN OK``
+line.
 """
 
 from __future__ import annotations
@@ -18,13 +20,14 @@ from __future__ import annotations
 import dataclasses
 import json
 
-from tpufw_torch.workloads.env import env_bool, env_int, env_str, refuse_mesh
+from tpufw_torch.workloads.env import env_bool, env_int, env_str
 
 
-def build_trainer():
-    """(trainer, model_cfg) from the TPUFW_* environment. A mesh axis
-    above 1 or a cluster gang raises (ROADMAP.md Queue 1 item 12d)."""
-    refuse_mesh()
+def build_trainer(cluster=None):
+    """(trainer, model_cfg) from the TPUFW_* environment, on ``cluster``'s
+    local device (default: the resolved cluster environment) and sharded
+    when a process group is initialized."""
+    from tpufw_torch.cluster import local_device, resolve_cluster_env
     from tpufw_torch.models import VIT_CONFIGS
     from tpufw_torch.train import VisionTrainer, VisionTrainerConfig
 
@@ -49,14 +52,19 @@ def build_trainer():
         preemption_sync_every=env_int("preemption_sync_every", 1),
         sync_every=env_int("sync_every", 4),
     )
-    return VisionTrainer(mcfg, cfg, device=env_str("device", "cuda")), mcfg
+    device = local_device(cluster or resolve_cluster_env(),
+                          env_str("device", "cuda"))
+    return VisionTrainer(mcfg, cfg, device=device), mcfg
 
 
 def main() -> int:
+    from tpufw_torch.cluster import initialize_cluster
     from tpufw_torch.train import synthetic_images
+    from tpufw_torch.train.vision import batch_rows
     from tpufw_torch.workloads._common import report_preemption
 
-    trainer, mcfg = build_trainer()
+    cluster = initialize_cluster(device=env_str("device", "cuda"))
+    trainer, mcfg = build_trainer(cluster)
     cfg = trainer.cfg
     print(f"tpufw_torch train_vit[{env_str('model', 'vit_b16')}]: "
           f"device={trainer.device} params={mcfg.n_params():,}", flush=True)
@@ -65,8 +73,9 @@ def main() -> int:
     else:
         trainer.init_state(seed=env_int("seed", 0))
     history = trainer.run(
-        synthetic_images(cfg.batch_size, cfg.image_size, cfg.num_classes,
-                         device=trainer.device),
+        batch_rows(synthetic_images(cfg.batch_size, cfg.image_size,
+                                    cfg.num_classes, device=trainer.device),
+                   *trainer.batch_shard()),
         flops_per_image=mcfg.flops_per_image(),
         on_metrics=lambda m: print(json.dumps(m.as_dict()), flush=True),
     )
@@ -76,6 +85,10 @@ def main() -> int:
         print(f"TRAIN OK: {len(history)} windows, final loss "
               f"{last.loss:.4f}, {last.tokens_per_sec_per_gpu:.1f} "
               f"images/s/GPU, MFU {last.mfu:.1%}")
+    if trainer.gang:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 
