@@ -5546,6 +5546,160 @@ def gang_post_phase(torch, chip, kind, smi, vision_refs, post_refs,
     return out
 
 
+# ---------------------------------------------------------- phase 18
+
+# Phase 18: each sub-phase trains its model twice from seed 0 on the same
+# batches, unsplit and over one process's tensor (and expert) groups, the
+# flash counters zeroed just before each run. Step losses and grad
+# norms within TENSOR_TOL relative of the unsplit run's: the split sums
+# the row-parallel partial products (o, down, the vocab-parallel
+# embedding and head) shard by shard in bf16, which rounds differently.
+# The gaps read 3e-7 to 4.2e-5 (losses) and 3e-6 to 1.7e-4 (grad norms)
+# on an H100 at 700 W; a lost part of a row-parallel sum or a wrong KV
+# head in a shard moves the grad norm by far more.
+TENSOR_TOL = 1e-3
+TENSOR_STEPS = 4
+# name: (model, layers or None, (tensor, expert), batch, seq, steps).
+TENSOR_CASES = {
+    "18a": ("llama3_600m_bench", None, (2, 1), RESUME_BATCH, RESUME_SEQ,
+            TENSOR_STEPS),
+    "18b": ("deepseek_v2_lite_train_slice", V2LITE_TRAIN_LAYERS, (2, 2),
+            2, 2048, TENSOR_STEPS),
+    "18c": ("gemma2_9b_train_slice", GEMMA_TRAIN_LAYERS, (2, 1), 1, 8192,
+            TENSOR_STEPS),
+}
+
+
+def tensor_config(name, n_layers):
+    """(model config, trainer config kwargs) of a phase-18 case."""
+    from tpufw_torch import configs
+
+    if name == "llama3_600m_bench":
+        return configs.resolve_model_preset(name), dict(loss_chunk_size=512)
+    cfg, tcfg = getattr(configs, name)(n_layers)
+    return cfg, dict(loss_chunk_size=tcfg.loss_chunk_size)
+
+
+def tensor_run(torch, cfg, tkw, batches, groups, batch, seq) -> dict:
+    """One run of a phase-18 case: ``Trainer`` from seed 0 over ``groups``
+    (() unsplit) on ``batches``, the flash counters zeroed just before
+    ``run`` and read just after. Returns its summary."""
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(batch_size=batch, seq_len=seq,
+                         total_steps=len(batches), warmup_steps=2,
+                         log_every=1, handle_preemption=False, **tkw)
+    trainer = Trainer(cfg, tcfg, device="cuda", groups=groups)
+    trainer.init_state(seed=0)
+    rec = _recorded(trainer, ("loss", "grad_norm"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    hist = trainer.run(iter(batches), model_flops_per_token=cfg.flops_per_token(
+        seq - 1))
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in flash.LAUNCHES.items() if c}
+    step_ms = [1e3 * m.step_time_s for m in hist[1:]]
+    out = {"groups": {g.axis: g.size for g in groups},
+           "losses": [float(r["loss"]) for r in rec],
+           "grad_norms": [float(r["grad_norm"]) for r in rec],
+           "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms) if step_ms else None,
+           "tokens_per_sec": [m.tokens_per_sec_per_gpu for m in hist[1:]],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    del trainer, rec, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_phase(torch, kind, smi) -> dict:
+    """Phase 18: tensor and expert shards on the card, in one process.
+    Each TENSOR_CASES sub-phase trains unsplit, then split (18a
+    llama3_600m_bench over LocalTensorGroup(2): flash d128 at 6/3 heads a
+    shard; 18b the V2-Lite slice over LocalTensorGroup(2) x
+    LocalExpertGroup(2): MLA at d192 with 8 heads and 32 routed experts a
+    shard; 18c the Gemma-2-9B slice over LocalTensorGroup(2): d256 at 8/4
+    heads a shard, soft caps, the tied vocab-parallel head of 256,000).
+    Holds every loss finite, the split losses and grad norms within
+    TENSOR_TOL of the unsplit ones, and the split run's launches of each
+    kernel equal to the tensor size times the unsplit run's (each shard
+    attends with its own heads), no other kernel launched. The kernels are first checked
+    against their plain versions at a shard's shapes. Returns
+    {sub-phase: the split run's launches}; raises AssertionError."""
+    from tpufw_torch.ops import flash
+    from tpufw_torch.parallel import LocalExpertGroup, LocalTensorGroup
+    from tpufw_torch.train import synthetic_batches
+
+    emit({"phase18_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "card_state": nvidia_smi(CARD_STATE)})
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for case, (b, t, h, kh, d, pad_v, masks) in {
+            "tensor_600m_shard": (RESUME_BATCH, RESUME_SEQ - 1, 6, 3, 128, 0,
+                                  {"causal": True}),
+            "tensor_v2lite_shard": (2, 2047, 8, 8, 192, 64, {"causal": True}),
+            "tensor_gemma_shard": (1, GEMMA_T, 8, 4, 256, 0,
+                                   {"causal": True,
+                                    "soft_cap": GEMMA_ATTN_CAP})}.items():
+        x = [torch.randn(b, t, n, d, generator=gen, device="cuda").to(
+            torch.bfloat16) for n in (h, kh, kh, h)]
+        if pad_v:
+            x[2][..., d - pad_v:] = 0
+        check_kernels(torch, flash, case, *x, masks)
+        del x
+        torch.cuda.empty_cache()
+    launches, bad = {}, []
+    for name, (model, layers, (tp, ep), batch, seq, steps) in \
+            TENSOR_CASES.items():
+        t0 = time.perf_counter()
+        cfg, tkw = tensor_config(model, layers)
+        it = synthetic_batches(batch, seq, cfg.vocab_size, seed=18)
+        batches = [next(it) for _ in range(steps)]
+        groups = tuple(g for g in (LocalTensorGroup(tp), LocalExpertGroup(ep))
+                       if g.size > 1)
+        whole = tensor_run(torch, cfg, tkw, batches, (), batch, seq)
+        split = tensor_run(torch, cfg, tkw, batches, groups, batch, seq)
+        d = head_dim_of(cfg)
+        path = [flash.kernel_name(k, d) for k in flash.KERNELS]
+        predicted = {k: tp * whole["launches"].get(k, 0) for k in path}
+        rel, rel_gn = (
+            [abs(a - b) / abs(b) for a, b in zip(split[k], whole[k])]
+            for k in ("losses", "grad_norms"))
+        out = {"tensor_summary": name, "model": model,
+               "reduced": {"n_layers": [None, layers]} if layers else {},
+               "n_layers": cfg.n_layers, "head_dim": d,
+               "batch_size": batch, "seq_len": seq,
+               "heads_per_shard": [cfg.n_heads // tp,
+                                   getattr(cfg, "n_kv_heads", cfg.n_heads)
+                                   // tp],
+               "experts_per_shard": (getattr(cfg, "n_experts", 0) // ep
+                                     if ep > 1 else None),
+               "unsplit": whole, "split": split,
+               "predicted_launches": predicted,
+               "rel_diff_losses": rel, "rel_diff_grad_norms": rel_gn,
+               "tol": TENSOR_TOL,
+               "device": kind, "nvidia_smi": smi,
+               "card_state": nvidia_smi(CARD_STATE)}
+        emit(out)
+        losses = whole["losses"] + split["losses"]
+        if (len(split["losses"]) != steps
+                or len(split["grad_norms"]) != steps
+                or not all(math.isfinite(x) for x in losses)
+                or max(rel + rel_gn) > TENSOR_TOL
+                or not all(whole["launches"].get(k, 0) > 0 for k in path)
+                or split["launches"] != {k: c for k, c in predicted.items()
+                                         if c}):
+            bad.append(name)
+        launches[name] = {k: split["launches"].get(k, 0) for k in path}
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"phase 18: {bad} failed their checks")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5852,6 +6006,14 @@ def main() -> int:
         return fail(str(e))
     del vision_refs, post_refs
 
+    # 18. Tensor and expert shards, with phase 17's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        tensor_launches = _timed("18", lambda: tensor_phase(torch, kind, smi))
+    except AssertionError as e:
+        return fail(str(e))
+
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -5910,6 +6072,11 @@ def main() -> int:
         # ring and ulysses trainers (one shard).
         kernels[-1]["launches_sequence"] = {
             part: counts.get(name, 0) for part, counts in seq_launches.items()}
+        # Phase 18's split runs: 18a llama3_600m_bench (d128), 18b the
+        # V2-Lite slice (d192), 18c the Gemma-2-9B slice (d256).
+        kernels[-1]["launches_tensor"] = {
+            part: counts.get(name, 0)
+            for part, counts in tensor_launches.items()}
         # Phase 16's runs, by sub-phase and schedule (16a llama3_600m_bench
         # at head dim 128, 16b deepseek_mla_bench at 192), 4 steps each.
         kernels[-1]["launches_pipeline"] = {

@@ -3,7 +3,7 @@ against one process on the same global batches.
 
     python3 scripts/gang_check_torch.py [--world 4] [--cpu] [--model NAME]
         [--batch 16] [--seq 2049] [--steps 3] [--tol 1e-3]
-        [--suite lm|post|all]
+        [--suite lm|post|tensor|all]
 
 The parent builds the CUDA kernels, then starts ``--world`` ranks of this
 script on one host, told their rank as a per-GPU launcher tells them
@@ -39,7 +39,14 @@ equal at every step, step 1's those of one process; later steps' share
 of one process's tokens is printed); ResNet-50 at batch 256
 (``MeshConfig()``), BatchNorm's statistics over the gang. With
 ``--cpu`` the post suite runs tiny sizes (a rehearsal of its code
-paths). ``--suite all`` runs both, ``lm`` (the default) the first alone.
+paths). The ``tensor`` suite (``--world 4``) trains over the model-parallel
+axes, each rank holding its shards of the split parameters, against one
+process within ``--tol``: ``tensor=2`` by ``fsdp=2`` on
+``llama3_600m_bench`` (16 rows of 2049 tokens), and ``expert=2`` by
+``tensor=2`` on ``deepseek_v2_lite_train_slice`` (V2-Lite at full width,
+3 layers; 2 rows of 2048, every rank feeding both); with ``--cpu`` on
+``llama3_tiny`` and ``deepseek_moe_tiny``. ``--suite all`` runs
+``lm`` and ``post``, ``lm`` (the default) the first alone.
 One JSON line per result, then (on GPUs) each card's name and power
 limit from ``nvidia-smi``, ``{"ok": true, ...}`` last; exits nonzero
 when a check fails.
@@ -328,6 +335,97 @@ def _post_checks(args, ranks: list, single: dict) -> bool:
     return ok
 
 
+# The tensor suite: name: (model on GPUs, model with --cpu, mesh, global
+# batch, seq) (the CPU rehearsal at 4 rows of 33 tokens).
+TENSOR_RUNS = {
+    "tensor2_fsdp2": ("llama3_600m_bench", "llama3_tiny",
+                      dict(data=1, fsdp=2, tensor=2), 16, 2049),
+    "expert2_tensor2": ("deepseek_v2_lite_train_slice", "deepseek_moe_tiny",
+                        dict(data=1, fsdp=1, expert=2, tensor=2), 2, 2048),
+}
+
+
+def _tensor_setup(args, name):
+    """(model config, TrainerConfig, the global batches) of a tensor-suite
+    run."""
+    gpu_model, cpu_model, _, batch, seq = TENSOR_RUNS[name]
+    if args.cpu:
+        batch, seq = 4, 33
+    return _setup(argparse.Namespace(**dict(
+        vars(args), model=cpu_model if args.cpu else gpu_model,
+        batch=batch, seq=seq)))
+
+
+def _tensor_runs(args, dev) -> dict:
+    """Each tensor-suite run's numbers over its mesh (a rank's)."""
+    import torch
+
+    from tpufw_torch.mesh import MeshConfig
+    from tpufw_torch.train import Trainer
+
+    out = {}
+    for name, (_, _, mesh, _, _) in TENSOR_RUNS.items():
+        cfg, tcfg, batches = _tensor_setup(args, name)
+        trainer = Trainer(cfg, tcfg, MeshConfig(**mesh), device=dev)
+        trainer.init_state(seed=0)
+        pairs, step_ms, peak = _run(trainer, _rows(trainer, batches))
+        out[name] = {"losses": [p[0] for p in pairs],
+                     "grad_norms": [p[1] for p in pairs],
+                     "step_ms": step_ms, "peak_gb": peak,
+                     "mesh": dict(zip(trainer.mesh.mesh_dim_names,
+                                      trainer.mesh.shape))}
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _tensor_checks(args, ranks: list, dev) -> bool:
+    """One JSON line per tensor-suite run: the ranks agree, and rank 0's
+    losses and grad norms are within ``--tol`` of one process's."""
+    import torch
+
+    from tpufw_torch.train import Trainer
+
+    ok = True
+    for name, run in ranks[0].items():
+        cfg, tcfg, batches = _tensor_setup(args, name)
+        one = Trainer(cfg, tcfg, device=dev)
+        one.init_state(seed=0)
+        want, one_ms, one_peak = _run(one, batches)
+        del one
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        same = all(r[name]["losses"] == run["losses"] for r in ranks)
+        d_loss = _rel(run["losses"], [w[0] for w in want])
+        d_norm = _rel(run["grad_norms"], [w[1] for w in want])
+        good = same and len(run["losses"]) == args.steps and \
+            max(d_loss, d_norm) <= args.tol
+        ok &= good
+        emit({"check": f"gang_{name}_vs_one_process", "ok": good,
+              "world": args.world, "mesh": run["mesh"],
+              "model": TENSOR_RUNS[name][1 if args.cpu else 0],
+              "global_batch": tcfg.batch_size, "seq_len": tcfg.seq_len,
+              "ranks_equal": same, "losses_gang": run["losses"],
+              "losses_one_process": [w[0] for w in want],
+              "grad_norms_gang": run["grad_norms"],
+              "grad_norms_one_process": [w[1] for w in want],
+              "max_rel_diff_loss": d_loss, "max_rel_diff_grad_norm": d_norm,
+              "tol": args.tol, "step_ms_gang_rank0": run["step_ms"],
+              "peak_gb_gang_rank0": run["peak_gb"],
+              "step_ms_one_process": one_ms,
+              "peak_gb_one_process": one_peak})
+    return ok
+
+
+def _rows(trainer, batches) -> list:
+    """This rank's rows of each global batch: its batch shard's."""
+    shard, n_shards = trainer.batch_shard()
+    rows = len(batches[0]["tokens"]) // n_shards
+    return [{k: v[shard * rows:(shard + 1) * rows] for k, v in b.items()}
+            for b in batches]
+
+
 def rank_main(args) -> int:
     import dataclasses
 
@@ -347,16 +445,18 @@ def rank_main(args) -> int:
     if args.suite in ("all", "post"):
         post = _post_runs(args, dev)
         torch.save(post, os.path.join(args.out, f"rank{rank}_post.pt"))
-    if args.suite == "post":
+    if args.suite == "tensor":
+        tensor = _tensor_runs(args, dev)
+        with open(os.path.join(args.out, f"rank{rank}_tensor.json"),
+                  "w") as f:
+            json.dump(tensor, f)
+    if args.suite in ("post", "tensor"):
         dist.destroy_process_group()
         return 0
     cfg, tcfg, batches = _setup(args)
 
     def local(trainer):
-        shard, n_shards = trainer.batch_shard()
-        rows = args.batch // n_shards
-        return [{k: v[shard * rows:(shard + 1) * rows] for k, v in b.items()}
-                for b in batches]
+        return _rows(trainer, batches)
 
     # name: (mesh, grad_accum, attention backend or None).
     meshes = {f"fsdp{world}": (MeshConfig(data=1, fsdp=world), 1, None)}
@@ -465,7 +565,13 @@ def parent_main(args) -> int:
             torch.load(os.path.join(args.out, f"rank{r}_post.pt"),
                        weights_only=False) for r in range(args.world)],
             _post_runs(args, torch.device(dev)))
-    if args.suite == "post":
+    if args.suite == "tensor":
+        ranks = []
+        for r in range(args.world):
+            with open(os.path.join(args.out, f"rank{r}_tensor.json")) as f:
+                ranks.append(json.load(f))
+        ok &= _tensor_checks(args, ranks, dev)
+    if args.suite in ("post", "tensor"):
         return _finish(args, ok, gang_s, tmp)
     ranks = []
     for r in range(args.world):
@@ -556,14 +662,19 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--tol", type=float, default=1e-3)
     ap.add_argument("--timeout", type=float, default=600.0)
-    ap.add_argument("--suite", choices=("lm", "post", "all"), default="lm",
+    ap.add_argument("--suite", choices=("lm", "post", "tensor", "all"),
+                    default="lm",
                     help="lm: the LM meshes, pipelines and stop; post: E5, "
-                    "GRPO and ResNet-50 over the whole batch; all: both")
+                    "GRPO and ResNet-50 over the whole batch; tensor: the "
+                    "tensor and expert axes (--world 4); all: lm and post")
     ap.add_argument("--rank-of-gang", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     ap.add_argument("--ckpt", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.suite == "tensor" and args.world != 4:
+        ap.error("--suite tensor runs tensor=2 x fsdp=2 and expert=2 x "
+                 "tensor=2: it needs --world 4")
     if args.batch % args.world:
         ap.error(f"--batch {args.batch} must divide over --world "
                  f"{args.world}")

@@ -25,6 +25,7 @@ import urllib.request
 import pytest
 
 from tests.torch_parity import decode_pair
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.workloads import serve as j_serve
 from tpufw_torch.infer import SamplingConfig
 from tpufw_torch.workloads import serve

@@ -15,6 +15,7 @@ import sys
 import pytest
 
 import chip_smoke
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw_torch.ops import _build
 
 NVCC = """#!{python}

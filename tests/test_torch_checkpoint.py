@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.mesh import MeshConfig
 from tpufw.models import LLAMA_CONFIGS as J_CONFIGS
 from tpufw.models import Llama as JLlama

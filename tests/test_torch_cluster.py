@@ -9,6 +9,7 @@ import dataclasses
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.cluster import ClusterConfig as JClusterConfig
 from tpufw.cluster import initialize_cluster as j_initialize_cluster
 from tpufw.cluster import resolve_cluster_env as j_resolve

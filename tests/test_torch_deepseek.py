@@ -22,6 +22,7 @@ import pytest
 import torch
 from flax.core import meta
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.mesh import MeshConfig
 from tpufw.models.deepseek import DEEPSEEK_CONFIGS as J_CONFIGS
 from tpufw.models.deepseek import Deepseek as JDeepseek

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.ops.flash import flash_attention as jax_flash
 from tpufw_torch.ops import flash as tflash
 

@@ -16,6 +16,7 @@ Gemma-2).
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw_torch.ops import flash as tflash
 
 # name: (t, s, offset or None for s - t, causal, window)

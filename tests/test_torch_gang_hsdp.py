@@ -14,6 +14,7 @@ import os
 import subprocess
 import sys
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tests.torch_gang import ROOT
 
 

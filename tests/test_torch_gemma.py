@@ -27,6 +27,7 @@ import pytest
 import torch
 from flax.core import meta
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.mesh import MeshConfig
 from tpufw.models.gemma import GEMMA_CONFIGS as J_CONFIGS
 from tpufw.models.gemma import Gemma as JGemma

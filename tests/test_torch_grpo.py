@@ -274,12 +274,13 @@ def test_rl_workload_runs(tmp_path, monkeypatch, capsys):
     with pytest.raises(ValueError, match="TPUFW_REWARD"):
         rl.resolve_reward("nope", 256, 8)
     # Outside a gang the mesh must fit one device (the Trainer's check);
-    # TENSOR waits for its slice; more than one host is tpufw's refusal.
+    # TENSOR waits for GRPO's split head (item 12g); more than one host is
+    # tpufw's refusal.
     _env(monkeypatch, MESH_DATA="2")
     with pytest.raises(ValueError, match="1 devices not divisible"):
         rl.build_trainer()
     _env(monkeypatch, MESH_TENSOR="2")
-    with pytest.raises(NotImplementedError, match=r"item 12e\)$"):
+    with pytest.raises(NotImplementedError, match=r"item 12g\)$"):
         rl.build_trainer()
     _env(monkeypatch, COORDINATOR="127.0.0.1:1", NUM_PROCESSES="2")
     with pytest.raises(NotImplementedError, match="single-process for now"):

@@ -17,6 +17,7 @@ import pytest
 import torch
 import transformers
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.models import model_for_config as j_model_for_config
 from tpufw.tools import import_hf as j_import
 from tpufw_torch.interop import params_from_flax

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tests.torch_parity import PRESETS, flax_params, pair, torch_model
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.models.llama import Llama as JLlama
 from tpufw_torch.infer import (
     cast_decode_params,

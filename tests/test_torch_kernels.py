@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw_torch.ops import flash as tflash
 
 # Every |got - want| within ROW_TOL of the largest |want| in its row (one

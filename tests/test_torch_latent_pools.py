@@ -35,6 +35,7 @@ import pytest
 import torch
 from flax.core import meta
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.infer import SamplingConfig as JSampling
 from tpufw.infer import generate_text as j_generate_text
 from tpufw.infer import pages as j_pages

@@ -11,6 +11,7 @@ import pytest
 import torch
 from flax.core import meta
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.models.llama import LLAMA_CONFIGS as J_CONFIGS
 from tpufw.models.llama import Llama as JLlama
 from tpufw_torch.interop import params_from_flax

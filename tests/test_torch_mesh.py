@@ -4,12 +4,14 @@ word for word, and ``rank_grid`` laying ranks out as ``build_mesh`` lays
 out device ids, with and without ``dcn_data``. Then what the port builds
 of it: the (``data``, ``fsdp``, ``sequence``) ``DeviceMesh`` of a gloo
 group, the ``pipe`` dimension (and its refusal beside ``sequence``), the
-refusal of the axes a later slice brings, and the global
+``expert`` and ``tensor`` dimensions (refused beside ``sequence``), and
+the global
 token order a MoE layer routes a sequence-split gang's tokens in."""
 
 import numpy as np
 import pytest
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tests.torch_gang import free_port
 from tpufw.mesh import MESH_AXES as J_AXES
 from tpufw.mesh import MeshConfig as JMeshConfig
@@ -107,8 +109,16 @@ def test_mesh_shape_is_data_by_fsdp(kw, world, shape):
 @pytest.mark.parametrize("axis,item", [("tensor", "12e"),
                                        ("expert", "12e")])
 def test_later_axes_refused(axis, item):
-    with pytest.raises(NotImplementedError, match=rf"item {item}\)$"):
-        mesh_shape(MeshConfig(**{axis: 2, "fsdp": 2}), 4)
+    """Item 12e (``item``) made ``tensor`` and ``expert`` mesh dimensions,
+    in ``tpufw``'s axis order; beside a ``sequence`` axis above 1 they
+    are refused, naming item 12g."""
+    assert item == "12e"
+    assert mesh_shape(MeshConfig(**{axis: 2, "fsdp": 2}), 4) == dict(
+        {"data": 1, "fsdp": 2}, **({"expert": 2, "sequence": 1}
+                                   if axis == "expert" else
+                                   {"sequence": 1, "tensor": 2}))
+    with pytest.raises(NotImplementedError, match=r"item 12g\)$"):
+        mesh_shape(MeshConfig(**{axis: 2, "fsdp": 1, "sequence": 2}), 4)
     # A fill that resolves to one device is no such axis.
     assert mesh_shape(MeshConfig(**{axis: -1, "fsdp": 4}), 4) == {
         "data": 1, "fsdp": 4, "sequence": 1}

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.ops import moe as j_moe
 from tpufw_torch.models import MIXTRAL_CONFIGS, MixtralConfig, MoEMLP
 from tpufw_torch.ops import moe

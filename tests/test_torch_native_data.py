@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.train import TokenCorpus as JTokenCorpus
 from tpufw.train import pack_documents as j_pack_documents
 from tpufw_torch.train import (

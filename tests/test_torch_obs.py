@@ -9,6 +9,7 @@ import json
 
 import pytest
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.obs import events as j_events
 from tpufw.obs import registry as j_registry
 from tpufw.obs import reqtrace as j_reqtrace

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.models.llama import RopeScaling as JRopeScaling
 from tpufw.models.llama import apply_rope as j_apply_rope
 from tpufw.ops.attention import xla_attention as j_xla

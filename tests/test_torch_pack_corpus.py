@@ -7,6 +7,7 @@ import json
 import numpy as np
 import pytest
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.tools import pack_corpus as j_pack
 from tpufw_torch.tools.pack_corpus import (
     byte_tokenizer,

@@ -5,7 +5,7 @@ the port on a ``LocalPipeGroup`` (every stage in one process), logits,
 losses and gradients at 2e-4; the sequential oracle; Gemma, Qwen's biases
 and Mistral's window through the stages; and the checks that fail loudly.
 ``tpufw``'s tensor-parallel (``pptp``) cases are the port's refusals of a
-``tensor`` axis (ROADMAP.md Queue 1 item 12e)."""
+``tensor`` axis (ROADMAP.md Queue 1 item 12g)."""
 
 import dataclasses
 import os
@@ -327,7 +327,7 @@ def test_mistral_window_reaches_pipeline_blocks(devices8):
 def test_pptp_tensor_axis_is_refused(case, monkeypatch):
     """``tpufw`` splits heads over ``tensor`` inside the stages; the port
     refuses a ``tensor`` axis above 1 everywhere a pipeline takes one,
-    naming ROADMAP.md Queue 1 item 12e."""
+    naming ROADMAP.md Queue 1 item 12g."""
     from tpufw_torch.mesh import MeshConfig, mesh_shape
     from tpufw_torch.train import PipelineTrainer, TrainerConfig
     from tpufw_torch.workloads import env as wenv
@@ -336,7 +336,7 @@ def test_pptp_tensor_axis_is_refused(case, monkeypatch):
     for k in [k for k in os.environ if k.startswith("TPUFW_")]:
         monkeypatch.delenv(k)
     mcfg = MeshConfig(data=1, pipe=2, fsdp=2, tensor=2)
-    with pytest.raises(NotImplementedError, match=r"item 12e\)"):
+    with pytest.raises(NotImplementedError, match=r"item 12g\)"):
         if case == "pptp_mesh_shape":
             mesh_shape(mcfg, 8)
         elif case == "pptp_mesh_from_env":

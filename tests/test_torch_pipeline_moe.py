@@ -5,7 +5,7 @@ each (microbatch x data-shard) group alone, so the port routes groups of
 the same ``group_rows``; logits, the router loss and gradients match at
 2e-4 (the reference's 5e-4 for gradients), capacity drops are the same
 tokens', and packed rows' padding takes no routing. An ``expert`` axis is
-refused (ROADMAP.md Queue 1 item 12e), and so is the sorted dispatch,
+refused (ROADMAP.md Queue 1 item 12g), and so is the sorted dispatch,
 which ``tpufw``'s pipeline replaces by the capacity router silently."""
 
 import dataclasses
@@ -130,12 +130,12 @@ def test_moe_train_step_learns(setup):
 @pytest.mark.parametrize("case", ["mesh", "trainer"])
 def test_expert_axis_is_refused(case):
     """``tpufw`` shards expert stacks over ``expert`` inside the stages;
-    the port refuses an ``expert`` axis above 1 (item 12e)."""
+    the port refuses an ``expert`` axis above 1 (item 12g)."""
     from tpufw_torch.mesh import MeshConfig, mesh_shape
     from tpufw_torch.train import PipelineTrainer, TrainerConfig
 
     mcfg = MeshConfig(data=1, pipe=2, fsdp=2, expert=2)
-    with pytest.raises(NotImplementedError, match=r"item 12e\)"):
+    with pytest.raises(NotImplementedError, match=r"item 12g\)"):
         if case == "mesh":
             mesh_shape(mcfg, 8)
         else:

@@ -11,6 +11,7 @@ import signal
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.train.preemption import GracefulShutdown as JGracefulShutdown
 from tpufw_torch.models import LLAMA_CONFIGS
 from tpufw_torch.train import (

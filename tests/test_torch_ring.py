@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tests.torch_gang import free_port
 from tests.torch_sp import (
     assert_runs_close,

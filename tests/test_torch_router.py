@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 from tests.torch_parity import decode_pair
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.cluster.discovery import discover_replicas as j_discover
 from tpufw.serve import router as j_router
 from tpufw.serve import transport as j_transport

@@ -12,6 +12,7 @@ from safetensors import safe_open
 from safetensors.numpy import save_file as np_save_file
 from safetensors.torch import save_file as torch_save_file
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw_torch.io import safetensors as st
 
 DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,

@@ -19,6 +19,7 @@ import time
 import pytest
 
 from tests.torch_parity import decode_pair
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.infer import generate_text as j_generate_text
 from tpufw_torch.infer import SamplingConfig
 from tpufw_torch.workloads import serve

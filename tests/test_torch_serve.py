@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.tools.pack_corpus import byte_tokenizer
 from tpufw.workloads import serve as j_serve
 from tpufw_torch.infer import generate_text

@@ -22,6 +22,7 @@ import urllib.request
 import pytest
 
 from tests.torch_parity import decode_pair
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.obs import registry as j_registry
 from tpufw.workloads import serve as j_serve
 from tpufw_torch.obs import registry

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from tests.torch_parity import decode_pair, flax_params, pair, torch_model
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.infer import generate_text as j_generate_text
 from tpufw.infer import speculative_generate_text as j_spec_text
 from tpufw.models.llama import Llama as JLlama

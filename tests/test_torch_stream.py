@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.infer import sampling as j_sampling
 from tpufw_torch.infer import (
     SamplingConfig,

@@ -33,6 +33,7 @@ import pytest
 import torch
 from flax.core import meta
 
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw.mesh import MeshConfig
 from tpufw.models.deepseek import DEEPSEEK_CONFIGS as J_DEEPSEEK
 from tpufw.models.deepseek import Deepseek as JDeepseek
@@ -465,7 +466,7 @@ def test_state_knobs_match_tpufw_build_trainer(monkeypatch, env):
         k: getattr(theirs.cfg, k) for k in STATE_KNOBS}
 
 
-# Every knob ``tpufw``'s build_trainer honours and the port does not yet:
+# Every knob ``tpufw``'s build_trainer honours and the port did not:
 # (a value that turns it on, the ROADMAP.md Queue 1 item it names).
 REFUSED_TRAIN_KNOBS = {
     "CONFIG": ("run.yaml", "13"),
@@ -474,8 +475,10 @@ REFUSED_TRAIN_KNOBS = {
     "TELEMETRY_DIR": ("/tel", "13"),
     "METRICS_PORT": ("0", "13"),
     "STRAGGLER_FACTOR": ("3.0", "13"),
-    "MESH_EXPERT": ("2", "12e"),
-    "MESH_TENSOR": ("2", "12e"),
+    # Honoured since item 12e (None): above the one-process world they
+    # raise tpufw's ValueError, word for word.
+    "MESH_EXPERT": ("2", None),
+    "MESH_TENSOR": ("2", None),
 }
 
 
@@ -487,6 +490,17 @@ def test_post_training_objectives_are_refused(monkeypatch, knob):
 
     value, item = REFUSED_TRAIN_KNOBS[knob]
     _workload_env(monkeypatch, **{knob: value})
+    if item is None:
+        from tpufw.mesh import build_mesh as j_build_mesh
+
+        axis = knob.removeprefix("MESH_").lower()
+        with pytest.raises(ValueError) as want:
+            j_build_mesh(MeshConfig(**{axis: int(value)}),
+                         devices=jax.devices()[:1])
+        with pytest.raises(ValueError) as got:
+            train_llama.build_trainer()
+        assert str(got.value) == str(want.value)
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"^TPUFW_{knob}: .* is not ported to "
                              rf"tpufw_torch yet \(ROADMAP.md Queue 1 "

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tests.torch_parity import flax_params, pair, torch_model
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tests.torch_sp import (
     assert_runs_close,
     jax_run,

@@ -13,7 +13,11 @@ dicts)}; optionally "kind" ("lm", "dpo" with "dpo" DPOConfig kwargs,
 "distill" with "teacher_cfg" and "teacher_state", "disagree": each rank
 on its own checkpoint directory of "dirs", ``run_disagree``, or
 "attention": the sequence-parallel attention calls of "calls" on the
-whole-sequence "inputs", ``run_attention``) and "signal_rank"/
+whole-sequence "inputs", ``run_attention``), "resume" (the trainer
+resumes from its checkpoint directory before it runs), "grads" (after
+the run, rank 0 also writes every parameter's whole gradient of one
+more step's objective on the first global batch: ``objective_grads``)
+and "signal_rank"/
 "signal_at" (that rank sends itself SIGTERM after that step: the gang's
 stop test). The rank trains on the rows of its batch shard of each
 global batch through ``Trainer.run`` (under a ``sequence`` axis the
@@ -245,6 +249,31 @@ def run_workload(case: dict) -> None:
         raise SystemExit(f"{case['module']}.main() failed")
 
 
+def objective_grads(trainer, batch: dict) -> dict:
+    """Every parameter's whole gradient (a collective: split and sharded
+    ones gathered) of ``trainer``'s objective on this rank's rows of the
+    global ``batch``, without an update."""
+    from tpufw_torch.train import sharding
+    from tpufw_torch.train.trainer import batch_loss, batch_to_device, on_mesh
+
+    shard, n_shards = trainer.batch_shard()
+    rows = len(batch["tokens"]) // n_shards
+    local = {k: v[shard * rows:(shard + 1) * rows] for k, v in batch.items()}
+
+    @on_mesh
+    def run(tr):
+        tr.optimizer.zero_grad()
+        loss, n = batch_loss(tr.model, batch_to_device(local, tr.device),
+                             tr.cfg.loss_chunk_size, tr.cfg.loss_chunk_dtype)
+        sharding.backward_global_mean(loss, n)
+        return {k: sharding.full_tensor(
+            sharding.SplitPart(p.grad, tr.splits[k], tr.groups)
+            if k in tr.splits else p.grad)
+            for k, p in tr.model.named_parameters()}
+
+    return run(trainer)
+
+
 def run_case(path: str, rank: int, world: int) -> None:
     from tpufw_torch.mesh import MeshConfig
     from tpufw_torch.models import model_for_config
@@ -283,6 +312,8 @@ def run_case(path: str, rank: int, world: int) -> None:
     else:
         trainer = Trainer(*args, device="cpu")
     trainer.init_state(state_dict=case["state"])
+    if case.get("resume"):
+        trainer.maybe_restore()
     if kind == "distill":
         teacher = model_for_config(case["teacher_cfg"], device="cpu")
         teacher.load_state_dict(case["teacher_state"])
@@ -310,9 +341,15 @@ def run_case(path: str, rank: int, world: int) -> None:
     out = {"losses": [r[0] for r in recorded],
            "grad_norms": [r[1] for r in recorded],
            "preempted": trainer.preempted, "step": trainer.step}
-    params = full_state_dict(trainer.model.state_dict())
+    # The trainer's state holds whole tensors once gathered (a tensor- or
+    # expert-parallel gang's split ones too).
+    params = full_state_dict(trainer.state_dict()["model"])
     if rank == 0:
         out["params"] = params
+    if case.get("grads"):
+        grads = objective_grads(trainer, case["batches"][0])
+        if rank == 0:
+            out["grads"] = grads
     torch.save(out, f"{path}.out{rank}.pt")
 
 

@@ -44,6 +44,11 @@ Layout facts of the JAX package it handles:
   ``{w}_lora_a`` [E, in, r] and ``{w}_lora_b`` [E, r, out] become
   ``{w}_lora_a`` [E, r, in] and ``{w}_lora_b`` [E, out, r].
 
+A tensor- or expert-parallel gang starts from ``tpufw``'s weights the
+same way: each rank loads the whole state dict (``params_from_flax``'s)
+and keeps its (``expert``, ``tensor``) coordinate's shards of it
+(``Trainer.init_state``, ``parallel.tensor.cut_model``).
+
 Pipeline trees (``tpufw.parallel.pipeline``'s functional params):
 ``pipeline_params_from_jax`` takes one as it is (the port keeps its
 layout: stage stacks ``[S, lps, ...]`` or, interleaved, ``[v, S, lpc,

@@ -10,6 +10,7 @@ from tpufw_torch.mesh.mesh import (  # noqa: F401
     MESH_AXES,
     MeshConfig,
     build_mesh,
+    logical_axis_rules,
     mesh_shape,
     rank_grid,
 )

@@ -17,8 +17,16 @@ over ``fsdp`` and ``sequence`` together and replicate them over ``data``
 (``train.sharding``); the pipeline trainer gives each ``pipe`` rank its
 stage and feeds ``data`` and ``fsdp`` as batch shards. ``pipe`` composes
 with ``data`` and ``fsdp`` only (``sequence`` must be 1, as in
-``tpufw/parallel/pipeline.py``). The ``expert`` and ``tensor`` axes must
-resolve to 1 until their slice comes (ROADMAP.md Queue 1 item 12e).
+``tpufw/parallel/pipeline.py``).
+
+``expert`` and ``tensor`` (dimensions when above 1) split the model's
+weights as ``tpufw``'s ``logical_axis_rules`` map them (ported here as a
+table): attention heads, MLP widths and the vocabulary over ``tensor``
+(Megatron), a MoE layer's experts over ``expert``. Their ranks share the
+rows of one batch shard (``batch`` maps to ``data`` and ``fsdp`` only).
+The base ``Trainer`` trains over them; beside a ``sequence``
+or ``pipe`` axis above 1, and in the trainers not ported to them yet,
+they are refused naming ROADMAP.md Queue 1 item 12g.
 """
 
 from __future__ import annotations
@@ -46,8 +54,52 @@ MESH_AXES: tuple[str, ...] = (
     AXIS_TENSOR,
 )
 
-# The axes whose parallelism is a later slice, and the item that brings it.
-_LATER_AXES = {AXIS_TENSOR: "12e", AXIS_EXPERT: "12e"}
+# The model-parallel axes, and the ROADMAP.md item that brings them to the
+# trainers and mesh shapes that refuse them.
+MODEL_AXES = (AXIS_EXPERT, AXIS_TENSOR)
+_LATER_ITEM = "12g"
+
+
+def logical_axis_rules() -> tuple[tuple[str, tuple[str, ...] | None], ...]:
+    """(logical axis -> mesh axes) rules, ``tpufw``'s default table:
+    ``batch`` spans the data-like axes; parameters shard their largest
+    dim over ``fsdp`` (ZeRO-3) and their model-parallel dim over
+    ``tensor``; ``expert`` maps experts onto the expert axis; activations'
+    sequence dim maps onto ``sequence``. ``parallel.tensor.split_specs``
+    reads the ``expert`` and ``tensor`` entries."""
+    return (
+        ("batch", (AXIS_DATA, AXIS_FSDP)),
+        ("act_seq", (AXIS_SEQUENCE,)),
+        ("act_embed", None),
+        ("act_heads", (AXIS_TENSOR,)),
+        ("act_mlp", (AXIS_TENSOR,)),
+        ("act_vocab", (AXIS_TENSOR,)),
+        ("embed", (AXIS_FSDP,)),
+        ("mlp", (AXIS_TENSOR,)),
+        ("heads", (AXIS_TENSOR,)),
+        ("q_heads", (AXIS_TENSOR,)),
+        ("kv_heads", (AXIS_TENSOR,)),
+        ("head_dim", None),
+        ("lora", None),
+        ("kv_latent", None),
+        ("q_latent", None),
+        ("vocab", (AXIS_TENSOR,)),
+        ("expert", (AXIS_EXPERT,)),
+        ("expert_mlp", (AXIS_TENSOR,)),
+        ("norm", None),
+        ("conv_h", None),
+        ("conv_w", None),
+        ("conv_in", None),
+        ("conv_out", (AXIS_FSDP,)),
+    )
+
+
+def mesh_axes_of(logical: tuple) -> list[tuple[str, ...]]:
+    """The mesh axes each logical axis of ``logical`` (a parameter's
+    spec; None = replicated) shards over, by ``logical_axis_rules``."""
+    rules = dict(logical_axis_rules())
+    return [tuple(rules.get(a) or ()) if a is not None else ()
+            for a in logical]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,15 +184,17 @@ def rank_grid(config: MeshConfig | None, world: int) -> np.ndarray:
     return np.arange(world).reshape(shape)
 
 
-def refuse_later_axes(sizes: dict) -> None:
-    """NotImplementedError naming the ROADMAP.md item for an axis of
-    ``sizes`` (axis -> size) that a later slice brings, when above 1."""
-    for axis, item in _LATER_AXES.items():
+def refuse_later_axes(sizes: dict, where: str = "") -> None:
+    """NotImplementedError naming ROADMAP.md Queue 1 item 12g for an
+    ``expert`` or ``tensor`` axis of ``sizes`` (axis -> size) above 1:
+    its parallelism ``where`` (e.g. " in PipelineTrainer") is not ported
+    yet."""
+    for axis in MODEL_AXES:
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
-                f"mesh axis {axis!r} of size {sizes[axis]}: "
-                f"{axis} parallelism is not ported to tpufw_torch yet "
-                f"(ROADMAP.md Queue 1 item {item})"
+                f"mesh axis {axis!r} of size {sizes[axis]}: {axis} "
+                f"parallelism{where} is not ported to tpufw_torch yet "
+                f"(ROADMAP.md Queue 1 item {_LATER_ITEM})"
             )
 
 
@@ -156,26 +210,31 @@ def refuse_pipe_with_sequence(pipe: int, sequence: int) -> None:
 
 
 def mesh_shape(config: MeshConfig | None, world: int) -> dict[str, int]:
-    """{"data": dcn_data * data, ["pipe": pipe,] "fsdp": fsdp, "sequence":
-    sequence} of a ``world``-rank gang: the dimensions of ``build_mesh``,
-    ``pipe`` only when it is above 1. Raises NotImplementedError naming
-    the ROADMAP.md item when another axis resolves above 1, and for
-    ``pipe`` with ``sequence`` above 1."""
+    """The dimensions of ``build_mesh`` for a ``world``-rank gang, in
+    ``tpufw``'s axis order: {"data": dcn_data * data, ["pipe": pipe,]
+    "fsdp": fsdp, ["expert": expert,] "sequence": sequence, ["tensor":
+    tensor]}, the bracketed ones only when above 1. Raises
+    NotImplementedError for ``pipe`` with ``sequence`` above 1, and,
+    naming ROADMAP.md Queue 1 item 12g, for ``expert`` or ``tensor``
+    above 1 beside ``sequence`` or ``pipe`` above 1."""
     config = config or MeshConfig()
     sizes = config.slice_sizes(world)
-    refuse_later_axes(sizes)
     refuse_pipe_with_sequence(sizes[AXIS_PIPE], sizes[AXIS_SEQUENCE])
+    for other in (AXIS_PIPE, AXIS_SEQUENCE):
+        if sizes[other] > 1:
+            refuse_later_axes(sizes, f" beside a {other} axis of size "
+                                     f"{sizes[other]}")
     shape = {AXIS_DATA: sizes[AXIS_DATA] * config.dcn_data}
-    if sizes[AXIS_PIPE] > 1:
-        shape[AXIS_PIPE] = sizes[AXIS_PIPE]
-    return shape | {AXIS_FSDP: sizes[AXIS_FSDP],
-                    AXIS_SEQUENCE: sizes[AXIS_SEQUENCE]}
+    for axis in MESH_AXES[1:]:
+        if axis in (AXIS_FSDP, AXIS_SEQUENCE) or sizes[axis] > 1:
+            shape[axis] = sizes[axis]
+    return shape
 
 
 def build_mesh(config: MeshConfig | None, world: int, device_type: str):
-    """The ``DeviceMesh`` (dims ``data``, ``pipe`` when above 1, ``fsdp``,
-    ``sequence``) of the initialized process group's ``world`` ranks over
-    ``rank_grid``.
+    """The ``DeviceMesh`` (dims ``data``, ``pipe``, ``expert`` and
+    ``tensor`` when above 1, ``fsdp``, ``sequence``: ``mesh_shape``) of
+    the initialized process group's ``world`` ranks over ``rank_grid``.
     ``device_type`` is ``cuda`` (NCCL) or ``cpu`` (gloo)."""
     from torch.distributed.device_mesh import DeviceMesh
 

@@ -61,6 +61,8 @@ from tpufw_torch.models.llama import (
 from tpufw_torch.models.mixtral import MoEMLP
 from tpufw_torch.ops import multi_head_attention
 from tpufw_torch.ops.quant import dequantize_kv, quantize_kv
+from tpufw_torch.parallel.context import tensor_group
+from tpufw_torch.parallel.tensor import column, row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -372,7 +374,19 @@ def _reject_unported(cfg: DeepseekConfig) -> None:
 class MLAttention(nn.Module):
     """Multi-head Latent Attention: the expanded form for training (and
     for a decode model called without a cache), the absorbed latent form
-    over a ``LatentCache``."""
+    over a ``LatentCache``. Under a tensor group the query up-projection
+    and ``kv_b_kernel`` split on the heads and o is row-parallel; the
+    latent down-projections and their norms stay replicated, entering the
+    split at their outputs."""
+
+    LOGICAL_AXES: ClassVar[dict] = {
+        "q.weight": ("q_heads", "embed"),
+        "q_a.weight": ("q_latent", "embed"),
+        "q_b.weight": ("q_heads", "q_latent"),
+        "kv_a.weight": ("kv_latent", "embed"),
+        "kv_b_kernel": ("kv_latent", "q_heads", "head_dim"),
+        "o.weight": ("embed", "heads"),
+    }
 
     def __init__(self, cfg: DeepseekConfig, gen, device=None):
         super().__init__()
@@ -401,53 +415,64 @@ class MLAttention(nn.Module):
     def forward(self, x, positions, segment_ids=None, cache=None):
         cfg = self.cfg
         b, t, _ = x.shape
-        h, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
-        kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+        kvr = cfg.kv_lora_rank
+        tp = tensor_group()
         if cfg.q_lora_rank is None:
-            q = self.q(x)
+            qs = column(self.q, tp.enter(x), tp)
         else:
-            q = self.q_b(self.q_a_norm(self.q_a(x)))
-        q = q.view(b, t, h, cfg.qk_head_dim)
-        q_nope = q[..., :dn]
-        q_pe = apply_rope_interleaved(
-            q[..., dn:], positions, cfg.rope_theta, cfg.rope_scaling
-        )
+            qs = column(self.q_b, tp.enter(self.q_a_norm(self.q_a(x))), tp)
         ckv_kr = self.kv_a(x)
         c_kv = self.kv_a_norm(ckv_kr[..., :kvr])
         k_pe = apply_rope_interleaved(
             ckv_kr[..., kvr:][:, :, None, :], positions, cfg.rope_theta,
             cfg.rope_scaling,
         )  # [B, T, 1, dr]
-        if cache is not None:
-            out = self._absorbed_cached_attention(
-                q_nope, q_pe, c_kv, k_pe[:, :, 0, :], segment_ids, cache
+        c_kv, k_pe = tp.enter(c_kv), tp.enter(k_pe)
+        outs = []
+        for q, kv_b in zip(qs, tp.shards(self.kv_b_kernel, 1)):
+            q = q.view(b, t, -1, cfg.qk_head_dim)
+            q_nope = q[..., :dn]
+            q_pe = apply_rope_interleaved(
+                q[..., dn:], positions, cfg.rope_theta, cfg.rope_scaling
             )
-        else:
-            kv = torch.einsum(
-                "btr,rhd->bthd", c_kv.to(cfg.dtype),
-                self.kv_b_kernel.to(cfg.dtype),
-            )
-            k_nope, v = kv[..., :dn], kv[..., dn:]
-            k = torch.cat([k_nope, k_pe.expand(b, t, h, dr)], dim=-1)
-            q = torch.cat([q_nope, q_pe], dim=-1)
-            # The scale is qk_head_dim**-0.5 on every backend: each derives
-            # it from q's last dim, which is qk_head_dim here.
-            if cfg.attention_backend in ("flash", "ring", "ulysses"):
-                # softmax(QK^T) [v | 0] = [out | 0]: the kernels see one
-                # head dim, and slicing recovers the exact result (Ulysses
-                # exchanges the padded heads; the rope key is already
-                # broadcast per head).
-                v_pad = F.pad(v, (0, cfg.qk_head_dim - dv))
-                out = multi_head_attention(
-                    q, k, v_pad, causal=True, segment_ids=segment_ids,
-                    backend=cfg.attention_backend,
-                )[..., :dv]
-            else:
-                out = multi_head_attention(
-                    q, k, v, causal=True, segment_ids=segment_ids,
-                    backend="xla",
+            if cache is not None:
+                out = self._absorbed_cached_attention(
+                    q_nope, q_pe, c_kv, k_pe[:, :, 0, :], segment_ids, cache
                 )
-        return self.o(out.reshape(b, t, h * dv))
+            else:
+                out = self._expanded(q_nope, q_pe, c_kv, k_pe, kv_b,
+                                     segment_ids)
+            outs.append(out.reshape(b, t, -1))
+        return row(self.o, outs, tp)
+
+    def _expanded(self, q_nope, q_pe, c_kv, k_pe, kv_b, segment_ids):
+        """The expanded form over one shard's heads (``kv_b``: their
+        columns of ``kv_b_kernel``): [B, T, h, dv]."""
+        cfg = self.cfg
+        b, t, h, _ = q_nope.shape
+        dn, dv, dr = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.qk_rope_head_dim
+        kv = torch.einsum(
+            "btr,rhd->bthd", c_kv.to(cfg.dtype), kv_b.to(cfg.dtype),
+        )
+        k_nope, v = kv[..., :dn], kv[..., dn:]
+        k = torch.cat([k_nope, k_pe.expand(b, t, h, dr)], dim=-1)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        # The scale is qk_head_dim**-0.5 on every backend: each derives
+        # it from q's last dim, which is qk_head_dim here.
+        if cfg.attention_backend in ("flash", "ring", "ulysses"):
+            # softmax(QK^T) [v | 0] = [out | 0]: the kernels see one
+            # head dim, and slicing recovers the exact result (Ulysses
+            # exchanges the padded heads; the rope key is already
+            # broadcast per head).
+            v_pad = F.pad(v, (0, cfg.qk_head_dim - dv))
+            return multi_head_attention(
+                q, k, v_pad, causal=True, segment_ids=segment_ids,
+                backend=cfg.attention_backend,
+            )[..., :dv]
+        return multi_head_attention(
+            q, k, v, causal=True, segment_ids=segment_ids, backend="xla",
+        )
 
     def _absorbed_cached_attention(self, q_nope, q_pe, c_kv, k_pe,
                                    segment_ids, cache):

@@ -55,6 +55,13 @@ from tpufw_torch.models.lora import freeze_base, init_adapters
 from tpufw_torch.ops import multi_head_attention, rms_norm
 from tpufw_torch.ops.loss import head_logits
 from tpufw_torch.ops.quant import dequantize_kv, quant_contract, quantize_kv
+from tpufw_torch.parallel.context import tensor_group
+from tpufw_torch.parallel.tensor import (
+    column,
+    refuse_unsplittable,
+    row,
+    vocab_embed,
+)
 from tpufw_torch.utils.hardware import resolve_device
 
 
@@ -473,6 +480,20 @@ class PagedKVCache:
 
 
 class Attention(nn.Module):
+    """GQA self-attention. Under a tensor group (``parallel.context``)
+    q, k and v are column-parallel and o row-parallel: each held shard
+    attends with its ``n_heads/tp`` query and ``n_kv_heads/tp`` KV heads
+    (a query head's KV head lies in its own shard), so the flash kernels
+    launch once per shard."""
+
+    # Logical axes of the parameters ([out, in]), as ``tpufw`` names them.
+    LOGICAL_AXES: ClassVar[dict] = {
+        "q.weight": ("q_heads", "embed"), "q.bias": ("q_heads",),
+        "k.weight": ("kv_heads", "embed"), "k.bias": ("kv_heads",),
+        "v.weight": ("kv_heads", "embed"), "v.bias": ("kv_heads",),
+        "o.weight": ("embed", "heads"),
+    }
+
     def __init__(self, cfg: LlamaConfig, gen, window=None, device=None):
         super().__init__()
         self.cfg = cfg
@@ -494,11 +515,22 @@ class Attention(nn.Module):
         self.o = _projection(cfg.n_heads * hd, d, cfg, gen, False, device)
 
     def forward(self, x, positions, segment_ids=None, cache=None):
+        tp = tensor_group()
+        x = tp.enter(x)
+        outs = [self._heads(q, k, v, positions, segment_ids, cache)
+                for q, k, v in zip(*(column(p, x, tp)
+                                     for p in (self.q, self.k, self.v)))]
+        return row(self.o, outs, tp)
+
+    def _heads(self, q, k, v, positions, segment_ids, cache):
+        """Attention of one shard's heads: q [B, T, h·D], k and v
+        [B, T, kv·D] -> [B, T, h·D]."""
         cfg = self.cfg
-        b, t, _ = x.shape
-        q = self.q(x).view(b, t, cfg.n_heads, cfg.head_dim)
-        k = self.k(x).view(b, t, cfg.n_kv_heads, cfg.head_dim)
-        v = self.v(x).view(b, t, cfg.n_kv_heads, cfg.head_dim)
+        b, t, _ = q.shape
+        hd = cfg.head_dim
+        q = q.view(b, t, -1, hd)
+        k = k.view(b, t, -1, hd)
+        v = v.view(b, t, -1, hd)
         rope_scaling = getattr(cfg, "rope_scaling", None)
         q = apply_rope(q, positions, cfg.rope_theta, rope_scaling)
         k = apply_rope(k, positions, cfg.rope_theta, rope_scaling)
@@ -532,7 +564,7 @@ class Attention(nn.Module):
                 sliding_window=self.window,
                 backend=cfg.attention_backend,
             )
-        return self.o(out.reshape(b, t, cfg.n_heads * cfg.head_dim))
+        return out.reshape(b, t, -1)
 
     def _cached_attention(self, q, k, v, segment_ids, cache: KVCache):
         """Write this call's k/v at the cache cursor, then attend q over
@@ -648,7 +680,13 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     """Gated feed-forward: SwiGLU, or GeGLU with ``mlp_activation=
     "gelu_tanh"`` (Gemma; the tanh-approximate gelu). ``d_ff`` overrides
-    the config's width (DeepSeek's shared experts)."""
+    the config's width (DeepSeek's shared experts). Under a tensor group
+    gate and up are column-parallel and down row-parallel."""
+
+    LOGICAL_AXES: ClassVar[dict] = {
+        "gate.weight": ("mlp", "embed"), "up.weight": ("mlp", "embed"),
+        "down.weight": ("embed", "mlp"),
+    }
 
     def __init__(self, cfg: LlamaConfig, gen, device=None, d_ff=None):
         super().__init__()
@@ -665,7 +703,11 @@ class MLP(nn.Module):
         self.down = _projection(f, d, cfg, gen, False, device)
 
     def forward(self, x):
-        return self.down(self.act(self.gate(x)) * self.up(x))
+        tp = tensor_group()
+        x = tp.enter(x)
+        hs = [self.act(g) * u for g, u in zip(column(self.gate, x, tp),
+                                              column(self.up, x, tp))]
+        return row(self.down, hs, tp)
 
 
 class LlamaBlock(nn.Module):
@@ -762,7 +804,16 @@ class Llama(nn.Module):
     Weights are drawn on ``device`` (default ``cuda``) from a
     ``torch.Generator`` seeded with ``seed``. With ``cfg.lora_rank`` > 0
     every projection carries adapters and only they need gradients.
+
+    Under a tensor group (``parallel.context``) the embedding and the head
+    are vocab-parallel (``parallel.tensor``) and the blocks Megatron's
+    column/row split; ``head_kernel`` is then this rank's rows (whole in
+    one process).
     """
+
+    LOGICAL_AXES: ClassVar[dict] = {
+        "embed": ("vocab", "embed"), "lm_head": ("vocab", "embed"),
+    }
 
     def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
@@ -916,7 +967,7 @@ class Llama(nn.Module):
             positions = torch.arange(
                 tokens.shape[1], device=tokens.device
             ).expand(tokens.shape)
-        x = F.embedding(tokens.long(), self.embed).to(cfg.dtype)
+        x = vocab_embed(tokens, self.embed, tensor_group()).to(cfg.dtype)
         if getattr(cfg, "embed_scale", False):
             # sqrt(d_model) rounded through the activation dtype, as HF and
             # tpufw do (bf16 rounding included).
@@ -937,11 +988,27 @@ class Llama(nn.Module):
         return self.final_norm(x), aux
 
     def _head(self, x):
-        """Logits [B, T, vocab] of the final-norm hidden states."""
+        """Logits [B, T, vocab] of the final-norm hidden states; under a
+        tensor group each held shard of the vocab-parallel head (the tied
+        embedding's or the untied head's rows of its vocabulary range)
+        gives its logits, gathered."""
+        tp = tensor_group()
+        w = self.embed if self.lm_head is None else self.lm_head
+        if tp.size == 1:
+            return self._head_with(x, w)
+        if isinstance(w, QuantProjection):
+            refuse_unsplittable(w, tp)
+        x = tp.enter(x)
+        return tp.gather([self._head_with(x, w_i) for w_i in tp.shards(w, 0)],
+                         -1)
+
+    def _head_with(self, x, w):
+        """Logits of ``x`` against head rows ``w`` [V', D], as ``tpufw``
+        computes them."""
         cfg = self.cfg
         if self.lm_head is None:
             # Flax Embed.attend: query and table in the compute dtype.
-            return x.to(cfg.dtype) @ self.embed.to(cfg.dtype).t()
+            return x.to(cfg.dtype) @ w.to(cfg.dtype).t()
         if isinstance(self.lm_head, QuantProjection):
             return _head_f32(x, self.lm_head.weight) * self.lm_head.scale
-        return _head_f32(x, self.lm_head)
+        return _head_f32(x, w)

@@ -25,6 +25,12 @@ adapters beside it, ``w_lora_a`` [E, r, in] and ``w_lora_b`` [E, out, r]
 (``tpufw``'s [E, in, r] and [E, r, out], transposed), in both dispatch
 modes; the router has none.
 
+Under an expert group (``parallel.context``) each held expert shard runs
+its experts' slots of the global routing, each through the held width
+shards of a tensor group, and the parts are summed over both axes; the
+router stays replicated. A split of a layer with adapters or int8 stacks
+raises NotImplementedError (ROADMAP.md Queue 1 item 12g).
+
 ``forward`` returns logits (or hidden states), and ``(out, aux)`` with
 ``return_aux=True``: aux is the layer mean of ``router_aux_weight *
 load_balance + router_z_weight * z``, which the trainer adds to the loss.
@@ -54,6 +60,9 @@ from tpufw_torch.ops.moe import (
     route_topk_capacity,
     route_topk_sorted,
 )
+from tpufw_torch.parallel.context import expert_group, tensor_group
+from tpufw_torch.parallel.group import enter_all, grad_share, reduce_all
+from tpufw_torch.parallel.tensor import refuse_unsplittable
 
 _DISPATCH_MODES = ("einsum", "sorted")
 
@@ -184,6 +193,14 @@ class MoEMLP(nn.Module):
     route_group = None
     route_seq = 1
 
+    # Logical axes of the expert stacks ([E, out, in]); the router, which
+    # ``tpufw`` shards over ``expert``, stays replicated here.
+    LOGICAL_AXES = {
+        "w_gate": ("expert", "expert_mlp", "embed"),
+        "w_up": ("expert", "expert_mlp", "embed"),
+        "w_down": ("expert", "embed", "expert_mlp"),
+    }
+
     def __init__(self, cfg, gen, device=None, d_ff=None, norm_topk=True,
                  group_limit=None):
         super().__init__()
@@ -223,10 +240,11 @@ class MoEMLP(nn.Module):
         return (getattr(self, name + "_lora_a").to(dt),
                 getattr(self, name + "_lora_b").to(dt))
 
-    def _experts(self, name, xe):
-        """[E, C, in] -> [E, C, out] through expert stack ``name``, plus
-        its adapters' (xe @ Aᵀ) @ Bᵀ * (lora_alpha / r)."""
-        w = getattr(self, name)
+    def _experts(self, name, xe, w):
+        """[E', C, in] -> [E', C, out] through ``w``, expert stack
+        ``name`` or a shard of it, plus the stack's adapters' (xe @ Aᵀ) @
+        Bᵀ * (lora_alpha / r) (a split of a stack with adapters is
+        refused)."""
         if isinstance(w, QuantExperts):
             return w(xe)
         y = torch.bmm(xe, w.to(self.cfg.dtype).transpose(1, 2))
@@ -241,12 +259,18 @@ class MoEMLP(nn.Module):
         b, t, d = x.shape
         e, k = cfg.n_experts, cfg.experts_per_token
         g = b * t
+        ep, tp = expert_group(), tensor_group()
+        refuse_unsplittable(self, ep, tp)
         router_logits = self.router(x.float()).reshape(g, e)
         valid = None if valid is None else valid.reshape(g)
         mine = slice(0, g)
         if self.route_group is not None:
             router_logits, valid, mine = gather_routing(
                 router_logits, valid, self.route_group, b, self.route_seq)
+        # Each expert or tensor shard's combine reaches only its part of
+        # the gates: their gradients are summed over both axes; the router
+        # losses, alike on every rank, pass back a share each.
+        router_logits = enter_all(router_logits, ep, tp)
         capacity = expert_capacity(router_logits.shape[0], k, e,
                                    cfg.capacity_factor)
         kw = dict(valid=valid, dtype=x.dtype, norm_topk=self.norm_topk,
@@ -264,33 +288,49 @@ class MoEMLP(nn.Module):
             dispatch, combine, aux, z = route_topk_capacity(
                 router_logits, k, capacity, **kw)
             y = self._einsum(x.reshape(g, d), dispatch[mine], combine[mine])
-        return y.reshape(b, t, d), (cfg.router_aux_weight * aux
-                                    + cfg.router_z_weight * z)
+        return y.reshape(b, t, d), grad_share(
+            cfg.router_aux_weight * aux + cfg.router_z_weight * z, ep, tp)
 
     def _einsum(self, xf, dispatch, combine):
         """Dispatch [G, E, C] -> per-expert slots, the experts, combine
-        back: both contractions one matmul over (e, c)."""
+        back: both contractions one matmul over (e, c). Each held expert
+        shard (one, whole, unsplit) runs its experts' slots through each
+        held width shard of the tensor group, and the parts are summed
+        over both axes."""
         g, e, c = dispatch.shape
-        xe = (dispatch.reshape(g, e * c).t() @ xf).reshape(e, c, -1)
-        xe = xe.to(self.cfg.dtype)
-        h = F.silu(self._experts("w_gate", xe)) * self._experts("w_up", xe)
-        out_e = self._experts("w_down", h)
-        return combine.reshape(g, e * c).to(out_e.dtype) \
-            @ out_e.reshape(e * c, -1)
+        ep, tp = expert_group(), tensor_group()
+        xf = enter_all(xf, ep, tp)
+        parts = []
+        for (lo, hi), wg, wu, wd in zip(
+                ep.ranges(e), *(ep.shards(getattr(self, n), 0)
+                                for n in ("w_gate", "w_up", "w_down"))):
+            n = hi - lo
+            xe = (dispatch[:, lo:hi].reshape(g, n * c).t() @ xf).reshape(
+                n, c, -1).to(self.cfg.dtype)
+            comb = combine[:, lo:hi].reshape(g, n * c)
+            for wg_t, wu_t, wd_t in zip(tp.shards(wg, 1), tp.shards(wu, 1),
+                                        tp.shards(wd, 2)):
+                h = F.silu(self._experts("w_gate", xe, wg_t)) \
+                    * self._experts("w_up", xe, wu_t)
+                out = self._experts("w_down", h, wd_t)
+                parts.append(comb.to(out.dtype) @ out.reshape(n * c, -1))
+        return reduce_all(parts, ep, tp)
 
     def _sorted(self, xf, token, group_sizes, gates):
         """Grouped expert matmuls over the expert-sorted rows; the
         sentinel group (invalid rows, zero gates) gives zeros, as
-        ``tpufw``'s zero pad expert does."""
+        ``tpufw``'s zero pad expert does. Under a tensor group each held
+        width shard runs the groups, and the gated parts are summed."""
         cfg = self.cfg
         e = cfg.n_experts
         sizes = group_sizes.tolist()  # one device-to-host read per layer
-        xs = xf.to(cfg.dtype)[token]
+        tp = tensor_group()
+        xs = tp.enter(xf).to(cfg.dtype)[token]
 
-        def grouped(name, inp):
+        def grouped(name, inp, w):
             # unbind, not w[i]: each index's backward would write a zeroed
             # copy of the whole stack, E of them summed.
-            w = getattr(self, name).to(cfg.dtype).unbind(0)
+            w = w.to(cfg.dtype).unbind(0)
             parts = inp.split(sizes)
             outs = [F.linear(parts[i], w[i]) for i in range(e)]
             ab = self._adapters(name)
@@ -302,10 +342,15 @@ class MoEMLP(nn.Module):
             outs.append(inp.new_zeros(sizes[e], w[0].shape[0]))
             return torch.cat(outs)
 
-        h = F.silu(grouped("w_gate", xs)) * grouped("w_up", xs)
-        ys = grouped("w_down", h)
-        yw = ys * gates[:, None].to(cfg.dtype)
-        return torch.zeros_like(xf, dtype=cfg.dtype).index_add(0, token, yw)
+        parts = []
+        for wg, wu, wd in zip(tp.shards(self.w_gate, 1),
+                              tp.shards(self.w_up, 1),
+                              tp.shards(self.w_down, 2)):
+            h = F.silu(grouped("w_gate", xs, wg)) * grouped("w_up", xs, wu)
+            yw = grouped("w_down", h, wd) * gates[:, None].to(cfg.dtype)
+            parts.append(torch.zeros_like(xf, dtype=cfg.dtype).index_add(
+                0, token, yw))
+        return tp.reduce(parts)
 
 
 class MixtralBlock(nn.Module):

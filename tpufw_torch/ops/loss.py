@@ -6,6 +6,14 @@ from the hidden states, reduced to per-token CE and dropped, and the
 backward pass recomputes them (``torch.utils.checkpoint``). Peak logits
 memory is B * chunk * V fp32 instead of B * T * V.
 
+Under a tensor group (``parallel.group.TensorGroup``: the head split on
+the vocabulary, Megatron's vocab-parallel cross-entropy) each chunk's
+logits stay [chunk, V/tp] per held shard: the row max, the sum of exps
+and the target's logit (which only the shard owning the target has) are
+reduced over the group, the z-loss is taken on the combined
+log-sum-exp, and the backward is each shard's softmax minus its part of
+the one-hot (``vocab_parallel_token_ce``).
+
 The post-training objectives take the same chunked head path:
 ``chunked_sequence_logprob`` (per-row sums, DPO) and
 ``chunked_token_logprob`` (per-token, GRPO) give target log-probs with
@@ -33,6 +41,32 @@ def token_cross_entropy(
     logz = torch.logsumexp(logits, dim=-1)
     label = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     ce = logz - label
+    if z_loss_weight:
+        ce = ce + z_loss_weight * logz.square()
+    return ce
+
+
+def vocab_parallel_token_ce(
+    logit_shards: list, ranges: list, targets: torch.Tensor, group,
+    z_loss_weight: float = 1e-4,
+) -> torch.Tensor:
+    """``token_cross_entropy`` of logits split on the vocabulary:
+    ``logit_shards`` [..., V_i] are the held shards' logits over the
+    vocabulary ranges ``ranges`` [(lo, hi)], ``group`` the split's
+    ``ShardGroup``. The max and the reductions span the whole group, so
+    every shard computes the same [...] ce."""
+    ls = [x.float() for x in logit_shards]
+    m = group.max([x.amax(-1) for x in ls])
+    s = group.reduce([torch.exp(x - m[..., None]).sum(-1) for x in ls])
+    logz = m + torch.log(s)
+    t = targets.long()
+    picked = []
+    for x, (lo, hi) in zip(ls, ranges):
+        inside = (t >= lo) & (t < hi)
+        local = torch.where(inside, t - lo, 0)
+        got = torch.gather(x, -1, local[..., None])[..., 0]
+        picked.append(torch.where(inside, got, torch.zeros_like(got)))
+    ce = logz - group.reduce(picked)
     if z_loss_weight:
         ce = ce + z_loss_weight * logz.square()
     return ce
@@ -79,12 +113,25 @@ def head_logits(
 
 
 def _chunk_ce_sum(h, kernel, targets, mask, z_loss_weight, compute_dtype,
-                  logits_soft_cap):
-    """Masked CE sum of one [B, C, D] chunk (z-loss included)."""
-    logits = head_logits(h, kernel, compute_dtype)
-    if logits_soft_cap is not None:
-        logits = tanh_soft_cap(logits, logits_soft_cap)
-    ce = token_cross_entropy(logits, targets, z_loss_weight)
+                  logits_soft_cap, group=None):
+    """Masked CE sum of one [B, C, D] chunk (z-loss included); under a
+    ``group`` of more than one shard, vocab-parallel over ``kernel``'s
+    held shards."""
+    if group is None or group.size == 1:
+        logits = head_logits(h, kernel, compute_dtype)
+        if logits_soft_cap is not None:
+            logits = tanh_soft_cap(logits, logits_soft_cap)
+        ce = token_cross_entropy(logits, targets, z_loss_weight)
+        return (ce * mask).sum()
+    shards = []
+    for w in group.shards(kernel, 1):
+        logits = head_logits(h, w, compute_dtype)
+        if logits_soft_cap is not None:
+            logits = tanh_soft_cap(logits, logits_soft_cap)
+        shards.append(logits)
+    v = kernel.shape[1] * group.size // len(group.indices)
+    ce = vocab_parallel_token_ce(shards, group.ranges(v), targets, group,
+                                 z_loss_weight)
     return (ce * mask).sum()
 
 
@@ -114,14 +161,19 @@ def chunked_cross_entropy(
     chunk_size: int = 256,
     compute_dtype: torch.dtype = torch.bfloat16,
     logits_soft_cap: Optional[float] = None,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Token CE from pre-head hidden states, chunked over the sequence axis.
 
     hidden [B, T, D] (post final-norm), kernel [D, V] (the LM head, or the
     transposed embedding when tied), targets [B, T] ints, mask optional
     [B, T] float weights. Returns (mean loss over unmasked tokens, number
-    of unmasked tokens).
+    of unmasked tokens). ``group``: a tensor group the head is split over
+    (``kernel`` whole in one process, this rank's [D, V/tp] in a gang);
+    the loss is then vocab-parallel.
     """
+    if group is not None and group.size > 1:
+        hidden = group.enter(hidden)
     b, t, _ = hidden.shape
     if mask is None:
         mask = torch.ones(b, t, dtype=torch.float32, device=hidden.device)
@@ -131,7 +183,7 @@ def chunked_cross_entropy(
     for h_c, t_c, m_c in zip(hs, ts, ms):
         ce_sum = ce_sum + checkpoint(
             _chunk_ce_sum, h_c, kernel, t_c, m_c, z_loss_weight,
-            compute_dtype, logits_soft_cap, use_reentrant=False,
+            compute_dtype, logits_soft_cap, group, use_reentrant=False,
         )
         n = n + m_c.sum()
     return ce_sum / torch.clamp(n, min=1.0), n

@@ -10,6 +10,13 @@ dimension is the ring) or a ``parallel.group.LocalSequenceGroup``, one
 process holding every shard of a ring (the counterpart of ``tpufw``'s
 virtual CPU mesh). ``sequence_group`` turns either into the ring's
 ``SequenceGroup``.
+
+Beside the ring, the registry holds the model-parallel groups the model
+code splits its weights over: the current ``TensorGroup`` (Megatron
+attention heads, MLP width and vocabulary) and ``ExpertGroup`` (a MoE
+layer's experts), one shard each (``LocalTensorGroup(1)``) unless a
+trainer registers its gang's (``model_groups``) or one process's several
+(``use_groups``).
 """
 
 from __future__ import annotations
@@ -17,14 +24,23 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
-from tpufw_torch.mesh.mesh import AXIS_SEQUENCE
+from tpufw_torch.mesh.mesh import AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR
 from tpufw_torch.parallel.group import (
+    ExpertGroup,
+    LocalExpertGroup,
     LocalSequenceGroup,
+    LocalTensorGroup,
+    ProcessExpertGroup,
     ProcessSequenceGroup,
+    ProcessTensorGroup,
     SequenceGroup,
+    TensorGroup,
 )
 
 _current = None
+_ONE_TENSOR, _ONE_EXPERT = LocalTensorGroup(1), LocalExpertGroup(1)
+_tensor: TensorGroup = _ONE_TENSOR
+_expert: ExpertGroup = _ONE_EXPERT
 
 
 def set_current_mesh(mesh) -> None:
@@ -70,3 +86,46 @@ def partial_sequence_group() -> Optional[ProcessSequenceGroup]:
         return None
     group = sequence_group(_current)
     return None if group.holds_all else group
+
+
+def tensor_group() -> TensorGroup:
+    """The registered tensor group (one shard by default)."""
+    return _tensor
+
+
+def expert_group() -> ExpertGroup:
+    """The registered expert group (one shard by default)."""
+    return _expert
+
+
+@contextlib.contextmanager
+def use_groups(tensor: Optional[TensorGroup] = None,
+               expert: Optional[ExpertGroup] = None):
+    """Register ``tensor`` and ``expert`` (None: one shard) for the
+    block's forwards and backwards."""
+    global _tensor, _expert
+    prev = _tensor, _expert
+    _tensor = tensor or _ONE_TENSOR
+    _expert = expert or _ONE_EXPERT
+    try:
+        yield _tensor, _expert
+    finally:
+        _tensor, _expert = prev
+
+
+def model_groups(mesh) -> tuple[TensorGroup, ExpertGroup]:
+    """(tensor, expert) groups of a ``DeviceMesh``: this rank's shard of
+    each dimension, or one shard where the mesh has none."""
+    names = mesh.mesh_dim_names or ()
+    out = []
+    for axis, process, local in ((AXIS_TENSOR, ProcessTensorGroup,
+                                  _ONE_TENSOR),
+                                 (AXIS_EXPERT, ProcessExpertGroup,
+                                  _ONE_EXPERT)):
+        if axis not in names:
+            out.append(local)
+            continue
+        out.append(process(mesh.get_group(axis),
+                           mesh.size(names.index(axis)),
+                           mesh.get_local_rank(axis)))
+    return tuple(out)

@@ -1,6 +1,8 @@
 """The collectives of a sequence ring: the port's stand-in for the
 ``ppermute``, ``all_to_all`` and ``all_gather`` that ``tpufw``'s
-sequence-parallel bodies issue under ``shard_map``.
+sequence-parallel bodies issue under ``shard_map``; below them, the
+batch's collectives, the pipeline's neighbour exchange, and the shard
+groups of the tensor and expert axes (``ShardGroup``).
 
 A ring of n shards splits the sequence into n contiguous chunks; shard i
 holds positions [i·L, (i+1)·L). The bodies of ``parallel.ring``,
@@ -425,3 +427,262 @@ class ProcessPipeGroup(PipeGroup):
                              expect, like.detach(), x)
         tie = out.float().sum() * 0.0
         return ({self.rank: out} if expect else {}), tie
+
+
+# ---------------------------------------------------------------------------
+# Tensor and expert parallelism: the Megatron split of a model's weights
+# over the ``tensor`` mesh axis (attention heads, MLP width, vocabulary)
+# and of a MoE layer's experts over ``expert``, the port's stand-in for
+# the collectives GSPMD inserts for ``tpufw``'s ``logical_axis_rules``.
+# ---------------------------------------------------------------------------
+
+
+class ShardGroup:
+    """The ``size`` shards of a model-parallel mesh axis; ``indices`` are
+    the shards this process holds, in the order of its lists.
+
+    The model code is written once over "the shards this process holds":
+    a split weight's held shards (``shards``), each shard's part of a
+    computation, then ``reduce`` (the sum over the axis, row-parallel
+    exits) or ``gather`` (the concatenation, a vocab-parallel head's
+    logits). ``enter`` marks where a replicated activation meets split
+    weights: its gradient is then summed over the axis (Megatron's ``f``;
+    ``reduce`` is its ``g``)."""
+
+    axis: str
+    size: int
+    indices: tuple
+
+    @property
+    def holds_all(self) -> bool:
+        """True when this process holds every shard."""
+        return len(self.indices) == self.size
+
+    @property
+    def copies(self) -> int:
+        """The processes that compute a value replicated over the axis."""
+        return self.size // len(self.indices)
+
+    def ranges(self, n: int) -> list:
+        """The [lo, hi) index ranges of the held shards of an axis of
+        ``n`` split evenly over the group."""
+        return [(i * n // self.size, (i + 1) * n // self.size)
+                for i in self.indices]
+
+    def shards(self, w: torch.Tensor, dim: int) -> list:
+        """The held shards of weight ``w`` split along ``dim``."""
+        raise NotImplementedError
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``; its gradient is the sum over the axis of the gradients
+        that reach it."""
+        raise NotImplementedError
+
+    def reduce(self, xs: list) -> torch.Tensor:
+        """The sum over every shard of the axis of each one's ``xs``; the
+        gradient reaches each shard whole."""
+        raise NotImplementedError
+
+    def gather(self, xs: list, dim: int) -> torch.Tensor:
+        """Every shard's tensor concatenated in shard order along ``dim``;
+        each shard's gradient is its slice."""
+        raise NotImplementedError
+
+    def max(self, xs: list) -> torch.Tensor:
+        """The elementwise maximum over the axis of the held ``xs`` (no
+        gradient)."""
+        raise NotImplementedError
+
+
+class LocalShardGroup(ShardGroup):
+    """All ``n`` shards of the axis in this process, computed from the
+    whole weights: a sum over the list is the reduction."""
+
+    def __init__(self, n: int):
+        if n < 1:
+            raise ValueError(f"a {self.axis} axis needs at least one shard, "
+                             f"got {n}")
+        self.size = n
+        self.indices = tuple(range(n))
+
+    def shards(self, w, dim):
+        if self.size == 1:
+            return [w]
+        if w.shape[dim] % self.size:
+            raise ValueError(
+                f"mesh {self.axis}={self.size} must divide dim {dim} of a "
+                f"{tuple(w.shape)} weight")
+        return list(w.chunk(self.size, dim))
+
+    def enter(self, x):
+        return x
+
+    def reduce(self, xs):
+        out = xs[0]
+        for x in xs[1:]:
+            out = out + x
+        return out
+
+    def gather(self, xs, dim):
+        return torch.cat(xs, dim) if len(xs) > 1 else xs[0]
+
+    def max(self, xs):
+        out = xs[0].detach()
+        for x in xs[1:]:
+            out = torch.maximum(out, x.detach())
+        return out
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward; the backward all-reduces the gradient."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return None, g
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward; the gradient passes through."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        import torch.distributed as dist
+
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward, concatenated along ``dim``; the gradient of
+    this rank's part is its slice."""
+
+    @staticmethod
+    def forward(ctx, group, size, rank, dim, x):
+        import torch.distributed as dist
+
+        ctx.rank, ctx.dim, ctx.n = rank, dim, x.shape[dim]
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, None, None,
+                g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n))
+
+
+class ProcessShardGroup(ShardGroup):
+    """This process's one shard of an axis of ``size`` ranks of ``group``
+    (a ``DeviceMesh`` dimension's process group); ``rank`` is its index.
+    A split weight here IS the rank's shard (``parallel.tensor.
+    cut_model``)."""
+
+    def __init__(self, group, size: int, rank: int):
+        self.group, self.size, self.rank = group, size, rank
+        self.indices = (rank,)
+
+    def shards(self, w, dim):
+        return [w]
+
+    def enter(self, x):
+        return x if self.size == 1 else _Enter.apply(self.group, x)
+
+    def reduce(self, xs):
+        (x,) = xs
+        return x if self.size == 1 else _Reduce.apply(self.group, x)
+
+    def gather(self, xs, dim):
+        (x,) = xs
+        if self.size == 1:
+            return x
+        return _Gather.apply(self.group, self.size, self.rank, dim, x)
+
+    def max(self, xs):
+        import torch.distributed as dist
+
+        (x,) = xs
+        out = x.detach().clone()
+        if self.size > 1:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
+
+class TensorGroup(ShardGroup):
+    axis = "tensor"
+
+
+class ExpertGroup(ShardGroup):
+    axis = "expert"
+
+
+class LocalTensorGroup(LocalShardGroup, TensorGroup):
+    """All ``n`` tensor shards in one process (tests, and the card's
+    one-process runs of the shard math)."""
+
+
+class LocalExpertGroup(LocalShardGroup, ExpertGroup):
+    """All ``n`` expert shards in one process."""
+
+
+class ProcessTensorGroup(ProcessShardGroup, TensorGroup):
+    """This rank's tensor shard of a gang."""
+
+
+class ProcessExpertGroup(ProcessShardGroup, ExpertGroup):
+    """This rank's expert shard of a gang."""
+
+
+def enter_all(x: torch.Tensor, *groups: ShardGroup) -> torch.Tensor:
+    """``x`` entering computations split over every axis of ``groups``."""
+    for g in groups:
+        x = g.enter(x)
+    return x
+
+
+def reduce_all(parts: list, *groups: ShardGroup) -> torch.Tensor:
+    """The sum over the shards of every axis of ``groups`` of ``parts``,
+    the held shards' parts in the nested order of ``groups`` (the first
+    group's shards outermost)."""
+    for g in reversed(groups):
+        n = len(g.indices)
+        parts = [g.reduce(parts[i:i + n]) for i in range(0, len(parts), n)]
+    (out,) = parts
+    return out
+
+
+class _GradShare(torch.autograd.Function):
+    """Identity forward; the gradient divided by ``n``."""
+
+    @staticmethod
+    def forward(ctx, n, x):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g / ctx.n
+
+
+def grad_share(x: torch.Tensor, *groups: ShardGroup) -> torch.Tensor:
+    """``x``, a value every process of ``groups`` computes alike, whose
+    gradient is then summed over them by an ``enter`` upstream: each
+    process passes back its share, so the sum is the gradient once (a
+    MoE layer's router losses)."""
+    n = 1
+    for g in groups:
+        n *= g.copies
+    return x if n == 1 else _GradShare.apply(n, x)

@@ -17,7 +17,8 @@ maps the file (``torch.load(mmap=True)``), moves each tensor to the
 caller's device and checks it against the checksum taken at the save.
 
 Under a process group (a training gang, ``train.sharding``) the state's
-sharded tensors (DTensors) are gathered whole one at a time, every rank
+sharded tensors (DTensors, and the ``SplitPart``s of a tensor- or
+expert-parallel gang) are gathered whole one at a time, every rank
 taking part; rank 0 alone copies them to the host and writes, and each
 checksum is of the whole tensor. Every rank waits at a barrier before
 the next save looks at the directory and when the manager closes, and
@@ -42,7 +43,12 @@ from typing import Any, Optional
 
 import torch
 
-from tpufw_torch.train.sharding import active, full_tensor, gang_agree
+from tpufw_torch.train.sharding import (
+    SplitPart,
+    active,
+    full_tensor,
+    gang_agree,
+)
 
 _STEP_DIR = re.compile(r"^\d+$")
 _WORD = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -62,7 +68,7 @@ def _checksum_words(t: torch.Tensor) -> torch.Tensor:
 
 def _walk(tree, prefix=""):
     """(path, tensor) for every tensor of a nested dict/list state."""
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, SplitPart)):
         yield prefix, tree
     elif isinstance(tree, dict):
         for k, v in tree.items():
@@ -74,7 +80,7 @@ def _walk(tree, prefix=""):
 
 def _map(tree, fn, prefix=""):
     """``tree`` with every tensor replaced by ``fn(path, tensor)``."""
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, SplitPart)):
         return fn(prefix, tree)
     if isinstance(tree, dict):
         return {k: _map(v, fn, f"{prefix}/{k}") for k, v in tree.items()}

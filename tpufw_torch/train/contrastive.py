@@ -194,6 +194,10 @@ class EmbeddingTrainer(Trainer):
     ``evaluate_retrieval`` are one-process surfaces, as in ``tpufw``:
     they raise in a gang; resume its checkpoint in one process to embed."""
 
+    # Its log-prob, KL or pooling head is not split over the tensor and
+    # expert axes yet (ROADMAP.md Queue 1 item 12g).
+    model_parallel = False
+
     whole_rows = True
 
     def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,

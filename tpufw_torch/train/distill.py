@@ -160,6 +160,10 @@ class DistillTrainer(Trainer):
     of its own 6N count) is credited when ``run`` is given it, as the
     train workload does."""
 
+    # Its log-prob, KL or pooling head is not split over the tensor and
+    # expert axes yet (ROADMAP.md Queue 1 item 12g).
+    model_parallel = False
+
     def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,
                  distill: DistillConfig = DistillConfig()):
         super().__init__(model_cfg, trainer_cfg, mesh_cfg, device)

@@ -372,6 +372,10 @@ class DPOTrainer(ReferenceMixin, Trainer):
     count) is credited when ``run`` is given ``flops_per_token * 4 / 3``,
     as the train workload does."""
 
+    # Its log-prob, KL or pooling head is not split over the tensor and
+    # expert axes yet (ROADMAP.md Queue 1 item 12g).
+    model_parallel = False
+
     def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,
                  dpo: DPOConfig = DPOConfig()):
         super().__init__(model_cfg, trainer_cfg, mesh_cfg, device)

@@ -194,6 +194,10 @@ class GRPOTrainer(ReferenceMixin, Trainer):
     gathering checkpoint. ``batch_size`` is global in a gang: every rank
     rolls out all N rows and trains the rows of its batch shard."""
 
+    # Its log-prob, KL or pooling head is not split over the tensor and
+    # expert axes yet (ROADMAP.md Queue 1 item 12g).
+    model_parallel = False
+
     whole_rows = True
 
     def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,

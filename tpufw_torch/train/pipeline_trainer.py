@@ -79,7 +79,7 @@ class PipelineTrainer:
     ):
         if mesh_cfg is None:
             mesh_cfg = MeshConfig(pipe=pipe.n_stages, fsdp=-1)
-        refuse_later_axes(dataclasses.asdict(mesh_cfg))
+        refuse_later_axes(dataclasses.asdict(mesh_cfg), " in PipelineTrainer")
         if mesh_cfg.pipe != pipe.n_stages:
             raise ValueError(
                 f"mesh_cfg.pipe={mesh_cfg.pipe} != "

@@ -21,6 +21,18 @@ global mean whatever the ranks' target counts (SFT's assistant masks,
 packed segments, DPO pairs, sequence chunks). Without a process group it
 is a plain ``backward``.
 
+Under ``tensor`` or ``expert`` axes above 1 (``parallel.tensor``) the
+ranks of one (``expert``, ``tensor``) coordinate hold the same split
+parameters and feed different rows, and those of one batch shard share
+its rows: ``shard_model`` then runs ``fully_shard`` over the (``data``,
+``fsdp``) sub-mesh of each coordinate, each rank's split parameters
+already cut to its shards (``parallel.tensor.cut_model``), and the gang's
+token counts and means run over the batch-shard ranks of the coordinate
+(``batch_group``, registered by the trainer with ``batch_ranks``), so a
+row counts once, scaled by the size of the mesh ``fully_shard`` averages
+over. ``SplitPart`` carries a split tensor to the checkpoint, which
+gathers it whole.
+
 The objectives computed over the whole batch at once (in-batch negatives,
 BatchNorm's statistics) reach the other ranks' rows through
 ``parallel.group``'s ``gather_rows`` and ``all_sum``, collectives with
@@ -31,7 +43,13 @@ are the whole gang in ``batch_shard``'s order.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+# The batch-shard ranks the gang's token counts and means run over:
+# (process group, size), None = every rank.
+_batch = None
 
 
 def active() -> bool:
@@ -47,6 +65,66 @@ def world_size() -> int:
     return dist.get_world_size() if active() else 1
 
 
+def batch_world() -> int:
+    """The number of ranks the gang's means run over: the batch-shard
+    ranks under ``batch_ranks``, else the world."""
+    return _batch[1] if _batch is not None else world_size()
+
+
+@contextlib.contextmanager
+def batch_ranks(group, size: int):
+    """Count targets and take means over ``group`` (``size`` ranks: the
+    batch-shard ranks of one tensor/expert coordinate) in the block."""
+    global _batch
+    prev, _batch = _batch, (group, size)
+    try:
+        yield
+    finally:
+        _batch = prev
+
+
+def batch_group(mesh):
+    """(process group, size) of the ranks that hold this rank's
+    (``expert``, ``tensor``) coordinate over every batch shard of a
+    ``build_mesh`` mesh, in ``batch_shard``'s order: one group made per
+    coordinate (a collective)."""
+    import torch.distributed as dist
+
+    names = list(mesh.mesh_dim_names)
+    lead = [names.index("data"), names.index("fsdp")]
+    rest = [i for i in range(len(names)) if i not in lead]
+    grid = mesh.mesh.permute(*lead, *rest)
+    n = grid.shape[0] * grid.shape[1]
+    cols = grid.reshape(n, -1)
+    mine, me = None, dist.get_rank()
+    for c in range(cols.shape[1]):
+        ranks = cols[:, c].tolist()
+        pg = dist.new_group(ranks)
+        if me in ranks:
+            mine = pg
+    return mine, n
+
+
+class SplitPart:
+    """This rank's part ``part`` (a tensor, or its DTensor over the batch
+    shards) of a tensor split as ``split`` ((axis, dim), ...) over the
+    process ``groups`` of a gang; ``full_tensor`` gathers it whole (a
+    collective), so a checkpoint holds the whole tensor."""
+
+    def __init__(self, part, split: tuple, groups):
+        self.part, self.split, self.groups = part, split, groups
+
+    @property
+    def is_cuda(self) -> bool:
+        return self.part.is_cuda
+
+    def full(self) -> torch.Tensor:
+        from tpufw_torch.parallel.tensor import gather_split
+
+        t = self.part.full_tensor() if is_dtensor(self.part) else self.part
+        return gather_split(t, self.split, self.groups)
+
+
 def is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
 
@@ -54,8 +132,10 @@ def is_dtensor(t) -> bool:
 
 
 def full_tensor(t: torch.Tensor) -> torch.Tensor:
-    """The whole tensor of a DTensor (a collective: every rank calls it),
-    or ``t`` itself."""
+    """The whole tensor of a DTensor or a ``SplitPart`` (a collective:
+    every rank calls it), or ``t`` itself."""
+    if isinstance(t, SplitPart):
+        return t.full()
     return t.full_tensor() if is_dtensor(t) else t
 
 
@@ -130,16 +210,17 @@ def batch_shard(mesh) -> tuple[int, int]:
     return coord["data"] * fsdp + coord["fsdp"], data * fsdp
 
 
-def shard_model(model, mesh, blocks=None) -> None:
+def shard_model(model, mesh, blocks=None, route_group=None) -> None:
     """``fully_shard`` each block of ``blocks`` (default ``model.layers``),
     then the root, over ``fsdp_mesh(mesh)``. A block's ``attend`` and
     ``merge`` (called apart by the ``attn_out`` remat policy) gather and
     free its parameters as its forward does. The root keeps its
     parameters gathered from its forward to its backward (FSDP's rule for
     the root), so ``head_kernel()`` read after the forward is the whole
-    head. A MoE layer routes the global batch as one group, as ``tpufw``
-    does (``MoEMLP.route_group``, ``route_seq`` the ranks a row is split
-    over)."""
+    head (this rank's vocabulary shard under ``tensor``). A MoE layer
+    routes the global batch as one group, as ``tpufw`` does
+    (``MoEMLP.route_group``: ``route_group``, default every rank;
+    ``route_seq`` the ranks a row is split over)."""
     import torch.distributed as dist
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
@@ -147,7 +228,7 @@ def shard_model(model, mesh, blocks=None) -> None:
     seq = mesh.size(names.index("sequence")) if "sequence" in names else 1
     for m in model.modules():
         if hasattr(type(m), "route_group"):
-            m.route_group = dist.group.WORLD
+            m.route_group = route_group or dist.group.WORLD
             m.route_seq = seq
     shard = fsdp_mesh(mesh)
     for block in model.layers if blocks is None else blocks:
@@ -169,14 +250,15 @@ def gang_device():
 
 
 def gang_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over every rank (a fresh tensor); ``x`` itself,
+    """The sum of ``x`` over the batch-shard ranks (every rank unless
+    ``batch_ranks`` says otherwise; a fresh tensor); ``x`` itself,
     detached, without a process group."""
     import torch.distributed as dist
 
     out = x.detach()
     if active():
         out = out.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=None if _batch is None else _batch[0])
     return out
 
 
@@ -206,7 +288,9 @@ def backward_global_mean(loss: torch.Tensor, n_local,
     (default ``gang_count(n_local)``; a step that accumulates microbatches
     passes its whole count, so that the parts add up to the step's mean).
     The rank backpropagates ``loss * n_local / n_global`` scaled by the
-    world size, which FSDP's averaging reduction divides back out, so the
+    number of ranks FSDP averages over (``batch_world``: the world, or the
+    batch-shard ranks under ``batch_ranks``), which its averaging
+    reduction divides back out, so the
     gradients are those of the global mean whatever the ranks' target
     counts. Without a process group and ``n_global`` this is
     ``loss.backward()``; at world size 1 the weight is exactly 1, so a
@@ -216,7 +300,7 @@ def backward_global_mean(loss: torch.Tensor, n_local,
         return loss.detach()
     n = torch.as_tensor(n_local).detach().float()
     w = n / (gang_count(n) if n_global is None else n_global)
-    (loss * (w * world_size())).backward()
+    (loss * (w * batch_world())).backward()
     return gang_sum(loss.detach() * w)
 
 

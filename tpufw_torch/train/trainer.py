@@ -39,6 +39,21 @@ mesh (``parallel.context``) for its steps and evaluations; without a
 process group that mesh is a ring of one shard, so ``ring`` and
 ``ulysses`` train in one process with the numbers of ``flash``.
 
+Tensor and expert parallelism: under ``tensor`` or ``expert`` axes above
+1 every rank builds the model whole, then keeps its shards of the split
+parameters (``parallel.tensor.cut_model``: Megatron's heads, MLP widths
+and vocabulary over ``tensor``, a MoE layer's experts over ``expert``)
+before ``fully_shard`` shards them over the batch-shard ranks of its
+(``expert``, ``tensor``) coordinate. The ranks of one coordinate feed
+different rows; the loss, its token count and the means run over them
+(``sharding.batch_ranks``), the global-norm clip counts a split
+gradient's shards once each and a replicated one once
+(``parallel.tensor.split_norm``), and a checkpoint gathers the split
+tensors whole (``sharding.SplitPart``), so it resumes at any world size.
+One process runs the same shard math over several shards with
+``groups=(LocalTensorGroup(n), LocalExpertGroup(m))``. The post-trainers
+refuse both axes (ROADMAP.md Queue 1 item 12g), as do LoRA adapters.
+
 LoRA: a model with ``lora_rank`` > 0 is built with its base frozen
 (``requires_grad=False``), and ``LlamaAdamW`` takes the parameters that
 need gradients, so the global-norm clip and AdamW see the adapters alone
@@ -49,6 +64,7 @@ adapters' (``tpufw``'s counts the base's gradients as well).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -58,12 +74,30 @@ import numpy as np
 import torch
 
 from tpufw_torch.mesh import MeshConfig, build_mesh, mesh_shape
+from tpufw_torch.mesh.mesh import refuse_later_axes
 from tpufw_torch.models import model_for_config
 from tpufw_torch.models.llama import Llama, LlamaConfig
 from tpufw_torch.models.lora import init_adapters, is_lora_name
 from tpufw_torch.ops.loss import chunked_cross_entropy, token_cross_entropy
-from tpufw_torch.parallel.context import partial_sequence_group, use_mesh
-from tpufw_torch.parallel.group import LocalSequenceGroup
+from tpufw_torch.parallel.context import (
+    model_groups,
+    partial_sequence_group,
+    tensor_group,
+    use_groups,
+    use_mesh,
+)
+from tpufw_torch.parallel.group import (
+    LocalExpertGroup,
+    LocalShardGroup,
+    LocalSequenceGroup,
+    LocalTensorGroup,
+)
+from tpufw_torch.parallel.tensor import (
+    check_divisible,
+    cut_model,
+    cut_tensor,
+    split_norm,
+)
 from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import (
     CheckpointManager,
@@ -204,16 +238,27 @@ def batch_loss(
     materializes [B, T, V] logits; the model then skips its head, and the
     config's ``final_logit_soft_cap`` (Gemma) is applied per chunk. A MoE
     model's router loss (``return_aux`` of a config with experts: Mixtral,
-    DeepSeek MoE) joins the objective on both paths, as in ``tpufw``."""
+    DeepSeek MoE) joins the objective on both paths, as in ``tpufw``.
+    Under a tensor group the head is vocab-parallel and its logits stay
+    split: the loss takes the chunked path, a whole sequence a chunk when
+    ``loss_chunk_size`` is unset, its head product in the dtypes of the
+    model's own head."""
     inputs, targets, seg_in, mask = shift_and_mask(batch)
+    tp = tensor_group()
+    chunk = loss_chunk_size or (inputs.shape[1] if tp.size > 1 else None)
     out, aux = forward_with_aux(model, inputs, seg_in,
-                                return_hidden=bool(loss_chunk_size))
-    if loss_chunk_size:
+                                return_hidden=bool(chunk))
+    if chunk:
+        if loss_chunk_size:
+            dtype = getattr(torch, loss_chunk_dtype)
+        elif model.lm_head is None:
+            dtype = model.cfg.dtype
+        else:
+            dtype = torch.promote_types(out.dtype, model.lm_head.dtype)
         loss, n = chunked_cross_entropy(
-            out, model.head_kernel(), targets, mask,
-            chunk_size=loss_chunk_size,
-            compute_dtype=getattr(torch, loss_chunk_dtype),
-            logits_soft_cap=final_soft_cap(model),
+            out, model.head_kernel(), targets, mask, chunk_size=chunk,
+            compute_dtype=dtype, logits_soft_cap=final_soft_cap(model),
+            group=tp,
         )
     else:
         loss, n = cross_entropy_loss(out, targets, mask)
@@ -395,8 +440,11 @@ def train_step(
     loss_chunk_size: Optional[int] = None,
     loss_chunk_dtype: str = "bfloat16",
     grad_accum: int = 1,
+    norm_fn: Optional[Callable] = None,
 ) -> dict:
-    """One optimizer update; returns device tensors {loss, grad_norm}.
+    """One optimizer update; returns device tensors {loss, grad_norm}
+    (``norm_fn``: the optimizer's global norm where parameters are split
+    across ranks, ``LlamaAdamW.step``).
 
     ``grad_accum`` > 1 splits the batch into that many microbatches of
     strided rows (row m, m+A, ...) and accumulates the gradients of each
@@ -426,7 +474,7 @@ def train_step(
             mb_loss, n = batch_loss(model, mb, loss_chunk_size,
                                     loss_chunk_dtype)
             loss = loss + sharding.backward_global_mean(mb_loss, n, n_step)
-    grad_norm = optimizer.step()
+    grad_norm = optimizer.step(norm_fn)
     return {"loss": loss.detach(), "grad_norm": grad_norm}
 
 
@@ -596,11 +644,17 @@ class TrainerConfig:
 def on_mesh(method):
     """Run a trainer's ``method`` with its ``attention_mesh`` registered
     as the current mesh (``parallel.context.use_mesh``), as ``tpufw``'s
-    trainer runs its steps under its mesh."""
+    trainer runs its steps under its mesh, its tensor and expert groups
+    registered (``use_groups``), and its gang's means over its batch-shard
+    ranks (``sharding.batch_ranks``) when those are not the world."""
 
     @functools.wraps(method)
     def wrapped(self, *args, **kwargs):
-        with use_mesh(self.attention_mesh):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(use_mesh(self.attention_mesh))
+            stack.enter_context(use_groups(*self.groups))
+            if self.batch_ranks is not None:
+                stack.enter_context(sharding.batch_ranks(*self.batch_ranks))
             return method(self, *args, **kwargs)
 
     return wrapped
@@ -616,6 +670,9 @@ class Trainer:
     # An objective over whole rows of the whole batch (GRPO's rollout,
     # in-batch negatives) takes the data and fsdp axes only.
     whole_rows = False
+    # Whether the objective takes the tensor and expert axes (the
+    # post-trainers' log-prob, KL and pooling heads are not split yet).
+    model_parallel = True
 
     def __init__(
         self,
@@ -623,7 +680,11 @@ class Trainer:
         trainer_cfg: TrainerConfig,
         mesh_cfg: Optional[MeshConfig] = None,
         device=None,
+        groups: tuple = (),
     ):
+        """``groups``: one process's ``LocalTensorGroup`` and/or
+        ``LocalExpertGroup``, whose shards it computes in turn (a gang's
+        groups come from its mesh)."""
         if mesh_cfg is not None and not isinstance(mesh_cfg, MeshConfig):
             raise TypeError(
                 f"mesh_cfg must be a MeshConfig, got {mesh_cfg!r} (pass the "
@@ -634,7 +695,14 @@ class Trainer:
         self.mesh_cfg = mesh_cfg or MeshConfig()
         # The DeviceMesh of the gang (None: one device, unsharded).
         self.mesh = None
+        # (process group, size) of the batch-shard ranks the gang's means
+        # run over, when they are not the whole gang.
+        self.batch_ranks = None
         if sharding.active():
+            if groups:
+                raise ValueError(
+                    "groups= holds one process's shards; a gang's tensor "
+                    "and expert groups come from its mesh_cfg")
             if self.whole_rows:
                 sharding.refuse_split_rows(self.mesh_cfg, type(self).__name__)
             self.mesh = build_mesh(self.mesh_cfg, sharding.world_size(),
@@ -643,8 +711,16 @@ class Trainer:
                 raise NotImplementedError(
                     "a pipe mesh axis above 1 trains through "
                     "tpufw_torch.train.pipeline_trainer.PipelineTrainer")
+            self.groups = model_groups(self.mesh)
         else:
             mesh_shape(self.mesh_cfg, 1)
+            self.groups = self._local_groups(groups)
+        self._check_model_parallel()
+        if self.split and self.gang:
+            self.batch_ranks = sharding.batch_group(self.mesh)
+        # {parameter name: split} of the model's split parameters, in a
+        # tensor- or expert-parallel gang (set by ``_shard``).
+        self.splits: dict = {}
         self.model: Optional[Llama] = None
         self.optimizer: Optional[LlamaAdamW] = None
         self.step = 0
@@ -652,6 +728,44 @@ class Trainer:
         self.preempted = False
         # The last run()'s CheckpointManager (its saves' numbers).
         self.checkpointer = None
+
+    @staticmethod
+    def _local_groups(groups) -> tuple:
+        by_axis = {}
+        for g in groups:
+            if not isinstance(g, LocalShardGroup) or g.axis in by_axis:
+                raise TypeError(
+                    "groups= takes at most one LocalTensorGroup and one "
+                    f"LocalExpertGroup, got {groups!r}")
+            by_axis[g.axis] = g
+        return (by_axis.get("tensor", LocalTensorGroup(1)),
+                by_axis.get("expert", LocalExpertGroup(1)))
+
+    @property
+    def split(self) -> bool:
+        """True when the tensor or the expert group has more than one
+        shard."""
+        return any(g.size > 1 for g in self.groups)
+
+    def _check_model_parallel(self) -> None:
+        """The refusals and divisibility checks of the tensor and expert
+        axes."""
+        if not self.split:
+            return
+        tp, ep = self.groups
+        sizes = {"tensor": tp.size, "expert": ep.size}
+        if not self.model_parallel:
+            refuse_later_axes(sizes, f" in {type(self).__name__}")
+        if getattr(self.model_cfg, "lora_rank", 0):
+            refuse_later_axes(sizes, " with LoRA adapters")
+        check_divisible(self.model_cfg, tp.size, ep.size)
+        if ep.size > 1 and getattr(self.model_cfg, "moe_dispatch",
+                                   "einsum") == "sorted":
+            raise ValueError(
+                "moe_dispatch='sorted' keeps expert weight stacks whole "
+                f"and cannot shard the expert mesh axis (got expert="
+                f"{ep.size}); use the default einsum dispatch for "
+                "expert parallelism")
 
     def init_state(self, seed: int = 0, state_dict=None) -> Llama:
         """Random weights from ``seed``, or ``state_dict`` when given
@@ -686,9 +800,48 @@ class Trainer:
         return sharding.batch_shard(self.mesh) if self.gang else (0, 1)
 
     def _shard(self, model) -> None:
-        """Shard ``model`` (whole on this rank's device) over the mesh."""
-        if self.gang:
-            sharding.shard_model(model, self.mesh)
+        """Shard ``model`` (whole on this rank's device) over the mesh:
+        its split parameters cut to this rank's shards first."""
+        if not self.gang:
+            return
+        route = None
+        if self.split:
+            self.splits = cut_model(model, self.groups)
+            route = self.batch_ranks[0]
+        sharding.shard_model(model, self.mesh, route_group=route)
+
+    def _trained_splits(self) -> list:
+        """The split of each parameter the optimizer updates, in its
+        order (() when replicated)."""
+        return [self.splits.get(n, ()) for n, p in
+                self.model.named_parameters() if p.requires_grad]
+
+    def _norm_fn(self) -> Optional[Callable]:
+        """The optimizer's global-norm function in a tensor- or
+        expert-parallel gang, else None (the plain norm)."""
+        if not (self.gang and self.split):
+            return None
+        splits = self._trained_splits()
+
+        def norm_of(ts):
+            return sharding.full_tensor(torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(ts))))
+
+        return lambda grads: split_norm(grads, splits, self.groups, norm_of)
+
+    def _split_optimizer_state(self, state: dict, fn) -> dict:
+        """``state`` (``LlamaAdamW.state_dict``'s form) with each moment of
+        a split parameter replaced by ``fn(moment, split)``."""
+        splits = self._trained_splits()
+        if "adamw" in state:
+            adamw = state["adamw"]
+            return dict(state, adamw=dict(adamw, state={
+                i: {k: (fn(v, splits[i]) if k != "step" and splits[i]
+                        else v) for k, v in st.items()}
+                for i, st in adamw["state"].items()}))
+        return dict(state, **{k: [fn(v, sp) if sp else v
+                                  for v, sp in zip(state[k], splits)]
+                              for k in ("mu", "nu")})
 
     def _fresh_optimizer(self) -> None:
         self.optimizer = default_optimizer(
@@ -716,11 +869,19 @@ class Trainer:
         """Everything a resumed run needs: step, model and optimizer
         state, and the model config's identity; and the config itself
         (``tools.merge_lora`` writes the merged model's from it)."""
+        model, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self.splits:
+            # A checkpoint holds whole tensors: the split ones gather.
+            model = {k: (sharding.SplitPart(v, self.splits[k], self.groups)
+                         if k in self.splits else v)
+                     for k, v in model.items()}
+            opt = self._split_optimizer_state(
+                opt, lambda v, sp: sharding.SplitPart(v, sp, self.groups))
         return {"step": self.step,
                 "config": config_identity(self.model_cfg),
                 "model_config": config_to_dict(self.model_cfg),
-                "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+                "model": model,
+                "optimizer": opt}
 
     def load_state_dict(self, state: dict) -> None:
         """Resume from ``state_dict()``'s output (tensors on this
@@ -729,7 +890,11 @@ class Trainer:
         check_identity(state["config"], self.model_cfg, "the checkpoint")
         self.assign_model(state["model"])
         self._fresh_optimizer()
-        self.optimizer.load_state_dict(state["optimizer"])
+        opt = state["optimizer"]
+        if self.splits:
+            opt = self._split_optimizer_state(
+                opt, lambda v, sp: cut_tensor(v, sp, self.groups))
+        self.optimizer.load_state_dict(opt)
         self.step = int(state["step"])
 
     def maybe_restore(self) -> bool:
@@ -814,7 +979,7 @@ class Trainer:
         out = train_step(
             self.model, self.optimizer, batch_to_device(batch, self.device),
             self.cfg.loss_chunk_size, self.cfg.loss_chunk_dtype,
-            self.cfg.grad_accum,
+            self.cfg.grad_accum, self._norm_fn(),
         )
         self.step += 1
         return out

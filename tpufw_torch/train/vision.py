@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from tpufw_torch.mesh import MeshConfig, build_mesh, mesh_shape
+from tpufw_torch.mesh.mesh import refuse_later_axes
 from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import (
     CheckpointManager,
@@ -183,6 +184,8 @@ class VisionTrainer:
         # The DeviceMesh of the gang (None: one device, unsharded).
         self.mesh = None
         if sharding.active():
+            refuse_later_axes((mesh_cfg or MeshConfig()).slice_sizes(
+                sharding.world_size()), " in VisionTrainer")
             sharding.refuse_split_rows(mesh_cfg, "VisionTrainer")
             self.mesh = build_mesh(mesh_cfg or MeshConfig(),
                                    sharding.world_size(), self.device.type)
@@ -192,6 +195,8 @@ class VisionTrainer:
                     f"batch_size {cfg.batch_size} does not divide over {n} "
                     "batch shards")
         elif mesh_cfg is not None:
+            refuse_later_axes(dataclasses.asdict(mesh_cfg),
+                              " in VisionTrainer")
             mesh_shape(mesh_cfg, 1)
         self.model = None
         self.optimizer: Optional[VisionSGD] = None

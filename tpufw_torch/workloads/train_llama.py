@@ -58,7 +58,9 @@ launcher, ``cluster.bootstrap``) starts the process group first: NCCL on
 ``cuda:<local rank>``, gloo with ``TPUFW_DEVICE=cpu``. The training state
 is sharded over the mesh of ``TPUFW_MESH_DATA`` (replicas),
 ``TPUFW_MESH_FSDP`` (shards; -1, the default, fills),
-``TPUFW_MESH_SEQUENCE`` (sequence parallelism) and
+``TPUFW_MESH_SEQUENCE`` (sequence parallelism), ``TPUFW_MESH_TENSOR``
+(Megatron tensor parallelism: heads, MLP widths and the vocabulary
+split), ``TPUFW_MESH_EXPERT`` (a MoE model's experts split) and
 ``TPUFW_MESH_DCN_DATA``; ``TPUFW_BATCH_SIZE`` is the global batch, and
 each batch shard (a ``data``, ``fsdp`` coordinate: ``data · fsdp`` of
 them) loads its part of it from its shard of the data (the corpus, SFT
@@ -67,9 +69,12 @@ conversations, DPO pairs) or from its own synthetic seeds. The
 its chunk of the ``seq_len - 1`` positions, which the sequence size must
 divide; attention then runs as ``TPUFW_ATTENTION`` says: ``ring``
 (ring-flash on CUDA) or ``ulysses`` exchange K/V along the ring, ``xla``
-and ``flash`` gather it. ``TPUFW_MESH_TENSOR`` and ``TPUFW_MESH_EXPERT``
-above 1 raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 12e;
-axes that do not fit the world raise ``ValueError``.
+and ``flash`` gather it. The ``tensor`` and ``expert`` ranks of a batch
+shard load the same rows too. ``TPUFW_MESH_TENSOR`` or
+``TPUFW_MESH_EXPERT`` above 1 beside a ``sequence`` axis above 1, under
+LoRA, DPO or distillation raise ``NotImplementedError`` naming
+ROADMAP.md Queue 1 item 12g; axes that do not fit the world raise
+``ValueError``.
 
 Not ported yet, and refused with ``NotImplementedError`` when set to
 anything but their defaults: ``TPUFW_CONFIG``,
