@@ -388,6 +388,28 @@ Phases, each fatal on failure:
     step, within MESH_TOL of phase 12's. A ``gang_post_summary`` line per
     sub-phase (step ms, peak GB, ``card_state``, beside the earlier
     run's).
+18. Tensor and expert shards in one process (``tensor_phase``): 18a
+    ``llama3_600m_bench`` over ``LocalTensorGroup(2)``, 18b the V2-Lite
+    slice over tensor 2 x expert 2, 18c the Gemma-2-9B slice over tensor
+    2, each against its unsplit run (losses and grad norms within
+    TENSOR_TOL, split launches the tensor size times the unsplit ones).
+19. The post-trainers and the pipelines over the shards, in one process
+    (``tensor_pipe_phase``), each case trained from seed 0 unsplit and
+    split on the same batches, the flash counters zeroed just before
+    each run: 19a ``llama3_600m_bench`` full-parameter over
+    ``LocalTensorGroup(2)``: DPO, distillation from a
+    ``llama3_600m_bench`` teacher of seed 1, E5 (causal, last token) and
+    GRPO (one rollout, one update); 19b ``llama3_600m_bench`` through
+    GPipe and 1F1B over ``LocalPipeGroup(2)`` x ``LocalTensorGroup(2)``
+    at phase 16a's batch; 19c ``deepseek_mla_bench`` through GPipe over
+    pipe 2 x tensor 2 (d192); 19d the V2-Lite slice at 2 layers (uniform
+    MoE stages) through GPipe over pipe 2 x tensor 2 x expert 2. Checks:
+    split losses and grad norms within TENSOR_TOL of the unsplit ones,
+    DPO's step 0 at ln 2 and GRPO's ratio 1.0 on both runs, GRPO's
+    rollout tokens equal, each run's launches the code's count
+    (POST_TP_PER_LAYER, PIPE_PER_LAYER) and the split run's the tensor
+    size times it. A ``tensor_summary`` line per case (step ms, peak GB,
+    ``card_state``).
 
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
@@ -401,8 +423,10 @@ and the head-dim-192 ones
 ``launches_sequence``, phase 15's ring runs, and ``launches_pipeline``,
 phase 16's runs by sub-phase and schedule; the head-dim-128 ones
 ``launches_gang_post``, phase 17's runs, GRPO's decode, scoring and
-updates apart), a ``phase_seconds`` line (each phase's wall seconds,
-phase 10's to 17's parts and the total), the
+updates apart; every kernel ``launches_tensor``, phase 18's split runs,
+and ``launches_tensor_post_pipeline``, phase 19's), a ``phase_seconds``
+line (each phase's wall seconds, phase 10's to 19's parts and the
+total), the
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it prints no result and exits nonzero.
@@ -5700,6 +5724,394 @@ def tensor_phase(torch, kind, smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------- phase 19
+
+# Phase 19: the post-trainers' heads over vocabulary shards (19a) and
+# tensor and expert shards inside pipeline stages (19b-d) on one card, in
+# one process: each case trains from seed 0 on the same batches twice,
+# unsplit and split, held to each other within TENSOR_TOL (relative above
+# 1, absolute below: GRPO's loss is rounding noise at a ratio of 1).
+POST_TP_STEPS = 3
+POST_TP_ROWS = 8
+POST_TP_SEQ = 1024
+# E5's rows a step and their length: InfoNCE at temperature 0.02 scales
+# the bf16 rounding of the split's partial sums by 50 in the logits, and a
+# loss over few pairs does not average it (the phase-19 probe, chip run 1,
+# PR 21: 16 pairs of 512 moved the split's step-0 loss 2.9e-3 from the
+# unsplit one's); 128 pairs of 128 tokens, the same 32k tokens a step, a
+# batch of in-batch negatives nearer the recipe's. The unsplit run's own
+# distance from its fp32 twin (plain attention) is printed beside it: the
+# bf16 noise floor of the objective.
+POST_TP_E5_ROWS = 256
+POST_TP_E5_SEQ = 128
+# DPO's learning rate, a full-parameter DPO's (Zephyr's 5e-7), and the
+# steps gated: those before its first update (step 0's learning rate is
+# the warm-up's 0). DPO's loss is the policy's margin over a fixed
+# reference summed over 512 response tokens, and any update moves a
+# share of the bf16 casts of the fp32 weights by an ulp, differently in
+# two runs whose gradients differ in rounding: the probes (chip runs 1-2,
+# PR 21) read step 2 6.8e-3 apart at lr 3e-4 and 1.7e-2 at 5e-7, the
+# unsplit run 1.2e-3 from ln 2 against the split's 1.8e-2, with steps 0
+# and 1 within 2.3e-5. Step 2 is printed beside the unsplit run's
+# distance from its fp32 twin.
+POST_TP_DPO_LR = 5e-7
+POST_TP_DPO_GATED = 2
+POST_TP_PROMPT_LENS = (64, 96)
+POST_TP_GROUP = 4
+POST_TP_NEW = 32
+PIPE_TP_STEPS = 3
+# Flash launches a layer of one step, (forward, dQ, dK/dV), unsplit, from
+# the code (llama3_600m_bench remats its blocks, so a trained forward
+# launches twice): DPO's reference forward (no grad) then the policy's
+# forward and its recompute, one backward; distillation's teacher (the
+# same 14 layers, no grad) likewise; E5's policy alone; GRPO's rollout
+# scores once (no grad; the decode launches nothing) and its update runs
+# the reference and the policy as DPO's step does. A split run launches
+# each once a shard: the tensor size times these.
+POST_TP_PER_LAYER = {"dpo": (3, 1, 1), "distill": (3, 1, 1),
+                     "e5": (2, 1, 1), "grpo": (4, 1, 1)}
+# Sub-phases 19b-d: name, (model, layers or None, batch, microbatches,
+# [schedules], (tensor, expert)).
+PIPE_TP_CASES = {
+    "19b": ("llama3_600m_bench", None, RESUME_BATCH, PIPE_M,
+            ["gpipe", "1f1b"], (2, 1)),
+    "19c": ("deepseek_mla_bench", None, PIPE_MLA_BATCH, PIPE_M, ["gpipe"],
+            (2, 1)),
+    "19d": ("deepseek_v2_lite_train_slice", 2, 2, 2, ["gpipe"], (2, 2)),
+}
+
+
+def post_tp_batches(cfg, name) -> list:
+    """POST_TP_STEPS batches of a 19a objective, drawn with numpy from
+    seed 19: DPO pairs (the second half of each row the response), LM
+    rows (distillation), or query/document pairs of a quarter of
+    POST_TP_E5_SEQ to all of it, right-padded (E5, POST_TP_E5_ROWS
+    rows)."""
+    import numpy as np
+
+    rng = np.random.default_rng(19)
+    rows, seq = ((POST_TP_E5_ROWS, POST_TP_E5_SEQ) if name == "e5"
+                 else (POST_TP_ROWS, POST_TP_SEQ))
+    out = []
+    for _ in range(POST_TP_STEPS):
+        toks = rng.integers(1, cfg.vocab_size, (rows, seq))
+        seg = np.ones_like(toks)
+        if name == "e5":
+            lens = rng.integers(seq // 4, seq + 1, rows)
+            seg = (np.arange(seq) < lens[:, None]).astype(np.int32)
+            out.append({"tokens": (toks * seg).astype(np.int32),
+                        "segment_ids": seg.astype(np.int32)})
+            continue
+        b = {"tokens": toks.astype(np.int32), "segment_ids":
+             seg.astype(np.int32)}
+        if name == "dpo":
+            b["loss_mask"] = np.broadcast_to(
+                np.arange(seq) >= seq // 2, toks.shape).astype(
+                    np.float32).copy()
+        out.append(b)
+    return out
+
+
+def post_tp_run(torch, name, cfg, groups) -> dict:
+    """One 19a run: the ``name`` trainer of ``llama3_600m_bench``
+    (full-parameter) from seed 0 over ``groups`` (() unsplit), the flash
+    counters zeroed just before it. DPO's reference and distillation's
+    teacher (``llama3_600m_bench`` from seed 1, bf16) are cut by the same
+    groups; GRPO rolls out POST_TP_PROMPT_LENS prompts x POST_TP_GROUP
+    once, POST_TP_NEW tokens each, then updates once. Returns its
+    summary."""
+    import numpy as np
+
+    from tpufw_torch.models import model_for_config
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import (
+        ContrastiveConfig,
+        DistillTrainer,
+        DPOConfig,
+        DPOTrainer,
+        EmbeddingTrainer,
+        GRPOConfig,
+        GRPOTrainer,
+        TrainerConfig,
+    )
+    from tpufw_torch.workloads.rl import resolve_reward
+
+    kw = dict(batch_size=POST_TP_ROWS, seq_len=POST_TP_SEQ,
+              total_steps=POST_TP_STEPS, warmup_steps=1, log_every=1,
+              loss_chunk_size=512, handle_preemption=False)
+    if name == "dpo":
+        trainer = DPOTrainer(cfg, TrainerConfig(**dict(kw,
+                                                       lr=POST_TP_DPO_LR)),
+                             device="cuda",
+                             dpo=DPOConfig(ref_dtype="float32"),
+                             groups=groups)
+    elif name == "distill":
+        trainer = DistillTrainer(cfg, TrainerConfig(**kw), device="cuda",
+                                 groups=groups)
+    elif name == "e5":
+        trainer = EmbeddingTrainer(
+            cfg, TrainerConfig(**dict(kw, lr=2e-5, batch_size=POST_TP_E5_ROWS,
+                                      seq_len=POST_TP_E5_SEQ)),
+            device="cuda",
+            contrastive=ContrastiveConfig(pooling="last", temperature=0.02),
+            groups=groups)
+    else:
+        seq = max(POST_TP_PROMPT_LENS) + POST_TP_NEW
+        trainer = GRPOTrainer(
+            cfg, TrainerConfig(**dict(kw, seq_len=seq, total_steps=1,
+                                      warmup_steps=0, lr=1e-5)),
+            device="cuda", grpo=GRPOConfig(
+                group_size=POST_TP_GROUP, max_new_tokens=POST_TP_NEW,
+                kl_beta=0.02), groups=groups)
+    trainer.init_state(seed=0)
+    if name == "distill":
+        trainer.set_teacher(model_for_config(cfg, device="cuda", seed=1))
+    rec = _recorded(trainer, ("loss", "grad_norm") + (
+        ("mean_ratio",) if name == "grpo" else ()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    if name == "grpo":
+        import tpufw_torch.infer
+
+        rng = np.random.default_rng(19)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in POST_TP_PROMPT_LENS]
+        tokens, generate = [], tpufw_torch.infer.generate
+
+        def recorded(*a, **k):
+            out = generate(*a, **k)
+            tokens.append(out.cpu())
+            return out
+
+        tpufw_torch.infer.generate = recorded
+        try:
+            hist = trainer.run_rl(prompts, resolve_reward(
+                "low_token", cfg.vocab_size, POST_TP_NEW), seed=0)
+        finally:
+            tpufw_torch.infer.generate = generate
+        step_ms = [1e3 * (h["rollout_s"] + h["update_s"]) for h in hist]
+    else:
+        batches = post_tp_batches(cfg, name)
+        hist = trainer.run(iter(batches), model_flops_per_token=(
+            cfg.flops_per_token(trainer.cfg.seq_len - 1)))
+        step_ms = [1e3 * m.step_time_s for m in hist[1:]]
+        tokens = None
+    torch.cuda.synchronize()
+    metrics = _floats(rec)
+    out = {"groups": {g.axis: g.size for g in groups},
+           "losses": [m["loss"] for m in metrics],
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms) if step_ms else None,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: c for k, c in flash.LAUNCHES.items() if c}}
+    if name == "grpo":
+        out["mean_ratio"] = [m["mean_ratio"] for m in metrics]
+        out["tokens"] = [t.tolist() for t in tokens]
+    del trainer, rec, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_tp_run(torch, name, model, cfg, batch, micro, schedule, tp, ep,
+                batches) -> dict:
+    """One 19b-d run: ``PipelineTrainer`` over a ``LocalPipeGroup(2)`` and
+    ``MeshConfig(tensor=tp, expert=ep)``'s local groups from seed 0 on
+    ``batches``, the flash counters zeroed just before. Returns its
+    summary."""
+    from tpufw_torch.mesh import MeshConfig
+    from tpufw_torch.ops import flash
+    from tpufw_torch.parallel.pipeline import PipelineConfig
+    from tpufw_torch.train import PipelineTrainer, TrainerConfig
+
+    seq = len(batches[0]["tokens"][0])
+    tcfg = TrainerConfig(batch_size=batch, seq_len=seq,
+                         total_steps=len(batches), warmup_steps=2,
+                         log_every=1, loss_chunk_size=512,
+                         handle_preemption=False)
+    trainer = PipelineTrainer(cfg, PipelineConfig(2, micro, schedule), tcfg,
+                              MeshConfig(pipe=2, fsdp=1, tensor=tp,
+                                         expert=ep), device="cuda")
+    trainer.init_state(seed=0)
+    rec = _recorded(trainer, ("loss", "grad_norm"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    hist = trainer.run(iter(batches),
+                       model_flops_per_token=cfg.flops_per_token(seq - 1))
+    torch.cuda.synchronize()
+    metrics = _floats(rec)
+    step_ms = [1e3 * m.step_time_s for m in hist[1:]]
+    out = {"groups": {g.axis: g.size for g in trainer.groups},
+           "losses": [m["loss"] for m in metrics],
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms) if step_ms else None,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: c for k, c in flash.LAUNCHES.items() if c}}
+    del trainer, rec, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _split_summary(flash, tag, d, whole, split, tp, predicted,
+                   extra, gated=None) -> tuple[dict, bool]:
+    """The summary line of one case (its unsplit and split runs) and
+    whether it passed: every loss finite, the split losses and grad norms
+    of the first ``gated`` steps (default all) within TENSOR_TOL of the
+    unsplit ones, each run's launches of each kernel at head dim ``d``
+    its prediction (the split run's the tensor size times
+    ``predicted``), no other kernel launched."""
+    path = [flash.kernel_name(k, d) for k in flash.KERNELS]
+    want = {k: n for k, n in zip(path, predicted)}
+    want_split = {k: tp * n for k, n in want.items()}
+    d_loss, d_norm = (_mesh_diff(split[k][:gated], whole[k][:gated])
+                      for k in ("losses", "grad_norms"))
+    out = {"tensor_summary": tag, **extra, "head_dim": d,
+           "unsplit": whole, "split": split,
+           "predicted_launches": {"unsplit": want, "split": want_split},
+           "gated_steps": gated or len(whole["losses"]),
+           "max_diff_losses": d_loss, "max_diff_grad_norms": d_norm,
+           "max_diff_losses_every_step": _mesh_diff(split["losses"],
+                                                    whole["losses"]),
+           "max_diff_grad_norms_every_step": _mesh_diff(
+               split["grad_norms"], whole["grad_norms"]),
+           "tol": TENSOR_TOL, "card_state": nvidia_smi(CARD_STATE)}
+    good = (all(math.isfinite(x) for x in whole["losses"] + split["losses"])
+            and len(split["losses"]) == len(whole["losses"]) > 0
+            and max(d_loss, d_norm) <= TENSOR_TOL
+            and whole["launches"] == {k: n for k, n in want.items() if n}
+            and split["launches"] == {k: n for k, n in want_split.items()
+                                      if n})
+    return out, good
+
+
+def tensor_pipe_phase(torch, kind, smi) -> dict:
+    """Phase 19: 19a the post-trainers of ``llama3_600m_bench``
+    (full-parameter) over ``LocalTensorGroup(2)``: DPO, distillation
+    (a ``llama3_600m_bench`` teacher from seed 1), E5 (causal, last
+    token) for POST_TP_STEPS steps each and GRPO (one rollout, one
+    update), flash d128 at 6/3 heads a shard; 19b ``llama3_600m_bench``
+    through GPipe and 1F1B over ``LocalPipeGroup(2)`` x
+    ``LocalTensorGroup(2)`` at phase 16a's batch; 19c
+    ``deepseek_mla_bench`` through GPipe over pipe 2 x tensor 2 (d192, 8
+    heads a shard); 19d the V2-Lite slice (2 layers, uniform MoE stages)
+    through GPipe over pipe 2 x tensor 2 x expert 2 (32 routed experts a
+    stage's shard). Each against its unsplit run (``_split_summary``);
+    DPO's step 0 at ln 2 and GRPO's ratio 1.0 on both runs, GRPO's
+    rollout tokens equal (the decode runs on the whole policy). The
+    kernels are first checked against their plain versions at the new
+    shard shapes. Returns {case: the split run's launches by kernel};
+    raises AssertionError."""
+    from tpufw_torch import configs
+    from tpufw_torch.ops import flash
+    from tpufw_torch.parallel import LocalTensorGroup
+    from tpufw_torch.train import synthetic_batches
+
+    emit({"phase19_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "card_state": nvidia_smi(CARD_STATE)})
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for case, (b, t, h, kh, d, pad_v) in {
+            "tensor_post_600m_shard": (POST_TP_ROWS, POST_TP_SEQ - 1, 6, 3,
+                                       128, 0),
+            "tensor_pipeline_600m_shard": (RESUME_BATCH // PIPE_M,
+                                           RESUME_SEQ - 1, 6, 3, 128, 0),
+            "tensor_pipeline_mla_shard": (PIPE_MLA_BATCH // PIPE_M,
+                                          RESUME_SEQ - 1, 8, 8, 192,
+                                          64)}.items():
+        x = [torch.randn(b, t, n, d, generator=gen, device="cuda").to(
+            torch.bfloat16) for n in (h, kh, kh, h)]
+        if pad_v:
+            x[2][..., d - pad_v:] = 0
+        check_kernels(torch, flash, case, *x, {"causal": True})
+        del x
+        torch.cuda.empty_cache()
+    launches, bad = {}, []
+    t0 = time.perf_counter()
+    cfg = configs.bench_model_config()
+    for name, (f, q, kv) in POST_TP_PER_LAYER.items():
+        whole = post_tp_run(torch, name, cfg, ())
+        split = post_tp_run(torch, name, cfg, (LocalTensorGroup(2),))
+        steps = 1 if name == "grpo" else POST_TP_STEPS
+        out, good = _split_summary(
+            flash, f"19a_{name}", 128, whole, split, 2,
+            [n * steps * cfg.n_layers for n in (f, q, kv)],
+            {"model": "llama3_600m_bench", "objective": name,
+             "rows": POST_TP_E5_ROWS if name == "e5" else POST_TP_ROWS,
+             "seq_len": {"e5": POST_TP_E5_SEQ,
+                         "grpo": max(POST_TP_PROMPT_LENS) + POST_TP_NEW}.get(
+                             name, POST_TP_SEQ),
+             "heads_per_shard": [cfg.n_heads // 2, cfg.n_kv_heads // 2],
+             "device": kind, "nvidia_smi": smi},
+            gated=POST_TP_DPO_GATED if name == "dpo" else None)
+        if name == "dpo":
+            good &= all(abs(r["losses"][0] - math.log(2.0))
+                        <= DPO_ANCHOR_TOL for r in (whole, split))
+        if name == "grpo":
+            good &= all(abs(x - 1.0) <= RATIO_TOL for r in (whole, split)
+                        for x in r["mean_ratio"])
+            good &= whole.pop("tokens") == split.pop("tokens")
+        if name in ("dpo", "e5"):
+            # The objective's bf16 noise floor: the unsplit run against its
+            # fp32 twin (plain attention), printed beside the split's gap.
+            twin = post_tp_run(torch, name, dataclasses.replace(
+                cfg, dtype=torch.float32, attention_backend="xla"), ())
+            out["unsplit_vs_fp32_twin"] = {
+                "max_diff_losses": _mesh_diff(whole["losses"],
+                                              twin["losses"]),
+                "max_diff_grad_norms": _mesh_diff(whole["grad_norms"],
+                                                  twin["grad_norms"]),
+                "fp32_twin": twin}
+        emit(out)
+        if not good:
+            bad.append(f"19a_{name}")
+        launches[f"19a_{name}"] = split["launches"]
+    PHASE_SECONDS["19a"] = time.perf_counter() - t0
+    for sub, (model, layers, batch, micro, schedules, (tp, ep)) in \
+            PIPE_TP_CASES.items():
+        t0 = time.perf_counter()
+        if layers is None:
+            cfg = configs.resolve_model_preset(model)
+            seq, reduced = RESUME_SEQ, {}
+        else:
+            # Uniform MoE stages: the pipeline runs no dense first layer.
+            cfg = dataclasses.replace(getattr(configs, model)(layers)[0],
+                                      first_k_dense=0)
+            seq = 2048
+            reduced = {"n_layers": [27, layers], "first_k_dense": [1, 0]}
+        it = synthetic_batches(batch, seq, cfg.vocab_size, seed=19)
+        batches = [next(it) for _ in range(PIPE_TP_STEPS)]
+        d = head_dim_of(cfg)
+        for schedule in schedules:
+            whole = pipe_tp_run(torch, sub, model, cfg, batch, micro,
+                                schedule, 1, 1, batches)
+            split = pipe_tp_run(torch, sub, model, cfg, batch, micro,
+                                schedule, tp, ep, batches)
+            per = PIPE_PER_LAYER[schedule]
+            out, good = _split_summary(
+                flash, f"{sub}_{schedule}", d, whole, split, tp,
+                [n * PIPE_TP_STEPS * cfg.n_layers * micro for n in per],
+                {"model": model, "reduced": reduced, "schedule": schedule,
+                 "stages": 2, "microbatches": micro, "batch_size": batch,
+                 "seq_len": seq, "n_layers": cfg.n_layers,
+                 "heads_per_shard": cfg.n_heads // tp,
+                 "experts_per_shard": (cfg.n_experts // ep if ep > 1
+                                       else None),
+                 "device": kind, "nvidia_smi": smi})
+            emit(out)
+            if not good:
+                bad.append(f"{sub}_{schedule}")
+            launches[f"{sub}_{schedule}"] = split["launches"]
+        PHASE_SECONDS[sub] = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"phase 19: {bad} failed their checks")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6014,6 +6426,16 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    # 19. The post-trainers and the pipelines over tensor and expert
+    # shards, with phase 18's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        tensor_pipe_launches = _timed("19", lambda: tensor_pipe_phase(
+            torch, kind, smi))
+    except AssertionError as e:
+        return fail(str(e))
+
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -6077,6 +6499,12 @@ def main() -> int:
         kernels[-1]["launches_tensor"] = {
             part: counts.get(name, 0)
             for part, counts in tensor_launches.items()}
+        # Phase 19's split runs: 19a the post-trainers of
+        # llama3_600m_bench (d128), 19b its pipelines, 19c
+        # deepseek_mla_bench's (d192), 19d the V2-Lite slice's.
+        kernels[-1]["launches_tensor_post_pipeline"] = {
+            part: counts.get(name, 0)
+            for part, counts in tensor_pipe_launches.items()}
         # Phase 16's runs, by sub-phase and schedule (16a llama3_600m_bench
         # at head dim 128, 16b deepseek_mla_bench at 192), 4 steps each.
         kernels[-1]["launches_pipeline"] = {

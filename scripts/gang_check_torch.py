@@ -3,7 +3,7 @@ against one process on the same global batches.
 
     python3 scripts/gang_check_torch.py [--world 4] [--cpu] [--model NAME]
         [--batch 16] [--seq 2049] [--steps 3] [--tol 1e-3]
-        [--suite lm|post|tensor|all]
+        [--suite lm|post|tensor|pptp|all]
 
 The parent builds the CUDA kernels, then starts ``--world`` ranks of this
 script on one host, told their rank as a per-GPU launcher tells them
@@ -45,8 +45,19 @@ process within ``--tol``: ``tensor=2`` by ``fsdp=2`` on
 ``llama3_600m_bench`` (16 rows of 2049 tokens), and ``expert=2`` by
 ``tensor=2`` on ``deepseek_v2_lite_train_slice`` (V2-Lite at full width,
 3 layers; 2 rows of 2048, every rank feeding both); with ``--cpu`` on
-``llama3_tiny`` and ``deepseek_moe_tiny``. ``--suite all`` runs
-``lm`` and ``post``, ``lm`` (the default) the first alone.
+``llama3_tiny`` and ``deepseek_moe_tiny``; then the post-trainers on
+``llama3_600m_bench`` at ``tensor=2`` by ``fsdp=2`` (DPO on 8 pairs of
+1024 tokens against a frozen copy cut as the policy is, its two steps
+before the first update, distillation of 16 rows of 1024 from a
+``llama3_600m_bench`` teacher of seed 1, E5 on 128 pairs of 128, the
+pooled vectors gathered over the two batch-shard ranks of each tensor
+coordinate, and GRPO, 2 prompts x group 8, 32 new tokens, 2 steps),
+against one unsplit process. The ``pptp`` suite
+(``--world 4``) trains ``llama3_600m_bench`` through GPipe and 1F1B on
+``pipe=2`` by ``tensor=2`` (each rank one stage's tensor shard; 4
+microbatches of the global batch) against one process holding both
+stages unsplit. ``--suite all`` runs ``lm`` and ``post``, ``lm`` (the
+default) the first alone.
 One JSON line per result, then (on GPUs) each card's name and power
 limit from ``nvidia-smi``, ``{"ok": true, ...}`` last; exits nonzero
 when a check fails.
@@ -418,6 +429,229 @@ def _tensor_checks(args, ranks: list, dev) -> bool:
     return ok
 
 
+# The tensor suite's post-trainers: name: (rows, seq, steps) on GPUs (the
+# CPU rehearsal at 8 rows of 33 tokens; GRPO's seq is its prompts' and
+# new tokens'), over TENSOR_POST_MESH. DPO runs the two steps before its
+# first update (step 0's rate is the warm-up's 0): after an update its
+# margin over the fixed reference is the rounding of the weights' bf16
+# casts, not 1e-3 apart between any two runs (chip_smoke.py phase 19);
+# E5 takes 128 pairs, whose mean averages the bf16 rounding that its
+# temperature scales by 50 (phase 19: 16 pairs read 2.9e-3 from one
+# process's loss, 128 pairs 6.7e-4).
+TENSOR_POST = {"dpo": (16, 1024, 2), "distill": (16, 1024, 3),
+               "e5": (256, 128, 3), "grpo": (16, None, 2)}
+TENSOR_POST_MESH = dict(data=1, fsdp=2, tensor=2)
+# GRPO's prompt lengths and new tokens on GPUs and on the CPU.
+GRPO_SIZES = {"gpu": ((64, 96), 8, 32), "cpu": ((5, 7), 4, 6)}
+
+
+def _post_batches(cfg, name, rows, seq, steps) -> list:
+    """``steps`` global batches of a tensor-suite post-trainer, drawn
+    with numpy from seed 21: DPO pairs (the second half of each row the
+    response), LM rows, or right-padded query/document pairs."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    out = []
+    for _ in range(steps):
+        toks = rng.integers(1, cfg.vocab_size, (rows, seq))
+        seg = np.ones_like(toks)
+        if name == "e5":
+            lens = rng.integers(seq // 4, seq + 1, rows)
+            seg = (np.arange(seq) < lens[:, None]).astype(np.int32)
+            toks = toks * seg
+        b = {"tokens": toks.astype(np.int32),
+             "segment_ids": seg.astype(np.int32)}
+        if name == "dpo":
+            b["loss_mask"] = np.broadcast_to(
+                np.arange(seq) >= seq // 2, toks.shape).astype(
+                    np.float32).copy()
+        out.append(b)
+    return out
+
+
+def _tensor_post_run(args, dev, name, mesh) -> dict:
+    """A tensor-suite post-trainer's numbers on ``dev``: over ``mesh`` (a
+    MeshConfig, each rank its batch shard's rows) in the gang, unsplit
+    in one process (``mesh`` None)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpufw_torch.configs import resolve_model_preset
+    from tpufw_torch.models import model_for_config
+    from tpufw_torch.train import (
+        ContrastiveConfig,
+        DistillTrainer,
+        DPOConfig,
+        DPOTrainer,
+        EmbeddingTrainer,
+        GRPOConfig,
+        GRPOTrainer,
+        TrainerConfig,
+    )
+    from tpufw_torch.workloads.rl import resolve_reward
+
+    cfg = resolve_model_preset("llama3_tiny" if args.cpu
+                               else "llama3_600m_bench")
+    if args.cpu:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    rows, seq, steps = TENSOR_POST[name]
+    prompts, group, new = GRPO_SIZES["cpu" if args.cpu else "gpu"]
+    if args.cpu:
+        rows, seq = 8, 33
+    if name == "grpo":
+        seq = max(prompts) + new
+    tcfg = TrainerConfig(batch_size=rows, seq_len=seq, total_steps=steps,
+                         warmup_steps=1, log_every=1,
+                         lr=2e-5 if name == "e5" else 1e-5,
+                         loss_chunk_size=min(512, seq),
+                         loss_chunk_dtype="float32" if args.cpu
+                         else "bfloat16", handle_preemption=False)
+    kw = dict(device=dev)
+    trainer = {
+        "dpo": lambda: DPOTrainer(cfg, tcfg, mesh, dpo=DPOConfig(
+            ref_dtype="float32"), **kw),
+        "distill": lambda: DistillTrainer(cfg, tcfg, mesh, **kw),
+        "e5": lambda: EmbeddingTrainer(cfg, tcfg, mesh, contrastive=(
+            ContrastiveConfig(pooling="last", temperature=0.02)), **kw),
+        "grpo": lambda: GRPOTrainer(cfg, tcfg, mesh, grpo=GRPOConfig(
+            group_size=group, max_new_tokens=new, kl_beta=0.02), **kw),
+    }[name]()
+    trainer.init_state(seed=0)
+    if name == "distill":
+        trainer.set_teacher(model_for_config(cfg, device=dev, seed=1))
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    if name == "grpo":
+        rng = np.random.default_rng(21)
+        hist = trainer.run_rl(
+            [rng.integers(1, cfg.vocab_size, n).tolist() for n in prompts],
+            resolve_reward("low_token", cfg.vocab_size, new), seed=0)
+        pairs = [(h["loss"], h["grad_norm"]) for h in hist]
+        step_ms = [1e3 * (h["rollout_s"] + h["update_s"]) for h in hist]
+    else:
+        batches = _post_batches(cfg, name, rows, seq, steps)
+        pairs, step_ms, _ = _run(trainer, _rows(trainer, batches))
+    out = {"losses": [p[0] for p in pairs],
+           "grad_norms": [p[1] for p in pairs], "step_ms": step_ms,
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+                       else None),
+           "mesh": (dict(zip(trainer.mesh.mesh_dim_names,
+                             trainer.mesh.shape)) if trainer.gang else {}),
+           "rows": rows, "seq_len": seq}
+    del trainer
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _post_tensor_checks(args, ranks: list, dev) -> bool:
+    """One JSON line per tensor-suite post-trainer: the ranks agree, and
+    rank 0's losses and grad norms are within ``--tol`` of one unsplit
+    process's (relative above 1, absolute below: GRPO's loss is rounding
+    noise at a ratio of 1)."""
+    import torch
+
+    def diff(a, b):
+        return max((abs(x - y) / max(abs(y), 1.0) for x, y in zip(a, b)),
+                   default=0.0)
+
+    ok = True
+    for name in TENSOR_POST:
+        run = ranks[0][name]
+        want = _tensor_post_run(args, torch.device(dev), name, None)
+        same = all(r[name]["losses"] == run["losses"] for r in ranks)
+        d_loss = diff(run["losses"], want["losses"])
+        d_norm = diff(run["grad_norms"], want["grad_norms"])
+        good = same and len(run["losses"]) == TENSOR_POST[name][2] and \
+            max(d_loss, d_norm) <= args.tol
+        ok &= good
+        emit({"check": f"gang_{name}_tensor2_fsdp2_vs_one_process",
+              "ok": good, "world": args.world, "mesh": run["mesh"],
+              "model": "llama3_tiny" if args.cpu else "llama3_600m_bench",
+              "rows": run["rows"], "seq_len": run["seq_len"],
+              "ranks_equal": same, "losses_gang": run["losses"],
+              "losses_one_process": want["losses"],
+              "grad_norms_gang": run["grad_norms"],
+              "grad_norms_one_process": want["grad_norms"],
+              "max_diff_loss": d_loss, "max_diff_grad_norm": d_norm,
+              "tol": args.tol, "step_ms_gang_rank0": run["step_ms"],
+              "peak_gb_gang_rank0": run["peak_gb"],
+              "step_ms_one_process": want["step_ms"],
+              "peak_gb_one_process": want["peak_gb"]})
+    return ok
+
+
+# The pptp suite: name: (schedule, microbatches), on pipe=2 x tensor=2.
+PPTP_RUNS = {"pipe2_tensor2_gpipe": ("gpipe", 4),
+             "pipe2_tensor2_1f1b": ("1f1b", 4)}
+
+
+def _pptp_runs(args, dev, gang: bool) -> dict:
+    """Each pptp run's numbers: over ``pipe=2 x tensor=2`` in the gang
+    (a rank's), or in one process holding both stages unsplit."""
+    from tpufw_torch.mesh import MeshConfig
+    from tpufw_torch.parallel.pipeline import PipelineConfig
+    from tpufw_torch.train import PipelineTrainer
+
+    cfg, tcfg, batches = _setup(args)
+    out = {}
+    for name, (schedule, micro) in PPTP_RUNS.items():
+        mesh = (MeshConfig(data=1, pipe=2, fsdp=1, tensor=2) if gang
+                else None)
+        trainer = PipelineTrainer(cfg, PipelineConfig(2, micro, schedule),
+                                  tcfg, mesh, device=dev)
+        trainer.init_state(seed=0)
+        pairs, step_ms, peak = _run(trainer, _rows(trainer, batches))
+        out[name] = {"losses": [p[0] for p in pairs],
+                     "grad_norms": [p[1] for p in pairs],
+                     "step_ms": step_ms, "peak_gb": peak,
+                     "mesh": (dict(zip(trainer.mesh.mesh_dim_names,
+                                       trainer.mesh.shape))
+                              if trainer.mesh is not None else {"pipe": 2})}
+        del trainer
+        if dev.type == "cuda":
+            import torch
+
+            torch.cuda.empty_cache()
+    return out
+
+
+def _pptp_checks(args, ranks: list, dev) -> bool:
+    """One JSON line per pptp run: the ranks agree, and rank 0's losses
+    and grad norms are within ``--tol`` of one process's."""
+    import torch
+
+    ok = True
+    single = _pptp_runs(args, torch.device(dev), gang=False)
+    for name, run in ranks[0].items():
+        want = single[name]
+        same = all(r[name]["losses"] == run["losses"] for r in ranks)
+        d_loss = _rel(run["losses"], want["losses"])
+        d_norm = _rel(run["grad_norms"], want["grad_norms"])
+        good = same and len(run["losses"]) == args.steps and \
+            max(d_loss, d_norm) <= args.tol
+        ok &= good
+        emit({"check": f"gang_{name}_vs_one_process", "ok": good,
+              "world": args.world, "mesh": run["mesh"], "model": args.model,
+              "global_batch": args.batch, "seq_len": args.seq,
+              "schedule": PPTP_RUNS[name][0], "ranks_equal": same,
+              "losses_gang": run["losses"],
+              "losses_one_process": want["losses"],
+              "grad_norms_gang": run["grad_norms"],
+              "grad_norms_one_process": want["grad_norms"],
+              "max_rel_diff_loss": d_loss, "max_rel_diff_grad_norm": d_norm,
+              "tol": args.tol, "step_ms_gang_rank0": run["step_ms"],
+              "peak_gb_gang_rank0": run["peak_gb"],
+              "step_ms_one_process": want["step_ms"],
+              "peak_gb_one_process": want["peak_gb"]})
+    return ok
+
+
 def _rows(trainer, batches) -> list:
     """This rank's rows of each global batch: its batch shard's."""
     shard, n_shards = trainer.batch_shard()
@@ -447,10 +681,17 @@ def rank_main(args) -> int:
         torch.save(post, os.path.join(args.out, f"rank{rank}_post.pt"))
     if args.suite == "tensor":
         tensor = _tensor_runs(args, dev)
+        for name in TENSOR_POST:
+            tensor[name] = _tensor_post_run(args, dev, name, MeshConfig(
+                **TENSOR_POST_MESH))
         with open(os.path.join(args.out, f"rank{rank}_tensor.json"),
                   "w") as f:
             json.dump(tensor, f)
-    if args.suite in ("post", "tensor"):
+    if args.suite == "pptp":
+        with open(os.path.join(args.out, f"rank{rank}_pptp.json"),
+                  "w") as f:
+            json.dump(_pptp_runs(args, dev, gang=True), f)
+    if args.suite in ("post", "tensor", "pptp"):
         dist.destroy_process_group()
         return 0
     cfg, tcfg, batches = _setup(args)
@@ -565,13 +806,20 @@ def parent_main(args) -> int:
             torch.load(os.path.join(args.out, f"rank{r}_post.pt"),
                        weights_only=False) for r in range(args.world)],
             _post_runs(args, torch.device(dev)))
-    if args.suite == "tensor":
+    if args.suite in ("tensor", "pptp"):
         ranks = []
         for r in range(args.world):
-            with open(os.path.join(args.out, f"rank{r}_tensor.json")) as f:
+            with open(os.path.join(args.out,
+                                   f"rank{r}_{args.suite}.json")) as f:
                 ranks.append(json.load(f))
-        ok &= _tensor_checks(args, ranks, dev)
-    if args.suite in ("post", "tensor"):
+        if args.suite == "tensor":
+            ok &= _tensor_checks(args, [{k: v for k, v in r.items()
+                                         if k in TENSOR_RUNS}
+                                        for r in ranks], dev)
+            ok &= _post_tensor_checks(args, ranks, dev)
+        else:
+            ok &= _pptp_checks(args, ranks, dev)
+    if args.suite in ("post", "tensor", "pptp"):
         return _finish(args, ok, gang_s, tmp)
     ranks = []
     for r in range(args.world):
@@ -662,19 +910,23 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--tol", type=float, default=1e-3)
     ap.add_argument("--timeout", type=float, default=600.0)
-    ap.add_argument("--suite", choices=("lm", "post", "tensor", "all"),
+    ap.add_argument("--suite", choices=("lm", "post", "tensor", "pptp",
+                                        "all"),
                     default="lm",
                     help="lm: the LM meshes, pipelines and stop; post: E5, "
                     "GRPO and ResNet-50 over the whole batch; tensor: the "
-                    "tensor and expert axes (--world 4); all: lm and post")
+                    "tensor and expert axes and the post-trainers over "
+                    "them (--world 4); pptp: pipelines over pipe=2 x "
+                    "tensor=2 (--world 4); all: lm and post")
     ap.add_argument("--rank-of-gang", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     ap.add_argument("--ckpt", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.suite == "tensor" and args.world != 4:
-        ap.error("--suite tensor runs tensor=2 x fsdp=2 and expert=2 x "
-                 "tensor=2: it needs --world 4")
+    if args.suite in ("tensor", "pptp") and args.world != 4:
+        ap.error(f"--suite {args.suite} runs meshes of four ranks (tensor=2 "
+                 "x fsdp=2, expert=2 x tensor=2, pipe=2 x tensor=2): it "
+                 "needs --world 4")
     if args.batch % args.world:
         ap.error(f"--batch {args.batch} must divide over --world "
                  f"{args.world}")

@@ -273,14 +273,13 @@ def test_rl_workload_runs(tmp_path, monkeypatch, capsys):
     assert f(None, [[1, 200], []]).tolist() == [0.5, 0.0]
     with pytest.raises(ValueError, match="TPUFW_REWARD"):
         rl.resolve_reward("nope", 256, 8)
-    # Outside a gang the mesh must fit one device (the Trainer's check);
-    # TENSOR waits for GRPO's split head (item 12g); more than one host is
-    # tpufw's refusal.
+    # Outside a gang the mesh must fit one device (the Trainer's check),
+    # TENSOR's as DATA's; more than one host is tpufw's refusal.
     _env(monkeypatch, MESH_DATA="2")
     with pytest.raises(ValueError, match="1 devices not divisible"):
         rl.build_trainer()
     _env(monkeypatch, MESH_TENSOR="2")
-    with pytest.raises(NotImplementedError, match=r"item 12g\)$"):
+    with pytest.raises(ValueError, match=r"'tensor': 2}$"):
         rl.build_trainer()
     _env(monkeypatch, COORDINATOR="127.0.0.1:1", NUM_PROCESSES="2")
     with pytest.raises(NotImplementedError, match="single-process for now"):

@@ -86,6 +86,25 @@ CASES_D192 = {
 }
 
 
+# The shapes a tensor shard gives the kernels on the paths the tensor axis
+# reaches (each shard attends with its own heads): head dim, then
+# (b, t, s, h, kh, input scale, masks) of llama3_600m_bench's 6/3 heads a
+# shard (a post-trainer's 8 rows of 1023 positions; a pipeline
+# microbatch's row of 2047), deepseek_mla_bench's and V2-Lite's 8/8 MLA
+# heads a shard (V zero-padded) and Gemma-2-9B's 8/4 heads with its soft
+# cap.
+SHARD_CASES = {
+    "d128_600m_post_shard": (128, (8, 1023, 1023, 6, 3, 1.0,
+                                   dict(causal=True))),
+    "d128_600m_pipeline_microbatch_shard": (128, (1, 2047, 2047, 6, 3, 1.0,
+                                                  dict(causal=True))),
+    "d192_mla_shard": (192, (2, 2047, 2047, 8, 8, 1.0,
+                             dict(causal=True, pad_v=64))),
+    "d256_gemma_shard": (256, (1, 2048, 2048, 8, 4, 4.0,
+                               dict(causal=True, soft_cap=50.0))),
+}
+
+
 def _assert_close(name, got, want):
     got, want = got.float(), want.float()
     diff = (got - want).abs()
@@ -120,6 +139,19 @@ def test_head_dim_192_kernels_match_plain_versions_on_gpu(case):
     before = {k: v for k, v in tflash.LAUNCHES.items()}
     _check_case(CASES_D192[case], 192)
     for name in ("flash_fwd_d192", "flash_dq_d192", "flash_dkv_d192"):
+        assert tflash.LAUNCHES[name] == before[name] + 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SHARD_CASES))
+def test_shard_shapes_match_plain_versions_on_gpu(case):
+    """On the card: each kernel at a tensor shard's shapes against its
+    plain version, one launch of each."""
+    d, spec = SHARD_CASES[case]
+    before = {k: v for k, v in tflash.LAUNCHES.items()}
+    _check_case(spec, d)
+    for base in tflash.KERNELS:
+        name = tflash.kernel_name(base, d)
         assert tflash.LAUNCHES[name] == before[name] + 1, name
 
 

@@ -130,11 +130,17 @@ def test_later_axes_refused(axis, item):
      {"data": 2, "pipe": 2, "fsdp": 1, "sequence": 1}),
     ({"pipe": 4}, 4, {"data": 1, "pipe": 4, "fsdp": 1, "sequence": 1}),
     ({"pipe": -1, "fsdp": 4}, 4, {"data": 1, "fsdp": 4, "sequence": 1}),
+    ({"pipe": 2, "fsdp": 1, "tensor": 2}, 4,
+     {"data": 1, "pipe": 2, "fsdp": 1, "sequence": 1, "tensor": 2}),
+    ({"pipe": 2, "fsdp": 1, "expert": 2, "tensor": 2}, 8,
+     {"data": 1, "pipe": 2, "fsdp": 1, "expert": 2, "sequence": 1,
+      "tensor": 2}),
 ])
 def test_pipe_axis_is_a_dimension(devices8, kw, world, shape):
     """``pipe`` above 1 is a mesh dimension in ``tpufw``'s axis order (a
-    fill that resolves to one device is none), and its ranks are laid out
-    as ``tpufw`` lays out its devices."""
+    fill that resolves to one device is none), beside ``tensor`` and
+    ``expert`` too, and its ranks are laid out as ``tpufw`` lays out its
+    devices."""
     import jax
 
     assert mesh_shape(MeshConfig(**kw), world) == shape

@@ -4,8 +4,8 @@ params and tokens through ``tpufw`` on its 8 virtual devices and through
 the port on a ``LocalPipeGroup`` (every stage in one process), logits,
 losses and gradients at 2e-4; the sequential oracle; Gemma, Qwen's biases
 and Mistral's window through the stages; and the checks that fail loudly.
-``tpufw``'s tensor-parallel (``pptp``) cases are the port's refusals of a
-``tensor`` axis (ROADMAP.md Queue 1 item 12g)."""
+``tpufw``'s tensor-parallel (``pptp``) cases are held in
+``test_torch_pipeline_tensor.py``; here the axis's knobs."""
 
 import dataclasses
 import os
@@ -326,8 +326,10 @@ def test_mistral_window_reaches_pipeline_blocks(devices8):
 ])
 def test_pptp_tensor_axis_is_refused(case, monkeypatch):
     """``tpufw`` splits heads over ``tensor`` inside the stages; the port
-    refuses a ``tensor`` axis above 1 everywhere a pipeline takes one,
-    naming ROADMAP.md Queue 1 item 12g."""
+    refused a ``tensor`` axis beside ``pipe`` until ROADMAP.md item
+    12g-2 and takes it now, everywhere a pipeline takes one: the mesh
+    shape, the workload's mesh knobs, the trainer (one process holds
+    every tensor shard) and the workload. (The test keeps its name.)"""
     from tpufw_torch.mesh import MeshConfig, mesh_shape
     from tpufw_torch.train import PipelineTrainer, TrainerConfig
     from tpufw_torch.workloads import env as wenv
@@ -336,21 +338,25 @@ def test_pptp_tensor_axis_is_refused(case, monkeypatch):
     for k in [k for k in os.environ if k.startswith("TPUFW_")]:
         monkeypatch.delenv(k)
     mcfg = MeshConfig(data=1, pipe=2, fsdp=2, tensor=2)
-    with pytest.raises(NotImplementedError, match=r"item 12g\)"):
-        if case == "pptp_mesh_shape":
-            mesh_shape(mcfg, 8)
-        elif case == "pptp_mesh_from_env":
-            monkeypatch.setenv("TPUFW_MESH_TENSOR", "2")
-            wenv.mesh_from_env(8, pipe=2)
-        elif case == "pptp_trainer":
-            PipelineTrainer(TCFG, tp.PipelineConfig(2, 4),
-                            TrainerConfig(batch_size=8, seq_len=17), mcfg,
-                            device="cpu")
-        else:
-            for k, v in dict(PIPE_STAGES=2, MODEL="llama3_tiny",
-                             MESH_TENSOR=2, DEVICE="cpu").items():
-                monkeypatch.setenv(f"TPUFW_{k}", str(v))
-            train_pipeline.build_trainer()
+    if case == "pptp_mesh_shape":
+        assert mesh_shape(mcfg, 8) == {"data": 1, "pipe": 2, "fsdp": 2,
+                                       "sequence": 1, "tensor": 2}
+    elif case == "pptp_mesh_from_env":
+        monkeypatch.setenv("TPUFW_MESH_TENSOR", "2")
+        assert wenv.mesh_from_env(8, pipe=2) == MeshConfig(
+            pipe=2, fsdp=-1, tensor=2)
+    elif case == "pptp_trainer":
+        tr = PipelineTrainer(TCFG, tp.PipelineConfig(2, 4),
+                             TrainerConfig(batch_size=8, seq_len=17),
+                             MeshConfig(pipe=2, fsdp=1, tensor=2),
+                             device="cpu")
+        assert [g.size for g in tr.groups] == [2, 1]
+    else:
+        for k, v in dict(PIPE_STAGES=2, MODEL="llama3_tiny",
+                         MESH_TENSOR=2, DEVICE="cpu").items():
+            monkeypatch.setenv(f"TPUFW_{k}", str(v))
+        tr, _ = train_pipeline.build_trainer()
+        assert tr.mesh_cfg.tensor == 2 and tr.groups[0].size == 2
 
 
 def test_gpipe_runs_real_ticks_only(setup, monkeypatch):

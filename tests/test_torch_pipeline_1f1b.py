@@ -3,8 +3,8 @@ against ``tpufw``'s (``tests/test_pipeline_1f1b.py``'s cases): loss and
 every gradient equal to ``tpufw``'s 1F1B and GPipe ones at 2e-4 on the same
 numpy-made params and tokens (a gap is a schedule bug: the stash, the
 cotangent timing, the epilogue), packed batches, four stages, the chunked
-CE, the trainer, and the refusals. ``tpufw``'s tensor-parallel case is the
-port's refusal of a ``tensor`` axis (tests/test_torch_pipeline.py)."""
+CE, the trainer, and the refusals. ``tpufw``'s tensor-parallel case is
+held in ``tests/test_torch_pipeline_tensor.py``."""
 
 import numpy as np
 import pytest

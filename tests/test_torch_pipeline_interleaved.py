@@ -3,8 +3,8 @@
 gradients equal to ``tpufw``'s GPipe at 2e-4 (S = 2 and 4, Qwen's biases;
 a gap is a schedule bug: a chunk or tick map, the stash lifetime, the
 cotangent ring, the W phase), the bubble and tick tables from the port's
-own tick maps, and the trainer. ``tpufw``'s tensor-parallel case is the
-port's refusal of a ``tensor`` axis (tests/test_torch_pipeline.py); its
+own tick maps, and the trainer. ``tpufw``'s tensor-parallel case is held
+in ``tests/test_torch_pipeline_tensor.py``; its
 trace counter has no eager counterpart (the chunk body runs once per real
 sub-tick instead, pinned here)."""
 

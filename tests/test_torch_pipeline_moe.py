@@ -4,9 +4,10 @@ routing capacity is a property of a routing group, and ``tpufw`` routes
 each (microbatch x data-shard) group alone, so the port routes groups of
 the same ``group_rows``; logits, the router loss and gradients match at
 2e-4 (the reference's 5e-4 for gradients), capacity drops are the same
-tokens', and packed rows' padding takes no routing. An ``expert`` axis is
-refused (ROADMAP.md Queue 1 item 12g), and so is the sorted dispatch,
-which ``tpufw``'s pipeline replaces by the capacity router silently."""
+tokens', and packed rows' padding takes no routing. The sorted dispatch
+is refused, which ``tpufw``'s pipeline replaces by the capacity router
+silently. The ``expert`` axis's cases are in
+``test_torch_pipeline_moe_tensor.py``."""
 
 import dataclasses
 
@@ -130,20 +131,31 @@ def test_moe_train_step_learns(setup):
 @pytest.mark.parametrize("case", ["mesh", "trainer"])
 def test_expert_axis_is_refused(case):
     """``tpufw`` shards expert stacks over ``expert`` inside the stages;
-    the port refuses an ``expert`` axis above 1 (item 12g)."""
+    the port refused an ``expert`` axis beside ``pipe`` until ROADMAP.md
+    item 12g-2 and takes it now: the mesh has the dimension, and one
+    process holds every expert shard; on a dense model the axis is still
+    refused in ``tpufw``'s words. (The test keeps its name.)"""
+    import dataclasses
+
     from tpufw_torch.mesh import MeshConfig, mesh_shape
+    from tpufw_torch.models import LLAMA_CONFIGS
     from tpufw_torch.train import PipelineTrainer, TrainerConfig
 
     mcfg = MeshConfig(data=1, pipe=2, fsdp=2, expert=2)
-    with pytest.raises(NotImplementedError, match=r"item 12g\)"):
-        if case == "mesh":
-            mesh_shape(mcfg, 8)
-        else:
-            PipelineTrainer(TCFG, tp.PipelineConfig(2, M),
-                            TrainerConfig(batch_size=B, seq_len=T), mcfg,
-                            device="cpu")
-
-
+    if case == "mesh":
+        assert mesh_shape(mcfg, 8) == {"data": 1, "pipe": 2, "fsdp": 2,
+                                       "expert": 2, "sequence": 1}
+        return
+    one = dataclasses.replace(mcfg, fsdp=1)
+    tr = PipelineTrainer(TCFG, tp.PipelineConfig(2, M),
+                         TrainerConfig(batch_size=B, seq_len=T), one,
+                         device="cpu")
+    assert [g.size for g in tr.groups] == [1, 2]
+    dense = dataclasses.replace(LLAMA_CONFIGS["llama3_tiny"], n_layers=4)
+    with pytest.raises(NotImplementedError, match="no experts to shard"):
+        PipelineTrainer(dense, tp.PipelineConfig(2, M),
+                        TrainerConfig(batch_size=B, seq_len=T), one,
+                        device="cpu")
 @pytest.mark.parametrize("family", ["mixtral_tiny", "deepseek_moe_tiny"])
 def test_sorted_dispatch_is_refused(family, setup):
     """A divergence by design: ``tpufw``'s pipelined MoE routes with the

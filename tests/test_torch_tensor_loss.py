@@ -208,9 +208,7 @@ def _post_trainer(name):
 
 @pytest.mark.parametrize("case", [
     "lora", "lora_forward", "lora_moe_forward", "int8_forward",
-    "sorted_expert", "dpo", "distill", "grpo", "embed", "vision",
-    "pipeline_trainer", "mesh_pipe", "mesh_sequence", "rl_workload",
-    "batch_env", "pipeline_env",
+    "sorted_expert", "vision", "mesh_sequence",
 ])
 def test_unported_paths_name_item_12g(case, monkeypatch):
     """Each path the axes do not reach yet refuses them, naming 12g, in
@@ -247,14 +245,6 @@ def test_unported_paths_name_item_12g(case, monkeypatch):
                                   moe_dispatch="sorted")
         with pytest.raises(ValueError, match="cannot shard the expert"):
             Trainer(cfg, tcfg, device="cpu", groups=(LocalExpertGroup(2),))
-    elif case in ("dpo", "distill", "grpo", "embed"):
-        # As if the mesh had given the trainer two tensor shards.
-        monkeypatch.setattr(Trainer, "_local_groups", staticmethod(
-            lambda groups: (LocalTensorGroup(2), LocalExpertGroup(1))))
-        cls = _post_trainer(case)
-        with pytest.raises(NotImplementedError, match=ITEM) as e:
-            cls(PRESETS["llama3_tiny"], tcfg, device="cpu")
-        assert cls.__name__ in str(e.value)
     elif case == "vision":
         from tpufw_torch.models import VIT_CONFIGS
         from tpufw_torch.train import VisionTrainer, VisionTrainerConfig
@@ -262,31 +252,60 @@ def test_unported_paths_name_item_12g(case, monkeypatch):
         with pytest.raises(NotImplementedError, match=ITEM):
             VisionTrainer(VIT_CONFIGS["vit_s16"], VisionTrainerConfig(),
                           MeshConfig(tensor=2, fsdp=1), device="cpu")
+    elif case == "mesh_sequence":
+        with pytest.raises(NotImplementedError, match=ITEM):
+            mesh_shape(MeshConfig(sequence=2, fsdp=1, tensor=2), 4)
+
+
+@pytest.mark.parametrize("case", [
+    "dpo", "distill", "grpo", "embed", "pipeline_trainer", "mesh_pipe",
+    "rl_workload", "batch_env", "pipeline_env",
+])
+def test_lifted_paths_take_the_axes(case, monkeypatch):
+    """The paths that refused the axes naming 12g until items 12g-1 and
+    12g-2 take them: the post-trainers (their log-prob, KL and pooling
+    heads over the shards), the pipeline trainer and mesh (tensor and
+    expert inside the stages), and the ``rl``, ``embed`` and
+    ``train_pipeline`` knobs."""
+    tcfg = TrainerConfig(batch_size=2, seq_len=9)
+    for k in [k for k in __import__("os").environ if k.startswith("TPUFW_")]:
+        monkeypatch.delenv(k)
+    if case in ("dpo", "distill", "grpo", "embed"):
+        from tpufw_torch.train import GRPOConfig
+
+        cls = _post_trainer(case)
+        kw = {"grpo": GRPOConfig(group_size=2)} if case == "grpo" else {}
+        tr = cls(PRESETS["llama3_tiny"], tcfg, device="cpu",
+                 groups=(LocalTensorGroup(2),), **kw)
+        assert [g.size for g in tr.groups] == [2, 1] and tr.split
     elif case == "pipeline_trainer":
         from tpufw_torch.parallel.pipeline import PipelineConfig
         from tpufw_torch.train import PipelineTrainer
 
-        with pytest.raises(NotImplementedError, match=ITEM):
-            PipelineTrainer(PRESETS["llama3_tiny"], PipelineConfig(2, 2),
-                            TrainerConfig(batch_size=4, seq_len=9),
-                            MeshConfig(pipe=2, fsdp=1, tensor=2),
-                            device="cpu")
+        tr = PipelineTrainer(PRESETS["llama3_tiny"], PipelineConfig(2, 2),
+                             TrainerConfig(batch_size=4, seq_len=9),
+                             MeshConfig(pipe=2, fsdp=1, tensor=2),
+                             device="cpu")
+        assert [(g.axis, g.size, g.holds_all) for g in tr.groups] == [
+            ("tensor", 2, True), ("expert", 1, True)]
     elif case == "mesh_pipe":
-        with pytest.raises(NotImplementedError, match=ITEM):
-            mesh_shape(MeshConfig(pipe=2, fsdp=1, expert=2), 4)
-    elif case == "mesh_sequence":
-        with pytest.raises(NotImplementedError, match=ITEM):
-            mesh_shape(MeshConfig(sequence=2, fsdp=1, tensor=2), 4)
+        assert mesh_shape(MeshConfig(pipe=2, fsdp=1, expert=2), 4) == {
+            "data": 1, "pipe": 2, "fsdp": 1, "expert": 2, "sequence": 1}
     else:
         from tpufw_torch.workloads import env
 
         monkeypatch.setenv("TPUFW_MESH_TENSOR", "2")
-        with pytest.raises(NotImplementedError, match=ITEM):
-            if case == "pipeline_env":
-                env.mesh_from_env(8, pipe=2)
-            elif case == "rl_workload":
-                from tpufw_torch.workloads import rl
+        if case == "pipeline_env":
+            assert env.mesh_from_env(8, pipe=2) == MeshConfig(
+                pipe=2, fsdp=-1, tensor=2)
+        elif case == "rl_workload":
+            from tpufw_torch.workloads import rl
 
+            # Outside a gang the Trainer's mesh-fit check, as for any
+            # axis that does not fit one device.
+            monkeypatch.setenv("TPUFW_DEVICE", "cpu")
+            with pytest.raises(ValueError, match="1 devices not divisible"):
                 rl.build_trainer()
-            else:
-                env.batch_mesh_from_env()
+        else:
+            assert env.batch_mesh_from_env() == MeshConfig(
+                data=1, fsdp=-1, tensor=2)

@@ -3,8 +3,9 @@ train_pipeline``) against ``tpufw``'s (``tests/test_train_pipeline_
 workload.py``'s cases): the env -> PipelineTrainer wiring both read from
 the same variables (stages, microbatches, the schedule knobs and which
 spelling wins, the interleaved v), the shipped manifest's arithmetic,
-the refusals (under two stages, a tensor or expert axis: item 12g, the
-sorted MoE dispatch) and ``main`` on the CPU."""
+the refusals (under two stages, a tensor axis that does not divide the
+heads, an expert axis on a dense model, the sorted MoE dispatch) and
+``main`` on the CPU."""
 
 import dataclasses
 import json
@@ -120,9 +121,8 @@ def test_schedule_from_env(monkeypatch, env, schedule, v):
      "unknown pipeline schedule"),
     (dict(PIPELINE_SCHEDULE="interleaved", PIPELINE_VSTAGES=2), ValueError,
      "n_virtual"),
-    (dict(MESH_TENSOR=2), NotImplementedError, r"item 12g\)"),
-    (dict(MESH_EXPERT=2, MODEL="mixtral_tiny"), NotImplementedError,
-     r"item 12g\)"),
+    (dict(MESH_TENSOR=3), ValueError, "must divide n_heads=4"),
+    (dict(MESH_EXPERT=2), NotImplementedError, "no experts to shard"),
     (dict(MESH_SEQUENCE=2), NotImplementedError, "sequence has size 2"),
     (dict(MOE_DISPATCH="sorted", MODEL="mixtral_tiny"), NotImplementedError,
      "einsum"),
@@ -133,8 +133,9 @@ def test_schedule_from_env(monkeypatch, env, schedule, v):
 def test_refusals_from_env(monkeypatch, env, err, match):
     """What the pipeline does not run raises at build, naming why: the
     interleaved tiny model's 2 layers cannot split into v x S = 4 chunks
-    (both knobs arrived), tensor and expert axes are item 12g, sequence
-    must be 1 beside pipe, the sorted dispatch is refused (not replaced
+    (both knobs arrived), a tensor axis must divide the heads and an
+    expert axis needs a MoE model (``tpufw``'s checks), sequence must be
+    1 beside pipe, the sorted dispatch is refused (not replaced
     by the capacity router), grad_accum is the schedule's, profiling is
     item 13."""
     workload_env(monkeypatch, BASE, **env)

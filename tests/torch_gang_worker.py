@@ -10,7 +10,8 @@ The rank comes from ``TPUFW_COORDINATOR`` / ``TPUFW_NUM_PROCESSES`` /
 {"name", "model_cfg", "trainer": TrainerConfig kwargs, "mesh": MeshConfig
 kwargs, "state": the initial state dict, "batches": the GLOBAL batches (numpy
 dicts)}; optionally "kind" ("lm", "dpo" with "dpo" DPOConfig kwargs,
-"distill" with "teacher_cfg" and "teacher_state", "disagree": each rank
+"distill" with "teacher_cfg", "teacher_state" and optionally "distill"
+DistillConfig kwargs, "disagree": each rank
 on its own checkpoint directory of "dirs", ``run_disagree``, or
 "attention": the sequence-parallel attention calls of "calls" on the
 whole-sequence "inputs", ``run_attention``), "resume" (the trainer
@@ -31,8 +32,9 @@ the tiny Llama presets computing in fp32 (the tests' precision);
 writes ``<out>.out<rank>.pt``: the rank's held stages and params.
 
 A case of "kind" "pipeline" ("pipe": PipelineConfig kwargs, "state" a
-whole pipeline param tree) trains a ``PipelineTrainer`` over the mesh
-(each rank its stage, ``data``/``fsdp`` ranks batch shards) and writes
+whole pipeline param tree, optionally "resume" as above) trains a
+``PipelineTrainer`` over the mesh (each rank its stage and shards,
+``data``/``fsdp`` ranks batch shards) and writes
 the per-step losses and grad norms and, on every rank, the whole params
 (gathered over the pipe).
 
@@ -123,6 +125,8 @@ def run_pipeline(case: dict, path: str, rank: int) -> None:
     trainer = PipelineTrainer(case["model_cfg"], PipelineConfig(
         **case["pipe"]), tcfg, MeshConfig(**case["mesh"]), device="cpu")
     trainer.init_state(params=case["state"])
+    if case.get("resume"):
+        trainer.maybe_restore()
     shard, n_shards = trainer.batch_shard()
     rows = tcfg.batch_size // n_shards
     local = [{k: v[shard * rows:(shard + 1) * rows] for k, v in b.items()}
@@ -137,11 +141,13 @@ def run_pipeline(case: dict, path: str, rank: int) -> None:
                 "params": trainer.whole_params()}, f"{path}.out{rank}.pt")
 
 
-def _params(model, rank: int):
-    """The whole state dict on rank 0 (a collective), None elsewhere."""
+def _params(trainer, rank: int):
+    """The whole state dict of ``trainer``'s model on rank 0 (a
+    collective: sharded and split tensors gathered), None elsewhere."""
     from tpufw_torch.train.sharding import full_state_dict
 
-    params = full_state_dict(model.state_dict())
+    params = (trainer.whole_state() if hasattr(trainer, "whole_state")
+              else full_state_dict(trainer.model.state_dict()))
     return params if rank == 0 else None
 
 
@@ -172,7 +178,7 @@ def run_embed(case: dict, path: str, rank: int) -> None:
     except NotImplementedError as e:
         refusal = str(e)
     torch.save({"metrics": metrics, "embed_refusal": refusal,
-                "params": _params(trainer.model, rank)},
+                "params": _params(trainer, rank)},
                f"{path}.out{rank}.pt")
 
 
@@ -208,7 +214,7 @@ def run_grpo(case: dict, path: str, rank: int) -> None:
                 "rows": [{k: b[k] for k in ("tokens", "loss_mask")}
                          for b in batches],
                 "shard": trainer.batch_shard(),
-                "params": _params(trainer.model, rank)},
+                "params": _params(trainer, rank)},
                f"{path}.out{rank}.pt")
 
 
@@ -230,7 +236,7 @@ def run_vision(case: dict, path: str, rank: int) -> None:
                           flops_per_image=1.0, on_metrics=on_metrics)
     torch.save({"losses": [m.loss for m in history],
                 "preempted": trainer.preempted, "step": trainer.step,
-                "params": _params(trainer.model, rank)},
+                "params": _params(trainer, rank)},
                f"{path}.out{rank}.pt")
 
 
@@ -278,6 +284,7 @@ def run_case(path: str, rank: int, world: int) -> None:
     from tpufw_torch.mesh import MeshConfig
     from tpufw_torch.models import model_for_config
     from tpufw_torch.train import (
+        DistillConfig,
         DistillTrainer,
         DPOConfig,
         DPOTrainer,
@@ -308,7 +315,8 @@ def run_case(path: str, rank: int, world: int) -> None:
         trainer = DPOTrainer(*args, device="cpu",
                              dpo=DPOConfig(**case.get("dpo", {})))
     elif kind == "distill":
-        trainer = DistillTrainer(*args, device="cpu")
+        trainer = DistillTrainer(*args, device="cpu", distill=DistillConfig(
+            **case.get("distill", {})))
     else:
         trainer = Trainer(*args, device="cpu")
     trainer.init_state(state_dict=case["state"])

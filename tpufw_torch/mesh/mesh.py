@@ -16,16 +16,17 @@ attention), in ``tpufw``'s axis order. The trainers shard the parameters
 over ``fsdp`` and ``sequence`` together and replicate them over ``data``
 (``train.sharding``); the pipeline trainer gives each ``pipe`` rank its
 stage and feeds ``data`` and ``fsdp`` as batch shards. ``pipe`` composes
-with ``data`` and ``fsdp`` only (``sequence`` must be 1, as in
-``tpufw/parallel/pipeline.py``).
+with ``data``, ``fsdp``, ``tensor`` and ``expert`` (``sequence`` must be
+1, as in ``tpufw/parallel/pipeline.py``).
 
 ``expert`` and ``tensor`` (dimensions when above 1) split the model's
 weights as ``tpufw``'s ``logical_axis_rules`` map them (ported here as a
 table): attention heads, MLP widths and the vocabulary over ``tensor``
 (Megatron), a MoE layer's experts over ``expert``. Their ranks share the
 rows of one batch shard (``batch`` maps to ``data`` and ``fsdp`` only).
-The base ``Trainer`` trains over them; beside a ``sequence``
-or ``pipe`` axis above 1, and in the trainers not ported to them yet,
+The ``Trainer``, its post-training subclasses and the
+``PipelineTrainer`` (inside each stage) train over them; beside a
+``sequence`` axis above 1, and in the trainers not ported to them yet,
 they are refused naming ROADMAP.md Queue 1 item 12g.
 """
 
@@ -216,14 +217,13 @@ def mesh_shape(config: MeshConfig | None, world: int) -> dict[str, int]:
     tensor]}, the bracketed ones only when above 1. Raises
     NotImplementedError for ``pipe`` with ``sequence`` above 1, and,
     naming ROADMAP.md Queue 1 item 12g, for ``expert`` or ``tensor``
-    above 1 beside ``sequence`` or ``pipe`` above 1."""
+    above 1 beside ``sequence`` above 1."""
     config = config or MeshConfig()
     sizes = config.slice_sizes(world)
     refuse_pipe_with_sequence(sizes[AXIS_PIPE], sizes[AXIS_SEQUENCE])
-    for other in (AXIS_PIPE, AXIS_SEQUENCE):
-        if sizes[other] > 1:
-            refuse_later_axes(sizes, f" beside a {other} axis of size "
-                                     f"{sizes[other]}")
+    if sizes[AXIS_SEQUENCE] > 1:
+        refuse_later_axes(sizes, f" beside a {AXIS_SEQUENCE} axis of size "
+                                 f"{sizes[AXIS_SEQUENCE]}")
     shape = {AXIS_DATA: sizes[AXIS_DATA] * config.dcn_data}
     for axis in MESH_AXES[1:]:
         if axis in (AXIS_FSDP, AXIS_SEQUENCE) or sizes[axis] > 1:

@@ -18,7 +18,9 @@ The post-training objectives take the same chunked head path:
 ``chunked_sequence_logprob`` (per-row sums, DPO) and
 ``chunked_token_logprob`` (per-token, GRPO) give target log-probs with
 no z-loss; the final soft cap applies first, then ``logits_scale``
-(1/temperature), the sampler's order.
+(1/temperature), the sampler's order. They take ``group=`` too: each
+vocabulary shard contributes its part of the log-sum-exp and the
+target's logit where the target falls in its range.
 """
 
 from __future__ import annotations
@@ -46,6 +48,17 @@ def token_cross_entropy(
     return ce
 
 
+def vocab_parallel_logsumexp(logit_shards: list, group) -> torch.Tensor:
+    """The log-sum-exp [...] over the whole vocabulary of logits split
+    into the held ``logit_shards`` [..., V_i]: the row max and the sum of
+    exps reduced over ``group``, the same on every shard. A loss that
+    uses it must use it whole, outside the per-shard parts a ``reduce``
+    sums, for its gradient to reach every shard whole."""
+    m = group.max([x.amax(-1) for x in logit_shards])
+    return m + torch.log(group.reduce(
+        [torch.exp(x - m[..., None]).sum(-1) for x in logit_shards]))
+
+
 def vocab_parallel_token_ce(
     logit_shards: list, ranges: list, targets: torch.Tensor, group,
     z_loss_weight: float = 1e-4,
@@ -56,9 +69,7 @@ def vocab_parallel_token_ce(
     ``ShardGroup``. The max and the reductions span the whole group, so
     every shard computes the same [...] ce."""
     ls = [x.float() for x in logit_shards]
-    m = group.max([x.amax(-1) for x in ls])
-    s = group.reduce([torch.exp(x - m[..., None]).sum(-1) for x in ls])
-    logz = m + torch.log(s)
+    logz = vocab_parallel_logsumexp(ls, group)
     t = targets.long()
     picked = []
     for x, (lo, hi) in zip(ls, ranges):
@@ -112,27 +123,45 @@ def head_logits(
     return matmul_f32(a, w).reshape(*h.shape[:-1], w.shape[-1])
 
 
+def _vocab_logits(h, kernel, compute_dtype, logits_soft_cap, logits_scale,
+                  group=None) -> list:
+    """fp32 logits of one [B, C, D] chunk against each held vocabulary
+    shard of ``kernel`` [D, V] (the whole head at one shard): the cap,
+    then the scale."""
+    kernels = [kernel] if group is None or group.size == 1 \
+        else group.shards(kernel, 1)
+    out = []
+    for w in kernels:
+        logits = head_logits(h, w, compute_dtype)
+        if logits_soft_cap is not None:
+            logits = tanh_soft_cap(logits, logits_soft_cap)
+        if logits_scale != 1.0:
+            logits = logits * logits_scale
+        out.append(logits)
+    return out
+
+
+def _vocab_ce(shards: list, kernel, targets, group,
+              z_loss_weight: float) -> torch.Tensor:
+    """Per-token CE of ``_vocab_logits``' shards: over the whole
+    vocabulary, vocab-parallel under a ``group`` of more than one
+    shard."""
+    if group is None or group.size == 1:
+        return token_cross_entropy(shards[0], targets, z_loss_weight)
+    v = kernel.shape[1] * group.size // len(group.indices)
+    return vocab_parallel_token_ce(shards, group.ranges(v), targets, group,
+                                   z_loss_weight)
+
+
 def _chunk_ce_sum(h, kernel, targets, mask, z_loss_weight, compute_dtype,
                   logits_soft_cap, group=None):
     """Masked CE sum of one [B, C, D] chunk (z-loss included); under a
     ``group`` of more than one shard, vocab-parallel over ``kernel``'s
     held shards."""
-    if group is None or group.size == 1:
-        logits = head_logits(h, kernel, compute_dtype)
-        if logits_soft_cap is not None:
-            logits = tanh_soft_cap(logits, logits_soft_cap)
-        ce = token_cross_entropy(logits, targets, z_loss_weight)
-        return (ce * mask).sum()
-    shards = []
-    for w in group.shards(kernel, 1):
-        logits = head_logits(h, w, compute_dtype)
-        if logits_soft_cap is not None:
-            logits = tanh_soft_cap(logits, logits_soft_cap)
-        shards.append(logits)
-    v = kernel.shape[1] * group.size // len(group.indices)
-    ce = vocab_parallel_token_ce(shards, group.ranges(v), targets, group,
-                                 z_loss_weight)
-    return (ce * mask).sum()
+    shards = _vocab_logits(h, kernel, compute_dtype, logits_soft_cap, 1.0,
+                           group)
+    return (_vocab_ce(shards, kernel, targets, group, z_loss_weight)
+            * mask).sum()
 
 
 def _chunk_seq(chunk_size: int, hidden, targets, mask):
@@ -150,6 +179,11 @@ def _chunk_seq(chunk_size: int, hidden, targets, mask):
         targets.split(chunk_size, dim=1),
         mask.split(chunk_size, dim=1),
     )
+
+
+def _enter(hidden: torch.Tensor, group) -> torch.Tensor:
+    """``hidden`` entering a head split over ``group``."""
+    return hidden if group is None or group.size == 1 else group.enter(hidden)
 
 
 def chunked_cross_entropy(
@@ -172,8 +206,7 @@ def chunked_cross_entropy(
     (``kernel`` whole in one process, this rank's [D, V/tp] in a gang);
     the loss is then vocab-parallel.
     """
-    if group is not None and group.size > 1:
-        hidden = group.enter(hidden)
+    hidden = _enter(hidden, group)
     b, t, _ = hidden.shape
     if mask is None:
         mask = torch.ones(b, t, dtype=torch.float32, device=hidden.device)
@@ -190,22 +223,21 @@ def chunked_cross_entropy(
 
 
 def _chunk_logp(h, kernel, targets, compute_dtype, logits_soft_cap,
-                logits_scale):
+                logits_scale, group=None):
     """Target log-probs [B, C] of one chunk: the cap, then the scale,
-    then log-softmax (CE with no z-loss, negated)."""
-    logits = head_logits(h, kernel, compute_dtype)
-    if logits_soft_cap is not None:
-        logits = tanh_soft_cap(logits, logits_soft_cap)
-    if logits_scale != 1.0:
-        logits = logits * logits_scale
-    return -token_cross_entropy(logits, targets, 0.0)
+    then log-softmax (CE with no z-loss, negated); under a ``group`` of
+    more than one shard, each vocabulary shard's part of the log-sum-exp
+    and of the target's logit summed over the group."""
+    shards = _vocab_logits(h, kernel, compute_dtype, logits_soft_cap,
+                           logits_scale, group)
+    return -_vocab_ce(shards, kernel, targets, group, 0.0)
 
 
 def _chunk_row_logp(h, kernel, targets, mask, compute_dtype,
-                    logits_soft_cap):
+                    logits_soft_cap, group=None):
     """Masked per-row log-prob sums [B] of one chunk."""
     return (_chunk_logp(h, kernel, targets, compute_dtype, logits_soft_cap,
-                        1.0) * mask).sum(-1)
+                        1.0, group) * mask).sum(-1)
 
 
 def chunked_sequence_logprob(
@@ -216,18 +248,21 @@ def chunked_sequence_logprob(
     chunk_size: int = 256,
     compute_dtype: torch.dtype = torch.bfloat16,
     logits_soft_cap: Optional[float] = None,
+    group=None,
 ) -> torch.Tensor:
     """[B] fp32 sums of the target log-probs where ``mask`` is set,
     chunked like ``chunked_cross_entropy``: hidden [B, T, D] (post
     final-norm), kernel [D, V], targets [B, T] (already shifted), mask
-    [B, T] float weights."""
+    [B, T] float weights. ``group``: a tensor group the head is split
+    over, as in ``chunked_cross_entropy``."""
+    hidden = _enter(hidden, group)
     hs, ts, ms = _chunk_seq(chunk_size, hidden, targets, mask.float())
     sums = torch.zeros(hidden.shape[0], dtype=torch.float32,
                        device=hidden.device)
     for h_c, t_c, m_c in zip(hs, ts, ms):
         sums = sums + checkpoint(
             _chunk_row_logp, h_c, kernel, t_c, m_c, compute_dtype,
-            logits_soft_cap, use_reentrant=False,
+            logits_soft_cap, group, use_reentrant=False,
         )
     return sums
 
@@ -240,19 +275,22 @@ def chunked_token_logprob(
     compute_dtype: torch.dtype = torch.bfloat16,
     logits_soft_cap: Optional[float] = None,
     logits_scale: float = 1.0,
+    group=None,
 ) -> torch.Tensor:
     """Per-token target log-probs [B, T] in fp32, chunked like
     ``chunked_cross_entropy``. ``logits_scale`` (1/temperature) applies
     after the soft cap, as the decode path caps its logits and the
     sampler then divides by the temperature: these are the behaviour
-    policy's log-probs."""
+    policy's log-probs. ``group``: a tensor group the head is split
+    over."""
     t = hidden.shape[1]
+    hidden = _enter(hidden, group)
     ones = torch.ones(targets.shape, dtype=torch.float32,
                       device=hidden.device)
     hs, ts, _ = _chunk_seq(chunk_size, hidden, targets, ones)
     chunks = [
         checkpoint(_chunk_logp, h_c, kernel, t_c, compute_dtype,
-                   logits_soft_cap, logits_scale, use_reentrant=False)
+                   logits_soft_cap, logits_scale, group, use_reentrant=False)
         for h_c, t_c in zip(hs, ts)
     ]
     return torch.cat(chunks, dim=1)[:, :t]

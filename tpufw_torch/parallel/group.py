@@ -194,9 +194,10 @@ class ProcessSequenceGroup(SequenceGroup):
 
 # ---------------------------------------------------------------------------
 # The batch's collectives: objectives over the whole global batch (in-batch
-# negatives, BatchNorm's statistics) over the batch-shard ranks, which are
-# the whole gang for the trainers that use them (they refuse a sequence or
-# pipe axis, ``train.sharding.refuse_split_rows``).
+# negatives, BatchNorm's statistics) over the batch-shard ranks: the whole
+# gang, or, under tensor or expert axes, the ranks of this rank's (expert,
+# tensor) coordinate (``train.sharding.batch_ranks``), which hold the same
+# rows as their coordinate's other ranks.
 # ---------------------------------------------------------------------------
 
 
@@ -209,16 +210,18 @@ def _gang_size(group=None) -> int:
 
 
 class _GatherRows(torch.autograd.Function):
-    """Every rank's rows in rank order; the gradient of a rank's rows is
-    the sum over the ranks of the gradient that reaches them."""
+    """Every rank's rows of ``group`` in its rank order; the gradient of
+    a rank's rows is the sum over the ranks of the gradient that reaches
+    them."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, group, x):
         import torch.distributed as dist
 
-        ctx.rank, ctx.n = dist.get_rank(), x.shape[0]
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, x.contiguous())
+        ctx.group = group
+        ctx.rank, ctx.n = dist.get_rank(group), x.shape[0]
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts)
 
     @staticmethod
@@ -226,22 +229,23 @@ class _GatherRows(torch.autograd.Function):
         import torch.distributed as dist
 
         g = g.contiguous()
-        dist.all_reduce(g)
-        return g[ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n]
+        dist.all_reduce(g, group=ctx.group)
+        return None, g[ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n]
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (the same shape on each) concatenated along dim
-    0 in rank order, with its gradient: a collective. Each rank's part of
-    the gang's objective reaches a rank's rows, so their gradient is the
-    sum over the ranks (an all-reduce); a rank that backpropagates the
-    whole objective weighs it through ``train.sharding.
-    backward_global_mean``, whose scaling by the world size FSDP's
-    averaging divides back out. ``x`` itself without a process group or
-    at world size 1."""
-    if _gang_size() == 1:
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` (the same shape on each) of ``group`` (default:
+    every rank; the batch-shard ranks under tensor or expert axes)
+    concatenated along dim 0 in rank order, with its gradient: a
+    collective. Each rank's part of the gang's objective reaches a rank's
+    rows, so their gradient is the sum over the ranks (an all-reduce); a
+    rank that backpropagates the whole objective weighs it through
+    ``train.sharding.backward_global_mean``, whose scaling by the number
+    of those ranks FSDP's averaging divides back out. ``x`` itself
+    without a process group or on one rank."""
+    if _gang_size(group) == 1:
         return x
-    return _GatherRows.apply(x)
+    return _GatherRows.apply(group, x)
 
 
 class _AllSum(torch.autograd.Function):

@@ -23,6 +23,23 @@ A process holds the stage axis of the stages it holds (all S on a
 gradients summed over the gang. Stage stacks are not sharded over
 ``data`` or ``fsdp``, as in ``tpufw``: those ranks are batch shards.
 
+Tensor and expert parallelism inside a stage (``tpufw``'s pp x tp x ep):
+the registered ``TensorGroup``/``ExpertGroup`` (``parallel.context``)
+split each stage leaf as ``leaf_split`` says (Megatron's heads and
+``d_ff`` over ``tensor``, the routed experts over ``expert``). The block
+math is written once over the shards a process holds, as the models'
+is: a replicated activation ``enter``s the split projections, each held
+shard computes its heads or columns, and the row-parallel exits
+``reduce`` (two reductions a block; a MoE layer's routed experts one
+over both axes, its router replicated). Replicated leaves (norms, MLA's
+latent projections, the router) thus get whole gradients on every rank,
+in GPipe's autograd and in the manual schedules' per-stage
+``autograd.grad`` alike, since the collectives sit inside the stage's
+graph. A process group's rank holds its shards (``stage_slice``); a
+local group holds the whole stacks and slices them per shard. The
+embedding and the head are never split (``tpufw`` keeps them outside
+its pipeline region).
+
 The block math is ``tpufw``'s (``_block``, ``_mla_block``,
 ``_mla_moe_block``, ``_mixtral_block``, ``_gemma_block``) on the port's
 ops: ``ops.multi_head_attention`` (the flash kernels with
@@ -54,7 +71,14 @@ from tpufw_torch.models.mixtral import MixtralConfig
 from tpufw_torch.ops import multi_head_attention, rms_norm
 from tpufw_torch.ops.attention import tanh_soft_cap
 from tpufw_torch.ops.moe import expert_capacity, route_topk_capacity
-from tpufw_torch.parallel.group import LocalPipeGroup, PipeGroup
+from tpufw_torch.parallel.context import expert_group, tensor_group
+from tpufw_torch.parallel.group import (
+    LocalPipeGroup,
+    PipeGroup,
+    enter_all,
+    grad_share,
+    reduce_all,
+)
 
 SCHEDULES = ("gpipe", "1f1b", "interleaved", "zb1")
 
@@ -219,9 +243,74 @@ def check_group(pipe: PipelineConfig, group: PipeGroup) -> None:
         )
 
 
+def check_split(cfg) -> None:
+    """``tpufw``'s checks of the registered tensor and expert groups
+    (``parallel.context``) against ``cfg``, with its messages: ``tensor``
+    must divide the heads (and, but for MLA, the KV heads) and the MLP
+    width (``moe_d_ff`` for MLA-MoE, which also covers the shared
+    experts'); an ``expert`` axis needs a MoE model whose experts it
+    divides."""
+    tp, ep = tensor_group().size, expert_group().size
+    if ep > 1:
+        if not _returns_aux(cfg):
+            raise NotImplementedError(
+                f"mesh expert axis has size {ep} but {type(cfg).__name__}"
+                " has no experts to shard over it")
+        if cfg.n_experts % ep:
+            raise ValueError(
+                f"mesh expert={ep} must divide n_experts="
+                f"{cfg.n_experts} for pipelined expert parallelism")
+    if tp > 1:
+        checks = [("n_heads", cfg.n_heads)]
+        if _is_mla(cfg) and cfg.moe:
+            checks.append(("moe_d_ff", cfg.moe_d_ff))
+        else:
+            checks.append(("d_ff", cfg.d_ff))
+        if not _is_mla(cfg):
+            checks.append(("n_kv_heads", cfg.n_kv_heads))
+        for name, v in checks:
+            if v % tp:
+                raise ValueError(
+                    f"mesh tensor={tp} must divide {name}={v} "
+                    "for pipelined tensor parallelism")
+
+
 # ----------------------------------------------------------------------
 # Parameter trees
 # ----------------------------------------------------------------------
+
+#: The Megatron split of each stage-stack leaf over ``tensor`` (``tpufw``'s
+#: ``_TENSOR_LEAF_AXIS``), its axis counted from the end so one table
+#: covers every layout: q/k/v (and Qwen's biases, MLA's ``wq_b`` and
+#: ``wkv_b``) on their head axis, o on its input heads, gate/up (the
+#: dense, routed and shared experts') on their ``d_ff`` columns, down on
+#: its ``d_ff`` rows. MLA's latent down-projections (``wq_a``, ``wkv_a``)
+#: and every norm stay replicated: the latents are shared by the heads.
+_TENSOR_LEAF_AXIS = {
+    "wq": -2, "wk": -2, "wv": -2, "wo": -3,
+    "bq": -2, "bk": -2, "bv": -2,
+    "w_gate": -1, "w_up": -1, "w_down": -2,
+    "wq_b": -2, "wkv_b": -2,
+    "w_shared_gate": -1, "w_shared_up": -1, "w_shared_down": -2,
+}
+
+#: The routed expert stacks (rank 5, [S, lps, E, in, out]; never in the
+#: interleaved layout) split their [E] axis over ``expert``.
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def leaf_split(path: str, ndim: int, virtual: bool = False) -> tuple:
+    """((mesh axis, dim), ...) of a stage-stack leaf at ``path`` (its
+    name is the last part) of rank ``ndim``: the expert split of a routed
+    expert stack, then the tensor split of ``_TENSOR_LEAF_AXIS``."""
+    name = path.rpartition("/")[2]
+    out = []
+    if not virtual and name in _EXPERT_LEAVES and ndim == 5:
+        out.append(("expert", 2))
+    t = _TENSOR_LEAF_AXIS.get(name)
+    if t is not None:
+        out.append(("tensor", ndim + t))
+    return tuple(out)
 
 
 def tree_map(fn, tree):
@@ -266,16 +355,38 @@ def stage_axis(virtual: bool) -> int:
     return 1 if virtual else 0
 
 
-def stage_slice(stages: dict, group: PipeGroup, virtual: bool = False):
+def stage_slice(stages: dict, group: PipeGroup, virtual: bool = False,
+                groups: tuple = ()):
     """The part of whole stage stacks that ``group``'s process holds:
     its stages along the stage axis (all of them on a
-    ``LocalPipeGroup``)."""
-    if group.indices == tuple(range(group.size)):
+    ``LocalPipeGroup``), then its shards over ``groups`` (``cut_stages``)."""
+    if group.indices != tuple(range(group.size)):
+        ax = stage_axis(virtual)
+        idx = list(group.indices)
+        stages = tree_map(
+            lambda a: a[(slice(None),) * ax + (idx,)].contiguous(), stages)
+    return cut_stages(stages, groups, virtual)
+
+
+def cut_stages(stages: dict, groups: tuple = (), virtual: bool = False):
+    """This process's shards of each split leaf (``leaf_split``) of stage
+    stacks over the tensor and expert ``groups`` (a ``TensorGroup`` and an
+    ``ExpertGroup``; a group holding every shard keeps the whole)."""
+    from tpufw_torch.parallel.tensor import cut_tensor
+
+    if all(g.holds_all for g in groups):
         return stages
-    ax = stage_axis(virtual)
-    idx = list(group.indices)
-    return tree_map(lambda a: a[(slice(None),) * ax + (idx,)].contiguous(),
-                    stages)
+    return map_paths(lambda path, a: cut_tensor(
+        a, leaf_split(path, a.ndim, virtual), groups).contiguous(), stages)
+
+
+def map_paths(fn, tree, prefix: str = ""):
+    """``fn(path, tensor)`` on every tensor of a nested dict (paths as
+    ``tree_leaves`` gives them)."""
+    if isinstance(tree, dict):
+        return {k: map_paths(fn, v, f"{prefix}{k}/" if isinstance(v, dict)
+                             else f"{prefix}{k}") for k, v in tree.items()}
+    return fn(prefix, tree)
 
 
 def _stage_layers(cfg, lps: int) -> dict:
@@ -430,95 +541,144 @@ def _proj(x: torch.Tensor, w: torch.Tensor, spec: str, dt) -> torch.Tensor:
     return torch.einsum(spec, x, w.to(dt))
 
 
-def _swiglu(p, h, dt, prefix="w_"):
-    g = _proj(h, p[prefix + "gate"], "btd,df->btf", dt)
-    u = _proj(h, p[prefix + "up"], "btd,df->btf", dt)
-    return _proj(F.silu(g) * u, p[prefix + "down"], "btf,fd->btd", dt)
+def _mlp(p, h, dt, act, prefix="w_"):
+    """The gated MLP ``down(act(gate h) * up h)``, each held tensor
+    shard's ``d_ff`` columns (``h`` entering them), summed over the axis
+    at the row-parallel exit."""
+    tp = tensor_group()
+    h = tp.enter(h)
+    outs = []
+    for wg, wu, wd in zip(tp.shards(p[prefix + "gate"], -1),
+                          tp.shards(p[prefix + "up"], -1),
+                          tp.shards(p[prefix + "down"], -2)):
+        g = _proj(h, wg, "btd,df->btf", dt)
+        u = _proj(h, wu, "btd,df->btf", dt)
+        outs.append(_proj(act(g) * u, wd, "btf,fd->btd", dt))
+    return tp.reduce(outs)
+
+
+def _head_shards(p, names, tp) -> list:
+    """Per held tensor shard, the dict of ``names``' head slices (each
+    leaf's split axis from ``_TENSOR_LEAF_AXIS``)."""
+    cols = [tp.shards(p[n], _TENSOR_LEAF_AXIS[n]) for n in names]
+    return [dict(zip(names, ws)) for ws in zip(*cols)]
+
+
+def _gqa(p: dict, h, cfg, backend: str, seg, window, soft_cap=None,
+         q_scale=None):
+    """GQA attention of the normed ``h`` with RoPE through o: each held
+    tensor shard's heads (``h`` entering them; Qwen's qkv biases before
+    RoPE; Gemma's query scale after it), summed over the axis after o."""
+    dt = cfg.dtype
+    tp = tensor_group()
+    positions = _positions(h)
+    h = tp.enter(h)
+    rs = getattr(cfg, "rope_scaling", None)
+    names = ["wq", "wk", "wv", "wo"] + (["bq", "bk", "bv"] if "bq" in p
+                                        else [])
+    outs = []
+    for w in _head_shards(p, names, tp):
+        q = _proj(h, w["wq"], "btd,dhk->bthk", dt)
+        k = _proj(h, w["wk"], "btd,dhk->bthk", dt)
+        v = _proj(h, w["wv"], "btd,dhk->bthk", dt)
+        if "bq" in w:
+            q = q + w["bq"].to(dt)
+            k = k + w["bk"].to(dt)
+            v = v + w["bv"].to(dt)
+        q = apply_rope(q, positions, cfg.rope_theta, rs)
+        k = apply_rope(k, positions, cfg.rope_theta, rs)
+        if q_scale is not None:
+            q = q * q_scale
+        att = multi_head_attention(
+            q, k, v, causal=True, segment_ids=seg, logits_soft_cap=soft_cap,
+            sliding_window=window, backend=backend,
+        )
+        outs.append(_proj(att, w["wo"], "bthk,hkd->btd", dt))
+    return tp.reduce(outs)
 
 
 def _attn_sublayer(p: dict, x, cfg, backend: str, seg=None):
     """Pre-norm GQA attention with RoPE and its residual (Qwen's qkv
     biases before RoPE, Mistral's uniform window)."""
-    dt = cfg.dtype
-    positions = _positions(x)
     h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
-    q = _proj(h, p["wq"], "btd,dhk->bthk", dt)
-    k = _proj(h, p["wk"], "btd,dhk->bthk", dt)
-    v = _proj(h, p["wv"], "btd,dhk->bthk", dt)
-    if "bq" in p:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    rs = getattr(cfg, "rope_scaling", None)
-    q = apply_rope(q, positions, cfg.rope_theta, rs)
-    k = apply_rope(k, positions, cfg.rope_theta, rs)
-    att = multi_head_attention(
-        q, k, v, causal=True, segment_ids=seg,
-        sliding_window=getattr(cfg, "sliding_window", None), backend=backend,
-    )
-    return x + _proj(att, p["wo"], "bthk,hkd->btd", dt)
+    return x + _gqa(p, h, cfg, backend, seg,
+                    getattr(cfg, "sliding_window", None))
 
 
 def _block(p: dict, x, cfg, backend: str, seg=None):
     """One Llama-family decoder block; p's leaves have no layer axis."""
     x = _attn_sublayer(p, x, cfg, backend, seg)
     h = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
-    return x + _swiglu(p, h, cfg.dtype)
+    return x + _mlp(p, h, cfg.dtype, F.silu)
 
 
 def _mla_attn_sublayer(p: dict, x, cfg, backend: str, seg=None):
     """MLA attention and its residual, the expanded training form of
     ``models.deepseek.MLAttention``; flash gets V zero-padded to the qk
-    head dim and its output sliced back."""
+    head dim and its output sliced back. The latent projections and
+    their norms are replicated and enter the held tensor shards' heads
+    at their outputs; the heads are summed over the axis after o."""
     dt = cfg.dtype
+    tp = tensor_group()
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     dv, kvr = cfg.v_head_dim, cfg.kv_lora_rank
     positions = _positions(x)
     h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
     if "wq" in p:
-        q = _proj(h, p["wq"], "btd,dhk->bthk", dt)
+        q_in, q_name, q_spec = tp.enter(h), "wq", "btd,dhk->bthk"
     else:
         cq = _proj(h, p["wq_a"], "btd,dr->btr", dt)
-        cq = rms_norm(cq, p["q_a_norm"], cfg.rms_eps)
-        q = _proj(cq, p["wq_b"], "btr,rhk->bthk", dt)
-    q_nope, q_pe = q[..., :dn], q[..., dn:]
-    q_pe = apply_rope_interleaved(q_pe, positions, cfg.rope_theta,
-                                  cfg.rope_scaling)
+        q_in = tp.enter(rms_norm(cq, p["q_a_norm"], cfg.rms_eps))
+        q_name, q_spec = "wq_b", "btr,rhk->bthk"
     ckv_kr = _proj(h, p["wkv_a"], "btd,dr->btr", dt)
     c_kv = rms_norm(ckv_kr[..., :kvr], p["kv_a_norm"], cfg.rms_eps)
     k_pe = apply_rope_interleaved(ckv_kr[..., kvr:][:, :, None, :],
                                   positions, cfg.rope_theta, cfg.rope_scaling)
-    kv = _proj(c_kv.to(dt), p["wkv_b"], "btr,rhd->bthd", dt)
-    k_nope, v = kv[..., :dn], kv[..., dn:]
-    k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:3], dr)], dim=-1)
-    q = torch.cat([q_nope, q_pe], dim=-1)
+    c_kv, k_pe = tp.enter(c_kv), tp.enter(k_pe)
     padded = backend in ("flash", "ring")
-    v_in = F.pad(v, (0, cfg.qk_head_dim - dv)) if padded else v
-    att = multi_head_attention(q, k, v_in, causal=True, segment_ids=seg,
-                               backend=backend)
-    if padded:
-        att = att[..., :dv]
-    return x + _proj(att, p["wo"], "bthd,hdD->btD", dt)
+    outs = []
+    for w in _head_shards(p, [q_name, "wkv_b", "wo"], tp):
+        q = _proj(q_in, w[q_name], q_spec, dt)
+        q_nope, q_pe = q[..., :dn], q[..., dn:]
+        q_pe = apply_rope_interleaved(q_pe, positions, cfg.rope_theta,
+                                      cfg.rope_scaling)
+        kv = _proj(c_kv.to(dt), w["wkv_b"], "btr,rhd->bthd", dt)
+        k_nope, v = kv[..., :dn], kv[..., dn:]
+        k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:3], dr)], dim=-1)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        v_in = F.pad(v, (0, cfg.qk_head_dim - dv)) if padded else v
+        att = multi_head_attention(q, k, v_in, causal=True, segment_ids=seg,
+                                   backend=backend)
+        if padded:
+            att = att[..., :dv]
+        outs.append(_proj(att, w["wo"], "bthd,hdD->btD", dt))
+    return x + tp.reduce(outs)
 
 
 def _mla_block(p: dict, x, cfg, backend: str, seg=None):
     """One dense-FFN DeepSeek-MLA block."""
     x = _mla_attn_sublayer(p, x, cfg, backend, seg)
     h = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
-    return x + _swiglu(p, h, cfg.dtype)
+    return x + _mlp(p, h, cfg.dtype, F.silu)
 
 
 def _moe_mlp(p: dict, h, cfg, valid, group_rows: Optional[int]):
     """Top-k capacity MoE MLP: (output, the summed router loss of its
     routing groups). Each group of ``group_rows`` rows (default: all of
     ``h``'s) routes alone, as ``tpufw`` routes each (microbatch x
-    data-shard) group; the router runs in fp32."""
+    data-shard) group; the router runs in fp32, replicated. Each held
+    expert shard runs its experts' slots through each held tensor
+    shard's ``d_ff`` columns, the parts summed over both axes (one
+    reduction), as ``models.mixtral.MoEMLP`` does; the router's logits
+    enter both axes and its losses pass back a share a shard."""
     b, t, d = h.shape
     gr = group_rows or b
     if b % gr:
         raise ValueError(f"{b} rows not divisible by group_rows {gr}")
     e, k = cfg.n_experts, cfg.experts_per_token
     dt = cfg.dtype
+    ep, tp = expert_group(), tensor_group()
+    stacks = [ep.shards(p[n], -3) for n in ("w_gate", "w_up", "w_down")]
     ys, aux = [], 0.0
     for i in range(b // gr):
         hg = h[i * gr:(i + 1) * gr]
@@ -527,19 +687,27 @@ def _moe_mlp(p: dict, h, cfg, valid, group_rows: Optional[int]):
                               p["router"].float()).reshape(g, e)
         vg = None if valid is None else valid[i * gr:(i + 1) * gr].reshape(g)
         dispatch, combine, a, z = route_topk_capacity(
-            logits, k, expert_capacity(g, k, e, cfg.capacity_factor),
+            enter_all(logits, ep, tp), k,
+            expert_capacity(g, k, e, cfg.capacity_factor),
             valid=vg, dtype=dt, norm_topk=getattr(cfg, "norm_topk_prob", True),
             group_limit=((cfg.n_group, cfg.topk_group)
                          if getattr(cfg, "n_group", 0) else None),
         )
-        xf = hg.reshape(g, d).to(dt)
-        xe = torch.einsum("gec,gd->ecd", dispatch, xf)
-        gate = torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(dt))
-        up = torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(dt))
-        down = torch.einsum("ecf,efd->ecd", F.silu(gate) * up,
-                            p["w_down"].to(dt))
-        ys.append(torch.einsum("gec,ecd->gd", combine, down).reshape(gr, t, d))
-        aux = aux + cfg.router_aux_weight * a + cfg.router_z_weight * z
+        xf = enter_all(hg.reshape(g, d).to(dt), ep, tp)
+        parts = []
+        for (lo, hi), wg, wu, wd in zip(ep.ranges(e), *stacks):
+            xe = torch.einsum("gec,gd->ecd", dispatch[:, lo:hi], xf)
+            for wg_t, wu_t, wd_t in zip(tp.shards(wg, -1), tp.shards(wu, -1),
+                                        tp.shards(wd, -2)):
+                gate = torch.einsum("ecd,edf->ecf", xe, wg_t.to(dt))
+                up = torch.einsum("ecd,edf->ecf", xe, wu_t.to(dt))
+                down = torch.einsum("ecf,efd->ecd", F.silu(gate) * up,
+                                    wd_t.to(dt))
+                parts.append(torch.einsum("gec,ecd->gd", combine[:, lo:hi],
+                                          down))
+        ys.append(reduce_all(parts, ep, tp).reshape(gr, t, d))
+        aux = aux + grad_share(
+            cfg.router_aux_weight * a + cfg.router_z_weight * z, ep, tp)
     return torch.cat(ys), aux
 
 
@@ -560,40 +728,29 @@ def _mla_moe_block(p: dict, x, cfg, backend: str, seg=None, group_rows=None):
     y, aux = _moe_mlp(p, h, cfg, None if seg is None else seg > 0, group_rows)
     y = y * cfg.routed_scaling_factor
     if "w_shared_gate" in p:
-        y = y + _swiglu(p, h, cfg.dtype, prefix="w_shared_")
+        y = y + _mlp(p, h, cfg.dtype, F.silu, prefix="w_shared_")
     return x + y, aux
 
 
 def _gemma_block(p: dict, x, cfg, backend: str, seg, window):
     """One Gemma-2 block: sandwich (1 + w) norms, GeGLU, the attention
-    soft cap and query_pre_attn_scalar scaling."""
+    soft cap and query_pre_attn_scalar scaling. Under a tensor split each
+    sublayer's shards are summed before its post-norm (an RMSNorm of a
+    partial sum would be another function)."""
     dt = cfg.dtype
-    positions = _positions(x)
 
     def norm(which, h):
         return rms_norm(h, p[which] + 1.0, cfg.rms_eps)
 
-    h = norm("pre_attn_norm", x)
-    q = _proj(h, p["wq"], "btd,dhk->bthk", dt)
-    k = _proj(h, p["wk"], "btd,dhk->bthk", dt)
-    v = _proj(h, p["wv"], "btd,dhk->bthk", dt)
-    rs = getattr(cfg, "rope_scaling", None)
-    q = apply_rope(q, positions, cfg.rope_theta, rs)
-    k = apply_rope(k, positions, cfg.rope_theta, rs)
     qpas = cfg.query_pre_attn_scalar
+    q_scale = None
     if qpas is not None and float(qpas) != float(cfg.head_dim):
-        q = q * (math.sqrt(cfg.head_dim) / math.sqrt(float(qpas)))
-    att = multi_head_attention(
-        q, k, v, causal=True, segment_ids=seg,
-        logits_soft_cap=cfg.attn_logit_soft_cap, sliding_window=window,
-        backend=backend,
-    )
-    x = x + norm("post_attn_norm", _proj(att, p["wo"], "bthk,hkd->btd", dt))
-    h = norm("pre_mlp_norm", x)
-    g = _proj(h, p["w_gate"], "btd,df->btf", dt)
-    u = _proj(h, p["w_up"], "btd,df->btf", dt)
-    m = _proj(F.gelu(g, approximate="tanh") * u, p["w_down"], "btf,fd->btd",
-              dt)
+        q_scale = math.sqrt(cfg.head_dim) / math.sqrt(float(qpas))
+    x = x + norm("post_attn_norm", _gqa(
+        p, norm("pre_attn_norm", x), cfg, backend, seg, window,
+        cfg.attn_logit_soft_cap, q_scale))
+    m = _mlp(p, norm("pre_mlp_norm", x), dt,
+             lambda g: F.gelu(g, approximate="tanh"))
     return x + norm("post_mlp_norm", m)
 
 
@@ -765,6 +922,7 @@ def pipeline_forward(
     rows of each microbatch (default: the microbatch)."""
     group = group or LocalPipeGroup(pipe.n_stages)
     check_group(pipe, group)
+    check_split(cfg)
     pipe.validate(cfg, tokens.shape[0])
     if pipe.virtual_layout:
         raise ValueError(
@@ -823,20 +981,25 @@ def _gang_sum_(x: torch.Tensor, groups) -> torch.Tensor:
 class Gang:
     """The collectives a pipeline step needs beyond its pipe group: the
     process groups of the batch shards (``data``, ``fsdp``: the ranks
-    holding this process's stages, other rows) and whether there is a
-    process group at all. ``Gang()`` is one process."""
+    holding this process's stages and shards, other rows), the process
+    group of the ranks of this rank's (``expert``, ``tensor``) coordinate
+    (None: every rank), over which the loss and the replicated leaves'
+    gradients are summed, and whether there is a process group at all.
+    ``Gang()`` is one process."""
 
     batch_groups: tuple = ()
     active: bool = False
+    coord_group: Any = None
 
     def batch_sum(self, x):
         return _gang_sum_(x, self.batch_groups) if self.active else x
 
     def world_sum(self, x):
+        """``x`` summed in place over the ranks of this coordinate."""
         import torch.distributed as dist
 
         if self.active:
-            dist.all_reduce(x)
+            dist.all_reduce(x, group=self.coord_group)
         return x
 
 
@@ -852,6 +1015,7 @@ def objective_parts(params, batch, cfg, pipe, group, backend=None,
 
     gang = gang or Gang()
     inputs, targets, seg_in, mask = shift_and_mask(batch)
+    check_split(cfg)
     pipe.validate(cfg, inputs.shape[0])
     if mask is None:
         mask = torch.ones_like(targets, dtype=torch.float32)
@@ -904,8 +1068,11 @@ def unflatten_like(tree, flat: list):
 
 def reduce_grads(grads: dict, gang: Gang) -> dict:
     """Sum a step's gradients over the gang: stage stacks over the batch
-    shards (their pipe ranks hold other stages), the rest over every
-    rank (only the first and last stages produce them)."""
+    shards (their pipe ranks hold other stages; their tensor and expert
+    ranks other shards, or, for a replicated leaf, the whole gradient:
+    the stage's ``enter`` summed its parts), the rest over the ranks of
+    this coordinate (only the first and last stages produce them, whole
+    on each tensor and expert rank)."""
     if not gang.active:
         return grads
     for path, g in tree_leaves(grads):

@@ -24,10 +24,18 @@ The stage stacks' gradients accumulate in fp32 where the stage is held;
 stage 0 scatter-adds its input cotangents into the embedding's; the last
 stage's epilogue gives the final norm's and the head's. Under a gang the
 embedding, final norm and head gradients and the loss sum are summed
-over every rank (``tpufw``'s pipe x data x fsdp; its ``psum_scatter``
-of them onto the vocab axis is a layout choice, an all-reduce gives the
-same numbers), the stage gradients over the batch shards; everything is
-then divided by the gang's target count.
+over the ranks of this rank's tensor coordinate (``tpufw``'s pipe x data
+x fsdp; its ``psum_scatter`` of them onto the vocab axis is a layout
+choice, an all-reduce gives the same numbers), the stage gradients over
+the batch shards; everything is then divided by the gang's target count.
+
+Tensor parallelism inside a stage needs no schedule of its own: the
+stage math's ``enter`` and ``reduce`` (Megatron's f and g, autograd
+Functions) sit inside each stage's graph, so the per-stage
+``torch.autograd.grad`` of a B (or ZB-H1's W) sub-tick takes the sums
+over ``tensor`` itself, once a phase: the input cotangent's in B, the
+replicated leaves' in W (``tpufw`` writes the same operators as custom
+VJPs for its per-stage VJPs).
 
 The engine (``manual_value_and_grad``) runs the tick maps of
 ``tpufw``'s three schedules: 1F1B (the interleaved maps at v = 1),
@@ -37,7 +45,7 @@ deferred weight-gradient phase). Like GPipe's, it runs a stage only on
 its real sub-ticks (``tpufw`` masks bubble sub-ticks it runs).
 
 Scope, ``tpufw``'s ``_check_1f1b``: Llama-family blocks (Qwen biases,
-Mistral's window) and dense DeepSeek-MLA.
+Mistral's window) and dense DeepSeek-MLA, over data, fsdp and tensor.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import Optional
 
 import torch
 
+from tpufw_torch.parallel.context import expert_group
 from tpufw_torch.parallel.group import LocalPipeGroup
 from tpufw_torch.parallel.pipeline import (
     Gang,
@@ -57,6 +66,7 @@ from tpufw_torch.parallel.pipeline import (
     _stage,
     ce_sum,
     check_group,
+    check_split,
     chunk_params,
     reduce_grads,
     tree_leaves,
@@ -65,12 +75,20 @@ from tpufw_torch.parallel.pipeline import (
 
 
 def _check_1f1b(cfg, schedule: str = "1f1b") -> None:
+    """``tpufw``'s envelope of the manual schedules: the Llama family and
+    dense MLA, over data, fsdp and tensor (an expert group above one
+    shard is refused)."""
     if _is_gemma(cfg) or _is_moe(cfg) or (_is_mla(cfg) and cfg.moe):
         raise NotImplementedError(
             f"schedule='{schedule}' implements Llama-family and dense "
             "DeepSeek-MLA blocks; use the GPipe schedule for "
             "Gemma/Mixtral"
         )
+    ep = expert_group().size
+    if ep > 1:
+        raise NotImplementedError(
+            f"{schedule} composes with data/fsdp/tensor; mesh axis expert "
+            f"has size {ep}")
 
 
 class _Ring:
@@ -142,6 +160,7 @@ def manual_value_and_grad(
     from tpufw_torch.train.trainer import shift_and_mask
 
     _check_1f1b(cfg, pipe.schedule)
+    check_split(cfg)
     if pipe.schedule == "gpipe":
         raise ValueError("the GPipe schedule is pipeline.gpipe_value_and_grad")
     group = group or LocalPipeGroup(pipe.n_stages)

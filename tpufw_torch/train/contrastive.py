@@ -161,27 +161,32 @@ def contrastive_train_step(
     batch: dict,
     temperature: float = 0.05,
     pooling: str = "mean",
+    norm_fn=None,
 ) -> dict:
     """One InfoNCE update on a [2B, T] interleaved query/document batch
     of device tensors; returns device tensors {loss, grad_norm, accuracy,
     sim_pos, sim_neg}.
 
     Under a process group ``batch`` is this rank's pairs of the global
-    batch (a sharded model): the pooled vectors of every rank are
-    gathered first (normalizing a row commutes with gathering it), so
+    batch (a sharded model): the pooled vectors of every batch-shard rank
+    are gathered first (normalizing a row commutes with gathering it;
+    under tensor or expert axes the ranks of one coordinate, each row
+    once), so
     the loss and the metrics are the global batch's, the same on every
     rank, and the gradients those of one process on the global batch
     (``sharding.backward_global_mean`` weighs each rank's copy of the
-    global loss by its share of the pairs)."""
+    global loss by its share of the pairs). ``norm_fn``: the clip's
+    global norm where parameters are split (``LlamaAdamW.step``)."""
     tokens, seg = batch["tokens"], batch["segment_ids"]
     optimizer.zero_grad()
     hidden, aux = forward_with_aux(model, tokens, seg)
     emb = pool_embeddings(hidden.float(), seg, pooling)
-    loss, metrics = info_nce_loss(gather_rows(emb[0::2]),
-                                  gather_rows(emb[1::2]), temperature)
+    group = sharding.batch_process_group()
+    loss, metrics = info_nce_loss(gather_rows(emb[0::2], group),
+                                  gather_rows(emb[1::2], group), temperature)
     pairs = torch.tensor(float(emb.shape[0] // 2), device=emb.device)
     loss = sharding.backward_global_mean(loss + aux, pairs)
-    grad_norm = optimizer.step()
+    grad_norm = optimizer.step(norm_fn)
     return {"loss": loss.detach(), "grad_norm": grad_norm,
             **{k: v.detach() for k, v in metrics.items()}}
 
@@ -192,17 +197,17 @@ class EmbeddingTrainer(Trainer):
     ``TrainerConfig.batch_size`` is the ROW count 2B, global in a gang
     (each rank feeds the pairs of its batch shard). ``embed`` and
     ``evaluate_retrieval`` are one-process surfaces, as in ``tpufw``:
-    they raise in a gang; resume its checkpoint in one process to embed."""
-
-    # Its log-prob, KL or pooling head is not split over the tensor and
-    # expert axes yet (ROADMAP.md Queue 1 item 12g).
-    model_parallel = False
+    they raise in a gang; resume its checkpoint in one process to embed.
+    Under tensor and expert axes the pooled vector is read from the
+    replicated hidden states after the last row-parallel exit and the
+    final norm, so pooling needs no split."""
 
     whole_rows = True
 
     def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,
-                 contrastive: ContrastiveConfig = ContrastiveConfig()):
-        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device)
+                 contrastive: ContrastiveConfig = ContrastiveConfig(),
+                 groups=()):
+        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device, groups)
         if trainer_cfg.batch_size % 2:
             raise ValueError(
                 f"embedding batch_size is the ROW count 2B; got odd "
@@ -227,7 +232,7 @@ class EmbeddingTrainer(Trainer):
         out = contrastive_train_step(
             self.model, self.optimizer, batch_to_device(batch, self.device),
             temperature=self.contrastive.temperature,
-            pooling=self.contrastive.pooling,
+            pooling=self.contrastive.pooling, norm_fn=self._norm_fn(),
         )
         self.step += 1
         return out

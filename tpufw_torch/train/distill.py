@@ -22,8 +22,15 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from tpufw_torch.ops.attention import tanh_soft_cap
-from tpufw_torch.ops.loss import _chunk_seq, head_logits
+from tpufw_torch.ops.loss import (
+    _chunk_seq,
+    _enter,
+    _vocab_ce,
+    _vocab_logits,
+    vocab_parallel_logsumexp,
+)
+from tpufw_torch.parallel.context import tensor_group
+from tpufw_torch.parallel.tensor import check_divisible
 from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import load_params
 from tpufw_torch.train.trainer import (
@@ -40,21 +47,38 @@ from tpufw_torch.train.trainer import (
 
 
 def _chunk_distill(h_s, h_t, t_c, m_c, student_kernel, teacher_kernel,
-                   inv_t, compute_dtype, student_soft_cap, teacher_soft_cap):
-    """Masked (KL sum, CE sum) of one [B, C] chunk."""
-    s_logits = head_logits(h_s, student_kernel, compute_dtype)
-    if student_soft_cap is not None:
-        s_logits = tanh_soft_cap(s_logits, student_soft_cap)
-    t_logits = head_logits(h_t, teacher_kernel, compute_dtype)
-    if teacher_soft_cap is not None:
-        t_logits = tanh_soft_cap(t_logits, teacher_soft_cap)
-    s_logp = torch.log_softmax(s_logits * inv_t, dim=-1)
-    t_logp = torch.log_softmax(t_logits * inv_t, dim=-1)
-    # KL(t || s) per position; the teacher's entropy term is constant in
-    # the student but kept, so the metric reads as a KL (0 at equality).
-    kl_tok = (t_logp.exp() * (t_logp - s_logp)).sum(-1)
-    ce_tok = -torch.gather(torch.log_softmax(s_logits, dim=-1), -1,
-                           t_c[..., None].long())[..., 0]
+                   inv_t, compute_dtype, student_soft_cap, teacher_soft_cap,
+                   group=None):
+    """Masked (KL sum, CE sum) of one [B, C] chunk; under a ``group`` of
+    more than one shard, both heads vocab-parallel: each softmax's max
+    and log-sum-exp reduced over the group, and the KL a position
+    ``sum_v p_t (log p_t - s_v / T) + lse_s sum_v p_t``, its sums over
+    the vocabulary taken shard by shard and reduced."""
+    s_logits = _vocab_logits(h_s, student_kernel, compute_dtype,
+                             student_soft_cap, 1.0, group)
+    t_logits = _vocab_logits(h_t, teacher_kernel, compute_dtype,
+                             teacher_soft_cap, 1.0, group)
+    if group is None or group.size == 1:
+        s_logp = torch.log_softmax(s_logits[0] * inv_t, dim=-1)
+        t_logp = torch.log_softmax(t_logits[0] * inv_t, dim=-1)
+        # KL(t || s) per position; the teacher's entropy term is constant
+        # in the student but kept, so the metric reads as a KL (0 at
+        # equality).
+        kl_tok = (t_logp.exp() * (t_logp - s_logp)).sum(-1)
+        ce_tok = -torch.gather(torch.log_softmax(s_logits[0], dim=-1), -1,
+                               t_c[..., None].long())[..., 0]
+        return (kl_tok * m_c).sum(), (ce_tok * m_c).sum()
+    s_scaled = [x * inv_t for x in s_logits]
+    t_scaled = [x * inv_t for x in t_logits]
+    lse_t = vocab_parallel_logsumexp(t_scaled, group)[..., None]
+    t_logp = [x - lse_t for x in t_scaled]
+    p_t = [x.exp() for x in t_logp]
+    # log p_s = s / T - lse_s: the replicated lse_s enters once, whole.
+    kl_tok = group.reduce([(p * (t - s)).sum(-1) for p, t, s in
+                           zip(p_t, t_logp, s_scaled)]) \
+        + vocab_parallel_logsumexp(s_scaled, group) * group.reduce(
+            [p.sum(-1) for p in p_t])
+    ce_tok = _vocab_ce(s_logits, student_kernel, t_c, group, 0.0)
     return (kl_tok * m_c).sum(), (ce_tok * m_c).sum()
 
 
@@ -71,6 +95,7 @@ def chunked_distill_loss(
     compute_dtype: torch.dtype = torch.bfloat16,
     student_soft_cap: Optional[float] = None,
     teacher_soft_cap: Optional[float] = None,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(total, kl, ce) masked means, chunked over the sequence axis; each
     chunk is checkpointed, so its logits are recomputed in the backward.
@@ -78,12 +103,15 @@ def chunked_distill_loss(
     kl is the temperature-softened KL(teacher || student) times T^2; ce
     the hard-label cross entropy (no z-loss). Each model's final soft cap
     (Gemma) applies to its own logits before the temperature; the two may
-    differ. The vocab sizes must match."""
+    differ. The vocab sizes must match. ``group``: a tensor group both
+    heads are split over on the vocabulary (the kernels whole in one
+    process, this rank's [D, V/tp] in a gang)."""
     if student_kernel.shape[-1] != teacher_kernel.shape[-1]:
         raise ValueError(
             f"student vocab {student_kernel.shape[-1]} != teacher vocab "
             f"{teacher_kernel.shape[-1]}: distillation KL needs one vocab")
     mask = mask.float()
+    student_hidden = _enter(student_hidden, group)
     hs, ts, ms = _chunk_seq(chunk_size, student_hidden, targets, mask)
     ht, _, _ = _chunk_seq(chunk_size, teacher_hidden, targets, mask)
     zero = torch.zeros((), dtype=torch.float32, device=student_hidden.device)
@@ -92,7 +120,7 @@ def chunked_distill_loss(
         kl_c, ce_c = checkpoint(
             _chunk_distill, h_s, h_t, t_c, m_c, student_kernel,
             teacher_kernel, 1.0 / temperature, compute_dtype,
-            student_soft_cap, teacher_soft_cap, use_reentrant=False,
+            student_soft_cap, teacher_soft_cap, group, use_reentrant=False,
         )
         kl_sum, ce_sum, n = kl_sum + kl_c, ce_sum + ce_c, n + m_c.sum()
     n_safe = torch.clamp(n, min=1.0)
@@ -120,6 +148,7 @@ def distill_train_step(
     alpha: float = 0.5,
     loss_chunk_size: int = 256,
     loss_chunk_dtype: str = "bfloat16",
+    norm_fn=None,
 ) -> dict:
     """One distillation update on a packed LM batch of device tensors;
     returns device tensors {loss, kl_loss, ce_loss, grad_norm}. The
@@ -127,7 +156,8 @@ def distill_train_step(
     a MoE student's router loss joins the objective. Under a process
     group ``batch`` is this rank's rows of the global batch (sharded
     models): the losses and the gradients are the global batch's token
-    means."""
+    means. ``norm_fn``: the clip's global norm where parameters are split
+    (``LlamaAdamW.step``)."""
     inputs, targets, seg_in, mask = shift_and_mask(batch)
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
@@ -143,11 +173,12 @@ def distill_train_step(
         compute_dtype=getattr(torch, loss_chunk_dtype),
         student_soft_cap=final_soft_cap(model),
         teacher_soft_cap=final_soft_cap(teacher),
+        group=tensor_group(),
     )
     loss = total + aux
     loss = sharding.backward_global_mean(loss, mask.sum())
     kl, ce = sharding.global_mean(torch.stack([kl, ce]), mask.sum())
-    grad_norm = optimizer.step()
+    grad_norm = optimizer.step(norm_fn)
     return {"loss": loss.detach(), "kl_loss": kl.detach(),
             "ce_loss": ce.detach(), "grad_norm": grad_norm}
 
@@ -158,15 +189,12 @@ class DistillTrainer(Trainer):
     inherited, and ``set_teacher`` (or ``set_teacher_from``) must come
     before the first step. The teacher's forward (2N_t a token, a third
     of its own 6N count) is credited when ``run`` is given it, as the
-    train workload does."""
-
-    # Its log-prob, KL or pooling head is not split over the tensor and
-    # expert axes yet (ROADMAP.md Queue 1 item 12g).
-    model_parallel = False
+    train workload does. Under tensor and expert axes the teacher is cut
+    by the student's groups and its forward runs under them."""
 
     def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,
-                 distill: DistillConfig = DistillConfig()):
-        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device)
+                 distill: DistillConfig = DistillConfig(), groups=()):
+        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device, groups)
         if trainer_cfg.grad_accum != 1:
             raise NotImplementedError(
                 "DistillTrainer does not implement grad_accum; silently "
@@ -176,10 +204,18 @@ class DistillTrainer(Trainer):
         self.teacher = None
 
     def _check_vocab(self, teacher_cfg) -> None:
+        """The vocabularies must match; under a split the teacher's
+        dimensions must divide by the student's axes, as the student's
+        do (a teacher with no experts takes no expert split)."""
         if teacher_cfg.vocab_size != self.model_cfg.vocab_size:
             raise ValueError(
                 f"teacher vocab {teacher_cfg.vocab_size} != student vocab "
                 f"{self.model_cfg.vocab_size}")
+        if self.split:
+            tp, ep = self.groups
+            check_divisible(teacher_cfg, tp.size,
+                            ep.size if getattr(teacher_cfg, "n_experts", 0)
+                            else 1)
 
     def set_teacher(self, teacher_model) -> None:
         """Install a frozen copy of ``teacher_model`` (any ported family
@@ -214,6 +250,7 @@ class DistillTrainer(Trainer):
             temperature=self.distill.temperature, alpha=self.distill.alpha,
             loss_chunk_size=self.cfg.loss_chunk_size or 256,
             loss_chunk_dtype=self.cfg.loss_chunk_dtype,
+            norm_fn=self._norm_fn(),
         )
         self.step += 1
         return out

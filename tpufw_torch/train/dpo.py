@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from tpufw_torch.models.lora import adapters_bypassed
 from tpufw_torch.ops.loss import chunked_sequence_logprob
-from tpufw_torch.parallel.context import partial_sequence_group
+from tpufw_torch.parallel.context import partial_sequence_group, tensor_group
 from tpufw_torch.train import sharding
 from tpufw_torch.train.sft import _TEMPLATES, render_conversation
 from tpufw_torch.train.trainer import (
@@ -47,7 +47,7 @@ from tpufw_torch.train.trainer import (
     batch_to_device,
     final_soft_cap,
     forward_with_aux,
-    frozen_copy,
+    frozen_model,
     on_mesh,
     shift_and_mask,
 )
@@ -252,13 +252,15 @@ def reference_policy(model, ref_model=None):
 def sequence_logps(model, inputs, targets, seg_in, mask, chunk_size: int,
                    compute_dtype):
     """([2B] per-row response log-prob sums, the MoE router loss or 0.0)
-    of ``model`` through the chunked head path. Under a sequence split a
-    rank holds a chunk of each row: its partial sums are summed over the
-    ring, with their gradient, into the rows' sums."""
+    of ``model`` through the chunked head path (vocab-parallel under the
+    registered tensor group). Under a sequence split a rank holds a chunk
+    of each row: its partial sums are summed over the ring, with their
+    gradient, into the rows' sums."""
     hidden, aux = forward_with_aux(model, inputs, seg_in)
     logps = chunked_sequence_logprob(
         hidden, model.head_kernel(), targets, mask, chunk_size=chunk_size,
         compute_dtype=compute_dtype, logits_soft_cap=final_soft_cap(model),
+        group=tensor_group(),
     )
     group = partial_sequence_group()
     if group is not None:
@@ -300,6 +302,7 @@ def dpo_train_step(
     label_smoothing: float = 0.0,
     loss_chunk_size: int = 256,
     loss_chunk_dtype: str = "bfloat16",
+    norm_fn=None,
 ) -> dict:
     """One DPO update on a [2B, T] chosen/rejected batch of device
     tensors; returns device tensors {loss, grad_norm, accuracy, margin,
@@ -308,7 +311,8 @@ def dpo_train_step(
     router loss joins the objective, as in ``trainer.batch_loss``.
     Under a process group ``batch`` is this rank's pairs of the global
     batch (a sharded model): the loss, its gradients and the metrics are
-    the global batch's means over the pairs."""
+    the global batch's means over the pairs. ``norm_fn``: the clip's
+    global norm where parameters are split (``LlamaAdamW.step``)."""
     inputs, targets, seg_in, mask = shift_and_mask(batch)
     if mask is None:
         raise ValueError(
@@ -329,7 +333,7 @@ def dpo_train_step(
     loss = sharding.backward_global_mean(loss, pairs)
     metrics = dict(zip(metrics, sharding.global_mean(
         torch.stack(list(metrics.values())), pairs)))
-    grad_norm = optimizer.step()
+    grad_norm = optimizer.step(norm_fn)
     return {"loss": loss.detach(), "grad_norm": grad_norm,
             **{k: v.detach() for k, v in metrics.items()}}
 
@@ -344,7 +348,9 @@ class ReferenceMixin:
     term): for ``lora_rank`` > 0 the policy's own base, adapters
     bypassed, so ``ref_model`` stays None; otherwise ``ref_model``, a
     frozen copy of the policy in ``ref_dtype`` taken at
-    ``init_state``/``init_from_params`` (step 0)."""
+    ``init_state``/``init_from_params`` (step 0), cut as the policy is
+    (its split tensors gathered whole, then cut again by ``_shard``), so
+    its forward runs under the policy's groups."""
 
     ref_model = None
 
@@ -353,7 +359,8 @@ class ReferenceMixin:
 
     def _snapshot_reference(self, ref_dtype: str) -> None:
         if not self._lora_reference():
-            self.ref_model = frozen_copy(self.model, getattr(torch, ref_dtype))
+            self.ref_model = frozen_model(self.model_cfg, self.whole_state(),
+                                          getattr(torch, ref_dtype))
             self._shard(self.ref_model)
 
     def has_reference(self) -> bool:
@@ -372,13 +379,9 @@ class DPOTrainer(ReferenceMixin, Trainer):
     count) is credited when ``run`` is given ``flops_per_token * 4 / 3``,
     as the train workload does."""
 
-    # Its log-prob, KL or pooling head is not split over the tensor and
-    # expert axes yet (ROADMAP.md Queue 1 item 12g).
-    model_parallel = False
-
     def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,
-                 dpo: DPOConfig = DPOConfig()):
-        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device)
+                 dpo: DPOConfig = DPOConfig(), groups=()):
+        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device, groups)
         if trainer_cfg.batch_size % 2:
             raise ValueError(
                 f"DPO batch_size is the ROW count 2B; got odd "
@@ -429,6 +432,7 @@ class DPOTrainer(ReferenceMixin, Trainer):
             label_smoothing=self.dpo.label_smoothing,
             loss_chunk_size=self.cfg.loss_chunk_size or 256,
             loss_chunk_dtype=self.cfg.loss_chunk_dtype,
+            norm_fn=self._norm_fn(),
         )
         self.step += 1
         return out

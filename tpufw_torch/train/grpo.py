@@ -49,6 +49,7 @@ import torch
 from tpufw_torch.models import model_for_config
 from tpufw_torch.models.lora import is_lora_name
 from tpufw_torch.ops.loss import chunked_token_logprob
+from tpufw_torch.parallel.context import tensor_group
 from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import CheckpointManager
 from tpufw_torch.train.dpo import ReferenceMixin, reference_policy
@@ -104,12 +105,13 @@ def token_logps(model, tokens, seg, chunk_size: int, compute_dtype,
                 temperature: float):
     """([N, T-1] tempered per-target log-probs of ``tokens`` under
     ``model``, the MoE router loss or 0.0): the one computation of the
-    rollout's scoring, the reference's and the update's."""
+    rollout's scoring, the reference's and the update's (vocab-parallel
+    under the registered tensor group)."""
     hidden, aux = forward_with_aux(model, tokens[:, :-1], seg[:, :-1])
     logp = chunked_token_logprob(
         hidden, model.head_kernel(), tokens[:, 1:], chunk_size=chunk_size,
         compute_dtype=compute_dtype, logits_soft_cap=final_soft_cap(model),
-        logits_scale=1.0 / temperature,
+        logits_scale=1.0 / temperature, group=tensor_group(),
     )
     return logp, aux
 
@@ -124,6 +126,7 @@ def grpo_train_step(
     temperature: float = 1.0,
     loss_chunk_size: int = 256,
     loss_chunk_dtype: str = "bfloat16",
+    norm_fn=None,
 ) -> dict:
     """One GRPO update on a rollout batch of device tensors: tokens [N, T]
     (right-padded prompt + completion), loss_mask [N, T] (1 on completion
@@ -136,7 +139,8 @@ def grpo_train_step(
     kl}. Under a process group ``batch`` is this rank's rows (a sharded
     model): the loss, its gradients and the metrics are the global
     batch's means over its completion tokens, whatever each rank's
-    count."""
+    count. ``norm_fn``: the clip's global norm where parameters are split
+    (``LlamaAdamW.step``)."""
     tokens, seg = batch["tokens"], batch["segment_ids"]
     # A target position trains iff its predicted token is a completion
     # token (the LM shift of trainer.shift_and_mask).
@@ -171,7 +175,7 @@ def grpo_train_step(
     clip_frac = ((clipped * adv < ratio * adv).float() * mask).sum() / n
     mean_ratio, clip_frac, kl_mean = sharding.global_mean(torch.stack([
         (ratio * mask).sum() / n, clip_frac, kl_mean]), n_local)
-    grad_norm = optimizer.step()
+    grad_norm = optimizer.step(norm_fn)
     return {"loss": loss, "grad_norm": grad_norm, "mean_ratio": mean_ratio,
             "clip_frac": clip_frac, "kl": kl_mean}
 
@@ -192,17 +196,16 @@ class GRPOTrainer(ReferenceMixin, Trainer):
     then ``train_step``); checkpoints, SIGTERM and the step budget work as
     in ``Trainer.run``, in a gang through its stop's all-reduce and the
     gathering checkpoint. ``batch_size`` is global in a gang: every rank
-    rolls out all N rows and trains the rows of its batch shard."""
-
-    # Its log-prob, KL or pooling head is not split over the tensor and
-    # expert axes yet (ROADMAP.md Queue 1 item 12g).
-    model_parallel = False
+    rolls out all N rows and trains the rows of its batch shard. Under
+    tensor and expert axes the rollout decodes on the whole policy (its
+    shards gathered, ``decode_view``), and the scoring and the update run
+    under the groups."""
 
     whole_rows = True
 
     def __init__(self, model_cfg, trainer_cfg, mesh_cfg=None, device=None,
-                 grpo: GRPOConfig = GRPOConfig()):
-        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device)
+                 grpo: GRPOConfig = GRPOConfig(), groups=()):
+        super().__init__(model_cfg, trainer_cfg, mesh_cfg, device, groups)
         if trainer_cfg.batch_size % grpo.group_size:
             raise ValueError(
                 f"batch_size {trainer_cfg.batch_size} must be a multiple "
@@ -262,7 +265,9 @@ class GRPOTrainer(ReferenceMixin, Trainer):
         In a gang (a collective) the view is made anew for each rollout
         from the policy's whole tensors, which the caller drops after
         it: a rank's shards themselves at world size 1 (no copy), else
-        gathered, a LoRA base once for the run."""
+        gathered (split tensors over their axes too, ``whole_state``), a
+        LoRA base once for the run. Decoding never splits over the
+        tensor or expert axes, as ``tpufw``'s serving does not."""
         if self.gang:
             return self._view(self._whole_state())
         if self._decode_of is not self.model:
@@ -279,18 +284,21 @@ class GRPOTrainer(ReferenceMixin, Trainer):
 
     def _whole_state(self) -> dict:
         """The sharded policy's tensors whole on this rank."""
-        state = self.model.state_dict()
         if sharding.world_size() == 1:
-            return {k: sharding.local_tensor(v) for k, v in state.items()}
-        lora = bool(getattr(self.model_cfg, "lora_rank", 0))
-        if lora and self._base_of is not self.model:
+            return {k: sharding.local_tensor(v)
+                    for k, v in self.model.state_dict().items()}
+        if not getattr(self.model_cfg, "lora_rank", 0):
+            return self.whole_state()
+        state = self.model.state_dict()
+        if self._base_of is not self.model:
             self._base = {k: sharding.full_tensor(v) for k, v in state.items()
                           if not is_lora_name(k)}
             self._base_of = self.model
-        return {k: (self._base[k] if lora and not is_lora_name(k)
-                    else sharding.full_tensor(v)) for k, v in state.items()}
+        return {k: (sharding.full_tensor(v) if is_lora_name(k)
+                    else self._base[k]) for k, v in state.items()}
 
     @torch.no_grad()
+    @on_mesh
     def _score(self, tokens: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         """[N, T-1] per-target log-probs of ``tokens`` under the current
         policy, tempered like the sampler: the old policy the ratios
@@ -401,6 +409,7 @@ class GRPOTrainer(ReferenceMixin, Trainer):
             kl_beta=self.grpo.kl_beta, temperature=self.grpo.temperature,
             loss_chunk_size=self.cfg.loss_chunk_size or 256,
             loss_chunk_dtype=self.cfg.loss_chunk_dtype,
+            norm_fn=self._norm_fn(),
         )
         self.step += 1
         return out

@@ -24,6 +24,16 @@ stage and the ranks are batch shards only. ``grad_accum`` above 1 raises
 Checkpoints hold the whole model whatever the gang (a rank's stages
 gathered over the pipe), so a gang's run resumes in one process, or in
 another gang, of the same stages.
+
+Tensor and expert axes inside the stages (``parallel.pipeline``'s
+``leaf_split``): in a gang the mesh's ``tensor`` and ``expert``
+dimensions give each rank its shards of the split stage leaves (its
+``TensorGroup``/``ExpertGroup``), the batch shards and the loss run over
+the ranks of its (``expert``, ``tensor``) coordinate, the clip's norm
+counts a split leaf's shards once each, and a checkpoint gathers the
+split leaves whole (restore cuts them again). One process holds every
+shard as it holds every stage: ``mesh_cfg``'s ``tensor`` and ``expert``
+become ``LocalTensorGroup``/``LocalExpertGroup`` of those sizes.
 """
 
 from __future__ import annotations
@@ -34,13 +44,21 @@ from typing import Callable, Iterator, Optional
 import torch
 
 from tpufw_torch.mesh import MeshConfig, build_mesh, mesh_shape
-from tpufw_torch.mesh.mesh import refuse_later_axes
-from tpufw_torch.parallel.group import LocalPipeGroup, ProcessPipeGroup
+from tpufw_torch.parallel.context import model_groups, use_groups
+from tpufw_torch.parallel.group import (
+    LocalExpertGroup,
+    LocalPipeGroup,
+    LocalTensorGroup,
+    ProcessPipeGroup,
+)
 from tpufw_torch.parallel.pipeline import (
     Gang,
     PipelineConfig,
     check_group,
+    check_split,
+    cut_stages,
     init_pipeline_params,
+    leaf_split,
     pipeline_eval,
     stage_axis,
     stage_slice,
@@ -48,6 +66,7 @@ from tpufw_torch.parallel.pipeline import (
     tree_map,
     value_and_grad,
 )
+from tpufw_torch.parallel.tensor import cut_tensor, gather_split
 from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import (
     CheckpointManager,
@@ -79,17 +98,12 @@ class PipelineTrainer:
     ):
         if mesh_cfg is None:
             mesh_cfg = MeshConfig(pipe=pipe.n_stages, fsdp=-1)
-        refuse_later_axes(dataclasses.asdict(mesh_cfg), " in PipelineTrainer")
         if mesh_cfg.pipe != pipe.n_stages:
             raise ValueError(
                 f"mesh_cfg.pipe={mesh_cfg.pipe} != "
                 f"PipelineConfig.n_stages={pipe.n_stages}"
             )
         pipe.validate(model_cfg, trainer_cfg.batch_size)
-        if pipe.schedule != "gpipe":
-            from tpufw_torch.parallel.pipeline_1f1b import _check_1f1b
-
-            _check_1f1b(model_cfg, pipe.schedule)
         if trainer_cfg.grad_accum != 1:
             raise NotImplementedError(
                 "PipelineTrainer does not implement TrainerConfig fields "
@@ -119,16 +133,33 @@ class PipelineTrainer:
                 group.connect(self.device)
             else:
                 self.mesh = build_mesh(local_cfg, world, self.device.type)
+            self.groups = model_groups(self.mesh)
+            coord_group = None
+            if any(g.size > 1 for g in self.groups):
+                dims = [d for d in ("data", "pipe", "fsdp")
+                        if d in self.mesh.mesh_dim_names]
+                coord_group = sharding.batch_group(self.mesh, dims)[0]
             self.gang = Gang(batch_groups=tuple(
                 self.mesh.get_group(d) for d in ("data", "fsdp")
                 if self.mesh.size(self.mesh.mesh_dim_names.index(d)) > 1),
-                active=True)
+                active=True, coord_group=coord_group)
         else:
-            # One process holds every stage: the mesh's other axes must
-            # resolve to one device.
-            mesh_shape(local_cfg, 1)
+            # One process holds every stage and every tensor and expert
+            # shard: the mesh's other axes must resolve to one device.
+            mesh_shape(dataclasses.replace(local_cfg, tensor=1, expert=1), 1)
+            self.groups = (LocalTensorGroup(max(mesh_cfg.tensor, 1)),
+                           LocalExpertGroup(max(mesh_cfg.expert, 1)))
         self.group = group or LocalPipeGroup(pipe.n_stages)
         check_group(pipe, self.group)
+        with self._groups():
+            check_split(model_cfg)
+            if pipe.schedule != "gpipe":
+                from tpufw_torch.parallel.pipeline_1f1b import _check_1f1b
+
+                _check_1f1b(model_cfg, pipe.schedule)
+        # {stage leaf path: split} of the split stage leaves a rank of a
+        # tensor- or expert-parallel gang holds its shards of.
+        self.splits: dict = {}
         self.params: Optional[dict] = None
         self.optimizer = None
         self.step = 0
@@ -141,6 +172,17 @@ class PipelineTrainer:
     def holds_all(self) -> bool:
         """True when this process holds every stage."""
         return len(self.group.indices) == self.group.size
+
+    def _groups(self):
+        """The tensor and expert groups registered for the stage math."""
+        tp, ep = self.groups
+        return use_groups(tensor=tp, expert=ep)
+
+    @property
+    def cut(self) -> bool:
+        """True when this process holds part of the tensor or expert
+        shards (a gang's rank), whose split stage leaves are cut."""
+        return not all(g.holds_all for g in self.groups)
 
     def batch_shard(self) -> tuple[int, int]:
         """(this rank's batch shard, the number of batch shards): (0, 1)
@@ -156,6 +198,8 @@ class PipelineTrainer:
         if params is None:
             params = init_pipeline_params(self.model_cfg, self.pipe, seed,
                                           self.device, self.group)
+            params = dict(params, stages=cut_stages(
+                params["stages"], self.groups, self.pipe.virtual_layout))
         else:
             params = self._held(params)
         self._assign(params)
@@ -166,17 +210,23 @@ class PipelineTrainer:
         """This process's part of a whole tree, on its device."""
         params = tree_map(lambda a: a.to(self.device, copy=True), params)
         return dict(params, stages=stage_slice(
-            params["stages"], self.group, self.pipe.virtual_layout))
+            params["stages"], self.group, self.pipe.virtual_layout,
+            self.groups))
 
     def _assign(self, params: dict) -> None:
         self.params = tree_map(lambda a: a.detach().requires_grad_(), params)
+        if self.cut:
+            virtual = self.pipe.virtual_layout
+            self.splits = {
+                path: leaf_split(path, a.ndim, virtual)
+                for path, a in tree_leaves(params) if path.startswith(
+                    "stages/") and leaf_split(path, a.ndim, virtual)}
 
     def _leaves(self) -> list:
         return [p for _, p in tree_leaves(self.params)]
 
-    def _stage_flags(self) -> list:
-        return [path.startswith("stages") for path, _ in
-                tree_leaves(self.params)]
+    def _paths(self) -> list:
+        return [path for path, _ in tree_leaves(self.params)]
 
     def _fresh_optimizer(self) -> None:
         self.optimizer = default_optimizer(
@@ -186,10 +236,13 @@ class PipelineTrainer:
             mu_dtype=self.cfg.adam_mu_dtype)
         self.step = 0
 
-    def _whole(self, t: torch.Tensor, stage: bool) -> torch.Tensor:
-        """A stage stack (or its moment) of every stage: this rank's
-        gathered over the pipe; other tensors as they are."""
-        if not stage or self.holds_all:
+    def _whole(self, t: torch.Tensor, path: str) -> torch.Tensor:
+        """A stage stack (or its moment) of every stage and shard: this
+        rank's gathered over its tensor and expert axes, then over the
+        pipe; other tensors as they are."""
+        if path in self.splits:
+            t = gather_split(t.detach(), self.splits[path], self.groups)
+        if not path.startswith("stages/") or self.holds_all:
             return t
         import torch.distributed as dist
 
@@ -197,41 +250,47 @@ class PipelineTrainer:
         dist.all_gather(parts, t.detach().contiguous(), group=self.group.group)
         return torch.cat(parts, dim=stage_axis(self.pipe.virtual_layout))
 
-    def _part(self, t: torch.Tensor, stage: bool) -> torch.Tensor:
-        """Inverse of ``_whole``: this rank's stages of a whole tensor."""
-        if not stage or self.holds_all:
+    def _part(self, t: torch.Tensor, path: str) -> torch.Tensor:
+        """Inverse of ``_whole``: this rank's stages and shards of a whole
+        tensor."""
+        if not path.startswith("stages/"):
             return t
-        ax = stage_axis(self.pipe.virtual_layout)
-        return t[(slice(None),) * ax + (list(self.group.indices),)]
+        if not self.holds_all:
+            ax = stage_axis(self.pipe.virtual_layout)
+            t = t[(slice(None),) * ax + (list(self.group.indices),)]
+        if path in self.splits:
+            t = cut_tensor(t, self.splits[path], self.groups)
+        return t
 
     def _map_moments(self, opt: dict, fn) -> dict:
-        """``fn(tensor, is_stage)`` on each moment of a ``LlamaAdamW``
+        """``fn(tensor, leaf path)`` on each moment of a ``LlamaAdamW``
         state dict."""
-        flags = self._stage_flags()
+        paths = self._paths()
         opt = dict(opt)
         if "adamw" in opt:
             inner = dict(opt["adamw"])
             inner["state"] = {
-                i: {k: (fn(v, flags[int(i)]) if k != "step" else v)
+                i: {k: (fn(v, paths[int(i)]) if k != "step" else v)
                     for k, v in st.items()}
                 for i, st in inner["state"].items()}
             opt["adamw"] = inner
         else:
             for key in ("mu", "nu"):
-                opt[key] = [fn(t, f) for t, f in zip(opt[key], flags)]
+                opt[key] = [fn(t, p) for t, p in zip(opt[key], paths)]
         return opt
 
     def whole_params(self) -> dict:
-        """The whole params, detached (this rank's stages gathered over
-        the pipe in a gang: a collective)."""
-        flags = iter(self._stage_flags())
-        return tree_map(lambda a: self._whole(a.detach(), next(flags)),
+        """The whole params, detached (this rank's stages and shards
+        gathered over the pipe and its tensor and expert axes in a gang:
+        a collective)."""
+        paths = iter(self._paths())
+        return tree_map(lambda a: self._whole(a.detach(), next(paths)),
                         self.params)
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs: step, the whole params and
-        optimizer state (gathered over the pipe), the model config's
-        identity and the pipeline's shape."""
+        optimizer state (gathered over the pipe and the shards), the
+        model config's identity and the pipeline's shape."""
         return {"step": self.step,
                 "config": config_identity(self.model_cfg),
                 "pipeline": dataclasses.asdict(self.pipe),
@@ -253,7 +312,7 @@ class PipelineTrainer:
         self._fresh_optimizer()
         opt = self._map_moments(
             state["optimizer"],
-            lambda t, f: self._part(t, f).to(self.device))
+            lambda t, path: self._part(t, path).to(self.device))
         self.optimizer.load_state_dict(opt)
         self.step = int(state["step"])
 
@@ -278,17 +337,28 @@ class PipelineTrainer:
     # -- steps ---------------------------------------------------------
 
     def _grad_norm(self, grads: list) -> torch.Tensor:
-        """The global gradient norm: the stage stacks' squares summed
-        over the pipe's ranks, the replicated leaves' counted once."""
+        """The global gradient norm: each leaf's squares summed over the
+        ranks holding its other parts (a stage stack's over the pipe, a
+        split leaf's over its tensor and expert axes), a replicated
+        leaf's counted once."""
         import torch.distributed as dist
 
-        flags = self._stage_flags()
-        sq = [torch.zeros((), dtype=torch.float32, device=self.device)
-              for _ in range(2)]
-        for g, f in zip(grads, flags):
-            sq[int(f)] += g.float().square().sum()
-        dist.all_reduce(sq[1], group=self.group.group)
-        return torch.sqrt(sq[0] + sq[1])
+        by_axis = {g.axis: g for g in self.groups}
+        buckets: dict = {}
+        for g, path in zip(grads, self._paths()):
+            axes = tuple(a for a, _ in self.splits.get(path, ())
+                         if by_axis[a].size > 1)
+            if path.startswith("stages/") and not self.holds_all:
+                axes += ("pipe",)
+            buckets.setdefault(axes, []).append(g)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for axes, gs in buckets.items():
+            sq = sum(g.float().square().sum() for g in gs)
+            for a in axes:
+                pg = self.group.group if a == "pipe" else by_axis[a].group
+                dist.all_reduce(sq, group=pg)
+            total = total + sq
+        return torch.sqrt(total)
 
     def train_step(self, batch: dict) -> dict:
         """One optimizer update on this rank's rows; {loss, grad_norm}
@@ -296,15 +366,17 @@ class PipelineTrainer:
         if self.params is None:
             raise RuntimeError("train_step() before init_state()")
         batch = batch_to_device(batch, self.device)
-        loss, grads = value_and_grad(
-            self.params, batch, self.model_cfg, self.pipe, self.group,
-            loss_chunk_size=self.cfg.loss_chunk_size,
-            loss_chunk_dtype=self.cfg.loss_chunk_dtype, gang=self.gang)
+        with self._groups():
+            loss, grads = value_and_grad(
+                self.params, batch, self.model_cfg, self.pipe, self.group,
+                loss_chunk_size=self.cfg.loss_chunk_size,
+                loss_chunk_dtype=self.cfg.loss_chunk_dtype, gang=self.gang)
         self.optimizer.zero_grad()
         by_path = dict(tree_leaves(grads))
         for path, p in tree_leaves(self.params):
             p.grad = by_path[path].to(p.dtype)
-        norm_fn = None if self.holds_all else self._grad_norm
+        norm_fn = None if self.holds_all and not self.cut \
+            else self._grad_norm
         grad_norm = self.optimizer.step(norm_fn)
         self.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
@@ -315,13 +387,15 @@ class PipelineTrainer:
         forward-only pipeline, the train objective's shift and masks."""
         if self.params is None:
             raise RuntimeError("evaluate() before init_state()/restore")
-        return run_evaluation(
-            data, n_batches,
-            lambda b: pipeline_eval(
-                self.params, batch_to_device(b, self.device), self.model_cfg,
-                self.pipe, self.group,
-                loss_chunk_size=self.cfg.loss_chunk_size,
-                loss_chunk_dtype=self.cfg.loss_chunk_dtype, gang=self.gang))
+        with self._groups():
+            return run_evaluation(
+                data, n_batches,
+                lambda b: pipeline_eval(
+                    self.params, batch_to_device(b, self.device),
+                    self.model_cfg, self.pipe, self.group,
+                    loss_chunk_size=self.cfg.loss_chunk_size,
+                    loss_chunk_dtype=self.cfg.loss_chunk_dtype,
+                    gang=self.gang))
 
     def run(
         self,

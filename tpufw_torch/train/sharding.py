@@ -36,14 +36,17 @@ gathers it whole.
 The objectives computed over the whole batch at once (in-batch negatives,
 BatchNorm's statistics) reach the other ranks' rows through
 ``parallel.group``'s ``gather_rows`` and ``all_sum``, collectives with
-their gradient over the batch-shard ranks. Their trainers take the
-``data`` and ``fsdp`` axes only (``refuse_split_rows``), so those ranks
-are the whole gang in ``batch_shard``'s order.
+their gradient over the batch-shard ranks (``batch_process_group``: the
+whole gang, or the batch-shard ranks of this rank's (``expert``,
+``tensor``) coordinate). Their trainers refuse the ``sequence`` and
+``pipe`` axes (``refuse_split_rows``), so those ranks are in
+``batch_shard``'s order.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
@@ -65,6 +68,12 @@ def world_size() -> int:
     return dist.get_world_size() if active() else 1
 
 
+def batch_process_group():
+    """The process group of the ranks the gang's means run over: the
+    batch-shard ranks under ``batch_ranks``, else None (every rank)."""
+    return None if _batch is None else _batch[0]
+
+
 def batch_world() -> int:
     """The number of ranks the gang's means run over: the batch-shard
     ranks under ``batch_ranks``, else the world."""
@@ -83,18 +92,19 @@ def batch_ranks(group, size: int):
         _batch = prev
 
 
-def batch_group(mesh):
+def batch_group(mesh, dims=("data", "fsdp")):
     """(process group, size) of the ranks that hold this rank's
     (``expert``, ``tensor``) coordinate over every batch shard of a
-    ``build_mesh`` mesh, in ``batch_shard``'s order: one group made per
-    coordinate (a collective)."""
+    ``build_mesh`` mesh (over every coordinate of ``dims``, in their
+    row-major order: ``batch_shard``'s by default; the pipeline's loss
+    adds ``pipe``): one group made per coordinate (a collective)."""
     import torch.distributed as dist
 
     names = list(mesh.mesh_dim_names)
-    lead = [names.index("data"), names.index("fsdp")]
+    lead = [names.index(d) for d in dims]
     rest = [i for i in range(len(names)) if i not in lead]
     grid = mesh.mesh.permute(*lead, *rest)
-    n = grid.shape[0] * grid.shape[1]
+    n = math.prod(grid.shape[:len(lead)])
     cols = grid.reshape(n, -1)
     mine, me = None, dist.get_rank()
     for c in range(cols.shape[1]):

@@ -52,7 +52,10 @@ gradient's shards once each and a replicated one once
 tensors whole (``sharding.SplitPart``), so it resumes at any world size.
 One process runs the same shard math over several shards with
 ``groups=(LocalTensorGroup(n), LocalExpertGroup(m))``. The post-trainers
-refuse both axes (ROADMAP.md Queue 1 item 12g), as do LoRA adapters.
+(DPO, distillation, embeddings, GRPO) take both axes too: their heads
+go through the vocab-parallel log-probs and KL, their frozen side models
+are cut as the policy is. LoRA adapters refuse them (ROADMAP.md Queue 1
+item 12g).
 
 LoRA: a model with ``lora_rank`` > 0 is built with its base frozen
 (``requires_grad=False``), and ``LlamaAdamW`` takes the parameters that
@@ -670,9 +673,6 @@ class Trainer:
     # An objective over whole rows of the whole batch (GRPO's rollout,
     # in-batch negatives) takes the data and fsdp axes only.
     whole_rows = False
-    # Whether the objective takes the tensor and expert axes (the
-    # post-trainers' log-prob, KL and pooling heads are not split yet).
-    model_parallel = True
 
     def __init__(
         self,
@@ -754,8 +754,6 @@ class Trainer:
             return
         tp, ep = self.groups
         sizes = {"tensor": tp.size, "expert": ep.size}
-        if not self.model_parallel:
-            refuse_later_axes(sizes, f" in {type(self).__name__}")
         if getattr(self.model_cfg, "lora_rank", 0):
             refuse_later_axes(sizes, " with LoRA adapters")
         check_divisible(self.model_cfg, tp.size, ep.size)
@@ -800,15 +798,29 @@ class Trainer:
         return sharding.batch_shard(self.mesh) if self.gang else (0, 1)
 
     def _shard(self, model) -> None:
-        """Shard ``model`` (whole on this rank's device) over the mesh:
-        its split parameters cut to this rank's shards first."""
+        """Shard ``model`` (whole on this rank's device; the policy, or a
+        frozen side model) over the mesh: its split parameters cut to
+        this rank's shards first."""
         if not self.gang:
             return
         route = None
         if self.split:
-            self.splits = cut_model(model, self.groups)
+            splits = cut_model(model, self.groups)
+            if model is self.model:
+                self.splits = splits
             route = self.batch_ranks[0]
         sharding.shard_model(model, self.mesh, route_group=route)
+
+    def whole_state(self) -> dict:
+        """The policy's state dict with every tensor whole on this rank
+        (in a gang a collective: split tensors gathered over their axes,
+        then over the batch shards)."""
+        state = self.model.state_dict()
+        if self.splits:
+            state = {k: (sharding.SplitPart(v, self.splits[k], self.groups)
+                         if k in self.splits else v)
+                     for k, v in state.items()}
+        return sharding.full_state_dict(state)
 
     def _trained_splits(self) -> list:
         """The split of each parameter the optimizer updates, in its

@@ -18,8 +18,8 @@ Knobs (``TPUFW_*``):
   BATCH_SIZE (rows, two a pair) / SEQ_LEN / TOTAL_STEPS / LR /
   WARMUP_STEPS / LOG_EVERY / CHECKPOINT_DIR / CHECKPOINT_EVERY / DATA_SEED
   MESH_DATA / MESH_FSDP (-1: fill) / MESH_TENSOR   the mesh, as
-                 ``tpufw``'s; TENSOR above 1 raises (ROADMAP.md Queue 1
-                 item 12e)
+                 ``tpufw``'s; TENSOR above 1 splits the heads, MLP widths
+                 and vocabulary over that many ranks of the gang
 """
 
 from __future__ import annotations

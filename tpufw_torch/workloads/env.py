@@ -76,17 +76,13 @@ def refuse_unported(knob: str, what: str, item: str) -> None:
 def batch_mesh_from_env():
     """The ``MeshConfig`` of the ``rl`` and ``embed`` workloads from the
     knobs ``tpufw``'s read: ``TPUFW_MESH_DATA`` (1), ``TPUFW_MESH_FSDP``
-    (-1: every other device) and ``TPUFW_MESH_TENSOR``, which raises
-    NotImplementedError above 1 (their objectives are not split over it
-    yet: ROADMAP.md Queue 1 item 12g). The trainer checks it against the
-    gang."""
+    (-1: every other device) and ``TPUFW_MESH_TENSOR`` (1). The trainer
+    checks it against the gang."""
     from tpufw_torch.mesh import MeshConfig
 
-    if env_int("mesh_tensor", 1) > 1:
-        refuse_unported("mesh_tensor", "tensor parallelism of this "
-                        "objective", "12g")
     return MeshConfig(data=env_int("mesh_data", 1),
-                      fsdp=env_int("mesh_fsdp", -1))
+                      fsdp=env_int("mesh_fsdp", -1),
+                      tensor=env_int("mesh_tensor", 1))
 
 
 def mesh_from_env(world: int, moe_dispatch: str = "einsum", pipe: int = 1):
@@ -94,10 +90,10 @@ def mesh_from_env(world: int, moe_dispatch: str = "einsum", pipe: int = 1):
     TENSOR,DCN_DATA}`` (``tpufw``'s defaults: every device on ``fsdp``)
     with ``pipe`` pipeline stages (the pipeline workload's
     ``TPUFW_PIPE_STAGES``), checked against a ``world``-rank gang. A
-    ``tensor`` or ``expert`` axis above 1 beside ``pipe`` or ``sequence``
-    above 1 raises NotImplementedError naming ROADMAP.md Queue 1 item
-    12g, as does ``pipe`` with ``sequence`` above 1; axes that do not fit
-    the world raise ``tpufw``'s ValueError. The sorted MoE dispatch is
+    ``tensor`` or ``expert`` axis above 1 beside ``sequence`` above 1
+    raises NotImplementedError naming ROADMAP.md Queue 1 item 12g, and
+    ``pipe`` with ``sequence`` above 1 NotImplementedError; axes that do
+    not fit the world raise ``tpufw``'s ValueError. The sorted MoE dispatch is
     refused only when the RESOLVED ``expert`` axis is above 1 (``tpufw``
     refuses it for -1 even where -1 is one device)."""
     from tpufw_torch.mesh import MeshConfig, mesh_shape
@@ -115,11 +111,9 @@ def mesh_from_env(world: int, moe_dispatch: str = "einsum", pipe: int = 1):
     from tpufw_torch.mesh.mesh import refuse_pipe_with_sequence
 
     refuse_pipe_with_sequence(pipe, cfg.sequence)
-    for other in ("pipe", "sequence"):
-        if getattr(cfg, other) > 1:
-            refuse_later_axes(dataclasses.asdict(cfg),
-                              f" beside a {other} axis of size "
-                              f"{getattr(cfg, other)}")
+    if cfg.sequence > 1:
+        refuse_later_axes(dataclasses.asdict(cfg),
+                          f" beside a sequence axis of size {cfg.sequence}")
     expert = cfg.slice_sizes(world)["expert"]
     if moe_dispatch == "sorted" and expert > 1:
         raise ValueError(

@@ -21,8 +21,8 @@ Knobs (``TPUFW_*``):
   BATCH_SIZE / SEQ_LEN / TOTAL_STEPS / LR / WARMUP_STEPS /
   LOSS_CHUNK_SIZE / CHECKPOINT_DIR / CHECKPOINT_EVERY   the trainer's
   MESH_DATA / MESH_FSDP (-1: fill) / MESH_TENSOR   the mesh, as
-                 ``tpufw``'s; TENSOR above 1 raises (ROADMAP.md Queue 1
-                 item 12e)
+                 ``tpufw``'s; TENSOR above 1 splits the heads, MLP widths
+                 and vocabulary over that many ranks of the gang
 More than one host (``num_processes`` > 1) raises, as in ``tpufw``.
 """
 

@@ -24,16 +24,22 @@ Knobs (``tpufw``'s names):
 
 A gang (``tpufw``'s cluster environment, as for ``train_llama``) lays its
 ranks out over ``TPUFW_MESH_DATA`` x pipe x ``TPUFW_MESH_FSDP`` (-1, the
-default, fills): each rank runs its stage, and the ``data`` and ``fsdp``
-ranks are batch shards, each loading its rows from its own synthetic
-seeds. One process without a gang holds every stage (the other axes must
-be 1). Data: synthetic batches from the even seeds; the held-out eval's
-from the odd ones. Step metrics stream as JSON lines.
+default, fills) x ``TPUFW_MESH_EXPERT`` x ``TPUFW_MESH_TENSOR``: each rank
+runs its stage, its shards of the stage's heads and ``d_ff`` over
+``tensor`` and of a MoE stage's experts over ``expert``, and the ``data``
+and ``fsdp`` ranks are batch shards, each loading its rows from its own
+synthetic seeds (the ``tensor`` and ``expert`` ranks of a batch shard
+load the same). One process without a gang holds every stage and every
+tensor and expert shard (the other axes must be 1). Data: synthetic
+batches from the even seeds; the held-out eval's from the odd ones. Step
+metrics stream as JSON lines.
 
 Refused with an error: TPUFW_PIPE_STAGES below 2; TPUFW_GRAD_ACCUM above
-1 (microbatching is the schedule); TPUFW_MESH_TENSOR or
-TPUFW_MESH_EXPERT above 1 (ROADMAP.md Queue 1 item 12e);
-TPUFW_MESH_SEQUENCE above 1 (``tpufw``'s pipeline needs sequence 1);
+1 (microbatching is the schedule); TPUFW_MESH_TENSOR that does not divide
+the heads or ``d_ff`` and TPUFW_MESH_EXPERT on a dense model or one whose
+experts it does not divide (``tpufw``'s checks), and an expert axis under
+the manual schedules; TPUFW_MESH_SEQUENCE above 1 (``tpufw``'s pipeline
+needs sequence 1);
 TPUFW_MOE_DISPATCH other than ``einsum`` (the pipelined MoE routes with
 the capacity router, which ``tpufw`` falls back to silently); and the
 knobs ``train_llama`` refuses (profiling, autotune, telemetry: item 13).
@@ -113,8 +119,11 @@ def build_trainer(cluster=None):
         preemption_sync_every=env_int("preemption_sync_every",
                                       base.preemption_sync_every),
     )
-    # One process stands for the whole pipe; a gang's ranks are devices.
-    world = sharding.world_size() if sharding.active() else stages
+    # One process stands for the whole pipe and every tensor and expert
+    # shard; a gang's ranks are devices.
+    world = (sharding.world_size() if sharding.active() else
+             stages * max(env_int("mesh_tensor", 1), 1)
+             * max(env_int("mesh_expert", 1), 1))
     mesh_cfg = mesh_from_env(world, pipe=stages)
     device = local_device(cluster or resolve_cluster_env(),
                           env_str("device", "cuda"))
@@ -137,7 +146,9 @@ def main() -> int:
     cluster = initialize_cluster(device=env_str("device", "cuda"))
     trainer, model_cfg = build_trainer(cluster)
     mesh = (dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))
-            if trainer.mesh is not None else {"pipe": trainer.pipe.n_stages})
+            if trainer.mesh is not None else
+            {"pipe": trainer.pipe.n_stages,
+             **{g.axis: g.size for g in trainer.groups if g.size > 1}})
     print(
         f"tpufw_torch train_pipeline: process {cluster.process_id}/"
         f"{cluster.num_processes} rank {cluster.rank}/{cluster.world_size} "
