@@ -87,7 +87,7 @@ Phases, each fatal on failure:
    cached logits against an uncached expanded forward; an
    ``mla_serve_summary`` line per dtype;
 6. serves Llama-3-8B's widths (bf16, drawn from seed 0, at ONLINE_LAYERS
-   = 8 of its 32 layers, a 2048-slot ceiling) online through the HTTP
+   = 4 of its 32 layers, a 2048-slot ceiling) online through the HTTP
    server (``_Server``: slot scheduler, 8 slots, greedy) on a localhost
    port, in three modes: contiguous KV,
    paged KV (page 64) and paged int8 KV. Each gets 16 concurrent SSE
@@ -203,7 +203,7 @@ Phases, each fatal on failure:
    and the two runs' step-1 losses and gradient norms within
    MIXTRAL_LOSS_TOL and MIXTRAL_GNORM_TOL (the gap printed); a
    ``mixtral_train_summary`` per mode. 9b: ``mixtral_8x7b_serve_slice``
-   at MIXTRAL_SERVE_LAYERS = 8 of 32 layers (bf16 weights drawn in bf16,
+   at MIXTRAL_SERVE_LAYERS = 4 of 32 layers (bf16 weights drawn in bf16,
    dropless capacity 8.0) through phase 5's checks in bf16 and then int8
    (``quantize_model`` freeing each bf16 weight as its codes are made),
    with the number of
@@ -227,7 +227,7 @@ Phases, each fatal on failure:
     dispatch, as 9a: finite losses, every head-dim-192 kernel launched in
     both runs, the flash vs plain logits on 256 tokens, the step-1 gaps; a
     ``v2lite_train_summary`` per mode. 10b: ``deepseek_v2_lite_serve_slice``
-    at V2LITE_SERVE_LAYERS = 14 of its 27 layers (bf16 weights drawn in
+    at V2LITE_SERVE_LAYERS = 7 of its 27 layers (bf16 weights drawn in
     bf16, dropless, a 4096-slot ceiling) through phase 5's checks in bf16
     and then int8, the absorbed
     latent decode against the expanded forward; a ``v2lite_serve_summary``
@@ -410,6 +410,29 @@ Phases, each fatal on failure:
     (POST_TP_PER_LAYER, PIPE_PER_LAYER) and the split run's the tensor
     size times it. A ``tensor_summary`` line per case (step ms, peak GB,
     ``card_state``).
+20. Telemetry (``telemetry_phase``): 20a ``llama3_600m_bench`` through
+    ``train_llama``'s ``build_trainer`` at phase 7b's shapes for TEL_STEPS
+    steps with ``TPUFW_TELEMETRY_DIR``, ``TPUFW_PROFILE_DIR``,
+    ``TPUFW_METRICS_PORT=0`` and ``TPUFW_PROFILE_STEPS=4:6``: a scrape of
+    ``/metrics`` during the run holds the step, MFU and data-wait series;
+    every event passes the schema, run_start and run_end among them;
+    ``goodput.json``'s categories sum to its wall time; the spans of
+    ``trace.json`` cover the step loop; ``programs.json``'s ``train_step``
+    holds FLOPs, bytes, intensity, bound and peak memory, its FLOPs within
+    TEL_FLOP_BAND of the model FLOPs of a step and its flash share the
+    ``flash_costs`` of the step's launches; the ``torch.profiler`` trace
+    holds the d128 flash kernels by name as often as the launch counts of
+    the two profiled steps (TEL_STEP_LAUNCHES a step), with its busy, idle
+    and flash shares printed. 20b: the same run with telemetry off, back
+    to back: the telemetry run's median step (TEL_MEDIAN_STEPS: neither
+    the counted step nor the profiled ones) within TEL_OVERHEAD_TOL of
+    this one's, the counted step out of the Meter's histogram. 20c: phase
+    6's model behind a server with ``TPUFW_TELEMETRY_DIR``: a
+    ``/debug/profile?seconds=1`` capture during TEL_SERVE_PROMPTS streams
+    holds decode kernels and no flash kernel, no flash launch, and the
+    serve trace, goodput tables and decode programs are written. A
+    ``telemetry_train``, ``telemetry_summary`` and ``telemetry_serve``
+    line.
 
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
@@ -424,8 +447,9 @@ and the head-dim-192 ones
 phase 16's runs by sub-phase and schedule; the head-dim-128 ones
 ``launches_gang_post``, phase 17's runs, GRPO's decode, scoring and
 updates apart; every kernel ``launches_tensor``, phase 18's split runs,
-and ``launches_tensor_post_pipeline``, phase 19's), a ``phase_seconds``
-line (each phase's wall seconds, phase 10's to 19's parts and the
+and ``launches_tensor_post_pipeline``, phase 19's; the head-dim-128 ones
+``launches_telemetry``, phase 20's two train runs), a ``phase_seconds``
+line (each phase's wall seconds, phase 10's to 20's parts and the
 total), the
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -437,6 +461,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import glob
 import json
 import math
 import os
@@ -521,9 +546,10 @@ ONLINE_SLOTS = 8
 ONLINE_CACHE = 1024
 # Phase 6 serves Llama-3-8B's widths at ONLINE_LAYERS of its 32 layers:
 # its decode is host-bound, a cost per layer; at 32 layers its nine modes
-# took 221 s of the script's 1200, at 16 layers 159-169 s (H100 80GB HBM3
-# at 700 W), and phase 15 needed the room.
-ONLINE_LAYERS = 8
+# took 221 s of the script's 1200, at 16 layers 159-169 s, at 8 101 s on
+# a slower host, where the whole script took 1,129 s with phase 20 (H100
+# 80GB HBM3 at 700 W): phase 20 needed the room.
+ONLINE_LAYERS = 4
 # The modes this slice added: chunked paged prefill in chunks of
 # ONLINE_CHUNK_PAGES pages (256 tokens), with the head-of-line pair, a
 # HOL_LONG-token prompt with ONLINE_NEW tokens and, HOL_GAP_S later, a
@@ -589,8 +615,9 @@ DISAGG_FREE_GB = 40
 # free.
 MIXTRAL_TRAIN_LAYERS = 2
 # 9b and 9c serve MIXTRAL_SERVE_LAYERS of the serve slice's 16 layers, cut
-# for the script's time limit when phase 10 came.
-MIXTRAL_SERVE_LAYERS = 8
+# for the script's time limit when phase 10 came (8), and again when
+# phase 20 came (4).
+MIXTRAL_SERVE_LAYERS = 4
 # MOE_CHECKS. A MoE layer's routing is discrete: a token whose router
 # logits nearly tie flips experts under a rounding-size change of its
 # input, and its output, and through attention those of the tokens after
@@ -676,13 +703,14 @@ FAMILIES = {"llama3_8b": ("llama3_8b", ""),
 # phase 9a's MIXTRAL_LOSS_TOL and MIXTRAL_GNORM_TOL (the same one bf16
 # rounding of each MoE output separates the modes). 10b-10d serve
 # V2LITE_SERVE_LAYERS of its 27 layers: their decode is host-bound, a cost
-# per layer, and at 27 layers they took 240-284 s of the script's 1200
-# (H100 80GB HBM3 at 700 W). 10c serves at pages of ONLINE_PAGE; 10d
-# migrates pages of V2LITE_PAGE (14 layers x 64 tokens x 1,152 bf16 bytes
-# = 1.0 MB a page). 10e exports V2LITE_HF_LAYERS layers (3.34 GB of bf16)
+# per layer, and at 27 layers they took 240-284 s of the script's 1200,
+# at 14 layers 141 s on that slower host (H100 80GB HBM3 at 700 W), so 7
+# since phase 20. 10c serves at pages of ONLINE_PAGE; 10d
+# migrates pages of V2LITE_PAGE (7 layers x 64 tokens x 1,152 bf16 bytes
+# = 0.5 MB a page). 10e exports V2LITE_HF_LAYERS layers (3.34 GB of bf16)
 # and needs V2LITE_HF_DISK_GB free.
 V2LITE_TRAIN_LAYERS = 3
-V2LITE_SERVE_LAYERS = 14
+V2LITE_SERVE_LAYERS = 7
 V2LITE_PAGE = 64
 V2LITE_HF_LAYERS = 3
 V2LITE_HF_DISK_GB = 8
@@ -780,17 +808,6 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def visible_pairs(t, s, offset, causal, window) -> int:
-    """(query, key) pairs the masks let through, per (batch, head)."""
-    total = 0
-    for i in range(t):
-        q_pos = offset + i
-        hi = min(q_pos, s - 1) if causal else s - 1
-        lo = max(q_pos - window + 1, 0) if window is not None else 0
-        total += max(hi - lo + 1, 0)
-    return total
 
 
 def rel_err(torch, got, want) -> tuple[float, float]:
@@ -970,16 +987,10 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta, masks=None,
     window = masks.get("window")
     b, t, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
-    pairs = b * h * visible_pairs(t, s, s - t, masks.get("causal", True), window)
-    n_q, n_kv = b * t * h * d, b * s * kh * d
-    rows = b * h * t
-    # Bytes: each input read once, each output written once.
-    work = {
-        "flash_fwd": (4 * pairs * d, 2 * (n_q + 2 * n_kv) + 2 * n_q + 4 * rows),
-        "flash_dq": (6 * pairs * d, 2 * (2 * n_q + 2 * n_kv) + 8 * rows + 2 * n_q),
-        "flash_dkv": (8 * pairs * d,
-                      2 * (2 * n_q + 2 * n_kv) + 8 * rows + 2 * 4 * b * h * s * d),
-    }
+    # FLOPs and bytes (each input read once, each output written once),
+    # the counts the perf observatory adds at each launch.
+    work = {base: flash.flash_costs(base, b, t, s, h, kh, d, masks)
+            for base in flash.KERNELS}
     calls = {
         "flash_fwd": (lambda: flash.flash_fwd(q, k, v, **masks),
                       lambda: flash.flash_fwd_reference(q, k, v, **masks)),
@@ -6112,6 +6123,395 @@ def tensor_pipe_phase(torch, kind, smi) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------- phase 20
+
+# Phase 20: the telemetry layer on the card. 20a: train_llama's
+# build_trainer at phase 7b's shapes (llama3_600m_bench, B=4 x 2048,
+# remat `dots`) for TEL_STEPS steps with TPUFW_TELEMETRY_DIR,
+# TPUFW_PROFILE_DIR, TPUFW_METRICS_PORT=0 and TPUFW_PROFILE_STEPS set;
+# 20b: the same run with telemetry off, back to back; 20c: phase 6's
+# server model (Llama-3-8B widths at ONLINE_LAYERS layers) behind a
+# server with TPUFW_TELEMETRY_DIR and a /debug/profile capture.
+# 12 steps, not 8: the median of the 9 steps neither counted nor profiled
+# holds the on/off ratio steadier than 5 would (a run's own steps spread
+# 185-283 ms at these shapes on an H100 80GB HBM3 at 700 W).
+TEL_STEPS = 12
+TEL_PROFILE = (4, 6)
+# The telemetry-on run's median step over the telemetry-off run's, on
+# the steps that are neither counted (index 0) nor profiled.
+TEL_OVERHEAD_TOL = 1.10
+TEL_MEDIAN_STEPS = [i for i in range(1, TEL_STEPS)
+                    if not TEL_PROFILE[0] <= i < TEL_PROFILE[1]]
+# The counted step's FLOPs over the model FLOPs of one step
+# (LlamaConfig.flops_per_token x tokens): above 1 by dQ's and dK/dV's
+# recomputed scores, `dots`'s second flash forward and the chunked CE's
+# second head forward (1.0907 from the code at these shapes).
+TEL_FLOP_BAND = (1.0, 4.0 / 3.0)
+# Flash launches (forward, dQ, dK/dV) of one llama3_600m_bench step under
+# `dots`: each of the 14 layers' forward and its recompute, one backward.
+TEL_STEP_LAUNCHES = {"flash_fwd": 28, "flash_dq": 14, "flash_dkv": 14}
+TEL_SERVE_NEW = 48
+TEL_SERVE_PROMPTS = 4
+
+
+def trace_kernels(path: str) -> list:
+    """(name, start us, duration us) of every device operation (kernel,
+    memcpy, memset) of a ``torch.profiler`` Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], e["ts"], e["dur"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def trace_window_us(path: str, ops) -> float:
+    """Microseconds from the first ``train_step#<i>`` record of a
+    StepProfiler trace to its last device operation's end: the profiled
+    steps' time, without the profiler's start, stop and export."""
+    with open(path) as f:
+        marks = [e["ts"] for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                 and str(e.get("name", "")).startswith("train_step#")]
+    if not (marks and ops):
+        return 0.0
+    return max(ts + dur for _, ts, dur in ops) - min(marks)
+
+
+def busy_us(ops) -> float:
+    """The union of the operations' intervals, in microseconds."""
+    total, end = 0.0, float("-inf")
+    for lo, hi in sorted((ts, ts + dur) for _, ts, dur in ops):
+        total += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return total
+
+
+def flash_trace_counts(ops) -> dict:
+    """Launches of each head-dim-128 flash kernel in a trace, by its
+    symbol (``HOPPER_KERNELS``)."""
+    return {base: sum(1 for name, _, _ in ops
+                      if HOPPER_KERNELS[base][1] in name)
+            for base in ("flash_fwd", "flash_dq", "flash_dkv")}
+
+
+def span_coverage(spans) -> float:
+    """The share of the step loop (the first step_dispatch's start to the
+    last host_sync's end) the spans cover, their union."""
+    t0 = min(s["ts"] for s in spans if s["name"] == "step_dispatch")
+    t1 = max(s["ts"] + s["dur"] for s in spans if s["name"] == "host_sync")
+    ops = [("", max(s["ts"], t0), min(s["ts"] + s["dur"], t1)
+            - max(s["ts"], t0)) for s in spans
+           if s["ts"] + s["dur"] > t0 and s["ts"] < t1]
+    return busy_us(ops) / (t1 - t0)
+
+
+def telemetry_train(torch, workdir: str, on: bool) -> dict:
+    """One run of 20a (``on``) or 20b through train_llama's
+    ``build_trainer`` and ``Trainer.run`` on TEL_STEPS synthetic batches
+    already on the card; the launch counts zeroed just before, read just
+    after, and per step from ``on_metrics``. Returns the history, the
+    launches and, with telemetry, the scrape taken during the run."""
+    import urllib.request
+
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import synthetic_batches
+    from tpufw_torch.workloads import train_llama
+
+    for k in [k for k in os.environ if k.startswith("TPUFW_")]:
+        del os.environ[k]
+    env = {"TPUFW_MODEL": "llama3_600m_bench",
+           "TPUFW_BATCH_SIZE": str(RESUME_BATCH),
+           "TPUFW_SEQ_LEN": str(RESUME_SEQ),
+           "TPUFW_TOTAL_STEPS": str(TEL_STEPS), "TPUFW_LOG_EVERY": "1",
+           "TPUFW_LOSS_CHUNK_SIZE": "512"}
+    if on:
+        env |= {"TPUFW_TELEMETRY_DIR": os.path.join(workdir, "telemetry"),
+                "TPUFW_PROFILE_DIR": os.path.join(workdir, "profile"),
+                "TPUFW_METRICS_PORT": "0",
+                "TPUFW_PROFILE_STEPS": "%d:%d" % TEL_PROFILE}
+    os.environ.update(env)
+    try:
+        trainer, cfg = train_llama.build_trainer()
+        trainer.init_state(seed=0)
+        it = synthetic_batches(RESUME_BATCH, RESUME_SEQ, cfg.vocab_size,
+                               seed=7)
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                    next(it).items()} for _ in range(TEL_STEPS)]
+        scraped, per_step = {}, []
+
+        def on_metrics(m):
+            per_step.append(dict(flash.LAUNCHES))
+            if on and m.step >= 2 and "text" not in scraped:
+                url = f"http://127.0.0.1:{trainer.telemetry.bound_port}/metrics"
+                with urllib.request.urlopen(url, timeout=60) as r:
+                    scraped["text"] = r.read().decode()
+
+        torch.cuda.synchronize()
+        flash.reset_launch_counts()
+        history = trainer.run(iter(batches),
+                              model_flops_per_token=cfg.flops_per_token(
+                                  RESUME_SEQ - 1),
+                              on_metrics=on_metrics)
+        torch.cuda.synchronize()
+        launches = {k: flash.LAUNCHES[k] for k in flash.KERNELS}
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    del trainer, batches
+    return {"history": history, "launches": launches, "per_step": per_step,
+            "scrape": scraped.get("text", ""), "cfg": cfg}
+
+
+def telemetry_checks(run: dict, workdir: str) -> dict:
+    """20a's gates on the files of the telemetry-on run: the live scrape,
+    the events' schema, the goodput rollup, the spans' coverage, the
+    programs.json entry and its FLOP ratio, and the profiler trace's
+    flash kernels against the launch counts of the profiled steps."""
+    from tpufw_torch.obs import events as events_mod
+    from tpufw_torch.obs.perf import load_programs
+    from tpufw_torch.ops import flash
+
+    tel = os.path.join(workdir, "telemetry")
+    bad = []
+    text = run["scrape"]
+    for series in ("tpufw_train_steps_total ", "tpufw_train_mfu ",
+                   "tpufw_train_data_wait_seconds_bucket"):
+        if series not in text:
+            bad.append(f"scrape lacks {series.strip()}")
+    events = events_mod.read_events(os.path.join(tel, "events.jsonl"))
+    for ev in events:
+        events_mod.validate(ev)
+    kinds = [e["kind"] for e in events]
+    if kinds[:1] != ["run_start"] or "run_end" not in kinds:
+        bad.append(f"events {kinds}")
+    with open(os.path.join(tel, "goodput.json")) as f:
+        gp = json.load(f)
+    gp_sum = sum(gp["categories"].values())
+    if abs(gp_sum - gp["wall_s"]) > 0.02 * gp["wall_s"]:
+        bad.append("goodput categories do not sum to the wall")
+    with open(os.path.join(tel, "trace.json")) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X"]
+    coverage = span_coverage(spans)
+    if coverage < 0.95:
+        bad.append(f"spans cover {coverage:.3f} of the step loop")
+    prog = load_programs(tel)["programs"]["train_step"]
+    cfg = run["cfg"]
+    tokens = RESUME_BATCH * (RESUME_SEQ - 1)
+    model_flops = cfg.flops_per_token(RESUME_SEQ - 1) * tokens
+    ratio = prog["flops"] / model_flops
+    if not TEL_FLOP_BAND[0] <= ratio <= TEL_FLOP_BAND[1]:
+        bad.append(f"counted FLOPs {ratio:.4f} x the model's")
+    for key in ("flops", "bytes_accessed", "ai_flops_per_byte", "bound",
+                "peak_hbm_bytes"):
+        if not prog.get(key):
+            bad.append(f"programs.json train_step lacks {key}")
+    # The flash share: each launch of the counted step at its shapes.
+    h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    want_flash = {
+        k: {"launches": n, **dict(zip(("flops", "bytes"), (
+            n * c for c in flash.flash_costs(k, RESUME_BATCH, RESUME_SEQ - 1,
+                                             RESUME_SEQ - 1, h, kh, d))))}
+        for k, n in TEL_STEP_LAUNCHES.items()}
+    if prog["flash"] != want_flash:
+        bad.append(f"flash costs {prog['flash']} != {want_flash}")
+    # The profiled steps' kernels by name, against the launch counts of
+    # those steps (on_metrics snapshots after each step).
+    a, b = TEL_PROFILE
+    per = run["per_step"]
+    window = {k: per[b - 1][k] - per[a - 1][k] for k in flash.KERNELS}
+    traces = sorted(glob.glob(os.path.join(workdir, "profile", "*.json")))
+    ops = trace_kernels(traces[0]) if traces else []
+    in_trace = flash_trace_counts(ops)
+    want_window = {k: n * (b - a) for k, n in TEL_STEP_LAUNCHES.items()}
+    if not (in_trace == window == want_window):
+        bad.append(f"profiled flash kernels {in_trace}, launches {window}, "
+                   f"predicted {want_window}")
+    window_us = trace_window_us(traces[0], ops) if traces else 0.0
+    busy = busy_us(ops)
+    flash_us = sum(dur for name, _, dur in ops if any(
+        HOPPER_KERNELS[k][1] in name for k in flash.KERNELS))
+    out = {"check": "telemetry_train", "events": len(events),
+           "event_kinds": sorted(set(kinds)), "goodput": gp,
+           "goodput_categories_sum_s": gp_sum, "span_coverage": coverage,
+           "program": {k: prog.get(k) for k in (
+               "flops", "aten_flops", "flash_flops", "bytes_accessed",
+               "aten_bytes", "flash_bytes", "ai_flops_per_byte", "bound",
+               "peak_hbm_bytes", "argument_bytes", "temp_bytes",
+               "reserved_bytes", "mfu", "calls", "wall_s", "error")},
+           "flash_costs": prog["flash"],
+           "model_flops_per_step": model_flops,
+           "counted_over_model_flops": ratio, "flop_band": TEL_FLOP_BAND,
+           "profiled_flash_kernels": in_trace,
+           "profiled_window_launches": window,
+           "predicted_window_launches": want_window,
+           "trace_ops": len(ops), "trace_busy_ms_per_step":
+               busy / 1e3 / (b - a),
+           "trace_window_ms_per_step": window_us / 1e3 / (b - a),
+           "trace_idle_share": 1.0 - busy / window_us if window_us else None,
+           "meter_ms_profiled_steps": [1e3 * m.step_time_s
+                                       for m in run["history"][a:b]],
+           "trace_flash_share_of_busy": flash_us / busy if busy else None,
+           "launches_run": run["launches"], "ok": not bad}
+    emit(out)
+    if bad:
+        raise AssertionError(f"20a: {bad}")
+    return out
+
+
+def telemetry_serve(workdir: str, kind, smi) -> dict:
+    """20c: phase 6's model (contiguous pool) behind a server with
+    TPUFW_TELEMETRY_DIR; a /debug/profile capture of 1 s started with
+    TEL_SERVE_PROMPTS concurrent streams in flight. Holds the capture's
+    CUDA activity to decode kernels and no flash kernel, no flash
+    launch, the serve trace, goodput tables and decode programs."""
+    import numpy as np
+
+    from tpufw_torch.configs import llama3_8b_serve_slice
+    from tpufw_torch.models import Llama
+    from tpufw_torch.obs.perf import load_programs
+    from tpufw_torch.ops import flash
+    from tpufw_torch.workloads import serve
+
+    cfg = dataclasses.replace(llama3_8b_serve_slice()[0],
+                              n_layers=ONLINE_LAYERS)
+    model = Llama(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (64, 200, 511, 7)[:TEL_SERVE_PROMPTS]]
+    tel = os.path.join(workdir, "serve")
+    flash.reset_launch_counts()
+    srv, base = _start_server(serve, {"TPUFW_TELEMETRY_DIR": tel},
+                              model=model)
+    try:
+        with _get(base + "/debug/profile?seconds=1") as r:
+            capture = json.loads(r.read())
+        runs = _concurrently([
+            (lambda p=p: _stream(base, {"prompts": [p],
+                                        "max_new_tokens": TEL_SERVE_NEW}))
+            for p in prompts])
+        trace = os.path.join(capture["dir"], "trace.json")
+        deadline = time.time() + 120
+        while not os.path.exists(trace) and time.time() < deadline:
+            time.sleep(0.1)
+        metrics = _metrics(base)
+    finally:
+        srv.shutdown()
+        for k in [k for k in os.environ if k.startswith("TPUFW_")]:
+            del os.environ[k]
+    launches = {k: flash.LAUNCHES[k] for k in flash.LAUNCHES}
+    ops = trace_kernels(trace) if os.path.exists(trace) else []
+    kernels = [name for name, _, _ in ops]
+    flash_in_trace = sum(flash_trace_counts(ops).values()) + sum(
+        1 for n in kernels if "flash_" in n)
+    with open(os.path.join(tel, "goodput.json")) as f:
+        gp = json.load(f)
+    progs = (load_programs(tel) or {}).get("programs", {})
+    decode = {k: {f: v.get(f) for f in ("flops", "bytes_accessed",
+                                          "ai_flops_per_byte", "mfu",
+                                          "calls")}
+              for k, v in progs.items() if k.startswith("serve_decode_k")}
+    bad = []
+    if not (capture.get("started") and ops):
+        bad.append(f"capture {capture} has no device operations")
+    if flash_in_trace or any(launches.values()):
+        bad.append(f"flash on the serve path: {flash_in_trace} in the "
+                   f"trace, launches {launches}")
+    if not all(len(r[0]) == TEL_SERVE_NEW for r in runs):
+        bad.append("a stream did not finish")
+    for name in ("trace-serve.json", "events.jsonl", "goodput.json",
+                 "metrics.prom"):
+        if not os.path.exists(os.path.join(tel, name)):
+            bad.append(f"no {name}")
+    if not ({"busy", "wasted_slot"} <= set(gp["categories"])
+            and "tpufw_goodput_ratio" in metrics and decode):
+        bad.append("no goodput tables or decode programs")
+    top: dict = {}
+    for name, _, dur in ops:
+        top[name[:80]] = top.get(name[:80], 0.0) + dur
+    out = {"check": "telemetry_serve", "capture": capture,
+           "trace_ops": len(ops), "trace_busy_ms": busy_us(ops) / 1e3,
+           "top_kernels_ms": sorted(((n, us / 1e3) for n, us in top.items()),
+                                    key=lambda x: -x[1])[:8],
+           "flash_in_trace": flash_in_trace, "flash_launches": launches,
+           "goodput": gp, "decode_programs": decode,
+           "tokens": [len(r[0]) for r in runs], "device": kind,
+           "nvidia_smi": smi, "ok": not bad}
+    emit(out)
+    if bad:
+        raise AssertionError(f"20c: {bad}")
+    return out
+
+
+def telemetry_phase(torch, kind, smi) -> dict:
+    """Phase 20: 20a and 20b back to back (telemetry on, then off), the
+    overhead gate on their medians, then 20c. Returns the d128 launch
+    counts of both train runs."""
+    from tpufw_torch.ops import flash
+
+    workdir = os.path.join(ROOT, "build-torch", f"phase20-{os.getpid()}")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        on = telemetry_train(torch, workdir, on=True)
+        checks = telemetry_checks(on, workdir)
+        off = telemetry_train(torch, workdir, on=False)
+        med = {name: 1e3 * statistics.median(
+            r["history"][i].step_time_s for i in TEL_MEDIAN_STEPS)
+            for name, r in (("on", on), ("off", off))}
+        ratio = med["on"] / med["off"]
+        hist = on["history"]
+        counted_out = (
+            "tpufw_train_step_time_seconds_count %d" % (TEL_STEPS - 1)
+            in open(os.path.join(workdir, "telemetry", "metrics.prom")
+                    ).read())
+        emit({"telemetry_summary": {
+            "model": "llama3_600m_bench", "batch_size": RESUME_BATCH,
+            "seq_len": RESUME_SEQ, "steps": TEL_STEPS,
+            "profile_steps": TEL_PROFILE, "median_steps": TEL_MEDIAN_STEPS,
+            "step_ms_on": [1e3 * m.step_time_s for m in hist],
+            "step_ms_off": [1e3 * m.step_time_s for m in off["history"]],
+            "median_ms_on": med["on"], "median_ms_off": med["off"],
+            "on_over_off": ratio, "tol": TEL_OVERHEAD_TOL,
+            "counted_step_ms": 1e3 * hist[0].step_time_s,
+            "counted_step_out_of_meter": counted_out,
+            "losses_on": [m.loss for m in hist],
+            "losses_off": [m.loss for m in off["history"]],
+            "losses_equal": [m.loss for m in hist] == [
+                m.loss for m in off["history"]],
+            "counted_over_model_flops": checks["counted_over_model_flops"],
+            "mfu_counted_program": checks["program"]["mfu"],
+            "mfu_meter_median": statistics.median(
+                hist[i].mfu for i in TEL_MEDIAN_STEPS),
+            # The profiled steps' device time over an unprofiled step.
+            "trace_busy_over_median_off": checks["trace_busy_ms_per_step"]
+            / med["off"],
+            "device": kind, "nvidia_smi": smi,
+            "card_state": nvidia_smi(CARD_STATE),
+            "card_state_query": CARD_STATE}})
+        if ratio > TEL_OVERHEAD_TOL or not counted_out:
+            raise AssertionError(
+                f"20b: telemetry on/off median {ratio:.3f} (tol "
+                f"{TEL_OVERHEAD_TOL}), counted step out of the meter: "
+                f"{counted_out}")
+        for name, r in (("20a", on), ("20b", off)):
+            want = {k: n * TEL_STEPS for k, n in TEL_STEP_LAUNCHES.items()}
+            if r["launches"] != want:
+                raise AssertionError(f"{name}: launches {r['launches']} != "
+                                     f"{want}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        telemetry_serve(workdir, kind, smi)
+        PHASE_SECONDS["20c"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"20a": {flash.kernel_name(k, 128): n
+                    for k, n in on["launches"].items()},
+            "20b": {flash.kernel_name(k, 128): n
+                    for k, n in off["launches"].items()}}
+
+
 def main() -> int:
     try:
         import torch
@@ -6436,6 +6836,17 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    # 20. Telemetry: the train step counted, profiled and scraped against
+    # the same run without telemetry, then the server's telemetry, with
+    # phase 19's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        telemetry_launches = _timed("20", lambda: telemetry_phase(
+            torch, kind, smi))
+    except AssertionError as e:
+        return fail(str(e))
+
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -6509,6 +6920,12 @@ def main() -> int:
         # at head dim 128, 16b deepseek_mla_bench at 192), 4 steps each.
         kernels[-1]["launches_pipeline"] = {
             part: counts.get(name, 0) for part, counts in pipe_launches.items()}
+        if name in telemetry_launches["20a"]:
+            # Phase 20's runs of llama3_600m_bench through train_llama,
+            # 20a with telemetry, 20b without.
+            kernels[-1]["launches_telemetry"] = {
+                part: counts[name]
+                for part, counts in telemetry_launches.items()}
         if name in resume_launches:
             # Phase 7b's run, llama3_600m_bench through Trainer.run, and
             # the kernel at its shapes.

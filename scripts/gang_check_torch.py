@@ -3,7 +3,7 @@ against one process on the same global batches.
 
     python3 scripts/gang_check_torch.py [--world 4] [--cpu] [--model NAME]
         [--batch 16] [--seq 2049] [--steps 3] [--tol 1e-3]
-        [--suite lm|post|tensor|pptp|all]
+        [--suite lm|post|tensor|pptp|all] [--telemetry DIR]
 
 The parent builds the CUDA kernels, then starts ``--world`` ranks of this
 script on one host, told their rank as a per-GPU launcher tells them
@@ -57,7 +57,12 @@ against one unsplit process. The ``pptp`` suite
 ``pipe=2`` by ``tensor=2`` (each rank one stage's tensor shard; 4
 microbatches of the global batch) against one process holding both
 stages unsplit. ``--suite all`` runs ``lm`` and ``post``, ``lm`` (the
-default) the first alone.
+default) the first alone. ``--telemetry DIR`` turns the telemetry on in
+the ``lm`` suite's runs: each run writes under ``DIR/<run>/`` every rank's
+``events[-p<N>].jsonl``, trace, goodput, programs and metrics files, and
+its skew monitor gathers the ranks' window times at every sync; the
+parent checks each rank's events and prints the skew gauges and any
+straggler (``telemetry_*`` lines). DIR is kept.
 One JSON line per result, then (on GPUs) each card's name and power
 limit from ``nvidia-smi``, ``{"ok": true, ...}`` last; exits nonzero
 when a check fails.
@@ -708,11 +713,16 @@ def rank_main(args) -> int:
         meshes[f"fsdp{world // 2}_sequence2_ring"] = (
             MeshConfig(data=1, fsdp=world // 2, sequence=2), 1, "ring")
     out = {"rank": rank, "world": world, "device": str(dev), "runs": {}}
+
+    def telemetry(name):
+        return dataclasses.replace(tcfg, telemetry_dir=os.path.join(
+            args.telemetry, name) if args.telemetry else None)
+
     for name, (mesh, accum, backend) in meshes.items():
         run_cfg = cfg if backend is None else dataclasses.replace(
             cfg, attention_backend=backend)
-        trainer = Trainer(run_cfg, dataclasses.replace(tcfg, grad_accum=accum),
-                          mesh, device=dev)
+        trainer = Trainer(run_cfg, dataclasses.replace(
+            telemetry(name), grad_accum=accum), mesh, device=dev)
         trainer.init_state(seed=0)
         pairs, step_ms, peak = _run(trainer, local(trainer))
         out["runs"][name] = {"losses": [p[0] for p in pairs],
@@ -723,7 +733,8 @@ def rank_main(args) -> int:
                                               trainer.mesh.shape))}
         del trainer
     for name, run in _pipelines(world).items():
-        trainer = _pipeline_trainer(cfg, tcfg, *run, dev, gang=True)
+        trainer = _pipeline_trainer(cfg, telemetry(name), *run, dev,
+                                    gang=True)
         trainer.init_state(seed=0)
         pairs, step_ms, peak = _run(trainer, local(trainer))
         out["runs"][name] = {"losses": [p[0] for p in pairs],
@@ -753,6 +764,65 @@ def rank_main(args) -> int:
     return 0
 
 
+def _telemetry_checks(args, names) -> bool:
+    """One ``telemetry_<run>`` line a run of the gang: each rank's event
+    log (schema-valid, run_start .. run_end, goodput, one step event a
+    sync), its files, and rank 0's skew gauges, straggler counter and
+    the straggler events of any rank."""
+    from tpufw_torch.obs import events as events_mod
+    from tpufw_torch.obs import promtext
+
+    ok = True
+    for name in names:
+        d = os.path.join(args.telemetry, name)
+        ranks, flagged, good = [], [], True
+        for r in range(args.world):
+            tag = "" if r == 0 else f"-p{r}"
+            path = os.path.join(d, f"events{tag}.jsonl")
+            events = events_mod.read_events(path) if os.path.exists(
+                path) else []
+            try:
+                for ev in events:
+                    events_mod.validate(ev)
+            except ValueError:
+                good = False
+            kinds = [e["kind"] for e in events]
+            files = [f"{stem}{tag}.{ext}" for stem, ext in (
+                ("trace", "json"), ("goodput", "json"), ("programs", "json"),
+                ("metrics", "prom"))]
+            missing = [f for f in files if not os.path.exists(
+                os.path.join(d, f))]
+            good &= (kinds[:1] == ["run_start"] and kinds[-2:] == [
+                "run_end", "goodput"] and kinds.count("step") >= 2
+                and not missing)
+            flagged += [e for e in events if e["kind"] ==
+                        "straggler_detected"]
+            with open(os.path.join(d, f"goodput{tag}.json")) as f:
+                gp = json.load(f)
+            ranks.append({"rank": r, "events": {k: kinds.count(k)
+                                                for k in sorted(set(kinds))},
+                          "missing_files": missing,
+                          "goodput_ratio": gp["goodput_ratio"],
+                          "step_time_s": [e["step_time_s"] for e in events
+                                          if e["kind"] == "step"]})
+        with open(os.path.join(d, "metrics.prom")) as f:
+            flat = promtext.flatten(f.read())
+        ok &= good
+        emit({"check": f"telemetry_{name}", "ok": good, "world": args.world,
+              "ranks": ranks,
+              "host_window_s": {k: v for k, v in flat.items() if k.startswith(
+                  "tpufw_train_host_window_seconds")},
+              "host_data_wait_s": {k: v for k, v in flat.items()
+                                   if k.startswith(
+                                       "tpufw_train_host_data_wait_seconds")},
+              "stragglers_total": flat.get("tpufw_train_stragglers_total"),
+              "straggler_events": [{k: e[k] for k in (
+                  "process", "step", "straggler_hosts", "host_window_s",
+                  "median_s")} for e in flagged],
+              "dir": d})
+    return ok
+
+
 def _rel(a, b) -> float:
     return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
 
@@ -773,7 +843,8 @@ def parent_main(args) -> int:
             "--out", args.out, "--ckpt", args.ckpt, "--model", args.model,
             "--batch", str(args.batch), "--seq", str(args.seq),
             "--steps", str(args.steps), "--suite", args.suite] + (
-                ["--cpu"] if args.cpu else [])
+                ["--cpu"] if args.cpu else []) + (
+                ["--telemetry", args.telemetry] if args.telemetry else [])
     env = {k: v for k, v in os.environ.items() if not k.startswith("TPUFW_")}
     env |= {"TPUFW_COORDINATOR": f"127.0.0.1:{port}",
             "TPUFW_NUM_PROCESSES": "1", "TPUFW_PROCESS_ID": "0",
@@ -865,6 +936,8 @@ def parent_main(args) -> int:
               "global_batch": args.batch, "seq_len": args.seq,
               "grad_accum": run["grad_accum"], "model": args.model,
               "pipeline": run.get("pipeline")})
+    if args.telemetry:
+        ok &= _telemetry_checks(args, list(ranks[0]["runs"]))
     want = single[1][0]
     # The gang's checkpoint resumes in one process.
     stops = [r["stop"] for r in ranks]
@@ -918,11 +991,19 @@ def main() -> int:
                     "tensor and expert axes and the post-trainers over "
                     "them (--world 4); pptp: pipelines over pipe=2 x "
                     "tensor=2 (--world 4); all: lm and post")
+    ap.add_argument("--telemetry", metavar="DIR",
+                    help="lm suite: the runs' telemetry under DIR/<run>/ "
+                    "(every rank's events, traces, goodput, skew), checked "
+                    "and kept")
     ap.add_argument("--rank-of-gang", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     ap.add_argument("--ckpt", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.telemetry:
+        args.telemetry = os.path.abspath(args.telemetry)
+        if args.suite not in ("lm", "all"):
+            ap.error("--telemetry instruments the lm suite's runs")
     if args.suite in ("tensor", "pptp") and args.world != 4:
         ap.error(f"--suite {args.suite} runs meshes of four ranks (tensor=2 "
                  "x fsdp=2, expert=2 x tensor=2, pipe=2 x tensor=2): it "

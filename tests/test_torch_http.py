@@ -15,6 +15,7 @@ to ``tpufw``'s ``generate_text`` token for token.
 """
 
 import json
+import os
 import threading
 import time
 import urllib.error
@@ -119,6 +120,36 @@ def test_http_server_generate(server):
     assert json.loads(body) == {"error": "profiler not configured"}
     assert _get(srv.base, "/nope")[0] == 404
     assert _post(srv.base, {}, path="/nope")[0] == 404
+
+
+def test_http_debug_profile_with_telemetry(server, clear_tpufw_env,
+                                          tmp_path):
+    """With ``TPUFW_TELEMETRY_DIR`` the server answers ``/debug/profile``
+    as ``tpufw``'s does (200 with the capture's dir and seconds, 409
+    while one runs), the capture lands as a Chrome trace, ``/metrics``
+    carries the goodput series, and the server's trace, goodput and
+    events files are written."""
+    clear_tpufw_env.setenv("TPUFW_TELEMETRY_DIR", str(tmp_path))
+    srv = server(max_new=3)
+    code, _, body = _get(srv.base, "/debug/profile?seconds=0.5")
+    got = json.loads(body)
+    assert code == 200 and got["started"] is True and got["seconds"] == 0.5
+    assert got["dir"].startswith(str(tmp_path / "profile" / "ondemand-"))
+    code, _, body = _get(srv.base, "/debug/profile?seconds=1")
+    assert code == 409
+    assert json.loads(body) == {"error": "capture already in progress"}
+    code, out = _post(srv.base, {"prompts": [[1, 5, 9]]})
+    assert code == 200 and out["outputs"] == _want([[1, 5, 9]], 3)
+    trace = os.path.join(got["dir"], "trace.json")
+    deadline = time.time() + 30
+    while not os.path.exists(trace) and time.time() < deadline:
+        time.sleep(0.05)
+    assert "traceEvents" in json.loads(open(trace).read())
+    assert "tpufw_goodput_ratio" in _metrics(srv.base)
+    srv.shutdown()
+    for name in ("trace-serve.json", "goodput.json", "events.jsonl",
+                 "metrics.prom"):
+        assert (tmp_path / name).exists(), name
 
 
 def test_http_server_streaming(server, monkeypatch):

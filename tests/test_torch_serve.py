@@ -197,7 +197,9 @@ UNPORTED = {
     # page-granular.
     "KV_SPILL": ("64", "scheduler", ValueError, "page-granular"),
     "KV_SPILL_DIR": ("/spill", "scheduler", ValueError, "page-granular"),
-    "TELEMETRY_DIR": ("/tel", "server", NotImplementedError, "item 13"),
+    # Ported in item 13a (no error): the server writes its telemetry
+    # under the directory (a fresh temporary one here).
+    "TELEMETRY_DIR": ("<tmp>", "server", None, "trace-serve.json"),
     # The roles are ported (tests/test_torch_migrate.py); a role the
     # port does not know is refused before any model is built.
     "SERVE_ROLE": ("oracle", "main", ValueError, "TPUFW_SERVE_ROLE"),
@@ -217,9 +219,25 @@ UNPORTED = {
 
 
 @pytest.mark.parametrize("knob", sorted(UNPORTED))
-def test_unported_knobs_raise(cpu_env, knob):
+def test_unported_knobs_raise(cpu_env, knob, tmp_path):
+    """Each knob raises its error; one ported since (``err`` None) takes
+    effect instead: the server's telemetry writes ``match`` into the
+    directory and mounts the profiler behind ``/debug/profile``."""
     value, entry, err, match = UNPORTED[knob]
+    if value == "<tmp>":
+        value = str(tmp_path)
     cpu_env.setenv(f"TPUFW_{knob}", value)
+    if err is None:
+        srv = serve._Server(0, 2)
+        try:
+            assert srv._tel.out_dir == value
+            assert srv._tel.profiler is not None
+            srv.generate([[1, 5, 9]], 2)
+        finally:
+            srv.shutdown()
+        assert (tmp_path / match).exists()
+        assert (tmp_path / "goodput.json").exists()
+        return
     call = {"main": serve.main,
             "run_batch": lambda: serve.run_batch(PROMPTS, 2),
             "build_generator": serve.build_generator,

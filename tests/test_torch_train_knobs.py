@@ -470,11 +470,13 @@ def test_state_knobs_match_tpufw_build_trainer(monkeypatch, env):
 # (a value that turns it on, the ROADMAP.md Queue 1 item it names).
 REFUSED_TRAIN_KNOBS = {
     "CONFIG": ("run.yaml", "13"),
-    "PROFILE_DIR": ("/prof", "13"),
     "AUTOTUNE": ("search", "13"),
-    "TELEMETRY_DIR": ("/tel", "13"),
-    "METRICS_PORT": ("0", "13"),
-    "STRAGGLER_FACTOR": ("3.0", "13"),
+    # Honoured since item 13a ("config"): the knob lands in the
+    # TrainerConfig field of that name as tpufw's build_trainer puts it.
+    "PROFILE_DIR": ("/prof", "config"),
+    "TELEMETRY_DIR": ("/tel", "config"),
+    "METRICS_PORT": ("0", "config"),
+    "STRAGGLER_FACTOR": ("3.0", "config"),
     # Honoured since item 12e (None): above the one-process world they
     # raise tpufw's ValueError, word for word.
     "MESH_EXPERT": ("2", None),
@@ -485,11 +487,21 @@ REFUSED_TRAIN_KNOBS = {
 @pytest.mark.parametrize("knob", sorted(REFUSED_TRAIN_KNOBS))
 def test_post_training_objectives_are_refused(monkeypatch, knob):
     """Each knob raises, naming its item, in the serve workload's words;
-    the knob's name leads the message."""
+    the knob's name leads the message. A knob the port honours since
+    item 13a lands in ``TrainerConfig`` as in ``tpufw``'s trainer."""
     from tpufw_torch.workloads import train_llama
 
     value, item = REFUSED_TRAIN_KNOBS[knob]
     _workload_env(monkeypatch, **{knob: value})
+    if item == "config":
+        from tpufw.workloads import train_llama as j_train_llama
+
+        field = knob.lower()
+        mine = getattr(train_llama.build_trainer()[0].cfg, field)
+        theirs = getattr(j_train_llama.build_trainer()[0].cfg, field)
+        assert mine == theirs and mine is not None
+        assert str(mine) == value
+        return
     if item is None:
         from tpufw.mesh import build_mesh as j_build_mesh
 

@@ -128,7 +128,7 @@ def test_schedule_from_env(monkeypatch, env, schedule, v):
      "einsum"),
     (dict(MOE_DISPATCH="sorted"), NotImplementedError, "einsum"),
     (dict(GRAD_ACCUM=2), NotImplementedError, "grad_accum"),
-    (dict(PROFILE_DIR="/tmp/prof"), NotImplementedError, r"item 13\)"),
+    (dict(CONFIG="run.yaml"), NotImplementedError, r"item 13\)"),
 ])
 def test_refusals_from_env(monkeypatch, env, err, match):
     """What the pipeline does not run raises at build, naming why: the
@@ -136,11 +136,31 @@ def test_refusals_from_env(monkeypatch, env, err, match):
     (both knobs arrived), a tensor axis must divide the heads and an
     expert axis needs a MoE model (``tpufw``'s checks), sequence must be
     1 beside pipe, the sorted dispatch is refused (not replaced
-    by the capacity router), grad_accum is the schedule's, profiling is
-    item 13."""
+    by the capacity router), grad_accum is the schedule's, the YAML run
+    config is item 13c (profiling, which this case held until item 13a
+    ported it, lands in the trainer: test_telemetry_knobs_land)."""
     workload_env(monkeypatch, BASE, **env)
     with pytest.raises(err, match=match):
         tw.build_trainer()
+
+
+TELEMETRY_FIELDS = ("profile_dir", "profile_start", "profile_stop",
+                    "telemetry_dir", "metrics_port", "straggler_factor")
+
+
+def test_telemetry_knobs_land(monkeypatch, devices8):
+    """The telemetry and profiling knobs (item 13a) land in the trainer's
+    config as ``tpufw``'s build_trainer puts them."""
+    knobs = dict(PROFILE_DIR="/tmp/prof", PROFILE_START=1, PROFILE_STOP=2,
+                 TELEMETRY_DIR="/tmp/tel", METRICS_PORT=0,
+                 STRAGGLER_FACTOR=3.0)
+    workload_env(monkeypatch, BASE, **knobs)
+    trainer, _ = tw.build_trainer()
+    workload_env(monkeypatch, BASE, MESH_DATA=2, **knobs)
+    jtrainer, _ = jw.build_trainer()
+    mine = {f: getattr(trainer.cfg, f) for f in TELEMETRY_FIELDS}
+    assert mine == {f: getattr(jtrainer.cfg, f) for f in TELEMETRY_FIELDS}
+    assert mine["metrics_port"] == 0 and mine["straggler_factor"] == 3.0
 
 
 def test_main_trains_on_cpu(monkeypatch, capsys):

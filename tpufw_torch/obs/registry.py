@@ -12,14 +12,15 @@ byte the JAX package's, so an existing scrape reads the port unchanged:
   a real 0-valued series before the first increment, not an absent one.
 
 Gauges additionally accept a callback (``set_function``) evaluated at
-scrape time. The JAX module's standalone ``/metrics`` HTTP server (the
-trainer's ``TPUFW_METRICS_PORT``) is not ported: the trainer's telemetry
-is ROADMAP.md Queue 1 item 13.
+scrape time. ``start_http_server`` is the trainer's standalone
+``/metrics`` endpoint (``TPUFW_METRICS_PORT``), with ``/debug/profile``
+when a ``ProfileTrigger`` is mounted.
 """
 
 from __future__ import annotations
 
 import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 # Prometheus text exposition content type (version pinned by spec).
@@ -271,3 +272,68 @@ class Registry:
         for _, m in metrics:
             lines.extend(m.render())
         return "\n".join(lines) + "\n"
+
+
+class _MetricsHandler(BaseHTTPRequestHandler):
+    registry: Registry  # set on the server class by start_http_server
+
+    def do_GET(self):  # noqa: N802 — http.server API
+        path, _, query = self.path.partition("?")
+        if path.rstrip("/") == "/debug/profile":
+            self._handle_profile(query)
+            return
+        if path not in ("/metrics", "/metrics/"):
+            self.send_error(404)
+            return
+        body = self.server.registry.render().encode()  # type: ignore[attr-defined]
+        self.send_response(200)
+        self.send_header("Content-Type", CONTENT_TYPE)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _handle_profile(self, query: str) -> None:
+        """``GET /debug/profile?seconds=N``: start a time-bounded
+        ``torch.profiler`` capture through the mounted ProfileTrigger
+        (``tpufw_torch.obs.perf``); 404 when no trigger is mounted (no
+        telemetry dir to drop the trace into), 409 while one is already
+        running."""
+        import json
+        from urllib.parse import parse_qs
+
+        trigger = getattr(self.server, "profiler", None)
+        if trigger is None:
+            self.send_error(404)
+            return
+        try:
+            seconds = float(
+                parse_qs(query).get("seconds", ["2.0"])[0]
+            )
+        except ValueError:
+            seconds = 2.0
+        result = trigger.trigger(seconds)
+        body = json.dumps(result).encode()
+        self.send_response(409 if "error" in result else 200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *args):  # scrapes are not log events
+        pass
+
+
+def start_http_server(
+    registry: Registry, port: int, host: str = "0.0.0.0", profiler=None
+) -> ThreadingHTTPServer:
+    """Serve ``registry`` at ``/metrics`` on ``port`` (0 = ephemeral;
+    bound port is ``server.server_address[1]``) from a daemon thread.
+    Caller owns shutdown(). ``profiler`` (a tpufw_torch.obs.perf
+    ProfileTrigger) additionally mounts ``/debug/profile``."""
+    httpd = ThreadingHTTPServer((host, port), _MetricsHandler)
+    httpd.registry = registry  # type: ignore[attr-defined]
+    httpd.profiler = profiler  # type: ignore[attr-defined]
+    threading.Thread(
+        target=httpd.serve_forever, daemon=True, name="obs-metrics"
+    ).start()
+    return httpd

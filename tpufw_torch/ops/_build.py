@@ -9,6 +9,8 @@ at the repo root (listed in ``.gitignore``); a library's file name carries
 a hash of the flags, the headers and the sources it compiles, so an edited
 kernel is rebuilt and an unchanged one is reused. All missing libraries
 are compiled in parallel, one ``nvcc`` per source.
+``utils.profiling.enable_compile_cache`` (``TPUFW_COMPILE_CACHE_DIR``)
+moves ``BUILD_DIR`` to a per-machine cache directory.
 ``nvcc``'s output (the ``-Xptxas -v`` report) is kept beside each library
 as ``lib<name>-<hash>.log`` and read back when the library is reused.
 
@@ -75,6 +77,15 @@ def _lib_path(name: str) -> Path:
         if src.suffix == ".cuh" or src.stem in own:
             h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def all_built() -> bool:
+    """True when every source's library and its log are already in
+    ``BUILD_DIR``: ``build`` would compile nothing."""
+    return all(
+        p.exists() and p.with_suffix(".log").exists()
+        for p in (_lib_path(name) for name in SOURCES)
+    )
 
 
 def build() -> dict[str, Path]:

@@ -18,7 +18,9 @@ take head dim 128 (Llama, Mistral, Qwen), 192 (DeepSeek's MLA, V
 zero-padded to the qk head dim by the model; the ``csrc/*_d192.cu``
 builds) and 256 (Gemma-2; the ``csrc/*_d256.cu`` builds), each with tiles
 of its own. Each launch adds one to ``LAUNCHES[name]``, the other head
-dims' kernels under ``<name>_d192`` and ``<name>_d256``.
+dims' kernels under ``<name>_d192`` and ``<name>_d256``, and, while the
+perf observatory counts a step, hands its ``flash_costs`` to
+``COST_SINK``.
 
 Layouts: q, O, dO, dQ are [B, T, H, D]; k, v are [B, S, K, D]; LSE and Δ
 are fp32 [B, H, T]; the dK/dV kernel output is fp32 [B, H, S, D]. Query i
@@ -57,10 +59,65 @@ def kernel_name(base: str, head_dim: int) -> str:
 # Kernel launches since the last reset, by kernel and head dim.
 LAUNCHES = {kernel_name(k, d): 0 for d in TILES for k in KERNELS}
 
+# Set by ``tpufw_torch.obs.perf`` while it counts a step's costs: called
+# with each launch's kernel name, FLOPs and bytes (``flash_costs``).
+COST_SINK = None
+
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def visible_pairs(t, s, offset, causal, window) -> int:
+    """(query, key) pairs the masks let through, per (batch, head)."""
+    total = 0
+    for i in range(t):
+        q_pos = offset + i
+        hi = min(q_pos, s - 1) if causal else s - 1
+        lo = max(q_pos - window + 1, 0) if window is not None else 0
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+def flash_costs(kernel, b, t, s, h, kh, d, masks=None) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch of ``kernel`` (``flash_fwd``,
+    ``flash_dq`` or ``flash_dkv``, at any head dim's name) on q [b, t,
+    h, d] and k/v [b, s, kh, d] under ``masks`` (``causal``, default
+    True; ``window``; ``offset``, default s - t). FLOPs count the
+    (query, key) pairs the causal and window masks let through (segment
+    masks are not subtracted): 2 products of 2·d a pair forward, dQ's
+    recomputed QKᵀ, dP and dS·K, and dK/dV's QKᵀ, dP, dSᵀ·Q and Pᵀ·dO.
+    Bytes: each input read once, each output written once (LSE and Δ
+    fp32, dK/dV fp32 per query head). The roofline bound of
+    ``chip_smoke.py`` and the perf observatory read these counts."""
+    masks = masks or {}
+    causal = masks.get("causal", True)
+    offset = masks.get("offset")
+    offset = s - t if offset is None else offset
+    pairs = b * h * visible_pairs(t, s, offset, causal, masks.get("window"))
+    n_q, n_kv = b * t * h * d, b * s * kh * d
+    rows = b * h * t
+    base = kernel.rsplit("_d", 1)[0] if kernel.endswith(("_d192", "_d256")) \
+        else kernel
+    if base == "flash_fwd":
+        return 4 * pairs * d, 2 * (n_q + 2 * n_kv) + 2 * n_q + 4 * rows
+    if base == "flash_dq":
+        return (6 * pairs * d,
+                2 * (2 * n_q + 2 * n_kv) + 8 * rows + 2 * n_q)
+    if base == "flash_dkv":
+        return (8 * pairs * d,
+                2 * (2 * n_q + 2 * n_kv) + 8 * rows + 2 * 4 * b * h * s * d)
+    raise ValueError(f"unknown flash kernel {kernel!r}")
+
+
+def _count_costs(base, b, t, s, h, kh, d, causal, offset, window) -> None:
+    """Hand one launch's costs to ``COST_SINK`` when a count is on."""
+    sink = COST_SINK
+    if sink is not None:
+        sink(kernel_name(base, d), *flash_costs(
+            base, b, t, s, h, kh, d,
+            {"causal": causal, "offset": offset, "window": window}))
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +368,7 @@ def flash_fwd(
         _ptr(lse), b, t, s, h, kh,
         *_mask_args(causal, offset, soft_cap, window),
     )
+    _count_costs("flash_fwd", b, t, s, h, kh, d, causal, offset, window)
     return o, lse
 
 
@@ -343,6 +401,7 @@ def flash_dq(
         _ptr(qseg), _ptr(kseg), _ptr(dq), b, t, s, h, kh,
         *_mask_args(causal, offset, soft_cap, window),
     )
+    _count_costs("flash_dq", b, t, s, h, kh, d, causal, offset, window)
     return dq
 
 
@@ -372,6 +431,7 @@ def flash_dkv(
         _ptr(qseg), _ptr(kseg), _ptr(dk), _ptr(dv), b, t, s, h, kh,
         *_mask_args(causal, offset, soft_cap, window),
     )
+    _count_costs("flash_dkv", b, t, s, h, kh, d, causal, offset, window)
     return dk[:, :, :s], dv[:, :, :s]
 
 

@@ -27,6 +27,12 @@ otherwise: a rank that sees another directory).
 ``restore`` reads the whole state on every rank. So a checkpoint does
 not depend on the world size: a gang's resumes in one process, and
 one process's in a gang.
+
+Telemetry (``tpufw``'s hooks): a save or a forced save becomes a
+``checkpoint_save`` event and a restore a ``checkpoint_restore`` event
+in ``events``; the restore and the final drain (``wait``, which the run
+loop calls after its last save) run under their own ``tracer`` spans,
+outside the loop's ``checkpoint`` span, so the goodput ledger books them.
 """
 
 from __future__ import annotations
@@ -131,10 +137,15 @@ class CheckpointManager:
     save's cost), and, once written, ``write_s``."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 save_interval_steps: int = 1):
+                 save_interval_steps: int = 1, events=None, tracer=None):
         if save_interval_steps < 1:
             raise ValueError(
                 f"save_interval_steps must be >= 1, got {save_interval_steps}")
+        from tpufw_torch.obs import events as events_mod
+        from tpufw_torch.obs import trace as trace_mod
+
+        self.events = events if events is not None else events_mod.NULL
+        self.tracer = tracer if tracer is not None else trace_mod.NULL
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
@@ -176,17 +187,22 @@ class CheckpointManager:
         t0 = time.perf_counter()
         if gang:
             # Rank 0's last write on disk before any rank looks.
-            self.wait()
+            self._join()
             self._barrier()
             self._gang_saved = True
         saved = step == self._pending or step in self.all_steps()
         if gang:
             gang_agree(int(saved), f"whether step {step} is on disk")
         if saved:
+            if force:
+                self.events.emit("checkpoint_save", step=step, forced=True,
+                                 saved=False)
             return False
+        self.events.emit("checkpoint_save", step=step, forced=force,
+                         saved=True)
         if callable(state):
             state = state()
-        self.wait()
+        self._join()
         record = {"step": step, "wait_s": time.perf_counter() - t0,
                   "pin_s": 0.0}
         self._record = record
@@ -283,7 +299,12 @@ class CheckpointManager:
                           ignore_errors=True)
 
     def wait(self) -> None:
-        """Block until the save in flight is on disk; re-raise its error."""
+        """Block until the save in flight is on disk; re-raise its error
+        (the run loop's final drain, under a ``checkpoint_wait`` span)."""
+        with self.tracer.span("checkpoint_wait"):
+            self._join()
+
+    def _join(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
@@ -301,10 +322,16 @@ class CheckpointManager:
         gang's restore: no rank holds the whole state on its device).
         Raises FileNotFoundError when there is none, ValueError when a
         tensor's bits changed."""
-        self.wait()
+        self._join()
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        with self.tracer.span("checkpoint_restore", step=step):
+            state = self._read(step, device, mapped)
+        self.events.emit("checkpoint_restore", step=step)
+        return state
+
+    def _read(self, step: int, device, mapped: bool) -> dict:
         path = os.path.join(self.directory, str(step))
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)

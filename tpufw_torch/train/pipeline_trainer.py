@@ -74,12 +74,15 @@ from tpufw_torch.train.checkpoint import (
     config_identity,
 )
 from tpufw_torch.train.metrics import Meter, StepMetrics
+from tpufw_torch.obs import Telemetry
 from tpufw_torch.train.trainer import (
     TrainerConfig,
     batch_to_device,
     default_optimizer,
+    emit_eval,
     run_evaluation,
     run_steps,
+    start_telemetry,
 )
 from tpufw_torch.utils.hardware import detect_chip, resolve_device
 
@@ -165,6 +168,9 @@ class PipelineTrainer:
         self.step = 0
         self.preempted = False
         self.checkpointer = None
+        # The run's Telemetry (Trainer's discipline): the shared
+        # disabled one between runs.
+        self.telemetry = Telemetry.disabled()
 
     # -- state ---------------------------------------------------------
 
@@ -409,24 +415,48 @@ class PipelineTrainer:
         """Train up to ``total_steps`` (a restored run trains what is
         left) through ``run_steps``: a ``StepMetrics`` per host sync,
         the held-out evaluation every ``eval_every`` steps, checkpoints
-        and the SIGTERM stop."""
-        if self.params is None:
-            self.init_state()
-        meter = Meter(
-            tokens_per_step=self.cfg.batch_size * (self.cfg.seq_len - 1),
-            flops_per_token=model_flops_per_token,
-            chip=detect_chip(self.device),
-            n_gpus=sharding.world_size() if self.gang.active else 1,
-        )
+        and the SIGTERM stop; ``tpufw``'s telemetry as ``Trainer.run``'s,
+        the step program ``pipeline_step``, plus the analytic bubble
+        gauge and a ``pipeline_tick`` span (the window's step time over
+        the schedule's ticks) per window."""
+        tel = start_telemetry(
+            self, f"pipeline:{type(self.model_cfg).__name__}",
+            {"trainer": dataclasses.asdict(self.cfg),
+             "pipeline": dataclasses.asdict(self.pipe)})
+        try:
+            if self.params is None:
+                self.init_state()
+            meter = Meter(
+                tokens_per_step=self.cfg.batch_size * (self.cfg.seq_len - 1),
+                flops_per_token=model_flops_per_token,
+                chip=detect_chip(self.device),
+                n_gpus=sharding.world_size() if self.gang.active else 1,
+                registry=tel.registry,
+            )
+        except BaseException:
+            tel.close()
+            raise
+        if tel.registry is not None:
+            tel.registry.gauge(
+                "tpufw_pipeline_bubble_fraction",
+                "Analytic pipeline bubble fraction of the active schedule",
+            ).set(self.pipe.bubble_fraction())
 
         def after_sync():
             every = self.cfg.eval_every
             if every and eval_data is not None and not self.step % every:
                 ev = self.evaluate(eval_data(), self.cfg.eval_batches)
                 ev["step"] = self.step
+                emit_eval(tel, ev)
                 if on_eval:
                     on_eval(ev)
 
+        def on_window(sm):
+            tel.tracer.complete(
+                "pipeline_tick", sm.step_time_s / max(1, self.pipe.n_ticks()))
+
         return run_steps(self, data, meter, on_metrics, shutdown,
-                         after_sync=after_sync, log_every=self.cfg.log_every)
+                         after_sync=after_sync, log_every=self.cfg.log_every,
+                         telemetry=tel, program="pipeline_step",
+                         workload="train_pipeline", on_window=on_window)
 

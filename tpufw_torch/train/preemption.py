@@ -35,8 +35,12 @@ class GracefulShutdown:
     nothing is installed and ``request()`` is the only trigger.
     """
 
-    def __init__(self, signals: tuple = (signal.SIGTERM,), sync_every: int = 1):
+    def __init__(self, signals: tuple = (signal.SIGTERM,), sync_every: int = 1,
+                 events=None):
         self._flag = threading.Event()
+        # An obs event log (or None): the signal itself is logged, so the
+        # gap between SIGTERM and the gang's agreed stop step shows.
+        self.events = events
         self._prev: dict = {}
         self._signals = tuple(signals)
         if sync_every < 1:
@@ -52,6 +56,13 @@ class GracefulShutdown:
 
     def _handle(self, signum, frame):
         self._flag.set()
+        if self.events is not None:
+            try:
+                self.events.emit(
+                    "preemption_signal", level="warn", signum=int(signum)
+                )
+            except Exception:  # noqa: BLE001 — never die in a handler
+                pass
         prev = self._prev.get(signum)
         if callable(prev):
             prev(signum, frame)
@@ -111,23 +122,30 @@ class GracefulShutdown:
 
 def owned_shutdown(
     shutdown: Optional[GracefulShutdown], enabled: bool, sync_every: int,
+    events=None,
 ) -> tuple[Optional[GracefulShutdown], bool]:
     """A ``GracefulShutdown`` made here when the caller passed none and
     the config enables handling: (shutdown, owns). The owner must
     ``uninstall()`` it in the run loop's ``finally``."""
     if shutdown is not None or not enabled:
         return shutdown, False
-    return GracefulShutdown(sync_every=sync_every), True
+    return GracefulShutdown(sync_every=sync_every, events=events), True
 
 
 def checkpoint_stop(
     shutdown: Optional[GracefulShutdown], ckpt, step: int, state,
+    watchdog=None,
 ) -> bool:
     """The per-step stop block of the train loop: on stop, a forced
     checkpoint of ``step`` (when there is a manager; ``state`` may be a
-    callable that makes it). True when the loop should break."""
+    callable that makes it). True when the loop should break.
+    ``watchdog`` (an obs ``HangWatchdog``) is disarmed before the forced
+    save: it races the SIGKILL grace window with no bounded duration,
+    so it must not read as a hang."""
     if shutdown is None or not shutdown.should_stop():
         return False
+    if watchdog is not None:
+        watchdog.disarm()
     if ckpt is not None:
         ckpt.save(step, state, force=True)
     return True

@@ -16,7 +16,10 @@ every ``eval_every`` steps at those sync points. At the same points it
 checkpoints (``train.checkpoint``, every ``checkpoint_every`` steps) and
 stops on SIGTERM with a forced save (``train.preemption``);
 ``maybe_restore`` resumes from the latest checkpoint, ``init_from_params``
-starts from bare params.
+starts from bare params. ``cfg.telemetry_dir``, ``metrics_port`` and
+``profile_dir`` turn on ``tpufw``'s telemetry (``run_steps``: events,
+spans, goodput, skew, the counted first step's costs, a ``torch.profiler``
+window, the ``/metrics`` server).
 
 Data and FSDP parallelism: when a ``torch.distributed`` process group is
 initialized, ``Trainer`` builds the model whole on its rank's device (from
@@ -109,9 +112,12 @@ from tpufw_torch.train.checkpoint import (
     config_to_dict,
     load_params,
 )
+from tpufw_torch.obs import Telemetry
+from tpufw_torch.obs.perf import resolve_profile_window
 from tpufw_torch.train.metrics import Meter, StepMetrics, timed_batches
 from tpufw_torch.train.preemption import checkpoint_stop, owned_shutdown
 from tpufw_torch.utils.hardware import detect_chip, resolve_device
+from tpufw_torch.utils.profiling import StepProfiler
 
 
 def frozen_copy(model, dtype: torch.dtype):
@@ -523,6 +529,14 @@ def run_evaluation(data, n_batches, eval_batch_fn) -> dict:
     }
 
 
+def emit_eval(tel: Telemetry, ev: dict) -> None:
+    """The ``eval`` event of one held-out evaluation (its numbers, as
+    ``tpufw``'s ``maybe_inloop_eval`` logs them)."""
+    tel.events.emit("eval", **{
+        k: v if isinstance(v, int) else round(float(v), 6)
+        for k, v in ev.items() if isinstance(v, (int, float))})
+
+
 def batch_to_device(batch: dict, device: torch.device) -> dict:
     """Numpy arrays or tensors (e.g. from ``prefetch_to_device``, then
     already there) on ``device``."""
@@ -533,77 +547,199 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     }
 
 
+def mesh_label(trainer) -> str:
+    """Compact mesh label for the ``tpufw_run_info`` gauge, ``tpufw``'s
+    form: ``fsdp=4`` / ``data=2,fsdp=2`` (size-1 axes left out), the
+    local groups and pipeline stages one process holds likewise;
+    ``single`` for one unsplit device."""
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is not None:
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    else:
+        sizes = {g.axis: g.size for g in getattr(trainer, "groups", ())}
+        pipe = getattr(trainer, "pipe", None)
+        if pipe is not None:
+            sizes = {"pipe": pipe.n_stages, **sizes}
+    return ",".join(f"{k}={v}" for k, v in sizes.items() if v > 1) or (
+        "single")
+
+
+def start_telemetry(trainer, model: str, config: dict) -> Telemetry:
+    """The run's ``Telemetry`` from ``trainer.cfg``'s knobs (the shared
+    disabled one when they are all off), its run info and config
+    recorded; set as ``trainer.telemetry``. Made first in ``run``, so a
+    restore in ``init_state`` is in its log."""
+    cfg = trainer.cfg
+    tel = trainer.telemetry = Telemetry.create(
+        telemetry_dir=cfg.telemetry_dir,
+        metrics_port=cfg.metrics_port,
+        straggler_factor=cfg.straggler_factor,
+        device=trainer.device,
+    )
+    tel.set_run_info(backend=trainer.device.type, mesh=mesh_label(trainer),
+                     model=model)
+    tel.record_config(config)
+    return tel
+
+
 def run_steps(trainer, data: Iterator[dict], meter: Meter,
               on_metrics: Callable[[StepMetrics], None] | None = None,
               shutdown=None, after_sync: Callable[[], None] | None = None,
-              log_every: int = 1) -> list[StepMetrics]:
-    """The step loop of ``Trainer`` and ``VisionTrainer``:
-    ``trainer.train_step`` on each batch until ``trainer.cfg.total_steps``
-    (a restored trainer's ``step`` counts towards it), the host synced on
-    the loss after the first step, at multiples of ``cfg.sync_every`` (so
-    an aligned evaluation or checkpoint fires) and after the last, each
-    sync metering its window of steps as one ``StepMetrics`` (passed to
-    ``on_metrics`` every ``log_every`` steps, or every window when
-    ``sync_every`` > 1). At each sync point, after the metrics:
-    ``after_sync()``, a checkpoint of ``trainer.state_dict`` when
-    ``cfg.checkpoint_dir`` is set and the step is a multiple of
-    ``checkpoint_every``, then a stop request (``shutdown``, or the
-    SIGTERM handler that ``cfg.handle_preemption`` installs) ends the
-    loop with a forced save and ``trainer.preempted`` set. Saves stay
-    outside the metered window; the last one is on disk on return."""
+              log_every: int = 1, telemetry: Telemetry | None = None,
+              program: str = "train_step", workload: str = "train",
+              on_window: Callable[[StepMetrics], None] | None = None,
+              ) -> list[StepMetrics]:
+    """The step loop of ``Trainer``, ``PipelineTrainer`` and
+    ``VisionTrainer``: ``trainer.train_step`` on each batch until
+    ``trainer.cfg.total_steps`` (a restored trainer's ``step`` counts
+    towards it), the host synced on the loss after the first step, at
+    multiples of ``cfg.sync_every`` (so an aligned evaluation or
+    checkpoint fires) and after the last, each sync metering its window
+    of steps as one ``StepMetrics`` (passed to ``on_metrics`` every
+    ``log_every`` steps, or every window when ``sync_every`` > 1). At
+    each sync point, after the metrics: ``after_sync()``, a checkpoint of
+    ``trainer.state_dict`` when ``cfg.checkpoint_dir`` is set and the
+    step is a multiple of ``checkpoint_every``, then a stop request
+    (``shutdown``, or the SIGTERM handler that ``cfg.handle_preemption``
+    installs) ends the loop with a forced save and ``trainer.preempted``
+    set. Saves stay outside the metered window; the last one is on disk
+    on return.
+
+    ``telemetry`` (``tpufw``'s instrumentation, the same events, spans
+    and series; closed on return): ``run_start``/``step``/``run_end``
+    events, the ``data_fetch``, ``step_dispatch``, ``host_sync``,
+    ``eval``, ``checkpoint`` and ``preemption_sync`` spans, the hang
+    watchdog armed from each dispatch to its window's sync, the skew
+    monitor at each sync, ``program``'s costs counted on the first step
+    (``obs.perf.observe_step``: a real step, kept out of the Meter's
+    statistics) and its MFU at each later window, ``on_window(sm)``
+    inside the sync span, and the profiler's window of steps
+    (``cfg.profile_*``, ``TPUFW_PROFILE_STEPS``)."""
     cfg = trainer.cfg
+    tel = telemetry if telemetry is not None else Telemetry.disabled()
     trainer.preempted = False
     ckpt = None
     if cfg.checkpoint_dir:
         ckpt = CheckpointManager(cfg.checkpoint_dir,
-                                 save_interval_steps=cfg.checkpoint_every)
+                                 save_interval_steps=cfg.checkpoint_every,
+                                 events=tel.events, tracer=tel.tracer)
     trainer.checkpointer = ckpt
+    prof = StepProfiler(
+        *resolve_profile_window(
+            getattr(cfg, "profile_dir", None),
+            getattr(cfg, "profile_start", 3),
+            getattr(cfg, "profile_stop", 6),
+            telemetry_dir=getattr(cfg, "telemetry_dir", None),
+        ),
+        rank=torch.distributed.get_rank() if sharding.active() else 0,
+    )
     shutdown, owns_shutdown = owned_shutdown(
-        shutdown, cfg.handle_preemption, cfg.preemption_sync_every)
-    remaining = max(0, cfg.total_steps - trainer.step)
+        shutdown, cfg.handle_preemption, cfg.preemption_sync_every,
+        events=tel.events)
+    start_step = trainer.step
+    remaining = max(0, cfg.total_steps - start_step)
     se = max(1, cfg.sync_every)
-    window_n, window_wait = 0, 0.0
+    window_n, window_wait, counted = 0, 0.0, False
     history: list[StepMetrics] = []
     m = None
+    tel.events.emit(
+        "run_start", workload=workload, start_step=start_step,
+        total_steps=cfg.total_steps, batch_size=cfg.batch_size,
+        seq_len=getattr(cfg, "seq_len", None), sync_every=se,
+        n_chips=meter.n_gpus,
+    )
+
+    def record_window() -> StepMetrics:
+        # One host sync: meter.stop's float(loss) is the barrier; the
+        # step event, the skew gather and the MFU ride it.
+        with tel.tracer.span("host_sync"):
+            sm = meter.stop(trainer.step, m["loss"], data_wait_s=window_wait,
+                            n_steps=window_n, warmup=counted)
+            tel.events.emit(
+                "step", step=sm.step, loss=round(sm.loss, 6),
+                step_time_s=round(sm.step_time_s, 6),
+                data_wait_s=round(sm.data_wait_s, 6), mfu=round(sm.mfu, 5),
+                tokens_per_sec_per_chip=round(sm.tokens_per_sec_per_gpu, 1),
+                window_steps=sm.window_steps,
+            )
+            if tel.skew is not None:
+                tel.skew.record(sm.step, sm.step_time_s * sm.window_steps,
+                                sm.data_wait_s)
+            if on_window is not None:
+                on_window(sm)
+            if not counted:
+                tel.perf.record_wall(program, sm.step_time_s)
+        return sm
+
     try:
         for i, (wait, batch) in enumerate(timed_batches(data)):
             if i >= remaining:
                 break
-            if window_n == 0:
-                meter.start()
-            m = trainer.train_step(batch)
-            window_n += 1
-            window_wait += wait
+            tel.tracer.complete("data_fetch", wait)
+            # Watchdog window: dispatch through the host sync (data
+            # fetch, eval and checkpoints have no progress guarantee).
+            tel.watchdog.arm()
+            with tel.tracer.span("step_dispatch"):
+                prof.maybe_start(i)
+                if window_n == 0:
+                    meter.start()
+                counted = counted or tel.perf.will_observe(program)
+                with prof.step(i):
+                    m = tel.perf.observe_step(program, trainer.train_step,
+                                              batch)
+                window_n += 1
+                window_wait += wait
+                prof.maybe_stop(i)
             if not (i == 0 or trainer.step % se == 0 or i + 1 == remaining):
+                tel.watchdog.disarm()
                 continue
-            sm = meter.stop(trainer.step, m["loss"], data_wait_s=window_wait,
-                            n_steps=window_n)
-            window_n, window_wait = 0, 0.0
+            sm = record_window()
+            tel.watchdog.disarm()
+            window_n, window_wait, counted = 0, 0.0, False
             history.append(sm)
             if on_metrics and (se > 1 or i % log_every == 0):
                 on_metrics(sm)
             if after_sync is not None:
-                after_sync()
+                with tel.tracer.span("eval"):
+                    after_sync()
             if ckpt is not None:
-                ckpt.save(trainer.step, trainer.state_dict)
-            if checkpoint_stop(shutdown, ckpt, trainer.step,
-                               trainer.state_dict):
+                with tel.tracer.span("checkpoint"):
+                    ckpt.save(trainer.step, trainer.state_dict)
+            # The gang's decision: every rank breaks at one step or none.
+            with tel.tracer.span("preemption_sync"):
+                stop = checkpoint_stop(shutdown, ckpt, trainer.step,
+                                       trainer.state_dict,
+                                       watchdog=tel.watchdog)
+            if stop:
                 trainer.preempted = True
+                tel.events.emit("preemption_stop", level="warn",
+                                step=trainer.step)
                 break
         if window_n:
             # The iterator ended mid-window: meter the steps it ran.
-            sm = meter.stop(trainer.step, m["loss"], data_wait_s=window_wait,
-                            n_steps=window_n)
+            tel.watchdog.arm()
+            sm = record_window()
+            tel.watchdog.disarm()
             history.append(sm)
             if on_metrics:
                 on_metrics(sm)
             if ckpt is not None:
-                ckpt.save(trainer.step, trainer.state_dict)
+                with tel.tracer.span("checkpoint"):
+                    ckpt.save(trainer.step, trainer.state_dict)
     finally:
+        # Flush even on a mid-loop crash: the trace and the last
+        # checkpoint are what a post-mortem needs.
+        prof.close()
         if ckpt is not None:
             ckpt.close()
         if owns_shutdown:
             shutdown.uninstall()
+        tel.events.emit(
+            "run_end", steps=len(history),
+            last_step=history[-1].step if history else start_step,
+            preempted=trainer.preempted,
+        )
+        tel.close()
     return history
 
 
@@ -642,6 +778,25 @@ class TrainerConfig:
     # preemption_sync_every steps.
     handle_preemption: bool = True
     preemption_sync_every: int = 1
+    # torch.profiler capture of steps [profile_start, profile_stop) into
+    # profile_dir (None disables; TPUFW_PROFILE_STEPS=a:b overrides the
+    # window and, without a dir, captures under telemetry_dir/profile).
+    # Step 0 is outside the default window.
+    profile_dir: Optional[str] = None
+    profile_start: int = 3
+    profile_stop: int = 6
+    # Telemetry (tpufw_torch.obs): telemetry_dir writes events.jsonl,
+    # trace.json, goodput.json, programs.json and a final metrics.prom
+    # per rank (-p<N> names above rank 0); metrics_port serves the
+    # registry at /metrics (0: an ephemeral port, read from
+    # Trainer.telemetry.bound_port). Set both alike on every rank: the
+    # skew monitor's per-window gather is a collective. Both off: shared
+    # no-op objects in the loop.
+    telemetry_dir: Optional[str] = None
+    metrics_port: Optional[int] = None
+    # A rank is flagged (straggler_detected, warn) when its sync
+    # window's wall time exceeds the gang's median by this factor.
+    straggler_factor: float = 2.0
 
 
 def on_mesh(method):
@@ -728,6 +883,9 @@ class Trainer:
         self.preempted = False
         # The last run()'s CheckpointManager (its saves' numbers).
         self.checkpointer = None
+        # The run's Telemetry, made per run() from the cfg knobs; the
+        # shared disabled one between runs, so probes never branch.
+        self.telemetry = Telemetry.disabled()
 
     @staticmethod
     def _local_groups(groups) -> tuple:
@@ -1029,19 +1187,29 @@ class Trainer:
         checkpoints and the SIGTERM stop. ``eval_data`` makes a fresh
         held-out iterator per evaluation, run at the sync points whose
         step is a multiple of ``eval_every``; ``on_eval`` receives each
-        result with its "step"."""
-        if self.model is None:
-            self.init_state()
-        meter = Meter(
-            tokens_per_step=self.cfg.batch_size * (self.cfg.seq_len - 1),
-            flops_per_token=model_flops_per_token,
-            chip=detect_chip(self.device),
-            n_gpus=sharding.world_size() if self.gang else 1,
-        )
+        result with its "step". ``cfg.telemetry_dir``, ``metrics_port``
+        and ``profile_dir`` turn on ``tpufw``'s telemetry
+        (``run_steps``)."""
+        tel = start_telemetry(
+            self, type(self.model_cfg).__name__.removesuffix("Config"),
+            {"trainer": dataclasses.asdict(self.cfg)})
+        try:
+            if self.model is None:
+                self.init_state()
+            meter = Meter(
+                tokens_per_step=self.cfg.batch_size * (self.cfg.seq_len - 1),
+                flops_per_token=model_flops_per_token,
+                chip=detect_chip(self.device),
+                n_gpus=sharding.world_size() if self.gang else 1,
+                registry=tel.registry,
+            )
+        except BaseException:
+            tel.close()
+            raise
         return run_steps(self, data, meter, on_metrics, shutdown,
                          after_sync=lambda: self._maybe_eval(eval_data,
                                                              on_eval),
-                         log_every=self.cfg.log_every)
+                         log_every=self.cfg.log_every, telemetry=tel)
 
     def _maybe_eval(self, eval_data, on_eval) -> None:
         every = self.cfg.eval_every
@@ -1049,5 +1217,6 @@ class Trainer:
             return
         ev = self.evaluate(eval_data(), self.cfg.eval_batches)
         ev["step"] = self.step
+        emit_eval(self.telemetry, ev)
         if on_eval:
             on_eval(ev)

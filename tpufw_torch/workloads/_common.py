@@ -1,7 +1,7 @@
 """Shared scaffolding of the training entry points (port of
 ``tpufw.workloads._common``): the JSON-lines telemetry channel, the
 global-batch contract, the resumed run's data seed, the post-training
-data paths' tokenizer and the preemption line."""
+data paths' tokenizer and the preemption and telemetry lines."""
 
 from __future__ import annotations
 
@@ -77,6 +77,15 @@ def report_preemption(trainer) -> None:
     if getattr(trainer, "preempted", False):
         print(json.dumps({"preempted": True, "step": int(trainer.step)}),
               flush=True)
+
+
+def report_telemetry(trainer) -> None:
+    """One JSON line pointing at the run's telemetry artifacts
+    (events.jsonl and trace.json under TPUFW_TELEMETRY_DIR), so log
+    scrapers find them without knowing the env."""
+    tel = getattr(trainer, "telemetry", None)
+    if tel is not None and getattr(tel, "out_dir", None):
+        print(json.dumps({"telemetry_dir": tel.out_dir}), flush=True)
 
 
 def print_summary(history: list[StepMetrics]) -> None:

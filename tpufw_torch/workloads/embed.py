@@ -98,6 +98,7 @@ def main() -> int:
 
     from tpufw_torch.cluster import initialize_cluster
     from tpufw_torch.train.contrastive import _fit, pair_batches, read_pairs
+    from tpufw_torch.utils.profiling import enable_compile_cache
     from tpufw_torch.workloads._common import (
         check_global_batch,
         metrics_printer,
@@ -106,6 +107,7 @@ def main() -> int:
         resume_data_seed,
     )
 
+    cache = enable_compile_cache()
     cluster = initialize_cluster(device=env_str("device", "cuda"))
     trainer, model_cfg = build_trainer(cluster)
     mesh = (dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))
@@ -115,7 +117,8 @@ def main() -> int:
           f"device={trainer.device} mesh={mesh} "
           f"params={model_cfg.n_params():,} "
           f"pooling={trainer.contrastive.pooling} "
-          f"causal={getattr(model_cfg, 'causal', True)}", flush=True)
+          f"causal={getattr(model_cfg, 'causal', True)}"
+          + (f" compile_cache={cache}" if cache else ""), flush=True)
     if trainer.maybe_restore():
         print(f"resumed from checkpoint at step {trainer.step}", flush=True)
     else:

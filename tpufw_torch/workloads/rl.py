@@ -145,8 +145,10 @@ def build_trainer(cluster=None):
 
 def main() -> int:
     from tpufw_torch.cluster import initialize_cluster, resolve_cluster_env
+    from tpufw_torch.utils.profiling import enable_compile_cache
     from tpufw_torch.workloads._common import report_preemption, resolve_encode
 
+    cache = enable_compile_cache()
     cluster = resolve_cluster_env()
     if cluster.num_processes > 1:
         raise NotImplementedError(
@@ -159,7 +161,8 @@ def main() -> int:
             if trainer.gang else {})
     print(f"tpufw_torch rl: rank {cluster.rank}/{cluster.world_size} "
           f"device={trainer.device} mesh={mesh} "
-          f"params={model_cfg.n_params():,}", flush=True)
+          f"params={model_cfg.n_params():,}"
+          + (f" compile_cache={cache}" if cache else ""), flush=True)
     seed = env_int("seed", 0)
     init_from = env_str("init_from", "")
     if init_from:
@@ -194,7 +197,8 @@ def main() -> int:
         if not first:
             first["t"] = time.time()
             print(json.dumps({"cold_start_to_first_step_s":
-                              round(first["t"] - _T0, 1)}), flush=True)
+                              round(first["t"] - _T0, 1),
+                              "compile_cache": cache or None}), flush=True)
         print(json.dumps(entry), flush=True)
 
     # Each step takes a contiguous (wrapping) window of the prompt set.

@@ -60,9 +60,15 @@ this process as one replica role or the front-door router
 ``tpufw_torch.serve.router``), and ``_SlotScheduler(page_export=)`` hands
 every retiring paged row's exported pages to a hook.
 
-Not ported yet, and refused with ``NotImplementedError``: telemetry of
-the monolithic server (``TPUFW_TELEMETRY_DIR``, so ``GET /debug/profile``
-answers 404; ROADMAP.md Queue 1 item 13).
+Telemetry (``tpufw``'s knobs and files): ``TPUFW_TELEMETRY_DIR`` gives the
+server an event log, a span trace (``trace-serve.json``), the goodput
+tables (``goodput.json``, ``tpufw_goodput_ratio``,
+``tpufw_badput_seconds_total``), ``programs.json`` (each decode chunk
+length's counted costs and MFU), a crash bundle on an abnormal exit, the
+``TPUFW_HANG_TIMEOUT_S`` watchdog around each scheduler pass, and
+``GET /debug/profile?seconds=N`` (a ``torch.profiler`` capture of the
+whole process, the scheduler thread's kernels included); without it that
+route answers 404. ``TPUFW_COMPILE_CACHE_DIR`` as in ``train_llama``.
 """
 
 from __future__ import annotations
@@ -84,7 +90,6 @@ from tpufw_torch.workloads.env import (
     env_float,
     env_int,
     env_str,
-    refuse_unported,
 )
 
 _T0 = time.time()
@@ -904,7 +909,18 @@ class _SlotScheduler:
         spec_min_accept: Optional[float] = None,
         spec_draft_built=None,
         prefill_chunk_pages: Optional[int] = None,
+        events=None,
+        tracer=None,
+        goodput=None,
+        watchdog=None,
+        perf=None,
     ):
+        from tpufw_torch.obs import events as obs_events
+        from tpufw_torch.obs import goodput as obs_goodput
+        from tpufw_torch.obs import perf as obs_perf
+        from tpufw_torch.obs import trace as obs_trace
+        from tpufw_torch.obs.health import NULL_WATCHDOG
+
         self.model = model
         self._eos = eos_id
         self._default_sampling = (
@@ -914,6 +930,15 @@ class _SlotScheduler:
         )
         self._metrics = metrics
         self._seed_base = seed_base
+        # Telemetry (the server's TPUFW_TELEMETRY_DIR; shared no-ops
+        # without it): events, spans, the goodput split of each chunk,
+        # the hang watchdog around each admit + chunk, and the decode
+        # chunks' counted costs and MFU.
+        self._events = events if events is not None else obs_events.NULL
+        self._tracer = tracer if tracer is not None else obs_trace.NULL
+        self._goodput = goodput if goodput is not None else obs_goodput.NULL
+        self._watchdog = watchdog if watchdog is not None else NULL_WATCHDOG
+        self._perf = perf if perf is not None else obs_perf.NULL
         # Disaggregated handoff hook: called with (job, state) for every
         # naturally completing paged row, ``state`` being the slot's
         # export_slot() taken BEFORE the slot is released.
@@ -1261,7 +1286,10 @@ class _SlotScheduler:
                 # the same first admission round.
                 time.sleep(self.wait_s)
             # Autograd state is thread-local: this thread runs every
-            # device call, so it turns gradients off for itself.
+            # device call, so it turns gradients off for itself. The
+            # watchdog window is one admit + one chunk, a bounded amount
+            # of device work; idle waiting above stays disarmed.
+            self._watchdog.arm()
             with torch.no_grad():
                 try:
                     self._admit()
@@ -1269,6 +1297,8 @@ class _SlotScheduler:
                         self._run_chunk()
                 except Exception as e:  # noqa: BLE001 — serving loop
                     self._fail_active(e)
+                finally:
+                    self._watchdog.disarm()
         self._fail_all(RuntimeError("the serving scheduler is closed"))
 
     def _generator(self, stream: int, index: int):
@@ -1290,11 +1320,7 @@ class _SlotScheduler:
         return self.spec_k
 
     def _build_pool(self, key) -> None:
-        from tpufw_torch.infer import AcceptEMA, SamplingConfig
-        from tpufw_torch.infer.pages import PagedSlotPool
-        from tpufw_torch.infer.slots import SlotPool
-
-        cache_len, sampling = key
+        cache_len = key[0]
         if self.page and self._pool is not None:
             self._peak_pages = max(
                 self._peak_pages, self._pool.allocator.peak_in_use
@@ -1303,6 +1329,19 @@ class _SlotScheduler:
         self._pool = None
         self._draft_pool = None
         self._ema = None
+        with self._tracer.span("serve_pool_build", cache_len=cache_len,
+                               slots=self.n_slots):
+            self._make_pools(key)
+        self._events.emit(
+            "serve_pool_switch", cache_len=cache_len, slots=self.n_slots
+        )
+
+    def _make_pools(self, key) -> None:
+        from tpufw_torch.infer import AcceptEMA, SamplingConfig
+        from tpufw_torch.infer.pages import PagedSlotPool
+        from tpufw_torch.infer.slots import SlotPool
+
+        cache_len, sampling = key
         if self.page:
             self._pool = PagedSlotPool.create_paged(
                 self.model,
@@ -1397,6 +1436,10 @@ class _SlotScheduler:
         cache_cap = self._pool.cache_len
         pool_sampling = self._pool.sampling
         free = [i for i, j in enumerate(self._slots) if j is None]
+        with self._tracer.span("serve_admit", queued=len(queue)):
+            self._admit_queue(queue, free, pool_sampling, cache_cap)
+
+    def _admit_queue(self, queue, free, pool_sampling, cache_cap) -> None:
         budget_closed = False
         blocked: Optional[_SlotReq] = None
         for req in queue:
@@ -1569,22 +1612,27 @@ class _SlotScheduler:
                     "prefix_hits_total" if shared_n
                     else "prefix_misses_total"
                 )
+            self._events.emit("serve_prefix", hit=shared_n > 0,
+                              shared_pages=shared_n,
+                              prompt_tokens=len(job.prompt))
         prefill_t0 = time.perf_counter()
-        if grant is not None and shared_n > 0:
-            cache, _first, first_int, _done, seen = pool.prefill_shared(
-                job.prompt, page_ids[:shared_n], gen
-            )
-        else:
-            cache, _first, first_int, _done, seen = prefill_row(
-                self.model,
-                job.prompt,
-                gen,
-                sampling=pool.sampling,
-                eos_id=self._eos,
-                pad_to=job.p_bucket,
-                prefill_chunk_size=self.prefill_chunk,
-                cache_len=pool.cache_len,
-            )
+        with self._tracer.span("serve_prefill", prompt=len(job.prompt),
+                               width=job.p_bucket):
+            if grant is not None and shared_n > 0:
+                cache, _first, first_int, _done, seen = pool.prefill_shared(
+                    job.prompt, page_ids[:shared_n], gen
+                )
+            else:
+                cache, _first, first_int, _done, seen = prefill_row(
+                    self.model,
+                    job.prompt,
+                    gen,
+                    sampling=pool.sampling,
+                    eos_id=self._eos,
+                    pad_to=job.p_bucket,
+                    prefill_chunk_size=self.prefill_chunk,
+                    cache_len=pool.cache_len,
+                )
         if self.latency_breakdown and self._metrics is not None:
             self._metrics.registry.histogram(
                 "tpufw_serve_prefill_seconds"
@@ -1711,7 +1759,11 @@ class _SlotScheduler:
         progressed = False
         for slot, job in [(i, j) for i, j in enumerate(self._slots)
                           if j is not None and j.cp is not None]:
-            status = self._pool.chunk_step(job.cp)
+            t0 = time.perf_counter()
+            with self._tracer.span("serve_prefill_chunk", slot=slot,
+                                   cursor=job.cp.cursor,
+                                   prompt=len(job.prompt)):
+                status = self._pool.chunk_step(job.cp)
             if status == "stalled":
                 # The arena is full for now: the row keeps its slot and
                 # retries next pass.
@@ -1721,6 +1773,12 @@ class _SlotScheduler:
                 self._metrics.registry.counter(
                     "tpufw_prefill_chunks_total"
                 ).inc()
+            self._events.emit(
+                "serve_prefill_chunk", prompt_tokens=len(job.prompt),
+                cursor=job.cp.cursor,
+                chunk_s=round(time.perf_counter() - t0, 6),
+                final=status == "done", slot=slot,
+            )
             if status == "done":
                 self._finalize_chunked(slot, job)
         self._set_prefill_inflight()
@@ -1783,9 +1841,19 @@ class _SlotScheduler:
             self._chunk_index += 1
         gen = self._generator(_CHUNK_STREAM, chunk_index)
         snap = self._page_snapshot(active)
+        program = f"serve_decode_k{k}"
         chunk_t0 = time.perf_counter()
-        out = self._pool.decode_steps(k, gen).tolist()  # one host sync
-        self.decode_s += time.perf_counter() - chunk_t0
+        with self._tracer.span("serve_decode_chunk", k=k, rows=len(active)):
+            # The first chunk of each k is counted (obs.perf): its costs,
+            # then each chunk's wall, give the program's MFU.
+            counted = self._perf.will_observe(program)
+            out = self._perf.observe_step(
+                program, self._pool.decode_steps, k, gen
+            ).tolist()  # one host sync
+        chunk_s = time.perf_counter() - chunk_t0
+        if not counted:
+            self._perf.record_wall(program, chunk_s)
+        self.decode_s += chunk_s
         self.decode_steps_run += k
         live_tokens = self._deliver(active, [row[:k] for row in out], snap)
         if self._metrics is not None:
@@ -1794,6 +1862,10 @@ class _SlotScheduler:
             self._metrics.inc(
                 "wasted_slot_steps_total", self.n_slots * k - live_tokens
             )
+        # Goodput: the chunk's wall split by the same capacity count.
+        live_frac = live_tokens / (self.n_slots * k)
+        self._goodput.add("busy", chunk_s * live_frac)
+        self._goodput.add("wasted_slot", chunk_s * (1.0 - live_frac))
 
     def _run_spec_chunk(self, active) -> None:
         """One speculative pass over every occupied slot: draft spec_k
@@ -1808,18 +1880,25 @@ class _SlotScheduler:
         gen = self._generator(_CHUNK_STREAM, chunk_index)
         snap = self._page_snapshot(active)
         chunk_t0 = time.perf_counter()
-        if self._draft_pool is not None:
-            out, n_emit, accept = self._pool.spec_draft_steps(
-                self._draft_pool, gen, k
-            )
-        else:
-            props = np.zeros((self.n_slots, k), np.int64)
-            for slot, job in active:
-                props[slot] = ngram_propose(list(job.prompt) + job.tokens, k)
-            out, n_emit, accept = self._pool.spec_steps(props, gen)
-        # One host sync for the pass.
-        res = torch.cat([out, n_emit[:, None], accept[:, None]], 1).tolist()
-        self.spec_s += time.perf_counter() - chunk_t0
+        with self._tracer.span("serve_spec_chunk", k=k, rows=len(active)):
+            if self._draft_pool is not None:
+                out, n_emit, accept = self._pool.spec_draft_steps(
+                    self._draft_pool, gen, k
+                )
+            else:
+                props = np.zeros((self.n_slots, k), np.int64)
+                for slot, job in active:
+                    props[slot] = ngram_propose(
+                        list(job.prompt) + job.tokens, k)
+                out, n_emit, accept = self._pool.spec_steps(props, gen)
+            # One host sync for the pass.
+            res = torch.cat([out, n_emit[:, None], accept[:, None]],
+                            1).tolist()
+        chunk_s = time.perf_counter() - chunk_t0
+        self._perf.record_wall(
+            f"serve_spec_draft_k{k}" if self._draft_pool is not None
+            else f"serve_spec_k{k}", chunk_s)
+        self.spec_s += chunk_s
         self.spec_passes += 1
         rows = [r[: r[k + 1]] for r in res]
         accepts = {slot: res[slot][k + 2] for slot, _ in active}
@@ -1850,6 +1929,11 @@ class _SlotScheduler:
                 sum(k - a for a in accepts.values())
                 * 2.0 * self._draft_n_params
             )
+        self._events.emit("serve_spec", k=k, mode="pass", rows=len(active),
+                          accept_rate=round(accept_frac / len(active), 4))
+        live_frac = live_tokens / (self.n_slots * (k + 1))
+        self._goodput.add("busy", chunk_s * live_frac)
+        self._goodput.add("wasted_slot", chunk_s * (1.0 - live_frac))
 
     def _page_snapshot(self, active) -> dict:
         """{slot: page ids} of the active rows as the chunk launches, for
@@ -1920,6 +2004,11 @@ class _SlotScheduler:
                 self._queue.remove(req)
         pend = req.pend
         outs = [list(j.tokens[: j.max_new]) for j in req.jobs]
+        self._events.emit(
+            "serve_request", rows=len(req.jobs),
+            new_tokens=sum(len(o) for o in outs),
+            latency_s=round(time.time() - req.t_submit, 6),
+        )
         if pend.stream_q is not None:
             self._flush_stream(req)
             pend.stream_q.put(("done", sum(len(o) for o in outs)))
@@ -1984,8 +2073,6 @@ class _Server:
 
     def __init__(self, port: int, max_new_tokens: int, model=None,
                  draft_model=None):
-        if env_str("telemetry_dir", ""):
-            refuse_unported("telemetry_dir", "serving telemetry", "13")
         self._sampling = sampling_from_env()
         if model is None:
             model, self.cfg, self.restored = build_generator()
@@ -1996,6 +2083,7 @@ class _Server:
         self.default_new = max_new_tokens
         self._eos_id = eos_from_env()
         self.metrics = _Metrics()
+        self._tel = self._start_telemetry(port, max_new_tokens)
         draft = (
             build_draft_generator(model.cfg.max_seq_len)
             if draft_model is None
@@ -2033,6 +2121,11 @@ class _Server:
                 default_sampling=self._sampling,
                 metrics=self.metrics,
                 seed_base=self._seed_base,
+                events=self._tel.events,
+                tracer=self._tel.tracer,
+                goodput=self._tel.goodput,
+                watchdog=self._tel.watchdog,
+                perf=self._tel.perf,
                 **spec_kw,
             )
         else:
@@ -2041,6 +2134,45 @@ class _Server:
             )
         if env_int("warmup", 1):
             self._warmup()
+
+    def _start_telemetry(self, port: int, max_new_tokens: int):
+        """The server's Telemetry under ``TPUFW_TELEMETRY_DIR`` (the
+        shared disabled one without it), mounted on the server's own
+        registry so ``/metrics`` and the snapshot render one truth: the
+        event log, a span trace capped at 100,000 events
+        (``trace-serve.json``: a server runs indefinitely, the
+        interesting spans are at the head), the goodput ledger (busy,
+        wasted slots, idle), the crash flight recorder (``role="serve"``
+        terminates on SIGTERM after flushing), the
+        ``TPUFW_HANG_TIMEOUT_S`` watchdog, and the profiler behind
+        ``/debug/profile``. Closed by ``shutdown`` or at exit."""
+        from tpufw_torch.obs import Telemetry
+
+        tdir = env_str("telemetry_dir", "")
+        if not tdir:
+            return Telemetry.disabled()
+        import atexit
+
+        tel = Telemetry.create(
+            telemetry_dir=tdir,
+            role="serve",
+            registry=self.metrics.registry,
+            trace_name="trace-serve.json",
+            trace_max_events=100_000,
+            device=self.model.device,
+        )
+        tel.set_run_info(backend=self.model.device.type,
+                         model=type(self.model).__name__, mesh="serve")
+        tel.record_config({"serve": {
+            "port": port,
+            "max_new_tokens": max_new_tokens,
+            "slots": env_int("serve_slots", 8),
+            "chunk": env_int("serve_chunk", 0) or env_int("stream_chunk", 16),
+            "page": env_int("serve_page", 0),
+            "kv_quant": env_str("serve_kv_quant", ""),
+        }})
+        atexit.register(tel.close)
+        return tel
 
     def _warmup(self) -> None:
         """Warm-up before the listener binds, so the first live request
@@ -2282,6 +2414,7 @@ class _Server:
             self.httpd.shutdown()
             self.httpd.server_close()
         self._batcher.close()
+        self._tel.close()
 
     def _parse_request(self, req: dict):
         """(prompts, max_new, sampling, decode or None) of a /generate
@@ -2360,6 +2493,10 @@ class _Server:
                         "uptime_s": round(time.time() - _T0, 1),
                     })
                 elif self.path == "/metrics":
+                    # Goodput is refreshed at scrape time too (the ledger
+                    # otherwise publishes only at close, and a server
+                    # rarely closes).
+                    outer._tel.goodput.publish()
                     body = outer.metrics.render(
                         outer._gauge_values()
                     ).encode()
@@ -2372,8 +2509,22 @@ class _Server:
                     self.end_headers()
                     self.wfile.write(body)
                 elif self.path.split("?", 1)[0] == "/debug/profile":
-                    # The JAX server's answer without telemetry.
-                    self._reply(404, {"error": "profiler not configured"})
+                    # On-demand torch.profiler capture (the training
+                    # metrics server's contract); 404 without telemetry.
+                    profiler = outer._tel.profiler
+                    if profiler is None:
+                        self._reply(404,
+                                    {"error": "profiler not configured"})
+                        return
+                    from urllib.parse import parse_qs, urlsplit
+
+                    q = parse_qs(urlsplit(self.path).query)
+                    try:
+                        seconds = float(q.get("seconds", ["2.0"])[0])
+                    except ValueError:
+                        seconds = 2.0
+                    result = profiler.trigger(seconds)
+                    self._reply(409 if "error" in result else 200, result)
                 else:
                     self._reply(404, {"error": "unknown path"})
 
@@ -2486,6 +2637,9 @@ def main() -> int:
         from tpufw_torch.serve.roles import main_role
 
         return main_role(role)
+    from tpufw_torch.utils.profiling import enable_compile_cache
+
+    enable_compile_cache()
     max_new = env_int("max_new_tokens", 16)
     port = env_int("serve_port", 0)
     if port:

@@ -76,10 +76,21 @@ LoRA, DPO or distillation raise ``NotImplementedError`` naming
 ROADMAP.md Queue 1 item 12g; axes that do not fit the world raise
 ``ValueError``.
 
+Telemetry (``tpufw``'s knobs and files): ``TPUFW_TELEMETRY_DIR``
+(events.jsonl, trace.json, goodput.json, programs.json and metrics.prom,
+``-p<N>`` names above rank 0), ``TPUFW_METRICS_PORT`` (``/metrics`` and
+``/debug/profile``; 0 picks a free port; rank r binds the port plus its
+``LOCAL_RANK``), ``TPUFW_STRAGGLER_FACTOR`` (2.0),
+``TPUFW_PROFILE_DIR`` with ``TPUFW_PROFILE_START`` (3) and
+``TPUFW_PROFILE_STOP`` (6), or ``TPUFW_PROFILE_STEPS=a:b`` (a
+``torch.profiler`` trace of those steps), ``TPUFW_HANG_TIMEOUT_S``,
+``TPUFW_HANG_ABORT``, ``TPUFW_CRASH_BUNDLE``, ``TPUFW_FLIGHT_RING`` and
+``TPUFW_PERF_OBS``; ``TPUFW_COMPILE_CACHE_DIR`` builds (and reuses) the
+CUDA kernels in a per-machine subdirectory of that directory.
+
 Not ported yet, and refused with ``NotImplementedError`` when set to
-anything but their defaults: ``TPUFW_CONFIG``,
-``TPUFW_PROFILE_DIR``, ``TPUFW_AUTOTUNE``, ``TPUFW_TELEMETRY_DIR``,
-``TPUFW_METRICS_PORT`` and ``TPUFW_STRAGGLER_FACTOR`` (item 13).
+anything but their defaults: ``TPUFW_CONFIG`` and ``TPUFW_AUTOTUNE``
+(ROADMAP.md Queue 1 item 13c).
 """
 
 from __future__ import annotations
@@ -92,6 +103,7 @@ from tpufw_torch.workloads.env import (
     env_bool,
     env_float,
     env_int,
+    env_opt_int,
     env_str,
     mesh_from_env,
     refuse_unported,
@@ -105,11 +117,7 @@ _T0 = time.time()
 # set to its default changes nothing there, so it passes here.
 _UNPORTED_KNOBS = (
     ("config", "the YAML run config", "13", ""),
-    ("profile_dir", "step profiling", "13", ""),
     ("autotune", "MFU autotuning", "13", "off"),
-    ("telemetry_dir", "training telemetry", "13", ""),
-    ("metrics_port", "the Prometheus /metrics server", "13", ""),
-    ("straggler_factor", "straggler detection", "13", "2.0"),
 )
 
 
@@ -192,6 +200,13 @@ def build_trainer(cluster=None):
                                    base.handle_preemption),
         preemption_sync_every=env_int("preemption_sync_every",
                                       base.preemption_sync_every),
+        profile_dir=env_str("profile_dir", "") or None,
+        profile_start=env_int("profile_start", base.profile_start),
+        profile_stop=env_int("profile_stop", base.profile_stop),
+        telemetry_dir=env_str("telemetry_dir", "") or None,
+        metrics_port=env_opt_int("metrics_port", base.metrics_port),
+        straggler_factor=env_float("straggler_factor",
+                                   base.straggler_factor),
     )
     device = local_device(cluster or resolve_cluster_env(),
                           env_str("device", "cuda"))
@@ -255,15 +270,19 @@ def main() -> int:
         prefetch_to_device,
         synthetic_batches,
     )
+    from tpufw_torch.utils.profiling import enable_compile_cache
     from tpufw_torch.workloads._common import (
         check_global_batch,
         metrics_printer,
         print_summary,
         report_preemption,
+        report_telemetry,
         resolve_encode,
         resume_data_seed,
     )
 
+    # Before any kernel build: a warm per-machine cache skips nvcc.
+    cache = enable_compile_cache()
     cluster = initialize_cluster(device=env_str("device", "cuda"))
     rank, world = cluster.rank, cluster.world_size
     trainer, model_cfg = build_trainer(cluster)
@@ -273,7 +292,8 @@ def main() -> int:
         f"tpufw_torch train_llama: process {cluster.process_id}/"
         f"{cluster.num_processes} rank {rank}/{world} "
         f"device={trainer.device} mesh={mesh} "
-        f"params={model_cfg.n_params():,}",
+        f"params={model_cfg.n_params():,}"
+        + (f" compile_cache={cache}" if cache else ""),
         flush=True,
     )
     from tpufw_torch.train import DistillTrainer, DPOTrainer
@@ -373,6 +393,7 @@ def main() -> int:
     if hasattr(data, "close"):
         data.close()  # stops the prefetch thread
     report_preemption(trainer)
+    report_telemetry(trainer)
     print_summary(history)
     if trainer.gang:
         import torch.distributed as dist

@@ -20,7 +20,11 @@ Knobs (``tpufw``'s names):
   TPUFW_EVAL_EVERY / TPUFW_EVAL_BATCHES, TPUFW_CHECKPOINT_DIR /
   TPUFW_CHECKPOINT_EVERY, TPUFW_HANDLE_PREEMPTION /
   TPUFW_PREEMPTION_SYNC_EVERY, TPUFW_SEED, TPUFW_DATA_SEED, TPUFW_DEVICE
-  (default ``cuda``; ``cpu`` for gloo).
+  (default ``cuda``; ``cpu`` for gloo); the telemetry knobs of
+  ``train_llama`` (TPUFW_TELEMETRY_DIR, TPUFW_METRICS_PORT,
+  TPUFW_STRAGGLER_FACTOR, TPUFW_PROFILE_DIR / _START / _STOP,
+  TPUFW_PROFILE_STEPS, TPUFW_HANG_TIMEOUT_S, ...) and
+  TPUFW_COMPILE_CACHE_DIR.
 
 A gang (``tpufw``'s cluster environment, as for ``train_llama``) lays its
 ranks out over ``TPUFW_MESH_DATA`` x pipe x ``TPUFW_MESH_FSDP`` (-1, the
@@ -42,7 +46,7 @@ the manual schedules; TPUFW_MESH_SEQUENCE above 1 (``tpufw``'s pipeline
 needs sequence 1);
 TPUFW_MOE_DISPATCH other than ``einsum`` (the pipelined MoE routes with
 the capacity router, which ``tpufw`` falls back to silently); and the
-knobs ``train_llama`` refuses (profiling, autotune, telemetry: item 13).
+knobs ``train_llama`` refuses (the YAML config and autotune: item 13c).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from tpufw_torch.workloads.env import (
     env_bool,
     env_float,
     env_int,
+    env_opt_int,
     env_str,
     mesh_from_env,
 )
@@ -118,6 +123,13 @@ def build_trainer(cluster=None):
                                    base.handle_preemption),
         preemption_sync_every=env_int("preemption_sync_every",
                                       base.preemption_sync_every),
+        profile_dir=env_str("profile_dir", "") or None,
+        profile_start=env_int("profile_start", base.profile_start),
+        profile_stop=env_int("profile_stop", base.profile_stop),
+        telemetry_dir=env_str("telemetry_dir", "") or None,
+        metrics_port=env_opt_int("metrics_port", base.metrics_port),
+        straggler_factor=env_float("straggler_factor",
+                                   base.straggler_factor),
     )
     # One process stands for the whole pipe and every tensor and expert
     # shard; a gang's ranks are devices.
@@ -135,14 +147,17 @@ def build_trainer(cluster=None):
 def main() -> int:
     from tpufw_torch.cluster import initialize_cluster
     from tpufw_torch.train import synthetic_batches
+    from tpufw_torch.utils.profiling import enable_compile_cache
     from tpufw_torch.workloads._common import (
         check_global_batch,
         metrics_printer,
         print_summary,
         report_preemption,
+        report_telemetry,
         resume_data_seed,
     )
 
+    cache = enable_compile_cache()
     cluster = initialize_cluster(device=env_str("device", "cuda"))
     trainer, model_cfg = build_trainer(cluster)
     mesh = (dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))
@@ -157,7 +172,8 @@ def main() -> int:
         f"microbatches={trainer.pipe.n_microbatches} "
         f"schedule={trainer.pipe.schedule} "
         f"bubble={trainer.pipe.bubble_fraction():.1%} "
-        f"params={model_cfg.n_params():,}",
+        f"params={model_cfg.n_params():,}"
+        + (f" compile_cache={cache}" if cache else ""),
         flush=True,
     )
     if trainer.maybe_restore():
@@ -185,6 +201,7 @@ def main() -> int:
         on_eval=lambda ev: print(json.dumps(ev), flush=True),
     )
     report_preemption(trainer)
+    report_telemetry(trainer)
     print_summary(history)
     if trainer.gang.active:
         import torch.distributed as dist

@@ -57,8 +57,10 @@ def main() -> int:
     from tpufw_torch.cluster import initialize_cluster
     from tpufw_torch.train import synthetic_images
     from tpufw_torch.train.vision import batch_rows
+    from tpufw_torch.utils.profiling import enable_compile_cache
     from tpufw_torch.workloads._common import report_preemption
 
+    enable_compile_cache()
     cluster = initialize_cluster(device=env_str("device", "cuda"))
     trainer, mcfg = build_trainer(cluster)
     cfg = trainer.cfg
