@@ -433,6 +433,27 @@ Phases, each fatal on failure:
     serve trace, goodput tables and decode programs are written. A
     ``telemetry_train``, ``telemetry_summary`` and ``telemetry_serve``
     line.
+21. The tensor and expert axes on the last paths, in one process
+    (``seq_tensor_phase``), each case trained from seed 0 unsplit and
+    split on the same batches, the flash counters zeroed just before each
+    run: 21a ``llama3_600m_bench`` at full width over
+    ``LocalTensorGroup(2)`` beside a ``LocalSequenceGroup(2)`` ring
+    (2048 trained positions, chunks of 1024), with ``ring`` (ring-flash)
+    and then ``ulysses``, against the same ring unsplit (d128 at 6/3
+    heads a shard); 21b the V2-Lite slice's layers over
+    ``LocalExpertGroup(2)`` beside the ring (MLA at d192, 32 routed
+    experts a shard); 21c ``llama3_8b_lora_train_slice``'s widths at
+    SEQTP_LORA_LAYERS layers over ``LocalTensorGroup(2)`` (the adapters
+    split with their weights; only the adapters move); 21d ViT-B/16 at
+    ``MeshConfig(tensor=2)`` (its heads, MLP and class head split; no
+    flash kernel on its path; its class head drawn nonzero). Checks:
+    split losses and grad norms (ViT: losses) within TENSOR_TOL of the
+    unsplit ones, each run's launches
+    the count of its shards, ring chunks and remat passes
+    (``seqtp_launches``), no other kernel launched. The kernels are first
+    checked against their plain versions at a shard's ring-chunk and
+    Ulysses shapes. A ``seq_tensor_summary`` line per case (step ms, peak
+    GB, ``card_state``).
 
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
@@ -447,9 +468,10 @@ and the head-dim-192 ones
 phase 16's runs by sub-phase and schedule; the head-dim-128 ones
 ``launches_gang_post``, phase 17's runs, GRPO's decode, scoring and
 updates apart; every kernel ``launches_tensor``, phase 18's split runs,
-and ``launches_tensor_post_pipeline``, phase 19's; the head-dim-128 ones
+``launches_tensor_post_pipeline``, phase 19's, and
+``launches_seq_tensor``, phase 21's; the head-dim-128 ones
 ``launches_telemetry``, phase 20's two train runs), a ``phase_seconds``
-line (each phase's wall seconds, phase 10's to 20's parts and the
+line (each phase's wall seconds, phase 10's to 21's parts and the
 total), the
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -5615,10 +5637,14 @@ def tensor_config(name, n_layers):
     return cfg, dict(loss_chunk_size=tcfg.loss_chunk_size)
 
 
-def tensor_run(torch, cfg, tkw, batches, groups, batch, seq) -> dict:
-    """One run of a phase-18 case: ``Trainer`` from seed 0 over ``groups``
-    (() unsplit) on ``batches``, the flash counters zeroed just before
-    ``run`` and read just after. Returns its summary."""
+def tensor_run(torch, cfg, tkw, batches, groups, batch, seq,
+               lora=False) -> dict:
+    """One run of a phase-18 or 21 case: ``Trainer`` from seed 0 over
+    ``groups`` (() unsplit; a ``LocalSequenceGroup`` among them is the
+    ring its attention runs over) on ``batches``, the flash counters
+    zeroed just before ``run`` and read just after. With ``lora``, its
+    "only_adapters_moved" (``_only_adapters_moved``'s counts and "ok").
+    Returns its summary."""
     from tpufw_torch.ops import flash
     from tpufw_torch.train import Trainer, TrainerConfig
 
@@ -5627,6 +5653,7 @@ def tensor_run(torch, cfg, tkw, batches, groups, batch, seq) -> dict:
                          log_every=1, handle_preemption=False, **tkw)
     trainer = Trainer(cfg, tcfg, device="cuda", groups=groups)
     trainer.init_state(seed=0)
+    before = _adapters_and_base(torch, trainer.model) if lora else None
     rec = _recorded(trainer, ("loss", "grad_norm"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5635,6 +5662,14 @@ def tensor_run(torch, cfg, tkw, batches, groups, batch, seq) -> dict:
         seq - 1))
     torch.cuda.synchronize()
     launches = {k: c for k, c in flash.LAUNCHES.items() if c}
+    moved = None
+    if lora:
+        try:
+            moved = _only_adapters_moved(torch, trainer.model, before) | {
+                "ok": True}
+        except AssertionError as e:
+            moved = {"ok": False, "error": str(e)}
+        del before
     step_ms = [1e3 * m.step_time_s for m in hist[1:]]
     out = {"groups": {g.axis: g.size for g in groups},
            "losses": [float(r["loss"]) for r in rec],
@@ -5644,6 +5679,8 @@ def tensor_run(torch, cfg, tkw, batches, groups, batch, seq) -> dict:
            "tokens_per_sec": [m.tokens_per_sec_per_gpu for m in hist[1:]],
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches}
+    if lora:
+        out["only_adapters_moved"] = moved
     del trainer, rec, hist
     gc.collect()
     torch.cuda.empty_cache()
@@ -6512,6 +6549,228 @@ def telemetry_phase(torch, kind, smi) -> dict:
                     for k, n in off["launches"].items()}}
 
 
+# ---------------------------------------------------------- phase 21
+
+# Phase 21: the tensor and expert axes beside a sequence ring, under LoRA
+# adapters and in the vision trainer, on one card in one process. Steps
+# a run, the ring's shards, and 21a-b's rows of SEQTP_SEQ tokens: 2048
+# trained positions, two ring chunks of 1024 (2047, phase 18's, do not
+# split in two).
+SEQTP_STEPS = 3
+SEQTP_RING = 2
+SEQTP_SEQ = RESUME_SEQ + 1
+SEQTP_LORA_LAYERS = 4
+SEQTP_VIT_BATCH = 64
+# Sub-phases 21a-c: name, (model, layers or None, batch, seq, backends,
+# (tensor, expert), ring shards).
+SEQTP_CASES = {
+    "21a": ("llama3_600m_bench", None, RESUME_BATCH, SEQTP_SEQ,
+            ("ring", "ulysses"), (2, 1), SEQTP_RING),
+    "21b": ("deepseek_v2_lite_train_slice", V2LITE_TRAIN_LAYERS, 2,
+            SEQTP_SEQ, ("ring",), (1, 2), SEQTP_RING),
+    "21c": ("llama3_8b_lora_train_slice", SEQTP_LORA_LAYERS, 2, 2048,
+            ("flash",), (2, 1), 1),
+}
+
+
+def seqtp_launches(torch, cfg, backend, ring, steps) -> list:
+    """The flash launches (forward, dQ, dK/dV) of ``steps`` unsplit
+    steps of ``cfg`` on ``backend`` over a ring of ``ring`` shards held in
+    one process, from the code: each layer's attention call launches, per
+    kernel, one per live chunk of the causal ring (``_expected_chunks``:
+    the diagonal chunks and those before them), one per head group of
+    Ulysses (its shards), one for ``flash``; the forward once more under
+    a remat policy that recomputes it ("dots", "nothing"). A split run
+    launches each once a tensor shard."""
+    if backend == "ring":
+        per_call = sum(_expected_chunks(ring, 0, None)[k]
+                       for k in ("fwd_full", "fwd_diag"))
+    else:
+        per_call = ring if backend == "ulysses" else 1
+    passes = 2 if cfg.remat and cfg.remat_policy in ("dots", "nothing") \
+        else 1
+    calls = cfg.n_layers * steps * per_call
+    return [passes * calls, calls, calls]
+
+
+def seqtp_config(name, layers, backend):
+    """(model config on ``backend``, trainer kwargs) of a 21a-c case."""
+    from tpufw_torch import configs
+
+    if layers is None:
+        cfg, tkw = configs.resolve_model_preset(name), dict(
+            loss_chunk_size=512)
+    else:
+        cfg, tcfg = getattr(configs, name)(layers)
+        tkw = dict(loss_chunk_size=tcfg.loss_chunk_size)
+    return dataclasses.replace(cfg, attention_backend=backend), tkw
+
+
+def seqtp_vit(torch, kind, smi) -> tuple[dict, bool]:
+    """21d: ViT-B/16 at SEQTP_VIT_BATCH images of 224 px, SEQTP_STEPS
+    steps of ``VisionTrainer`` (one warm-up step) unsplit and at
+    ``MeshConfig(tensor=2)`` from the same weights on the same images:
+    (summary line, passed): finite losses within TENSOR_TOL, no flash
+    launch (its attention is two matmuls). The weights are seed 0's with
+    the class head drawn at std 0.02 instead of zeros: a zero head
+    passes no gradient to the blocks, and the first steps' losses would
+    not see the split blocks at all."""
+    import itertools
+
+    from tpufw_torch.mesh import MeshConfig
+    from tpufw_torch.models import VIT_CONFIGS
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import (
+        VisionTrainer,
+        VisionTrainerConfig,
+        synthetic_images,
+    )
+    from tpufw_torch.train.vision import vision_model
+
+    cfg = VIT_CONFIGS["vit_b16"]
+    state = vision_model(cfg, "cuda", seed=0).state_dict()
+    state["head.weight"].normal_(0.0, 0.02, generator=torch.Generator(
+        device="cuda").manual_seed(21))
+    runs = {}
+    for tag, mesh in (("unsplit", None), ("split", MeshConfig(tensor=2,
+                                                              fsdp=1))):
+        trainer = VisionTrainer(cfg, VisionTrainerConfig(
+            batch_size=SEQTP_VIT_BATCH, image_size=224, num_classes=1000,
+            total_steps=SEQTP_STEPS, lr=1e-3, warmup_steps=1,
+            handle_preemption=False), mesh, device="cuda")
+        trainer.init_state(state_dict=state)
+        data = synthetic_images(SEQTP_VIT_BATCH, 224, 1000, seed=21,
+                                device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launch_counts()
+        hist = trainer.run(itertools.islice(data, SEQTP_STEPS),
+                           flops_per_image=cfg.flops_per_image(224))
+        torch.cuda.synchronize()
+        step_ms = [1e3 * m.step_time_s for m in hist[1:]]
+        runs[tag] = {"groups": {g.axis: g.size for g in trainer.groups},
+                     "losses": [m.loss for m in hist], "step_ms": step_ms,
+                     "median_step_ms": (statistics.median(step_ms)
+                                        if step_ms else None),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": {k: c for k, c in flash.LAUNCHES.items()
+                                  if c}}
+        del trainer, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+    del state
+    whole, split = runs["unsplit"], runs["split"]
+    d_loss = _mesh_diff(split["losses"], whole["losses"])
+    out = {"seq_tensor_summary": "21d", "model": "vit_b16",
+           "batch_size": SEQTP_VIT_BATCH, "image_size": 224,
+           "heads_per_shard": cfg.n_heads // 2, "unsplit": whole,
+           "split": split, "max_diff_losses": d_loss, "tol": TENSOR_TOL,
+           "predicted_launches": {}, "device": kind, "nvidia_smi": smi,
+           "card_state": nvidia_smi(CARD_STATE)}
+    good = (len(split["losses"]) == len(whole["losses"]) == SEQTP_STEPS
+            and all(math.isfinite(x) for x in whole["losses"]
+                    + split["losses"])
+            and d_loss <= TENSOR_TOL
+            and not whole["launches"] and not split["launches"])
+    return out, good
+
+
+def seq_tensor_phase(torch, kind, smi) -> dict:
+    """Phase 21: 21a ``llama3_600m_bench`` over ``LocalTensorGroup(2)``
+    beside a ``LocalSequenceGroup(2)`` ring, ``ring`` then ``ulysses``;
+    21b the V2-Lite slice over ``LocalExpertGroup(2)`` beside the ring;
+    21c the Llama-3-8B LoRA slice's widths over ``LocalTensorGroup(2)``
+    (only the adapters move); 21d ViT-B/16 at ``MeshConfig(tensor=2)``.
+    Each against its unsplit run (``_split_summary``; the ring is held
+    alike by both). The kernels are first checked against their plain
+    versions at a shard's ring-chunk and Ulysses shapes. Returns {case:
+    the split run's launches by kernel}; raises AssertionError."""
+    from tpufw_torch.ops import flash
+    from tpufw_torch.parallel import (
+        LocalExpertGroup,
+        LocalSequenceGroup,
+        LocalTensorGroup,
+    )
+    from tpufw_torch.train import synthetic_batches
+
+    emit({"phase21_allocated_at_start_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "card_state": nvidia_smi(CARD_STATE)})
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    chunk = (SEQTP_SEQ - 1) // SEQTP_RING
+    full = {"causal": False, "offset": chunk}
+    for case, (b, t, h, kh, d, pad_v, masks) in {
+            "seqtp_600m_ring_diag": (RESUME_BATCH, chunk, 6, 3, 128, 0,
+                                     {"causal": True}),
+            "seqtp_600m_ring_full": (RESUME_BATCH, chunk, 6, 3, 128, 0,
+                                     full),
+            "seqtp_600m_ulysses": (RESUME_BATCH, 2 * chunk, 3, 3, 128, 0,
+                                   {"causal": True}),
+            "seqtp_v2lite_ring_diag": (2, chunk, 16, 16, 192, 64,
+                                       {"causal": True}),
+            "seqtp_v2lite_ring_full": (2, chunk, 16, 16, 192, 64, full),
+            "seqtp_lora_8b_shard": (2, 2047, 16, 4, 128, 0,
+                                    {"causal": True})}.items():
+        x = [torch.randn(b, t, n, d, generator=gen, device="cuda").to(
+            torch.bfloat16) for n in (h, kh, kh, h)]
+        if pad_v:
+            x[2][..., d - pad_v:] = 0
+        check_kernels(torch, flash, case, *x, masks)
+        del x
+        torch.cuda.empty_cache()
+    launches, bad = {}, []
+    for sub, (model, layers, batch, seq, backends, (tp, ep), ring) in \
+            SEQTP_CASES.items():
+        t0 = time.perf_counter()
+        for backend in backends:
+            cfg, tkw = seqtp_config(model, layers, backend)
+            it = synthetic_batches(batch, seq, cfg.vocab_size, seed=21)
+            batches = [next(it) for _ in range(SEQTP_STEPS)]
+            rings = (LocalSequenceGroup(ring),) if ring > 1 else ()
+            groups = rings + tuple(
+                g for g in (LocalTensorGroup(tp), LocalExpertGroup(ep))
+                if g.size > 1)
+            lora = getattr(cfg, "lora_rank", 0) > 0
+            whole = tensor_run(torch, cfg, tkw, batches, rings, batch, seq,
+                               lora=lora)
+            split = tensor_run(torch, cfg, tkw, batches, groups, batch, seq,
+                               lora=lora)
+            d = head_dim_of(cfg)
+            tag = f"{sub}_{backend}" if len(backends) > 1 else sub
+            out, good = _split_summary(
+                flash, tag, d, whole, split, tp,
+                seqtp_launches(torch, cfg, backend, ring, SEQTP_STEPS),
+                {"model": model, "backend": backend, "ring": ring,
+                 "reduced": {"n_layers": [None, layers]} if layers else {},
+                 "n_layers": cfg.n_layers, "batch_size": batch,
+                 "seq_len": seq,
+                 "heads_per_shard": [cfg.n_heads // tp,
+                                     getattr(cfg, "n_kv_heads", cfg.n_heads)
+                                     // tp],
+                 "experts_per_shard": (cfg.n_experts // ep if ep > 1
+                                       else None),
+                 "device": kind, "nvidia_smi": smi})
+            out["seq_tensor_summary"] = out.pop("tensor_summary")
+            if lora:
+                good &= whole["only_adapters_moved"]["ok"] and \
+                    split["only_adapters_moved"]["ok"]
+            emit(out)
+            if not good:
+                bad.append(tag)
+            launches[tag] = split["launches"]
+        PHASE_SECONDS[sub] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, good = seqtp_vit(torch, kind, smi)
+    emit(out)
+    if not good:
+        bad.append("21d")
+    launches["21d"] = out["split"]["launches"]
+    PHASE_SECONDS["21d"] = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"phase 21: {bad} failed their checks")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6847,6 +7106,16 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    # 21. The tensor and expert axes beside a sequence ring, under LoRA
+    # and in the vision trainer, with phase 20's models freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        seq_tensor_launches = _timed("21", lambda: seq_tensor_phase(
+            torch, kind, smi))
+    except AssertionError as e:
+        return fail(str(e))
+
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -6916,6 +7185,12 @@ def main() -> int:
         kernels[-1]["launches_tensor_post_pipeline"] = {
             part: counts.get(name, 0)
             for part, counts in tensor_pipe_launches.items()}
+        # Phase 21's split runs: 21a llama3_600m_bench beside a ring
+        # (ring, ulysses; d128), 21b the V2-Lite slice beside it (d192),
+        # 21c the Llama-3-8B LoRA slice (d128), 21d ViT-B/16 (none).
+        kernels[-1]["launches_seq_tensor"] = {
+            part: counts.get(name, 0)
+            for part, counts in seq_tensor_launches.items()}
         # Phase 16's runs, by sub-phase and schedule (16a llama3_600m_bench
         # at head dim 128, 16b deepseek_mla_bench at 192), 4 steps each.
         kernels[-1]["launches_pipeline"] = {

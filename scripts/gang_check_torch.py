@@ -3,7 +3,7 @@ against one process on the same global batches.
 
     python3 scripts/gang_check_torch.py [--world 4] [--cpu] [--model NAME]
         [--batch 16] [--seq 2049] [--steps 3] [--tol 1e-3]
-        [--suite lm|post|tensor|pptp|all] [--telemetry DIR]
+        [--suite lm|post|tensor|pptp|seqtp|all] [--telemetry DIR]
 
 The parent builds the CUDA kernels, then starts ``--world`` ranks of this
 script on one host, told their rank as a per-GPU launcher tells them
@@ -56,8 +56,17 @@ against one unsplit process. The ``pptp`` suite
 (``--world 4``) trains ``llama3_600m_bench`` through GPipe and 1F1B on
 ``pipe=2`` by ``tensor=2`` (each rank one stage's tensor shard; 4
 microbatches of the global batch) against one process holding both
-stages unsplit. ``--suite all`` runs ``lm`` and ``post``, ``lm`` (the
-default) the first alone. ``--telemetry DIR`` turns the telemetry on in
+stages unsplit. The ``seqtp`` suite (``--world 4``) trains the model
+axes on the last paths, each against one unsplit process within
+``--tol``: ``sequence=2`` by ``tensor=2`` on ``llama3_600m_bench``
+(ring-flash, each rank half the heads and half of 8 rows of 2048 trained
+positions), ``sequence=2`` by ``expert=2`` on the V2-Lite slice (3
+layers, 2 rows), LoRA at ``tensor=2`` by ``fsdp=2`` on the Llama-3-8B
+LoRA slice's widths at 4 layers (4 rows of 2048), and ViT-B/16 at
+``tensor=2`` by ``fsdp=2`` (64 images of 224 px; losses only: its
+optimizer reports no norm); with ``--cpu`` on ``llama3_tiny``,
+``deepseek_moe_tiny`` and a tiny ViT. ``--suite all`` runs ``lm`` and
+``post``, ``lm`` (the default) the first alone. ``--telemetry DIR`` turns the telemetry on in
 the ``lm`` suite's runs: each run writes under ``DIR/<run>/`` every rank's
 ``events[-p<N>].jsonl``, trace, goodput, programs and metrics files, and
 its skew monitor gathers the ranks' window times at every sync; the
@@ -657,6 +666,166 @@ def _pptp_checks(args, ranks: list, dev) -> bool:
     return ok
 
 
+# The seqtp suite (``--world 4``): name: (model on GPUs, its layers or
+# None, model with --cpu, mesh, global batch, seq, attention backend); the
+# CPU rehearsal at 4 rows of 33 tokens, the LoRA run at rank 4.
+SEQTP_RUNS = {
+    "sequence2_tensor2": ("llama3_600m_bench", None, "llama3_tiny",
+                          dict(data=1, fsdp=1, sequence=2, tensor=2), 8,
+                          2049, "ring"),
+    "sequence2_expert2": ("deepseek_v2_lite_train_slice", 3,
+                          "deepseek_moe_tiny",
+                          dict(data=1, fsdp=1, sequence=2, expert=2), 2,
+                          2049, "ring"),
+    "lora_tensor2_fsdp2": ("llama3_8b_lora_train_slice", 4, "llama3_tiny",
+                           dict(data=1, fsdp=2, tensor=2), 4, 2048,
+                           "flash"),
+}
+# ViT-B/16 at tensor=2 x fsdp=2: (name, mesh, images, image size) on GPUs
+# (a tiny ViT of 32 px, 8 images, with --cpu).
+SEQTP_VIT = ("vit_tensor2_fsdp2", dict(data=1, fsdp=2, tensor=2), 64, 224)
+
+
+def _seqtp_setup(args, name):
+    """(model config, TrainerConfig, the global batches) of a seqtp LM
+    run."""
+    import dataclasses
+
+    gpu_model, layers, cpu_model, _, batch, seq, backend = SEQTP_RUNS[name]
+    if args.cpu:
+        batch, seq = 4, 33
+    cfg, tcfg, batches = _setup(argparse.Namespace(**dict(
+        vars(args), model=cpu_model if args.cpu else gpu_model,
+        batch=batch, seq=seq)))
+    over = {"attention_backend": backend}
+    if layers is not None and not args.cpu:
+        over["n_layers"] = layers
+    if name.startswith("lora") and args.cpu:
+        over["lora_rank"] = 4
+    return dataclasses.replace(cfg, **over), tcfg, batches
+
+
+def _seqtp_vit(args, dev, mesh) -> dict:
+    """ViT-B/16 (a tiny ViT with --cpu) through ``VisionTrainer`` over
+    ``mesh`` (a MeshConfig; None: one process, unsplit) for ``--steps``
+    steps (one warm-up), each rank its batch shard's rows of the same
+    images."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from tpufw_torch.models import VIT_CONFIGS
+    from tpufw_torch.train import (
+        VisionTrainer,
+        VisionTrainerConfig,
+        synthetic_images,
+    )
+    from tpufw_torch.train.vision import batch_rows
+
+    _, _, images, size = SEQTP_VIT
+    cfg = VIT_CONFIGS["vit_b16"]
+    if args.cpu:
+        images, size = 8, 32
+        cfg = dataclasses.replace(cfg, image_size=size, patch_size=8,
+                                  d_model=64, n_layers=2, n_heads=4,
+                                  d_ff=128, dtype=torch.float32)
+    from tpufw_torch.train.vision import vision_model
+
+    # Seed 0's weights with the class head drawn at std 0.02: a zero head
+    # passes the blocks no gradient, and the first steps would not see
+    # them.
+    state = vision_model(cfg, dev, seed=0).state_dict()
+    state["head.weight"].normal_(0.0, 0.02, generator=torch.Generator(
+        device=dev).manual_seed(21))
+    tr = VisionTrainer(cfg, VisionTrainerConfig(
+        batch_size=images, image_size=size, num_classes=1000,
+        total_steps=args.steps, lr=1e-3, warmup_steps=1,
+        handle_preemption=False), mesh, device=dev)
+    tr.init_state(state_dict=state)
+    del state
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    data = synthetic_images(images, size, 1000, seed=21, device=dev)
+    hist = tr.run(batch_rows(itertools.islice(data, args.steps),
+                             *tr.batch_shard()),
+                  flops_per_image=cfg.flops_per_image(size))
+    return {"losses": [m.loss for m in hist], "grad_norms": [],
+            "step_ms": [1e3 * m.step_time_s for m in hist],
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+                        else None),
+            "mesh": (dict(zip(tr.mesh.mesh_dim_names, tr.mesh.shape))
+                     if tr.gang else {}),
+            "images": images, "image_size": size}
+
+
+def _seqtp_runs(args, dev, gang: bool) -> dict:
+    """Each seqtp run's numbers: over its mesh in the gang (a rank's), or
+    in one process unsplit."""
+    import torch
+
+    from tpufw_torch.mesh import MeshConfig
+    from tpufw_torch.train import Trainer
+
+    out = {}
+    for name, (_, _, _, mesh, _, _, _) in SEQTP_RUNS.items():
+        cfg, tcfg, batches = _seqtp_setup(args, name)
+        trainer = Trainer(cfg, tcfg, MeshConfig(**mesh) if gang else None,
+                          device=dev)
+        trainer.init_state(seed=0)
+        pairs, step_ms, peak = _run(trainer, _rows(trainer, batches))
+        out[name] = {"losses": [p[0] for p in pairs],
+                     "grad_norms": [p[1] for p in pairs],
+                     "step_ms": step_ms, "peak_gb": peak,
+                     "mesh": (dict(zip(trainer.mesh.mesh_dim_names,
+                                       trainer.mesh.shape))
+                              if trainer.gang else {}),
+                     "global_batch": tcfg.batch_size,
+                     "seq_len": tcfg.seq_len}
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    name, mesh, _, _ = SEQTP_VIT
+    out[name] = _seqtp_vit(args, dev, MeshConfig(**mesh) if gang else None)
+    return out
+
+
+def _seqtp_checks(args, ranks: list, dev) -> bool:
+    """One JSON line per seqtp run: the ranks agree, and rank 0's losses
+    and grad norms (ViT: losses) are within ``--tol`` of one unsplit
+    process's."""
+    import torch
+
+    ok = True
+    single = _seqtp_runs(args, torch.device(dev), gang=False)
+    for name, run in ranks[0].items():
+        want = single[name]
+        same = all(r[name]["losses"] == run["losses"] for r in ranks)
+        d_loss = _rel(run["losses"], want["losses"])
+        d_norm = (_rel(run["grad_norms"], want["grad_norms"])
+                  if want["grad_norms"] else 0.0)
+        good = same and len(run["losses"]) == args.steps and \
+            max(d_loss, d_norm) <= args.tol
+        ok &= good
+        model = (SEQTP_RUNS[name][2 if args.cpu else 0]
+                 if name in SEQTP_RUNS else "vit_b16")
+        emit({"check": f"gang_{name}_vs_one_process", "ok": good,
+              "world": args.world, "mesh": run["mesh"], "model": model,
+              **{k: run[k] for k in ("global_batch", "seq_len", "images",
+                                     "image_size") if k in run},
+              "ranks_equal": same, "losses_gang": run["losses"],
+              "losses_one_process": want["losses"],
+              "grad_norms_gang": run["grad_norms"],
+              "grad_norms_one_process": want["grad_norms"],
+              "max_rel_diff_loss": d_loss, "max_rel_diff_grad_norm": d_norm,
+              "tol": args.tol, "step_ms_gang_rank0": run["step_ms"],
+              "peak_gb_gang_rank0": run["peak_gb"],
+              "step_ms_one_process": want["step_ms"],
+              "peak_gb_one_process": want["peak_gb"]})
+    return ok
+
+
 def _rows(trainer, batches) -> list:
     """This rank's rows of each global batch: its batch shard's."""
     shard, n_shards = trainer.batch_shard()
@@ -696,7 +865,11 @@ def rank_main(args) -> int:
         with open(os.path.join(args.out, f"rank{rank}_pptp.json"),
                   "w") as f:
             json.dump(_pptp_runs(args, dev, gang=True), f)
-    if args.suite in ("post", "tensor", "pptp"):
+    if args.suite == "seqtp":
+        with open(os.path.join(args.out, f"rank{rank}_seqtp.json"),
+                  "w") as f:
+            json.dump(_seqtp_runs(args, dev, gang=True), f)
+    if args.suite in ("post", "tensor", "pptp", "seqtp"):
         dist.destroy_process_group()
         return 0
     cfg, tcfg, batches = _setup(args)
@@ -877,7 +1050,7 @@ def parent_main(args) -> int:
             torch.load(os.path.join(args.out, f"rank{r}_post.pt"),
                        weights_only=False) for r in range(args.world)],
             _post_runs(args, torch.device(dev)))
-    if args.suite in ("tensor", "pptp"):
+    if args.suite in ("tensor", "pptp", "seqtp"):
         ranks = []
         for r in range(args.world):
             with open(os.path.join(args.out,
@@ -888,9 +1061,11 @@ def parent_main(args) -> int:
                                          if k in TENSOR_RUNS}
                                         for r in ranks], dev)
             ok &= _post_tensor_checks(args, ranks, dev)
+        elif args.suite == "seqtp":
+            ok &= _seqtp_checks(args, ranks, dev)
         else:
             ok &= _pptp_checks(args, ranks, dev)
-    if args.suite in ("post", "tensor", "pptp"):
+    if args.suite in ("post", "tensor", "pptp", "seqtp"):
         return _finish(args, ok, gang_s, tmp)
     ranks = []
     for r in range(args.world):
@@ -984,13 +1159,15 @@ def main() -> int:
     ap.add_argument("--tol", type=float, default=1e-3)
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--suite", choices=("lm", "post", "tensor", "pptp",
-                                        "all"),
+                                        "seqtp", "all"),
                     default="lm",
                     help="lm: the LM meshes, pipelines and stop; post: E5, "
                     "GRPO and ResNet-50 over the whole batch; tensor: the "
                     "tensor and expert axes and the post-trainers over "
                     "them (--world 4); pptp: pipelines over pipe=2 x "
-                    "tensor=2 (--world 4); all: lm and post")
+                    "tensor=2 (--world 4); seqtp: tensor and expert beside "
+                    "a sequence ring, LoRA and ViT over tensor (--world "
+                    "4); all: lm and post")
     ap.add_argument("--telemetry", metavar="DIR",
                     help="lm suite: the runs' telemetry under DIR/<run>/ "
                     "(every rank's events, traces, goodput, skew), checked "
@@ -1004,10 +1181,10 @@ def main() -> int:
         args.telemetry = os.path.abspath(args.telemetry)
         if args.suite not in ("lm", "all"):
             ap.error("--telemetry instruments the lm suite's runs")
-    if args.suite in ("tensor", "pptp") and args.world != 4:
+    if args.suite in ("tensor", "pptp", "seqtp") and args.world != 4:
         ap.error(f"--suite {args.suite} runs meshes of four ranks (tensor=2 "
-                 "x fsdp=2, expert=2 x tensor=2, pipe=2 x tensor=2): it "
-                 "needs --world 4")
+                 "x fsdp=2, expert=2 x tensor=2, pipe=2 x tensor=2, "
+                 "sequence=2 x tensor=2): it needs --world 4")
     if args.batch % args.world:
         ap.error(f"--batch {args.batch} must divide over --world "
                  f"{args.world}")

@@ -110,15 +110,18 @@ def test_mesh_shape_is_data_by_fsdp(kw, world, shape):
                                        ("expert", "12e")])
 def test_later_axes_refused(axis, item):
     """Item 12e (``item``) made ``tensor`` and ``expert`` mesh dimensions,
-    in ``tpufw``'s axis order; beside a ``sequence`` axis above 1 they
-    are refused, naming item 12g."""
+    in ``tpufw``'s axis order; since item 12g they sit beside a
+    ``sequence`` axis above 1 too, still in that order (no longer
+    refused)."""
     assert item == "12e"
     assert mesh_shape(MeshConfig(**{axis: 2, "fsdp": 2}), 4) == dict(
         {"data": 1, "fsdp": 2}, **({"expert": 2, "sequence": 1}
                                    if axis == "expert" else
                                    {"sequence": 1, "tensor": 2}))
-    with pytest.raises(NotImplementedError, match=r"item 12g\)$"):
-        mesh_shape(MeshConfig(**{axis: 2, "fsdp": 1, "sequence": 2}), 4)
+    beside = mesh_shape(MeshConfig(**{axis: 2, "fsdp": 1, "sequence": 2}), 4)
+    assert list(beside.items()) == [("data", 1), ("fsdp", 1)] + (
+        [("expert", 2), ("sequence", 2)] if axis == "expert" else
+        [("sequence", 2), ("tensor", 2)])
     # A fill that resolves to one device is no such axis.
     assert mesh_shape(MeshConfig(**{axis: -1, "fsdp": 4}), 4) == {
         "data": 1, "fsdp": 4, "sequence": 1}

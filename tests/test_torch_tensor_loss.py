@@ -9,8 +9,9 @@
   value and gradient, with the z-loss and Gemma's final soft cap, at
   tensor 2 and 4;
 - the divisibility ``ValueError``s name the dimension and the axis;
-- every path not ported to the axes yet raises ``NotImplementedError``
-  naming ROADMAP.md Queue 1 item 12g.
+- the paths item 12g lifted take the axes, and the splits refused by
+  design (int8 weights) or in ``tpufw``'s words (the sorted dispatch on
+  an expert axis) still raise.
 """
 
 import dataclasses
@@ -35,7 +36,6 @@ from tpufw_torch.parallel import LocalExpertGroup, LocalTensorGroup
 from tpufw_torch.parallel.tensor import check_divisible, cut_model
 from tpufw_torch.train import Trainer, TrainerConfig
 
-ITEM = r"item 12g\)$"
 
 
 def test_logical_axis_rules_are_tpufws():
@@ -206,67 +206,72 @@ def _post_trainer(name):
             "embed": train.EmbeddingTrainer}[name]
 
 
-@pytest.mark.parametrize("case", [
-    "lora", "lora_forward", "lora_moe_forward", "int8_forward",
-    "sorted_expert", "vision", "mesh_sequence",
-])
+@pytest.mark.parametrize("case", ["int8_forward", "sorted_expert"])
 def test_unported_paths_name_item_12g(case, monkeypatch):
-    """Each path the axes do not reach yet refuses them, naming 12g, in
-    the trainers and, for a model driven under the groups directly, in
-    the split modules (LoRA adapters, int8 weights); the sorted dispatch
-    refuses a resolved expert axis in ``tpufw``'s words."""
+    """The splits that stay refused now that item 12g is closed (their
+    refusals named it until then): int8 weights under a split, by design
+    (a serving form; serving runs unsplit), for a model driven under the
+    groups directly; and the sorted dispatch on a resolved expert axis,
+    in ``tpufw``'s words."""
     tcfg = TrainerConfig(batch_size=2, seq_len=9)
-    tp2 = (LocalTensorGroup(2),)
     for k in [k for k in __import__("os").environ if k.startswith("TPUFW_")]:
         monkeypatch.delenv(k)
-    if case == "lora":
-        cfg = dataclasses.replace(PRESETS["llama3_tiny"], lora_rank=4)
-        with pytest.raises(NotImplementedError, match=ITEM):
-            Trainer(cfg, tcfg, device="cpu", groups=tp2)
-    elif case.endswith("_forward"):
+    if case == "int8_forward":
         from tpufw_torch.models import model_for_config
         from tpufw_torch.parallel.context import use_groups
 
-        preset, over, groups = {
-            "lora_forward": ("llama3_tiny", {"lora_rank": 4}, tp2),
-            "lora_moe_forward": ("mixtral_tiny", {"lora_rank": 4},
-                                 (None, LocalExpertGroup(2))),
-            "int8_forward": ("llama3_tiny", {"quantized_weights": True},
-                             tp2),
-        }[case]
-        cfg = dataclasses.replace(PRESETS[preset], **over)
+        cfg = dataclasses.replace(PRESETS["llama3_tiny"],
+                                  quantized_weights=True)
         model = model_for_config(cfg, device="cpu")
-        what = "int8 weights" if "int8" in case else "LoRA adapters"
-        with use_groups(*groups), pytest.raises(
-                NotImplementedError, match=f"with {what} .*{ITEM}"):
+        with use_groups(LocalTensorGroup(2)), pytest.raises(
+                NotImplementedError, match=r"^a QuantProjection with int8 "
+                r"weights split over \{'tensor': 2\}: int8 weights are a "
+                r"serving form, and serving runs unsplit") as got:
             model(torch.zeros(1, 4, dtype=torch.long))
-    elif case == "sorted_expert":
+        assert "12g" not in str(got.value)
+    else:
         cfg = dataclasses.replace(PRESETS["mixtral_tiny"],
                                   moe_dispatch="sorted")
         with pytest.raises(ValueError, match="cannot shard the expert"):
             Trainer(cfg, tcfg, device="cpu", groups=(LocalExpertGroup(2),))
-    elif case == "vision":
-        from tpufw_torch.models import VIT_CONFIGS
-        from tpufw_torch.train import VisionTrainer, VisionTrainerConfig
 
-        with pytest.raises(NotImplementedError, match=ITEM):
-            VisionTrainer(VIT_CONFIGS["vit_s16"], VisionTrainerConfig(),
-                          MeshConfig(tensor=2, fsdp=1), device="cpu")
-    elif case == "mesh_sequence":
-        with pytest.raises(NotImplementedError, match=ITEM):
-            mesh_shape(MeshConfig(sequence=2, fsdp=1, tensor=2), 4)
+
+def _lora_forward(preset, groups):
+    """(split, unsplit) logits of ``preset`` with rank-4 adapters (B drawn
+    nonzero) under one process's ``groups``."""
+    from tpufw_torch.models import model_for_config
+    from tpufw_torch.parallel.context import use_groups
+
+    cfg = dataclasses.replace(PRESETS[preset], lora_rank=4,
+                              dtype=torch.float32)
+    model = model_for_config(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if k.endswith("_lora_b"):
+                p.normal_(0.0, 0.05, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    with torch.no_grad():
+        want = model(tokens)
+        with use_groups(**{g.axis: g for g in groups}):
+            got = model(tokens)
+    return got, want
 
 
 @pytest.mark.parametrize("case", [
     "dpo", "distill", "grpo", "embed", "pipeline_trainer", "mesh_pipe",
-    "rl_workload", "batch_env", "pipeline_env",
+    "rl_workload", "batch_env", "pipeline_env", "lora", "lora_forward",
+    "lora_moe_forward", "vision", "mesh_sequence",
 ])
 def test_lifted_paths_take_the_axes(case, monkeypatch):
-    """The paths that refused the axes naming 12g until items 12g-1 and
-    12g-2 take them: the post-trainers (their log-prob, KL and pooling
-    heads over the shards), the pipeline trainer and mesh (tensor and
-    expert inside the stages), and the ``rl``, ``embed`` and
-    ``train_pipeline`` knobs."""
+    """The paths that refused the axes naming 12g until items 12g-1,
+    12g-2 and 12g-3 take them: the post-trainers (their log-prob, KL and
+    pooling heads over the shards), the pipeline trainer and mesh (tensor
+    and expert inside the stages), the ``rl``, ``embed`` and
+    ``train_pipeline`` knobs; LoRA under the split (the trainer, and a
+    model driven under the groups: the adapters ride their weights'
+    shards), the vision trainer under ``tensor``, and the model axes
+    beside a ``sequence`` axis in a mesh's shape."""
     tcfg = TrainerConfig(batch_size=2, seq_len=9)
     for k in [k for k in __import__("os").environ if k.startswith("TPUFW_")]:
         monkeypatch.delenv(k)
@@ -291,6 +296,39 @@ def test_lifted_paths_take_the_axes(case, monkeypatch):
     elif case == "mesh_pipe":
         assert mesh_shape(MeshConfig(pipe=2, fsdp=1, expert=2), 4) == {
             "data": 1, "pipe": 2, "fsdp": 1, "expert": 2, "sequence": 1}
+    elif case == "lora":
+        cfg = dataclasses.replace(PRESETS["llama3_tiny"], lora_rank=4,
+                                  dtype=torch.float32)
+        tr = Trainer(cfg, tcfg, device="cpu", groups=(LocalTensorGroup(2),))
+        assert [g.size for g in tr.groups] == [2, 1] and tr.split
+        tr.init_state(seed=0)
+        tokens = np.random.default_rng(0).integers(0, 256, (2, 9))
+        m = tr.train_step({"tokens": tokens.astype(np.int32)})
+        assert np.isfinite(float(m["loss"]))
+    elif case in ("lora_forward", "lora_moe_forward"):
+        got, want = _lora_forward(*{
+            "lora_forward": ("llama3_tiny", (LocalTensorGroup(2),)),
+            "lora_moe_forward": ("mixtral_tiny", (LocalExpertGroup(2),
+                                                  LocalTensorGroup(2))),
+        }[case])
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    elif case == "vision":
+        from tpufw_torch.models import VIT_CONFIGS
+        from tpufw_torch.train import VisionTrainer, VisionTrainerConfig
+
+        tr = VisionTrainer(VIT_CONFIGS["vit_s16"], VisionTrainerConfig(),
+                           MeshConfig(tensor=2, fsdp=1), device="cpu")
+        assert [(g.axis, g.size) for g in tr.groups] == [
+            ("tensor", 2), ("expert", 1)]
+    elif case == "mesh_sequence":
+        # tpufw's axis order: expert before sequence before tensor.
+        for axis, order in (("tensor", ["sequence", "tensor"]),
+                            ("expert", ["expert", "sequence"])):
+            shape = mesh_shape(MeshConfig(sequence=2, fsdp=1, **{axis: 2}),
+                               4)
+            assert list(shape.items()) == [("data", 1), ("fsdp", 1)] + [
+                (a, 2) for a in order]
     else:
         from tpufw_torch.workloads import env
 

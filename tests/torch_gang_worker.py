@@ -43,12 +43,12 @@ The objectives over the whole batch: "embed" (an ``EmbeddingTrainer``,
 GLOBAL "batches"), "grpo" (a ``GRPOTrainer`` from "seed", "grpo" its
 GRPOConfig kwargs, ``run_rl`` over "prompts" with the ``low_token``
 reward: every rank's whole rollouts, its rows, history and the gathered
-params) and "vision" (a ``VisionTrainer``, "vision_trainer" its config
-kwargs, on its rows of the global image "batches", "signal_rank" as
-above). A "workload" case runs ``tpufw_torch.workloads.<module>``'s
-``main`` with "env" (``TPUFW_*`` names without the prefix) and the tiny
-Llama presets in fp32; its ``main`` ends the process group, so it comes
-last.
+params) and "vision" (a ``VisionTrainer`` over "mesh" (the default mesh
+when empty), "vision_trainer" its config kwargs, on its rows of the
+global image "batches", "signal_rank" as above). A "workload" case runs
+``tpufw_torch.workloads.<module>``'s ``main`` with "env" (``TPUFW_*``
+names without the prefix) and the tiny Llama presets in fp32; its
+``main`` ends the process group, so it comes last.
 """
 
 import os
@@ -219,11 +219,13 @@ def run_grpo(case: dict, path: str, rank: int) -> None:
 
 
 def run_vision(case: dict, path: str, rank: int) -> None:
+    from tpufw_torch.mesh import MeshConfig
     from tpufw_torch.train import VisionTrainer, VisionTrainerConfig
     from tpufw_torch.train.vision import batch_rows
 
     trainer = VisionTrainer(case["model_cfg"], VisionTrainerConfig(
-        **case["vision_trainer"]), device="cpu")
+        **case["vision_trainer"]),
+        MeshConfig(**case["mesh"]) if case["mesh"] else None, device="cpu")
     trainer.init_state(state_dict=case["state"])
     signal_rank = case.get("signal_rank")
 
@@ -258,7 +260,7 @@ def run_workload(case: dict) -> None:
 def objective_grads(trainer, batch: dict) -> dict:
     """Every parameter's whole gradient (a collective: split and sharded
     ones gathered) of ``trainer``'s objective on this rank's rows of the
-    global ``batch``, without an update."""
+    global ``batch``, without an update (None for a frozen one)."""
     from tpufw_torch.train import sharding
     from tpufw_torch.train.trainer import batch_loss, batch_to_device, on_mesh
 
@@ -272,7 +274,7 @@ def objective_grads(trainer, batch: dict) -> dict:
         loss, n = batch_loss(tr.model, batch_to_device(local, tr.device),
                              tr.cfg.loss_chunk_size, tr.cfg.loss_chunk_dtype)
         sharding.backward_global_mean(loss, n)
-        return {k: sharding.full_tensor(
+        return {k: None if p.grad is None else sharding.full_tensor(
             sharding.SplitPart(p.grad, tr.splits[k], tr.groups)
             if k in tr.splits else p.grad)
             for k, p in tr.model.named_parameters()}

@@ -37,16 +37,22 @@ def fp32_pair(jconfigs, tconfigs, name, **over):
                                 param_dtype=torch.float32, **over))
 
 
-def jax_run(jcfg, tcfg, mesh: dict, batches: list, **kw):
-    """(initial port state, losses, grad norms, final port state) of
-    ``tpufw``'s Trainer on ``mesh`` over the global ``batches``; its
-    compiled step is wrapped to keep each step's grad_norm."""
+def jax_trainer(jcfg, tcfg, mesh: dict, batch_size: int, base=None, **kw):
+    """(``tpufw``'s Trainer on ``mesh`` initialized from seed 0, its
+    initial params as the port's state dict): TrainerConfig ``base``
+    fields, default ``KW``, updated by ``kw``."""
     jt = JTrainer(j_model_for_config(jcfg), JTrainerConfig(
-        batch_size=len(batches[0]["tokens"]), **KW, **kw),
+        **{"batch_size": batch_size, **(base or KW), **kw}),
         JMeshConfig(**mesh))
     jt.init_state(seed=0)
-    init = params_from_flax(jax.device_get(meta.unbox(jt.state.params)),
-                            tcfg)
+    return jt, params_from_flax(jax.device_get(meta.unbox(jt.state.params)),
+                                tcfg)
+
+
+def jax_train(jt, tcfg, batches: list):
+    """(losses, grad norms, final port state) of ``tpufw``'s Trainer
+    ``jt`` over the global ``batches``; its compiled step is wrapped to
+    keep each step's grad_norm."""
     norms, compiled = [], jt.compiled_step
 
     def recording(b=None):
@@ -63,14 +69,23 @@ def jax_run(jcfg, tcfg, mesh: dict, batches: list, **kw):
     hist = jt.run(iter(batches), model_flops_per_token=1.0)
     final = params_from_flax(jax.device_get(meta.unbox(jt.state.params)),
                              tcfg)
-    return init, [m.loss for m in hist], norms, final
+    return [m.loss for m in hist], norms, final
+
+
+def jax_run(jcfg, tcfg, mesh: dict, batches: list, base=None, **kw):
+    """(initial port state, losses, grad norms, final port state) of
+    ``tpufw``'s Trainer on ``mesh`` over the global ``batches``
+    (``jax_trainer``, ``jax_train``)."""
+    jt, init = jax_trainer(jcfg, tcfg, mesh, len(batches[0]["tokens"]),
+                           base, **kw)
+    return (init, *jax_train(jt, tcfg, batches))
 
 
 def port_run(tcfg, init: dict, batches: list, groups: tuple, **kw):
     """(losses, grad norms, final state) of the port's Trainer over
     ``groups`` in one process."""
     tr = Trainer(tcfg, TrainerConfig(batch_size=len(batches[0]["tokens"]),
-                                     **KW, **kw), device="cpu",
+                                     **{**KW, **kw}), device="cpu",
                  groups=groups)
     tr.init_state(state_dict=init)
     losses, norms = [], []

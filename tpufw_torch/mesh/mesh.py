@@ -17,17 +17,18 @@ over ``fsdp`` and ``sequence`` together and replicate them over ``data``
 (``train.sharding``); the pipeline trainer gives each ``pipe`` rank its
 stage and feeds ``data`` and ``fsdp`` as batch shards. ``pipe`` composes
 with ``data``, ``fsdp``, ``tensor`` and ``expert`` (``sequence`` must be
-1, as in ``tpufw/parallel/pipeline.py``).
+1, as in ``tpufw/parallel/pipeline.py``); ``sequence`` composes with
+every other axis.
 
 ``expert`` and ``tensor`` (dimensions when above 1) split the model's
 weights as ``tpufw``'s ``logical_axis_rules`` map them (ported here as a
 table): attention heads, MLP widths and the vocabulary over ``tensor``
 (Megatron), a MoE layer's experts over ``expert``. Their ranks share the
 rows of one batch shard (``batch`` maps to ``data`` and ``fsdp`` only).
-The ``Trainer``, its post-training subclasses and the
-``PipelineTrainer`` (inside each stage) train over them; beside a
-``sequence`` axis above 1, and in the trainers not ported to them yet,
-they are refused naming ROADMAP.md Queue 1 item 12g.
+The ``Trainer`` (beside a ``sequence`` ring too: each tensor shard's
+heads run their own ring), its post-training subclasses, the
+``PipelineTrainer`` (inside each stage) and the ``VisionTrainer``
+(``tensor``) train over them.
 """
 
 from __future__ import annotations
@@ -55,10 +56,8 @@ MESH_AXES: tuple[str, ...] = (
     AXIS_TENSOR,
 )
 
-# The model-parallel axes, and the ROADMAP.md item that brings them to the
-# trainers and mesh shapes that refuse them.
+# The model-parallel axes: the ones a parameter is split over.
 MODEL_AXES = (AXIS_EXPERT, AXIS_TENSOR)
-_LATER_ITEM = "12g"
 
 
 def logical_axis_rules() -> tuple[tuple[str, tuple[str, ...] | None], ...]:
@@ -185,20 +184,6 @@ def rank_grid(config: MeshConfig | None, world: int) -> np.ndarray:
     return np.arange(world).reshape(shape)
 
 
-def refuse_later_axes(sizes: dict, where: str = "") -> None:
-    """NotImplementedError naming ROADMAP.md Queue 1 item 12g for an
-    ``expert`` or ``tensor`` axis of ``sizes`` (axis -> size) above 1:
-    its parallelism ``where`` (e.g. " in PipelineTrainer") is not ported
-    yet."""
-    for axis in MODEL_AXES:
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis!r} of size {sizes[axis]}: {axis} "
-                f"parallelism{where} is not ported to tpufw_torch yet "
-                f"(ROADMAP.md Queue 1 item {_LATER_ITEM})"
-            )
-
-
 def refuse_pipe_with_sequence(pipe: int, sequence: int) -> None:
     """NotImplementedError for a ``pipe`` axis above 1 beside a
     ``sequence`` one above 1 (``tpufw``'s pipeline needs sequence 1)."""
@@ -215,15 +200,10 @@ def mesh_shape(config: MeshConfig | None, world: int) -> dict[str, int]:
     ``tpufw``'s axis order: {"data": dcn_data * data, ["pipe": pipe,]
     "fsdp": fsdp, ["expert": expert,] "sequence": sequence, ["tensor":
     tensor]}, the bracketed ones only when above 1. Raises
-    NotImplementedError for ``pipe`` with ``sequence`` above 1, and,
-    naming ROADMAP.md Queue 1 item 12g, for ``expert`` or ``tensor``
-    above 1 beside ``sequence`` above 1."""
+    NotImplementedError for ``pipe`` with ``sequence`` above 1."""
     config = config or MeshConfig()
     sizes = config.slice_sizes(world)
     refuse_pipe_with_sequence(sizes[AXIS_PIPE], sizes[AXIS_SEQUENCE])
-    if sizes[AXIS_SEQUENCE] > 1:
-        refuse_later_axes(sizes, f" beside a {AXIS_SEQUENCE} axis of size "
-                                 f"{sizes[AXIS_SEQUENCE]}")
     shape = {AXIS_DATA: sizes[AXIS_DATA] * config.dcn_data}
     for axis in MESH_AXES[1:]:
         if axis in (AXIS_FSDP, AXIS_SEQUENCE) or sizes[axis] > 1:

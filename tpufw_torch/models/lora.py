@@ -33,6 +33,17 @@ def is_lora_name(name: str) -> bool:
     return last.endswith(_A) or last.endswith(_B)
 
 
+def lora_axes(logical: tuple) -> dict:
+    """{suffix: logical axes} of the adapters of a weight whose logical
+    axes are ``logical`` (``(*lead, out, in)``, PyTorch's layout): A
+    ``(*lead, "lora", in)``, B ``(*lead, out, "lora")``, as ``tpufw``'s
+    ``lora_delta`` names them in its transposed layout."""
+    if len(logical) < 2:
+        return {}
+    *lead, out, inp = logical
+    return {_A: (*lead, "lora", inp), _B: (*lead, out, "lora")}
+
+
 def has_lora(state_dict) -> bool:
     """True when a state dict (or any iterable of keys) holds an adapter."""
     return any(is_lora_name(k) for k in state_dict)

@@ -28,8 +28,9 @@ modes; the router has none.
 Under an expert group (``parallel.context``) each held expert shard runs
 its experts' slots of the global routing, each through the held width
 shards of a tensor group, and the parts are summed over both axes; the
-router stays replicated. A split of a layer with adapters or int8 stacks
-raises NotImplementedError (ROADMAP.md Queue 1 item 12g).
+router stays replicated. Adapters are cut with their stacks (``_parts``).
+A split of int8 stacks raises NotImplementedError (a serving form, which
+runs unsplit).
 
 ``forward`` returns logits (or hidden states), and ``(out, aux)`` with
 ``return_aux=True``: aux is the layer mean of ``router_aux_weight *
@@ -61,10 +62,16 @@ from tpufw_torch.ops.moe import (
     route_topk_sorted,
 )
 from tpufw_torch.parallel.context import expert_group, tensor_group
-from tpufw_torch.parallel.group import enter_all, grad_share, reduce_all
+from tpufw_torch.parallel.group import (
+    LocalExpertGroup,
+    enter_all,
+    grad_share,
+    reduce_all,
+)
 from tpufw_torch.parallel.tensor import refuse_unsplittable
 
 _DISPATCH_MODES = ("einsum", "sorted")
+_ONE_EXPERT = LocalExpertGroup(1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,28 +238,43 @@ class MoEMLP(nn.Module):
                     setattr(self, name + suffix, nn.Parameter(torch.zeros(
                         shape, dtype=cfg.param_dtype, device=device)))
 
-    def _adapters(self, name):
-        """(A [E, r, in], B [E, out, r]) of stack ``name`` in the compute
-        dtype, or None without LoRA."""
+    def _parts(self, name, ep, tp) -> list:
+        """The held parts of expert stack ``name``: for each held expert
+        shard, for each held width shard of it, (w, (A, B) or None
+        without LoRA). ``tensor`` splits the width (gate and up on their
+        output, dim 1; down on its input, dim 2); an adapter rides its
+        stack's axes: cut with its experts, and with the width where it
+        carries it (gate/up's B, down's A), else whole, entering the
+        width split (its gradient summed over the width shards)."""
+        dim = 2 if name == "w_down" else 1
+        stacks = ep.shards(getattr(self, name), 0)
         if self.lora_scale is None:
-            return None
-        dt = self.cfg.dtype
-        return (getattr(self, name + "_lora_a").to(dt),
-                getattr(self, name + "_lora_b").to(dt))
+            return [[(w, None) for w in tp.shards(we, dim)] for we in stacks]
+        a_s, b_s = (ep.shards(getattr(self, name + s), 0)
+                    for s in ("_lora_a", "_lora_b"))
+        out = []
+        for we, a, b in zip(stacks, a_s, b_s):
+            if dim == 1:
+                a = tp.enter(a)
+                pairs = [(a, bt) for bt in tp.shards(b, 1)]
+            else:
+                b = tp.enter(b)
+                pairs = [(at, b) for at in tp.shards(a, 2)]
+            out.append(list(zip(tp.shards(we, dim), pairs)))
+        return out
 
-    def _experts(self, name, xe, w):
-        """[E', C, in] -> [E', C, out] through ``w``, expert stack
-        ``name`` or a shard of it, plus the stack's adapters' (xe @ Aᵀ) @
-        Bᵀ * (lora_alpha / r) (a split of a stack with adapters is
-        refused)."""
+    def _experts(self, xe, w, ab):
+        """[E', C, in] -> [E', C, out] through ``w`` (an expert stack or
+        a part of it), plus its adapters' ``ab`` = (A, B) part ``(xe @
+        Aᵀ) @ Bᵀ * (lora_alpha / r)`` when not None."""
         if isinstance(w, QuantExperts):
             return w(xe)
-        y = torch.bmm(xe, w.to(self.cfg.dtype).transpose(1, 2))
-        ab = self._adapters(name)
+        dt = self.cfg.dtype
+        y = torch.bmm(xe, w.to(dt).transpose(1, 2))
         if ab is None:
             return y
-        lo = torch.bmm(xe, ab[0].transpose(1, 2))
-        return y + torch.bmm(lo, ab[1].transpose(1, 2)) * self.lora_scale
+        a, b = (t.to(dt).transpose(1, 2) for t in ab)
+        return y + torch.bmm(torch.bmm(xe, a), b) * self.lora_scale
 
     def forward(self, x, valid=None):
         cfg = self.cfg
@@ -301,18 +323,16 @@ class MoEMLP(nn.Module):
         ep, tp = expert_group(), tensor_group()
         xf = enter_all(xf, ep, tp)
         parts = []
-        for (lo, hi), wg, wu, wd in zip(
-                ep.ranges(e), *(ep.shards(getattr(self, n), 0)
+        for (lo, hi), gates, ups, downs in zip(
+                ep.ranges(e), *(self._parts(n, ep, tp)
                                 for n in ("w_gate", "w_up", "w_down"))):
             n = hi - lo
             xe = (dispatch[:, lo:hi].reshape(g, n * c).t() @ xf).reshape(
                 n, c, -1).to(self.cfg.dtype)
             comb = combine[:, lo:hi].reshape(g, n * c)
-            for wg_t, wu_t, wd_t in zip(tp.shards(wg, 1), tp.shards(wu, 1),
-                                        tp.shards(wd, 2)):
-                h = F.silu(self._experts("w_gate", xe, wg_t)) \
-                    * self._experts("w_up", xe, wu_t)
-                out = self._experts("w_down", h, wd_t)
+            for wg, wu, wd in zip(gates, ups, downs):
+                h = F.silu(self._experts(xe, *wg)) * self._experts(xe, *wu)
+                out = self._experts(h, *wd)
                 parts.append(comb.to(out.dtype) @ out.reshape(n * c, -1))
         return reduce_all(parts, ep, tp)
 
@@ -327,27 +347,26 @@ class MoEMLP(nn.Module):
         tp = tensor_group()
         xs = tp.enter(xf).to(cfg.dtype)[token]
 
-        def grouped(name, inp, w):
+        def grouped(inp, w, ab):
             # unbind, not w[i]: each index's backward would write a zeroed
             # copy of the whole stack, E of them summed.
             w = w.to(cfg.dtype).unbind(0)
             parts = inp.split(sizes)
             outs = [F.linear(parts[i], w[i]) for i in range(e)]
-            ab = self._adapters(name)
             if ab is not None:
                 # The adapters over the same splits: no further host read.
-                a, b = (t.unbind(0) for t in ab)
+                a, b = (t.to(cfg.dtype).unbind(0) for t in ab)
                 outs = [y + F.linear(F.linear(parts[i], a[i]), b[i])
                         * self.lora_scale for i, y in enumerate(outs)]
             outs.append(inp.new_zeros(sizes[e], w[0].shape[0]))
             return torch.cat(outs)
 
         parts = []
-        for wg, wu, wd in zip(tp.shards(self.w_gate, 1),
-                              tp.shards(self.w_up, 1),
-                              tp.shards(self.w_down, 2)):
-            h = F.silu(grouped("w_gate", xs, wg)) * grouped("w_up", xs, wu)
-            yw = grouped("w_down", h, wd) * gates[:, None].to(cfg.dtype)
+        # The sorted dispatch keeps the expert stacks whole.
+        for wg, wu, wd in zip(*(self._parts(n, _ONE_EXPERT, tp)[0]
+                                for n in ("w_gate", "w_up", "w_down"))):
+            h = F.silu(grouped(xs, *wg)) * grouped(xs, *wu)
+            yw = grouped(h, *wd) * gates[:, None].to(cfg.dtype)
             parts.append(torch.zeros_like(xf, dtype=cfg.dtype).index_add(
                 0, token, yw))
         return tp.reduce(parts)

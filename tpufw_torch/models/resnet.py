@@ -20,7 +20,9 @@ the JAX model, trap by trap:
   batch's, as in ``tpufw``'s one program over the sharded batch;
 - ``bn3`` (each block's last BN) starts with its scale at zero, so a
   residual branch starts as the identity;
-- the head is fp32 (lecun-normal weights, zero bias) on the spatial mean.
+- the head is fp32 (lecun-normal weights, zero bias) on the spatial mean;
+  under a tensor group it is vocab-parallel (``tpufw``'s ``("embed",
+  "vocab")``), the convolutions replicated.
 
 State-dict names follow the Flax tree (``conv_init``, ``bn_init``,
 ``stage{s}_block{b}.conv1`` ... ``bn_proj``, ``head``);
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpufw_torch.models.vit import Dense
+from tpufw_torch.models.vit import Dense, class_logits
 from tpufw_torch.utils.hardware import resolve_device
 
 
@@ -196,7 +198,9 @@ class ResNet(nn.Module):
     """ResNet-v1.5: NHWC images -> fp32 logits [B, num_classes]. Weights
     are drawn on ``device`` (default ``cuda``) from a ``torch.Generator``
     seeded with ``seed``; ``train()``/``eval()`` pick batch or running
-    statistics."""
+    statistics. ``logit_shards`` as ``ViT``'s."""
+
+    LOGICAL_AXES = {"head.weight": ("vocab", "embed"), "head.bias": ("vocab",)}
 
     def __init__(self, cfg: ResNetConfig, device=None, seed: int = 0):
         super().__init__()
@@ -221,14 +225,14 @@ class ResNet(nn.Module):
         self.head = Dense(c, cfg.num_classes, torch.float32, cfg.param_dtype,
                           gen, "lecun_normal", dev)
 
-    def forward(self, images):
+    def forward(self, images, logit_shards: bool = False):
         # NHWC memory seen as NCHW: channels_last, no copy.
         x = images.permute(0, 3, 1, 2).to(self.cfg.dtype)
         x = F.relu(self.bn_init(self.conv_init(x)))
         x = F.max_pool2d(x, 3, 2, padding=1)
         for name in self.block_names:
             x = getattr(self, name)(x)
-        return self.head(x.mean(dim=(2, 3)))
+        return class_logits(self.head, x.mean(dim=(2, 3)), logit_shards)
 
 
 def resnet50(num_classes: int = 1000, device=None, seed: int = 0,

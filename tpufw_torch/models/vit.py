@@ -21,6 +21,15 @@ Numerics of the JAX model, trap by trap:
 
 Parameter layout is PyTorch's: a dense weight is [out, in];
 ``tpufw_torch.interop.vision_params_from_flax`` converts a Flax tree.
+
+Under a tensor group (``parallel.context``) the blocks split as
+``tpufw``'s logical axes name them (``LOGICAL_AXES``): q and up are
+column-parallel, o and down row-parallel, and each held shard attends
+with its ``n_heads/tp`` heads; the class head is vocab-parallel
+(``forward(images, logit_shards=True)`` gives each held shard's logits).
+k and v split with q (Megatron). ``tpufw`` names them ``"kv"``, which no
+rule maps, so GSPMD keeps them whole there: the same numbers, a
+divergence by design.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpufw_torch.ops.loss import matmul_f32
+from tpufw_torch.parallel.context import tensor_group
+from tpufw_torch.parallel.tensor import column, row
 from tpufw_torch.utils.hardware import resolve_device
 
 
@@ -160,6 +171,17 @@ class ViTBlock(nn.Module):
     """Pre-norm bidirectional self-attention and GELU MLP, each with a
     residual."""
 
+    # Logical axes of the parameters ([out, in]), ``tpufw``'s names but
+    # k and v's (see the module doc).
+    LOGICAL_AXES = {
+        "q.weight": ("q_heads", "embed"), "q.bias": ("q_heads",),
+        "k.weight": ("kv_heads", "embed"), "k.bias": ("kv_heads",),
+        "v.weight": ("kv_heads", "embed"), "v.bias": ("kv_heads",),
+        "o.weight": ("embed", "q_heads"),
+        "up.weight": ("mlp", "embed"), "up.bias": ("mlp",),
+        "down.weight": ("embed", "mlp"),
+    }
+
     def __init__(self, cfg: ViTConfig, gen, device=None):
         super().__init__()
         self.cfg = cfg
@@ -177,30 +199,40 @@ class ViTBlock(nn.Module):
 
     def forward(self, x):
         cfg = self.cfg
-        b, t, d = x.shape
-        h = cfg.n_heads
-        hd = d // h
-        y = self.attn_norm(x).to(cfg.dtype)
-        q, k, v = (p(y).reshape(b, t, h, hd).transpose(1, 2)
-                   for p in (self.q, self.k, self.v))
+        tp = tensor_group()
+        y = tp.enter(self.attn_norm(x).to(cfg.dtype))
+        outs = [self._heads(q, k, v) for q, k, v in zip(
+            *(column(p, y, tp) for p in (self.q, self.k, self.v)))]
+        x = x + row(self.o, outs, tp)
+        y = tp.enter(self.mlp_norm(x).to(cfg.dtype))
+        hs = [F.gelu(u, approximate="tanh") for u in column(self.up, y, tp)]
+        return x + row(self.down, hs, tp)
+
+    def _heads(self, q, k, v):
+        """Attention of one shard's heads: q, k, v [B, T, h·hd] -> [B, T,
+        h·hd]."""
+        b, t, _ = q.shape
+        hd = self.cfg.d_model // self.cfg.n_heads
+        q, k, v = (p.reshape(b, t, -1, hd).transpose(1, 2)
+                   for p in (q, k, v))
+        h = q.shape[1]
         # QKᵀ with fp32 output (preferred_element_type), one batch of
         # b * h products.
         scores = matmul_f32(q.reshape(b * h, t, hd),
                             k.reshape(b * h, t, hd).transpose(1, 2))
         scores = scores.reshape(b, h, t, t) * (hd ** -0.5)
-        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-        o = (probs @ v).transpose(1, 2).reshape(b, t, d)
-        x = x + self.o(o)
-        y = self.mlp_norm(x).to(cfg.dtype)
-        y = F.gelu(self.up(y), approximate="tanh")
-        return x + self.down(y)
+        probs = torch.softmax(scores, dim=-1).to(self.cfg.dtype)
+        return (probs @ v).transpose(1, 2).reshape(b, t, h * hd)
 
 
 class ViT(nn.Module):
-    """ViT classifier: NHWC images -> fp32 logits [B, num_classes]. No
-    batch statistics: train and eval mode compute the same function.
-    Weights are drawn on ``device`` (default ``cuda``) from a
-    ``torch.Generator`` seeded with ``seed``."""
+    """ViT classifier: NHWC images -> fp32 logits [B, num_classes] (with
+    ``logit_shards``, the list of the held class shards' logits, see
+    ``class_logits``). No batch statistics: train and eval mode compute
+    the same function. Weights are drawn on ``device`` (default ``cuda``)
+    from a ``torch.Generator`` seeded with ``seed``."""
+
+    LOGICAL_AXES = {"head.weight": ("vocab", "embed"), "head.bias": ("vocab",)}
 
     def __init__(self, cfg: ViTConfig, device=None, seed: int = 0):
         super().__init__()
@@ -224,7 +256,7 @@ class ViT(nn.Module):
         self.head = Dense(d, cfg.num_classes, torch.float32, cfg.param_dtype,
                           gen, "zeros", dev)
 
-    def forward(self, images):
+    def forward(self, images, logit_shards: bool = False):
         cfg = self.cfg
         b = images.shape[0]
         p, g = cfg.patch_size, cfg.image_size // cfg.patch_size
@@ -241,4 +273,13 @@ class ViT(nn.Module):
                  else block(x))
         x = self.final_norm(x)
         pooled = x[:, 0] if cfg.pool == "cls" else x.mean(dim=1)
-        return self.head(pooled)
+        return class_logits(self.head, pooled, logit_shards)
+
+
+def class_logits(head: Dense, pooled: torch.Tensor, shards: bool):
+    """The class head on ``pooled`` [B, D], vocab-parallel under a tensor
+    group: the held class shards' logits (``shards``), or them gathered
+    whole [B, num_classes]."""
+    tp = tensor_group()
+    parts = column(head, tp.enter(pooled), tp)
+    return parts if shards else tp.gather(parts, -1)

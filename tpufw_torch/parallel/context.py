@@ -16,7 +16,11 @@ code splits its weights over: the current ``TensorGroup`` (Megatron
 attention heads, MLP width and vocabulary) and ``ExpertGroup`` (a MoE
 layer's experts), one shard each (``LocalTensorGroup(1)``) unless a
 trainer registers its gang's (``model_groups``) or one process's several
-(``use_groups``).
+(``use_groups``). The two compose: the model calls attention once per
+held tensor shard, with that shard's heads, and each call runs the ring
+(a gang's ``sequence`` group holds the ranks of one data, fsdp, expert
+and tensor coordinate; a ``LocalSequenceGroup`` every shard of the ring
+for each tensor shard in turn).
 """
 
 from __future__ import annotations

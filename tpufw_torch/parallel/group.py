@@ -33,6 +33,7 @@ class SequenceGroup:
     """A ring of ``size`` shards; ``indices`` are the global indices of
     the shards this process holds, in the order of its lists."""
 
+    axis = "sequence"
     size: int
     indices: tuple
 

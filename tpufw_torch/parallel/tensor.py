@@ -21,13 +21,22 @@ and its weights ARE that shard, ``cut_model``):
   is the sum over the axis, so replicated parameters (norms, latent
   projections, the router) get whole gradients on every rank.
 
+LoRA adapters ride their weight's axes, as ``tpufw``'s ``lora_delta``
+names them (A on the weight's input axes and ``lora``, B on ``lora`` and
+its output axes; ``lora`` is replicated): a ``column`` weight's A is
+whole and its B is cut with the output rows; a ``row`` weight's A is cut
+with the input columns and its B is whole, each shard's ``B(x_i
+A_iᵀ)·scale`` joining the row's one reduction. A whole adapter inside a
+split enters it (``ShardGroup.enter`` on the tensor itself), so its
+gradient is the sum of the shards' parts.
+
 ``check_divisible`` refuses a config whose split dimensions do not
 divide by their axes, naming the dimension and the axis;
-``refuse_unsplittable`` refuses a split of a module that carries LoRA
-adapters or int8 weights, whose split is not ported. ``split_specs``
-lists a model's split parameters; ``cut_tensor``/``cut_model`` give a
-rank its shards of whole tensors, ``gather_split`` puts them back
-together, so a checkpoint stays whole whatever the mesh.
+``refuse_unsplittable`` refuses a split of int8 weights, a serving form
+that no mesh splits. ``split_specs`` lists a model's split parameters
+(adapters included); ``cut_tensor``/``cut_model`` give a rank its shards
+of whole tensors, ``gather_split`` puts them back together, so a
+checkpoint stays whole whatever the mesh.
 """
 
 from __future__ import annotations
@@ -35,31 +44,29 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tpufw_torch.mesh.mesh import MODEL_AXES, mesh_axes_of, refuse_later_axes
+from tpufw_torch.mesh.mesh import MODEL_AXES, mesh_axes_of
 from tpufw_torch.parallel.group import ShardGroup
 
 
 def refuse_unsplittable(mod, *groups: ShardGroup) -> None:
-    """NotImplementedError naming ROADMAP.md Queue 1 item 12g when
-    ``groups`` split ``mod`` and it carries LoRA adapters (``lora_scale``
-    set) or int8 weights: the shard math runs on the base weights alone
-    and would compute without them."""
-    sizes = {g.axis: g.size for g in groups}
-    if all(n == 1 for n in sizes.values()):
-        return
-    if getattr(mod, "lora_scale", None) is not None:
-        what = "LoRA adapters"
-    elif any(p.dtype == torch.int8 for p in mod.parameters()):
-        what = "int8 weights"
-    else:
-        return
-    refuse_later_axes(sizes, f" of a {type(mod).__name__} with {what}")
+    """NotImplementedError when ``groups`` split ``mod`` and it holds int8
+    weights. By design: int8 weights are a serving form, only serving
+    quantizes, and serving runs on one device's whole weights (``tpufw``'s
+    serving builds its mesh with no tensor or expert knob)."""
+    sizes = {g.axis: g.size for g in groups if g.size > 1}
+    if sizes and any(p.dtype == torch.int8 for p in mod.parameters()):
+        raise NotImplementedError(
+            f"a {type(mod).__name__} with int8 weights split over "
+            f"{sizes}: int8 weights are a serving form, and serving runs "
+            "unsplit (tpufw's serving mesh has no tensor or expert axis); "
+            "split the floating-point weights instead")
 
 
 def column(proj, x: torch.Tensor, group: ShardGroup) -> list:
     """``proj`` (a ``models.llama.Projection``) split on its output
     features: each held shard's ``x · W_iᵀ (+ b_i)`` in the compute
-    dtype. One shard: ``[proj(x)]``."""
+    dtype, plus its adapter's ``(x · Aᵀ) · B_iᵀ · scale`` (A whole, B cut
+    with the rows). One shard: ``[proj(x)]``."""
     if group.size == 1:
         return [proj(x)]
     refuse_unsplittable(proj, group)
@@ -68,20 +75,36 @@ def column(proj, x: torch.Tensor, group: ShardGroup) -> list:
     ws = group.shards(proj.weight, 0)
     bs = ([None] * len(ws) if proj.bias is None
           else group.shards(proj.bias, 0))
-    return [F.linear(x, w.to(dt), None if b is None else b.to(dt))
-            for w, b in zip(ws, bs)]
+    ys = [F.linear(x, w.to(dt), None if b is None else b.to(dt))
+          for w, b in zip(ws, bs)]
+    scale = getattr(proj, "lora_scale", None)
+    if scale is None:
+        return ys
+    lo = F.linear(x, group.enter(proj.weight_lora_a).to(dt))
+    return [y + F.linear(lo, b.to(dt)) * scale
+            for y, b in zip(ys, group.shards(proj.weight_lora_b, 0))]
 
 
 def row(proj, xs: list, group: ShardGroup) -> torch.Tensor:
     """``proj`` split on its input features: the sum over the axis of
-    each held shard's ``x_i · W_iᵀ`` (the bias, if any, added once)."""
+    each held shard's ``x_i · W_iᵀ`` plus its adapter's ``(x_i · A_iᵀ) ·
+    Bᵀ · scale`` (A cut with the columns, B whole), one reduction (the
+    bias, if any, added once)."""
     if group.size == 1:
         (x,) = xs
         return proj(x)
     refuse_unsplittable(proj, group)
     dt = proj.dtype
-    ws = group.shards(proj.weight, 1)
-    y = group.reduce([F.linear(x.to(dt), w.to(dt)) for x, w in zip(xs, ws)])
+    xs = [x.to(dt) for x in xs]
+    parts = [F.linear(x, w.to(dt))
+             for x, w in zip(xs, group.shards(proj.weight, 1))]
+    scale = getattr(proj, "lora_scale", None)
+    if scale is not None:
+        b = group.enter(proj.weight_lora_b).to(dt)
+        parts = [y + F.linear(F.linear(x, a.to(dt)), b) * scale
+                 for y, x, a in zip(parts, xs,
+                                    group.shards(proj.weight_lora_a, 1))]
+    y = group.reduce(parts)
     return y if proj.bias is None else y + proj.bias.to(dt)
 
 
@@ -149,18 +172,23 @@ def split_specs(model) -> dict:
     ``model`` split over ``expert`` or ``tensor``, from its modules'
     ``LOGICAL_AXES`` and ``logical_axis_rules``; the others are
     replicated over both."""
+    from tpufw_torch.models.lora import lora_axes
+
     names = dict(model.named_parameters())
     out = {}
     for prefix, mod in model.named_modules():
         for local, logical in getattr(type(mod), "LOGICAL_AXES", {}).items():
-            name = f"{prefix}.{local}" if prefix else local
-            if name not in names:
-                continue
-            split = tuple(
-                (axis, dim) for dim, axes in enumerate(mesh_axes_of(logical))
-                for axis in axes if axis in MODEL_AXES)
-            if split:
-                out[name] = split
+            base = f"{prefix}.{local}" if prefix else local
+            for suffix, axes in (("", logical),
+                                 *lora_axes(logical).items()):
+                name = base + suffix
+                if name not in names:
+                    continue
+                split = tuple(
+                    (axis, dim) for dim, mesh in enumerate(mesh_axes_of(axes))
+                    for axis in mesh if axis in MODEL_AXES)
+                if split:
+                    out[name] = split
     return out
 
 

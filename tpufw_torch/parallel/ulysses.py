@@ -8,7 +8,8 @@ attention over its head group (the flash kernels unchanged), and one
 reverse all-to-all restores the sequence split.
 
 Against the ring: two collectives in all and no per-chunk merge, but P
-must divide the head count. GQA: when the kv-head count does not divide
+must divide the head count left after any tensor split (each tensor
+shard swaps its own heads). GQA: when the kv-head count does not divide
 by P, the kv heads are repeated up to the query head count before the
 swap (more bytes, the same math).
 """

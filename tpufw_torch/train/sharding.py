@@ -23,15 +23,16 @@ is a plain ``backward``.
 
 Under ``tensor`` or ``expert`` axes above 1 (``parallel.tensor``) the
 ranks of one (``expert``, ``tensor``) coordinate hold the same split
-parameters and feed different rows, and those of one batch shard share
-its rows: ``shard_model`` then runs ``fully_shard`` over the (``data``,
-``fsdp``) sub-mesh of each coordinate, each rank's split parameters
-already cut to its shards (``parallel.tensor.cut_model``), and the gang's
-token counts and means run over the batch-shard ranks of the coordinate
-(``batch_group``, registered by the trainer with ``batch_ranks``), so a
-row counts once, scaled by the size of the mesh ``fully_shard`` averages
-over. ``SplitPart`` carries a split tensor to the checkpoint, which
-gathers it whole.
+parameters and feed different rows (or, beside a ``sequence`` axis,
+different positions of them), and those of one batch shard share its
+rows: ``shard_model`` then runs ``fully_shard`` over the (``data``,
+``fsdp`` [× ``sequence``]) sub-mesh of each coordinate, each rank's split
+parameters already cut to its shards (``parallel.tensor.cut_model``), and
+the gang's token counts and means run over the batch-shard ranks of the
+coordinate (``batch_group`` over ``batch_dims``, registered by the
+trainer with ``batch_ranks``), so a token counts once, scaled by the size
+of the mesh ``fully_shard`` averages over. ``SplitPart`` carries a split
+tensor to the checkpoint, which gathers it whole.
 
 The objectives computed over the whole batch at once (in-batch negatives,
 BatchNorm's statistics) reach the other ranks' rows through
@@ -90,6 +91,16 @@ def batch_ranks(group, size: int):
         yield
     finally:
         _batch = prev
+
+
+def batch_dims(mesh) -> tuple:
+    """The dimensions of a ``build_mesh`` mesh whose ranks hold one
+    (``expert``, ``tensor``) coordinate's parts of the global batch:
+    ``data`` and ``fsdp`` (their rows), and ``sequence`` when it is above
+    1 (their positions)."""
+    names = mesh.mesh_dim_names
+    seq = "sequence" in names and mesh.size(names.index("sequence")) > 1
+    return ("data", "fsdp", "sequence") if seq else ("data", "fsdp")
 
 
 def batch_group(mesh, dims=("data", "fsdp")):
@@ -197,17 +208,22 @@ def load_into(dst: torch.Tensor, full: torch.Tensor) -> None:
 
 def fsdp_mesh(mesh):
     """The two-dimensional mesh ``fully_shard`` takes from a
-    ``build_mesh`` mesh: (``data``, ``fsdp``), or, under a ``sequence``
-    dimension above 1, (``data``, ``fsdp_sequence``) over the same ranks
-    (a mesh of its own: its process groups are made here, a collective)."""
+    ``build_mesh`` mesh: (``data``, ``fsdp``) of this rank's (``expert``,
+    ``tensor``) coordinate, or, under a ``sequence`` dimension above 1,
+    (``data``, ``fsdp_sequence``) over the same ranks (a mesh of its own:
+    its process groups are made here, a collective)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     names = mesh.mesh_dim_names
     if "sequence" not in names or mesh.size(names.index("sequence")) == 1:
         return mesh["data", "fsdp"]
-    grid = mesh.mesh.reshape(mesh.size(names.index("data")), -1)
-    return DeviceMesh(mesh.device_type, grid.tolist(),
-                      mesh_dim_names=("data", "fsdp_sequence"))
+    lead = [names.index(d) for d in ("data", "fsdp", "sequence")]
+    rest = [i for i in range(len(names)) if i not in lead]
+    grid = mesh.mesh.permute(*lead, *rest)
+    grid = grid.reshape(grid.shape[0], -1, *grid.shape[3:])
+    flat = DeviceMesh(mesh.device_type, grid.tolist(), mesh_dim_names=(
+        "data", "fsdp_sequence", *(names[i] for i in rest)))
+    return flat["data", "fsdp_sequence"] if rest else flat
 
 
 def batch_shard(mesh) -> tuple[int, int]:

@@ -40,7 +40,9 @@ attention backends exchange K/V along the ring, and ``xla`` and
 ``flash`` attend over the gathered sequence. The trainer registers its
 mesh (``parallel.context``) for its steps and evaluations; without a
 process group that mesh is a ring of one shard, so ``ring`` and
-``ulysses`` train in one process with the numbers of ``flash``.
+``ulysses`` train in one process with the numbers of ``flash``, unless
+``groups=`` holds a ``LocalSequenceGroup``: every shard of that ring in
+the one process.
 
 Tensor and expert parallelism: under ``tensor`` or ``expert`` axes above
 1 every rank builds the model whole, then keeps its shards of the split
@@ -54,11 +56,15 @@ gradient's shards once each and a replicated one once
 (``parallel.tensor.split_norm``), and a checkpoint gathers the split
 tensors whole (``sharding.SplitPart``), so it resumes at any world size.
 One process runs the same shard math over several shards with
-``groups=(LocalTensorGroup(n), LocalExpertGroup(m))``. The post-trainers
-(DPO, distillation, embeddings, GRPO) take both axes too: their heads
-go through the vocab-parallel log-probs and KL, their frozen side models
-are cut as the policy is. LoRA adapters refuse them (ROADMAP.md Queue 1
-item 12g).
+``groups=(LocalTensorGroup(n), LocalExpertGroup(m))``, and a
+``LocalSequenceGroup(s)`` among them runs every shard's attention over a
+ring of s in that process. The post-trainers (DPO, distillation,
+embeddings, GRPO) take both axes too: their heads go through the
+vocab-parallel log-probs and KL, their frozen side models are cut as the
+policy is. Both axes compose with a ``sequence`` axis (each tensor
+shard's heads run their own ring; the means and the MoE routing group
+then span the coordinate's data x fsdp x sequence ranks) and with LoRA
+(the adapters split with their weights, ``parallel.tensor``).
 
 LoRA: a model with ``lora_rank`` > 0 is built with its base frozen
 (``requires_grad=False``), and ``LlamaAdamW`` takes the parameters that
@@ -80,7 +86,6 @@ import numpy as np
 import torch
 
 from tpufw_torch.mesh import MeshConfig, build_mesh, mesh_shape
-from tpufw_torch.mesh.mesh import refuse_later_axes
 from tpufw_torch.models import model_for_config
 from tpufw_torch.models.llama import Llama, LlamaConfig
 from tpufw_torch.models.lora import init_adapters, is_lora_name
@@ -838,8 +843,9 @@ class Trainer:
         groups: tuple = (),
     ):
         """``groups``: one process's ``LocalTensorGroup`` and/or
-        ``LocalExpertGroup``, whose shards it computes in turn (a gang's
-        groups come from its mesh)."""
+        ``LocalExpertGroup``, whose shards it computes in turn, and
+        optionally a ``LocalSequenceGroup``, the ring its attention runs
+        over (a gang's groups come from its mesh)."""
         if mesh_cfg is not None and not isinstance(mesh_cfg, MeshConfig):
             raise TypeError(
                 f"mesh_cfg must be a MeshConfig, got {mesh_cfg!r} (pass the "
@@ -853,6 +859,8 @@ class Trainer:
         # (process group, size) of the batch-shard ranks the gang's means
         # run over, when they are not the whole gang.
         self.batch_ranks = None
+        # One process's sequence ring (``groups=``): every shard held.
+        self.local_ring = LocalSequenceGroup(1)
         if sharding.active():
             if groups:
                 raise ValueError(
@@ -869,10 +877,17 @@ class Trainer:
             self.groups = model_groups(self.mesh)
         else:
             mesh_shape(self.mesh_cfg, 1)
-            self.groups = self._local_groups(groups)
+            rings = [g for g in groups if isinstance(g, LocalSequenceGroup)]
+            if len(rings) > 1:
+                raise TypeError(f"groups= takes one LocalSequenceGroup, got "
+                                f"{groups!r}")
+            self.local_ring = rings[0] if rings else self.local_ring
+            self.groups = self._local_groups(
+                [g for g in groups if g not in rings])
         self._check_model_parallel()
         if self.split and self.gang:
-            self.batch_ranks = sharding.batch_group(self.mesh)
+            self.batch_ranks = sharding.batch_group(
+                self.mesh, sharding.batch_dims(self.mesh))
         # {parameter name: split} of the model's split parameters, in a
         # tensor- or expert-parallel gang (set by ``_shard``).
         self.splits: dict = {}
@@ -893,8 +908,9 @@ class Trainer:
         for g in groups:
             if not isinstance(g, LocalShardGroup) or g.axis in by_axis:
                 raise TypeError(
-                    "groups= takes at most one LocalTensorGroup and one "
-                    f"LocalExpertGroup, got {groups!r}")
+                    "groups= takes at most one LocalTensorGroup, one "
+                    "LocalExpertGroup and one LocalSequenceGroup, got "
+                    f"{groups!r}")
             by_axis[g.axis] = g
         return (by_axis.get("tensor", LocalTensorGroup(1)),
                 by_axis.get("expert", LocalExpertGroup(1)))
@@ -911,9 +927,6 @@ class Trainer:
         if not self.split:
             return
         tp, ep = self.groups
-        sizes = {"tensor": tp.size, "expert": ep.size}
-        if getattr(self.model_cfg, "lora_rank", 0):
-            refuse_later_axes(sizes, " with LoRA adapters")
         check_divisible(self.model_cfg, tp.size, ep.size)
         if ep.size > 1 and getattr(self.model_cfg, "moe_dispatch",
                                    "einsum") == "sorted":
@@ -945,8 +958,9 @@ class Trainer:
     @property
     def attention_mesh(self):
         """The mesh the sequence-parallel attention backends run on: the
-        gang's, or, on one device, a ring of one shard."""
-        return self.mesh if self.gang else LocalSequenceGroup(1)
+        gang's, or, on one device, the ring of ``groups=`` (one shard by
+        default)."""
+        return self.mesh if self.gang else self.local_ring
 
     def batch_shard(self) -> tuple[int, int]:
         """(this rank's batch shard, the number of batch shards): the rows

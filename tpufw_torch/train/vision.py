@@ -28,10 +28,22 @@ and the accuracy are the global batch's (``sharding.backward_global_mean``)
 and BatchNorm's training statistics too (``BatchNorm.stat_group``). The
 checkpoint is gathered tensor by tensor (BN statistics and momentum
 included) and resumes at any world size.
+
+Under a ``tensor`` axis above 1 (a gang's, or one process's
+``LocalTensorGroup`` from ``mesh_cfg.tensor``) the model splits as
+``tpufw``'s logical axes name it (``parallel.tensor``: ViT's heads and
+MLP width, both families' class head), each rank keeping its shards
+before ``fully_shard`` shards them over the batch ranks of its tensor
+coordinate; the cross-entropy goes over the class shards
+(``vocab_parallel_token_ce``). The tensor ranks of a batch shard feed
+the same rows: the means and BatchNorm's statistics run over the batch
+ranks alone. ``sequence``, ``pipe`` and ``expert`` axes above 1 are
+refused.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Iterator, Optional
 
@@ -40,7 +52,10 @@ import torch
 import torch.nn.functional as F
 
 from tpufw_torch.mesh import MeshConfig, build_mesh, mesh_shape
-from tpufw_torch.mesh.mesh import refuse_later_axes
+from tpufw_torch.ops.loss import vocab_parallel_token_ce
+from tpufw_torch.parallel.context import model_groups, use_groups
+from tpufw_torch.parallel.group import LocalExpertGroup, LocalTensorGroup
+from tpufw_torch.parallel.tensor import cut_model, cut_tensor
 from tpufw_torch.train import sharding
 from tpufw_torch.train.checkpoint import (
     CheckpointManager,
@@ -153,19 +168,42 @@ def vision_train_step(model, optimizer: VisionSGD, batch: dict) -> dict:
     """One supervised step on device tensors, images [B, H, W, C] and
     labels [B]: {loss, accuracy} as device tensors. Under a process group
     the batch is this rank's rows (a sharded model) and both are the
-    global batch's."""
+    global batch's; under a tensor group the loss goes over the class
+    shards."""
+    from tpufw_torch.parallel.context import tensor_group
+
     model.train()
     optimizer.zero_grad()
-    logits = model(batch["images"])
+    parts = model(batch["images"], logit_shards=True)
     labels = batch["labels"].long()
-    n = torch.tensor(float(labels.shape[0]), device=logits.device)
-    loss = sharding.backward_global_mean(
-        F.cross_entropy(logits.float(), labels), n)
+    tp = tensor_group()
+    if tp.size == 1:
+        ce = F.cross_entropy(parts[0].float(), labels)
+    else:
+        ce = vocab_parallel_token_ce(
+            parts, tp.ranges(model.cfg.num_classes), labels, tp,
+            z_loss_weight=0.0).mean()
+    n = torch.tensor(float(labels.shape[0]), device=labels.device)
+    loss = sharding.backward_global_mean(ce, n)
     optimizer.step()
     with torch.no_grad():
+        logits = tp.gather([p.detach() for p in parts], -1)
         accuracy = sharding.global_mean(
             (logits.argmax(-1) == labels).float().mean(), n)
     return {"loss": loss, "accuracy": accuracy}
+
+
+def check_tensor_split(cfg, tensor: int) -> None:
+    """ValueError naming the dimension when ``tensor`` does not divide a
+    dimension of the vision config ``cfg`` that it splits: a ViT's heads
+    and MLP width, and either family's classes."""
+    dims = [("num_classes", cfg.num_classes)]
+    if hasattr(cfg, "n_heads"):
+        dims += [("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)]
+    for name, v in dims:
+        if v % tensor:
+            raise ValueError(f"mesh tensor={tensor} must divide {name}={v} "
+                             "for tensor parallelism")
 
 
 class VisionTrainer:
@@ -173,31 +211,48 @@ class VisionTrainer:
     loop with images/s/GPU and MFU metrics: on one device, or, when a
     process group is initialized, sharded over the gang's mesh of
     ``mesh_cfg`` (default ``MeshConfig()``: every rank on ``fsdp``, as in
-    ``tpufw``); ``cfg.batch_size`` is then global. A ``sequence`` or
-    ``pipe`` axis above 1 raises NotImplementedError."""
+    ``tpufw``); ``cfg.batch_size`` is then global. One process takes
+    ``mesh_cfg.tensor`` as a ``LocalTensorGroup`` (every shard in turn).
+    A ``sequence`` or ``pipe`` axis above 1 raises NotImplementedError
+    (ROADMAP.md Queue 1 item 12f), an ``expert`` one ValueError."""
 
     def __init__(self, model_cfg, cfg: VisionTrainerConfig, mesh_cfg=None,
                  device=None):
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
+        mesh_cfg = mesh_cfg or MeshConfig()
         # The DeviceMesh of the gang (None: one device, unsharded).
         self.mesh = None
+        # (process group, size) of the batch ranks of this rank's tensor
+        # coordinate, when the model is split in a gang.
+        self.batch_ranks = None
         if sharding.active():
-            refuse_later_axes((mesh_cfg or MeshConfig()).slice_sizes(
-                sharding.world_size()), " in VisionTrainer")
             sharding.refuse_split_rows(mesh_cfg, "VisionTrainer")
-            self.mesh = build_mesh(mesh_cfg or MeshConfig(),
-                                   sharding.world_size(), self.device.type)
+            self.mesh = build_mesh(mesh_cfg, sharding.world_size(),
+                                   self.device.type)
+            self.groups = model_groups(self.mesh)
             n = self.batch_shard()[1]
             if cfg.batch_size % n:
                 raise ValueError(
                     f"batch_size {cfg.batch_size} does not divide over {n} "
                     "batch shards")
-        elif mesh_cfg is not None:
-            refuse_later_axes(dataclasses.asdict(mesh_cfg),
-                              " in VisionTrainer")
-            mesh_shape(mesh_cfg, 1)
+        else:
+            mesh_shape(dataclasses.replace(mesh_cfg, tensor=1, expert=1), 1)
+            self.groups = (LocalTensorGroup(max(mesh_cfg.tensor, 1)),
+                           LocalExpertGroup(max(mesh_cfg.expert, 1)))
+        tp, ep = self.groups
+        if ep.size > 1:
+            raise ValueError(
+                f"mesh expert axis has size {ep.size} but "
+                f"{type(model_cfg).__name__} has no experts to shard over it")
+        if tp.size > 1:
+            check_tensor_split(model_cfg, tp.size)
+            if self.gang:
+                self.batch_ranks = sharding.batch_group(self.mesh)
+        # {parameter name: split} of the split parameters a rank of a
+        # tensor-parallel gang holds its shards of (set by ``_shard``).
+        self.splits: dict = {}
         self.model = None
         self.optimizer: Optional[VisionSGD] = None
         self.step = 0
@@ -227,26 +282,61 @@ class VisionTrainer:
         return sharding.batch_shard(self.mesh) if self.gang else (0, 1)
 
     def _shard(self, model) -> None:
-        """Shard ``model`` (whole on this rank's device) over the mesh;
-        BatchNorm's statistics over every rank's rows."""
+        """Shard ``model`` (whole on this rank's device) over the mesh, its
+        split parameters cut to this rank's shards first; BatchNorm's
+        statistics over every batch rank's rows."""
         if not self.gang:
             return
+        if self.batch_ranks is not None:
+            self.splits = cut_model(model, self.groups)
         sharding.shard_model(model, self.mesh, vision_blocks(model))
         if sharding.world_size() > 1:
             import torch.distributed as dist
 
             from tpufw_torch.models.resnet import BatchNorm
 
+            group = (dist.group.WORLD if self.batch_ranks is None
+                     else self.batch_ranks[0])
             for m in model.modules():
                 if isinstance(m, BatchNorm):
-                    m.stat_group = dist.group.WORLD
+                    m.stat_group = group
+
+    def _param_splits(self) -> list:
+        """The split of each parameter the optimizer holds, in its order
+        (() when replicated)."""
+        names = {id(p): k for k, p in self.model.named_parameters()}
+        return [self.splits.get(names[id(p)], ())
+                for g in self.optimizer.sgd.param_groups for p in g["params"]]
+
+    def _split_momentum(self, state: dict, fn) -> dict:
+        """``VisionSGD.state_dict``'s form with each split parameter's
+        momentum replaced by ``fn(momentum, split)``."""
+        splits = self._param_splits()
+        sgd = state["sgd"]
+        return dict(state, sgd=dict(sgd, state={
+            i: {k: (fn(v, splits[i]) if isinstance(v, torch.Tensor)
+                    and splits[i] else v) for k, v in st.items()}
+            for i, st in sgd["state"].items()}))
+
+    def whole_state(self) -> dict:
+        """The model's state dict with every tensor whole on this rank (in
+        a gang a collective)."""
+        return sharding.full_state_dict(self.state_dict()["model"])
 
     def state_dict(self) -> dict:
+        model, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self.splits:
+            # A checkpoint holds whole tensors: the split ones gather.
+            model = {k: (sharding.SplitPart(v, self.splits[k], self.groups)
+                         if k in self.splits else v)
+                     for k, v in model.items()}
+            opt = self._split_momentum(
+                opt, lambda v, sp: sharding.SplitPart(v, sp, self.groups))
         return {"step": self.step,
                 "config": config_identity(self.model_cfg),
                 "model_config": config_to_dict(self.model_cfg),
-                "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+                "model": model,
+                "optimizer": opt}
 
     def load_state_dict(self, state: dict) -> None:
         """Resume from ``state_dict()``'s output (in a gang, whole tensors
@@ -260,7 +350,11 @@ class VisionTrainer:
         self.model.load_state_dict(tensors, assign=True)
         self._shard(self.model)
         self.optimizer = VisionSGD(self.model.parameters(), self.cfg)
-        self.optimizer.load_state_dict(state["optimizer"])
+        opt = state["optimizer"]
+        if self.splits:
+            opt = self._split_momentum(
+                opt, lambda v, sp: cut_tensor(v, sp, self.groups))
+        self.optimizer.load_state_dict(opt)
         self.step = int(state["step"])
 
     def maybe_restore(self) -> bool:
@@ -283,8 +377,12 @@ class VisionTrainer:
             mgr.close()
 
     def train_step(self, batch: dict) -> dict:
-        out = vision_train_step(self.model, self.optimizer,
-                                batch_to_device(batch, self.device))
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(use_groups(*self.groups))
+            if self.batch_ranks is not None:
+                stack.enter_context(sharding.batch_ranks(*self.batch_ranks))
+            out = vision_train_step(self.model, self.optimizer,
+                                    batch_to_device(batch, self.device))
         self.step += 1
         return out
 

@@ -5,8 +5,6 @@ so the port never imports the JAX package."""
 
 from __future__ import annotations
 
-import dataclasses
-
 import os
 
 
@@ -89,15 +87,14 @@ def mesh_from_env(world: int, moe_dispatch: str = "einsum", pipe: int = 1):
     """The ``MeshConfig`` of ``TPUFW_MESH_{DATA,FSDP,EXPERT,SEQUENCE,
     TENSOR,DCN_DATA}`` (``tpufw``'s defaults: every device on ``fsdp``)
     with ``pipe`` pipeline stages (the pipeline workload's
-    ``TPUFW_PIPE_STAGES``), checked against a ``world``-rank gang. A
-    ``tensor`` or ``expert`` axis above 1 beside ``sequence`` above 1
-    raises NotImplementedError naming ROADMAP.md Queue 1 item 12g, and
-    ``pipe`` with ``sequence`` above 1 NotImplementedError; axes that do
-    not fit the world raise ``tpufw``'s ValueError. The sorted MoE dispatch is
+    ``TPUFW_PIPE_STAGES``), checked against a ``world``-rank gang, axes in
+    ``tpufw``'s order. ``pipe`` with ``sequence`` above 1 raises
+    NotImplementedError; axes that do not fit the world raise ``tpufw``'s
+    ValueError. The sorted MoE dispatch is
     refused only when the RESOLVED ``expert`` axis is above 1 (``tpufw``
     refuses it for -1 even where -1 is one device)."""
     from tpufw_torch.mesh import MeshConfig, mesh_shape
-    from tpufw_torch.mesh.mesh import refuse_later_axes
+    from tpufw_torch.mesh.mesh import refuse_pipe_with_sequence
 
     cfg = MeshConfig(
         data=env_int("mesh_data", 1),
@@ -108,12 +105,7 @@ def mesh_from_env(world: int, moe_dispatch: str = "einsum", pipe: int = 1):
         tensor=env_int("mesh_tensor", 1),
         dcn_data=env_int("mesh_dcn_data", 1),
     )
-    from tpufw_torch.mesh.mesh import refuse_pipe_with_sequence
-
     refuse_pipe_with_sequence(pipe, cfg.sequence)
-    if cfg.sequence > 1:
-        refuse_later_axes(dataclasses.asdict(cfg),
-                          f" beside a sequence axis of size {cfg.sequence}")
     expert = cfg.slice_sizes(world)["expert"]
     if moe_dispatch == "sorted" and expert > 1:
         raise ValueError(

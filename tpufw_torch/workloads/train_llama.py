@@ -70,11 +70,11 @@ its chunk of the ``seq_len - 1`` positions, which the sequence size must
 divide; attention then runs as ``TPUFW_ATTENTION`` says: ``ring``
 (ring-flash on CUDA) or ``ulysses`` exchange K/V along the ring, ``xla``
 and ``flash`` gather it. The ``tensor`` and ``expert`` ranks of a batch
-shard load the same rows too. ``TPUFW_MESH_TENSOR`` or
-``TPUFW_MESH_EXPERT`` above 1 beside a ``sequence`` axis above 1, under
-LoRA, DPO or distillation raise ``NotImplementedError`` naming
-ROADMAP.md Queue 1 item 12g; axes that do not fit the world raise
-``ValueError``.
+shard load the same rows too. ``TPUFW_MESH_TENSOR`` and
+``TPUFW_MESH_EXPERT`` compose with ``TPUFW_MESH_SEQUENCE`` (each tensor
+shard's heads run their own ring), with ``TPUFW_LORA_RANK`` (the
+adapters split with their weights) and with DPO and distillation; axes
+that do not fit the world raise ``ValueError``.
 
 Telemetry (``tpufw``'s knobs and files): ``TPUFW_TELEMETRY_DIR``
 (events.jsonl, trace.json, goodput.json, programs.json and metrics.prom,
