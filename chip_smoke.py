@@ -423,10 +423,12 @@ Phases, each fatal on failure:
     ``flash_costs`` of the step's launches; the ``torch.profiler`` trace
     holds the d128 flash kernels by name as often as the launch counts of
     the two profiled steps (TEL_STEP_LAUNCHES a step), with its busy, idle
-    and flash shares printed. 20b: the same run with telemetry off, back
-    to back: the telemetry run's median step (TEL_MEDIAN_STEPS: neither
-    the counted step nor the profiled ones) within TEL_OVERHEAD_TOL of
-    this one's, the counted step out of the Meter's histogram. 20c: phase
+    and flash shares printed. 20b: the same run with telemetry off, the
+    runs in TEL_ORDER (on/off/off/on, twice): the telemetry runs' median
+    step (TEL_MEDIAN_STEPS of each run, pooled: neither the counted step
+    nor the profiled ones) within TEL_OVERHEAD_TOL of the others', each
+    telemetry run's counted step out of its Meter's histogram, each run's
+    launches TEL_STEP_LAUNCHES a step. 20c: phase
     6's model behind a server with ``TPUFW_TELEMETRY_DIR``: a
     ``/debug/profile?seconds=1`` capture during TEL_SERVE_PROMPTS streams
     holds decode kernels and no flash kernel, no flash launch, and the
@@ -6167,17 +6169,25 @@ def tensor_pipe_phase(torch, kind, smi) -> dict:
 # build_trainer at phase 7b's shapes (llama3_600m_bench, B=4 x 2048,
 # remat `dots`) for TEL_STEPS steps with TPUFW_TELEMETRY_DIR,
 # TPUFW_PROFILE_DIR, TPUFW_METRICS_PORT=0 and TPUFW_PROFILE_STEPS set;
-# 20b: the same run with telemetry off, back to back; 20c: phase 6's
-# server model (Llama-3-8B widths at ONLINE_LAYERS layers) behind a
-# server with TPUFW_TELEMETRY_DIR and a /debug/profile capture.
+# 20b: the same run with telemetry off, in TEL_ORDER with more of each;
+# 20c: phase 6's server model (Llama-3-8B widths at ONLINE_LAYERS layers)
+# behind a server with TPUFW_TELEMETRY_DIR and a /debug/profile capture.
 # 12 steps, not 8: the median of the 9 steps neither counted nor profiled
 # holds the on/off ratio steadier than 5 would (a run's own steps spread
 # 185-283 ms at these shapes on an H100 80GB HBM3 at 700 W).
 TEL_STEPS = 12
 TEL_PROFILE = (4, 6)
-# The telemetry-on run's median step over the telemetry-off run's, on
-# the steps that are neither counted (index 0) nor profiled.
+# The median step of the telemetry-on runs over that of the telemetry-off
+# runs, each pooled over its runs' steps that are neither counted (index
+# 0) nor profiled.
 TEL_OVERHEAD_TOL = 1.10
+# The runs, in order (the first "on" is 20a, the first "off" 20b). The
+# step is host-bound, and the host drifts from run to run: on an H100
+# 80GB HBM3 at 700 W one on/off pair's ratio read 0.863-1.121 over six
+# pairs, one on/off/off/on block's 0.932-1.073 and all twelve runs'
+# 0.984 (scripts/telemetry_overhead_torch.py). Two such blocks cancel a
+# linear drift and pool 36 steps a side.
+TEL_ORDER = ("on", "off", "off", "on") * 2
 TEL_MEDIAN_STEPS = [i for i in range(1, TEL_STEPS)
                     if not TEL_PROFILE[0] <= i < TEL_PROFILE[1]]
 # The counted step's FLOPs over the model FLOPs of one step
@@ -6482,40 +6492,53 @@ def telemetry_serve(workdir: str, kind, smi) -> dict:
 
 
 def telemetry_phase(torch, kind, smi) -> dict:
-    """Phase 20: 20a and 20b back to back (telemetry on, then off), the
-    overhead gate on their medians, then 20c. Returns the d128 launch
-    counts of both train runs."""
+    """Phase 20: the train runs in TEL_ORDER (telemetry on, then off,
+    off, on, twice; 20a's checks on the first), the overhead gate on
+    their pooled medians, then 20c. Returns the d128 launch counts of the
+    first run of each kind."""
     from tpufw_torch.ops import flash
 
     workdir = os.path.join(ROOT, "build-torch", f"phase20-{os.getpid()}")
     os.makedirs(workdir, exist_ok=True)
     try:
-        on = telemetry_train(torch, workdir, on=True)
-        checks = telemetry_checks(on, workdir)
-        off = telemetry_train(torch, workdir, on=False)
-        med = {name: 1e3 * statistics.median(
-            r["history"][i].step_time_s for i in TEL_MEDIAN_STEPS)
-            for name, r in (("on", on), ("off", off))}
+        runs, dirs = [], []
+        for j, mode in enumerate(TEL_ORDER):
+            dirs.append(os.path.join(workdir, f"run{j}"))
+            os.makedirs(dirs[-1], exist_ok=True)
+            runs.append(telemetry_train(torch, dirs[-1], on=mode == "on"))
+            if j == 0:
+                checks = telemetry_checks(runs[0], dirs[0])
+            gc.collect()
+            torch.cuda.empty_cache()
+        on, off = runs[TEL_ORDER.index("on")], runs[TEL_ORDER.index("off")]
+        steps = {m: [1e3 * r["history"][i].step_time_s
+                     for r, mode in zip(runs, TEL_ORDER) if mode == m
+                     for i in TEL_MEDIAN_STEPS] for m in ("on", "off")}
+        med = {m: statistics.median(v) for m, v in steps.items()}
         ratio = med["on"] / med["off"]
         hist = on["history"]
-        counted_out = (
+        counted_out = all(
             "tpufw_train_step_time_seconds_count %d" % (TEL_STEPS - 1)
-            in open(os.path.join(workdir, "telemetry", "metrics.prom")
-                    ).read())
+            in open(os.path.join(d, "telemetry", "metrics.prom")).read()
+            for d, mode in zip(dirs, TEL_ORDER) if mode == "on")
         emit({"telemetry_summary": {
             "model": "llama3_600m_bench", "batch_size": RESUME_BATCH,
             "seq_len": RESUME_SEQ, "steps": TEL_STEPS,
             "profile_steps": TEL_PROFILE, "median_steps": TEL_MEDIAN_STEPS,
-            "step_ms_on": [1e3 * m.step_time_s for m in hist],
-            "step_ms_off": [1e3 * m.step_time_s for m in off["history"]],
+            "order": TEL_ORDER,
+            "step_ms": [[1e3 * m.step_time_s for m in r["history"]]
+                        for r in runs],
+            "run_median_ms": [statistics.median(
+                1e3 * r["history"][i].step_time_s for i in TEL_MEDIAN_STEPS)
+                for r in runs],
             "median_ms_on": med["on"], "median_ms_off": med["off"],
             "on_over_off": ratio, "tol": TEL_OVERHEAD_TOL,
             "counted_step_ms": 1e3 * hist[0].step_time_s,
             "counted_step_out_of_meter": counted_out,
             "losses_on": [m.loss for m in hist],
             "losses_off": [m.loss for m in off["history"]],
-            "losses_equal": [m.loss for m in hist] == [
-                m.loss for m in off["history"]],
+            "losses_equal": all([m.loss for m in r["history"]] == [
+                m.loss for m in hist] for r in runs),
             "counted_over_model_flops": checks["counted_over_model_flops"],
             "mfu_counted_program": checks["program"]["mfu"],
             "mfu_meter_median": statistics.median(
@@ -6531,11 +6554,12 @@ def telemetry_phase(torch, kind, smi) -> dict:
                 f"20b: telemetry on/off median {ratio:.3f} (tol "
                 f"{TEL_OVERHEAD_TOL}), counted step out of the meter: "
                 f"{counted_out}")
-        for name, r in (("20a", on), ("20b", off)):
-            want = {k: n * TEL_STEPS for k, n in TEL_STEP_LAUNCHES.items()}
+        want = {k: n * TEL_STEPS for k, n in TEL_STEP_LAUNCHES.items()}
+        for j, (r, mode) in enumerate(zip(runs, TEL_ORDER)):
             if r["launches"] != want:
-                raise AssertionError(f"{name}: launches {r['launches']} != "
-                                     f"{want}")
+                raise AssertionError(
+                    f"20{'a' if mode == 'on' else 'b'} (run {j}): launches "
+                    f"{r['launches']} != {want}")
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
