@@ -152,9 +152,9 @@ Phases, each fatal on failure:
    print ``{"preempted": true, "step": N}``, exit 0 and leave step N on
    disk; a second child with ``TPUFW_TOTAL_STEPS=N+2`` must resume at N
    and train 2 finite steps; a ``preemption_summary`` line. 7d: the
-   phase-5 Llama-3-8B weights (32 layers, bf16, drawn from seed 0)
-   exported with ``export_hf`` as sharded safetensors (16.06 GB; fails
-   if fewer than 24 GB are free) and served back through
+   phase-5 Llama-3-8B weights at LLAMA_HF_LAYERS = 8 of 32 layers (bf16,
+   drawn from seed 0) exported with ``export_hf`` as sharded safetensors
+   (two files; fails if fewer than 24 GB are free) and served back through
    ``TPUFW_HF_CHECKPOINT`` and ``serve.build_generator``: the four
    prompts' greedy tokens and prefill logits bit-equal to the in-memory
    model's, and under ``TPUFW_QUANTIZE=int8`` every int8 code and scale
@@ -604,8 +604,11 @@ SPILL_ARENA_PAGES = 15
 # trainer restored at RESUME_EVERY trains the rest: losses and parameters
 # bit-equal. 7c: the train_llama entry point as a child, SIGTERM after its
 # second step line, then resumed for 2 steps. 7d: Llama-3-8B's serve slice
-# exported as sharded safetensors and served back through
-# TPUFW_HF_CHECKPOINT, which needs HF_DISK_GB free.
+# at LLAMA_HF_LAYERS layers exported as sharded safetensors and served back
+# through TPUFW_HF_CHECKPOINT, which needs HF_DISK_GB free. 8 of 32 layers
+# (5.6 GB of bf16, still two 5 GB shards), for the script's time limit:
+# the round trip's format, shards and int8 codes are per tensor, so more
+# layers add bytes and no case.
 CORPUS_TOKENS = 16 * 2**20
 PARITY_BATCHES = 32
 RESUME_BATCH = 4
@@ -614,6 +617,7 @@ RESUME_STEPS = 6
 RESUME_EVERY = 3
 SIGTERM_TOTAL_STEPS = 50
 HF_DISK_GB = 24
+LLAMA_HF_LAYERS = 8
 # Phase 8, disaggregated serving of the Llama-3-8B serve slice: pages of
 # DISAGG_PAGE tokens (2 MiB of bf16 K and V over 32 layers), a decode
 # engine of DISAGG_SLOTS slots (the router admits as many at once), the
@@ -2830,7 +2834,7 @@ def sigterm_phase(prefix: str, workdir: str, kind, smi) -> None:
 
 def hf_phase(torch, workdir: str, kind, smi, family="llama3_8b") -> None:
     """7d (``family`` "llama3_8b"): Llama-3-8B's serve slice (full width,
-    32 layers, bf16 weights drawn as phase 5 draws them), or 9d
+    LLAMA_HF_LAYERS layers, bf16 weights drawn as phase 5 draws them), or 9d
     ("mixtral_8x7b"): Mixtral-8x7B at full width and MIXTRAL_HF_LAYERS
     layers, bf16, dropless; exported with export_hf as sharded
     safetensors and served back through TPUFW_HF_CHECKPOINT and
@@ -2857,6 +2861,8 @@ def hf_phase(torch, workdir: str, kind, smi, family="llama3_8b") -> None:
                                      *configs.deepseek_v2_lite_serve_slice(
                                          n_layers=V2LITE_HF_LAYERS)),
     }[family]()
+    if family == "llama3_8b":
+        cfg = dataclasses.replace(cfg, n_layers=LLAMA_HF_LAYERS)
     prefix = FAMILIES[family][1]
     free_gb = shutil.disk_usage(workdir).free / 1e9
     if free_gb < need_gb:
@@ -2947,13 +2953,20 @@ def weights_phase(torch, kind, smi) -> dict:
         emit({"corpus": stats})
         data = corpus_phase(torch, prefix)
         torch.cuda.empty_cache()
+        PHASE_SECONDS["7a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         launches, step_ms = resume_phase(torch, prefix, workdir, kind, smi)
         torch.cuda.empty_cache()
         data["step_ms_600m"] = step_ms
         data["host_share_of_step"] = data["native_host_ms_per_batch"] / step_ms
         emit({"data_summary": data | {"device": kind, "nvidia_smi": smi}})
+        PHASE_SECONDS["7b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         sigterm_phase(prefix, workdir, kind, smi)
+        PHASE_SECONDS["7c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         hf_phase(torch, workdir, kind, smi)
+        PHASE_SECONDS["7d"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return launches
