@@ -424,7 +424,7 @@ Phases, each fatal on failure:
     holds the d128 flash kernels by name as often as the launch counts of
     the two profiled steps (TEL_STEP_LAUNCHES a step), with its busy, idle
     and flash shares printed. 20b: the same run with telemetry off, the
-    runs in TEL_ORDER (on/off/off/on, twice): the telemetry runs' median
+    runs in TEL_ORDER (on/off/off/on, thrice): the telemetry runs' median
     step (TEL_MEDIAN_STEPS of each run, pooled: neither the counted step
     nor the profiled ones) within TEL_OVERHEAD_TOL of the others', each
     telemetry run's counted step out of its Meter's histogram, each run's
@@ -6195,12 +6195,13 @@ TEL_PROFILE = (4, 6)
 # 0) nor profiled.
 TEL_OVERHEAD_TOL = 1.10
 # The runs, in order (the first "on" is 20a, the first "off" 20b). The
-# step is host-bound, and the host drifts from run to run: on an H100
-# 80GB HBM3 at 700 W one on/off pair's ratio read 0.863-1.121 over six
-# pairs, one on/off/off/on block's 0.932-1.073 and all twelve runs'
-# 0.984 (scripts/telemetry_overhead_torch.py). Two such blocks cancel a
-# linear drift and pool 36 steps a side.
-TEL_ORDER = ("on", "off", "off", "on") * 2
+# step is host-bound, and the host drifts from run to run: on H100 80GB
+# HBM3 cards at 700 W one on/off pair's ratio read 0.78-1.12, one
+# on/off/off/on block's 0.90-1.07, and 8 or 12 runs pooled 0.96-1.09
+# (scripts/telemetry_overhead_torch.py, chip_smoke.py), with no sign of a
+# cost in the collector's pauses, threads or the profiler window. Three
+# blocks cancel a linear drift and pool 54 steps a side.
+TEL_ORDER = ("on", "off", "off", "on") * 3
 TEL_MEDIAN_STEPS = [i for i in range(1, TEL_STEPS)
                     if not TEL_PROFILE[0] <= i < TEL_PROFILE[1]]
 # The counted step's FLOPs over the model FLOPs of one step
@@ -6506,7 +6507,7 @@ def telemetry_serve(workdir: str, kind, smi) -> dict:
 
 def telemetry_phase(torch, kind, smi) -> dict:
     """Phase 20: the train runs in TEL_ORDER (telemetry on, then off,
-    off, on, twice; 20a's checks on the first), the overhead gate on
+    off, on, thrice; 20a's checks on the first), the overhead gate on
     their pooled medians, then 20c. Returns the d128 launch counts of the
     first run of each kind."""
     from tpufw_torch.ops import flash
