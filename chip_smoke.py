@@ -61,7 +61,8 @@ Phases, each fatal on failure:
    seq 2048, chunked CE, flash at head dim 192 with V zero-padded, its own
    counters): every head-dim-192 kernel launched, flash vs plain logits on
    256 tokens; an ``mla_train_summary`` line;
-5. frees the trainer and serves Llama-3-8B at full width and all 32 layers
+5. frees the trainer and serves Llama-3-8B at full width and
+   LLAMA_SERVE_LAYERS = 16 of its 32 layers (phase 8 serves all 32)
    (``llama3_8b_serve_slice``: 4 prompts of 7, 64, 200 and 511 tokens, 32
    greedy tokens each, a 2048-slot KV cache) through ``run_batch``'s
    generation path, with bf16 weights and then with int8 weights. Every
@@ -79,8 +80,9 @@ Phases, each fatal on failure:
    passes, accepted drafts per pass, tokens/s and greedy agreement with
    the plain run. The serve path runs plain PyTorch attention: no flash
    kernel may launch there. 5b. The same checks for Gemma-2-9B at full
-   width and all 42 layers (``gemma2_9b_serve_slice``, weights drawn in
-   bf16), bf16 then int8, a ``gemma_serve_summary`` line per dtype. 5c.
+   width and GEMMA_SERVE_LAYERS = 8 of its 42 layers
+   (``gemma2_9b_serve_slice``, weights drawn in bf16), bf16 then int8, a
+   ``gemma_serve_summary`` line per dtype. 5c.
    The same checks for ``deepseek_mla_bench`` at all 10 layers
    (``deepseek_mla_serve_slice``: 8 prompts of 128 ids, 128 greedy tokens,
    a 256-slot latent cache) through the absorbed latent-cache decode, the
@@ -185,12 +187,44 @@ Phases, each fatal on failure:
    router from the spill directory onto a second decode engine on the
    same weights: the client's tokens equal the undisturbed run's; a
    ``disagg_summary`` line (tokens/s, the router's TTFT p50/p95, latency
-   p50, the router's stage breakdown). 8c: ``python -m
-   tpufw_torch.workloads.serve`` as three children, ``TPUFW_SERVE_ROLE``
-   prefill, decode and router, on ``llama3_8b_serve_slice`` from
-   ``TPUFW_SEED=0`` (fails early below 40 GB free): the four prompts
-   through the router's HTTP port give 8a's bf16 tokens, SIGTERM drains
-   the decode child, which exits 0; each child's startup seconds.
+   p50, the router's stage breakdown). 8d: the closed autoscaling loop on
+   8b's weights and the decode engine its drain left in rotation, beside
+   a fresh prefill engine (as 8b's), behind a ``RouterServer`` of its own:
+   a ``FleetCollector`` over the router and both replicas, an
+   ``SloTracker`` of 4 s/12 s windows, a ``ScalingRecommender`` on
+   ``deploy/manifests/13-serve-disagg-v5e8-jobset.yaml`` subscribed by a
+   ``GangExecutor`` whose decode factory serves a new ``DecodeEngine`` on
+   the same weights over loopback TCP. A seeded mmpp burst of the
+   "burst" tenant (per-token target 0.1 us, so every request violates)
+   through ``ReplayClient`` over the router's HTTP port, the collector
+   sweeping every 0.5 s beside it. Held in causal order: the pre-traffic
+   sweep sees every replica live and no alert; the burn-rate pair fires
+   (schema-valid ``fleet_alert`` events); exactly one decision (decode
+   +1) with its manifest artifact; a third replica in ``/healthz`` and a
+   ``scale_action`` add; the spawned replica serves (its signals count
+   migrations, replies name it) and the four phase-5 prompts give 8a's
+   bf16 tokens; relaxed targets give ``scale_action`` recovered; idle
+   traffic gives decode -1 and the executor drains and removes only its
+   own replica; no flash launch. A ``fleet_loop_summary`` line (seconds
+   from the first violation to the alert, from the alert to the
+   decision, from the decision to the spawned replica's first token; the
+   collector's CPU seconds a sweep; the artifact). Then ``run_sweep`` on
+   the same gang (rungs of 0.5, 1, 2 and 4 requests/s, 5 s hold, 1 s
+   settle, ``SweepConfig``'s targets: TTFT 2 s, 0.2 s a token) and a
+   ``load_sweep_summary`` line (per rung offered and achieved rps,
+   attainment, TTFT p50/p95, the router's stage means; the knee). 8c:
+   ``python -m tpufw_torch.workloads.serve`` as three children,
+   ``TPUFW_SERVE_ROLE`` prefill, decode and router, on
+   ``llama3_8b_serve_slice`` from ``TPUFW_SEED=0`` (fails early below 40
+   GB free): the four prompts through the router's HTTP port give 8a's
+   bf16 tokens; the router child runs its fleet collector
+   (``TPUFW_FLEET_SCRAPE_S=0.5``): its startup line says ``"fleet":
+   true``, its ``fleet-series.jsonl`` holds records of the router and
+   both replicas and ``python -m tpufw_torch.obs.fleet query`` returns
+   them; a fourth child, ``python -m tpufw_torch.load replay``, sends a
+   3 s ``TPUFW_LOAD_*`` poisson mix through the router, every request
+   served, and leaves a trace ``read_trace`` reads; SIGTERM drains the
+   decode child, which exits 0; each child's startup seconds.
 
 9. Mixtral-8x7B widths (8 experts of 14336, top 2; ``tpufw_torch.ops.moe``
    routing), with phase 8's models freed. 9a: ``mixtral_8x7b_train_slice``
@@ -203,7 +237,7 @@ Phases, each fatal on failure:
    and the two runs' step-1 losses and gradient norms within
    MIXTRAL_LOSS_TOL and MIXTRAL_GNORM_TOL (the gap printed); a
    ``mixtral_train_summary`` per mode. 9b: ``mixtral_8x7b_serve_slice``
-   at MIXTRAL_SERVE_LAYERS = 4 of 32 layers (bf16 weights drawn in bf16,
+   at MIXTRAL_SERVE_LAYERS = 2 of 32 layers (bf16 weights drawn in bf16,
    dropless capacity 8.0) through phase 5's checks in bf16 and then int8
    (``quantize_model`` freeing each bf16 weight as its codes are made),
    with the number of
@@ -227,7 +261,7 @@ Phases, each fatal on failure:
     dispatch, as 9a: finite losses, every head-dim-192 kernel launched in
     both runs, the flash vs plain logits on 256 tokens, the step-1 gaps; a
     ``v2lite_train_summary`` per mode. 10b: ``deepseek_v2_lite_serve_slice``
-    at V2LITE_SERVE_LAYERS = 7 of its 27 layers (bf16 weights drawn in
+    at V2LITE_SERVE_LAYERS = 3 of its 27 layers (bf16 weights drawn in
     bf16, dropless, a 4096-slot ceiling) through phase 5's checks in bf16
     and then int8, the absorbed
     latent decode against the expanded forward; a ``v2lite_serve_summary``
@@ -539,6 +573,13 @@ STEPS = 5
 REMAT_LOSS_TOL = 0.0
 # Gemma-2-9B train slice depth: 2 (local, global) pairs of its 42 layers.
 GEMMA_TRAIN_LAYERS = 4
+# Phase 5 serves LLAMA_SERVE_LAYERS of Llama-3-8B's 32 layers (phase 8
+# serves all 32) and 5b GEMMA_SERVE_LAYERS of Gemma-2-9B's 42 (4 pairs):
+# their decode is host-bound, a cost per layer, and the whole script took
+# 1,100 s on a slow host once 8d came, 1,049 s with 5b at 14 layers and
+# 9b-c and 10b-d cut too (H100 80GB HBM3 at 700 W).
+LLAMA_SERVE_LAYERS = 16
+GEMMA_SERVE_LAYERS = 8
 # deepseek_mla_bench trains at its full depth.
 MLA_TRAIN_LAYERS = 10
 # Serve slice, each relative to the reference logits' largest magnitude:
@@ -627,6 +668,29 @@ DISAGG_PAGE = 16
 DISAGG_SLOTS = 8
 DISAGG_DRAIN_NEW = 128
 DISAGG_FREE_GB = 40
+# 8d, the closed autoscaling loop on 8b's gang: SLO windows of
+# FLEET_WINDOWS seconds (minutes compressed so the loop closes in
+# seconds), a collector sweep every FLEET_SCRAPE_S while traffic runs, the
+# recommender's cooldown, the idle rule's hold (longer than the gaps
+# between replies under the burst: a scale-in vote during it would cancel
+# the burn's scale-out vote), and the seeded mmpp burst of the "burst"
+# tenant, whose per-token target (0.1 us) no request meets; the gang serves
+# about one request a second on the H100, so the burst offers one a second
+# at its base rate with outputs of at most 8 tokens. Then a sweep
+# at SWEEP_RUNGS offered requests/s, SWEEP_HOLD_S seconds a rung, the first
+# SWEEP_SETTLE_S of each dropped. 8c's router child scrapes every
+# FLEET_SCRAPE_S too and its load child replays LOAD_CHILD_S seconds.
+FLEET_WINDOWS = (4.0, 12.0)
+FLEET_SCRAPE_S = 0.5
+FLEET_COOLDOWN_S = 3.0
+FLEET_IDLE_HOLD_S = 5.0
+FLEET_BURST = dict(seed=20, process="mmpp", rate_rps=1.0, duration_s=3.0,
+                   tenants=(("burst", 1.0),), session_ratio=0.2,
+                   max_new_cap=8, mmpp_burst_factor=4.0, mmpp_dwell_s=0.8)
+SWEEP_RUNGS = (0.5, 1.0, 2.0, 4.0)
+SWEEP_HOLD_S = 5.0
+SWEEP_SETTLE_S = 1.0
+LOAD_CHILD_S = 3.0
 # Phase 9, Mixtral-8x7B widths. 9a trains MIXTRAL_TRAIN_LAYERS of its 32
 # layers under each dispatch mode. Both modes route the same tokens to the
 # same experts with the same gates (bit for bit in fp32 on the CPU,
@@ -643,9 +707,9 @@ DISAGG_FREE_GB = 40
 # free.
 MIXTRAL_TRAIN_LAYERS = 2
 # 9b and 9c serve MIXTRAL_SERVE_LAYERS of the serve slice's 16 layers, cut
-# for the script's time limit when phase 10 came (8), and again when
-# phase 20 came (4).
-MIXTRAL_SERVE_LAYERS = 4
+# for the script's time limit when phase 10 came (8), again when phase 20
+# came (4) and again when 8d came (2).
+MIXTRAL_SERVE_LAYERS = 2
 # MOE_CHECKS. A MoE layer's routing is discrete: a token whose router
 # logits nearly tie flips experts under a rounding-size change of its
 # input, and its output, and through attention those of the tokens after
@@ -733,12 +797,12 @@ FAMILIES = {"llama3_8b": ("llama3_8b", ""),
 # V2LITE_SERVE_LAYERS of its 27 layers: their decode is host-bound, a cost
 # per layer, and at 27 layers they took 240-284 s of the script's 1200,
 # at 14 layers 141 s on that slower host (H100 80GB HBM3 at 700 W), so 7
-# since phase 20. 10c serves at pages of ONLINE_PAGE; 10d
-# migrates pages of V2LITE_PAGE (7 layers x 64 tokens x 1,152 bf16 bytes
-# = 0.5 MB a page). 10e exports V2LITE_HF_LAYERS layers (3.34 GB of bf16)
+# since phase 20 (74 s on a slow host), and 3 since 8d. 10c serves at
+# pages of ONLINE_PAGE; 10d migrates pages of V2LITE_PAGE (3 layers x 64
+# tokens x 1,152 bf16 bytes = 0.22 MB a page). 10e exports V2LITE_HF_LAYERS layers (3.34 GB of bf16)
 # and needs V2LITE_HF_DISK_GB free.
 V2LITE_TRAIN_LAYERS = 3
-V2LITE_SERVE_LAYERS = 7
+V2LITE_SERVE_LAYERS = 3
 V2LITE_PAGE = 64
 V2LITE_HF_LAYERS = 3
 V2LITE_HF_DISK_GB = 8
@@ -3144,7 +3208,8 @@ def disagg_phase(torch, model, de, direct, direct_out, max_new, kind, smi,
     over TcpReplicas; phase 6's 16 requests, its 4 requests sharing the
     448-token prefix and the direct prompts, concurrently; then a session
     drained off the decode engine mid-decode and resumed on a second one
-    through the spill directory."""
+    through the spill directory. Then 8d (``fleet_loop_phase``) on the
+    weights and the decode engine left in rotation."""
     import threading
 
     import socket
@@ -3314,6 +3379,13 @@ def disagg_phase(torch, model, de, direct, direct_out, max_new, kind, smi,
         summary["drain_request_ms"] = lat * 1e3
         summary.update({"device": kind, "nvidia_smi": smi})
         emit({"disagg_summary": summary})
+        # 8d on the same gang, through the decode engine the drain left
+        # in rotation.
+        keep = next(n for n in engines if n != drained["replica"])
+        ports = {"decode-0": dport, "decode-1": d2port}
+        _timed("8d", lambda: fleet_loop_phase(
+            torch, model, ports[keep], engines[keep], direct, direct_out,
+            max_new, kind, smi, os.path.dirname(sessions)))
     finally:
         if router is not None:
             router.close()
@@ -3322,6 +3394,361 @@ def disagg_phase(torch, model, de, direct, direct_out, max_new, kind, smi,
             # engines and the weights (found by phase 9's memory).
             s.shutdown(socket.SHUT_RDWR)
             s.close()
+
+
+def _fleet_events(path, kinds):
+    from tpufw_torch.obs.events import read_events
+
+    return [e for e in read_events(path) if e.get("kind") in kinds]
+
+
+def fleet_loop_phase(torch, model, dport, dengine, direct, direct_out,
+                     max_new, kind, smi, workdir) -> None:
+    """8d: the closed autoscaling loop on 8b's gang (its weights and its
+    undrained decode engine, beside a fresh prefill engine as 8b's is,
+    behind a RouterServer of their own): a
+    FleetCollector over the router and both replicas, an SloTracker of
+    FLEET_WINDOWS, a ScalingRecommender on the disaggregated manifest
+    subscribed by a GangExecutor whose decode factory serves a new
+    DecodeEngine on the same weights. Burst -> burn-rate alert -> one
+    decision (decode +1) -> a third replica that serves (the direct prompts
+    give 8a's tokens) -> recovery -> idle -> the executor removes its own
+    replica; then a capacity sweep of the same gang."""
+    import socket
+    import threading
+
+    from tpufw_torch.infer import SamplingConfig
+    from tpufw_torch.load import (GangExecutor, MixConfig, ReplayClient,
+                                  SweepConfig, TraceWriter, read_trace,
+                                  run_sweep, schedule, schedule_digest)
+    from tpufw_torch.obs import events as obs_events
+    from tpufw_torch.obs import fleet
+    from tpufw_torch.obs.registry import Registry
+    from tpufw_torch.obs.slo import SloTracker
+    from tpufw_torch.ops import flash
+    from tpufw_torch.serve.roles import (DecodeEngine, PrefillEngine,
+                                         serve_decode, serve_prefill)
+    from tpufw_torch.serve.router import RouterServer, TcpReplica
+
+    class Spawned(TcpReplica):
+        """A decode replica the executor spawned, over its own framed-TCP
+        server, which ``close`` shuts (the executor closes what it
+        removes)."""
+
+        def __init__(self, name, engine, sock, port):
+            super().__init__(name, "127.0.0.1", port, "decode")
+            self.engine, self._sock = engine, sock
+
+        def close(self):
+            self._sock.shutdown(socket.SHUT_RDWR)
+            self._sock.close()
+
+    fdir = os.path.join(workdir, "fleet8d")
+    os.makedirs(fdir, exist_ok=True)
+    ev_path = os.path.join(fdir, fleet.EVENTS_FILENAME)
+    manifest = os.path.join(ROOT, "deploy", "manifests",
+                            "13-serve-disagg-v5e8-jobset.yaml")
+    flash.reset_launch_counts()
+    # A fresh prefill engine, as 8b's: a trie holding the direct prompts'
+    # pages would prefill their suffixes only, which is not 8a's bf16.
+    pe = PrefillEngine(model, sampling=SamplingConfig(), page=DISAGG_PAGE,
+                       n_slots=2)
+    psock, pport = serve_prefill(pe, 0)
+    events = obs_events.EventLog(ev_path)
+    reg = Registry()
+    slo = SloTracker(reg, events, ttft_ms=60000.0, tok_ms=60000.0,
+                     goal=0.99, windows=FLEET_WINDOWS,
+                     tenants={"burst": (60000.0, 0.0001)})
+    prefill = TcpReplica("prefill-0", "127.0.0.1", pport, "prefill")
+    decode = TcpReplica("decode-base", "127.0.0.1", dport, "decode")
+    router = RouterServer([prefill], [decode], port=0, page=DISAGG_PAGE,
+                          max_inflight=DISAGG_SLOTS, events=events,
+                          registry=reg, slo=slo)
+    base = f"http://127.0.0.1:{router.port}"
+    fast, slow = (f"{int(w)}s" for w in FLEET_WINDOWS)
+    store = fleet.SeriesStore(os.path.join(fdir, fleet.SERIES_FILENAME))
+    collector = executor = None
+    traces = []
+    try:
+        recommender = fleet.ScalingRecommender(
+            fdir, manifest, cooldown_s=FLEET_COOLDOWN_S, events=events)
+        rules = (
+            fleet.BurnRateRule(name="load_tok_burn", metric="tok",
+                               fast_window=fast, slow_window=slow,
+                               severity="page", scale="decode:+1"),
+            fleet.AlertRule(name="load_idle_traffic",
+                            series="tpufw_fleet_requests_per_s", op="<",
+                            threshold=0.05, for_s=FLEET_IDLE_HOLD_S,
+                            severity="info", scale="decode:-1"),
+        )
+        collector = fleet.FleetCollector(
+            [fleet.Target("router", "router", router.render_metrics),
+             fleet.Target("prefill-0", "prefill", prefill.signals),
+             fleet.Target("decode-base", "decode", decode.signals)],
+            store, events=events, rules=rules, recommender=recommender,
+            health_fn=router.health)
+        spawned = {}
+
+        def spawn_decode(name):
+            # Built the way 8b builds its decode engines; a failure raises
+            # into the executor, which records an "error" action (held
+            # below).
+            eng = DecodeEngine(model, sampling=SamplingConfig(),
+                               page=DISAGG_PAGE, n_slots=DISAGG_SLOTS,
+                               chunk=16)
+            sock, port = serve_decode(eng, 0)
+            spawned[name] = Spawned(name, eng, sock, port)
+            return spawned[name]
+
+        executor = GangExecutor(router, spawn={"decode": spawn_decode},
+                                events=events, slo=slo, burn_window=fast)
+        executor.subscribe(recommender)
+
+        def decode_names():
+            with _get(base + "/healthz") as r:
+                reps = json.loads(r.read())["replicas"]
+            return sorted(n for n, d in reps.items() if d["role"] == "decode")
+
+        bad = []
+        derived0 = collector.scrape_once()
+        pre = {"prefill": derived0.get('tpufw_fleet_replicas{role="prefill"}'),
+               "decode": derived0.get('tpufw_fleet_replicas{role="decode"}'),
+               "router": derived0.get('tpufw_fleet_replicas{role="router"}'),
+               "unhealthy": derived0.get("tpufw_fleet_replicas_unhealthy"),
+               "alerts": len(_fleet_events(ev_path, ("fleet_alert",)))}
+        if pre != {"prefill": 1.0, "decode": 1.0, "router": 1.0,
+                   "unhealthy": 0.0, "alerts": 0}:
+            bad.append(f"pre-traffic sweep {pre}")
+
+        # The burst, open loop through the router's HTTP port, with the
+        # collector sweeping beside it until the decision lands.
+        events.emit("load_phase", phase="burst")
+        slo.set_phase("burst")
+        mix = MixConfig(**FLEET_BURST)
+        reqs = schedule(mix)
+        trace = TraceWriter(os.path.join(fdir, "load-trace.jsonl"))
+        traces.append(trace)
+        client = ReplayClient(base, trace, threads=DISAGG_SLOTS, rung=0,
+                              offered_rps=mix.rate_rps)
+        burst = {}
+        th = threading.Thread(target=lambda: burst.update(client.run(reqs)))
+        th.start()
+        while not executor.actions:
+            collector.scrape_once()
+            if not th.is_alive() and not executor.actions:
+                collector.scrape_once()
+                break
+            time.sleep(FLEET_SCRAPE_S)
+        th.join(timeout=600)
+        slo.tenants["burst"] = (60000.0, 60000.0)  # the targets relaxed
+        adds = [a for a in executor.actions if a["action"] == "add"]
+        name = adds[0]["replica"] if adds else ""
+        decisions = sorted(f for f in os.listdir(fdir)
+                           if f.startswith("fleet-rec-")
+                           and f.endswith(".json"))
+        artifact = {}
+        if decisions:
+            with open(os.path.join(fdir, decisions[0])) as f:
+                artifact = json.load(f)
+        alerts = _fleet_events(ev_path, ("fleet_alert",))
+        for e in alerts:
+            obs_events.validate(e)
+        up = {"burst": burst, "schedule_digest": schedule_digest(reqs),
+              "decisions": decisions, "pools": artifact.get("pools"),
+              "actions": [(a["action"], a["replica"])
+                          for a in executor.actions],
+              "decode_replicas": decode_names(),
+              "alerts_firing": [e["rule"] for e in alerts
+                                if e["state"] == "firing"]}
+        if burst.get("completed") != len(reqs) or decisions != [
+                "fleet-rec-0001.json"] or artifact.get("pools") != {
+                "decode": {"from": 1, "to": 2}} or up["actions"] != [
+                ("add", name)] or up["decode_replicas"] != [
+                name, "decode-base"] or "load_tok_burn" not in \
+                up["alerts_firing"]:
+            bad.append(f"scale-out {up}")
+        if bad:
+            raise AssertionError(f"8d: {bad}")
+
+        # Recovery: the burst tenant's violations age out of the fast
+        # window, then good traffic: the direct prompts, together. With
+        # the gang quiet the router re-reads every replica's signals, so
+        # both decode replicas rank as idle and the tie goes by name:
+        # the spawned replica ("decode-auto1") before the base one
+        # ("decode-base"), so these requests go to the new replica.
+        time.sleep(FLEET_WINDOWS[0] + 0.2)
+        engines = {"decode-base": dengine, name: spawned[name].engine}
+        before = {n: e.signals()["migrations"] for n, e in engines.items()}
+        router._refresh_all()
+        served = {}
+
+        def post(prompt, n):
+            t_send = time.time()
+            code, body, _lat = _router_post(
+                router.port, {"prompt": prompt, "max_new": n,
+                              "tenant": "burst"})
+            if code != 200:
+                raise AssertionError(f"8d: reply {code} {body}")
+            served.setdefault(body["replica"], []).append(
+                t_send + body["ttft_s"])
+            return body
+
+        bodies = _concurrently([(lambda p=p: post(p, max_new))
+                                for p in direct])
+        recovered = executor.poll_recovery()
+        for r in read_trace(trace.path):
+            if r.get("replica") == name and "ttft_s" in r:
+                served.setdefault(name, []).append(
+                    r["ts_sent"] + r["ttft_s"])
+        got = [b["tokens"] for b in bodies]
+        serve_check = {
+            "check": "fleet_loop_spawned_serves", "replica": name,
+            "direct_equal_8a": got == direct_out,
+            "direct_replicas": [b["replica"] for b in bodies],
+            "migrations": {n: e.signals()["migrations"] - before[n]
+                           for n, e in engines.items()},
+            "spawned_migrations_total": spawned[name].signals()[
+                "migrations"],
+            "spawned_requests": len(served.get(name, [])),
+            "recovered": recovered,
+        }
+        emit(serve_check)
+        if got != direct_out:
+            bad.append("direct prompts' tokens differ from 8a")
+        if serve_check["direct_replicas"] != [name] * len(direct) or \
+                serve_check["migrations"][name] != len(direct):
+            bad.append("the spawned replica did not serve")
+        if not recovered or recovered["replica"] != name or \
+                recovered.get("burn", 1.0) >= 1.0:
+            bad.append(f"no recovery {recovered}")
+
+        # Scale-in: no traffic; the idle rule fires after its hold and the
+        # recommender (cooldown elapsed) steps decode -1.
+        events.emit("load_phase", phase="idle")
+        slo.set_phase("")
+        deadline = time.perf_counter() + 30
+        while len(decode_names()) > 1 and time.perf_counter() < deadline:
+            collector.scrape_once()
+            time.sleep(FLEET_SCRAPE_S)
+        removes = [a for a in executor.actions if a["action"] == "remove"]
+        errors = [a for a in executor.actions if a["action"] == "error"]
+        chain = [(e["kind"], e.get("action") or e.get("state")
+                  or e.get("phase"))
+                 for e in _fleet_events(ev_path, (
+                     "fleet_alert", "fleet_recommendation", "scale_action",
+                     "load_phase"))]
+        want = [("load_phase", "burst"), ("fleet_alert", "firing"),
+                ("fleet_recommendation", None), ("scale_action", "add"),
+                ("scale_action", "recovered"), ("load_phase", "idle"),
+                ("scale_action", "remove")]
+        it = iter(chain)
+        ordered = all(any(k == wk and (wa is None or a == wa) for k, a in it)
+                      for wk, wa in want)
+        decisions = sorted(f for f in os.listdir(fdir)
+                           if f.startswith("fleet-rec-")
+                           and f.endswith(".yaml"))
+        with open(os.path.join(fdir, decisions[0])) as f:
+            patched = fleet.read_manifest_replicas(f.read())
+        n_trace = len(read_trace(trace.path))
+        down = {"check": "fleet_loop", "decode_replicas": decode_names(),
+                "removes": [a["replica"] for a in removes],
+                "errors": errors, "decisions": decisions,
+                "artifact_replicas": patched, "causal_order": ordered,
+                "chain": chain, "trace_records": [n_trace, len(reqs)],
+                "flash_launches": dict(flash.LAUNCHES)}
+        emit(down)
+        if down["decode_replicas"] != ["decode-base"] or down["removes"] != [
+                name] or errors or len(decisions) != 2 or patched != {
+                "prefill": 1, "decode": 2} or not ordered or \
+                n_trace != len(reqs):
+            bad.append("scale-in or causal chain")
+        if any(flash.LAUNCHES.values()):
+            bad.append("flash launched")
+        if bad:
+            raise AssertionError(f"8d: {bad}; {serve_check}")
+
+        viol = _fleet_events(ev_path, ("slo_violation",))
+        fired = [e for e in alerts if e["state"] == "firing"]
+        rec_ev = _fleet_events(ev_path, ("fleet_recommendation",))
+        t_decision = artifact["ts"]
+        loop = {
+            "violation_to_alert_s": fired[0]["ts"] - viol[0]["ts"],
+            "alert_to_decision_s": rec_ev[0]["ts"] - fired[0]["ts"],
+            "decision_to_spawned_first_token_s":
+                min(served[name]) - t_decision,
+            "recovery_s": recovered["recovery_s"],
+            "burst": {"requests": len(reqs), "process": mix.process,
+                      "offered_rps": mix.rate_rps,
+                      "duration_s": mix.duration_s,
+                      "schedule_digest": schedule_digest(reqs),
+                      "wall_s": burst["wall_s"]},
+            "scrapes": collector.scrapes,
+            "collector_busy_cpu_s_per_scrape":
+                collector.busy_cpu_s / collector.scrapes,
+            "collector_busy_s_per_scrape":
+                collector.busy_s / collector.scrapes,
+            "artifact": {"file": decisions[0], "replicas": patched,
+                         "reason": artifact["reason"]},
+            "windows_s": list(FLEET_WINDOWS), "scrape_s": FLEET_SCRAPE_S,
+            "device": kind, "nvidia_smi": smi,
+        }
+        emit({"fleet_loop_summary": loop})
+
+        # The capacity sweep on the same gang: the default mix, the
+        # default targets, with the recommender detached.
+        collector.recommender = None
+        strace = TraceWriter(os.path.join(fdir, "sweep-trace.jsonl"))
+        traces.append(strace)
+        sweep = SweepConfig(rungs=SWEEP_RUNGS, hold_s=SWEEP_HOLD_S,
+                            settle_s=SWEEP_SETTLE_S, threads=DISAGG_SLOTS)
+        payload = run_sweep(base, MixConfig(seed=0), sweep, trace=strace,
+                            events=events, slo=slo)
+        rungs = []
+        for r in payload["rungs"]:
+            t = r["tenants"].get("default", {})
+            sm = r["summary"]
+            rungs.append({
+                "offered_rps": r["offered_rps"], "offered": sm["offered"],
+                "achieved_rps": sm["completed"] / sm["wall_s"],
+                "completed": sm["completed"], "rejected": sm["rejected"],
+                "errors": sm["errors"], "attainment": r["attainment"],
+                "ttft_p50_s": t.get("ttft_p50_s"),
+                "ttft_p95_s": t.get("ttft_p95_s"),
+                "tok_p50_s": t.get("tok_p50_s"),
+                "goodput_tok_s": r["goodput_tok_s"],
+                "stages_mean_s": r["stages_mean_s"],
+                "schedule_digest": r["schedule_digest"]})
+        knee = payload["knee"]
+        top = payload["rungs"][-1]
+        emit({"load_sweep_summary": {
+            "rungs": rungs, "knee": knee,
+            "knee_at": ("none" if knee is None else
+                        "top rung: capacity lies beyond it"
+                        if knee["rung"] == top["rung"] else
+                        f"rung {knee['rung']}"),
+            "goal": sweep.goal, "ttft_target_s": sweep.ttft_target_s,
+            "tok_target_s": sweep.tok_target_s, "hold_s": sweep.hold_s,
+            "settle_s": sweep.settle_s, "decode_replicas": 1,
+            "decode_slots": DISAGG_SLOTS, "device": kind,
+            "nvidia_smi": smi}})
+        if any(r["errors"] for r in rungs):
+            raise AssertionError(f"8d sweep: errors {rungs}")
+        if any(flash.LAUNCHES.values()):
+            raise AssertionError(f"8d sweep: flash launched "
+                                 f"{dict(flash.LAUNCHES)}")
+    finally:
+        for t in traces:
+            t.close()
+        if executor is not None:
+            executor.close()
+        if collector is not None:
+            collector.stop()
+        else:
+            store.close()
+        events.close()
+        router.close()
+        psock.shutdown(socket.SHUT_RDWR)
+        psock.close()
 
 
 def _read_lines(proc, out: list):
@@ -3349,12 +3776,72 @@ def _banner(proc, lines, deadline):
     raise AssertionError(f"8c: no banner (rc {proc.poll()}): {lines[-20:]}")
 
 
+def fleet_children(rport, fleet_dir, env, workdir, banner) -> dict:
+    """8c's fleet and load checks on the running router child: its banner
+    says ``"fleet": true``, its series file holds records of the router
+    and both replicas, ``python -m tpufw_torch.obs.fleet query`` returns
+    them, and ``python -m tpufw_torch.load replay`` of a LOAD_CHILD_S
+    poisson mix through the router exits 0 with every request served and
+    leaves a trace ``read_trace`` reads, one record a request."""
+    from tpufw_torch.load import read_trace
+    from tpufw_torch.obs import fleet
+
+    t0 = time.perf_counter()
+    want = {"router", "prefill-0", "decode-0"}
+    series = os.path.join(fleet_dir, fleet.SERIES_FILENAME)
+    seen = set()
+    deadline = time.perf_counter() + 10 * FLEET_SCRAPE_S + 5
+    while time.perf_counter() < deadline:
+        seen = {r["replica"] for r in fleet.read_series(series)
+                if not r.get("stale")}
+        if want <= seen:
+            break
+        time.sleep(FLEET_SCRAPE_S / 2)
+    q = subprocess.run(
+        [sys.executable, "-m", "tpufw_torch.obs.fleet", "query", "--dir",
+         fleet_dir, "--json"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=60)
+    queried = json.loads(q.stdout) if q.returncode == 0 else {}
+    load_dir = os.path.join(workdir, "c_load")
+    os.makedirs(load_dir, exist_ok=True)
+    lenv = dict(env, TPUFW_LOAD_SEED="0", TPUFW_LOAD_PROCESS="poisson",
+                TPUFW_LOAD_RATE_RPS="2", TPUFW_LOAD_DURATION_S=str(
+                    LOAD_CHILD_S), TPUFW_LOAD_DIR=load_dir,
+                TPUFW_LOAD_THREADS=str(DISAGG_SLOTS))
+    lp = subprocess.run(
+        [sys.executable, "-m", "tpufw_torch.load", "replay", "--base-url",
+         f"http://127.0.0.1:{rport}"], cwd=ROOT, env=lenv,
+        capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in lp.stdout.splitlines() if ln.startswith("{")]
+    replay = json.loads(lines[-1])["load_replay"] if lines else {}
+    trace = read_trace(os.path.join(load_dir, "load-trace.jsonl"))
+    out = {"banner_fleet": banner.get("fleet"),
+           "series_replicas": sorted(seen),
+           "query_replicas": sorted(queried.get("replicas", {})),
+           "query_rc": q.returncode, "load_rc": lp.returncode,
+           "replay": replay, "trace_records": len(trace),
+           "trace_ok": sum(1 for r in trace if r["status"] == 200),
+           "seconds": time.perf_counter() - t0}
+    if banner.get("fleet") is not True or not want <= seen or \
+            not want <= set(out["query_replicas"]) or lp.returncode or \
+            not replay.get("offered") or \
+            out["trace_records"] != replay["offered"] or \
+            out["trace_ok"] != replay["offered"]:
+        raise AssertionError(f"8c fleet/load: {out}; {q.stderr[-500:]} "
+                             f"{lp.stderr[-500:]}")
+    return out
+
+
 def entry_phase(torch, direct, direct_out, max_new, kind, smi, workdir):
     """8c: ``python -m tpufw_torch.workloads.serve`` as three children,
     TPUFW_SERVE_ROLE prefill, decode and router, on the serve slice's
     weights from TPUFW_SEED=0; the direct prompts through the router's
-    HTTP port give 8a's bf16 tokens, and SIGTERM drains the decode child,
-    which exits 0."""
+    HTTP port give 8a's bf16 tokens; the router's fleet collector
+    (TPUFW_FLEET_SCRAPE_S) has recorded the router and both replicas, and
+    ``python -m tpufw_torch.obs.fleet query`` reads them back; a fourth
+    child, ``python -m tpufw_torch.load replay``, sends a TPUFW_LOAD_* mix
+    through the router and leaves a trace ``read_trace`` reads; SIGTERM
+    drains the decode child, which exits 0."""
     import signal
 
     free = torch.cuda.mem_get_info()[0] / 1e9
@@ -3362,6 +3849,7 @@ def entry_phase(torch, direct, direct_out, max_new, kind, smi, workdir):
         raise AssertionError(f"8c: {free:.1f} GB free, needs "
                              f"{DISAGG_FREE_GB}")
     pport, dport, rport = _free_port(), _free_port(), _free_port()
+    fleet_dir = os.path.join(workdir, "c_fleet")
     base = {k: v for k, v in os.environ.items()
             if not k.startswith("TPUFW_")}
     base.update({"TPUFW_MODEL": "llama3_8b_serve_slice", "TPUFW_SEED": "0",
@@ -3375,7 +3863,9 @@ def entry_phase(torch, direct, direct_out, max_new, kind, smi, workdir):
                    "TPUFW_KV_SPILL_DIR": os.path.join(workdir, "c_sessions")},
         "router": {"TPUFW_ROUTER_PORT": str(rport),
                    "TPUFW_ROUTER_PREFILL": f"127.0.0.1:{pport}",
-                   "TPUFW_ROUTER_DECODE": f"127.0.0.1:{dport}"},
+                   "TPUFW_ROUTER_DECODE": f"127.0.0.1:{dport}",
+                   "TPUFW_FLEET_SCRAPE_S": str(FLEET_SCRAPE_S),
+                   "TPUFW_FLEET_DIR": fleet_dir},
     }
     procs, lines, startup = {}, {}, {}
 
@@ -3406,6 +3896,8 @@ def entry_phase(torch, direct, direct_out, max_new, kind, smi, workdir):
             if code != 200:
                 raise AssertionError(f"8c: router reply {code} {body}")
             outs.append(body["tokens"])
+        fleet_check = fleet_children(rport, fleet_dir, base, workdir,
+                                     startup["router"])
         t_sig = time.perf_counter()
         procs["decode"].send_signal(signal.SIGTERM)
         rc = procs["decode"].wait(timeout=120)
@@ -3414,7 +3906,7 @@ def entry_phase(torch, direct, direct_out, max_new, kind, smi, workdir):
                  "decode_exit_s": time.perf_counter() - t_sig,
                  "startup_s": {r: s["startup_s"] for r, s in startup.items()},
                  "devices": {r: s.get("device") for r, s in startup.items()},
-                 "device": kind, "nvidia_smi": smi}
+                 "fleet": fleet_check, "device": kind, "nvidia_smi": smi}
         emit(check)
         if outs != direct_out or rc != 0:
             raise AssertionError(f"8c: {check}; decode output "
@@ -7000,9 +7492,10 @@ def main() -> int:
     # 5. The serve slice, with the train phases' memory freed; 5b. the
     # Gemma-2-9B serve slice; 5c. the DeepSeek MLA one (latent cache).
     try:
-        serve_phase(torch, chip, kind, smi)
+        serve_phase(torch, chip, kind, smi, n_layers=LLAMA_SERVE_LAYERS)
         torch.cuda.empty_cache()
-        serve_phase(torch, chip, kind, smi, family="gemma2_9b")
+        serve_phase(torch, chip, kind, smi, family="gemma2_9b",
+                    n_layers=GEMMA_SERVE_LAYERS)
         torch.cuda.empty_cache()
         serve_phase(torch, chip, kind, smi, family="deepseek_mla")
     except AssertionError as e:

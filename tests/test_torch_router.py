@@ -571,9 +571,44 @@ def test_router_import_loads_no_torch():
     assert out.stdout.strip() == "False"
 
 
-def test_router_refuses_the_fleet_observatory(monkeypatch):
+def test_router_refuses_the_fleet_observatory(monkeypatch, tmp_path,
+                                              capsys):
+    """The knob this test once saw refused now attaches the collector:
+    ``TPUFW_FLEET_SCRAPE_S`` set, ``main_router`` prints ``"fleet": true``,
+    its first sweep records the router and both (unreachable, so stale)
+    replicas, ``tpufw``'s reader and the port's query CLI read them, and
+    the collector thread is gone once the router stops."""
+    from tpufw.obs import fleet as j_fleet
+    from tpufw_torch.obs import fleet
+
     monkeypatch.setenv("TPUFW_FLEET_SCRAPE_S", "5")
+    monkeypatch.setenv("TPUFW_FLEET_DIR", str(tmp_path))
     monkeypatch.setenv("TPUFW_ROUTER_PREFILL", "127.0.0.1:1")
     monkeypatch.setenv("TPUFW_ROUTER_DECODE", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        router.main_router()
+    monkeypatch.setenv("TPUFW_ROUTER_PORT", "0")
+    series = tmp_path / fleet.SERIES_FILENAME
+    real_sleep = router.time.sleep
+
+    def sleep(s):
+        if s < 3600:
+            return real_sleep(s)
+        for _ in range(500):  # the collector's first sweep
+            if len(fleet.read_series(str(series))) >= 4:
+                break
+            real_sleep(0.01)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(router.time, "sleep", sleep)
+    assert router.main_router() == 0
+    banner = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert banner["serving_role"] == "router" and banner["fleet"] is True
+    recs = j_fleet.read_series(str(series))
+    by = {r["replica"]: r for r in recs}
+    assert set(by) == {"router", "prefill-0", "decode-0", "fleet"}
+    assert by["prefill-0"]["stale"] and by["decode-0"]["stale"]
+    assert "tpufw_router_requests_total" in by["router"]["series"]
+    assert by["fleet"]["series"]["tpufw_fleet_replicas_unhealthy"] == 2.0
+    assert fleet.main(["query", "--dir", str(tmp_path), "--json"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert set(out["replicas"]) == {"router", "prefill-0", "decode-0"}
+    assert "fleet-collector" not in [t.name for t in threading.enumerate()]

@@ -499,3 +499,57 @@ def test_scheduler_spill_tier_restores_shared_prefix(clear_tpufw_env):
     bytes_line = [ln for ln in text.splitlines()
                   if ln.startswith("tpufw_kv_spill_bytes_total")]
     assert bytes_line and float(bytes_line[0].split()[1]) > 0
+
+
+class _Sink:
+    def __init__(self):
+        self.events = []
+
+    def emit(self, kind, level="info", **fields):
+        self.events.append((kind, level, fields))
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"])
+def test_attach_spill_serve_spill_events_equal_jax(kv_quant, tmp_path):
+    """``attach_spill(..., events=)`` emits one ``serve_spill`` record per
+    spill ("out") and per restore ("in"), with the page count and the TPFB
+    bytes, the same records ``tpufw``'s emits for the same cycle (the
+    restore's wall time aside); they pass the port's event schema, and a
+    ``PrefillEngine`` given an event log wires it into its pool."""
+    from tpufw_torch.obs.events import EventLog, read_events
+    from tpufw_torch.serve.roles import PrefillEngine
+
+    sink, j_sink = _Sink(), _Sink()
+    tier = SpillTier(64)
+    pool = _t_pool(_model("float32"), kv_quant)
+    bundle.attach_spill(pool, tier, events=sink)
+    _t_run(pool, BASE + TAILS[0])
+    _spill_base(pool, tier)
+    _t_run(pool, BASE + TAILS[1])
+    jpool, jtier = _j_pool(kv_quant), JSpillTier(64)
+    j_bundle.attach_spill(jpool, jtier, events=j_sink)
+    _j_run(jpool, BASE + TAILS[0])
+    jpool.prefix.evict(2, jpool.allocator, on_evict=jpool._spill_hook())
+    _j_run(jpool, BASE + TAILS[1])
+
+    def strip(evs):
+        return [(k, lvl, {n: v for n, v in f.items() if n != "wall_s"})
+                for k, lvl, f in evs]
+
+    assert strip(sink.events) == strip(j_sink.events)
+    assert [f["direction"] for _k, _l, f in sink.events] == [
+        "out", "out", "in", "in"]
+    assert all(f["wall_s"] >= 0 for _k, _l, f in sink.events
+               if f["direction"] == "in")
+
+    log = EventLog(str(tmp_path / "events.jsonl"))
+    pe = PrefillEngine(_model("float32"), sampling=GREEDY, page=PAGE,
+                       kv_quant=kv_quant, spill=SpillTier(64), events=log)
+    pe.prefill(BASE + TAILS[0], MAX_NEW)
+    pe.pool.prefix.evict(2, pe.pool.allocator,
+                         on_evict=pe.pool._spill_hook())
+    log.close()
+    spills = [e for e in read_events(str(tmp_path / "events.jsonl"))
+              if e["kind"] == "serve_spill"]
+    assert [(e["entry"], e["direction"], e["pages"]) for e in spills] == [
+        ("trie", "out", 1), ("trie", "out", 1)]

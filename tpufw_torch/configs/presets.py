@@ -107,16 +107,16 @@ SERVE_PROMPT_LENS = (7, 64, 200, 511)
 
 
 def llama3_8b_serve_slice(
-    seed: int = 0,
+    seed: int = 0, n_layers: int = 32,
 ) -> tuple[LlamaConfig, list[list[int]], int]:
     """(decode config, prompts, max_new_tokens) of the serve run:
-    Llama-3-8B at full width and all 32 layers, bf16 weights, a KV cache
-    of 2048 slots per row (a serving budget, not a width), and 4 prompts
-    of 7, 64, 200 and 511 token ids drawn from a numpy ``seed``, each
-    continued by 32 greedy tokens."""
+    Llama-3-8B at full width and ``n_layers`` of its 32 layers, bf16
+    weights, a KV cache of 2048 slots per row (a serving budget, not a
+    width), and 4 prompts of 7, 64, 200 and 511 token ids drawn from a
+    numpy ``seed``, each continued by 32 greedy tokens."""
     cfg = dataclasses.replace(
         LLAMA_CONFIGS["llama3_8b"], param_dtype=torch.bfloat16,
-        max_seq_len=2048,
+        max_seq_len=2048, n_layers=n_layers,
     ).decode_config()
     rng = np.random.default_rng(seed)
     prompts = [
@@ -141,16 +141,16 @@ def gemma2_9b_train_slice(
 
 
 def gemma2_9b_serve_slice(
-    seed: int = 0,
+    seed: int = 0, n_layers: int = 42,
 ) -> tuple[GemmaConfig, list[list[int]], int]:
     """(decode config, prompts, max_new_tokens) of the Gemma-2-9B serve
-    run: full width and all 42 layers, bf16 weights drawn in bf16 (no fp32
-    copy), a 2048-slot KV cache per row, and the Llama serve slice's 4
-    prompts of 7, 64, 200 and 511 ids (numpy ``seed``), 32 greedy tokens
-    each."""
+    run: full width, ``n_layers`` of its 42 layers (even: local/global
+    pairs), bf16 weights drawn in bf16 (no fp32 copy), a 2048-slot KV cache
+    per row, and the Llama serve slice's 4 prompts of 7, 64, 200 and 511
+    ids (numpy ``seed``), 32 greedy tokens each."""
     cfg = dataclasses.replace(
         GEMMA_CONFIGS["gemma2_9b"], param_dtype=torch.bfloat16,
-        max_seq_len=2048,
+        max_seq_len=2048, n_layers=n_layers,
     ).decode_config()
     rng = np.random.default_rng(seed)
     prompts = [

@@ -18,6 +18,10 @@ behind one handle.
 - :mod:`tpufw_torch.obs.reqtrace`, :mod:`tpufw_torch.obs.slo`,
   :mod:`tpufw_torch.obs.promtext` — the router's request traces and SLO
   tracker, the exposition parser.
+- :mod:`tpufw_torch.obs.fleet` — the fleet observatory: cross-replica
+  series store, derived fleet series, burn-rate alerts and the scaling
+  recommender (``TPUFW_FLEET_SCRAPE_S`` on the router; ``python -m
+  tpufw_torch.obs.fleet query|collect``).
 
 ``Telemetry.create(...)`` wires them from TrainerConfig /
 ``TPUFW_TELEMETRY_DIR`` / ``TPUFW_METRICS_PORT``; ``Telemetry.disabled()``
@@ -26,7 +30,6 @@ the instrumentation in the hot loop unconditionally. The file names,
 event kinds and ``tpufw_*`` series are ``tpufw``'s, so a scrape or
 ``scripts/obs_summary.py`` reads either package's output. This package
 imports no torch at import time (the router, which has none, uses it).
-The fleet observatory (``tpufw.obs.fleet``) is ROADMAP.md item 13b.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Tolerant Prometheus text-exposition parser + bit-exact renderer (a
 copy of ``tpufw.obs.promtext``).
 
-The fleet collector (``tpufw.obs.fleet``, ROADMAP.md item 13b in the
-port) scrapes ``/metrics`` endpoints it does not control mid-write,
-mid-restart, and mid-version-skew — so the parser is *tolerant*: any line that does not parse is
-dropped, never raised. The renderer is the opposite: it re-emits a
+The fleet collector (``tpufw_torch.obs.fleet``) scrapes ``/metrics``
+endpoints it does not control mid-write, mid-restart, and
+mid-version-skew — so the parser is *tolerant*: any line that does not
+parse is dropped, never raised. The renderer is the opposite: it re-emits a
 parsed document byte-for-byte, and the round trip against
 ``Registry.render()``'s own exposition is pinned by tests — which is
 what keeps this module and ``registry.py`` from drifting into two

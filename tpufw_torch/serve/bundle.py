@@ -347,7 +347,7 @@ def drop_session(directory: str, session: str) -> None:
 
 # ------------------------------------------------------ spill wiring
 
-def attach_spill(pool, tier, *, on_restore=None):
+def attach_spill(pool, tier, *, events=None, on_restore=None):
     """Wire ``tier`` (``tpufw_torch.infer.spill.SpillTier``) into
     ``pool``'s trie-spill callbacks with this module's TPFB codec at the
     boundary: an evicted trie page is encoded exactly like a migration
@@ -357,8 +357,10 @@ def attach_spill(pool, tier, *, on_restore=None):
 
     ``on_restore(seconds)`` feeds the ``tpufw_kv_restore_seconds``
     histogram where a metrics registry exists (host-side fetch + decode
-    wall; the device scatter rides the admission). ``tpufw``'s ``events``
-    hook is not ported: the event log is ROADMAP.md Queue 1 item 13."""
+    wall; the device scatter rides the admission). ``events``
+    (``tpufw_torch.obs.events`` API) gets one ``serve_spill`` record per
+    spill or restore across the device boundary, ``direction`` "out" or
+    "in", as ``tpufw``'s does."""
     from tpufw_torch.infer.spill import trie_key
 
     def _spill(path_tokens, state):
@@ -366,6 +368,11 @@ def attach_spill(pool, tier, *, on_restore=None):
         tier.put(
             "trie", trie_key(path_tokens), data, int(state["n_pages"])
         )
+        if events is not None:
+            events.emit(
+                "serve_spill", entry="trie", direction="out",
+                pages=int(state["n_pages"]), bytes=len(data),
+            )
 
     def _restore(path_tokens):
         name = trie_key(path_tokens)
@@ -381,8 +388,15 @@ def attach_spill(pool, tier, *, on_restore=None):
         # Consume the entry: its pages are back in the arena, and a
         # kept host copy would go stale the moment decode appends.
         tier.pop("trie", name)
+        wall = time.perf_counter() - t0
         if on_restore is not None:
-            on_restore(time.perf_counter() - t0)
+            on_restore(wall)
+        if events is not None:
+            events.emit(
+                "serve_spill", entry="trie", direction="in",
+                pages=int(state["n_pages"]), bytes=len(data),
+                wall_s=round(wall, 6),
+            )
         return state
 
     pool.trie_spill = _spill

@@ -179,7 +179,7 @@ class PrefillEngine:
         self._affinity_k = max(0, int(affinity_k))
         self._digest_cache: Dict[str, Any] = {}
         if spill is not None:
-            attach_spill(self.pool, spill)
+            attach_spill(self.pool, spill, events=self._events)
         self._lock = threading.Lock()
         # Chunked mode: the engine lock is RELEASED between chunks and
         # around each chunk's device call, so concurrent admissions
@@ -617,7 +617,7 @@ class DecodeEngine:
         self._affinity_k = max(0, int(affinity_k))
         self._digest_cache: Dict[str, Any] = {}
         if spill is not None:
-            attach_spill(self.pool, spill)
+            attach_spill(self.pool, spill, events=self._events)
         self._draining = False
         # Set lock-free by drain() BEFORE it contends for ``_cv``: the
         # collect loop holds the lock across chunks and yields at every

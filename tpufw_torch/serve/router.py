@@ -1451,11 +1451,6 @@ def main_router() -> int:
 
     from tpufw_torch.cluster.discovery import discover_replicas
 
-    if env_float("fleet_scrape_s", 0.0) > 0:
-        raise NotImplementedError(
-            "TPUFW_FLEET_SCRAPE_S: the fleet observatory is not ported to "
-            "tpufw_torch yet (ROADMAP.md Queue 1 item 13)"
-        )
     prefill_addrs, decode_addrs = discover_replicas()
     prefill = [
         TcpReplica(f"prefill-{i}", h, p, "prefill")
@@ -1496,12 +1491,29 @@ def main_router() -> int:
         tracer=tracer,
         spill_dir=env_str("kv_spill_dir", ""),
     )
+    # Fleet observatory attach point: the collector scrapes this
+    # router's own exposition in-process plus every replica's framed-
+    # TCP signals probe. collector_from_env is None (no thread, no
+    # files) unless TPUFW_FLEET_SCRAPE_S is set — the disabled path
+    # is byte-identical to a build without the observatory.
+    from tpufw_torch.obs import fleet as obs_fleet
+
+    fleet_targets = [
+        obs_fleet.Target("router", "router", server.render_metrics)
+    ] + [
+        obs_fleet.Target(c.name, c.role, c.signals)
+        for c in prefill + decode
+    ]
+    collector = obs_fleet.collector_from_env(
+        fleet_targets, health_fn=server.health, default_dir=tdir or "."
+    )
     print(json.dumps(
         {
             "serving_role": "router",
             "port": server.port,
             "prefill": len(prefill),
             "decode": len(decode),
+            "fleet": collector is not None,
         }
     ), flush=True)
     try:
@@ -1509,6 +1521,8 @@ def main_router() -> int:
             time.sleep(3600)
     except KeyboardInterrupt:
         server.close()
+        if collector is not None:
+            collector.stop()
         tracer.close()
         events.close()
     return 0

@@ -1373,7 +1373,7 @@ class _SlotScheduler:
             from tpufw_torch.serve.bundle import attach_spill
 
             attach_spill(
-                self._pool, self._spill,
+                self._pool, self._spill, events=self._events,
                 on_restore=(
                     self._metrics.registry.histogram(
                         "tpufw_kv_restore_seconds"
