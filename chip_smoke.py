@@ -936,7 +936,15 @@ HOPPER_KERNELS = {"flash_fwd": ("flash_fwd", "flash_fwd_kernel"),
                   "flash_dkv_d192": ("flash_dkv_d192", "flash_dkv"),
                   "flash_fwd_d256": ("flash_fwd_d256", "flash_fwd"),
                   "flash_dq_d256": ("flash_dq_d256", "flash_dq"),
-                  "flash_dkv_d256": ("flash_dkv_d256", "flash_dkv")}
+                  "flash_dkv_d256": ("flash_dkv_d256", "flash_dkv"),
+                  # The other tile builds (flash.BUILDS) of the same
+                  # kernels, held to the same rules.
+                  **{name: (name, name.split("_")[0] + "_"
+                            + name.split("_")[1])
+                     for name in ("flash_fwd_k64", "flash_dq_k64",
+                                  "flash_dkv_k64", "flash_fwd_d192_q64",
+                                  "flash_dq_d192_q64", "flash_fwd_d256_q64",
+                                  "flash_dq_d256_q64")}}
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
 
 
@@ -1011,23 +1019,30 @@ def case_masks(torch, masks, seg_lens, bs, ts, ss) -> dict:
     return masks
 
 
-def check_kernels(torch, flash, case, q, k, v, do, masks):
-    """Each kernel vs its plain version (fp32) on the same inputs. A query
-    row that sees no key (a ring chunk's window or segments) has LSE
+def build_names(flash, d, block_sizes) -> dict:
+    """{kernel: the build name a launch at head dim ``d`` under the tile
+    override ``block_sizes`` runs} (``flash.resolve_tiles``)."""
+    return {base: flash.BUILDS[d][base][flash.resolve_tiles(base, d,
+                                                           block_sizes)]
+            for base in flash.KERNELS}
+
+
+def check_kernels(torch, flash, case, q, k, v, do, masks, builds=(None,)):
+    """Each kernel vs its plain version (fp32) on the same inputs, at each
+    tile override of ``builds`` (None: the head dim's default builds; the
+    plain versions are computed once, a tiling never changes the math). A
+    query row that sees no key (a ring chunk's window or segments) has LSE
     ≈ -1e30 on both sides, and its O, an average over whatever tiles
     were visited, weighs nothing where it is used (the ring's merge):
-    O is compared on the other rows."""
+    O is compared on the other rows. Returns ({build name: max abs
+    error}, LSE, delta)."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     o_ref, lse_ref = flash.flash_fwd_reference(qf, kf, vf, **masks)
-    o, lse = flash.flash_fwd(q, k, v, **masks)
     delta = flash.flash_delta(o_ref, dof)
     dq_ref = flash.flash_dq_reference(qf, kf, vf, dof, lse_ref, delta, **masks)
-    dq = flash.flash_dq(q, k, v, do, lse_ref, delta, **masks)
     dk_ref, dv_ref = flash.flash_dkv_reference(
         qf, kf, vf, dof, lse_ref, delta, **masks
     )
-    dk, dv = flash.flash_dkv(q, k, v, do, lse_ref, delta, **masks)
-    torch.cuda.synchronize()
     b, t, s = q.shape[0], q.shape[1], k.shape[1]
     seen = flash._mask(t, s, s - t if masks.get("offset") is None
                        else masks["offset"], masks.get("causal", True),
@@ -1035,47 +1050,65 @@ def check_kernels(torch, flash, case, q, k, v, do, masks):
                        masks.get("kseg"), q.device)
     live = seen.any(-1)[:, 0].expand(b, t)
     dead_rows = int((~live).sum())
-    if dead_rows:
-        o, o_ref = o[live], o_ref[live]
-    errs = {}
-    for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref),
-                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{case}: {name} has non-finite values")
-        errs[name] = kernel_errors(torch, got, want)
-    lse_abs = (lse - lse_ref).abs().max().item()
-    emit({
-        "check": case, "errors": errs, "lse_max_abs": lse_abs,
-        "dead_rows": dead_rows,
-        "tol": {"row": ROW_TOL, "row_floor": ROW_FLOOR, "fro": FRO_TOL,
-                "lse_abs": LSE_TOL},
-    })
-    bad = [n for n, e in errs.items()
-           if e["row"] > ROW_TOL or e["fro"] > FRO_TOL]
-    if lse_abs > LSE_TOL:
-        bad.append("lse")
-    if bad:
-        raise AssertionError(f"{case}: {bad} past tolerance")
+    o_want = o_ref[live] if dead_rows else o_ref
     d = q.shape[-1]
-    return {
-        flash.kernel_name("flash_fwd", d): max(errs["o"]["max_abs"], lse_abs),
-        flash.kernel_name("flash_dq", d): errs["dq"]["max_abs"],
-        flash.kernel_name("flash_dkv", d): max(errs["dk"]["max_abs"],
-                                               errs["dv"]["max_abs"]),
-    }, lse_ref, delta
+    out = {}
+    for blocks in builds:
+        o, lse = flash.flash_fwd(q, k, v, **masks, block_sizes=blocks)
+        dq = flash.flash_dq(q, k, v, do, lse_ref, delta, **masks,
+                            block_sizes=blocks)
+        dk, dv = flash.flash_dkv(q, k, v, do, lse_ref, delta, **masks,
+                                 block_sizes=blocks)
+        torch.cuda.synchronize()
+        if dead_rows:
+            o = o[live]
+        errs = {}
+        for name, got, want in (("o", o, o_want), ("dq", dq, dq_ref),
+                                ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{case}: {name} has non-finite values")
+            errs[name] = kernel_errors(torch, got, want)
+        lse_abs = (lse - lse_ref).abs().max().item()
+        names = build_names(flash, d, blocks)
+        emit({
+            "check": case, "errors": errs, "lse_max_abs": lse_abs,
+            "dead_rows": dead_rows,
+            **({} if blocks is None else {
+                "block_sizes": list(blocks), "builds": names}),
+            "tol": {"row": ROW_TOL, "row_floor": ROW_FLOOR, "fro": FRO_TOL,
+                    "lse_abs": LSE_TOL},
+        })
+        bad = [n for n, e in errs.items()
+               if e["row"] > ROW_TOL or e["fro"] > FRO_TOL]
+        if lse_abs > LSE_TOL:
+            bad.append("lse")
+        if bad:
+            raise AssertionError(f"{case} {names}: {bad} past tolerance")
+        for name, err in ((names["flash_fwd"],
+                           max(errs["o"]["max_abs"], lse_abs)),
+                          (names["flash_dq"], errs["dq"]["max_abs"]),
+                          (names["flash_dkv"], max(errs["dk"]["max_abs"],
+                                                   errs["dv"]["max_abs"]))):
+            out[name] = max(out.get(name, 0.0), err)
+    return out, lse_ref, delta
 
 
 def time_kernels(torch, flash, chip, q, k, v, do, lse, delta, masks=None,
-                 label=""):
+                 label="", block_sizes=None, yardsticks=None):
     """kernel / plain / library milliseconds and the roofline bound, keyed
-    by each kernel's launch name (``flash_fwd_d256`` at head dim 256).
+    by each kernel's launch name (``flash_fwd_d256`` at head dim 256; a
+    tile override's ``block_sizes`` times its builds, ``flash_fwd_k64``).
     ``masks`` (causal by default; ``soft_cap``, ``window``) are the
     kernels' and the plain versions'. The bound counts the (query, key)
     pairs the masks let through; the library yardstick is SDPA, causal,
-    with a boolean mask for a window and no soft cap (it has none)."""
+    with a boolean mask for a window and no soft cap (it has none).
+    ``yardsticks``: this run's timings of the default builds at the same
+    inputs, whose plain and SDPA times another build shares (the same
+    function on the same inputs) instead of timing them again."""
     import torch.nn.functional as F
 
     masks = dict(masks or {"causal": True})
+    blocks = {"block_sizes": block_sizes}
     window = masks.get("window")
     b, t, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
@@ -1084,15 +1117,21 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta, masks=None,
     work = {base: flash.flash_costs(base, b, t, s, h, kh, d, masks)
             for base in flash.KERNELS}
     calls = {
-        "flash_fwd": (lambda: flash.flash_fwd(q, k, v, **masks),
+        "flash_fwd": (lambda: flash.flash_fwd(q, k, v, **masks, **blocks),
                       lambda: flash.flash_fwd_reference(q, k, v, **masks)),
-        "flash_dq": (lambda: flash.flash_dq(q, k, v, do, lse, delta, **masks),
+        "flash_dq": (lambda: flash.flash_dq(q, k, v, do, lse, delta, **masks,
+                                            **blocks),
                      lambda: flash.flash_dq_reference(q, k, v, do, lse, delta,
                                                       **masks)),
-        "flash_dkv": (lambda: flash.flash_dkv(q, k, v, do, lse, delta, **masks),
+        "flash_dkv": (lambda: flash.flash_dkv(q, k, v, do, lse, delta,
+                                              **masks, **blocks),
                       lambda: flash.flash_dkv_reference(q, k, v, do, lse, delta,
                                                         **masks)),
     }
+    names = build_names(flash, d, block_sizes)
+    if yardsticks is not None:
+        return _time_builds(torch, flash, calls, names, work, chip, q, k, v,
+                            do, lse, masks, label, block_sizes, yardsticks)
     qh, kh_, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     doh = do.transpose(1, 2)
     attn_mask = None
@@ -1126,7 +1165,7 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta, masks=None,
     lib_note = " (no soft cap: SDPA has none)" if masks.get("soft_cap") else ""
     res = {}
     for base, (kernel, plain) in calls.items():
-        name = flash.kernel_name(base, d)
+        name = names[base]
         flops, nbytes = work[base]
         t_ops = flops / chip.peak_bf16_flops * 1e3
         t_bytes = nbytes / chip.hbm_bw_bytes_per_s * 1e3
@@ -1166,6 +1205,58 @@ def time_kernels(torch, flash, chip, q, k, v, do, lse, delta, masks=None,
           "library_call": lib_call + " backward" + lib_note,
           "flops": work["flash_dq"][0] + work["flash_dkv"][0],
           "tflops": (work["flash_dq"][0] + work["flash_dkv"][0]) / bwd_ms / 1e9})
+    return res
+
+
+def _time_builds(torch, flash, calls, names, work, chip, q, k, v, do, lse,
+                 masks, label, block_sizes, yardsticks) -> dict:
+    """``time_kernels``' numbers of the builds a tile override launches
+    that are not the head dim's default, the plain and SDPA times taken
+    from the default builds' ``yardsticks``; then the whole backward at
+    that override beside the default's."""
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    res = {}
+    for base, (kernel, _) in calls.items():
+        name, default = names[base], flash.kernel_name(base, d)
+        if name == default:
+            continue
+        flops, nbytes = work[base]
+        t_ops = flops / chip.peak_bf16_flops * 1e3
+        t_bytes = nbytes / chip.hbm_bw_bytes_per_s * 1e3
+        ms = cuda_ms(torch, kernel, 20)
+        res[name] = {
+            "ms": ms,
+            "plain_ms": yardsticks[default]["plain_ms"],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": flops / ms / 1e9,
+            "bound_share": max(t_ops, t_bytes) / ms,
+            "flops": flops,
+            "bytes": nbytes,
+            "library_ms": yardsticks[default]["library_ms"],
+            "library_call": yardsticks[default]["library_call"],
+            "default_build_ms": yardsticks[default]["ms"],
+        }
+        emit({"timing": name + label, "shape": [b, t, s, h, kh, d],
+              "masks": masks, "block_sizes": list(block_sizes)} | res[name])
+    blocks = {"block_sizes": block_sizes}
+    o, _ = flash.flash_fwd(q, k, v, **masks, **blocks)
+
+    def backward():
+        dlt = flash.flash_delta(o, do)
+        flash.flash_dq(q, k, v, do, lse, dlt, **masks, **blocks)
+        dk_full, dv_full = flash.flash_dkv(q, k, v, do, lse, dlt, **masks,
+                                           **blocks)
+        flash.gqa_sum(dk_full, kh, k.dtype)
+        flash.gqa_sum(dv_full, kh, v.dtype)
+
+    emit({"timing": "flash_backward_total_" + "_".join(
+              sorted({names["flash_dq"], names["flash_dkv"]})) + label,
+          "block_sizes": list(block_sizes), "ms": cuda_ms(torch, backward,
+                                                          20),
+          "library_ms": yardsticks[flash.kernel_name("flash_dq", d)][
+              "library_ms"]})
     return res
 
 
@@ -7301,6 +7392,406 @@ def seq_tensor_phase(torch, kind, smi) -> dict:
     return launches
 
 
+# The tile builds (phases 2-3, ``flash.BUILDS``): besides each head dim's
+# path shapes, its D256/D192 cases and CHUNK_MODE, every build is held at
+# the tile edges T = S of tests/test_flash_blocks.py's lengths and its own
+# tiles (4 query / 2 kv heads, causal).
+BUILD_EDGES = (64, 129, 200, 640, 768)
+
+
+def tile_edge_checks(torch, flash, randn, builds) -> dict:
+    """Every build of every head dim (``builds``: {d: overrides}) at
+    BUILD_EDGES; {build name: max abs error}."""
+    errs = {}
+    for d, overrides in builds.items():
+        for t in BUILD_EDGES:
+            e, _, _ = check_kernels(
+                torch, flash, f"tile_edge_d{d}_t{t}", randn(1, t, 4, d),
+                randn(1, t, 2, d), randn(1, t, 2, d), randn(1, t, 4, d),
+                {"causal": True}, builds=overrides)
+            for name, x in e.items():
+                errs[name] = max(errs.get(name, 0.0), x)
+    return errs
+
+
+def build_lines(flash, build_mod, report, timings, others) -> None:
+    """One line per other tile build: its CUDA-event median at its head
+    dim's path shapes, the bound (the default build's work), the default
+    build's time, its ptxas report (registers, spills) and its block's
+    dynamic shared memory (ptxas sees only static shared memory)."""
+    for d, overrides in others.items():
+        for tiles in overrides:
+            for base, name in build_names(flash, d, tiles).items():
+                if name == flash.kernel_name(base, d):
+                    continue
+                tm = timings[name]
+                emit({"tile_build": name, "head_dim": d,
+                      "tiles": list(flash.resolve_tiles(base, d, tiles)),
+                      "ms": tm["ms"], "bound_ms": tm["bound_ms"],
+                      "bound_share": tm["bound_share"],
+                      "default_build": flash.kernel_name(base, d),
+                      "default_build_ms": tm["default_build_ms"],
+                      "ptxas": report[name]["kernels"],
+                      "dynamic_smem_bytes": getattr(build_mod.library(name),
+                                                    f"tpufw_{base}_smem")(),
+                      "ptxas_lines": [
+                          ln.strip() for ln in
+                          build_mod.PTXAS_LOG.get(name, "").splitlines()
+                          if "registers" in ln or "spill" in ln]})
+
+
+def _launched(flash, before) -> dict:
+    return {k: v - before[k] for k, v in flash.LAUNCHES.items()
+            if v != before[k]}
+
+
+def override_checks(torch, flash, randn) -> None:
+    """The override reaches the kernels: a ``block_sizes=`` call launches
+    the named builds and no other (head dims 128 and 256), and
+    ``TPUFW_FLASH_BKV`` reaches the ring-flash chunks' launches (a
+    two-shard ring at head dim 128: every chunk under the 64-key
+    builds)."""
+    from tpufw_torch.parallel.group import LocalSequenceGroup
+    from tpufw_torch.parallel import ring_flash
+
+    for d, tiles in ((128, (128, 64)), (256, (64, 64)), (192, (64, 64))):
+        q = randn(1, 300, 4, d).requires_grad_()
+        k, v = randn(1, 300, 2, d), randn(1, 300, 2, d)
+        before = dict(flash.LAUNCHES)
+        flash.flash_attention(q, k, v, block_sizes=tiles).float().sum(
+        ).backward()
+        torch.cuda.synchronize()
+        got = _launched(flash, before)
+        want = {name: 1 for name in build_names(flash, d, tiles).values()}
+        emit({"check": f"override_kwarg_d{d}", "block_sizes": list(tiles),
+              "launched": got})
+        if got != want:
+            raise AssertionError(f"block_sizes={tiles} at d{d} launched "
+                                 f"{got}, want {want}")
+    q = randn(1, 1024, 4, 128).requires_grad_()
+    k = randn(1, 1024, 2, 128).requires_grad_()
+    v = randn(1, 1024, 2, 128).requires_grad_()
+    os.environ["TPUFW_FLASH_BKV"] = "64"
+    try:
+        ring_flash.reset_chunk_launches()
+        before = dict(flash.LAUNCHES)
+        ring_flash.ring_flash_attention(
+            q, k, v, mesh=LocalSequenceGroup(2)).float().sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["TPUFW_FLASH_BKV"]
+    got = _launched(flash, before)
+    chunks = dict(ring_flash.CHUNK_LAUNCHES)
+    emit({"check": "override_env_ring_flash", "TPUFW_FLASH_BKV": 64,
+          "launched": got, "chunk_launches": chunks})
+    k64 = set(build_names(flash, 128, (None, 64)).values())
+    if not got or set(got) != k64 or not sum(chunks.values()):
+        raise AssertionError(f"TPUFW_FLASH_BKV=64 ring-flash launched {got}"
+                             f" ({chunks}), want only {sorted(k64)}")
+
+
+# Phase 22 (item 13c on the card): 22a the memory estimate of
+# llama3_600m_bench at B=RESUME_BATCH x RESUME_SEQ under TUNE_POLICIES
+# beside one real step's peak; 22b train_llama with TPUFW_AUTOTUNE=search
+# over TUNE_POLICIES x flash (default, the d128 64-key build), TUNE_STEPS
+# timed steps a candidate within TUNE_BUDGET_S, then a run with
+# TPUFW_AUTOTUNE=cached; 22c train_llama from the bench YAML of record
+# with the env over it and PyYAML blocked; 22d the 64-row query builds of
+# head dims 256 and 192 on their train paths (TILE_TRAIN_LAYERS layers of
+# the Gemma-2-9B and MLA slices, TILE_TRAIN_STEPS steps) under
+# TPUFW_FLASH_BQ=64.
+TUNE_POLICIES = ("dots", "nothing")
+TUNE_STEPS = 3
+TUNE_BUDGET_S = 60.0
+TUNE_TRAIN_STEPS = 3
+TILE_TRAIN_LAYERS = 2
+TILE_TRAIN_STEPS = 2
+
+
+@contextlib.contextmanager
+def _train_env(env: dict):
+    """os.environ's TPUFW_* replaced by ``env`` for the block."""
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("TPUFW_")}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in list(os.environ):
+            if k.startswith("TPUFW_"):
+                del os.environ[k]
+        os.environ.update(saved)
+
+
+def _batches(torch, tcfg, vocab, n, seed=7):
+    """``n`` synthetic batches of ``tcfg``'s shape, on the card."""
+    from tpufw_torch.train import synthetic_batches
+
+    it = synthetic_batches(tcfg.batch_size, tcfg.seq_len, vocab, seed=seed)
+    return [{k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+            for _ in range(n)]
+
+
+def memory_estimate_check(torch, kind, smi) -> None:
+    """22a: ``estimate_train`` beside ``torch.cuda.max_memory_allocated``
+    of one real step (init included) under each policy. Printed, not
+    held: PERF.md records the ratio."""
+    from tpufw_torch.configs import bench_model_config
+    from tpufw_torch.tools.estimate_memory import estimate_train
+    from tpufw_torch.train import Trainer, TrainerConfig
+
+    for policy in TUNE_POLICIES:
+        cfg = dataclasses.replace(bench_model_config(), remat_policy=policy)
+        tcfg = TrainerConfig(batch_size=RESUME_BATCH, seq_len=RESUME_SEQ,
+                             loss_chunk_size=512, handle_preemption=False)
+        est = estimate_train(cfg, RESUME_BATCH, RESUME_SEQ,
+                             remat_policy=policy, loss_chunk_size=512)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tr = Trainer(cfg, tcfg, device="cuda")
+        tr.init_state(seed=0)
+        m = tr.train_step(_batches(torch, tcfg, cfg.vocab_size, 1)[0])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        emit({"memory_estimate": "llama3_600m_bench", "remat_policy": policy,
+              "batch": RESUME_BATCH, "seq": RESUME_SEQ,
+              "estimate": est.as_dict(), "estimate_bytes": est.total(),
+              "measured_peak_bytes": peak,
+              "estimate_over_measured": est.total() / peak,
+              "loss": loss, "device": kind, "nvidia_smi": smi})
+        if not math.isfinite(loss):
+            raise AssertionError(f"22a {policy}: loss {loss}")
+        del tr, m
+
+
+def tune_run(torch, workdir: str, mode: str, steps: int) -> dict:
+    """One 22b run: train_llama's build_trainer and Trainer.run with
+    TPUFW_AUTOTUNE=``mode`` over 22b's space; the launch counts zeroed
+    before the run and again when the tuner returns, so the second count
+    is the tuned run's own."""
+    from tpufw_torch.ops import flash
+    from tpufw_torch.tune import runner, space
+    from tpufw_torch.workloads import train_llama
+
+    env = {"TPUFW_MODEL": "llama3_600m_bench",
+           "TPUFW_BATCH_SIZE": str(RESUME_BATCH),
+           "TPUFW_SEQ_LEN": str(RESUME_SEQ), "TPUFW_TOTAL_STEPS": str(steps),
+           "TPUFW_LOG_EVERY": "1", "TPUFW_LOSS_CHUNK_SIZE": "512",
+           "TPUFW_AUTOTUNE": mode, "TPUFW_AUTOTUNE_STEPS": str(TUNE_STEPS),
+           "TPUFW_AUTOTUNE_BUDGET_S": str(TUNE_BUDGET_S),
+           "TPUFW_TUNE_CACHE_DIR": os.path.join(workdir, "tune"),
+           "TPUFW_TELEMETRY_DIR": os.path.join(workdir, f"tel_{mode}")}
+    small = space.SearchSpace(remat_policies=TUNE_POLICIES, grad_accums=(1,),
+                              loss_chunk_sizes=(512,),
+                              flash_blocks=(None, (128, 64)),
+                              sync_everys=(1,))
+    tuner, default_space = runner.apply_autotune, space.DEFAULT_SPACE
+    counts = {}
+
+    def tune_then_zero(*a, **kw):
+        res = tuner(*a, **kw)
+        torch.cuda.synchronize()
+        counts["tune"] = dict(flash.LAUNCHES)
+        flash.reset_launch_counts()
+        return res
+
+    with _train_env(env):
+        space.DEFAULT_SPACE, runner.apply_autotune = small, tune_then_zero
+        try:
+            trainer, cfg = train_llama.build_trainer()
+            trainer.init_state(seed=0)
+            batches = _batches(torch, trainer.cfg, cfg.vocab_size, steps)
+            torch.cuda.synchronize()
+            flash.reset_launch_counts()
+            t0 = time.perf_counter()
+            history = trainer.run(iter(batches),
+                                  cfg.flops_per_token(RESUME_SEQ - 1))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            space.DEFAULT_SPACE, runner.apply_autotune = default_space, tuner
+    events = [json.loads(ln) for ln in open(os.path.join(
+        env["TPUFW_TELEMETRY_DIR"], "events.jsonl"))]
+    out = {"history": history, "tune": trainer.last_tune,
+           "tune_launches": {k: v for k, v in counts.get("tune", {}).items()
+                             if v},
+           "run_launches": {k: v for k, v in flash.LAUNCHES.items() if v},
+           "events": [e for e in events if e["kind"].startswith("tune_")],
+           "wall_s": wall, "remat_policy": trainer.model_cfg.remat_policy}
+    del trainer, batches
+    return out
+
+
+def tuner_check(torch, kind, smi, workdir: str) -> dict:
+    """22b: the search measures >= 2 trials and installs its winner (the
+    tuned run's launches fall under the winner's builds), a cached run
+    measures nothing. Returns the search run's launches (trials and
+    steps) of every build."""
+    from tpufw_torch.ops import flash
+
+    found = tune_run(torch, workdir, "search", TUNE_TRAIN_STEPS)
+    res = found["tune"]
+    trials = [{"candidate": t.candidate.as_dict(), "status": t.status,
+               "median_step_ms": None if t.median_step_s is None
+               else t.median_step_s * 1e3, "error": t.error}
+              for t in res.trials]
+    winner = res.best
+    tiles = (winner.flash_bq, winner.flash_bkv)
+    want = set(build_names(flash, 128, tiles).values())
+    losses = [m.loss for m in found["history"]]
+    emit({"tune_summary": "search", "trials": trials,
+          "result": res.summary(), "winner_builds": sorted(want),
+          "run_launches": found["run_launches"],
+          "tune_launches": found["tune_launches"],
+          "remat_policy_installed": found["remat_policy"],
+          "events": [e["kind"] for e in found["events"]], "losses": losses,
+          "wall_s": found["wall_s"], "device": kind, "nvidia_smi": smi})
+    measured = [t for t in res.trials if t.status == "ok"]
+    if len(measured) < 2:
+        raise AssertionError(f"22b: {len(measured)} measured trials")
+    if "tune_result" not in [e["kind"] for e in found["events"]]:
+        raise AssertionError("22b: no tune_result event")
+    if set(found["run_launches"]) != want:
+        raise AssertionError(f"22b: the tuned run launched "
+                             f"{found['run_launches']}, winner's {want}")
+    if found["remat_policy"] != winner.remat_policy:
+        raise AssertionError("22b: the winner's remat policy not installed")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"22b: losses {losses}")
+    k64 = build_names(flash, 128, (None, 64)).values()
+    if not all(found["tune_launches"].get(n) for n in k64):
+        raise AssertionError(f"22b: the 64-key builds were not measured: "
+                             f"{found['tune_launches']}")
+    cached = tune_run(torch, workdir, "cached", 1)
+    emit({"tune_summary": "cached", "result": cached["tune"].summary(),
+          "run_launches": cached["run_launches"], "wall_s": cached["wall_s"]})
+    if not cached["tune"].cache_hit or cached["tune"].trials:
+        raise AssertionError("22b: the cached run did not hit the cache")
+    if cached["tune"].best != winner:
+        raise AssertionError("22b: the cache holds another winner")
+    launches = dict(found["tune_launches"])
+    for k, v in found["run_launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def yaml_config_check(torch, kind, smi) -> None:
+    """22c: train_llama from deploy/configs/bench-v5e1.yaml with
+    TPUFW_BATCH_SIZE and TPUFW_TOTAL_STEPS over the file, PyYAML blocked
+    (an ``import yaml`` raises), as on a machine without it."""
+    from tpufw_torch.workloads import train_llama
+
+    import importlib.util
+
+    had_yaml = importlib.util.find_spec("yaml") is not None
+    env = {"TPUFW_CONFIG": os.path.join(ROOT, "deploy", "configs",
+                                        "bench-v5e1.yaml"),
+           "TPUFW_BATCH_SIZE": str(RESUME_BATCH),
+           "TPUFW_TOTAL_STEPS": "3"}
+    saved = sys.modules.get("yaml", None)
+    sys.modules["yaml"] = None
+    try:
+        with _train_env(env):
+            trainer, cfg = train_llama.build_trainer()
+            trainer.init_state(seed=0)
+            batches = _batches(torch, trainer.cfg, cfg.vocab_size, 3)
+            history = trainer.run(iter(batches),
+                                  cfg.flops_per_token(trainer.cfg.seq_len
+                                                      - 1))
+    finally:
+        if saved is None:
+            del sys.modules["yaml"]
+        else:
+            sys.modules["yaml"] = saved
+    losses = [m.loss for m in history]
+    tc = trainer.cfg
+    resolved = {"remat_policy": cfg.remat_policy, "n_layers": cfg.n_layers,
+                "batch_size": tc.batch_size, "total_steps": tc.total_steps,
+                "seq_len": tc.seq_len, "loss_chunk_size": tc.loss_chunk_size,
+                "lr": tc.lr, "warmup_steps": tc.warmup_steps}
+    emit({"yaml_config_summary": "bench-v5e1.yaml", "resolved": resolved,
+          "losses": losses, "pyyaml_installed": had_yaml,
+          "pyyaml_blocked": True, "device": kind, "nvidia_smi": smi})
+    want = {"remat_policy": "nothing", "n_layers": 14,
+            "batch_size": RESUME_BATCH, "total_steps": 3, "seq_len": 2048,
+            "loss_chunk_size": 512, "lr": 1e-4, "warmup_steps": 2}
+    if resolved != want or len(losses) != 3 or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"22c: {resolved} {losses}")
+    del trainer, batches
+
+
+def tile_train_check(torch, kind, smi) -> dict:
+    """22d: the 64-row query builds on the Gemma-2-9B and MLA train paths
+    (TILE_TRAIN_LAYERS layers, TILE_TRAIN_STEPS steps through Trainer.run)
+    under TPUFW_FLASH_BQ=64, the counts zeroed just before each run: every
+    launch under the 64-row forward and dQ builds and the head dim's
+    dK/dV build, the losses finite. Returns the launches."""
+    from tpufw_torch import configs
+    from tpufw_torch.ops import flash
+    from tpufw_torch.train import Trainer
+
+    launches = {}
+    for slice_fn, d in ((configs.gemma2_9b_train_slice, 256),
+                        (configs.deepseek_mla_train_slice, 192)):
+        cfg, tcfg = slice_fn(n_layers=TILE_TRAIN_LAYERS,
+                             total_steps=TILE_TRAIN_STEPS)
+        tcfg = dataclasses.replace(tcfg, handle_preemption=False)
+        with _train_env({"TPUFW_FLASH_BQ": "64"}):
+            tr = Trainer(cfg, tcfg, device="cuda")
+            tr.init_state(seed=0)
+            batches = _batches(torch, tcfg, cfg.vocab_size,
+                               TILE_TRAIN_STEPS)
+            torch.cuda.synchronize()
+            flash.reset_launch_counts()
+            history = tr.run(iter(batches), cfg.flops_per_token(
+                tcfg.seq_len - 1))
+            torch.cuda.synchronize()
+        got = {k: v for k, v in flash.LAUNCHES.items() if v}
+        want = set(build_names(flash, d, (64, None)).values())
+        losses = [m.loss for m in history]
+        emit({"tile_train_summary": f"d{d}", "TPUFW_FLASH_BQ": 64,
+              "layers": TILE_TRAIN_LAYERS, "launches": got,
+              "losses": losses, "step_s": [m.step_time_s for m in history],
+              "device": kind, "nvidia_smi": smi})
+        if set(got) != want or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"22d d{d}: launched {got}, want {want}; "
+                                 f"losses {losses}")
+        launches |= got
+        del tr, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def autotune_phase(torch, kind, smi) -> dict:
+    """Phase 22: 22a-22d, each timed into PHASE_SECONDS. Returns the
+    launches of the other tile builds on 22b's and 22d's runs."""
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build-torch"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="phase22-", dir=os.path.join(
+        ROOT, "build-torch"))
+    try:
+        _timed("22a", lambda: memory_estimate_check(torch, kind, smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = _timed("22b", lambda: tuner_check(torch, kind, smi,
+                                                     workdir))
+        gc.collect()
+        torch.cuda.empty_cache()
+        _timed("22c", lambda: yaml_config_check(torch, kind, smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches |= _timed("22d", lambda: tile_train_check(torch, kind, smi))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -7341,6 +7832,11 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
     emit({"build_report": report})
+    # The other tile builds of each head dim (the tile override's values a
+    # train step takes), held beside the default builds in every case of
+    # their head dim.
+    others = {d: flash.tile_choices(d) for d in flash.BUILDS}
+    all_builds = {d: (None, *others[d]) for d in flash.BUILDS}
     # 2. Kernels vs plain versions.
     t_phase = time.perf_counter()
     dev = "cuda"
@@ -7354,8 +7850,8 @@ def main() -> int:
     q, do = randn(b, t, h, d), randn(b, t, h, d)
     k, v = randn(b, t, kh, d), randn(b, t, kh, d)
     errs, lse, delta = check_kernels(
-        torch, flash, "path_shapes_causal", q, k, v, do, {"causal": True}
-    )
+        torch, flash, "path_shapes_causal", q, k, v, do, {"causal": True},
+        builds=all_builds[128])
     # Small cases, 4 query / 2 kv heads: name, (b, t, s, input scale,
     # masks, segment lengths over the s keys or None).
     small = {
@@ -7380,7 +7876,7 @@ def main() -> int:
             torch, flash, case,
             randn(bs, ts, 4, d, scale=scale), randn(bs, ss, 2, d, scale=scale),
             randn(bs, ss, 2, d), randn(bs, ts, 4, d), masks,
-        )
+            builds=all_builds[128])
 
     # 2b. The head-dim-256 kernels (Gemma-2) at the Gemma train path's
     # shapes and at their own tile edges.
@@ -7390,7 +7886,7 @@ def main() -> int:
         qd, dod = randn(bs, ts, hs, 256, scale=scale), randn(bs, ts, hs, 256)
         kd, vd = randn(bs, ss, khs, 256, scale=scale), randn(bs, ss, khs, 256)
         e, lse_d, delta_d = check_kernels(torch, flash, case, qd, kd, vd, dod,
-                                          masks)
+                                          masks, builds=all_builds[256])
         if ts == GEMMA_T:
             for name, x in e.items():
                 errs[name] = max(errs.get(name, 0.0), x)
@@ -7413,7 +7909,7 @@ def main() -> int:
         if pad_v:
             vd[..., 192 - pad_v:] = 0
         e, lse_d, delta_d = check_kernels(torch, flash, case, qd, kd, vd, dod,
-                                          masks)
+                                          masks, builds=all_builds[192])
         if ts == MLA_T:
             for name, x in e.items():
                 errs[name] = max(errs.get(name, 0.0), x)
@@ -7427,6 +7923,9 @@ def main() -> int:
     # slice's, head dim 256 at the Gemma-2 one's, global and windowed, and
     # head dim 192 at the MLA one's.
     timings = time_kernels(torch, flash, chip, q, k, v, do, lse, delta)
+    for tiles in others[128]:
+        timings |= time_kernels(torch, flash, chip, q, k, v, do, lse, delta,
+                                block_sizes=tiles, yardsticks=timings)
     del q, k, v, do, lse, delta
     torch.cuda.empty_cache()
     # 2d/3d. Head dim 128 at phase 7b's shapes too (llama3_600m_bench: B=4,
@@ -7444,6 +7943,11 @@ def main() -> int:
     timings |= time_kernels(torch, flash, chip, x["q"], x["k"], x["v"], x["do"],
                             x["lse"], x["delta"],
                             {"causal": True, "soft_cap": GEMMA_ATTN_CAP})
+    for tiles in others[256]:
+        timings |= time_kernels(
+            torch, flash, chip, x["q"], x["k"], x["v"], x["do"], x["lse"],
+            x["delta"], {"causal": True, "soft_cap": GEMMA_ATTN_CAP},
+            block_sizes=tiles, yardsticks=timings)
     # LSE and delta of the global case serve the windowed timing too: they
     # are inputs of the same shape, and the kernels' time does not depend
     # on their values.
@@ -7457,12 +7961,27 @@ def main() -> int:
     x = d192_inputs
     timings |= time_kernels(torch, flash, chip, x["q"], x["k"], x["v"], x["do"],
                             x["lse"], x["delta"])
+    for tiles in others[192]:
+        timings |= time_kernels(
+            torch, flash, chip, x["q"], x["k"], x["v"], x["do"], x["lse"],
+            x["delta"], block_sizes=tiles, yardsticks=timings)
     sdpa_v128 = sdpa_unequal_v(torch, x["q"], x["k"], x["v"], MLA_V)
     emit({"timing": "sdpa_mla_unpadded_v", "shape": list(x["q"].shape)}
          | sdpa_v128)
     del x, d192_inputs
     torch.cuda.empty_cache()
 
+    # 2e. Every build at the tile edges, the override's reach, and one
+    # line per other build.
+    t_builds = time.perf_counter()
+    try:
+        tile_edge_checks(torch, flash, randn, all_builds)
+        override_checks(torch, flash, randn)
+    except AssertionError as e:
+        return fail(str(e))
+    build_lines(flash, _build, report, timings, others)
+    torch.cuda.empty_cache()
+    PHASE_SECONDS["2e"] = time.perf_counter() - t_builds
     PHASE_SECONDS["2-3"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     # 4. The train slice, counters zeroed just before; 4b. the Gemma-2-9B
@@ -7647,6 +8166,19 @@ def main() -> int:
     except AssertionError as e:
         return fail(str(e))
 
+    # 22. Item 13c: the memory estimate, the tuner, the YAML run config and
+    # the 64-row query builds on their train paths, with phase 21's models
+    # freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        tile_launches = _timed("22", lambda: autotune_phase(torch, kind, smi))
+    except AssertionError as e:
+        return fail(str(e))
+
+    tpu_lines = {"flash_fwd": "tpufw/ops/flash.py:462",
+                 "flash_dq": "tpufw/ops/flash.py:544",
+                 "flash_dkv": "tpufw/ops/flash.py:590"}
     replaces = {
         "flash_fwd": ("tpufw_torch/ops/csrc/flash_fwd.cu", "tpufw/ops/flash.py:462"),
         "flash_dq": ("tpufw_torch/ops/csrc/flash_dq.cu", "tpufw/ops/flash.py:544"),
@@ -7663,13 +8195,23 @@ def main() -> int:
                           "tpufw/ops/flash.py:544"),
         "flash_dkv_d256": ("tpufw_torch/ops/csrc/flash_dkv_d256.cu",
                            "tpufw/ops/flash.py:590"),
+        # The other tile builds: their launches are phase 22's (22b's
+        # tuner trials and tuned steps at head dim 128, 22d's train runs
+        # at 192 and 256).
+        **{name: (f"tpufw_torch/ops/csrc/{name}.cu",
+                  tpu_lines[flash.base_kernel(name)])
+           for name in flash.LAUNCHES if name.endswith(("_k64", "_q64"))},
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
         tm = timings[name]
+        n_launches = launches[name] if name in launches else \
+            tile_launches.get(name, 0)
+        if not n_launches:
+            return fail(f"{name}: no launch on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": tpu,
-            "launches": launches[name], "max_abs_err": errs[name],
+            "launches": n_launches, "max_abs_err": errs[name],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],

@@ -114,24 +114,27 @@ def test_cpu_tensors_take_the_plain_versions():
         "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
         "flash_fwd_d192": 0, "flash_dq_d192": 0, "flash_dkv_d192": 0,
         "flash_fwd_d256": 0, "flash_dq_d256": 0, "flash_dkv_d256": 0,
+        "flash_fwd_k64": 0, "flash_dq_k64": 0, "flash_dkv_k64": 0,
+        "flash_fwd_d192_q64": 0, "flash_dq_d192_q64": 0,
+        "flash_fwd_d256_q64": 0, "flash_dq_d256_q64": 0,
     }
 
 
 @pytest.mark.parametrize("head_dim", [96, 64])
 def test_unported_head_dims_raise_off_the_cpu(head_dim):
     """A tensor off the CPU at a head dim the CUDA kernels are not built
-    for raises NotImplementedError naming the ROADMAP (the tile override)
-    before any build or launch: there is no route to the plain version.
-    Meta tensors stand in for CUDA ones here."""
+    for raises NotImplementedError naming the builds (``BUILDS``) before
+    any build or launch: there is no route to the plain version. Meta
+    tensors stand in for CUDA ones here."""
     tflash.reset_launch_counts()
     q = torch.empty(1, 128, 2, head_dim, dtype=torch.bfloat16, device="meta")
     k = torch.empty(1, 128, 1, head_dim, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="built per head dim"):
         tflash.flash_fwd(q, k, k)
     do = torch.empty_like(q)
     lse = torch.empty(1, 2, 128, device="meta")
     for fn in (tflash.flash_dq, tflash.flash_dkv):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="built per head dim"):
             fn(q, k, k, do, lse, lse)
     assert not any(tflash.LAUNCHES.values())
 

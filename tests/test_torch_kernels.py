@@ -11,8 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tpufw_torch.ops import flash as tflash
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread, as ``tests/torch_parity.py``'s fixture (which
+    this file cannot import: that module imports JAX and Flax)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 # Every |got - want| within ROW_TOL of the largest |want| in its row (one
 # query's or one key's head vector), and the whole tensor within FRO_TOL
@@ -105,6 +114,27 @@ SHARD_CASES = {
 }
 
 
+# The other tile builds (``tflash.BUILDS``: 64-key tiles at head dim 128,
+# 64-row forward and dQ blocks at 192 and 256), each through the tile
+# override at the lengths of tests/test_flash_blocks.py and the tile edges
+# of its own tiles, the masks case and a two-batch non-causal one; dK/dV
+# runs the head dim's build of that override (at 192 and 256 its default).
+BUILD_CASES = {
+    "t64": (1, 64, 64, 4, 2, 1.0, dict(causal=True)),
+    "t129": (1, 129, 129, 4, 2, 1.0, dict(causal=True)),
+    "t200": (1, 200, 200, 4, 2, 1.0, dict(causal=True)),
+    "t640": (1, 640, 640, 4, 2, 1.0, dict(causal=True)),
+    "t768": (1, 768, 768, 4, 2, 1.0, dict(causal=True)),
+    "b2_t700_noncausal": (2, 700, 700, 4, 2, 1.0, dict(causal=False)),
+    "segments_offset_window300_cap50": (
+        1, 300, 700, 4, 2, 4.0,
+        dict(causal=True, window=300, soft_cap=50.0, segments=True),
+    ),
+}
+OTHER_BUILDS = [(d, tiles) for d in tflash.BUILDS
+                for tiles in tflash.tile_choices(d)]
+
+
 def _assert_close(name, got, want):
     got, want = got.float(), want.float()
     diff = (got - want).abs()
@@ -155,7 +185,23 @@ def test_shard_shapes_match_plain_versions_on_gpu(case):
         assert tflash.LAUNCHES[name] == before[name] + 1, name
 
 
-def _check_case(spec, d):
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BUILD_CASES))
+@pytest.mark.parametrize("build", OTHER_BUILDS,
+                         ids=lambda b: f"d{b[0]}_{b[1][0]}x{b[1][1]}")
+def test_tile_builds_match_plain_versions_on_gpu(build, case):
+    """On the card: each other tile build, chosen by ``block_sizes``,
+    against the same plain versions; its launches land under its own
+    names and no default build of a kernel it has launches."""
+    d, tiles = build
+    before = dict(tflash.LAUNCHES)
+    _check_case(BUILD_CASES[case], d, block_sizes=tiles)
+    grew = {k for k, v in tflash.LAUNCHES.items() if v != before[k]}
+    assert grew == {tflash.BUILDS[d][base][tflash.resolve_tiles(
+        base, d, tiles)] for base in tflash.KERNELS}, grew
+
+
+def _check_case(spec, d, block_sizes=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
     b, t, s, h, kh, scale, masks = spec
@@ -181,14 +227,15 @@ def _check_case(spec, d):
         masks |= dict(qseg=kseg[:, s - t:].contiguous(), kseg=kseg)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     o_ref, lse_ref = tflash.flash_fwd_reference(qf, kf, vf, **masks)
-    o, lse = tflash.flash_fwd(q, k, v, **masks)
+    blocks = dict(block_sizes=block_sizes)
+    o, lse = tflash.flash_fwd(q, k, v, **masks, **blocks)
     _assert_close("o", o, o_ref)
     assert (lse - lse_ref).abs().max().item() <= LSE_TOL
     delta = tflash.flash_delta(o_ref, dof)
-    dq = tflash.flash_dq(q, k, v, do, lse_ref, delta, **masks)
+    dq = tflash.flash_dq(q, k, v, do, lse_ref, delta, **masks, **blocks)
     _assert_close("dq", dq, tflash.flash_dq_reference(
         qf, kf, vf, dof, lse_ref, delta, **masks))
-    dk, dv = tflash.flash_dkv(q, k, v, do, lse_ref, delta, **masks)
+    dk, dv = tflash.flash_dkv(q, k, v, do, lse_ref, delta, **masks, **blocks)
     dk_ref, dv_ref = tflash.flash_dkv_reference(
         qf, kf, vf, dof, lse_ref, delta, **masks)
     _assert_close("dk", dk, dk_ref)

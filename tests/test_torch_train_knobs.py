@@ -466,11 +466,16 @@ def test_state_knobs_match_tpufw_build_trainer(monkeypatch, env):
         k: getattr(theirs.cfg, k) for k in STATE_KNOBS}
 
 
+BENCH_YAML = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "deploy", "configs", "bench-v5e1.yaml")
+
 # Every knob ``tpufw``'s build_trainer honours and the port did not:
 # (a value that turns it on, the ROADMAP.md Queue 1 item it names).
 REFUSED_TRAIN_KNOBS = {
-    "CONFIG": ("run.yaml", "13"),
-    "AUTOTUNE": ("search", "13"),
+    # Honoured since item 13c: the YAML of record is the base of every
+    # TrainerConfig field ("yaml"), the autotune mode lands as the rest.
+    "CONFIG": (BENCH_YAML, "yaml"),
+    "AUTOTUNE": ("search", "config"),
     # Honoured since item 13a ("config"): the knob lands in the
     # TrainerConfig field of that name as tpufw's build_trainer puts it.
     "PROFILE_DIR": ("/prof", "config"),
@@ -493,6 +498,19 @@ def test_post_training_objectives_are_refused(monkeypatch, knob):
 
     value, item = REFUSED_TRAIN_KNOBS[knob]
     _workload_env(monkeypatch, **{knob: value})
+    if item == "yaml":
+        from tpufw.workloads import train_llama as j_train_llama
+
+        mine = train_llama.build_trainer()[0].cfg
+        theirs = j_train_llama.build_trainer()[0].cfg
+        shared = [f.name for f in dataclasses.fields(mine)
+                  if hasattr(theirs, f.name)]
+        assert {f: getattr(mine, f) for f in shared} == {
+            f: getattr(theirs, f) for f in shared}
+        # From the YAML (lr, warmup, log cadence) under the env's shape.
+        assert (mine.lr, mine.warmup_steps, mine.log_every) == (1e-4, 2, 1)
+        assert (mine.batch_size, mine.loss_chunk_size) == (2, 8)
+        return
     if item == "config":
         from tpufw.workloads import train_llama as j_train_llama
 

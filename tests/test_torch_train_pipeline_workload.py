@@ -128,7 +128,6 @@ def test_schedule_from_env(monkeypatch, env, schedule, v):
      "einsum"),
     (dict(MOE_DISPATCH="sorted"), NotImplementedError, "einsum"),
     (dict(GRAD_ACCUM=2), NotImplementedError, "grad_accum"),
-    (dict(CONFIG="run.yaml"), NotImplementedError, r"item 13\)"),
 ])
 def test_refusals_from_env(monkeypatch, env, err, match):
     """What the pipeline does not run raises at build, naming why: the
@@ -136,11 +135,42 @@ def test_refusals_from_env(monkeypatch, env, err, match):
     (both knobs arrived), a tensor axis must divide the heads and an
     expert axis needs a MoE model (``tpufw``'s checks), sequence must be
     1 beside pipe, the sorted dispatch is refused (not replaced
-    by the capacity router), grad_accum is the schedule's, the YAML run
-    config is item 13c (profiling, which this case held until item 13a
-    ported it, lands in the trainer: test_telemetry_knobs_land)."""
+    by the capacity router), grad_accum is the schedule's (the YAML run
+    config, which a case held until item 13c ported it, is the base of the
+    knobs: test_config_yaml_is_the_base_of_the_knobs)."""
     workload_env(monkeypatch, BASE, **env)
     with pytest.raises(err, match=match):
+        tw.build_trainer()
+
+
+def test_config_yaml_is_the_base_of_the_knobs(monkeypatch, tmp_path):
+    """TPUFW_CONFIG (item 13c): the YAML's pipeline, trainer and mesh
+    sections build the trainer, each TPUFW_* knob over them; the
+    autotune knobs land in the trainer's config. ``tpufw``'s pipeline
+    workload reads neither, so the port is held to its own loader."""
+    cfg = tmp_path / "pipe.yaml"
+    cfg.write_text(
+        "hardware: {slice: v5e-4, hosts: 1, chips_per_host: 4}\n"
+        "model: {preset: llama3_tiny, overrides: {remat_policy: nothing}}\n"
+        "trainer: {batch_size: 8, seq_len: 33, lr: 1.0e-3, total_steps: 5}\n"
+        "mesh: {fsdp: 2}\n"
+        "pipeline: {n_stages: 2, n_microbatches: 4, schedule: 1f1b}\n")
+    workload_env(monkeypatch, {"DEVICE": "cpu"}, CONFIG=cfg, MESH_FSDP=1,
+                 TOTAL_STEPS=3, AUTOTUNE="cached", AUTOTUNE_STEPS=2,
+                 AUTOTUNE_BUDGET_S=7.5)
+    trainer, model_cfg = tw.build_trainer()
+    assert (trainer.pipe.n_stages, trainer.pipe.n_microbatches,
+            trainer.pipe.schedule) == (2, 4, "1f1b")
+    assert model_cfg.remat_policy == "nothing"
+    assert (trainer.cfg.batch_size, trainer.cfg.seq_len, trainer.cfg.lr,
+            trainer.cfg.total_steps) == (8, 33, 1e-3, 3)
+    assert (trainer.cfg.autotune, trainer.cfg.autotune_steps,
+            trainer.cfg.autotune_budget_s) == ("cached", 2, 7.5)
+    workload_env(monkeypatch, {"DEVICE": "cpu"}, CONFIG=cfg, MESH_FSDP=1,
+                 PIPE_SCHEDULE="gpipe", PIPELINE_SCHEDULE="zb1")
+    assert tw.build_trainer()[0].pipe.schedule == "zb1"
+    workload_env(monkeypatch, BASE, AUTOTUNE="sometimes")
+    with pytest.raises(ValueError, match=r"off \| cached \| search"):
         tw.build_trainer()
 
 

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``. The
 ``*_d192.cu`` and ``*_d256.cu`` sources are the head-dim-192 and 256
-builds of the same kernels (each defines ``TPUFW_HEAD_DIM`` and includes
-its head-dim-128 source), so they export the same C functions. The build goes into ``build-torch/``
+builds of the same kernels, and the ``*_k64.cu`` and ``*_q64.cu`` ones
+their other tilings (``flash.BUILDS``): each defines ``TPUFW_HEAD_DIM``,
+``TPUFW_BQ`` or ``TPUFW_BKV`` and includes its kernel's base source, so
+they export the same C functions. The build goes into ``build-torch/``
 at the repo root (listed in ``.gitignore``); a library's file name carries
 a hash of the flags, the headers and the sources it compiles, so an edited
 kernel is rebuilt and an unchanged one is reused. All missing libraries
@@ -24,7 +26,6 @@ import ctypes
 import hashlib
 import os
 import platform
-import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,7 +36,13 @@ SOURCES = (
     "flash_fwd", "flash_dq", "flash_dkv",
     "flash_fwd_d192", "flash_dq_d192", "flash_dkv_d192",
     "flash_fwd_d256", "flash_dq_d256", "flash_dkv_d256",
+    # Other tilings (flash.BUILDS): 64-key tiles at head dim 128, 64-row
+    # query blocks of the forward and dQ at 192 and 256.
+    "flash_fwd_k64", "flash_dq_k64", "flash_dkv_k64",
+    "flash_fwd_d192_q64", "flash_dq_d192_q64",
+    "flash_fwd_d256_q64", "flash_dq_d256_q64",
 )
+BASES = ("flash_fwd", "flash_dq", "flash_dkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,6 +57,10 @@ _ARGTYPES = {
     "tpufw_flash_fwd": [_P] * 7 + [_I] * 5 + _MASK_ARGS + [_P],
     "tpufw_flash_dq": [_P] * 9 + [_I] * 5 + _MASK_ARGS + [_P],
     "tpufw_flash_dkv": [_P] * 10 + [_I] * 5 + _MASK_ARGS + [_P],
+    # Each build's dynamic shared memory a block, in bytes.
+    "tpufw_flash_fwd_smem": [],
+    "tpufw_flash_dq_smem": [],
+    "tpufw_flash_dkv_smem": [],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -68,11 +79,20 @@ def _nvcc() -> str:
     return nvcc
 
 
+def base_source(name: str) -> str:
+    """The kernel source a build's wrapper includes: ``flash_dq`` for
+    ``flash_dq_d256_q64``."""
+    for base in BASES:
+        if name == base or name.startswith(base + "_"):
+            return base
+    raise ValueError(f"unknown kernel build {name!r}")
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    # A *_d<N> source (another head dim) includes the source of its base
-    # name.
-    own = {name, re.sub(r"_d\d+$", "", name)}
+    # A build's wrapper (another head dim or tiling) includes the source of
+    # its kernel: an edit of that source rebuilds every build of it.
+    own = {name, base_source(name)}
     for src in sorted(CSRC.glob("*.cu*")):
         if src.suffix == ".cuh" or src.stem in own:
             h.update(src.read_bytes())

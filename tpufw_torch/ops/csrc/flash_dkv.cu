@@ -9,7 +9,7 @@
 // and the GQA sum over a kv head's query heads stay in torch, as in the
 // JAX package, so no two blocks write the same output and no atomics are
 // needed. The output is fp32 [B, H, S_pad, D] per query head, scaled by
-// `scale`, with S_pad a multiple of the 128-key tile.
+// `scale`, with S_pad a multiple of the key tile (BKV).
 //
 // What bounds it on an H100: four products per (query, key) pair against
 // a few bytes per row, so tensor-core operations. The design:
@@ -43,6 +43,18 @@
 // fp32 registers) leaves room. K and V (48 KB) and two stages of Q and dO
 // (2 x 48 KB) take 144 KB. With V zero-padded by the model, a third of dV's
 // columns are zero and are computed all the same.
+//
+// Tile builds. TPUFW_BKV (keys a block, 128 or 64) chooses the key tile;
+// 64 keys take the split layout above at every head dim, so
+// flash_dkv_k64.cu is the D = 128 kernel at 64 keys, each warpgroup keeping
+// one of dK and dV (64 fp32 registers). The streamed query tile (BQ, 64
+// rows) is this kernel's own constant: the tile override's query axis is
+// the forward's and dQ's. At D = 192 and 256 there is no other key tile:
+// the keys are the wgmma M axis, 64 rows a warpgroup, so a 32-key block
+// would leave half of every product empty, and a 128-key block would keep
+// dV (or dK) of 128 keys x D in one warpgroup's registers (256 fp32 a
+// thread at D = 256, 192 at 192 beside S^T and dP^T), past the 240 a
+// consumer thread has.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -52,10 +64,16 @@ namespace dkv {
 
 using namespace hopper;
 
-// D = 192 and 256: each warpgroup keeps one of dK and dV for all the
-// block's keys.
-constexpr bool SPLIT = D > 128;
-constexpr int BKV = SPLIT ? 64 : 128;  // keys per block
+#ifdef TPUFW_BKV
+constexpr int BKV = TPUFW_BKV;         // keys per block
+#else
+constexpr int BKV = D == 128 ? 128 : 64;
+#endif
+static_assert(BKV == 128 ? D == 128 : BKV == 64,
+              "128 keys a block at D = 128, else 64 (see the notes above)");
+// 64 keys a block (D = 192 and 256, or the 64-key build at 128): each
+// warpgroup keeps one of dK and dV for all the block's keys.
+constexpr bool SPLIT = BKV == 64;
 constexpr int BQ = 64;        // query rows per streamed tile
 constexpr int STAGES = 2;     // Q/dO ring depth
 constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
@@ -376,7 +394,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // q [B,T,H,D], k/v [B,S,KV,D], dO [B,T,H,D] bf16; lse, delta [B,H,T] fp32;
 // qseg [B,T] / kseg [B,S] int32 or null; dk, dv [B,H,S_pad,D] fp32 per
-// QUERY head, S_pad = S rounded up to BKV (128, or 64 at D = 192 and 256).
+// QUERY head, S_pad = S rounded up to BKV (128, or 64 at D = 192 and 256
+// and in the 64-key build).
 // Returns cudaGetLastError(), or
 // cudaErrorInvalidValue when a tensor map cannot be encoded.
 extern "C" int tpufw_flash_dkv(const void* q, const void* k, const void* v,
@@ -405,3 +424,7 @@ extern "C" int tpufw_flash_dkv(const void* q, const void* k, const void* v,
       static_cast<float*>(dv), H, KV, m);
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory of this build's block in bytes (ptxas reports only
+// static shared memory; chip_smoke.py prints this beside its report).
+extern "C" int tpufw_flash_dkv_smem() { return tpufw::dkv::SMEM; }

@@ -40,6 +40,16 @@
 // 64-key tiles fit a two-stage ring (2 x 48 KB: 192 KB in all); the ring
 // depth is derived from those bytes. S and dP are m64n64 over 12 k-steps,
 // dQ one m64n192 accumulator (96 fp32 registers a thread).
+//
+// Tile builds, as the forward's (flash_fwd.cu): TPUFW_BQ (128 or 64 query
+// rows a block, one consumer warpgroup per 64) and TPUFW_BKV (128 or 64
+// keys a tile), defaulting to the tiles above; flash_dq_k64.cu is 128 x 64
+// at D = 128, flash_dq_d192_q64.cu and flash_dq_d256_q64.cu 64 x 64. At
+// D = 256 the 64-row block halves Q and dO (64 KB), so its ring has two
+// stages again (192 KB). No 32-key build (the dK/dV kernel has none to
+// pair with, flash_dkv.cu) and no 128-key one at D = 192 or 256: S, dP
+// and dQ take 64 + 64 + 128 fp32 registers a thread at 256 (and 224 at
+// 192, with K, V and dS still to come), past the 240 a consumer has.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -49,9 +59,22 @@ namespace grad_q {
 
 using namespace hopper;
 
-constexpr int BQ = 128;                   // query rows per block
-constexpr int BKV = D == 128 ? 128 : 64;  // keys per kv tile
-constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
+#ifdef TPUFW_BQ
+constexpr int BQ = TPUFW_BQ;              // query rows per block
+#else
+constexpr int BQ = 128;
+#endif
+#ifdef TPUFW_BKV
+constexpr int BKV = TPUFW_BKV;            // keys per kv tile
+#else
+constexpr int BKV = D == 128 ? 128 : 64;
+#endif
+static_assert(BQ == 64 || BQ == 128, "a consumer warpgroup owns 64 query rows");
+static_assert(BKV == 64 || BKV == 128, "S and dP are m64n64 or m64n128 products");
+constexpr int CONSUMERS = BQ / 64;        // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer's warpgroup
+// Register bound of every build: the 384-thread one's (flash_fwd.cu).
+constexpr int BOUND_THREADS = 384;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int NS = BKV / 2;   // S and dP accumulator floats a thread
 
@@ -112,7 +135,7 @@ __device__ __forceinline__ void tile_grads(float (&s)[N], float (&dp)[N], const 
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BOUND_THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
@@ -139,16 +162,16 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_init(bar_q, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 32);  // every producer lane arrives
-      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&empty[s], 4 * CONSUMERS);  // one arrival per consumer warp
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 2) {
+  if (wg == CONSUMERS) {
     // Producer: one warp issues the copies; lanes stage key segment ids.
     regs_dealloc<PRODUCER_REGS>();
-    if (threadIdx.x / 32 != 8) return;
+    if (threadIdx.x / 32 != 4 * CONSUMERS) return;
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
       mbar_arrive_expect_tx(bar_q, 2 * Q_BYTES);
@@ -338,3 +361,7 @@ extern "C" int tpufw_flash_dq(const void* q, const void* k, const void* v,
       static_cast<const float*>(delta), H, KV, m);
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory of this build's block in bytes (ptxas reports only
+// static shared memory; chip_smoke.py prints this beside its report).
+extern "C" int tpufw_flash_dq_smem() { return tpufw::grad_q::SMEM; }

@@ -1,0 +1,9 @@
+// The flash-attention dQ kernel at head dim 192 with 64-row query blocks
+// (64 query rows x 64 keys, one consumer warpgroup): flash_dq.cu built with
+// D = 192 and BQ = 64, into a library of its own, selected by the tile
+// override (flash.py BUILDS). Why the tiles are what they are: the notes at
+// the top of flash_dq.cu.
+
+#define TPUFW_HEAD_DIM 192
+#define TPUFW_BQ 64
+#include "flash_dq.cu"

@@ -43,6 +43,21 @@
 // stages would need 240 KB), S = Q K^T m64n64 over 12 k-steps, and O one
 // m64n192 accumulator (96 fp32 registers a thread). A third of the P V
 // product's work lands on V's zero columns.
+//
+// Tile builds. TPUFW_BQ (query rows a block, 128 or 64: one consumer
+// warpgroup per 64 rows) and TPUFW_BKV (keys a kv tile, 128 or 64) choose
+// the tiles, defaulting to the ones above; each other tiling is a wrapper
+// source of its own (flash_fwd_k64.cu: 128 x 64 at D = 128;
+// flash_fwd_d192_q64.cu, flash_fwd_d256_q64.cu: 64 x 64), built into its
+// own library with the same C function. At D = 192 and 256 the alternative
+// is the 64-row query tile: a 32-key tile would fit (and need m64n32
+// products), but the dK/dV kernel cannot take 32 keys (see flash_dkv.cu),
+// so a 32-key override could never run a training step; 128-key K and V
+// stages take 2 x 64 KB at D = 256 (48 KB at 192) each, so two of them
+// beside Q pass the 227 KB a block may have, and one stage makes the next
+// tile's copy wait for this tile's math.
+// A 64-row block has one consumer warpgroup (256 threads) and half the
+// query rows' work, so twice the blocks fill the card at small head counts.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -52,10 +67,24 @@ namespace fwd {
 
 using namespace hopper;
 
-constexpr int BQ = 128;                   // query rows per block
-constexpr int BKV = D == 128 ? 128 : 64;  // keys per kv tile
+#ifdef TPUFW_BQ
+constexpr int BQ = TPUFW_BQ;              // query rows per block
+#else
+constexpr int BQ = 128;
+#endif
+#ifdef TPUFW_BKV
+constexpr int BKV = TPUFW_BKV;            // keys per kv tile
+#else
+constexpr int BKV = D == 128 ? 128 : 64;
+#endif
+static_assert(BQ == 64 || BQ == 128, "a consumer warpgroup owns 64 query rows");
+static_assert(BKV == 64 || BKV == 128, "S = Q K^T is one m64n64 or m64n128 product");
 constexpr int STAGES = 2;                 // K/V ring depth
-constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
+constexpr int CONSUMERS = BQ / 64;        // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer's warpgroup
+// Register bound of every build: the 384-thread one's entry allocation
+// (168), which setmaxnreg raises to CONSUMER_REGS, also at 256 threads.
+constexpr int BOUND_THREADS = 384;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int NS = BKV / 2;   // S accumulator floats a thread (m64 x BKV)
 
@@ -103,7 +132,7 @@ __device__ __forceinline__ void tile_logits(float (&s)[N], const Masks& m, int k
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BOUND_THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap,
@@ -128,16 +157,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_init(bar_q, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 32);  // every producer lane arrives
-      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&empty[s], 4 * CONSUMERS);  // one arrival per consumer warp
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 2) {
+  if (wg == CONSUMERS) {
     // Producer: one warp issues the copies; lanes stage key segment ids.
     regs_dealloc<PRODUCER_REGS>();
-    if (threadIdx.x / 32 != 8) return;
+    if (threadIdx.x / 32 != 4 * CONSUMERS) return;
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
       mbar_arrive_expect_tx(bar_q, Q_BYTES);
@@ -338,3 +367,7 @@ extern "C" int tpufw_flash_fwd(const void* q, const void* k, const void* v,
       qmap, kmap, vmap, omap, static_cast<float*>(lse), H, KV, m);
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory of this build's block in bytes (ptxas reports only
+// static shared memory; chip_smoke.py prints this beside its report).
+extern "C" int tpufw_flash_fwd_smem() { return tpufw::fwd::SMEM; }

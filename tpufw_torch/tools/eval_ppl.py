@@ -5,6 +5,8 @@
         --params base/ --data corpus \\
         --batch-size 8 --seq-len 2048 --batches 64
 
+``--model``: a preset name, or a run-config YAML (``.yaml``/``.yml``,
+``configs.loader``: its preset with the file's model overrides).
 ``--params``: bare params (``tools.import_hf``'s output); ``--checkpoint``
 instead: a training checkpoint directory (its latest step's model
 tensors, without the optimizer state). ``--data``: a
@@ -18,6 +20,18 @@ from __future__ import annotations
 import json
 
 
+def model_config(model: str):
+    """``--model``'s config: a run-config YAML's (with its overrides) or a
+    preset's, as ``tpufw``'s CLI resolves it."""
+    if model.endswith((".yaml", ".yml")):
+        from tpufw_torch.configs.loader import load_run_config
+
+        return load_run_config(model).model_cfg
+    from tpufw_torch.configs.loader import resolve_model_preset
+
+    return resolve_model_preset(model)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -25,7 +39,8 @@ def main(argv=None) -> int:
         prog="tpufw_torch.tools.eval_ppl",
         description="weights + packed corpus -> token-weighted ppl",
     )
-    ap.add_argument("--model", required=True, help="model preset")
+    ap.add_argument("--model", required=True,
+                    help="model preset or run-config YAML path")
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--params", help="bare-params dir")
     src.add_argument("--checkpoint",
@@ -41,11 +56,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from tpufw_torch.configs import resolve_model_preset
     from tpufw_torch.train import TokenCorpus, Trainer, TrainerConfig
     from tpufw_torch.train.checkpoint import checkpoint_model_state
 
-    model_cfg = resolve_model_preset(args.model)
+    model_cfg = model_config(args.model)
     trainer = Trainer(
         model_cfg,
         TrainerConfig(

@@ -80,6 +80,7 @@ from tpufw_torch.train.trainer import (
     batch_to_device,
     default_optimizer,
     emit_eval,
+    resolve_autotune,
     run_evaluation,
     run_steps,
     start_telemetry,
@@ -171,6 +172,9 @@ class PipelineTrainer:
         # The run's Telemetry (Trainer's discipline): the shared
         # disabled one between runs.
         self.telemetry = Telemetry.disabled()
+        # TuneResult of the last apply_autotune; None until cfg.autotune
+        # resolves in run().
+        self.last_tune = None
 
     # -- state ---------------------------------------------------------
 
@@ -424,6 +428,7 @@ class PipelineTrainer:
             {"trainer": dataclasses.asdict(self.cfg),
              "pipeline": dataclasses.asdict(self.pipe)})
         try:
+            resolve_autotune(self, tel)
             if self.params is None:
                 self.init_state()
             meter = Meter(

@@ -587,6 +587,21 @@ def start_telemetry(trainer, model: str, config: dict) -> Telemetry:
     return tel
 
 
+def resolve_autotune(trainer, tel: Telemetry) -> None:
+    """``trainer.cfg.autotune`` resolved before the state is made (a
+    winner's remat policy, schedule or flash build is what the first step
+    runs), inside a ``tune`` span; then the perf observatory's
+    ``programs.json`` keyed like the tune cache, so a cost table and a
+    winner of one (model, batch, seq, mesh) point line up."""
+    from tpufw_torch.tune.runner import apply_autotune, trainer_cache_key
+
+    if trainer.cfg.autotune != "off":
+        with tel.tracer.span("tune"):
+            apply_autotune(trainer, events=tel.events, perf=tel.perf)
+    if tel.perf.enabled:
+        tel.perf.set_key(trainer_cache_key(trainer))
+
+
 def run_steps(trainer, data: Iterator[dict], meter: Meter,
               on_metrics: Callable[[StepMetrics], None] | None = None,
               shutdown=None, after_sync: Callable[[], None] | None = None,
@@ -802,6 +817,13 @@ class TrainerConfig:
     # A rank is flagged (straggler_detected, warn) when its sync
     # window's wall time exceeds the gang's median by this factor.
     straggler_factor: float = 2.0
+    # MFU autotuning (tpufw_torch.tune), resolved in run() before the
+    # state exists: "off", "cached" (apply a kept winner) or "search"
+    # (measure candidates for at most autotune_budget_s, autotune_steps
+    # timed steps each, then keep and apply the winner).
+    autotune: str = "off"
+    autotune_budget_s: float = 120.0
+    autotune_steps: int = 3
 
 
 def on_mesh(method):
@@ -901,6 +923,9 @@ class Trainer:
         # The run's Telemetry, made per run() from the cfg knobs; the
         # shared disabled one between runs, so probes never branch.
         self.telemetry = Telemetry.disabled()
+        # TuneResult of the last apply_autotune (tpufw_torch.tune); None
+        # until cfg.autotune resolves in run().
+        self.last_tune = None
 
     @staticmethod
     def _local_groups(groups) -> tuple:
@@ -1208,6 +1233,7 @@ class Trainer:
             self, type(self.model_cfg).__name__.removesuffix("Config"),
             {"trainer": dataclasses.asdict(self.cfg)})
         try:
+            resolve_autotune(self, tel)
             if self.model is None:
                 self.init_state()
             meter = Meter(

@@ -62,15 +62,6 @@ def env_bool(name: str, default: bool) -> bool:
     raise ValueError(f"TPUFW_{name.upper()}={v!r} is not a boolean")
 
 
-def refuse_unported(knob: str, what: str, item: str) -> None:
-    """Raise for a ``tpufw`` knob whose feature the port lacks, naming
-    the ROADMAP.md Queue 1 item that brings it."""
-    raise NotImplementedError(
-        f"TPUFW_{knob.upper()}: {what} is not ported to tpufw_torch yet "
-        f"(ROADMAP.md Queue 1 item {item})"
-    )
-
-
 def batch_mesh_from_env():
     """The ``MeshConfig`` of the ``rl`` and ``embed`` workloads from the
     knobs ``tpufw``'s read: ``TPUFW_MESH_DATA`` (1), ``TPUFW_MESH_FSDP``
@@ -83,9 +74,11 @@ def batch_mesh_from_env():
                       tensor=env_int("mesh_tensor", 1))
 
 
-def mesh_from_env(world: int, moe_dispatch: str = "einsum", pipe: int = 1):
+def mesh_from_env(world: int, moe_dispatch: str = "einsum", pipe: int = 1,
+                  base=None):
     """The ``MeshConfig`` of ``TPUFW_MESH_{DATA,FSDP,EXPERT,SEQUENCE,
-    TENSOR,DCN_DATA}`` (``tpufw``'s defaults: every device on ``fsdp``)
+    TENSOR,DCN_DATA}`` over ``base``'s sizes (a YAML run config's mesh;
+    default ``tpufw``'s defaults: every device on ``fsdp``)
     with ``pipe`` pipeline stages (the pipeline workload's
     ``TPUFW_PIPE_STAGES``), checked against a ``world``-rank gang, axes in
     ``tpufw``'s order. ``pipe`` with ``sequence`` above 1 raises
@@ -96,14 +89,15 @@ def mesh_from_env(world: int, moe_dispatch: str = "einsum", pipe: int = 1):
     from tpufw_torch.mesh import MeshConfig, mesh_shape
     from tpufw_torch.mesh.mesh import refuse_pipe_with_sequence
 
+    base = base or MeshConfig()
     cfg = MeshConfig(
-        data=env_int("mesh_data", 1),
+        data=env_int("mesh_data", base.data),
         pipe=pipe,
-        fsdp=env_int("mesh_fsdp", -1),
-        expert=env_int("mesh_expert", 1),
-        sequence=env_int("mesh_sequence", 1),
-        tensor=env_int("mesh_tensor", 1),
-        dcn_data=env_int("mesh_dcn_data", 1),
+        fsdp=env_int("mesh_fsdp", base.fsdp),
+        expert=env_int("mesh_expert", base.expert),
+        sequence=env_int("mesh_sequence", base.sequence),
+        tensor=env_int("mesh_tensor", base.tensor),
+        dcn_data=env_int("mesh_dcn_data", base.dcn_data),
     )
     refuse_pipe_with_sequence(pipe, cfg.sequence)
     expert = cfg.slice_sizes(world)["expert"]

@@ -88,9 +88,14 @@ Telemetry (``tpufw``'s knobs and files): ``TPUFW_TELEMETRY_DIR``
 ``TPUFW_PERF_OBS``; ``TPUFW_COMPILE_CACHE_DIR`` builds (and reuses) the
 CUDA kernels in a per-machine subdirectory of that directory.
 
-Not ported yet, and refused with ``NotImplementedError`` when set to
-anything but their defaults: ``TPUFW_CONFIG`` and ``TPUFW_AUTOTUNE``
-(ROADMAP.md Queue 1 item 13c).
+Run config and tuning (``tpufw``'s knobs): ``TPUFW_CONFIG`` (a YAML of
+record, ``configs.loader``, e.g. ``deploy/configs/bench-v5e1.yaml``: its
+model preset and overrides, trainer and mesh sections are the base that
+every ``TPUFW_*`` knob above overrides); ``TPUFW_AUTOTUNE`` (``off``,
+``cached`` or ``search``: ``tpufw_torch.tune`` before the first step),
+``TPUFW_AUTOTUNE_BUDGET_S`` (120) and ``TPUFW_AUTOTUNE_STEPS`` (3), the
+winners kept under ``TPUFW_TUNE_CACHE_DIR``; ``TPUFW_FLASH_BQ`` /
+``TPUFW_FLASH_BKV`` pick the flash kernels' tile build (``ops.flash``).
 """
 
 from __future__ import annotations
@@ -106,48 +111,60 @@ from tpufw_torch.workloads.env import (
     env_opt_int,
     env_str,
     mesh_from_env,
-    refuse_unported,
 )
 
 _T0 = time.time()
 
 
-# Knobs of ``tpufw``'s train workload that the port does not honour yet:
-# (knob, what it turns on, ROADMAP.md Queue 1 item, its default). A knob
-# set to its default changes nothing there, so it passes here.
-_UNPORTED_KNOBS = (
-    ("config", "the YAML run config", "13", ""),
-    ("autotune", "MFU autotuning", "13", "off"),
-)
+def load_config_env():
+    """The ``RunConfig`` of ``TPUFW_CONFIG`` (None when unset), refusing a
+    vision preset as ``tpufw``'s workloads do."""
+    from tpufw_torch.train import TrainerConfig
+
+    path = env_str("config", "")
+    if not path:
+        return None
+    from tpufw_torch.configs.loader import load_run_config
+
+    run = load_run_config(path)
+    if not isinstance(run.trainer, TrainerConfig):
+        raise ValueError(
+            f"{path}: preset {run.model_preset!r} is not an LM config; use "
+            "tpufw_torch.workloads.train_resnet for vision runs")
+    return run
 
 
-def _refuse_unported_knobs() -> None:
-    """Raise for each ``tpufw`` train knob the port would otherwise
-    ignore: set to anything but its default, it names its item."""
-    for knob, what, item, default in _UNPORTED_KNOBS:
-        v = env_str(knob, default)
-        if v == default:
-            continue
-        try:
-            if float(v) == float(default):
-                continue
-        except ValueError:
-            pass
-        refuse_unported(knob, what, item)
+def autotune_knobs(base) -> dict:
+    """``TPUFW_AUTOTUNE``, ``_BUDGET_S`` and ``_STEPS`` over ``base``'s
+    (a TrainerConfig), the mode checked."""
+    knobs = dict(
+        autotune=env_str("autotune", base.autotune),
+        autotune_budget_s=env_float("autotune_budget_s",
+                                    base.autotune_budget_s),
+        autotune_steps=env_int("autotune_steps", base.autotune_steps),
+    )
+    if knobs["autotune"] not in ("off", "cached", "search"):
+        raise ValueError(
+            f"TPUFW_AUTOTUNE={knobs['autotune']!r}: expected "
+            "off | cached | search")
+    return knobs
 
 
 def build_trainer(cluster=None):
-    """(trainer, model_cfg) from the TPUFW_* environment, on ``cluster``'s
-    local device (default: the resolved cluster environment) and sharded
-    over the process group's mesh when one is initialized."""
+    """(trainer, model_cfg) from the TPUFW_* environment over the YAML of
+    ``TPUFW_CONFIG`` when set, on ``cluster``'s local device (default: the
+    resolved cluster environment) and sharded over the process group's
+    mesh when one is initialized."""
     from tpufw_torch.cluster import local_device, resolve_cluster_env
     from tpufw_torch.configs import BENCH_CONFIG_NAME, resolve_model_preset
     from tpufw_torch.configs.presets import TRAIN_SLICES
     from tpufw_torch.train import Trainer, TrainerConfig, sharding
 
-    _refuse_unported_knobs()
-    name = env_str("model", BENCH_CONFIG_NAME)
-    model_cfg = resolve_model_preset(name)
+    run = load_config_env()
+    name = env_str("model", run.model_preset if run else BENCH_CONFIG_NAME)
+    # The YAML's own preset keeps its model.overrides.
+    model_cfg = (run.model_cfg if run and name == run.model_preset
+                 else resolve_model_preset(name))
     backend = env_str("attention", "")
     if backend:
         model_cfg = dataclasses.replace(model_cfg, attention_backend=backend)
@@ -157,7 +174,8 @@ def build_trainer(cluster=None):
     if moe_dispatch and hasattr(model_cfg, "moe_dispatch"):
         model_cfg = dataclasses.replace(model_cfg, moe_dispatch=moe_dispatch)
     mesh_cfg = mesh_from_env(sharding.world_size(),
-                             getattr(model_cfg, "moe_dispatch", "einsum"))
+                             getattr(model_cfg, "moe_dispatch", "einsum"),
+                             base=run.mesh if run else None)
     # LoRA: TPUFW_LORA_RANK > 0 adds adapters and freezes the base (with
     # TPUFW_INIT_FROM, the base comes from bare params).
     lora_rank = env_int("lora_rank", getattr(model_cfg, "lora_rank", 0))
@@ -173,40 +191,51 @@ def build_trainer(cluster=None):
                                      model_cfg.lora_alpha):
         model_cfg = dataclasses.replace(model_cfg, lora_rank=lora_rank,
                                         lora_alpha=lora_alpha)
-    base = TrainerConfig()
-    # A train slice's own shape and schedule are the defaults.
-    dflt = (TRAIN_SLICES[name]()[1] if name in TRAIN_SLICES else
-            TrainerConfig(batch_size=8, seq_len=model_cfg.max_seq_len,
-                          total_steps=100, warmup_steps=10,
-                          loss_chunk_size=512))
+    if run:
+        base = run.trainer
+    else:
+        # A train slice's own shape and schedule are the defaults.
+        dflt = (TRAIN_SLICES[name]()[1] if name in TRAIN_SLICES else
+                TrainerConfig(batch_size=8, seq_len=model_cfg.max_seq_len,
+                              total_steps=100, warmup_steps=10,
+                              loss_chunk_size=512))
+        base = TrainerConfig(
+            batch_size=dflt.batch_size, seq_len=dflt.seq_len,
+            total_steps=dflt.total_steps, warmup_steps=dflt.warmup_steps,
+            loss_chunk_size=dflt.loss_chunk_size, log_every=1,
+            checkpoint_every=100)
     trainer_cfg = TrainerConfig(
-        batch_size=env_int("batch_size", dflt.batch_size),
-        seq_len=env_int("seq_len", dflt.seq_len),
-        total_steps=env_int("total_steps", dflt.total_steps),
-        lr=env_float("lr", 3e-4),
-        warmup_steps=env_int("warmup_steps", dflt.warmup_steps),
-        log_every=env_int("log_every", 1),
+        batch_size=env_int("batch_size", base.batch_size),
+        seq_len=env_int("seq_len", base.seq_len),
+        total_steps=env_int("total_steps", base.total_steps),
+        lr=env_float("lr", base.lr),
+        warmup_steps=env_int("warmup_steps", base.warmup_steps),
+        log_every=env_int("log_every", base.log_every),
         loss_chunk_size=env_int("loss_chunk_size",
-                                dflt.loss_chunk_size or 0) or None,
-        loss_chunk_dtype=env_str("loss_chunk_dtype", "bfloat16"),
-        grad_accum=env_int("grad_accum", 1),
-        eval_every=env_int("eval_every", 0),
-        eval_batches=env_int("eval_batches", 8),
-        adam_mu_dtype=env_str("adam_mu_dtype", "") or None,
-        sync_every=env_int("sync_every", 1),
-        checkpoint_dir=env_str("checkpoint_dir", "") or None,
-        checkpoint_every=env_int("checkpoint_every", 100),
+                                base.loss_chunk_size or 0) or None,
+        loss_chunk_dtype=env_str("loss_chunk_dtype", base.loss_chunk_dtype),
+        grad_accum=env_int("grad_accum", base.grad_accum),
+        eval_every=env_int("eval_every", base.eval_every),
+        eval_batches=env_int("eval_batches", base.eval_batches),
+        adam_mu_dtype=env_str("adam_mu_dtype",
+                              base.adam_mu_dtype or "") or None,
+        sync_every=env_int("sync_every", base.sync_every),
+        checkpoint_dir=env_str("checkpoint_dir",
+                               base.checkpoint_dir or "") or None,
+        checkpoint_every=env_int("checkpoint_every", base.checkpoint_every),
         handle_preemption=env_bool("handle_preemption",
                                    base.handle_preemption),
         preemption_sync_every=env_int("preemption_sync_every",
                                       base.preemption_sync_every),
-        profile_dir=env_str("profile_dir", "") or None,
+        profile_dir=env_str("profile_dir", base.profile_dir or "") or None,
         profile_start=env_int("profile_start", base.profile_start),
         profile_stop=env_int("profile_stop", base.profile_stop),
-        telemetry_dir=env_str("telemetry_dir", "") or None,
+        telemetry_dir=env_str("telemetry_dir",
+                              base.telemetry_dir or "") or None,
         metrics_port=env_opt_int("metrics_port", base.metrics_port),
         straggler_factor=env_float("straggler_factor",
                                    base.straggler_factor),
+        **autotune_knobs(base),
     )
     device = local_device(cluster or resolve_cluster_env(),
                           env_str("device", "cuda"))

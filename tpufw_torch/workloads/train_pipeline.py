@@ -5,7 +5,8 @@ a gang of ``data x pipe`` processes, one per GPU.
 
 Knobs (``tpufw``'s names):
 
-  TPUFW_PIPE_STAGES (required, >= 2)  pipeline stages (the mesh's pipe)
+  TPUFW_PIPE_STAGES (required, >= 2,  pipeline stages (the mesh's pipe)
+  unless the YAML has a pipeline)
   TPUFW_PIPE_MICROBATCHES             default 2 x stages
   TPUFW_PIPELINE_SCHEDULE             gpipe (default) | 1f1b |
                                       interleaved | zb1
@@ -24,7 +25,11 @@ Knobs (``tpufw``'s names):
   ``train_llama`` (TPUFW_TELEMETRY_DIR, TPUFW_METRICS_PORT,
   TPUFW_STRAGGLER_FACTOR, TPUFW_PROFILE_DIR / _START / _STOP,
   TPUFW_PROFILE_STEPS, TPUFW_HANG_TIMEOUT_S, ...) and
-  TPUFW_COMPILE_CACHE_DIR.
+  TPUFW_COMPILE_CACHE_DIR; TPUFW_CONFIG (a YAML of record: its model,
+  trainer, mesh and pipeline sections are the base the knobs above
+  override) and TPUFW_AUTOTUNE / _BUDGET_S / _STEPS (the schedule search
+  of ``tpufw_torch.tune``), as ``train_llama`` reads them. ``tpufw``'s
+  pipeline workload reads neither (it leaves them to ``train_llama``).
 
 A gang (``tpufw``'s cluster environment, as for ``train_llama``) lays its
 ranks out over ``TPUFW_MESH_DATA`` x pipe x ``TPUFW_MESH_FSDP`` (-1, the
@@ -45,8 +50,7 @@ experts it does not divide (``tpufw``'s checks), and an expert axis under
 the manual schedules; TPUFW_MESH_SEQUENCE above 1 (``tpufw``'s pipeline
 needs sequence 1);
 TPUFW_MOE_DISPATCH other than ``einsum`` (the pipelined MoE routes with
-the capacity router, which ``tpufw`` falls back to silently); and the
-knobs ``train_llama`` refuses (the YAML config and autotune: item 13c).
+the capacity router, which ``tpufw`` falls back to silently).
 """
 
 from __future__ import annotations
@@ -75,68 +79,88 @@ def build_trainer(cluster=None):
     from tpufw_torch.configs import BENCH_CONFIG_NAME, resolve_model_preset
     from tpufw_torch.parallel.pipeline import PipelineConfig
     from tpufw_torch.train import PipelineTrainer, TrainerConfig, sharding
-    from tpufw_torch.workloads.train_llama import _refuse_unported_knobs
+    from tpufw_torch.workloads.train_llama import (
+        autotune_knobs,
+        load_config_env,
+    )
 
-    stages = env_int("pipe_stages", 0)
+    run = load_config_env()
+    yaml_pipe = run.pipeline if run else None
+    stages = env_int("pipe_stages", yaml_pipe.n_stages if yaml_pipe else 0)
     if stages < 2:
         raise ValueError(
             f"TPUFW_PIPE_STAGES={stages}: pipeline training needs >= 2 "
             "stages (use tpufw_torch.workloads.train_llama for pipe=1)"
         )
-    _refuse_unported_knobs()
     dispatch = env_str("moe_dispatch", "")
     if dispatch not in ("", "einsum"):
         raise NotImplementedError(
             f"TPUFW_MOE_DISPATCH={dispatch!r}: pipelined MoE stages route "
             "with the capacity (einsum) dispatch only")
-    model_cfg = resolve_model_preset(env_str("model", BENCH_CONFIG_NAME))
+    name = env_str("model", run.model_preset if run else BENCH_CONFIG_NAME)
+    # The YAML's own preset keeps its model.overrides.
+    model_cfg = (run.model_cfg if run and name == run.model_preset
+                 else resolve_model_preset(name))
     backend = env_str("attention", "")
     if backend:
         model_cfg = dataclasses.replace(model_cfg, attention_backend=backend)
     pipe = PipelineConfig(
         n_stages=stages,
-        n_microbatches=env_int("pipe_microbatches", 2 * stages),
+        n_microbatches=env_int(
+            "pipe_microbatches",
+            yaml_pipe.n_microbatches if yaml_pipe else 2 * stages),
         # TPUFW_PIPELINE_SCHEDULE wins over the older spelling.
         schedule=env_str("pipeline_schedule", "")
-        or env_str("pipe_schedule", "gpipe"),
-        n_virtual=env_int("pipeline_vstages", 1),
+        or env_str("pipe_schedule",
+                   yaml_pipe.schedule if yaml_pipe else "gpipe"),
+        n_virtual=env_int("pipeline_vstages",
+                          yaml_pipe.n_virtual if yaml_pipe else 1),
     )
-    base = TrainerConfig()
+    base = run.trainer if run else TrainerConfig(
+        batch_size=8, seq_len=model_cfg.max_seq_len, checkpoint_every=100)
     trainer_cfg = TrainerConfig(
-        batch_size=env_int("batch_size", 8),
-        seq_len=env_int("seq_len", model_cfg.max_seq_len),
-        total_steps=env_int("total_steps", 100),
-        lr=env_float("lr", 3e-4),
-        warmup_steps=env_int("warmup_steps", 10),
-        log_every=env_int("log_every", 10),
-        loss_chunk_size=env_int("loss_chunk_size", 0) or None,
-        loss_chunk_dtype=env_str("loss_chunk_dtype", "bfloat16"),
+        batch_size=env_int("batch_size", base.batch_size),
+        seq_len=env_int("seq_len", base.seq_len),
+        total_steps=env_int("total_steps", base.total_steps),
+        lr=env_float("lr", base.lr),
+        warmup_steps=env_int("warmup_steps", base.warmup_steps),
+        log_every=env_int("log_every", base.log_every),
+        loss_chunk_size=env_int("loss_chunk_size",
+                                base.loss_chunk_size or 0) or None,
+        loss_chunk_dtype=env_str("loss_chunk_dtype", base.loss_chunk_dtype),
         # Read so that the trainer's refusal fires on a set knob.
-        grad_accum=env_int("grad_accum", 1),
-        eval_every=env_int("eval_every", 0),
-        eval_batches=env_int("eval_batches", 8),
-        adam_mu_dtype=env_str("adam_mu_dtype", "") or None,
-        sync_every=env_int("sync_every", 1),
-        checkpoint_dir=env_str("checkpoint_dir", "") or None,
-        checkpoint_every=env_int("checkpoint_every", 100),
+        grad_accum=env_int("grad_accum", base.grad_accum),
+        eval_every=env_int("eval_every", base.eval_every),
+        eval_batches=env_int("eval_batches", base.eval_batches),
+        adam_mu_dtype=env_str("adam_mu_dtype",
+                              base.adam_mu_dtype or "") or None,
+        sync_every=env_int("sync_every", base.sync_every),
+        checkpoint_dir=env_str("checkpoint_dir",
+                               base.checkpoint_dir or "") or None,
+        checkpoint_every=env_int("checkpoint_every", base.checkpoint_every),
         handle_preemption=env_bool("handle_preemption",
                                    base.handle_preemption),
         preemption_sync_every=env_int("preemption_sync_every",
                                       base.preemption_sync_every),
-        profile_dir=env_str("profile_dir", "") or None,
+        profile_dir=env_str("profile_dir", base.profile_dir or "") or None,
         profile_start=env_int("profile_start", base.profile_start),
         profile_stop=env_int("profile_stop", base.profile_stop),
-        telemetry_dir=env_str("telemetry_dir", "") or None,
+        telemetry_dir=env_str("telemetry_dir",
+                              base.telemetry_dir or "") or None,
         metrics_port=env_opt_int("metrics_port", base.metrics_port),
         straggler_factor=env_float("straggler_factor",
                                    base.straggler_factor),
+        **autotune_knobs(base),
     )
     # One process stands for the whole pipe and every tensor and expert
     # shard; a gang's ranks are devices.
+    base_mesh = run.mesh if run else None
     world = (sharding.world_size() if sharding.active() else
-             stages * max(env_int("mesh_tensor", 1), 1)
-             * max(env_int("mesh_expert", 1), 1))
-    mesh_cfg = mesh_from_env(world, pipe=stages)
+             stages * max(env_int("mesh_tensor", getattr(
+                 base_mesh, "tensor", 1)), 1)
+             * max(env_int("mesh_expert", getattr(base_mesh, "expert", 1)),
+                   1))
+    mesh_cfg = mesh_from_env(world, pipe=stages, base=base_mesh)
     device = local_device(cluster or resolve_cluster_env(),
                           env_str("device", "cuda"))
     trainer = PipelineTrainer(model_cfg, pipe, trainer_cfg, mesh_cfg,
