@@ -490,6 +490,21 @@ Phases, each fatal on failure:
     checked against their plain versions at a shard's ring-chunk and
     Ulysses shapes. A ``seq_tensor_summary`` line per case (step ms, peak
     GB, ``card_state``).
+22. The memory estimate, the tuner, the YAML run config and the other
+    tile builds on their train paths (``autotune_phase``; see the
+    comment above it).
+23. The smoke and validate workloads and the port's lint
+    (``workload_lint_phase``; no flash kernel): 23a ``python -m
+    tpufw_torch.workloads.smoke`` as a child at its defaults
+    (SMOKE_DIM, SMOKE_REPS), held to ``SMOKE OK``, a CUDA device line and
+    a finite checksum, its effective TFLOP/s printed; 23b
+    ``validate.run_checks()`` in this process, held to the device nodes,
+    ``libcuda.so.1`` and torch's device (the allocation env is printed,
+    not held: the card's machine runs outside Kubernetes); 23c ``python
+    -m tpufw_torch.analysis --layer python tpufw_torch`` under the card's
+    Python, held to exit 0 within LINT_TIMEOUT_S, and a child that
+    imports the lint's CLI and loads neither torch nor JAX. A
+    ``smoke_summary``, ``validate_summary`` and ``lint_summary`` line.
 
 It ends with a ``{"kernels": [...]}`` line (nine kernels: three per head
 dim; the head-dim-128 ones also carry ``launches_resume_600m``, phase
@@ -7576,6 +7591,7 @@ def tune_run(torch, workdir: str, mode: str, steps: int) -> dict:
     from tpufw_torch.tune import runner, space
     from tpufw_torch.workloads import train_llama
 
+    tel_dir = os.path.join(workdir, f"tel_{mode}")
     env = {"TPUFW_MODEL": "llama3_600m_bench",
            "TPUFW_BATCH_SIZE": str(RESUME_BATCH),
            "TPUFW_SEQ_LEN": str(RESUME_SEQ), "TPUFW_TOTAL_STEPS": str(steps),
@@ -7583,7 +7599,7 @@ def tune_run(torch, workdir: str, mode: str, steps: int) -> dict:
            "TPUFW_AUTOTUNE": mode, "TPUFW_AUTOTUNE_STEPS": str(TUNE_STEPS),
            "TPUFW_AUTOTUNE_BUDGET_S": str(TUNE_BUDGET_S),
            "TPUFW_TUNE_CACHE_DIR": os.path.join(workdir, "tune"),
-           "TPUFW_TELEMETRY_DIR": os.path.join(workdir, f"tel_{mode}")}
+           "TPUFW_TELEMETRY_DIR": tel_dir}
     small = space.SearchSpace(remat_policies=TUNE_POLICIES, grad_accums=(1,),
                               loss_chunk_sizes=(512,),
                               flash_blocks=(None, (128, 64)),
@@ -7614,7 +7630,7 @@ def tune_run(torch, workdir: str, mode: str, steps: int) -> dict:
         finally:
             space.DEFAULT_SPACE, runner.apply_autotune = default_space, tuner
     events = [json.loads(ln) for ln in open(os.path.join(
-        env["TPUFW_TELEMETRY_DIR"], "events.jsonl"))]
+        tel_dir, "events.jsonl"))]
     out = {"history": history, "tune": trainer.last_tune,
            "tune_launches": {k: v for k, v in counts.get("tune", {}).items()
                              if v},
@@ -7790,6 +7806,109 @@ def autotune_phase(torch, kind, smi) -> dict:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return launches
+
+
+# Phase 23: the smoke workload at its defaults, and the limit of the
+# lint's run on the card.
+SMOKE_DIM, SMOKE_REPS = 4096, 20
+SMOKE_TIMEOUT_S = 300
+LINT_TIMEOUT_S = 180
+VALIDATE_GATES = ("NVIDIA device nodes mounted", "libcuda.so.1 loadable",
+                  "torch enumerates CUDA devices")
+
+
+def _run_child(args, timeout):
+    """``python args`` from the checkout's root with no TPUFW_* knob set:
+    (completed process, wall seconds)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUFW_")}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    return res, time.perf_counter() - t0
+
+
+def smoke_check(kind, smi) -> None:
+    """23a: the smoke workload as a user runs it, at its defaults."""
+    import re
+
+    res, wall = _run_child(["-m", "tpufw_torch.workloads.smoke"],
+                       SMOKE_TIMEOUT_S)
+    out = res.stdout
+    mm = re.search(r"matmul\[(\d+)x\d+\] checksum=(\S+) "
+                   r"time=(\S+)ms/iter \((\S+) effective TFLOP/s\)", out)
+    devs = re.search(r"torch\.cuda devices -> (.*) count=(\d+)", out)
+    summary = {"smoke_summary": "tpufw_torch.workloads.smoke",
+               "rc": res.returncode, "wall_s": wall,
+               "dim": int(mm.group(1)) if mm else None, "reps": SMOKE_REPS,
+               "checksum": float(mm.group(2)) if mm else None,
+               "ms_per_iter": float(mm.group(3)) if mm else None,
+               "effective_tflops": float(mm.group(4)) if mm else None,
+               "devices": devs.group(1) if devs else None,
+               "device_count": int(devs.group(2)) if devs else None,
+               "device": kind, "nvidia_smi": smi}
+    emit(summary)
+    if res.returncode != 0 or "SMOKE OK" not in out:
+        raise AssertionError(
+            f"23a smoke rc {res.returncode}: {(out + res.stderr)[-2000:]}")
+    if not devs or int(devs.group(2)) < 1 or kind not in devs.group(1) \
+            or "platform: cuda" not in out:
+        raise AssertionError(f"23a smoke: no CUDA device line in {out!r}")
+    if not mm or int(mm.group(1)) != SMOKE_DIM \
+            or not math.isfinite(float(mm.group(2))) \
+            or not float(mm.group(4)) > 0:
+        raise AssertionError(f"23a smoke: bad matmul line in {out!r}")
+
+
+def validate_check(kind, smi) -> None:
+    """23b: the validate ladder in this process. The allocation env is
+    printed, not held: outside Kubernetes nothing injects it."""
+    from tpufw_torch.workloads import validate
+
+    results = dict(validate.run_checks())
+    emit({"validate_summary": "tpufw_torch.workloads.validate",
+          "checks": results,
+          "NVIDIA_VISIBLE_DEVICES": os.environ.get("NVIDIA_VISIBLE_DEVICES"),
+          "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES"),
+          "nodes": sorted(glob.glob("/dev/nvidia*")),
+          "device": kind, "nvidia_smi": smi})
+    failed = [g for g in VALIDATE_GATES if not results.get(g)]
+    if failed:
+        raise AssertionError(f"23b validate failed {failed}: {results}")
+
+
+def lint_check(kind, smi) -> None:
+    """23c: the port's lint over the package under the card's Python, and
+    the lint's CLI imported in a child without torch or JAX."""
+    res, lint_s = _run_child(["-m", "tpufw_torch.analysis", "--layer",
+                              "python", "tpufw_torch"], LINT_TIMEOUT_S)
+    probe, _ = _run_child(["-c", (
+        "import sys\n"
+        "import tpufw_torch.analysis.__main__\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'flax', 'tpufw')))\n")], 60)
+    lines = res.stdout.strip().splitlines()
+    emit({"lint_summary": "python -m tpufw_torch.analysis --layer python "
+                          "tpufw_torch",
+          "rc": res.returncode, "seconds": lint_s,
+          "last_line": lines[-1] if lines else "",
+          "findings": len(lines) - 1 if res.returncode == 1 else 0,
+          "python": sys.version.split()[0],
+          "import_probe_rc": probe.returncode,
+          "import_probe_loaded": probe.stdout.strip(),
+          "device": kind, "nvidia_smi": smi})
+    if res.returncode != 0:
+        raise AssertionError(
+            f"23c lint rc {res.returncode}: {(res.stdout + res.stderr)[-3000:]}")
+    if probe.returncode != 0 or probe.stdout.strip() != "[]":
+        raise AssertionError(
+            f"23c: the lint's CLI loaded {probe.stdout!r} {probe.stderr!r}")
+
+
+def workload_lint_phase(kind, smi) -> None:
+    """Phase 23: 23a-23c, each timed into PHASE_SECONDS."""
+    _timed("23a", lambda: smoke_check(kind, smi))
+    _timed("23b", lambda: validate_check(kind, smi))
+    _timed("23c", lambda: lint_check(kind, smi))
 
 
 def main() -> int:
@@ -8174,6 +8293,15 @@ def main() -> int:
     try:
         tile_launches = _timed("22", lambda: autotune_phase(torch, kind, smi))
     except AssertionError as e:
+        return fail(str(e))
+
+    # 23. The smoke and validate workloads and the port's lint, with phase
+    # 22's models freed (the smoke's child needs the card's memory).
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        _timed("23", lambda: workload_lint_phase(kind, smi))
+    except (AssertionError, subprocess.TimeoutExpired) as e:
         return fail(str(e))
 
     tpu_lines = {"flash_fwd": "tpufw/ops/flash.py:462",

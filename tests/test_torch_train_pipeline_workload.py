@@ -174,6 +174,27 @@ def test_config_yaml_is_the_base_of_the_knobs(monkeypatch, tmp_path):
         tw.build_trainer()
 
 
+
+def test_attention_knob_is_not_read(monkeypatch):
+    """TPUFW_ATTENTION is ``train_llama``'s knob: ``tpufw``'s pipeline
+    workload never reads it, so the preset's backend stands in both
+    (``flash`` for ``llama3_600m_bench``). The trainers are stubbed: only
+    the model config each ``build_trainer`` hands them is compared."""
+    import tpufw.train
+    import tpufw_torch.train
+
+    def stub(model_cfg, *args, **kwargs):
+        return model_cfg
+
+    monkeypatch.setattr(tpufw.train, "PipelineTrainer", stub)
+    monkeypatch.setattr(tpufw_torch.train, "PipelineTrainer", stub)
+    workload_env(monkeypatch, {"DEVICE": "cpu"}, ATTENTION="xla",
+                 PIPE_STAGES=2)
+    _, mine = tw.build_trainer()
+    _, ref = jw.build_trainer()
+    assert mine.attention_backend == ref.attention_backend == "flash"
+
+
 TELEMETRY_FIELDS = ("profile_dir", "profile_start", "profile_stop",
                     "telemetry_dir", "metrics_port", "straggler_factor")
 

@@ -31,6 +31,13 @@ hostname hash, so a restarted pod rejoins with the same rank.
 
 from __future__ import annotations
 
+# tpulint: disable-file=TPU004 — this module reads through an
+# injectable ``env: Mapping`` (tests and gang workers pass dicts), and
+# its resolution order mixes the TPUFW_* escape hatches with JobSet, GKE
+# and per-GPU launcher variables (LOCAL_RANK) the typed helpers don't
+# model. The knobs are cataloged in docs/torch/ENV.md; the helper
+# round-trip stops at this process-bootstrap boundary.
+
 import dataclasses
 import os
 import time

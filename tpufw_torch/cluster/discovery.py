@@ -20,8 +20,11 @@ Ports default to the replicas' ``TPUFW_SERVE_PEER_PORT`` contract.
 
 from __future__ import annotations
 
-# This module reads through an injectable ``env: Mapping`` (tests pass
-# dicts) rather than the typed os.environ helpers.
+# tpulint: disable-file=TPU004 — like bootstrap.py, this module reads
+# through an injectable ``env: Mapping`` (the router's tests pass dicts,
+# and a JobSet's variables sit beside the TPUFW_* ones), which the typed
+# helpers over os.environ cannot take. Its knobs are cataloged in
+# docs/torch/ENV.md.
 
 import os
 from typing import List, Mapping, Optional, Tuple

@@ -1166,8 +1166,10 @@ class _SlotScheduler:
     def _allocator(self):
         """The current pool's page allocator, or None (contiguous mode,
         or no pool yet). Scrapes read it from other threads while the
-        worker may swap the pool, so the pool is read once."""
-        pool = self._pool
+        worker may swap the pool: under the lock, as ``_build_pool``
+        retires a pool."""
+        with self._cv:
+            pool = self._pool
         return pool.allocator if self.page and pool is not None else None
 
     @property
@@ -1184,14 +1186,19 @@ class _SlotScheduler:
 
     @property
     def peak_pages_in_use(self) -> int:
-        """Most arena pages in use at once, over every pool so far."""
-        a = self._allocator()
-        return max(self._peak_pages, 0 if a is None else a.peak_in_use)
+        """Most arena pages in use at once, over every pool so far. The
+        retired pools' peak and the current pool are read together under
+        the lock, so a pool swap in between cannot drop the old pool's
+        peak from the answer."""
+        with self._cv:
+            a = self._allocator()
+            return max(self._peak_pages, 0 if a is None else a.peak_in_use)
 
     @property
     def pool(self):
         """The current pool (None before the first admission)."""
-        return self._pool
+        with self._cv:
+            return self._pool
 
     def submit(self, prompts, max_new: int, sampling=None):
         pend = _Pending(prompts, max_new, sampling)
@@ -1321,12 +1328,15 @@ class _SlotScheduler:
 
     def _build_pool(self, key) -> None:
         cache_len = key[0]
-        if self.page and self._pool is not None:
-            self._peak_pages = max(
-                self._peak_pages, self._pool.allocator.peak_in_use
-            )
-        # Drop the old pools first: their memory serves the new ones.
-        self._pool = None
+        # Fold the old pool's peak and drop the pool in one step under
+        # the lock: a scrape (peak_pages_in_use) sees either both before
+        # or both after. The old pools' memory serves the new ones.
+        with self._cv:
+            if self.page and self._pool is not None:
+                self._peak_pages = max(
+                    self._peak_pages, self._pool.allocator.peak_in_use
+                )
+            self._pool = None
         self._draft_pool = None
         self._ema = None
         with self._tracer.span("serve_pool_build", cache_len=cache_len,

@@ -14,7 +14,7 @@ Knobs (``tpufw``'s names):
   TPUFW_PIPE_SCHEDULE                 the older spelling of the schedule;
                                       TPUFW_PIPELINE_SCHEDULE wins
   TPUFW_MODEL (default llama3_600m_bench; any preset of
-  ``configs.resolve_model_preset``), TPUFW_ATTENTION, TPUFW_BATCH_SIZE
+  ``configs.resolve_model_preset``), TPUFW_BATCH_SIZE
   (the global batch), TPUFW_SEQ_LEN, TPUFW_TOTAL_STEPS, TPUFW_LR,
   TPUFW_WARMUP_STEPS, TPUFW_LOG_EVERY, TPUFW_LOSS_CHUNK_SIZE (0 = full
   logits), TPUFW_LOSS_CHUNK_DTYPE, TPUFW_ADAM_MU_DTYPE, TPUFW_SYNC_EVERY,
@@ -51,11 +51,13 @@ the manual schedules; TPUFW_MESH_SEQUENCE above 1 (``tpufw``'s pipeline
 needs sequence 1);
 TPUFW_MOE_DISPATCH other than ``einsum`` (the pipelined MoE routes with
 the capacity router, which ``tpufw`` falls back to silently).
+
+Not read, as in ``tpufw``: TPUFW_ATTENTION (``train_llama``'s knob); the
+preset's or the YAML's ``attention_backend`` stands.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import time
 
@@ -101,9 +103,6 @@ def build_trainer(cluster=None):
     # The YAML's own preset keeps its model.overrides.
     model_cfg = (run.model_cfg if run and name == run.model_preset
                  else resolve_model_preset(name))
-    backend = env_str("attention", "")
-    if backend:
-        model_cfg = dataclasses.replace(model_cfg, attention_backend=backend)
     pipe = PipelineConfig(
         n_stages=stages,
         n_microbatches=env_int(
