@@ -457,10 +457,11 @@ Phases, each fatal on failure:
     ``flash_costs`` of the step's launches; the ``torch.profiler`` trace
     holds the d128 flash kernels by name as often as the launch counts of
     the two profiled steps (TEL_STEP_LAUNCHES a step), with its busy, idle
-    and flash shares printed. 20b: the same run with telemetry off, the
-    runs in TEL_ORDER (on/off/off/on, thrice): the telemetry runs' median
-    step (TEL_MEDIAN_STEPS of each run, pooled: neither the counted step
-    nor the profiled ones) within TEL_OVERHEAD_TOL of the others', each
+    and flash shares printed. 20b: the same run with telemetry off,
+    TEL_RUNS runs of each kind, the two kinds at once in processes of
+    their own taking turns step by step: the telemetry runs' median step
+    (TEL_MEDIAN_STEPS of each run, pooled: neither the counted step nor
+    the profiled ones) within TEL_OVERHEAD_TOL of the others', each
     telemetry run's counted step out of its Meter's histogram, each run's
     launches TEL_STEP_LAUNCHES a step. 20c: phase
     6's model behind a server with ``TPUFW_TELEMETRY_DIR``: a
@@ -6780,7 +6781,7 @@ def tensor_pipe_phase(torch, kind, smi) -> dict:
 # build_trainer at phase 7b's shapes (llama3_600m_bench, B=4 x 2048,
 # remat `dots`) for TEL_STEPS steps with TPUFW_TELEMETRY_DIR,
 # TPUFW_PROFILE_DIR, TPUFW_METRICS_PORT=0 and TPUFW_PROFILE_STEPS set;
-# 20b: the same run with telemetry off, in TEL_ORDER with more of each;
+# 20b: the same run with telemetry off, TEL_RUNS of each at once;
 # 20c: phase 6's server model (Llama-3-8B widths at ONLINE_LAYERS layers)
 # behind a server with TPUFW_TELEMETRY_DIR and a /debug/profile capture.
 # 12 steps, not 8: the median of the 9 steps neither counted nor profiled
@@ -6792,14 +6793,19 @@ TEL_PROFILE = (4, 6)
 # runs, each pooled over its runs' steps that are neither counted (index
 # 0) nor profiled.
 TEL_OVERHEAD_TOL = 1.10
-# The runs, in order (the first "on" is 20a, the first "off" 20b). The
-# step is host-bound, and the host drifts from run to run: on H100 80GB
-# HBM3 cards at 700 W one on/off pair's ratio read 0.78-1.12, one
-# on/off/off/on block's 0.90-1.07, and 8 or 12 runs pooled 0.96-1.09
-# (scripts/telemetry_overhead_torch.py, chip_smoke.py), with no sign of a
-# cost in the collector's pauses, threads or the profiler window. Three
-# blocks cancel a linear drift and pool 54 steps a side.
-TEL_ORDER = ("on", "off", "off", "on") * 3
+# Runs a side in turns, after 20a's run alone (the first "off" run is
+# 20b). The step is host-bound and the host's speed drifts within
+# seconds: runs one after another in one process, on/off/off/on thrice,
+# read a pooled ratio of 0.945-1.106 on H100 80GB HBM3 cards at 700 W
+# (chip_smoke.py), while two trainers stepped in turn agreed to
+# 0.991-1.053 over 23 steps each (scripts/telemetry_overhead_torch.py
+# --pairs). So the on and the off runs go at once, each side in a
+# process of its own, and take turns step by step (telemetry_worker):
+# both steps of a turn pair see one host. 20a runs alone, as a user runs
+# it: its spans and goodput would count the turns as idle.
+TEL_RUNS = 6
+# Seconds a side waits for its turn, or the phase for a side's result.
+TEL_TURN_S = 600
 TEL_MEDIAN_STEPS = [i for i in range(1, TEL_STEPS)
                     if not TEL_PROFILE[0] <= i < TEL_PROFILE[1]]
 # The counted step's FLOPs over the model FLOPs of one step
@@ -6865,12 +6871,14 @@ def span_coverage(spans) -> float:
     return busy_us(ops) / (t1 - t0)
 
 
-def telemetry_train(torch, workdir: str, on: bool) -> dict:
+def telemetry_train(torch, workdir: str, on: bool, handoff=None) -> dict:
     """One run of 20a (``on``) or 20b through train_llama's
     ``build_trainer`` and ``Trainer.run`` on TEL_STEPS synthetic batches
     already on the card; the launch counts zeroed just before, read just
-    after, and per step from ``on_metrics``. Returns the history, the
-    launches and, with telemetry, the scrape taken during the run."""
+    after, and per step from ``on_metrics``, which then calls
+    ``handoff()`` where given (the turn of phase 20's other run). Returns
+    the history, the launches and, with telemetry, the scrape taken
+    during the run."""
     import urllib.request
 
     from tpufw_torch.ops import flash
@@ -6905,6 +6913,8 @@ def telemetry_train(torch, workdir: str, on: bool) -> dict:
                 url = f"http://127.0.0.1:{trainer.telemetry.bound_port}/metrics"
                 with urllib.request.urlopen(url, timeout=60) as r:
                     scraped["text"] = r.read().decode()
+            if handoff is not None:
+                handoff()
 
         torch.cuda.synchronize()
         flash.reset_launch_counts()
@@ -7103,58 +7113,142 @@ def telemetry_serve(workdir: str, kind, smi) -> dict:
     return out
 
 
+def telemetry_worker(mode: str, dirs: list, batons: tuple, results,
+                     solo: Optional[str] = None) -> None:
+    """One side of phase 20's train runs (``mode`` "on" or "off"), in a
+    process of its own: a run of ``telemetry_train`` into each of
+    ``dirs``, holding the turn (``batons``: this side's semaphore, then
+    the other's) from each step's sync to the other side's next. With
+    ``solo`` ("on" for 20a) the first run is alone, in that mode: it
+    keeps the turn throughout, so its spans and goodput see no turns, and
+    20a's checks run on it when it is "on". Puts
+    ``(mode, {"solo": row or None, "runs": rows}, checks)`` on
+    ``results``, or ``(mode, None, error)``."""
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mine, other = batons
+
+    def turn() -> None:
+        if not mine.acquire(timeout=TEL_TURN_S):
+            raise AssertionError(f"20 ({mode}): no turn in {TEL_TURN_S} s")
+
+    def handoff() -> None:
+        other.release()
+        turn()
+
+    def row(run: dict) -> dict:
+        return {"step_ms": [1e3 * m.step_time_s for m in run["history"]],
+                "losses": [m.loss for m in run["history"]],
+                "mfu": [m.mfu for m in run["history"]],
+                "launches": run["launches"]}
+
+    out, checks = {"solo": None, "runs": []}, None
+    try:
+        turn()
+        if solo:
+            run = telemetry_train(torch, dirs[0], on=solo == "on")
+            if solo == "on":
+                checks = telemetry_checks(run, dirs[0])
+            out["solo"] = row(run)
+            dirs = dirs[1:]
+        for d in dirs:
+            run = telemetry_train(torch, d, on=mode == "on", handoff=handoff)
+            out["runs"].append(row(run))
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+        results.put((mode, out, checks))
+    except BaseException:  # noqa: BLE001 - the phase reports it
+        results.put((mode, None, traceback.format_exc()))
+    finally:
+        other.release()
+
+
 def telemetry_phase(torch, kind, smi) -> dict:
-    """Phase 20: the train runs in TEL_ORDER (telemetry on, then off,
-    off, on, thrice; 20a's checks on the first), the overhead gate on
-    their pooled medians, then 20c. Returns the d128 launch counts of the
-    first run of each kind."""
+    """Phase 20: 20a's run with telemetry alone and its checks, then
+    TEL_RUNS train runs with telemetry and as many without, the two sides
+    at once in processes of their own taking turns step by step
+    (``telemetry_worker``), the overhead gate on the pooled medians of
+    the turns, then 20c. Returns the d128 launch counts of 20a and of the
+    first run without telemetry."""
+    import multiprocessing
+    import queue
+
     from tpufw_torch.ops import flash
 
     workdir = os.path.join(ROOT, "build-torch", f"phase20-{os.getpid()}")
     os.makedirs(workdir, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    batons = {m: ctx.Semaphore(0) for m in ("on", "off")}
+    results = ctx.Queue()
+    dirs = {m: [os.path.join(workdir, f"{m}{j}") for j in range(TEL_RUNS)]
+            for m in ("on", "off")}
+    dirs["on"].insert(0, os.path.join(workdir, "20a"))
+    for d in dirs["on"] + dirs["off"]:
+        os.makedirs(d, exist_ok=True)
+    procs = [ctx.Process(target=telemetry_worker, args=(
+        m, dirs[m], (batons[m], batons["off" if m == "on" else "on"]),
+        results, "on" if m == "on" else None), daemon=True)
+        for m in ("on", "off")]
     try:
-        runs, dirs = [], []
-        for j, mode in enumerate(TEL_ORDER):
-            dirs.append(os.path.join(workdir, f"run{j}"))
-            os.makedirs(dirs[-1], exist_ok=True)
-            runs.append(telemetry_train(torch, dirs[-1], on=mode == "on"))
-            if j == 0:
-                checks = telemetry_checks(runs[0], dirs[0])
-            gc.collect()
-            torch.cuda.empty_cache()
-        on, off = runs[TEL_ORDER.index("on")], runs[TEL_ORDER.index("off")]
-        steps = {m: [1e3 * r["history"][i].step_time_s
-                     for r, mode in zip(runs, TEL_ORDER) if mode == m
+        for p in procs:
+            p.start()
+        # The "on" side (20a) takes the first turn.
+        batons["on"].release()
+        got, deadline = {}, time.monotonic() + TEL_TURN_S
+        while len(got) < len(procs):
+            try:
+                m, out, info = results.get(timeout=5)
+            except queue.Empty:
+                # A side that died before its result ends the wait.
+                dead = [m for m, p in zip(("on", "off"), procs)
+                        if m not in got and not p.is_alive()]
+                if dead and results.empty() or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"20: no result from {sorted({'on', 'off'} - set(got))}"
+                        f" (exited: {dead})") from None
+                continue
+            if out is None:
+                raise AssertionError(f"20 ({m}): {info}")
+            got[m] = (out, info)
+            deadline = time.monotonic() + TEL_TURN_S
+        for p in procs:
+            p.join(timeout=60)
+        (ons, checks), (offs, _) = got["on"], got["off"]
+        on, off = ons["solo"], offs["runs"][0]
+        runs = [r for pair in zip(ons["runs"], offs["runs"]) for r in pair]
+        order = ["on", "off"] * TEL_RUNS
+        steps = {m: [r["step_ms"][i] for r in got[m][0]["runs"]
                      for i in TEL_MEDIAN_STEPS] for m in ("on", "off")}
         med = {m: statistics.median(v) for m, v in steps.items()}
         ratio = med["on"] / med["off"]
-        hist = on["history"]
         counted_out = all(
             "tpufw_train_step_time_seconds_count %d" % (TEL_STEPS - 1)
             in open(os.path.join(d, "telemetry", "metrics.prom")).read()
-            for d, mode in zip(dirs, TEL_ORDER) if mode == "on")
+            for d in dirs["on"])
         emit({"telemetry_summary": {
             "model": "llama3_600m_bench", "batch_size": RESUME_BATCH,
             "seq_len": RESUME_SEQ, "steps": TEL_STEPS,
             "profile_steps": TEL_PROFILE, "median_steps": TEL_MEDIAN_STEPS,
-            "order": TEL_ORDER,
-            "step_ms": [[1e3 * m.step_time_s for m in r["history"]]
-                        for r in runs],
+            "order": order, "turns": "step", "solo_20a_ms": on["step_ms"],
+            "step_ms": [r["step_ms"] for r in runs],
             "run_median_ms": [statistics.median(
-                1e3 * r["history"][i].step_time_s for i in TEL_MEDIAN_STEPS)
-                for r in runs],
+                r["step_ms"][i] for i in TEL_MEDIAN_STEPS) for r in runs],
             "median_ms_on": med["on"], "median_ms_off": med["off"],
             "on_over_off": ratio, "tol": TEL_OVERHEAD_TOL,
-            "counted_step_ms": 1e3 * hist[0].step_time_s,
+            "counted_step_ms": on["step_ms"][0],
             "counted_step_out_of_meter": counted_out,
-            "losses_on": [m.loss for m in hist],
-            "losses_off": [m.loss for m in off["history"]],
-            "losses_equal": all([m.loss for m in r["history"]] == [
-                m.loss for m in hist] for r in runs),
+            "losses_on": on["losses"], "losses_off": off["losses"],
+            "losses_equal": all(r["losses"] == on["losses"] for r in runs),
             "counted_over_model_flops": checks["counted_over_model_flops"],
             "mfu_counted_program": checks["program"]["mfu"],
             "mfu_meter_median": statistics.median(
-                hist[i].mfu for i in TEL_MEDIAN_STEPS),
+                on["mfu"][i] for i in TEL_MEDIAN_STEPS),
             # The profiled steps' device time over an unprofiled step.
             "trace_busy_over_median_off": checks["trace_busy_ms_per_step"]
             / med["off"],
@@ -7167,17 +7261,21 @@ def telemetry_phase(torch, kind, smi) -> dict:
                 f"{TEL_OVERHEAD_TOL}), counted step out of the meter: "
                 f"{counted_out}")
         want = {k: n * TEL_STEPS for k, n in TEL_STEP_LAUNCHES.items()}
-        for j, (r, mode) in enumerate(zip(runs, TEL_ORDER)):
+        for j, (r, mode) in enumerate(zip([on, *runs], ["20a", *order])):
             if r["launches"] != want:
                 raise AssertionError(
-                    f"20{'a' if mode == 'on' else 'b'} (run {j}): launches "
-                    f"{r['launches']} != {want}")
+                    f"20 ({mode} run {j}): launches {r['launches']} != "
+                    f"{want}")
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         telemetry_serve(workdir, kind, smi)
         PHASE_SECONDS["20c"] = time.perf_counter() - t0
     finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
         shutil.rmtree(workdir, ignore_errors=True)
     return {"20a": {flash.kernel_name(k, 128): n
                     for k, n in on["launches"].items()},

@@ -373,6 +373,25 @@ def test_trace_merge_no_inputs_fails_cleanly(tmp_path):
 # ---------------------------------------------------- profiler window
 
 
+def test_profiler_activities_detach_cupti_after_a_capture(monkeypatch):
+    """With a GPU the captures ask kineto to detach CUPTI when they end
+    (an attached CUPTI slowed every later step of a host-bound loop); a
+    caller's own TEARDOWN_CUPTI is kept, and the CPU needs none."""
+    from tpufw_torch.obs.perf import profiler_activities
+
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profiler_activities() == [torch.profiler.ProfilerActivity.CPU]
+    assert "TEARDOWN_CUPTI" not in os.environ
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert profiler_activities() == [torch.profiler.ProfilerActivity.CPU,
+                                     torch.profiler.ProfilerActivity.CUDA]
+    assert os.environ["TEARDOWN_CUPTI"] == "1"
+    monkeypatch.setenv("TEARDOWN_CUPTI", "0")
+    profiler_activities()
+    assert os.environ["TEARDOWN_CUPTI"] == "0"
+
+
 def test_parse_profile_steps():
     assert parse_profile_steps("3:6") == (3, 6)
     assert parse_profile_steps("") is None

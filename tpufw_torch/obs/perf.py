@@ -106,11 +106,16 @@ def resolve_profile_window(
 
 def profiler_activities():
     """``torch.profiler`` activities of this machine: the CPU, and CUDA
-    (CUPTI: every thread's kernels) when a GPU is present."""
+    (CUPTI: every thread's kernels) when a GPU is present. With CUDA,
+    kineto detaches CUPTI when the capture ends (``TEARDOWN_CUPTI``,
+    unless the caller set it): left attached, CUPTI slowed every later
+    step of the host-bound 600m train loop 13-22% on an H100
+    (``scripts/telemetry_overhead_torch.py --turns off:on,off``)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
+        os.environ.setdefault("TEARDOWN_CUPTI", "1")
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     return acts
 
